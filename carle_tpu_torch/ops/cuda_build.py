@@ -1,0 +1,163 @@
+"""Build the hand-written CUDA kernels in ``csrc/`` and bind them by ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
+a shared library of its own with a plain C interface: no PyTorch headers, so
+one source builds in seconds.  The libraries land in
+``build/carle_tpu_torch_kernels/`` beside the package, named by a hash of
+their sources and flags, so an edited source is rebuilt and a built one is
+reused.  :func:`build_all` starts one ``nvcc`` per missing library, all at
+once, and waits for them; the first launch of any kernel calls it.
+
+Nothing here runs at import: the CPU tests import every module, and only a
+launch on a CUDA tensor needs ``nvcc`` and a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "carle_tpu_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+SOURCES = ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+            "carle_tpu_torch build on a machine with the CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library lives: keyed by its sources and flags."""
+    digest = hashlib.sha256()
+    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every library in ``names`` that is not built yet, one nvcc
+    process each, all started together.  Raises with the compiler's output
+    when one fails; writes each build's ``-Xptxas -v`` report (registers,
+    shared memory, spills) beside its library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    jobs = {}
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        jobs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"--- {name} (nvcc exit {proc.returncode})\n{out}")
+            continue
+        paths[name].with_suffix(".log").write_text(out)
+        os.replace(tmp, paths[name])
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building all kernels on first
+    use."""
+    with _LOCK:
+        if name not in _LIBS:
+            paths = build_all()
+            lib = ctypes.CDLL(str(paths[name]))
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+class CudaKernel:
+    """One kernel's C launcher and its count of launches.
+
+    :meth:`launch` adds one to :attr:`launches` after the launcher returned
+    without error, and nowhere else; the launcher's own
+    ``cudaGetLastError()`` after the launch becomes a ``RuntimeError``."""
+
+    def __init__(self, name: str, symbol: str, argtypes) -> None:
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn: Optional[ctypes._CFuncPtr] = None
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            lib = library(self.name)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+        rc = self._fn(*args)
+        if rc != 0:
+            msg = self._lib.cuda_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} ({rc})")
+        self.launches += 1
+
+
+# argtypes mirror the extern "C" launchers in csrc/; every pointer and the
+# stream are c_void_p so ctypes passes them whole
+KERNELS: Dict[str, CudaKernel] = {
+    k.name: k for k in (
+        CudaKernel("ca_step", "ca_step_launch",
+                   [P, P, P, I, P] + [I] * 9 + [P]),
+        CudaKernel("bit_multi_step", "bit_multi_step_launch",
+                   [P, P, I, P, P, I, I, I, I, I, I, P]),
+        CudaKernel("encoder_fwd", "encoder_fwd_launch",
+                   [P] * 6 + [I] * 8 + [LL, I, P]),
+        CudaKernel("ae_loss_fwd", "ae_loss_fwd_launch",
+                   [P] * 12 + [I] * 8 + [LL, I, P]),
+    )
+}
+
+
+def stream_args(t: torch.Tensor):
+    """(device index, raw stream) for a launch beside tensor ``t``."""
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}

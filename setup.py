@@ -61,8 +61,10 @@ setup(
         "TPU-native Cellular Automata Reinforcement Learning Environment "
         "(JAX/XLA/Pallas re-design of the capabilities of riveSunder/carle)"
     ),
-    packages=find_packages(include=["carle_tpu", "carle_tpu.*", "evaluation"]),
-    package_data={"carle_tpu": ["patterns/*.rle", "native/*.so"]},
+    packages=find_packages(include=["carle_tpu", "carle_tpu.*", "evaluation",
+                                    "carle_tpu_torch", "carle_tpu_torch.*"]),
+    package_data={"carle_tpu": ["patterns/*.rle", "native/*.so"],
+                  "carle_tpu_torch": ["csrc/*", "evaluation/*.npz"]},
     ext_modules=_NATIVE,
     cmdclass={"build_ext": build_ctypes},
     install_requires=["jax", "numpy", "optax"],
