@@ -4,7 +4,9 @@ of carle_tpu/checkpoint.py:76-125).
 A JAX checkpoint is a flat ``.npz`` keyed by tree path, e.g.
 ``params/conv1/w`` or ``opt_state/0/mu/dense/b``.  The port's states are
 nested dicts, tuples and NamedTuples with the same paths, so
-:func:`flatten` gives the same keys as ``jax.tree_util`` flattening, and
+:func:`flatten` gives the same keys as ``jax.tree_util`` flattening,
+:func:`save_pytree` writes the file the JAX package writes (same keys, same
+metadata entry: either package reads the other's), and
 :func:`load_pytree` reads a file into the structure of a template state.
 :func:`learner_state_from_numpy` builds a :class:`LearnerState` straight
 from such a flat dict, which is how parameters cross from one package to
@@ -14,6 +16,7 @@ the other.
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -54,6 +57,21 @@ def _rebuild(template: Any, leaves: Mapping[str, Any], prefix: str = "") -> Any:
         return type(template)(_rebuild(v, leaves, sub(i))
                               for i, v in enumerate(template))
     return leaves[prefix]
+
+
+def save_pytree(path: str, tree: Any, compress: bool = False) -> str:
+    """Serialize a state (nested dicts / tuples / NamedTuples of tensors) to
+    ``path``: a flat ``.npz`` keyed by tree path, stamped with the
+    format-version metadata entry.  Saving a whole :class:`LearnerState` keeps
+    Adam's moments, the accumulator and the counters, so training resumes
+    exactly."""
+    arrays: Dict[str, np.ndarray] = {
+        key: leaf.detach().cpu().numpy() for key, leaf in flatten(tree).items()}
+    arrays[_META_KEY] = np.frombuffer(
+        json.dumps({"format_version": FORMAT_VERSION}).encode(), dtype=np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    (np.savez_compressed if compress else np.savez)(path, **arrays)
+    return path
 
 
 def read_npz(path: str) -> Dict[str, np.ndarray]:

@@ -20,3 +20,12 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 static_cast<int>(bytes));
 }
+
+// A kernel launch.  A macro so that a host build can replace it: compiled as
+// plain C++ with a stand-in <cuda_runtime.h> that runs each block with one
+// thread, the kernels' index arithmetic can be checked where there is no
+// card (tests/cuda_emulation/).
+#ifndef KERNEL_LAUNCH
+#define KERNEL_LAUNCH(kernel, grid, block, smem, stream, ...) \
+    kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif

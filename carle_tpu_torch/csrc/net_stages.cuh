@@ -1,0 +1,268 @@
+// The wrapper nets' layers as device functions over bands of rows held in
+// shared memory, shared by the forward kernels (encoder_fwd.cu,
+// ae_loss_fwd.cu) and the backward kernels, which recompute the forward
+// (encoder_bwd.cuh, ae_loss_bwd.cu).
+//
+// A band buffer holds `rows` rows starting at a global row `r0`; rows and
+// columns outside the layer's extent hold the zero padding the next layer
+// reads.  Sums run bias first, then the taps in (channel, dy, dx) order, as
+// the TPU kernels' _conv_block and _deconv_block.  With DROP the
+// pre-activation passes through dropout (philox.cuh) before relu or sigmoid;
+// without it no random number is drawn and the code is the inference path.
+#pragma once
+
+#include "common.cuh"
+#include "philox.cuh"
+
+constexpr int MAXC = 8;  // channel bound for the register arrays
+#define NEG_INF __int_as_float(static_cast<int>(0xff800000u))
+
+// Dropout stages (the counter's stage field).
+constexpr int STAGE_ENC1 = 0, STAGE_ENC2 = 1, STAGE_DEC1 = 2, STAGE_DEC2 = 3;
+
+__device__ __forceinline__ void copy_floats(float* dst, const float* __restrict__ src,
+                                            int count) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    for (int i = tid; i < count; i += nt) dst[i] = src[i];
+}
+
+// Rows [r0, r0 + rows) of a [H, W] plane of cells into xs[rows][W + 2], with a
+// zero column each side and zero rows outside the plane.
+__device__ __forceinline__ void stage_cells(uint8_t* xs, const uint8_t* __restrict__ plane,
+                                            int r0, int rows, int H, int W) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int IW = W + 2;
+    for (int i = tid; i < rows * IW; i += nt) {
+        const int lr = i / IW, lc = i - lr * IW;
+        const int r = r0 + lr, c = lc - 1;
+        xs[i] = (r >= 0 && r < H && c >= 0 && c < W)
+                    ? plane[static_cast<size_t>(r) * W + c]
+                    : 0;
+    }
+}
+
+// The 3x3 neighbourhood of staged cell (local row sr, local column sc).
+__device__ __forceinline__ void cell_taps(const uint8_t* xs, int IW, int sr, int sc,
+                                          float t[9]) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) t[dy * 3 + dx] = xs[(sr + dy - 1) * IW + sc + dx - 1];
+}
+
+// Encoder stage 1: x1s[c][lr][lc] = maxpool_P(relu(drop(conv3x3(cells) + b1)))
+// for XR pooled rows from X0 and pooled columns -1 .. W1 (XW = W1 + 2), zero
+// outside the [H1, W1] extent.  xs holds input rows from I0 (stage_cells).
+template <int P, bool DROP>
+__device__ __forceinline__ void encoder_stage1_band(
+    const uint8_t* xs, int I0, int W, const float* w1s, const float* b1s, int C1,
+    float* x1s, int X0, int XR, int H1, int n, const DropCfg& cfg) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int IW = W + 2, W1 = W / P, XW = W1 + 2;
+    for (int i = tid; i < XR * XW; i += nt) {
+        const int lr = i / XW, lc = i - lr * XW;
+        const int gr = X0 + lr, gc = lc - 1;
+        const bool inside = gr >= 0 && gr < H1 && gc >= 0 && gc < W1;
+        float m[MAXC];
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c) m[c] = NEG_INF;
+        if (inside) {
+            for (int py = 0; py < P; ++py)
+                for (int px = 0; px < P; ++px) {
+                    // input pixel (gr*P+py, gc*P+px) and its 3x3 taps in xs
+                    float t[9];
+                    cell_taps(xs, IW, gr * P + py - I0, gc * P + px + 1, t);
+                    unsigned keep = 0;
+                    if (DROP) keep = drop_keep_bits(cfg, STAGE_ENC1, n, C1, gr * P + py, gc * P + px);
+#pragma unroll
+                    for (int c = 0; c < MAXC; ++c) {
+                        if (c < C1) {
+                            float z = b1s[c];
+#pragma unroll
+                            for (int k = 0; k < 9; ++k) z += w1s[c * 9 + k] * t[k];
+                            if (DROP) z = drop_apply(z, keep, c, cfg.scale);
+                            m[c] = fmaxf(m[c], z);
+                        }
+                    }
+                }
+        }
+#pragma unroll
+        for (int c = 0; c < MAXC; ++c)
+            if (c < C1) x1s[(c * XR + lr) * XW + lc] = inside ? fmaxf(m[c], 0.f) : 0.f;
+    }
+}
+
+// Stage-2 pre-activations conv3x3(x1, w2) + b2 of every output channel at
+// stage-1 position (row sr, column sc, both local to x1s; sc counts the zero
+// column).
+__device__ __forceinline__ void encoder_stage2_preact(const float* x1s, int XR, int XW,
+                                                      int sr, int sc, const float* w2s,
+                                                      const float* b2s, int C1, int C2,
+                                                      float acc[MAXC]) {
+#pragma unroll
+    for (int o = 0; o < MAXC; ++o) acc[o] = o < C2 ? b2s[o] : 0.f;
+    for (int c = 0; c < C1; ++c) {
+        const float* p = x1s + (c * XR + sr) * XW + sc;
+        float t[9];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) t[dy * 3 + dx] = p[(dy - 1) * XW + dx - 1];
+#pragma unroll
+        for (int o = 0; o < MAXC; ++o) {
+            if (o < C2) {
+                const float* w = w2s + (o * C1 + c) * 9;
+#pragma unroll
+                for (int k = 0; k < 9; ++k) acc[o] += w[k] * t[k];
+            }
+        }
+    }
+}
+
+// Encoder stage 2: out[o * out_cs + lr * out_rs + ec] =
+// maxpool_P(relu(drop(conv3x3(x1) + b2))) for ER pooled rows from E0, all We
+// columns.  Rows outside [0, He) are zeroed (ZERO_OUTSIDE) or left alone.
+template <int P, bool DROP, bool ZERO_OUTSIDE>
+__device__ __forceinline__ void encoder_stage2_band(
+    const float* x1s, int X0, int XR, int XW, const float* w2s, const float* b2s,
+    int C1, int C2, float* out, size_t out_cs, int out_rs, int E0, int ER, int He,
+    int We, int n, const DropCfg& cfg) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    for (int i = tid; i < ER * We; i += nt) {
+        const int lr = i / We, ec = i - lr * We;
+        const int gr = E0 + lr;
+        const bool inside = gr >= 0 && gr < He;
+        if (!inside && !ZERO_OUTSIDE) continue;
+        float m[MAXC];
+#pragma unroll
+        for (int o = 0; o < MAXC; ++o) m[o] = NEG_INF;
+        if (inside) {
+            for (int py = 0; py < P; ++py)
+                for (int px = 0; px < P; ++px) {
+                    float acc[MAXC];
+                    encoder_stage2_preact(x1s, XR, XW, gr * P + py - X0, ec * P + px + 1,
+                                          w2s, b2s, C1, C2, acc);
+                    unsigned keep = 0;
+                    if (DROP) keep = drop_keep_bits(cfg, STAGE_ENC2, n, C2, gr * P + py, ec * P + px);
+#pragma unroll
+                    for (int o = 0; o < MAXC; ++o) {
+                        if (DROP) acc[o] = drop_apply(acc[o], keep, o, cfg.scale);
+                        m[o] = fmaxf(m[o], acc[o]);
+                    }
+                }
+        }
+#pragma unroll
+        for (int o = 0; o < MAXC; ++o)
+            if (o < C2) out[o * out_cs + lr * out_rs + ec] = inside ? fmaxf(m[o], 0.f) : 0.f;
+    }
+}
+
+// Transpose convolutions in torch's layout (weights [Cin, Cout, 4, 4], kernel
+// 4, stride 2, padding 1): out[o, y, x] = b[o] + sum_c,ky,kx w[c, o, ky, kx]
+// in[c, iy, ix] with y = 2 iy - 1 + ky, so each output reads 2 x 2 inputs a
+// channel.  `in` holds IR rows from global row I0, all IWD columns.
+__device__ __forceinline__ void deconv_preact(const float* in, int I0, int IR, int IWD,
+                                              const float* wts, const float* bts, int CIN,
+                                              int COUTS, int gy, int gx, float acc[MAXC]) {
+#pragma unroll
+    for (int o = 0; o < MAXC; ++o) acc[o] = o < COUTS ? bts[o] : 0.f;
+    for (int c = 0; c < CIN; ++c)
+        for (int ky = 0; ky < 4; ++ky) {
+            const int ty = gy + 1 - ky;
+            if (ty & 1) continue;
+            const int iy = (ty >> 1) - I0;  // local input row
+            for (int kx = 0; kx < 4; ++kx) {
+                const int tx = gx + 1 - kx;
+                if (tx & 1) continue;
+                const int ix = tx >> 1;
+                if (ix < 0 || ix >= IWD) continue;
+                const float v = in[(c * IR + iy) * IWD + ix];
+#pragma unroll
+                for (int o = 0; o < MAXC; ++o)
+                    if (o < COUTS) acc[o] += wts[((c * COUTS + o) * 4 + ky) * 4 + kx] * v;
+            }
+        }
+}
+
+// Decoder stage 1: ms[m][lr][x] = relu(drop(conv_transpose(emb, wt1) + bt1))
+// for MR rows from M0, zero outside [0, H1).  es holds ER embedding rows from
+// E0 (zero outside the embedding's extent).
+template <bool DROP>
+__device__ __forceinline__ void decoder_stage1_band(
+    const float* es, int E0, int ER, int We, const float* wt1s, const float* bt1s,
+    int C2, int CMID, float* ms, int M0, int MR, int H1, int W1, int n,
+    const DropCfg& cfg) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    for (int i = tid; i < MR * W1; i += nt) {
+        const int lr = i / W1, xm = i - lr * W1;
+        const int gm = M0 + lr;
+        const bool inside = gm >= 0 && gm < H1;
+        float acc[MAXC];
+#pragma unroll
+        for (int o = 0; o < MAXC; ++o) acc[o] = 0.f;
+        if (inside) {
+            deconv_preact(es, E0, ER, We, wt1s, bt1s, C2, CMID, gm, xm, acc);
+            if (DROP) {
+                const unsigned keep = drop_keep_bits(cfg, STAGE_DEC1, n, CMID, gm, xm);
+#pragma unroll
+                for (int o = 0; o < MAXC; ++o) acc[o] = drop_apply(acc[o], keep, o, cfg.scale);
+            }
+        }
+#pragma unroll
+        for (int o = 0; o < MAXC; ++o)
+            if (o < CMID) ms[(o * MR + lr) * W1 + xm] = inside ? fmaxf(acc[o], 0.f) : 0.f;
+    }
+}
+
+// Sums of COUNT values a thread over the block, in a fixed order: warp trees,
+// then the warps in turn; out[j] receives value j's total.  red needs
+// 32 * COUNT floats.  Every thread of the block must call it.
+template <int COUNT>
+__device__ __forceinline__ void block_sums(const float (&v)[COUNT], float* red,
+                                           float* out) {
+    const int tid = threadIdx.x, warps = (blockDim.x + 31) / 32;
+#pragma unroll
+    for (int j = 0; j < COUNT; ++j) {
+        float s = v[j];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+        if ((tid & 31) == 0) red[(tid >> 5) * COUNT + j] = s;
+    }
+    __syncthreads();
+    for (int j = tid; j < COUNT; j += blockDim.x) {
+        float total = 0.f;
+        for (int w = 0; w < warps; ++w) total += red[w * COUNT + j];
+        out[j] = total;
+    }
+    __syncthreads();
+}
+
+// out[k] = sum over rows of partials[row * K + k], one block a column: each
+// thread adds its rows in order, then a tree over the threads; the same
+// order every run, so the gradients do not change from run to run.
+__global__ void column_sums_kernel(const float* __restrict__ partials, int rows, int K,
+                                   float* __restrict__ out) {
+    __shared__ float red[128];
+    const int k = blockIdx.x, tid = threadIdx.x;
+    float s = 0.f;
+    for (int r = tid; r < rows; r += blockDim.x) s += partials[static_cast<size_t>(r) * K + k];
+    red[tid] = s;
+    __syncthreads();
+    for (int half = blockDim.x / 2; half > 0; half >>= 1) {
+        if (tid < half) red[tid] += red[tid + half];
+        __syncthreads();
+    }
+    if (tid == 0) out[k] = red[0];
+}
+
+// Dropout settings from a probability and a 64-bit seed, as
+// ops/cuda_head.py::drop_settings computes them for the plain twin.
+static DropCfg make_drop_cfg(double drop_p, unsigned long long seed) {
+    DropCfg cfg;
+    cfg.key0 = static_cast<uint32_t>(seed & 0xffffffffull);
+    cfg.key1 = static_cast<uint32_t>(seed >> 32);
+    const double keep = (1.0 - drop_p) * 4294967296.0;
+    cfg.keep_below = keep >= 4294967295.0 ? 0xffffffffu : static_cast<uint32_t>(keep);
+    cfg.scale = static_cast<float>(1.0 / (1.0 - drop_p));
+    return cfg;
+}

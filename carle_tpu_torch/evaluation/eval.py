@@ -56,8 +56,8 @@ DEFAULT_RULES = [
 def wrapper_defs(config: EnvConfig, wrappers, per_instance: bool):
     """The frozen WrapperDef of each ``[name, scale, ckpt]`` spec."""
     factory = {
-        "RND2D": lambda s: rnd2d_def(config, reward_scale=s),
-        "AE2D": lambda s: ae2d_def(config, reward_scale=s),
+        "RND2D": lambda s: rnd2d_def(config, reward_scale=s, train=False),
+        "AE2D": lambda s: ae2d_def(config, reward_scale=s, train=False),
         "SpeedDetector": lambda s: speed_def(config, reward_scale=s,
                                              per_instance=per_instance),
         "PufferDetector": lambda s: puffer_def(config, reward_scale=s,

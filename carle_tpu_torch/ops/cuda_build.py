@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd")
+SOURCES = ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd",
+           "encoder_bwd", "ae_loss_bwd")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -51,9 +52,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives: keyed by its sources and flags."""
+    """Where ``name``'s library lives: keyed by its source, every shared
+    header in ``csrc/`` and the flags, so an edited header rebuilds."""
     digest = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
@@ -102,6 +104,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+D, ULL = ctypes.c_double, ctypes.c_ulonglong
 
 
 class CudaKernel:
@@ -141,9 +144,13 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel("bit_multi_step", "bit_multi_step_launch",
                    [P, P, I, P, P, I, I, I, I, I, I, P]),
         CudaKernel("encoder_fwd", "encoder_fwd_launch",
-                   [P] * 6 + [I] * 8 + [LL, I, P]),
+                   [P] * 6 + [I] * 8 + [LL, D, ULL, I, P]),
         CudaKernel("ae_loss_fwd", "ae_loss_fwd_launch",
-                   [P] * 12 + [I] * 8 + [LL, I, P]),
+                   [P] * 12 + [I] * 8 + [LL, D, ULL, I, P]),
+        CudaKernel("encoder_bwd", "encoder_bwd_launch",
+                   [P] * 10 + [I] * 9 + [LL, LL, D, ULL, I, P]),
+        CudaKernel("ae_loss_bwd", "ae_loss_bwd_launch",
+                   [P] * 18 + [I] * 10 + [LL, LL, LL, D, ULL, I, P]),
     )
 }
 

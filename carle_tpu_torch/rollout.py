@@ -4,7 +4,10 @@ carle_tpu/rollout.py:33-122, 294-304).
 The JAX package's ``lax.scan`` becomes a Python loop of eager steps that
 never waits for the device: rewards stay on the device and are stacked at
 the end.  The carry holds one ``torch.Generator`` on the run's device, which
-draws the wrappers' initial parameters, the agent's actions and nothing else.
+draws the wrappers' initial parameters, the agent's actions and the training
+wrappers' plain-PyTorch dropout, and ``drop_seed``, a host counter that
+advances every step: the net kernels' dropout seed (where the JAX carry
+splits a key a step).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ class RolloutCarry(NamedTuple):
     stack: StackState
     agent_params: Any
     generator: torch.Generator
+    drop_seed: int = 0
 
 
 class Rollout:
@@ -46,7 +50,8 @@ class Rollout:
         if agent_params is None and self.agent is not None:
             agent_params = self.agent.init(generator)
         return RolloutCarry(stack=stack, agent_params=agent_params,
-                            generator=generator)
+                            generator=generator,
+                            drop_seed=(generator.initial_seed() & 0x7FFFFFFF) << 24)
 
     def reset(self, carry: RolloutCarry) -> Tuple[RolloutCarry, torch.Tensor]:
         stack, obs = self.stack.reset(carry.stack)
@@ -64,25 +69,27 @@ class Rollout:
         if self.agent is None:
             raise ValueError("rollout has no agent; use run_actions")
         cfg = self.config
-        stack, rewards = carry.stack, []
+        stack, rewards, seed = carry.stack, [], carry.drop_seed
         for _ in range(int(num_steps)):
             obs = self.stack.observe(stack)
             action = self.agent.apply(carry.agent_params, carry.generator, obs)
             patch = action.reshape(cfg.instances, cfg.eff_action_height,
                                    cfg.eff_action_width)
-            stack, (_, reward) = self.stack.step(stack, patch)
+            seed += 1
+            stack, (_, reward) = self.stack.step(stack, patch, seed, carry.generator)
             rewards.append(reward)
-        return carry._replace(stack=stack), self._stack(rewards)
+        return carry._replace(stack=stack, drop_seed=seed), self._stack(rewards)
 
     def run_actions(self, carry: RolloutCarry,
                     actions) -> Tuple[RolloutCarry, torch.Tensor]:
         """Drive a pre-built action stream [steps, inst, AH, AW]."""
         actions = torch.as_tensor(actions, device=self.device)
-        stack, rewards = carry.stack, []
+        stack, rewards, seed = carry.stack, [], carry.drop_seed
         for action in actions:
-            stack, (_, reward) = self.stack.step(stack, action)
+            seed += 1
+            stack, (_, reward) = self.stack.step(stack, action, seed, carry.generator)
             rewards.append(reward)
-        return carry._replace(stack=stack), self._stack(rewards)
+        return carry._replace(stack=stack, drop_seed=seed), self._stack(rewards)
 
     def _stack(self, rewards) -> torch.Tensor:
         if not rewards:

@@ -4,12 +4,15 @@ Run from the repository root:  python3 chip_smoke.py [--report PATH]
 
 Phases, in order; any failure exits non-zero without the final line:
 
-1. build   the four CUDA kernels from carle_tpu_torch/csrc (one nvcc each,
+1. build   the six CUDA kernels from carle_tpu_torch/csrc (one nvcc each,
            all at once) and print the card as nvidia-smi names it;
 2. kernels each kernel against its plain PyTorch twin on the card at the
-           slice's shapes (integer kernels exact, float kernels within the
+           slices' shapes (integer kernels exact, float kernels within the
            stated tolerance), with their times (CUDA events, L2 flushed
-           before every launch) and the least time the card could take;
+           before every launch) and the least time the card could take; the
+           net kernels also with dropout 0.1 (kernel and twin draw the same
+           Philox mask), the drop rate the card draws, and the backward
+           kernels twice for the same bits;
 3. battery the scoring battery's entry points with the shipped checkpoints:
            evaluate_fused_batched (5 rulesets x 32 replicas = 160 universes
            of 256 x 256, 1024 steps) and evaluate_fused (5 x 1024 steps x 1
@@ -17,17 +20,29 @@ Phases, in order; any failure exits non-zero without the final line:
            path on the card and the plain path on the CPU;
 4. server  the port's HTTP server on 127.0.0.1 in a thread: /health, /score
            (64 steps) and /rollout (256 x 256, 256 generations);
-5. profile 64 steps of the batched battery under torch.profiler: device
-           time a step by kernel and the device's busy share;
-6. report  a {"kernels": [...]} line with each kernel's launches on the main
-           path (phases 3 and 4, counted from zero just before each), then
-           the card's name and power limit, then the ok line.
+5. train   train_mcl.train at full width: 64 universes of 256 x 256, the 4
+           training rulesets x 128 steps with both nets learning inside the
+           step (dropout on, 8 Adam updates a learner), the checkpoints read
+           back, a resumed last segment and one mixed-rules segment; then one
+           16-step action stream through the training stack (dropout off,
+           batch_size 4), kernel path on the card vs plain path on the CPU;
+6. profile 64 steps of the batched battery and 64 training steps under
+           torch.profiler: device time a step by kernel and the device's
+           busy share;
+7. report  a {"kernels": [...]} line with each kernel's launches on the main
+           paths (battery, server and train, each counted from zero just
+           before it), then the card's name and power limit, then the ok
+           line.
 
 Tolerances: float kernels vs plain twins rtol 1e-4 / atol 1e-4 (the twins
 run cuDNN in full float32, TF32 off; cuDNN's own algorithms sum in other
 orders); the AE error sums 65,536 squares per universe, so rtol 1e-4.
 Battery rewards, kernel path on the card vs plain path on the CPU: rtol 1e-4,
-atol 1e-5.
+atol 1e-5.  Gradients, kernel vs twin: 1e-4 of each leaf's largest entry (sums
+over 4 million positions in other orders; a pool window whose maxima tie in
+one and differ in the last bit in the other moves one window's share).
+Training rewards through 4 Adam updates, card vs CPU: rtol 2e-3 (Adam divides
+by the gradient's own scale).
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -65,7 +81,18 @@ SOURCES = {
                     "carle_tpu/ops/pallas_head.py:1081"),
     "ae_loss_fwd": ("carle_tpu_torch/csrc/ae_loss_fwd.cu",
                     "carle_tpu/ops/pallas_head.py:1841"),
+    "encoder_bwd": ("carle_tpu_torch/csrc/encoder_bwd.cu",
+                    "carle_tpu/ops/pallas_head.py:1114"),
+    "ae_loss_bwd": ("carle_tpu_torch/csrc/ae_loss_bwd.cu",
+                    "carle_tpu/ops/pallas_head.py:1875"),
 }
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "battery": ("ca_step", "encoder_fwd", "ae_loss_fwd"),
+    "server": ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd"),
+    "train": ("ca_step", "encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd"),
+}
+DROP_P = 0.1
 
 
 def log(msg: str) -> None:
@@ -240,6 +267,133 @@ def phase_kernels(torch, timer, shipped):
         bound_ms=b, bound_by=by, library_ms=None,
         shape="u8 src=obs [160,1,256,256], AE2D (C1=4, C2=2, 1, 1)")
     log(f"ae_loss_fwd ok: {results['ae_loss_fwd']}")
+    results.update(phase_train_kernels(torch, timer, gen))
+    return results
+
+
+def _leaf_errors(got, want):
+    """Largest |difference| of each leaf over that leaf's largest entry."""
+    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def phase_train_kernels(torch, timer, gen):
+    """The backward kernels and the dropout forwards vs their twins at the
+    training path's shapes: 64 universes of 256 x 256, fresh parameters."""
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params
+    from carle_tpu_torch.ops import cuda_head
+
+    dev = torch.device("cuda")
+    n, h, w, seed = 64, 256, 256, 20240229
+    hw = h * w
+    x = (torch.rand((n, 1, h, w), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    x[: n // 4, :, : h // 2] = 0   # blank regions: whole pool windows tie
+    rnd = init_predictor_params(EnvConfig(), gen, dev)
+    ae = init_ae_params(gen, dev)
+    enc_args = (x, rnd["conv1"]["w"], rnd["conv1"]["b"], rnd["conv2"]["w"],
+                rnd["conv2"]["b"])
+    ae_args = (x, *(ae[k][t] for k in ("conv1", "conv2", "deconv1", "deconv2")
+                    for t in ("w", "b")), x)
+    g = torch.randn((n, 1, h // 8, w // 8), generator=gen, device=dev)
+    gbar = torch.randn((n,), generator=gen, device=dev) / (n * hw)
+    results, tol = {}, 1e-4
+
+    # forwards with dropout: agreement needs the same mask in kernel and twin
+    drop = {}
+    got = cuda_head.encoder_fwd(*enc_args, (4, 2), DROP_P, seed)
+    want = cuda_head.encoder_fwd_plain(*enc_args, (4, 2), DROP_P, seed)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    check(not torch.equal(got, cuda_head.encoder_fwd(*enc_args, (4, 2))),
+          "dropout changed nothing in encoder_fwd")
+    drop["encoder_fwd_max_abs_err"] = float((got - want).abs().max())
+    drop["encoder_fwd_ms"] = timer.ms(
+        lambda: cuda_head.encoder_fwd(*enc_args, (4, 2), DROP_P, seed), 20)
+    drop["encoder_fwd_plain_ms"] = timer.ms(
+        lambda: cuda_head.encoder_fwd_plain(*enc_args, (4, 2), DROP_P, seed), 3)
+    got = cuda_head.ae_loss_fwd(*ae_args, (2, 2), DROP_P, seed)
+    want = cuda_head.ae_loss_fwd_plain(*ae_args, (2, 2), DROP_P, seed)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    drop["ae_loss_fwd_max_rel_err"] = float(((got - want).abs() / want.abs()).max())
+    drop["ae_loss_fwd_ms"] = timer.ms(
+        lambda: cuda_head.ae_loss_fwd(*ae_args, (2, 2), DROP_P, seed), 20)
+    drop["ae_loss_fwd_plain_ms"] = timer.ms(
+        lambda: cuda_head.ae_loss_fwd_plain(*ae_args, (2, 2), DROP_P, seed), 3)
+    # the mask the card draws, read off the error: with zero weights and a
+    # last bias of 40 a kept cell reconstructs 1.0 and a dropped cell 0.5, so
+    # against blank cells the error counts the dropped cells exactly
+    zeros = [torch.zeros_like(t) for t in ae_args[1:9]]
+    zeros[7] = zeros[7] + 40.0
+    blank = torch.zeros_like(x)
+    err = cuda_head.ae_loss_fwd(blank, *zeros, blank, (2, 2), DROP_P, seed)
+    dropped = (hw - err.double()) / 0.75
+    keep = cuda_head.philox_keep_mask(seed, cuda_head.STAGE_DEC2, (n, 1, h, w), DROP_P, dev)
+    twin_dropped = (~keep).sum(dim=(1, 2, 3)).double()
+    check(torch.equal(dropped, twin_dropped),
+          f"the card's mask is not the twin's: dropped cells an instance "
+          f"{dropped[:4].tolist()} vs {twin_dropped[:4].tolist()}")
+    rate = float(dropped.sum()) / (n * hw)
+    sigma = math.sqrt(DROP_P * (1 - DROP_P) / (n * hw))
+    check(abs(rate - DROP_P) < 3 * sigma, f"drop rate {rate} is not within 3 sigma "
+          f"({3 * sigma:.2e}) of {DROP_P}")
+    drop["drop_rate"], drop["three_sigma"] = rate, 3 * sigma
+    log(f"dropout ok: {drop}")
+    results["dropout"] = drop
+
+    # encoder_bwd: RND predictor (pools 4,2; C1=4, C2=1)
+    errs = {}
+    for p in (0.0, DROP_P):
+        got = cuda_head.encoder_bwd(*enc_args, g, (4, 2), p, seed)
+        again = cuda_head.encoder_bwd(*enc_args, g, (4, 2), p, seed)
+        want = cuda_head.encoder_bwd_plain(*enc_args, g, (4, 2), p, seed)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "encoder_bwd is not the same bit for bit from run to run")
+        errs[p] = _leaf_errors(got, want)
+        check(max(errs[p]) < tol, f"encoder_bwd (drop {p}) leaves differ: {errs[p]}")
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    c1, c2 = 4, 1
+    s1, s2 = n * hw * c1 * 9, n * (hw // 16) * c2 * c1 * 9   # multiply-adds a stage
+    flops = 2 * ((s1 + s2) + s1 + 2 * s2)   # recompute + dW1 + dW2 and the stage-1 cotangent
+    b, by = bound_ms(n * hw + g.numel() * 4 + 77 * 4, flops, FP32_FLOPS)
+    results["encoder_bwd"] = dict(
+        max_abs_err=abs_err, max_leaf_rel_err=max(errs[DROP_P]),
+        max_leaf_rel_err_no_drop=max(errs[0.0]),
+        ms=timer.ms(lambda: cuda_head.encoder_bwd(*enc_args, g, (4, 2), DROP_P, seed), 10),
+        ms_no_drop=timer.ms(lambda: cuda_head.encoder_bwd(*enc_args, g, (4, 2)), 10),
+        plain_ms=timer.ms(
+            lambda: cuda_head.encoder_bwd_plain(*enc_args, g, (4, 2), DROP_P, seed), 2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape="u8 [64,1,256,256], g [64,1,32,32], RND predictor, drop 0.1")
+    log(f"encoder_bwd ok: {results['encoder_bwd']}")
+
+    # ae_loss_bwd: AE2D (C1=4, C2=2, CMID=1, COUT=1)
+    for p in (0.0, DROP_P):
+        got = cuda_head.ae_loss_bwd(*ae_args, gbar, (2, 2), p, seed)
+        again = cuda_head.ae_loss_bwd(*ae_args, gbar, (2, 2), p, seed)
+        want = cuda_head.ae_loss_bwd_plain(*ae_args, gbar, (2, 2), p, seed)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              "ae_loss_bwd is not the same bit for bit from run to run")
+        errs[p] = _leaf_errors(got, want)
+        check(max(errs[p]) < tol, f"ae_loss_bwd (drop {p}) leaves differ: {errs[p]}")
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    c1, c2, cm, co = 4, 2, 1, 1
+    s1, s2 = n * hw * c1 * 9, n * (hw // 4) * c2 * c1 * 9
+    d1, d2 = n * (hw // 4) * cm * c2 * 4, n * hw * co * cm * 4
+    # forward recompute, then dW of all four layers and the cotangents of
+    # three (the cells take none)
+    flops = 2 * ((s1 + s2 + d1 + d2) + (s1 + s2 + d1 + d2) + (s2 + d1 + d2)) + n * hw * 8
+    b, by = bound_ms(2 * n * hw + n * 4 + 164 * 4, flops, FP32_FLOPS)
+    results["ae_loss_bwd"] = dict(
+        max_abs_err=abs_err, max_leaf_rel_err=max(errs[DROP_P]),
+        max_leaf_rel_err_no_drop=max(errs[0.0]),
+        ms=timer.ms(lambda: cuda_head.ae_loss_bwd(*ae_args, gbar, (2, 2), DROP_P, seed), 10),
+        ms_no_drop=timer.ms(lambda: cuda_head.ae_loss_bwd(*ae_args, gbar, (2, 2)), 10),
+        plain_ms=timer.ms(
+            lambda: cuda_head.ae_loss_bwd_plain(*ae_args, gbar, (2, 2), DROP_P, seed), 2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape="u8 src=obs [64,1,256,256], gbar [64], AE2D, drop 0.1")
+    log(f"ae_loss_bwd ok: {results['ae_loss_bwd']}")
     return results
 
 
@@ -362,13 +516,190 @@ def phase_server(torch, cuda_build):
                     "rollout_latency_s": roll["latency_s"]}
 
 
+def phase_train(torch, cuda_build):
+    """train_mcl.train at full width through its public entry point."""
+    import glob
+
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, train_mcl
+    from carle_tpu_torch.checkpoint import flatten, load_pytree, read_npz
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+
+    n, steps_per_rule = 64, 128
+    cfg = EnvConfig(instances=n)
+    segments = []
+    cuda_build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        hist = train_mcl.train(instances=n, height=256, width=256,
+                               steps=(1, steps_per_rule), batch_size=64, seed=0,
+                               log_dir=os.path.join(tmp, "run"),
+                               segment_callback=segments.append, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = cuda_build.launch_counts()
+        steps = 4 * steps_per_rule
+        check(hist.shape == (steps,) and np.isfinite(hist).all(), "training rewards")
+        models = os.path.join(tmp, "run", "models")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        states = {}
+        for name, make in (("RND2D", rnd2d_def), ("AE2D", ae2d_def)):
+            path = train_mcl._find_checkpoint(models, name)
+            like = make(cfg).init(gen, torch.device("cuda"))
+            states[name] = load_pytree(path, like)
+            check(int(states[name].updates) == steps // 64,
+                  f"{name} reports {int(states[name].updates)} updates, not {steps // 64}")
+            check(int(states[name].buffer_length) == 0, f"{name} accumulator not cleared")
+            stored = read_npz(path)
+            check(all(np.array_equal(t.cpu().numpy(), stored[k])
+                      for k, t in flatten(states[name]).items()),
+                  f"{name} checkpoint does not load back equal")
+            check(all(bool(torch.isfinite(t).all())
+                      for t in flatten(states[name].params).values()),
+                  f"{name} parameters are not finite")
+        first, last = segments[0]["mean_reward"], segments[-1]["mean_reward"]
+        check(last < first, f"the bonus did not fall as the nets learned: mean reward "
+              f"{first:.4e} in the first segment, {last:.4e} in the last")
+        # resume: the last segment only, from the written learner states
+        again = []
+        resumed = train_mcl.train(instances=n, steps=(1, steps_per_rule), batch_size=64,
+                                  seed=1, log_dir=os.path.join(tmp, "again"),
+                                  resume_from=models, skip_segments=3,
+                                  segment_callback=again.append, device="cuda")
+        check(resumed.shape == (steps_per_rule,) and len(again) == 1
+              and np.isfinite(resumed).all(), "resumed segment")
+        rnd2 = load_pytree(train_mcl._find_checkpoint(
+            os.path.join(tmp, "again", "models"), "RND2D"), states["RND2D"])
+        check(int(rnd2.updates) == steps // 64 + steps_per_rule // 64, "resumed updates")
+        t1 = time.perf_counter()
+        mixed = train_mcl.train(instances=n, steps=(1, 64), batch_size=64, seed=2,
+                                mixed_rules=True, log_dir=os.path.join(tmp, "mixed"),
+                                device="cuda")
+        mixed_wall = time.perf_counter() - t1
+        check(mixed.shape == (64,) and np.isfinite(mixed).all(), "mixed-rules segment")
+        check(len(glob.glob(os.path.join(tmp, "*", "metrics", "mcl_rewards_*.npy"))) == 3,
+              "reward histories were not written")
+    e2e = {
+        "universes": n, "steps": steps, "wall_s": wall,
+        "steps_per_s": steps / wall, "universe_steps_per_s": n * steps / wall,
+        "segment_universe_steps_per_s": [s["steps_per_second"] for s in segments],
+        "segment_mean_reward": [s["mean_reward"] for s in segments],
+        "updates": {k: int(v.updates) for k, v in states.items()},
+        "resumed_mean_reward": again[0]["mean_reward"],
+        "mixed_rules_64_steps_s": mixed_wall,
+    }
+    log(f"train ok: {json.dumps(e2e)}")
+    log(f"train launches: {json.dumps(counts)}")
+    return counts, e2e
+
+
+def phase_train_parity(torch):
+    """16 steps of one numpy action stream through the training stack
+    (dropout off, batch_size 4: four Adam updates a learner), kernel path on
+    the card vs plain path on the CPU, from the same initial parameters."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+    from carle_tpu_torch.rollout import Rollout
+
+    cfg = EnvConfig(instances=8)
+    acts = (np.random.RandomState(0).rand(16, *cfg.action_shape) < 0.1).astype(np.float32)
+    kw = dict(train=True, dropout=False, batch_size=4)
+    rewards, wstates = {}, None
+    for device in ("cpu", "cuda"):
+        ro = Rollout(cfg, [rnd2d_def(cfg, **kw), ae2d_def(cfg, **kw)], device=device)
+        carry = ro.init(ro.generator(0), rules.LIFE)
+        if wstates is None:   # the CPU's draw, carried to the card
+            wstates = carry.stack.wrappers
+        else:
+            to_card = lambda t: t.to("cuda") if torch.is_tensor(t) else t
+            moved = tuple(_map_state(ws, to_card) for ws in wstates)
+            carry = carry._replace(stack=carry.stack._replace(wrappers=moved))
+        carry, r = ro.run_actions(carry, torch.from_numpy(acts))
+        check(all(int(ws.updates) == 4 for ws in carry.stack.wrappers), "parity updates")
+        rewards[device] = r.cpu()
+    torch.testing.assert_close(rewards["cuda"], rewards["cpu"], rtol=2e-3, atol=0)
+    diff = float(((rewards["cuda"] - rewards["cpu"]).abs() / rewards["cpu"].abs()).max())
+    log(f"training stack kernel path (cuda) vs plain path (cpu), 16 steps through 4 "
+        f"updates: max rel diff {diff}")
+    return diff
+
+
+def _map_state(state, fn):
+    """``fn`` over every leaf of a learner state (NamedTuple of dicts/tuples)."""
+    if isinstance(state, dict):
+        return {k: _map_state(v, fn) for k, v in state.items()}
+    if hasattr(state, "_fields"):
+        return type(state)(*(_map_state(v, fn) for v in state))
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_state(v, fn) for v in state)
+    return fn(state)
+
+
+def _profile_steps(torch, ro, carry, steps, universes):
+    """``steps`` steps unprofiled (wall, and the host's time to queue them)
+    and again under torch.profiler: device time a step by kernel and the
+    device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    carry, _ = ro.run(carry, 16)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, _ = ro.run(carry, steps)
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        carry, _ = ro.run(carry, steps)
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    # kernels only: an aten op's entry repeats the device time of its kernels
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
+    top = sorted(events, key=device_us, reverse=True)[:14]
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+    return {
+        "steps": steps, "universes": universes, "wall_ms_per_step": wall_ms,
+        "host_queue_ms_per_step": host_ms, "device_ms_per_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
+        "device_launches_per_step": sum(e.count for e in events) / steps,
+        "top_device_us_per_step": [
+            {"name": e.key[:60], "us": device_us(e) / steps,
+             "calls_per_step": e.count / steps} for e in top],
+        # the host's own time in each operation, under the profiler
+        "top_host_us_per_step": [
+            {"name": e.key[:40], "us": e.self_cpu_time_total / steps,
+             "calls_per_step": e.count / steps} for e in host],
+    }
+
+
+def phase_profile_train(torch, steps: int = 64):
+    """Where a training step's time goes: 64 universes, both nets learning,
+    dropout on, Life."""
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+    from carle_tpu_torch.rollout import Rollout
+
+    cfg = EnvConfig(instances=64)
+    ro = Rollout(cfg, [rnd2d_def(cfg), ae2d_def(cfg)], make_random_agent(64, 64, 0.1),
+                 device="cuda")
+    carry = ro.init(ro.generator(0), rules.LIFE)
+    return _profile_steps(torch, ro, carry, steps, 64)
+
+
 def phase_profile(torch, steps: int = 64):
     """Where a battery step's time goes: ``steps`` steps of the batched
     battery (160 universes) under torch.profiler, beside the same steps
     unprofiled.  Returns device time a step by kernel and the device's busy
     share of the unprofiled wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from carle_tpu_torch import EnvConfig
     from carle_tpu_torch.agents import make_random_agent
     from carle_tpu_torch.evaluation import eval as ev
@@ -384,32 +715,7 @@ def phase_profile(torch, steps: int = 64):
     bits = [ev.battery_rule_bits(rs, True) for rs in ev.DEFAULT_RULES] * 32
     carry = ro.with_rules(carry, torch.tensor(bits, dtype=torch.int32))
     carry, _ = ro.reset(carry)
-    carry, _ = ro.run(carry, 16)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    carry, _ = ro.run(carry, steps)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        carry, _ = ro.run(carry, steps)
-        torch.cuda.synchronize()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    # kernels only: an aten op's entry repeats the device time of its kernels
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in events) / 1e3 / steps
-    top = sorted(events, key=device_us, reverse=True)[:12]
-    return {
-        "steps": steps, "universes": 160, "wall_ms_per_step": wall_ms,
-        "device_ms_per_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
-        "top_device_us_per_step": [
-            {"name": e.key[:60], "us": device_us(e) / steps,
-             "calls_per_step": e.count / steps} for e in top],
-    }
+    return _profile_steps(torch, ro, carry, steps, 160)
 
 
 def main() -> int:
@@ -447,16 +753,21 @@ def main() -> int:
         battery_counts, e2e = phase_battery(torch, cuda_build)
         parity_diff = phase_parity(torch)
         server_counts, server = phase_server(torch, cuda_build)
+        train_counts, train = phase_train(torch, cuda_build)
+        train_parity_diff = phase_train_parity(torch)
         profile = phase_profile(torch)
         log(f"profile: {json.dumps(profile)}")
+        profile_train = phase_profile_train(torch)
+        log(f"profile (training): {json.dumps(profile_train)}")
     except Exception:  # report the failing phase and exit non-zero
         traceback.print_exc()
         log("FAIL: see the traceback above")
         return 1
 
-    battery_kernels = ("ca_step", "encoder_fwd", "ae_loss_fwd")
-    missing = [k for k in battery_kernels if battery_counts[k] == 0]
-    missing += [k for k in SOURCES if server_counts[k] == 0]
+    path_counts = {"battery": battery_counts, "server": server_counts,
+                   "train": train_counts}
+    missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
+               for k in needed if path_counts[path][k] == 0]
     if missing:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
@@ -465,25 +776,28 @@ def main() -> int:
         r = results[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": battery_counts[name] + server_counts[name],
+            "launches": sum(c[name] for c in path_counts.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
     report = {
         "card": card, "build_s": build_s, "kernels": kernels,
-        "kernel_shapes": {k: results[k]["shape"] for k in results},
-        "launches": {"battery": battery_counts, "server": server_counts},
+        "kernel_shapes": {k: results[k]["shape"] for k in SOURCES},
+        "kernel_details": {k: results[k] for k in SOURCES},
+        "launches": path_counts,
         "e2e": e2e, "server": server, "run_actions_max_abs_diff": parity_diff,
-        "profile": profile,
+        "train": train, "train_parity_max_rel_diff": train_parity_diff,
+        "dropout": results["dropout"],
+        "profile": profile, "profile_train": profile_train,
         "total_s": time.perf_counter() - t_start,
     }
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
-    log(json.dumps({k: report[k] for k in ("launches", "e2e", "server",
-                                           "profile", "total_s")}))
+    log(json.dumps({k: report[k] for k in ("launches", "e2e", "server", "train",
+                                           "total_s")}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

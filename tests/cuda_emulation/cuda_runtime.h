@@ -1,0 +1,55 @@
+// Stand-in for <cuda_runtime.h>: compiles the kernels as plain C++ and runs
+// every block with ONE thread (blockDim = 1), so __syncthreads() is a no-op
+// and the kernels' index arithmetic can be checked where there is no card.
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <cstddef>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+
+struct dim3 {
+    unsigned x, y, z;
+    dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+static dim3 blockIdx, threadIdx(0, 0, 0), blockDim(1, 1, 1), gridDim;
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t e) { return e ? "invalid value" : "ok"; }
+template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
+
+inline void __syncthreads() {}
+inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other lane
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+    return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
+}
+using std::min;
+using std::max;
+
+alignas(16) float smem[64 * 1024];  // 256 KB of "shared memory"
+
+#define KERNEL_LAUNCH(kernel, grid, block, smem_bytes, stream, ...)          \
+    do {                                                                     \
+        const dim3 g_ = dim3(grid);                                          \
+        gridDim = g_;                                                        \
+        if (static_cast<size_t>(smem_bytes) > sizeof(::smem)) return 1;        \
+        for (unsigned bz = 0; bz < g_.z; ++bz)                               \
+            for (unsigned by = 0; by < g_.y; ++by)                           \
+                for (unsigned bx = 0; bx < g_.x; ++bx) {                     \
+                    blockIdx = dim3(bx, by, bz);                             \
+                    std::memset(::smem, 0xff, smem_bytes); /* NaN poison */    \
+                    kernel(__VA_ARGS__);                                     \
+                }                                                            \
+    } while (0)

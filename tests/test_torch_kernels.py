@@ -1,4 +1,4 @@
-"""The four CUDA kernels of carle_tpu_torch against their plain twins.
+"""The six CUDA kernels of carle_tpu_torch against their plain twins.
 
 These tests need an NVIDIA card and the CUDA toolkit; without a card they
 skip.  They import neither JAX nor carle_tpu, so they also run where JAX is
@@ -8,8 +8,10 @@ not installed:
 
 Integer kernels must equal their twins exactly; float kernels agree within
 rtol/atol 1e-4 (the twins run cuDNN in full float32, TF32 off, summing in
-other orders); the AE error must also be bit-for-bit repeatable.  The
-non-kernel checks at the end run everywhere.
+other orders); the AE error must also be bit-for-bit repeatable.  Gradients
+agree within 1e-4 of each leaf's largest entry and are bit-for-bit repeatable;
+with dropout the kernels and the twins draw the same Philox mask, or nothing
+would agree.  The non-kernel checks at the end run everywhere.
 """
 
 import numpy as np
@@ -103,6 +105,80 @@ def test_ae_loss_kernel_matches_plain(cuda, shape):
     assert torch.equal(got, cuda_head.ae_loss_fwd(x, *ps, x))  # fixed-order sums
     torch.testing.assert_close(got, cuda_head.ae_loss_fwd_plain(x, *ps, x),
                                rtol=1e-4, atol=1e-4)
+
+
+def _assert_leaves_close(got, want, tol=1e-4):
+    for a, b in zip(got, want):
+        scale = float(b.abs().max()) or 1.0
+        torch.testing.assert_close(a / scale, b / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("pools,c1,c2,shape", [
+    ((4, 2), 4, 1, (8, 256, 256)),    # RND predictor
+    ((2, 2), 4, 2, (8, 256, 256)),    # AE encoder
+    ((2, 2), 5, 3, (3, 24, 40)),      # ragged bands, two Philox groups
+    ((4, 4), 2, 2, (2, 80, 32)),
+])
+def test_encoder_dropout_and_backward_kernels_match_plain(cuda, pools, c1, c2, shape,
+                                                          drop_p):
+    n, h, w = shape
+    rng = np.random.RandomState(n * h + c1)
+    x = torch.from_numpy(_soup(n, (n, 1, h, w), 0.3)).to(cuda)
+    x[0, 0, : h // 2] = 0   # a blank band: whole pool windows tie
+    ps = [p.to(cuda) for p in _params(rng, [(c1, 1, 3, 3), (c1,), (c2, c1, 3, 3), (c2,)])]
+    ps[1] = ps[1].abs()
+    g = torch.from_numpy(rng.randn(n, c2, h // (pools[0] * pools[1]),
+                                   w // (pools[0] * pools[1])).astype(np.float32)).to(cuda)
+    seed = 1234567891011 + h
+    got = cuda_head.encoder_fwd(x, *ps, pools, drop_p, seed)
+    torch.testing.assert_close(got, cuda_head.encoder_fwd_plain(x, *ps, pools, drop_p, seed),
+                               rtol=1e-4, atol=1e-4)
+    before = cuda_head.ENCODER_BWD.launches
+    grads = cuda_head.encoder_bwd(x, *ps, g, pools, drop_p, seed)
+    assert cuda_head.ENCODER_BWD.launches == before + 1
+    again = cuda_head.encoder_bwd(x, *ps, g, pools, drop_p, seed)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # fixed-order sums
+    _assert_leaves_close(grads, cuda_head.encoder_bwd_plain(x, *ps, g, pools, drop_p, seed))
+    # through autograd: the Function's backward is the kernel
+    leaves = [p.clone().requires_grad_(True) for p in ps]
+    out = cuda_head.encoder(x, *leaves, pools, drop_p, seed)
+    auto = torch.autograd.grad((out * g).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("shape,chans", [((8, 256, 256), (4, 2, 1, 1)),
+                                         ((3, 24, 40), (4, 2, 1, 1)),
+                                         ((2, 16, 48), (3, 2, 2, 2)),
+                                         ((1, 72, 16), (5, 2, 1, 1))])
+def test_ae_loss_dropout_and_backward_kernels_match_plain(cuda, shape, chans, drop_p):
+    n, h, w = shape
+    c1, c2, cm, co = chans
+    rng = np.random.RandomState(n * h)
+    src = torch.from_numpy(_soup(n, (n, 1, h, w), 0.3)).to(cuda)
+    src[0, 0, : h // 2] = 0
+    obs = torch.from_numpy(_soup(n + 1, (n, co, h, w), 0.3)).to(cuda)
+    ps = [p.to(cuda) for p in _params(rng, [(c1, 1, 3, 3), (c1,), (c2, c1, 3, 3), (c2,),
+                                            (c2, cm, 4, 4), (cm,), (cm, co, 4, 4), (co,)])]
+    ps[1] = ps[1].abs()
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    seed = 987654321012345 + w
+    got = cuda_head.ae_loss_fwd(src, *ps, obs, (2, 2), drop_p, seed)
+    torch.testing.assert_close(
+        got, cuda_head.ae_loss_fwd_plain(src, *ps, obs, (2, 2), drop_p, seed),
+        rtol=1e-4, atol=1e-4)
+    grads = cuda_head.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), drop_p, seed)
+    again = cuda_head.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), drop_p, seed)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    _assert_leaves_close(grads, cuda_head.ae_loss_bwd_plain(src, *ps, obs, gbar, (2, 2),
+                                                           drop_p, seed))
+    leaves = [p.clone().requires_grad_(True) for p in ps]
+    err = cuda_head.ae_loss(src, *leaves, obs, (2, 2), drop_p, seed)
+    auto = torch.autograd.grad((err * gbar).sum(), leaves)
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
 
 
 @pytest.mark.cuda

@@ -65,7 +65,7 @@ def _stacks(h, w, ah, aw, n, per_instance=False, growth_threshold=512,
     if nets:
         jdefs += [jrnd2d_def(jcfg, 1.0, train=False),
                   jae2d_def(jcfg, 1.0, train=False)]
-        tdefs += [rnd2d_def(cfg, 1.0), ae2d_def(cfg, 1.0)]
+        tdefs += [rnd2d_def(cfg, 1.0, train=False), ae2d_def(cfg, 1.0, train=False)]
     jdefs += [jspeed_def(jcfg, 1e-2, per_instance=per_instance),
               jpuffer_def(jcfg, 1e-3, growth_threshold=growth_threshold,
                           per_instance=per_instance)]
