@@ -9,8 +9,9 @@ nested dicts, tuples and NamedTuples with the same paths, so
 metadata entry: either package reads the other's), and
 :func:`load_pytree` reads a file into the structure of a template state.
 :func:`learner_state_from_numpy` builds a :class:`LearnerState` straight
-from such a flat dict, which is how parameters cross from one package to
-the other.
+from such a flat dict (a Prediction/Surprise state's frame ring included) and
+:func:`state_from_numpy` any other wrapper state, which is how parameters
+cross from one package to the other.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from .mcl._online import LearnerState
+from .mcl.prediction import FrameBuffer
 
 FORMAT_VERSION = 1
 _META_KEY = "__checkpoint_meta__"
@@ -118,18 +120,33 @@ def _nest(flat: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
     return out
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """Float leaves become float32 tensors, uint8 (cells, frames) and bool
+    leaves keep their type, other integer leaves become int32."""
+    a = np.asarray(a)
+    if a.dtype in (np.uint8, np.bool_):
+        dtype = torch.uint8 if a.dtype == np.uint8 else torch.bool
+    else:
+        dtype = torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def state_from_numpy(flat: Mapping[str, np.ndarray], like: Any, device) -> Any:
+    """A flat dict of numpy arrays keyed by tree path into the structure of
+    the template state ``like`` (a CornerState, a MorphoState, ...), on
+    ``device``; shapes follow the arrays, not the template."""
+    leaves = {k: _tensor(v, device) for k, v in flat.items() if k != _META_KEY}
+    return _rebuild(like, leaves)
+
+
 def learner_state_from_numpy(flat: Mapping[str, np.ndarray],
                              device) -> LearnerState:
     """The JAX package's learner state, as a flat dict of numpy arrays (what
     ``np.load`` of its ``.npz`` or ``jax.tree_util`` flattening gives), as
-    the port's :class:`LearnerState` on ``device``.  Float leaves become
-    float32 tensors, integer leaves int32."""
-    def tensor(a):
-        a = np.asarray(a)
-        dtype = torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32
-        return torch.tensor(a, dtype=dtype, device=device)
-
-    t = {k: tensor(v) for k, v in flat.items() if k != _META_KEY}
+    the port's :class:`LearnerState` on ``device``.  A Prediction/Surprise
+    state's frame ring (``extra/frames``, ``extra/count``) becomes a
+    :class:`FrameBuffer`."""
+    t = {k: _tensor(v, device) for k, v in flat.items() if k != _META_KEY}
     adam = _nest(t, "opt_state")["0"]
     return LearnerState(
         reward_scale=t["reward_scale"],
@@ -141,5 +158,6 @@ def learner_state_from_numpy(flat: Mapping[str, np.ndarray],
         grad_accum=_nest(t, "grad_accum"),
         buffer_length=t["buffer_length"],
         updates=t["updates"],
-        extra=(),
+        extra=(FrameBuffer(frames=t["extra/frames"], count=t["extra/count"])
+               if "extra/frames" in t else ()),
     )

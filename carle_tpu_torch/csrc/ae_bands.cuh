@@ -1,6 +1,8 @@
 // The autoencoder's forward up to the decoder's middle activation, for one
 // band of output rows, in shared memory: shared by ae_loss_fwd.cu and the
-// decoder backward of ae_loss_bwd.cu, which recomputes it.
+// decoder backward of ae_loss_bwd.cu, which recomputes it.  The decoder-only
+// kernels (decoder_loss_fwd.cu, decoder_loss_bwd.cu) use the same layout with
+// C1 = 0 (no encoder buffers) and read the embedding from device memory.
 //
 // A band of RY output rows [Y0, Y0 + RY) needs the decoder's middle rows
 // [Y0/2 - 1, Y0/2 + RY/2 + 1), the embedding rows [Y0/4 - 1, Y0/4 + RY/4 + 1),
@@ -90,4 +92,69 @@ __device__ __forceinline__ void ae_band_forward(
     decoder_stage1_band<DROP>(b.es, b.E0, b.ER, We, b.wt1s, b.bt1s, C2, CMID, b.ms, b.M0,
                               b.MR, H1, W1, n, cfg);
     __syncthreads();
+}
+
+// The decoder-only band: loads the decoder's weights, stages the band's
+// embedding rows from device memory (emb: instance n's [C2, H/4, W/4]) and
+// fills ms.  Ends with a __syncthreads().
+template <bool DROP>
+__device__ __forceinline__ void decoder_band_forward(
+    const AEBand& b, const float* __restrict__ emb, const float* __restrict__ wt1,
+    const float* __restrict__ bt1, const float* __restrict__ wt2,
+    const float* __restrict__ bt2, const AEShape& sh, int n, const DropCfg& cfg) {
+    const int C2 = sh.C2, CMID = sh.CMID, COUT = sh.COUT;
+    copy_floats(b.wt1s, wt1, C2 * CMID * 16);
+    copy_floats(b.bt1s, bt1, CMID);
+    copy_floats(b.wt2s, wt2, CMID * COUT * 16);
+    copy_floats(b.bt2s, bt2, COUT);
+    stage_planes<float, 0>(b.es, emb, C2, b.E0, b.ER, sh.H / 4, sh.W / 4);
+    __syncthreads();
+    decoder_stage1_band<DROP>(b.es, b.E0, b.ER, sh.W / 4, b.wt1s, b.bt1s, C2, CMID, b.ms,
+                              b.M0, b.MR, sh.H / 2, sh.W / 2, n, cfg);
+    __syncthreads();
+}
+
+// Decoder stage 2 (transpose conv + sigmoid) on the band's RY output rows and
+// the squared error against obs [N, COUT, H, W] (cells or floats); the block's
+// sum, in a fixed order (warp trees, then the warps in turn), goes to
+// partials[n][band].  red needs 32 floats.  (The addresses are formed where
+// they are used: a pointer held across the loop costs the inference kernel
+// its fourth block a multiprocessor.)
+template <bool DROP, typename OBS>
+__device__ __forceinline__ void decoder_stage2_error(const AEBand& b, float* red,
+                                                     const OBS* __restrict__ obs,
+                                                     const AEShape& sh, int Y0, int n,
+                                                     const DropCfg& cfg,
+                                                     float* __restrict__ partials) {
+    const int H = sh.H, W = sh.W, COUT = sh.COUT, RY = sh.RY;
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const OBS* on = obs + static_cast<size_t>(n) * COUT * H * W;
+    float part = 0.f;
+    for (int i = tid; i < RY * W; i += nt) {
+        const int lr = i / W, xo = i - lr * W;
+        const int gy = Y0 + lr;
+        if (gy >= H) continue;
+        float acc[MAXC];
+        deconv_preact(b.ms, b.M0, b.MR, W / 2, b.wt2s, b.bt2s, sh.CMID, COUT, gy, xo, acc);
+        unsigned keep = 0;
+        if (DROP) keep = drop_keep_bits(cfg, STAGE_DEC2, n, COUT, gy, xo);
+#pragma unroll
+        for (int o = 0; o < MAXC; ++o) {
+            if (o < COUT) {
+                const float r = DROP ? drop_apply(acc[o], keep, o, cfg.scale) : acc[o];
+                const float y = 1.f / (1.f + expf(-r));
+                const float d = static_cast<float>(on[(static_cast<size_t>(o) * H + gy) * W + xo]) - y;
+                part += d * d;
+            }
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
+    if ((tid & 31) == 0) red[tid >> 5] = part;
+    __syncthreads();
+    if (tid == 0) {
+        float s = 0.f;
+        for (int w = 0; w < (nt + 31) / 32; ++w) s += red[w];
+        partials[static_cast<size_t>(n) * gridDim.x + blockIdx.x] = s;
+    }
 }

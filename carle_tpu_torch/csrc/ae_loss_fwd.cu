@@ -36,10 +36,8 @@ __global__ void ae_loss_fwd_kernel(
     const float* __restrict__ wt1, const float* __restrict__ bt1,
     const float* __restrict__ wt2, const float* __restrict__ bt2,
     float* __restrict__ partials, AEShape sh, DropCfg cfg) {
-    const int H = sh.H, W = sh.W, COUT = sh.COUT, RY = sh.RY;
     const int n = blockIdx.y;
-    const int band = blockIdx.x;
-    const int Y0 = band * RY;
+    const int Y0 = blockIdx.x * sh.RY;
 
     extern __shared__ float smem[];
     AEBand b = ae_band_layout(smem, sh, Y0);
@@ -48,47 +46,7 @@ __global__ void ae_loss_fwd_kernel(
     ae_band_forward<DROP>(b, xs, src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, sh, n, cfg);
 
     // decoder stage 2 (transpose conv + sigmoid) and the squared error
-    const int tid = threadIdx.x, nt = blockDim.x;
-    const uint8_t* on = obs + static_cast<size_t>(n) * COUT * H * W;
-    float part = 0.f;
-    for (int i = tid; i < RY * W; i += nt) {
-        const int lr = i / W, xo = i - lr * W;
-        const int gy = Y0 + lr;
-        if (gy >= H) continue;
-        float acc[MAXC];
-        deconv_preact(b.ms, b.M0, b.MR, W / 2, b.wt2s, b.bt2s, sh.CMID, COUT, gy, xo, acc);
-        unsigned keep = 0;
-        if (DROP) keep = drop_keep_bits(cfg, STAGE_DEC2, n, COUT, gy, xo);
-#pragma unroll
-        for (int o = 0; o < MAXC; ++o) {
-            if (o < COUT) {
-                const float r = DROP ? drop_apply(acc[o], keep, o, cfg.scale) : acc[o];
-                const float y = 1.f / (1.f + expf(-r));
-                const float d = static_cast<float>(on[(static_cast<size_t>(o) * H + gy) * W + xo]) - y;
-                part += d * d;
-            }
-        }
-    }
-
-    // block sum in a fixed order: warp trees, then the warps in turn
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
-    if ((tid & 31) == 0) red[tid >> 5] = part;
-    __syncthreads();
-    if (tid == 0) {
-        float s = 0.f;
-        for (int w = 0; w < (nt + 31) / 32; ++w) s += red[w];
-        partials[static_cast<size_t>(n) * gridDim.x + band] = s;
-    }
-}
-
-__global__ void ae_loss_reduce(const float* __restrict__ partials, int bands,
-                               float* __restrict__ err, int N) {
-    for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N; n += gridDim.x * blockDim.x) {
-        float s = 0.f;
-        for (int b = 0; b < bands; ++b) s += partials[static_cast<size_t>(n) * bands + b];
-        err[n] = s;
-    }
+    decoder_stage2_error<DROP>(b, red, obs, sh, Y0, n, cfg, partials);
 }
 
 template <bool DROP>
@@ -133,7 +91,7 @@ extern "C" int ae_loss_fwd_launch(const void* src, const void* obs, const void* 
         ? launch_as<true>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s)
         : launch_as<false>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
     if (rc != 0) return rc;
-    KERNEL_LAUNCH(ae_loss_reduce, (N + 127) / 128, 128, 0, s,
+    KERNEL_LAUNCH(row_sums_kernel, (N + 127) / 128, 128, 0, s,
                   static_cast<const float*>(partials), bands, static_cast<float*>(err), N);
     return static_cast<int>(cudaGetLastError());
 }

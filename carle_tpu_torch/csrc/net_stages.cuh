@@ -1,7 +1,8 @@
 // The wrapper nets' layers as device functions over bands of rows held in
 // shared memory, shared by the forward kernels (encoder_fwd.cu,
-// ae_loss_fwd.cu) and the backward kernels, which recompute the forward
-// (encoder_bwd.cuh, ae_loss_bwd.cu).
+// ae_loss_fwd.cu, head_fwd.cu, tail.cu, decoder_loss_fwd.cu) and the backward
+// kernels, which recompute the forward (encoder_bwd.cuh, decoder_bwd.cuh,
+// head_bwd.cu, tail.cu).
 //
 // A band buffer holds `rows` rows starting at a global row `r0`; rows and
 // columns outside the layer's extent hold the zero padding the next layer
@@ -38,6 +39,24 @@ __device__ __forceinline__ void stage_cells(uint8_t* xs, const uint8_t* __restri
         xs[i] = (r >= 0 && r < H && c >= 0 && c < W)
                     ? plane[static_cast<size_t>(r) * W + c]
                     : 0;
+    }
+}
+
+// Rows [r0, r0 + rows) of C planes [H, W] (floats or cells) into
+// dst[c][rows][W + 2 PAD] as floats, with PAD zero columns each side and zero
+// rows outside the planes.
+template <typename T, int PAD>
+__device__ __forceinline__ void stage_planes(float* dst, const T* __restrict__ planes, int C,
+                                             int r0, int rows, int H, int W) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int SW = W + 2 * PAD, per = rows * SW;
+    for (int i = tid; i < C * per; i += nt) {
+        const int c = i / per, rem = i - c * per;
+        const int lr = rem / SW, lc = rem - lr * SW;
+        const int r = r0 + lr, col = lc - PAD;
+        dst[i] = (r >= 0 && r < H && col >= 0 && col < W)
+                     ? static_cast<float>(planes[(static_cast<size_t>(c) * H + r) * W + col])
+                     : 0.f;
     }
 }
 
@@ -253,6 +272,50 @@ __global__ void column_sums_kernel(const float* __restrict__ partials, int rows,
         __syncthreads();
     }
     if (tid == 0) out[k] = red[0];
+}
+
+// out[n] = sum over a row of partials [N, K], in order: the per-instance
+// error from its bands' partial sums.
+__global__ void row_sums_kernel(const float* __restrict__ partials, int K,
+                                float* __restrict__ out, int N) {
+    for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N; n += gridDim.x * blockDim.x) {
+        float s = 0.f;
+        for (int b = 0; b < K; ++b) s += partials[static_cast<size_t>(n) * K + b];
+        out[n] = s;
+    }
+}
+
+// The input cotangent of a transpose convolution (k4, s2, p1):
+// gin[n, c, iy, ix] = sum_m,ky,kx wt[c, m, ky, kx] gout[n, m, 2 iy - 1 + ky,
+// 2 ix - 1 + kx], gout [N, CM, HO, WO], gin [N, CI, HO / 2, WO / 2]; one
+// thread an element.
+__global__ void deconv_input_grad_kernel(const float* __restrict__ gout,
+                                         const float* __restrict__ wt,
+                                         float* __restrict__ gin, int N, int HO, int WO,
+                                         int CI, int CM) {
+    const int Hi = HO / 2, Wi = WO / 2;
+    const size_t total = static_cast<size_t>(N) * CI * Hi * Wi;
+    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const int ix = static_cast<int>(i % Wi);
+        const int iy = static_cast<int>((i / Wi) % Hi);
+        const int c = static_cast<int>((i / (static_cast<size_t>(Wi) * Hi)) % CI);
+        const int n = static_cast<int>(i / (static_cast<size_t>(Wi) * Hi * CI));
+        float s = 0.f;
+        for (int m = 0; m < CM; ++m) {
+            const float* gp = gout + (static_cast<size_t>(n) * CM + m) * HO * WO;
+            const float* wp = wt + (c * CM + m) * 16;
+            for (int ky = 0; ky < 4; ++ky) {
+                const int yr = 2 * iy - 1 + ky;
+                if (yr < 0 || yr >= HO) continue;
+                for (int kx = 0; kx < 4; ++kx) {
+                    const int xc = 2 * ix - 1 + kx;
+                    if (xc >= 0 && xc < WO) s += wp[ky * 4 + kx] * gp[static_cast<size_t>(yr) * WO + xc];
+                }
+            }
+        }
+        gin[i] = s;
+    }
 }
 
 // Dropout settings from a probability and a 64-bit seed, as

@@ -31,7 +31,8 @@ from ..agents import Agent as FnAgent, make_random_agent
 from ..checkpoint import load_pytree
 from ..config import EnvConfig
 from ..device import DeviceLike, resolve_device
-from ..mcl import ae2d_def, puffer_def, rnd2d_def, speed_def
+from ..mcl import (ae2d_def, corner_def, morpho_def, parsimony_def, prediction_def,
+                   puffer_def, rnd2d_def, speed_def, surprise_def)
 from ..rollout import Rollout
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +59,11 @@ def wrapper_defs(config: EnvConfig, wrappers, per_instance: bool):
     factory = {
         "RND2D": lambda s: rnd2d_def(config, reward_scale=s, train=False),
         "AE2D": lambda s: ae2d_def(config, reward_scale=s, train=False),
+        "PredictionBonus": lambda s: prediction_def(config, reward_scale=s, train=False),
+        "SurpriseBonus": lambda s: surprise_def(config, reward_scale=s, train=False),
+        "MorphoBonus": lambda s: morpho_def(config, reward_scale=s),
+        "CornerBonus": lambda s: corner_def(config, reward_scale=s),
+        "ParsimonyBonus": lambda s: parsimony_def(reward_scale=s),
         "SpeedDetector": lambda s: speed_def(config, reward_scale=s,
                                              per_instance=per_instance),
         "PufferDetector": lambda s: puffer_def(config, reward_scale=s,

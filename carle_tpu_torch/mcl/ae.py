@@ -1,13 +1,17 @@
 """AE2D — autoencoder reconstruction bonus (counterpart of
-carle_tpu/mcl/ae.py, its whole-AE branch).
+carle_tpu/mcl/ae.py, its fused branches).
 
   Conv2d(1,4,3,p1) Drop ReLU Pool Conv2d(4,2,3,p1) Drop ReLU Pool
   ConvT(2,1,4,p1,s2) Drop ReLU ConvT(1,1,4,p1,s2) Drop Sigmoid
 
-The whole autoencoder, its dropout and its squared error run as one
-``ae_loss_fwd`` kernel on the card (pools (2, 2)) and all eight parameter
-gradients as ``ae_loss_bwd``; the bonus is the per-instance mean over C, H, W.
-Same online-learning loop as RND2D (mcl/_online.py).
+By default the whole autoencoder, its dropout and its squared error run as
+one ``ae_loss_fwd`` kernel on the card (pools (2, 2)) and all eight parameter
+gradients as ``ae_loss_bwd``.  ``whole_ae=False`` is the two-kernel
+composition: ``encoder_fwd`` then ``decoder_loss_fwd``, the embedding and its
+cotangent crossing device memory between them.  The bonus is the per-instance
+mean over C, H, W.  :func:`ae_forward` gives the reconstruction itself
+(encoder and two ``tail_fwd`` stages).  Same online-learning loop as RND2D
+(mcl/_online.py).
 """
 
 from __future__ import annotations
@@ -36,10 +40,25 @@ def init_ae_params(generator: torch.Generator, device=None) -> Dict[str, Any]:
     }
 
 
+def ae_forward(params: Dict[str, Any], obs: torch.Tensor, train: bool = False,
+               seed: Optional[int] = None) -> torch.Tensor:
+    """The reconstruction [N, 1, H, W] of the uint8 observation: the fused
+    encoder, then the two decoder stages.  Dropout (``train``) from ``seed``:
+    the mask the whole-autoencoder kernel draws from the same seed."""
+    x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS,
+                          drop_p=DROP_P, train=train, seed=seed)
+    x = nets.conv_tail(x, params["deconv1"], act="relu", drop_p=DROP_P, train=train,
+                       seed=seed, stage=nets.STAGE_DEC1)
+    return nets.conv_tail(x, params["deconv2"], act="sigmoid", drop_p=DROP_P,
+                          train=train, seed=seed, stage=nets.STAGE_DEC2)
+
+
 def ae2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
              lr: Optional[float] = None, train: bool = True,
-             dropout: Optional[bool] = None) -> WrapperDef:
-    """The AE2D wrapper; ``dropout`` defaults to ``train`` (see rnd2d_def)."""
+             dropout: Optional[bool] = None, whole_ae: bool = True) -> WrapperDef:
+    """The AE2D wrapper; ``dropout`` defaults to ``train`` (see rnd2d_def).
+    ``whole_ae=False`` takes the encoder and the decoder loss as two kernels
+    instead of one."""
     use_dropout = train if dropout is None else dropout
     n_elem = config.height * config.width  # C * H * W with C = 1
 
@@ -50,10 +69,14 @@ def ae2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
     def loss_fn(params, state: LearnerState, ctx):
         obs = net_input(ctx)
         # odd seeds for this net's kernels, even for RND2D's
-        err = nets.conv_ae_loss(obs, params["conv1"], params["conv2"],
-                                params["deconv1"], params["deconv2"], obs,
-                                pools=POOLS, drop_p=DROP_P, train=use_dropout,
-                                seed=2 * ctx.seed + 1)
+        kw = dict(drop_p=DROP_P, train=use_dropout, seed=2 * ctx.seed + 1)
+        if whole_ae:
+            err = nets.conv_ae_loss(obs, params["conv1"], params["conv2"],
+                                    params["deconv1"], params["deconv2"], obs,
+                                    pools=POOLS, **kw)
+        else:
+            x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS, **kw)
+            err = nets.conv_decoder_loss(x, params["deconv1"], params["deconv2"], obs, **kw)
         return err / n_elem, state.extra
 
     def bonus_fn(per_inst, ctx):

@@ -6,7 +6,8 @@ A wrapper is data plus plain functions:
 * ``apply(state, ctx, reward) -> (state', reward')`` consumes a
   :class:`StepCtx` describing one environment transition and transforms the
   reward (usually ``reward + scale * bonus``);
-* ``on_reset(state, grid) -> (state', grid')`` hooks resets.
+* ``on_reset(state, grid, generator) -> (state', grid')`` hooks resets
+  (``generator`` draws whatever noise a hook seeds the universe with).
 
 A :class:`WrapperStack` runs the env transition and every wrapper apply in
 order; the first wrapper listed is the innermost.  Wrapper state survives
@@ -23,6 +24,7 @@ import torch
 
 from ..config import EnvConfig
 from ..env import CARLE, EnvState, env_step, init_state, reset_state
+from ..ops.ca import pad_action
 
 
 class StepCtx(NamedTuple):
@@ -32,6 +34,10 @@ class StepCtx(NamedTuple):
     obs: torch.Tensor         # float32 [inst, 1, H, W] universe AFTER the update
     obs_cells: torch.Tensor   # uint8 [inst, 1, H, W], the same observation
     action: torch.Tensor      # uint8 [inst, AH, AW] binarised toggle patch
+    action_full: torch.Tensor  # uint8 [inst, H, W] that patch padded to the universe
+    action_sum: Optional[torch.Tensor] = None  # float32 [inst, 1] sum of the RAW
+                              # action VALUES (before binarising; in the class
+                              # shell, before cropping): ParsimonyBonus divides by it
     seed: int = 0             # this step's dropout seed for the net kernels: a
                               # host integer (the counterpart of the JAX key)
     generator: Optional[torch.Generator] = None  # draws plain-PyTorch dropout
@@ -43,10 +49,13 @@ class WrapperDef(NamedTuple):
     name: str
     init: Callable[[torch.Generator, torch.device], Any]
     apply: Callable[[Any, StepCtx, torch.Tensor], Tuple[Any, torch.Tensor]]
-    on_reset: Callable[[Any, torch.Tensor], Tuple[Any, torch.Tensor]]
+    on_reset: Callable[[Any, torch.Tensor, Optional[torch.Generator]],
+                       Tuple[Any, torch.Tensor]]
 
 
-def default_on_reset(state: Any, grid: torch.Tensor) -> Tuple[Any, torch.Tensor]:
+def default_on_reset(state: Any, grid: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[Any, torch.Tensor]:
     """Wrapper states deliberately survive resets (reference mcl.py:66-70)."""
     return state, grid
 
@@ -89,11 +98,14 @@ class WrapperStack:
         # the RAW action goes to env_step: it binarises for the toggle, but
         # the master reset reads the mean of the values
         env_state, grid = env_step(state.env, action, self.config)
+        action_bits = (action != 0).to(torch.uint8)
         ctx = StepCtx(
             prev_grid=prev_grid,
             obs=grid.to(torch.float32)[:, None],
             obs_cells=grid[:, None],
-            action=(action != 0).to(torch.uint8),
+            action=action_bits,
+            action_full=pad_action(action_bits, self.config),
+            action_sum=action.to(torch.float32).sum(dim=(1, 2))[:, None],
             seed=int(seed),
             generator=generator,
         )
@@ -106,13 +118,15 @@ class WrapperStack:
         return (StackState(env=env_state, wrappers=tuple(new_wstates)),
                 (ctx.obs, reward))
 
-    def reset(self, state: StackState) -> Tuple[StackState, torch.Tensor]:
-        """Zero the universe and run the wrappers' reset hooks in order."""
+    def reset(self, state: StackState, generator: Optional[torch.Generator] = None
+              ) -> Tuple[StackState, torch.Tensor]:
+        """Zero the universe and run the wrappers' reset hooks in order;
+        ``generator`` draws the hooks' noise."""
         env_state = reset_state(state.env)
         grid = env_state.grid
         new_wstates = []
         for w, ws in zip(self.wrappers, state.wrappers):
-            ws, grid = w.on_reset(ws, grid)
+            ws, grid = w.on_reset(ws, grid, generator)
             new_wstates.append(ws)
         env_state = env_state._replace(grid=grid)
         return (StackState(env=env_state, wrappers=tuple(new_wstates)),
@@ -237,12 +251,28 @@ class Motivator:
         obs = self.env.reset()
         if self._wdef is not None:
             grid = self.inner_env.state.grid
-            self._wstate, new_grid = self._wdef.on_reset(self._wstate, grid)
+            self._wstate, new_grid = self._wdef.on_reset(self._wstate, grid,
+                                                         self._generator)
             if new_grid is not grid:
                 self.inner_env.state = self.inner_env.state._replace(
                     grid=new_grid.to(torch.uint8))
                 obs = self.inner_env.universe
         return obs
+
+    def _raw_action_sums(self, action: Any) -> torch.Tensor:
+        """Per-instance sum of the RAW action VALUES, uncropped: the tensor
+        the reference wrapper receives (ParsimonyBonus divides by
+        ``action.sum(axis=[1,2,3])``; a [1, 1, H, W] action broadcasts its
+        single sum across the batch as torch does)."""
+        if torch.is_tensor(action):
+            action = action.detach().cpu().numpy()
+        arr = np.asarray(action, dtype=np.float32)
+        inst = self._config.instances
+        if arr.ndim >= 3 and arr.shape[0] == inst:
+            sums = arr.reshape(inst, -1).sum(axis=1)
+        else:
+            sums = np.full((inst,), float(arr.sum()), dtype=np.float32)
+        return torch.from_numpy(sums.astype(np.float32)).to(self.inner_env.device)[:, None]
 
     def step(self, action: Any):
         prev_grid = self.inner_env.state.grid
@@ -251,10 +281,13 @@ class Motivator:
             patch = self.inner_env._coerce_action(action)
             grid = self.inner_env.state.grid
             self._drop_seed += 1
+            action_bits = torch.from_numpy(np.ascontiguousarray(patch != 0)).to(
+                device=grid.device, dtype=torch.uint8)
             ctx = StepCtx(
                 prev_grid=prev_grid, obs=obs, obs_cells=grid[:, None],
-                action=torch.from_numpy(np.ascontiguousarray(patch != 0)).to(
-                    device=grid.device, dtype=torch.uint8),
+                action=action_bits,
+                action_full=pad_action(action_bits, self._config),
+                action_sum=self._raw_action_sums(action),
                 seed=self._drop_seed, generator=self._generator)
             self._wstate, reward = self._wdef.apply(self._wstate, ctx, reward)
         return obs, reward, done, info

@@ -1,0 +1,143 @@
+"""PredictionBonus / SurpriseBonus — forward-model bonuses (counterpart of
+carle_tpu/mcl/prediction.py).
+
+PredictionBonus rewards *predictability*: the AE-architecture predictor maps
+the frame from ``prediction_steps`` (5) ago to the current frame through a
+frame ring; bonus = ``0.1 - prediction_error``, zeroed for dead universes.
+SurpriseBonus is the sign flip: bonus = +error, also zeroed for dead
+universes.
+
+The reference's Python-list ``grid_buffer`` (append, predict from
+``buffer[0]``, pop when len > 5) is a fixed [inst, K, 1, H, W] ring in the
+carried state, slot 0 the oldest frame, with the list's source-frame
+semantics, the warm-up phase included (the source stays the first frame).
+The ring's fill level is a device scalar and the update is index arithmetic
+on it, so nothing waits for the device.
+
+Ring storage (``buffer_dtype``): ``"uint8"`` (default; the frames are binary
+cell planes, and the kernels read cells) or ``"float32"`` (the
+reference-shaped carry, the same rewards).  The JAX package's ``"packed"``
+ring rides on its packed stacks, which are not ported yet.
+
+The loss is the whole autoencoder as one kernel (``nets.conv_ae_loss``) with
+the ring frame as source and the current frame as target, and
+``ae_loss_bwd`` for its gradients.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from .. import nets
+from ..config import EnvConfig
+from ._online import (REFERENCE_EFFECTIVE_LR, LearnerState, init_learner,
+                      learner_apply, net_input)
+from .ae import AE2D, DROP_P, POOLS, init_ae_params
+from .base import WrapperDef, default_on_reset
+
+# the dropout seed's stream: AE2D and RND2D use the low bit, these the top bits
+SEED_STREAM_SHIFT = 58
+
+
+class FrameBuffer(NamedTuple):
+    frames: torch.Tensor  # [inst, K, 1, H, W] uint8 or float32, slot 0 the oldest
+    count: torch.Tensor   # int32 scalar: frames held
+
+
+def _push(buf: FrameBuffer, obs: torch.Tensor, k: int) -> Tuple[torch.Tensor, FrameBuffer]:
+    """The reference's list semantics: the prediction source is ``buffer[0]``
+    after appending (== obs while the buffer is empty); once the length
+    exceeds K the oldest frame is dropped.  Branch-free on the device count:
+    a full ring shifts down by one slot (a gather), and obs lands in slot
+    ``min(count, K - 1)``."""
+    src = torch.where(buf.count == 0, obs, buf.frames[:, 0])
+    slots = torch.arange(k, device=obs.device)
+    full = (buf.count >= k).to(slots.dtype)
+    shifted = buf.frames.index_select(1, (slots + full).clamp_max(k - 1))
+    at = (slots == buf.count.clamp_max(k - 1)).view(1, k, 1, 1, 1)
+    frames = torch.where(at, obs[:, None], shifted)
+    return src, FrameBuffer(frames=frames, count=(buf.count + 1).clamp_max(k))
+
+
+def _alive(ctx) -> torch.Tensor:
+    """Per-instance liveness from the uint8 cells: the reference's
+    ``mean(obs) > 0`` for binary frames."""
+    return (ctx.obs_cells != 0).any(dim=3).any(dim=2).any(dim=1)
+
+
+def _make_def(config: EnvConfig, name: str, surprise: bool, reward_scale: float = 1.0,
+              batch_size: int = 64, lr: Optional[float] = None,
+              prediction_steps: int = 5, train: bool = True,
+              dropout: Optional[bool] = None, buffer_dtype: str = "uint8") -> WrapperDef:
+    use_dropout = train if dropout is None else dropout
+    k = prediction_steps
+    if buffer_dtype == "packed":
+        raise NotImplementedError(
+            "buffer_dtype='packed' needs the packed stacks (ROADMAP item 9: "
+            "packed.py and mcl/packed_stats.py are not ported); use 'uint8'")
+    if buffer_dtype not in ("uint8", "float32"):
+        raise ValueError(f"buffer_dtype {buffer_dtype!r}: expected 'uint8', "
+                         f"'packed' or 'float32'")
+    dtype = torch.uint8 if buffer_dtype == "uint8" else torch.float32
+    n_elem = config.height * config.width  # C * H * W with C = 1
+    stream = (2 if surprise else 1) << SEED_STREAM_SHIFT
+
+    def init(generator: torch.Generator, device) -> LearnerState:
+        buf = FrameBuffer(
+            frames=torch.zeros((config.instances, k, 1, config.height, config.width),
+                               dtype=dtype, device=device),
+            count=torch.zeros((), dtype=torch.int32, device=device))
+        return init_learner(reward_scale, init_ae_params(generator, device), {},
+                            device, batch_size)._replace(extra=buf)
+
+    def loss_fn(params, state: LearnerState, ctx):
+        target = net_input(ctx)
+        src, new_buf = _push(state.extra, target if dtype == torch.uint8 else ctx.obs, k)
+        # the kernels read cells; a float32 ring holds the same 0/1 values
+        err = nets.conv_ae_loss(src.to(torch.uint8), params["conv1"], params["conv2"],
+                                params["deconv1"], params["deconv2"], target,
+                                pools=POOLS, drop_p=DROP_P, train=use_dropout,
+                                seed=stream + 2 * ctx.seed + 1)
+        return err / n_elem, new_buf
+
+    def bonus_fn(per_inst, ctx):
+        raw = per_inst if surprise else (0.1 - per_inst)
+        return torch.where(_alive(ctx), raw, torch.zeros_like(raw))[:, None]  # dead earn 0
+
+    return WrapperDef(
+        name=name, init=init,
+        apply=learner_apply(loss_fn, bonus_fn,
+                            REFERENCE_EFFECTIVE_LR if lr is None else lr, train),
+        on_reset=default_on_reset)
+
+
+def prediction_def(config: EnvConfig, **kwargs: Any) -> WrapperDef:
+    return _make_def(config, "PredictionBonus", surprise=False, **kwargs)
+
+
+def surprise_def(config: EnvConfig, **kwargs: Any) -> WrapperDef:
+    return _make_def(config, "SurpriseBonus", surprise=True, **kwargs)
+
+
+class PredictionBonus(AE2D):
+    my_name = "PredictionBonus"
+
+    def __init__(self, env: Any, **kwargs: Any) -> None:
+        super().__init__(env, **kwargs)
+        self.prediction_steps = kwargs.get("prediction_steps", 5)
+
+    def _def_factory(self):
+        return prediction_def
+
+
+class SurpriseBonus(AE2D):
+    my_name = "SurpriseBonus"
+
+    def __init__(self, env: Any, **kwargs: Any) -> None:
+        super().__init__(env, **kwargs)
+        self.ca_steps = 3  # declared but unused in the reference
+
+    def _def_factory(self):
+        return surprise_def

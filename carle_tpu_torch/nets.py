@@ -3,10 +3,12 @@
 
 Weights keep torch's layouts, which are also the JAX package's: conv OIHW
 ``{"w": [O, I, k, k], "b": [O]}``, transpose conv ``[I, O, k, k]``, linear
-``[out, in]``.  :func:`conv_encoder` and :func:`conv_ae_loss` are the fused
-conv stages of the wrapper nets, differentiable in their parameters: forward
-and backward launch the CUDA kernels for CUDA tensors and take the plain
-twins for CPU tensors (ops/cuda_head.py).
+``[out, in]``.  :func:`conv_encoder`, :func:`conv_ae_loss`, :func:`conv_head`,
+:func:`conv_tail`, :func:`conv_loss_tail` and :func:`conv_decoder_loss` are the
+fused conv stages of the wrapper nets, differentiable in their parameters
+(and, past the first layer, in their input): forward and backward launch the
+CUDA kernels for CUDA tensors and take the plain twins for CPU tensors
+(ops/cuda_head.py, ops/cuda_stages.py).  The device decides the route.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .ops import cuda_head
+from .ops import cuda_head, cuda_stages
+from .ops.cuda_head import STAGE_DEC1, STAGE_DEC2, STAGE_ENC1, STAGE_ENC2
 
 Params = Dict[str, torch.Tensor]
 
@@ -104,33 +107,104 @@ def flatten(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _drop_args(drop_p: float, train: bool, seed: Optional[int]) -> Tuple[float, int]:
+    """(probability, seed) the kernels get: dropout runs only with ``train``
+    and ``drop_p > 0``, and then needs a seed (a silent fixed one would repeat
+    every step's mask)."""
+    p = drop_p if train else 0.0
+    if p > 0.0 and seed is None:
+        raise ValueError("train=True with drop_p > 0 requires a seed")
+    return p, (int(seed) if p > 0.0 else 0)
+
+
 def conv_encoder(x: torch.Tensor, p1: Params, p2: Params, *,
                  pools: Tuple[int, int], drop_p: float = 0.0,
-                 train: bool = False, seed: int = 0) -> torch.Tensor:
+                 train: bool = False, seed: Optional[int] = 0) -> torch.Tensor:
     """Both encoder stages ``pool(relu(drop(conv3x3)))`` x2: x is the uint8
     observation [N, 1, H, W]; returns float32 [N, C2, H/(p1 p2), W/(p1 p2)].
     Dropout runs only with ``train`` and ``drop_p > 0``, from ``seed`` (a host
     integer: the same seed gives the same mask, forward and backward);
     otherwise no random number is drawn."""
-    p = drop_p if train else 0.0
-    return cuda_head.encoder(x, p1["w"], p1["b"], p2["w"], p2["b"], pools, p,
-                             seed if p > 0.0 else 0)
+    p, seed = _drop_args(drop_p, train, seed)
+    return cuda_head.encoder(x, p1["w"], p1["b"], p2["w"], p2["b"], pools, p, seed)
 
 
 def conv_ae_loss(src: torch.Tensor, p1: Params, p2: Params, pd1: Params,
                  pd2: Params, obs: torch.Tensor, *, pools: Tuple[int, int],
                  drop_p: float = 0.0, train: bool = False,
-                 seed: int = 0) -> torch.Tensor:
+                 seed: Optional[int] = 0) -> torch.Tensor:
     """The whole autoencoder and its per-instance
     ``sum((obs - recon(src))**2)`` over C, H, W ([N] float32; the caller
     divides by C*H*W for the mean), differentiable in the eight parameters.
     Dropout as :func:`conv_encoder`."""
-    p = drop_p if train else 0.0
+    p, seed = _drop_args(drop_p, train, seed)
     return cuda_head.ae_loss(src, p1["w"], p1["b"], p2["w"], p2["b"],
-                             pd1["w"], pd1["b"], pd2["w"], pd2["b"], obs,
-                             pools, p, seed if p > 0.0 else 0)
+                             pd1["w"], pd1["b"], pd2["w"], pd2["b"], obs, pools, p, seed)
+
+
+def conv_head(x: torch.Tensor, p: Params, *, pool: int, drop_p: float = 0.0,
+              train: bool = False, need_dx: bool = False, seed: Optional[int] = None,
+              stage: int = STAGE_ENC1) -> torch.Tensor:
+    """One conv stage ``pool(relu(drop(conv3x3(x))))``: x [N, C, H, W] float32
+    (or the uint8 observation) -> [N, O, H/pool, W/pool].  The backward gives
+    the parameter gradients and, with ``need_dx`` (deeper stages), the input
+    cotangent; max-pool ties share the gradient equally.  ``stage`` is the
+    dropout stage whose Philox bits the kernel draws (0 a net's first
+    convolution, 1 its second)."""
+    if pool < 2 or pool & (pool - 1):
+        raise ValueError(f"pool must be a power of two >= 2, got {pool}")
+    prob, seed = _drop_args(drop_p, train, seed)
+    return cuda_stages.head(x, p["w"], p["b"], pool, prob, seed, stage, need_dx)
+
+
+def conv_tail(x: torch.Tensor, p: Params, *, act: str, drop_p: float = 0.0,
+              train: bool = False, seed: Optional[int] = None,
+              stage: int = STAGE_DEC1) -> torch.Tensor:
+    """The decoder stage ``act(drop(conv_transpose2d(x)))`` (stride 2, k 4,
+    pad 1), act "relu" or "sigmoid", differentiable in x and its parameters.
+    ``stage`` as :func:`conv_head` (2 the decoder's first stage, 3 its
+    second)."""
+    prob, seed = _drop_args(drop_p, train, seed)
+    return cuda_stages.tail(x, p["w"], p["b"], act, prob, seed, stage)
+
+
+def conv_loss_tail(x: torch.Tensor, p: Params, obs: torch.Tensor, *, act: str,
+                   drop_p: float = 0.0, train: bool = False, seed: Optional[int] = None,
+                   stage: int = STAGE_DEC2) -> torch.Tensor:
+    """:func:`conv_tail` fused with the error: per-instance
+    ``sum((obs - act(drop(conv_transpose2d(x))))**2)`` over C, H, W ([N]
+    float32; the caller divides by C*H*W for the mean) without the
+    full-resolution reconstruction in device memory.  obs is uint8 or float32
+    and gets no gradient."""
+    prob, seed = _drop_args(drop_p, train, seed)
+    return cuda_stages.loss_tail(x, p["w"], p["b"], obs, act, prob, seed, stage)
+
+
+def conv_decoder_loss(x: torch.Tensor, p1: Params, p2: Params, obs: torch.Tensor, *,
+                      drop_p: float = 0.0, train: bool = False,
+                      seed: Optional[int] = None) -> torch.Tensor:
+    """Both decoder stages (relu, then sigmoid) fused with the error: [N]
+    float32 sums over C, H, W; neither the middle activation nor the
+    reconstruction reaches device memory.  Differentiable in the embedding x
+    and the four parameters."""
+    prob, seed = _drop_args(drop_p, train, seed)
+    return cuda_stages.decoder_loss(x, p1["w"], p1["b"], p2["w"], p2["b"], obs, prob, seed)
+
+
+def ae_loss_by_stages(params: Dict[str, Params], src: torch.Tensor, obs: torch.Tensor, *,
+                      drop_p: float = 0.0, train: bool = False,
+                      seed: Optional[int] = None) -> torch.Tensor:
+    """The autoencoder's error stage by stage, four kernels: head, head with
+    the input cotangent, tail, loss tail (pools 2 and 2).  The same function
+    as :func:`conv_ae_loss` and, with one seed, the same dropout mask."""
+    kw = dict(drop_p=drop_p, train=train, seed=seed)
+    x = conv_head(src, params["conv1"], pool=2, stage=STAGE_ENC1, **kw)
+    x = conv_head(x, params["conv2"], pool=2, need_dx=True, stage=STAGE_ENC2, **kw)
+    x = conv_tail(x, params["deconv1"], act="relu", stage=STAGE_DEC1, **kw)
+    return conv_loss_tail(x, params["deconv2"], obs, act="sigmoid", stage=STAGE_DEC2, **kw)
 
 
 __all__ = ["Params", "conv_init", "conv_transpose_init", "linear_init",
            "conv2d", "conv_transpose2d", "linear", "max_pool2", "dropout",
-           "flatten", "conv_encoder", "conv_ae_loss"]
+           "flatten", "conv_encoder", "conv_ae_loss", "conv_head", "conv_tail",
+           "conv_loss_tail", "conv_decoder_loss", "ae_loss_by_stages"]

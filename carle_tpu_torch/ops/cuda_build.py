@@ -32,7 +32,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd",
-           "encoder_bwd", "ae_loss_bwd")
+           "encoder_bwd", "ae_loss_bwd", "head_fwd", "head_bwd", "tail",
+           "decoder_loss_fwd", "decoder_loss_bwd")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -91,7 +92,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building all kernels on first
+    """The loaded library of source ``name``, building all kernels on first
     use."""
     with _LOCK:
         if name not in _LIBS:
@@ -112,10 +113,13 @@ class CudaKernel:
 
     :meth:`launch` adds one to :attr:`launches` after the launcher returned
     without error, and nowhere else; the launcher's own
-    ``cudaGetLastError()`` after the launch becomes a ``RuntimeError``."""
+    ``cudaGetLastError()`` after the launch becomes a ``RuntimeError``.
+    ``source`` names the ``csrc/<source>.cu`` that holds the launcher (the
+    kernel's own name unless several launchers share a source)."""
 
-    def __init__(self, name: str, symbol: str, argtypes) -> None:
+    def __init__(self, name: str, symbol: str, argtypes, source: str = "") -> None:
         self.name = name
+        self.source = source or name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -123,7 +127,7 @@ class CudaKernel:
 
     def launch(self, *args) -> None:
         if self._fn is None:
-            lib = library(self.name)
+            lib = library(self.source)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
@@ -151,6 +155,22 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 10 + [I] * 9 + [LL, LL, D, ULL, I, P]),
         CudaKernel("ae_loss_bwd", "ae_loss_bwd_launch",
                    [P] * 18 + [I] * 10 + [LL, LL, LL, D, ULL, I, P]),
+        CudaKernel("head_fwd", "head_fwd_launch",
+                   [P] * 4 + [I] * 7 + [LL, I, I, D, ULL, I, P]),
+        CudaKernel("head_bwd", "head_bwd_launch",
+                   [P] * 8 + [I] * 7 + [LL, I, I, D, ULL, I, P]),
+        CudaKernel("tail_fwd", "tail_fwd_launch",
+                   [P] * 4 + [I] * 6 + [LL, I, I, D, ULL, I, P], source="tail"),
+        CudaKernel("tail_bwd", "tail_bwd_launch",
+                   [P] * 7 + [I] * 6 + [LL, I, I, D, ULL, I, P], source="tail"),
+        CudaKernel("loss_tail_fwd", "loss_tail_fwd_launch",
+                   [P] * 6 + [I] * 6 + [LL, I, I, I, D, ULL, I, P], source="tail"),
+        CudaKernel("loss_tail_bwd", "loss_tail_bwd_launch",
+                   [P] * 8 + [I] * 6 + [LL, I, I, I, D, ULL, I, P], source="tail"),
+        CudaKernel("decoder_loss_fwd", "decoder_loss_fwd_launch",
+                   [P] * 8 + [I] * 7 + [LL, I, D, ULL, I, P]),
+        CudaKernel("decoder_loss_bwd", "decoder_loss_bwd_launch",
+                   [P] * 11 + [I] * 7 + [LL, I, D, ULL, I, P]),
     )
 }
 

@@ -324,9 +324,13 @@ def _seed_word(seed: int) -> int:
 
 
 def _dispatch(name: str, ref: torch.Tensor, plain, kernel, *args):
-    """The plain twin for a CPU tensor, the kernel for a CUDA tensor."""
+    """The plain twin for a CPU tensor, the kernel for a CUDA tensor.  Neither
+    records a graph: gradients are the autograd Functions' business, whose
+    backward is the backward kernel (or its twin), never torch's own rules for
+    the twin's operations (``F.max_pool2d`` routes ties otherwise)."""
     if ref.device.type == "cpu":
-        return plain(*args)
+        with torch.no_grad():
+            return plain(*args)
     if ref.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {ref.device}")
     return kernel(*args)

@@ -54,7 +54,7 @@ class Rollout:
                             drop_seed=(generator.initial_seed() & 0x7FFFFFFF) << 24)
 
     def reset(self, carry: RolloutCarry) -> Tuple[RolloutCarry, torch.Tensor]:
-        stack, obs = self.stack.reset(carry.stack)
+        stack, obs = self.stack.reset(carry.stack, carry.generator)
         return carry._replace(stack=stack), obs
 
     def with_rules(self, carry: RolloutCarry, rule_bits) -> RolloutCarry:

@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py [--report PATH]
 
 Phases, in order; any failure exits non-zero without the final line:
 
-1. build   the six CUDA kernels from carle_tpu_torch/csrc (one nvcc each,
+1. build   the CUDA kernels from carle_tpu_torch/csrc (one nvcc a source,
            all at once) and print the card as nvidia-smi names it;
 2. kernels each kernel against its plain PyTorch twin on the card at the
            slices' shapes (integer kernels exact, float kernels within the
@@ -12,10 +12,15 @@ Phases, in order; any failure exits non-zero without the final line:
            before every launch) and the least time the card could take; the
            net kernels also with dropout 0.1 (kernel and twin draw the same
            Philox mask), the drop rate the card draws, and the backward
-           kernels twice for the same bits;
+           kernels twice for the same bits; the single-stage kernels (head,
+           tail, loss tail) and the decoder loss at the autoencoder's shapes
+           (forwards on 160 universes, backwards on 64, with and without
+           dropout), the head also at RND's pool 4 and with its input
+           cotangent, and the whole-autoencoder kernels with a source frame
+           that is not the target;
 3. battery the scoring battery's entry points with the shipped checkpoints:
            evaluate_fused_batched (5 rulesets x 32 replicas = 160 universes
-           of 256 x 256, 1024 steps) and evaluate_fused (5 x 1024 steps x 1
+           of 256 x 256, 1024 steps) and evaluate_fused (5 x 256 steps x 1
            universe); then one 64-step run_actions stream through the kernel
            path on the card and the plain path on the CPU;
 4. server  the port's HTTP server on 127.0.0.1 in a thread: /health, /score
@@ -26,13 +31,25 @@ Phases, in order; any failure exits non-zero without the final line:
            back, a resumed last segment and one mixed-rules segment; then one
            16-step action stream through the training stack (dropout off,
            batch_size 4), kernel path on the card vs plain path on the CPU;
-6. profile 64 steps of the batched battery and 64 training steps under
+6. routes  the autoencoder's error and its 8 gradient leaves on 64 universes
+           (a frame of a real rollout) by one kernel, by two (encoder, decoder
+           loss) and by four (head, head, tail, loss tail), dropout off and on
+           with one seed: all three agree, and their times;
+7. wrappers all nine reward wrappers: evaluate_fused_batched with a list of
+           all nine on 160 universes x 256 steps; PredictionBonus over AE2D
+           (two-kernel route) over RND2D learning online on 64 universes for
+           256 steps with dropout on (4 updates a learner, the prediction
+           error falls); ae_forward on the shipped AE2D checkpoint against
+           ae_loss_fwd; then the nine-wrapper stack (32 steps) and the
+           learning stack (16 steps, dropout off, batch_size 4) through the
+           kernel path on the card and the plain path on the CPU;
+8. profile 64 steps of the batched battery and 64 training steps under
            torch.profiler: device time a step by kernel and the device's
            busy share;
-7. report  a {"kernels": [...]} line with each kernel's launches on the main
-           paths (battery, server and train, each counted from zero just
-           before it), then the card's name and power limit, then the ok
-           line.
+9. report  a {"kernels": [...]} line with each kernel's launches on the main
+           paths (battery, server, train, routes and wrappers, each counted
+           from zero just before it), then the card's name and power limit,
+           then the ok line.
 
 Tolerances: float kernels vs plain twins rtol 1e-4 / atol 1e-4 (the twins
 run cuDNN in full float32, TF32 off; cuDNN's own algorithms sum in other
@@ -42,7 +59,9 @@ atol 1e-5.  Gradients, kernel vs twin: 1e-4 of each leaf's largest entry (sums
 over 4 million positions in other orders; a pool window whose maxima tie in
 one and differ in the last bit in the other moves one window's share).
 Training rewards through 4 Adam updates, card vs CPU: rtol 2e-3 (Adam divides
-by the gradient's own scale).
+by the gradient's own scale).  The autoencoder's three routes against each
+other: error rtol 1e-4, gradients as above (one mask, other summation
+orders); ae_forward's reconstruction error against ae_loss_fwd's: rtol 1e-4.
 """
 
 from __future__ import annotations
@@ -85,13 +104,30 @@ SOURCES = {
                     "carle_tpu/ops/pallas_head.py:1114"),
     "ae_loss_bwd": ("carle_tpu_torch/csrc/ae_loss_bwd.cu",
                     "carle_tpu/ops/pallas_head.py:1875"),
+    "head_fwd": ("carle_tpu_torch/csrc/head_fwd.cu", "carle_tpu/ops/pallas_head.py:281"),
+    "head_bwd": ("carle_tpu_torch/csrc/head_bwd.cu", "carle_tpu/ops/pallas_head.py:297"),
+    "tail_fwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:628"),
+    "tail_bwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:645"),
+    "loss_tail_fwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:794"),
+    "loss_tail_bwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:822"),
+    "decoder_loss_fwd": ("carle_tpu_torch/csrc/decoder_loss_fwd.cu",
+                         "carle_tpu/ops/pallas_head.py:1481"),
+    "decoder_loss_bwd": ("carle_tpu_torch/csrc/decoder_loss_bwd.cu",
+                         "carle_tpu/ops/pallas_head.py:1506"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
     "battery": ("ca_step", "encoder_fwd", "ae_loss_fwd"),
     "server": ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd"),
     "train": ("ca_step", "encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd"),
+    "routes": ("encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd", "head_fwd",
+               "head_bwd", "tail_fwd", "tail_bwd", "loss_tail_fwd", "loss_tail_bwd",
+               "decoder_loss_fwd", "decoder_loss_bwd"),
+    "wrappers": ("ca_step", "encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
+                 "decoder_loss_fwd", "decoder_loss_bwd", "tail_fwd"),
 }
+NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
+        "ParsimonyBonus", "SpeedDetector", "PufferDetector")
 DROP_P = 0.1
 
 
@@ -268,6 +304,7 @@ def phase_kernels(torch, timer, shipped):
         shape="u8 src=obs [160,1,256,256], AE2D (C1=4, C2=2, 1, 1)")
     log(f"ae_loss_fwd ok: {results['ae_loss_fwd']}")
     results.update(phase_train_kernels(torch, timer, gen))
+    results.update(phase_stage_kernels(torch, timer, gen))
     return results
 
 
@@ -397,6 +434,262 @@ def phase_train_kernels(torch, timer, gen):
     return results
 
 
+def _bits_twice(fn, what):
+    """fn() twice: the same bits, returned once."""
+    first, again = fn(), fn()
+    check(all(bool((a == b).all()) for a, b in zip(first, again) if a is not None),
+          f"{what} is not the same bit for bit from run to run")
+    return first
+
+
+def phase_stage_kernels(torch, timer, gen):
+    """The single-stage kernels and the decoder loss vs their twins at the
+    autoencoder's shapes (256 x 256 universes, channels 1 -> 4 -> 2 -> 1 -> 1):
+    forwards on 160 universes, backwards on 64, without and with dropout 0.1;
+    the head also at RND's pool 4; ae_loss with a source that is not the
+    target."""
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.ops import cuda_head, cuda_stages
+
+    dev = torch.device("cuda")
+    nf, nb, h, w, seed = 160, 64, 256, 256, 20240301
+    hw = h * w
+    ae = init_ae_params(gen, dev)
+    (w1, b1), (w2, b2), (wt1, bt1), (wt2, bt2) = (
+        (ae[k]["w"], ae[k]["b"]) for k in ("conv1", "conv2", "deconv1", "deconv2"))
+    cells = (torch.rand((nf, 1, h, w), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    cells[: nf // 4, :, : h // 2] = 0   # blank regions: whole pool windows tie
+    obs = (torch.rand((nf, 1, h, w), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    # the activations the stages see, from the kernels themselves
+    x1 = cuda_stages.head_fwd(cells, w1, b1, 2)                  # [N, 4, 128, 128]
+    emb = cuda_stages.head_fwd(x1, w2, b2, 2, stage=1)          # [N, 2, 64, 64]
+    mid = cuda_stages.tail_fwd(emb, wt1, bt1, "relu", stage=2)  # [N, 1, 128, 128]
+    gbar = torch.randn((nb,), generator=gen, device=dev) / (nb * hw)
+    results, tol = {}, 1e-4
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+
+    def close(got, want, what, rtol=1e-4, atol=1e-4):
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}")
+        return float((got - want).abs().max())
+
+    def backward_case(name, fn, plain, label):
+        """Kernel vs twin without and with dropout, each twice for the bits;
+        returns (worst leaf error with dropout, without, largest abs error)."""
+        worst = {}
+        for p in (0.0, DROP_P):
+            got = [t for t in _bits_twice(lambda: fn(p), f"{name} ({label})") if t is not None]
+            want = [t for t in plain(p) if t is not None]
+            worst[p] = max(_leaf_errors(got, want))
+            check(worst[p] < tol, f"{name} ({label}, drop {p}) leaves differ: {worst[p]}")
+            abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        return worst[DROP_P], worst[0.0], abs_err
+
+    # -- head_fwd: AE conv1 on cells, AE conv2 on floats, RND's pool 4 ---------
+    head_cases = {  # label: (x, w, b, pool, stage)
+        "AE conv1, u8 [160,1,256,256] -> [160,4,128,128], pool 2": (cells, w1, b1, 2, 0),
+        "AE conv2, f32 [160,4,128,128] -> [160,2,64,64], pool 2": (x1, w2, b2, 2, 1),
+        "RND conv1, u8 [160,1,256,256] -> [160,4,64,64], pool 4": (cells, w1, b1, 4, 0),
+    }
+    detail, err = {}, 0.0
+    for label, (x, wt, b, pool, stage) in head_cases.items():
+        err = max(err, close(cuda_stages.head_fwd(x, wt, b, pool, 0.0, 0, stage),
+                             cuda_stages.head_fwd_plain(x, wt, b, pool, 0.0, 0, stage), label))
+        xb = x[:nb].contiguous()
+        close(cuda_stages.head_fwd(xb, wt, b, pool, DROP_P, seed, stage),
+              cuda_stages.head_fwd_plain(xb, wt, b, pool, DROP_P, seed, stage),
+              label + ", dropout")
+        detail[label] = {"ms": timer.ms(
+            lambda: cuda_stages.head_fwd(x, wt, b, pool, 0.0, 0, stage), 20)}
+    label = next(iter(head_cases))
+    flops = 2 * 9 * 1 * 4 * nf * hw
+    bound, by = bound_ms(nf * hw + nf * 4 * hw // 4 * 4 + 40 * 4, flops, FP32_FLOPS)
+    results["head_fwd"] = dict(
+        max_abs_err=err, ms=detail[label]["ms"],
+        plain_ms=timer.ms(lambda: cuda_stages.head_fwd_plain(cells, w1, b1, 2), 5),
+        bound_ms=bound, bound_by=by, library_ms=None, shape=label, cases=detail)
+    log(f"head_fwd ok: {results['head_fwd']}")
+
+    # -- head_bwd: the same three, the second with its input cotangent ---------
+    detail = {}
+    for label, (x, wt, b, pool, stage) in head_cases.items():
+        xb = x[:nb].contiguous()
+        need_dx = xb.dtype == torch.float32
+        g = rand(nb, wt.shape[0], x.shape[2] // pool, x.shape[3] // pool)
+        args = (xb, wt, b, g, pool)
+        e_drop, e_plain, abs_err = backward_case(
+            "head_bwd", lambda p: cuda_stages.head_bwd(*args, p, seed, stage, need_dx),
+            lambda p: cuda_stages.head_bwd_plain(*args, p, seed, stage, need_dx), label)
+        detail[label] = {
+            "need_dx": need_dx, "max_leaf_rel_err": e_drop, "max_leaf_rel_err_no_drop": e_plain,
+            "max_abs_err": abs_err,
+            "ms": timer.ms(lambda: cuda_stages.head_bwd(*args, DROP_P, seed, stage, need_dx), 10),
+            "ms_no_drop": timer.ms(lambda: cuda_stages.head_bwd(*args, 0.0, 0, stage, need_dx), 10)}
+        if label.startswith("AE conv1"):
+            plain_ms = timer.ms(lambda: cuda_stages.head_bwd_plain(*args, DROP_P, seed, stage,
+                                                                   need_dx), 2)
+    label = next(iter(head_cases))
+    first = detail[label]
+    flops = 2 * (2 * 9 * 1 * 4 * nb * hw)   # one recompute and dW; the cells take no cotangent
+    bound, by = bound_ms(nb * hw + nb * 4 * hw // 4 * 4 + 80 * 4, flops, FP32_FLOPS)
+    results["head_bwd"] = dict(
+        max_abs_err=first["max_abs_err"], max_leaf_rel_err=first["max_leaf_rel_err"],
+        ms=first["ms"], ms_no_drop=first["ms_no_drop"], plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=None,
+        shape=label.replace("160", "64") + ", g [64,4,128,128], drop 0.1", cases=detail)
+    log(f"head_bwd ok: {results['head_bwd']}")
+
+    # -- tail and loss tail ------------------------------------------------------
+    tail_cases = {  # label: (x, wt, b, act, stage)
+        "AE deconv2, f32 [160,1,128,128] -> [160,1,256,256], sigmoid": (mid, wt2, bt2, "sigmoid", 3),
+        "AE deconv1, f32 [160,2,64,64] -> [160,1,128,128], relu": (emb, wt1, bt1, "relu", 2),
+    }
+    fwd_detail, bwd_detail, err = {}, {}, 0.0
+    for label, (x, wt, b, act, stage) in tail_cases.items():
+        err = max(err, close(cuda_stages.tail_fwd(x, wt, b, act, 0.0, 0, stage),
+                             cuda_stages.tail_fwd_plain(x, wt, b, act, 0.0, 0, stage), label))
+        xb = x[:nb].contiguous()
+        close(cuda_stages.tail_fwd(xb, wt, b, act, DROP_P, seed, stage),
+              cuda_stages.tail_fwd_plain(xb, wt, b, act, DROP_P, seed, stage), label + ", dropout")
+        fwd_detail[label] = {"ms": timer.ms(
+            lambda: cuda_stages.tail_fwd(x, wt, b, act, 0.0, 0, stage), 20)}
+        g = rand(nb, wt.shape[1], 2 * x.shape[2], 2 * x.shape[3])
+        args = (xb, wt, b, g, act)
+        e_drop, e_plain, abs_err = backward_case(
+            "tail_bwd", lambda p: cuda_stages.tail_bwd(*args, p, seed, stage),
+            lambda p: cuda_stages.tail_bwd_plain(*args, p, seed, stage), label)
+        bwd_detail[label] = {
+            "max_leaf_rel_err": e_drop, "max_leaf_rel_err_no_drop": e_plain,
+            "max_abs_err": abs_err,
+            "ms": timer.ms(lambda: cuda_stages.tail_bwd(*args, DROP_P, seed, stage), 10),
+            "ms_no_drop": timer.ms(lambda: cuda_stages.tail_bwd(*args, 0.0, 0, stage), 10)}
+        if act == "sigmoid":
+            plain_fwd = timer.ms(lambda: cuda_stages.tail_fwd_plain(x, wt, b, act, 0.0, 0, stage), 5)
+            plain_bwd = timer.ms(lambda: cuda_stages.tail_bwd_plain(*args, DROP_P, seed, stage), 2)
+    label = next(iter(tail_cases))
+    taps = 2 * 4 * 1 * 1   # flops an output position: 2 x 2 inputs a channel pair
+    bound, by = bound_ms(nf * (hw // 4 + hw) * 4 + 17 * 4, taps * nf * hw, FP32_FLOPS)
+    results["tail_fwd"] = dict(max_abs_err=err, ms=fwd_detail[label]["ms"], plain_ms=plain_fwd,
+                               bound_ms=bound, bound_by=by, library_ms=None, shape=label,
+                               cases=fwd_detail)
+    log(f"tail_fwd ok: {results['tail_fwd']}")
+    first = bwd_detail[label]
+    bound, by = bound_ms(nb * (hw // 4 + hw + hw // 4) * 4 + 34 * 4, 3 * taps * nb * hw + 4 * nb * hw,
+                         FP32_FLOPS)
+    results["tail_bwd"] = dict(
+        max_abs_err=first["max_abs_err"], max_leaf_rel_err=first["max_leaf_rel_err"],
+        ms=first["ms"], ms_no_drop=first["ms_no_drop"], plain_ms=plain_bwd, bound_ms=bound,
+        bound_by=by, library_ms=None,
+        shape="f32 x [64,1,128,128], g [64,1,256,256], sigmoid, drop 0.1", cases=bwd_detail)
+    log(f"tail_bwd ok: {results['tail_bwd']}")
+
+    obs_f = obs.to(torch.float32)
+    lt_args = (mid, wt2, bt2)
+    got = cuda_stages.loss_tail_fwd(*lt_args, obs)
+    check(torch.equal(got, cuda_stages.loss_tail_fwd(*lt_args, obs)),
+          "loss_tail_fwd is not deterministic")
+    want = cuda_stages.loss_tail_fwd_plain(*lt_args, obs)
+    close(got, want, "loss_tail_fwd", atol=1e-3)
+    close(cuda_stages.loss_tail_fwd(*lt_args, obs_f), want, "loss_tail_fwd, f32 obs", atol=1e-3)
+    mb, ob = mid[:nb].contiguous(), obs[:nb].contiguous()
+    close(cuda_stages.loss_tail_fwd(mb, wt2, bt2, ob, "sigmoid", DROP_P, seed),
+          cuda_stages.loss_tail_fwd_plain(mb, wt2, bt2, ob, "sigmoid", DROP_P, seed),
+          "loss_tail_fwd, dropout", atol=1e-3)
+    bound, by = bound_ms(nf * (hw // 4 * 4 + hw) + nf * 4, (taps + 3) * nf * hw, FP32_FLOPS)
+    results["loss_tail_fwd"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        max_rel_err=float(((got - want).abs() / want.abs()).max()),
+        ms=timer.ms(lambda: cuda_stages.loss_tail_fwd(*lt_args, obs), 20),
+        ms_f32_obs=timer.ms(lambda: cuda_stages.loss_tail_fwd(*lt_args, obs_f), 20),
+        plain_ms=timer.ms(lambda: cuda_stages.loss_tail_fwd_plain(*lt_args, obs), 5),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape="f32 x [160,1,128,128], u8 obs [160,1,256,256], sigmoid")
+    log(f"loss_tail_fwd ok: {results['loss_tail_fwd']}")
+    e_drop, e_plain, abs_err = backward_case(
+        "loss_tail_bwd",
+        lambda p: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob, gbar, "sigmoid", p, seed),
+        lambda p: cuda_stages.loss_tail_bwd_plain(mb, wt2, bt2, ob, gbar, "sigmoid", p, seed),
+        "AE deconv2")
+    backward_case(
+        "loss_tail_bwd",
+        lambda p: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob.float(), gbar, "sigmoid", p, seed),
+        lambda p: cuda_stages.loss_tail_bwd_plain(mb, wt2, bt2, ob, gbar, "sigmoid", p, seed),
+        "AE deconv2, f32 obs")
+    bound, by = bound_ms(nb * (hw // 4 * 4 + hw + hw // 4 * 4) + nb * 4 + 34 * 4,
+                         3 * taps * nb * hw + 8 * nb * hw, FP32_FLOPS)
+    results["loss_tail_bwd"] = dict(
+        max_abs_err=abs_err, max_leaf_rel_err=e_drop, max_leaf_rel_err_no_drop=e_plain,
+        ms=timer.ms(lambda: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob, gbar, "sigmoid",
+                                                      DROP_P, seed), 10),
+        ms_no_drop=timer.ms(lambda: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob, gbar), 10),
+        plain_ms=timer.ms(lambda: cuda_stages.loss_tail_bwd_plain(
+            mb, wt2, bt2, ob, gbar, "sigmoid", DROP_P, seed), 2),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape="f32 x [64,1,128,128], u8 obs [64,1,256,256], gbar [64], sigmoid, drop 0.1")
+    log(f"loss_tail_bwd ok: {results['loss_tail_bwd']}")
+
+    # -- decoder loss ------------------------------------------------------------
+    dl_args = (emb, wt1, bt1, wt2, bt2)
+    got = cuda_stages.decoder_loss_fwd(*dl_args, obs)
+    check(torch.equal(got, cuda_stages.decoder_loss_fwd(*dl_args, obs)),
+          "decoder_loss_fwd is not deterministic")
+    want = cuda_stages.decoder_loss_fwd_plain(*dl_args, obs)
+    close(got, want, "decoder_loss_fwd", atol=1e-3)
+    close(cuda_stages.decoder_loss_fwd(*dl_args, obs_f), want, "decoder_loss_fwd, f32 obs",
+          atol=1e-3)
+    eb = emb[:nb].contiguous()
+    db_args = (eb, wt1, bt1, wt2, bt2, ob)
+    close(cuda_stages.decoder_loss_fwd(*db_args, DROP_P, seed),
+          cuda_stages.decoder_loss_fwd_plain(*db_args, DROP_P, seed),
+          "decoder_loss_fwd, dropout", atol=1e-3)
+    d1, d2 = 4 * 2 * 1 * (hw // 4), 4 * 1 * 1 * hw   # multiply-adds a universe, each stage
+    bound, by = bound_ms(nf * (2 * hw // 16 * 4 + hw) + nf * 4,
+                         2 * nf * (d1 + d2) + 3 * nf * hw, FP32_FLOPS)
+    results["decoder_loss_fwd"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        max_rel_err=float(((got - want).abs() / want.abs()).max()),
+        ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd(*dl_args, obs), 20),
+        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd_plain(*dl_args, obs), 5),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape="f32 x [160,2,64,64], u8 obs [160,1,256,256], AE2D decoder (2, 1, 1)")
+    log(f"decoder_loss_fwd ok: {results['decoder_loss_fwd']}")
+    e_drop, e_plain, abs_err = backward_case(
+        "decoder_loss_bwd", lambda p: cuda_stages.decoder_loss_bwd(*db_args, gbar, p, seed),
+        lambda p: cuda_stages.decoder_loss_bwd_plain(*db_args, gbar, p, seed), "AE2D decoder")
+    bound, by = bound_ms(nb * (2 * hw // 16 * 4 * 2 + hw) + nb * 4 + 52 * 4,
+                         2 * nb * 3 * (d1 + d2) + 8 * nb * hw, FP32_FLOPS)
+    results["decoder_loss_bwd"] = dict(
+        max_abs_err=abs_err, max_leaf_rel_err=e_drop, max_leaf_rel_err_no_drop=e_plain,
+        ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd(*db_args, gbar, DROP_P, seed), 10),
+        ms_no_drop=timer.ms(lambda: cuda_stages.decoder_loss_bwd(*db_args, gbar), 10),
+        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd_plain(*db_args, gbar, DROP_P,
+                                                                      seed), 2),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        shape="f32 x [64,2,64,64], u8 obs [64,1,256,256], gbar [64], drop 0.1")
+    log(f"decoder_loss_bwd ok: {results['decoder_loss_bwd']}")
+
+    # -- the whole-autoencoder kernels with a source that is not the target ------
+    flat = (w1, b1, w2, b2, wt1, bt1, wt2, bt2)
+    sb = cells[:nb].contiguous()
+    got = cuda_head.ae_loss_fwd(cells, *flat, obs)
+    want = cuda_head.ae_loss_fwd_plain(cells, *flat, obs)
+    close(got, want, "ae_loss_fwd, src != obs", atol=1e-3)
+    check(not torch.equal(got, cuda_head.ae_loss_fwd(cells, *flat, cells)),
+          "ae_loss_fwd ignores its target")
+    e_drop, e_plain, _ = backward_case(
+        "ae_loss_bwd", lambda p: cuda_head.ae_loss_bwd(sb, *flat, ob, gbar, (2, 2), p, seed),
+        lambda p: cuda_head.ae_loss_bwd_plain(sb, *flat, ob, gbar, (2, 2), p, seed),
+        "src != obs")
+    results["ae_loss_src_not_obs"] = dict(
+        fwd_max_rel_err=float(((got - want).abs() / want.abs()).max()),
+        bwd_max_leaf_rel_err=e_drop, bwd_max_leaf_rel_err_no_drop=e_plain,
+        fwd_ms=timer.ms(lambda: cuda_head.ae_loss_fwd(cells, *flat, obs), 20),
+        bwd_ms=timer.ms(lambda: cuda_head.ae_loss_bwd(sb, *flat, ob, gbar, (2, 2), DROP_P,
+                                                      seed), 10),
+        shape="fwd u8 src, obs [160,1,256,256]; bwd [64,...], gbar [64], drop 0.1")
+    log(f"ae_loss with src != obs ok: {results['ae_loss_src_not_obs']}")
+    return results
+
+
 def shipped_states(torch):
     """The shipped learner states on the card, keyed by wrapper name."""
     from carle_tpu_torch.checkpoint import learner_state_from_numpy, read_npz
@@ -415,51 +708,68 @@ def phase_battery(torch, cuda_build):
                                                   verbose=False, device="cuda")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    score_s, trace = ev.evaluate_fused(steps=1024, seed=0, verbose=False, device="cuda")
+    score_s, trace = ev.evaluate_fused(steps=256, seed=0, verbose=False, device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = cuda_build.launch_counts()
     for name, score in (("batched", score_b), ("sequential", score_s)):
         check(math.isfinite(score) and 0.0 <= score <= 10.0,
               f"{name} battery score {score} is not in [0, 10]")
-    check(trace.shape == (5 * 1024,) and per_rule.shape == (5,), "battery shapes")
+    check(trace.shape == (5 * 256,) and per_rule.shape == (5,), "battery shapes")
     e2e = {
         "batched_score": score_b, "batched_per_ruleset": [float(v) for v in per_rule],
         "batched_s": t1 - t0, "batched_universe_steps_per_s": 160 * 1024 / (t1 - t0),
         "sequential_score": score_s, "sequential_s": t2 - t1,
-        "sequential_steps_per_s": 5 * 1024 / (t2 - t1),
+        "sequential_steps": 5 * 256, "sequential_steps_per_s": 5 * 256 / (t2 - t1),
     }
     log(f"battery ok: {json.dumps(e2e)}")
     log(f"battery launches: {json.dumps(counts)}")
     return counts, e2e
 
 
+def _card_vs_cpu(torch, cfg, make_defs, acts, rule_bits, prepare=None):
+    """One numpy action stream through ``Rollout.run_actions`` on the CPU
+    (plain path) and on the card (kernel path) from the same initial wrapper
+    states: the CPU's draw, after ``prepare(wrapper states)``, carried to the
+    card.  Returns ({device: rewards on the host}, {device: final carry})."""
+    from carle_tpu_torch.rollout import Rollout
+
+    rewards, carries, wstates = {}, {}, None
+    for device in ("cpu", "cuda"):
+        ro = Rollout(cfg, make_defs(), device=device)
+        carry = ro.init(ro.generator(0), 0)
+        if wstates is None:
+            wstates = carry.stack.wrappers if prepare is None else prepare(carry.stack.wrappers)
+        to_device = lambda t: t.to(device) if torch.is_tensor(t) else t
+        carry = carry._replace(stack=carry.stack._replace(
+            wrappers=tuple(_map_state(ws, to_device) for ws in wstates)))
+        carry = ro.with_rules(carry, torch.as_tensor(rule_bits, dtype=torch.int32))
+        carries[device], r = ro.run_actions(carry, torch.from_numpy(acts))
+        rewards[device] = r.cpu()
+    return rewards, carries
+
+
+def _battery_actions(cfg, steps):
+    import numpy as np
+
+    acts = (np.random.RandomState(0).rand(steps, *cfg.action_shape) < 0.1).astype(np.float32)
+    acts[steps * 5 // 8] = 1.0  # the master reset
+    return acts
+
+
 def phase_parity(torch):
     """64 steps of one numpy action stream through the kernel path on the
     card and the plain path on the CPU (the wrappers take their plain twins
     only for CPU tensors)."""
-    import numpy as np
-
     from carle_tpu_torch import EnvConfig
     from carle_tpu_torch.evaluation import eval as ev
-    from carle_tpu_torch.rollout import Rollout
 
     cfg = EnvConfig(instances=10)
-    rng = np.random.RandomState(0)
-    acts = (rng.rand(64, *cfg.action_shape) < 0.1).astype(np.float32)
-    acts[40] = 1.0  # the master reset
     bits = [ev.battery_rule_bits(rs, True) for rs in ev.DEFAULT_RULES] * 2
-    rewards = {}
-    for device in ("cuda", "cpu"):
-        ro = Rollout(cfg, ev.wrapper_defs(cfg, ev.DEFAULT_WRAPPERS, True),
-                     device=device)
-        carry = ro.init(ro.generator(0), bits[0])
-        carry = carry._replace(stack=carry.stack._replace(
-            wrappers=ev.inject_wrapper_checkpoints(carry.stack.wrappers,
-                                                   ev.DEFAULT_WRAPPERS)))
-        carry = ro.with_rules(carry, torch.tensor(bits, dtype=torch.int32))
-        _, r = ro.run_actions(carry, torch.from_numpy(acts))
-        rewards[device] = r.cpu()
+    rewards, _ = _card_vs_cpu(
+        torch, cfg, lambda: ev.wrapper_defs(cfg, ev.DEFAULT_WRAPPERS, True),
+        _battery_actions(cfg, 64), bits,
+        lambda ws: ev.inject_wrapper_checkpoints(ws, ev.DEFAULT_WRAPPERS))
     torch.testing.assert_close(rewards["cuda"], rewards["cpu"], rtol=1e-4, atol=1e-5)
     diff = float((rewards["cuda"] - rewards["cpu"]).abs().max())
     log(f"run_actions kernel path (cuda) vs plain path (cpu): max abs diff {diff}")
@@ -594,37 +904,33 @@ def phase_train(torch, cuda_build):
     return counts, e2e
 
 
-def phase_train_parity(torch):
-    """16 steps of one numpy action stream through the training stack
-    (dropout off, batch_size 4: four Adam updates a learner), kernel path on
-    the card vs plain path on the CPU, from the same initial parameters."""
+def _training_parity(torch, make_defs, what):
+    """16 steps of one numpy action stream through a learning stack (dropout
+    off, batch_size 4: four Adam updates a learner), kernel path on the card
+    vs plain path on the CPU, from the same initial parameters."""
     import numpy as np
 
     from carle_tpu_torch import EnvConfig, rules
-    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
-    from carle_tpu_torch.rollout import Rollout
 
     cfg = EnvConfig(instances=8)
     acts = (np.random.RandomState(0).rand(16, *cfg.action_shape) < 0.1).astype(np.float32)
-    kw = dict(train=True, dropout=False, batch_size=4)
-    rewards, wstates = {}, None
-    for device in ("cpu", "cuda"):
-        ro = Rollout(cfg, [rnd2d_def(cfg, **kw), ae2d_def(cfg, **kw)], device=device)
-        carry = ro.init(ro.generator(0), rules.LIFE)
-        if wstates is None:   # the CPU's draw, carried to the card
-            wstates = carry.stack.wrappers
-        else:
-            to_card = lambda t: t.to("cuda") if torch.is_tensor(t) else t
-            moved = tuple(_map_state(ws, to_card) for ws in wstates)
-            carry = carry._replace(stack=carry.stack._replace(wrappers=moved))
-        carry, r = ro.run_actions(carry, torch.from_numpy(acts))
+    rewards, carries = _card_vs_cpu(
+        torch, cfg, lambda: make_defs(cfg, dict(train=True, dropout=False, batch_size=4)),
+        acts, rules.LIFE)
+    for carry in carries.values():
         check(all(int(ws.updates) == 4 for ws in carry.stack.wrappers), "parity updates")
-        rewards[device] = r.cpu()
     torch.testing.assert_close(rewards["cuda"], rewards["cpu"], rtol=2e-3, atol=0)
     diff = float(((rewards["cuda"] - rewards["cpu"]).abs() / rewards["cpu"].abs()).max())
-    log(f"training stack kernel path (cuda) vs plain path (cpu), 16 steps through 4 "
-        f"updates: max rel diff {diff}")
+    log(f"{what} kernel path (cuda) vs plain path (cpu), 16 steps through 4 updates: "
+        f"max rel diff {diff}")
     return diff
+
+
+def phase_train_parity(torch):
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+
+    return _training_parity(torch, lambda cfg, kw: [rnd2d_def(cfg, **kw), ae2d_def(cfg, **kw)],
+                            "training stack")
 
 
 def _map_state(state, fn):
@@ -636,6 +942,152 @@ def _map_state(state, fn):
     if isinstance(state, (tuple, list)):
         return type(state)(_map_state(v, fn) for v in state)
     return fn(state)
+
+
+def phase_routes(torch, timer, cuda_build):
+    """The autoencoder's error and its 8 gradient leaves on 64 universes of
+    256 x 256 (a frame of a real rollout) by one kernel, by two and by four,
+    through the public functions and autograd, dropout off and on with one
+    seed.  Times: CUDA events around forward and backward of each route; a
+    route launches up to eleven kernels, so its time includes the host's gaps
+    between them where the host is the slower."""
+    from carle_tpu_torch import EnvConfig, nets, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl._online import tree_leaves, tree_unflatten
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.rollout import Rollout
+
+    n, seed = 64, 777
+    cfg = EnvConfig(instances=n)
+    ro = Rollout(cfg, [], make_random_agent(64, 64, 0.1), device="cuda")
+    carry, _ = ro.run(ro.init(ro.generator(0), rules.LIFE), 32)
+    frame = carry.stack.env.grid[:, None].contiguous()
+    check(int(frame.sum()) > 0, "the rollout frame is empty")
+    params0 = init_ae_params(ro.generator(1), torch.device("cuda"))
+
+    def run(route, drop_p):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(params0)]
+        p = tree_unflatten(params0, leaves)
+        kw = dict(drop_p=drop_p, train=drop_p > 0.0, seed=seed)
+        if route == "one":
+            err = nets.conv_ae_loss(frame, p["conv1"], p["conv2"], p["deconv1"], p["deconv2"],
+                                    frame, pools=(2, 2), **kw)
+        elif route == "two":
+            emb = nets.conv_encoder(frame, p["conv1"], p["conv2"], pools=(2, 2), **kw)
+            err = nets.conv_decoder_loss(emb, p["deconv1"], p["deconv2"], frame, **kw)
+        else:
+            err = nets.ae_loss_by_stages(p, frame, frame, **kw)
+        return err.detach(), torch.autograd.grad(err.mean(), leaves)
+
+    cuda_build.reset_launch_counts()
+    out = {"universes": n, "live_cells": int(frame.sum())}
+    for drop_p in (0.0, DROP_P):
+        one = run("one", drop_p)
+        for route in ("two", "four"):
+            err, grads = run(route, drop_p)
+            torch.testing.assert_close(err, one[0], rtol=1e-4, atol=0)
+            worst = max(_leaf_errors(grads, one[1]))
+            check(worst < 1e-4, f"{route}-kernel route (drop {drop_p}) leaves differ from "
+                  f"the one-kernel route's: {worst}")
+            key = f"{route}_vs_one_drop_{drop_p}"
+            out[key + "_max_rel_err"] = float(((err - one[0]).abs() / one[0].abs()).max())
+            out[key + "_max_leaf_rel_err"] = worst
+    check(not torch.equal(run("four", DROP_P)[0], run("four", 0.0)[0]),
+          "dropout changed nothing in the four-kernel route")
+    counts = cuda_build.launch_counts()
+    for route in ("one", "two", "four"):
+        out[f"{route}_kernel_ms"] = timer.ms(lambda: run(route, DROP_P), 10, warmup=2)
+        out[f"{route}_kernel_ms_no_drop"] = timer.ms(lambda: run(route, 0.0), 10, warmup=2)
+    log(f"routes ok: {json.dumps(out)}")
+    log(f"routes launches: {json.dumps(counts)}")
+    return counts, out
+
+
+def phase_wrappers(torch, cuda_build, shipped):
+    """All nine reward wrappers at full width, then card against CPU."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.evaluation import eval as ev
+    from carle_tpu_torch.mcl import ae2d_def, ae_forward, prediction_def, rnd2d_def
+    from carle_tpu_torch.ops import cuda_head
+    from carle_tpu_torch.rollout import Rollout
+
+    ckpt = {name: path for name, _, path in ev.DEFAULT_WRAPPERS}
+    scales = {"MorphoBonus": 1e-2, "CornerBonus": 1e-3, "SpeedDetector": 1e-2,
+              "PufferDetector": 1e-3}
+    specs = [[name, scales.get(name, 1.0), ckpt.get(name)] for name in NINE]
+    cuda_build.reset_launch_counts()
+
+    # (i) the battery with all nine: 5 rulesets x 32 replicas, 256 steps
+    t0 = time.perf_counter()
+    score, per_rule = ev.evaluate_fused_batched(steps=256, replicas=32, wrappers=specs,
+                                                seed=0, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    battery_s = time.perf_counter() - t0
+    check(math.isfinite(score) and per_rule.shape == (5,) and np.isfinite(per_rule).all(),
+          f"nine-wrapper battery score {score}, per ruleset {per_rule}")
+
+    # (ii) PredictionBonus over AE2D (two kernels) over RND2D, learning online;
+    # only the prediction bonus is scaled in, so reward = 0.1 - prediction error
+    n, steps = 64, 256
+    cfg = EnvConfig(instances=n)
+    defs = [rnd2d_def(cfg, reward_scale=0.0), ae2d_def(cfg, reward_scale=0.0, whole_ae=False),
+            prediction_def(cfg)]
+    ro = Rollout(cfg, defs, make_random_agent(64, 64, 0.1), device="cuda")
+    carry = ro.init(ro.generator(0), rules.LIFE)
+    t1 = time.perf_counter()
+    carry, rewards = ro.run(carry, steps)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    check(bool(torch.isfinite(rewards).all()), "training rewards are not finite")
+    updates = [int(ws.updates) for ws in carry.stack.wrappers]
+    check(updates == [steps // 64] * 3, f"learners report {updates} updates")
+    error = 0.1 - rewards[:, :, 0].mean(dim=1).double().cpu().numpy()   # every universe alive
+    first, last = float(error[:64].mean()), float(error[-64:].mean())
+    check(last < first, f"the prediction error did not fall: {first:.4e} in the first 64 "
+          f"steps, {last:.4e} in the last")
+    ring = carry.stack.wrappers[2].extra
+    check(int(ring.count) == 5 and torch.equal(ring.frames[:, 4], carry.stack.env.grid[:, None]),
+          "the frame ring does not end with the current frame")
+
+    # (iii) ae_forward on the shipped AE2D checkpoint against the fused error
+    p = shipped["AE2D"].params
+    obs = carry.stack.env.grid[:, None].contiguous()
+    recon = ae_forward(p, obs)
+    check(recon.shape == obs.shape and float(recon.min()) >= 0.0 and float(recon.max()) <= 1.0,
+          "ae_forward's reconstruction is not an image in [0, 1]")
+    via_recon = ((obs.to(torch.float32) - recon) ** 2).sum(dim=(1, 2, 3))
+    fused = cuda_head.ae_loss_fwd(obs, *(p[k][t] for k in ("conv1", "conv2", "deconv1", "deconv2")
+                                         for t in ("w", "b")), obs)
+    torch.testing.assert_close(via_recon, fused, rtol=1e-4, atol=0)
+    counts = cuda_build.launch_counts()
+
+    # card against CPU: the nine-wrapper stack frozen, then the learning stack
+    small = EnvConfig(instances=10)
+    bits = [ev.battery_rule_bits(rs, True) for rs in ev.DEFAULT_RULES] * 2
+    both, _ = _card_vs_cpu(torch, small, lambda: ev.wrapper_defs(small, specs, True),
+                           _battery_actions(small, 32), bits,
+                           lambda ws: ev.inject_wrapper_checkpoints(ws, specs))
+    torch.testing.assert_close(both["cuda"], both["cpu"], rtol=1e-4, atol=1e-5)
+    nine_diff = float((both["cuda"] - both["cpu"]).abs().max())
+    learn_diff = _training_parity(
+        torch, lambda c, kw: [rnd2d_def(c, **kw), ae2d_def(c, whole_ae=False, **kw),
+                              prediction_def(c, **kw)], "prediction stack")
+    e2e = {
+        "battery_nine_score": score, "battery_nine_per_ruleset": [float(v) for v in per_rule],
+        "battery_nine_s": battery_s, "battery_nine_universe_steps_per_s": 160 * 256 / battery_s,
+        "train_universes": n, "train_steps": steps, "train_s": train_s,
+        "train_universe_steps_per_s": n * steps / train_s, "updates": updates,
+        "prediction_error_first_64": first, "prediction_error_last_64": last,
+        "ae_forward_vs_fused_max_rel_diff": float(((via_recon - fused).abs() / fused).max()),
+        "nine_card_vs_cpu_max_abs_diff": nine_diff,
+        "prediction_stack_card_vs_cpu_max_rel_diff": learn_diff,
+    }
+    log(f"wrappers ok: {json.dumps(e2e)}")
+    log(f"wrappers launches: {json.dumps(counts)}")
+    return counts, e2e
 
 
 def _profile_steps(torch, ro, carry, steps, universes):
@@ -748,6 +1200,7 @@ def main() -> int:
         shipped = shipped_states(torch)
         timer = Timer(torch)
         results = phase_kernels(torch, timer, shipped)
+        routes_counts, routes = phase_routes(torch, timer, cuda_build)
         del timer
         torch.cuda.empty_cache()
         battery_counts, e2e = phase_battery(torch, cuda_build)
@@ -755,6 +1208,7 @@ def main() -> int:
         server_counts, server = phase_server(torch, cuda_build)
         train_counts, train = phase_train(torch, cuda_build)
         train_parity_diff = phase_train_parity(torch)
+        wrappers_counts, wrappers = phase_wrappers(torch, cuda_build, shipped)
         profile = phase_profile(torch)
         log(f"profile: {json.dumps(profile)}")
         profile_train = phase_profile_train(torch)
@@ -765,7 +1219,8 @@ def main() -> int:
         return 1
 
     path_counts = {"battery": battery_counts, "server": server_counts,
-                   "train": train_counts}
+                   "train": train_counts, "routes": routes_counts,
+                   "wrappers": wrappers_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -788,7 +1243,8 @@ def main() -> int:
         "launches": path_counts,
         "e2e": e2e, "server": server, "run_actions_max_abs_diff": parity_diff,
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
-        "dropout": results["dropout"],
+        "routes": routes, "wrappers": wrappers,
+        "dropout": results["dropout"], "ae_loss_src_not_obs": results["ae_loss_src_not_obs"],
         "profile": profile, "profile_train": profile_train,
         "total_s": time.perf_counter() - t_start,
     }
@@ -796,8 +1252,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
-    log(json.dumps({k: report[k] for k in ("launches", "e2e", "server", "train",
-                                           "total_s")}))
+    log(json.dumps({k: report[k] for k in ("launches", "e2e", "server", "train", "routes",
+                                           "wrappers", "total_s")}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

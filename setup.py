@@ -64,7 +64,7 @@ setup(
     packages=find_packages(include=["carle_tpu", "carle_tpu.*", "evaluation",
                                     "carle_tpu_torch", "carle_tpu_torch.*"]),
     package_data={"carle_tpu": ["patterns/*.rle", "native/*.so"],
-                  "carle_tpu_torch": ["csrc/*", "evaluation/*.npz"]},
+                  "carle_tpu_torch": ["csrc/*", "evaluation/*.npz", "patterns/*.rle"]},
     ext_modules=_NATIVE,
     cmdclass={"build_ext": build_ctypes},
     install_requires=["jax", "numpy", "optax"],

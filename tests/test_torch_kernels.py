@@ -1,4 +1,4 @@
-"""The six CUDA kernels of carle_tpu_torch against their plain twins.
+"""The CUDA kernels of carle_tpu_torch against their plain twins.
 
 These tests need an NVIDIA card and the CUDA toolkit; without a card they
 skip.  They import neither JAX nor carle_tpu, so they also run where JAX is
@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from carle_tpu_torch import EnvConfig, rules
-from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca, cuda_head
+from carle_tpu_torch.ops import (bitpack, cuda_bitpack, cuda_build, cuda_ca, cuda_head,
+                                 cuda_stages)
 
 
 @pytest.fixture
@@ -181,6 +182,149 @@ def test_ae_loss_dropout_and_backward_kernels_match_plain(cuda, shape, chans, dr
     assert all(torch.equal(a, b) for a, b in zip(auto, grads))
 
 
+def _repeatable(fn):
+    """fn() twice: the same bits, returned once."""
+    first, again = fn(), fn()
+    assert all(torch.equal(a, b) for a, b in zip(first, again) if a is not None)
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("geom", [  # pool, c, o, n, h, w, cells, stage
+    (2, 1, 4, 8, 256, 256, True, 0),     # AE conv1 on cells
+    (2, 4, 2, 8, 128, 128, False, 1),    # AE conv2 (need_dx)
+    (4, 1, 4, 8, 256, 256, True, 0),     # RND conv1
+    (2, 4, 1, 8, 64, 64, False, 1),      # RND conv2
+    (8, 3, 5, 2, 80, 48, False, 0),      # ragged bands, two Philox groups
+    (2, 8, 8, 1, 256, 256, False, 1),    # the widest stage: the band shrinks
+])
+def test_head_kernels_match_plain(cuda, geom, drop_p):
+    pool, c, o, n, h, w, cells, stage = geom
+    rng = np.random.RandomState(11 * h + c)
+    if cells:
+        x = torch.from_numpy(_soup(n, (n, c, h, w), 0.3)).to(cuda)
+    else:
+        x = torch.from_numpy(np.maximum(rng.randn(n, c, h, w), 0).astype(np.float32)).to(cuda)
+    x[0, :, : h // 2] = 0   # a blank band: whole pool windows tie
+    wt, b = (p.to(cuda) for p in _params(rng, [(o, c, 3, 3), (o,)]))
+    b = b.abs()
+    g = torch.from_numpy(rng.randn(n, o, h // pool, w // pool).astype(np.float32)).to(cuda)
+    seed = 20240301 + h
+    before = cuda_stages.HEAD_FWD.launches
+    got = cuda_stages.head_fwd(x, wt, b, pool, drop_p, seed, stage)
+    assert cuda_stages.HEAD_FWD.launches == before + 1
+    torch.testing.assert_close(got, cuda_stages.head_fwd_plain(x, wt, b, pool, drop_p, seed, stage),
+                               rtol=1e-4, atol=1e-4)
+    for need_dx in (False, True):
+        grads = _repeatable(lambda: cuda_stages.head_bwd(x, wt, b, g, pool, drop_p, seed, stage,
+                                                         need_dx))
+        twin = cuda_stages.head_bwd_plain(x, wt, b, g, pool, drop_p, seed, stage, need_dx)
+        assert (grads[2] is None) == (not need_dx)
+        _assert_leaves_close([a for a in grads if a is not None],
+                             [t for t in twin if t is not None])
+    if not cells:   # through autograd: the Function's backward is the kernel
+        leaves = [t.clone().requires_grad_(True) for t in (x, wt, b)]
+        out = cuda_stages.head(*leaves, pool, drop_p, seed, stage, need_dx=True)
+        auto = torch.autograd.grad((out * g).sum(), leaves)
+        assert all(torch.equal(a, t) for a, t in zip(auto, (grads[2], grads[0], grads[1])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("act", ["relu", "sigmoid"])
+@pytest.mark.parametrize("geom", [  # n, cin, cout, h, w, stage
+    (8, 2, 1, 64, 64, 2),       # AE deconv1
+    (8, 1, 1, 128, 128, 3),     # AE deconv2
+    (2, 3, 5, 20, 24, 2),       # ragged bands, two Philox groups
+])
+def test_tail_kernels_match_plain(cuda, geom, act, drop_p):
+    n, cin, cout, h, w, stage = geom
+    rng = np.random.RandomState(13 * h + cin)
+    x = torch.from_numpy(np.maximum(rng.randn(n, cin, h, w), 0).astype(np.float32)).to(cuda)
+    wt, b = (p.to(cuda) for p in _params(rng, [(cin, cout, 4, 4), (cout,)]))
+    g = torch.from_numpy(rng.randn(n, cout, 2 * h, 2 * w).astype(np.float32)).to(cuda)
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    seed = 77001 + w
+    args = (act, drop_p, seed, stage)
+    torch.testing.assert_close(cuda_stages.tail_fwd(x, wt, b, *args),
+                               cuda_stages.tail_fwd_plain(x, wt, b, *args), rtol=1e-4, atol=1e-4)
+    grads = _repeatable(lambda: cuda_stages.tail_bwd(x, wt, b, g, *args))
+    _assert_leaves_close(grads, cuda_stages.tail_bwd_plain(x, wt, b, g, *args))
+    leaves = [t.clone().requires_grad_(True) for t in (x, wt, b)]
+    auto = torch.autograd.grad((cuda_stages.tail(*leaves, *args) * g).sum(), leaves)
+    assert all(torch.equal(a, t) for a, t in zip(auto, (grads[2], grads[0], grads[1])))
+    for obs in (torch.from_numpy(_soup(n, (n, cout, 2 * h, 2 * w), 0.3)).to(cuda),
+                torch.from_numpy(rng.rand(n, cout, 2 * h, 2 * w).astype(np.float32)).to(cuda)):
+        err = cuda_stages.loss_tail_fwd(x, wt, b, obs, *args)
+        assert torch.equal(err, cuda_stages.loss_tail_fwd(x, wt, b, obs, *args))
+        torch.testing.assert_close(err, cuda_stages.loss_tail_fwd_plain(x, wt, b, obs, *args),
+                                   rtol=1e-4, atol=1e-4)
+        grads = _repeatable(lambda: cuda_stages.loss_tail_bwd(x, wt, b, obs, gbar, *args))
+        _assert_leaves_close(grads, cuda_stages.loss_tail_bwd_plain(x, wt, b, obs, gbar, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("shape,chans", [((8, 256, 256), (2, 1, 1)),
+                                         ((3, 24, 40), (2, 1, 1)),
+                                         ((1, 72, 16), (3, 2, 5))])
+def test_decoder_loss_kernels_match_plain(cuda, shape, chans, drop_p):
+    n, h, w = shape
+    c2, cm, co = chans
+    rng = np.random.RandomState(h + w)
+    x = torch.from_numpy(np.maximum(rng.randn(n, c2, h // 4, w // 4), 0)
+                         .astype(np.float32)).to(cuda)
+    ps = [p.to(cuda) for p in _params(rng, [(c2, cm, 4, 4), (cm,), (cm, co, 4, 4), (co,)])]
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    seed = 555000111 + h
+    for obs in (torch.from_numpy(_soup(n, (n, co, h, w), 0.3)).to(cuda),
+                torch.from_numpy(rng.rand(n, co, h, w).astype(np.float32)).to(cuda)):
+        got = cuda_stages.decoder_loss_fwd(x, *ps, obs, drop_p, seed)
+        assert torch.equal(got, cuda_stages.decoder_loss_fwd(x, *ps, obs, drop_p, seed))
+        torch.testing.assert_close(
+            got, cuda_stages.decoder_loss_fwd_plain(x, *ps, obs, drop_p, seed),
+            rtol=1e-4, atol=1e-4)
+        grads = _repeatable(lambda: cuda_stages.decoder_loss_bwd(x, *ps, obs, gbar, drop_p, seed))
+        _assert_leaves_close(grads, cuda_stages.decoder_loss_bwd_plain(x, *ps, obs, gbar,
+                                                                        drop_p, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+def test_ae_routes_agree_on_the_card(cuda, drop_p):
+    """One, two and four kernels, src != obs, through autograd: the
+    embedding's cotangent flows from DecoderLossFn into EncoderFn."""
+    from carle_tpu_torch import nets
+
+    n, h, w, seed = 4, 64, 96, 31337
+    rng = np.random.RandomState(5)
+    src = torch.from_numpy(_soup(1, (n, 1, h, w), 0.3)).to(cuda)
+    obs = torch.from_numpy(_soup(2, (n, 1, h, w), 0.3)).to(cuda)
+    names = ("conv1", "conv2", "deconv1", "deconv2")
+    shapes = [(4, 1, 3, 3), (4,), (2, 4, 3, 3), (2,), (2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)]
+    flat = [p.to(cuda) for p in _params(rng, shapes)]
+    results = []
+    for route in ("one", "two", "four"):
+        leaves = [p.clone().requires_grad_(True) for p in flat]
+        params = {k: {"w": leaves[2 * i], "b": leaves[2 * i + 1]} for i, k in enumerate(names)}
+        kw = dict(drop_p=drop_p, train=True, seed=seed)
+        if route == "one":
+            err = nets.conv_ae_loss(src, *params.values(), obs, pools=(2, 2), **kw)
+        elif route == "two":
+            emb = nets.conv_encoder(src, params["conv1"], params["conv2"], pools=(2, 2), **kw)
+            err = nets.conv_decoder_loss(emb, params["deconv1"], params["deconv2"], obs, **kw)
+        else:
+            err = nets.ae_loss_by_stages(params, src, obs, **kw)
+        results.append((err.detach(), torch.autograd.grad(err.mean(), leaves)))
+    for err, grads in results[1:]:
+        torch.testing.assert_close(err, results[0][0], rtol=1e-4, atol=0)
+        _assert_leaves_close(grads, results[0][1])
+    with torch.no_grad():   # the same error, src != obs, against the twin
+        want = cuda_head.ae_loss_fwd_plain(src, *flat, obs, (2, 2), drop_p, seed)
+    torch.testing.assert_close(results[0][0], want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     cfg = EnvConfig(32, 32, 8, 8, 2)
@@ -194,7 +338,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 
 def test_launch_table_covers_every_source():
-    assert set(cuda_build.KERNELS) == set(cuda_build.SOURCES)
+    assert {k.source for k in cuda_build.KERNELS.values()} == set(cuda_build.SOURCES)
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").exists()
         assert cuda_build.library_path(name).name.startswith(name + "-")
