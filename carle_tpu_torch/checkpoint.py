@@ -121,11 +121,14 @@ def _nest(flat: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
 
 
 def _tensor(a, device) -> torch.Tensor:
-    """Float leaves become float32 tensors, uint8 (cells, frames) and bool
-    leaves keep their type, other integer leaves become int32."""
+    """Float leaves become float32 tensors, uint8 (cells, frames), uint32
+    (packed frames) and bool leaves keep their type, other integer leaves
+    become int32."""
     a = np.asarray(a)
-    if a.dtype in (np.uint8, np.bool_):
-        dtype = torch.uint8 if a.dtype == np.uint8 else torch.bool
+    kept = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint32): torch.uint32,
+            np.dtype(np.bool_): torch.bool}
+    if a.dtype in kept:
+        dtype = kept[a.dtype]
     else:
         dtype = torch.int32 if np.issubdtype(a.dtype, np.integer) else torch.float32
     return torch.tensor(a, dtype=dtype, device=device)

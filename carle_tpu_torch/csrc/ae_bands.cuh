@@ -59,10 +59,10 @@ __device__ __forceinline__ AEBand ae_band_layout(float* smem, const AEShape& sh,
 }
 
 // Loads the weights, stages the input rows into xs and fills x1s, es and ms.
-// Ends with a __syncthreads().
-template <bool DROP>
+// src: cells or packed words (common.cuh).  Ends with a __syncthreads().
+template <bool DROP, typename SRC>
 __device__ __forceinline__ void ae_band_forward(
-    const AEBand& b, uint8_t* xs, const uint8_t* __restrict__ src,
+    const AEBand& b, uint8_t* xs, const SRC* __restrict__ src,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ wt1, const float* __restrict__ bt1,
@@ -78,7 +78,7 @@ __device__ __forceinline__ void ae_band_forward(
     copy_floats(b.bt1s, bt1, CMID);
     copy_floats(b.wt2s, wt2, CMID * COUT * 16);
     copy_floats(b.bt2s, bt2, COUT);
-    stage_cells(xs, src + static_cast<size_t>(n) * H * W, b.I0, b.IR, H, W);
+    stage_cells(xs, cells_at(src, static_cast<size_t>(n) * H * W), b.I0, b.IR, H, W);
     __syncthreads();
     // encoder stage 1 -> x1s (zero outside the universe: stage 2's padding)
     encoder_stage1_band<2, DROP>(xs, b.I0, W, b.w1s, b.b1s, C1, b.x1s, b.X0, b.XR, H1, n, cfg);
@@ -115,7 +115,8 @@ __device__ __forceinline__ void decoder_band_forward(
 }
 
 // Decoder stage 2 (transpose conv + sigmoid) on the band's RY output rows and
-// the squared error against obs [N, COUT, H, W] (cells or floats); the block's
+// the squared error against obs [N, COUT, H, W] (cells, packed words or
+// floats); the block's
 // sum, in a fixed order (warp trees, then the warps in turn), goes to
 // partials[n][band].  red needs 32 floats.  (The addresses are formed where
 // they are used: a pointer held across the loop costs the inference kernel
@@ -128,7 +129,7 @@ __device__ __forceinline__ void decoder_stage2_error(const AEBand& b, float* red
                                                      float* __restrict__ partials) {
     const int H = sh.H, W = sh.W, COUT = sh.COUT, RY = sh.RY;
     const int tid = threadIdx.x, nt = blockDim.x;
-    const OBS* on = obs + static_cast<size_t>(n) * COUT * H * W;
+    const OBS* on = cells_at(obs, static_cast<size_t>(n) * COUT * H * W);
     float part = 0.f;
     for (int i = tid; i < RY * W; i += nt) {
         const int lr = i / W, xo = i - lr * W;
@@ -143,7 +144,7 @@ __device__ __forceinline__ void decoder_stage2_error(const AEBand& b, float* red
             if (o < COUT) {
                 const float r = DROP ? drop_apply(acc[o], keep, o, cfg.scale) : acc[o];
                 const float y = 1.f / (1.f + expf(-r));
-                const float d = static_cast<float>(on[(static_cast<size_t>(o) * H + gy) * W + xo]) - y;
+                const float d = cell_value(on, (static_cast<size_t>(o) * H + gy) * W + xo) - y;
                 part += d * d;
             }
         }

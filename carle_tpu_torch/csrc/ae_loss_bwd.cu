@@ -30,9 +30,9 @@ __host__ __device__ inline size_t ae_bwd_decoder_smem(const AEShape& sh) {
            static_cast<size_t>(sh.RY + 14) * (sh.W + 2);
 }
 
-template <bool DROP>
+template <bool DROP, typename SRC, typename OBS>
 __global__ void ae_bwd_decoder_kernel(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ obs,
+    const SRC* __restrict__ src, const OBS* __restrict__ obs,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ wt1, const float* __restrict__ bt1,
@@ -47,22 +47,22 @@ __global__ void ae_bwd_decoder_kernel(
     float* scratch = b.end;                  // decoder_bwd_floats
     uint8_t* xs = reinterpret_cast<uint8_t*>(scratch + decoder_bwd_floats(sh));
     ae_band_forward<DROP>(b, xs, src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, sh, n, cfg);
-    decoder_backward_band<DROP>(b, scratch, obs + static_cast<size_t>(n) * sh.COUT * sh.H * sh.W,
+    decoder_backward_band<DROP>(b, scratch, cells_at(obs, static_cast<size_t>(n) * sh.COUT * sh.H * sh.W),
                                 gbar[n], gmid, partials, sh, Y0, n, cfg);
 }
 
-template <bool DROP>
+template <bool DROP, typename SRC, typename OBS>
 static int decoder_bwd_as(const void* src, const void* obs, const void* w1, const void* b1,
                           const void* w2, const void* b2, const void* wt1, const void* bt1,
                           const void* wt2, const void* bt2, const void* gbar, void* gmid,
                           void* part3, int N, const AEShape& sh, size_t bytes,
                           const DropCfg& cfg, cudaStream_t s) {
-    const auto kernel = ae_bwd_decoder_kernel<DROP>;
+    const auto kernel = ae_bwd_decoder_kernel<DROP, SRC, OBS>;
     cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int bands = (sh.H + sh.RY - 1) / sh.RY;
     KERNEL_LAUNCH(kernel, dim3(bands, N), 256, bytes, s,
-                  static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(obs),
+                  static_cast<const SRC*>(src), static_cast<const OBS*>(obs),
                   static_cast<const float*>(w1), static_cast<const float*>(b1),
                   static_cast<const float*>(w2), static_cast<const float*>(b2),
                   static_cast<const float*>(wt1), static_cast<const float*>(bt1),
@@ -72,6 +72,29 @@ static int decoder_bwd_as(const void* src, const void* obs, const void* w1, cons
     return static_cast<int>(cudaGetLastError());
 }
 
+template <bool DROP, typename SRC>
+static int decoder_bwd_obs(int obs_kind, const void* src, const void* obs, const void* w1,
+                           const void* b1, const void* w2, const void* b2, const void* wt1,
+                           const void* bt1, const void* wt2, const void* bt2, const void* gbar,
+                           void* gmid, void* part3, int N, const AEShape& sh, size_t bytes,
+                           const DropCfg& cfg, cudaStream_t s) {
+    if (obs_kind == KIND_U32)
+        return decoder_bwd_as<DROP, SRC, uint32_t>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s);
+    return decoder_bwd_as<DROP, SRC, uint8_t>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s);
+}
+
+template <bool DROP>
+static int decoder_bwd_src(int src_kind, int obs_kind, const void* src, const void* obs,
+                           const void* w1, const void* b1, const void* w2, const void* b2,
+                           const void* wt1, const void* bt1, const void* wt2, const void* bt2,
+                           const void* gbar, void* gmid, void* part3, int N, const AEShape& sh,
+                           size_t bytes, const DropCfg& cfg, cudaStream_t s) {
+    if (src_kind == KIND_U32)
+        return decoder_bwd_obs<DROP, uint32_t>(obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s);
+    return decoder_bwd_obs<DROP, uint8_t>(obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s);
+}
+
+// src_kind, obs_kind: KIND_U8 cells or KIND_U32 packed words, each on its own.
 // Scratch: gmid N x CMID x H/2 x W/2, gemb N x C2 x H/4 x W/4, gc2 N x C2 x
 // H/2 x W/2, part3 N x ceil(H / RY) x (C2 CMID 16 + CMID + CMID COUT 16 +
 // COUT), part2 and part1 as encoder_bwd_launch; grads receives dW1, db1,
@@ -83,19 +106,21 @@ extern "C" int ae_loss_bwd_launch(
     const void* gbar, void* gmid, void* gemb, void* gc2, void* part3, void* part2,
     void* part1, void* grads, int N, int H, int W, int C1, int C2, int CMID, int COUT,
     int RY, int R2, int RB, long long smem3, long long smem2, long long smem1,
-    double drop_p, unsigned long long seed, int device, void* stream) {
+    int src_kind, int obs_kind, double drop_p, unsigned long long seed, int device,
+    void* stream) {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     const AEShape sh{H, W, C1, C2, CMID, COUT, RY};
     if (C1 > MAXC || C2 > MAXC || CMID > MAXC || COUT > MAXC || RY % 4 || drop_p < 0.0 ||
-        drop_p >= 1.0 || static_cast<size_t>(smem3) != ae_bwd_decoder_smem(sh))
+        drop_p >= 1.0 || static_cast<size_t>(smem3) != ae_bwd_decoder_smem(sh) ||
+        !cell_kinds_ok(src_kind, obs_kind, W))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const DropCfg cfg = make_drop_cfg(drop_p, seed);
     const size_t bytes = static_cast<size_t>(smem3);
     int rc = drop_p > 0.0
-        ? decoder_bwd_as<true>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s)
-        : decoder_bwd_as<false>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s);
+        ? decoder_bwd_src<true>(src_kind, obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s)
+        : decoder_bwd_src<false>(src_kind, obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, gbar, gmid, part3, N, sh, bytes, cfg, s);
     if (rc != 0) return rc;
     const size_t total = static_cast<size_t>(N) * C2 * (H / 4) * (W / 4);
     const int blocks = static_cast<int>((total + 255) / 256);
@@ -105,7 +130,8 @@ extern "C" int ae_loss_bwd_launch(
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     const EncBwdArgs a{src, w1, b1, w2, b2, gemb, gc2, part2, part1, grads, N, H, W, C1, C2,
-                       R2, RB, static_cast<size_t>(smem2), static_cast<size_t>(smem1)};
+                       R2, RB, static_cast<size_t>(smem2), static_cast<size_t>(smem1),
+                       src_kind};
     rc = encoder_bwd_run(a, 2, 2, drop_p, cfg, s);
     if (rc != 0) return rc;
     const int K12 = C1 * 9 + C1 + C2 * C1 * 9 + C2;

@@ -11,7 +11,8 @@
 //
 // Dropout (training only, drop_p > 0) is in-kernel Philox indexed by the
 // element (philox.cuh); a dropped cell of the last stage gives sigmoid(0) =
-// 0.5.  With drop_p == 0 the kernel is instantiated without it.
+// 0.5.  With drop_p == 0 the kernel is instantiated without it.  src and obs
+// are each uint8 cells or packed uint32 words (common.cuh), read as cells.
 //
 // Bound on an H100: operations.  Per cell of the universe the net does about
 // 9 C1 + (9 C1 C2 + 4 C2 CMID) / 4 + 4 CMID COUT multiply-adds on float32
@@ -28,9 +29,9 @@
 // run to run.
 #include "ae_bands.cuh"
 
-template <bool DROP>
+template <bool DROP, typename SRC, typename OBS>
 __global__ void ae_loss_fwd_kernel(
-    const uint8_t* __restrict__ src, const uint8_t* __restrict__ obs,
+    const SRC* __restrict__ src, const OBS* __restrict__ obs,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ wt1, const float* __restrict__ bt1,
@@ -49,17 +50,17 @@ __global__ void ae_loss_fwd_kernel(
     decoder_stage2_error<DROP>(b, red, obs, sh, Y0, n, cfg, partials);
 }
 
-template <bool DROP>
+template <bool DROP, typename SRC, typename OBS>
 static int launch_as(const void* src, const void* obs, const void* w1, const void* b1,
                      const void* w2, const void* b2, const void* wt1, const void* bt1,
                      const void* wt2, const void* bt2, void* partials, int N,
                      const AEShape& sh, size_t bytes, const DropCfg& cfg, cudaStream_t s) {
-    const auto kernel = ae_loss_fwd_kernel<DROP>;
+    const auto kernel = ae_loss_fwd_kernel<DROP, SRC, OBS>;
     cudaError_t e = allow_smem(kernel, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int bands = (sh.H + sh.RY - 1) / sh.RY;
     KERNEL_LAUNCH(kernel, dim3(bands, N), 256, bytes, s,
-                  static_cast<const uint8_t*>(src), static_cast<const uint8_t*>(obs),
+                  static_cast<const SRC*>(src), static_cast<const OBS*>(obs),
                   static_cast<const float*>(w1), static_cast<const float*>(b1),
                   static_cast<const float*>(w2), static_cast<const float*>(b2),
                   static_cast<const float*>(wt1), static_cast<const float*>(bt1),
@@ -68,19 +69,42 @@ static int launch_as(const void* src, const void* obs, const void* w1, const voi
     return static_cast<int>(cudaGetLastError());
 }
 
+template <bool DROP, typename SRC>
+static int launch_obs(int obs_kind, const void* src, const void* obs, const void* w1,
+                      const void* b1, const void* w2, const void* b2, const void* wt1,
+                      const void* bt1, const void* wt2, const void* bt2, void* partials, int N,
+                      const AEShape& sh, size_t bytes, const DropCfg& cfg, cudaStream_t s) {
+    if (obs_kind == KIND_U32)
+        return launch_as<DROP, SRC, uint32_t>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+    return launch_as<DROP, SRC, uint8_t>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+}
+
+template <bool DROP>
+static int launch_src(int src_kind, int obs_kind, const void* src, const void* obs,
+                      const void* w1, const void* b1, const void* w2, const void* b2,
+                      const void* wt1, const void* bt1, const void* wt2, const void* bt2,
+                      void* partials, int N, const AEShape& sh, size_t bytes,
+                      const DropCfg& cfg, cudaStream_t s) {
+    if (src_kind == KIND_U32)
+        return launch_obs<DROP, uint32_t>(obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+    return launch_obs<DROP, uint8_t>(obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+}
+
 // smem must equal the layout above (ops/cuda_head.py::_ae_smem); partials is
-// scratch of N x bands floats, bands = ceil(H / RY).
+// scratch of N x bands floats, bands = ceil(H / RY).  src_kind and obs_kind:
+// KIND_U8 cells or KIND_U32 packed words, each on its own.
 extern "C" int ae_loss_fwd_launch(const void* src, const void* obs, const void* w1,
                                   const void* b1, const void* w2, const void* b2,
                                   const void* wt1, const void* bt1, const void* wt2,
                                   const void* bt2, void* partials, void* err, int N,
                                   int H, int W, int C1, int C2, int CMID, int COUT,
-                                  int RY, long long smem, double drop_p,
-                                  unsigned long long seed, int device, void* stream) {
+                                  int RY, long long smem, int src_kind, int obs_kind,
+                                  double drop_p, unsigned long long seed, int device,
+                                  void* stream) {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (C1 > MAXC || C2 > MAXC || CMID > MAXC || COUT > MAXC || RY % 4 ||
-        drop_p < 0.0 || drop_p >= 1.0)
+        drop_p < 0.0 || drop_p >= 1.0 || !cell_kinds_ok(src_kind, obs_kind, W))
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t bytes = static_cast<size_t>(smem);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -88,8 +112,8 @@ extern "C" int ae_loss_fwd_launch(const void* src, const void* obs, const void* 
     const AEShape sh{H, W, C1, C2, CMID, COUT, RY};
     const DropCfg cfg = make_drop_cfg(drop_p, seed);
     const int rc = drop_p > 0.0
-        ? launch_as<true>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s)
-        : launch_as<false>(src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+        ? launch_src<true>(src_kind, obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s)
+        : launch_src<false>(src_kind, obs_kind, src, obs, w1, b1, w2, b2, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
     if (rc != 0) return rc;
     KERNEL_LAUNCH(row_sums_kernel, (N + 127) / 128, 128, 0, s,
                   static_cast<const float*>(partials), bands, static_cast<float*>(err), N);

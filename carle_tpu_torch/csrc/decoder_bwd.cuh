@@ -31,7 +31,7 @@ __host__ __device__ inline size_t decoder_bwd_floats(const AEShape& sh) {
 }
 
 // scratch: decoder_bwd_floats(sh) floats after the band buffers.  on: instance
-// n's obs [COUT, H, W], cells or floats.  Every thread of the block calls it.
+// n's obs [COUT, H, W], cells, packed words or floats.  Every thread of the block calls it.
 template <bool DROP, typename OBS>
 __device__ __forceinline__ void decoder_backward_band(
     const AEBand& b, float* scratch, const OBS* __restrict__ on, float gbar_n,
@@ -65,7 +65,7 @@ __device__ __forceinline__ void decoder_backward_band(
                 if (inside) {
                     const float r = DROP ? drop_apply(acc[o], keep, o, cfg.scale) : acc[o];
                     const float y = 1.f / (1.f + expf(-r));
-                    const float t = static_cast<float>(on[(static_cast<size_t>(o) * H + gy) * W + xo]);
+                    const float t = cell_value(on, (static_cast<size_t>(o) * H + gy) * W + xo);
                     gc = gb2 * (y - t) * y * (1.f - y);
                     if (DROP) gc = ((keep >> o) & 1u) ? gc * cfg.scale : 0.f;
                 }

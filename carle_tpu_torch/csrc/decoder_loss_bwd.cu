@@ -41,7 +41,7 @@ __global__ void decoder_loss_bwd_kernel(
     AEBand b = ae_band_layout(smem, sh, Y0);
     decoder_band_forward<DROP>(b, x + static_cast<size_t>(n) * sh.C2 * (plane / 16), wt1, bt1,
                                wt2, bt2, sh, n, cfg);
-    decoder_backward_band<DROP>(b, b.end, obs + static_cast<size_t>(n) * sh.COUT * plane, gbar[n],
+    decoder_backward_band<DROP>(b, b.end, cells_at(obs, static_cast<size_t>(n) * sh.COUT * plane), gbar[n],
                                 gmid, partials, sh, Y0, n, cfg);
 }
 
@@ -62,6 +62,19 @@ static int launch_as(const void* x, const void* obs, const void* wt1, const void
     return static_cast<int>(cudaGetLastError());
 }
 
+template <bool DROP>
+static int launch_obs(int obs_kind, const void* x, const void* obs, const void* wt1,
+                      const void* bt1, const void* wt2, const void* bt2, const void* gbar,
+                      void* gmid, void* partials, int N, const AEShape& sh, size_t bytes,
+                      const DropCfg& cfg, cudaStream_t s) {
+    if (obs_kind == KIND_U8)
+        return launch_as<DROP, uint8_t>(x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s);
+    if (obs_kind == KIND_U32)
+        return launch_as<DROP, uint32_t>(x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s);
+    return launch_as<DROP, float>(x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s);
+}
+
+// obs_kind: KIND_F32, KIND_U8 cells or KIND_U32 packed words.
 // Scratch: gmid N x CMID x H/2 x W/2, partials N x ceil(H / RY) x K with
 // K = C2 CMID 16 + CMID + CMID COUT 16 + COUT; grads receives dWt1, dbt1, dWt2,
 // dbt2 one after the other, gx the embedding's cotangent.  smem must equal
@@ -69,24 +82,23 @@ static int launch_as(const void* x, const void* obs, const void* wt1, const void
 extern "C" int decoder_loss_bwd_launch(
     const void* x, const void* obs, const void* wt1, const void* bt1, const void* wt2,
     const void* bt2, const void* gbar, void* gmid, void* partials, void* grads, void* gx,
-    int N, int H, int W, int C2, int CMID, int COUT, int RY, long long smem, int obs_is_u8,
+    int N, int H, int W, int C2, int CMID, int COUT, int RY, long long smem, int obs_kind,
     double drop_p, unsigned long long seed, int device, void* stream) {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     const AEShape sh{H, W, 0, C2, CMID, COUT, RY};
     const size_t bytes = static_cast<size_t>(smem);
     if (C2 > MAXC || CMID > MAXC || COUT > MAXC || RY % 4 || H % 4 || W % 4 || drop_p < 0.0 ||
-        drop_p >= 1.0 || bytes != decoder_loss_bwd_smem(sh))
+        drop_p >= 1.0 || bytes != decoder_loss_bwd_smem(sh) || obs_kind < KIND_F32 ||
+        obs_kind > KIND_U32 || (obs_kind == KIND_U32 && W % 32))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const DropCfg cfg = make_drop_cfg(drop_p, seed);
     int rc;
     if (drop_p > 0.0)
-        rc = obs_is_u8 ? launch_as<true, uint8_t>(x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s)
-                       : launch_as<true, float>(x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s);
+        rc = launch_obs<true>(obs_kind, x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s);
     else
-        rc = obs_is_u8 ? launch_as<false, uint8_t>(x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s)
-                       : launch_as<false, float>(x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s);
+        rc = launch_obs<false>(obs_kind, x, obs, wt1, bt1, wt2, bt2, gbar, gmid, partials, N, sh, bytes, cfg, s);
     if (rc != 0) return rc;
     const size_t total = static_cast<size_t>(N) * C2 * (H / 4) * (W / 4);
     KERNEL_LAUNCH(deconv_input_grad_kernel, static_cast<int>((total + 255) / 256), 256, 0, s,

@@ -55,6 +55,18 @@ static int launch_as(const void* x, const void* obs, const void* wt1, const void
     return static_cast<int>(cudaGetLastError());
 }
 
+template <bool DROP>
+static int launch_obs(int obs_kind, const void* x, const void* obs, const void* wt1,
+                      const void* bt1, const void* wt2, const void* bt2, void* partials, int N,
+                      const AEShape& sh, size_t bytes, const DropCfg& cfg, cudaStream_t s) {
+    if (obs_kind == KIND_U8)
+        return launch_as<DROP, uint8_t>(x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+    if (obs_kind == KIND_U32)
+        return launch_as<DROP, uint32_t>(x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+    return launch_as<DROP, float>(x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+}
+
+// obs_kind: KIND_F32, KIND_U8 cells or KIND_U32 packed words.
 // smem must be 4 (ae_band_floats with C1 = 0, + 32) bytes
 // (ops/cuda_stages.py::_decoder_smem); partials is scratch of N x bands
 // floats, bands = ceil(H / RY).  H and W are the output's.
@@ -62,24 +74,23 @@ extern "C" int decoder_loss_fwd_launch(const void* x, const void* obs, const voi
                                        const void* bt1, const void* wt2, const void* bt2,
                                        void* partials, void* err, int N, int H, int W, int C2,
                                        int CMID, int COUT, int RY, long long smem,
-                                       int obs_is_u8, double drop_p, unsigned long long seed,
+                                       int obs_kind, double drop_p, unsigned long long seed,
                                        int device, void* stream) {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     const AEShape sh{H, W, 0, C2, CMID, COUT, RY};
     const size_t bytes = static_cast<size_t>(smem);
     if (C2 > MAXC || CMID > MAXC || COUT > MAXC || RY % 4 || H % 4 || W % 4 || drop_p < 0.0 ||
-        drop_p >= 1.0 || bytes != 4 * (ae_band_floats(sh) + 32))
+        drop_p >= 1.0 || bytes != 4 * (ae_band_floats(sh) + 32) || obs_kind < KIND_F32 ||
+        obs_kind > KIND_U32 || (obs_kind == KIND_U32 && W % 32))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const DropCfg cfg = make_drop_cfg(drop_p, seed);
     int rc;
     if (drop_p > 0.0)
-        rc = obs_is_u8 ? launch_as<true, uint8_t>(x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s)
-                       : launch_as<true, float>(x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+        rc = launch_obs<true>(obs_kind, x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
     else
-        rc = obs_is_u8 ? launch_as<false, uint8_t>(x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s)
-                       : launch_as<false, float>(x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
+        rc = launch_obs<false>(obs_kind, x, obs, wt1, bt1, wt2, bt2, partials, N, sh, bytes, cfg, s);
     if (rc != 0) return rc;
     const int bands = (H + RY - 1) / RY;
     KERNEL_LAUNCH(row_sums_kernel, (N + 127) / 128, 128, 0, s,

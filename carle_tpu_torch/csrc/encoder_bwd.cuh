@@ -44,9 +44,9 @@ __host__ __device__ inline size_t enc_bwd2_smem(int W, int C1, int C2, int P1, i
     return 4 * floats + static_cast<size_t>(IR) * (W + 2);
 }
 
-template <int P1, int P2, bool DROP>
+template <typename T, int P1, int P2, bool DROP>
 __global__ void encoder_bwd_stage2_kernel(
-    const uint8_t* __restrict__ x, const float* __restrict__ w1,
+    const T* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ g, float* __restrict__ gc2,
     float* __restrict__ partials, int H, int W, int C1, int C2, int R2, DropCfg cfg) {
@@ -73,7 +73,7 @@ __global__ void encoder_bwd_stage2_kernel(
     copy_floats(b1s, b1, C1);
     copy_floats(w2s, w2, C2 * C1 * 9);
     copy_floats(b2s, b2, C2);
-    stage_cells(xs, x + static_cast<size_t>(n) * H * W, ir0, IR, H, W);
+    stage_cells(xs, cells_at(x, static_cast<size_t>(n) * H * W), ir0, IR, H, W);
     __syncthreads();
     encoder_stage1_band<P1, DROP>(xs, ir0, W, w1s, b1s, C1, x1s, xr0, XR, H1, n, cfg);
     __syncthreads();
@@ -173,9 +173,9 @@ __host__ __device__ inline size_t enc_bwd1_smem(int W, int C1, int C2, int P1, i
     return 4 * floats + static_cast<size_t>(RB * P1 + 2) * (W + 2);
 }
 
-template <int P1, bool DROP>
+template <typename T, int P1, bool DROP>
 __global__ void encoder_bwd_stage1_kernel(
-    const uint8_t* __restrict__ x, const float* __restrict__ w1,
+    const T* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ gc2, float* __restrict__ partials, int H, int W, int C1,
     int C2, int RB, DropCfg cfg) {
@@ -197,7 +197,7 @@ __global__ void encoder_bwd_stage1_kernel(
     copy_floats(w1s, w1, C1 * 9);
     copy_floats(b1s, b1, C1);
     copy_floats(w2s, w2, C2 * C1 * 9);
-    stage_cells(xs, x + static_cast<size_t>(n) * H * W, ir0, IR, H, W);
+    stage_cells(xs, cells_at(x, static_cast<size_t>(n) * H * W), ir0, IR, H, W);
     const float* gn = gc2 + static_cast<size_t>(n) * C2 * H1 * W1;
     for (int i = tid; i < C2 * GR * GW; i += nt) {
         const int o = i / (GR * GW), rem = i - o * GR * GW;
@@ -301,9 +301,10 @@ struct EncBwdArgs {
     void *gc2, *part2, *part1, *grads;  // grads: dW1, db1, dW2, db2, flat
     int N, H, W, C1, C2, R2, RB;
     size_t smem2, smem1;
+    int x_kind;                         // KIND_U8 cells or KIND_U32 packed words
 };
 
-template <int P1, int P2, bool DROP>
+template <typename T, int P1, int P2, bool DROP>
 static int encoder_bwd_run_as(const EncBwdArgs& a, const DropCfg& cfg, cudaStream_t s) {
     if (a.smem2 != enc_bwd2_smem(a.W, a.C1, a.C2, P1, P2, a.R2) ||
         a.smem1 != enc_bwd1_smem(a.W, a.C1, a.C2, P1, a.RB))
@@ -311,14 +312,14 @@ static int encoder_bwd_run_as(const EncBwdArgs& a, const DropCfg& cfg, cudaStrea
     const int H1 = a.H / P1, Ho = H1 / P2;
     const int K1 = a.C1 * 9 + a.C1, K2 = a.C2 * a.C1 * 9 + a.C2;
     const int bands2 = (Ho + a.R2 - 1) / a.R2, bands1 = (H1 + a.RB - 1) / a.RB;
-    const auto k2 = encoder_bwd_stage2_kernel<P1, P2, DROP>;
-    const auto k1 = encoder_bwd_stage1_kernel<P1, DROP>;
+    const auto k2 = encoder_bwd_stage2_kernel<T, P1, P2, DROP>;
+    const auto k1 = encoder_bwd_stage1_kernel<T, P1, DROP>;
     cudaError_t e = allow_smem(k2, a.smem2);
     if (e != cudaSuccess) return static_cast<int>(e);
     e = allow_smem(k1, a.smem1);
     if (e != cudaSuccess) return static_cast<int>(e);
     KERNEL_LAUNCH(k2, dim3(bands2, a.N), 256, a.smem2, s,
-                  static_cast<const uint8_t*>(a.x), static_cast<const float*>(a.w1),
+                  static_cast<const T*>(a.x), static_cast<const float*>(a.w1),
                   static_cast<const float*>(a.b1), static_cast<const float*>(a.w2),
                   static_cast<const float*>(a.b2), static_cast<const float*>(a.g),
                   static_cast<float*>(a.gc2), static_cast<float*>(a.part2), a.H, a.W, a.C1,
@@ -326,7 +327,7 @@ static int encoder_bwd_run_as(const EncBwdArgs& a, const DropCfg& cfg, cudaStrea
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     KERNEL_LAUNCH(k1, dim3(bands1, a.N), 256, a.smem1, s,
-                  static_cast<const uint8_t*>(a.x), static_cast<const float*>(a.w1),
+                  static_cast<const T*>(a.x), static_cast<const float*>(a.w1),
                   static_cast<const float*>(a.b1), static_cast<const float*>(a.w2),
                   static_cast<const float*>(a.gc2), static_cast<float*>(a.part1), a.H, a.W,
                   a.C1, a.C2, a.RB, cfg);
@@ -342,16 +343,25 @@ static int encoder_bwd_run_as(const EncBwdArgs& a, const DropCfg& cfg, cudaStrea
     return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int P1, int P2>
+static int encoder_bwd_run_drop(const EncBwdArgs& a, double drop_p, const DropCfg& cfg,
+                                cudaStream_t s) {
+    if (drop_p > 0.0) return encoder_bwd_run_as<T, P1, P2, true>(a, cfg, s);
+    return encoder_bwd_run_as<T, P1, P2, false>(a, cfg, s);
+}
+
 template <int P1, int P2>
 static int encoder_bwd_run_pools(const EncBwdArgs& a, double drop_p, const DropCfg& cfg,
                                  cudaStream_t s) {
-    if (drop_p > 0.0) return encoder_bwd_run_as<P1, P2, true>(a, cfg, s);
-    return encoder_bwd_run_as<P1, P2, false>(a, cfg, s);
+    if (a.x_kind == KIND_U32) return encoder_bwd_run_drop<uint32_t, P1, P2>(a, drop_p, cfg, s);
+    return encoder_bwd_run_drop<uint8_t, P1, P2>(a, drop_p, cfg, s);
 }
 
 static int encoder_bwd_run(const EncBwdArgs& a, int p1, int p2, double drop_p,
                            const DropCfg& cfg, cudaStream_t s) {
-    if (a.C1 > MAXC || a.C2 > MAXC) return static_cast<int>(cudaErrorInvalidValue);
+    if (a.C1 > MAXC || a.C2 > MAXC || (a.x_kind != KIND_U8 && a.x_kind != KIND_U32) ||
+        (a.x_kind == KIND_U32 && a.W % 32))
+        return static_cast<int>(cudaErrorInvalidValue);
     if (p1 == 2 && p2 == 2) return encoder_bwd_run_pools<2, 2>(a, drop_p, cfg, s);
     if (p1 == 4 && p2 == 2) return encoder_bwd_run_pools<4, 2>(a, drop_p, cfg, s);
     if (p1 == 2 && p2 == 4) return encoder_bwd_run_pools<2, 4>(a, drop_p, cfg, s);

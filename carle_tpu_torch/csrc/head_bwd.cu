@@ -51,7 +51,7 @@ __global__ void head_bwd_kernel(const T* __restrict__ x, const float* __restrict
 
     copy_floats(ws, w, O * C * 9);
     copy_floats(bs, b, O);
-    stage_planes<T, 1>(xs, x + static_cast<size_t>(n) * C * H * W, C, xr0, XR, H, W);
+    stage_planes<T, 1>(xs, cells_at(x, static_cast<size_t>(n) * C * H * W), C, xr0, XR, H, W);
     __syncthreads();
 
     // route g through the pool, relu and dropout: one thread a pool window
@@ -225,7 +225,7 @@ static int launch_type(const HeadBwdArgs& a, int pool, double drop_p, const Drop
 extern "C" int head_bwd_launch(const void* x, const void* w, const void* b, const void* g,
                                void* gc, void* partials, void* grads, void* gx, int N, int C,
                                int O, int H, int W, int pool, int R, long long smem,
-                               int x_is_u8, int stage, double drop_p,
+                               int x_kind, int stage, double drop_p,
                                unsigned long long seed, int device, void* stream) {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -235,6 +235,7 @@ extern "C" int head_bwd_launch(const void* x, const void* w, const void* b, cons
                         static_cast<size_t>(smem)};
     const DropCfg cfg = make_drop_cfg(drop_p, seed);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (x_is_u8) return launch_type<uint8_t>(a, pool, drop_p, cfg, s);
+    if (x_kind == KIND_U8) return launch_type<uint8_t>(a, pool, drop_p, cfg, s);
+    if (x_kind == KIND_U32) return launch_type<uint32_t>(a, pool, drop_p, cfg, s);
     return launch_type<float>(a, pool, drop_p, cfg, s);
 }

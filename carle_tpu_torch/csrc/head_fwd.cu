@@ -5,8 +5,9 @@
 //
 //   out = maxpool_P(relu(drop(conv3x3(x, w) + b)))    [O, H/P, W/P]
 //
-// with zero padding 1; x is [N, C, H, W] float32, or the uint8 universe, which
-// is converted while it is staged (the TPU wrapper casts before its kernel).
+// with zero padding 1; x is [N, C, H, W] float32, or the universe as uint8
+// cells or packed uint32 words [N, 1, H, W/32], which are converted while they
+// are staged (common.cuh; the TPU wrapper casts before its kernel).
 // relu and max commute, so a pooled value is relu(max over the window of the
 // pre-activation).  Dropout (drop_p > 0) is in-kernel Philox indexed by the
 // element at dropout stage `stage` (philox.cuh): stage 0 or 1 draws the bits
@@ -44,7 +45,7 @@ __global__ void head_fwd_kernel(const T* __restrict__ x, const float* __restrict
 
     copy_floats(ws, w, O * C * 9);
     copy_floats(bs, b, O);
-    stage_planes<T, 1>(xs, x + static_cast<size_t>(n) * C * H * W, C, xr0, XR, H, W);
+    stage_planes<T, 1>(xs, cells_at(x, static_cast<size_t>(n) * C * H * W), C, xr0, XR, H, W);
     __syncthreads();
 
     float* on = out + static_cast<size_t>(n) * O * Ho * Wo;
@@ -115,7 +116,7 @@ static int launch_type(const HeadFwdArgs& a, int pool, double drop_p, const Drop
 // smem must equal head_fwd_smem (ops/cuda_stages.py::_head_fwd_smem).
 extern "C" int head_fwd_launch(const void* x, const void* w, const void* b, void* out, int N,
                                int C, int O, int H, int W, int pool, int R, long long smem,
-                               int x_is_u8, int stage, double drop_p,
+                               int x_kind, int stage, double drop_p,
                                unsigned long long seed, int device, void* stream) {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -124,6 +125,7 @@ extern "C" int head_fwd_launch(const void* x, const void* w, const void* b, void
     const HeadFwdArgs a{x, w, b, out, N, C, O, H, W, R, stage, static_cast<size_t>(smem)};
     const DropCfg cfg = make_drop_cfg(drop_p, seed);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (x_is_u8) return launch_type<uint8_t>(a, pool, drop_p, cfg, s);
+    if (x_kind == KIND_U8) return launch_type<uint8_t>(a, pool, drop_p, cfg, s);
+    if (x_kind == KIND_U32) return launch_type<uint32_t>(a, pool, drop_p, cfg, s);
     return launch_type<float>(a, pool, drop_p, cfg, s);
 }

@@ -27,24 +27,9 @@ __device__ __forceinline__ void copy_floats(float* dst, const float* __restrict_
     for (int i = tid; i < count; i += nt) dst[i] = src[i];
 }
 
-// Rows [r0, r0 + rows) of a [H, W] plane of cells into xs[rows][W + 2], with a
-// zero column each side and zero rows outside the plane.
-__device__ __forceinline__ void stage_cells(uint8_t* xs, const uint8_t* __restrict__ plane,
-                                            int r0, int rows, int H, int W) {
-    const int tid = threadIdx.x, nt = blockDim.x;
-    const int IW = W + 2;
-    for (int i = tid; i < rows * IW; i += nt) {
-        const int lr = i / IW, lc = i - lr * IW;
-        const int r = r0 + lr, c = lc - 1;
-        xs[i] = (r >= 0 && r < H && c >= 0 && c < W)
-                    ? plane[static_cast<size_t>(r) * W + c]
-                    : 0;
-    }
-}
-
-// Rows [r0, r0 + rows) of C planes [H, W] (floats or cells) into
-// dst[c][rows][W + 2 PAD] as floats, with PAD zero columns each side and zero
-// rows outside the planes.
+// Rows [r0, r0 + rows) of C planes [H, W] (floats, cells or packed words)
+// into dst[c][rows][W + 2 PAD] as floats, with PAD zero columns each side and
+// zero rows outside the planes.
 template <typename T, int PAD>
 __device__ __forceinline__ void stage_planes(float* dst, const T* __restrict__ planes, int C,
                                              int r0, int rows, int H, int W) {
@@ -55,7 +40,7 @@ __device__ __forceinline__ void stage_planes(float* dst, const T* __restrict__ p
         const int lr = rem / SW, lc = rem - lr * SW;
         const int r = r0 + lr, col = lc - PAD;
         dst[i] = (r >= 0 && r < H && col >= 0 && col < W)
-                     ? static_cast<float>(planes[(static_cast<size_t>(c) * H + r) * W + col])
+                     ? cell_value(planes, (static_cast<size_t>(c) * H + r) * W + col)
                      : 0.f;
     }
 }

@@ -10,7 +10,8 @@
 //   loss_tail: err[n] = sum over (COUT, 2h, 2w) of (obs - y)^2
 //
 // x [N, CIN, h, w] float32, wt in torch's layout [CIN, COUT, 4, 4], act relu or
-// sigmoid, obs cells (uint8) or a float32 frame.  Dropout (drop_p > 0) is
+// sigmoid, obs cells (uint8, or packed uint32 words [N, COUT, 2h, 2w/32]) or a
+// float32 frame.  Dropout (drop_p > 0) is
 // in-kernel Philox indexed by the element at dropout stage `stage`
 // (philox.cuh): stage 2 or 3 draws the bits the whole-autoencoder kernel draws
 // for its first or second transpose convolution.  The loss tail is the tail
@@ -37,8 +38,8 @@
 #include "net_stages.cuh"
 
 constexpr int ACT_RELU = 0, ACT_SIGMOID = 1;
-// what the last argument is: no obs (tail), obs as cells, obs as floats
-constexpr int MODE_TENSOR = 0, MODE_OBS_U8 = 1, MODE_OBS_F32 = 2;
+// what the last argument is: no obs (tail), obs as cells, as floats, as packed words
+constexpr int MODE_TENSOR = 0, MODE_OBS_U8 = 1, MODE_OBS_F32 = 2, MODE_OBS_U32 = 3;
 constexpr int RED16_FLOATS = 32 * 16;
 
 template <int ACT>
@@ -48,8 +49,9 @@ __device__ __forceinline__ float tail_act(float r) {
 
 template <int MODE>
 __device__ __forceinline__ float obs_value(const void* obs, size_t i) {
-    return MODE == MODE_OBS_U8 ? static_cast<float>(static_cast<const uint8_t*>(obs)[i])
-                               : static_cast<const float*>(obs)[i];
+    return MODE == MODE_OBS_U8    ? cell_value(static_cast<const uint8_t*>(obs), i)
+           : MODE == MODE_OBS_U32 ? cell_value(static_cast<const uint32_t*>(obs), i)
+                                  : cell_value(static_cast<const float*>(obs), i);
 }
 
 __host__ __device__ inline size_t tail_fwd_smem(int CIN, int COUT, int w, int RY) {
@@ -285,6 +287,7 @@ static int run_mode(const TailArgs& a, int mode, bool backward, const DropCfg& c
                     cudaStream_t s) {
     if (mode == MODE_TENSOR) return run_as<ACT, DROP, MODE_TENSOR>(a, backward, cfg, s);
     if (mode == MODE_OBS_U8) return run_as<ACT, DROP, MODE_OBS_U8>(a, backward, cfg, s);
+    if (mode == MODE_OBS_U32) return run_as<ACT, DROP, MODE_OBS_U32>(a, backward, cfg, s);
     return run_as<ACT, DROP, MODE_OBS_F32>(a, backward, cfg, s);
 }
 
@@ -295,7 +298,8 @@ static int run(const TailArgs& a, int act, int mode, bool backward, double drop_
     const size_t want = backward ? tail_bwd_smem(a.CIN, a.COUT, a.w, a.R)
                                  : tail_fwd_smem(a.CIN, a.COUT, a.w, a.R);
     if (a.CIN > MAXC || a.COUT > MAXC || drop_p < 0.0 || drop_p >= 1.0 || a.smem != want ||
-        (act != ACT_RELU && act != ACT_SIGMOID) || (!backward && a.R % 2))
+        (act != ACT_RELU && act != ACT_SIGMOID) || (!backward && a.R % 2) ||
+        (mode == MODE_OBS_U32 && (2 * a.w) % 32))
         return static_cast<int>(cudaErrorInvalidValue);
     const DropCfg cfg = make_drop_cfg(drop_p, seed);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -304,6 +308,11 @@ static int run(const TailArgs& a, int act, int mode, bool backward, double drop_
                             : run_mode<ACT_RELU, false>(a, mode, backward, cfg, s);
     return drop_p > 0.0 ? run_mode<ACT_SIGMOID, true>(a, mode, backward, cfg, s)
                         : run_mode<ACT_SIGMOID, false>(a, mode, backward, cfg, s);
+}
+
+// obs_kind (KIND_F32, KIND_U8, KIND_U32 in common.cuh) as a mode.
+static int obs_mode(int obs_kind) {
+    return obs_kind == KIND_U8 ? MODE_OBS_U8 : obs_kind == KIND_U32 ? MODE_OBS_U32 : MODE_OBS_F32;
 }
 
 // The four launchers: h and w are the input's extent, act 0 relu / 1 sigmoid,
@@ -334,22 +343,22 @@ extern "C" int tail_bwd_launch(const void* x, const void* wt, const void* b, con
 extern "C" int loss_tail_fwd_launch(const void* x, const void* wt, const void* b,
                                     const void* obs, void* partials, void* err, int N, int CIN,
                                     int COUT, int h, int w, int RY, long long smem, int act,
-                                    int obs_is_u8, int stage, double drop_p,
+                                    int obs_kind, int stage, double drop_p,
                                     unsigned long long seed, int device, void* stream) {
     const TailArgs a{x, wt, b, obs, nullptr, err, partials, nullptr, N, CIN, COUT, h, w, RY,
                      stage, static_cast<size_t>(smem)};
-    return run(a, act, obs_is_u8 ? MODE_OBS_U8 : MODE_OBS_F32, false, drop_p, seed, device,
+    return run(a, act, obs_mode(obs_kind), false, drop_p, seed, device,
                stream);
 }
 
 extern "C" int loss_tail_bwd_launch(const void* x, const void* wt, const void* b,
                                     const void* obs, const void* gbar, void* partials,
                                     void* grads, void* gx, int N, int CIN, int COUT, int h,
-                                    int w, int RI, long long smem, int act, int obs_is_u8,
+                                    int w, int RI, long long smem, int act, int obs_kind,
                                     int stage, double drop_p, unsigned long long seed,
                                     int device, void* stream) {
     const TailArgs a{x, wt, b, obs, gbar, gx, partials, grads, N, CIN, COUT, h, w, RI, stage,
                      static_cast<size_t>(smem)};
-    return run(a, act, obs_is_u8 ? MODE_OBS_U8 : MODE_OBS_F32, true, drop_p, seed, device,
+    return run(a, act, obs_mode(obs_kind), true, drop_p, seed, device,
                stream);
 }

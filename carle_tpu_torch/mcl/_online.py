@@ -150,8 +150,12 @@ def accumulate_and_maybe_update(state: LearnerState, grads: Any,
 
 
 def net_input(ctx: Any) -> torch.Tensor:
-    """The observation a wrapper net consumes: the uint8 cells, which the
-    kernels read directly (the float32 copy never reaches them)."""
+    """The observation a wrapper net consumes: the packed universe itself,
+    uint32 words [inst, 1, H, W/32], when the stack carries one (the kernels
+    expand the words in shared memory, so no cell view is built), else the
+    uint8 cells.  The float32 copy never reaches the kernels."""
+    if getattr(ctx, "packed", None) is not None:
+        return ctx.packed[:, None]
     return ctx.obs_cells
 
 

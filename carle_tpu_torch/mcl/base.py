@@ -10,8 +10,11 @@ A wrapper is data plus plain functions:
   (``generator`` draws whatever noise a hook seeds the universe with).
 
 A :class:`WrapperStack` runs the env transition and every wrapper apply in
-order; the first wrapper listed is the innermost.  Wrapper state survives
-resets.  :class:`Motivator` is the class shell with the reference's surface
+order; the first wrapper listed is the innermost.  Views of the step that not
+every wrapper reads (the float observation, the padded action, the action
+sums; on a packed stack every cell view) are :class:`Lazy` in the
+:class:`StepCtx`: computed on their first read, at most once a step.  Wrapper
+state survives resets.  :class:`Motivator` is the class shell with the reference's surface
 (``env = Wrapper(env)``, ``step``/``reset`` forwarded inward).
 """
 
@@ -27,20 +30,65 @@ from ..env import CARLE, EnvState, env_step, init_state, reset_state
 from ..ops.ca import pad_action
 
 
-class StepCtx(NamedTuple):
-    """What a wrapper may observe about one env transition."""
+class Lazy:
+    """A step-context view computed on its first read, at most once a step:
+    eager PyTorch cannot drop a view nobody reads, as the JAX package's
+    compiler does, so a stack passes the recipe instead of the tensor."""
 
-    prev_grid: torch.Tensor   # uint8 [inst, H, W] universe BEFORE toggle+update
-    obs: torch.Tensor         # float32 [inst, 1, H, W] universe AFTER the update
-    obs_cells: torch.Tensor   # uint8 [inst, 1, H, W], the same observation
-    action: torch.Tensor      # uint8 [inst, AH, AW] binarised toggle patch
-    action_full: torch.Tensor  # uint8 [inst, H, W] that patch padded to the universe
-    action_sum: Optional[torch.Tensor] = None  # float32 [inst, 1] sum of the RAW
-                              # action VALUES (before binarising; in the class
-                              # shell, before cropping): ParsimonyBonus divides by it
-    seed: int = 0             # this step's dropout seed for the net kernels: a
-                              # host integer (the counterpart of the JAX key)
-    generator: Optional[torch.Generator] = None  # draws plain-PyTorch dropout
+    __slots__ = ("fn",)
+
+    def __init__(self, fn: Callable[[], Any]) -> None:
+        self.fn = fn
+
+
+class StepCtx:
+    """What a wrapper may observe about one env transition.  A field given as
+    :class:`Lazy` is computed when a wrapper first reads it.
+
+    prev_grid:     uint8 [inst, H, W] universe BEFORE toggle + update
+    obs:           float32 [inst, 1, H, W] universe AFTER the update
+    obs_cells:     uint8 [inst, 1, H, W], the same observation
+    action:        uint8 [inst, AH, AW] binarised toggle patch
+    action_full:   uint8 [inst, H, W] that patch padded to the universe
+    action_sum:    float32 [inst, 1] sum of the RAW action VALUES (before
+                   binarising; in the class shell, before cropping):
+                   ParsimonyBonus divides by it
+    seed:          this step's dropout seed for the net kernels: a host
+                   integer (the counterpart of the JAX key)
+    generator:     draws plain-PyTorch dropout
+    packed:        uint32 [inst, H, W/32] universe AFTER the update (packed
+                   stacks only; None on the uint8 path)
+    packed_prev:   uint32 [inst, H, W/32] universe BEFORE toggle + update
+    packed_action: uint32 [inst, H, W/32] toggle patch padded to the universe
+    """
+
+    __slots__ = ("_values",)
+
+    def __init__(self, prev_grid: Any = None, obs: Any = None, obs_cells: Any = None,
+                 action: Any = None, action_full: Any = None, action_sum: Any = None,
+                 seed: int = 0, generator: Optional[torch.Generator] = None,
+                 packed: Any = None, packed_prev: Any = None,
+                 packed_action: Any = None) -> None:
+        values = dict(prev_grid=prev_grid, obs=obs, obs_cells=obs_cells, action=action,
+                      action_full=action_full, action_sum=action_sum, seed=seed,
+                      generator=generator, packed=packed, packed_prev=packed_prev,
+                      packed_action=packed_action)
+        object.__setattr__(self, "_values", values)
+
+    def __getattr__(self, name: str) -> Any:
+        values = object.__getattribute__(self, "_values")
+        if name not in values:
+            raise AttributeError(name)
+        value = values[name]
+        if isinstance(value, Lazy):
+            value = values[name] = value.fn()
+        return value
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        raise AttributeError("StepCtx is read-only; use _replace")
+
+    def _replace(self, **changes: Any) -> "StepCtx":
+        return StepCtx(**{**self._values, **changes})
 
 
 class WrapperDef(NamedTuple):
@@ -88,12 +136,14 @@ class WrapperStack:
         return StackState(env=init_state(self.config, rule_bits, device),
                           wrappers=wstates)
 
-    def step(self, state: StackState, action: torch.Tensor, seed: int = 0,
-             generator: Optional[torch.Generator] = None
-             ) -> Tuple[StackState, Tuple[torch.Tensor, torch.Tensor]]:
+    def transition(self, state: StackState, action: torch.Tensor, seed: int = 0,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[StackState, StepCtx, torch.Tensor]:
         """One transition; ``action`` is [inst, AH, AW] of any dtype, ``seed``
         and ``generator`` feed the training wrappers' dropout.  Returns
-        (state', (obs float32 [inst, 1, H, W], reward [inst, 1]))."""
+        (state', the step context, reward [inst, 1]); the context's float
+        observation, padded action and action sums are computed only if a
+        wrapper (or the caller) reads them."""
         prev_grid = state.env.grid
         # the RAW action goes to env_step: it binarises for the toggle, but
         # the master reset reads the mean of the values
@@ -101,22 +151,34 @@ class WrapperStack:
         action_bits = (action != 0).to(torch.uint8)
         ctx = StepCtx(
             prev_grid=prev_grid,
-            obs=grid.to(torch.float32)[:, None],
+            obs=Lazy(lambda: grid.to(torch.float32)[:, None]),
             obs_cells=grid[:, None],
             action=action_bits,
-            action_full=pad_action(action_bits, self.config),
-            action_sum=action.to(torch.float32).sum(dim=(1, 2))[:, None],
+            action_full=Lazy(lambda: pad_action(action_bits, self.config)),
+            action_sum=Lazy(lambda: action.to(torch.float32).sum(dim=(1, 2))[:, None]),
             seed=int(seed),
             generator=generator,
         )
-        reward = torch.zeros((self.config.instances, 1), dtype=torch.float32,
-                             device=grid.device)
+        new_state, reward = self._apply_wrappers(state.wrappers, env_state, ctx, grid.device)
+        return new_state, ctx, reward
+
+    def _apply_wrappers(self, wstates: Tuple[Any, ...], env_state: Any, ctx: StepCtx,
+                        device) -> Tuple[StackState, torch.Tensor]:
+        """Each wrapper's apply in order, the reward starting at zero."""
+        reward = torch.zeros((self.config.instances, 1), dtype=torch.float32, device=device)
         new_wstates = []
-        for w, ws in zip(self.wrappers, state.wrappers):
+        for w, ws in zip(self.wrappers, wstates):
             ws, reward = w.apply(ws, ctx, reward)
             new_wstates.append(ws)
-        return (StackState(env=env_state, wrappers=tuple(new_wstates)),
-                (ctx.obs, reward))
+        return StackState(env=env_state, wrappers=tuple(new_wstates)), reward
+
+    def step(self, state: StackState, action: torch.Tensor, seed: int = 0,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[StackState, Tuple[torch.Tensor, torch.Tensor]]:
+        """:meth:`transition` returning (state', (obs float32 [inst, 1, H, W],
+        reward [inst, 1]))."""
+        state, ctx, reward = self.transition(state, action, seed, generator)
+        return state, (ctx.obs, reward)
 
     def reset(self, state: StackState, generator: Optional[torch.Generator] = None
               ) -> Tuple[StackState, torch.Tensor]:

@@ -15,9 +15,12 @@ The ring's fill level is a device scalar and the update is index arithmetic
 on it, so nothing waits for the device.
 
 Ring storage (``buffer_dtype``): ``"uint8"`` (default; the frames are binary
-cell planes, and the kernels read cells) or ``"float32"`` (the
-reference-shaped carry, the same rewards).  The JAX package's ``"packed"``
-ring rides on its packed stacks, which are not ported yet.
+cell planes, and the kernels read cells), ``"packed"`` ([inst, K, H, W/32]
+uint32 words straight off a packed stack's ``ctx.packed``, 32x less carry;
+the kernels read the source frame and the target as words, so no cell view
+is built, and liveness comes from the words) or ``"float32"`` (the
+reference-shaped carry, the same rewards).  The ring's layout is the JAX
+package's, so ``FrameBuffer`` checkpoints cross both ways.
 
 The loss is the whole autoencoder as one kernel (``nets.conv_ae_loss``) with
 the ring frame as source and the current frame as target, and
@@ -42,7 +45,8 @@ SEED_STREAM_SHIFT = 58
 
 
 class FrameBuffer(NamedTuple):
-    frames: torch.Tensor  # [inst, K, 1, H, W] uint8 or float32, slot 0 the oldest
+    frames: torch.Tensor  # [inst, K, 1, H, W] uint8 or float32, or [inst, K, H, W/32]
+                          # uint32 words ("packed"); slot 0 the oldest
     count: torch.Tensor   # int32 scalar: frames held
 
 
@@ -51,19 +55,27 @@ def _push(buf: FrameBuffer, obs: torch.Tensor, k: int) -> Tuple[torch.Tensor, Fr
     after appending (== obs while the buffer is empty); once the length
     exceeds K the oldest frame is dropped.  Branch-free on the device count:
     a full ring shifts down by one slot (a gather), and obs lands in slot
-    ``min(count, K - 1)``."""
+    ``min(count, K - 1)``.  Packed words move as int32 views (the same
+    bits)."""
+    if buf.frames.dtype == torch.uint32:
+        src, new = _push(buf._replace(frames=buf.frames.view(torch.int32)),
+                         obs.view(torch.int32), k)
+        return src.view(torch.uint32), new._replace(frames=new.frames.view(torch.uint32))
     src = torch.where(buf.count == 0, obs, buf.frames[:, 0])
     slots = torch.arange(k, device=obs.device)
     full = (buf.count >= k).to(slots.dtype)
     shifted = buf.frames.index_select(1, (slots + full).clamp_max(k - 1))
-    at = (slots == buf.count.clamp_max(k - 1)).view(1, k, 1, 1, 1)
+    at = (slots == buf.count.clamp_max(k - 1)).view(1, k, *([1] * (buf.frames.ndim - 2)))
     frames = torch.where(at, obs[:, None], shifted)
     return src, FrameBuffer(frames=frames, count=(buf.count + 1).clamp_max(k))
 
 
 def _alive(ctx) -> torch.Tensor:
-    """Per-instance liveness from the uint8 cells: the reference's
-    ``mean(obs) > 0`` for binary frames."""
+    """Per-instance liveness from the packed words on a packed stack, else
+    from the uint8 cells: the reference's ``mean(obs) > 0`` for binary
+    frames."""
+    if ctx.packed is not None:
+        return (ctx.packed.view(torch.int32) != 0).any(dim=2).any(dim=1)
     return (ctx.obs_cells != 0).any(dim=3).any(dim=2).any(dim=1)
 
 
@@ -73,30 +85,44 @@ def _make_def(config: EnvConfig, name: str, surprise: bool, reward_scale: float 
               dropout: Optional[bool] = None, buffer_dtype: str = "uint8") -> WrapperDef:
     use_dropout = train if dropout is None else dropout
     k = prediction_steps
-    if buffer_dtype == "packed":
-        raise NotImplementedError(
-            "buffer_dtype='packed' needs the packed stacks (ROADMAP item 9: "
-            "packed.py and mcl/packed_stats.py are not ported); use 'uint8'")
-    if buffer_dtype not in ("uint8", "float32"):
+    if buffer_dtype not in ("uint8", "packed", "float32"):
         raise ValueError(f"buffer_dtype {buffer_dtype!r}: expected 'uint8', "
                          f"'packed' or 'float32'")
-    dtype = torch.uint8 if buffer_dtype == "uint8" else torch.float32
+    if buffer_dtype == "packed" and config.width % 32:
+        raise ValueError("the packed ring needs width % 32 == 0")
     n_elem = config.height * config.width  # C * H * W with C = 1
     stream = (2 if surprise else 1) << SEED_STREAM_SHIFT
 
     def init(generator: torch.Generator, device) -> LearnerState:
-        buf = FrameBuffer(
-            frames=torch.zeros((config.instances, k, 1, config.height, config.width),
-                               dtype=dtype, device=device),
-            count=torch.zeros((), dtype=torch.int32, device=device))
+        if buffer_dtype == "packed":
+            shape = (config.instances, k, config.height, config.width // 32)
+            dtype = torch.uint32
+        else:
+            shape = (config.instances, k, 1, config.height, config.width)
+            dtype = torch.uint8 if buffer_dtype == "uint8" else torch.float32
+        buf = FrameBuffer(frames=torch.zeros(shape, dtype=dtype, device=device),
+                          count=torch.zeros((), dtype=torch.int32, device=device))
         return init_learner(reward_scale, init_ae_params(generator, device), {},
                             device, batch_size)._replace(extra=buf)
 
+    def store_view(ctx) -> torch.Tensor:
+        """The frame as the ring stores it."""
+        if buffer_dtype == "float32":
+            return ctx.obs
+        if buffer_dtype == "uint8":
+            return ctx.obs_cells
+        if ctx.packed is None:
+            raise ValueError("buffer_dtype='packed' needs a packed stack "
+                             "(parallel/packed_env.PackedSpatialStack): ctx.packed is "
+                             "None on the uint8 path; use the uint8 ring there")
+        return ctx.packed
+
     def loss_fn(params, state: LearnerState, ctx):
         target = net_input(ctx)
-        src, new_buf = _push(state.extra, target if dtype == torch.uint8 else ctx.obs, k)
-        # the kernels read cells; a float32 ring holds the same 0/1 values
-        err = nets.conv_ae_loss(src.to(torch.uint8), params["conv1"], params["conv2"],
+        src, new_buf = _push(state.extra, store_view(ctx), k)
+        # the kernels read cells or words; a float32 ring holds the same 0/1 values
+        src = src[:, None] if buffer_dtype == "packed" else src.to(torch.uint8)
+        err = nets.conv_ae_loss(src, params["conv1"], params["conv2"],
                                 params["deconv1"], params["deconv2"], target,
                                 pools=POOLS, drop_p=DROP_P, train=use_dropout,
                                 seed=stream + 2 * ctx.seed + 1)

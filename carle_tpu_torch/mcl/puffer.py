@@ -13,7 +13,7 @@ package and the reference.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,28 +28,36 @@ class PufferState(NamedTuple):
     buf: torch.Tensor           # float32 [lanes, window] ring buffer of counts
     head: torch.Tensor          # int32 [lanes] oldest slot
     count: torch.Tensor         # int32 [lanes] fill level
-    window: torch.Tensor        # int32 scalar = GROWTH_THRESHOLD
+    window: torch.Tensor        # int32 scalar: the window length
 
 
 def puffer_def(config: EnvConfig, reward_scale: float = 1.0,
-               per_instance: bool = False) -> WrapperDef:
+               per_instance: bool = False,
+               cells_fn: Optional[Callable[[StepCtx], torch.Tensor]] = None,
+               growth_threshold: Optional[int] = None) -> WrapperDef:
+    """``cells_fn(ctx) -> float32 [instances]`` overrides how the live-cell
+    count is taken (default: the sum of the float observation); the
+    packed-native variant (mcl/packed_stats.py) passes popcounts, so the
+    window, slope and toggle-clear semantics live in one place.
+    ``growth_threshold`` is the window length (GROWTH_THRESHOLD by default)."""
     lanes = config.instances if per_instance else 1
+    window = GROWTH_THRESHOLD if growth_threshold is None else int(growth_threshold)
+    if cells_fn is None:
+        cells_fn = lambda ctx: ctx.obs.sum(dim=(1, 2, 3))  # noqa: E731
 
     def init(generator: Any, device) -> PufferState:
         return PufferState(
             reward_scale=torch.as_tensor(reward_scale, dtype=torch.float32,
                                          device=device),
-            buf=torch.zeros((lanes, GROWTH_THRESHOLD), dtype=torch.float32,
-                            device=device),
+            buf=torch.zeros((lanes, window), dtype=torch.float32, device=device),
             head=torch.zeros((lanes,), dtype=torch.int32, device=device),
             count=torch.zeros((lanes,), dtype=torch.int32, device=device),
-            window=torch.as_tensor(GROWTH_THRESHOLD, dtype=torch.int32,
-                                   device=device),
+            window=torch.as_tensor(window, dtype=torch.int32, device=device),
         )
 
     def apply(state: PufferState, ctx: StepCtx,
               reward: torch.Tensor) -> Tuple[PufferState, torch.Tensor]:
-        cells_vec = ctx.obs.sum(dim=(1, 2, 3))                       # [inst]
+        cells_vec = cells_fn(ctx)                                     # [inst]
         if per_instance:
             cells = cells_vec
             acted = ctx.action.sum(dim=(1, 2), dtype=torch.int32) != 0

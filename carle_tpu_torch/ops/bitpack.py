@@ -12,8 +12,10 @@ operations on ``uint32`` on the CPU, so the words are computed on ``int64``
 holding the 32-bit values, with every left shift and complement masked back
 to 32 bits.
 
-This is the plain version of the ``bit_multi_step`` kernel
-(ops/cuda_bitpack.py).
+Also here: the same engine with the rule fixed ahead of time (the mux tree
+folds to a few operations), the column-major layout with bits along H
+(:func:`pack_grid_cm`), and a SWAR :func:`popcount`.  These are the plain
+versions of the ``bit_multi_step*`` kernels (ops/cuda_bitpack.py).
 """
 
 from __future__ import annotations
@@ -87,23 +89,24 @@ def _rule_leaf(bits: torch.Tensor, k: int, like: torch.Tensor) -> torch.Tensor:
     return leaf
 
 
+def _mux_fold(leaves, sels):
+    """Select leaf ``sum_k 2^k sel_k`` bitwise by a mux tree over the
+    selector planes (LSB first)."""
+    planes = leaves
+    for sel in sels:
+        nsel = _not(sel)
+        nxt = [(planes[i] & nsel) | (planes[i + 1] & sel)
+               for i in range(0, len(planes) - 1, 2)]
+        if len(planes) % 2:
+            nxt.append(planes[-1] & nsel)  # odd tail: only reachable sel=0
+        planes = nxt
+    return planes[0]
+
+
 def _rule_mux(g, counts, bits: torch.Tensor):
     """Select bit (count + 9*alive) of the rule mask by a mux tree."""
-    sels = counts
-
-    def fold(leaves):
-        planes = leaves
-        for sel in sels:
-            nsel = _not(sel)
-            nxt = [(planes[i] & nsel) | (planes[i + 1] & sel)
-                   for i in range(0, len(planes) - 1, 2)]
-            if len(planes) % 2:
-                nxt.append(planes[-1] & nsel)  # odd tail: only reachable sel=0
-            planes = nxt
-        return planes[0]
-
-    dead = fold([_rule_leaf(bits, v, g) for v in range(9)])
-    alive = fold([_rule_leaf(bits, 9 + v, g) for v in range(9)])
+    dead = _mux_fold([_rule_leaf(bits, v, g) for v in range(9)], counts)
+    alive = _mux_fold([_rule_leaf(bits, 9 + v, g) for v in range(9)], counts)
     return (dead & _not(g)) | (alive & g)
 
 
@@ -131,4 +134,176 @@ def bit_multi_step(packed: torch.Tensor, rule_bits,
     bits = _rule_tensor(rule_bits, g)
     for _ in range(int(num_steps)):
         g = _rule_mux(g, _neighbor_bitplanes(g), bits)
+    return g.to(torch.uint32)
+
+
+# ---------------------------------------------------------------------------
+# popcount
+# ---------------------------------------------------------------------------
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (uint32, or int64 holding 32-bit values)
+    as int64: a SWAR count, since PyTorch has no popcount operation."""
+    x = words.to(torch.int64)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _MASK) >> 24
+
+
+# ---------------------------------------------------------------------------
+# column-major packing: bits along H
+# ---------------------------------------------------------------------------
+
+
+def pack_grid_cm(grid: torch.Tensor) -> torch.Tensor:
+    """uint8/bool [..., H, W] -> uint32 [..., H//32, W]: bit j of word
+    [..., k, c] is the cell in row 32k + j of column c (H % 32 == 0)."""
+    *lead, h, w = grid.shape
+    if h % WORD:
+        raise ValueError(f"height {h} not a multiple of {WORD}")
+    bits = grid.to(torch.int64).reshape(*lead, h // WORD, WORD, w)
+    weights = torch.ones((), dtype=torch.int64, device=grid.device) << torch.arange(
+        WORD, dtype=torch.int64, device=grid.device)
+    return (bits * weights[:, None]).sum(dim=-2).to(torch.uint32)
+
+
+def unpack_grid_cm(packed: torch.Tensor, height: int) -> torch.Tensor:
+    """uint32 [..., H//32, W] -> uint8 [..., H, W]."""
+    shifts = torch.arange(WORD, dtype=torch.int64, device=packed.device)
+    bits = (packed.to(torch.int64)[..., None, :] >> shifts[:, None]) & 1
+    *lead, words, _, w = bits.shape
+    return bits.reshape(*lead, words * WORD, w).to(torch.uint8)[..., :height, :]
+
+
+# ---------------------------------------------------------------------------
+# the rule fixed ahead of time: constant-fold the mux tree
+# ---------------------------------------------------------------------------
+
+
+def _fold_mux(a, b, sel):
+    """Mux with constant folding: planes are the strings "0"/"1" or words;
+    returns the same representation."""
+    if isinstance(a, str) and isinstance(b, str):
+        if a == b:
+            return a
+        return sel if a == "0" else _not(sel)
+    if isinstance(a, str):
+        return (b & sel) if a == "0" else (_not(sel) | (b & sel))
+    if isinstance(b, str):
+        return (a & _not(sel)) if b == "0" else (sel | (a & _not(sel)))
+    return (a & _not(sel)) | (b & sel)
+
+
+def _fold_tail(a, sel):
+    """Odd-tail node (only reachable when sel == 0)."""
+    if isinstance(a, str):
+        return a if a == "0" else _not(sel)
+    return a & _not(sel)
+
+
+def _fold_tree(leaves, selectors):
+    planes = list(leaves)
+    for sel in selectors:
+        nxt = [_fold_mux(planes[i], planes[i + 1], sel)
+               for i in range(0, len(planes) - 1, 2)]
+        if len(planes) % 2:
+            nxt.append(_fold_tail(planes[-1], sel))
+        planes = nxt
+    return planes[0]
+
+
+def _static_rule_fold(g, counts, birth, survive, count9: bool = False):
+    """Apply a B/S rule known ahead of time to bit-sliced counts.  With
+    ``count9`` the counts include the centre cell: the dead branch reads
+    birth[count9] and the alive branch survive[count9 - 1]."""
+    birth_set = {int(d) for d in birth}
+    survive_set = {int(d) for d in survive}
+
+    def fold(leaves):
+        out = _fold_tree(leaves, list(counts))
+        if isinstance(out, str):
+            zero = torch.zeros_like(g)
+            return zero if out == "0" else _not(zero)
+        return out
+
+    if count9:
+        dead = fold(["1" if v in birth_set else "0" for v in range(9)] + ["0"])
+        alive = fold(["0"] + ["1" if v - 1 in survive_set else "0" for v in range(1, 10)])
+    else:
+        dead = fold(["1" if v in birth_set else "0" for v in range(9)])
+        alive = fold(["1" if v in survive_set else "0" for v in range(9)])
+    return (dead & _not(g)) | (alive & g)
+
+
+def _rule_mux_static(g, counts, birth, survive):
+    """The rule fixed ahead of time, over neighbour-count planes."""
+    return _static_rule_fold(g, counts, birth, survive)
+
+
+def bit_ca_step_static(packed: torch.Tensor, birth, survive) -> torch.Tensor:
+    """One generation with the B/S rule fixed ahead of time: the mux tree's
+    leaves are constants and fold away (for Life the decision is
+    ``~n3 & ~n2 & n1 & (n0 | g)``)."""
+    g = packed.to(torch.int64)
+    return _rule_mux_static(g, _neighbor_bitplanes(g), birth, survive).to(torch.uint32)
+
+
+def bit_multi_step_static(packed: torch.Tensor, birth, survive,
+                          num_steps: int) -> torch.Tensor:
+    """``num_steps`` generations of :func:`bit_ca_step_static`; the plain
+    version of the ``bit_multi_step_static`` kernel."""
+    g = packed.to(torch.int64)
+    for _ in range(int(num_steps)):
+        g = _rule_mux_static(g, _neighbor_bitplanes(g), birth, survive)
+    return g.to(torch.uint32)
+
+
+# ---------------------------------------------------------------------------
+# column-major steps (counterpart of carle_tpu/ops/pallas_bitpack.py:453-509)
+# ---------------------------------------------------------------------------
+
+
+def _count9_planes_cm(g):
+    """Bit planes of the count INCLUDING the centre on column-major words
+    [..., H/32, W]: the vertical neighbours are in-word shifts with a carry
+    from the word above or below, the horizontal ones whole words."""
+    pw = torch.roll(g, 1, dims=-2)     # word k-1 at k: rows above
+    nw = torch.roll(g, -1, dims=-2)    # word k+1 at k: rows below
+    u = ((g << 1) & _MASK) | (pw >> 31)   # the cell of row r-1 at r
+    d = (g >> 1) | ((nw << 31) & _MASK)   # the cell of row r+1 at r
+    ab = u ^ g
+    p0 = ab ^ d                        # the vertical triple's weight-1 plane
+    p1 = (u & g) | (ab & d)            # and its weight-2 plane
+    s1, c1 = _csa(torch.roll(p0, 1, dims=-1), p0, torch.roll(p0, -1, dims=-1))
+    s2, c2 = _csa(torch.roll(p1, 1, dims=-1), p1, torch.roll(p1, -1, dims=-1))
+    cc = c1 & s2
+    return s1, c1 ^ s2, c2 ^ cc, c2 & cc
+
+
+def bit_multi_step_static_cm(packed_cm: torch.Tensor, birth, survive,
+                             num_steps: int) -> torch.Tensor:
+    """``num_steps`` generations on a column-major packed [inst, H/32, W]
+    grid (:func:`pack_grid_cm`) with the rule fixed ahead of time; the plain
+    version of the ``bit_multi_step_static_cm`` kernel."""
+    g = packed_cm.to(torch.int64)
+    for _ in range(int(num_steps)):
+        g = _static_rule_fold(g, _count9_planes_cm(g), birth, survive, count9=True)
+    return g.to(torch.uint32)
+
+
+def bit_multi_step_cm(packed_cm: torch.Tensor, rule_bits,
+                      num_steps: int) -> torch.Tensor:
+    """``num_steps`` generations on a column-major packed grid, the rule as
+    data (a scalar or an [inst] vector); the plain version of the
+    ``bit_multi_step_cm`` kernel."""
+    g = packed_cm.to(torch.int64)
+    bits = _rule_tensor(rule_bits, g)
+    zero = torch.zeros((), dtype=torch.int64, device=g.device)
+    dead_leaves = [_rule_leaf(bits, v, g) for v in range(9)] + [zero]
+    alive_leaves = [zero] + [_rule_leaf(bits, 9 + v, g) for v in range(9)]
+    for _ in range(int(num_steps)):
+        counts = _count9_planes_cm(g)
+        g = (_mux_fold(dead_leaves, counts) & _not(g)) | (_mux_fold(alive_leaves, counts) & g)
     return g.to(torch.uint32)

@@ -5,8 +5,9 @@ adds, then 3 column-rolled adds minus the centre), circular rolls give the
 torus, and the birth/survive decision is one shift of the 18-bit rule mask,
 ``(rule_bits >> (count + 9*alive)) & 1`` (rules.py), so rules are data.
 
-This is the plain version of the ``ca_step`` kernel (ops/cuda_ca.py), which
-the CPU runs and the card's kernel is held against.
+These are the plain versions of the ``ca_step`` and ``ca_multi_step``
+kernels (ops/cuda_ca.py), which the CPU runs and the card's kernels are held
+against.
 """
 
 from __future__ import annotations
@@ -43,6 +44,13 @@ def apply_rule(grid: torch.Tensor, counts: torch.Tensor,
 def ca_step_grid(grid: torch.Tensor, rule_bits) -> torch.Tensor:
     """One CA generation: neighbour count + rule table, torus boundary."""
     return apply_rule(grid, neighbor_counts(grid), rule_bits)
+
+
+def ca_multi_step(grid: torch.Tensor, rule_bits, num_steps: int) -> torch.Tensor:
+    """``num_steps`` action-free generations of a uint8 [inst, H, W] grid."""
+    for _ in range(int(num_steps)):
+        grid = ca_step_grid(grid, rule_bits)
+    return grid
 
 
 def pad_action(action: torch.Tensor, config: EnvConfig) -> torch.Tensor:

@@ -6,7 +6,10 @@ one source builds in seconds.  The libraries land in
 ``build/carle_tpu_torch_kernels/`` beside the package, named by a hash of
 their sources and flags, so an edited source is rebuilt and a built one is
 reused.  :func:`build_all` starts one ``nvcc`` per missing library, all at
-once, and waits for them; the first launch of any kernel calls it.
+once, and waits for them; the first launch of any kernel calls it.  A kernel
+whose rule is fixed at compile time (``bit_multi_step_static``) builds one
+more library per rule mask, on the first launch with that mask, with
+``-DSTATIC_RULE=<mask>``; its file name carries the mask.
 
 Nothing here runs at import: the CPU tests import every module, and only a
 launch on a CUDA tensor needs ``nvcc`` and a card.
@@ -21,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -31,12 +34,12 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd",
+SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
            "encoder_bwd", "ae_loss_bwd", "head_fwd", "head_bwd", "tail",
            "decoder_loss_fwd", "decoder_loss_bwd")
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -52,30 +55,34 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """Where ``name``'s library lives: keyed by its source, every shared
-    header in ``csrc/`` and the flags, so an edited header rebuilds."""
+    header in ``csrc/``, the flags and the ``-D`` defines, so an edited
+    header rebuilds; the defines also name the file."""
     digest = hashlib.sha256()
     for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
+    tag = "".join(f"-{d.lower().replace('=', '')}" for d in defines)
+    return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every library in ``names`` that is not built yet, one nvcc
-    process each, all started together.  Raises with the compiler's output
-    when one fails; writes each build's ``-Xptxas -v`` report (registers,
-    shared memory, spills) beside its library as ``.log``."""
+def build_all(names: Iterable[str] = SOURCES,
+              defines: Tuple[str, ...] = ()) -> Dict[str, Path]:
+    """Compile every library in ``names`` (with ``-D`` for each of
+    ``defines``) that is not built yet, one nvcc process each, all started
+    together.  Raises with the compiler's output when one fails; writes each
+    build's ``-Xptxas -v`` report (registers, shared memory, spills) beside
+    its library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: library_path(name) for name in names}
+    paths = {name: library_path(name, defines) for name in names}
     jobs = {}
     for name, path in paths.items():
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []
@@ -91,17 +98,18 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of source ``name``, building all kernels on first
-    use."""
+    use (and a library with ``defines`` on its own first use)."""
+    key = (name, tuple(defines))
     with _LOCK:
-        if name not in _LIBS:
-            paths = build_all()
+        if key not in _LIBS:
+            paths = build_all([name], key[1]) if defines else build_all()
             lib = ctypes.CDLL(str(paths[name]))
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = lib
-        return _LIBS[name]
+            _LIBS[key] = lib
+        return _LIBS[key]
 
 
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -115,7 +123,10 @@ class CudaKernel:
     without error, and nowhere else; the launcher's own
     ``cudaGetLastError()`` after the launch becomes a ``RuntimeError``.
     ``source`` names the ``csrc/<source>.cu`` that holds the launcher (the
-    kernel's own name unless several launchers share a source)."""
+    kernel's own name unless several launchers share a source); ``defines``
+    of a launch select a library of that source built with them.
+    :attr:`packed_launches` counts the launches that read the packed universe
+    (uint32 words) as cells."""
 
     def __init__(self, name: str, symbol: str, argtypes, source: str = "") -> None:
         self.name = name
@@ -123,20 +134,32 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.packed_launches = 0
         self._fn: Optional[ctypes._CFuncPtr] = None
+        self._variants: Dict[Tuple[str, ...], Tuple[ctypes.CDLL, ctypes._CFuncPtr]] = {}
 
-    def launch(self, *args) -> None:
-        if self._fn is None:
-            lib = library(self.source)
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
-        rc = self._fn(*args)
+    def _bind(self, defines: Tuple[str, ...]):
+        lib = library(self.source, defines)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        return lib, fn
+
+    def launch(self, *args, defines: Tuple[str, ...] = (), packed: bool = False) -> None:
+        if defines:
+            if defines not in self._variants:
+                self._variants[defines] = self._bind(defines)
+            lib, fn = self._variants[defines]
+        else:
+            if self._fn is None:
+                self._lib, self._fn = self._bind(())
+            lib, fn = self._lib, self._fn
+        rc = fn(*args)
         if rc != 0:
-            msg = self._lib.cuda_error_string(rc).decode()
+            msg = lib.cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} ({rc})")
         self.launches += 1
+        self.packed_launches += int(packed)
 
 
 # argtypes mirror the extern "C" launchers in csrc/; every pointer and the
@@ -147,14 +170,22 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P, P, P, I, P] + [I] * 9 + [P]),
         CudaKernel("bit_multi_step", "bit_multi_step_launch",
                    [P, P, I, P, P, I, I, I, I, I, I, P]),
+        CudaKernel("bit_multi_step_cm", "bit_multi_step_cm_launch",
+                   [P, P, I, P, P, I, I, I, I, I, I, P], source="bit_multi_step"),
+        CudaKernel("bit_multi_step_static", "bit_multi_step_static_launch",
+                   [P, P, P] + [I] * 7 + [P], source="bit_multi_step"),
+        CudaKernel("bit_multi_step_static_cm", "bit_multi_step_static_launch",
+                   [P, P, P] + [I] * 7 + [P], source="bit_multi_step"),
+        CudaKernel("ca_multi_step", "ca_multi_step_launch",
+                   [P, P, I, P, P, I, I, I, I, I, I, P]),
         CudaKernel("encoder_fwd", "encoder_fwd_launch",
-                   [P] * 6 + [I] * 8 + [LL, D, ULL, I, P]),
+                   [P] * 6 + [I] * 8 + [LL, I, D, ULL, I, P]),
         CudaKernel("ae_loss_fwd", "ae_loss_fwd_launch",
-                   [P] * 12 + [I] * 8 + [LL, D, ULL, I, P]),
+                   [P] * 12 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("encoder_bwd", "encoder_bwd_launch",
-                   [P] * 10 + [I] * 9 + [LL, LL, D, ULL, I, P]),
+                   [P] * 10 + [I] * 9 + [LL, LL, I, D, ULL, I, P]),
         CudaKernel("ae_loss_bwd", "ae_loss_bwd_launch",
-                   [P] * 18 + [I] * 10 + [LL, LL, LL, D, ULL, I, P]),
+                   [P] * 18 + [I] * 10 + [LL, LL, LL, I, I, D, ULL, I, P]),
         CudaKernel("head_fwd", "head_fwd_launch",
                    [P] * 4 + [I] * 7 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("head_bwd", "head_bwd_launch",
@@ -184,7 +215,13 @@ def stream_args(t: torch.Tensor):
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.packed_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def packed_launch_counts() -> Dict[str, int]:
+    """Launches that read packed words as cells, by kernel."""
+    return {name: k.packed_launches for name, k in KERNELS.items() if k.packed_launches}

@@ -19,6 +19,12 @@ one element, so the backward twins are written out.
 
 The kernels compute their own convolutions, pools, transpose convolutions,
 masks and sums; ``torch.nn.functional`` appears only in the plain twins.
+
+Cells (the encoder's x, the autoencoder's src and obs) are uint8 [N, 1, H, W]
+or the packed universe itself, uint32 words [N, 1, H, W/32] (ops/bitpack.py's
+layout): the kernels expand the words in shared memory as they stage them
+(``csrc/common.cuh``), the twins unpack them (:func:`cells`), and either way
+the result is the one the same cells give as uint8.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from .bitpack import WORD, unpack_grid
 from .cuda_build import KERNELS, stream_args
 
 ENCODER = KERNELS["encoder_fwd"]
@@ -47,7 +54,8 @@ STAGE_ENC1, STAGE_ENC2, STAGE_DEC1, STAGE_DEC2 = 0, 1, 2, 3
 __all__ = ["ENCODER", "AE_LOSS", "ENCODER_BWD", "AE_LOSS_BWD", "encoder", "ae_loss",
            "encoder_fwd", "encoder_fwd_plain", "encoder_bwd", "encoder_bwd_plain",
            "ae_loss_fwd", "ae_loss_fwd_plain", "ae_loss_bwd", "ae_loss_bwd_plain",
-           "philox4x32", "philox_keep_mask", "drop_settings"]
+           "philox4x32", "philox_keep_mask", "drop_settings", "cells", "cell_shape",
+           "cell_kind"]
 
 
 def _check_pools(pools: Tuple[int, int]) -> None:
@@ -59,6 +67,37 @@ def _check_pools(pools: Tuple[int, int]) -> None:
 def _check_drop(drop_p: float) -> None:
     if not 0.0 <= drop_p < 1.0:
         raise ValueError(f"drop_p must be in [0, 1), got {drop_p}")
+
+
+# ---------------------------------------------------------------------------
+# cells: uint8, float32 or packed uint32 words
+# ---------------------------------------------------------------------------
+
+# what a launcher's cell argument holds (csrc/common.cuh KIND_*)
+_KINDS = {torch.float32: 0, torch.uint8: 1, torch.uint32: 2}
+
+
+def cells(t: torch.Tensor) -> torch.Tensor:
+    """The cells a tensor holds: packed uint32 words [..., W/32] unpacked to
+    uint8 [..., W]; any other tensor as it is."""
+    return unpack_grid(t, WORD * t.shape[-1]) if t.dtype == torch.uint32 else t
+
+
+def cell_shape(t: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of :func:`cells` of ``t``, without unpacking."""
+    shape = tuple(t.shape)
+    return shape[:-1] + (WORD * shape[-1],) if t.dtype == torch.uint32 else shape
+
+
+def _packed(*ts: torch.Tensor) -> bool:
+    """Whether a launch reads packed words (its count of packed launches)."""
+    return any(t.dtype == torch.uint32 for t in ts)
+
+
+def cell_kind(t: torch.Tensor) -> int:
+    """The launchers' kind code of a cell argument: 0 float32, 1 uint8, 2
+    packed uint32 words."""
+    return _KINDS[t.dtype]
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +176,7 @@ def _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed):
     the dropout scale."""
     _check_pools(pools)
     _check_drop(drop_p)
-    xf = x.to(torch.float32)
+    xf = cells(x).to(torch.float32)
     d1, scale = _dropout(F.conv2d(xf, w1, b1, padding=1), STAGE_ENC1, drop_p, seed)
     x1 = F.max_pool2d(F.relu(d1), pools[0])
     d2, _ = _dropout(F.conv2d(x1, w2, b2, padding=1), STAGE_ENC2, drop_p, seed)
@@ -147,7 +186,8 @@ def _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed):
 def encoder_fwd_plain(x, w1, b1, w2, b2, pools: Tuple[int, int],
                       drop_p: float = 0.0, seed: int = 0) -> torch.Tensor:
     """``pool(relu(drop(conv3x3(x))))`` twice, zero padding 1; x [N, 1, H, W]
-    uint8 or float32 -> float32 [N, C2, H/(p1 p2), W/(p1 p2)]."""
+    uint8 or float32, or packed words [N, 1, H, W/32] -> float32
+    [N, C2, H/(p1 p2), W/(p1 p2)]."""
     return _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed)[4]
 
 
@@ -219,7 +259,7 @@ def ae_loss_fwd_plain(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs,
     """Per-instance ``sum((obs - ae(src))**2)`` over C, H, W -> float32 [N];
     the last stage is ``sigmoid(drop(r))``, so a dropped cell gives 0.5."""
     y = _ae_planes(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, pools, drop_p, seed)[7]
-    return ((obs.to(torch.float32) - y) ** 2).sum(dim=(1, 2, 3))
+    return ((cells(obs).to(torch.float32) - y) ** 2).sum(dim=(1, 2, 3))
 
 
 def ae_loss_bwd_plain(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar,
@@ -229,7 +269,7 @@ def ae_loss_bwd_plain(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar,
     :func:`ae_loss_fwd_plain` for the cotangent gbar [N] of the error."""
     xf, d1, x1, d2, emb, mid, dy, y, scale = _ae_planes(
         src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, pools, drop_p, seed)
-    g = gbar.view(-1, 1, 1, 1) * (2.0 * (y - obs.to(torch.float32)))
+    g = gbar.view(-1, 1, 1, 1) * (2.0 * (y - cells(obs).to(torch.float32)))
     gcy = g * y * (1.0 - y)
     if drop_p > 0.0:  # dy == 0 exactly where the cell was dropped or r == 0
         keep = philox_keep_mask(seed, STAGE_DEC2, dy.shape, drop_p, dy.device)
@@ -248,11 +288,12 @@ def ae_loss_bwd_plain(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar,
 # ---------------------------------------------------------------------------
 
 
-def _check_cuda_inputs(ref: torch.Tensor, cells, weights) -> None:
-    for name, t in cells:
-        if t.dtype != torch.uint8 or t.device != ref.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous uint8 tensor on "
-                             f"{ref.device} (the kernel reads cells)")
+def _check_cuda_inputs(ref: torch.Tensor, cell_args, weights) -> None:
+    for name, t in cell_args:
+        if (t.dtype not in (torch.uint8, torch.uint32) or t.device != ref.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous uint8 or packed uint32 tensor "
+                             f"on {ref.device} (the kernel reads cells)")
     for name, t in weights:
         if t.dtype != torch.float32 or t.device != ref.device:
             raise ValueError(f"{name} must be float32 on {ref.device}")
@@ -304,7 +345,7 @@ def _encoder_shape(x, w1, w2, pools):
     """Checks shared by the encoder's forward and backward launches."""
     _check_pools(pools)
     p1, p2 = pools
-    n, cin, h, w = x.shape
+    n, cin, h, w = cell_shape(x)
     c1, c2 = w1.shape[0], w2.shape[0]
     if cin != 1 or tuple(w1.shape) != (c1, 1, 3, 3) or tuple(w2.shape) != (c2, c1, 3, 3):
         raise ValueError("the encoder kernels take one input channel and 3x3 "
@@ -339,8 +380,8 @@ def _dispatch(name: str, ref: torch.Tensor, plain, kernel, *args):
 def encoder_fwd(x, w1, b1, w2, b2, pools: Tuple[int, int], drop_p: float = 0.0,
                 seed: int = 0) -> torch.Tensor:
     """Both encoder stages as one kernel on CUDA; the plain twin on the CPU.
-    The kernel takes uint8 cells [N, 1, H, W] with H and W divisible by
-    p1 * p2.  ``drop_p > 0`` applies dropout from ``seed``."""
+    The kernel takes uint8 cells [N, 1, H, W] or packed words [N, 1, H, W/32]
+    with H and W divisible by p1 * p2.  ``drop_p > 0`` applies dropout from ``seed``."""
     return _dispatch("encoder_fwd", x, encoder_fwd_plain, _encoder_fwd_kernel,
                      x, w1, b1, w2, b2, pools, drop_p, seed)
 
@@ -355,8 +396,8 @@ def _encoder_fwd_kernel(x, w1, b1, w2, b2, pools, drop_p, seed):
     ws = [t.contiguous() for t in (w1, b1, w2, b2)]
     device, stream = stream_args(x)
     ENCODER.launch(x.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
-                   n, h, w, c1, c2, p1, p2, r2, smem, float(drop_p),
-                   _seed_word(seed), device, stream)
+                   n, h, w, c1, c2, p1, p2, r2, smem, cell_kind(x), float(drop_p),
+                   _seed_word(seed), device, stream, packed=_packed(x))
     return out
 
 
@@ -433,7 +474,8 @@ def _encoder_bwd_kernel(x, w1, b1, w2, b2, g, pools, drop_p, seed):
                        plan["gc2"].data_ptr(), plan["part2"].data_ptr(),
                        plan["part1"].data_ptr(), grads.data_ptr(), n, h, w, c1, c2,
                        p1, p2, plan["r2"], plan["rb"], plan["smem2"], plan["smem1"],
-                       float(drop_p), _seed_word(seed), device, stream)
+                       cell_kind(x), float(drop_p), _seed_word(seed), device, stream,
+                       packed=_packed(x))
     return _split(grads, shapes)
 
 
@@ -463,7 +505,7 @@ def _ae_shape(src, w1, w2, wt1, wt2, obs, pools):
     """Checks shared by the autoencoder's forward and backward launches."""
     if tuple(pools) != (2, 2):
         raise ValueError(f"the whole-AE kernel needs pools (2, 2), got {pools}")
-    n, cin, h, w = src.shape
+    n, cin, h, w = cell_shape(src)
     c1, c2 = w1.shape[0], w2.shape[0]
     cmid, cout = wt1.shape[1], wt2.shape[1]
     shapes = ((w1, (c1, 1, 3, 3)), (w2, (c2, c1, 3, 3)),
@@ -471,8 +513,8 @@ def _ae_shape(src, w1, w2, wt1, wt2, obs, pools):
     if cin != 1 or any(tuple(t.shape) != s for t, s in shapes):
         raise ValueError("the whole-AE kernels take one input channel and weights "
                          "[C1,1,3,3], [C2,C1,3,3], [C2,CMID,4,4], [CMID,COUT,4,4]")
-    if tuple(obs.shape) != (n, cout, h, w):
-        raise ValueError(f"obs shape {tuple(obs.shape)} != {(n, cout, h, w)}")
+    if cell_shape(obs) != (n, cout, h, w):
+        raise ValueError(f"obs cells {cell_shape(obs)} != {(n, cout, h, w)}")
     if max(c1, c2, cmid, cout) > MAX_CHANNELS:
         raise ValueError(f"at most {MAX_CHANNELS} channels a stage")
     if h % 4 or w % 4:
@@ -486,9 +528,10 @@ def ae_loss_fwd(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs,
                 pools: Tuple[int, int] = (2, 2), drop_p: float = 0.0,
                 seed: int = 0) -> torch.Tensor:
     """The whole autoencoder and its per-instance squared error as one
-    kernel on CUDA; the plain twin on the CPU.  The kernel takes uint8 cells
-    src [N, 1, H, W] and obs [N, COUT, H, W], pools (2, 2), H and W divisible
-    by 4; the caller divides by C*H*W for the mean."""
+    kernel on CUDA; the plain twin on the CPU.  The kernel takes src
+    [N, 1, H, W] and obs [N, COUT, H, W] as uint8 cells or packed words (each
+    on its own), pools (2, 2), H and W divisible by 4; the caller divides by
+    C*H*W for the mean."""
     return _dispatch("ae_loss_fwd", src, ae_loss_fwd_plain, _ae_loss_fwd_kernel,
                      src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, pools, drop_p, seed)
 
@@ -508,7 +551,8 @@ def _ae_loss_fwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, pools, dro
     device, stream = stream_args(src)
     AE_LOSS.launch(src.data_ptr(), obs.data_ptr(), *(t.data_ptr() for t in ws),
                    partials.data_ptr(), err.data_ptr(), n, h, w, c1, c2, cmid,
-                   cout, ry, smem, float(drop_p), _seed_word(seed), device, stream)
+                   cout, ry, smem, cell_kind(src), cell_kind(obs), float(drop_p),
+                   _seed_word(seed), device, stream, packed=_packed(src, obs))
     return err
 
 
@@ -547,7 +591,8 @@ def _ae_loss_bwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar, pool
                        part3.data_ptr(), plan["part2"].data_ptr(),
                        plan["part1"].data_ptr(), grads.data_ptr(), n, h, w, c1, c2,
                        cmid, cout, ry, plan["r2"], plan["rb"], smem3, plan["smem2"],
-                       plan["smem1"], float(drop_p), _seed_word(seed), device, stream)
+                       plan["smem1"], cell_kind(src), cell_kind(obs), float(drop_p),
+                       _seed_word(seed), device, stream, packed=_packed(src, obs))
     return _split(grads, shapes)
 
 

@@ -24,6 +24,8 @@ from one, two or four kernels applies one mask.  Max-pool ties share the
 gradient equally, so the backward twins are written out with
 ``cuda_head._pool_route`` rather than taken from ``F.max_pool2d``.
 
+A head's x and a loss's obs may be the packed universe, uint32 words
+[N, C, H, W/32], wherever they may be uint8 cells (``cuda_head.cells``).
 ``torch.nn.functional`` appears only in the plain twins.
 """
 
@@ -40,8 +42,8 @@ from .cuda_build import KERNELS, stream_args
 from .cuda_head import (MAX_CHANNELS, RED16_FLOATS, RED_FLOATS, SMEM_TARGET_BWD,
                         STAGE_DEC1, STAGE_DEC2, STAGE_ENC1, _ae_band_floats,
                         _check_drop, _conv_wgrad, _deconv_wgrad, _dispatch, _dropout,
-                        _pick_band, _pool_route, _seed_word, _split, _wants_grad,
-                        philox_keep_mask)
+                        _packed, _pick_band, _pool_route, _seed_word, _split,
+                        _wants_grad, cell_kind, cell_shape, cells, philox_keep_mask)
 
 HEAD_FWD, HEAD_BWD = KERNELS["head_fwd"], KERNELS["head_bwd"]
 TAIL_FWD, TAIL_BWD = KERNELS["tail_fwd"], KERNELS["tail_bwd"]
@@ -76,7 +78,7 @@ def _check_act(act: str) -> None:
 def _head_planes(x, w, b, pool, drop_p, seed, stage):
     _check_pool(pool)
     _check_drop(drop_p)
-    xf = x.to(torch.float32)
+    xf = cells(x).to(torch.float32)
     d, scale = _dropout(F.conv2d(xf, w, b, padding=1), stage, drop_p, seed)
     return xf, d, scale
 
@@ -135,11 +137,11 @@ def tail_bwd_plain(x, wt, b, g, act: str, drop_p: float = 0.0, seed: int = 0,
 
 
 def _squared_error(obs, y):
-    return ((obs.to(torch.float32) - y) ** 2).sum(dim=(1, 2, 3))
+    return ((cells(obs).to(torch.float32) - y) ** 2).sum(dim=(1, 2, 3))
 
 
 def _error_cotangent(obs, y, gbar):
-    return gbar.view(-1, 1, 1, 1) * (2.0 * (y - obs.to(torch.float32)))
+    return gbar.view(-1, 1, 1, 1) * (2.0 * (y - cells(obs).to(torch.float32)))
 
 
 def loss_tail_fwd_plain(x, wt, b, obs, act: str = "sigmoid", drop_p: float = 0.0,
@@ -180,13 +182,15 @@ def decoder_loss_bwd_plain(x, wt1, b1, wt2, b2, obs, gbar, drop_p: float = 0.0,
 
 def _check_tensors(ref: torch.Tensor, floats, frames=()) -> None:
     """``floats``: (name, tensor) that must be float32 on ref's device;
-    ``frames``: the same for tensors the kernels read as uint8 or float32."""
+    ``frames``: the same for tensors the kernels read as uint8 or float32, or
+    as packed uint32 words."""
     for name, t in floats:
         if t.dtype != torch.float32 or t.device != ref.device:
             raise ValueError(f"{name} must be float32 on {ref.device}")
     for name, t in frames:
-        if t.dtype not in (torch.uint8, torch.float32) or t.device != ref.device:
-            raise ValueError(f"{name} must be uint8 or float32 on {ref.device}")
+        if t.dtype not in (torch.uint8, torch.float32, torch.uint32) or t.device != ref.device:
+            raise ValueError(f"{name} must be uint8, float32 or packed uint32 on "
+                             f"{ref.device}")
 
 
 def _check_instances(n: int) -> None:
@@ -221,7 +225,7 @@ def _head_bands(c, o, h, w, pool):
 
 def _head_shape(x, w, b, pool):
     _check_pool(pool)
-    n, c, h, wd = x.shape
+    n, c, h, wd = cell_shape(x)
     o = w.shape[0]
     if pool not in HEAD_POOLS:
         raise ValueError(f"the head kernels take pool in {HEAD_POOLS}, got {pool}")
@@ -253,8 +257,8 @@ def _head_fwd_kernel(x, w, b, pool, drop_p, seed, stage):
     out = _empty(x, n, o, h // pool, wd // pool)
     device, stream = stream_args(x)
     HEAD_FWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, c, o, h,
-                    wd, pool, r, smem, int(x.dtype == torch.uint8), int(stage),
-                    float(drop_p), _seed_word(seed), device, stream)
+                    wd, pool, r, smem, cell_kind(x), int(stage),
+                    float(drop_p), _seed_word(seed), device, stream, packed=_packed(x))
     return out
 
 
@@ -284,8 +288,8 @@ def _head_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx):
     HEAD_BWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
                     gc.data_ptr() if need_dx else None, partials.data_ptr(),
                     grads.data_ptr(), gx.data_ptr() if need_dx else None, n, c, o, h, wd,
-                    pool, r, smem, int(x.dtype == torch.uint8), int(stage), float(drop_p),
-                    _seed_word(seed), device, stream)
+                    pool, r, smem, cell_kind(x), int(stage), float(drop_p),
+                    _seed_word(seed), device, stream, packed=_packed(x))
     return (*_split(grads, shapes), gx)
 
 
@@ -326,8 +330,8 @@ def _tail_shape(x, wt, b, act):
 
 
 def _check_obs(obs, shape) -> None:
-    if tuple(obs.shape) != tuple(shape):
-        raise ValueError(f"obs shape {tuple(obs.shape)} != {tuple(shape)}")
+    if cell_shape(obs) != tuple(shape):
+        raise ValueError(f"obs cells {cell_shape(obs)} != {tuple(shape)}")
 
 
 def tail_fwd(x, wt, b, act: str, drop_p: float = 0.0, seed: int = 0,
@@ -371,7 +375,8 @@ def _tail_bwd_launch(kernel, x, wt, b, up, gbar, act, drop_p, seed, stage, extra
     device, stream = stream_args(x)
     kernel.launch(x.data_ptr(), wt.data_ptr(), b.data_ptr(), *ups, partials.data_ptr(),
                   grads.data_ptr(), gx.data_ptr(), n, cin, cout, h, w, ri, smem, ACTS[act],
-                  *extra, int(stage), float(drop_p), _seed_word(seed), device, stream)
+                  *extra, int(stage), float(drop_p), _seed_word(seed), device, stream,
+                  packed=_packed(up))
     return (*_split(grads, ((cin, cout, 4, 4), (cout,))), gx)
 
 
@@ -404,8 +409,8 @@ def _loss_tail_fwd_kernel(x, wt, b, obs, act, drop_p, seed, stage):
     device, stream = stream_args(x)
     LOSS_TAIL_FWD.launch(x.data_ptr(), wt.data_ptr(), b.data_ptr(), obs.data_ptr(),
                          partials.data_ptr(), err.data_ptr(), n, cin, cout, h, w, ry, smem,
-                         ACTS[act], int(obs.dtype == torch.uint8), int(stage),
-                         float(drop_p), _seed_word(seed), device, stream)
+                         ACTS[act], cell_kind(obs), int(stage),
+                         float(drop_p), _seed_word(seed), device, stream, packed=_packed(obs))
     return err
 
 
@@ -425,7 +430,7 @@ def _loss_tail_bwd_kernel(x, wt, b, obs, gbar, act, drop_p, seed, stage):
     if tuple(gbar.shape) != (n,):
         raise ValueError(f"gbar shape {tuple(gbar.shape)} != {(n,)}")
     return _tail_bwd_launch(LOSS_TAIL_BWD, x, wt, b, obs, gbar, act, drop_p, seed, stage,
-                            (int(obs.dtype == torch.uint8),))
+                            (cell_kind(obs),))
 
 
 # -- decoder loss --------------------------------------------------------------
@@ -485,8 +490,8 @@ def _decoder_loss_fwd_kernel(x, wt1, b1, wt2, b2, obs, drop_p, seed):
     device, stream = stream_args(x)
     DECODER_LOSS_FWD.launch(*(t.data_ptr() for t in ts), partials.data_ptr(),
                             err.data_ptr(), n, h, w, c2, cmid, cout, ry, smem,
-                            int(obs.dtype == torch.uint8), float(drop_p), _seed_word(seed),
-                            device, stream)
+                            cell_kind(obs), float(drop_p), _seed_word(seed),
+                            device, stream, packed=_packed(obs))
     return err
 
 
@@ -513,8 +518,9 @@ def _decoder_loss_bwd_kernel(x, wt1, b1, wt2, b2, obs, gbar, drop_p, seed):
     device, stream = stream_args(x)
     DECODER_LOSS_BWD.launch(*(t.data_ptr() for t in ts), gmid.data_ptr(),
                             partials.data_ptr(), grads.data_ptr(), gx.data_ptr(), n, h, w,
-                            c2, cmid, cout, ry, smem, int(obs.dtype == torch.uint8),
-                            float(drop_p), _seed_word(seed), device, stream)
+                            c2, cmid, cout, ry, smem, cell_kind(obs),
+                            float(drop_p), _seed_word(seed), device, stream,
+                            packed=_packed(obs))
     return (*_split(grads, shapes), gx)
 
 

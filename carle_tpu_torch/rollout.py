@@ -30,13 +30,17 @@ class RolloutCarry(NamedTuple):
 
 
 class Rollout:
-    """Binds (config, wrappers, agent) to one device."""
+    """Binds (config, wrappers, agent) to one device.  ``stack`` swaps the
+    state representation (e.g. the bit-packed
+    ``parallel.packed_env.PackedSpatialStack``) while the loop stays the same:
+    it touches the stack only through init, transition, reset and observe."""
 
     def __init__(self, config: EnvConfig, wrappers: Sequence[WrapperDef] = (),
-                 agent: Optional[Agent] = None, device: DeviceLike = None) -> None:
+                 agent: Optional[Agent] = None, device: DeviceLike = None,
+                 stack: Optional[WrapperStack] = None) -> None:
         self.config = config
         self.device = resolve_device(device)
-        self.stack = WrapperStack(config, wrappers)
+        self.stack = WrapperStack(config, wrappers) if stack is None else stack
         self.agent = agent
 
     def generator(self, seed: int) -> torch.Generator:
@@ -70,13 +74,14 @@ class Rollout:
             raise ValueError("rollout has no agent; use run_actions")
         cfg = self.config
         stack, rewards, seed = carry.stack, [], carry.drop_seed
+        blank = torch.empty((cfg.instances, 1, 0, 0), device=self.device)
         for _ in range(int(num_steps)):
-            obs = self.stack.observe(stack)
+            obs = self.stack.observe(stack) if self.agent.reads_obs else blank
             action = self.agent.apply(carry.agent_params, carry.generator, obs)
             patch = action.reshape(cfg.instances, cfg.eff_action_height,
                                    cfg.eff_action_width)
             seed += 1
-            stack, (_, reward) = self.stack.step(stack, patch, seed, carry.generator)
+            stack, _, reward = self.stack.transition(stack, patch, seed, carry.generator)
             rewards.append(reward)
         return carry._replace(stack=stack, drop_seed=seed), self._stack(rewards)
 
@@ -87,7 +92,7 @@ class Rollout:
         stack, rewards, seed = carry.stack, [], carry.drop_seed
         for action in actions:
             seed += 1
-            stack, (_, reward) = self.stack.step(stack, action, seed, carry.generator)
+            stack, _, reward = self.stack.transition(stack, action, seed, carry.generator)
             rewards.append(reward)
         return carry._replace(stack=stack, drop_seed=seed), self._stack(rewards)
 

@@ -9,12 +9,16 @@ states are checkpointed and the reward history is dumped.
 * checkpoints are ``.npz`` files of the full learner state (parameters, Adam
   moments, accumulation counters) in the JAX package's format, so training
   resumes exactly and either package reads the other's files;
-* metrics are the ``.npy`` reward histories the reference writes.
+* metrics are the ``.npy`` reward histories the reference writes;
+* ``packed_state=True`` (``--packed-state``) carries the universes
+  bit-packed, 32 cells a word (parallel/packed_env.py): 65k universes of
+  512 x 512 hold 2.1 GB packed against 17 GB as uint8, and the nets' kernels
+  read the words themselves.  Rewards equal the uint8 carry's.
 
-Not ported yet: multi-card sharding (``mesh``), the bit-packed carry
-(``packed_state``) and class agents (``agent_fn`` other than None).
+Not ported yet: multi-card sharding (``mesh``) and class agents (``agent_fn``
+other than None).
 
-Run:  python -m carle_tpu_torch.train_mcl [--device cpu]
+Run:  python -m carle_tpu_torch.train_mcl [--device cpu] [--packed-state]
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from .config import EnvConfig
 from .device import DeviceLike
 from .mcl.ae import ae2d_def
 from .mcl.rnd import rnd2d_def
+from .parallel.packed_env import PackedSpatialStack
 from .rollout import Rollout
 
 # Life, Move/Morley, Day & Night, B3/S023 (the reference's training rules)
@@ -89,6 +94,7 @@ def train(
     skip_segments: int = 0,
     progress_file: Optional[str] = None,
     device: DeviceLike = None,
+    packed_state: bool = False,
 ) -> np.ndarray:
     """Pre-train the RND2D + AE2D wrapper stack.  ``steps`` is (epochs,
     steps per ruleset segment).
@@ -106,6 +112,9 @@ def train(
     from ``seed``, so the action stream differs from the uncrashed run; the
     learned state (parameters, Adam moments, accumulation counters) is exact.
 
+    ``packed_state=True`` carries the universes bit-packed (32 cells a word,
+    the packed stack with no mesh); the reward history is the same.
+
     Runs on the card unless ``device="cpu"``.  Returns the per-step summed
     reward history (skipped segments excluded), and writes
       {log_dir}/models/RND2D_{exp}.npz, AE2D_{exp}.npz  (full learner states)
@@ -120,7 +129,8 @@ def train(
     wrapper_defs = [rnd2d_def(config, batch_size=batch_size),
                     ae2d_def(config, batch_size=batch_size)]
     agent = make_random_agent(config.eff_action_width, config.eff_action_height)
-    ro = Rollout(config, wrapper_defs, agent, device=device)
+    stack = PackedSpatialStack(config, wrapper_defs) if packed_state else None
+    ro = Rollout(config, wrapper_defs, agent, device=device, stack=stack)
     carry = ro.init(ro.generator(seed), rules_mod.LIFE)
 
     if resume_from:
@@ -216,6 +226,8 @@ def main(argv=None) -> None:
                         help="train on all rulesets at once through a "
                              "per-instance rule vector (one segment per "
                              "epoch) instead of cycling them")
+    parser.add_argument("--packed-state", action="store_true",
+                        help="carry the universes bit-packed (32 cells a word)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
@@ -233,6 +245,7 @@ def main(argv=None) -> None:
         skip_segments=args.skip_segments,
         progress_file=args.progress_file,
         device=args.device,
+        packed_state=args.packed_state,
     )
     print(json.dumps({"total_reward": float(history.sum()),
                       "segments": len(history) // args.steps_per_rule}))

@@ -17,7 +17,15 @@ Phases, in order; any failure exits non-zero without the final line:
            (forwards on 160 universes, backwards on 64, with and without
            dropout), the head also at RND's pool 4 and with its input
            cotangent, and the whole-autoencoder kernels with a source frame
-           that is not the target;
+           that is not the target; the fixed-rule, column-major and uint8
+           engines at bench.py's geometry (4096 x 256 x 256, 128 generations,
+           Life, p = 0.5; the data-rule engines also with the battery's 5
+           rulesets dealt over the universes), bit for bit; every kernel that
+           reads cells fed the packed words against it fed the same cells as
+           uint8, bit for bit, forward and backward, dropout off and on;
+   engines each of the five packed and uint8 engines once at bench.py's
+           geometry through its public function: all leave bench.py's
+           checksum, the live-cell sum of the plain twin;
 3. battery the scoring battery's entry points with the shipped checkpoints:
            evaluate_fused_batched (5 rulesets x 32 replicas = 160 universes
            of 256 x 256, 1024 steps) and evaluate_fused (5 x 256 steps x 1
@@ -31,6 +39,13 @@ Phases, in order; any failure exits non-zero without the final line:
            back, a resumed last segment and one mixed-rules segment; then one
            16-step action stream through the training stack (dropout off,
            batch_size 4), kernel path on the card vs plain path on the CPU;
+   packed  the packed path: train_mcl.train(packed_state=True) at train-64's
+           geometry, whose reward history must equal the uint8 run's; the
+           packed stack on 160 universes x 256 steps with the seven
+           packed-native wrappers (Prediction and Surprise learning) and
+           RND2D + AE2D (two kernels), each wrapper's reward against its
+           dense def on the uint8 stack, no cell view unpacked, the nets
+           reading the words; 16 steps of it on 8 universes, card against CPU;
 6. routes  the autoencoder's error and its 8 gradient leaves on 64 universes
            (a frame of a real rollout) by one kernel, by two (encoder, decoder
            loss) and by four (head, head, tail, loss tail), dropout off and on
@@ -43,17 +58,21 @@ Phases, in order; any failure exits non-zero without the final line:
            ae_loss_fwd; then the nine-wrapper stack (32 steps) and the
            learning stack (16 steps, dropout off, batch_size 4) through the
            kernel path on the card and the plain path on the CPU;
-8. profile 64 steps of the batched battery and 64 training steps under
-           torch.profiler: device time a step by kernel and the device's
-           busy share;
+8. profile 64 steps of the batched battery and 64 training steps, uint8 and
+           packed carry, under torch.profiler: device time a step by kernel,
+           the device's busy share and the peak device memory;
 9. report  a {"kernels": [...]} line with each kernel's launches on the main
-           paths (battery, server, train, routes and wrappers, each counted
-           from zero just before it), then the card's name and power limit,
-           then the ok line.
+           paths (battery, server, train, routes, wrappers, packed and
+           engines, each counted from zero just before it), then the card's
+           name and power limit, then the ok line.
 
 Tolerances: float kernels vs plain twins rtol 1e-4 / atol 1e-4 (the twins
 run cuDNN in full float32, TF32 off; cuDNN's own algorithms sum in other
 orders); the AE error sums 65,536 squares per universe, so rtol 1e-4.
+Integer engines and the packed-word inputs: bit for bit.  The packed path's
+wrappers against their dense defs: rtol 1e-4 (Speed's float32 weighted sums
+in another order; Morpho's exact integer sums against a float32 conv, atol
+1e-4 of its largest reward).
 Battery rewards, kernel path on the card vs plain path on the CPU: rtol 1e-4,
 atol 1e-5.  Gradients, kernel vs twin: 1e-4 of each leaf's largest entry (sums
 over 4 million positions in other orders; a pool window whose maxima tie in
@@ -91,11 +110,33 @@ INT32_OPS = 64 * 132 * 1.98e9
 # 2 x 11 LOP3 + the alive/dead select = 23: 45.  (carle_tpu/ops/bitpack.py:11
 # counts ~110 two-input operations: the TPU has no 3-input logic op.)
 OPS_PER_WORD = 45
+# The same count for the other engines (a word of cells a generation):
+# the row-major engine with Life fixed at compile time: pairs 12, carry-save
+# tree 10, Life's decision n1 & ~n2 & ~n3 & (n0 | g) 2 LOP3 = 24; column-major
+# (each thread carries its neighbours' vertical triples): the east column's
+# triple 2 SHF + 2 LOP3, count9 from the triples 2 CSAs x 2 LOP3 + 4 = 12,
+# then Life's decision 2 LOP3 = 16 fixed, the two 10-leaf mux folds 2 x 11
+# LOP3 + the select = 23 as data: 35; the uint8 engine (4 cells a word):
+# column sums 3 IADD3, 2 SHF, count9 1 IADD3, index 1 LEA, a byte's lookup
+# BFE + SHF + BFI x 4 = 19.
+OPS_PER_WORD_STATIC, OPS_PER_WORD_STATIC_CM, OPS_PER_WORD_CM = 24, 16, 35
+OPS_PER_U8_WORD = 19
+BENCH_UNIVERSES, BENCH_SIZE, BENCH_STEPS = 4096, 256, 128   # bench.py's geometry
+BATTERY_RULESETS = (([3], [2, 3]), ([3, 6, 8], [2, 4, 5]), ([3, 6, 7, 8], [3, 4, 6, 7, 8]),
+                    ([3], [0, 2, 3]), ([1, 3, 5, 7], [1, 3, 5, 7]))
 
 SOURCES = {
     "ca_step": ("carle_tpu_torch/csrc/ca_step.cu", "carle_tpu/ops/pallas_ca.py:100"),
     "bit_multi_step": ("carle_tpu_torch/csrc/bit_multi_step.cu",
                        "carle_tpu/ops/pallas_bitpack.py:565"),
+    "bit_multi_step_static": ("carle_tpu_torch/csrc/bit_multi_step.cu",
+                              "carle_tpu/ops/pallas_bitpack.py:647"),
+    "bit_multi_step_static_cm": ("carle_tpu_torch/csrc/bit_multi_step.cu",
+                                 "carle_tpu/ops/pallas_bitpack.py:736"),
+    "bit_multi_step_cm": ("carle_tpu_torch/csrc/bit_multi_step.cu",
+                          "carle_tpu/ops/pallas_bitpack.py:770"),
+    "ca_multi_step": ("carle_tpu_torch/csrc/ca_multi_step.cu",
+                      "carle_tpu/ops/pallas_ca.py:153"),
     "encoder_fwd": ("carle_tpu_torch/csrc/encoder_fwd.cu",
                     "carle_tpu/ops/pallas_head.py:1081"),
     "ae_loss_fwd": ("carle_tpu_torch/csrc/ae_loss_fwd.cu",
@@ -125,7 +166,14 @@ PATH_KERNELS = {
                "decoder_loss_fwd", "decoder_loss_bwd"),
     "wrappers": ("ca_step", "encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
                  "decoder_loss_fwd", "decoder_loss_bwd", "tail_fwd"),
+    "packed": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
+               "decoder_loss_fwd", "decoder_loss_bwd"),
+    "engines": ("bit_multi_step_static", "bit_multi_step_static_cm", "bit_multi_step_cm",
+                "ca_multi_step"),
 }
+# the kernels the packed path must launch on packed words
+PACKED_INPUT_KERNELS = ("encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
+                        "decoder_loss_fwd", "decoder_loss_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
         "ParsimonyBonus", "SpeedDetector", "PufferDetector")
 DROP_P = 0.1
@@ -305,7 +353,213 @@ def phase_kernels(torch, timer, shipped):
     log(f"ae_loss_fwd ok: {results['ae_loss_fwd']}")
     results.update(phase_train_kernels(torch, timer, gen))
     results.update(phase_stage_kernels(torch, timer, gen))
+    results.update(phase_engine_kernels(torch, timer))
+    phase_packed_input_kernels(torch, timer, gen, results)
     return results
+
+
+def _plain_ms(torch, fn):
+    """(fn(), its wall ms after a synchronize): one run of a plain twin."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _bench_grid(torch):
+    """bench.py's grid: 4096 universes of 256 x 256, cells alive with p = 0.5,
+    a fixed seed."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shape = (BENCH_UNIVERSES, BENCH_SIZE, BENCH_SIZE)
+    return (torch.rand(shape, generator=gen, device="cuda") < 0.5).to(torch.uint8)
+
+
+def phase_engine_kernels(torch, timer):
+    """Rows 10, 11a, 11b and 12 against their twins at bench.py's geometry
+    (4096 x 256 x 256, 128 generations, Life; rows 11b and 12 also with the
+    battery's 5 rulesets dealt over the universes), bit for bit."""
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca
+
+    grid = _bench_grid(torch)
+    n, size, steps = BENCH_UNIVERSES, BENCH_SIZE, BENCH_STEPS
+    rm, cm = bitpack.pack_grid(grid), bitpack.pack_grid_cm(grid)
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device="cuda")
+    vec = torch.tensor([rules.pack_rule_bits(*BATTERY_RULESETS[i % 5]) for i in range(n)],
+                       dtype=torch.int32, device="cuda")
+    words, cells = rm.numel(), grid.numel()
+    results = {}
+
+    def held(name, kernel_fn, plain_fn):
+        got = kernel_fn()
+        want, plain = _plain_ms(torch, plain_fn)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"{name} differs from its plain twin: max {err}")
+        return plain
+
+    specs = {
+        "bit_multi_step_static": (
+            lambda: cuda_bitpack.bit_multi_step_static(rm, [3], [2, 3], steps),
+            lambda: cuda_bitpack.bit_multi_step_static_plain(rm, [3], [2, 3], steps),
+            None, OPS_PER_WORD_STATIC, "u32 [4096,256,8] x 128, Life fixed"),
+        "bit_multi_step_static_cm": (
+            lambda: cuda_bitpack.bit_multi_step_static_cm(cm, [3], [2, 3], steps),
+            lambda: cuda_bitpack.bit_multi_step_static_cm_plain(cm, [3], [2, 3], steps),
+            None, OPS_PER_WORD_STATIC_CM, "u32 column-major [4096,8,256] x 128, Life fixed"),
+        "bit_multi_step_cm": (
+            lambda: cuda_bitpack.bit_multi_step_cm(cm, life, steps),
+            lambda: cuda_bitpack.bit_multi_step_cm_plain(cm, life, steps),
+            (lambda: cuda_bitpack.bit_multi_step_cm(cm, vec, steps),
+             lambda: cuda_bitpack.bit_multi_step_cm_plain(cm, vec, steps)),
+            OPS_PER_WORD_CM, "u32 column-major [4096,8,256] x 128, Life as data"),
+    }
+    for name, (kfn, pfn, vector, ops, shape) in specs.items():
+        plain = held(name, kfn, pfn)
+        if vector:
+            held(name + " (rule vector)", *vector)
+        b, by = bound_ms(2 * 4 * words + 4, ops * words * steps, INT32_OPS)
+        results[name] = dict(max_abs_err=0.0, ms=timer.ms(kfn, 3), plain_ms=plain,
+                             bound_ms=b, bound_by=by, library_ms=None, shape=shape)
+        if vector:
+            results[name]["ms_rule_vector"] = timer.ms(vector[0], 3)
+        log(f"{name} ok: {results[name]}")
+    plain = held("ca_multi_step", lambda: cuda_ca.ca_multi_step(grid, life, steps),
+                 lambda: cuda_ca.ca_multi_step_plain(grid, life, steps))
+    held("ca_multi_step (rule vector)", lambda: cuda_ca.ca_multi_step(grid, vec, steps),
+         lambda: cuda_ca.ca_multi_step_plain(grid, vec, steps))
+    b, by = bound_ms(2 * cells + 4, OPS_PER_U8_WORD * cells // 4 * steps, INT32_OPS)
+    results["ca_multi_step"] = dict(
+        max_abs_err=0.0, ms=timer.ms(lambda: cuda_ca.ca_multi_step(grid, life, steps), 2),
+        ms_rule_vector=timer.ms(lambda: cuda_ca.ca_multi_step(grid, vec, steps), 2),
+        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+        shape="u8 [4096,256,256] x 128, Life")
+    log(f"ca_multi_step ok: {results['ca_multi_step']}")
+    return results
+
+
+def _same_bits(a, b) -> bool:
+    """Tensors (or tuples of them, None skipped) equal bit for bit."""
+    if isinstance(a, (tuple, list)):
+        return all(_same_bits(x, y) for x, y in zip(a, b) if x is not None)
+    return a.equal(b)
+
+
+def phase_packed_input_kernels(torch, timer, gen, results):
+    """Each kernel that reads cells, fed the packed universe (uint32 words
+    [N, 1, H, W/32]), against the same kernel fed the same cells as uint8:
+    the same bits, forward and backward, dropout off and 0.1; and its time on
+    the words at the shapes of its uint8 row (added to ``results``)."""
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.ops import bitpack, cuda_head as ch, cuda_stages as cs
+
+    dev = torch.device("cuda")
+    seed = 4242
+    x8 = {n: (torch.rand((n, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+          for n in (64, 160)}
+    o8 = {n: (torch.rand((n, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+          for n in (64, 160)}
+    x32 = {n: bitpack.pack_grid(t) for n, t in x8.items()}
+    o32 = {n: bitpack.pack_grid(t) for n, t in o8.items()}
+    rnd = init_predictor_params(EnvConfig(), gen, dev)
+    enc = (rnd["conv1"]["w"], rnd["conv1"]["b"], rnd["conv2"]["w"], rnd["conv2"]["b"])
+    ae = init_ae_params(gen, dev)
+    ps = [ae[k][t] for k in ("conv1", "conv2", "deconv1", "deconv2") for t in ("w", "b")]
+    gbar = torch.randn((64,), generator=gen, device=dev)
+    g_enc = torch.randn((64, 1, 32, 32), generator=gen, device=dev)
+    g_head = torch.randn((64, 4, 128, 128), generator=gen, device=dev)
+    emb = {n: ch.encoder_fwd(x8[n], *ps[:4], (2, 2)) for n in (64, 160)}
+    mid = {n: torch.relu(torch.randn((n, 1, 128, 128), generator=gen, device=dev))
+           for n in (64, 160)}
+    cases = {  # name: (call on words, call on cells) at 64 universes, f(drop_p)
+        "encoder_fwd": lambda src, obs, p: ch.encoder_fwd(src, *enc, (4, 2), p, seed),
+        "encoder_bwd": lambda src, obs, p: ch.encoder_bwd(src, *enc, g_enc, (4, 2), p, seed),
+        "ae_loss_fwd": lambda src, obs, p: ch.ae_loss_fwd(src, *ps, obs, (2, 2), p, seed),
+        "ae_loss_bwd": lambda src, obs, p: ch.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), p, seed),
+        "decoder_loss_fwd": lambda src, obs, p: cs.decoder_loss_fwd(emb[64], *ps[4:], obs, p,
+                                                                   seed),
+        "decoder_loss_bwd": lambda src, obs, p: cs.decoder_loss_bwd(emb[64], *ps[4:], obs, gbar,
+                                                                   p, seed),
+        "head_fwd": lambda src, obs, p: cs.head_fwd(src, ps[0], ps[1], 2, p, seed),
+        "head_bwd": lambda src, obs, p: cs.head_bwd(src, ps[0], ps[1], g_head, 2, p, seed),
+        "loss_tail_fwd": lambda src, obs, p: cs.loss_tail_fwd(mid[64], ps[6], ps[7], obs,
+                                                             "sigmoid", p, seed),
+        "loss_tail_bwd": lambda src, obs, p: cs.loss_tail_bwd(mid[64], ps[6], ps[7], obs, gbar,
+                                                             "sigmoid", p, seed),
+    }
+    checked = []
+    for name, fn in cases.items():
+        for p in (0.0, DROP_P):
+            want = fn(x8[64], o8[64], p)
+            pairs = [(x32[64], o32[64])]
+            if name.startswith("ae_loss"):   # src and obs each on its own
+                pairs += [(x32[64], o8[64]), (x8[64], o32[64])]
+            for src, obs in pairs:
+                check(_same_bits(fn(src, obs, p), want),
+                      f"{name} (drop {p}) on packed words differs from it on uint8 cells")
+            checked.append(f"{name} drop {p}")
+    # times on the words, at each uint8 row's shapes
+    timed = {
+        "encoder_fwd": lambda: ch.encoder_fwd(x32[160], *enc, (4, 2)),
+        "ae_loss_fwd": lambda: ch.ae_loss_fwd(x32[160], *ps, x32[160]),
+        "encoder_bwd": lambda: ch.encoder_bwd(x32[64], *enc, g_enc, (4, 2), DROP_P, seed),
+        "ae_loss_bwd": lambda: ch.ae_loss_bwd(x32[64], *ps, x32[64], gbar, (2, 2), DROP_P, seed),
+        "decoder_loss_fwd": lambda: cs.decoder_loss_fwd(emb[160], *ps[4:], o32[160]),
+        "decoder_loss_bwd": lambda: cs.decoder_loss_bwd(emb[64], *ps[4:], o32[64], gbar,
+                                                        DROP_P, seed),
+        "head_fwd": lambda: cs.head_fwd(x32[160], ps[0], ps[1], 2),
+        "loss_tail_fwd": lambda: cs.loss_tail_fwd(mid[160], ps[6], ps[7], o32[160], "sigmoid"),
+    }
+    for name, fn in timed.items():
+        results[name]["ms_u32"] = timer.ms(fn, 10)
+    log(f"packed-word inputs ok, bit-equal to uint8 cells: {checked}; times (ms) "
+        f"{json.dumps({k: results[k]['ms_u32'] for k in timed})}")
+
+
+def phase_engines(torch, cuda_build):
+    """The engines' path: each of the five packed and uint8 engines once at
+    bench.py's geometry through its public function, as bench.py's backends
+    run it, and the live-cell sum each leaves: bench.py's checksum, which
+    every engine and the plain twin must share."""
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca
+
+    grid = _bench_grid(torch)
+    rm, cm = bitpack.pack_grid(grid), bitpack.pack_grid_cm(grid)
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device="cuda")
+    steps = BENCH_STEPS
+    twin = int(bitpack.popcount(cuda_bitpack.bit_multi_step_plain(rm, life, steps)).sum())
+    cuda_build.reset_launch_counts()
+    runs = {
+        "bit_multi_step": lambda: bitpack.popcount(
+            cuda_bitpack.bit_multi_step(rm, life, steps)).sum(),
+        "bit_multi_step_static": lambda: bitpack.popcount(
+            cuda_bitpack.bit_multi_step_static(rm, [3], [2, 3], steps)).sum(),
+        "bit_multi_step_static_cm": lambda: bitpack.popcount(
+            cuda_bitpack.bit_multi_step_static_cm(cm, [3], [2, 3], steps)).sum(),
+        "bit_multi_step_cm": lambda: bitpack.popcount(
+            cuda_bitpack.bit_multi_step_cm(cm, life, steps)).sum(),
+        "ca_multi_step": lambda: cuda_ca.ca_multi_step(grid, life, steps).sum(dtype=torch.int64),
+    }
+    sums, wall = {}, {}
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums[name] = int(fn())
+        wall[name] = time.perf_counter() - t0
+    counts = cuda_build.launch_counts()
+    check(set(sums.values()) == {twin},
+          f"the engines disagree on the checksum: {sums}, plain twin {twin}")
+    updates = BENCH_UNIVERSES * BENCH_SIZE * BENCH_SIZE * steps
+    out = {"checksum": twin, "universes": BENCH_UNIVERSES, "size": BENCH_SIZE,
+           "generations": steps, "wall_s": wall,
+           "cell_updates_per_s": {k: updates / v for k, v in wall.items()}}
+    log(f"engines checksum {twin}: all five engines and the plain twin agree")
+    log(f"engines ok: {json.dumps(out)}")
+    log(f"engines launches: {json.dumps(counts)}")
+    return counts, out
 
 
 def _leaf_errors(got, want):
@@ -727,16 +981,20 @@ def phase_battery(torch, cuda_build):
     return counts, e2e
 
 
-def _card_vs_cpu(torch, cfg, make_defs, acts, rule_bits, prepare=None):
+def _card_vs_cpu(torch, cfg, make_defs, acts, rule_bits, prepare=None, packed=False):
     """One numpy action stream through ``Rollout.run_actions`` on the CPU
     (plain path) and on the card (kernel path) from the same initial wrapper
     states: the CPU's draw, after ``prepare(wrapper states)``, carried to the
-    card.  Returns ({device: rewards on the host}, {device: final carry})."""
+    card; ``packed`` runs the packed stack.  Returns ({device: rewards on the
+    host}, {device: final carry})."""
+    from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
     from carle_tpu_torch.rollout import Rollout
 
     rewards, carries, wstates = {}, {}, None
     for device in ("cpu", "cuda"):
-        ro = Rollout(cfg, make_defs(), device=device)
+        defs = make_defs()
+        ro = Rollout(cfg, defs, device=device,
+                     stack=PackedSpatialStack(cfg, defs) if packed else None)
         carry = ro.init(ro.generator(0), 0)
         if wstates is None:
             wstates = carry.stack.wrappers if prepare is None else prepare(carry.stack.wrappers)
@@ -901,7 +1159,7 @@ def phase_train(torch, cuda_build):
     }
     log(f"train ok: {json.dumps(e2e)}")
     log(f"train launches: {json.dumps(counts)}")
-    return counts, e2e
+    return counts, e2e, hist
 
 
 def _training_parity(torch, make_defs, what):
@@ -1090,6 +1348,139 @@ def phase_wrappers(torch, cuda_build, shipped):
     return counts, e2e
 
 
+def _spy(wdef, record):
+    """``wdef`` with each step's own reward recorded in ``record``: an
+    additive wrapper's bonus, applied to a zero reward and then added (the
+    same bits as its own addition), ParsimonyBonus's scaled total."""
+    def apply(state, ctx, reward):
+        if wdef.name.startswith("ParsimonyBonus"):
+            state, out = wdef.apply(state, ctx, reward)
+            record.append(out)
+            return state, out
+        state, bonus = wdef.apply(state, ctx, reward.new_zeros(reward.shape))
+        record.append(bonus)
+        return state, reward + bonus
+    return wdef._replace(apply=apply)
+
+
+def _stats_defs(cfg, packed, **learn):
+    """The packed path's stack: the seven packed-native wrappers (or their
+    dense defs) and the two training nets, AE2D by two kernels."""
+    from carle_tpu_torch import mcl
+
+    scales = dict(morpho=1e-2, corner=1e-3, speed=1e-2, puffer=1e-3)
+    sfx = "_def_packed" if packed else "_def"
+    make = lambda name: getattr(mcl, name + sfx)   # noqa: E731
+    return [make("speed")(cfg, reward_scale=scales["speed"]),
+            make("puffer")(cfg, reward_scale=scales["puffer"]),
+            make("corner")(cfg, reward_scale=scales["corner"]),
+            make("morpho")(cfg, reward_scale=scales["morpho"]),
+            make("prediction")(cfg, **learn), make("surprise")(cfg, **learn),
+            mcl.rnd2d_def(cfg, **learn), mcl.ae2d_def(cfg, whole_ae=False, **learn),
+            make("parsimony")()]
+
+
+def phase_packed(torch, cuda_build, uint8_history):
+    """The packed path at full width: (i) train_mcl.train(packed_state=True)
+    at train-64's geometry against the uint8-carry run of the train phase;
+    (ii) the packed stack on 160 universes x 256 steps with the seven
+    packed-native wrappers (Prediction and Surprise learning) and RND2D +
+    AE2D (two kernels), each wrapper's reward held against its dense def on
+    the uint8 stack (one seed, one action stream; the dense reference runs
+    twice, to show what one card repeats bit for bit); (iii) that stack
+    unpacks nothing; (iv) 16 steps of it on 8 universes, card against CPU.
+    Each additive wrapper's own bonus is compared, ParsimonyBonus's scaled
+    total: rtol 1e-4 with an atol of 1e-4 of the wrapper's largest reward
+    (Speed's float32 sums in another order, Morpho's exact sums against a
+    float32 conv, which ParsimonyBonus's total inherits)."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, train_mcl
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.evaluation import eval as ev
+    from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
+    from carle_tpu_torch.rollout import Rollout
+
+    n, steps = 160, 256
+    cfg = EnvConfig(instances=n)
+    bits = torch.tensor([ev.battery_rule_bits(rs, True) for rs in ev.DEFAULT_RULES] * 32,
+                        dtype=torch.int32)
+    deltas, walls, stacks = {}, {}, {}
+
+    def run_stack(packed, key=None):
+        key = packed if key is None else key
+        log_ = [[] for _ in range(9)]
+        defs = [_spy(d, log_[i]) for i, d in enumerate(_stats_defs(cfg, packed))]
+        stack = PackedSpatialStack(cfg, defs) if packed else None
+        ro = Rollout(cfg, defs, make_random_agent(64, 64, 0.1), device="cuda", stack=stack)
+        carry = ro.with_rules(ro.init(ro.generator(0), 0), bits)
+        carry, _ = ro.reset(carry)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, rewards = ro.run(carry, steps)
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        deltas[key] = [torch.stack(d).cpu() for d in log_]
+        stacks[key] = (ro.stack, carry)
+        check(bool(torch.isfinite(rewards).all()), "packed-path rewards are not finite")
+
+    run_stack(False)   # the dense reference, before the path's counts start
+    run_stack(False, "again")
+    cuda_build.reset_launch_counts()
+    # (i) the trainer with the packed carry
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        hist = train_mcl.train(instances=64, height=256, width=256, steps=(1, 128),
+                               batch_size=64, seed=0, log_dir=tmp, device="cuda",
+                               packed_state=True)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    exact = bool(np.array_equal(hist, uint8_history))
+    np.testing.assert_allclose(hist, uint8_history, rtol=1e-6, atol=0)
+    # (ii) and (iii)
+    run_stack(True)
+    counts = cuda_build.launch_counts()
+    packed_counts = cuda_build.packed_launch_counts()
+    names = [d.name for d in _stats_defs(cfg, True)]
+    agree = {}
+    for name, got, want, again in zip(names, deltas[True], deltas[False], deltas["again"]):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * max(scale, 1e-3))
+        agree[name] = dict(max_abs_diff=float((got - want).abs().max()), max_abs=scale,
+                           equal=bool(torch.equal(got, want)),
+                           uint8_run_to_run_equal=bool(torch.equal(again, want)))
+    stack, carry = stacks[True]
+    check(stack.unpacks == 0, f"the all-packed-native stack unpacked {stack.unpacks} views")
+    dense_stack, dense_carry = stacks[False]
+    check(torch.equal(stack.universe(carry.stack), dense_stack.universe(dense_carry.stack)),
+          "the packed and uint8 stacks' universes differ")
+    missing = [k for k in PACKED_INPUT_KERNELS if not packed_counts.get(k)]
+    check(not missing, f"kernels that never read packed words on the packed path: {missing}")
+    # (iv) card against CPU, 16 steps, dropout off, four Adam updates a learner
+    small = EnvConfig(instances=8)
+    acts = (np.random.RandomState(0).rand(16, *small.action_shape) < 0.1).astype(np.float32)
+    both, _ = _card_vs_cpu(
+        torch, small, lambda: _stats_defs(small, True, train=True, dropout=False, batch_size=4),
+        acts, bits[:8], packed=True)
+    torch.testing.assert_close(both["cuda"], both["cpu"], rtol=2e-3, atol=1e-5)
+    out = {
+        "train_universes": 64, "train_steps": 512, "train_s": train_s,
+        "train_history_equals_uint8_carry_bit_for_bit": exact,
+        "train_history_max_rel_diff": float(np.max(np.abs(hist - uint8_history)
+                                                   / np.maximum(np.abs(uint8_history), 1e-30))),
+        "stack_universes": n, "stack_steps": steps,
+        "stack_packed_s": walls[True], "stack_uint8_s": [walls[False], walls["again"]],
+        "stack_packed_universe_steps_per_s": n * steps / walls[True],
+        "wrappers_vs_dense": agree, "unpacks": stack.unpacks,
+        "packed_word_launches": packed_counts,
+        "card_vs_cpu_max_rel_diff": float(((both["cuda"] - both["cpu"]).abs()
+                                           / both["cpu"].abs().clamp_min(1e-6)).max()),
+    }
+    log(f"packed ok: {json.dumps(out)}")
+    log(f"packed launches: {json.dumps(counts)}")
+    return counts, out
+
+
 def _profile_steps(torch, ro, carry, steps, universes):
     """``steps`` steps unprofiled (wall, and the host's time to queue them)
     and again under torch.profiler: device time a step by kernel and the
@@ -1098,11 +1489,13 @@ def _profile_steps(torch, ro, carry, steps, universes):
 
     carry, _ = ro.run(carry, 16)  # warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     carry, _ = ro.run(carry, steps)
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         carry, _ = ro.run(carry, steps)
         torch.cuda.synchronize()
@@ -1122,6 +1515,7 @@ def _profile_steps(torch, ro, carry, steps, universes):
         "steps": steps, "universes": universes, "wall_ms_per_step": wall_ms,
         "host_queue_ms_per_step": host_ms, "device_ms_per_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "device_launches_per_step": sum(e.count for e in events) / steps,
+        "max_memory_allocated_bytes": peak,
         "top_device_us_per_step": [
             {"name": e.key[:60], "us": device_us(e) / steps,
              "calls_per_step": e.count / steps} for e in top],
@@ -1132,17 +1526,20 @@ def _profile_steps(torch, ro, carry, steps, universes):
     }
 
 
-def phase_profile_train(torch, steps: int = 64):
+def phase_profile_train(torch, steps: int = 64, packed: bool = False):
     """Where a training step's time goes: 64 universes, both nets learning,
-    dropout on, Life."""
+    dropout on, Life; ``packed`` carries the universes packed (the packed
+    stack, the nets reading the words)."""
     from carle_tpu_torch import EnvConfig, rules
     from carle_tpu_torch.agents import make_random_agent
     from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+    from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
     from carle_tpu_torch.rollout import Rollout
 
     cfg = EnvConfig(instances=64)
-    ro = Rollout(cfg, [rnd2d_def(cfg), ae2d_def(cfg)], make_random_agent(64, 64, 0.1),
-                 device="cuda")
+    defs = [rnd2d_def(cfg), ae2d_def(cfg)]
+    ro = Rollout(cfg, defs, make_random_agent(64, 64, 0.1), device="cuda",
+                 stack=PackedSpatialStack(cfg, defs) if packed else None)
     carry = ro.init(ro.generator(0), rules.LIFE)
     return _profile_steps(torch, ro, carry, steps, 64)
 
@@ -1200,19 +1597,23 @@ def main() -> int:
         shipped = shipped_states(torch)
         timer = Timer(torch)
         results = phase_kernels(torch, timer, shipped)
+        engines_counts, engines = phase_engines(torch, cuda_build)
         routes_counts, routes = phase_routes(torch, timer, cuda_build)
         del timer
         torch.cuda.empty_cache()
         battery_counts, e2e = phase_battery(torch, cuda_build)
         parity_diff = phase_parity(torch)
         server_counts, server = phase_server(torch, cuda_build)
-        train_counts, train = phase_train(torch, cuda_build)
+        train_counts, train, train_hist = phase_train(torch, cuda_build)
         train_parity_diff = phase_train_parity(torch)
+        packed_counts, packed = phase_packed(torch, cuda_build, train_hist)
         wrappers_counts, wrappers = phase_wrappers(torch, cuda_build, shipped)
         profile = phase_profile(torch)
         log(f"profile: {json.dumps(profile)}")
         profile_train = phase_profile_train(torch)
         log(f"profile (training): {json.dumps(profile_train)}")
+        profile_packed = phase_profile_train(torch, packed=True)
+        log(f"profile (packed training): {json.dumps(profile_packed)}")
     except Exception:  # report the failing phase and exit non-zero
         traceback.print_exc()
         log("FAIL: see the traceback above")
@@ -1220,7 +1621,8 @@ def main() -> int:
 
     path_counts = {"battery": battery_counts, "server": server_counts,
                    "train": train_counts, "routes": routes_counts,
-                   "wrappers": wrappers_counts}
+                   "wrappers": wrappers_counts, "packed": packed_counts,
+                   "engines": engines_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -1243,9 +1645,9 @@ def main() -> int:
         "launches": path_counts,
         "e2e": e2e, "server": server, "run_actions_max_abs_diff": parity_diff,
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
-        "routes": routes, "wrappers": wrappers,
+        "routes": routes, "wrappers": wrappers, "packed": packed, "engines": engines,
         "dropout": results["dropout"], "ae_loss_src_not_obs": results["ae_loss_src_not_obs"],
-        "profile": profile, "profile_train": profile_train,
+        "profile": profile, "profile_train": profile_train, "profile_packed": profile_packed,
         "total_s": time.perf_counter() - t_start,
     }
     if args.report:
@@ -1253,7 +1655,7 @@ def main() -> int:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
     log(json.dumps({k: report[k] for k in ("launches", "e2e", "server", "train", "routes",
-                                           "wrappers", "total_s")}))
+                                           "wrappers", "packed", "engines", "total_s")}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

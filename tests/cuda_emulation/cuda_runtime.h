@@ -23,6 +23,12 @@ static dim3 blockIdx, threadIdx(0, 0, 0), blockDim(1, 1, 1), gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
+inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, cudaMemcpyKind,
+                                   cudaStream_t) {
+    std::memmove(dst, src, bytes);
+    return cudaSuccess;
+}
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -34,6 +40,14 @@ inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
     return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
+}
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
+    s &= 31;
+    return s ? (hi << s) | (lo >> (32 - s)) : hi;
+}
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
+    s &= 31;
+    return s ? (lo >> s) | (hi << (32 - s)) : lo;
 }
 using std::min;
 using std::max;

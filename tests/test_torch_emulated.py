@@ -1,4 +1,4 @@
-"""The net kernels' own bodies, run on the CPU: ``csrc/*.cu`` compiled as
+"""The kernels' own bodies, run on the CPU: ``csrc/*.cu`` compiled as
 plain C++ against a stand-in ``<cuda_runtime.h>`` (tests/cuda_emulation/) that
 runs every block with one thread, so ``__syncthreads()`` is a no-op and the
 kernels' index arithmetic, halos, Philox counters and partial sums can be held
@@ -18,43 +18,59 @@ import numpy as np
 import pytest
 import torch
 
-from carle_tpu_torch.ops import cuda_build, cuda_head, cuda_stages
+from carle_tpu_torch import rules
+from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca, cuda_head, cuda_stages
 
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "head_fwd",
-           "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd")
+           "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd", "bit_multi_step",
+           "ca_multi_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The net kernels built for the host, bound in place of the CUDA
-    libraries for this module's tests."""
+    """The kernels built for the host, bound in place of the CUDA libraries
+    for this module's tests (a library with ``-D`` defines, such as a
+    fixed-rule engine, is built on its first use)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
     out = tmp_path_factory.mktemp("emulated_kernels")
-    jobs = {name: subprocess.Popen(
-        [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++", "-I", str(SHIM),
-         "-I", str(cuda_build.CSRC), "-o", str(out / f"{name}.so"),
-         str(cuda_build.CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in SOURCES}
-    for name, proc in jobs.items():
-        log, _ = proc.communicate()
-        assert proc.returncode == 0, f"{name} does not compile as C++:\n{log}"
 
-    def library(name):
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
+    def compile_(name, defines=()):
+        tag = "".join(f"-{d}" for d in defines).replace("=", "")
+        target = out / f"{name}{tag}.so"
+        return target, subprocess.Popen(
+            [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
+             *(f"-D{d}" for d in defines), "-I", str(SHIM), "-I", str(cuda_build.CSRC),
+             "-o", str(target), str(cuda_build.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait(name, job):
+        log, _ = job[1].communicate()
+        assert job[1].returncode == 0, f"{name} does not compile as C++:\n{log}"
+        return job[0]
+
+    jobs = {name: compile_(name) for name in SOURCES}
+    built = {(name, ()): wait(name, job) for name, job in jobs.items()}
+
+    def library(name, defines=()):
+        key = (name, tuple(defines))
+        if key not in built:
+            built[key] = wait(name, compile_(name, key[1]))
+        lib = ctypes.CDLL(str(built[key]))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         return lib
 
     patch = pytest.MonkeyPatch()
     patch.setattr(cuda_build, "library", library)
-    for module in (cuda_head, cuda_stages):
+    for module in (cuda_head, cuda_stages, cuda_bitpack, cuda_ca):
         patch.setattr(module, "stream_args", lambda t: (0, None))
     for kernel in cuda_build.KERNELS.values():   # drop any bound launcher, here and afterwards
         if kernel.source in SOURCES:
             patch.setattr(kernel, "_fn", None)
+            patch.setattr(kernel, "_variants", {})
     yield
     patch.undo()
 
@@ -255,3 +271,103 @@ def test_emulated_routes_agree(emulated, drop_p):
     assert _rel(two, one) < 1e-5 and _rel(four, one) < 1e-5
     assert max(_rel(a, t) for a, t in zip(g_two, g_one)) < 1e-4
     assert max(_rel(a, t) for a, t in zip(g_four, g_one)) < 1e-4
+
+
+RULESETS = [([3], [2, 3]), ([3, 6, 8], [2, 4, 5]), ([3, 6, 7, 8], [3, 4, 6, 7, 8]),
+            ([3], [0, 2, 3]), ([1, 3, 5, 7], [1, 3, 5, 7])]
+
+
+def _rule_mask(birth, survive):
+    return rules.pack_rule_bits(birth, survive)
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("shape", [(3, 64, 96), (2, 32, 32)])
+def test_engine_kernels_emulated(emulated, monkeypatch, shape, resident):
+    """Rows 2, 10, 11a, 11b and 12: the four packed engines and the uint8
+    engine against their twins, bit for bit, resident and per generation,
+    scalar and per-universe rules."""
+    n, h, w = shape
+    monkeypatch.setattr(cuda_bitpack, "resident", lambda a, b, pad=0: resident)
+    rng = np.random.RandomState(h + w + resident)
+    grid = torch.from_numpy((rng.rand(n, h, w) < 0.4).astype(np.uint8))
+    rm, cm = bitpack.pack_grid(grid), bitpack.pack_grid_cm(grid)
+    vec = torch.tensor([_rule_mask(*RULESETS[i % 5]) for i in range(n)], dtype=torch.int32)
+    steps = 5
+    for birth, survive in RULESETS[:2]:
+        got = cuda_bitpack._static_rule(cuda_bitpack.KERNEL_STATIC, rm, birth, survive, steps,
+                                        False, "")
+        assert torch.equal(got, bitpack.bit_multi_step_static(rm, birth, survive, steps))
+        got = cuda_bitpack._static_rule(cuda_bitpack.KERNEL_STATIC_CM, cm, birth, survive,
+                                        steps, True, "")
+        assert torch.equal(got, bitpack.bit_multi_step_static_cm(cm, birth, survive, steps))
+    for rule in (torch.tensor(_rule_mask(*RULESETS[2]), dtype=torch.int32), vec):
+        got = cuda_bitpack._data_rule(cuda_bitpack.KERNEL, rm, rule, steps, False, "")
+        assert torch.equal(got, bitpack.bit_multi_step(rm, rule, steps))
+        got = cuda_bitpack._data_rule(cuda_bitpack.KERNEL_CM, cm, rule, steps, True, "")
+        assert torch.equal(got, bitpack.bit_multi_step_cm(cm, rule, steps))
+        monkeypatch.setattr(cuda_ca, "_SMEM_BYTES", 227 * 1024 if resident else 0)
+        got = cuda_ca._ca_multi_step_kernel(grid, rule, steps)
+        assert torch.equal(got, cuda_ca.ca_multi_step_plain(grid, rule, steps))
+    # every engine on one grid: one checksum (bench.py's check)
+    life = _rule_mask([3], [2, 3])
+    sums = {int(bitpack.unpack_grid(cuda_bitpack._data_rule(cuda_bitpack.KERNEL, rm, life, steps,
+                                                            False, ""), w).sum()),
+            int(bitpack.unpack_grid_cm(cuda_bitpack._data_rule(cuda_bitpack.KERNEL_CM, cm, life,
+                                                               steps, True, ""), h).sum()),
+            int(cuda_ca._ca_multi_step_kernel(grid, life, steps).sum())}
+    assert len(sums) == 1
+
+
+def _same(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_same(x, y) for x, y in zip(a, b) if x is not None)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+def test_packed_cell_loader_emulated(emulated, drop_p):
+    """Every kernel that reads cells gives, fed the packed words, the bits it
+    gives fed the same cells as uint8: the encoder and its backward, the
+    autoencoder with src and obs each packed or not, the decoder loss, the
+    head and the loss tail, forward and backward."""
+    n, h, w, seed = 2, 32, 64, 4242
+    rng = np.random.RandomState(9)
+    u8 = torch.from_numpy((rng.rand(n, 1, h, w) < 0.35).astype(np.uint8))
+    obs8 = torch.from_numpy((rng.rand(n, 1, h, w) < 0.35).astype(np.uint8))
+    u32, obs32 = bitpack.pack_grid(u8), bitpack.pack_grid(obs8)
+    assert u32.shape == (n, 1, h, w // 32)
+    ps = _params(rng, [(4, 1, 3, 3), (4,), (2, 4, 3, 3), (2,), (2, 1, 4, 4), (1,),
+                       (1, 1, 4, 4), (1,)])
+    ps[1] = ps[1].abs()
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32))
+    g = torch.from_numpy(rng.randn(n, 2, h // 4, w // 4).astype(np.float32))
+    ch, cs = cuda_head, cuda_stages
+    assert _same(ch._encoder_fwd_kernel(u32, *ps[:4], (2, 2), drop_p, seed),
+                 ch._encoder_fwd_kernel(u8, *ps[:4], (2, 2), drop_p, seed))
+    assert _same(ch._encoder_bwd_kernel(u32, *ps[:4], g, (2, 2), drop_p, seed),
+                 ch._encoder_bwd_kernel(u8, *ps[:4], g, (2, 2), drop_p, seed))
+    want = ch._ae_loss_fwd_kernel(u8, *ps, obs8, (2, 2), drop_p, seed)
+    want_g = ch._ae_loss_bwd_kernel(u8, *ps, obs8, gbar, (2, 2), drop_p, seed)
+    for src, obs in ((u32, obs8), (u8, obs32), (u32, obs32)):
+        assert _same(ch._ae_loss_fwd_kernel(src, *ps, obs, (2, 2), drop_p, seed), want)
+        assert _same(ch._ae_loss_bwd_kernel(src, *ps, obs, gbar, (2, 2), drop_p, seed), want_g)
+    emb = ch._encoder_fwd_kernel(u8, *ps[:4], (2, 2), drop_p, seed)
+    assert _same(cs._decoder_loss_fwd_kernel(emb, *ps[4:], obs32, drop_p, seed),
+                 cs._decoder_loss_fwd_kernel(emb, *ps[4:], obs8, drop_p, seed))
+    assert _same(cs._decoder_loss_bwd_kernel(emb, *ps[4:], obs32, gbar, drop_p, seed),
+                 cs._decoder_loss_bwd_kernel(emb, *ps[4:], obs8, gbar, drop_p, seed))
+    gh = torch.from_numpy(rng.randn(n, 4, h // 2, w // 2).astype(np.float32))
+    assert _same(cs._head_fwd_kernel(u32, ps[0], ps[1], 2, drop_p, seed, 0),
+                 cs._head_fwd_kernel(u8, ps[0], ps[1], 2, drop_p, seed, 0))
+    assert _same(cs._head_bwd_kernel(u32, ps[0], ps[1], gh, 2, drop_p, seed, 0, False),
+                 cs._head_bwd_kernel(u8, ps[0], ps[1], gh, 2, drop_p, seed, 0, False))
+    mid = torch.from_numpy(np.maximum(rng.randn(n, 1, h // 2, w // 2), 0).astype(np.float32))
+    assert _same(cs._loss_tail_fwd_kernel(mid, ps[6], ps[7], obs32, "sigmoid", drop_p, seed, 3),
+                 cs._loss_tail_fwd_kernel(mid, ps[6], ps[7], obs8, "sigmoid", drop_p, seed, 3))
+    assert _same(
+        cs._loss_tail_bwd_kernel(mid, ps[6], ps[7], obs32, gbar, "sigmoid", drop_p, seed, 3),
+        cs._loss_tail_bwd_kernel(mid, ps[6], ps[7], obs8, gbar, "sigmoid", drop_p, seed, 3))
+    # and the twins agree with the kernels on the packed input
+    assert _rel(ch._ae_loss_fwd_kernel(u32, *ps, obs32, (2, 2), drop_p, seed),
+                ch.ae_loss_fwd_plain(u32, *ps, obs32, (2, 2), drop_p, seed)) < 1e-4

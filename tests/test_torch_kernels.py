@@ -337,11 +337,96 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             np.random.RandomState(0), [(4, 1, 3, 3), (4,), (1, 4, 3, 3), (1,)])], (4, 2))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(8, 256, 256), (2, 512, 512), (1, 1024, 1024), (3, 64, 96)])
+def test_engine_kernels_match_plain(cuda, n, h, w):
+    """Rows 10, 11a, 11b and 12: resident universes, the per-generation
+    fallback at 1024 x 1024, scalar and per-universe rules, bit for bit; one
+    checksum across the engines."""
+    rng = np.random.RandomState(n + h)
+    grid = torch.from_numpy(_soup(n + h, (n, h, w), 0.5)).to(cuda)
+    rm, cm = bitpack.pack_grid(grid), bitpack.pack_grid_cm(grid)
+    vec = torch.from_numpy(rng.randint(0, 1 << 18, size=n).astype(np.int32)).to(cuda)
+    for birth, survive in (([3], [2, 3]), ([3, 6, 8], [2, 4, 5])):
+        for fn, plain, words in (
+                (cuda_bitpack.bit_multi_step_static, cuda_bitpack.bit_multi_step_static_plain, rm),
+                (cuda_bitpack.bit_multi_step_static_cm,
+                 cuda_bitpack.bit_multi_step_static_cm_plain, cm)):
+            got = fn(words, birth, survive, 5)
+            assert torch.equal(got.to(torch.int64),
+                               plain(words, birth, survive, 5).to(torch.int64))
+    for rule in (torch.tensor(rules.DAY_AND_NIGHT, dtype=torch.int32, device=cuda), vec):
+        got = cuda_bitpack.bit_multi_step_cm(cm, rule, 5)
+        want = cuda_bitpack.bit_multi_step_cm_plain(cm, rule, 5)
+        assert torch.equal(got.to(torch.int64), want.to(torch.int64))
+        assert torch.equal(cuda_ca.ca_multi_step(grid, rule, 5),
+                           cuda_ca.ca_multi_step_plain(grid, rule, 5))
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=cuda)
+    sums = {int(bitpack.unpack_grid(cuda_bitpack.bit_multi_step(rm, life, 7), w).sum()),
+            int(bitpack.unpack_grid(cuda_bitpack.bit_multi_step_static(rm, [3], [2, 3], 7),
+                                    w).sum()),
+            int(bitpack.unpack_grid_cm(cuda_bitpack.bit_multi_step_static_cm(cm, [3], [2, 3], 7),
+                                       h).sum()),
+            int(bitpack.unpack_grid_cm(cuda_bitpack.bit_multi_step_cm(cm, life, 7), h).sum()),
+            int(cuda_ca.ca_multi_step(grid, life, 7).sum(dtype=torch.int64))}
+    assert len(sums) == 1
+
+
+def _same(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_same(x, y) for x, y in zip(a, b) if x is not None)
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+def test_packed_cell_loader_is_bit_equal_to_uint8(cuda, drop_p):
+    """Each kernel that reads cells, fed the packed words, gives the bits it
+    gives fed the same cells as uint8: forward and backward."""
+    n, h, w, seed = 8, 256, 256, 99
+    rng = np.random.RandomState(5)
+    u8 = torch.from_numpy(_soup(5, (n, 1, h, w))).to(cuda)
+    o8 = torch.from_numpy(_soup(6, (n, 1, h, w))).to(cuda)
+    u32, o32 = bitpack.pack_grid(u8), bitpack.pack_grid(o8)
+    ps = [p.to(cuda) for p in _params(rng, [(4, 1, 3, 3), (4,), (2, 4, 3, 3), (2,), (2, 1, 4, 4),
+                                            (1,), (1, 1, 4, 4), (1,)])]
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(n, 2, h // 4, w // 4).astype(np.float32)).to(cuda)
+    ch, cs = cuda_head, cuda_stages
+    assert _same(ch.encoder_fwd(u32, *ps[:4], (2, 2), drop_p, seed),
+                 ch.encoder_fwd(u8, *ps[:4], (2, 2), drop_p, seed))
+    assert _same(ch.encoder_bwd(u32, *ps[:4], g, (2, 2), drop_p, seed),
+                 ch.encoder_bwd(u8, *ps[:4], g, (2, 2), drop_p, seed))
+    want = ch.ae_loss_fwd(u8, *ps, o8, (2, 2), drop_p, seed)
+    want_g = ch.ae_loss_bwd(u8, *ps, o8, gbar, (2, 2), drop_p, seed)
+    for src, obs in ((u32, o8), (u8, o32), (u32, o32)):
+        assert _same(ch.ae_loss_fwd(src, *ps, obs, (2, 2), drop_p, seed), want)
+        assert _same(ch.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), drop_p, seed), want_g)
+    emb = ch.encoder_fwd(u8, *ps[:4], (2, 2), drop_p, seed)
+    assert _same(cs.decoder_loss_fwd(emb, *ps[4:], o32, drop_p, seed),
+                 cs.decoder_loss_fwd(emb, *ps[4:], o8, drop_p, seed))
+    assert _same(cs.decoder_loss_bwd(emb, *ps[4:], o32, gbar, drop_p, seed),
+                 cs.decoder_loss_bwd(emb, *ps[4:], o8, gbar, drop_p, seed))
+    gh = torch.from_numpy(rng.randn(n, 4, h // 2, w // 2).astype(np.float32)).to(cuda)
+    assert _same(cs.head_fwd(u32, ps[0], ps[1], 2, drop_p, seed),
+                 cs.head_fwd(u8, ps[0], ps[1], 2, drop_p, seed))
+    assert _same(cs.head_bwd(u32, ps[0], ps[1], gh, 2, drop_p, seed),
+                 cs.head_bwd(u8, ps[0], ps[1], gh, 2, drop_p, seed))
+    mid = torch.relu(torch.from_numpy(rng.randn(n, 1, h // 2, w // 2).astype(np.float32))).to(cuda)
+    assert _same(cs.loss_tail_fwd(mid, ps[6], ps[7], o32, "sigmoid", drop_p, seed),
+                 cs.loss_tail_fwd(mid, ps[6], ps[7], o8, "sigmoid", drop_p, seed))
+    assert _same(cs.loss_tail_bwd(mid, ps[6], ps[7], o32, gbar, "sigmoid", drop_p, seed),
+                 cs.loss_tail_bwd(mid, ps[6], ps[7], o8, gbar, "sigmoid", drop_p, seed))
+
+
 def test_launch_table_covers_every_source():
     assert {k.source for k in cuda_build.KERNELS.values()} == set(cuda_build.SOURCES)
     for name in cuda_build.SOURCES:
         assert (cuda_build.CSRC / f"{name}.cu").exists()
         assert cuda_build.library_path(name).name.startswith(name + "-")
+    fixed = cuda_build.library_path("bit_multi_step", ("STATIC_RULE=0x01808",))
+    assert fixed.name.startswith("bit_multi_step-static_rule0x01808-")
+    assert fixed != cuda_build.library_path("bit_multi_step")
 
 
 def test_counts_reset():

@@ -180,8 +180,10 @@ def test_prediction_each_wrapper_alone_and_float32_ring():
         _, _, f32, _ = _run_both(cfg, jcfg, [jdef], [tmake(
             cfg, reward_scale=2.0, train=False, buffer_dtype="float32")], acts)
         np.testing.assert_array_equal(f32, got)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tmcl.prediction_def(cfg, buffer_dtype="packed")
+    dense = tmcl.WrapperStack(cfg, [tmcl.prediction_def(cfg, buffer_dtype="packed")])
+    state = dense.init(torch.Generator().manual_seed(0), rules.LIFE, torch.device("cpu"))
+    with pytest.raises(ValueError, match="packed stack"):   # the ring needs ctx.packed
+        dense.step(state, torch.from_numpy(acts[0]))
     with pytest.raises(ValueError, match="buffer_dtype"):
         tmcl.prediction_def(cfg, buffer_dtype="int4")
 
