@@ -45,6 +45,23 @@ __device__ __forceinline__ void stage_planes(float* dst, const T* __restrict__ p
     }
 }
 
+// Rows [r0, r0 + rows) and columns [c0, c0 + cols) of C float planes [H, W]
+// into dst[c][rows][cols], zero outside the planes.
+__device__ __forceinline__ void stage_float_window(float* dst, const float* __restrict__ planes,
+                                                   int C, int r0, int rows, int c0, int cols,
+                                                   int H, int W) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int per = rows * cols;
+    for (int i = tid; i < C * per; i += nt) {
+        const int c = i / per, rem = i - c * per;
+        const int lr = rem / cols, lc = rem - lr * cols;
+        const int r = r0 + lr, col = c0 + lc;
+        dst[i] = (r >= 0 && r < H && col >= 0 && col < W)
+                     ? planes[(static_cast<size_t>(c) * H + r) * W + col]
+                     : 0.f;
+    }
+}
+
 // The 3x3 neighbourhood of staged cell (local row sr, local column sc).
 __device__ __forceinline__ void cell_taps(const uint8_t* xs, int IW, int sr, int sc,
                                           float t[9]) {
@@ -55,17 +72,23 @@ __device__ __forceinline__ void cell_taps(const uint8_t* xs, int IW, int sr, int
 }
 
 // Encoder stage 1: x1s[c][lr][lc] = maxpool_P(relu(drop(conv3x3(cells) + b1)))
-// for XR pooled rows from X0 and pooled columns -1 .. W1 (XW = W1 + 2), zero
-// outside the [H1, W1] extent.  xs holds input rows from I0 (stage_cells).
+// times the row's validity for XR pooled rows from X0 and XW pooled columns
+// from XC0, zero outside the [H1, W1] extent.  xs holds input rows from I0
+// and columns from IC0, IW a row (stage_cells).  mask (nullptr: all ones) is
+// the instance's stage-1 row validity [H1]: a band of a larger universe
+// zeroes the rows outside that universe, which stage 2 must read as its zero
+// padding and not as relu(b1) of zero cells.  The whole width is XC0 = -1,
+// XW = W1 + 2, IC0 = -1, IW = W + 2.
 template <int P, bool DROP>
 __device__ __forceinline__ void encoder_stage1_band(
-    const uint8_t* xs, int I0, int W, const float* w1s, const float* b1s, int C1,
-    float* x1s, int X0, int XR, int H1, int n, const DropCfg& cfg) {
+    const uint8_t* xs, int I0, int IC0, int IW, int W, const float* w1s, const float* b1s,
+    int C1, float* x1s, int X0, int XR, int XC0, int XW, int H1,
+    const float* __restrict__ mask, int n, const DropCfg& cfg) {
     const int tid = threadIdx.x, nt = blockDim.x;
-    const int IW = W + 2, W1 = W / P, XW = W1 + 2;
+    const int W1 = W / P;
     for (int i = tid; i < XR * XW; i += nt) {
         const int lr = i / XW, lc = i - lr * XW;
-        const int gr = X0 + lr, gc = lc - 1;
+        const int gr = X0 + lr, gc = XC0 + lc;
         const bool inside = gr >= 0 && gr < H1 && gc >= 0 && gc < W1;
         float m[MAXC];
 #pragma unroll
@@ -75,7 +98,7 @@ __device__ __forceinline__ void encoder_stage1_band(
                 for (int px = 0; px < P; ++px) {
                     // input pixel (gr*P+py, gc*P+px) and its 3x3 taps in xs
                     float t[9];
-                    cell_taps(xs, IW, gr * P + py - I0, gc * P + px + 1, t);
+                    cell_taps(xs, IW, gr * P + py - I0, gc * P + px - IC0, t);
                     unsigned keep = 0;
                     if (DROP) keep = drop_keep_bits(cfg, STAGE_ENC1, n, C1, gr * P + py, gc * P + px);
 #pragma unroll
@@ -90,9 +113,13 @@ __device__ __forceinline__ void encoder_stage1_band(
                     }
                 }
         }
+        const float valid = (mask != nullptr && inside) ? mask[gr] : 1.f;
 #pragma unroll
         for (int c = 0; c < MAXC; ++c)
-            if (c < C1) x1s[(c * XR + lr) * XW + lc] = inside ? fmaxf(m[c], 0.f) : 0.f;
+            if (c < C1) {
+                const float a = inside ? fmaxf(m[c], 0.f) : 0.f;
+                x1s[(c * XR + lr) * XW + lc] = mask != nullptr ? a * valid : a;
+            }
     }
 }
 
@@ -123,18 +150,20 @@ __device__ __forceinline__ void encoder_stage2_preact(const float* x1s, int XR, 
     }
 }
 
-// Encoder stage 2: out[o * out_cs + lr * out_rs + ec] =
-// maxpool_P(relu(drop(conv3x3(x1) + b2))) for ER pooled rows from E0, all We
-// columns.  Rows outside [0, He) are zeroed (ZERO_OUTSIDE) or left alone.
+// Encoder stage 2: out[o * out_cs + lr * out_rs + lc] =
+// maxpool_P(relu(drop(conv3x3(x1) + b2))) for ER pooled rows from E0 and EW
+// pooled columns from EC0; x1s holds stage-1 columns from XC0.  Rows outside
+// [0, He) are zeroed (ZERO_OUTSIDE) or left alone.  The whole width is
+// EC0 = 0, EW = We, XC0 = -1.
 template <int P, bool DROP, bool ZERO_OUTSIDE>
 __device__ __forceinline__ void encoder_stage2_band(
-    const float* x1s, int X0, int XR, int XW, const float* w2s, const float* b2s,
+    const float* x1s, int X0, int XR, int XC0, int XW, const float* w2s, const float* b2s,
     int C1, int C2, float* out, size_t out_cs, int out_rs, int E0, int ER, int He,
-    int We, int n, const DropCfg& cfg) {
+    int EC0, int EW, int n, const DropCfg& cfg) {
     const int tid = threadIdx.x, nt = blockDim.x;
-    for (int i = tid; i < ER * We; i += nt) {
-        const int lr = i / We, ec = i - lr * We;
-        const int gr = E0 + lr;
+    for (int i = tid; i < ER * EW; i += nt) {
+        const int lr = i / EW, lc = i - lr * EW;
+        const int gr = E0 + lr, ec = EC0 + lc;
         const bool inside = gr >= 0 && gr < He;
         if (!inside && !ZERO_OUTSIDE) continue;
         float m[MAXC];
@@ -144,7 +173,7 @@ __device__ __forceinline__ void encoder_stage2_band(
             for (int py = 0; py < P; ++py)
                 for (int px = 0; px < P; ++px) {
                     float acc[MAXC];
-                    encoder_stage2_preact(x1s, XR, XW, gr * P + py - X0, ec * P + px + 1,
+                    encoder_stage2_preact(x1s, XR, XW, gr * P + py - X0, ec * P + px - XC0,
                                           w2s, b2s, C1, C2, acc);
                     unsigned keep = 0;
                     if (DROP) keep = drop_keep_bits(cfg, STAGE_ENC2, n, C2, gr * P + py, ec * P + px);
@@ -157,17 +186,21 @@ __device__ __forceinline__ void encoder_stage2_band(
         }
 #pragma unroll
         for (int o = 0; o < MAXC; ++o)
-            if (o < C2) out[o * out_cs + lr * out_rs + ec] = inside ? fmaxf(m[o], 0.f) : 0.f;
+            if (o < C2) out[o * out_cs + lr * out_rs + lc] = inside ? fmaxf(m[o], 0.f) : 0.f;
     }
 }
 
 // Transpose convolutions in torch's layout (weights [Cin, Cout, 4, 4], kernel
 // 4, stride 2, padding 1): out[o, y, x] = b[o] + sum_c,ky,kx w[c, o, ky, kx]
 // in[c, iy, ix] with y = 2 iy - 1 + ky, so each output reads 2 x 2 inputs a
-// channel.  `in` holds IR rows from global row I0, all IWD columns.
-__device__ __forceinline__ void deconv_preact(const float* in, int I0, int IR, int IWD,
-                                              const float* wts, const float* bts, int CIN,
-                                              int COUTS, int gy, int gx, float acc[MAXC]) {
+// channel.  `in` holds IR rows from global row I0 and IWD columns from
+// global column IC0: the columns of the layer's extent that the caller needs
+// (all of them: IC0 = 0, IWD the layer's width), so a column outside it is
+// outside the extent and adds nothing.
+__device__ __forceinline__ void deconv_preact(const float* in, int I0, int IR, int IC0,
+                                              int IWD, const float* wts, const float* bts,
+                                              int CIN, int COUTS, int gy, int gx,
+                                              float acc[MAXC]) {
 #pragma unroll
     for (int o = 0; o < MAXC; ++o) acc[o] = o < COUTS ? bts[o] : 0.f;
     for (int c = 0; c < CIN; ++c)
@@ -178,7 +211,7 @@ __device__ __forceinline__ void deconv_preact(const float* in, int I0, int IR, i
             for (int kx = 0; kx < 4; ++kx) {
                 const int tx = gx + 1 - kx;
                 if (tx & 1) continue;
-                const int ix = tx >> 1;
+                const int ix = (tx >> 1) - IC0;  // local input column
                 if (ix < 0 || ix >= IWD) continue;
                 const float v = in[(c * IR + iy) * IWD + ix];
 #pragma unroll
@@ -188,24 +221,25 @@ __device__ __forceinline__ void deconv_preact(const float* in, int I0, int IR, i
         }
 }
 
-// Decoder stage 1: ms[m][lr][x] = relu(drop(conv_transpose(emb, wt1) + bt1))
-// for MR rows from M0, zero outside [0, H1).  es holds ER embedding rows from
-// E0 (zero outside the embedding's extent).
+// Decoder stage 1: ms[m][lr][lc] = relu(drop(conv_transpose(emb, wt1) + bt1))
+// for MR rows from M0 and MW columns from MC0 (inside [0, W1)), zero outside
+// [0, H1).  es holds ER embedding rows from E0 (zero outside the embedding's
+// extent) and EW columns from EC0 (all of the extent the rows need).
 template <bool DROP>
 __device__ __forceinline__ void decoder_stage1_band(
-    const float* es, int E0, int ER, int We, const float* wt1s, const float* bt1s,
-    int C2, int CMID, float* ms, int M0, int MR, int H1, int W1, int n,
+    const float* es, int E0, int ER, int EC0, int EW, const float* wt1s, const float* bt1s,
+    int C2, int CMID, float* ms, int M0, int MR, int MC0, int MW, int H1, int n,
     const DropCfg& cfg) {
     const int tid = threadIdx.x, nt = blockDim.x;
-    for (int i = tid; i < MR * W1; i += nt) {
-        const int lr = i / W1, xm = i - lr * W1;
-        const int gm = M0 + lr;
+    for (int i = tid; i < MR * MW; i += nt) {
+        const int lr = i / MW, lc = i - lr * MW;
+        const int gm = M0 + lr, xm = MC0 + lc;
         const bool inside = gm >= 0 && gm < H1;
         float acc[MAXC];
 #pragma unroll
         for (int o = 0; o < MAXC; ++o) acc[o] = 0.f;
         if (inside) {
-            deconv_preact(es, E0, ER, We, wt1s, bt1s, C2, CMID, gm, xm, acc);
+            deconv_preact(es, E0, ER, EC0, EW, wt1s, bt1s, C2, CMID, gm, xm, acc);
             if (DROP) {
                 const unsigned keep = drop_keep_bits(cfg, STAGE_DEC1, n, CMID, gm, xm);
 #pragma unroll
@@ -214,7 +248,7 @@ __device__ __forceinline__ void decoder_stage1_band(
         }
 #pragma unroll
         for (int o = 0; o < MAXC; ++o)
-            if (o < CMID) ms[(o * MR + lr) * W1 + xm] = inside ? fmaxf(acc[o], 0.f) : 0.f;
+            if (o < CMID) ms[(o * MR + lr) * MW + lc] = inside ? fmaxf(acc[o], 0.f) : 0.f;
     }
 }
 

@@ -96,7 +96,7 @@ __global__ void tail_fwd_kernel(const float* __restrict__ x, const float* __rest
         const int gy = Y0 + lr;
         if (gy >= H2) continue;
         float acc[MAXC];
-        deconv_preact(xs, I0, IR, w, wts, bts, CIN, COUT, gy, xo, acc);
+        deconv_preact(xs, I0, IR, 0, w, wts, bts, CIN, COUT, gy, xo, acc);
         unsigned keep = 0;
         if (DROP) keep = drop_keep_bits(cfg, stage, n, COUT, gy, xo);
 #pragma unroll
@@ -156,7 +156,7 @@ __global__ void tail_bwd_kernel(const float* __restrict__ x, const float* __rest
         float acc[MAXC];
         unsigned keep = 0;
         if (inside) {
-            deconv_preact(xs, I0, IR, w, wts, bts, CIN, COUT, gy, xo, acc);
+            deconv_preact(xs, I0, IR, 0, w, wts, bts, CIN, COUT, gy, xo, acc);
             if (DROP) keep = drop_keep_bits(cfg, stage, n, COUT, gy, xo);
         }
 #pragma unroll

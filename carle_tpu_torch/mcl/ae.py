@@ -11,7 +11,8 @@ composition: ``encoder_fwd`` then ``decoder_loss_fwd``, the embedding and its
 cotangent crossing device memory between them.  The bonus is the per-instance
 mean over C, H, W.  :func:`ae_forward` gives the reconstruction itself
 (encoder and two ``tail_fwd`` stages).  Same online-learning loop as RND2D
-(mcl/_online.py).
+(mcl/_online.py).  ``fused_head=nets.BandTiling(n)`` runs the loss as n row
+bands of each universe (encoder and decoder loss, parallel/band_heads.py).
 """
 
 from __future__ import annotations
@@ -41,25 +42,31 @@ def init_ae_params(generator: torch.Generator, device=None) -> Dict[str, Any]:
 
 
 def ae_forward(params: Dict[str, Any], obs: torch.Tensor, train: bool = False,
-               seed: Optional[int] = None) -> torch.Tensor:
+               seed: Optional[int] = None, fused_head: Any = False) -> torch.Tensor:
     """The reconstruction [N, 1, H, W] of the uint8 observation: the fused
     encoder, then the two decoder stages.  Dropout (``train``) from ``seed``:
-    the mask the whole-autoencoder kernel draws from the same seed."""
+    the mask the whole-autoencoder kernel draws from the same seed.  A
+    BandTiling raises, as the JAX package's conv_tail does: a banded
+    reconstruction would be the full-resolution plane band tiling avoids."""
+    mesh = nets.fused_route(fused_head)
     x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS,
-                          drop_p=DROP_P, train=train, seed=seed)
+                          drop_p=DROP_P, train=train, seed=seed, mesh=mesh)
     x = nets.conv_tail(x, params["deconv1"], act="relu", drop_p=DROP_P, train=train,
-                       seed=seed, stage=nets.STAGE_DEC1)
+                       seed=seed, stage=nets.STAGE_DEC1, mesh=mesh)
     return nets.conv_tail(x, params["deconv2"], act="sigmoid", drop_p=DROP_P,
-                          train=train, seed=seed, stage=nets.STAGE_DEC2)
+                          train=train, seed=seed, stage=nets.STAGE_DEC2, mesh=mesh)
 
 
 def ae2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
              lr: Optional[float] = None, train: bool = True,
-             dropout: Optional[bool] = None, whole_ae: bool = True) -> WrapperDef:
+             dropout: Optional[bool] = None, whole_ae: bool = True,
+             fused_head: Any = False) -> WrapperDef:
     """The AE2D wrapper; ``dropout`` defaults to ``train`` (see rnd2d_def).
     ``whole_ae=False`` takes the encoder and the decoder loss as two kernels
-    instead of one."""
+    instead of one (``nets.conv_ae_loss`` does so itself past the whole-AE
+    kernel's shared memory); ``fused_head`` as :func:`nets.fused_route`."""
     use_dropout = train if dropout is None else dropout
+    mesh = nets.fused_route(fused_head)
     n_elem = config.height * config.width  # C * H * W with C = 1
 
     def init(generator: torch.Generator, device) -> LearnerState:
@@ -69,7 +76,7 @@ def ae2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
     def loss_fn(params, state: LearnerState, ctx):
         obs = net_input(ctx)
         # odd seeds for this net's kernels, even for RND2D's
-        kw = dict(drop_p=DROP_P, train=use_dropout, seed=2 * ctx.seed + 1)
+        kw = dict(drop_p=DROP_P, train=use_dropout, seed=2 * ctx.seed + 1, mesh=mesh)
         if whole_ae:
             err = nets.conv_ae_loss(obs, params["conv1"], params["conv2"],
                                     params["deconv1"], params["deconv2"], obs,

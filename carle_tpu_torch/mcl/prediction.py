@@ -24,7 +24,8 @@ package's, so ``FrameBuffer`` checkpoints cross both ways.
 
 The loss is the whole autoencoder as one kernel (``nets.conv_ae_loss``) with
 the ring frame as source and the current frame as target, and
-``ae_loss_bwd`` for its gradients.
+``ae_loss_bwd`` for its gradients; ``fused_head=nets.BandTiling(n)`` runs it
+as n row bands of each universe.
 """
 
 from __future__ import annotations
@@ -82,8 +83,10 @@ def _alive(ctx) -> torch.Tensor:
 def _make_def(config: EnvConfig, name: str, surprise: bool, reward_scale: float = 1.0,
               batch_size: int = 64, lr: Optional[float] = None,
               prediction_steps: int = 5, train: bool = True,
-              dropout: Optional[bool] = None, buffer_dtype: str = "uint8") -> WrapperDef:
+              dropout: Optional[bool] = None, buffer_dtype: str = "uint8",
+              fused_head: Any = False) -> WrapperDef:
     use_dropout = train if dropout is None else dropout
+    mesh = nets.fused_route(fused_head)
     k = prediction_steps
     if buffer_dtype not in ("uint8", "packed", "float32"):
         raise ValueError(f"buffer_dtype {buffer_dtype!r}: expected 'uint8', "
@@ -125,7 +128,7 @@ def _make_def(config: EnvConfig, name: str, surprise: bool, reward_scale: float 
         err = nets.conv_ae_loss(src, params["conv1"], params["conv2"],
                                 params["deconv1"], params["deconv2"], target,
                                 pools=POOLS, drop_p=DROP_P, train=use_dropout,
-                                seed=stream + 2 * ctx.seed + 1)
+                                seed=stream + 2 * ctx.seed + 1, mesh=mesh)
         return err / n_elem, new_buf
 
     def bonus_fn(per_inst, ctx):

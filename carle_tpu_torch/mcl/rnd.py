@@ -15,7 +15,8 @@ Both conv stages of each net, dropout included, run as one ``encoder_fwd``
 kernel on the card (pools (4, 2)) and the predictor's gradient as
 ``encoder_bwd``; the third dropout, the dense layer, tanh, the error and
 their gradients stay plain PyTorch, as the JAX package leaves them to XLA.
-The frozen target never builds a graph.
+The frozen target never builds a graph.  ``fused_head=nets.BandTiling(n)``
+runs both encoders as n row bands of each universe (parallel/band_heads.py).
 """
 
 from __future__ import annotations
@@ -57,30 +58,34 @@ def init_random_network_params(config: EnvConfig, generator: torch.Generator,
 
 def predictor_forward(params: Dict[str, Any], obs: torch.Tensor, seed: int,
                       generator: Optional[torch.Generator],
-                      train: bool) -> torch.Tensor:
+                      train: bool, fused_head: Any = False) -> torch.Tensor:
     """The predictor: the fused encoder (both dropouts in the kernel, from
     ``seed``), the third dropout (from ``generator``), dense + tanh."""
     x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS,
-                          drop_p=DROP_P, train=train, seed=seed)
+                          drop_p=DROP_P, train=train, seed=seed,
+                          mesh=nets.fused_route(fused_head))
     x = nets.dropout(x, DROP_P, train, generator)
     return torch.tanh(nets.linear(nets.flatten(x), params["dense"]))
 
 
-def random_forward(params: Dict[str, Any], obs: torch.Tensor) -> torch.Tensor:
+def random_forward(params: Dict[str, Any], obs: torch.Tensor,
+                   fused_head: Any = False) -> torch.Tensor:
     """The frozen target: forward only, no dropout, no graph."""
     with torch.no_grad():
-        x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS)
+        x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS,
+                              mesh=nets.fused_route(fused_head))
         return torch.tanh(nets.linear(nets.flatten(x), params["dense"]))
 
 
 def rnd2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
               lr: Optional[float] = None, train: bool = True,
-              dropout: Optional[bool] = None) -> WrapperDef:
+              dropout: Optional[bool] = None, fused_head: Any = False) -> WrapperDef:
     """The RND2D wrapper.  ``dropout`` defaults to ``train``; pass
     ``dropout=False`` with ``train=True`` for the reference's "module.eval()
     but updates still firing" configuration (eval() only disables dropout
-    there)."""
+    there).  ``fused_head`` as :func:`nets.fused_route`."""
     use_dropout = train if dropout is None else dropout
+    nets.fused_route(fused_head)  # refuse a tag the port cannot run, at build time
 
     def init(generator: torch.Generator, device) -> LearnerState:
         return init_learner(
@@ -91,10 +96,10 @@ def rnd2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64
 
     def loss_fn(params, state: LearnerState, ctx):
         obs = net_input(ctx)
-        target = random_forward(state.target_params, obs)
+        target = random_forward(state.target_params, obs, fused_head)
         # even seeds for this net's kernels, odd for AE2D's
         prediction = predictor_forward(params, obs, 2 * ctx.seed, ctx.generator,
-                                       use_dropout)
+                                       use_dropout, fused_head)
         # mean over the embedding dim; the target carries no gradient
         return ((target - prediction) ** 2).mean(dim=1), state.extra
 

@@ -9,12 +9,19 @@ fused conv stages of the wrapper nets, differentiable in their parameters
 (and, past the first layer, in their input): forward and backward launch the
 CUDA kernels for CUDA tensors and take the plain twins for CPU tensors
 (ops/cuda_head.py, ops/cuda_stages.py).  The device decides the route.
+
+``mesh=`` takes the JAX package's routing tags.  :class:`BandTiling` runs
+:func:`conv_encoder`, :func:`conv_decoder_loss` and :func:`conv_ae_loss` as
+row bands of one universe, each band an instance of one launch
+(parallel/band_heads.py); the single stages refuse it, as the JAX package's
+do.  :class:`SpaceSharding`, the JAX package's multi-device row sharding, has
+no counterpart here yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +30,53 @@ from .ops import cuda_head, cuda_stages
 from .ops.cuda_head import STAGE_DEC1, STAGE_DEC2, STAGE_ENC1, STAGE_ENC2
 
 Params = Dict[str, torch.Tensor]
+
+
+class BandTiling(NamedTuple):
+    """Single-device routing tag for the fused encoder and decoder loss at
+    huge universes (counterpart of carle_tpu/nets.py::BandTiling): the
+    observation's rows are cut into ``bands`` bands, each an instance of one
+    kernel launch with its halo rows sliced from its neighbours and zero rows
+    only at the universe's edges (parallel/band_heads.py).  Pass as the
+    wrappers' ``fused_head`` or the nets' ``mesh=``.  Band against global is
+    exact up to the dropout mask: each band draws its own, as an instance."""
+
+    bands: int
+
+
+class SpaceSharding(NamedTuple):
+    """The JAX package's multi-device row-sharding tag
+    (carle_tpu/nets.py::SpaceSharding), kept so that its callers translate:
+    the port has no multi-device tier yet, and every net function refuses it."""
+
+    mesh: Any
+    axis: str = "space"
+    env_axis: Optional[str] = None
+
+
+def check_mesh(mesh: Any) -> Optional[BandTiling]:
+    """The routing tag a net function runs with: None or a
+    :class:`BandTiling`.  A :class:`SpaceSharding` raises
+    NotImplementedError, any other value ValueError."""
+    if isinstance(mesh, SpaceSharding):
+        raise NotImplementedError(
+            "SpaceSharding (rows sharded over devices with halo exchange) is the "
+            "multi-device tier of ROADMAP.md Queue 1 item 11, not ported yet; "
+            "BandTiling runs huge universes on one device")
+    if mesh is not None and not isinstance(mesh, BandTiling):
+        raise ValueError(f"mesh must be None or BandTiling, got {mesh!r}")
+    return mesh
+
+
+def fused_route(fused_head: Any) -> Optional[BandTiling]:
+    """The ``mesh=`` of a wrapper's ``fused_head`` argument (the JAX
+    package's name and spelling): True, False or None give None, the fused
+    kernels on one device (the port has no unfused path to select); a
+    :class:`BandTiling` its row bands; a :class:`SpaceSharding` raises as
+    :func:`check_mesh`."""
+    if fused_head is None or isinstance(fused_head, bool):
+        return None
+    return check_mesh(fused_head)
 
 
 # ---------------------------------------------------------------------------
@@ -119,24 +173,55 @@ def _drop_args(drop_p: float, train: bool, seed: Optional[int]) -> Tuple[float, 
 
 def conv_encoder(x: torch.Tensor, p1: Params, p2: Params, *,
                  pools: Tuple[int, int], drop_p: float = 0.0,
-                 train: bool = False, seed: Optional[int] = 0) -> torch.Tensor:
+                 train: bool = False, seed: Optional[int] = 0,
+                 mesh: Any = None) -> torch.Tensor:
     """Both encoder stages ``pool(relu(drop(conv3x3)))`` x2: x is the uint8
-    observation [N, 1, H, W]; returns float32 [N, C2, H/(p1 p2), W/(p1 p2)].
-    Dropout runs only with ``train`` and ``drop_p > 0``, from ``seed`` (a host
-    integer: the same seed gives the same mask, forward and backward);
-    otherwise no random number is drawn."""
+    observation [N, 1, H, W] (or its packed words); returns float32
+    [N, C2, H/(p1 p2), W/(p1 p2)].  Dropout runs only with ``train`` and
+    ``drop_p > 0``, from ``seed`` (a host integer: the same seed gives the
+    same mask, forward and backward); otherwise no random number is drawn.
+    ``mesh=BandTiling(n)`` runs it as n row bands."""
+    if check_mesh(mesh) is not None:
+        from .parallel.band_heads import encoder_banded
+
+        return encoder_banded(x, p1, p2, pools=pools, drop_p=drop_p, train=train,
+                              seed=seed, tiling=mesh)
     p, seed = _drop_args(drop_p, train, seed)
     return cuda_head.encoder(x, p1["w"], p1["b"], p2["w"], p2["b"], pools, p, seed)
+
+
+def whole_ae_route(src: torch.Tensor, p1: Params, p2: Params, pd1: Params,
+                   pd2: Params) -> bool:
+    """Whether :func:`conv_ae_loss` runs as the one whole-autoencoder kernel
+    (else encoder + decoder loss): from the shapes alone, so forward and
+    backward, card and CPU take one route."""
+    n, _, h, w = cuda_head.cell_shape(src)
+    return n <= 65535 and cuda_head.whole_ae_fits(
+        h, w, p1["w"].shape[0], p2["w"].shape[0], pd1["w"].shape[1], pd2["w"].shape[1])
 
 
 def conv_ae_loss(src: torch.Tensor, p1: Params, p2: Params, pd1: Params,
                  pd2: Params, obs: torch.Tensor, *, pools: Tuple[int, int],
                  drop_p: float = 0.0, train: bool = False,
-                 seed: Optional[int] = 0) -> torch.Tensor:
+                 seed: Optional[int] = 0, mesh: Any = None) -> torch.Tensor:
     """The whole autoencoder and its per-instance
     ``sum((obs - recon(src))**2)`` over C, H, W ([N] float32; the caller
     divides by C*H*W for the mean), differentiable in the eight parameters.
-    Dropout as :func:`conv_encoder`."""
+    Dropout as :func:`conv_encoder`.  One kernel where its shared-memory
+    plans fit (:func:`whole_ae_route`); elsewhere :func:`conv_encoder` then
+    :func:`conv_decoder_loss` with the same seed (the embedding crosses
+    device memory), as carle_tpu/nets.py::conv_ae_loss past its kernel's
+    VMEM limit: the same function and dropout mask.  ``mesh=BandTiling(n)``
+    runs both as n row bands."""
+    if check_mesh(mesh) is not None:
+        from .parallel.band_heads import ae_loss_banded
+
+        return ae_loss_banded(src, p1, p2, pd1, pd2, obs, pools=pools, drop_p=drop_p,
+                              train=train, seed=seed, tiling=mesh)
+    if tuple(pools) == (2, 2) and not whole_ae_route(src, p1, p2, pd1, pd2):
+        kw = dict(drop_p=drop_p, train=train, seed=seed)
+        x = conv_encoder(src, p1, p2, pools=pools, **kw)
+        return conv_decoder_loss(x, pd1, pd2, obs, **kw)
     p, seed = _drop_args(drop_p, train, seed)
     return cuda_head.ae_loss(src, p1["w"], p1["b"], p2["w"], p2["b"],
                              pd1["w"], pd1["b"], pd2["w"], pd2["b"], obs, pools, p, seed)
@@ -144,7 +229,7 @@ def conv_ae_loss(src: torch.Tensor, p1: Params, p2: Params, pd1: Params,
 
 def conv_head(x: torch.Tensor, p: Params, *, pool: int, drop_p: float = 0.0,
               train: bool = False, need_dx: bool = False, seed: Optional[int] = None,
-              stage: int = STAGE_ENC1) -> torch.Tensor:
+              stage: int = STAGE_ENC1, mesh: Any = None) -> torch.Tensor:
     """One conv stage ``pool(relu(drop(conv3x3(x))))``: x [N, C, H, W] float32
     (or the uint8 observation) -> [N, O, H/pool, W/pool].  The backward gives
     the parameter gradients and, with ``need_dx`` (deeper stages), the input
@@ -153,40 +238,64 @@ def conv_head(x: torch.Tensor, p: Params, *, pool: int, drop_p: float = 0.0,
     convolution, 1 its second)."""
     if pool < 2 or pool & (pool - 1):
         raise ValueError(f"pool must be a power of two >= 2, got {pool}")
+    if check_mesh(mesh) is not None:
+        raise ValueError(
+            "BandTiling applies to the two-stage paths (conv_encoder, "
+            "conv_decoder_loss, conv_ae_loss); single-stage heads have no "
+            "banded variant"
+        )
     prob, seed = _drop_args(drop_p, train, seed)
     return cuda_stages.head(x, p["w"], p["b"], pool, prob, seed, stage, need_dx)
 
 
 def conv_tail(x: torch.Tensor, p: Params, *, act: str, drop_p: float = 0.0,
               train: bool = False, seed: Optional[int] = None,
-              stage: int = STAGE_DEC1) -> torch.Tensor:
+              stage: int = STAGE_DEC1, mesh: Any = None) -> torch.Tensor:
     """The decoder stage ``act(drop(conv_transpose2d(x)))`` (stride 2, k 4,
     pad 1), act "relu" or "sigmoid", differentiable in x and its parameters.
     ``stage`` as :func:`conv_head` (2 the decoder's first stage, 3 its
     second)."""
+    if check_mesh(mesh) is not None:
+        raise ValueError(
+            "BandTiling serves the training losses (conv_encoder, "
+            "conv_decoder_loss, conv_ae_loss) — a banded conv_tail would "
+            "materialise the full-resolution activation it exists to avoid"
+        )
     prob, seed = _drop_args(drop_p, train, seed)
     return cuda_stages.tail(x, p["w"], p["b"], act, prob, seed, stage)
 
 
 def conv_loss_tail(x: torch.Tensor, p: Params, obs: torch.Tensor, *, act: str,
                    drop_p: float = 0.0, train: bool = False, seed: Optional[int] = None,
-                   stage: int = STAGE_DEC2) -> torch.Tensor:
+                   stage: int = STAGE_DEC2, mesh: Any = None) -> torch.Tensor:
     """:func:`conv_tail` fused with the error: per-instance
     ``sum((obs - act(drop(conv_transpose2d(x))))**2)`` over C, H, W ([N]
     float32; the caller divides by C*H*W for the mean) without the
     full-resolution reconstruction in device memory.  obs is uint8 or float32
     and gets no gradient."""
+    if check_mesh(mesh) is not None:
+        raise ValueError(
+            "BandTiling routes through conv_decoder_loss / conv_ae_loss "
+            "(the banded error reduction needs the two-stage row-weighted "
+            "kernel), not the single-stage loss tail"
+        )
     prob, seed = _drop_args(drop_p, train, seed)
     return cuda_stages.loss_tail(x, p["w"], p["b"], obs, act, prob, seed, stage)
 
 
 def conv_decoder_loss(x: torch.Tensor, p1: Params, p2: Params, obs: torch.Tensor, *,
                       drop_p: float = 0.0, train: bool = False,
-                      seed: Optional[int] = None) -> torch.Tensor:
+                      seed: Optional[int] = None, mesh: Any = None) -> torch.Tensor:
     """Both decoder stages (relu, then sigmoid) fused with the error: [N]
     float32 sums over C, H, W; neither the middle activation nor the
     reconstruction reaches device memory.  Differentiable in the embedding x
-    and the four parameters."""
+    and the four parameters.  ``mesh=BandTiling(n)`` runs it as n row bands
+    whose row-weighted errors add up to this one."""
+    if check_mesh(mesh) is not None:
+        from .parallel.band_heads import decoder_loss_banded
+
+        return decoder_loss_banded(x, p1, p2, obs, drop_p=drop_p, train=train, seed=seed,
+                                   tiling=mesh)
     prob, seed = _drop_args(drop_p, train, seed)
     return cuda_stages.decoder_loss(x, p1["w"], p1["b"], p2["w"], p2["b"], obs, prob, seed)
 
@@ -204,7 +313,9 @@ def ae_loss_by_stages(params: Dict[str, Params], src: torch.Tensor, obs: torch.T
     return conv_loss_tail(x, params["deconv2"], obs, act="sigmoid", stage=STAGE_DEC2, **kw)
 
 
-__all__ = ["Params", "conv_init", "conv_transpose_init", "linear_init",
+__all__ = ["Params", "BandTiling", "SpaceSharding", "check_mesh", "fused_route",
+           "whole_ae_route",
+           "conv_init", "conv_transpose_init", "linear_init",
            "conv2d", "conv_transpose2d", "linear", "max_pool2", "dropout",
            "flatten", "conv_encoder", "conv_ae_loss", "conv_head", "conv_tail",
            "conv_loss_tail", "conv_decoder_loss", "ae_loss_by_stages"]

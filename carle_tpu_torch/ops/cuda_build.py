@@ -179,11 +179,11 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel("ca_multi_step", "ca_multi_step_launch",
                    [P, P, I, P, P, I, I, I, I, I, I, P]),
         CudaKernel("encoder_fwd", "encoder_fwd_launch",
-                   [P] * 6 + [I] * 8 + [LL, I, D, ULL, I, P]),
+                   [P] * 7 + [I] * 9 + [LL, I, D, ULL, I, P]),
         CudaKernel("ae_loss_fwd", "ae_loss_fwd_launch",
                    [P] * 12 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("encoder_bwd", "encoder_bwd_launch",
-                   [P] * 10 + [I] * 9 + [LL, LL, I, D, ULL, I, P]),
+                   [P] * 11 + [I] * 11 + [LL, LL, I, D, ULL, I, P]),
         CudaKernel("ae_loss_bwd", "ae_loss_bwd_launch",
                    [P] * 18 + [I] * 10 + [LL, LL, LL, I, I, D, ULL, I, P]),
         CudaKernel("head_fwd", "head_fwd_launch",
@@ -199,9 +199,9 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel("loss_tail_bwd", "loss_tail_bwd_launch",
                    [P] * 8 + [I] * 6 + [LL, I, I, I, D, ULL, I, P], source="tail"),
         CudaKernel("decoder_loss_fwd", "decoder_loss_fwd_launch",
-                   [P] * 8 + [I] * 7 + [LL, I, D, ULL, I, P]),
+                   [P] * 9 + [I] * 8 + [LL, I, D, ULL, I, P]),
         CudaKernel("decoder_loss_bwd", "decoder_loss_bwd_launch",
-                   [P] * 11 + [I] * 7 + [LL, I, D, ULL, I, P]),
+                   [P] * 12 + [I] * 8 + [LL, I, D, ULL, I, P]),
     )
 }
 

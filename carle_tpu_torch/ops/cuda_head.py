@@ -1,7 +1,7 @@
 """The wrapper nets' fused encoder and whole-autoencoder loss: forward and
 backward CUDA kernels, in-kernel dropout, and their plain PyTorch twins
-(counterpart of carle_tpu/ops/pallas_head.py's ``make_fused_encoder`` and
-``make_fused_ae_loss``, without the row mask).
+(counterpart of carle_tpu/ops/pallas_head.py's ``make_fused_encoder``, with
+its per-instance stage-1 row mask, and ``make_fused_ae_loss``).
 
 :func:`encoder` and :func:`ae_loss` are the differentiable entry points:
 ``torch.autograd.Function``s whose forward and backward launch the kernels
@@ -20,6 +20,14 @@ one element, so the backward twins are written out.
 The kernels compute their own convolutions, pools, transpose convolutions,
 masks and sums; ``torch.nn.functional`` appears only in the plain twins.
 
+The encoder's kernels take any width divisible by the pools: where one band
+of the whole width does not fit a block's shared memory, the plans cut the
+width into column tiles (:func:`_encoder_fwd_plan`, :func:`_encoder_bwd_bands`;
+:data:`TILE_CELLS` forces tiles of at most that many cells).  The whole
+autoencoder runs as one kernel only where both its plans fit
+(:func:`whole_ae_fits`); ``nets.conv_ae_loss`` composes the encoder and the
+decoder loss elsewhere.
+
 Cells (the encoder's x, the autoencoder's src and obs) are uint8 [N, 1, H, W]
 or the packed universe itself, uint32 words [N, 1, H, W/32] (ops/bitpack.py's
 layout): the kernels expand the words in shared memory as they stage them
@@ -31,7 +39,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +56,11 @@ MAX_CHANNELS = 8            # the kernels' register-array bound
 SMEM_TARGET = 48 * 1024     # forwards: prefer bands within the default shared memory
 SMEM_TARGET_BWD = 100 * 1024  # backwards: two blocks a multiprocessor
 SMEM_MAX = 227 * 1024
+# Tiles of at most this many cells of the universe's width in the encoder and
+# decoder-loss kernels (None: the plans cut the width only where one band of
+# the whole width does not fit).  Tests and chip_smoke.py set it to hold a
+# tiled launch against the untiled one.
+TILE_CELLS: Optional[int] = None
 # dropout stages: the counter's stage field (csrc/net_stages.cuh)
 STAGE_ENC1, STAGE_ENC2, STAGE_DEC1, STAGE_DEC2 = 0, 1, 2, 3
 
@@ -55,7 +68,7 @@ __all__ = ["ENCODER", "AE_LOSS", "ENCODER_BWD", "AE_LOSS_BWD", "encoder", "ae_lo
            "encoder_fwd", "encoder_fwd_plain", "encoder_bwd", "encoder_bwd_plain",
            "ae_loss_fwd", "ae_loss_fwd_plain", "ae_loss_bwd", "ae_loss_bwd_plain",
            "philox4x32", "philox_keep_mask", "drop_settings", "cells", "cell_shape",
-           "cell_kind"]
+           "cell_kind", "whole_ae_fits", "TILE_CELLS"]
 
 
 def _check_pools(pools: Tuple[int, int]) -> None:
@@ -170,25 +183,36 @@ def _dropout(z: torch.Tensor, stage: int, drop_p: float, seed: int):
 # ---------------------------------------------------------------------------
 
 
-def _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed):
+def _row_factor(rows: torch.Tensor) -> torch.Tensor:
+    """Per-instance row values [N, H] (the encoder's stage-1 mask, the
+    decoder loss's error weights) as a factor over [N, C, H, W]."""
+    return rows.to(torch.float32)[:, None, :, None]
+
+
+def _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed, mask=None):
     """The encoder's forward with what its backward needs: the dropped
-    pre-activations d1, d2, the pooled stage-1 activation x1, the output and
-    the dropout scale."""
+    pre-activations d1, d2, the pooled stage-1 activation x1 (times the row
+    mask), the output and the dropout scale."""
     _check_pools(pools)
     _check_drop(drop_p)
     xf = cells(x).to(torch.float32)
     d1, scale = _dropout(F.conv2d(xf, w1, b1, padding=1), STAGE_ENC1, drop_p, seed)
     x1 = F.max_pool2d(F.relu(d1), pools[0])
+    if mask is not None:
+        x1 = x1 * _row_factor(mask)
     d2, _ = _dropout(F.conv2d(x1, w2, b2, padding=1), STAGE_ENC2, drop_p, seed)
     return xf, d1, x1, d2, F.max_pool2d(F.relu(d2), pools[1]), scale
 
 
 def encoder_fwd_plain(x, w1, b1, w2, b2, pools: Tuple[int, int],
-                      drop_p: float = 0.0, seed: int = 0) -> torch.Tensor:
+                      drop_p: float = 0.0, seed: int = 0,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``pool(relu(drop(conv3x3(x))))`` twice, zero padding 1; x [N, 1, H, W]
     uint8 or float32, or packed words [N, 1, H, W/32] -> float32
-    [N, C2, H/(p1 p2), W/(p1 p2)]."""
-    return _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed)[4]
+    [N, C2, H/(p1 p2), W/(p1 p2)].  ``mask`` [N, H/p1] multiplies the pooled
+    stage-1 rows that stage 2 reads (the band tiling's out-of-universe
+    rows)."""
+    return _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed, mask)[4]
 
 
 def _pool_route(d: torch.Tensor, g_pooled: torch.Tensor, pool: int,
@@ -227,20 +251,23 @@ def _deconv_wgrad(inp: torch.Tensor, gc: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps, dim=2).reshape(inp.shape[1], gc.shape[1], 4, 4)
 
 
-def _encoder_bwd_from_planes(xf, d1, x1, d2, w2, g, pools, scale):
+def _encoder_bwd_from_planes(xf, d1, x1, d2, w2, g, pools, scale, mask=None):
     gc2 = _pool_route(d2, g, pools[1], scale)
     gx1 = F.conv_transpose2d(gc2, w2, padding=1)
+    if mask is not None:  # no gradient through a zeroed row
+        gx1 = gx1 * _row_factor(mask)
     gc1 = _pool_route(d1, gx1, pools[0], scale)
     return (_conv_wgrad(xf, gc1), gc1.sum(dim=(0, 2, 3)),
             _conv_wgrad(x1, gc2), gc2.sum(dim=(0, 2, 3)))
 
 
 def encoder_bwd_plain(x, w1, b1, w2, b2, g, pools: Tuple[int, int],
-                      drop_p: float = 0.0, seed: int = 0):
+                      drop_p: float = 0.0, seed: int = 0,
+                      mask: Optional[torch.Tensor] = None):
     """(dW1, db1, dW2, db2) of :func:`encoder_fwd_plain` for the output
     cotangent g, with ties in the max pools sharing equally."""
-    xf, d1, x1, d2, _, scale = _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed)
-    return _encoder_bwd_from_planes(xf, d1, x1, d2, w2, g, pools, scale)
+    xf, d1, x1, d2, _, scale = _encoder_planes(x, w1, b1, w2, b2, pools, drop_p, seed, mask)
+    return _encoder_bwd_from_planes(xf, d1, x1, d2, w2, g, pools, scale, mask)
 
 
 def _ae_planes(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, pools, drop_p, seed):
@@ -299,33 +326,42 @@ def _check_cuda_inputs(ref: torch.Tensor, cell_args, weights) -> None:
             raise ValueError(f"{name} must be float32 on {ref.device}")
 
 
+def _widest_window(n: int, t: int, h: int) -> int:
+    """csrc/common.cuh::widest_window: the widest of the windows
+    [max(c0 - h, 0), min(c0 + t + h, n)) over the tiles c0 = 0, t, ... of
+    [0, n)."""
+    return max(min(c0 + t + h, n) - max(c0 - h, 0) for c0 in range(0, n, t))
+
+
 def _encoder_smem(h: int, w: int, c1: int, c2: int, p1: int, p2: int,
-                  r2: int) -> int:
-    """Bytes of the encoder kernel's shared-memory layout for a band of r2
-    output rows (must match csrc/encoder_fwd.cu)."""
+                  r2: int, two: int) -> int:
+    """Bytes of the encoder kernel's shared-memory layout for a block of r2
+    output rows and two output columns (csrc/encoder_fwd.cu::encoder_fwd_smem)."""
+    t = min(two, w // (p1 * p2))
     xr = r2 * p2 + 2
     ir = xr * p1 + 2
-    floats = c1 * 9 + c1 + c2 * c1 * 9 + c2 + c1 * xr * (w // p1 + 2)
-    return 4 * floats + ir * (w + 2)
+    floats = c1 * 9 + c1 + c2 * c1 * 9 + c2 + c1 * xr * (t * p2 + 2)
+    return 4 * floats + ir * (_widest_window(w // p1, t * p2, 1) * p1 + 2)
 
 
 RED_FLOATS = 32 * 9     # csrc/encoder_bwd.cuh
 RED16_FLOATS = 32 * 16  # csrc/ae_loss_bwd.cu
 
 
-def _enc_bwd2_smem(w: int, c1: int, c2: int, p1: int, p2: int, r2: int) -> int:
+def _enc_bwd2_smem(w: int, c1: int, c2: int, p1: int, p2: int, r2: int, t2: int) -> int:
     """csrc/encoder_bwd.cuh::enc_bwd2_smem."""
-    w1, xr = w // p1, r2 * p2 + 2
-    floats = (c1 * 9 + c1 + c2 * c1 * 9 + c2 + c1 * xr * (w1 + 2)
-              + c2 * r2 * p2 * w1 + RED_FLOATS)
-    return 4 * floats + (xr * p1 + 2) * (w + 2)
+    t = min(t2, w // (p1 * p2))
+    xr = r2 * p2 + 2
+    floats = (c1 * 9 + c1 + c2 * c1 * 9 + c2 + c1 * xr * (t * p2 + 2)
+              + c2 * r2 * p2 * t * p2 + RED_FLOATS)
+    return 4 * floats + (xr * p1 + 2) * (_widest_window(w // p1, t * p2, 1) * p1 + 2)
 
 
-def _enc_bwd1_smem(w: int, c1: int, c2: int, p1: int, rb: int) -> int:
+def _enc_bwd1_smem(w: int, c1: int, c2: int, p1: int, rb: int, t1: int) -> int:
     """csrc/encoder_bwd.cuh::enc_bwd1_smem."""
-    floats = (c1 * 9 + c1 + c2 * c1 * 9 + c2 * (rb + 2) * (w // p1 + 2)
-              + RED_FLOATS)
-    return 4 * floats + (rb * p1 + 2) * (w + 2)
+    t = min(t1, w // p1)
+    floats = c1 * 9 + c1 + c2 * c1 * 9 + c2 * (rb + 2) * (t + 2) + RED_FLOATS
+    return 4 * floats + (rb * p1 + 2) * (t * p1 + 2)
 
 
 def _pick_band(smem_of, rows: int, choices, target: int = SMEM_TARGET) -> Tuple[int, int]:
@@ -339,6 +375,33 @@ def _pick_band(smem_of, rows: int, choices, target: int = SMEM_TARGET) -> Tuple[
     if smem > SMEM_MAX:
         raise ValueError("universe too wide for the kernel's shared-memory band")
     return band, smem
+
+
+def _pick_tile(smem_of, rows: int, choices, cols: int, unit: int,
+               target: int = SMEM_TARGET, cells: Optional[int] = None) -> Tuple[int, int, int]:
+    """(band, tile, shared memory) of a kernel whose block owns ``band`` rows
+    and ``tile`` of the ``cols`` columns (``smem_of(band, tile)``; a column is
+    ``unit`` cells of the universe).  The whole width where one band of it
+    fits SMEM_MAX (today's plan, :func:`_pick_band`) unless ``cells`` forces
+    tiles of at most that many cells; else the largest band in ``choices``
+    with the widest tile (``cols`` or a power of two) that fits ``target``,
+    else SMEM_MAX."""
+    if cells is None:
+        try:
+            band, smem = _pick_band(lambda b: smem_of(b, cols), rows, choices, target)
+            return band, cols, smem
+        except ValueError:
+            pass
+    limit = cols if cells is None else max(1, min(cols, cells // unit))
+    tiles = sorted({limit} | {1 << k for k in range(limit.bit_length())}, reverse=True)
+    bands = [b for b in choices if b <= max(rows, choices[-1])]
+    for bound in (target, SMEM_MAX):
+        for band in bands:
+            for tile in tiles:
+                smem = smem_of(band, tile)
+                if smem <= bound:
+                    return band, tile, smem
+    raise ValueError("no band and tile of the universe fit the kernel's shared memory")
 
 
 def _encoder_shape(x, w1, w2, pools):
@@ -355,9 +418,22 @@ def _encoder_shape(x, w1, w2, pools):
         raise ValueError(f"at most {MAX_CHANNELS} channels a stage")
     if h % (p1 * p2) or w % (p1 * p2):
         raise ValueError(f"{h}x{w} is not divisible by the pools {pools}")
-    if n > 65535:
-        raise ValueError("at most 65535 instances a launch")
     return n, h, w, c1, c2, p1, p2
+
+
+def _check_mask(mask, ref: torch.Tensor, n: int, rows: int):
+    """The row mask as the kernels read it: float32 [N, rows] on ref's
+    device, contiguous; None stays None."""
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (n, rows) or mask.dtype != torch.float32 or mask.device != ref.device:
+        raise ValueError(f"mask must be float32 [{n}, {rows}] on {ref.device}, got "
+                         f"{mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    return mask.contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _seed_word(seed: int) -> int:
@@ -378,44 +454,49 @@ def _dispatch(name: str, ref: torch.Tensor, plain, kernel, *args):
 
 
 def encoder_fwd(x, w1, b1, w2, b2, pools: Tuple[int, int], drop_p: float = 0.0,
-                seed: int = 0) -> torch.Tensor:
+                seed: int = 0, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Both encoder stages as one kernel on CUDA; the plain twin on the CPU.
     The kernel takes uint8 cells [N, 1, H, W] or packed words [N, 1, H, W/32]
-    with H and W divisible by p1 * p2.  ``drop_p > 0`` applies dropout from ``seed``."""
+    with H and W divisible by p1 * p2.  ``drop_p > 0`` applies dropout from
+    ``seed``; ``mask`` (float32 [N, H/p1], None for all ones) multiplies the
+    pooled stage-1 rows."""
     return _dispatch("encoder_fwd", x, encoder_fwd_plain, _encoder_fwd_kernel,
-                     x, w1, b1, w2, b2, pools, drop_p, seed)
+                     x, w1, b1, w2, b2, pools, drop_p, seed, mask)
 
 
-def _encoder_fwd_kernel(x, w1, b1, w2, b2, pools, drop_p, seed):
+def _encoder_fwd_kernel(x, w1, b1, w2, b2, pools, drop_p, seed, mask=None):
     _check_drop(drop_p)
     n, h, w, c1, c2, p1, p2 = _encoder_shape(x, w1, w2, pools)
     _check_cuda_inputs(x, [("x", x)], [("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)])
+    mask = _check_mask(mask, x, n, h // p1)
     ho, wo = h // (p1 * p2), w // (p1 * p2)
-    r2, smem = _encoder_fwd_band(h, w, c1, c2, p1, p2)
+    r2, two, smem = _encoder_fwd_plan(h, w, c1, c2, p1, p2, TILE_CELLS)
     out = torch.empty((n, c2, ho, wo), dtype=torch.float32, device=x.device)
     ws = [t.contiguous() for t in (w1, b1, w2, b2)]
     device, stream = stream_args(x)
-    ENCODER.launch(x.data_ptr(), *(t.data_ptr() for t in ws), out.data_ptr(),
-                   n, h, w, c1, c2, p1, p2, r2, smem, cell_kind(x), float(drop_p),
+    ENCODER.launch(x.data_ptr(), *(t.data_ptr() for t in ws), _ptr(mask), out.data_ptr(),
+                   n, h, w, c1, c2, p1, p2, r2, two, smem, cell_kind(x), float(drop_p),
                    _seed_word(seed), device, stream, packed=_packed(x))
     return out
 
 
 @functools.lru_cache(maxsize=None)
-def _encoder_fwd_band(h, w, c1, c2, p1, p2) -> Tuple[int, int]:
-    return _pick_band(lambda r: _encoder_smem(h, w, c1, c2, p1, p2, r),
-                      h // (p1 * p2), (8, 4, 2, 1))
+def _encoder_fwd_plan(h, w, c1, c2, p1, p2, cells=None) -> Tuple[int, int, int]:
+    """(R2 output rows, output columns a tile, shared memory) of the forward
+    kernel."""
+    return _pick_tile(lambda r, t: _encoder_smem(h, w, c1, c2, p1, p2, r, t),
+                      h // (p1 * p2), (8, 4, 2, 1), w // (p1 * p2), p1 * p2, cells=cells)
 
 
 @functools.lru_cache(maxsize=None)
-def _encoder_bwd_bands(h, w, c1, c2, p1, p2):
-    """(R2, shared memory) of the stage-2 backward kernel, (RB, shared
-    memory) of the stage-1 backward kernel."""
+def _encoder_bwd_bands(h, w, c1, c2, p1, p2, cells=None):
+    """(R2, T2 output columns, shared memory) of the stage-2 backward kernel,
+    (RB, T1 stage-1 columns, shared memory) of the stage-1 backward kernel."""
     h1 = h // p1
-    return (_pick_band(lambda r: _enc_bwd2_smem(w, c1, c2, p1, p2, r),
-                       h1 // p2, (8, 4, 2, 1), SMEM_TARGET_BWD),
-            _pick_band(lambda r: _enc_bwd1_smem(w, c1, c2, p1, r),
-                       h1, (8, 4, 2, 1), SMEM_TARGET_BWD))
+    return (_pick_tile(lambda r, t: _enc_bwd2_smem(w, c1, c2, p1, p2, r, t), h1 // p2,
+                       (8, 4, 2, 1), w // (p1 * p2), p1 * p2, SMEM_TARGET_BWD, cells),
+            _pick_tile(lambda r, t: _enc_bwd1_smem(w, c1, c2, p1, r, t), h1,
+                       (8, 4, 2, 1), w // p1, p1, SMEM_TARGET_BWD, cells))
 
 
 @functools.lru_cache(maxsize=None)
@@ -428,16 +509,35 @@ def _ae_bands(h, w, c1, c2, cmid, cout):
                        h, (32, 16, 8, 4), SMEM_TARGET_BWD))
 
 
-def _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, device):
-    """Bands, shared memory and scratch of the encoder's backward kernels."""
+@functools.lru_cache(maxsize=None)
+def whole_ae_fits(h: int, w: int, c1: int, c2: int, cmid: int, cout: int) -> bool:
+    """Whether the whole autoencoder runs as one kernel at [h, w] (pools
+    (2, 2)): its forward and its decoder backward each find a band of the
+    whole width within a block's shared memory, and its encoder backward
+    needs no column tiles.  Shapes alone decide, on any device, so forward and
+    backward take one route; elsewhere ``nets.conv_ae_loss`` composes the
+    encoder and the decoder loss, as carle_tpu/nets.py::conv_ae_loss past its
+    kernel's VMEM limit."""
+    try:
+        _ae_bands(h, w, c1, c2, cmid, cout)
+    except ValueError:
+        return False
+    (_, t2, _), (_, t1, _) = _encoder_bwd_bands(h, w, c1, c2, 2, 2)
+    return t2 == w // 4 and t1 == w // 2
+
+
+def _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, device, cells=None):
+    """Bands, tiles, shared memory and scratch of the encoder's backward
+    kernels."""
     h1, w1 = h // p1, w // p1
-    (r2, smem2), (rb, smem1) = _encoder_bwd_bands(h, w, c1, c2, p1, p2)
-    bands2, bands1 = -(-(h1 // p2) // r2), -(-h1 // rb)
+    (r2, t2, smem2), (rb, t1, smem1) = _encoder_bwd_bands(h, w, c1, c2, p1, p2, cells)
+    blocks2 = -(-(h1 // p2) // r2) * -(-(w1 // p2) // t2)
+    blocks1 = -(-h1 // rb) * -(-w1 // t1)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
-    return dict(r2=r2, rb=rb, smem2=smem2, smem1=smem1,
+    return dict(r2=r2, rb=rb, t2=t2, t1=t1, smem2=smem2, smem1=smem1,
                 gc2=empty(n, c2, h1, w1),
-                part2=empty(n * bands2, c2 * c1 * 9 + c2),
-                part1=empty(n * bands1, c1 * 9 + c1))
+                part2=empty(n * blocks2, c2 * c1 * 9 + c2),
+                part1=empty(n * blocks1, c1 * 9 + c1))
 
 
 def _split(flat: torch.Tensor, shapes):
@@ -450,32 +550,33 @@ def _split(flat: torch.Tensor, shapes):
 
 
 def encoder_bwd(x, w1, b1, w2, b2, g, pools: Tuple[int, int], drop_p: float = 0.0,
-                seed: int = 0):
+                seed: int = 0, mask: Optional[torch.Tensor] = None):
     """(dW1, db1, dW2, db2) for the cotangent g of :func:`encoder_fwd`'s
     output: the backward kernels on CUDA, the plain twin on the CPU."""
     return _dispatch("encoder_bwd", x, encoder_bwd_plain, _encoder_bwd_kernel,
-                     x, w1, b1, w2, b2, g, pools, drop_p, seed)
+                     x, w1, b1, w2, b2, g, pools, drop_p, seed, mask)
 
 
-def _encoder_bwd_kernel(x, w1, b1, w2, b2, g, pools, drop_p, seed):
+def _encoder_bwd_kernel(x, w1, b1, w2, b2, g, pools, drop_p, seed, mask=None):
     _check_drop(drop_p)
     n, h, w, c1, c2, p1, p2 = _encoder_shape(x, w1, w2, pools)
     _check_cuda_inputs(x, [("x", x)], [("w1", w1), ("b1", b1), ("w2", w2),
                                        ("b2", b2), ("g", g)])
     if tuple(g.shape) != (n, c2, h // (p1 * p2), w // (p1 * p2)):
         raise ValueError(f"g shape {tuple(g.shape)} is not the encoder's output's")
-    plan = _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, x.device)
+    mask = _check_mask(mask, x, n, h // p1)
+    plan = _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, x.device, TILE_CELLS)
     shapes = ((c1, 1, 3, 3), (c1,), (c2, c1, 3, 3), (c2,))
     grads = torch.empty(sum(math.prod(s) for s in shapes), dtype=torch.float32,
                         device=x.device)
-    ts = [t.contiguous() for t in (w1, b1, w2, b2, g)]
+    ts = [t.contiguous() for t in (w1, b1, w2, b2)]
     device, stream = stream_args(x)
-    ENCODER_BWD.launch(x.data_ptr(), *(t.data_ptr() for t in ts),
-                       plan["gc2"].data_ptr(), plan["part2"].data_ptr(),
-                       plan["part1"].data_ptr(), grads.data_ptr(), n, h, w, c1, c2,
-                       p1, p2, plan["r2"], plan["rb"], plan["smem2"], plan["smem1"],
-                       cell_kind(x), float(drop_p), _seed_word(seed), device, stream,
-                       packed=_packed(x))
+    ENCODER_BWD.launch(x.data_ptr(), *(t.data_ptr() for t in ts), _ptr(mask),
+                       g.contiguous().data_ptr(), plan["gc2"].data_ptr(),
+                       plan["part2"].data_ptr(), plan["part1"].data_ptr(), grads.data_ptr(),
+                       n, h, w, c1, c2, p1, p2, plan["r2"], plan["rb"], plan["t2"],
+                       plan["t1"], plan["smem2"], plan["smem1"], cell_kind(x),
+                       float(drop_p), _seed_word(seed), device, stream, packed=_packed(x))
     return _split(grads, shapes)
 
 
@@ -576,6 +677,9 @@ def _ae_loss_bwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar, pool
                         ("gbar", gbar)])
     if tuple(gbar.shape) != (n,):
         raise ValueError(f"gbar shape {tuple(gbar.shape)} != {(n,)}")
+    if not whole_ae_fits(h, w, c1, c2, cmid, cout):
+        raise ValueError(f"{h}x{w} is too wide for the whole-AE backward kernels "
+                         "(nets.conv_ae_loss composes encoder and decoder loss there)")
     ry, smem3 = _ae_bands(h, w, c1, c2, cmid, cout)[1]
     plan = _encoder_bwd_plan(n, h, w, c1, c2, 2, 2, src.device)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=src.device)
@@ -602,19 +706,21 @@ def _ae_loss_bwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar, pool
 
 
 class EncoderFn(torch.autograd.Function):
-    """encoder_fwd with encoder_bwd as its backward; saves only the inputs."""
+    """encoder_fwd with encoder_bwd as its backward; saves only the inputs.
+    The row mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, pools, drop_p, seed):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
+    def forward(ctx, x, w1, b1, w2, b2, pools, drop_p, seed, mask):
+        ctx.save_for_backward(x, w1, b1, w2, b2, mask)
         ctx.settings = (tuple(pools), float(drop_p), int(seed))
-        return encoder_fwd(x, w1, b1, w2, b2, *ctx.settings)
+        return encoder_fwd(x, w1, b1, w2, b2, *ctx.settings, mask)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        grads = encoder_bwd(*ctx.saved_tensors, g.contiguous(), *ctx.settings)
-        return (None, *grads, None, None, None)
+        *inputs, mask = ctx.saved_tensors
+        grads = encoder_bwd(*inputs, g.contiguous(), *ctx.settings, mask)
+        return (None, *grads, None, None, None, None)
 
 
 class AELossFn(torch.autograd.Function):
@@ -638,13 +744,13 @@ def _wants_grad(tensors) -> bool:
 
 
 def encoder(x, w1, b1, w2, b2, pools: Tuple[int, int], drop_p: float = 0.0,
-            seed: int = 0) -> torch.Tensor:
+            seed: int = 0, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused encoder, differentiable in its four parameters (the cells
-    carry no gradient).  Without a parameter that requires grad it is
-    :func:`encoder_fwd` alone."""
+    and the row mask carry no gradient).  Without a parameter that requires
+    grad it is :func:`encoder_fwd` alone."""
     if _wants_grad((w1, b1, w2, b2)):
-        return EncoderFn.apply(x, w1, b1, w2, b2, pools, drop_p, seed)
-    return encoder_fwd(x, w1, b1, w2, b2, pools, drop_p, seed)
+        return EncoderFn.apply(x, w1, b1, w2, b2, pools, drop_p, seed, mask)
+    return encoder_fwd(x, w1, b1, w2, b2, pools, drop_p, seed, mask)
 
 
 def ae_loss(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs,

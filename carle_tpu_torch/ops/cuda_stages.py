@@ -10,7 +10,10 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
 * :func:`loss_tail` — the tail fused with ``sum((obs - y)**2)`` per instance;
 * :func:`decoder_loss` — both decoder stages fused with that error; backward
   the four parameter gradients and ``gx``, the embedding's cotangent, which
-  flows on into :func:`cuda_head.encoder`'s backward.
+  flows on into :func:`cuda_head.encoder`'s backward.  Optional per-instance
+  error row weights ``em`` [N, H] make it ``make_fused_decoder_loss_banded``;
+  its kernels cut a universe too wide for one band of the whole width into
+  column tiles (``cuda_head.TILE_CELLS`` forces them).
 
 Each is a ``torch.autograd.Function`` that saves its inputs and the seed and
 recomputes in the backward, launches its kernels (``csrc/head_fwd.cu``,
@@ -33,17 +36,20 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from . import cuda_head
 from .cuda_build import KERNELS, stream_args
 from .cuda_head import (MAX_CHANNELS, RED16_FLOATS, RED_FLOATS, SMEM_TARGET_BWD,
                         STAGE_DEC1, STAGE_DEC2, STAGE_ENC1, _ae_band_floats,
-                        _check_drop, _conv_wgrad, _deconv_wgrad, _dispatch, _dropout,
-                        _packed, _pick_band, _pool_route, _seed_word, _split,
-                        _wants_grad, cell_kind, cell_shape, cells, philox_keep_mask)
+                        _check_drop, _check_mask, _conv_wgrad, _deconv_wgrad, _dispatch,
+                        _dropout, _packed, _pick_band, _pick_tile, _pool_route, _ptr,
+                        _row_factor, _seed_word, _split, _wants_grad, _widest_window,
+                        cell_kind, cell_shape, cells, philox_keep_mask)
 
 HEAD_FWD, HEAD_BWD = KERNELS["head_fwd"], KERNELS["head_bwd"]
 TAIL_FWD, TAIL_BWD = KERNELS["tail_fwd"], KERNELS["tail_bwd"]
@@ -136,12 +142,14 @@ def tail_bwd_plain(x, wt, b, g, act: str, drop_p: float = 0.0, seed: int = 0,
     return _tail_backward(x, wt, d, y, g, act, drop_p, seed, stage, scale)
 
 
-def _squared_error(obs, y):
-    return ((cells(obs).to(torch.float32) - y) ** 2).sum(dim=(1, 2, 3))
+def _squared_error(obs, y, em=None):
+    sq = (cells(obs).to(torch.float32) - y) ** 2
+    return (sq if em is None else _row_factor(em) * sq).sum(dim=(1, 2, 3))
 
 
-def _error_cotangent(obs, y, gbar):
-    return gbar.view(-1, 1, 1, 1) * (2.0 * (y - cells(obs).to(torch.float32)))
+def _error_cotangent(obs, y, gbar, em=None):
+    g = gbar.view(-1, 1, 1, 1) * (2.0 * (y - cells(obs).to(torch.float32)))
+    return g if em is None else g * _row_factor(em)
 
 
 def loss_tail_fwd_plain(x, wt, b, obs, act: str = "sigmoid", drop_p: float = 0.0,
@@ -159,18 +167,21 @@ def loss_tail_bwd_plain(x, wt, b, obs, gbar, act: str = "sigmoid", drop_p: float
 
 
 def decoder_loss_fwd_plain(x, wt1, b1, wt2, b2, obs, drop_p: float = 0.0,
-                           seed: int = 0) -> torch.Tensor:
-    """Per-instance ``sum((obs - sigmoid_tail(relu_tail(x)))**2)`` -> [N]."""
+                           seed: int = 0, em: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-instance ``sum(em * (obs - sigmoid_tail(relu_tail(x)))**2)`` -> [N];
+    ``em`` [N, H] weighs each output row (None: all ones)."""
     mid = tail_fwd_plain(x, wt1, b1, "relu", drop_p, seed, STAGE_DEC1)
-    return loss_tail_fwd_plain(mid, wt2, b2, obs, "sigmoid", drop_p, seed, STAGE_DEC2)
+    y = _tail_planes(mid, wt2, b2, "sigmoid", drop_p, seed, STAGE_DEC2)[1]
+    return _squared_error(obs, y, em)
 
 
 def decoder_loss_bwd_plain(x, wt1, b1, wt2, b2, obs, gbar, drop_p: float = 0.0,
-                           seed: int = 0):
+                           seed: int = 0, em: Optional[torch.Tensor] = None):
     """(dWt1, dbt1, dWt2, dbt2, gx) of :func:`decoder_loss_fwd_plain`."""
     mid = tail_fwd_plain(x, wt1, b1, "relu", drop_p, seed, STAGE_DEC1)
-    dwt2, dbt2, gmid = loss_tail_bwd_plain(mid, wt2, b2, obs, gbar, "sigmoid", drop_p,
-                                           seed, STAGE_DEC2)
+    d, y, scale = _tail_planes(mid, wt2, b2, "sigmoid", drop_p, seed, STAGE_DEC2)
+    dwt2, dbt2, gmid = _tail_backward(mid, wt2, d, y, _error_cotangent(obs, y, gbar, em),
+                                      "sigmoid", drop_p, seed, STAGE_DEC2, scale)
     dwt1, dbt1, gx = tail_bwd_plain(x, wt1, b1, gmid, "relu", drop_p, seed, STAGE_DEC1)
     return dwt1, dbt1, dwt2, dbt2, gx
 
@@ -436,24 +447,36 @@ def _loss_tail_bwd_kernel(x, wt, b, obs, gbar, act, drop_p, seed, stage):
 # -- decoder loss --------------------------------------------------------------
 
 
-def _decoder_fwd_smem(w, c2, cmid, cout, ry) -> int:
+def _decoder_floats(w, c2, cmid, cout, ry, tx) -> int:
+    """csrc/ae_bands.cuh::decoder_band_floats."""
+    if tx >= w:
+        return _ae_band_floats(w, 0, c2, cmid, cout, ry)
+    er, mr = ry // 4 + 2, ry // 2 + 2
+    return (c2 * cmid * 16 + cmid + cmid * cout * 16 + cout
+            + c2 * er * _widest_window(w // 4, tx // 4, 1)
+            + cmid * mr * _widest_window(w // 2, tx // 2, 1))
+
+
+def _decoder_fwd_smem(w, c2, cmid, cout, ry, tx) -> int:
     """csrc/decoder_loss_fwd.cu: the band buffers without an encoder, + 32."""
-    return 4 * (_ae_band_floats(w, 0, c2, cmid, cout, ry) + 32)
+    return 4 * (_decoder_floats(w, c2, cmid, cout, ry, tx) + 32)
 
 
-def _decoder_bwd_smem(w, c2, cmid, cout, ry) -> int:
+def _decoder_bwd_smem(w, c2, cmid, cout, ry, tx) -> int:
     """csrc/decoder_loss_bwd.cu::decoder_loss_bwd_smem."""
-    return 4 * (_ae_band_floats(w, 0, c2, cmid, cout, ry) + cout * (ry + 2) * (w + 2)
-                + cmid * (ry // 2) * (w // 2) + RED16_FLOATS)
+    t = min(tx, w)
+    return 4 * (_decoder_floats(w, c2, cmid, cout, ry, tx) + cout * (ry + 2) * (t + 2)
+                + cmid * (ry // 2) * (t // 2) + RED16_FLOATS)
 
 
 @functools.lru_cache(maxsize=None)
-def _decoder_bands(h, w, c2, cmid, cout):
-    """(RY, shared memory) of the decoder loss's forward and backward
-    kernels; h and w are the output's."""
-    return (_pick_band(lambda r: _decoder_fwd_smem(w, c2, cmid, cout, r), h, (16, 8, 4)),
-            _pick_band(lambda r: _decoder_bwd_smem(w, c2, cmid, cout, r), h, (16, 8, 4),
-                       SMEM_TARGET_BWD))
+def _decoder_bands(h, w, c2, cmid, cout, cells=None):
+    """(RY, TX output columns a tile, shared memory) of the decoder loss's
+    forward and backward kernels; h and w are the output's."""
+    return (_pick_tile(lambda r, t: _decoder_fwd_smem(w, c2, cmid, cout, r, 4 * t), h,
+                       (16, 8, 4), w // 4, 4, cells=cells),
+            _pick_tile(lambda r, t: _decoder_bwd_smem(w, c2, cmid, cout, r, 4 * t), h,
+                       (16, 8, 4), w // 4, 4, SMEM_TARGET_BWD, cells))
 
 
 def _decoder_shape(x, wt1, b1, wt2, b2, obs):
@@ -466,59 +489,66 @@ def _decoder_shape(x, wt1, b1, wt2, b2, obs):
     if max(c2, cmid, cout) > MAX_CHANNELS:
         raise ValueError(f"at most {MAX_CHANNELS} channels a stage")
     _check_obs(obs, (n, cout, 4 * he, 4 * we))
-    _check_instances(n)
     return n, 4 * he, 4 * we, c2, cmid, cout
 
 
 def decoder_loss_fwd(x, wt1, b1, wt2, b2, obs, drop_p: float = 0.0,
-                     seed: int = 0) -> torch.Tensor:
+                     seed: int = 0, em: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Both decoder stages and the per-instance squared error against obs
-    (uint8 or float32 [N, COUT, 4h, 4w]) as one kernel on CUDA; the plain twin
-    on the CPU."""
+    (uint8 or float32 [N, COUT, 4h, 4w]), each output row's error times its
+    weight ``em`` [N, 4h] (None: all ones), as one kernel on CUDA; the plain
+    twin on the CPU."""
     return _dispatch("decoder_loss_fwd", x, decoder_loss_fwd_plain,
-                     _decoder_loss_fwd_kernel, x, wt1, b1, wt2, b2, obs, drop_p, seed)
+                     _decoder_loss_fwd_kernel, x, wt1, b1, wt2, b2, obs, drop_p, seed, em)
 
 
-def _decoder_loss_fwd_kernel(x, wt1, b1, wt2, b2, obs, drop_p, seed):
+def _decoder_loss_fwd_kernel(x, wt1, b1, wt2, b2, obs, drop_p, seed, em=None):
     _check_drop(drop_p)
     n, h, w, c2, cmid, cout = _decoder_shape(x, wt1, b1, wt2, b2, obs)
     _check_tensors(x, [("x", x), ("wt1", wt1), ("b1", b1), ("wt2", wt2), ("b2", b2)],
                    [("obs", obs)])
-    ry, smem = _decoder_bands(h, w, c2, cmid, cout)[0]
+    em = _check_mask(em, x, n, h)
+    # tq: embedding columns a tile, 4 tq output columns
+    ry, tq, smem = _decoder_bands(h, w, c2, cmid, cout, cuda_head.TILE_CELLS)[0]
     ts = [t.contiguous() for t in (x, obs, wt1, b1, wt2, b2)]
-    partials, err = _empty(x, n, -(-h // ry)), _empty(x, n)
+    blocks = -(-h // ry) * -(-(w // 4) // tq)
+    partials, err = _empty(x, n, blocks), _empty(x, n)
     device, stream = stream_args(x)
-    DECODER_LOSS_FWD.launch(*(t.data_ptr() for t in ts), partials.data_ptr(),
-                            err.data_ptr(), n, h, w, c2, cmid, cout, ry, smem,
+    DECODER_LOSS_FWD.launch(*(t.data_ptr() for t in ts), _ptr(em), partials.data_ptr(),
+                            err.data_ptr(), n, h, w, c2, cmid, cout, ry, 4 * tq, smem,
                             cell_kind(obs), float(drop_p), _seed_word(seed),
                             device, stream, packed=_packed(obs))
     return err
 
 
-def decoder_loss_bwd(x, wt1, b1, wt2, b2, obs, gbar, drop_p: float = 0.0, seed: int = 0):
+def decoder_loss_bwd(x, wt1, b1, wt2, b2, obs, gbar, drop_p: float = 0.0, seed: int = 0,
+                     em: Optional[torch.Tensor] = None):
     """(dWt1, dbt1, dWt2, dbt2, gx) for the cotangent gbar [N] of
     :func:`decoder_loss_fwd`'s error."""
     return _dispatch("decoder_loss_bwd", x, decoder_loss_bwd_plain,
-                     _decoder_loss_bwd_kernel, x, wt1, b1, wt2, b2, obs, gbar, drop_p, seed)
+                     _decoder_loss_bwd_kernel, x, wt1, b1, wt2, b2, obs, gbar, drop_p, seed,
+                     em)
 
 
-def _decoder_loss_bwd_kernel(x, wt1, b1, wt2, b2, obs, gbar, drop_p, seed):
+def _decoder_loss_bwd_kernel(x, wt1, b1, wt2, b2, obs, gbar, drop_p, seed, em=None):
     _check_drop(drop_p)
     n, h, w, c2, cmid, cout = _decoder_shape(x, wt1, b1, wt2, b2, obs)
     _check_tensors(x, [("x", x), ("wt1", wt1), ("b1", b1), ("wt2", wt2), ("b2", b2),
                        ("gbar", gbar)], [("obs", obs)])
     if tuple(gbar.shape) != (n,):
         raise ValueError(f"gbar shape {tuple(gbar.shape)} != {(n,)}")
-    ry, smem = _decoder_bands(h, w, c2, cmid, cout)[1]
+    em = _check_mask(em, x, n, h)
+    ry, tq, smem = _decoder_bands(h, w, c2, cmid, cout, cuda_head.TILE_CELLS)[1]
     shapes = ((c2, cmid, 4, 4), (cmid,), (cmid, cout, 4, 4), (cout,))
     k = sum(math.prod(s) for s in shapes)
     ts = [t.contiguous() for t in (x, obs, wt1, b1, wt2, b2, gbar)]
     gmid, gx = _empty(x, n, cmid, h // 2, w // 2), _empty(x, n, c2, h // 4, w // 4)
-    partials, grads = _empty(x, n * -(-h // ry), k), _empty(x, k)
+    blocks = -(-h // ry) * -(-(w // 4) // tq)
+    partials, grads = _empty(x, n * blocks, k), _empty(x, k)
     device, stream = stream_args(x)
-    DECODER_LOSS_BWD.launch(*(t.data_ptr() for t in ts), gmid.data_ptr(),
+    DECODER_LOSS_BWD.launch(*(t.data_ptr() for t in ts), _ptr(em), gmid.data_ptr(),
                             partials.data_ptr(), grads.data_ptr(), gx.data_ptr(), n, h, w,
-                            c2, cmid, cout, ry, smem, cell_kind(obs),
+                            c2, cmid, cout, ry, 4 * tq, smem, cell_kind(obs),
                             float(drop_p), _seed_word(seed), device, stream,
                             packed=_packed(obs))
     return (*_split(grads, shapes), gx)
@@ -580,21 +610,22 @@ class LossTailFn(torch.autograd.Function):
 
 
 class DecoderLossFn(torch.autograd.Function):
-    """decoder_loss_fwd with decoder_loss_bwd as its backward; obs gets no
-    gradient."""
+    """decoder_loss_fwd with decoder_loss_bwd as its backward; obs and the
+    row weights get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, wt1, b1, wt2, b2, obs, drop_p, seed):
-        ctx.save_for_backward(x, wt1, b1, wt2, b2, obs)
+    def forward(ctx, x, wt1, b1, wt2, b2, obs, drop_p, seed, em):
+        ctx.save_for_backward(x, wt1, b1, wt2, b2, obs, em)
         ctx.settings = (float(drop_p), int(seed))
-        return decoder_loss_fwd(x, wt1, b1, wt2, b2, obs, *ctx.settings)
+        return decoder_loss_fwd(x, wt1, b1, wt2, b2, obs, *ctx.settings, em)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gbar):
+        *inputs, em = ctx.saved_tensors
         dwt1, dbt1, dwt2, dbt2, gx = decoder_loss_bwd(
-            *ctx.saved_tensors, gbar.contiguous(), *ctx.settings)
-        return (gx, dwt1, dbt1, dwt2, dbt2, None, None, None)
+            *inputs, gbar.contiguous(), *ctx.settings, em)
+        return (gx, dwt1, dbt1, dwt2, dbt2, None, None, None, None)
 
 
 def head(x, w, b, pool: int, drop_p: float = 0.0, seed: int = 0,
@@ -623,9 +654,9 @@ def loss_tail(x, wt, b, obs, act: str = "sigmoid", drop_p: float = 0.0, seed: in
 
 
 def decoder_loss(x, wt1, b1, wt2, b2, obs, drop_p: float = 0.0,
-                 seed: int = 0) -> torch.Tensor:
-    """Both decoder stages and the error, differentiable in x and the four
-    parameters."""
+                 seed: int = 0, em: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Both decoder stages and the error (rows weighted by ``em``),
+    differentiable in x and the four parameters."""
     if _wants_grad((x, wt1, b1, wt2, b2)):
-        return DecoderLossFn.apply(x, wt1, b1, wt2, b2, obs, drop_p, seed)
-    return decoder_loss_fwd(x, wt1, b1, wt2, b2, obs, drop_p, seed)
+        return DecoderLossFn.apply(x, wt1, b1, wt2, b2, obs, drop_p, seed, em)
+    return decoder_loss_fwd(x, wt1, b1, wt2, b2, obs, drop_p, seed, em)

@@ -22,7 +22,17 @@ Phases, in order; any failure exits non-zero without the final line:
            Life, p = 0.5; the data-rule engines also with the battery's 5
            rulesets dealt over the universes), bit for bit; every kernel that
            reads cells fed the packed words against it fed the same cells as
-           uint8, bit for bit, forward and backward, dropout off and on;
+           uint8, bit for bit, forward and backward, dropout off and on; the
+           band tiling's kernel features at the 8192² slice's band shapes:
+           the RND encoder with per-band row masks on 512 bands of 32 x 8192
+           and the decoder loss with per-band row weights on Prediction's 128
+           windows of 80 x 8192, dropout off and on, uint8 and packed, a mask
+           or weights of ones bit for bit the plain kernel; the global
+           encoders (RND predictor and target, AE) and decoder loss at 8192²
+           (column tiles); conv_ae_loss on 4 x 2048² (past the whole-AE
+           kernel) against encoder + decoder loss, bit for bit; tiles forced
+           at 256² (48 cells, edges inside words) against one tile; 65,600
+           instances a launch;
    engines each of the five packed and uint8 engines once at bench.py's
            geometry through its public function: all leave bench.py's
            checksum, the live-cell sum of the plain twin;
@@ -58,13 +68,23 @@ Phases, in order; any failure exits non-zero without the final line:
            ae_loss_fwd; then the nine-wrapper stack (32 steps) and the
            learning stack (16 steps, dropout off, batch_size 4) through the
            kernel path on the card and the plain path on the CPU;
-8. profile 64 steps of the batched battery and 64 training steps, uint8 and
+8. bands   band tiling on one packed universe of 8192²: RND2D with
+           BandTiling(512) and the packed-ring PredictionBonus with
+           BandTiling(128) learning through run_actions (64 x 64 actions at
+           p = 0.2, dropout on, 128 steps, 2 Adam updates each; cells/s and
+           peak memory); each banded stack against the unbanded one at 8192²
+           (dropout off, batch_size 4, 16 steps); the banded stack on 8
+           universes of 256² with BandTiling(4), card against CPU; each leg
+           profiled as in the profile phase;
+9. profile 64 steps of the batched battery and 64 training steps, uint8 and
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
-9. report  a {"kernels": [...]} line with each kernel's launches on the main
-           paths (battery, server, train, routes, wrappers, packed and
-           engines, each counted from zero just before it), then the card's
-           name and power limit, then the ok line.
+10. report a {"kernels": [...]} line with each kernel's launches on the main
+           paths (battery, server, train, routes, wrappers, packed, bands and
+           engines, each counted from zero just before it; the rows of the
+           mask and the row weights count their kernel's launches on the
+           bands path), then the card's name and power limit, then the ok
+           line.
 
 Tolerances: float kernels vs plain twins rtol 1e-4 / atol 1e-4 (the twins
 run cuDNN in full float32, TF32 off; cuDNN's own algorithms sum in other
@@ -81,6 +101,11 @@ Training rewards through 4 Adam updates, card vs CPU: rtol 2e-3 (Adam divides
 by the gradient's own scale).  The autoencoder's three routes against each
 other: error rtol 1e-4, gradients as above (one mask, other summation
 orders); ae_forward's reconstruction error against ae_loss_fwd's: rtol 1e-4.
+The encoder's gradients at 8192² (band shapes and global): 2e-3 of each
+leaf's largest entry (134 million stage-1 positions: the pool-tie shares that
+move between summation orders add up; see phase_band_kernels).  Column tiles
+against one tile: encoder outputs bit for bit, sums and gradients 1e-5 of each
+leaf's largest entry.  Banded stack against unbanded at 8192²: rtol 1e-4.
 """
 
 from __future__ import annotations
@@ -156,6 +181,22 @@ SOURCES = {
     "decoder_loss_bwd": ("carle_tpu_torch/csrc/decoder_loss_bwd.cu",
                          "carle_tpu/ops/pallas_head.py:1506"),
 }
+# Rows whose kernel is another row's with band tiling's feature added: the
+# launches they report are their kernel's on the bands path, where every
+# encoder launch carries the per-band row mask and every decoder-loss launch
+# the per-band row weights.
+FEATURE_ROWS = {
+    "encoder_fwd_mask": ("encoder_fwd", "carle_tpu_torch/csrc/encoder_fwd.cu",
+                         "carle_tpu/ops/pallas_head.py:1375"),
+    "encoder_bwd_mask": ("encoder_bwd", "carle_tpu_torch/csrc/encoder_bwd.cu",
+                         "carle_tpu/ops/pallas_head.py:1375"),
+    "decoder_loss_fwd_em": ("decoder_loss_fwd", "carle_tpu_torch/csrc/decoder_loss_fwd.cu",
+                            "carle_tpu/ops/pallas_head.py:1776"),
+    "decoder_loss_bwd_em": ("decoder_loss_bwd", "carle_tpu_torch/csrc/decoder_loss_bwd.cu",
+                            "carle_tpu/ops/pallas_head.py:1776"),
+}
+BAND_SIZE = 8192                     # pod_smoke.py's spatial8k universe, one of it
+RND_BANDS, PRED_BANDS = 512, 128     # BandTiling(size // 16), BandTiling(size // 64)
 # the kernels each main path must launch
 PATH_KERNELS = {
     "battery": ("ca_step", "encoder_fwd", "ae_loss_fwd"),
@@ -168,6 +209,8 @@ PATH_KERNELS = {
                  "decoder_loss_fwd", "decoder_loss_bwd", "tail_fwd"),
     "packed": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
                "decoder_loss_fwd", "decoder_loss_bwd"),
+    "bands": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "decoder_loss_fwd",
+              "decoder_loss_bwd"),
     "engines": ("bit_multi_step_static", "bit_multi_step_static_cm", "bit_multi_step_cm",
                 "ca_multi_step"),
 }
@@ -355,6 +398,8 @@ def phase_kernels(torch, timer, shipped):
     results.update(phase_stage_kernels(torch, timer, gen))
     results.update(phase_engine_kernels(torch, timer))
     phase_packed_input_kernels(torch, timer, gen, results)
+    results.update(phase_band_kernels(torch, timer, gen))
+    torch.cuda.empty_cache()
     return results
 
 
@@ -942,6 +987,411 @@ def phase_stage_kernels(torch, timer, gen):
         shape="fwd u8 src, obs [160,1,256,256]; bwd [64,...], gbar [64], drop 0.1")
     log(f"ae_loss with src != obs ok: {results['ae_loss_src_not_obs']}")
     return results
+
+
+def _tile_plans(h, w):
+    """The (band, tile, shared memory) plans the encoder and decoder-loss
+    kernels take at [h, w] (RND predictor, AE encoder, AE2D decoder)."""
+    from carle_tpu_torch.ops import cuda_head, cuda_stages
+
+    return {"rnd_encoder_fwd": cuda_head._encoder_fwd_plan(h, w, 4, 1, 4, 2),
+            "rnd_encoder_bwd": cuda_head._encoder_bwd_bands(h, w, 4, 1, 4, 2),
+            "ae_encoder_fwd": cuda_head._encoder_fwd_plan(h, w, 4, 2, 2, 2),
+            "ae_encoder_bwd": cuda_head._encoder_bwd_bands(h, w, 4, 2, 2, 2),
+            "decoder_fwd_bwd": cuda_stages._decoder_bands(h, w, 2, 1, 1)}
+
+
+def _encoder_bound(n, h, w, c1, c2, p1, p2, cell_bytes, backward):
+    """(bound ms, what bounds it) of an encoder launch: cells read once, the
+    output (or its cotangent and the gradients) once, 2 flops a
+    multiply-add (the backward: recompute, dW1, dW2 and the stage-1
+    cotangent)."""
+    s1 = n * h * w * c1 * 9
+    s2 = n * (h // p1) * (w // p1) * c2 * c1 * 9
+    out = n * c2 * (h // (p1 * p2)) * (w // (p1 * p2)) * 4
+    mask = n * (h // p1) * 4
+    flops = 2 * ((s1 + s2) + s1 + 2 * s2) if backward else 2 * (s1 + s2)
+    return bound_ms(n * h * w * cell_bytes + out + mask, flops, FP32_FLOPS)
+
+
+def _decoder_bound(n, h, w, obs_bytes, backward):
+    """The same for an AE2D decoder-loss launch ([n, 2, h/4, w/4] -> [n, 1,
+    h, w]) with row weights."""
+    hw = h * w
+    d1, d2 = 4 * 2 * 1 * (hw // 4), 4 * 1 * 1 * hw
+    emb = 2 * hw // 16 * 4
+    if backward:
+        return bound_ms(n * (2 * emb + hw * obs_bytes + h * 4) + n * 4 + 52 * 4,
+                        2 * n * 3 * (d1 + d2) + 8 * n * hw, FP32_FLOPS)
+    return bound_ms(n * (emb + hw * obs_bytes + h * 4) + n * 4,
+                    2 * n * (d1 + d2) + 3 * n * hw, FP32_FLOPS)
+
+
+def phase_band_kernels(torch, timer, gen):
+    """Row 3's mask and row 6's row weights at the band shapes of the 8192²
+    slice, against their twins; the width repair (the global encoders and
+    decoder loss at 8192²); the size repair (conv_ae_loss on 4 x 2048² equals
+    encoder + decoder loss bit for bit); column tiles forced at 256² against
+    one tile; more than 65,535 instances a launch."""
+    from carle_tpu_torch import EnvConfig, nets
+    from carle_tpu_torch.mcl._online import tree_leaves, tree_unflatten
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params, init_random_network_params
+    from carle_tpu_torch.ops import bitpack, cuda_head, cuda_stages
+    from carle_tpu_torch.parallel import band_heads as bh
+
+    dev = torch.device("cuda")
+    size, seed, tol = BAND_SIZE, 31415, 1e-4
+    # the encoder's gradients at 8192² sum over 134 million stage-1 positions
+    # (33 times the 256² checks'): a pool window whose maxima tie in the
+    # kernel's summation order and differ in the last bit in cuDNN's sends its
+    # share elsewhere, and the moved shares reach ~1e-3 of a leaf (9.4e-4 on
+    # this phase's draw)
+    tol_ties = 2e-3
+    results, report = {}, {}
+    universe = (torch.rand((1, 1, size, size), generator=gen, device=dev) < 0.2).to(torch.uint8)
+    words = bitpack.pack_grid(universe)
+    rnd = init_predictor_params(EnvConfig(), gen, dev)
+    target = init_random_network_params(EnvConfig(), gen, dev)
+    ae = init_ae_params(gen, dev)
+    conv = lambda p: (p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"])
+    dec = (ae["deconv1"]["w"], ae["deconv1"]["b"], ae["deconv2"]["w"], ae["deconv2"]["b"])
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # -- row 3's mask: the RND predictor on 512 bands of 32 x 8192 -------------
+    xb = bh._band_input(universe, RND_BANDS, 8)
+    xw = bh._band_input(words, RND_BANDS, 8)
+    mask = bh.encoder_mask(size, RND_BANDS, (4, 2), 1, dev)
+    ones = torch.ones_like(mask)
+    g = torch.randn((RND_BANDS, 1, 4, size // 8), generator=gen, device=dev)
+    w4 = conv(rnd)
+    fwd_err, leaf_err = 0.0, 0.0
+    for p in (0.0, DROP_P):
+        got = cuda_head.encoder_fwd(xb, *w4, (4, 2), p, seed, mask)
+        want = cuda_head.encoder_fwd_plain(xb, *w4, (4, 2), p, seed, mask)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        fwd_err = max(fwd_err, float((got - want).abs().max()))
+        check(torch.equal(cuda_head.encoder_fwd(xw, *w4, (4, 2), p, seed, mask), got),
+              "masked encoder_fwd on packed words differs from uint8 cells")
+        check(torch.equal(cuda_head.encoder_fwd(xb, *w4, (4, 2), p, seed, ones),
+                          cuda_head.encoder_fwd(xb, *w4, (4, 2), p, seed)),
+              "encoder_fwd with a mask of ones is not the unmasked kernel")
+        grads = _bits_twice(lambda: cuda_head.encoder_bwd(xb, *w4, g, (4, 2), p, seed, mask),
+                            "masked encoder_bwd")
+        errs = _leaf_errors(grads, cuda_head.encoder_bwd_plain(xb, *w4, g, (4, 2), p, seed,
+                                                               mask))
+        check(max(errs) < tol_ties, f"masked encoder_bwd (drop {p}) leaves differ: {errs}")
+        leaf_err = max(leaf_err, max(errs))
+        check(same(cuda_head.encoder_bwd(xw, *w4, g, (4, 2), p, seed, mask), grads),
+              "masked encoder_bwd on packed words differs from uint8 cells")
+        check(same(cuda_head.encoder_bwd(xb, *w4, g, (4, 2), p, seed, ones),
+                   cuda_head.encoder_bwd(xb, *w4, g, (4, 2), p, seed)),
+              "encoder_bwd with a mask of ones is not the unmasked kernel")
+    n, h, w = RND_BANDS, 32, size
+    b, by = _encoder_bound(n, h, w, 4, 1, 4, 2, 1 / 8, False)
+    results["encoder_fwd_mask"] = dict(
+        max_abs_err=fwd_err,
+        ms=timer.ms(lambda: cuda_head.encoder_fwd(xw, *w4, (4, 2), DROP_P, seed, mask), 10),
+        ms_u8=timer.ms(lambda: cuda_head.encoder_fwd(xb, *w4, (4, 2), DROP_P, seed, mask), 10),
+        plain_ms=timer.ms(lambda: cuda_head.encoder_fwd_plain(xw, *w4, (4, 2), DROP_P, seed,
+                                                              mask), 2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        plan=cuda_head._encoder_fwd_plan(h, w, 4, 1, 4, 2),
+        shape=f"u32 [{n},1,32,{size // 32}] (RND bands of {size}²), mask [{n},8], drop 0.1")
+    log(f"encoder_fwd_mask ok: {results['encoder_fwd_mask']}")
+    b, by = _encoder_bound(n, h, w, 4, 1, 4, 2, 1 / 8, True)
+    results["encoder_bwd_mask"] = dict(
+        max_abs_err=leaf_err, max_leaf_rel_err=leaf_err,
+        ms=timer.ms(lambda: cuda_head.encoder_bwd(xw, *w4, g, (4, 2), DROP_P, seed, mask), 5),
+        plain_ms=timer.ms(lambda: cuda_head.encoder_bwd_plain(xw, *w4, g, (4, 2), DROP_P, seed,
+                                                              mask), 1),
+        bound_ms=b, bound_by=by, library_ms=None,
+        plan=cuda_head._encoder_bwd_bands(h, w, 4, 1, 4, 2),
+        shape=f"u32 [{n},1,32,{size // 32}], g [{n},1,4,{size // 8}], mask, drop 0.1")
+    log(f"encoder_bwd_mask ok: {results['encoder_bwd_mask']}")
+    del xb, xw, g
+
+    # -- row 6: the AE2D decoder loss on 128 bands (Prediction's geometry) ------
+    emb = cuda_head.encoder_fwd(universe, *conv(ae), (2, 2))          # [1, 2, 2048, 2048]
+    starts, win = bh.decoder_windows(size // 4, PRED_BANDS)
+    eb = bh._rows(emb, starts, win)                                      # [128, 2, 20, 2048]
+    ob8 = bh._rows(universe, [4 * s for s in starts], 4 * win)           # [128, 1, 80, 8192]
+    ob32 = bh._rows(words, [4 * s for s in starts], 4 * win)
+    em = bh.decoder_row_weights(size // 4, PRED_BANDS, 1, dev)
+    em_ones = torch.ones_like(em)
+    gbar = torch.randn((PRED_BANDS,), generator=gen, device=dev) / (size * size)
+    fwd_err, leaf_err = 0.0, 0.0
+    for p in (0.0, DROP_P):
+        got = cuda_stages.decoder_loss_fwd(eb, *dec, ob8, p, seed, em)
+        want = cuda_stages.decoder_loss_fwd_plain(eb, *dec, ob8, p, seed, em)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+        fwd_err = max(fwd_err, float(((got - want).abs() / want.abs()).max()))
+        check(torch.equal(cuda_stages.decoder_loss_fwd(eb, *dec, ob32, p, seed, em), got),
+              "row-weighted decoder_loss_fwd on packed obs differs from uint8")
+        check(torch.equal(cuda_stages.decoder_loss_fwd(eb, *dec, ob8, p, seed, em_ones),
+                          cuda_stages.decoder_loss_fwd(eb, *dec, ob8, p, seed)),
+              "decoder_loss_fwd with em of ones is not the unweighted kernel")
+        grads = _bits_twice(
+            lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, p, seed, em),
+            "row-weighted decoder_loss_bwd")
+        errs = _leaf_errors(grads, cuda_stages.decoder_loss_bwd_plain(eb, *dec, ob8, gbar, p,
+                                                                      seed, em))
+        check(max(errs) < tol, f"row-weighted decoder_loss_bwd (drop {p}) leaves differ: {errs}")
+        leaf_err = max(leaf_err, max(errs))
+        check(same(cuda_stages.decoder_loss_bwd(eb, *dec, ob32, gbar, p, seed, em), grads),
+              "row-weighted decoder_loss_bwd on packed obs differs from uint8")
+        check(same(cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, p, seed, em_ones),
+                   cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, p, seed)),
+              "decoder_loss_bwd with em of ones is not the unweighted kernel")
+    n, h, w = PRED_BANDS, 4 * win, size
+    b, by = _decoder_bound(n, h, w, 1 / 8, False)
+    results["decoder_loss_fwd_em"] = dict(
+        max_abs_err=fwd_err, max_rel_err=fwd_err,
+        ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd(eb, *dec, ob32, DROP_P, seed, em), 10),
+        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd_plain(eb, *dec, ob32, DROP_P,
+                                                                     seed, em), 2),
+        bound_ms=b, bound_by=by, library_ms=None,
+        plan=cuda_stages._decoder_bands(h, w, 2, 1, 1)[0],
+        shape=f"f32 x [{n},2,{win},{size // 4}], u32 obs [{n},1,{4 * win},{size // 32}], "
+              f"em [{n},{4 * win}], drop 0.1")
+    log(f"decoder_loss_fwd_em ok: {results['decoder_loss_fwd_em']}")
+    b, by = _decoder_bound(n, h, w, 1 / 8, True)
+    results["decoder_loss_bwd_em"] = dict(
+        max_abs_err=leaf_err, max_leaf_rel_err=leaf_err,
+        ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob32, gbar, DROP_P, seed,
+                                                         em), 5),
+        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd_plain(eb, *dec, ob32, gbar,
+                                                                     DROP_P, seed, em), 1),
+        bound_ms=b, bound_by=by, library_ms=None,
+        plan=cuda_stages._decoder_bands(h, w, 2, 1, 1)[1],
+        shape=f"f32 x [{n},2,{win},{size // 4}], u32 obs, gbar [{n}], em, drop 0.1")
+    log(f"decoder_loss_bwd_em ok: {results['decoder_loss_bwd_em']}")
+    del eb, ob8, ob32
+
+    # -- the width repair: the global kernels on one universe of 8192² ---------
+    width = {"plans": _tile_plans(size, size)}
+    for name, params, pools in (("rnd_predictor", rnd, (4, 2)), ("rnd_target", target, (4, 2)),
+                                ("ae_encoder", ae, (2, 2))):
+        w4 = conv(params)
+        got = cuda_head.encoder_fwd(universe, *w4, pools, DROP_P, seed)
+        torch.testing.assert_close(got, cuda_head.encoder_fwd_plain(universe, *w4, pools,
+                                                                    DROP_P, seed),
+                                   rtol=1e-4, atol=1e-4)
+        check(torch.equal(cuda_head.encoder_fwd(words, *w4, pools, DROP_P, seed), got),
+              f"{name} at {size}² on packed words differs from uint8 cells")
+        gg = torch.randn(got.shape, generator=gen, device=dev)
+        errs = _leaf_errors(cuda_head.encoder_bwd(universe, *w4, gg, pools, DROP_P, seed),
+                            cuda_head.encoder_bwd_plain(universe, *w4, gg, pools, DROP_P, seed))
+        check(max(errs) < tol_ties, f"{name} encoder_bwd at {size}² leaves differ: {errs}")
+        width[name] = dict(
+            fwd_ms=timer.ms(lambda: cuda_head.encoder_fwd(words, *w4, pools, DROP_P, seed), 10),
+            bwd_ms=timer.ms(lambda: cuda_head.encoder_bwd(words, *w4, gg, pools, DROP_P, seed),
+                            5),
+            bwd_max_leaf_rel_err=max(errs))
+    gb1 = gbar[:1].contiguous()
+    got = cuda_stages.decoder_loss_fwd(emb, *dec, universe, DROP_P, seed)
+    torch.testing.assert_close(got, cuda_stages.decoder_loss_fwd_plain(emb, *dec, universe,
+                                                                       DROP_P, seed),
+                               rtol=1e-4, atol=0)
+    errs = _leaf_errors(cuda_stages.decoder_loss_bwd(emb, *dec, universe, gb1, DROP_P, seed),
+                        cuda_stages.decoder_loss_bwd_plain(emb, *dec, universe, gb1, DROP_P,
+                                                           seed))
+    check(max(errs) < tol, f"decoder_loss_bwd at {size}² leaves differ: {errs}")
+    width["ae_decoder_loss"] = dict(
+        fwd_ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd(emb, *dec, words, DROP_P, seed),
+                        10),
+        bwd_ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd(emb, *dec, words, gb1, DROP_P,
+                                                             seed), 5),
+        bwd_max_leaf_rel_err=max(errs))
+    report["width_8192"] = width
+    log(f"width repair at {size}² ok: {json.dumps(width)}")
+    del emb, universe, words
+    torch.cuda.empty_cache()
+
+    # -- the size repair: conv_ae_loss past the whole-AE kernel's plans --------
+    side = 2048
+    src = (torch.rand((4, 1, side, side), generator=gen, device=dev) < 0.2).to(torch.uint8)
+    check(not cuda_head.whole_ae_fits(side, side, 4, 2, 1, 1),
+          f"{side}² fits the whole-AE kernel: no fallback to hold")
+
+    def ae_route(one_call):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tree_leaves(ae)]
+        p = tree_unflatten(ae, leaves)
+        kw = dict(drop_p=DROP_P, train=True, seed=seed)
+        if one_call:
+            err = nets.conv_ae_loss(src, p["conv1"], p["conv2"], p["deconv1"], p["deconv2"],
+                                    src, pools=(2, 2), **kw)
+        else:   # ae2d_def(whole_ae=False)'s computation
+            x = nets.conv_encoder(src, p["conv1"], p["conv2"], pools=(2, 2), **kw)
+            err = nets.conv_decoder_loss(x, p["deconv1"], p["deconv2"], src, **kw)
+        return (err.detach(), *torch.autograd.grad(err.sum(), leaves))
+
+    fallback, two = ae_route(True), ae_route(False)
+    check(same(fallback, two), f"conv_ae_loss at {side}² is not the two-kernel route bit "
+          "for bit (value and 8 gradients)")
+    report["size_2048_conv_ae_loss_equals_two_kernels"] = True
+    log(f"size repair at 4 x {side}² ok: conv_ae_loss = encoder + decoder loss, bit for bit")
+    del src
+
+    # -- column tiles forced at 256² against the one-tile launch ----------------
+    n = 64
+    x8 = (torch.rand((n, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    x8[: n // 4, :, :, :100] = 0   # blank stretches across tile edges: pool windows tie
+    x32 = bitpack.pack_grid(x8)
+    w4 = conv(rnd)
+    g = torch.randn((n, 1, 32, 32), generator=gen, device=dev)
+    e64 = cuda_head.encoder_fwd(x8, *conv(ae), (2, 2))
+    gb = torch.randn((n,), generator=gen, device=dev) / (256 * 256)
+    calls = {
+        "encoder_fwd": lambda x: (cuda_head.encoder_fwd(x, *w4, (4, 2), DROP_P, seed),),
+        "encoder_bwd": lambda x: cuda_head.encoder_bwd(x, *w4, g, (4, 2), DROP_P, seed),
+        "decoder_loss_fwd": lambda x: (cuda_stages.decoder_loss_fwd(e64, *dec, x, DROP_P,
+                                                                    seed),),
+        "decoder_loss_bwd": lambda x: cuda_stages.decoder_loss_bwd(e64, *dec, x, gb, DROP_P,
+                                                                   seed),
+    }
+    tiles = {}
+    one = {k: fn(x8) for k, fn in calls.items()}
+    one_ms = {k: timer.ms(lambda: fn(x32), 10) for k, fn in calls.items()}
+    try:
+        cuda_head.TILE_CELLS = 48      # six tiles, each edge inside a packed word
+        for k, fn in calls.items():
+            for x in (x8, x32):
+                got = _bits_twice(lambda: fn(x), f"{k} in column tiles")
+                worst = max(_leaf_errors(got, one[k]))
+                if k == "encoder_fwd":
+                    check(same(got, one[k]), "encoder_fwd in column tiles differs from one tile")
+                check(worst < 1e-5, f"{k} in column tiles differs from one tile: {worst}")
+            tiles[k] = dict(max_leaf_rel_err=worst, ms=timer.ms(lambda: fn(x32), 10),
+                            one_tile_ms=one_ms[k])
+    finally:
+        cuda_head.TILE_CELLS = None
+    report["forced_tiles_256"] = tiles
+    log(f"column tiles forced at 256² (48 cells a tile) ok: {json.dumps(tiles)}")
+
+    # -- more than 65,535 instances a launch -----------------------------------
+    n = 65_600
+    xs = (torch.rand((n, 1, 16, 32), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    ms = (torch.rand((n, 4), generator=gen, device=dev) < 0.8).to(torch.float32)
+    gs = torch.randn((n, 1, 2, 4), generator=gen, device=dev)
+    torch.testing.assert_close(cuda_head.encoder_fwd(xs, *w4, (4, 2), DROP_P, seed, ms),
+                               cuda_head.encoder_fwd_plain(xs, *w4, (4, 2), DROP_P, seed, ms),
+                               rtol=1e-4, atol=1e-4)
+    errs = _leaf_errors(cuda_head.encoder_bwd(xs, *w4, gs, (4, 2), DROP_P, seed, ms),
+                        cuda_head.encoder_bwd_plain(xs, *w4, gs, (4, 2), DROP_P, seed, ms))
+    check(max(errs) < tol, f"encoder_bwd on {n} instances: {errs}")
+    es = torch.rand((n, 2, 4, 8), generator=gen, device=dev)
+    os_ = xs.expand(n, 1, 16, 32).contiguous()
+    ws = torch.rand((n, 16), generator=gen, device=dev)
+    gbs = torch.randn((n,), generator=gen, device=dev)
+    torch.testing.assert_close(cuda_stages.decoder_loss_fwd(es, *dec, os_, DROP_P, seed, ws),
+                               cuda_stages.decoder_loss_fwd_plain(es, *dec, os_, DROP_P, seed,
+                                                                  ws), rtol=1e-4, atol=1e-4)
+    errs += _leaf_errors(cuda_stages.decoder_loss_bwd(es, *dec, os_, gbs, DROP_P, seed, ws),
+                         cuda_stages.decoder_loss_bwd_plain(es, *dec, os_, gbs, DROP_P, seed,
+                                                            ws))
+    check(max(errs) < tol, f"decoder_loss_bwd on {n} instances: {errs}")
+    report["instances_65600_max_leaf_rel_err"] = max(errs)
+    log(f"{n} instances a launch ok (encoder and decoder loss, forward and backward)")
+    results["bands_kernels"] = report
+    return results
+
+
+def phase_bands(torch, cuda_build):
+    """Band tiling's path at full size: RND2D with BandTiling(512) and the
+    packed-ring PredictionBonus with BandTiling(128) learning on one packed
+    universe of 8192² (run_actions, 64 x 64 actions at p = 0.2, dropout on,
+    128 steps: 2 Adam updates each); then each banded stack against the
+    unbanded one at 8192² (dropout off, batch_size 4, 16 steps), the banded
+    stack on 8 universes of 256² card against CPU, and both legs profiled."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, nets, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl import prediction_def_packed, rnd2d_def
+    from carle_tpu_torch.ops import cuda_head
+    from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
+    from carle_tpu_torch.rollout import Rollout
+
+    size, steps = BAND_SIZE, 128
+    cfg = EnvConfig(height=size, width=size, action_height=64, action_width=64, instances=1)
+    acts = (np.random.RandomState(1).rand(steps, *cfg.action_shape) < 0.2).astype(np.float32)
+    legs = {"rnd2d": lambda c, **kw: rnd2d_def(c, **kw),
+            "prediction_packed": lambda c, **kw: prediction_def_packed(c, **kw)}
+    tilings = {"rnd2d": nets.BandTiling(RND_BANDS),
+               "prediction_packed": nets.BandTiling(PRED_BANDS)}
+
+    def rollout(c, name, fused_head, agent=None, **kw):
+        defs = [legs[name](c, fused_head=fused_head, **kw)]
+        ro = Rollout(c, defs, agent, device="cuda", stack=PackedSpatialStack(c, defs))
+        return ro, ro.init(ro.generator(0), rules.LIFE)
+
+    out = {}
+    cuda_build.reset_launch_counts()
+    for name in legs:
+        ro, carry = rollout(cfg, name, tilings[name], batch_size=64)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        carry, r0 = ro.run_actions(carry, torch.from_numpy(acts[:4]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, r = ro.run_actions(carry, torch.from_numpy(acts[4:]))
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (steps - 4)
+        state = carry.stack.wrappers[0]
+        rewards = torch.cat([r0, r])
+        check(bool(torch.isfinite(rewards).all()), f"{name} banded rewards are not finite")
+        check(int(state.updates) == 2, f"{name} banded: {int(state.updates)} updates, not 2")
+        out[name] = {"bands": tilings[name].bands, "steps": steps, "updates": 2,
+                     "step_ms": step_s * 1e3, "cells_per_s": size * size / step_s,
+                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "reward_first": float(rewards[0, 0, 0]),
+                     "reward_last": float(rewards[-1, 0, 0])}
+        del ro, carry
+    counts = cuda_build.launch_counts()
+    out["packed_launches"] = cuda_build.packed_launch_counts()
+    log(f"bands slice ok: {json.dumps(out)}")
+    log(f"bands launches: {json.dumps(counts)}")
+
+    # banded against unbanded at 8192², dropout off, 4 updates
+    kw = dict(train=True, dropout=False, batch_size=4)
+    a16 = torch.from_numpy(acts[:16])
+    for name in legs:
+        rewards = []
+        for fused_head in (tilings[name], False):
+            ro, carry = rollout(cfg, name, fused_head, **kw)
+            carry, r = ro.run_actions(carry, a16)
+            check(int(carry.stack.wrappers[0].updates) == 4, f"{name} parity updates")
+            rewards.append(r.cpu())
+            del ro, carry
+        torch.testing.assert_close(rewards[0], rewards[1], rtol=1e-4, atol=0)
+        out[f"{name}_banded_vs_unbanded_max_rel_diff"] = float(
+            ((rewards[0] - rewards[1]).abs() / rewards[1].abs()).max())
+    torch.cuda.empty_cache()
+
+    # the banded stack on 8 universes of 256², card against CPU
+    small = EnvConfig(instances=8)
+    sa = (np.random.RandomState(0).rand(16, *small.action_shape) < 0.1).astype(np.float32)
+    rewards, carries = _card_vs_cpu(
+        torch, small, lambda: [rnd2d_def(small, fused_head=nets.BandTiling(4), **kw),
+                               prediction_def_packed(small, fused_head=nets.BandTiling(4),
+                                                     **kw)],
+        sa, rules.LIFE, packed=True)
+    for carry in carries.values():
+        check(all(int(ws.updates) == 4 for ws in carry.stack.wrappers), "bands parity updates")
+    torch.testing.assert_close(rewards["cuda"], rewards["cpu"], rtol=2e-3, atol=0)
+    out["card_vs_cpu_256_max_rel_diff"] = float(
+        ((rewards["cuda"] - rewards["cpu"]).abs() / rewards["cpu"].abs()).max())
+
+    # where a step's time goes: each leg under torch.profiler (random agent)
+    for name in legs:
+        ro, carry = rollout(cfg, name, tilings[name], make_random_agent(64, 64, 0.2),
+                            batch_size=64)
+        out[f"profile_{name}"] = _profile_steps(torch, ro, carry, 32, 1)
+        del ro, carry
+    check(cuda_head.TILE_CELLS is None, "a forced tile width leaked into the slice")
+    log(f"bands ok: {json.dumps({k: v for k, v in out.items() if not k.startswith('profile')})}")
+    return counts, out
 
 
 def shipped_states(torch):
@@ -1608,6 +2058,7 @@ def main() -> int:
         train_parity_diff = phase_train_parity(torch)
         packed_counts, packed = phase_packed(torch, cuda_build, train_hist)
         wrappers_counts, wrappers = phase_wrappers(torch, cuda_build, shipped)
+        bands_counts, bands = phase_bands(torch, cuda_build)
         profile = phase_profile(torch)
         log(f"profile: {json.dumps(profile)}")
         profile_train = phase_profile_train(torch)
@@ -1622,26 +2073,31 @@ def main() -> int:
     path_counts = {"battery": battery_counts, "server": server_counts,
                    "train": train_counts, "routes": routes_counts,
                    "wrappers": wrappers_counts, "packed": packed_counts,
-                   "engines": engines_counts}
+                   "bands": bands_counts, "engines": engines_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    rows = {name: (name, source, replaces) for name, (source, replaces) in SOURCES.items()}
+    rows.update(FEATURE_ROWS)
+    for name, (kernel, source, replaces) in rows.items():
         r = results[name]
+        launches = (path_counts["bands"][kernel] if name in FEATURE_ROWS
+                    else sum(c[kernel] for c in path_counts.values()))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(c[name] for c in path_counts.values()),
+            "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
     report = {
         "card": card, "build_s": build_s, "kernels": kernels,
-        "kernel_shapes": {k: results[k]["shape"] for k in SOURCES},
-        "kernel_details": {k: results[k] for k in SOURCES},
+        "kernel_shapes": {k: results[k]["shape"] for k in rows},
+        "kernel_details": {k: results[k] for k in rows},
+        "bands_kernels": results["bands_kernels"], "bands": bands,
         "launches": path_counts,
         "e2e": e2e, "server": server, "run_actions_max_abs_diff": parity_diff,
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
@@ -1656,6 +2112,8 @@ def main() -> int:
             json.dump(report, f, indent=1)
     log(json.dumps({k: report[k] for k in ("launches", "e2e", "server", "train", "routes",
                                            "wrappers", "packed", "engines", "total_s")}))
+    log(json.dumps({"bands": {k: v for k, v in bands.items() if not k.startswith("profile")},
+                    "bands_kernels": results["bands_kernels"]}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -371,3 +371,88 @@ def test_packed_cell_loader_emulated(emulated, drop_p):
     # and the twins agree with the kernels on the packed input
     assert _rel(ch._ae_loss_fwd_kernel(u32, *ps, obs32, (2, 2), drop_p, seed),
                 ch.ae_loss_fwd_plain(u32, *ps, obs32, (2, 2), drop_p, seed)) < 1e-4
+
+
+def _max_rel(got, want):
+    return max(_rel(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("pools, c1, c2", [((2, 2), 4, 2), ((4, 2), 4, 1)])
+def test_encoder_column_tiles_and_mask_emulated(emulated, monkeypatch, pools, c1, c2,
+                                                packed, drop_p):
+    """The encoder's kernels with the width cut into tiles of 48 cells (a
+    256-wide universe in six tiles, the last ragged, every edge inside a
+    packed word) against the one-tile launch and the twins, with and without
+    a stage-1 row mask; a mask of ones is no mask, bit for bit."""
+    p1, p2 = pools
+    n, h, w, seed = 2, 32, 256, 8080 + p1
+    rng = np.random.RandomState(31 + p1)
+    u8 = torch.from_numpy((rng.rand(n, 1, h, w) < 0.3).astype(np.uint8))
+    u8[0, 0, :, : w // 3] = 0   # a blank stretch: pool windows tie across a tile edge
+    x = bitpack.pack_grid(u8) if packed else u8
+    ps = _params(rng, [(c1, 1, 3, 3), (c1,), (c2, c1, 3, 3), (c2,)])
+    ps[1], ps[3] = ps[1].abs(), ps[3].abs()
+    g = torch.from_numpy(rng.randn(n, c2, h // (p1 * p2), w // (p1 * p2)).astype(np.float32))
+    mask = torch.from_numpy((rng.rand(n, h // p1) < 0.7).astype(np.float32))
+    ch = cuda_head
+    one_f = ch._encoder_fwd_kernel(x, *ps, pools, drop_p, seed)
+    one_b = ch._encoder_bwd_kernel(x, *ps, g, pools, drop_p, seed)
+    monkeypatch.setattr(ch, "TILE_CELLS", 48)
+    assert ch._encoder_fwd_plan(h, w, c1, c2, p1, p2, 48)[1] == 48 // (p1 * p2)
+    tiled_f = ch._encoder_fwd_kernel(x, *ps, pools, drop_p, seed)
+    tiled_b = ch._encoder_bwd_kernel(x, *ps, g, pools, drop_p, seed)
+    assert torch.equal(tiled_f, one_f)
+    assert _max_rel(tiled_b, one_b) < 1e-5
+    assert _max_rel(tiled_b, ch.encoder_bwd_plain(x, *ps, g, pools, drop_p, seed)) < 1e-4
+    ones = torch.ones(n, h // p1)
+    assert torch.equal(ch._encoder_fwd_kernel(x, *ps, pools, drop_p, seed, ones), tiled_f)
+    assert _same(ch._encoder_bwd_kernel(x, *ps, g, pools, drop_p, seed, ones), tiled_b)
+    got_f = ch._encoder_fwd_kernel(x, *ps, pools, drop_p, seed, mask)
+    want_f = ch.encoder_fwd_plain(x, *ps, pools, drop_p, seed, mask)
+    assert not torch.equal(got_f, tiled_f) and _rel(got_f, want_f) < 1e-4
+    got_b = ch._encoder_bwd_kernel(x, *ps, g, pools, drop_p, seed, mask)
+    assert _max_rel(got_b, ch.encoder_bwd_plain(x, *ps, g, pools, drop_p, seed, mask)) < 1e-4
+    monkeypatch.setattr(ch, "TILE_CELLS", None)
+    assert torch.equal(ch._encoder_fwd_kernel(x, *ps, pools, drop_p, seed, mask), got_f)
+    assert _max_rel(ch._encoder_bwd_kernel(x, *ps, g, pools, drop_p, seed, mask), got_b) < 1e-5
+
+
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("obs_kind", ["uint8", "packed", "float32"])
+def test_decoder_loss_column_tiles_and_row_weights_emulated(emulated, monkeypatch, obs_kind,
+                                                           drop_p):
+    """The decoder loss's kernels with the width cut into tiles of 48 output
+    columns against the one-tile launch and the twins, with and without error
+    row weights em; an em of ones is no em, bit for bit."""
+    n, h, w, seed = 2, 32, 256, 6060
+    rng = np.random.RandomState(17)
+    x = torch.from_numpy(np.maximum(rng.randn(n, 2, h // 4, w // 4), 0).astype(np.float32))
+    ps = _params(rng, [(2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)])
+    cells = torch.from_numpy((rng.rand(n, 1, h, w) < 0.3).astype(np.uint8))
+    obs = {"uint8": cells, "packed": bitpack.pack_grid(cells),
+           "float32": torch.from_numpy(rng.rand(n, 1, h, w).astype(np.float32))}[obs_kind]
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32))
+    em = torch.from_numpy(np.where(rng.rand(n, h) < 0.3, 0.0,
+                                   rng.rand(n, h) + 0.5).astype(np.float32))
+    cs = cuda_stages
+    one_f = cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed)
+    one_b = cs._decoder_loss_bwd_kernel(x, *ps, obs, gbar, drop_p, seed)
+    monkeypatch.setattr(cuda_head, "TILE_CELLS", 48)
+    assert cs._decoder_bands(h, w, 2, 1, 1, 48)[1][1] == 12
+    tiled_f = cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed)
+    tiled_b = cs._decoder_loss_bwd_kernel(x, *ps, obs, gbar, drop_p, seed)
+    assert _rel(tiled_f, one_f) < 1e-5 and _max_rel(tiled_b, one_b) < 1e-5
+    assert _max_rel(tiled_b, cs.decoder_loss_bwd_plain(x, *ps, obs, gbar, drop_p, seed)) < 1e-4
+    ones = torch.ones(n, h)
+    assert torch.equal(cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed, ones), tiled_f)
+    assert _same(cs._decoder_loss_bwd_kernel(x, *ps, obs, gbar, drop_p, seed, ones), tiled_b)
+    got_f = cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed, em)
+    assert _rel(got_f, cs.decoder_loss_fwd_plain(x, *ps, obs, drop_p, seed, em)) < 1e-4
+    got_b = cs._decoder_loss_bwd_kernel(x, *ps, obs, gbar, drop_p, seed, em)
+    assert _max_rel(got_b, cs.decoder_loss_bwd_plain(x, *ps, obs, gbar, drop_p, seed, em)) < 1e-4
+    monkeypatch.setattr(cuda_head, "TILE_CELLS", None)
+    assert torch.equal(cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed, ones), one_f)
+    assert _same(cs._decoder_loss_bwd_kernel(x, *ps, obs, gbar, drop_p, seed, ones), one_b)
+    assert _rel(cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed, em), got_f) < 1e-5

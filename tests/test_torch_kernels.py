@@ -291,6 +291,73 @@ def test_decoder_loss_kernels_match_plain(cuda, shape, chans, drop_p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile_cells", [None, 48])
+@pytest.mark.parametrize("pools,c1,c2,w", [((4, 2), 4, 1, 8192), ((2, 2), 4, 2, 8192),
+                                           ((4, 2), 4, 1, 256), ((2, 2), 4, 2, 256)])
+def test_column_tiled_and_masked_encoder_kernels_match_plain(cuda, monkeypatch, pools, c1,
+                                                             c2, w, tile_cells):
+    """Widths whose one band of the whole width does not fit shared memory
+    (8192) and tiles forced at 256 (48 cells, edges inside packed words), with
+    and without a stage-1 row mask: kernel vs twin, packed words vs cells,
+    a tiled forward vs the one-tile forward bit for bit."""
+    monkeypatch.setattr(cuda_head, "TILE_CELLS", tile_cells)
+    p1, p2 = pools
+    n, h = 2, 32
+    rng = np.random.RandomState(w + c2)
+    x = torch.from_numpy(_soup(n, (n, 1, h, w), 0.3)).to(cuda)
+    words = bitpack.pack_grid(x)
+    ps = [p.to(cuda) for p in _params(rng, [(c1, 1, 3, 3), (c1,), (c2, c1, 3, 3), (c2,)])]
+    ps[1] = ps[1].abs()
+    g = torch.from_numpy(rng.randn(n, c2, h // (p1 * p2), w // (p1 * p2))
+                         .astype(np.float32)).to(cuda)
+    mask = torch.from_numpy((rng.rand(n, h // p1) < 0.7).astype(np.float32)).to(cuda)
+    for m in (None, mask):
+        got = cuda_head.encoder_fwd(x, *ps, pools, 0.1, 99, m)
+        torch.testing.assert_close(got, cuda_head.encoder_fwd_plain(x, *ps, pools, 0.1, 99, m),
+                                   rtol=1e-4, atol=1e-4)
+        assert torch.equal(cuda_head.encoder_fwd(words, *ps, pools, 0.1, 99, m), got)
+        grads = _repeatable(lambda: cuda_head.encoder_bwd(x, *ps, g, pools, 0.1, 99, m))
+        _assert_leaves_close(grads, cuda_head.encoder_bwd_plain(x, *ps, g, pools, 0.1, 99, m))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(cuda_head.encoder_bwd(words, *ps, g, pools, 0.1, 99, m), grads))
+        monkeypatch.setattr(cuda_head, "TILE_CELLS", None)
+        assert torch.equal(cuda_head.encoder_fwd(x, *ps, pools, 0.1, 99, m), got)
+        monkeypatch.setattr(cuda_head, "TILE_CELLS", tile_cells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_cells", [None, 48])
+@pytest.mark.parametrize("w", [8192, 256])
+def test_column_tiled_and_row_weighted_decoder_loss_kernels_match_plain(cuda, monkeypatch, w,
+                                                                        tile_cells):
+    """The decoder loss at an output width whose backward's band of the
+    whole width does not fit (8192) and in tiles forced at 256, with and
+    without error row weights; weights of ones are the unweighted kernel."""
+    monkeypatch.setattr(cuda_head, "TILE_CELLS", tile_cells)
+    n, h = 2, 32
+    rng = np.random.RandomState(w)
+    x = torch.from_numpy(np.maximum(rng.randn(n, 2, h // 4, w // 4), 0)
+                         .astype(np.float32)).to(cuda)
+    ps = [p.to(cuda) for p in _params(rng, [(2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)])]
+    obs = torch.from_numpy(_soup(n, (n, 1, h, w), 0.3)).to(cuda)
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    em = torch.from_numpy(rng.rand(n, h).astype(np.float32)).to(cuda)
+    ones = torch.ones_like(em)
+    for e in (None, em):
+        got = cuda_stages.decoder_loss_fwd(x, *ps, obs, 0.1, 77, e)
+        torch.testing.assert_close(
+            got, cuda_stages.decoder_loss_fwd_plain(x, *ps, obs, 0.1, 77, e), rtol=1e-4, atol=1e-4)
+        grads = _repeatable(lambda: cuda_stages.decoder_loss_bwd(x, *ps, obs, gbar, 0.1, 77, e))
+        _assert_leaves_close(grads, cuda_stages.decoder_loss_bwd_plain(x, *ps, obs, gbar, 0.1,
+                                                                        77, e))
+    assert torch.equal(cuda_stages.decoder_loss_fwd(x, *ps, obs, 0.1, 77, ones),
+                       cuda_stages.decoder_loss_fwd(x, *ps, obs, 0.1, 77))
+    assert all(torch.equal(a, b) for a, b in
+               zip(cuda_stages.decoder_loss_bwd(x, *ps, obs, gbar, 0.1, 77, ones),
+                   cuda_stages.decoder_loss_bwd(x, *ps, obs, gbar, 0.1, 77)))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
 def test_ae_routes_agree_on_the_card(cuda, drop_p):
     """One, two and four kernels, src != obs, through autograd: the
