@@ -11,6 +11,9 @@
 // The TPU functions' `scheme` variants (h, v, vc, vd, multi-stream ...) are
 // TPU scheduling choices; this file ports the arithmetic once.
 //
+// The row-major word update is common.cuh's step_word_rows, which the
+// row-sharded halo kernels (halo_step.cu) run too.
+//
 // Row-major layout (carle_tpu/ops/bitpack.py::pack_grid): a universe is
 // [H, NW] words and bit j of word k is the cell in column 32k + j.  The
 // left/right neighbour words come from funnel shifts across the word
@@ -49,51 +52,6 @@
 // through device memory.
 #include "common.cuh"
 
-struct Leaves {
-    uint32_t dead[9];   // all-ones where a dead cell with v neighbours is born
-    uint32_t alive[9];  // all-ones where a live cell with v neighbours survives
-};
-
-__device__ __forceinline__ Leaves make_leaves(int rb) {
-    Leaves l;
-#pragma unroll
-    for (int v = 0; v < 9; ++v) {
-        l.dead[v] = 0u - static_cast<uint32_t>((rb >> v) & 1);
-        l.alive[v] = 0u - static_cast<uint32_t>((rb >> (9 + v)) & 1);
-    }
-    return l;
-}
-
-// The rule of universe n: the compile-time mask (RULE >= 0), whose leaves the
-// compiler folds, or the data.
-template <int RULE>
-__device__ __forceinline__ int rule_of(const int32_t* __restrict__ rule, int stride, int n) {
-    return RULE >= 0 ? RULE : rule[static_cast<size_t>(n) * stride];
-}
-
-__device__ __forceinline__ void csa(uint32_t a, uint32_t b, uint32_t c,
-                                    uint32_t& sum, uint32_t& carry) {
-    const uint32_t ab = a ^ b;
-    sum = ab ^ c;
-    carry = (a & b) | (ab & c);
-}
-
-__device__ __forceinline__ uint32_t mux(uint32_t a, uint32_t b, uint32_t sel) {
-    return (a & ~sel) | (b & sel);
-}
-
-// The mux tree of carle_tpu/ops/bitpack.py::_rule_mux: select 9 -> 5 -> 3 ->
-// 2 -> 1 leaves by n0, n1, n2, n3 (odd tails only reachable with sel = 0).
-__device__ __forceinline__ uint32_t fold(const uint32_t* l, uint32_t n0,
-                                         uint32_t n1, uint32_t n2, uint32_t n3) {
-    const uint32_t p0 = mux(l[0], l[1], n0), p1 = mux(l[2], l[3], n0);
-    const uint32_t p2 = mux(l[4], l[5], n0), p3 = mux(l[6], l[7], n0);
-    const uint32_t p4 = l[8] & ~n0;
-    const uint32_t q0 = mux(p0, p1, n1), q1 = mux(p2, p3, n1), q2 = p4 & ~n1;
-    const uint32_t r0 = mux(q0, q1, n2), r1 = q2 & ~n2;
-    return mux(r0, r1, n3);
-}
-
 // The same tree over ten leaves l0 .. l9 indexed by count9 (0-9).
 __device__ __forceinline__ uint32_t fold10(const uint32_t* l, uint32_t n0,
                                            uint32_t n1, uint32_t n2, uint32_t n3) {
@@ -105,41 +63,13 @@ __device__ __forceinline__ uint32_t fold10(const uint32_t* l, uint32_t n0,
     return mux(r0, r1, n3);
 }
 
-// Horizontal pair planes of one row: weight-1 (left ^ right) and weight-2
-// (left & right) of each cell's west and east neighbours.
-__device__ __forceinline__ void pair_planes(uint32_t west, uint32_t g,
-                                            uint32_t east, uint32_t& a,
-                                            uint32_t& b) {
-    const uint32_t left = __funnelshift_l(west, g, 1);   // (g << 1) | (west >> 31)
-    const uint32_t right = __funnelshift_r(g, east, 1);  // (g >> 1) | (east << 31)
-    a = left ^ right;
-    b = left & right;
-}
-
 // Next state of word k of row r of a row-major universe at `src` ([H, NW]).
 __device__ __forceinline__ uint32_t step_word(const uint32_t* src, int H,
                                               int NW, int r, int k,
                                               const Leaves& leaves) {
     const int ru = r == 0 ? H - 1 : r - 1;
     const int rd = r == H - 1 ? 0 : r + 1;
-    const int kw = k == 0 ? NW - 1 : k - 1;
-    const int ke = k == NW - 1 ? 0 : k + 1;
-    const uint32_t* up = src + ru * NW;
-    const uint32_t* mid = src + r * NW;
-    const uint32_t* dn = src + rd * NW;
-    const uint32_t g = mid[k], m_t = up[k], m_b = dn[k];
-    uint32_t a_t, b_t, a, b, a_b, b_b;
-    pair_planes(up[kw], m_t, up[ke], a_t, b_t);
-    pair_planes(mid[kw], g, mid[ke], a, b);
-    pair_planes(dn[kw], m_b, dn[ke], a_b, b_b);
-    uint32_t s1, c1, s2, c2, s3, c3, s4, c4;
-    csa(a_t, a, a_b, s1, c1);   // weight-1 triples
-    csa(m_t, m_b, s1, s2, c2);  // + the two vertical cells
-    csa(b_t, b, b_b, s3, c3);   // weight-2 triples
-    csa(s3, c1, c2, s4, c4);
-    const uint32_t n0 = s2, n1 = s4, n2 = c3 ^ c4, n3 = c3 & c4;
-    return (fold(leaves.dead, n0, n1, n2, n3) & ~g) |
-           (fold(leaves.alive, n0, n1, n2, n3) & g);
+    return step_word_rows(src + ru * NW, src + r * NW, src + rd * NW, NW, k, leaves);
 }
 
 // Column-major: the vertical triple (the cell and its two vertical

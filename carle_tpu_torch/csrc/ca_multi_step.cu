@@ -17,6 +17,9 @@
 // step; neighbouring threads take neighbouring columns, so a warp's loads hit
 // 32 different banks of shared memory.
 //
+// The update (column_sums_rows, step_cells4) is common.cuh's, which the
+// row-sharded halo kernels (halo_step.cu) run too.
+//
 // Bound on an H100: operations.  About 20 integer operations a word of four
 // cells a generation (chip_smoke.py counts them) against 2 bytes moved a
 // cell a launch.  Design: one block a universe holds it in shared memory for
@@ -35,8 +38,7 @@ __device__ __forceinline__ uint32_t column_sums(const uint32_t* src, int H, int 
                                                 int q, uint32_t& mid) {
     const int ru = r == 0 ? H - 1 : r - 1;
     const int rd = r == H - 1 ? 0 : r + 1;
-    mid = src[r * QW + q];
-    return src[ru * QW + q] + mid + src[rd * QW + q];
+    return column_sums_rows(src + ru * QW, src + r * QW, src + rd * QW, q, mid);
 }
 
 // The words of row r at columns qw, q, qe.
@@ -46,19 +48,6 @@ __device__ __forceinline__ void row_words(const uint32_t* src, int QW, int r, in
     w = row[qw];
     c = row[q];
     e = row[qe];
-}
-
-// Next 4 cells from the column sums of the word's west, own and east words.
-__device__ __forceinline__ uint32_t step_cells4(uint32_t sw, uint32_t s, uint32_t se,
-                                                uint32_t mid, int rb) {
-    const uint32_t left = __funnelshift_l(sw, s, 8);   // (s << 8) | (sw >> 24): column c-1
-    const uint32_t right = __funnelshift_r(s, se, 8);  // (s >> 8) | (se << 24): column c+1
-    const uint32_t idx = left + s + right + (mid << 3);  // count9 + 8 alive, a byte each
-    uint32_t out = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-        out |= ((static_cast<uint32_t>(rb) >> ((idx >> (8 * j)) & 0xffu)) & 1u) << (8 * j);
-    return out;
 }
 
 // One generation of a [H, QW] universe of words src -> dst.

@@ -134,6 +134,119 @@ __host__ __device__ inline int widest_window(int n, int t, int h) {
     return best;
 }
 
+// -- The Life-like update on words ------------------------------------------
+//
+// Shared by the single-device engines (bit_multi_step.cu, ca_multi_step.cu)
+// and the row-sharded halo kernels (halo_step.cu): each function computes a
+// row's next words from the rows above and below it (north, centre, south),
+// wherever those rows live, so the engines and the halo kernels run one update.
+// Columns wrap inside each row (the torus over the width).
+
+// Packed words (bit j of word k is the cell in column 32k + j): the rule's 18
+// bits as leaf words of a multiplexer tree over the bit-sliced Moore count.
+struct Leaves {
+    uint32_t dead[9];   // all-ones where a dead cell with v neighbours is born
+    uint32_t alive[9];  // all-ones where a live cell with v neighbours survives
+};
+
+__device__ __forceinline__ Leaves make_leaves(int rb) {
+    Leaves l;
+#pragma unroll
+    for (int v = 0; v < 9; ++v) {
+        l.dead[v] = 0u - static_cast<uint32_t>((rb >> v) & 1);
+        l.alive[v] = 0u - static_cast<uint32_t>((rb >> (9 + v)) & 1);
+    }
+    return l;
+}
+
+// The rule of universe n: the compile-time mask (RULE >= 0), whose leaves the
+// compiler folds, or the data.
+template <int RULE>
+__device__ __forceinline__ int rule_of(const int32_t* __restrict__ rule, int stride, int n) {
+    return RULE >= 0 ? RULE : rule[static_cast<size_t>(n) * stride];
+}
+
+__device__ __forceinline__ void csa(uint32_t a, uint32_t b, uint32_t c,
+                                    uint32_t& sum, uint32_t& carry) {
+    const uint32_t ab = a ^ b;
+    sum = ab ^ c;
+    carry = (a & b) | (ab & c);
+}
+
+__device__ __forceinline__ uint32_t mux(uint32_t a, uint32_t b, uint32_t sel) {
+    return (a & ~sel) | (b & sel);
+}
+
+// The mux tree of carle_tpu/ops/bitpack.py::_rule_mux: select 9 -> 5 -> 3 ->
+// 2 -> 1 leaves by n0, n1, n2, n3 (odd tails only reachable with sel = 0).
+__device__ __forceinline__ uint32_t fold(const uint32_t* l, uint32_t n0,
+                                         uint32_t n1, uint32_t n2, uint32_t n3) {
+    const uint32_t p0 = mux(l[0], l[1], n0), p1 = mux(l[2], l[3], n0);
+    const uint32_t p2 = mux(l[4], l[5], n0), p3 = mux(l[6], l[7], n0);
+    const uint32_t p4 = l[8] & ~n0;
+    const uint32_t q0 = mux(p0, p1, n1), q1 = mux(p2, p3, n1), q2 = p4 & ~n1;
+    const uint32_t r0 = mux(q0, q1, n2), r1 = q2 & ~n2;
+    return mux(r0, r1, n3);
+}
+
+// Horizontal pair planes of one row: weight-1 (left ^ right) and weight-2
+// (left & right) of each cell's west and east neighbours.
+__device__ __forceinline__ void pair_planes(uint32_t west, uint32_t g,
+                                            uint32_t east, uint32_t& a,
+                                            uint32_t& b) {
+    const uint32_t left = __funnelshift_l(west, g, 1);   // (g << 1) | (west >> 31)
+    const uint32_t right = __funnelshift_r(g, east, 1);  // (g >> 1) | (east << 31)
+    a = left ^ right;
+    b = left & right;
+}
+
+// Next state of word k of the packed row `mid` ([NW] words) between the rows
+// `up` and `dn`.
+__device__ __forceinline__ uint32_t step_word_rows(const uint32_t* up, const uint32_t* mid,
+                                                   const uint32_t* dn, int NW, int k,
+                                                   const Leaves& leaves) {
+    const int kw = k == 0 ? NW - 1 : k - 1;
+    const int ke = k == NW - 1 ? 0 : k + 1;
+    const uint32_t g = mid[k], m_t = up[k], m_b = dn[k];
+    uint32_t a_t, b_t, a, b, a_b, b_b;
+    pair_planes(up[kw], m_t, up[ke], a_t, b_t);
+    pair_planes(mid[kw], g, mid[ke], a, b);
+    pair_planes(dn[kw], m_b, dn[ke], a_b, b_b);
+    uint32_t s1, c1, s2, c2, s3, c3, s4, c4;
+    csa(a_t, a, a_b, s1, c1);   // weight-1 triples
+    csa(m_t, m_b, s1, s2, c2);  // + the two vertical cells
+    csa(b_t, b, b_b, s3, c3);   // weight-2 triples
+    csa(s3, c1, c2, s4, c4);
+    const uint32_t n0 = s2, n1 = s4, n2 = c3 ^ c4, n3 = c3 & c4;
+    return (fold(leaves.dead, n0, n1, n2, n3) & ~g) |
+           (fold(leaves.alive, n0, n1, n2, n3) & g);
+}
+
+// uint8 cells read as 32-bit words of 4 cells (a byte a cell, 0 or 1): the
+// three rows' bytes add without carries into column sums (0-3).  Column sums
+// of word q of the row `mid` between `up` and `dn`; `centre` gets mid[q].
+__device__ __forceinline__ uint32_t column_sums_rows(const uint32_t* up, const uint32_t* mid,
+                                                     const uint32_t* dn, int q,
+                                                     uint32_t& centre) {
+    centre = mid[q];
+    return up[q] + centre + dn[q];
+}
+
+// Next 4 cells from the column sums of the word's west, own and east words:
+// the count including the centre (0-9) plus 8 * alive indexes the rule mask,
+// one variable shift a byte.
+__device__ __forceinline__ uint32_t step_cells4(uint32_t sw, uint32_t s, uint32_t se,
+                                                uint32_t mid, int rb) {
+    const uint32_t left = __funnelshift_l(sw, s, 8);   // (s << 8) | (sw >> 24): column c-1
+    const uint32_t right = __funnelshift_r(s, se, 8);  // (s >> 8) | (se << 24): column c+1
+    const uint32_t idx = left + s + right + (mid << 3);  // count9 + 8 alive, a byte each
+    uint32_t out = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        out |= ((static_cast<uint32_t>(rb) >> ((idx >> (8 * j)) & 0xffu)) & 1u) << (8 * j);
+    return out;
+}
+
 // A kernel launch.  A macro so that a host build can replace it: compiled as
 // plain C++ with a stand-in <cuda_runtime.h> that runs each block with one
 // thread, the kernels' index arithmetic can be checked where there is no

@@ -45,6 +45,27 @@ __device__ __forceinline__ void stage_planes(float* dst, const T* __restrict__ p
     }
 }
 
+// Rows [r0, r0 + rows) and columns [c0, c0 + cols) of C planes [H, W]
+// (floats, cells or packed words) into dst[c][rows][cols] as floats, zero
+// outside the planes: a column tile with a zero halo only past the edges.
+// The whole width with a zero column each side is c0 = -1, cols = W + 2
+// (stage_planes<T, 1>).
+template <typename T>
+__device__ __forceinline__ void stage_planes_window(float* dst, const T* __restrict__ planes,
+                                                    int C, int r0, int rows, int c0, int cols,
+                                                    int H, int W) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int per = rows * cols;
+    for (int i = tid; i < C * per; i += nt) {
+        const int c = i / per, rem = i - c * per;
+        const int lr = rem / cols, lc = rem - lr * cols;
+        const int r = r0 + lr, col = c0 + lc;
+        dst[i] = (r >= 0 && r < H && col >= 0 && col < W)
+                     ? cell_value(planes, (static_cast<size_t>(c) * H + r) * W + col)
+                     : 0.f;
+    }
+}
+
 // Rows [r0, r0 + rows) and columns [c0, c0 + cols) of C float planes [H, W]
 // into dst[c][rows][cols], zero outside the planes.
 __device__ __forceinline__ void stage_float_window(float* dst, const float* __restrict__ planes,

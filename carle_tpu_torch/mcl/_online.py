@@ -149,13 +149,23 @@ def accumulate_and_maybe_update(state: LearnerState, grads: Any,
     )
 
 
-def net_input(ctx: Any) -> torch.Tensor:
+def net_input(ctx: Any, fused_head: Any = None) -> Any:
     """The observation a wrapper net consumes: the packed universe itself,
     uint32 words [inst, 1, H, W/32], when the stack carries one (the kernels
     expand the words in shared memory, so no cell view is built), else the
-    uint8 cells.  The float32 copy never reaches the kernels."""
-    if getattr(ctx, "packed", None) is not None:
-        return ctx.packed[:, None]
+    uint8 cells.  The float32 copy never reaches the kernels.  On a
+    row-sharded stack the words stay sharded for a ``fused_head`` of
+    ``nets.SpaceSharding`` and are gathered for any other route."""
+    from ..nets import SpaceSharding
+    from ..parallel.mesh import RowShards, gather_rows
+
+    packed = getattr(ctx, "packed", None)
+    if isinstance(packed, RowShards):
+        if isinstance(fused_head, SpaceSharding):
+            return packed.map(lambda p: p[:, None])
+        return gather_rows(packed)[:, None]
+    if packed is not None:
+        return packed[:, None]
     return ctx.obs_cells
 
 

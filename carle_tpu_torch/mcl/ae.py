@@ -12,7 +12,9 @@ cotangent crossing device memory between them.  The bonus is the per-instance
 mean over C, H, W.  :func:`ae_forward` gives the reconstruction itself
 (encoder and two ``tail_fwd`` stages).  Same online-learning loop as RND2D
 (mcl/_online.py).  ``fused_head=nets.BandTiling(n)`` runs the loss as n row
-bands of each universe (encoder and decoder loss, parallel/band_heads.py).
+bands of each universe (encoder and decoder loss, parallel/band_heads.py);
+``fused_head=nets.SpaceSharding(mesh)`` runs encoder and decoder loss slot by
+slot on a row-sharded stack (parallel/spatial_heads.py).
 """
 
 from __future__ import annotations
@@ -74,7 +76,7 @@ def ae2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
                             {}, device, batch_size)
 
     def loss_fn(params, state: LearnerState, ctx):
-        obs = net_input(ctx)
+        obs = net_input(ctx, fused_head)
         # odd seeds for this net's kernels, even for RND2D's
         kw = dict(drop_p=DROP_P, train=use_dropout, seed=2 * ctx.seed + 1, mesh=mesh)
         if whole_ae:

@@ -24,8 +24,12 @@ frames and their nets read the words (``_online.net_input``).  When every
 wrapper of a packed stack is packed-native, a step unpacks nothing (the
 stack's ``unpacks`` counter stays 0).
 
-These defs need a packed stack: on the uint8 path ``ctx.packed`` is None and
-they raise.
+On a row-sharded packed stack (a mesh) each statistic reduces every shard,
+the row-weighted sums from the shard's first global row, and adds the
+shards' exact integer sums, so the bonus does not depend on the sharding;
+Morpho's windows cross the shards' edges and it raises there (the dense def
+reads the gathered cells).  These defs need a packed stack: on the uint8
+path ``ctx.packed`` is None and they raise.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from ..config import EnvConfig
 from ..ops import bitsliced as bs
 from ..ops.bitpack import WORD, pack_grid, popcount
+from ..parallel.mesh import RowShards
 from .base import StepCtx, WrapperDef, default_on_reset
 from .corner import _build_masks
 
@@ -52,35 +57,64 @@ def _pack_mask(mask: np.ndarray, device) -> torch.Tensor:
     return pack_grid(torch.from_numpy(np.asarray(mask) != 0)[None].to(torch.uint8))[0].to(device)
 
 
-def _require_packed(ctx: StepCtx) -> torch.Tensor:
+def _require_packed(ctx: StepCtx) -> Any:
     if ctx.packed is None:
         raise ValueError(
             "packed-native stat wrappers need a packed stack "
             "(parallel/packed_env.PackedSpatialStack): ctx.packed is None "
             "on the uint8 path; use the dense defs there")
+    if isinstance(ctx.packed, RowShards):
+        return ctx.packed.map(bs.as_plane)
     return bs.as_plane(ctx.packed)
 
 
-def _live_count(g: torch.Tensor) -> torch.Tensor:
-    """Live cells per instance, integer-exact: [inst, H, W/32] -> float32 [inst]."""
-    return popcount(g).sum(dim=(1, 2)).to(torch.float32)
+def _per_shard(g: Any, fn, *planes: torch.Tensor) -> torch.Tensor:
+    """``fn(words, *plane rows, first row)`` of the universe: of each shard of
+    row-sharded words with its rows of each [H, W/32] plane, added on the
+    mesh's home device, or of whole words.  fn returns exact integers, so
+    the sum does not depend on the sharding."""
+    if not isinstance(g, RowShards):
+        return fn(g, *planes, 0)
+    total = None
+    for p, a in zip(g.parts, g.offsets()):
+        part = fn(p, *(m[a:a + g.rows].to(p.device) for m in planes), a).to(g.device)
+        total = part if total is None else total + part
+    return total
 
 
-def _row_weighted(g: torch.Tensor) -> torch.Tensor:
-    """sum over live cells of the row index, per instance (float32 [inst])."""
-    rows = popcount(g).sum(dim=2).to(torch.float32)            # [inst, H]
-    r = torch.arange(g.shape[1], dtype=torch.float32, device=g.device)
+def _live_count_i(g: torch.Tensor, r0: int = 0) -> torch.Tensor:
+    """Live cells per instance: [inst, H, W/32] -> int64 [inst]."""
+    return popcount(g).sum(dim=(1, 2))
+
+
+def _row_weighted_i(g: torch.Tensor, r0: int = 0) -> torch.Tensor:
+    """sum over live cells of the row index (the first row is ``r0``), per
+    instance, exact (int64 [inst])."""
+    rows = popcount(g).sum(dim=2)                               # [inst, H]
+    r = torch.arange(r0, r0 + g.shape[1], dtype=torch.int64, device=g.device)
     return (rows * r[None, :]).sum(dim=1)
 
 
-def _col_weighted(g: torch.Tensor) -> torch.Tensor:
-    """sum over live cells of the column index, per instance (float32 [inst])."""
-    words = popcount(g).sum(dim=1).to(torch.float32)           # [inst, W/32]
-    w = WORD * torch.arange(g.shape[2], dtype=torch.float32, device=g.device)
+def _col_weighted_i(g: torch.Tensor, r0: int = 0) -> torch.Tensor:
+    """sum over live cells of the column index, per instance, exact (int64
+    [inst])."""
+    words = popcount(g).sum(dim=1)                              # [inst, W/32]
+    w = WORD * torch.arange(g.shape[2], dtype=torch.int64, device=g.device)
     total = (words * w[None, :]).sum(dim=1)
     for k, m in enumerate(_BIT_MASKS):
-        total = total + float(1 << k) * popcount(g & m).sum(dim=(1, 2)).to(torch.float32)
+        total = total + (1 << k) * popcount(g & m).sum(dim=(1, 2))
     return total
+
+
+def _live_count(g: Any) -> torch.Tensor:
+    """Live cells per instance, integer-exact, as float32 [inst] (whole or
+    row-sharded words)."""
+    return _per_shard(g, _live_count_i).to(torch.float32)
+
+
+def _masked_count(g: Any, mask: torch.Tensor) -> torch.Tensor:
+    """Live cells inside the [H, W/32] mask words per instance (float32)."""
+    return _per_shard(g, lambda p, m, r0: _live_count_i(p & m[None]), mask).to(torch.float32)
 
 
 class PackedSpeedState(NamedTuple):
@@ -110,10 +144,13 @@ def speed_def_packed(config: EnvConfig, reward_scale: float = 1.0,
     def apply(state: PackedSpeedState, ctx: StepCtx,
               reward: torch.Tensor) -> Tuple[PackedSpeedState, torch.Tensor]:
         g = _require_packed(ctx)
-        mg = g & bs.as_plane(state.excl_words)[None]
-        live = _live_count(g)                      # unmasked denominator
-        com = torch.stack([_row_weighted(mg) / (live + 1e-7),
-                           _col_weighted(mg) / (live + 1e-7)])
+
+        def sums(p, excl, r0):   # unmasked denominator, masked numerators
+            mp = p & excl[None]
+            return torch.stack([_live_count_i(p), _row_weighted_i(mp, r0), _col_weighted_i(mp)])
+
+        live, rows, cols = _per_shard(g, sums, bs.as_plane(state.excl_words)).to(torch.float32)
+        com = torch.stack([rows / (live + 1e-7), cols / (live + 1e-7)])
         velocity = state.center_of_mass - com
         if per_instance:
             speed = torch.sqrt((velocity ** 2).sum(dim=0))[:, None]
@@ -192,6 +229,11 @@ def morpho_def_packed(config: EnvConfig, reward_scale: float = 1.0, rle_paths: A
             raise ValueError("morpho_def_packed needs a packed stack filling "
                              "ctx.packed_prev and ctx.packed_action; use "
                              "mcl.morpho.morpho_def on the uint8 path")
+        if isinstance(ctx.packed_prev, RowShards):
+            raise NotImplementedError(
+                "morpho_def_packed on a row-sharded stack (its windows cross the "
+                "shards' edges) is not ported yet; use mcl.morpho.morpho_def, which "
+                "reads the gathered cells")
         x = bs.as_plane(ctx.packed_prev) ^ bs.as_plane(ctx.packed_action)
         valid_words = bs.as_plane(state.valid_words)
         n_all = bs.window_sum(x, dim, dim)       # shared by every kernel
@@ -256,8 +298,8 @@ def corner_def_packed(config: EnvConfig, reward_scale: float = 1.0,
     def apply(state: PackedCornerState, ctx: StepCtx,
               reward: torch.Tensor) -> Tuple[PackedCornerState, torch.Tensor]:
         g = _require_packed(ctx)
-        bonus = (_live_count(g & bs.as_plane(state.plus_words)[None])
-                 - _live_count(g & bs.as_plane(state.minus_words)[None]))[:, None]
+        bonus = (_masked_count(g, bs.as_plane(state.plus_words))
+                 - _masked_count(g, bs.as_plane(state.minus_words)))[:, None]
         return state, reward + state.reward_scale * bonus
 
     return WrapperDef(name="CornerBonus(packed)", init=init, apply=apply,

@@ -75,8 +75,8 @@ def _alive(ctx) -> torch.Tensor:
     """Per-instance liveness from the packed words on a packed stack, else
     from the uint8 cells: the reference's ``mean(obs) > 0`` for binary
     frames."""
-    if ctx.packed is not None:
-        return (ctx.packed.view(torch.int32) != 0).any(dim=2).any(dim=1)
+    if ctx.packed is not None:   # row shards gathered: the words are small
+        return (nets.whole(ctx.packed).view(torch.int32) != 0).any(dim=2).any(dim=1)
     return (ctx.obs_cells != 0).any(dim=3).any(dim=2).any(dim=1)
 
 
@@ -118,7 +118,7 @@ def _make_def(config: EnvConfig, name: str, surprise: bool, reward_scale: float 
             raise ValueError("buffer_dtype='packed' needs a packed stack "
                              "(parallel/packed_env.PackedSpatialStack): ctx.packed is "
                              "None on the uint8 path; use the uint8 ring there")
-        return ctx.packed
+        return nets.whole(ctx.packed)
 
     def loss_fn(params, state: LearnerState, ctx):
         target = net_input(ctx)

@@ -16,7 +16,10 @@ kernel on the card (pools (4, 2)) and the predictor's gradient as
 ``encoder_bwd``; the third dropout, the dense layer, tanh, the error and
 their gradients stay plain PyTorch, as the JAX package leaves them to XLA.
 The frozen target never builds a graph.  ``fused_head=nets.BandTiling(n)``
-runs both encoders as n row bands of each universe (parallel/band_heads.py).
+runs both encoders as n row bands of each universe (parallel/band_heads.py);
+``fused_head=nets.SpaceSharding(mesh)`` runs them slot by slot on a
+row-sharded stack (parallel/spatial_heads.py) and gathers the embeddings for
+the dense layer.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ def predictor_forward(params: Dict[str, Any], obs: torch.Tensor, seed: int,
     x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS,
                           drop_p=DROP_P, train=train, seed=seed,
                           mesh=nets.fused_route(fused_head))
-    x = nets.dropout(x, DROP_P, train, generator)
+    x = nets.dropout(nets.whole(x), DROP_P, train, generator)
     return torch.tanh(nets.linear(nets.flatten(x), params["dense"]))
 
 
@@ -74,7 +77,7 @@ def random_forward(params: Dict[str, Any], obs: torch.Tensor,
     with torch.no_grad():
         x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS,
                               mesh=nets.fused_route(fused_head))
-        return torch.tanh(nets.linear(nets.flatten(x), params["dense"]))
+        return torch.tanh(nets.linear(nets.flatten(nets.whole(x)), params["dense"]))
 
 
 def rnd2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
@@ -95,7 +98,7 @@ def rnd2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64
             batch_size)
 
     def loss_fn(params, state: LearnerState, ctx):
-        obs = net_input(ctx)
+        obs = net_input(ctx, fused_head)
         target = random_forward(state.target_params, obs, fused_head)
         # even seeds for this net's kernels, odd for AE2D's
         prediction = predictor_forward(params, obs, 2 * ctx.seed, ctx.generator,

@@ -14,8 +14,11 @@ CUDA kernels for CUDA tensors and take the plain twins for CPU tensors
 :func:`conv_encoder`, :func:`conv_decoder_loss` and :func:`conv_ae_loss` as
 row bands of one universe, each band an instance of one launch
 (parallel/band_heads.py); the single stages refuse it, as the JAX package's
-do.  :class:`SpaceSharding`, the JAX package's multi-device row sharding, has
-no counterpart here yet.
+do.  :class:`SpaceSharding` runs :func:`conv_encoder`, :func:`conv_tail`,
+:func:`conv_loss_tail`, :func:`conv_decoder_loss` (as tail then loss tail)
+and :func:`conv_ae_loss` (as encoder then decoder loss) on row-sharded
+inputs and outputs (parallel/mesh.py's RowShards), slot by slot with halo
+rows (parallel/spatial_heads.py); :func:`whole` gathers such an output.
 """
 
 from __future__ import annotations
@@ -45,38 +48,55 @@ class BandTiling(NamedTuple):
 
 
 class SpaceSharding(NamedTuple):
-    """The JAX package's multi-device row-sharding tag
-    (carle_tpu/nets.py::SpaceSharding), kept so that its callers translate:
-    the port has no multi-device tier yet, and every net function refuses it."""
+    """Routing tag for the fused kernels on a row-sharded observation
+    (counterpart of carle_tpu/nets.py::SpaceSharding): the input's rows are
+    sharded over ``axis`` of ``mesh`` (a parallel.mesh.Mesh; the packed
+    stack with a mesh), and the kernels run slot by slot with halo rows
+    (parallel/spatial_heads.py).  Pass as the wrappers' ``fused_head`` or the
+    nets' ``mesh=``.  ``env_axis`` (a 2-D env x space mesh) is not ported
+    yet."""
 
     mesh: Any
     axis: str = "space"
     env_axis: Optional[str] = None
 
 
-def check_mesh(mesh: Any) -> Optional[BandTiling]:
-    """The routing tag a net function runs with: None or a
-    :class:`BandTiling`.  A :class:`SpaceSharding` raises
-    NotImplementedError, any other value ValueError."""
+def check_mesh(mesh: Any) -> Any:
+    """The routing tag a net function runs with: None, a :class:`BandTiling`
+    or a :class:`SpaceSharding`; any other value raises ValueError (and a
+    SpaceSharding with an env axis NotImplementedError)."""
     if isinstance(mesh, SpaceSharding):
-        raise NotImplementedError(
-            "SpaceSharding (rows sharded over devices with halo exchange) is the "
-            "multi-device tier of ROADMAP.md Queue 1 item 11, not ported yet; "
-            "BandTiling runs huge universes on one device")
+        from .parallel.mesh import Mesh
+
+        if not isinstance(mesh.mesh, Mesh):
+            raise ValueError(f"SpaceSharding needs a parallel.mesh.Mesh, got {mesh.mesh!r}")
+        if mesh.env_axis is not None:
+            raise NotImplementedError("SpaceSharding's env_axis (the 2-D env x space "
+                                      "mesh) is not ported yet")
+        return mesh
     if mesh is not None and not isinstance(mesh, BandTiling):
-        raise ValueError(f"mesh must be None or BandTiling, got {mesh!r}")
+        raise ValueError(f"mesh must be None, BandTiling or SpaceSharding, got {mesh!r}")
     return mesh
 
 
-def fused_route(fused_head: Any) -> Optional[BandTiling]:
+def fused_route(fused_head: Any) -> Any:
     """The ``mesh=`` of a wrapper's ``fused_head`` argument (the JAX
     package's name and spelling): True, False or None give None, the fused
     kernels on one device (the port has no unfused path to select); a
-    :class:`BandTiling` its row bands; a :class:`SpaceSharding` raises as
-    :func:`check_mesh`."""
+    :class:`BandTiling` its row bands; a :class:`SpaceSharding` the
+    row-sharded route; anything else raises as :func:`check_mesh`."""
     if fused_head is None or isinstance(fused_head, bool):
         return None
     return check_mesh(fused_head)
+
+
+def whole(x: Any) -> Any:
+    """A net output as one tensor: row shards (a SpaceSharding route's
+    output) gathered onto their mesh's home device, as GSPMD gathers a
+    sharded array for an unsharded consumer; any tensor as it is."""
+    from .parallel.mesh import RowShards, gather_rows
+
+    return gather_rows(x) if isinstance(x, RowShards) else x
 
 
 # ---------------------------------------------------------------------------
@@ -180,8 +200,14 @@ def conv_encoder(x: torch.Tensor, p1: Params, p2: Params, *,
     [N, C2, H/(p1 p2), W/(p1 p2)].  Dropout runs only with ``train`` and
     ``drop_p > 0``, from ``seed`` (a host integer: the same seed gives the
     same mask, forward and backward); otherwise no random number is drawn.
-    ``mesh=BandTiling(n)`` runs it as n row bands."""
-    if check_mesh(mesh) is not None:
+    ``mesh=BandTiling(n)`` runs it as n row bands; ``mesh=SpaceSharding``
+    takes and gives row shards."""
+    if isinstance(check_mesh(mesh), SpaceSharding):
+        from .parallel.spatial_heads import encoder_spatial
+
+        return encoder_spatial(x, p1, p2, pools=pools, drop_p=drop_p, train=train, seed=seed,
+                               sharding=mesh)
+    if mesh is not None:
         from .parallel.band_heads import encoder_banded
 
         return encoder_banded(x, p1, p2, pools=pools, drop_p=drop_p, train=train,
@@ -212,8 +238,13 @@ def conv_ae_loss(src: torch.Tensor, p1: Params, p2: Params, pd1: Params,
     :func:`conv_decoder_loss` with the same seed (the embedding crosses
     device memory), as carle_tpu/nets.py::conv_ae_loss past its kernel's
     VMEM limit: the same function and dropout mask.  ``mesh=BandTiling(n)``
-    runs both as n row bands."""
-    if check_mesh(mesh) is not None:
+    runs both as n row bands; ``mesh=SpaceSharding`` runs the encoder and the
+    decoder loss on row shards, as carle_tpu/nets.py::conv_ae_loss does."""
+    if isinstance(check_mesh(mesh), SpaceSharding):
+        kw = dict(drop_p=drop_p, train=train, seed=seed, mesh=mesh)
+        x = conv_encoder(src, p1, p2, pools=pools, **kw)
+        return conv_decoder_loss(x, pd1, pd2, obs, **kw)
+    if mesh is not None:
         from .parallel.band_heads import ae_loss_banded
 
         return ae_loss_banded(src, p1, p2, pd1, pd2, obs, pools=pools, drop_p=drop_p,
@@ -238,7 +269,10 @@ def conv_head(x: torch.Tensor, p: Params, *, pool: int, drop_p: float = 0.0,
     convolution, 1 its second)."""
     if pool < 2 or pool & (pool - 1):
         raise ValueError(f"pool must be a power of two >= 2, got {pool}")
-    if check_mesh(mesh) is not None:
+    if isinstance(check_mesh(mesh), SpaceSharding):
+        raise ValueError("SpaceSharding routes the two-stage encoder (conv_encoder); "
+                         "a single conv stage has no row-sharded route")
+    if mesh is not None:
         raise ValueError(
             "BandTiling applies to the two-stage paths (conv_encoder, "
             "conv_decoder_loss, conv_ae_loss); single-stage heads have no "
@@ -254,8 +288,13 @@ def conv_tail(x: torch.Tensor, p: Params, *, act: str, drop_p: float = 0.0,
     """The decoder stage ``act(drop(conv_transpose2d(x)))`` (stride 2, k 4,
     pad 1), act "relu" or "sigmoid", differentiable in x and its parameters.
     ``stage`` as :func:`conv_head` (2 the decoder's first stage, 3 its
-    second)."""
-    if check_mesh(mesh) is not None:
+    second).  ``mesh=SpaceSharding`` takes and gives row shards."""
+    if isinstance(check_mesh(mesh), SpaceSharding):
+        from .parallel.spatial_heads import tail_spatial
+
+        return tail_spatial(x, p, act=act, drop_p=drop_p, train=train, seed=seed, stage=stage,
+                            sharding=mesh)
+    if mesh is not None:
         raise ValueError(
             "BandTiling serves the training losses (conv_encoder, "
             "conv_decoder_loss, conv_ae_loss) — a banded conv_tail would "
@@ -272,8 +311,14 @@ def conv_loss_tail(x: torch.Tensor, p: Params, obs: torch.Tensor, *, act: str,
     ``sum((obs - act(drop(conv_transpose2d(x))))**2)`` over C, H, W ([N]
     float32; the caller divides by C*H*W for the mean) without the
     full-resolution reconstruction in device memory.  obs is uint8 or float32
-    and gets no gradient."""
-    if check_mesh(mesh) is not None:
+    and gets no gradient.  ``mesh=SpaceSharding`` takes row-sharded x and obs
+    and adds the slots' errors."""
+    if isinstance(check_mesh(mesh), SpaceSharding):
+        from .parallel.spatial_heads import loss_tail_spatial
+
+        return loss_tail_spatial(x, p, obs, act=act, drop_p=drop_p, train=train, seed=seed,
+                                 stage=stage, sharding=mesh)
+    if mesh is not None:
         raise ValueError(
             "BandTiling routes through conv_decoder_loss / conv_ae_loss "
             "(the banded error reduction needs the two-stage row-weighted "
@@ -290,8 +335,15 @@ def conv_decoder_loss(x: torch.Tensor, p1: Params, p2: Params, obs: torch.Tensor
     float32 sums over C, H, W; neither the middle activation nor the
     reconstruction reaches device memory.  Differentiable in the embedding x
     and the four parameters.  ``mesh=BandTiling(n)`` runs it as n row bands
-    whose row-weighted errors add up to this one."""
-    if check_mesh(mesh) is not None:
+    whose row-weighted errors add up to this one; ``mesh=SpaceSharding`` runs
+    the two stages as halo'd tails on row shards (the tail, then the loss
+    tail's error summed plainly), as carle_tpu/nets.py::conv_decoder_loss
+    does."""
+    if isinstance(check_mesh(mesh), SpaceSharding):
+        kw = dict(drop_p=drop_p, train=train, seed=seed, mesh=mesh)
+        a = conv_tail(x, p1, act="relu", stage=STAGE_DEC1, **kw)
+        return conv_loss_tail(a, p2, obs, act="sigmoid", stage=STAGE_DEC2, **kw)
+    if mesh is not None:
         from .parallel.band_heads import decoder_loss_banded
 
         return decoder_loss_banded(x, p1, p2, obs, drop_p=drop_p, train=train, seed=seed,
@@ -313,7 +365,7 @@ def ae_loss_by_stages(params: Dict[str, Params], src: torch.Tensor, obs: torch.T
     return conv_loss_tail(x, params["deconv2"], obs, act="sigmoid", stage=STAGE_DEC2, **kw)
 
 
-__all__ = ["Params", "BandTiling", "SpaceSharding", "check_mesh", "fused_route",
+__all__ = ["Params", "BandTiling", "SpaceSharding", "check_mesh", "fused_route", "whole",
            "whole_ae_route",
            "conv_init", "conv_transpose_init", "linear_init",
            "conv2d", "conv_transpose2d", "linear", "max_pool2", "dropout",

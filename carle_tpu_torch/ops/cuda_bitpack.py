@@ -81,7 +81,7 @@ def _data_rule(kernel, packed, rule_bits, num_steps, cm, layout):
     device, stream = stream_args(packed)
     kernel.launch(packed.data_ptr(), rule.data_ptr(), int(rule.ndim == 1),
                   out.data_ptr(), scratch.data_ptr(), n, a, b, steps, int(keep),
-                  device, stream)
+                  device, stream, count=1 if keep else steps)
     return out
 
 
@@ -90,7 +90,7 @@ def _static_rule(kernel, packed, birth, survive, num_steps, cm, layout):
     n, a, b = packed.shape
     device, stream = stream_args(packed)
     kernel.launch(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, a, b, steps,
-                  int(keep), int(cm), device, stream,
+                  int(keep), int(cm), device, stream, count=1 if keep else steps,
                   defines=(f"STATIC_RULE={pack_rule_bits(birth, survive):#07x}",))
     return out
 

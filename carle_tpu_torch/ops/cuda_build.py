@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 )
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
            "encoder_bwd", "ae_loss_bwd", "head_fwd", "head_bwd", "tail",
-           "decoder_loss_fwd", "decoder_loss_bwd")
+           "decoder_loss_fwd", "decoder_loss_bwd", "halo_step")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -119,9 +119,11 @@ D, ULL = ctypes.c_double, ctypes.c_ulonglong
 class CudaKernel:
     """One kernel's C launcher and its count of launches.
 
-    :meth:`launch` adds one to :attr:`launches` after the launcher returned
-    without error, and nowhere else; the launcher's own
-    ``cudaGetLastError()`` after the launch becomes a ``RuntimeError``.
+    :meth:`launch` adds the kernel launches the launcher made (``count``:
+    one, or one a generation where it loops over generations) to
+    :attr:`launches` after it returned without error, and nowhere else;
+    the launcher's own ``cudaGetLastError()`` after the launch becomes a
+    ``RuntimeError``.
     ``source`` names the ``csrc/<source>.cu`` that holds the launcher (the
     kernel's own name unless several launchers share a source); ``defines``
     of a launch select a library of that source built with them.
@@ -145,7 +147,8 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return lib, fn
 
-    def launch(self, *args, defines: Tuple[str, ...] = (), packed: bool = False) -> None:
+    def launch(self, *args, defines: Tuple[str, ...] = (), packed: bool = False,
+               count: int = 1) -> None:
         if defines:
             if defines not in self._variants:
                 self._variants[defines] = self._bind(defines)
@@ -158,8 +161,8 @@ class CudaKernel:
         if rc != 0:
             msg = lib.cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} ({rc})")
-        self.launches += 1
-        self.packed_launches += int(packed)
+        self.launches += count
+        self.packed_launches += count * int(packed)
 
 
 # argtypes mirror the extern "C" launchers in csrc/; every pointer and the
@@ -187,9 +190,9 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel("ae_loss_bwd", "ae_loss_bwd_launch",
                    [P] * 18 + [I] * 10 + [LL, LL, LL, I, I, D, ULL, I, P]),
         CudaKernel("head_fwd", "head_fwd_launch",
-                   [P] * 4 + [I] * 7 + [LL, I, I, D, ULL, I, P]),
+                   [P] * 4 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("head_bwd", "head_bwd_launch",
-                   [P] * 8 + [I] * 7 + [LL, I, I, D, ULL, I, P]),
+                   [P] * 8 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("tail_fwd", "tail_fwd_launch",
                    [P] * 4 + [I] * 6 + [LL, I, I, D, ULL, I, P], source="tail"),
         CudaKernel("tail_bwd", "tail_bwd_launch",
@@ -202,6 +205,12 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 9 + [I] * 8 + [LL, I, D, ULL, I, P]),
         CudaKernel("decoder_loss_bwd", "decoder_loss_bwd_launch",
                    [P] * 12 + [I] * 8 + [LL, I, D, ULL, I, P]),
+        CudaKernel("spatial_ca_step", "halo_step_launch",
+                   [I, P, P, P, P, I, I, P] + [I] * 8 + [P], source="halo_step"),
+        CudaKernel("spatial_multi_step", "halo_step_launch",
+                   [I, P, P, P, P, I, I, P] + [I] * 8 + [P], source="halo_step"),
+        CudaKernel("bit_spatial_multi_step", "halo_step_launch",
+                   [I, P, P, P, P, I, I, P] + [I] * 8 + [P], source="halo_step"),
     )
 }
 

@@ -106,5 +106,5 @@ def _ca_multi_step_kernel(grid: torch.Tensor, rule_bits, num_steps: int) -> torc
     device, stream = stream_args(grid)
     KERNEL_MULTI.launch(grid.data_ptr(), rule.data_ptr(), int(rule.ndim == 1),
                         out.data_ptr(), scratch.data_ptr(), n, h, w, steps, int(keep),
-                        device, stream)
+                        device, stream, count=1 if keep else steps)
     return out

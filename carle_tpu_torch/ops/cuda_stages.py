@@ -4,7 +4,9 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
 ``make_fused_loss_tail`` and ``make_fused_decoder_loss``).
 
 * :func:`head` — ``pool(relu(drop(conv3x3(x))))``, pool a power of two; its
-  backward gives dW, db and, with ``need_dx``, the input cotangent;
+  backward gives dW, db and, with ``need_dx``, the input cotangent; a
+  universe too wide for one band of the whole width (8192 cells at 1 -> 4
+  channels) runs in column tiles (``_head_bands``);
 * :func:`tail` — ``act(drop(conv_transpose2d(x)))`` (k4, s2, p1), act relu or
   sigmoid; backward dW, db, gx;
 * :func:`loss_tail` — the tail fused with ``sum((obs - y)**2)`` per instance;
@@ -216,22 +218,27 @@ def _empty(ref: torch.Tensor, *shape) -> torch.Tensor:
 # -- head --------------------------------------------------------------------
 
 
-def _head_fwd_smem(c, o, w, pool, r) -> int:
-    """csrc/head_fwd.cu::head_fwd_smem."""
-    return 4 * (o * c * 9 + o + c * (r * pool + 2) * (w + 2))
+def _head_fwd_smem(c, o, t, pool, r) -> int:
+    """csrc/head_fwd.cu::head_fwd_smem: a band of r output rows and a tile
+    of t output columns."""
+    return 4 * (o * c * 9 + o + c * (r * pool + 2) * (t * pool + 2))
 
 
-def _head_bwd_smem(c, o, w, pool, r) -> int:
+def _head_bwd_smem(c, o, t, pool, r) -> int:
     """csrc/head_bwd.cu::head_bwd_smem."""
-    return _head_fwd_smem(c, o, w, pool, r) + 4 * (o * r * pool * w + RED_FLOATS)
+    return _head_fwd_smem(c, o, t, pool, r) + 4 * (o * r * pool * t * pool + RED_FLOATS)
 
 
 @functools.lru_cache(maxsize=None)
-def _head_bands(c, o, h, w, pool):
-    """(R, shared memory) of the head's forward and of its backward kernel."""
-    return (_pick_band(lambda r: _head_fwd_smem(c, o, w, pool, r), h // pool, (8, 4, 2, 1)),
-            _pick_band(lambda r: _head_bwd_smem(c, o, w, pool, r), h // pool, (8, 4, 2, 1),
-                       SMEM_TARGET_BWD))
+def _head_bands(c, o, h, w, pool, cells=None):
+    """(R output rows a band, TC output columns a tile, shared memory) of the
+    head's forward and of its backward kernel: the whole width where one band
+    of it fits, else column tiles (``cells`` forces tiles of at most that
+    many cells)."""
+    return (_pick_tile(lambda r, t: _head_fwd_smem(c, o, t, pool, r), h // pool, (8, 4, 2, 1),
+                       w // pool, pool, cells=cells),
+            _pick_tile(lambda r, t: _head_bwd_smem(c, o, t, pool, r), h // pool, (8, 4, 2, 1),
+                       w // pool, pool, SMEM_TARGET_BWD, cells))
 
 
 def _head_shape(x, w, b, pool):
@@ -263,12 +270,12 @@ def _head_fwd_kernel(x, w, b, pool, drop_p, seed, stage):
     _check_drop(drop_p)
     n, c, o, h, wd = _head_shape(x, w, b, pool)
     _check_tensors(x, [("w", w), ("b", b)], [("x", x)])
-    r, smem = _head_bands(c, o, h, wd, pool)[0]
+    r, tc, smem = _head_bands(c, o, h, wd, pool, cuda_head.TILE_CELLS)[0]
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     out = _empty(x, n, o, h // pool, wd // pool)
     device, stream = stream_args(x)
     HEAD_FWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, c, o, h,
-                    wd, pool, r, smem, cell_kind(x), int(stage),
+                    wd, pool, r, tc, smem, cell_kind(x), int(stage),
                     float(drop_p), _seed_word(seed), device, stream, packed=_packed(x))
     return out
 
@@ -287,8 +294,8 @@ def _head_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx):
     _check_tensors(x, [("w", w), ("b", b), ("g", g)], [("x", x)])
     if tuple(g.shape) != (n, o, h // pool, wd // pool):
         raise ValueError(f"g shape {tuple(g.shape)} is not the head's output's")
-    r, smem = _head_bands(c, o, h, wd, pool)[1]
-    bands = -(-(h // pool) // r)
+    r, tc, smem = _head_bands(c, o, h, wd, pool, cuda_head.TILE_CELLS)[1]
+    bands = -(-(h // pool) // r) * -(-(wd // pool) // tc)   # blocks a universe
     x, w, b, g = x.contiguous(), w.contiguous(), b.contiguous(), g.contiguous()
     shapes = ((o, c, 3, 3), (o,))
     grads = _empty(x, o * c * 9 + o)
@@ -299,7 +306,7 @@ def _head_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx):
     HEAD_BWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
                     gc.data_ptr() if need_dx else None, partials.data_ptr(),
                     grads.data_ptr(), gx.data_ptr() if need_dx else None, n, c, o, h, wd,
-                    pool, r, smem, cell_kind(x), int(stage), float(drop_p),
+                    pool, r, tc, smem, cell_kind(x), int(stage), float(drop_p),
                     _seed_word(seed), device, stream, packed=_packed(x))
     return (*_split(grads, shapes), gx)
 

@@ -15,7 +15,7 @@ reset select) run on ``int32`` views of them, whose bits are the same.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,13 +79,11 @@ def select_words(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.
     return torch.where(cond, a.view(torch.int32), b.view(torch.int32)).view(torch.uint32)
 
 
-def pack_action(action_bits: torch.Tensor, config: EnvConfig) -> torch.Tensor:
-    """[inst, AH, AW] toggle patch -> uint32 [inst, H, W//32] with the patch
-    packed into the centred action window.
-
-    Packs only the window's words (a lead pad aligns the column offset to a
-    word) and writes them into a packed-size zero plane: O(cells/32), where
-    ``pack_grid(pad_action(...))`` would build a uint8 universe per step."""
+def pack_action_window(action_bits: torch.Tensor, config: EnvConfig
+                       ) -> Tuple[torch.Tensor, int, int]:
+    """The [inst, AH, AW] toggle patch packed into the words it covers of the
+    centred action window: (uint32 [inst, AH, nw], first row, first word).
+    A lead pad aligns the window's column offset to a word."""
     inst, ah, aw = action_bits.shape
     if (ah, aw) != (config.eff_action_height, config.eff_action_width):
         raise ValueError(f"action patch is {ah}x{aw}, config window is "
@@ -97,22 +95,45 @@ def pack_action(action_bits: torch.Tensor, config: EnvConfig) -> torch.Tensor:
     nw = -(-(lead + aw) // WORD)
     patch = torch.nn.functional.pad(action_bits.to(torch.uint8),
                                     (lead, nw * WORD - lead - aw))
+    return pack_grid(patch), r0, w0
+
+
+def pack_action(action_bits: torch.Tensor, config: EnvConfig) -> torch.Tensor:
+    """[inst, AH, AW] toggle patch -> uint32 [inst, H, W//32] with the patch
+    packed into the centred action window.
+
+    Packs only the window's words (:func:`pack_action_window`) and writes them
+    into a packed-size zero plane: O(cells/32), where
+    ``pack_grid(pad_action(...))`` would build a uint8 universe per step."""
+    words, r0, w0 = pack_action_window(action_bits, config)
+    inst, ah, nw = words.shape
     out = torch.zeros((inst, config.height, config.width // WORD), dtype=torch.uint32,
                       device=action_bits.device)
-    out[:, r0:r0 + ah, w0:w0 + nw] = pack_grid(patch)
+    out[:, r0:r0 + ah, w0:w0 + nw] = words
     return out
 
 
-def packed_transition(state: PackedEnvState, action: torch.Tensor, config: EnvConfig
-                      ) -> Tuple[PackedEnvState, torch.Tensor, torch.Tensor]:
+def packed_transition(state: PackedEnvState, action: torch.Tensor, config: EnvConfig,
+                      step_grid: Optional[Callable] = None
+                      ) -> Tuple[PackedEnvState, torch.Tensor, Any]:
     """:func:`packed_env_step` returning (state', the binarised uint8 patch,
-    the packed toggle plane), which the packed stack's wrappers read."""
+    the packed toggle plane), which the packed stack's wrappers read.
+
+    ``step_grid(grid, action_bits) -> (stepped grid, toggle plane)`` takes
+    the place of the XOR and the generation on one device: the row-sharded
+    stack passes its halo step, whose grid is row shards (``.map`` clears
+    them shard by shard).  The master reset and the counters are this
+    function's either way."""
     action_bits = (action != 0).to(torch.uint8)
     do_reset = action.to(torch.float32).mean() == 1.0
     any_action = (action != 0).any()
-    action_packed = pack_action(action_bits, config)
-    stepped = bit_multi_step(xor_words(state.grid, action_packed), state.rule_bits, 1)
-    new_grid = select_words(do_reset, torch.zeros_like(stepped), stepped)
+    if step_grid is None:
+        action_packed = pack_action(action_bits, config)
+        stepped = bit_multi_step(xor_words(state.grid, action_packed), state.rule_bits, 1)
+    else:
+        stepped, action_packed = step_grid(state.grid, action_bits)
+    clear = lambda g: select_words(do_reset.to(g.device), torch.zeros_like(g), g)
+    new_grid = clear(stepped) if isinstance(stepped, torch.Tensor) else stepped.map(clear)
     zero = torch.zeros_like(state.step_num)
     new_step = torch.where(do_reset, zero, state.step_num + 1)
     new_ssa = torch.where(do_reset, zero,

@@ -1,0 +1,262 @@
+"""The halo kernels: Life-like generations of row-sharded universes on CUDA,
+and their plain PyTorch twins (counterpart of
+carle_tpu/parallel/pallas_halo.py).
+
+* :func:`spatial_ca_step_cuda` — one uint8 generation
+  (``spatial_ca_step_pallas``);
+* :func:`spatial_multi_step_cuda` — K uint8 generations
+  (``spatial_multi_step_pallas``);
+* :func:`bit_spatial_multi_step_cuda` — K packed generations
+  (``bit_spatial_multi_step_pallas``), the rule as data or, with
+  ``static_rules``, fixed at compile time (one library a rule mask).
+
+Each takes :class:`~.mesh.RowShards` of [N, H/n, W] uint8 cells or
+[N, H/n, W/32] uint32 words and returns new shards.  All three launch
+``csrc/halo_step.cu`` for CUDA slots: once per device per generation, every
+slot on that device in one launch, each slot reading its ring neighbours'
+edge rows in place (the ring wraps: the torus).  Slots on several cards run
+each generation on every card's stream, each waiting on an event its
+neighbours' cards recorded after the previous generation; that path needs
+peer access and has not run on a machine of several cards.  For CPU slots
+each takes its twin (``*_plain``): ghost rows copied from the ring
+neighbours, the engines' update on the padded rows, columns rolled.  The
+step count is data (a host integer): no rebuild for another count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops import bitpack
+from ..ops.ca import apply_rule
+from ..ops.cuda_build import KERNELS, library, stream_args
+from ..rules import pack_rule_bits
+from .mesh import RowShards
+
+KERNEL_STEP = KERNELS["spatial_ca_step"]
+KERNEL_MULTI = KERNELS["spatial_multi_step"]
+KERNEL_BIT = KERNELS["bit_spatial_multi_step"]
+KIND_U8, KIND_U32 = 1, 2     # csrc/common.cuh
+MAX_SLOTS = 64               # csrc/halo_step.cu: slots of one device a launch covers
+
+__all__ = ["KERNEL_BIT", "KERNEL_MULTI", "KERNEL_STEP", "bit_spatial_multi_step_cuda",
+           "bit_spatial_multi_step_plain", "spatial_ca_step_cuda", "spatial_ca_step_plain",
+           "spatial_multi_step_cuda", "spatial_multi_step_plain"]
+
+
+# ---------------------------------------------------------------------------
+# plain twins
+# ---------------------------------------------------------------------------
+
+
+def _padded(parts: Sequence[torch.Tensor], s: int) -> torch.Tensor:
+    """Slot s's rows with a ghost row copied from each ring neighbour: the
+    last row of slot s-1 above, the first of slot s+1 below (torus)."""
+    n, p = len(parts), parts[s]
+    north = parts[(s - 1) % n][:, -1:].to(p.device)
+    south = parts[(s + 1) % n][:, :1].to(p.device)
+    return torch.cat([north, p, south], dim=1)
+
+
+def _step_u8(parts: List[torch.Tensor], rule_bits) -> List[torch.Tensor]:
+    out = []
+    for s, p in enumerate(parts):
+        g = _padded(parts, s).to(torch.int32)
+        rows = g[:, :-2] + g[:, 1:-1] + g[:, 2:]
+        counts = rows + torch.roll(rows, 1, dims=-1) + torch.roll(rows, -1, dims=-1) - g[:, 1:-1]
+        out.append(apply_rule(p, counts, torch.as_tensor(rule_bits).to(p.device)))
+    return out
+
+
+def _step_u32(parts: List[torch.Tensor], rule_bits, static_rules) -> List[torch.Tensor]:
+    """One packed generation: bitpack's carry-save count with the vertical
+    neighbours from the ghost rows, its rule mux (data or fixed)."""
+    out = []
+    for s, p in enumerate(parts):
+        g = _padded(parts, s).to(torch.int64)
+        a, b = bitpack._horizontal_planes(g)
+        s1, c1 = bitpack._csa(a[:, :-2], a[:, 1:-1], a[:, 2:])
+        s2, c2 = bitpack._csa(g[:, :-2], g[:, 2:], s1)
+        s3, c3 = bitpack._csa(b[:, :-2], b[:, 1:-1], b[:, 2:])
+        s4, c4 = bitpack._csa(s3, c1, c2)
+        counts = (s2, s4, c3 ^ c4, c3 & c4)
+        mid = g[:, 1:-1]
+        if static_rules is None:
+            new = bitpack._rule_mux(mid, counts, bitpack._rule_tensor(
+                torch.as_tensor(rule_bits).to(p.device), mid))
+        else:
+            new = bitpack._rule_mux_static(mid, counts, *static_rules)
+        out.append(new.to(torch.uint32))
+    return out
+
+
+def _multi_plain(x: RowShards, steps: int, step) -> RowShards:
+    parts = list(x.parts)
+    for _ in range(int(steps)):
+        parts = step(parts)
+    return RowShards([p.clone() for p in parts] if steps == 0 else parts, x.mesh, x.axis)
+
+
+def spatial_ca_step_plain(x: RowShards, rule_bits) -> RowShards:
+    """One uint8 generation of row-sharded universes, ghost rows by copy."""
+    return _multi_plain(x, 1, lambda parts: _step_u8(parts, rule_bits))
+
+
+def spatial_multi_step_plain(x: RowShards, rule_bits, num_steps: int) -> RowShards:
+    """``num_steps`` uint8 generations (:func:`spatial_ca_step_plain` each)."""
+    return _multi_plain(x, num_steps, lambda parts: _step_u8(parts, rule_bits))
+
+
+def bit_spatial_multi_step_plain(x: RowShards, rule_bits, num_steps: int,
+                                 static_rules: Optional[Tuple] = None) -> RowShards:
+    """``num_steps`` packed generations of row-sharded words."""
+    return _multi_plain(x, num_steps, lambda parts: _step_u32(parts, rule_bits, static_rules))
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+
+def _check(x: RowShards, dtype: torch.dtype, name: str, rule_bits) -> str:
+    """'cpu' or 'cuda': where the slots are, after checking the shards and
+    the rule."""
+    if not isinstance(x, RowShards):
+        raise TypeError(f"{name} takes RowShards (parallel.mesh.shard_rows), got {type(x)}")
+    for p, dev in zip(x.parts, x.mesh.devices):
+        if p.dtype != dtype or p.ndim != 3 or p.device != dev or not p.is_contiguous():
+            raise ValueError(f"{name}: every shard must be a contiguous {dtype} [N, H/n, W] "
+                             f"tensor on its slot's device")
+        if p.shape != x.parts[0].shape:
+            raise ValueError(f"{name}: shards of unequal shapes")
+    if dtype == torch.uint8 and x.parts[0].shape[-1] % 4:
+        raise ValueError(f"{name}: the uint8 kernel reads 4 cells a word; width "
+                         f"{x.parts[0].shape[-1]} % 4 != 0")
+    _rule(rule_bits, x)
+    return x.mesh.home.type
+
+
+def _rule(rule_bits, x: RowShards) -> torch.Tensor:
+    rule = torch.as_tensor(rule_bits, dtype=torch.int32)
+    n = x.parts[0].shape[0]
+    if rule.ndim > 1 or (rule.ndim == 1 and rule.shape[0] != n):
+        raise ValueError(f"rule must be a scalar or a [{n}] vector, got shape "
+                         f"{tuple(rule.shape)}")
+    return rule
+
+
+def _rules_by_device(rule_bits, x: RowShards) -> Dict[torch.device, torch.Tensor]:
+    rule = _rule(rule_bits, x)
+    return {d: rule.to(d).contiguous() for d in set(x.mesh.devices)}
+
+
+_PEERS_ENABLED = set()
+
+
+def _enable_peers(devices: Sequence[torch.device]) -> None:
+    lib = library("halo_step")
+    for a in devices:
+        for b in devices:
+            if a != b and (a.index, b.index) not in _PEERS_ENABLED:
+                rc = lib.halo_enable_peer(a.index, b.index)
+                if rc != 0:
+                    raise RuntimeError(f"peer access cuda:{a.index} -> cuda:{b.index} failed: "
+                                       f"{lib.cuda_error_string(rc).decode()}")
+                _PEERS_ENABLED.add((a.index, b.index))
+
+
+def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
+            defines: Tuple[str, ...] = ()) -> RowShards:
+    parts, mesh = x.parts, x.mesh
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {steps}")
+    if steps == 0:
+        return x.map(torch.clone)
+    n_inst, hl, w = parts[0].shape
+    if n_inst > 65535:
+        raise ValueError("a launch covers at most 65535 universes")
+    n = len(parts)
+    rules = _rules_by_device(rule_bits, x)
+    out = [torch.empty_like(p) for p in parts]
+    scratch = [torch.empty_like(p) for p in parts] if steps > 1 else out
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+    arrays = [ptrs(parts), ptrs(scratch), ptrs(out)]
+    groups: Dict[torch.device, List[int]] = {}
+    for s, dev in enumerate(mesh.devices):
+        groups.setdefault(dev, []).append(s)
+    for dev, slots in groups.items():
+        if len(slots) > MAX_SLOTS:
+            raise ValueError(f"at most {MAX_SLOTS} slots a device, {dev} has {len(slots)}")
+    slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
+    packed = kind == KIND_U32
+
+    def launch(dev, t0, t1):
+        rule = rules[dev]
+        kernel.launch(kind, *(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
+                      ctypes.cast(slot_arrays[dev], ctypes.c_void_p), len(groups[dev]), n,
+                      rule.data_ptr(), int(rule.ndim == 1), n_inst, hl, w, steps, t0, t1,
+                      *stream_args(parts[groups[dev][0]]), defines=defines, packed=packed,
+                      count=t1 - t0)   # the launcher launches once a generation
+
+    if len(groups) == 1:
+        launch(mesh.home, 0, steps)
+        return RowShards(out, mesh, x.axis)
+    # several cards: generation t on a card waits for generation t - 1 on the
+    # cards holding its slots' ring neighbours (their rows are its ghost
+    # rows, and it overwrites the buffer they read)
+    devs = list(groups)
+    _enable_peers(devs)
+    neighbours = {d: {mesh.devices[(s + k) % n] for s in groups[d] for k in (-1, 1)} - {d}
+                  for d in devs}
+
+    def record():
+        events = {}
+        for d in devs:
+            events[d] = torch.cuda.Event()
+            events[d].record(torch.cuda.current_stream(d))
+        return events
+
+    events = record()   # the inputs' producers
+    for t in range(steps):
+        for d in devs:
+            for nb in neighbours[d]:
+                torch.cuda.current_stream(d).wait_event(events[nb])
+            launch(d, t, t + 1)
+        events = record()
+    for d in devs:   # each card's outputs are read by its neighbours' next users
+        for nb in neighbours[d]:
+            torch.cuda.current_stream(d).wait_event(events[nb])
+    return RowShards(out, mesh, x.axis)
+
+
+def spatial_ca_step_cuda(x: RowShards, rule_bits) -> RowShards:
+    """One uint8 generation of row-sharded universes [N, H, W]; the rule a
+    scalar or an [N] vector."""
+    if _check(x, torch.uint8, "spatial_ca_step", rule_bits) == "cpu":
+        return spatial_ca_step_plain(x, rule_bits)
+    return _launch(KERNEL_STEP, x, rule_bits, 1, KIND_U8)
+
+
+def spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int) -> RowShards:
+    """``num_steps`` uint8 generations of row-sharded universes."""
+    if _check(x, torch.uint8, "spatial_multi_step", rule_bits) == "cpu":
+        return spatial_multi_step_plain(x, rule_bits, num_steps)
+    return _launch(KERNEL_MULTI, x, rule_bits, num_steps, KIND_U8)
+
+
+def bit_spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int,
+                                static_rules: Optional[Tuple] = None) -> RowShards:
+    """``num_steps`` packed generations of row-sharded words [N, H, W/32];
+    ``static_rules=(birth, survive)`` fixes the rule at compile time (the
+    rule argument is then not read)."""
+    if _check(x, torch.uint32, "bit_spatial_multi_step", rule_bits) == "cpu":
+        return bit_spatial_multi_step_plain(x, rule_bits, num_steps, static_rules)
+    if static_rules is None:
+        return _launch(KERNEL_BIT, x, rule_bits, num_steps, KIND_U32)
+    mask = pack_rule_bits(*static_rules)
+    return _launch(KERNEL_BIT, x, mask, num_steps, KIND_U32,
+                   defines=(f"STATIC_RULE={mask:#07x}",))

@@ -32,7 +32,18 @@ Phases, in order; any failure exits non-zero without the final line:
            (column tiles); conv_ae_loss on 4 x 2048² (past the whole-AE
            kernel) against encoder + decoder loss, bit for bit; tiles forced
            at 256² (48 cells, edges inside words) against one tile; 65,600
-           instances a launch;
+           instances a launch; the pool ties of the 8192² encoder backwards
+           separated from error (float64 twin pre-activations mark the
+           windows whose top two values are equal or within 4, 16 or 64
+           float32 ulps; the cotangent is zeroed where they reach; outside
+           the near ties kernel against the float32 and float64 twins within
+           1e-4); the head at width 8192 (column tiles) against its twin,
+           and tiles forced at 256² against one tile;
+   spatial_kernels  the three halo kernels at 8192² on 4 slots of one card
+           (uint8 1 and 8 generations, packed 64 with the rule as data and
+           with Life fixed) against their twins and the single-device
+           engines on the unsharded universe, bit for bit, with their times
+           beside the engines'; a small ragged case with a rule vector;
    engines each of the five packed and uint8 engines once at bench.py's
            geometry through its public function: all leave bench.py's
            checksum, the live-cell sum of the plain twin;
@@ -76,12 +87,21 @@ Phases, in order; any failure exits non-zero without the final line:
            (dropout off, batch_size 4, 16 steps); the banded stack on 8
            universes of 256² with BandTiling(4), card against CPU; each leg
            profiled as in the profile phase;
-9. profile 64 steps of the batched battery and 64 training steps, uint8 and
+9. spatial the row-sharded tier at full size on 4 slots of one card: the
+           halo kernels through parallel.spatial against the engines; the
+           packed stack with the mesh through run_actions (8192², 64 x 64
+           actions at p = 0.2): Speed dense and packed (bit for bit against
+           the mesh=None stack; the packed one gathers and unpacks nothing),
+           RND2D with SpaceSharding over 128 steps (2 updates, dropout on),
+           AE2D with SpaceSharding, free_steps(64); RND2D with dropout off
+           against BandTiling(512) (rtol 1e-4 through 2 updates); RND2D's
+           step profiled;
+10. profile 64 steps of the batched battery and 64 training steps, uint8 and
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
-10. report a {"kernels": [...]} line with each kernel's launches on the main
-           paths (battery, server, train, routes, wrappers, packed, bands and
-           engines, each counted from zero just before it; the rows of the
+11. report a {"kernels": [...]} line with each kernel's launches on the main
+           paths (battery, server, train, routes, wrappers, packed, bands,
+           engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
            bands path), then the card's name and power limit, then the ok
            line.
@@ -102,10 +122,15 @@ by the gradient's own scale).  The autoencoder's three routes against each
 other: error rtol 1e-4, gradients as above (one mask, other summation
 orders); ae_forward's reconstruction error against ae_loss_fwd's: rtol 1e-4.
 The encoder's gradients at 8192² (band shapes and global): 2e-3 of each
-leaf's largest entry (134 million stage-1 positions: the pool-tie shares that
-move between summation orders add up; see phase_band_kernels).  Column tiles
+leaf's largest entry over all outputs (134 million stage-1 positions: the
+pool-tie shares that move between summation orders add up; see
+phase_band_kernels), and 1e-4 outside the pool windows whose top two values
+lie within 64 float32 ulps without being equal (_tie_analysis).  Column tiles
 against one tile: encoder outputs bit for bit, sums and gradients 1e-5 of each
 leaf's largest entry.  Banded stack against unbanded at 8192²: rtol 1e-4.
+Halo kernels against twins and engines: bit for bit.  Sharded RND2D against
+BandTiling(512): rtol 1e-4 (parameter-gradient sums in another order,
+through 2 Adam updates).  Phase and build times are printed as they end.
 """
 
 from __future__ import annotations
@@ -180,6 +205,12 @@ SOURCES = {
                          "carle_tpu/ops/pallas_head.py:1481"),
     "decoder_loss_bwd": ("carle_tpu_torch/csrc/decoder_loss_bwd.cu",
                          "carle_tpu/ops/pallas_head.py:1506"),
+    "spatial_multi_step": ("carle_tpu_torch/csrc/halo_step.cu",
+                           "carle_tpu/parallel/pallas_halo.py:222"),
+    "spatial_ca_step": ("carle_tpu_torch/csrc/halo_step.cu",
+                        "carle_tpu/parallel/pallas_halo.py:396"),
+    "bit_spatial_multi_step": ("carle_tpu_torch/csrc/halo_step.cu",
+                               "carle_tpu/parallel/pallas_halo.py:327"),
 }
 # Rows whose kernel is another row's with band tiling's feature added: the
 # launches they report are their kernel's on the bands path, where every
@@ -197,6 +228,8 @@ FEATURE_ROWS = {
 }
 BAND_SIZE = 8192                     # pod_smoke.py's spatial8k universe, one of it
 RND_BANDS, PRED_BANDS = 512, 128     # BandTiling(size // 16), BandTiling(size // 64)
+SPATIAL_ROWS = ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
+                "bit_spatial_multi_step_static")
 # the kernels each main path must launch
 PATH_KERNELS = {
     "battery": ("ca_step", "encoder_fwd", "ae_loss_fwd"),
@@ -213,6 +246,8 @@ PATH_KERNELS = {
               "decoder_loss_bwd"),
     "engines": ("bit_multi_step_static", "bit_multi_step_static_cm", "bit_multi_step_cm",
                 "ca_multi_step"),
+    "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
+                "encoder_fwd", "encoder_bwd", "tail_fwd", "tail_bwd"),
 }
 # the kernels the packed path must launch on packed words
 PACKED_INPUT_KERNELS = ("encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
@@ -837,6 +872,45 @@ def phase_stage_kernels(torch, timer, gen):
         shape=label.replace("160", "64") + ", g [64,4,128,128], drop 0.1", cases=detail)
     log(f"head_bwd ok: {results['head_bwd']}")
 
+    # -- the head's width repair: 8192 wide, and tiles forced at 256² ----------
+    # a generator of its own: the phases after this one keep their draws
+    hgen = torch.Generator(device=dev).manual_seed(8192)
+    hrand = lambda *shape: torch.randn(shape, generator=hgen, device=dev)
+    wide = (torch.rand((1, 1, 16, 8192), generator=hgen, device=dev) < 0.2).to(torch.uint8)
+    gw = hrand(1, 4, 8, 4096)
+    tiles = {"plans_8192": cuda_stages._head_bands(1, 4, 16, 8192, 2)}
+    for p in (0.0, DROP_P):
+        close(cuda_stages.head_fwd(wide, w1, b1, 2, p, seed), cuda_stages.head_fwd_plain(
+            wide, w1, b1, 2, p, seed), f"head_fwd at width 8192, drop {p}")
+        errs = _leaf_errors(cuda_stages.head_bwd(wide, w1, b1, gw, 2, p, seed, need_dx=True),
+                            cuda_stages.head_bwd_plain(wide, w1, b1, gw, 2, p, seed,
+                                                       need_dx=True))
+        check(max(errs) < 1e-4, f"head_bwd at width 8192 (drop {p}) leaves differ: {errs}")
+        tiles[f"width_8192_drop_{p}_max_leaf_rel_err"] = max(errs)
+    x8 = cells[:nb].contiguous()
+    x8[: nb // 4, :, :, :100] = 0   # blank stretches across tile edges: pool windows tie
+    g8 = hrand(nb, 4, 128, 128)
+    calls = {"head_fwd": lambda x: (cuda_stages.head_fwd(x, w1, b1, 2, DROP_P, seed),),
+             "head_bwd": lambda x: cuda_stages.head_bwd(x, w1, b1, g8, 2, DROP_P, seed,
+                                                        need_dx=True)}
+    exact = {"head_fwd": 0, "head_bwd": 2}   # the output, the input cotangent: bit for bit
+    one = {k: fn(x8) for k, fn in calls.items()}
+    one_ms = {k: timer.ms(lambda: fn(x8), 10) for k, fn in calls.items()}
+    try:
+        cuda_head.TILE_CELLS = 48      # six tiles a row, the last ragged
+        for k, fn in calls.items():
+            got = _bits_twice(lambda: fn(x8), f"{k} in column tiles")
+            check(torch.equal(got[exact[k]], one[k][exact[k]]),
+                  f"{k} in column tiles: its output differs from one tile's")
+            worst = max(_leaf_errors(got, one[k]))
+            check(worst < 1e-5, f"{k} in column tiles differs from one tile: {worst}")
+            tiles[k] = dict(max_leaf_rel_err=worst, ms=timer.ms(lambda: fn(x8), 10),
+                            one_tile_ms=one_ms[k])
+    finally:
+        cuda_head.TILE_CELLS = None
+    results["head_tiles"] = tiles
+    log(f"head width repair ok: {json.dumps(tiles)}")
+
     # -- tail and loss tail ------------------------------------------------------
     tail_cases = {  # label: (x, wt, b, act, stage)
         "AE deconv2, f32 [160,1,128,128] -> [160,1,256,256], sigmoid": (mid, wt2, bt2, "sigmoid", 3),
@@ -1027,6 +1101,99 @@ def _decoder_bound(n, h, w, obs_bytes, backward):
                     2 * n * (d1 + d2) + 3 * n * hw, FP32_FLOPS)
 
 
+# the encoder's gradients at 8192² sum over 134 million stage-1 positions
+# (33 times the 256² checks'): a pool window whose maxima tie in the kernel's
+# summation order and differ in the last bit in cuDNN's sends its share
+# elsewhere, and the moved shares reach ~1e-3 of a leaf (9.4e-4 on the bands
+# phase's draw); _tie_analysis holds the rest to 1e-4
+TOL_TIES = 2e-3
+TIE_ULPS = (4, 16, 64)   # "a few float32 ulps": the tie test's widths, reported side by side
+
+
+def _ties(torch, a, pool, ulps):
+    """(exact, near) bool [N, C, H/pool, W/pool]: pool windows of the
+    activation ``a`` (float64) whose two largest values are positive and
+    equal, or positive and apart by at most ``ulps`` float32 ulps."""
+    n, c, h, w = a.shape
+    win = a.reshape(n, c, h // pool, pool, w // pool, pool).permute(0, 1, 2, 4, 3, 5)
+    top = win.reshape(n, c, h // pool, w // pool, pool * pool).topk(2, dim=-1).values
+    v1, v2 = top[..., 0], top[..., 1]
+    ulp = torch.exp2(torch.floor(torch.log2(v1.clamp_min(1e-30))) - 23)
+    return (v1 > 0) & (v1 == v2), (v1 > 0) & (v1 != v2) & (v1 - v2 <= ulps * ulp)
+
+
+def _tie_analysis(torch, x, w4, g, pools, drop_p, seed, mask):
+    """Separates the pool-tie effect from error in the encoder's backward.
+    The twin's stage-1 and stage-2 pre-activations in float64 mark the pool
+    windows whose top two values are equal (exact ties: equal neighbourhoods)
+    or within a few float32 ulps (near ties; TIE_ULPS); a window's share is
+    removed by zeroing the output cotangent wherever the window reaches (its
+    own stage-2 output, or for a stage-1 window every output whose 3x3
+    stage-2 convolution over p2 x p2 pooled positions reads it).  Reported,
+    each leaf's largest difference over its largest entry:
+
+    * kernel against the float32 twin, every tie removed (the check asked
+      for), and the share of outputs left;
+    * kernel against the float32 and the float64 twin with only the near
+      ties removed: exact ties share equally in both, so this covers almost
+      every output and measures the kernel's own error; held to 1e-4 at the
+      widest width (the near ties found are then a superset);
+    * the float32 twin against the float64 twin on the same cotangent: what
+      the twin's summation order does to exact ties.
+    """
+    import torch.nn.functional as F
+
+    from carle_tpu_torch.ops import cuda_head
+
+    p1, p2 = pools
+    w1, b1, w2, b2 = (t.double() for t in w4)
+    mask64 = None if mask is None else mask.double()
+    xd = cuda_head.cells(x).double()
+    d1, scale = cuda_head._dropout(F.conv2d(xd, w1, b1, padding=1), cuda_head.STAGE_ENC1,
+                                   drop_p, seed)
+    x1 = F.max_pool2d(F.relu(d1), p1)
+    if mask64 is not None:
+        x1 = x1 * mask64[:, None, :, None]
+    d2, _ = cuda_head._dropout(F.conv2d(x1, w2, b2, padding=1), cuda_head.STAGE_ENC2, drop_p,
+                               seed)
+
+    def float64(gc):
+        return cuda_head._encoder_bwd_from_planes(xd, d1, x1, d2, w2, gc.double(), pools,
+                                                  scale, mask64)
+
+    kernel = lambda gc: cuda_head.encoder_bwd(x, *w4, gc, pools, drop_p, seed, mask)
+    twin = lambda gc: cuda_head.encoder_bwd_plain(x, *w4, gc, pools, drop_p, seed, mask)
+    full = float64(g)
+    out = {"all_outputs": dict(kernel_vs_twin=max(_leaf_errors(kernel(g), twin(g))),
+                               kernel_vs_float64=max(_leaf_errors(kernel(g), full)),
+                               twin_vs_float64=max(_leaf_errors(twin(g), full)))}
+    del full
+    reach = lambda t: F.max_pool2d(F.max_pool2d(t.any(dim=1, keepdim=True).double(), 3,
+                                                stride=1, padding=1), p2) > 0
+    for ulps in TIE_ULPS:
+        e1, n1 = _ties(torch, F.relu(d1), p1, ulps)
+        e2, n2 = _ties(torch, F.relu(d2), p2, ulps)
+        near = n2 | reach(n1)
+        tied = near | e2 | reach(e1)
+        g_all, g_near = g * (~tied).to(g.dtype), g * (~near).to(g.dtype)
+        f64 = float64(g_near)
+        out[f"{ulps}_ulps"] = dict(
+            exact_stage1=int(e1.sum()), near_stage1=int(n1.sum()),
+            exact_stage2=int(e2.sum()), near_stage2=int(n2.sum()), outputs=int(g.numel()),
+            outputs_outside_all_ties=int((~tied).sum()),
+            kernel_vs_twin_outside_all_ties=max(_leaf_errors(kernel(g_all), twin(g_all))),
+            outputs_outside_near_ties=int((~near).sum()),
+            kernel_vs_twin_outside_near_ties=max(_leaf_errors(kernel(g_near), twin(g_near))),
+            kernel_vs_float64_outside_near_ties=max(_leaf_errors(kernel(g_near), f64)),
+            twin_vs_float64_outside_near_ties=max(_leaf_errors(twin(g_near), f64)))
+        del e1, n1, e2, n2, near, tied, g_all, g_near, f64
+    widest = out[f"{TIE_ULPS[-1]}_ulps"]
+    for key in ("kernel_vs_twin_outside_near_ties", "kernel_vs_float64_outside_near_ties"):
+        check(widest[key] < 1e-4, f"encoder_bwd outside the near-tied pool windows: {key} "
+              f"{widest[key]} (1e-4 of each leaf)")
+    return out
+
+
 def phase_band_kernels(torch, timer, gen):
     """Row 3's mask and row 6's row weights at the band shapes of the 8192²
     slice, against their twins; the width repair (the global encoders and
@@ -1042,13 +1209,8 @@ def phase_band_kernels(torch, timer, gen):
 
     dev = torch.device("cuda")
     size, seed, tol = BAND_SIZE, 31415, 1e-4
-    # the encoder's gradients at 8192² sum over 134 million stage-1 positions
-    # (33 times the 256² checks'): a pool window whose maxima tie in the
-    # kernel's summation order and differ in the last bit in cuDNN's sends its
-    # share elsewhere, and the moved shares reach ~1e-3 of a leaf (9.4e-4 on
-    # this phase's draw)
-    tol_ties = 2e-3
-    results, report = {}, {}
+    tol_ties = TOL_TIES
+    results, report, ties = {}, {}, {}
     universe = (torch.rand((1, 1, size, size), generator=gen, device=dev) < 0.2).to(torch.uint8)
     words = bitpack.pack_grid(universe)
     rnd = init_predictor_params(EnvConfig(), gen, dev)
@@ -1089,9 +1251,9 @@ def phase_band_kernels(torch, timer, gen):
               "encoder_bwd with a mask of ones is not the unmasked kernel")
     n, h, w = RND_BANDS, 32, size
     b, by = _encoder_bound(n, h, w, 4, 1, 4, 2, 1 / 8, False)
+    fwd_ms = timer.ms(lambda: cuda_head.encoder_fwd(xw, *w4, (4, 2), DROP_P, seed, mask), 10)
     results["encoder_fwd_mask"] = dict(
-        max_abs_err=fwd_err,
-        ms=timer.ms(lambda: cuda_head.encoder_fwd(xw, *w4, (4, 2), DROP_P, seed, mask), 10),
+        max_abs_err=fwd_err, ms=fwd_ms,
         ms_u8=timer.ms(lambda: cuda_head.encoder_fwd(xb, *w4, (4, 2), DROP_P, seed, mask), 10),
         plain_ms=timer.ms(lambda: cuda_head.encoder_fwd_plain(xw, *w4, (4, 2), DROP_P, seed,
                                                               mask), 2),
@@ -1109,6 +1271,10 @@ def phase_band_kernels(torch, timer, gen):
         plan=cuda_head._encoder_bwd_bands(h, w, 4, 1, 4, 2),
         shape=f"u32 [{n},1,32,{size // 32}], g [{n},1,4,{size // 8}], mask, drop 0.1")
     log(f"encoder_bwd_mask ok: {results['encoder_bwd_mask']}")
+    for p in (0.0, DROP_P):   # after the checks above: its float64 planes take memory
+        ties[f"rnd_bands_drop_{p}"] = _tie_analysis(torch, xb, w4, g, (4, 2), p, seed, mask)
+        log(f"pool ties, RND bands, drop {p}: {json.dumps(ties[f'rnd_bands_drop_{p}'])}")
+        torch.cuda.empty_cache()
     del xb, xw, g
 
     # -- row 6: the AE2D decoder loss on 128 bands (Prediction's geometry) ------
@@ -1204,6 +1370,16 @@ def phase_band_kernels(torch, timer, gen):
                                                              seed), 5),
         bwd_max_leaf_rel_err=max(errs))
     report["width_8192"] = width
+    for name, params, pools in (("rnd_predictor", rnd, (4, 2)), ("ae_encoder", ae, (2, 2))):
+        w4 = conv(params)
+        side = size // (pools[0] * pools[1])
+        gg = torch.randn((1, params["conv2"]["w"].shape[0], side, side), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(17))
+        ties[f"{name}_{size}"] = _tie_analysis(torch, universe, w4, gg, pools, DROP_P, seed,
+                                               None)
+        log(f"pool ties, {name} at {size}²: {json.dumps(ties[f'{name}_{size}'])}")
+        torch.cuda.empty_cache()
+    report["pool_ties"] = ties
     log(f"width repair at {size}² ok: {json.dumps(width)}")
     del emb, universe, words
     torch.cuda.empty_cache()
@@ -1391,6 +1567,340 @@ def phase_bands(torch, cuda_build):
         del ro, carry
     check(cuda_head.TILE_CELLS is None, "a forced tile width leaked into the slice")
     log(f"bands ok: {json.dumps({k: v for k, v in out.items() if not k.startswith('profile')})}")
+    return counts, out
+
+
+SPATIAL_SIZE, SPATIAL_SLOTS = 8192, 4   # job_spatial8k's universe, rows over 4 mesh slots
+
+
+def _spatial_mesh(torch):
+    from carle_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device("cuda")] * SPATIAL_SLOTS, "space")
+
+
+def phase_spatial_kernels(torch, timer, gen):
+    """Rows 13-15 at 8192² on 4 slots of one card, each against its plain
+    twin on the card and the single-device engine on the unsharded universe,
+    bit for bit: uint8 one generation and 8, packed 64 with the rule as data
+    and with Life fixed; a small ragged case ([2, 4 x 64, 128] uint8, 3
+    universes packed, a per-universe rule).  Device ms after an L2 flush,
+    beside the engine's at the same total shape and the bound."""
+    import numpy as np
+
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
+    dev = torch.device("cuda")
+    mesh = _spatial_mesh(torch)
+    size, life = SPATIAL_SIZE, rules.LIFE
+    grid = (torch.rand((1, size, size), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    words = bitpack.pack_grid(grid)
+    g8, g32 = shard_rows(grid, mesh), shard_rows(words, mesh)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a.parts, b.parts))
+    cells, word_count = size * size, size * size // 32
+    results = {}
+    # bounds as the engines': the universe read once and written once (the
+    # TPU kernel keeps its shard on chip across the generations), the
+    # operations once a generation
+    cases = {  # row: (kernel call, twin call, engine call, steps, bound, shape)
+        "spatial_ca_step": (
+            lambda: cuda_halo.spatial_ca_step_cuda(g8, life),
+            lambda: cuda_halo.spatial_ca_step_plain(g8, life),
+            lambda: cuda_ca.ca_multi_step(grid, life, 1), 1,
+            bound_ms(2 * cells + 4, OPS_PER_U8_WORD * cells / 4, INT32_OPS),
+            f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 1 generation, Life as data"),
+        "spatial_multi_step": (
+            lambda: cuda_halo.spatial_multi_step_cuda(g8, life, 8),
+            lambda: cuda_halo.spatial_multi_step_plain(g8, life, 8),
+            lambda: cuda_ca.ca_multi_step(grid, life, 8), 8,
+            bound_ms(2 * cells + 4, 8 * OPS_PER_U8_WORD * cells / 4, INT32_OPS),
+            f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 8 generations"),
+        "bit_spatial_multi_step": (
+            lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, life, 64),
+            lambda: cuda_halo.bit_spatial_multi_step_plain(g32, life, 64),
+            lambda: cuda_bitpack.bit_multi_step(words, life, 64), 64,
+            bound_ms(8 * word_count + 4, 64 * OPS_PER_WORD * word_count, INT32_OPS),
+            f"u32 [1,{size},{size // 32}] over {SPATIAL_SLOTS} slots, 64 generations, "
+            "Life as data"),
+        "bit_spatial_multi_step_static": (
+            lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, 0, 64, ([3], [2, 3])),
+            lambda: cuda_halo.bit_spatial_multi_step_plain(g32, 0, 64, ([3], [2, 3])),
+            lambda: cuda_bitpack.bit_multi_step_static(words, [3], [2, 3], 64), 64,
+            bound_ms(8 * word_count, 64 * OPS_PER_WORD_STATIC * word_count, INT32_OPS),
+            f"u32 [1,{size},{size // 32}] over {SPATIAL_SLOTS} slots, 64 generations, "
+            "Life fixed (-DSTATIC_RULE)"),
+    }
+    for name, (kernel, twin, engine, steps, (b, by), shape) in cases.items():
+        got = kernel()
+        check(same(got, twin()), f"{name} at {size}² differs from its twin")
+        check(torch.equal(gather_rows(got), engine()),
+              f"{name} at {size}² differs from the single-device engine")
+        results[name] = dict(max_abs_err=0.0, ms=timer.ms(kernel, 5),
+                             engine_ms=timer.ms(engine, 5), plain_ms=timer.ms(twin, 1),
+                             bound_ms=b, bound_by=by, library_ms=None, shape=shape)
+        log(f"{name} ok: {results[name]}")
+    # the ragged case: 3 universes, a per-universe rule, rows 4 x 64 over 4 slots
+    small = torch.from_numpy((np.random.RandomState(5).rand(3, 4 * 64, 128) < 0.35)
+                             .astype(np.uint8)).to(dev)
+    vec = torch.tensor([rules.LIFE, rules.MORLEY, rules.DAY_AND_NIGHT], dtype=torch.int32,
+                       device=dev)
+    s8 = shard_rows(small[:2].contiguous(), mesh)
+    check(torch.equal(gather_rows(cuda_halo.spatial_ca_step_cuda(s8, vec[:2])),
+                      cuda_ca.ca_multi_step(small[:2], vec[:2], 1)), "ragged spatial_ca_step")
+    check(torch.equal(gather_rows(cuda_halo.spatial_multi_step_cuda(s8, vec[:2], 7)),
+                      cuda_ca.ca_multi_step(small[:2], vec[:2], 7)), "ragged spatial_multi_step")
+    sw = bitpack.pack_grid(small)
+    check(torch.equal(gather_rows(cuda_halo.bit_spatial_multi_step_cuda(
+        shard_rows(sw, mesh), vec, 9)), cuda_bitpack.bit_multi_step(sw, vec, 9)),
+        "ragged bit_spatial_multi_step")
+    log("halo kernels, ragged case ([2, 256, 128] uint8, 3 universes packed, rule vector) ok")
+    results["spatial_heads"] = _slot_head_kernels(torch, timer, gen, g32)
+    return results
+
+
+def _slot_head_kernels(torch, timer, gen, g32):
+    """The kernels SpaceSharding launches, at the blocks the spatial path
+    gives them (8192² on 4 slots), against their twins: the row-masked
+    encoder on packed words at RND2D's pools (4, 2) and AE2D's (2, 2), and
+    AE2D's two decoder tails (relu, then sigmoid) on their halo'd blocks;
+    the first slot (its mask zeroes the rows above the universe) and the
+    second; dropout off and on with the slot's seed.  Forwards within 1e-4,
+    the tails' gradients within 1e-4 of each leaf, the encoder's within
+    TOL_TIES and 1e-4 outside the near-tied pool windows (_tie_analysis)."""
+    from carle_tpu_torch import EnvConfig, nets
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params
+    from carle_tpu_torch.ops import cuda_head, cuda_stages
+    from carle_tpu_torch.parallel import spatial_heads as sh
+
+    dev = torch.device("cuda")
+    seed, tol, slots = 27182, 1e-4, (0, 1)
+    obs = g32.map(lambda p: p[:, None])                       # [1, 1, 2048, 256] a slot
+    rnd, ae = init_predictor_params(EnvConfig(), gen, dev), init_ae_params(gen, dev)
+    wb = lambda p: (p["w"], p["b"])
+    out = {}
+
+    def close(got, want, what):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=lambda m: f"{what}: {m}")
+        return float((got - want).abs().max())
+
+    for net, params, pools in (("rnd", rnd, (4, 2)), ("ae", ae, (2, 2))):
+        w4 = wb(params["conv1"]) + wb(params["conv2"])
+        blocks = sh._encoder_blocks(obs, pools)
+        for s in slots:
+            xp, mask = blocks[s]
+            s_seed = sh._shard_seed(seed, s)
+            label = (f"{net} encoder, slot {s}: u32 {list(xp.shape)}, pools {pools}, "
+                     f"mask {list(mask.shape)} ({int(mask.sum())} rows inside)")
+            r = {"fwd_max_abs_err": 0.0, "bwd_max_leaf_rel_err": 0.0}
+            for p in (0.0, DROP_P):
+                y = cuda_head.encoder_fwd(xp, *w4, pools, p, s_seed, mask)
+                r["fwd_max_abs_err"] = max(r["fwd_max_abs_err"], close(
+                    y, cuda_head.encoder_fwd_plain(xp, *w4, pools, p, s_seed, mask), label))
+                g = torch.randn(y.shape, generator=gen, device=dev)
+                grads = _bits_twice(
+                    lambda: cuda_head.encoder_bwd(xp, *w4, g, pools, p, s_seed, mask), label)
+                errs = _leaf_errors(grads, cuda_head.encoder_bwd_plain(xp, *w4, g, pools, p,
+                                                                       s_seed, mask))
+                check(max(errs) < TOL_TIES, f"{label} (drop {p}) leaves differ: {errs}")
+                r["bwd_max_leaf_rel_err"] = max(r["bwd_max_leaf_rel_err"], max(errs))
+            r["ties_drop"] = _tie_analysis(torch, xp, w4, g, pools, DROP_P, s_seed, mask)
+            r["fwd_ms"] = timer.ms(
+                lambda: cuda_head.encoder_fwd(xp, *w4, pools, DROP_P, s_seed, mask), 5)
+            r["bwd_ms"] = timer.ms(
+                lambda: cuda_head.encoder_bwd(xp, *w4, g, pools, DROP_P, s_seed, mask), 3)
+            out[label] = r
+            log(f"slot heads: {label} ok: {json.dumps(r)}")
+            torch.cuda.empty_cache()
+
+    # AE2D's decoder on the blocks the path gives it: its embedding, then the
+    # first tail's output, each with one halo row a side
+    tag = nets.SpaceSharding(obs.mesh, obs.axis)
+    enc = sh.encoder_spatial(obs, ae["conv1"], ae["conv2"], pools=(2, 2), drop_p=0.0,
+                             train=False, seed=None, sharding=tag)   # [1, 2, 512, 2048]
+    mid = sh.tail_spatial(enc, ae["deconv1"], act="relu", drop_p=0.0, train=False, seed=None,
+                          stage=nets.STAGE_DEC1, sharding=tag)       # [1, 1, 1024, 4096]
+    for x, params, act, stage in ((enc, ae["deconv1"], "relu", nets.STAGE_DEC1),
+                                  (mid, ae["deconv2"], "sigmoid", nets.STAGE_DEC2)):
+        blocks = sh._halo_rows(x, 1)
+        for s in slots:
+            xp, (wt, b) = blocks[s], wb(params)
+            s_seed = sh._shard_seed(seed, s)
+            n, c, h, w = xp.shape
+            label = f"tail {act}, slot {s}: f32 {list(xp.shape)}"
+            r = {"plan": cuda_stages._tail_bands(c, wt.shape[1], h, w),
+                 "fwd_max_abs_err": 0.0, "bwd_max_leaf_rel_err": 0.0}
+            for p in (0.0, DROP_P):
+                y = cuda_stages.tail_fwd(xp, wt, b, act, p, s_seed, stage)
+                r["fwd_max_abs_err"] = max(r["fwd_max_abs_err"], close(
+                    y, cuda_stages.tail_fwd_plain(xp, wt, b, act, p, s_seed, stage), label))
+                g = torch.randn(y.shape, generator=gen, device=dev)
+                grads = _bits_twice(
+                    lambda: cuda_stages.tail_bwd(xp, wt, b, g, act, p, s_seed, stage), label)
+                errs = _leaf_errors(grads, cuda_stages.tail_bwd_plain(xp, wt, b, g, act, p,
+                                                                      s_seed, stage))
+                check(max(errs) < tol, f"{label} (drop {p}) leaves differ: {errs}")
+                r["bwd_max_leaf_rel_err"] = max(r["bwd_max_leaf_rel_err"], max(errs))
+            r["fwd_ms"] = timer.ms(
+                lambda: cuda_stages.tail_fwd(xp, wt, b, act, DROP_P, s_seed, stage), 5)
+            r["bwd_ms"] = timer.ms(
+                lambda: cuda_stages.tail_bwd(xp, wt, b, g, act, DROP_P, s_seed, stage), 3)
+            out[label] = r
+            log(f"slot heads: {label} ok: {json.dumps(r)}")
+    return out
+
+
+def phase_spatial(torch, cuda_build):
+    """The row-sharded spatial tier at full size, scripts/pod_smoke.py's
+    job_rdma and job_spatial8k with a mesh ported: one universe of 8192² over
+    4 slots on one card.  The halo kernels through parallel.spatial against
+    the single-device engines; the packed stack with the mesh through
+    Rollout.run_actions (64 x 64 actions at p = 0.2): Speed dense (cells/s,
+    gathers a step), speed_def_packed (no gather, no unpack), RND2D with
+    SpaceSharding learning over 128 steps (2 updates, dropout on; cells/s,
+    peak memory), AE2D with SpaceSharding, free_steps(64); the sharded
+    universe and rewards against the mesh=None stack (bit for bit for Speed
+    and the CA), RND2D with dropout off against BandTiling(512) on the same
+    draw (rtol 1e-4 through 2 updates), AE2D with dropout off against the
+    mesh=None stack (rtol 1e-4 through 3 updates); the RND2D leg profiled.
+    The launches counted are the path's alone: the engines and the mesh=None
+    legs it is held against run before the counts are zeroed, the
+    comparisons with dropout off after they are read."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, nets, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def, speed_def, speed_def_packed
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca
+    from carle_tpu_torch.parallel import spatial
+    from carle_tpu_torch.parallel.mesh import gather_rows
+    from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
+    from carle_tpu_torch.rollout import Rollout
+
+    dev = torch.device("cuda")
+    mesh = _spatial_mesh(torch)
+    size, steps = SPATIAL_SIZE, 128
+    cfg = EnvConfig(height=size, width=size, action_height=64, action_width=64, instances=1)
+    acts = torch.from_numpy((np.random.RandomState(1).rand(steps, *cfg.action_shape) < 0.2)
+                            .astype(np.float32))
+    out = {"slots": SPATIAL_SLOTS, "devices": [str(d) for d in mesh.devices]}
+
+    def leg(defs, n_steps, m=mesh, agent=None):
+        stack = PackedSpatialStack(cfg, defs, m)
+        ro = Rollout(cfg, defs, agent, device="cuda", stack=stack)
+        carry = ro.init(ro.generator(0), rules.LIFE)
+        carry, r0 = ro.run_actions(carry, acts[:4])   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        g0 = stack.gathers
+        t0 = time.perf_counter()
+        carry, r = ro.run_actions(carry, acts[4:n_steps])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / (n_steps - 4)
+        stats = {"steps": n_steps, "step_ms": step_s * 1e3, "cells_per_s": size * size / step_s,
+                 "gathers_per_step": (stack.gathers - g0) / (n_steps - 4),
+                 "unpacks": stack.unpacks, "gathers": stack.gathers,
+                 "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        return stats, torch.cat([r0, r]), stack.universe(carry.stack), carry, ro
+
+    # what the path is held against, before its launches are counted: the
+    # single-device engines and the mesh=None stack
+    grid = torch.from_numpy((np.random.RandomState(0).rand(1, size, size) < 0.3)
+                            .astype(np.uint8)).to(dev)
+    words = bitpack.pack_grid(grid)
+    engine = {"spatial_ca_step": cuda_ca.ca_multi_step(grid, rules.LIFE, 1),
+              "spatial_multi_step": cuda_ca.ca_multi_step(grid, rules.LIFE, 8),
+              "bit_spatial_multi_step": cuda_bitpack.bit_multi_step(words, rules.LIFE, 8)}
+    speed_defs = (("speed_dense", speed_def), ("speed_packed", speed_def_packed))
+    one_device = {name: leg([make(cfg, reward_scale=1e-2)], 64, None)
+                  for name, make in speed_defs}
+    cuda_build.reset_launch_counts()
+
+    # job_rdma: the halo kernels against the single-device engines
+    check(torch.equal(gather_rows(spatial.spatial_ca_step(grid, rules.LIFE, mesh)),
+                      engine["spatial_ca_step"]), "spatial_ca_step")
+    check(torch.equal(gather_rows(spatial.spatial_multi_step(grid, rules.LIFE, 8, mesh)),
+                      engine["spatial_multi_step"]), "spatial_multi_step")
+    check(torch.equal(gather_rows(spatial.bit_spatial_multi_step(words, rules.LIFE, 8, mesh)),
+                      engine["bit_spatial_multi_step"]), "bit_spatial_multi_step")
+    del grid, words, engine
+
+    # Speed dense and packed, against the mesh=None stack: bit for bit
+    for name, make in speed_defs:
+        stats, r, universe, _, _ = leg([make(cfg, reward_scale=1e-2)], 64)
+        stats_one, r_one, universe_one, _, _ = one_device.pop(name)
+        check(torch.equal(universe, universe_one), f"{name}: sharded universe differs")
+        check(torch.equal(r, r_one), f"{name}: sharded rewards differ from mesh=None")
+        out[name] = dict(stats, mesh_none_step_ms=stats_one["step_ms"])
+    check(out["speed_packed"]["gathers"] == 0 and out["speed_packed"]["unpacks"] == 0,
+          "speed_def_packed on the sharded stack gathered or unpacked")
+    check(out["speed_dense"]["gathers_per_step"] == 1, "Speed dense: not one gather a step")
+
+    # RND2D learning with SpaceSharding, dropout on: 2 updates in 128 steps
+    tag = nets.SpaceSharding(mesh)
+    stats, r, _, carry, _ = leg([rnd2d_def(cfg, batch_size=64, fused_head=tag)], steps)
+    check(bool(torch.isfinite(r).all()), "sharded RND2D rewards are not finite")
+    check(int(carry.stack.wrappers[0].updates) == 2, "sharded RND2D: not 2 updates")
+    out["rnd2d"] = dict(stats, updates=2, reward_first=float(r[0, 0, 0]),
+                        reward_last=float(r[-1, 0, 0]))
+    del carry
+    # AE2D with SpaceSharding (encoder, then the decoder's tails on shards)
+    stats, r, _, carry, _ = leg([ae2d_def(cfg, batch_size=4, fused_head=tag)], 12)
+    check(bool(torch.isfinite(r).all()) and int(carry.stack.wrappers[0].updates) == 3,
+          "sharded AE2D: rewards not finite or not 3 updates")
+    out["ae2d"] = dict(stats, updates=3)
+    del carry
+    # free_steps(64): the halo kernel's burst
+    stack = PackedSpatialStack(cfg, [], mesh)
+    state = stack.init(torch.Generator(device=dev).manual_seed(0), rules.LIFE, dev)
+    state = state._replace(env=state.env._replace(grid=bitpack.pack_grid(
+        (torch.rand((1, size, size), device=dev) < 0.3).to(torch.uint8))))
+    state = stack.free_steps(state, 64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = stack.free_steps(state, 64)
+    torch.cuda.synchronize()
+    out["free_steps_64"] = {"cells_per_s": size * size * 64 / (time.perf_counter() - t0)}
+    del state, stack
+    counts = cuda_build.launch_counts()
+    out["packed_launches"] = cuda_build.packed_launch_counts()
+    log(f"spatial path ok: {json.dumps(out)}")
+    log(f"spatial launches: {json.dumps(counts)}")
+
+    # RND2D with dropout off: sharded against BandTiling(512), same draw
+    kw = dict(batch_size=64, dropout=False)
+    _, r_sharded, _, c1, _ = leg([rnd2d_def(cfg, fused_head=tag, **kw)], steps)
+    _, r_banded, _, c2, _ = leg([rnd2d_def(cfg, fused_head=nets.BandTiling(RND_BANDS), **kw)],
+                                steps, None)
+    check(int(c1.stack.wrappers[0].updates) == int(c2.stack.wrappers[0].updates) == 2,
+          "sharded / banded RND2D: not 2 updates each")
+    torch.testing.assert_close(r_sharded, r_banded, rtol=1e-4, atol=0)
+    out["rnd2d_sharded_vs_banded_max_rel_diff"] = float(
+        ((r_sharded - r_banded).abs() / r_banded.abs()).max())
+    del c1, c2
+    # AE2D with dropout off: sharded against the mesh=None stack (the global
+    # encoder and decoder-loss kernels), same draw, through 3 updates
+    kw = dict(batch_size=4, dropout=False)
+    _, r_sharded, _, c1, _ = leg([ae2d_def(cfg, fused_head=tag, **kw)], 12)
+    _, r_one, _, c2, _ = leg([ae2d_def(cfg, **kw)], 12, None)
+    check(int(c1.stack.wrappers[0].updates) == int(c2.stack.wrappers[0].updates) == 3,
+          "sharded / one-device AE2D: not 3 updates each")
+    torch.testing.assert_close(r_sharded, r_one, rtol=1e-4, atol=0)
+    out["ae2d_sharded_vs_mesh_none_max_rel_diff"] = float(
+        ((r_sharded - r_one).abs() / r_one.abs()).max())
+    del c1, c2
+    torch.cuda.empty_cache()
+
+    # where the RND2D leg's step goes (random agent, as the bands phase)
+    defs = [rnd2d_def(cfg, batch_size=64, fused_head=tag)]
+    ro = Rollout(cfg, defs, make_random_agent(64, 64, 0.2), device="cuda",
+                 stack=PackedSpatialStack(cfg, defs, mesh))
+    out["profile_rnd2d"] = _profile_steps(torch, ro, ro.init(ro.generator(0), rules.LIFE), 32, 1)
+    del ro
+    log(f"spatial ok: {json.dumps({k: v for k, v in out.items() if not k.startswith('profile')})}")
     return counts, out
 
 
@@ -2039,6 +2549,15 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False       # the plain twins are the
     torch.backends.cuda.matmul.allow_tf32 = False  # reference: full float32
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return value
+
     try:
         card = card_line()
         log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -2046,24 +2565,28 @@ def main() -> int:
         log(f"build: {build_s:.1f} s")
         shipped = shipped_states(torch)
         timer = Timer(torch)
-        results = phase_kernels(torch, timer, shipped)
-        engines_counts, engines = phase_engines(torch, cuda_build)
-        routes_counts, routes = phase_routes(torch, timer, cuda_build)
+        results = timed("kernels", phase_kernels, torch, timer, shipped)
+        results.update(timed("spatial_kernels", phase_spatial_kernels, torch, timer,
+                             torch.Generator(device="cuda").manual_seed(6)))
+        engines_counts, engines = timed("engines", phase_engines, torch, cuda_build)
+        routes_counts, routes = timed("routes", phase_routes, torch, timer, cuda_build)
         del timer
         torch.cuda.empty_cache()
-        battery_counts, e2e = phase_battery(torch, cuda_build)
-        parity_diff = phase_parity(torch)
-        server_counts, server = phase_server(torch, cuda_build)
-        train_counts, train, train_hist = phase_train(torch, cuda_build)
-        train_parity_diff = phase_train_parity(torch)
-        packed_counts, packed = phase_packed(torch, cuda_build, train_hist)
-        wrappers_counts, wrappers = phase_wrappers(torch, cuda_build, shipped)
-        bands_counts, bands = phase_bands(torch, cuda_build)
-        profile = phase_profile(torch)
+        battery_counts, e2e = timed("battery", phase_battery, torch, cuda_build)
+        parity_diff = timed("parity", phase_parity, torch)
+        server_counts, server = timed("server", phase_server, torch, cuda_build)
+        train_counts, train, train_hist = timed("train", phase_train, torch, cuda_build)
+        train_parity_diff = timed("train_parity", phase_train_parity, torch)
+        packed_counts, packed = timed("packed", phase_packed, torch, cuda_build, train_hist)
+        wrappers_counts, wrappers = timed("wrappers", phase_wrappers, torch, cuda_build,
+                                          shipped)
+        bands_counts, bands = timed("bands", phase_bands, torch, cuda_build)
+        spatial_counts, spatial = timed("spatial", phase_spatial, torch, cuda_build)
+        profile = timed("profile", phase_profile, torch)
         log(f"profile: {json.dumps(profile)}")
-        profile_train = phase_profile_train(torch)
+        profile_train = timed("profile_train", phase_profile_train, torch)
         log(f"profile (training): {json.dumps(profile_train)}")
-        profile_packed = phase_profile_train(torch, packed=True)
+        profile_packed = timed("profile_packed", phase_profile_train, torch, 64, True)
         log(f"profile (packed training): {json.dumps(profile_packed)}")
     except Exception:  # report the failing phase and exit non-zero
         traceback.print_exc()
@@ -2073,7 +2596,8 @@ def main() -> int:
     path_counts = {"battery": battery_counts, "server": server_counts,
                    "train": train_counts, "routes": routes_counts,
                    "wrappers": wrappers_counts, "packed": packed_counts,
-                   "bands": bands_counts, "engines": engines_counts}
+                   "bands": bands_counts, "engines": engines_counts,
+                   "spatial": spatial_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -2094,10 +2618,11 @@ def main() -> int:
             "library_ms": r["library_ms"],
         })
     report = {
-        "card": card, "build_s": build_s, "kernels": kernels,
+        "card": card, "build_s": build_s, "phase_s": seconds, "kernels": kernels,
         "kernel_shapes": {k: results[k]["shape"] for k in rows},
         "kernel_details": {k: results[k] for k in rows},
-        "bands_kernels": results["bands_kernels"], "bands": bands,
+        "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
+        "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
         "e2e": e2e, "server": server, "run_actions_max_abs_diff": parity_diff,
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
@@ -2114,6 +2639,12 @@ def main() -> int:
                                            "wrappers", "packed", "engines", "total_s")}))
     log(json.dumps({"bands": {k: v for k, v in bands.items() if not k.startswith("profile")},
                     "bands_kernels": results["bands_kernels"]}))
+    log(json.dumps({"spatial": {k: v for k, v in spatial.items() if not k.startswith("profile")},
+                    "spatial_kernels": {k: results[k] for k in SPATIAL_ROWS},
+                    "spatial_heads": {k: {m: v for m, v in r.items() if m != "ties_drop"}
+                                      for k, r in results["spatial_heads"].items()},
+                    "head_tiles": results["head_tiles"], "build_s": build_s,
+                    "phase_s": seconds}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __shared__
+#define __launch_bounds__(...)
 
 struct dim3 {
     unsigned x, y, z;
@@ -22,7 +23,7 @@ static dim3 blockIdx, threadIdx(0, 0, 0), blockDim(1, 1, 1), gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorPeerAccessAlreadyEnabled = 704 };
 enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
 inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, cudaMemcpyKind,
                                    cudaStream_t) {
@@ -31,6 +32,7 @@ inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t bytes, cud
 }
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) { return e ? "invalid value" : "ok"; }
 template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }

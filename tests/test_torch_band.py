@@ -398,14 +398,25 @@ def test_single_stages_refuse_band_tiling_as_jax_does():
 
 
 def test_space_sharding_is_refused_naming_the_multi_device_tier():
-    tag = nets.SpaceSharding(mesh=None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tmcl.rnd2d_def(CFG, fused_head=tag)
+    """Once refused, SpaceSharding now routes the nets over row shards
+    (tests/test_torch_spatial_heads.py holds the values); what is no tag
+    still raises ValueError, and True/False still mean one device."""
+    from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
+
+    mesh = make_mesh([torch.device("cpu")] * 2, "space")
+    tag = nets.SpaceSharding(mesh)
+    assert nets.fused_route(tag) is tag and nets.check_mesh(tag) is tag
+    tmcl.rnd2d_def(CFG, fused_head=tag)
     x = torch.zeros((1, 1, 16, 16), dtype=torch.uint8)
     p = {"w": torch.zeros(4, 1, 3, 3), "b": torch.zeros(4)}
-    q = {"w": torch.zeros(1, 4, 3, 3), "b": torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        nets.conv_encoder(x, p, q, pools=(4, 2), mesh=tag)
+    q = {"w": torch.zeros(1, 4, 3, 3), "b": torch.ones(1)}
+    got = nets.conv_encoder(shard_rows(x, mesh), p, q, pools=(4, 2), mesh=tag)
+    assert torch.equal(gather_rows(got), nets.conv_encoder(x, p, q, pools=(4, 2)))
+    for bad in (object(), mesh, "space"):
+        with pytest.raises(ValueError, match="mesh must be None, BandTiling or SpaceSharding"):
+            nets.conv_encoder(x, p, q, pools=(4, 2), mesh=bad)
+    with pytest.raises(ValueError):
+        tmcl.rnd2d_def(CFG, fused_head=object())
     assert nets.fused_route(True) is None and nets.fused_route(False) is None
 
 

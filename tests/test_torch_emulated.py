@@ -20,10 +20,12 @@ import torch
 
 from carle_tpu_torch import rules
 from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca, cuda_head, cuda_stages
+from carle_tpu_torch.parallel import cuda_halo
+from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "head_fwd",
            "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd", "bit_multi_step",
-           "ca_multi_step")
+           "ca_multi_step", "halo_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
 
 
@@ -65,7 +67,7 @@ def emulated(tmp_path_factory):
 
     patch = pytest.MonkeyPatch()
     patch.setattr(cuda_build, "library", library)
-    for module in (cuda_head, cuda_stages, cuda_bitpack, cuda_ca):
+    for module in (cuda_head, cuda_stages, cuda_bitpack, cuda_ca, cuda_halo):
         patch.setattr(module, "stream_args", lambda t: (0, None))
     for kernel in cuda_build.KERNELS.values():   # drop any bound launcher, here and afterwards
         if kernel.source in SOURCES:
@@ -456,3 +458,67 @@ def test_decoder_loss_column_tiles_and_row_weights_emulated(emulated, monkeypatc
     assert torch.equal(cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed, ones), one_f)
     assert _same(cs._decoder_loss_bwd_kernel(x, *ps, obs, gbar, drop_p, seed, ones), one_b)
     assert _rel(cs._decoder_loss_fwd_kernel(x, *ps, obs, drop_p, seed, em), got_f) < 1e-5
+
+
+@pytest.mark.parametrize("slots", [1, 2, 4])
+@pytest.mark.parametrize("steps", [1, 2, 5])
+def test_halo_kernels_emulated(emulated, slots, steps):
+    """Rows 13-15: the halo kernels on every slot of one device, against the
+    twins and the single-device engines, bit for bit; uint8 and packed, the
+    rule a scalar, a per-universe vector or fixed at compile time, the ring's
+    edges (one and two slots)."""
+    n, h, w = 3, 64, 96
+    rng = np.random.RandomState(slots * 10 + steps)
+    grid = torch.from_numpy((rng.rand(n, h, w) < 0.35).astype(np.uint8))
+    words = bitpack.pack_grid(grid)
+    mesh = make_mesh([torch.device("cpu")] * slots, "space")
+    vec = torch.tensor([_rule_mask(*RULESETS[i]) for i in range(n)], dtype=torch.int32)
+    life = _rule_mask([3], [2, 3])
+    for rule in (torch.tensor(life, dtype=torch.int32), vec):
+        kernel = cuda_halo.KERNEL_STEP if steps == 1 else cuda_halo.KERNEL_MULTI
+        launches = kernel.launches
+        got = cuda_halo._launch(kernel, shard_rows(grid, mesh), rule, steps, cuda_halo.KIND_U8)
+        assert kernel.launches == launches + steps   # one launch a generation
+        assert torch.equal(gather_rows(got), cuda_ca.ca_multi_step_plain(grid, rule, steps))
+        twin = cuda_halo.spatial_multi_step_plain(shard_rows(grid, mesh), rule, steps)
+        assert all(torch.equal(a, b) for a, b in zip(got.parts, twin.parts))
+        got = cuda_halo._launch(cuda_halo.KERNEL_BIT, shard_rows(words, mesh), rule, steps,
+                                cuda_halo.KIND_U32)
+        assert torch.equal(gather_rows(got), bitpack.bit_multi_step(words, rule, steps))
+    got = cuda_halo._launch(cuda_halo.KERNEL_BIT, shard_rows(words, mesh), life, steps,
+                            cuda_halo.KIND_U32, defines=(f"STATIC_RULE={life:#07x}",))
+    assert torch.equal(gather_rows(got), bitpack.bit_multi_step_static(words, [3], [2, 3], steps))
+
+
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("kind", ["uint8", "packed", "float32"])
+@pytest.mark.parametrize("pool, c, o", [(2, 1, 4), (4, 4, 1)])
+def test_head_column_tiles_emulated(emulated, monkeypatch, pool, c, o, kind, drop_p):
+    """The head's kernels with the width cut into tiles of 48 cells (a
+    256-wide universe, the last tile ragged, every edge inside a packed word)
+    against the one-tile launch, bit for bit forward and within 1e-5 of each
+    leaf backward (the input cotangent bit for bit), and against the twins."""
+    n, h, w, seed = 2, 16, 256, 4242 + pool
+    rng = np.random.RandomState(7 + pool + c)
+    if kind == "float32":
+        x = torch.from_numpy(np.maximum(rng.randn(n, c, h, w), 0).astype(np.float32))
+    else:
+        u8 = torch.from_numpy((rng.rand(n, c, h, w) < 0.3).astype(np.uint8))
+        u8[0, :, :, : w // 3] = 0   # a blank stretch: pool windows tie across a tile edge
+        x = bitpack.pack_grid(u8) if kind == "packed" else u8
+    wt, b = _params(rng, [(o, c, 3, 3), (o,)])
+    b = b.abs()
+    g = torch.from_numpy(rng.randn(n, o, h // pool, w // pool).astype(np.float32))
+    cs = cuda_stages
+    one_f = cs._head_fwd_kernel(x, wt, b, pool, drop_p, seed, 0)
+    one_b = cs._head_bwd_kernel(x, wt, b, g, pool, drop_p, seed, 0, True)
+    monkeypatch.setattr(cuda_head, "TILE_CELLS", 48)
+    assert cs._head_bands(c, o, h, w, pool, 48)[0][1] == 48 // pool
+    tiled_f = cs._head_fwd_kernel(x, wt, b, pool, drop_p, seed, 0)
+    tiled_b = cs._head_bwd_kernel(x, wt, b, g, pool, drop_p, seed, 0, True)
+    assert torch.equal(tiled_f, one_f)
+    assert torch.equal(tiled_b[2], one_b[2])
+    assert _max_rel(tiled_b[:2], one_b[:2]) < 1e-5
+    assert _rel(tiled_f, cs.head_fwd_plain(x, wt, b, pool, drop_p, seed, 0)) < 1e-4
+    twin = cs.head_bwd_plain(x, wt, b, g, pool, drop_p, seed, 0, True)
+    assert _max_rel(tiled_b, twin) < 1e-4

@@ -486,6 +486,63 @@ def test_packed_cell_loader_is_bit_equal_to_uint8(cuda, drop_p):
                  cs.loss_tail_bwd(mid, ps[6], ps[7], o8, gbar, "sigmoid", drop_p, seed))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_halo_kernels_match_plain(cuda, slots):
+    """Rows 13-15: the halo kernels on slots of one card against their twins
+    and the single-device engines, bit for bit; a ragged case of 3 universes
+    with a per-universe rule."""
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
+
+    mesh = make_mesh([cuda] * slots, "space")
+    grid = torch.from_numpy(_soup(slots, (3, 4 * 64, 128))).to(cuda)
+    words = bitpack.pack_grid(grid)
+    vec = torch.tensor([rules.LIFE, rules.MORLEY, rules.DAY_AND_NIGHT], dtype=torch.int32,
+                       device=cuda)
+    for rule in (rules.LIFE, vec):
+        for steps in (1, 6):
+            x = shard_rows(grid, mesh)
+            got = cuda_halo.spatial_multi_step_cuda(x, rule, steps)
+            twin = cuda_halo.spatial_multi_step_plain(x, rule, steps)
+            assert all(torch.equal(a, b) for a, b in zip(got.parts, twin.parts))
+            assert torch.equal(gather_rows(got), cuda_ca.ca_multi_step(grid, rule, steps))
+            w = shard_rows(words, mesh)
+            got = cuda_halo.bit_spatial_multi_step_cuda(w, rule, steps)
+            assert torch.equal(gather_rows(got), cuda_bitpack.bit_multi_step(words, rule, steps))
+    one = cuda_halo.spatial_ca_step_cuda(shard_rows(grid, mesh), vec)
+    assert torch.equal(gather_rows(one), cuda_ca.ca_multi_step(grid, vec, 1))
+    got = cuda_halo.bit_spatial_multi_step_cuda(shard_rows(words, mesh), 0, 5, ([3], [2, 3]))
+    assert torch.equal(gather_rows(got), cuda_bitpack.bit_multi_step_static(words, [3], [2, 3], 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+def test_head_kernels_in_column_tiles(cuda, monkeypatch, drop_p):
+    """The head at width 8192 (1 -> 4 channels, pool 2: past one band of the
+    whole width) against its twin, and tiles forced at 256 against one tile."""
+    rng = np.random.RandomState(5)
+    w, b = (t.to(cuda) for t in _params(rng, [(4, 1, 3, 3), (4,)]))
+    x = torch.from_numpy(_soup(6, (1, 1, 16, 8192))).to(cuda)
+    g = torch.randn((1, 4, 8, 4096), device=cuda)
+    torch.testing.assert_close(cuda_stages.head_fwd(x, w, b, 2, drop_p, 9),
+                               cuda_stages.head_fwd_plain(x, w, b, 2, drop_p, 9),
+                               rtol=1e-4, atol=1e-4)
+    grads = cuda_stages.head_bwd(x, w, b, g, 2, drop_p, 9, need_dx=True)
+    twin = cuda_stages.head_bwd_plain(x, w, b, g, 2, drop_p, 9, need_dx=True)
+    for a, t in zip(grads, twin):
+        assert float((a - t).abs().max() / t.abs().max()) < 1e-4
+    x = torch.from_numpy(_soup(7, (4, 1, 256, 256))).to(cuda)
+    g = torch.randn((4, 4, 128, 128), device=cuda)
+    one = cuda_stages.head_fwd(x, w, b, 2, drop_p, 9), cuda_stages.head_bwd(x, w, b, g, 2,
+                                                                            drop_p, 9)
+    monkeypatch.setattr(cuda_head, "TILE_CELLS", 48)
+    assert torch.equal(cuda_stages.head_fwd(x, w, b, 2, drop_p, 9), one[0])
+    tiled = cuda_stages.head_bwd(x, w, b, g, 2, drop_p, 9)
+    for a, t in zip(tiled[:2], one[1][:2]):
+        assert float((a - t).abs().max() / t.abs().max()) < 1e-5
+
+
 def test_launch_table_covers_every_source():
     assert {k.source for k in cuda_build.KERNELS.values()} == set(cuda_build.SOURCES)
     for name in cuda_build.SOURCES:

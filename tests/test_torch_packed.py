@@ -33,6 +33,7 @@ from carle_tpu_torch.agents import make_random_agent
 from carle_tpu_torch.checkpoint import learner_state_from_numpy
 from carle_tpu_torch.mcl import ae2d_def, morpho_def, rnd2d_def, speed_def
 from carle_tpu_torch.ops import bitpack
+from carle_tpu_torch.parallel.mesh import make_mesh
 from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
 from carle_tpu_torch.rollout import Rollout
 
@@ -181,8 +182,10 @@ def test_packed_stack_rule_vector_free_steps_and_universe():
                        bitpack.unpack_grid(bitpack.bit_multi_step(state.env.grid, rule_vec, 5),
                                            64))
     assert int(fast.env.step_num) == 6 and int(fast.env.steps_since_action) == 6
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PackedSpatialStack(CFG, [], mesh=object())
+    mesh = make_mesh([torch.device("cpu")] * 4, "space")
+    assert PackedSpatialStack(CFG, [], mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="not divisible by the space axis"):
+        PackedSpatialStack(EnvConfig(66, 64, 16, 16, 1), [], mesh=mesh)
     with pytest.raises(ValueError, match="width"):
         PackedSpatialStack(EnvConfig(64, 48, 16, 16, 1), [])
 
