@@ -1,0 +1,516 @@
+// The whole wrapper autoencoder at AE2D's widths, specialised at compile
+// time: C1 = 4, C2 = 2, CMID = 1, COUT = 1 (carle_tpu_torch/mcl/ae.py, and
+// Prediction and Surprise through init_ae_params).  Shared by ae2d_fwd.cu
+// (the forward and its error, optionally saving what the backward reads) and
+// ae2d_bwd.cu (the gradients).  Other widths run the generic kernels
+// (ae_loss_fwd.cu, ae_loss_bwd.cu), which these replace where they apply.
+//
+// What bounds the generic kernels at these widths is instruction throughput,
+// not arithmetic: runtime widths under MAXC register arrays, a shared-memory
+// load for every multiply-add's weight, a 16-step walk with branches for each
+// transpose-convolution output that uses 4 of its taps, an integer division
+// an element, and (with dropout) Philox draws recomputed in every pass.  What
+// this design does about each:
+//
+// - Widths are constants, so every stage loop unrolls exactly.  Each block
+//   copies the eight weight tensors (164 floats, passed as pointers by value)
+//   into shared memory once (load_weights), with the transpose convolutions'
+//   taps grouped by output parity and w2 by input channel as float4s: a
+//   broadcast shared load serves four multiply-adds in every stage (stage 2
+//   reads one weight for a pool window's four pixels), loaded where they are
+//   used (grid_walk's barrier keeps them out of registers).  Nothing is
+//   shared between launches, so launches on any streams may overlap.
+// - Stage 1 by table: the input is cells, 0 or 1, so conv3x3(cells) + b1 takes
+//   one of 512 values a channel, one a 9-bit neighbourhood.  Each block builds
+//   the 512 x 4 table with the generic kernel's sum (bias, then the taps in
+//   (dy, dx) order; a tap of 0 adds an exact zero and a tap of 1 an exact
+//   weight), so every stage-1 pre-activation equals the generic kernel's bit
+//   for bit, and a pixel costs one 16-byte shared load indexed by bits of the
+//   staged rows.  The rows are staged as bits (uint8 cells packed while
+//   staging, packed words as they come): 8 times less shared memory.
+// - Transpose convolutions by output parity: output (y, x) uses taps ky in
+//   {(y + 1) mod 2, (y + 1) mod 2 + 2} and kx likewise, so each thread
+//   computes a 2 x 2 block of outputs from one 2 x 2 or 3 x 3 input window,
+//   the four parity classes as fixed stencils, each sum in the generic order
+//   (bias, then channel, ky, kx ascending).
+// - Loops walk (row, column) without a division an element (grid_walk).
+// - With dropout, the training forward writes each element's keep bits, and
+//   the backward reads them: a training step draws each bit once (philox.cuh's
+//   layout is unchanged, so the bits are the generic kernels' and the twins').
+//
+// Sums keep the generic order inside each pre-activation, so the activations,
+// and with them the pool ties, are the generic kernels'.  Tensor cores are not
+// the lever: the layers' depths (K <= 36) and widths (N <= 4) would fill an mma
+// tile mostly with zeros, and TF32 would lose the twins' 1e-4 agreement, so the
+// kernels stay on float32 FMA.
+#pragma once
+
+#include "net_stages.cuh"
+
+// The flat weights: w1 [4,1,3,3], b1 [4], w2 [2,4,3,3], b2 [2], wt1 [2,1,4,4],
+// bt1 [1], wt2 [1,1,4,4], bt2 [1], in that order (ops/cuda_head.py packs them).
+constexpr int AE_W1 = 0, AE_B1 = 36, AE_W2 = 40, AE_B2 = 112, AE_WT1 = 114, AE_BT1 = 146,
+              AE_WT2 = 147, AE_BT2 = 163, AE_WEIGHTS = 164;
+constexpr int AE2D_THREADS = 256;   // threads a block
+// Resident blocks a multiprocessor each band kernel is compiled for (its
+// register cap), as many as its shared memory holds at 32 rows: the forward
+// and the decoder backward three, the encoder backward two.  (512 threads a
+// block and a block fewer a multiprocessor were tried on an H100 and gained
+// nothing that both the inference and the training forward kept.)
+constexpr int AE2D_FWD_BLOCKS = 3, AE2D_DEC_BLOCKS = 3, AE2D_ENC_BLOCKS = 2;
+
+// The eight weight tensors, float32 and contiguous, in the order above.
+struct Ae2dWeights {
+    const float* t[8];
+};
+
+// The block's copy of the weights, flat as above, and three of them again
+// as float4s, so that one 16-byte shared load serves four multiply-adds:
+// ae2d_w2t[o * 9 + dy * 3 + dx] = channels 0..3 of w2[o, :, dy, dx], and
+// the transpose convolutions' taps by output parity (u, v) in the order a
+// sum takes them, {(u, v), (u, v + 2), (u + 2, v), (u + 2, v + 2)}:
+// ae2d_wt1p[c * 4 + u * 2 + v] of wt1[c, 0], ae2d_wt2p[u * 2 + v] of wt2.
+__shared__ float ae2d_w[AE_WEIGHTS];
+__shared__ float4 ae2d_w2t[18], ae2d_wt1p[8], ae2d_wt2p[4];
+
+__device__ __forceinline__ float4 parity_taps(const float* w, int u, int v) {
+    return make_float4(w[u * 4 + v], w[u * 4 + v + 2], w[(u + 2) * 4 + v], w[(u + 2) * 4 + v + 2]);
+}
+
+// Fills the block's copy; every thread calls it, and a __syncthreads()
+// follows before the first read.
+__device__ __forceinline__ void load_weights(const Ae2dWeights& wp) {
+    const int off[9] = {AE_W1, AE_B1, AE_W2, AE_B2, AE_WT1, AE_BT1, AE_WT2, AE_BT2, AE_WEIGHTS};
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+        for (int i = off[t] + static_cast<int>(threadIdx.x); i < off[t + 1];
+             i += static_cast<int>(blockDim.x))
+            ae2d_w[i] = wp.t[t][i - off[t]];
+    for (int i = threadIdx.x; i < 30; i += blockDim.x) {
+        if (i < 18) {
+            const float* w = wp.t[2] + (i / 9) * 36 + i % 9;   // w2[o, 0, dy, dx]
+            ae2d_w2t[i] = make_float4(w[0], w[9], w[18], w[27]);
+        } else if (i < 26) {
+            ae2d_wt1p[i - 18] = parity_taps(wp.t[4] + ((i - 18) >> 2) * 16, ((i - 18) >> 1) & 1,
+                                            (i - 18) & 1);
+        } else {
+            ae2d_wt2p[i - 26] = parity_taps(wp.t[6], ((i - 26) >> 1) & 1, (i - 26) & 1);
+        }
+    }
+}
+
+__device__ __forceinline__ float wgt(int i) { return ae2d_w[i]; }
+
+// Tap (ky, kx) of a transpose convolution's parity table (q: ae2d_wt1p + 4 c
+// or ae2d_wt2p): parity (ky & 1, kx & 1), place (ky >> 1) * 2 + (kx >> 1).
+__device__ __forceinline__ float parity_tap(const float4* q, int ky, int kx) {
+    const float4 t = q[(ky & 1) * 2 + (kx & 1)];
+    const int k = (ky >> 1) * 2 + (kx >> 1);
+    return k == 0 ? t.x : k == 1 ? t.y : k == 2 ? t.z : t.w;
+}
+
+// Where the keep bits of a dropout stage come from.
+constexpr int KEEP_NONE = 0, KEEP_DRAW = 1, KEEP_READ = 2;
+
+// The universe and a band's rows.  A block owns output rows [Y0, Y0 + RY)
+// (RY a multiple of 4), so stage-1 and middle rows [Y0/2, Y0/2 + RY/2) and
+// embedding rows [Y0/4, Y0/4 + RY/4), each cut at its layer's extent.
+struct Ae2dShape {
+    int H, W, RY;
+};
+
+struct Ae2dDims {
+    int H, W, H1, W1, He, We, NW, RY;
+    __host__ __device__ explicit Ae2dDims(const Ae2dShape& s)
+        : H(s.H), W(s.W), H1(s.H / 2), W1(s.W / 2), He(s.H / 4), We(s.W / 4),
+          NW((s.W + 31) / 32), RY(s.RY) {}
+    // band buffers: input bit rows from Y0 - 7, stage-1 rows from Y0/2 - 3,
+    // embedding rows from Y0/4 - 1, middle rows from Y0/2 - 1
+    __host__ __device__ int IR() const { return RY + 14; }
+    __host__ __device__ int NS() const { return NW + 2; }       // words a bit row
+    __host__ __device__ int XR() const { return RY / 2 + 6; }
+    __host__ __device__ int XW() const { return W1 + 2; }       // a zero column each side
+    __host__ __device__ int ER() const { return RY / 4 + 2; }
+    __host__ __device__ int EW() const { return We + 2; }
+    __host__ __device__ int MR() const { return RY / 2 + 2; }
+};
+
+// Saved by the training forward for the backward: the embedding and the keep
+// bits of the positions each block owns.  keep1 [N, H/2, W/2]: bit 4p + c is
+// channel c of stage-1 pixel p = 2 py + px of that pool window; keep2 [N, H/4,
+// W/4]: bit 2p + o, channel o of stage-2 pixel p of the window; keepd [N, H/2,
+// W/2]: bit 2a + b the output (2i + a, 2j + b) of the last stage, bit 4 the
+// middle position (i, j) itself.
+struct Ae2dSaved {
+    float* emb;         // [N, 2, H/4, W/4], or null
+    uint16_t* keep1;    // null without dropout
+    uint8_t* keep2;
+    uint8_t* keepd;
+};
+
+// f(r, c) for every (r, c) of a rows x cols grid, thread tid taking the flat
+// indices tid, tid + nt, ...: a flat loop's order, without a division an
+// element.  Each step starts with a compiler barrier on memory: without it
+// the compiler hoists the weights' shared loads out of the walk and holds
+// them in registers (stage 2's 74), which spills at three blocks a
+// multiprocessor and cost the forward 19% on an H100.
+template <typename F>
+__device__ __forceinline__ void grid_walk(int rows, int cols, F f) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+    int r = tid / cols, c = tid - r * cols;
+    const int dr = nt / cols, dc = nt - dr * cols;
+    while (r < rows) {
+        asm volatile("" ::: "memory");
+        f(r, c);
+        r += dr;
+        c += dc;
+        if (c >= cols) {
+            c -= cols;
+            ++r;
+        }
+    }
+}
+
+// -- cells as bits -------------------------------------------------------------
+
+// Word k of row r of a plane of cells: bit j is cell 32k + j (zero past W).
+// uint8 cells (0 or 1) read four at a time and packed by one multiply:
+// (v & 0x01010101) * 0x01020408 carries byte q's low bit to bit 24 + q and
+// nothing else there.
+__device__ __forceinline__ uint32_t cell_word(const uint32_t* __restrict__ plane, int r, int k,
+                                              int W, int NW) {
+    return plane[static_cast<size_t>(r) * NW + k];
+}
+__device__ __forceinline__ uint32_t cell_word(const uint8_t* __restrict__ plane, int r, int k,
+                                              int W, int NW) {
+    const uint32_t* q4 =
+        reinterpret_cast<const uint32_t*>(plane + static_cast<size_t>(r) * W + 32 * k);
+    const int quads = min(8, (W - 32 * k) / 4);
+    uint32_t word = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+        if (q < quads) word |= (((q4[q] & 0x01010101u) * 0x01020408u) >> 24) << (4 * q);
+    return word;
+}
+
+// Rows [r0, r0 + rows) of instance n's cells into bits[rows][NW + 2]: word
+// k + 1 holds cells 32k .. 32k + 31; words 0 and NW + 1, and rows outside the
+// universe, are zero.  So cell `col` of a row is bit col + 32 of its words.
+template <typename SRC>
+__device__ __forceinline__ void stage_bits(uint32_t* bits, const SRC* __restrict__ plane,
+                                           int r0, int rows, const Ae2dDims& d) {
+    const int NS = d.NS();
+    grid_walk(rows, NS, [&](int lr, int k) {
+        const int r = r0 + lr;
+        bits[lr * NS + k] = (r >= 0 && r < d.H && k >= 1 && k <= d.NW)
+                                ? cell_word(plane, r, k - 1, d.W, d.NW) : 0u;
+    });
+}
+
+// Cells [c0, c0 + 4) of a staged bit row (c0 >= -32) as bits 0..3.
+__device__ __forceinline__ unsigned row_nibble(const uint32_t* row, int c0) {
+    const int p = c0 + 32;
+    return __funnelshift_r(row[p >> 5], row[(p >> 5) + 1], p & 31) & 0xfu;
+}
+
+// The 9-bit neighbourhood indices of the four pixels p = 2 py + px of
+// stage-1 pool window (r, c): bit 3 dy + dx is cell (2r + py + dy - 1,
+// 2c + px + dx - 1), the generic kernel's tap k.  bits holds rows from I0.
+__device__ __forceinline__ void window_indices(const uint32_t* bits, int NS, int I0, int r,
+                                               int c, unsigned idx[4]) {
+    const uint32_t* row = bits + (2 * r - 1 - I0) * NS;
+    unsigned nib[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) nib[q] = row_nibble(row + q * NS, 2 * c - 1);
+#pragma unroll
+    for (int py = 0; py < 2; ++py)
+#pragma unroll
+        for (int px = 0; px < 2; ++px)
+            idx[py * 2 + px] = ((nib[py] >> px) & 7u) | (((nib[py + 1] >> px) & 7u) << 3) |
+                               (((nib[py + 2] >> px) & 7u) << 6);
+}
+
+// tab[i] = the four channels' conv3x3 + b1 of neighbourhood i, summed as the
+// generic kernel sums (encoder_stage1_band): bias, then taps 0..8.
+__device__ __forceinline__ void build_table(float4* tab) {
+    for (int i = threadIdx.x; i < 512; i += blockDim.x) {
+        float z[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            z[c] = wgt(AE_B1 + c);
+#pragma unroll
+            for (int k = 0; k < 9; ++k)
+                z[c] += wgt(AE_W1 + c * 9 + k) * static_cast<float>((i >> k) & 1);
+        }
+        tab[i] = make_float4(z[0], z[1], z[2], z[3]);
+    }
+}
+
+// spread[i]: the bits of neighbourhood i three apart (bit k at 3k), so the
+// taps of several pixels add as 3-bit counts in one integer.
+__device__ __forceinline__ void build_spread(uint32_t* spread) {
+    for (int i = threadIdx.x; i < 512; i += blockDim.x) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) v |= ((static_cast<uint32_t>(i) >> k) & 1u) << (3 * k);
+        spread[i] = v;
+    }
+}
+
+__device__ __forceinline__ void channels(const float4& t, float z[4]) {
+    z[0] = t.x; z[1] = t.y; z[2] = t.z; z[3] = t.w;
+}
+
+// -- the forward's stages --------------------------------------------------------
+
+// Stage 1 into x1s [4][XR][XW] (rows from X0 = Y0/2 - 3, columns from -1):
+// maxpool2(relu(drop(table))), zero outside [H/2, W/2].  KEEP_DRAW draws the
+// bits (and SAVE keeps the block's own windows'), KEEP_READ reads keep1.
+template <int KEEP, bool SAVE>
+__device__ __forceinline__ void ae2d_stage1(const float4* tab, const uint32_t* bits,
+                                            float* x1s, const Ae2dDims& d, int Y0, int n,
+                                            const DropCfg& cfg, uint16_t* __restrict__ keep1) {
+    const int XR = d.XR(), XW = d.XW(), X0 = Y0 / 2 - 3, I0 = Y0 - 7, NS = d.NS();
+    const int own0 = Y0 / 2, own1 = min(Y0 / 2 + d.RY / 2, d.H1);
+    grid_walk(XR, XW, [&](int lr, int lc) {
+        const int r = X0 + lr, c = lc - 1;
+        float* out = x1s + lr * XW + lc;
+        if (r < 0 || r >= d.H1 || c < 0 || c >= d.W1) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) out[k * XR * XW] = 0.f;
+            return;
+        }
+        unsigned idx[4];
+        window_indices(bits, NS, I0, r, c, idx);
+        const size_t at = (static_cast<size_t>(n) * d.H1 + r) * d.W1 + c;
+        unsigned keep16 = KEEP == KEEP_READ ? keep1[at] : 0u;
+        float m[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+            float z[4];
+            channels(tab[idx[p]], z);
+            if (KEEP != KEEP_NONE) {
+                unsigned keep;
+                if (KEEP == KEEP_DRAW) {
+                    keep = drop_keep_group(cfg, STAGE_ENC1, n, 0, 2 * r + (p >> 1), 2 * c + (p & 1));
+                    keep16 |= keep << (4 * p);
+                } else {
+                    keep = keep16 >> (4 * p);
+                }
+#pragma unroll
+                for (int k = 0; k < 4; ++k) z[k] = drop_apply(z[k], keep, k, cfg.scale);
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) m[k] = fmaxf(m[k], z[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) out[k * XR * XW] = fmaxf(m[k], 0.f);
+        if (SAVE && KEEP == KEEP_DRAW && r >= own0 && r < own1)
+            keep1[at] = static_cast<uint16_t>(keep16);
+    });
+}
+
+// The stage-2 pre-activations conv3x3(x1) + b2 of the pool window of
+// embedding position (e, f): acc[p][o] for pixel p = 2 py + px, summed as the
+// generic kernel (encoder_stage2_preact): bias, then channel, dy, dx.  x1s
+// holds rows from X0 and columns from -1.
+__device__ __forceinline__ void stage2_window(const float* x1s, int XR, int XW, int X0, int e,
+                                              int f, float acc[4][2]) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int o = 0; o < 2; ++o) acc[p][o] = wgt(AE_B2 + o);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+        const float* base = x1s + (c * XR + 2 * e - 1 - X0) * XW + 2 * f;
+        float win[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) win[i][j] = base[i * XW + j];
+#pragma unroll
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+                for (int dx = 0; dx < 3; ++dx) {
+                    const float w = wgt(AE_W2 + (o * 4 + c) * 9 + dy * 3 + dx);
+#pragma unroll
+                    for (int p = 0; p < 4; ++p)
+                        acc[p][o] += w * win[(p >> 1) + dy][(p & 1) + dx];
+                }
+    }
+}
+
+// Stage 2 into es [2][ER][EW] (rows from E0 = Y0/4 - 1, columns from -1):
+// maxpool2(relu(drop(pre-activation))), zero outside the embedding.  SAVE
+// writes the block's own embedding rows (and, drawing, their keep bits).
+// The forward's: KEEP_NONE or KEEP_DRAW (the backward routes its own way).
+template <int KEEP, bool SAVE>
+__device__ __forceinline__ void ae2d_stage2(const float* x1s, float* es, const Ae2dDims& d,
+                                            int Y0, int n, const DropCfg& cfg,
+                                            const Ae2dSaved& sv) {
+    static_assert(KEEP != KEEP_READ, "the forward draws its stage-2 bits");
+    const int XR = d.XR(), XW = d.XW(), X0 = Y0 / 2 - 3;
+    const int ER = d.ER(), EW = d.EW(), E0 = Y0 / 4 - 1;
+    const int own0 = Y0 / 4, own1 = min(Y0 / 4 + d.RY / 4, d.He);
+    grid_walk(ER, d.We, [&](int lr, int f) {
+        const int e = E0 + lr;
+        float* out = es + lr * EW + f + 1;
+        if (e < 0 || e >= d.He) {
+            out[0] = out[ER * EW] = 0.f;
+            return;
+        }
+        float acc[4][2];
+        stage2_window(x1s, XR, XW, X0, e, f, acc);
+        float m[2] = {NEG_INF, NEG_INF};
+        unsigned keep8 = 0;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+            if (KEEP != KEEP_NONE) {
+                const unsigned keep =
+                    drop_keep_group(cfg, STAGE_ENC2, n, 0, 2 * e + (p >> 1), 2 * f + (p & 1)) & 3u;
+                keep8 |= keep << (2 * p);
+#pragma unroll
+                for (int o = 0; o < 2; ++o) acc[p][o] = drop_apply(acc[p][o], keep, o, cfg.scale);
+            }
+#pragma unroll
+            for (int o = 0; o < 2; ++o) m[o] = fmaxf(m[o], acc[p][o]);
+        }
+        const float a0 = fmaxf(m[0], 0.f), a1 = fmaxf(m[1], 0.f);
+        out[0] = a0;
+        out[ER * EW] = a1;
+        if (SAVE && e >= own0 && e < own1) {
+            const size_t at = (static_cast<size_t>(n) * 2 * d.He + e) * d.We + f;
+            sv.emb[at] = a0;
+            sv.emb[at + static_cast<size_t>(d.He) * d.We] = a1;
+            if (KEEP == KEEP_DRAW)
+                sv.keep2[(static_cast<size_t>(n) * d.He + e) * d.We + f] = static_cast<uint8_t>(keep8);
+        }
+    });
+    for (int i = threadIdx.x; i < 2 * ER; i += blockDim.x) {   // the zero columns
+        es[i * EW] = 0.f;
+        es[i * EW + EW - 1] = 0.f;
+    }
+}
+
+// Decoder stage 1 into ms [MR][XW] (rows from M0 = Y0/2 - 1, columns from
+// -1): relu(drop(conv_transpose(emb, wt1) + bt1)), zero outside [H/2, W/2].
+// es holds embedding rows from Y0/4 - 1 with a zero column each side.  A
+// thread computes the middle positions (2a - 1 + u, 2b - 1 + v), which read
+// embedding rows a - 1, a and columns b - 1, b: parity (u, v) takes taps
+// (ky, kx) in {u, u + 2} x {v, v + 2}, summed as deconv_preact (bias, then
+// channel, ky, kx ascending; a column outside the embedding reads a zero
+// where the generic kernel skips it, which adds an exact zero).  kms (SAVE,
+// drawing): the keep bit of each own middle position, [RY/2][W/2] bytes.
+template <int KEEP, bool SAVE>
+__device__ __forceinline__ void ae2d_dec1(const float* es, float* ms, const Ae2dDims& d, int Y0,
+                                          int n, const DropCfg& cfg,
+                                          const uint8_t* __restrict__ keepd, uint8_t* kms) {
+    const int ER = d.ER(), EW = d.EW(), XW = d.XW(), M0 = Y0 / 2 - 1;
+    grid_walk(d.RY / 4 + 1, d.We + 1, [&](int la, int b) {
+        const int a = Y0 / 4 + la;
+        float E[2][2][2];   // [channel][row a - 1, a][column b - 1, b]
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int j = 0; j < 2; ++j) E[c][i][j] = es[(c * ER + la + i) * EW + b + j];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+                const int m = 2 * a - 1 + u, xm = 2 * b - 1 + v;
+                float acc = wgt(AE_BT1);
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    const float4 w = ae2d_wt1p[c * 4 + u * 2 + v];
+                    acc += w.x * E[c][1][1];
+                    acc += w.y * E[c][1][0];
+                    acc += w.z * E[c][0][1];
+                    acc += w.w * E[c][0][0];
+                }
+                float val = 0.f;
+                if (m >= 0 && m < d.H1 && xm >= 0 && xm < d.W1) {
+                    if (KEEP != KEEP_NONE) {
+                        unsigned keep;
+                        if (KEEP == KEEP_DRAW) {
+                            keep = drop_keep_group(cfg, STAGE_DEC1, n, 0, m, xm) & 1u;
+                            if (SAVE && m >= Y0 / 2 && m < Y0 / 2 + d.RY / 2)
+                                kms[(m - Y0 / 2) * d.W1 + xm] = static_cast<uint8_t>(keep);
+                        } else {
+                            keep = (keepd[(static_cast<size_t>(n) * d.H1 + m) * d.W1 + xm] >> 4) & 1u;
+                        }
+                        acc = keep ? acc * cfg.scale : 0.f;
+                    }
+                    val = fmaxf(acc, 0.f);
+                }
+                ms[(m - M0) * XW + xm + 1] = val;
+            }
+    });
+}
+
+// The last stage's pre-activation at an output of parity (ky0, kx0) from the
+// middle values at (iy0, ix0) and the three before it in row and column:
+// m[1][1] = (iy0, ix0), m[1][0] = (iy0, ix0 - 1), m[0][1] = (iy0 - 1, ix0),
+// m[0][0] = (iy0 - 1, ix0 - 1); deconv_preact's order.
+__device__ __forceinline__ float dec2_preact(int ky0, int kx0, float m11, float m10, float m01,
+                                             float m00) {
+    const float4 w = ae2d_wt2p[ky0 * 2 + kx0];
+    float acc = wgt(AE_BT2);
+    acc += w.x * m11;
+    acc += w.y * m10;
+    acc += w.z * m01;
+    acc += w.w * m00;
+    return acc;
+}
+
+// Partial sums of the block in a fixed order (warp trees, then the warps in
+// turn) into *out; red needs 32 floats.  Every thread calls it.
+__device__ __forceinline__ void block_sum_to(float part, float* red, float* out) {
+    const int tid = threadIdx.x, nt = blockDim.x;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
+    if ((tid & 31) == 0) red[tid >> 5] = part;
+    __syncthreads();
+    if (tid == 0) {
+        float s = 0.f;
+        for (int w = 0; w < (nt + 31) / 32; ++w) s += red[w];
+        *out = s;
+    }
+}
+
+// Shared memory of the forward's band (bytes): the table, x1s, es, ms, the
+// reduction scratch, the bit rows and (saving with dropout) the middle keep
+// bytes.
+__host__ __device__ inline size_t ae2d_fwd_smem(const Ae2dShape& s, bool save_keep) {
+    const Ae2dDims d(s);
+    const size_t floats = 4 * 512 + 4 * static_cast<size_t>(d.XR()) * d.XW() +
+                          2 * static_cast<size_t>(d.ER()) * d.EW() +
+                          static_cast<size_t>(d.MR()) * d.XW() + 32;
+    return 4 * floats + 4 * static_cast<size_t>(d.IR()) * d.NS() +
+           (save_keep ? static_cast<size_t>(s.RY / 2) * d.W1 : 0);
+}
+
+// Shared memory of the backward's decoder band: es, ms, the output cotangent
+// (rows Y0 - 1 .. Y0 + RY, a column each side), the own middle cotangent and
+// block_sums' scratch for 16 values.
+__host__ __device__ inline size_t ae2d_bwd_dec_smem(const Ae2dShape& s) {
+    const Ae2dDims d(s);
+    return 4 * (2 * static_cast<size_t>(d.ER()) * d.EW() + static_cast<size_t>(d.MR()) * d.XW() +
+                static_cast<size_t>(s.RY + 2) * (s.W + 2) +
+                static_cast<size_t>(s.RY / 2) * d.W1 + 32 * 16);
+}
+
+// Shared memory of the backward's encoder band: the table, x1s, the
+// embedding cotangent (rows Y0/4 - 1 .. Y0/4 + RY/4), the stage-2 cotangent
+// (rows Y0/2 - 2 .. Y0/2 + RY/2 + 1, a column each side), block_sums' scratch
+// for 9 values, the spread table and the bit rows.
+__host__ __device__ inline size_t ae2d_bwd_enc_smem(const Ae2dShape& s) {
+    const Ae2dDims d(s);
+    return 4 * (4 * 512 + 4 * static_cast<size_t>(d.XR()) * d.XW() +
+                2 * static_cast<size_t>(d.ER()) * d.We +
+                2 * static_cast<size_t>(s.RY / 2 + 4) * d.XW() + 32 * 9) +
+           4 * (512 + static_cast<size_t>(d.IR()) * d.NS());
+}

@@ -20,8 +20,15 @@
 //   3. the encoder's backward (encoder_bwd.cuh) with gemb as its cotangent;
 //   4. column_sums_kernel adds the blocks' partial sums in a fixed order.
 //
-// Fusing the stages into one band kernel (nested halos out to 15 input rows
-// either side) is left for later.  Bound: operations, as the forward.
+// Nothing else is fused: seven device launches a call (the decoder band
+// kernel, deconv_input_grad_kernel, the encoder's two band kernels and three
+// column_sums_kernels), and the forward with its dropout draws is recomputed
+// three times, each pass with its own halo: the decoder band kernel to the
+// middle activation, the stage-2 encoder kernel stages 1-2, the stage-1
+// encoder kernel stage 1.  Bound: operations, as the forward (with dropout, also the
+// Philox draws).  This is the generic instantiation, for any widths up to
+// MAXC; the AE2D widths (4, 2, 1, 1) run ae2d_bwd.cu, which reads the keep
+// bits and the embedding the forward saved and launches three kernels.
 #include "decoder_bwd.cuh"
 #include "encoder_bwd.cuh"
 
@@ -139,4 +146,23 @@ extern "C" int ae_loss_bwd_launch(
     KERNEL_LAUNCH(column_sums_kernel, K3, 128, 0, s, static_cast<const float*>(part3),
                   ((H + RY - 1) / RY) * N, K3, static_cast<float*>(grads) + K12);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static shared memory, spilled bytes and resident blocks a
+// multiprocessor (common.cuh::kernel_occupancy) of the three band kernels of
+// uint8 cells with dropout: out[0..3] the decoder band kernel (smem3),
+// out[4..7] the stage-2 encoder kernel (smem2), out[8..11] the stage-1 one.
+extern "C" int ae_loss_bwd_occupancy(long long smem3, long long smem2, long long smem1,
+                                     int device, int* out) {
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int rc = kernel_occupancy(ae_bwd_decoder_kernel<true, uint8_t, uint8_t>, 256,
+                              static_cast<size_t>(smem3), out);
+    if (rc == 0)
+        rc = kernel_occupancy(encoder_bwd_stage2_kernel<uint8_t, 2, 2, true, false>, 256,
+                              static_cast<size_t>(smem2), out + 4);
+    if (rc == 0)
+        rc = kernel_occupancy(encoder_bwd_stage1_kernel<uint8_t, 2, true, false>, 256,
+                              static_cast<size_t>(smem1), out + 8);
+    return rc;
 }

@@ -14,10 +14,13 @@
 // 0.5.  With drop_p == 0 the kernel is instantiated without it.  src and obs
 // are each uint8 cells or packed uint32 words (common.cuh), read as cells.
 //
-// Bound on an H100: operations.  Per cell of the universe the net does about
+// Bound on an H100: operations.  Per cell of the universe the net does
 // 9 C1 + (9 C1 C2 + 4 C2 CMID) / 4 + 4 CMID COUT multiply-adds on float32
-// (48 at the AE2D widths) against 2 bytes read (src and obs), far above the
-// card's 20 flops a byte balance point for float32.  Design: a block owns a
+// (36 + 18 + 2 + 4 = 60 at the AE2D widths) against 2 bytes read (src and
+// obs), far above the card's 20 flops a byte balance point for float32; with
+// dropout, also a Philox draw a position and stage (philox.cuh).  This is the
+// generic instantiation, for any widths up to MAXC; the AE2D widths (4, 2, 1,
+// 1) run ae2d_fwd.cu, which removes most of this kernel's instructions.  Design: a block owns a
 // band of RY output rows of one universe and works back through the net: it
 // stages the input rows the band needs in shared memory, computes the
 // stage-1 band (RY/2 + 6 rows), the embedding band (RY/4 + 2 rows) and the
@@ -118,4 +121,24 @@ extern "C" int ae_loss_fwd_launch(const void* src, const void* obs, const void* 
     KERNEL_LAUNCH(row_sums_kernel, (N + 127) / 128, 128, 0, s,
                   static_cast<const float*>(partials), bands, static_cast<float*>(err), N);
     return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static shared memory, spilled bytes and resident blocks a
+// multiprocessor of the band kernel (common.cuh::kernel_occupancy).
+extern "C" int ae_loss_fwd_occupancy(int drop, int src_kind, int obs_kind, long long smem,
+                                     int device, int* out) {
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const size_t bytes = static_cast<size_t>(smem);
+    const bool s32 = src_kind == KIND_U32, o32 = obs_kind == KIND_U32;
+    if (drop) {
+        if (s32) return o32 ? kernel_occupancy(ae_loss_fwd_kernel<true, uint32_t, uint32_t>, 256, bytes, out)
+                            : kernel_occupancy(ae_loss_fwd_kernel<true, uint32_t, uint8_t>, 256, bytes, out);
+        return o32 ? kernel_occupancy(ae_loss_fwd_kernel<true, uint8_t, uint32_t>, 256, bytes, out)
+                   : kernel_occupancy(ae_loss_fwd_kernel<true, uint8_t, uint8_t>, 256, bytes, out);
+    }
+    if (s32) return o32 ? kernel_occupancy(ae_loss_fwd_kernel<false, uint32_t, uint32_t>, 256, bytes, out)
+                        : kernel_occupancy(ae_loss_fwd_kernel<false, uint32_t, uint8_t>, 256, bytes, out);
+    return o32 ? kernel_occupancy(ae_loss_fwd_kernel<false, uint8_t, uint32_t>, 256, bytes, out)
+               : kernel_occupancy(ae_loss_fwd_kernel<false, uint8_t, uint8_t>, 256, bytes, out);
 }

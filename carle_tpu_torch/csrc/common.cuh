@@ -21,6 +21,27 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                                 static_cast<int>(bytes));
 }
 
+// What the card gives a kernel launched with `threads` threads and `smem`
+// bytes of dynamic shared memory: out[0] registers a thread, out[1] static
+// shared memory, out[2] local (spilled) bytes a thread, out[3] resident blocks
+// a multiprocessor (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Host
+// code only: chip_smoke.py reads it through each source's *_occupancy.
+template <typename Kernel>
+static int kernel_occupancy(Kernel kernel, int threads, size_t smem, int* out) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+    if (e == cudaSuccess) e = allow_smem(kernel, smem);
+    int blocks = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = static_cast<int>(attr.localSizeBytes);
+    out[3] = blocks;
+    return 0;
+}
+
 // Cells as the kernels read them: a plane of uint8_t cells (one a byte), of
 // float values, or of uint32_t words that pack 32 cells along a row (bit j of
 // word k is cell 32k + j: ops/bitpack.py's layout, rows a multiple of 32

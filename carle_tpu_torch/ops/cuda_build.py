@@ -35,8 +35,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
-           "encoder_bwd", "ae_loss_bwd", "head_fwd", "head_bwd", "tail",
-           "decoder_loss_fwd", "decoder_loss_bwd", "halo_step")
+           "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd", "head_bwd",
+           "tail", "decoder_loss_fwd", "decoder_loss_bwd", "halo_step")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -189,6 +189,10 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 11 + [I] * 11 + [LL, LL, I, D, ULL, I, P]),
         CudaKernel("ae_loss_bwd", "ae_loss_bwd_launch",
                    [P] * 18 + [I] * 10 + [LL, LL, LL, I, I, D, ULL, I, P]),
+        CudaKernel("ae2d_fwd", "ae2d_fwd_launch",
+                   [P] * 16 + [I] * 4 + [LL, I, I, D, ULL, I, P]),
+        CudaKernel("ae2d_bwd", "ae2d_bwd_launch",
+                   [P] * 19 + [I] * 5 + [LL, LL, I, I, D, I, P]),
         CudaKernel("head_fwd", "head_fwd_launch",
                    [P] * 4 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("head_bwd", "head_bwd_launch",

@@ -7,9 +7,10 @@ its per-instance stage-1 row mask, and ``make_fused_ae_loss``).
 ``torch.autograd.Function``s whose forward and backward launch the kernels
 (``csrc/encoder_fwd.cu``, ``encoder_bwd.cu``, ``ae_loss_fwd.cu``,
 ``ae_loss_bwd.cu``) for CUDA tensors and take the plain twins for CPU tensors.
-They save only their inputs and the dropout seed: the backward recomputes the
-forward, as the JAX ``custom_vjp`` does.  Where no gradient is asked for they
-call the forward alone, so inference builds no graph.
+They save their inputs and the dropout seed, and the backward recomputes the
+forward, as the JAX ``custom_vjp`` does; the autoencoder's, on the AE2D route
+(below), also keeps what its forward kernel saved.  Where no gradient is asked
+for they call the forward alone, so inference builds no graph.
 
 Dropout is Philox4x32-10 indexed by the element (``csrc/philox.cuh``);
 :func:`philox_keep_mask` is the same generator in int64 tensor arithmetic, so
@@ -19,6 +20,14 @@ one element, so the backward twins are written out.
 
 The kernels compute their own convolutions, pools, transpose convolutions,
 masks and sums; ``torch.nn.functional`` appears only in the plain twins.
+
+At AE2D's widths (C1, C2, CMID, COUT) = (4, 2, 1, 1), which every caller in
+the package uses, the whole autoencoder runs as kernels specialised for them
+(``csrc/ae2d_fwd.cu``, ``ae2d_bwd.cu``): the training forward saves the
+embedding and every dropout keep bit, and the backward reads them instead of
+recomputing the encoder and drawing again.  The generic kernels take any other
+widths; :data:`AE2D_KERNELS` set to False sends AE2D's widths to them too
+(tests and chip_smoke.py hold one instantiation against the other).
 
 The encoder's kernels take any width divisible by the pools: where one band
 of the whole width does not fit a block's shared memory, the plans cut the
@@ -39,7 +48,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +61,8 @@ ENCODER = KERNELS["encoder_fwd"]
 AE_LOSS = KERNELS["ae_loss_fwd"]
 ENCODER_BWD = KERNELS["encoder_bwd"]
 AE_LOSS_BWD = KERNELS["ae_loss_bwd"]
+AE2D_FWD = KERNELS["ae2d_fwd"]
+AE2D_BWD = KERNELS["ae2d_bwd"]
 MAX_CHANNELS = 8            # the kernels' register-array bound
 SMEM_TARGET = 48 * 1024     # forwards: prefer bands within the default shared memory
 SMEM_TARGET_BWD = 100 * 1024  # backwards: two blocks a multiprocessor
@@ -61,10 +72,19 @@ SMEM_MAX = 227 * 1024
 # the whole width does not fit).  Tests and chip_smoke.py set it to hold a
 # tiled launch against the untiled one.
 TILE_CELLS: Optional[int] = None
+# The whole autoencoder at these widths (C1, C2, CMID, COUT) runs the kernels
+# specialised for them wherever their plan fits (:func:`ae2d_route`); False
+# runs the generic kernels there too, to hold one against the other.
+AE2D_WIDTHS = (4, 2, 1, 1)
+AE2D_KERNELS = True
+AE2D_SMEM_FWD = 76 * 1024   # three blocks a multiprocessor
+AE2D_SMEM_BWD = 100 * 1024  # two
 # dropout stages: the counter's stage field (csrc/net_stages.cuh)
 STAGE_ENC1, STAGE_ENC2, STAGE_DEC1, STAGE_DEC2 = 0, 1, 2, 3
 
-__all__ = ["ENCODER", "AE_LOSS", "ENCODER_BWD", "AE_LOSS_BWD", "encoder", "ae_loss",
+__all__ = ["ENCODER", "AE_LOSS", "ENCODER_BWD", "AE_LOSS_BWD", "AE2D_FWD", "AE2D_BWD",
+           "AE2D_WIDTHS", "AE2D_KERNELS", "AE2DSaved", "ae2d_route", "saved_keep_masks",
+           "encoder", "ae_loss",
            "encoder_fwd", "encoder_fwd_plain", "encoder_bwd", "encoder_bwd_plain",
            "ae_loss_fwd", "ae_loss_fwd_plain", "ae_loss_bwd", "ae_loss_bwd_plain",
            "philox4x32", "philox_keep_mask", "drop_settings", "cells", "cell_shape",
@@ -625,6 +645,139 @@ def _ae_shape(src, w1, w2, wt1, wt2, obs, pools):
     return n, h, w, c1, c2, cmid, cout
 
 
+def _ae2d_dims(w: int, ry: int):
+    """csrc/ae2d.cuh::Ae2dDims: (W/2, W/4, words a bit row, stage-1 rows, their
+    width, embedding rows, their width, middle rows) of a band of ry rows."""
+    w1, we = w // 2, w // 4
+    return w1, we, -(-w // 32) + 2, ry // 2 + 6, w1 + 2, ry // 4 + 2, we + 2, ry // 2 + 2
+
+
+def _ae2d_fwd_smem(w: int, ry: int, save_keep: bool) -> int:
+    """csrc/ae2d.cuh::ae2d_fwd_smem."""
+    w1, _, ns, xr, xw, er, ew, mr = _ae2d_dims(w, ry)
+    floats = 4 * 512 + 4 * xr * xw + 2 * er * ew + mr * xw + 32
+    return 4 * floats + 4 * (ry + 14) * ns + ((ry // 2) * w1 if save_keep else 0)
+
+
+def _ae2d_bwd_dec_smem(w: int, ry: int) -> int:
+    """csrc/ae2d.cuh::ae2d_bwd_dec_smem."""
+    w1, _, _, _, xw, er, ew, mr = _ae2d_dims(w, ry)
+    return 4 * (2 * er * ew + mr * xw + (ry + 2) * (w + 2) + (ry // 2) * w1 + 32 * 16)
+
+
+def _ae2d_bwd_enc_smem(w: int, ry: int) -> int:
+    """csrc/ae2d.cuh::ae2d_bwd_enc_smem."""
+    _, we, ns, xr, xw, er, _, _ = _ae2d_dims(w, ry)
+    return (4 * (4 * 512 + 4 * xr * xw + 2 * er * we + 2 * (ry // 2 + 4) * xw + 32 * 9)
+            + 4 * (512 + (ry + 14) * ns))
+
+
+@functools.lru_cache(maxsize=None)
+def _ae2d_plan(h: int, w: int):
+    """(RY of the forward, RY and shared memory of the backward's decoder and
+    encoder band kernels) of the AE2D kernels at [h, w], or None where a band
+    of the whole width does not fit a block."""
+    try:
+        ry, _ = _pick_band(lambda r: _ae2d_fwd_smem(w, r, True), h, (32, 16, 8, 4),
+                           AE2D_SMEM_FWD)
+        dec = _pick_band(lambda r: _ae2d_bwd_dec_smem(w, r), h, (32, 16, 8, 4), AE2D_SMEM_BWD)
+        enc = _pick_band(lambda r: _ae2d_bwd_enc_smem(w, r), h, (32, 16, 8, 4), AE2D_SMEM_BWD)
+    except ValueError:
+        return None
+    return ry, dec, enc
+
+
+def ae2d_route(h: int, w: int, widths) -> bool:
+    """Whether the whole autoencoder at [h, w] with ``widths`` (C1, C2, CMID,
+    COUT) runs the AE2D kernels: its widths and a plan that fits decide."""
+    return AE2D_KERNELS and tuple(widths) == AE2D_WIDTHS and _ae2d_plan(h, w) is not None
+
+
+class AE2DSaved(NamedTuple):
+    """What the AE2D training forward saves for its backward: the
+    embedding [N, 2, H/4, W/4] and, with dropout, the keep bits
+    (csrc/ae2d.cuh::Ae2dSaved): keep1 int16 [N, H/2, W/2] (bit 4p + c:
+    stage-1 pixel p = 2 py + px of the pool window, channel c), keep2 uint8
+    [N, H/4, W/4] (bit 2p + o: stage-2 pixel p, channel o), keepd uint8
+    [N, H/2, W/2] (bit 2a + b: output (2i + a, 2j + b); bit 4: middle (i, j))."""
+    emb: torch.Tensor
+    keep1: Optional[torch.Tensor]
+    keep2: Optional[torch.Tensor]
+    keepd: Optional[torch.Tensor]
+
+
+_AE_SHAPES = ((4, 1, 3, 3), (4,), (2, 4, 3, 3), (2,), (2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,))
+
+
+def _unfold_bits(words: torch.Tensor, count: int, window: int, channels: int) -> torch.Tensor:
+    """Bits [N, h, w] (bit (window py + px) channels + c) as a mask
+    [N, channels, h window, w window]."""
+    n, h, w = words.shape
+    bits = (words.to(torch.int32)[..., None] >> torch.arange(count, device=words.device)) & 1
+    bits = bits.view(n, h, w, window, window, channels).permute(0, 5, 1, 3, 2, 4)
+    return bits.reshape(n, channels, h * window, w * window).bool()
+
+
+def saved_keep_masks(saved: AE2DSaved):
+    """The keep masks of the four dropout stages that an AE2D training forward
+    saved, in :func:`philox_keep_mask`'s layout: [N, 4, H, W], [N, 2, H/2,
+    W/2], [N, 1, H/2, W/2], [N, 1, H, W]."""
+    keepd = saved.keepd.to(torch.int32)
+    return [_unfold_bits(saved.keep1.to(torch.int32) & 0xFFFF, 16, 2, 4),
+            _unfold_bits(saved.keep2, 8, 2, 2),
+            ((keepd >> 4) & 1).bool()[:, None],
+            _unfold_bits(keepd & 0xF, 4, 2, 1)]
+
+
+def _ae2d_fwd_kernel(src, params, obs, drop_p, seed, save):
+    """(err [N], AE2DSaved or None): the AE2D forward kernel on checked
+    inputs; ``save`` also writes what its backward reads."""
+    n, _, h, w = cell_shape(src)
+    if src.dtype == torch.uint8 and src.data_ptr() % 4:
+        raise ValueError("uint8 src must start on a 4-byte boundary (the AE2D kernel reads "
+                         "its cells four at a time)")
+    ry = _ae2d_plan(h, w)[0]
+    save_keep = save and drop_p > 0.0
+    dev = src.device
+    ws = [t.contiguous() for t in params]
+    partials = torch.empty((n, -(-h // ry)), dtype=torch.float32, device=dev)
+    err = torch.empty((n,), dtype=torch.float32, device=dev)
+    saved = None
+    if save:
+        keeps = ((torch.empty((n, h // 2, w // 2), dtype=torch.int16, device=dev),
+                  torch.empty((n, h // 4, w // 4), dtype=torch.uint8, device=dev),
+                  torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=dev))
+                 if save_keep else (None, None, None))
+        saved = AE2DSaved(torch.empty((n, 2, h // 4, w // 4), dtype=torch.float32, device=dev),
+                          *keeps)
+    device, stream = stream_args(src)
+    AE2D_FWD.launch(src.data_ptr(), obs.data_ptr(), *(t.data_ptr() for t in ws),
+                    partials.data_ptr(), err.data_ptr(), *(_ptr(t) for t in saved or (None,) * 4),
+                    n, h, w, ry, _ae2d_fwd_smem(w, ry, save_keep), cell_kind(src),
+                    cell_kind(obs), float(drop_p), _seed_word(seed), device, stream,
+                    packed=_packed(src, obs))
+    return err, saved
+
+
+def _ae2d_bwd_kernel(src, params, obs, gbar, drop_p, saved: AE2DSaved):
+    """The eight gradients from the AE2D training forward's ``saved`` (with
+    the same params)."""
+    n, _, h, w = cell_shape(src)
+    _, (ry_dec, smem_dec), (ry_enc, smem_enc) = _ae2d_plan(h, w)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=src.device)
+    gcm = empty(n, h // 2, w // 2)
+    part_dec, part_enc = empty(n * -(-h // ry_dec), 50), empty(n * -(-h // ry_enc), 114)
+    grads = empty(sum(math.prod(s) for s in _AE_SHAPES))
+    device, stream = stream_args(src)
+    ws = [t.contiguous() for t in (*params, gbar)]   # alive until the launch is enqueued
+    AE2D_BWD.launch(src.data_ptr(), obs.data_ptr(), *(t.data_ptr() for t in ws[:8]),
+                    *(_ptr(t) for t in saved), ws[8].data_ptr(), gcm.data_ptr(),
+                    part_dec.data_ptr(), part_enc.data_ptr(), grads.data_ptr(), n, h, w,
+                    ry_dec, ry_enc, smem_dec, smem_enc, cell_kind(src), cell_kind(obs),
+                    float(drop_p), device, stream, packed=_packed(src, obs))
+    return _split(grads, _AE_SHAPES)
+
+
 def ae_loss_fwd(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs,
                 pools: Tuple[int, int] = (2, 2), drop_p: float = 0.0,
                 seed: int = 0) -> torch.Tensor:
@@ -639,11 +792,21 @@ def ae_loss_fwd(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs,
 
 def _ae_loss_fwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, pools, drop_p,
                         seed):
+    return _ae_fwd_launch(src, (w1, b1, w2, b2, wt1, bt1, wt2, bt2), obs, pools, drop_p,
+                          seed, False)[0]
+
+
+def _ae_fwd_launch(src, params, obs, pools, drop_p, seed, save):
+    """(err, AE2DSaved or None): the forward kernel of the widths' route;
+    ``save`` (the AE2D route only) also keeps what its backward reads."""
+    w1, b1, w2, b2, wt1, bt1, wt2, bt2 = params
     _check_drop(drop_p)
     n, h, w, c1, c2, cmid, cout = _ae_shape(src, w1, w2, wt1, wt2, obs, pools)
     _check_cuda_inputs(src, [("src", src), ("obs", obs)],
                        [("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2),
                         ("wt1", wt1), ("bt1", bt1), ("wt2", wt2), ("bt2", bt2)])
+    if ae2d_route(h, w, (c1, c2, cmid, cout)):
+        return _ae2d_fwd_kernel(src, params, obs, drop_p, seed, save)
     ry, smem = _ae_bands(h, w, c1, c2, cmid, cout)[0]
     bands = -(-h // ry)
     partials = torch.empty((n, bands), dtype=torch.float32, device=src.device)
@@ -654,7 +817,7 @@ def _ae_loss_fwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, pools, dro
                    partials.data_ptr(), err.data_ptr(), n, h, w, c1, c2, cmid,
                    cout, ry, smem, cell_kind(src), cell_kind(obs), float(drop_p),
                    _seed_word(seed), device, stream, packed=_packed(src, obs))
-    return err
+    return err, None
 
 
 def ae_loss_bwd(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar,
@@ -680,6 +843,11 @@ def _ae_loss_bwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar, pool
     if not whole_ae_fits(h, w, c1, c2, cmid, cout):
         raise ValueError(f"{h}x{w} is too wide for the whole-AE backward kernels "
                          "(nets.conv_ae_loss composes encoder and decoder loss there)")
+    if ae2d_route(h, w, (c1, c2, cmid, cout)):
+        # the gradients alone: the saving forward draws the bits the backward reads
+        params = (w1, b1, w2, b2, wt1, bt1, wt2, bt2)
+        saved = _ae2d_fwd_kernel(src, params, obs, drop_p, seed, True)[1]
+        return _ae2d_bwd_kernel(src, params, obs, gbar, drop_p, saved)
     ry, smem3 = _ae_bands(h, w, c1, c2, cmid, cout)[1]
     plan = _encoder_bwd_plan(n, h, w, c1, c2, 2, 2, src.device)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=src.device)
@@ -724,18 +892,29 @@ class EncoderFn(torch.autograd.Function):
 
 
 class AELossFn(torch.autograd.Function):
-    """ae_loss_fwd with ae_loss_bwd as its backward; saves only the inputs."""
+    """ae_loss_fwd with ae_loss_bwd as its backward; saves the inputs and, on
+    the AE2D route, what the forward kernel saved (the embedding and the keep
+    bits), so the backward draws no dropout bit again."""
 
     @staticmethod
     def forward(ctx, src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, pools, drop_p, seed):
         ctx.save_for_backward(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs)
         ctx.settings = (tuple(pools), float(drop_p), int(seed))
-        return ae_loss_fwd(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, *ctx.settings)
+        params = (w1, b1, w2, b2, wt1, bt1, wt2, bt2)
+        if src.device.type == "cuda":
+            err, ctx.ae2d = _ae_fwd_launch(src, params, obs, *ctx.settings, True)
+            return err
+        ctx.ae2d = None
+        return ae_loss_fwd(src, *params, obs, *ctx.settings)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gbar):
-        grads = ae_loss_bwd(*ctx.saved_tensors, gbar.contiguous(), *ctx.settings)
+        if ctx.ae2d is not None:
+            src, *params, obs = ctx.saved_tensors
+            grads = _ae2d_bwd_kernel(src, params, obs, gbar, ctx.settings[1], ctx.ae2d)
+        else:
+            grads = ae_loss_bwd(*ctx.saved_tensors, gbar.contiguous(), *ctx.settings)
         return (None, *grads, None, None, None, None)
 
 

@@ -39,6 +39,17 @@ Phases, in order; any failure exits non-zero without the final line:
            the near ties kernel against the float32 and float64 twins within
            1e-4); the head at width 8192 (column tiles) against its twin,
            and tiles forced at 256² against one tile;
+   ae2d    the whole-autoencoder kernels specialised at AE2D's widths
+           (csrc/ae2d_fwd.cu, ae2d_bwd.cu) against the generic instantiation
+           at the same widths (error within 1e-6 relative, each gradient leaf
+           within 1e-5 of its largest entry; uint8 and packed src and obs, src
+           = obs and not, dropout 0 and 0.1), the training forward's saved
+           keep bits against the twin's Philox mask, then both instantiations
+           timed in turns at rows 4a and 4b's shapes, each call's device
+           launches and time by kernel, the host's time to enqueue a
+           forward on one universe, each band kernel's registers, shared
+           memory and resident blocks a multiprocessor, and a training step
+           and the batched battery with each instantiation in turns;
    spatial_kernels  the three halo kernels at 8192² on 4 slots of one card
            (uint8 1 and 8 generations, packed 64 with the rule as data and
            with Life fixed) against their twins and the single-device
@@ -189,11 +200,11 @@ SOURCES = {
                       "carle_tpu/ops/pallas_ca.py:153"),
     "encoder_fwd": ("carle_tpu_torch/csrc/encoder_fwd.cu",
                     "carle_tpu/ops/pallas_head.py:1081"),
-    "ae_loss_fwd": ("carle_tpu_torch/csrc/ae_loss_fwd.cu",
+    "ae_loss_fwd": ("carle_tpu_torch/csrc/ae2d_fwd.cu",
                     "carle_tpu/ops/pallas_head.py:1841"),
     "encoder_bwd": ("carle_tpu_torch/csrc/encoder_bwd.cu",
                     "carle_tpu/ops/pallas_head.py:1114"),
-    "ae_loss_bwd": ("carle_tpu_torch/csrc/ae_loss_bwd.cu",
+    "ae_loss_bwd": ("carle_tpu_torch/csrc/ae2d_bwd.cu",
                     "carle_tpu/ops/pallas_head.py:1875"),
     "head_fwd": ("carle_tpu_torch/csrc/head_fwd.cu", "carle_tpu/ops/pallas_head.py:281"),
     "head_bwd": ("carle_tpu_torch/csrc/head_bwd.cu", "carle_tpu/ops/pallas_head.py:297"),
@@ -230,17 +241,22 @@ BAND_SIZE = 8192                     # pod_smoke.py's spatial8k universe, one of
 RND_BANDS, PRED_BANDS = 512, 128     # BandTiling(size // 16), BandTiling(size // 64)
 SPATIAL_ROWS = ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
                 "bit_spatial_multi_step_static")
+# The whole autoencoder's rows: at AE2D's widths, which every main path uses,
+# the kernels specialised for them (ae2d_*) run; the generic instantiation
+# (ae_loss_*) takes other widths.  A row's launches count both.
+AE_INSTANTIATIONS = {"ae_loss_fwd": ("ae2d_fwd", "ae_loss_fwd"),
+                     "ae_loss_bwd": ("ae2d_bwd", "ae_loss_bwd")}
 # the kernels each main path must launch
 PATH_KERNELS = {
-    "battery": ("ca_step", "encoder_fwd", "ae_loss_fwd"),
-    "server": ("ca_step", "bit_multi_step", "encoder_fwd", "ae_loss_fwd"),
-    "train": ("ca_step", "encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd"),
-    "routes": ("encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd", "head_fwd",
+    "battery": ("ca_step", "encoder_fwd", "ae2d_fwd"),
+    "server": ("ca_step", "bit_multi_step", "encoder_fwd", "ae2d_fwd"),
+    "train": ("ca_step", "encoder_fwd", "ae2d_fwd", "encoder_bwd", "ae2d_bwd"),
+    "routes": ("encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
                "head_bwd", "tail_fwd", "tail_bwd", "loss_tail_fwd", "loss_tail_bwd",
                "decoder_loss_fwd", "decoder_loss_bwd"),
-    "wrappers": ("ca_step", "encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
+    "wrappers": ("ca_step", "encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd",
                  "decoder_loss_fwd", "decoder_loss_bwd", "tail_fwd"),
-    "packed": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
+    "packed": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd",
                "decoder_loss_fwd", "decoder_loss_bwd"),
     "bands": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "decoder_loss_fwd",
               "decoder_loss_bwd"),
@@ -250,7 +266,7 @@ PATH_KERNELS = {
                 "encoder_fwd", "encoder_bwd", "tail_fwd", "tail_bwd"),
 }
 # the kernels the packed path must launch on packed words
-PACKED_INPUT_KERNELS = ("encoder_fwd", "encoder_bwd", "ae_loss_fwd", "ae_loss_bwd",
+PACKED_INPUT_KERNELS = ("encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd",
                         "decoder_loss_fwd", "decoder_loss_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
         "ParsimonyBonus", "SpeedDetector", "PufferDetector")
@@ -325,8 +341,9 @@ def phase_build(cuda_build):
     return seconds
 
 
-def phase_kernels(torch, timer, shipped):
-    """Each kernel vs its plain twin at the slice's shapes."""
+def phase_kernels(torch, timer, shipped, philox):
+    """Each kernel vs its plain twin at the slice's shapes (philox: a
+    draw's operations, philox_draw_ops, for the dropout bounds)."""
     from carle_tpu_torch import EnvConfig, rules
     from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca, cuda_head
 
@@ -418,9 +435,7 @@ def phase_kernels(torch, timer, shipped):
     check(torch.equal(got, again), "ae_loss_fwd is not deterministic")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
     hw = 256 * 256
-    flops = 2 * 160 * (hw * 4 * 9 + hw // 4 * 2 * 4 * 9 + hw // 4 * 1 * 2 * 4
-                       + hw * 1 * 1 * 4) + 160 * hw * 3
-    b, by = bound_ms(2 * 160 * hw + 160 * 4, flops, FP32_FLOPS)
+    b, by = ae_bound(160, hw, 2 * 160 * hw + 160 * 4, 0, backward=False)
     results["ae_loss_fwd"] = dict(
         max_abs_err=float((got - want).abs().max()),
         max_rel_err=float(((got - want).abs() / want.abs()).max()),
@@ -429,7 +444,7 @@ def phase_kernels(torch, timer, shipped):
         bound_ms=b, bound_by=by, library_ms=None,
         shape="u8 src=obs [160,1,256,256], AE2D (C1=4, C2=2, 1, 1)")
     log(f"ae_loss_fwd ok: {results['ae_loss_fwd']}")
-    results.update(phase_train_kernels(torch, timer, gen))
+    results.update(phase_train_kernels(torch, timer, gen, philox))
     results.update(phase_stage_kernels(torch, timer, gen))
     results.update(phase_engine_kernels(torch, timer))
     phase_packed_input_kernels(torch, timer, gen, results)
@@ -648,7 +663,7 @@ def _leaf_errors(got, want):
             for a, b in zip(got, want)]
 
 
-def phase_train_kernels(torch, timer, gen):
+def phase_train_kernels(torch, timer, gen, philox):
     """The backward kernels and the dropout forwards vs their twins at the
     training path's shapes: 64 universes of 256 x 256, fresh parameters."""
     from carle_tpu_torch import EnvConfig
@@ -691,6 +706,8 @@ def phase_train_kernels(torch, timer, gen):
         lambda: cuda_head.ae_loss_fwd(*ae_args, (2, 2), DROP_P, seed), 20)
     drop["ae_loss_fwd_plain_ms"] = timer.ms(
         lambda: cuda_head.ae_loss_fwd_plain(*ae_args, (2, 2), DROP_P, seed), 3)
+    drop["ae_loss_fwd_bound_ms"] = ae_bound(n, hw, 2 * n * hw + n * 4, philox["ops"],
+                                            backward=False)
     # the mask the card draws, read off the error: with zero weights and a
     # last bias of 40 a kept cell reconstructs 1.0 and a dropped cell 0.5, so
     # against blank cells the error counts the dropped cells exactly
@@ -748,13 +765,9 @@ def phase_train_kernels(torch, timer, gen):
         errs[p] = _leaf_errors(got, want)
         check(max(errs[p]) < tol, f"ae_loss_bwd (drop {p}) leaves differ: {errs[p]}")
         abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    c1, c2, cm, co = 4, 2, 1, 1
-    s1, s2 = n * hw * c1 * 9, n * (hw // 4) * c2 * c1 * 9
-    d1, d2 = n * (hw // 4) * cm * c2 * 4, n * hw * co * cm * 4
     # forward recompute, then dW of all four layers and the cotangents of
-    # three (the cells take none)
-    flops = 2 * ((s1 + s2 + d1 + d2) + (s1 + s2 + d1 + d2) + (s2 + d1 + d2)) + n * hw * 8
-    b, by = bound_ms(2 * n * hw + n * 4 + 164 * 4, flops, FP32_FLOPS)
+    # three (the cells take none), and with dropout the draws
+    b, by = ae_bound(n, hw, 2 * n * hw + n * 4 + 164 * 4, philox["ops"], backward=True)
     results["ae_loss_bwd"] = dict(
         max_abs_err=abs_err, max_leaf_rel_err=max(errs[DROP_P]),
         max_leaf_rel_err_no_drop=max(errs[0.0]),
@@ -764,6 +777,11 @@ def phase_train_kernels(torch, timer, gen):
             lambda: cuda_head.ae_loss_bwd_plain(*ae_args, gbar, (2, 2), DROP_P, seed), 2),
         bound_ms=b, bound_by=by, library_ms=None,
         shape="u8 src=obs [64,1,256,256], gbar [64], AE2D, drop 0.1")
+    # the training step's backward: from what its forward saved (ms above:
+    # the gradients alone, which run that forward first)
+    saved = cuda_head._ae_fwd_launch(x, ae_args[1:9], x, (2, 2), DROP_P, seed, True)[1]
+    results["ae_loss_bwd"]["ms_from_saved"] = timer.ms(
+        lambda: cuda_head._ae2d_bwd_kernel(x, ae_args[1:9], x, gbar, DROP_P, saved), 10)
     log(f"ae_loss_bwd ok: {results['ae_loss_bwd']}")
     return results
 
@@ -1061,6 +1079,362 @@ def phase_stage_kernels(torch, timer, gen):
         shape="fwd u8 src, obs [160,1,256,256]; bwd [64,...], gbar [64], drop 0.1")
     log(f"ae_loss with src != obs ok: {results['ae_loss_src_not_obs']}")
     return results
+
+
+def _device_us(e):
+    """A profiler event's own device time (µs), under either attribute name."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _device_split(torch, fn, calls: int = 5):
+    """What one call of ``fn`` runs on the device, under torch.profiler: each
+    kernel's and copy's µs and count a call, and the device launches a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    rows = sorted(({"name": e.key[:90], "us": _device_us(e) / calls, "per_call": e.count / calls}
+                   for e in events), key=lambda r: -r["us"])
+    kernels = [r for r in rows if not r["name"].startswith("Memcpy")]
+    return {"launches_per_call": sum(r["per_call"] for r in kernels),
+            "copies_per_call": sum(r["per_call"] for r in rows if r not in kernels),
+            "device_us_per_call": sum(r["us"] for r in rows), "by_kernel": rows}
+
+
+class Big(int):
+    """An argument the C function takes as long long."""
+
+
+def _host_us(torch, fn, reps: int = 200) -> float:
+    """The host's µs a call to enqueue ``fn``: calls in a loop without a
+    synchronize, after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def _occupancy(cuda_build, source: str, symbol: str, *args, slots: int = 4):
+    """``symbol``'s report from ``source``'s library (common.cuh's
+    kernel_occupancy, four ints a kernel): registers a thread, static shared
+    memory, spilled bytes, resident blocks a multiprocessor."""
+    import ctypes
+
+    lib = cuda_build.library(source)
+    fn = getattr(lib, symbol)
+    fn.argtypes = ([ctypes.c_longlong if isinstance(a, Big) else ctypes.c_int for a in args]
+                   + [ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * slots)()
+    rc = fn(*(int(a) for a in args), 0, ctypes.cast(out, ctypes.c_void_p))
+    check(rc == 0, f"{symbol} failed: {rc}")
+    keys = ("registers", "static_smem", "spilled_bytes", "blocks_per_sm")
+    return [dict(zip(keys, out[i:i + 4])) for i in range(0, slots, 4)]
+
+
+def _ae_occupancy(cuda_build):
+    """Registers, shared memory and resident blocks a multiprocessor of every
+    band kernel of the whole autoencoder at 256² (uint8 cells), AE2D and
+    generic."""
+    from carle_tpu_torch.ops import cuda_head as ch
+
+    out = {}
+    ry, (ry_dec, smem_dec), (ry_enc, smem_enc) = ch._ae2d_plan(256, 256)
+    for drop in (0, 1):
+        for save in (0, 1):
+            smem = ch._ae2d_fwd_smem(256, ry, bool(save and drop))
+            out[f"ae2d_fwd drop {drop} save {save}"] = dict(
+                _occupancy(cuda_build, "ae2d_fwd", "ae2d_fwd_occupancy", drop, save, Big(smem))[0],
+                dynamic_smem=smem, rows=ry)
+        dec, enc = _occupancy(cuda_build, "ae2d_bwd", "ae2d_bwd_occupancy", drop, Big(smem_dec),
+                              Big(smem_enc), slots=8)
+        out[f"ae2d_bwd decoder drop {drop}"] = dict(dec, dynamic_smem=smem_dec, rows=ry_dec)
+        out[f"ae2d_bwd encoder drop {drop}"] = dict(enc, dynamic_smem=smem_enc, rows=ry_enc)
+    (_, smem), (_, smem3) = ch._ae_bands(256, 256, 4, 2, 1, 1)
+    (_, _, smem2), (_, _, smem1) = ch._encoder_bwd_bands(256, 256, 4, 2, 2, 2)
+    out["generic ae_loss_fwd drop 0"] = dict(
+        _occupancy(cuda_build, "ae_loss_fwd", "ae_loss_fwd_occupancy", 0, 1, 1, Big(smem))[0],
+        dynamic_smem=smem)
+    bwd = _occupancy(cuda_build, "ae_loss_bwd", "ae_loss_bwd_occupancy", Big(smem3), Big(smem2),
+                     Big(smem1), slots=12)
+    for key, occ, sm in zip(("decoder", "encoder stage 2", "encoder stage 1"), bwd,
+                            (smem3, smem2, smem1)):
+        out[f"generic ae_loss_bwd {key} drop 1"] = dict(occ, dynamic_smem=sm)
+    return out
+
+
+# One Philox4x32-10 draw (philox.cuh) as the card executes it, read off the
+# SASS: a kernel with nine draws at neighbouring positions less one with one,
+# over eight (each draw's rounds, its four compares against keep_below, its
+# counter and its bits' place in a word, as the net kernels gather them; the
+# key schedule runs in uniform registers, once a warp, and counts only as
+# issued instructions).
+PHILOX_PROBE = r"""
+#include "philox.cuh"
+template <int DRAWS>
+__device__ __forceinline__ void draws(const DropCfg& cfg, const int* __restrict__ xy,
+                                      unsigned* __restrict__ out) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x, x = xy[2 * i], y = xy[2 * i + 1];
+    unsigned bits = 0;
+#pragma unroll
+    for (int k = 0; k < DRAWS; ++k) bits |= drop_keep_group(cfg, 1, blockIdx.y, 0, y, x + k) << (3 * k);
+    out[i] = bits;
+}
+extern "C" __global__ void one_draw(DropCfg cfg, const int* xy, unsigned* out) {
+    draws<1>(cfg, xy, out);
+}
+extern "C" __global__ void nine_draws(DropCfg cfg, const int* xy, unsigned* out) {
+    draws<9>(cfg, xy, out);
+}
+"""
+# Hopper's pipes for the opcodes of a draw: the FMA pipe takes the integer
+# multiplies (IMAD, IMAD.HI, IMAD.WIDE, counted one each), the ALU pipe the
+# logic, compares, adds, shifts and selects; each pipe takes 64 lanes a clock
+# a multiprocessor (INT32_OPS) and the two work at once.  The four schedulers
+# issue one warp instruction a clock each, 128 lanes: twice INT32_OPS, the
+# uniform-datapath instructions included.
+FMA_PIPE = ("IMAD", "IMUL", "IDP", "FFMA", "FMUL", "FADD")
+ALU_PIPE = ("LOP3", "LOP", "ISETP", "IADD3", "IADD", "SHF", "SHL", "SHR", "LEA", "SEL",
+            "PRMT", "MOV", "IMNMX", "IABS", "FSEL", "FSETP", "PLOP3", "P2R", "R2P", "BMSK",
+            "SGXT", "FLO", "BREV")
+
+
+def _sass_opcodes(sass: str):
+    """{function: {opcode: count}} of cuobjdump -sass output."""
+    import re
+
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = out.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and fn is not None and m.group(1) != "NOP":
+            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+    return out
+
+
+def philox_draw_ops(cuda_build):
+    """One Philox draw's operations by pipe from the SASS that nvcc gives
+    philox.cuh for sm_90a (PHILOX_PROBE): {"fma", "alu", "issue", "ops",
+    "opcodes"}; "ops" is the largest of the FMA pipe's, the ALU pipe's and
+    half the issued instructions, in INT32_OPS lanes."""
+    work = cuda_build.BUILD_DIR.parent / "philox_probe"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "philox_probe.cu").write_text(PHILOX_PROBE)
+    nvcc = cuda_build._nvcc()
+    subprocess.run([nvcc, "-cubin", "-gencode=arch=compute_90a,code=sm_90a", "-O3",
+                    "-std=c++17", "-I", str(cuda_build.CSRC), "-o", str(work / "probe.cubin"),
+                    str(work / "philox_probe.cu")], check=True, capture_output=True, timeout=120)
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(work / "probe.cubin")], check=True,
+                          capture_output=True, text=True, timeout=60).stdout
+    fns = _sass_opcodes(sass)
+    check({"one_draw", "nine_draws"} <= set(fns), f"probe functions not in the SASS: {list(fns)}")
+    diff = {op: (fns["nine_draws"].get(op, 0) - fns["one_draw"].get(op, 0)) / 8
+            for op in set(fns["nine_draws"]) | set(fns["one_draw"])}
+    diff = {op: c for op, c in sorted(diff.items()) if c}
+    fma = sum(c for op, c in diff.items() if op in FMA_PIPE)
+    alu = sum(c for op, c in diff.items() if op in ALU_PIPE)
+    issue = sum(diff.values())
+    check(fma >= 10 and issue >= 30, f"a draw's SASS looks wrong: {diff}")
+    return {"fma": fma, "alu": alu, "issue": issue, "ops": max(fma, alu, issue / 2),
+            "opcodes": diff, "one_draw_kernel": fns["one_draw"]}
+
+
+# Draws a cell of the universe for AE2D's net: stage 1 and the last stage one
+# a cell (a draw serves four channels), stage 2 and the middle stage one a
+# position of the half-resolution grid.
+AE2D_DRAWS_PER_CELL = 1 + 0.25 + 0.25 + 1
+# AE2D's net as the AE2D kernels compute it, multiply-adds a cell.  Stage 1
+# is a lookup in a 512 x 4 table of its pre-activations (512 x 36
+# multiply-adds once a call); stage 2 takes 18 a cell, the middle stage 2 and
+# the last 4.  The backward recomputes those 24, takes dW1 from the counts
+# of set taps of a pool window's maxima (36 a stage-1 pool window: 9 a cell),
+# dW2 18, dWt1 2, dWt2 4, and the stage-1 (18), embedding (2) and middle (4)
+# cotangents; the cells take none.
+AE2D_FWD_MACS = 18 + 2 + 4
+AE2D_BWD_MACS = AE2D_FWD_MACS + (9 + 18 + 2 + 4) + (18 + 2 + 4)
+
+
+def _ae_flops(n, hw, backward):
+    """Float32 operations of AE2D's net on n universes of hw cells: 2 a
+    multiply-add, the table once, and 3 a cell for the error (the backward: 8
+    a cell for the output cotangent)."""
+    table = 2 * 512 * 36
+    if not backward:
+        return 2 * AE2D_FWD_MACS * n * hw + table + 3 * n * hw
+    return 2 * AE2D_BWD_MACS * n * hw + table + 8 * n * hw
+
+
+def ae_bound_parts(n, hw, nbytes, draw_ops, backward):
+    """The whole-autoencoder function's least times (ms) on n universes of hw
+    cells: its bytes over the memory rate, its float32 operations over the
+    float32 rate and its Philox draws (AE2D_DRAWS_PER_CELL, draw_ops each;
+    0: none drawn) over the integer rate."""
+    return {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "fp32_ms": _ae_flops(n, hw, backward) / FP32_FLOPS * 1e3,
+            "philox_ms": n * hw * AE2D_DRAWS_PER_CELL * draw_ops / INT32_OPS * 1e3}
+
+
+def ae_bound(n, hw, nbytes, draw_ops, backward):
+    """(ms, kind): the largest of ae_bound_parts."""
+    parts = ae_bound_parts(n, hw, nbytes, draw_ops, backward)
+    t_ops = max(parts["fp32_ms"], parts["philox_ms"])
+    return ((parts["bytes_ms"], "bytes") if parts["bytes_ms"] >= t_ops
+            else (t_ops, "operations"))
+
+
+def dropout_bounds(draw_ops):
+    """Rows 3b, 5b, 7b, 8b and 9b's bounds with their Philox draws counted
+    (their kernels' shapes with dropout 0.1 at 64 universes of 256²), draw_ops
+    a draw: the larger of the bound stated before (float32 operations or
+    bytes) and the draws' integer time.  A draw serves a position's four
+    channels."""
+    n, hw = 64, 65536
+    draws = {   # row: (draws a cell, the bound stated before)
+        "3b encoder_bwd (RND: stage 1 one a cell, stage 2 1/16)": (1 + 1 / 16, 0.00986),
+        "5b decoder_loss_bwd (middle 1/4, last stage 1)": (1.25, 0.00275),
+        "7b tail_bwd (the output, 1)": (1.0, 0.00751),
+        "8b loss_tail_bwd (the output, 1)": (1.0, 0.00376),
+        "9b head_bwd (the pixels, 1)": (1.0, 0.00901),
+    }
+    out = {}
+    for row, (d, stated) in draws.items():
+        philox = n * hw * d * draw_ops / INT32_OPS * 1e3
+        out[row] = {"philox_ms": philox, "stated_ms": stated, "bound_ms": max(stated, philox)}
+    return out
+
+
+def _rel_diff(a, b):
+    return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def phase_ae2d(torch, timer, cuda_build, philox):
+    """The AE2D kernels (csrc/ae2d_fwd.cu, ae2d_bwd.cu) against the generic
+    kernels at AE2D's widths, in one run: error within 1e-6 relative, each
+    gradient leaf within 1e-5 of its largest entry (the pre-activations keep
+    the generic sums, so only the error and weight-gradient sums run in other
+    orders), over uint8 and packed src and obs, src = obs and not, dropout 0
+    and 0.1, a quarter of the universes half blank (exact pool ties); the
+    training forward's saved keep bits against philox_keep_mask, and the
+    backward from them against the backward that draws; then both timed at
+    rows 4a and 4b's shapes (the forward on 160 universes without dropout, the
+    training forward and the backward on 64 with dropout 0.1, in turns), each
+    call's device time by kernel and its device launches (torch.profiler), the
+    host's time to enqueue a forward on one universe, each band kernel's
+    registers, shared memory and resident blocks a multiprocessor, and the
+    bounds with philox (philox_draw_ops) a draw."""
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.ops import bitpack, cuda_head as ch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    seed = 20240229
+    cells = {n: (torch.rand((n, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+             for n in (64, 160)}
+    cells[64][:16, :, :128] = 0   # blank regions: whole pool windows tie
+    other = (torch.rand((64, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    words, other32 = bitpack.pack_grid(cells[64]), bitpack.pack_grid(other)
+    ae = init_ae_params(gen, dev)
+    ps = [ae[k][t] for k in ("conv1", "conv2", "deconv1", "deconv2") for t in ("w", "b")]
+    gbar = torch.randn((64,), generator=gen, device=dev) / (64 * 65536)
+
+    def generic(fn):
+        ch.AE2D_KERNELS = False
+        try:
+            return fn()
+        finally:
+            ch.AE2D_KERNELS = True
+
+    # AE2D against the generic kernels
+    pairs = {"u8 src=obs": (cells[64], cells[64]), "u8 src!=obs": (cells[64], other),
+             "u32 src, u8 obs": (words, other), "u8 src, u32 obs": (cells[64], other32),
+             "u32 src=obs": (words, words)}
+    agree = {}
+    for label, (src, obs) in pairs.items():
+        for p in (0.0, DROP_P):
+            fwd = lambda: ch.ae_loss_fwd(src, *ps, obs, (2, 2), p, seed)
+            bwd = lambda: ch.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), p, seed)
+            launched = ch.AE2D_FWD.launches
+            err, grads = fwd(), bwd()
+            check(ch.AE2D_FWD.launches == launched + 2, "the AE2D route did not run")
+            err0, grads0 = generic(fwd), generic(bwd)
+            e_err, e_leaf = _rel_diff(err, err0), max(_leaf_errors(grads, grads0))
+            check(e_err < 1e-6, f"AE2D error ({label}, drop {p}) vs generic: {e_err}")
+            check(e_leaf < 1e-5, f"AE2D gradients ({label}, drop {p}) vs generic: {e_leaf}")
+            agree[f"{label}, drop {p}"] = {"err_max_rel": e_err, "leaf_max_rel": e_leaf}
+    big = cells[160]
+    e_big = _rel_diff(ch.ae_loss_fwd(big, *ps, big),
+                      generic(lambda: ch.ae_loss_fwd(big, *ps, big)))
+    check(e_big < 1e-6, f"AE2D error at [160] vs generic: {e_big}")
+    agree["u8 src=obs [160], drop 0.0"] = {"err_max_rel": e_big}
+
+    # the training forward's saved bits are the twin's mask, stage by stage
+    src = cells[64]
+    err_t, saved = ch._ae_fwd_launch(src, ps, src, (2, 2), DROP_P, seed, True)
+    check(torch.equal(err_t, ch.ae_loss_fwd(src, *ps, src, (2, 2), DROP_P, seed)),
+          "the saving forward's error differs from the forward's")
+    for stage, mask in enumerate(ch.saved_keep_masks(saved)):
+        want = ch.philox_keep_mask(seed, stage, tuple(mask.shape), DROP_P, dev)
+        check(torch.equal(mask, want), f"saved keep bits of stage {stage} are not the twin's")
+    check(_same_bits(ch._ae2d_bwd_kernel(src, ps, src, gbar, DROP_P, saved),
+                     ch.ae_loss_bwd(src, *ps, src, gbar, (2, 2), DROP_P, seed)),
+          "the backward from saved bits differs from the backward that draws them")
+
+    # times, both routes in turns, and what each call runs on the device
+    calls = {
+        "fwd_160_no_drop": lambda: ch.ae_loss_fwd(big, *ps, big),
+        "fwd_64_drop": lambda: ch.ae_loss_fwd(src, *ps, src, (2, 2), DROP_P, seed),
+        "train_fwd_64_drop": lambda: ch._ae_fwd_launch(src, ps, src, (2, 2), DROP_P, seed, True),
+        "bwd_64_drop": lambda: ch.ae_loss_bwd(src, *ps, src, gbar, (2, 2), DROP_P, seed),
+    }
+    timed = {"ae2d": {}, "generic": {}}
+    for route in ("ae2d", "generic", "ae2d", "generic"):
+        for name, fn in calls.items():
+            run = fn if route == "ae2d" else (lambda fn=fn: generic(fn))
+            timed[route].setdefault(name, []).append(timer.ms(run, 20))
+    from_saved = lambda: ch._ae2d_bwd_kernel(src, ps, src, gbar, DROP_P, saved)
+    timed["ae2d"]["bwd_64_drop_from_saved"] = [timer.ms(from_saved, 20)]
+    # the host's time to enqueue a call (no synchronize in the loop), the
+    # routes in turns: one universe, as a step of the sequential battery
+    one = big[:1].contiguous()
+    host_us = {}
+    for route in ("ae2d", "generic", "ae2d", "generic"):
+        fwd1 = lambda: ch.ae_loss_fwd(one, *ps, one)
+        host_us.setdefault(f"{route} fwd_1", []).append(
+            _host_us(torch, fwd1 if route == "ae2d" else lambda: generic(fwd1)))
+    split = {name: _device_split(torch, fn) for name, fn in calls.items()}
+    split["bwd_64_drop_from_saved"] = _device_split(torch, from_saved)
+    split.update({f"generic {name}": _device_split(torch, lambda fn=fn: generic(fn))
+                  for name, fn in calls.items() if name != "train_fwd_64_drop"})
+    hw = 65536
+    bounds = {}
+    # from the saved bits: no draw; its inputs are also the saved embedding
+    # (8 bytes a universe's 16 cells) and keep bits (2 + 1/4 + 1 bytes a 16)
+    saved_bytes = 64 * hw // 16 * (8 + 2 + 0.25 + 1)
+    for name, args in (
+            ("fwd_160_no_drop", (160, hw, 2 * 160 * hw + 160 * 4, 0, False)),
+            ("fwd_64_drop", (64, hw, 2 * 64 * hw + 64 * 4, philox["ops"], False)),
+            ("bwd_64_drop", (64, hw, 2 * 64 * hw + 64 * 4 + 164 * 4, philox["ops"], True)),
+            ("bwd_64_drop_from_saved",
+             (64, hw, 2 * 64 * hw + 64 * 4 + 164 * 4 + saved_bytes, 0, True))):
+        bounds[name] = dict(zip(("bound_ms", "bound_by"), ae_bound(*args)),
+                            **ae_bound_parts(*args))
+    return {"vs_generic": agree, "ms": timed, "host_us": host_us, "bound_ms": bounds,
+            "philox_draw": philox, "device": split, "occupancy": _ae_occupancy(cuda_build),
+            "dropout_bounds": dropout_bounds(philox["ops"])}
 
 
 def _tile_plans(h, w):
@@ -2460,10 +2834,7 @@ def _profile_steps(torch, ro, carry, steps, universes):
         carry, _ = ro.run(carry, steps)
         torch.cuda.synchronize()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
+    device_us = _device_us
     # kernels only: an aten op's entry repeats the device time of its kernels
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
@@ -2563,9 +2934,13 @@ def main() -> int:
         log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         build_s = phase_build(cuda_build)
         log(f"build: {build_s:.1f} s")
+        philox = philox_draw_ops(cuda_build)
+        log(f"a Philox draw's SASS (sm_90a): {json.dumps(philox)}")
         shipped = shipped_states(torch)
         timer = Timer(torch)
-        results = timed("kernels", phase_kernels, torch, timer, shipped)
+        results = timed("kernels", phase_kernels, torch, timer, shipped, philox)
+        ae2d = timed("ae2d", phase_ae2d, torch, timer, cuda_build, philox)
+        log(f"ae2d ok: {json.dumps(ae2d)}")
         results.update(timed("spatial_kernels", phase_spatial_kernels, torch, timer,
                              torch.Generator(device="cuda").manual_seed(6)))
         engines_counts, engines = timed("engines", phase_engines, torch, cuda_build)
@@ -2603,13 +2978,17 @@ def main() -> int:
     if missing:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
+    ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
+                   for path, c in path_counts.items()}
+    log(f"whole-autoencoder launches by instantiation (AE2D, generic): {json.dumps(ae_launches)}")
     kernels = []
     rows = {name: (name, source, replaces) for name, (source, replaces) in SOURCES.items()}
     rows.update(FEATURE_ROWS)
     for name, (kernel, source, replaces) in rows.items():
         r = results[name]
         launches = (path_counts["bands"][kernel] if name in FEATURE_ROWS
-                    else sum(c[kernel] for c in path_counts.values()))
+                    else sum(c[k] for c in path_counts.values()
+                             for k in AE_INSTANTIATIONS.get(kernel, (kernel,))))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -2628,6 +3007,7 @@ def main() -> int:
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
         "routes": routes, "wrappers": wrappers, "packed": packed, "engines": engines,
         "dropout": results["dropout"], "ae_loss_src_not_obs": results["ae_loss_src_not_obs"],
+        "ae2d": ae2d, "ae_launches": ae_launches,
         "profile": profile, "profile_train": profile_train, "profile_packed": profile_packed,
         "total_s": time.perf_counter() - t_start,
     }

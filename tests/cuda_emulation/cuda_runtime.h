@@ -36,7 +36,24 @@ inline cudaError_t cudaDeviceEnablePeerAccess(int, unsigned) { return cudaSucces
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) { return e ? "invalid value" : "ok"; }
 template <typename K> cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
+struct cudaFuncAttributes {
+    int numRegs;
+    size_t sharedSizeBytes, localSizeBytes;
+};
+template <typename K> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, K) {
+    *a = cudaFuncAttributes{0, 0, 0};
+    return cudaSuccess;
+}
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+    *blocks = 1;
+    return cudaSuccess;
+}
 
+struct alignas(16) float4 {
+    float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
 inline void __syncthreads() {}
 inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other lane
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }

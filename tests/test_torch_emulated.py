@@ -23,9 +23,9 @@ from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca, cuda
 from carle_tpu_torch.parallel import cuda_halo
 from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
-SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "head_fwd",
-           "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd", "bit_multi_step",
-           "ca_multi_step", "halo_step")
+SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd",
+           "head_fwd", "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd",
+           "bit_multi_step", "ca_multi_step", "halo_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
 
 

@@ -182,6 +182,66 @@ def test_ae_loss_dropout_and_backward_kernels_match_plain(cuda, shape, chans, dr
     assert all(torch.equal(a, b) for a, b in zip(auto, grads))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("kinds", ["u8", "u32 src", "u32 obs"])
+def test_ae2d_kernels_match_plain_and_generic(cuda, monkeypatch, kinds, drop_p):
+    """The AE2D kernels at 8 universes of 256² (a quarter blank: exact pool
+    ties) against the twins (1e-4) and the generic kernels at the same widths
+    (the error within 1e-6 relative, each leaf within 1e-5 of its largest
+    entry)."""
+    n, h, w, seed = 8, 256, 256, 8888
+    rng = np.random.RandomState(n)
+    src = torch.from_numpy(_soup(3, (n, 1, h, w), 0.3)).to(cuda)
+    src[: n // 4, :, : h // 2] = 0
+    obs = torch.from_numpy(_soup(4, (n, 1, h, w), 0.3)).to(cuda)
+    src = bitpack.pack_grid(src) if kinds == "u32 src" else src
+    obs = bitpack.pack_grid(obs) if kinds == "u32 obs" else obs
+    ps = [p.to(cuda) for p in _params(rng, [(4, 1, 3, 3), (4,), (2, 4, 3, 3), (2,),
+                                            (2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)])]
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    fwd = lambda: cuda_head.ae_loss_fwd(src, *ps, obs, (2, 2), drop_p, seed)
+    bwd = lambda: cuda_head.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), drop_p, seed)
+    before = cuda_head.AE2D_FWD.launches, cuda_head.AE2D_BWD.launches
+    err, grads = fwd(), _repeatable(bwd)
+    # the forward, each backward's saving forward, and the two backwards
+    assert (cuda_head.AE2D_FWD.launches, cuda_head.AE2D_BWD.launches) == (before[0] + 3,
+                                                                          before[1] + 2)
+    torch.testing.assert_close(
+        err, cuda_head.ae_loss_fwd_plain(src, *ps, obs, (2, 2), drop_p, seed), rtol=1e-4, atol=0)
+    _assert_leaves_close(grads, cuda_head.ae_loss_bwd_plain(src, *ps, obs, gbar, (2, 2),
+                                                           drop_p, seed))
+    monkeypatch.setattr(cuda_head, "AE2D_KERNELS", False)
+    err0, grads0 = fwd(), bwd()
+    assert float(((err - err0).abs() / err0.abs()).max()) < 1e-6
+    assert max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads, grads0)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_ae2d_training_step_draws_each_bit_once(cuda):
+    """Through autograd (the training path) the AE2D forward saves the keep
+    bits, philox_keep_mask stage by stage, and the backward reads them: one
+    forward launch for the step, and the gradients of the backward that draws
+    them itself, bit for bit."""
+    n, h, w, seed, drop_p = 8, 256, 256, 4321, 0.1
+    rng = np.random.RandomState(1)
+    src = torch.from_numpy(_soup(5, (n, 1, h, w), 0.3)).to(cuda)
+    ps = [p.to(cuda) for p in _params(rng, [(4, 1, 3, 3), (4,), (2, 4, 3, 3), (2,),
+                                            (2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)])]
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    _, saved = cuda_head._ae_fwd_launch(src, ps, src, (2, 2), drop_p, seed, True)
+    for stage, mask in enumerate(cuda_head.saved_keep_masks(saved)):
+        assert torch.equal(mask, cuda_head.philox_keep_mask(seed, stage, tuple(mask.shape),
+                                                            drop_p, cuda))
+    leaves = [p.clone().requires_grad_(True) for p in ps]
+    before = cuda_head.AE2D_FWD.launches
+    err = cuda_head.ae_loss(src, *leaves, src, (2, 2), drop_p, seed)
+    auto = torch.autograd.grad((err * gbar).sum(), leaves)
+    assert cuda_head.AE2D_FWD.launches == before + 1
+    drawn = cuda_head.ae_loss_bwd(src, *ps, src, gbar, (2, 2), drop_p, seed)
+    assert all(torch.equal(a, b) for a, b in zip(auto, drawn))
+
+
 def _repeatable(fn):
     """fn() twice: the same bits, returned once."""
     first, again = fn(), fn()
