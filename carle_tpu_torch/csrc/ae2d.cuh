@@ -20,7 +20,8 @@
 //   reads one weight for a pool window's four pixels), loaded where they are
 //   used (grid_walk's barrier keeps them out of registers).  Nothing is
 //   shared between launches, so launches on any streams may overlap.
-// - Stage 1 by table: the input is cells, 0 or 1, so conv3x3(cells) + b1 takes
+// - Stage 1 by table (bit_table.cuh, shared with the encoder's enc3 kernels):
+//   the input is cells, 0 or 1, so conv3x3(cells) + b1 takes
 //   one of 512 values a channel, one a 9-bit neighbourhood.  Each block builds
 //   the 512 x 4 table with the generic kernel's sum (bias, then the taps in
 //   (dy, dx) order; a tap of 0 adds an exact zero and a tap of 1 an exact
@@ -45,7 +46,7 @@
 // kernels stay on float32 FMA.
 #pragma once
 
-#include "net_stages.cuh"
+#include "bit_table.cuh"
 
 // The flat weights: w1 [4,1,3,3], b1 [4], w2 [2,4,3,3], b2 [2], wt1 [2,1,4,4],
 // bt1 [1], wt2 [1,1,4,4], bt2 [1], in that order (ops/cuda_head.py packs them).
@@ -109,9 +110,6 @@ __device__ __forceinline__ float parity_tap(const float4* q, int ky, int kx) {
     return k == 0 ? t.x : k == 1 ? t.y : k == 2 ? t.z : t.w;
 }
 
-// Where the keep bits of a dropout stage come from.
-constexpr int KEEP_NONE = 0, KEEP_DRAW = 1, KEEP_READ = 2;
-
 // The universe and a band's rows.  A block owns output rows [Y0, Y0 + RY)
 // (RY a multiple of 4), so stage-1 and middle rows [Y0/2, Y0/2 + RY/2) and
 // embedding rows [Y0/4, Y0/4 + RY/4), each cut at its layer's extent.
@@ -148,119 +146,6 @@ struct Ae2dSaved {
     uint8_t* keepd;
 };
 
-// f(r, c) for every (r, c) of a rows x cols grid, thread tid taking the flat
-// indices tid, tid + nt, ...: a flat loop's order, without a division an
-// element.  Each step starts with a compiler barrier on memory: without it
-// the compiler hoists the weights' shared loads out of the walk and holds
-// them in registers (stage 2's 74), which spills at three blocks a
-// multiprocessor and cost the forward 19% on an H100.
-template <typename F>
-__device__ __forceinline__ void grid_walk(int rows, int cols, F f) {
-    const int tid = threadIdx.x, nt = blockDim.x;
-    int r = tid / cols, c = tid - r * cols;
-    const int dr = nt / cols, dc = nt - dr * cols;
-    while (r < rows) {
-        asm volatile("" ::: "memory");
-        f(r, c);
-        r += dr;
-        c += dc;
-        if (c >= cols) {
-            c -= cols;
-            ++r;
-        }
-    }
-}
-
-// -- cells as bits -------------------------------------------------------------
-
-// Word k of row r of a plane of cells: bit j is cell 32k + j (zero past W).
-// uint8 cells (0 or 1) read four at a time and packed by one multiply:
-// (v & 0x01010101) * 0x01020408 carries byte q's low bit to bit 24 + q and
-// nothing else there.
-__device__ __forceinline__ uint32_t cell_word(const uint32_t* __restrict__ plane, int r, int k,
-                                              int W, int NW) {
-    return plane[static_cast<size_t>(r) * NW + k];
-}
-__device__ __forceinline__ uint32_t cell_word(const uint8_t* __restrict__ plane, int r, int k,
-                                              int W, int NW) {
-    const uint32_t* q4 =
-        reinterpret_cast<const uint32_t*>(plane + static_cast<size_t>(r) * W + 32 * k);
-    const int quads = min(8, (W - 32 * k) / 4);
-    uint32_t word = 0;
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-        if (q < quads) word |= (((q4[q] & 0x01010101u) * 0x01020408u) >> 24) << (4 * q);
-    return word;
-}
-
-// Rows [r0, r0 + rows) of instance n's cells into bits[rows][NW + 2]: word
-// k + 1 holds cells 32k .. 32k + 31; words 0 and NW + 1, and rows outside the
-// universe, are zero.  So cell `col` of a row is bit col + 32 of its words.
-template <typename SRC>
-__device__ __forceinline__ void stage_bits(uint32_t* bits, const SRC* __restrict__ plane,
-                                           int r0, int rows, const Ae2dDims& d) {
-    const int NS = d.NS();
-    grid_walk(rows, NS, [&](int lr, int k) {
-        const int r = r0 + lr;
-        bits[lr * NS + k] = (r >= 0 && r < d.H && k >= 1 && k <= d.NW)
-                                ? cell_word(plane, r, k - 1, d.W, d.NW) : 0u;
-    });
-}
-
-// Cells [c0, c0 + 4) of a staged bit row (c0 >= -32) as bits 0..3.
-__device__ __forceinline__ unsigned row_nibble(const uint32_t* row, int c0) {
-    const int p = c0 + 32;
-    return __funnelshift_r(row[p >> 5], row[(p >> 5) + 1], p & 31) & 0xfu;
-}
-
-// The 9-bit neighbourhood indices of the four pixels p = 2 py + px of
-// stage-1 pool window (r, c): bit 3 dy + dx is cell (2r + py + dy - 1,
-// 2c + px + dx - 1), the generic kernel's tap k.  bits holds rows from I0.
-__device__ __forceinline__ void window_indices(const uint32_t* bits, int NS, int I0, int r,
-                                               int c, unsigned idx[4]) {
-    const uint32_t* row = bits + (2 * r - 1 - I0) * NS;
-    unsigned nib[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) nib[q] = row_nibble(row + q * NS, 2 * c - 1);
-#pragma unroll
-    for (int py = 0; py < 2; ++py)
-#pragma unroll
-        for (int px = 0; px < 2; ++px)
-            idx[py * 2 + px] = ((nib[py] >> px) & 7u) | (((nib[py + 1] >> px) & 7u) << 3) |
-                               (((nib[py + 2] >> px) & 7u) << 6);
-}
-
-// tab[i] = the four channels' conv3x3 + b1 of neighbourhood i, summed as the
-// generic kernel sums (encoder_stage1_band): bias, then taps 0..8.
-__device__ __forceinline__ void build_table(float4* tab) {
-    for (int i = threadIdx.x; i < 512; i += blockDim.x) {
-        float z[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            z[c] = wgt(AE_B1 + c);
-#pragma unroll
-            for (int k = 0; k < 9; ++k)
-                z[c] += wgt(AE_W1 + c * 9 + k) * static_cast<float>((i >> k) & 1);
-        }
-        tab[i] = make_float4(z[0], z[1], z[2], z[3]);
-    }
-}
-
-// spread[i]: the bits of neighbourhood i three apart (bit k at 3k), so the
-// taps of several pixels add as 3-bit counts in one integer.
-__device__ __forceinline__ void build_spread(uint32_t* spread) {
-    for (int i = threadIdx.x; i < 512; i += blockDim.x) {
-        uint32_t v = 0;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) v |= ((static_cast<uint32_t>(i) >> k) & 1u) << (3 * k);
-        spread[i] = v;
-    }
-}
-
-__device__ __forceinline__ void channels(const float4& t, float z[4]) {
-    z[0] = t.x; z[1] = t.y; z[2] = t.z; z[3] = t.w;
-}
-
 // -- the forward's stages --------------------------------------------------------
 
 // Stage 1 into x1s [4][XR][XW] (rows from X0 = Y0/2 - 3, columns from -1):
@@ -281,7 +166,7 @@ __device__ __forceinline__ void ae2d_stage1(const float4* tab, const uint32_t* b
             return;
         }
         unsigned idx[4];
-        window_indices(bits, NS, I0, r, c, idx);
+        window_indices<2>(bits, NS, I0, -1, r, c, idx);
         const size_t at = (static_cast<size_t>(n) * d.H1 + r) * d.W1 + c;
         unsigned keep16 = KEEP == KEEP_READ ? keep1[at] : 0u;
         float m[4] = {NEG_INF, NEG_INF, NEG_INF, NEG_INF};
@@ -310,36 +195,12 @@ __device__ __forceinline__ void ae2d_stage1(const float4* tab, const uint32_t* b
     });
 }
 
-// The stage-2 pre-activations conv3x3(x1) + b2 of the pool window of
-// embedding position (e, f): acc[p][o] for pixel p = 2 py + px, summed as the
-// generic kernel (encoder_stage2_preact): bias, then channel, dy, dx.  x1s
-// holds rows from X0 and columns from -1.
-__device__ __forceinline__ void stage2_window(const float* x1s, int XR, int XW, int X0, int e,
-                                              int f, float acc[4][2]) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int o = 0; o < 2; ++o) acc[p][o] = wgt(AE_B2 + o);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-        const float* base = x1s + (c * XR + 2 * e - 1 - X0) * XW + 2 * f;
-        float win[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) win[i][j] = base[i * XW + j];
-#pragma unroll
-        for (int o = 0; o < 2; ++o)
-#pragma unroll
-            for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-                for (int dx = 0; dx < 3; ++dx) {
-                    const float w = wgt(AE_W2 + (o * 4 + c) * 9 + dy * 3 + dx);
-#pragma unroll
-                    for (int p = 0; p < 4; ++p)
-                        acc[p][o] += w * win[(p >> 1) + dy][(p & 1) + dx];
-                }
-    }
+// The stage-2 pre-activations of the pool window of embedding position
+// (e, f) (bit_table.cuh::stage2_window; x1s holds rows from X0 and columns
+// from -1).
+__device__ __forceinline__ void ae2d_stage2_window(const float* x1s, int XR, int XW, int X0,
+                                                   int e, int f, float acc[4][2]) {
+    stage2_window<4, 2>(x1s, XR, XW, 2 * e - 1 - X0, 2 * f, ae2d_w + AE_W2, ae2d_w + AE_B2, acc);
 }
 
 // Stage 2 into es [2][ER][EW] (rows from E0 = Y0/4 - 1, columns from -1):
@@ -362,7 +223,7 @@ __device__ __forceinline__ void ae2d_stage2(const float* x1s, float* es, const A
             return;
         }
         float acc[4][2];
-        stage2_window(x1s, XR, XW, X0, e, f, acc);
+        ae2d_stage2_window(x1s, XR, XW, X0, e, f, acc);
         float m[2] = {NEG_INF, NEG_INF};
         unsigned keep8 = 0;
 #pragma unroll

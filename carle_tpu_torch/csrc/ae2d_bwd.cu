@@ -216,9 +216,10 @@ ae2d_bwd_encoder_kernel(const SRC* __restrict__ src, Ae2dWeights wp,
 
     load_weights(wp);
     __syncthreads();
-    build_table(tab);
-    build_spread(spread);
-    stage_bits(bits, cells_at(src, static_cast<size_t>(n) * sh.H * sh.W), I0, d.IR(), d);
+    build_table<4>(tab, ae2d_w + AE_W1, ae2d_w + AE_B1);
+    build_spread<2>(spread);
+    stage_bits(bits, cells_at(src, static_cast<size_t>(n) * sh.H * sh.W), I0, d.IR(), -1, d.NS(),
+               sh.H, sh.W);
     // the embedding cotangent from gcm (net_stages.cuh::deconv_input_grad_kernel's sum)
     const float* gcn = gcm + static_cast<size_t>(n) * H1 * W1;
     grid_walk(GER, We, [&](int lr, int f) {
@@ -264,7 +265,7 @@ ae2d_bwd_encoder_kernel(const SRC* __restrict__ src, Ae2dWeights wp,
             return;
         }
         float acc[4][2];
-        stage2_window(x1s, XR, XW, X0, e, f, acc);
+        ae2d_stage2_window(x1s, XR, XW, X0, e, f, acc);
         const unsigned keep8 = DROP ? sv.keep2[(static_cast<size_t>(n) * He + e) * We + f] : 0u;
         float m[2] = {-1.f, -1.f}, cnt[2] = {0.f, 0.f};
 #pragma unroll
@@ -350,11 +351,11 @@ ae2d_bwd_encoder_kernel(const SRC* __restrict__ src, Ae2dWeights wp,
                 }
         }
         unsigned idx[4];
-        window_indices(bits, NS, I0, r, c, idx);
+        window_indices<2>(bits, NS, I0, -1, r, c, idx);
         const unsigned keep16 =
             DROP ? sv.keep1[(static_cast<size_t>(n) * H1 + r) * W1 + c] : 0xffffu;
         // the window's maximum, how many reach it, and the taps of those that
-        // do, added as 3-bit counts (tap j at bit 3j: at most 4 pixels)
+        // do, added as counts (bit_table.cuh::build_spread)
         float m[4] = {-1.f, -1.f, -1.f, -1.f}, cnt[4] = {0.f, 0.f, 0.f, 0.f};
         uint32_t taps[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
@@ -377,14 +378,7 @@ ae2d_bwd_encoder_kernel(const SRC* __restrict__ src, Ae2dWeights wp,
                 if (DROP) coef *= cfg.scale;
                 accb[k] += coef * cnt[k];
 #pragma unroll
-                for (int j = 0; j < 9; ++j) {
-                    // the count of tied pixels with tap j set, as a float: its
-                    // bits over 2^23's, less 2^23 (exact, as the generic
-                    // kernel's float sum of 0s and 1s)
-                    const float set = __int_as_float(((taps[k] >> (3 * j)) & 7u) | 0x4b000000u) -
-                                      8388608.f;
-                    accw[k][j] += coef * set;
-                }
+                for (int j = 0; j < 9; ++j) accw[k][j] += coef * tap_count<2>(taps[k], j);
             }
         }
     });

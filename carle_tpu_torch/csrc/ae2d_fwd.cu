@@ -51,8 +51,9 @@ ae2d_fwd_kernel(const SRC* __restrict__ src, const OBS* __restrict__ obs, Ae2dWe
 
     load_weights(wp);
     __syncthreads();
-    build_table(tab);
-    stage_bits(bits, cells_at(src, static_cast<size_t>(n) * sh.H * sh.W), Y0 - 7, d.IR(), d);
+    build_table<4>(tab, ae2d_w + AE_W1, ae2d_w + AE_B1);
+    stage_bits(bits, cells_at(src, static_cast<size_t>(n) * sh.H * sh.W), Y0 - 7, d.IR(), -1,
+               d.NS(), sh.H, sh.W);
     __syncthreads();
     ae2d_stage1<KEEP, SAVE>(tab, bits, x1s, d, Y0, n, cfg, sv.keep1);
     __syncthreads();

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
-           "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd", "head_bwd",
+           "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "enc3_fwd", "enc3_bwd",
+           "head_fwd", "head_bwd",
            "tail", "decoder_loss_fwd", "decoder_loss_bwd", "halo_step")
 
 _LOCK = threading.Lock()
@@ -193,6 +194,10 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 16 + [I] * 4 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("ae2d_bwd", "ae2d_bwd_launch",
                    [P] * 19 + [I] * 5 + [LL, LL, I, I, D, I, P]),
+        CudaKernel("enc3_fwd", "enc3_fwd_launch",
+                   [P] * 9 + [I] * 9 + [LL, I, D, ULL, I, P]),
+        CudaKernel("enc3_bwd", "enc3_bwd_launch",
+                   [P] * 11 + [I] * 9 + [LL, I, D, I, P]),
         CudaKernel("head_fwd", "head_fwd_launch",
                    [P] * 4 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("head_bwd", "head_bwd_launch",

@@ -29,13 +29,21 @@ recomputing the encoder and drawing again.  The generic kernels take any other
 widths; :data:`AE2D_KERNELS` set to False sends AE2D's widths to them too
 (tests and chip_smoke.py hold one instantiation against the other).
 
-The encoder's kernels take any width divisible by the pools: where one band
-of the whole width does not fit a block's shared memory, the plans cut the
-width into column tiles (:func:`_encoder_fwd_plan`, :func:`_encoder_bwd_bands`;
-:data:`TILE_CELLS` forces tiles of at most that many cells).  The whole
-autoencoder runs as one kernel only where both its plans fit
-(:func:`whole_ae_fits`); ``nets.conv_ae_loss`` composes the encoder and the
-decoder loss elsewhere.
+At the package's three encoder widths (C1, C2, P1, P2) = (4, 1, 4, 2), (2, 1,
+4, 2) and (4, 2, 2, 2) (the RND predictor, the frozen RND target and AE2D's
+encoder) the encoder runs kernels specialised for them (``csrc/enc3_fwd.cu``,
+``enc3_bwd.cu``; :func:`encoder_route`): stage 1 by table, and a training
+forward (:class:`EncoderFn`) that saves its dropout keep bits, so the backward
+draws none and is one band kernel.  The generic kernels take any other
+widths; :data:`ENC3_KERNELS` set to False sends these widths to them too.
+
+The encoder's kernels take any width divisible by the pools: the plans
+(:func:`_encoder_fwd_plan`, :func:`_encoder_bwd_bands`, :func:`_enc3_plan`)
+choose a block's rows and column tile by the positions it recomputes and the
+blocks a multiprocessor holds (:func:`_pick_by_cost`); :data:`TILE_CELLS`
+forces tiles of at most that many cells.  The whole autoencoder runs as one
+kernel only where its plans fit without column tiles (:func:`whole_ae_fits`);
+``nets.conv_ae_loss`` composes the encoder and the decoder loss elsewhere.
 
 Cells (the encoder's x, the autoencoder's src and obs) are uint8 [N, 1, H, W]
 or the packed universe itself, uint32 words [N, 1, H, W/32] (ops/bitpack.py's
@@ -63,13 +71,23 @@ ENCODER_BWD = KERNELS["encoder_bwd"]
 AE_LOSS_BWD = KERNELS["ae_loss_bwd"]
 AE2D_FWD = KERNELS["ae2d_fwd"]
 AE2D_BWD = KERNELS["ae2d_bwd"]
+ENC3_FWD = KERNELS["enc3_fwd"]
+ENC3_BWD = KERNELS["enc3_bwd"]
 MAX_CHANNELS = 8            # the kernels' register-array bound
 SMEM_TARGET = 48 * 1024     # forwards: prefer bands within the default shared memory
 SMEM_TARGET_BWD = 100 * 1024  # backwards: two blocks a multiprocessor
 SMEM_MAX = 227 * 1024
+# The card the plans model (H100 SXM): multiprocessors, the shared memory of
+# one (each resident block also takes 1 KB), and the resident threads at
+# which the model counts a multiprocessor as fully used; and a block's fixed
+# cost (its weights, table, staging and barriers) in computed positions.
+SM_COUNT = 132
+SMEM_SM = 228 * 1024
+FULL_THREADS = 1024
+BLOCK_COST = 256
 # Tiles of at most this many cells of the universe's width in the encoder and
-# decoder-loss kernels (None: the plans cut the width only where one band of
-# the whole width does not fit).  Tests and chip_smoke.py set it to hold a
+# decoder-loss kernels (None: the plans choose; the decoder loss's cut the
+# width only where one band of the whole width does not fit).  Tests and chip_smoke.py set it to hold a
 # tiled launch against the untiled one.
 TILE_CELLS: Optional[int] = None
 # The whole autoencoder at these widths (C1, C2, CMID, COUT) runs the kernels
@@ -79,11 +97,19 @@ AE2D_WIDTHS = (4, 2, 1, 1)
 AE2D_KERNELS = True
 AE2D_SMEM_FWD = 76 * 1024   # three blocks a multiprocessor
 AE2D_SMEM_BWD = 100 * 1024  # two
+# The encoder at these widths (C1, C2, P1, P2) runs the kernels specialised
+# for them (:func:`encoder_route`); False runs the generic kernels there too,
+# to hold one against the other.
+ENC3_WIDTHS = ((4, 1, 4, 2), (2, 1, 4, 2), (4, 2, 2, 2))
+ENC3_KERNELS = True
+BLOCK_THREADS = 256         # the encoder kernels' threads a block
 # dropout stages: the counter's stage field (csrc/net_stages.cuh)
 STAGE_ENC1, STAGE_ENC2, STAGE_DEC1, STAGE_DEC2 = 0, 1, 2, 3
 
 __all__ = ["ENCODER", "AE_LOSS", "ENCODER_BWD", "AE_LOSS_BWD", "AE2D_FWD", "AE2D_BWD",
            "AE2D_WIDTHS", "AE2D_KERNELS", "AE2DSaved", "ae2d_route", "saved_keep_masks",
+           "ENC3_FWD", "ENC3_BWD", "ENC3_WIDTHS", "ENC3_KERNELS", "Enc3Saved",
+           "encoder_route", "enc3_keep_masks",
            "encoder", "ae_loss",
            "encoder_fwd", "encoder_fwd_plain", "encoder_bwd", "encoder_bwd_plain",
            "ae_loss_fwd", "ae_loss_fwd_plain", "ae_loss_bwd", "ae_loss_bwd_plain",
@@ -424,6 +450,52 @@ def _pick_tile(smem_of, rows: int, choices, cols: int, unit: int,
     raise ValueError("no band and tile of the universe fit the kernel's shared memory")
 
 
+def _covered(extent: int, block: int, scale: int, halo: int) -> int:
+    """Positions a band kernel computes along one axis: blocks of ``block``
+    of ``extent`` output positions, each computing ``scale`` positions an
+    output and ``halo`` more to either side, cut at the axis's ends."""
+    total = 0
+    for i0 in range(0, extent, block):
+        end = min(i0 + block, extent)
+        total += min(scale * end + halo, scale * extent) - max(scale * i0 - halo, 0)
+    return total
+
+
+def _pick_by_cost(smem_of, n: int, rows: int, cols: int, scale: int, halo: int, bands,
+                  unit: int, cells: Optional[int] = None) -> Tuple[int, int, int]:
+    """(band, tile, shared memory) of a band kernel over n instances whose
+    block owns ``band`` of ``rows`` output rows and ``tile`` of ``cols``
+    output columns (a column ``unit`` cells of the universe), computing
+    ``scale`` positions an output and ``halo`` to either side (:func:`_covered`),
+    in ``smem_of(band, tile)`` bytes: the plan of least modelled time, each
+    multiprocessor's blocks in turn times a block's positions and
+    BLOCK_COST, over the share of FULL_THREADS its resident blocks keep busy.
+    Tiles are the whole width or a power of two; ``cells`` forces tiles of
+    that many cells."""
+    if cells is None:
+        tiles = sorted({cols} | {1 << k for k in range(cols.bit_length()) if 1 << k < cols},
+                       reverse=True)
+    else:
+        tiles = [max(1, min(cols, cells // unit))]
+    best, best_time = None, math.inf
+    for band in [b for b in bands if b <= rows] or [min(bands)]:
+        for tile in tiles:
+            smem = smem_of(band, tile)
+            if smem > SMEM_MAX:
+                continue
+            blocks = n * -(-rows // band) * -(-cols // tile)
+            per_sm = -(-blocks // SM_COUNT)
+            resident = min(per_sm, 2048 // BLOCK_THREADS, SMEM_SM // (smem + 1024))
+            area = n * _covered(rows, band, scale, halo) * _covered(cols, tile, scale, halo)
+            t = (per_sm * (area / blocks + BLOCK_COST)
+                 / min(1.0, resident * BLOCK_THREADS / FULL_THREADS))
+            if t < best_time:
+                best, best_time = (band, tile, smem), t
+    if best is None:
+        raise ValueError("no band and tile of the universe fit the kernel's shared memory")
+    return best
+
+
 def _encoder_shape(x, w1, w2, pools):
     """Checks shared by the encoder's forward and backward launches."""
     _check_pools(pools)
@@ -485,38 +557,65 @@ def encoder_fwd(x, w1, b1, w2, b2, pools: Tuple[int, int], drop_p: float = 0.0,
 
 
 def _encoder_fwd_kernel(x, w1, b1, w2, b2, pools, drop_p, seed, mask=None):
+    return _encoder_fwd_launch(x, (w1, b1, w2, b2), pools, drop_p, seed, mask, False)[0]
+
+
+def _encoder_fwd_launch(x, params, pools, drop_p, seed, mask, save):
+    """(out, Enc3Saved or None): the forward kernel of the widths' route;
+    ``save`` (the specialised route with dropout) also keeps the keep bits
+    its backward reads."""
+    w1, b1, w2, b2 = params
     _check_drop(drop_p)
     n, h, w, c1, c2, p1, p2 = _encoder_shape(x, w1, w2, pools)
     _check_cuda_inputs(x, [("x", x)], [("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)])
     mask = _check_mask(mask, x, n, h // p1)
+    if encoder_route(h, w, (c1, c2), pools):
+        return _enc3_fwd_kernel(x, params, pools, drop_p, seed, mask, save)
     ho, wo = h // (p1 * p2), w // (p1 * p2)
-    r2, two, smem = _encoder_fwd_plan(h, w, c1, c2, p1, p2, TILE_CELLS)
+    r2, two, smem = _encoder_fwd_plan(h, w, c1, c2, p1, p2, TILE_CELLS, n)
     out = torch.empty((n, c2, ho, wo), dtype=torch.float32, device=x.device)
     ws = [t.contiguous() for t in (w1, b1, w2, b2)]
     device, stream = stream_args(x)
     ENCODER.launch(x.data_ptr(), *(t.data_ptr() for t in ws), _ptr(mask), out.data_ptr(),
                    n, h, w, c1, c2, p1, p2, r2, two, smem, cell_kind(x), float(drop_p),
                    _seed_word(seed), device, stream, packed=_packed(x))
-    return out
+    return out, None
 
 
 @functools.lru_cache(maxsize=None)
-def _encoder_fwd_plan(h, w, c1, c2, p1, p2, cells=None) -> Tuple[int, int, int]:
-    """(R2 output rows, output columns a tile, shared memory) of the forward
-    kernel."""
-    return _pick_tile(lambda r, t: _encoder_smem(h, w, c1, c2, p1, p2, r, t),
-                      h // (p1 * p2), (8, 4, 2, 1), w // (p1 * p2), p1 * p2, cells=cells)
+def _encoder_fwd_plan(h, w, c1, c2, p1, p2, cells=None, n=1) -> Tuple[int, int, int]:
+    """(R2 output rows, output columns a tile, shared memory) of the generic
+    forward kernel on n instances (a block computes R2 p2 + 2 stage-1 rows
+    and its tile's p2 columns an output plus one to either side)."""
+    return _pick_by_cost(lambda r, t: _encoder_smem(h, w, c1, c2, p1, p2, r, t), n,
+                         h // (p1 * p2), w // (p1 * p2), p2, 1, (8, 4, 2, 1), p1 * p2, cells)
 
 
 @functools.lru_cache(maxsize=None)
-def _encoder_bwd_bands(h, w, c1, c2, p1, p2, cells=None):
-    """(R2, T2 output columns, shared memory) of the stage-2 backward kernel,
-    (RB, T1 stage-1 columns, shared memory) of the stage-1 backward kernel."""
+def _encoder_bwd_bands(h, w, c1, c2, p1, p2, cells=None, n=1):
+    """(R2, T2 output columns, shared memory) of the generic stage-2 backward
+    kernel, (RB, T1 stage-1 columns, shared memory) of the generic stage-1
+    backward kernel, on n instances."""
     h1 = h // p1
-    return (_pick_tile(lambda r, t: _enc_bwd2_smem(w, c1, c2, p1, p2, r, t), h1 // p2,
-                       (8, 4, 2, 1), w // (p1 * p2), p1 * p2, SMEM_TARGET_BWD, cells),
-            _pick_tile(lambda r, t: _enc_bwd1_smem(w, c1, c2, p1, r, t), h1,
-                       (8, 4, 2, 1), w // p1, p1, SMEM_TARGET_BWD, cells))
+    return (_pick_by_cost(lambda r, t: _enc_bwd2_smem(w, c1, c2, p1, p2, r, t), n, h1 // p2,
+                          w // (p1 * p2), p2, 1, (8, 4, 2, 1), p1 * p2, cells),
+            _pick_by_cost(lambda r, t: _enc_bwd1_smem(w, c1, c2, p1, r, t), n, h1, w // p1,
+                          1, 1, (8, 4, 2, 1), p1, cells))
+
+
+@functools.lru_cache(maxsize=None)
+def _encoder_bwd_whole(h, w, c1, c2):
+    """The generic encoder backward's bands without column tiles at pools
+    (2, 2), as the whole-AE backward kernel (ae_loss_bwd.cu) runs it: (R2,
+    T2, shared memory), (RB, T1, shared memory), each the largest band whose
+    shared memory fits SMEM_TARGET_BWD, else the smallest that fits SMEM_MAX
+    (:func:`_pick_band`; ValueError where none does)."""
+    h1, w1 = h // 2, w // 2
+    r2, smem2 = _pick_band(lambda r: _enc_bwd2_smem(w, c1, c2, 2, 2, r, w1 // 2), h1 // 2,
+                           (8, 4, 2, 1), SMEM_TARGET_BWD)
+    rb, smem1 = _pick_band(lambda r: _enc_bwd1_smem(w, c1, c2, 2, r, w1), h1, (8, 4, 2, 1),
+                           SMEM_TARGET_BWD)
+    return (r2, w1 // 2, smem2), (rb, w1, smem1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -540,17 +639,18 @@ def whole_ae_fits(h: int, w: int, c1: int, c2: int, cmid: int, cout: int) -> boo
     kernel's VMEM limit."""
     try:
         _ae_bands(h, w, c1, c2, cmid, cout)
+        _encoder_bwd_whole(h, w, c1, c2)
     except ValueError:
         return False
-    (_, t2, _), (_, t1, _) = _encoder_bwd_bands(h, w, c1, c2, 2, 2)
-    return t2 == w // 4 and t1 == w // 2
+    return True
 
 
-def _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, device, cells=None):
-    """Bands, tiles, shared memory and scratch of the encoder's backward
-    kernels."""
+def _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, device, bands):
+    """Bands, tiles, shared memory and scratch of the generic encoder
+    backward kernels with ``bands`` (:func:`_encoder_bwd_bands` or
+    :func:`_encoder_bwd_whole`)."""
     h1, w1 = h // p1, w // p1
-    (r2, t2, smem2), (rb, t1, smem1) = _encoder_bwd_bands(h, w, c1, c2, p1, p2, cells)
+    (r2, t2, smem2), (rb, t1, smem1) = bands
     blocks2 = -(-(h1 // p2) // r2) * -(-(w1 // p2) // t2)
     blocks1 = -(-h1 // rb) * -(-w1 // t1)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)
@@ -585,7 +685,14 @@ def _encoder_bwd_kernel(x, w1, b1, w2, b2, g, pools, drop_p, seed, mask=None):
     if tuple(g.shape) != (n, c2, h // (p1 * p2), w // (p1 * p2)):
         raise ValueError(f"g shape {tuple(g.shape)} is not the encoder's output's")
     mask = _check_mask(mask, x, n, h // p1)
-    plan = _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, x.device, TILE_CELLS)
+    if encoder_route(h, w, (c1, c2), pools):
+        # the gradients alone: the saving forward draws the bits the backward reads
+        params = (w1, b1, w2, b2)
+        saved = (_enc3_fwd_kernel(x, params, pools, drop_p, seed, mask, True)[1]
+                 if drop_p > 0.0 else None)
+        return _enc3_bwd_kernel(x, params, g, pools, drop_p, mask, saved)
+    plan = _encoder_bwd_plan(n, h, w, c1, c2, p1, p2, x.device,
+                             _encoder_bwd_bands(h, w, c1, c2, p1, p2, TILE_CELLS, n))
     shapes = ((c1, 1, 3, 3), (c1,), (c2, c1, 3, 3), (c2,))
     grads = torch.empty(sum(math.prod(s) for s in shapes), dtype=torch.float32,
                         device=x.device)
@@ -597,6 +704,120 @@ def _encoder_bwd_kernel(x, w1, b1, w2, b2, g, pools, drop_p, seed, mask=None):
                        n, h, w, c1, c2, p1, p2, plan["r2"], plan["rb"], plan["t2"],
                        plan["t1"], plan["smem2"], plan["smem1"], cell_kind(x),
                        float(drop_p), _seed_word(seed), device, stream, packed=_packed(x))
+    return _split(grads, shapes)
+
+
+# -- the encoder at the package's widths (csrc/enc3.cuh) ------------------------
+
+
+def _enc3_words(p1: int, xw: int) -> int:
+    """csrc/enc3.cuh::enc3_words."""
+    return (p1 * xw + 2 + 62) // 32 + 1
+
+
+def _enc3_fwd_smem(c1: int, p1: int, r2: int, tw: int) -> int:
+    """csrc/enc3.cuh::enc3_fwd_smem."""
+    xr, xw = 2 * r2 + 2, 2 * tw + 2
+    return 4 * (512 * c1 + c1 * xr * xw) + 4 * (p1 * xr + 2) * _enc3_words(p1, xw)
+
+
+def _enc3_bwd_smem(c1: int, c2: int, p1: int, r2: int, tw: int) -> int:
+    """csrc/enc3.cuh::enc3_bwd_smem."""
+    xr, xw, gr, gw = 2 * r2 + 6, 2 * tw + 6, 2 * r2 + 4, 2 * tw + 4
+    return (4 * (512 * c1 + c1 * xr * xw + c2 * gr * gw + 32 * 9) + 512 * (8 if p1 == 4 else 4)
+            + 4 * (p1 * xr + 2) * _enc3_words(p1, xw))
+
+
+@functools.lru_cache(maxsize=None)
+def _enc3_plan(n, h, w, c1, c2, p1, backward, cells=None) -> Tuple[int, int, int]:
+    """(R2 output rows, TW output columns, shared memory) of the specialised
+    forward or backward kernel on n instances of [h, w]: the forward computes
+    its stage-1 rows and one to either side, the backward three."""
+    smem_of = ((lambda r, t: _enc3_bwd_smem(c1, c2, p1, r, t)) if backward
+               else (lambda r, t: _enc3_fwd_smem(c1, p1, r, t)))
+    return _pick_by_cost(smem_of, n, h // (2 * p1), w // (2 * p1), 2, 3 if backward else 1,
+                         (32, 16, 8, 4, 2, 1), 2 * p1, cells)
+
+
+def encoder_route(h: int, w: int, widths, pools) -> bool:
+    """Whether the encoder at [h, w] with ``widths`` (C1, C2) and ``pools``
+    runs the kernels specialised for them (csrc/enc3_fwd.cu, enc3_bwd.cu):
+    the widths and pools, and plans that fit, decide, on any device, so the
+    forward and the backward take one route."""
+    if not ENC3_KERNELS or (*widths, *pools) not in ENC3_WIDTHS:
+        return False
+    try:
+        for backward in (False, True):
+            _enc3_plan(1, h, w, *widths, pools[0], backward)
+    except ValueError:
+        return False
+    return True
+
+
+class Enc3Saved(NamedTuple):
+    """The keep bits an encoder training forward on the specialised route
+    saves for its backward (csrc/enc3.cuh::Enc3Saved): keep1 [N, H/p1, W/p1]
+    (int16, int32 or int64: p1 p1 C1 bits, bit C1 p + c for channel c of
+    pixel p = p1 py + px of the pool window), keep2 uint8 [N, H/2p1, W/2p1]
+    (bit C2 p + o)."""
+    keep1: torch.Tensor
+    keep2: torch.Tensor
+
+
+_KEEP_WORDS = {16: torch.int16, 32: torch.int32, 64: torch.int64}
+
+
+def enc3_keep_masks(saved: Enc3Saved, c1: int, c2: int, p1: int):
+    """The keep masks of the encoder's two dropout stages that a training
+    forward saved, in :func:`philox_keep_mask`'s layout: [N, C1, H, W],
+    [N, C2, H/p1, W/p1]."""
+    return [_unfold_bits(saved.keep1, p1 * p1 * c1, p1, c1),
+            _unfold_bits(saved.keep2, 4 * c2, 2, c2)]
+
+
+def _enc3_fwd_kernel(x, params, pools, drop_p, seed, mask, save):
+    """(out, Enc3Saved or None): the specialised forward on checked inputs;
+    ``save`` with dropout also writes the keep bits."""
+    n, _, h, w = cell_shape(x)
+    c1, c2, p1 = params[0].shape[0], params[2].shape[0], pools[0]
+    if x.dtype == torch.uint8 and x.data_ptr() % 4:
+        raise ValueError("uint8 x must start on a 4-byte boundary (the encoder kernel reads "
+                         "its cells four at a time)")
+    r2, tw, smem = _enc3_plan(n, h, w, c1, c2, p1, False, TILE_CELLS)
+    dev = x.device
+    out = torch.empty((n, c2, h // (2 * p1), w // (2 * p1)), dtype=torch.float32, device=dev)
+    saved = None
+    if save and drop_p > 0.0:
+        saved = Enc3Saved(
+            torch.empty((n, h // p1, w // p1), dtype=_KEEP_WORDS[p1 * p1 * c1], device=dev),
+            torch.empty((n, h // (2 * p1), w // (2 * p1)), dtype=torch.uint8, device=dev))
+    ws = [t.contiguous() for t in params]
+    device, stream = stream_args(x)
+    ENC3_FWD.launch(x.data_ptr(), *(t.data_ptr() for t in ws), _ptr(mask), out.data_ptr(),
+                    *(_ptr(t) for t in saved or (None, None)), n, h, w, c1, c2, p1, pools[1],
+                    r2, tw, smem, cell_kind(x), float(drop_p), _seed_word(seed), device, stream,
+                    packed=_packed(x))
+    return out, saved
+
+
+def _enc3_bwd_kernel(x, params, g, pools, drop_p, mask, saved: Optional[Enc3Saved]):
+    """(dW1, db1, dW2, db2) from the specialised backward on checked inputs
+    and what the training forward with the same params saved (None without
+    dropout)."""
+    n, _, h, w = cell_shape(x)
+    c1, c2, p1 = params[0].shape[0], params[2].shape[0], pools[0]
+    r2, tw, smem = _enc3_plan(n, h, w, c1, c2, p1, True, TILE_CELLS)
+    blocks = -(-(h // (2 * p1)) // r2) * -(-(w // (2 * p1)) // tw)
+    shapes = ((c1, 1, 3, 3), (c1,), (c2, c1, 3, 3), (c2,))
+    width = sum(math.prod(s) for s in shapes)
+    partials = torch.empty((n * blocks, width), dtype=torch.float32, device=x.device)
+    grads = torch.empty((width,), dtype=torch.float32, device=x.device)
+    ws = [t.contiguous() for t in (*params, g)]   # alive until the launch is enqueued
+    device, stream = stream_args(x)
+    ENC3_BWD.launch(x.data_ptr(), *(t.data_ptr() for t in ws[:4]), _ptr(mask),
+                    ws[4].data_ptr(), *(_ptr(t) for t in saved or (None, None)),
+                    partials.data_ptr(), grads.data_ptr(), n, h, w, c1, c2, p1, pools[1], r2,
+                    tw, smem, cell_kind(x), float(drop_p), device, stream, packed=_packed(x))
     return _split(grads, shapes)
 
 
@@ -713,7 +934,7 @@ def _unfold_bits(words: torch.Tensor, count: int, window: int, channels: int) ->
     """Bits [N, h, w] (bit (window py + px) channels + c) as a mask
     [N, channels, h window, w window]."""
     n, h, w = words.shape
-    bits = (words.to(torch.int32)[..., None] >> torch.arange(count, device=words.device)) & 1
+    bits = (words.to(torch.int64)[..., None] >> torch.arange(count, device=words.device)) & 1
     bits = bits.view(n, h, w, window, window, channels).permute(0, 5, 1, 3, 2, 4)
     return bits.reshape(n, channels, h * window, w * window).bool()
 
@@ -849,7 +1070,8 @@ def _ae_loss_bwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar, pool
         saved = _ae2d_fwd_kernel(src, params, obs, drop_p, seed, True)[1]
         return _ae2d_bwd_kernel(src, params, obs, gbar, drop_p, saved)
     ry, smem3 = _ae_bands(h, w, c1, c2, cmid, cout)[1]
-    plan = _encoder_bwd_plan(n, h, w, c1, c2, 2, 2, src.device)
+    plan = _encoder_bwd_plan(n, h, w, c1, c2, 2, 2, src.device,
+                             _encoder_bwd_whole(h, w, c1, c2))
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=src.device)
     gmid, gemb = empty(n, cmid, h // 2, w // 2), empty(n, c2, h // 4, w // 4)
     part3 = empty(n * -(-h // ry), c2 * cmid * 16 + cmid + cmid * cout * 16 + cout)
@@ -874,20 +1096,31 @@ def _ae_loss_bwd_kernel(src, w1, b1, w2, b2, wt1, bt1, wt2, bt2, obs, gbar, pool
 
 
 class EncoderFn(torch.autograd.Function):
-    """encoder_fwd with encoder_bwd as its backward; saves only the inputs.
-    The row mask gets no gradient."""
+    """encoder_fwd with encoder_bwd as its backward; saves the inputs and, on
+    the specialised route with dropout, the keep bits its forward kernel
+    drew, so the backward draws none.  The row mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, pools, drop_p, seed, mask):
         ctx.save_for_backward(x, w1, b1, w2, b2, mask)
         ctx.settings = (tuple(pools), float(drop_p), int(seed))
+        if x.device.type == "cuda":
+            out, ctx.enc3 = _encoder_fwd_launch(x, (w1, b1, w2, b2), *ctx.settings, mask, True)
+            return out
+        ctx.enc3 = None
         return encoder_fwd(x, w1, b1, w2, b2, *ctx.settings, mask)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         *inputs, mask = ctx.saved_tensors
-        grads = encoder_bwd(*inputs, g.contiguous(), *ctx.settings, mask)
+        if ctx.enc3 is not None:
+            x, *params = inputs
+            pools, drop_p, _ = ctx.settings
+            mask = _check_mask(mask, x, x.shape[0], cell_shape(x)[2] // pools[0])
+            grads = _enc3_bwd_kernel(x, params, g, pools, drop_p, mask, ctx.enc3)
+        else:
+            grads = encoder_bwd(*inputs, g.contiguous(), *ctx.settings, mask)
         return (None, *grads, None, None, None, None)
 
 

@@ -8,7 +8,13 @@ Phases, in order; any failure exits non-zero without the final line:
            all at once) and print the card as nvidia-smi names it;
 2. kernels each kernel against its plain PyTorch twin on the card at the
            slices' shapes (integer kernels exact, float kernels within the
-           stated tolerance), with their times (CUDA events, L2 flushed
+           stated tolerance; the encoder's kernels specialised at the
+           package's three widths, enc3_*, also against the generic ones at
+           every shape: the forward bit for bit, the gradients within 1e-5 of
+           each leaf at 256² and 1e-4 on the 8192² shapes, the training
+           forward's saved keep bits against the twin's Philox mask, both
+           timed in turns, their registers and blocks a multiprocessor), with
+           their times (CUDA events, L2 flushed
            before every launch) and the least time the card could take; the
            net kernels also with dropout 0.1 (kernel and twin draw the same
            Philox mask), the drop rate the card draws, and the backward
@@ -114,7 +120,8 @@ Phases, in order; any failure exits non-zero without the final line:
            paths (battery, server, train, routes, wrappers, packed, bands,
            engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
-           bands path), then the card's name and power limit, then the ok
+           bands path; a generic encoder kernel launched on any of them
+           fails the run), then the card's name and power limit, then the ok
            line.
 
 Tolerances: float kernels vs plain twins rtol 1e-4 / atol 1e-4 (the twins
@@ -204,6 +211,8 @@ SOURCES = {
                     "carle_tpu/ops/pallas_head.py:1841"),
     "encoder_bwd": ("carle_tpu_torch/csrc/encoder_bwd.cu",
                     "carle_tpu/ops/pallas_head.py:1114"),
+    "enc3_fwd": ("carle_tpu_torch/csrc/enc3_fwd.cu", "carle_tpu/ops/pallas_head.py:1081"),
+    "enc3_bwd": ("carle_tpu_torch/csrc/enc3_bwd.cu", "carle_tpu/ops/pallas_head.py:1114"),
     "ae_loss_bwd": ("carle_tpu_torch/csrc/ae2d_bwd.cu",
                     "carle_tpu/ops/pallas_head.py:1875"),
     "head_fwd": ("carle_tpu_torch/csrc/head_fwd.cu", "carle_tpu/ops/pallas_head.py:281"),
@@ -226,8 +235,15 @@ SOURCES = {
 # Rows whose kernel is another row's with band tiling's feature added: the
 # launches they report are their kernel's on the bands path, where every
 # encoder launch carries the per-band row mask and every decoder-loss launch
-# the per-band row weights.
+# the per-band row weights.  The encoder's rows come twice: the kernels
+# specialised at the package's widths (enc3_*), which every main path runs,
+# and the generic ones (encoder_*), timed at the same shapes with the
+# specialised route switched off (cuda_head.ENC3_KERNELS).
 FEATURE_ROWS = {
+    "enc3_fwd_mask": ("enc3_fwd", "carle_tpu_torch/csrc/enc3_fwd.cu",
+                      "carle_tpu/ops/pallas_head.py:1375"),
+    "enc3_bwd_mask": ("enc3_bwd", "carle_tpu_torch/csrc/enc3_bwd.cu",
+                      "carle_tpu/ops/pallas_head.py:1375"),
     "encoder_fwd_mask": ("encoder_fwd", "carle_tpu_torch/csrc/encoder_fwd.cu",
                          "carle_tpu/ops/pallas_head.py:1375"),
     "encoder_bwd_mask": ("encoder_bwd", "carle_tpu_torch/csrc/encoder_bwd.cu",
@@ -248,25 +264,28 @@ AE_INSTANTIATIONS = {"ae_loss_fwd": ("ae2d_fwd", "ae_loss_fwd"),
                      "ae_loss_bwd": ("ae2d_bwd", "ae_loss_bwd")}
 # the kernels each main path must launch
 PATH_KERNELS = {
-    "battery": ("ca_step", "encoder_fwd", "ae2d_fwd"),
-    "server": ("ca_step", "bit_multi_step", "encoder_fwd", "ae2d_fwd"),
-    "train": ("ca_step", "encoder_fwd", "ae2d_fwd", "encoder_bwd", "ae2d_bwd"),
-    "routes": ("encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
+    "battery": ("ca_step", "enc3_fwd", "ae2d_fwd"),
+    "server": ("ca_step", "bit_multi_step", "enc3_fwd", "ae2d_fwd"),
+    "train": ("ca_step", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
+    "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
                "head_bwd", "tail_fwd", "tail_bwd", "loss_tail_fwd", "loss_tail_bwd",
                "decoder_loss_fwd", "decoder_loss_bwd"),
-    "wrappers": ("ca_step", "encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd",
+    "wrappers": ("ca_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                  "decoder_loss_fwd", "decoder_loss_bwd", "tail_fwd"),
-    "packed": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd",
+    "packed": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                "decoder_loss_fwd", "decoder_loss_bwd"),
-    "bands": ("bit_multi_step", "encoder_fwd", "encoder_bwd", "decoder_loss_fwd",
+    "bands": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "decoder_loss_fwd",
               "decoder_loss_bwd"),
     "engines": ("bit_multi_step_static", "bit_multi_step_static_cm", "bit_multi_step_cm",
                 "ca_multi_step"),
     "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
-                "encoder_fwd", "encoder_bwd", "tail_fwd", "tail_bwd"),
+                "enc3_fwd", "enc3_bwd", "tail_fwd", "tail_bwd"),
 }
+# the generic encoder kernels, which no main path may launch: every encoder
+# of the package has one of the specialised kernels' widths
+GENERIC_ENCODER = ("encoder_fwd", "encoder_bwd")
 # the kernels the packed path must launch on packed words
-PACKED_INPUT_KERNELS = ("encoder_fwd", "encoder_bwd", "ae2d_fwd", "ae2d_bwd",
+PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                         "decoder_loss_fwd", "decoder_loss_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
         "ParsimonyBonus", "SpeedDetector", "PufferDetector")
@@ -402,29 +421,40 @@ def phase_kernels(torch, timer, shipped, philox):
         shape="u32 [4096,256,8] x 128 generations, scalar rule")
     log(f"bit_multi_step ok: {results['bit_multi_step']}")
 
-    # encoder_fwd and ae_loss_fwd on the battery's observations, shipped weights
+    # the encoder's forward (row 3a) and ae_loss_fwd on the battery's
+    # observations, shipped weights: the specialised kernels (enc3_fwd) at
+    # the three widths, bit for bit the generic kernels (encoder_fwd), both
+    # timed in turns
     x = (torch.rand((160, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
     rnd, ae = shipped["RND2D"], shipped["AE2D"]
-    enc_err = 0.0
-    cases = [(rnd.params, (4, 2)), (rnd.target_params, (4, 2)), (ae.params, (2, 2))]
-    for p, pools in cases:
-        args = (x, p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"])
-        got = cuda_head.encoder_fwd(*args, pools)
-        want = cuda_head.encoder_fwd_plain(*args, pools)
+    enc_err, timed = 0.0, {}
+    cases = {"rnd": (rnd.params, (4, 2)), "target": (rnd.target_params, (4, 2)),
+             "ae": (ae.params, (2, 2))}
+    for name, (p, pools) in cases.items():
+        w4 = (p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"])
+        got = cuda_head.encoder_fwd(x, *w4, pools)
+        want = cuda_head.encoder_fwd_plain(x, *w4, pools)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         enc_err = max(enc_err, float((got - want).abs().max()))
+        _enc3_held(torch, x, w4, pools, 0.0, 0)
+        fwd = lambda: cuda_head.encoder_fwd(x, *w4, pools)
+        for route in ("enc3", "generic", "enc3", "generic"):
+            timed.setdefault(f"{route} {name}", []).append(
+                timer.ms(fwd if route == "enc3" else lambda: _generic_encoder(fwd), 20))
     p = rnd.params
     args = (x, p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"])
-    c1, c2 = 4, 1
-    flops = 2 * 160 * (256 * 256 * c1 * 9 + 64 * 64 * c2 * c1 * 9)
-    b, by = bound_ms(160 * 256 * 256 + 160 * c2 * 32 * 32 * 4, flops, FP32_FLOPS)
-    results["encoder_fwd"] = dict(
-        max_abs_err=enc_err,
-        ms=timer.ms(lambda: cuda_head.encoder_fwd(*args, (4, 2)), 20),
-        plain_ms=timer.ms(lambda: cuda_head.encoder_fwd_plain(*args, (4, 2)), 5),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape="u8 [160,1,256,256], RND predictor (pools 4,2; C1=4, C2=1)")
-    log(f"encoder_fwd ok: {results['encoder_fwd']}")
+    parts = encoder_bound_parts(160, 256, 256, 4, 1, 4, 1, 0, False)
+    b, by = _largest(parts)
+    plain_ms = timer.ms(lambda: cuda_head.encoder_fwd_plain(*args, (4, 2)), 5)
+    shape = "u8 [160,1,256,256], RND predictor (pools 4,2; C1=4, C2=1)"
+    for row, route in (("enc3_fwd", "enc3"), ("encoder_fwd", "generic")):
+        results[row] = dict(
+            max_abs_err=enc_err, ms=timed[f"{route} rnd"][0], plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None, bound_parts=parts, shape=shape,
+            ms_in_turns={k: v for k, v in timed.items() if k.startswith(route)},
+            plan=(cuda_head._enc3_plan(160, 256, 256, 4, 1, 4, False) if route == "enc3"
+                  else cuda_head._encoder_fwd_plan(256, 256, 4, 1, 4, 2, None, 160)))
+        log(f"{row} ok: {results[row]}")
 
     q = ae.params
     ae_args = (x, q["conv1"]["w"], q["conv1"]["b"], q["conv2"]["w"], q["conv2"]["b"],
@@ -448,7 +478,7 @@ def phase_kernels(torch, timer, shipped, philox):
     results.update(phase_stage_kernels(torch, timer, gen))
     results.update(phase_engine_kernels(torch, timer))
     phase_packed_input_kernels(torch, timer, gen, results)
-    results.update(phase_band_kernels(torch, timer, gen))
+    results.update(phase_band_kernels(torch, timer, gen, philox))
     torch.cuda.empty_cache()
     return results
 
@@ -569,8 +599,8 @@ def phase_packed_input_kernels(torch, timer, gen, results):
     mid = {n: torch.relu(torch.randn((n, 1, 128, 128), generator=gen, device=dev))
            for n in (64, 160)}
     cases = {  # name: (call on words, call on cells) at 64 universes, f(drop_p)
-        "encoder_fwd": lambda src, obs, p: ch.encoder_fwd(src, *enc, (4, 2), p, seed),
-        "encoder_bwd": lambda src, obs, p: ch.encoder_bwd(src, *enc, g_enc, (4, 2), p, seed),
+        "enc3_fwd": lambda src, obs, p: ch.encoder_fwd(src, *enc, (4, 2), p, seed),
+        "enc3_bwd": lambda src, obs, p: ch.encoder_bwd(src, *enc, g_enc, (4, 2), p, seed),
         "ae_loss_fwd": lambda src, obs, p: ch.ae_loss_fwd(src, *ps, obs, (2, 2), p, seed),
         "ae_loss_bwd": lambda src, obs, p: ch.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), p, seed),
         "decoder_loss_fwd": lambda src, obs, p: cs.decoder_loss_fwd(emb[64], *ps[4:], obs, p,
@@ -597,9 +627,12 @@ def phase_packed_input_kernels(torch, timer, gen, results):
             checked.append(f"{name} drop {p}")
     # times on the words, at each uint8 row's shapes
     timed = {
-        "encoder_fwd": lambda: ch.encoder_fwd(x32[160], *enc, (4, 2)),
+        "enc3_fwd": lambda: ch.encoder_fwd(x32[160], *enc, (4, 2)),
+        "encoder_fwd": lambda: _generic_encoder(lambda: ch.encoder_fwd(x32[160], *enc, (4, 2))),
         "ae_loss_fwd": lambda: ch.ae_loss_fwd(x32[160], *ps, x32[160]),
-        "encoder_bwd": lambda: ch.encoder_bwd(x32[64], *enc, g_enc, (4, 2), DROP_P, seed),
+        "enc3_bwd": lambda: ch.encoder_bwd(x32[64], *enc, g_enc, (4, 2), DROP_P, seed),
+        "encoder_bwd": lambda: _generic_encoder(
+            lambda: ch.encoder_bwd(x32[64], *enc, g_enc, (4, 2), DROP_P, seed)),
         "ae_loss_bwd": lambda: ch.ae_loss_bwd(x32[64], *ps, x32[64], gbar, (2, 2), DROP_P, seed),
         "decoder_loss_fwd": lambda: cs.decoder_loss_fwd(emb[160], *ps[4:], o32[160]),
         "decoder_loss_bwd": lambda: cs.decoder_loss_bwd(emb[64], *ps[4:], o32[64], gbar,
@@ -668,7 +701,7 @@ def phase_train_kernels(torch, timer, gen, philox):
     training path's shapes: 64 universes of 256 x 256, fresh parameters."""
     from carle_tpu_torch import EnvConfig
     from carle_tpu_torch.mcl.ae import init_ae_params
-    from carle_tpu_torch.mcl.rnd import init_predictor_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params, init_random_network_params
     from carle_tpu_torch.ops import cuda_head
 
     dev = torch.device("cuda")
@@ -729,31 +762,67 @@ def phase_train_kernels(torch, timer, gen, philox):
     log(f"dropout ok: {drop}")
     results["dropout"] = drop
 
-    # encoder_bwd: RND predictor (pools 4,2; C1=4, C2=1)
+    # the encoder's backward (row 3b), RND predictor (pools 4,2; C1=4, C2=1):
+    # the specialised kernels (enc3_bwd) against the twin and the generic
+    # kernels (encoder_bwd), the saving forward's bits; then the three widths
+    # timed in turns: the gradients alone (the saving forward and the
+    # backward), from the saved bits (a training step's backward) and the
+    # generic kernels
     errs = {}
     for p in (0.0, DROP_P):
         got = cuda_head.encoder_bwd(*enc_args, g, (4, 2), p, seed)
-        again = cuda_head.encoder_bwd(*enc_args, g, (4, 2), p, seed)
         want = cuda_head.encoder_bwd_plain(*enc_args, g, (4, 2), p, seed)
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              "encoder_bwd is not the same bit for bit from run to run")
         errs[p] = _leaf_errors(got, want)
         check(max(errs[p]) < tol, f"encoder_bwd (drop {p}) leaves differ: {errs[p]}")
         abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        errs[f"vs generic {p}"] = _enc3_held(torch, x, enc_args[1:], (4, 2), p, seed, g=g)
+    gen3 = torch.Generator(device=dev).manual_seed(3)   # gen's draws stay the parent's
+    nets3 = {"rnd": (enc_args[1:], (4, 2)),
+             "target": (tuple(init_random_network_params(EnvConfig(), gen3, dev)[k][t]
+                              for k in ("conv1", "conv2") for t in ("w", "b")), (4, 2)),
+             "ae": (ae_args[1:5], (2, 2))}
+    timed = {}
+    for name, (w4, pools) in nets3.items():
+        gg = torch.randn(cuda_head.encoder_fwd(x, *w4, pools).shape, generator=gen3, device=dev)
+        if name != "rnd":
+            _enc3_held(torch, x, w4, pools, DROP_P, seed, g=gg)
+        saved = cuda_head._encoder_fwd_launch(x, w4, pools, DROP_P, seed, None, True)[1]
+        calls = {
+            "enc3": lambda: cuda_head.encoder_bwd(x, *w4, gg, pools, DROP_P, seed),
+            "enc3 from saved": lambda: cuda_head._enc3_bwd_kernel(x, w4, gg, pools, DROP_P,
+                                                                  None, saved),
+            "enc3 saving fwd": lambda: cuda_head._encoder_fwd_launch(x, w4, pools, DROP_P, seed,
+                                                                     None, True),
+            "generic": lambda: _generic_encoder(
+                lambda: cuda_head.encoder_bwd(x, *w4, gg, pools, DROP_P, seed)),
+            "generic fwd": lambda: _generic_encoder(
+                lambda: cuda_head.encoder_fwd(x, *w4, pools, DROP_P, seed)),
+        }
+        for _ in range(2):
+            for route, fn in calls.items():
+                timed.setdefault(f"{route} {name}", []).append(timer.ms(fn, 10))
     c1, c2 = 4, 1
-    s1, s2 = n * hw * c1 * 9, n * (hw // 16) * c2 * c1 * 9   # multiply-adds a stage
-    flops = 2 * ((s1 + s2) + s1 + 2 * s2)   # recompute + dW1 + dW2 and the stage-1 cotangent
-    b, by = bound_ms(n * hw + g.numel() * 4 + 77 * 4, flops, FP32_FLOPS)
-    results["encoder_bwd"] = dict(
-        max_abs_err=abs_err, max_leaf_rel_err=max(errs[DROP_P]),
-        max_leaf_rel_err_no_drop=max(errs[0.0]),
-        ms=timer.ms(lambda: cuda_head.encoder_bwd(*enc_args, g, (4, 2), DROP_P, seed), 10),
-        ms_no_drop=timer.ms(lambda: cuda_head.encoder_bwd(*enc_args, g, (4, 2)), 10),
-        plain_ms=timer.ms(
-            lambda: cuda_head.encoder_bwd_plain(*enc_args, g, (4, 2), DROP_P, seed), 2),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape="u8 [64,1,256,256], g [64,1,32,32], RND predictor, drop 0.1")
-    log(f"encoder_bwd ok: {results['encoder_bwd']}")
+    plain_ms = timer.ms(lambda: cuda_head.encoder_bwd_plain(*enc_args, g, (4, 2), DROP_P, seed),
+                        2)
+    # the gradients alone draw as the forward does; from the saved bits no
+    # draw, the bits read instead
+    parts = encoder_bound_parts(n, h, w, c1, c2, 4, 1, philox["ops"], True)
+    parts_saved = encoder_bound_parts(n, h, w, c1, c2, 4, 1, 0, True, saved=True)
+    shape = "u8 [64,1,256,256], g [64,1,32,32], RND predictor, drop 0.1"
+    for row, route in (("enc3_bwd", "enc3"), ("encoder_bwd", "generic")):
+        b, by = _largest(parts)
+        results[row] = dict(
+            max_abs_err=abs_err, max_leaf_rel_err=max(errs[DROP_P]),
+            max_leaf_rel_err_no_drop=max(errs[0.0]),
+            max_leaf_rel_err_vs_generic=max(errs[f"vs generic {p}"] for p in (0.0, DROP_P)),
+            ms=timed[f"{route} rnd"][0], plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            library_ms=None, bound_parts=parts, shape=shape,
+            ms_in_turns={k: v for k, v in timed.items() if k.startswith(route)})
+    results["enc3_bwd"].update(
+        ms_from_saved=timed["enc3 from saved rnd"][0],
+        bound_ms_from_saved=_largest(parts_saved)[0], bound_parts_from_saved=parts_saved)
+    log(f"enc3_bwd ok: {results['enc3_bwd']}")
+    log(f"encoder_bwd (generic) ok: {results['encoder_bwd']}")
 
     # ae_loss_bwd: AE2D (C1=4, C2=2, CMID=1, COUT=1)
     for p in (0.0, DROP_P):
@@ -1161,7 +1230,7 @@ def _ae_occupancy(cuda_build):
         out[f"ae2d_bwd decoder drop {drop}"] = dict(dec, dynamic_smem=smem_dec, rows=ry_dec)
         out[f"ae2d_bwd encoder drop {drop}"] = dict(enc, dynamic_smem=smem_enc, rows=ry_enc)
     (_, smem), (_, smem3) = ch._ae_bands(256, 256, 4, 2, 1, 1)
-    (_, _, smem2), (_, _, smem1) = ch._encoder_bwd_bands(256, 256, 4, 2, 2, 2)
+    (_, _, smem2), (_, _, smem1) = ch._encoder_bwd_whole(256, 256, 4, 2)
     out["generic ae_loss_fwd drop 0"] = dict(
         _occupancy(cuda_build, "ae_loss_fwd", "ae_loss_fwd_occupancy", 0, 1, 1, Big(smem))[0],
         dynamic_smem=smem)
@@ -1170,6 +1239,31 @@ def _ae_occupancy(cuda_build):
     for key, occ, sm in zip(("decoder", "encoder stage 2", "encoder stage 1"), bwd,
                             (smem3, smem2, smem1)):
         out[f"generic ae_loss_bwd {key} drop 1"] = dict(occ, dynamic_smem=sm)
+    return out
+
+
+def _enc3_occupancy(cuda_build):
+    """Registers, shared memory and resident blocks a multiprocessor of the
+    specialised encoder kernels (uint8 cells) at each width on the plans of
+    the main shapes: the battery's forward (160 x 256²), the training
+    backward (64 x 256²) and RND's 512 bands of 32 x 8192."""
+    from carle_tpu_torch.ops import cuda_head as ch
+
+    out = {}
+    shapes = {"160x256": (160, 256, 256), "64x256": (64, 256, 256),
+              "bands 512x32x8192": (512, 32, 8192)}
+    for label, (n, h, w) in shapes.items():
+        for name, (c1, c2, p1, _) in zip(("rnd", "target", "ae"), ch.ENC3_WIDTHS):
+            r2, tw, smem = ch._enc3_plan(n, h, w, c1, c2, p1, False)
+            for mode in (0, 1, 2):   # no dropout, dropout, dropout saving the bits
+                out[f"enc3_fwd {name} mode {mode} {label}"] = dict(
+                    _occupancy(cuda_build, "enc3_fwd", "enc3_fwd_occupancy", c1, c2, p1, mode,
+                               Big(smem))[0], dynamic_smem=smem, rows=r2, tile=tw)
+            r2, tw, smem = ch._enc3_plan(n, h, w, c1, c2, p1, True)
+            for drop in (0, 1):
+                out[f"enc3_bwd {name} drop {drop} {label}"] = dict(
+                    _occupancy(cuda_build, "enc3_bwd", "enc3_bwd_occupancy", c1, c2, p1, drop,
+                               Big(smem))[0], dynamic_smem=smem, rows=r2, tile=tw)
     return out
 
 
@@ -1297,14 +1391,13 @@ def ae_bound(n, hw, nbytes, draw_ops, backward):
 
 
 def dropout_bounds(draw_ops):
-    """Rows 3b, 5b, 7b, 8b and 9b's bounds with their Philox draws counted
+    """Rows 5b, 7b, 8b and 9b's bounds with their Philox draws counted
     (their kernels' shapes with dropout 0.1 at 64 universes of 256²), draw_ops
     a draw: the larger of the bound stated before (float32 operations or
     bytes) and the draws' integer time.  A draw serves a position's four
     channels."""
     n, hw = 64, 65536
     draws = {   # row: (draws a cell, the bound stated before)
-        "3b encoder_bwd (RND: stage 1 one a cell, stage 2 1/16)": (1 + 1 / 16, 0.00986),
         "5b decoder_loss_bwd (middle 1/4, last stage 1)": (1.25, 0.00275),
         "7b tail_bwd (the output, 1)": (1.0, 0.00751),
         "8b loss_tail_bwd (the output, 1)": (1.0, 0.00376),
@@ -1439,40 +1532,139 @@ def phase_ae2d(torch, timer, cuda_build, philox):
 
 def _tile_plans(h, w):
     """The (band, tile, shared memory) plans the encoder and decoder-loss
-    kernels take at [h, w] (RND predictor, AE encoder, AE2D decoder)."""
+    kernels take at [h, w], one instance (the specialised encoder at its
+    three widths, forward and backward; the generic one at the RND
+    predictor's and AE's; the AE2D decoder)."""
     from carle_tpu_torch.ops import cuda_head, cuda_stages
 
-    return {"rnd_encoder_fwd": cuda_head._encoder_fwd_plan(h, w, 4, 1, 4, 2),
+    return {"rnd_enc3": [cuda_head._enc3_plan(1, h, w, 4, 1, 4, b) for b in (False, True)],
+            "target_enc3": [cuda_head._enc3_plan(1, h, w, 2, 1, 4, b) for b in (False, True)],
+            "ae_enc3": [cuda_head._enc3_plan(1, h, w, 4, 2, 2, b) for b in (False, True)],
+            "rnd_encoder_fwd": cuda_head._encoder_fwd_plan(h, w, 4, 1, 4, 2),
             "rnd_encoder_bwd": cuda_head._encoder_bwd_bands(h, w, 4, 1, 4, 2),
             "ae_encoder_fwd": cuda_head._encoder_fwd_plan(h, w, 4, 2, 2, 2),
             "ae_encoder_bwd": cuda_head._encoder_bwd_bands(h, w, 4, 2, 2, 2),
             "decoder_fwd_bwd": cuda_stages._decoder_bands(h, w, 2, 1, 1)}
 
 
-def _encoder_bound(n, h, w, c1, c2, p1, p2, cell_bytes, backward):
-    """(bound ms, what bounds it) of an encoder launch: cells read once, the
-    output (or its cotangent and the gradients) once, 2 flops a
-    multiply-add (the backward: recompute, dW1, dW2 and the stage-1
-    cotangent)."""
-    s1 = n * h * w * c1 * 9
-    s2 = n * (h // p1) * (w // p1) * c2 * c1 * 9
-    out = n * c2 * (h // (p1 * p2)) * (w // (p1 * p2)) * 4
-    mask = n * (h // p1) * 4
-    flops = 2 * ((s1 + s2) + s1 + 2 * s2) if backward else 2 * (s1 + s2)
-    return bound_ms(n * h * w * cell_bytes + out + mask, flops, FP32_FLOPS)
+def encoder_bound_parts(n, h, w, c1, c2, p1, cell_bytes, draw_ops, backward, mask=False,
+                        saved=False):
+    """The least times (ms) of the encoder function on n instances of [h, w]
+    at widths (c1, c2) and pools (p1, 2), as the specialised kernels compute
+    it: stage 1 a lookup in a 512-entry table (its 512 x 9 c1 multiply-adds
+    once a call), stage 2 9 c1 c2 multiply-adds a stage-1 pixel; the backward
+    recomputes stage 2 and adds dW2 and the stage-1 cotangent (9 c1 c2 each a
+    stage-1 position) and dW1 over the pool-routed pixels (9 c1 a stage-1
+    position).  Bytes: the cells (cell_bytes a cell) once, the output or its
+    cotangent and the gradients once, the row mask, and ``saved``: the keep
+    bits a training forward writes and its backward reads.  draw_ops: a
+    Philox draw's operations (0: no dropout, or the backward from saved
+    bits), one draw a cell for stage 1 and one a stage-1 pixel for stage 2."""
+    h1w1 = n * (h // p1) * (w // p1)
+    s2 = h1w1 * c2 * c1 * 9
+    table = 512 * c1 * 9
+    macs = (3 * s2 + h1w1 * c1 * 9 if backward else s2) + table
+    outs = n * c2 * (h // (2 * p1)) * (w // (2 * p1))
+    nbytes = (n * h * w * cell_bytes + 4 * outs + (4 * n * (h // p1) if mask else 0)
+              + (4 * (c1 * 10 + c2 * (9 * c1 + 1)) if backward else 0)
+              + ((h1w1 * p1 * p1 * c1 / 8 + outs) if saved else 0))
+    return {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "fp32_ms": 2 * macs / FP32_FLOPS * 1e3,
+            "philox_ms": (n * h * w + h1w1) * draw_ops / INT32_OPS * 1e3}
 
 
-def _decoder_bound(n, h, w, obs_bytes, backward):
+def _largest(parts):
+    """(ms, kind) of the largest part of a bound."""
+    t_ops = max(parts["fp32_ms"], parts["philox_ms"])
+    return ((parts["bytes_ms"], "bytes") if parts["bytes_ms"] >= t_ops
+            else (t_ops, "operations"))
+
+
+def _decoder_bound(n, h, w, obs_bytes, backward, draw_ops=0):
     """The same for an AE2D decoder-loss launch ([n, 2, h/4, w/4] -> [n, 1,
-    h, w]) with row weights."""
+    h, w]) with row weights: (ms, kind, parts); with dropout (draw_ops a
+    draw) one draw a middle position and one an output cell, which the
+    forward and the backward each draw."""
     hw = h * w
     d1, d2 = 4 * 2 * 1 * (hw // 4), 4 * 1 * 1 * hw
     emb = 2 * hw // 16 * 4
     if backward:
-        return bound_ms(n * (2 * emb + hw * obs_bytes + h * 4) + n * 4 + 52 * 4,
-                        2 * n * 3 * (d1 + d2) + 8 * n * hw, FP32_FLOPS)
-    return bound_ms(n * (emb + hw * obs_bytes + h * 4) + n * 4,
-                    2 * n * (d1 + d2) + 3 * n * hw, FP32_FLOPS)
+        nbytes = n * (2 * emb + hw * obs_bytes + h * 4) + n * 4 + 52 * 4
+        flops = 2 * n * 3 * (d1 + d2) + 8 * n * hw
+    else:
+        nbytes = n * (emb + hw * obs_bytes + h * 4) + n * 4
+        flops = 2 * n * (d1 + d2) + 3 * n * hw
+    parts = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "fp32_ms": flops / FP32_FLOPS * 1e3,
+             "philox_ms": n * hw * 1.25 * draw_ops / INT32_OPS * 1e3}
+    return (*_largest(parts), parts)
+
+
+def _generic_encoder(fn):
+    """fn() on the generic encoder kernels: the specialised route off."""
+    from carle_tpu_torch.ops import cuda_head
+
+    cuda_head.ENC3_KERNELS = False
+    try:
+        return fn()
+    finally:
+        cuda_head.ENC3_KERNELS = True
+
+
+def _old_plan(fn, h, w, c1, c2, p1, p2):
+    """fn() with the generic forward on the plan PR 7's planner gave: the
+    whole width first wherever one band of it fits a block (_pick_tile),
+    for the planner repair's before and after."""
+    from carle_tpu_torch.ops import cuda_head as ch
+
+    plan = ch._pick_tile(lambda r, t: ch._encoder_smem(h, w, c1, c2, p1, p2, r, t),
+                         h // (p1 * p2), (8, 4, 2, 1), w // (p1 * p2), p1 * p2)
+    repaired = ch._encoder_fwd_plan
+    ch._encoder_fwd_plan = lambda *a: plan
+    try:
+        return _generic_encoder(fn), plan
+    finally:
+        ch._encoder_fwd_plan = repaired
+
+
+def _enc3_held(torch, x, w4, pools, p, seed, mask=None, g=None, words=None,
+               tol_generic=1e-5):
+    """The specialised encoder kernels (csrc/enc3_*.cu) against the generic
+    ones at one shape: the forward bit for bit (every pre-activation is the
+    generic kernel's), with dropout the saving forward's output and keep
+    bits (philox_keep_mask's, stage by stage), and (g given) each gradient
+    leaf within tol_generic of its largest entry (only the weight-gradient
+    sums run in another order) and the backward from the saved bits equal to
+    the one that draws them; ``words``, the same cells packed, bit for bit.
+    Returns the largest leaf difference (0 without g)."""
+    from carle_tpu_torch.ops import cuda_head as ch
+
+    c1, c2, p1 = w4[0].shape[0], w4[2].shape[0], pools[0]
+    check(ch.encoder_route(ch.cell_shape(x)[2], ch.cell_shape(x)[3], (c1, c2), pools),
+          f"widths {(c1, c2)}, pools {pools} do not take the specialised encoder")
+    fwd = lambda src: ch.encoder_fwd(src, *w4, pools, p, seed, mask)
+    out = fwd(x)
+    check(torch.equal(out, _generic_encoder(lambda: fwd(x))),
+          f"enc3_fwd (drop {p}) differs from the generic kernel")
+    if words is not None:
+        check(torch.equal(fwd(words), out), "enc3_fwd on packed words differs from uint8 cells")
+    saved = None
+    if p > 0:
+        out_s, saved = ch._encoder_fwd_launch(x, w4, pools, p, seed, mask, True)
+        check(torch.equal(out_s, out), "the saving forward's output differs from the forward's")
+        for stage, keep in enumerate(ch.enc3_keep_masks(saved, c1, c2, p1)):
+            want = ch.philox_keep_mask(seed, stage, tuple(keep.shape), p, keep.device)
+            check(torch.equal(keep, want), f"saved keep bits of stage {stage} are not the twin's")
+    if g is None:
+        return 0.0
+    bwd = lambda src: ch.encoder_bwd(src, *w4, g, pools, p, seed, mask)
+    grads = _bits_twice(lambda: bwd(x), "enc3_bwd")
+    err = max(_leaf_errors(grads, _generic_encoder(lambda: bwd(x))))
+    check(err < tol_generic, f"enc3_bwd (drop {p}) vs the generic kernel: {err}")
+    if saved is not None:
+        check(_same_bits(ch._enc3_bwd_kernel(x, w4, g, pools, p, mask, saved), grads),
+              "the backward from saved bits differs from the backward that draws them")
+    if words is not None:
+        check(_same_bits(bwd(words), grads), "enc3_bwd on packed words differs from uint8 cells")
+    return err
 
 
 # the encoder's gradients at 8192² sum over 134 million stage-1 positions
@@ -1568,7 +1760,7 @@ def _tie_analysis(torch, x, w4, g, pools, drop_p, seed, mask):
     return out
 
 
-def phase_band_kernels(torch, timer, gen):
+def phase_band_kernels(torch, timer, gen, philox):
     """Row 3's mask and row 6's row weights at the band shapes of the 8192²
     slice, against their twins; the width repair (the global encoders and
     decoder loss at 8192²); the size repair (conv_ae_loss on 4 x 2048² equals
@@ -1601,7 +1793,7 @@ def phase_band_kernels(torch, timer, gen):
     ones = torch.ones_like(mask)
     g = torch.randn((RND_BANDS, 1, 4, size // 8), generator=gen, device=dev)
     w4 = conv(rnd)
-    fwd_err, leaf_err = 0.0, 0.0
+    fwd_err, leaf_err, leaf_generic = 0.0, 0.0, 0.0
     for p in (0.0, DROP_P):
         got = cuda_head.encoder_fwd(xb, *w4, (4, 2), p, seed, mask)
         want = cuda_head.encoder_fwd_plain(xb, *w4, (4, 2), p, seed, mask)
@@ -1623,28 +1815,81 @@ def phase_band_kernels(torch, timer, gen):
         check(same(cuda_head.encoder_bwd(xb, *w4, g, (4, 2), p, seed, ones),
                    cuda_head.encoder_bwd(xb, *w4, g, (4, 2), p, seed)),
               "encoder_bwd with a mask of ones is not the unmasked kernel")
+        # the specialised kernels against the generic ones: the forward bit
+        # for bit, the gradients within 1e-4 of each leaf (4 million stage-1
+        # positions a leaf, summed in another order), the saved bits
+        leaf_generic = max(leaf_generic, _enc3_held(torch, xb, w4, (4, 2), p, seed, mask, g,
+                                                    words=xw, tol_generic=tol))
     n, h, w = RND_BANDS, 32, size
-    b, by = _encoder_bound(n, h, w, 4, 1, 4, 2, 1 / 8, False)
-    fwd_ms = timer.ms(lambda: cuda_head.encoder_fwd(xw, *w4, (4, 2), DROP_P, seed, mask), 10)
-    results["encoder_fwd_mask"] = dict(
-        max_abs_err=fwd_err, ms=fwd_ms,
-        ms_u8=timer.ms(lambda: cuda_head.encoder_fwd(xb, *w4, (4, 2), DROP_P, seed, mask), 10),
-        plain_ms=timer.ms(lambda: cuda_head.encoder_fwd_plain(xw, *w4, (4, 2), DROP_P, seed,
-                                                              mask), 2),
-        bound_ms=b, bound_by=by, library_ms=None,
-        plan=cuda_head._encoder_fwd_plan(h, w, 4, 1, 4, 2),
-        shape=f"u32 [{n},1,32,{size // 32}] (RND bands of {size}²), mask [{n},8], drop 0.1")
-    log(f"encoder_fwd_mask ok: {results['encoder_fwd_mask']}")
-    b, by = _encoder_bound(n, h, w, 4, 1, 4, 2, 1 / 8, True)
-    results["encoder_bwd_mask"] = dict(
-        max_abs_err=leaf_err, max_leaf_rel_err=leaf_err,
-        ms=timer.ms(lambda: cuda_head.encoder_bwd(xw, *w4, g, (4, 2), DROP_P, seed, mask), 5),
-        plain_ms=timer.ms(lambda: cuda_head.encoder_bwd_plain(xw, *w4, g, (4, 2), DROP_P, seed,
-                                                              mask), 1),
-        bound_ms=b, bound_by=by, library_ms=None,
-        plan=cuda_head._encoder_bwd_bands(h, w, 4, 1, 4, 2),
-        shape=f"u32 [{n},1,32,{size // 32}], g [{n},1,4,{size // 8}], mask, drop 0.1")
-    log(f"encoder_bwd_mask ok: {results['encoder_bwd_mask']}")
+    fwd_parts = encoder_bound_parts(n, h, w, 4, 1, 4, 1 / 8, philox["ops"], False, mask=True)
+    bwd_parts = encoder_bound_parts(n, h, w, 4, 1, 4, 1 / 8, philox["ops"], True, mask=True)
+    saved_parts = encoder_bound_parts(n, h, w, 4, 1, 4, 1 / 8, 0, True, mask=True, saved=True)
+    saved = cuda_head._encoder_fwd_launch(xw, w4, (4, 2), DROP_P, seed, mask, True)[1]
+    calls = {
+        "fwd": lambda: cuda_head.encoder_fwd(xw, *w4, (4, 2), DROP_P, seed, mask),
+        "fwd u8": lambda: cuda_head.encoder_fwd(xb, *w4, (4, 2), DROP_P, seed, mask),
+        "bwd": lambda: cuda_head.encoder_bwd(xw, *w4, g, (4, 2), DROP_P, seed, mask),
+    }
+    timed = {}
+    for route in ("enc3", "generic", "enc3", "generic"):
+        for name, fn in calls.items():
+            timed.setdefault(f"{route} {name}", []).append(
+                timer.ms(fn if route == "enc3" else lambda fn=fn: _generic_encoder(fn),
+                         10 if name.startswith("fwd") else 5))
+    timed["enc3 bwd from saved"] = [timer.ms(
+        lambda: cuda_head._enc3_bwd_kernel(xw, w4, g, (4, 2), DROP_P, mask, saved), 5)]
+    timed["enc3 saving fwd"] = [timer.ms(
+        lambda: cuda_head._encoder_fwd_launch(xw, w4, (4, 2), DROP_P, seed, mask, True), 10)]
+    fwd_plain = timer.ms(lambda: cuda_head.encoder_fwd_plain(xw, *w4, (4, 2), DROP_P, seed,
+                                                            mask), 2)
+    bwd_plain = timer.ms(lambda: cuda_head.encoder_bwd_plain(xw, *w4, g, (4, 2), DROP_P, seed,
+                                                            mask), 1)
+    plans = {"enc3": (cuda_head._enc3_plan(n, h, w, 4, 1, 4, False),
+                      cuda_head._enc3_plan(n, h, w, 4, 1, 4, True)),
+             "generic": (cuda_head._encoder_fwd_plan(h, w, 4, 1, 4, 2, None, n),
+                         cuda_head._encoder_bwd_bands(h, w, 4, 1, 4, 2, None, n))}
+    for route in ("enc3", "generic"):
+        pre = "enc3" if route == "enc3" else "encoder"
+        b, by = _largest(fwd_parts)
+        results[f"{pre}_fwd_mask"] = dict(
+            max_abs_err=fwd_err, ms=timed[f"{route} fwd"][0], ms_u8=timed[f"{route} fwd u8"][0],
+            plain_ms=fwd_plain, bound_ms=b, bound_by=by, library_ms=None,
+            bound_parts=fwd_parts, plan=plans[route][0],
+            ms_in_turns={k: v for k, v in timed.items() if k.startswith(route)},
+            shape=f"u32 [{n},1,32,{size // 32}] (RND bands of {size}²), mask [{n},8], drop 0.1")
+        log(f"{pre}_fwd_mask ok: {results[f'{pre}_fwd_mask']}")
+        b, by = _largest(bwd_parts)
+        results[f"{pre}_bwd_mask"] = dict(
+            max_abs_err=leaf_err, max_leaf_rel_err=leaf_err, ms=timed[f"{route} bwd"][0],
+            plain_ms=bwd_plain, bound_ms=b, bound_by=by, library_ms=None,
+            bound_parts=bwd_parts, plan=plans[route][1],
+            shape=f"u32 [{n},1,32,{size // 32}], g [{n},1,4,{size // 8}], mask, drop 0.1")
+    results["enc3_bwd_mask"].update(
+        max_leaf_rel_err_vs_generic=leaf_generic, ms_from_saved=timed["enc3 bwd from saved"][0],
+        ms_saving_fwd=timed["enc3 saving fwd"][0], bound_parts_from_saved=saved_parts,
+        bound_ms_from_saved=_largest(saved_parts)[0])
+    log(f"enc3_bwd_mask ok: {results['enc3_bwd_mask']}")
+    log(f"encoder_bwd_mask (generic) ok: {results['encoder_bwd_mask']}")
+
+    # the frozen target's band forward (C1 = 2) beside the predictor's, as the
+    # bands path runs them (no dropout for the target): the specialised
+    # kernel, the generic kernel on the repaired plan and on PR 7's plan
+    band_fwd = {}
+    for name, params, p in (("target", target, 0.0), ("predictor", rnd, DROP_P)):
+        wt = conv(params)
+        fwd = lambda: cuda_head.encoder_fwd(xw, *wt, (4, 2), p, seed, mask)
+        old, old_plan = _old_plan(fwd, h, w, *(t.shape[0] for t in wt[::2]), 4, 2)
+        check(torch.equal(old, fwd()), f"the {name}'s band forward on PR 7's plan differs")
+        r = {"drop_p": p, "old_plan": old_plan,
+             "plan": cuda_head._encoder_fwd_plan(h, w, wt[0].shape[0], 1, 4, 2, None, n)}
+        for _ in range(2):
+            r.setdefault("enc3_ms", []).append(timer.ms(fwd, 10))
+            r.setdefault("generic_ms", []).append(timer.ms(lambda: _generic_encoder(fwd), 10))
+            r.setdefault("generic_old_plan_ms", []).append(
+                timer.ms(lambda: _old_plan(fwd, h, w, wt[0].shape[0], 1, 4, 2)[0], 10))
+        band_fwd[name] = r
+    report["band_forward_target_vs_predictor"] = band_fwd
+    log(f"band forwards, target and predictor: {json.dumps(band_fwd)}")
     for p in (0.0, DROP_P):   # after the checks above: its float64 planes take memory
         ties[f"rnd_bands_drop_{p}"] = _tie_analysis(torch, xb, w4, g, (4, 2), p, seed, mask)
         log(f"pool ties, RND bands, drop {p}: {json.dumps(ties[f'rnd_bands_drop_{p}'])}")
@@ -1684,25 +1929,25 @@ def phase_band_kernels(torch, timer, gen):
                    cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, p, seed)),
               "decoder_loss_bwd with em of ones is not the unweighted kernel")
     n, h, w = PRED_BANDS, 4 * win, size
-    b, by = _decoder_bound(n, h, w, 1 / 8, False)
+    b, by, parts = _decoder_bound(n, h, w, 1 / 8, False, philox["ops"])
     results["decoder_loss_fwd_em"] = dict(
         max_abs_err=fwd_err, max_rel_err=fwd_err,
         ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd(eb, *dec, ob32, DROP_P, seed, em), 10),
         plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd_plain(eb, *dec, ob32, DROP_P,
                                                                      seed, em), 2),
-        bound_ms=b, bound_by=by, library_ms=None,
+        bound_ms=b, bound_by=by, library_ms=None, bound_parts=parts,
         plan=cuda_stages._decoder_bands(h, w, 2, 1, 1)[0],
         shape=f"f32 x [{n},2,{win},{size // 4}], u32 obs [{n},1,{4 * win},{size // 32}], "
               f"em [{n},{4 * win}], drop 0.1")
     log(f"decoder_loss_fwd_em ok: {results['decoder_loss_fwd_em']}")
-    b, by = _decoder_bound(n, h, w, 1 / 8, True)
+    b, by, parts = _decoder_bound(n, h, w, 1 / 8, True, philox["ops"])
     results["decoder_loss_bwd_em"] = dict(
         max_abs_err=leaf_err, max_leaf_rel_err=leaf_err,
         ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob32, gbar, DROP_P, seed,
                                                          em), 5),
         plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd_plain(eb, *dec, ob32, gbar,
                                                                      DROP_P, seed, em), 1),
-        bound_ms=b, bound_by=by, library_ms=None,
+        bound_ms=b, bound_by=by, library_ms=None, bound_parts=parts,
         plan=cuda_stages._decoder_bands(h, w, 2, 1, 1)[1],
         shape=f"f32 x [{n},2,{win},{size // 4}], u32 obs, gbar [{n}], em, drop 0.1")
     log(f"decoder_loss_bwd_em ok: {results['decoder_loss_bwd_em']}")
@@ -1719,6 +1964,7 @@ def phase_band_kernels(torch, timer, gen):
                                    rtol=1e-4, atol=1e-4)
         check(torch.equal(cuda_head.encoder_fwd(words, *w4, pools, DROP_P, seed), got),
               f"{name} at {size}² on packed words differs from uint8 cells")
+        _enc3_held(torch, universe, w4, pools, DROP_P, seed)
         gg = torch.randn(got.shape, generator=gen, device=dev)
         errs = _leaf_errors(cuda_head.encoder_bwd(universe, *w4, gg, pools, DROP_P, seed),
                             cuda_head.encoder_bwd_plain(universe, *w4, gg, pools, DROP_P, seed))
@@ -1793,8 +2039,8 @@ def phase_band_kernels(torch, timer, gen):
     e64 = cuda_head.encoder_fwd(x8, *conv(ae), (2, 2))
     gb = torch.randn((n,), generator=gen, device=dev) / (256 * 256)
     calls = {
-        "encoder_fwd": lambda x: (cuda_head.encoder_fwd(x, *w4, (4, 2), DROP_P, seed),),
-        "encoder_bwd": lambda x: cuda_head.encoder_bwd(x, *w4, g, (4, 2), DROP_P, seed),
+        "enc3_fwd": lambda x: (cuda_head.encoder_fwd(x, *w4, (4, 2), DROP_P, seed),),
+        "enc3_bwd": lambda x: cuda_head.encoder_bwd(x, *w4, g, (4, 2), DROP_P, seed),
         "decoder_loss_fwd": lambda x: (cuda_stages.decoder_loss_fwd(e64, *dec, x, DROP_P,
                                                                     seed),),
         "decoder_loss_bwd": lambda x: cuda_stages.decoder_loss_bwd(e64, *dec, x, gb, DROP_P,
@@ -1809,8 +2055,8 @@ def phase_band_kernels(torch, timer, gen):
             for x in (x8, x32):
                 got = _bits_twice(lambda: fn(x), f"{k} in column tiles")
                 worst = max(_leaf_errors(got, one[k]))
-                if k == "encoder_fwd":
-                    check(same(got, one[k]), "encoder_fwd in column tiles differs from one tile")
+                if k == "enc3_fwd":
+                    check(same(got, one[k]), "enc3_fwd in column tiles differs from one tile")
                 check(worst < 1e-5, f"{k} in column tiles differs from one tile: {worst}")
             tiles[k] = dict(max_leaf_rel_err=worst, ms=timer.ms(lambda: fn(x32), 10),
                             one_tile_ms=one_ms[k])
@@ -2069,7 +2315,8 @@ def _slot_head_kernels(torch, timer, gen, g32):
             s_seed = sh._shard_seed(seed, s)
             label = (f"{net} encoder, slot {s}: u32 {list(xp.shape)}, pools {pools}, "
                      f"mask {list(mask.shape)} ({int(mask.sum())} rows inside)")
-            r = {"fwd_max_abs_err": 0.0, "bwd_max_leaf_rel_err": 0.0}
+            r = {"fwd_max_abs_err": 0.0, "bwd_max_leaf_rel_err": 0.0,
+                 "bwd_max_leaf_rel_err_vs_generic": 0.0}
             for p in (0.0, DROP_P):
                 y = cuda_head.encoder_fwd(xp, *w4, pools, p, s_seed, mask)
                 r["fwd_max_abs_err"] = max(r["fwd_max_abs_err"], close(
@@ -2081,11 +2328,15 @@ def _slot_head_kernels(torch, timer, gen, g32):
                                                                        s_seed, mask))
                 check(max(errs) < TOL_TIES, f"{label} (drop {p}) leaves differ: {errs}")
                 r["bwd_max_leaf_rel_err"] = max(r["bwd_max_leaf_rel_err"], max(errs))
+                r["bwd_max_leaf_rel_err_vs_generic"] = max(
+                    r["bwd_max_leaf_rel_err_vs_generic"],
+                    _enc3_held(torch, xp, w4, pools, p, s_seed, mask, g, tol_generic=tol))
             r["ties_drop"] = _tie_analysis(torch, xp, w4, g, pools, DROP_P, s_seed, mask)
-            r["fwd_ms"] = timer.ms(
-                lambda: cuda_head.encoder_fwd(xp, *w4, pools, DROP_P, s_seed, mask), 5)
-            r["bwd_ms"] = timer.ms(
-                lambda: cuda_head.encoder_bwd(xp, *w4, g, pools, DROP_P, s_seed, mask), 3)
+            fwd = lambda: cuda_head.encoder_fwd(xp, *w4, pools, DROP_P, s_seed, mask)
+            bwd = lambda: cuda_head.encoder_bwd(xp, *w4, g, pools, DROP_P, s_seed, mask)
+            r["fwd_ms"], r["bwd_ms"] = timer.ms(fwd, 5), timer.ms(bwd, 3)
+            r["generic_fwd_ms"] = timer.ms(lambda: _generic_encoder(fwd), 5)
+            r["generic_bwd_ms"] = timer.ms(lambda: _generic_encoder(bwd), 3)
             out[label] = r
             log(f"slot heads: {label} ok: {json.dumps(r)}")
             torch.cuda.empty_cache()
@@ -2939,6 +3190,8 @@ def main() -> int:
         shipped = shipped_states(torch)
         timer = Timer(torch)
         results = timed("kernels", phase_kernels, torch, timer, shipped, philox)
+        enc3_occupancy = _enc3_occupancy(cuda_build)
+        log(f"enc3 occupancy: {json.dumps(enc3_occupancy)}")
         ae2d = timed("ae2d", phase_ae2d, torch, timer, cuda_build, philox)
         log(f"ae2d ok: {json.dumps(ae2d)}")
         results.update(timed("spatial_kernels", phase_spatial_kernels, torch, timer,
@@ -2978,6 +3231,11 @@ def main() -> int:
     if missing:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
+    generic = {f"{path}:{k}": c[k] for path, c in path_counts.items() for k in GENERIC_ENCODER
+               if c[k]}
+    if generic:
+        log(f"FAIL: generic encoder kernels launched on the main paths: {generic}")
+        return 1
     ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
                    for path, c in path_counts.items()}
     log(f"whole-autoencoder launches by instantiation (AE2D, generic): {json.dumps(ae_launches)}")
@@ -3007,7 +3265,7 @@ def main() -> int:
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
         "routes": routes, "wrappers": wrappers, "packed": packed, "engines": engines,
         "dropout": results["dropout"], "ae_loss_src_not_obs": results["ae_loss_src_not_obs"],
-        "ae2d": ae2d, "ae_launches": ae_launches,
+        "ae2d": ae2d, "ae_launches": ae_launches, "enc3_occupancy": enc3_occupancy,
         "profile": profile, "profile_train": profile_train, "profile_packed": profile_packed,
         "total_s": time.perf_counter() - t_start,
     }

@@ -1,0 +1,241 @@
+"""Measurements that compare two checkouts of carle_tpu_torch on one CUDA card,
+each taken in a fresh process.
+
+    python scripts/port_ab.py digest --root DIR
+        sha256 digests of kernel outputs on seeded inputs: the whole
+        autoencoder's error and eight gradients (uint8 and packed src,
+        dropout 0 and 0.1) with the training forward's saved embedding and
+        keep bits, and the encoder's forward at the package's three widths
+        (dropout 0 and 0.1, 256² and RND's bands of 8192²).  Equal digests
+        from two checkouts mean bit-for-bit equal outputs.
+    python scripts/port_ab.py profile-packed --root DIR
+        chip_smoke.py's packed training profile (64 universes, 64 steps on
+        the packed carry, under torch.profiler) as one JSON line.
+    python scripts/port_ab.py encoder-times --root DIR [--generic]
+        device ms (chip_smoke.py's Timer) of the encoder at rows 3a-3d's
+        shapes: the forward on 160 x 256², the gradients alone and from the
+        saved bits on 64 x 256² with dropout 0.1, and the RND predictor's
+        and target's masked bands of 8192²; --generic adds the generic
+        kernels beside each.  Run it in a copy whose sources were edited to
+        time a variant against the tree.
+    python scripts/port_ab.py host-encoder --root DIR
+        the host's µs to enqueue a training step's encoder work (the RND
+        predictor forward with dropout through autograd, the target's
+        forward, the backward) on 64 packed 256² universes, three times.
+    python scripts/port_ab.py python-cost --root DIR
+        on the CPU, with the launches stubbed: the Python µs of the encoder's
+        launch paths (the specialised forward, saving forward and backward
+        from the saved bits, and the generic ones).
+
+DIR is the checkout whose package, chip_smoke.py and kernel build directory
+the process uses (default: this script's own).  Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def digests(torch) -> dict:
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params, init_random_network_params
+    from carle_tpu_torch.ops import bitpack, cuda_head as ch
+    from carle_tpu_torch.parallel import band_heads as bh
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    x = (torch.rand((64, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    x[:16, :, :128] = 0
+    obs = (torch.rand((64, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    ae = init_ae_params(gen, dev)
+    ps = [ae[k][t] for k in ("conv1", "conv2", "deconv1", "deconv2") for t in ("w", "b")]
+    gbar = torch.randn((64,), generator=gen, device=dev)
+    out = {}
+    for kind, src in (("u8", x), ("u32", bitpack.pack_grid(x))):
+        for p in (0.0, 0.1):
+            err, saved = ch._ae_fwd_launch(src, ps, obs, (2, 2), p, 99, True)
+            out[f"ae2d fwd {kind} drop {p}"] = _digest([err, *saved])
+            out[f"ae2d bwd {kind} drop {p}"] = _digest(
+                ch.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), p, 99))
+    conv = lambda q: (q["conv1"]["w"], q["conv1"]["b"], q["conv2"]["w"], q["conv2"]["b"])
+    nets = {"rnd": (conv(init_predictor_params(EnvConfig(), gen, dev)), (4, 2)),
+            "target": (conv(init_random_network_params(EnvConfig(), gen, dev)), (4, 2)),
+            "ae": (conv(ae), (2, 2))}
+    universe = (torch.rand((1, 1, 8192, 8192), generator=gen, device=dev) < 0.2).to(torch.uint8)
+    bands = bh._band_input(bitpack.pack_grid(universe), 512, 8)
+    mask = bh.encoder_mask(8192, 512, (4, 2), 1, dev)
+    for name, (w4, pools) in nets.items():
+        for p in (0.0, 0.1):
+            out[f"encoder fwd {name} 256 drop {p}"] = _digest(
+                [ch.encoder_fwd(x, *w4, pools, p, 7)])
+            if pools == (4, 2):
+                out[f"encoder fwd {name} bands drop {p}"] = _digest(
+                    [ch.encoder_fwd(bands, *w4, pools, p, 7, mask)])
+    return out
+
+
+def _encoder_nets(torch, gen, dev):
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params, init_random_network_params
+
+    conv = lambda q: (q["conv1"]["w"], q["conv1"]["b"], q["conv2"]["w"], q["conv2"]["b"])
+    rnd = init_predictor_params(EnvConfig(), gen, dev)
+    target = init_random_network_params(EnvConfig(), gen, dev)
+    return {"rnd": (conv(rnd), (4, 2)), "target": (conv(target), (4, 2)),
+            "ae": (conv(init_ae_params(gen, dev)), (2, 2))}
+
+
+def encoder_times(torch, generic: bool) -> dict:
+    import chip_smoke
+    from carle_tpu_torch.ops import bitpack, cuda_head as ch
+    from carle_tpu_torch.parallel import band_heads as bh
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = chip_smoke.Timer(torch)
+    nets = _encoder_nets(torch, gen, dev)
+
+    def times(fn, reps, both=True):
+        out = [timer.ms(fn, reps)]
+        if generic and both:
+            out.append(timer.ms(lambda: chip_smoke._generic_encoder(fn), reps))
+        return out
+
+    out = {}
+    x160 = (torch.rand((160, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    x64 = x160[:64].contiguous()
+    for name, (w4, pools) in nets.items():
+        out[f"3a fwd160 {name}"] = times(lambda: ch.encoder_fwd(x160, *w4, pools), 20)
+        g = torch.randn(ch.encoder_fwd(x64, *w4, pools).shape, generator=gen, device=dev)
+        out[f"3b bwd64 drop {name}"] = times(
+            lambda: ch.encoder_bwd(x64, *w4, g, pools, 0.1, 7), 10)
+        saved = ch._encoder_fwd_launch(x64, w4, pools, 0.1, 7, None, True)[1]
+        out[f"3b from saved {name}"] = times(
+            lambda: ch._enc3_bwd_kernel(x64, w4, g, pools, 0.1, None, saved), 10, False)
+        out[f"train fwd64 save {name}"] = times(
+            lambda: ch._encoder_fwd_launch(x64, w4, pools, 0.1, 7, None, True), 10, False)
+    universe = (torch.rand((1, 1, 8192, 8192), generator=gen, device=dev) < 0.2).to(torch.uint8)
+    xw = bh._band_input(bitpack.pack_grid(universe), 512, 8)
+    mask = bh.encoder_mask(8192, 512, (4, 2), 1, dev)
+    for name in ("rnd", "target"):
+        w4, pools = nets[name]
+        for p in (0.0, 0.1):
+            out[f"3c bands fwd {name} drop {p}"] = times(
+                lambda: ch.encoder_fwd(xw, *w4, pools, p, 31, mask), 10)
+        g = torch.randn((512, 1, 4, 1024), generator=gen, device=dev)
+        out[f"3d bands bwd {name}"] = times(
+            lambda: ch.encoder_bwd(xw, *w4, g, pools, 0.1, 31, mask), 5)
+        saved = ch._encoder_fwd_launch(xw, w4, pools, 0.1, 31, mask, True)[1]
+        out[f"3d from saved {name}"] = times(
+            lambda: ch._enc3_bwd_kernel(xw, w4, g, pools, 0.1, mask, saved), 5, False)
+    return out
+
+
+def _loop_us(fn, reps: int, sync=None) -> float:
+    for _ in range(20):
+        fn()
+    if sync:
+        sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    if sync:
+        sync()
+    return t
+
+
+def host_encoder(torch) -> list:
+    from carle_tpu_torch.ops import bitpack, cuda_head as ch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = bitpack.pack_grid((torch.rand((64, 1, 256, 256), generator=gen, device=dev) < 0.3)
+                          .to(torch.uint8))
+    nets = _encoder_nets(torch, gen, dev)
+    leaves = [t.detach().clone().requires_grad_(True) for t in nets["rnd"][0]]
+    target = nets["target"][0]
+
+    def step():
+        out = ch.encoder(x, *leaves, (4, 2), 0.1, 7)
+        ch.encoder(x, *target, (4, 2))
+        torch.autograd.grad(out.sum(), leaves)
+
+    return [_loop_us(step, 300, torch.cuda.synchronize) for _ in range(3)]
+
+
+def python_cost(torch) -> dict:
+    from carle_tpu_torch.ops import cuda_head as ch
+
+    ch.stream_args = lambda t: (0, None)
+    for k in (ch.ENC3_FWD, ch.ENC3_BWD, ch.ENCODER, ch.ENCODER_BWD):
+        k.launch = lambda *a, **kw: None
+    x = torch.zeros((64, 1, 256, 256), dtype=torch.uint8)
+    ps = [torch.randn(4, 1, 3, 3), torch.randn(4), torch.randn(1, 4, 3, 3), torch.randn(1)]
+    g = torch.randn(64, 1, 32, 32)
+    saved = ch._encoder_fwd_launch(x, ps, (4, 2), 0.1, 7, None, True)[1]
+    out = {"enc3 saving fwd": _loop_us(lambda: ch._encoder_fwd_launch(x, ps, (4, 2), 0.1, 7,
+                                                                      None, True), 2000),
+           "enc3 fwd": _loop_us(lambda: ch._encoder_fwd_launch(x, ps, (4, 2), 0.0, 7, None,
+                                                               False), 2000),
+           "enc3 bwd from saved": _loop_us(lambda: ch._enc3_bwd_kernel(x, ps, g, (4, 2), 0.1,
+                                                                       None, saved), 2000)}
+    ch.ENC3_KERNELS = False
+    out["generic fwd"] = _loop_us(lambda: ch._encoder_fwd_launch(x, ps, (4, 2), 0.1, 7, None,
+                                                                 True), 2000)
+    out["generic bwd"] = _loop_us(lambda: ch._encoder_bwd_kernel(x, *ps, g, (4, 2), 0.1, 7),
+                                  2000)
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("what", choices=("digest", "profile-packed", "encoder-times",
+                                         "host-encoder", "python-cost"))
+    parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    parser.add_argument("--generic", action="store_true",
+                        help="encoder-times: also time the generic kernels")
+    args = parser.parse_args()
+    root = str(Path(args.root).resolve())
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    if args.what == "python-cost":   # the CPU: no device metric
+        print(json.dumps({"root": root, "device": "cpu", args.what: python_cost(torch)}))
+        return 0
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        return 1
+    if args.what == "digest":
+        result = digests(torch)
+    elif args.what == "encoder-times":
+        result = encoder_times(torch, args.generic)
+    elif args.what == "host-encoder":
+        result = host_encoder(torch)
+    else:
+        import chip_smoke
+
+        result = chip_smoke.phase_profile_train(torch, 64, True)
+    print(json.dumps({"root": root, "card": torch.cuda.get_device_name(0), args.what: result}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

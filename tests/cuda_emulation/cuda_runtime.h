@@ -54,6 +54,10 @@ struct alignas(16) float4 {
     float x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+struct alignas(8) float2 {
+    float x, y;
+};
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 inline void __syncthreads() {}
 inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other lane
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }

@@ -24,7 +24,7 @@ from carle_tpu_torch.parallel import cuda_halo
 from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd",
-           "head_fwd", "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd",
+           "enc3_fwd", "enc3_bwd", "head_fwd", "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd",
            "bit_multi_step", "ca_multi_step", "halo_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
 
@@ -102,9 +102,11 @@ def test_encoder_kernels_emulated(emulated, geom, drop_p):
     ps[1], ps[3] = ps[1].abs(), ps[3].abs()
     g = torch.from_numpy(rng.randn(n, c2, h // (p1 * p2), w // (p1 * p2)).astype(np.float32))
     seed = 1234567891011 + h
-    launches = cuda_head.ENCODER.launches
+    kernel = (cuda_head.ENC3_FWD if cuda_head.encoder_route(h, w, (c1, c2), (p1, p2))
+              else cuda_head.ENCODER)   # the widths' route
+    launches = kernel.launches
     got = cuda_head._encoder_fwd_kernel(x, *ps, (p1, p2), drop_p, seed)
-    assert cuda_head.ENCODER.launches == launches + 1
+    assert kernel.launches == launches + 1
     want = cuda_head.encoder_fwd_plain(x, *ps, (p1, p2), drop_p, seed)
     assert float(want.abs().max()) > 0 and _rel(got, want) < 1e-4
     grads = cuda_head._encoder_bwd_kernel(x, *ps, g, (p1, p2), drop_p, seed)

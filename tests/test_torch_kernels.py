@@ -136,9 +136,11 @@ def test_encoder_dropout_and_backward_kernels_match_plain(cuda, pools, c1, c2, s
     got = cuda_head.encoder_fwd(x, *ps, pools, drop_p, seed)
     torch.testing.assert_close(got, cuda_head.encoder_fwd_plain(x, *ps, pools, drop_p, seed),
                                rtol=1e-4, atol=1e-4)
-    before = cuda_head.ENCODER_BWD.launches
+    kernel = (cuda_head.ENC3_BWD if cuda_head.encoder_route(h, w, (c1, c2), pools)
+              else cuda_head.ENCODER_BWD)   # the widths' route
+    before = kernel.launches
     grads = cuda_head.encoder_bwd(x, *ps, g, pools, drop_p, seed)
-    assert cuda_head.ENCODER_BWD.launches == before + 1
+    assert kernel.launches == before + 1
     again = cuda_head.encoder_bwd(x, *ps, g, pools, drop_p, seed)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # fixed-order sums
     _assert_leaves_close(grads, cuda_head.encoder_bwd_plain(x, *ps, g, pools, drop_p, seed))
