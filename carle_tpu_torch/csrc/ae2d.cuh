@@ -29,11 +29,11 @@
 //   for bit, and a pixel costs one 16-byte shared load indexed by bits of the
 //   staged rows.  The rows are staged as bits (uint8 cells packed while
 //   staging, packed words as they come): 8 times less shared memory.
-// - Transpose convolutions by output parity: output (y, x) uses taps ky in
-//   {(y + 1) mod 2, (y + 1) mod 2 + 2} and kx likewise, so each thread
-//   computes a 2 x 2 block of outputs from one 2 x 2 or 3 x 3 input window,
-//   the four parity classes as fixed stencils, each sum in the generic order
-//   (bias, then channel, ky, kx ascending).
+// - Transpose convolutions by output parity (dec2.cuh, shared with the
+//   decoder-loss kernels at the decoder's width): each thread computes a
+//   2 x 2 block of outputs from one 2 x 2 or 3 x 3 input window, the four
+//   parity classes as fixed stencils, each sum in the generic order (bias,
+//   then channel, ky, kx ascending).
 // - Loops walk (row, column) without a division an element (grid_walk).
 // - With dropout, the training forward writes each element's keep bits, and
 //   the backward reads them: a training step draws each bit once (philox.cuh's
@@ -46,7 +46,7 @@
 // kernels stay on float32 FMA.
 #pragma once
 
-#include "bit_table.cuh"
+#include "dec2.cuh"
 
 // The flat weights: w1 [4,1,3,3], b1 [4], w2 [2,4,3,3], b2 [2], wt1 [2,1,4,4],
 // bt1 [1], wt2 [1,1,4,4], bt2 [1], in that order (ops/cuda_head.py packs them).
@@ -65,18 +65,12 @@ struct Ae2dWeights {
     const float* t[8];
 };
 
-// The block's copy of the weights, flat as above, and three of them again
-// as float4s, so that one 16-byte shared load serves four multiply-adds:
-// ae2d_w2t[o * 9 + dy * 3 + dx] = channels 0..3 of w2[o, :, dy, dx], and
-// the transpose convolutions' taps by output parity (u, v) in the order a
-// sum takes them, {(u, v), (u, v + 2), (u + 2, v), (u + 2, v + 2)}:
-// ae2d_wt1p[c * 4 + u * 2 + v] of wt1[c, 0], ae2d_wt2p[u * 2 + v] of wt2.
+// The block's copy of the weights, flat as above, and w2 again as float4s,
+// so that one 16-byte shared load serves four multiply-adds:
+// ae2d_w2t[o * 9 + dy * 3 + dx] = channels 0..3 of w2[o, :, dy, dx]; the
+// decoder's in dec2.cuh's parity tables.
 __shared__ float ae2d_w[AE_WEIGHTS];
-__shared__ float4 ae2d_w2t[18], ae2d_wt1p[8], ae2d_wt2p[4];
-
-__device__ __forceinline__ float4 parity_taps(const float* w, int u, int v) {
-    return make_float4(w[u * 4 + v], w[u * 4 + v + 2], w[(u + 2) * 4 + v], w[(u + 2) * 4 + v + 2]);
-}
+__shared__ float4 ae2d_w2t[18];
 
 // Fills the block's copy; every thread calls it, and a __syncthreads()
 // follows before the first read.
@@ -87,27 +81,11 @@ __device__ __forceinline__ void load_weights(const Ae2dWeights& wp) {
         for (int i = off[t] + static_cast<int>(threadIdx.x); i < off[t + 1];
              i += static_cast<int>(blockDim.x))
             ae2d_w[i] = wp.t[t][i - off[t]];
-    for (int i = threadIdx.x; i < 30; i += blockDim.x) {
-        if (i < 18) {
-            const float* w = wp.t[2] + (i / 9) * 36 + i % 9;   // w2[o, 0, dy, dx]
-            ae2d_w2t[i] = make_float4(w[0], w[9], w[18], w[27]);
-        } else if (i < 26) {
-            ae2d_wt1p[i - 18] = parity_taps(wp.t[4] + ((i - 18) >> 2) * 16, ((i - 18) >> 1) & 1,
-                                            (i - 18) & 1);
-        } else {
-            ae2d_wt2p[i - 26] = parity_taps(wp.t[6], ((i - 26) >> 1) & 1, (i - 26) & 1);
-        }
+    for (int i = threadIdx.x; i < 18; i += blockDim.x) {
+        const float* w = wp.t[2] + (i / 9) * 36 + i % 9;   // w2[o, 0, dy, dx]
+        ae2d_w2t[i] = make_float4(w[0], w[9], w[18], w[27]);
     }
-}
-
-__device__ __forceinline__ float wgt(int i) { return ae2d_w[i]; }
-
-// Tap (ky, kx) of a transpose convolution's parity table (q: ae2d_wt1p + 4 c
-// or ae2d_wt2p): parity (ky & 1, kx & 1), place (ky >> 1) * 2 + (kx >> 1).
-__device__ __forceinline__ float parity_tap(const float4* q, int ky, int kx) {
-    const float4 t = q[(ky & 1) * 2 + (kx & 1)];
-    const int k = (ky >> 1) * 2 + (kx >> 1);
-    return k == 0 ? t.x : k == 1 ? t.y : k == 2 ? t.z : t.w;
+    dec2_load_weights(wp.t[4], wp.t[5], wp.t[6], wp.t[7]);
 }
 
 // The universe and a band's rows.  A block owns output rows [Y0, Y0 + RY)
@@ -253,78 +231,6 @@ __device__ __forceinline__ void ae2d_stage2(const float* x1s, float* es, const A
         es[i * EW] = 0.f;
         es[i * EW + EW - 1] = 0.f;
     }
-}
-
-// Decoder stage 1 into ms [MR][XW] (rows from M0 = Y0/2 - 1, columns from
-// -1): relu(drop(conv_transpose(emb, wt1) + bt1)), zero outside [H/2, W/2].
-// es holds embedding rows from Y0/4 - 1 with a zero column each side.  A
-// thread computes the middle positions (2a - 1 + u, 2b - 1 + v), which read
-// embedding rows a - 1, a and columns b - 1, b: parity (u, v) takes taps
-// (ky, kx) in {u, u + 2} x {v, v + 2}, summed as deconv_preact (bias, then
-// channel, ky, kx ascending; a column outside the embedding reads a zero
-// where the generic kernel skips it, which adds an exact zero).  kms (SAVE,
-// drawing): the keep bit of each own middle position, [RY/2][W/2] bytes.
-template <int KEEP, bool SAVE>
-__device__ __forceinline__ void ae2d_dec1(const float* es, float* ms, const Ae2dDims& d, int Y0,
-                                          int n, const DropCfg& cfg,
-                                          const uint8_t* __restrict__ keepd, uint8_t* kms) {
-    const int ER = d.ER(), EW = d.EW(), XW = d.XW(), M0 = Y0 / 2 - 1;
-    grid_walk(d.RY / 4 + 1, d.We + 1, [&](int la, int b) {
-        const int a = Y0 / 4 + la;
-        float E[2][2][2];   // [channel][row a - 1, a][column b - 1, b]
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j) E[c][i][j] = es[(c * ER + la + i) * EW + b + j];
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-                const int m = 2 * a - 1 + u, xm = 2 * b - 1 + v;
-                float acc = wgt(AE_BT1);
-#pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    const float4 w = ae2d_wt1p[c * 4 + u * 2 + v];
-                    acc += w.x * E[c][1][1];
-                    acc += w.y * E[c][1][0];
-                    acc += w.z * E[c][0][1];
-                    acc += w.w * E[c][0][0];
-                }
-                float val = 0.f;
-                if (m >= 0 && m < d.H1 && xm >= 0 && xm < d.W1) {
-                    if (KEEP != KEEP_NONE) {
-                        unsigned keep;
-                        if (KEEP == KEEP_DRAW) {
-                            keep = drop_keep_group(cfg, STAGE_DEC1, n, 0, m, xm) & 1u;
-                            if (SAVE && m >= Y0 / 2 && m < Y0 / 2 + d.RY / 2)
-                                kms[(m - Y0 / 2) * d.W1 + xm] = static_cast<uint8_t>(keep);
-                        } else {
-                            keep = (keepd[(static_cast<size_t>(n) * d.H1 + m) * d.W1 + xm] >> 4) & 1u;
-                        }
-                        acc = keep ? acc * cfg.scale : 0.f;
-                    }
-                    val = fmaxf(acc, 0.f);
-                }
-                ms[(m - M0) * XW + xm + 1] = val;
-            }
-    });
-}
-
-// The last stage's pre-activation at an output of parity (ky0, kx0) from the
-// middle values at (iy0, ix0) and the three before it in row and column:
-// m[1][1] = (iy0, ix0), m[1][0] = (iy0, ix0 - 1), m[0][1] = (iy0 - 1, ix0),
-// m[0][0] = (iy0 - 1, ix0 - 1); deconv_preact's order.
-__device__ __forceinline__ float dec2_preact(int ky0, int kx0, float m11, float m10, float m01,
-                                             float m00) {
-    const float4 w = ae2d_wt2p[ky0 * 2 + kx0];
-    float acc = wgt(AE_BT2);
-    acc += w.x * m11;
-    acc += w.y * m10;
-    acc += w.z * m01;
-    acc += w.w * m00;
-    return acc;
 }
 
 // Partial sums of the block in a fixed order (warp trees, then the warps in

@@ -61,7 +61,6 @@ ae2d_bwd_decoder_kernel(const OBS* __restrict__ obs, Ae2dWeights wp,
     const int H = sh.H, W = sh.W, H1 = d.H1, W1 = d.W1, We = d.We;
     const int ER = d.ER(), EW = d.EW(), XW = d.XW(), MR = d.MR(), M0 = Y0 / 2 - 1;
     const int GYW = W + 2, MY0 = Y0 / 2, GMR = RY / 2;
-    const int tid = threadIdx.x, nt = blockDim.x;
 
     extern __shared__ float smem[];
     float* es = smem;                        // 2 x ER x EW, rows from Y0/4 - 1, cols from -1
@@ -73,121 +72,32 @@ ae2d_bwd_decoder_kernel(const OBS* __restrict__ obs, Ae2dWeights wp,
     // the weights, and the embedding band, zero outside the universe
     load_weights(wp);
     const int E0 = Y0 / 4 - 1;
-    grid_walk(2 * ER, EW, [&](int lr2, int lc) {
-        const int c = lr2 >= ER ? 1 : 0, lr = lr2 - c * ER;
-        const int e = E0 + lr, f = lc - 1;
-        es[lr2 * EW + lc] = (e >= 0 && e < d.He && f >= 0 && f < We)
-            ? sv.emb[((static_cast<size_t>(n) * 2 + c) * d.He + e) * We + f] : 0.f;
-    });
+    const Win esw{es, E0, -1, ER, EW}, msw{ms, M0, -1, MR, XW};
+    dec2_stage_emb(esw, sv.emb + static_cast<size_t>(n) * 2 * d.He * We, d.He, We);
     __syncthreads();
-    ae2d_dec1<KEEP, false>(es, ms, d, Y0, n, cfg, sv.keepd, nullptr);
+    const uint8_t* keepd_n = DROP ? sv.keepd + static_cast<size_t>(n) * H1 * W1 : nullptr;
+    dec2_middle<KEEP, false, false>(esw, msw, Y0 / 4, RY / 4 + 1, 0, We + 1, H1, W1, 0, 0, n, cfg,
+                                    keepd_n, nullptr, 0, 0, 0, 0);
     __syncthreads();
 
-    // (a) the cotangent of the last pre-activation on rows Y0 - 1 .. Y0 + RY:
-    // a thread the outputs (2i - 1 + u, 2j - 1 + v), which read middle rows
-    // i - 1, i and columns j - 1, j (parity (u, v): taps u, u + 2 and v, v + 2)
-    const OBS* on = cells_at(obs, static_cast<size_t>(n) * H * W);
-    const float gb2 = 2.f * gbar[n];
-    grid_walk(RY / 2 + 1, W1 + 1, [&](int li, int j) {
-        const int i = Y0 / 2 + li;
-        const float* m0 = ms + (i - 1 - M0) * XW + j;   // (i - 1, j - 1)
-        const float m00 = m0[0], m01 = m0[1], m10 = m0[XW], m11 = m0[XW + 1];
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-            for (int v = 0; v < 2; ++v) {
-                const int y = 2 * i - 1 + u, x = 2 * j - 1 + v;
-                float gc = 0.f;
-                if (y >= 0 && y < H && x >= 0 && x < W) {
-                    float r = dec2_preact(u, v, m11, m10, m01, m00);
-                    unsigned keep = 1;
-                    if (DROP) {
-                        keep = (sv.keepd[(static_cast<size_t>(n) * H1 + (y >> 1)) * W1 + (x >> 1)] >>
-                                (2 * (y & 1) + (x & 1))) & 1u;
-                        r = keep ? r * cfg.scale : 0.f;
-                    }
-                    const float yv = 1.f / (1.f + expf(-r));
-                    const float t = cell_value(on, static_cast<size_t>(y) * W + x);
-                    gc = gb2 * (yv - t) * yv * (1.f - yv);
-                    if (DROP) gc = keep ? gc * cfg.scale : 0.f;
-                }
-                gys[(2 * li + u) * GYW + 2 * j + v] = gc;
-            }
-    });
+    // (a) the cotangent of the last pre-activation on rows Y0 - 1 .. Y0 + RY
+    const Win gyw{gys, Y0 - 1, -1, RY + 2, GYW};
+    dec2_out_cotangent<DROP, false>(msw, gyw, Y0 / 2, RY / 2 + 1, 0, W1 + 1, 0, 0, H, W,
+                                    cells_at(obs, static_cast<size_t>(n) * H * W),
+                                    2.f * gbar[n], nullptr, keepd_n, cfg);
     __syncthreads();
 
     float* row = partials + (static_cast<size_t>(n) * gridDim.x + blockIdx.x) * DEC_PARTS;
     const int y_end = min(Y0 + RY, H);       // owned output rows [Y0, y_end)
-
-    // (b) this band's part of dWt2 and dbt2 (decoder_bwd.cuh's order)
-    {
-        float v[16];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) v[k] = 0.f;
-        grid_walk(MR, W1, [&](int lr, int lc) {
-            const float mv = ms[lr * XW + lc + 1];
-            const int ybase = 2 * (M0 + lr) - 1;
-#pragma unroll
-            for (int ky = 0; ky < 4; ++ky) {
-                const int yr = ybase + ky;
-                if (yr < Y0 || yr >= y_end) continue;
-                const float* gp = gys + (yr - (Y0 - 1)) * GYW + 2 * lc;   // column 2 lc - 1
-#pragma unroll
-                for (int kx = 0; kx < 4; ++kx) v[ky * 4 + kx] += mv * gp[kx];
-            }
-        });
-        block_sums<16>(v, red, row + 33);
-        float bsum[1] = {0.f};
-        grid_walk(y_end - Y0, W, [&](int lr, int xo) { bsum[0] += gys[(lr + 1) * GYW + xo + 1]; });
-        block_sums<1>(bsum, red, row + 49);
-    }
-
+    // (b) this band's part of dWt2 and dbt2
+    dec2_wt2_grad(msw, gyw, M0, MR, 0, W1, Y0, y_end, 0, W, red, row + 33, row + 49);
     // (c) the middle cotangent on the own middle rows, through relu and
-    // dropout (a positive activation was kept)
-    float* gcn = gcm + static_cast<size_t>(n) * H1 * W1;
-    grid_walk(GMR, W1, [&](int lr, int mx) {
-        const int gm = MY0 + lr;
-        float g = 0.f;
-        if (gm < H1 && ms[(gm - M0) * XW + mx + 1] > 0.f) {
-            float s = 0.f;
-#pragma unroll
-            for (int ky = 0; ky < 4; ++ky) {
-                const float* gp = gys + (2 * gm - 1 + ky - (Y0 - 1)) * GYW + 2 * mx;
-#pragma unroll
-                for (int kx = 0; kx < 4; ++kx) s += parity_tap(ae2d_wt2p, ky, kx) * gp[kx];
-            }
-            g = DROP ? s * cfg.scale : s;
-        }
-        gms[lr * W1 + mx] = g;
-        if (gm < H1) gcn[static_cast<size_t>(gm) * W1 + mx] = g;
-    });
+    // dropout, also into gcm
+    const Win gmw{gms, MY0, 0, GMR, W1};
+    dec2_mid_cotangent<DROP>(msw, gyw, gmw, H1, W1, gcm + static_cast<size_t>(n) * H1 * W1, cfg);
     __syncthreads();
-
     // (d) this band's part of dWt1 and dbt1
-    const int m_end = min(MY0 + GMR, H1);    // owned middle rows [MY0, m_end)
-    for (int c = 0; c < 2; ++c) {
-        float v[16];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) v[k] = 0.f;
-        grid_walk(ER, We, [&](int lr, int lc) {
-            const float ev = es[(c * ER + lr) * EW + lc + 1];
-            const int mbase = 2 * (E0 + lr) - 1, xbase = 2 * lc - 1;
-#pragma unroll
-            for (int ky = 0; ky < 4; ++ky) {
-                const int mr = mbase + ky;
-                if (mr < MY0 || mr >= m_end) continue;
-#pragma unroll
-                for (int kx = 0; kx < 4; ++kx) {
-                    const int mc = xbase + kx;
-                    if (mc >= 0 && mc < W1) v[ky * 4 + kx] += ev * gms[(mr - MY0) * W1 + mc];
-                }
-            }
-        });
-        block_sums<16>(v, red, row + c * 16);
-    }
-    float bsum[1] = {0.f};
-    for (int i = tid; i < GMR * W1; i += nt) bsum[0] += gms[i];
-    block_sums<1>(bsum, red, row + 32);
+    dec2_wt1_grad(esw, gmw, E0, ER, 0, We, MY0, min(MY0 + GMR, H1), 0, W1, red, row, row + 32);
 }
 
 template <bool DROP, typename SRC>
@@ -235,8 +145,8 @@ ae2d_bwd_encoder_kernel(const SRC* __restrict__ src, Ae2dWeights wp,
                     const int xc = 2 * f - 1 + kx;
                     if (xc < 0 || xc >= W1) continue;
                     const float g = gcn[static_cast<size_t>(yr) * W1 + xc];
-                    s[0] += parity_tap(ae2d_wt1p, ky, kx) * g;
-                    s[1] += parity_tap(ae2d_wt1p + 4, ky, kx) * g;
+                    s[0] += parity_tap(dec2_wt1p, ky, kx) * g;
+                    s[1] += parity_tap(dec2_wt1p + 4, ky, kx) * g;
                 }
             }
         }

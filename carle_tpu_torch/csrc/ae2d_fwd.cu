@@ -59,45 +59,17 @@ ae2d_fwd_kernel(const SRC* __restrict__ src, const OBS* __restrict__ obs, Ae2dWe
     __syncthreads();
     ae2d_stage2<KEEP, SAVE>(x1s, es, d, Y0, n, cfg, sv);
     __syncthreads();
-    ae2d_dec1<KEEP, SAVE && DROP>(es, ms, d, Y0, n, cfg, nullptr, kms);
+    const Win esw{es, Y0 / 4 - 1, -1, d.ER(), d.EW()}, msw{ms, M0, -1, d.MR(), XW};
+    dec2_middle<KEEP, SAVE && DROP, false>(esw, msw, Y0 / 4, sh.RY / 4 + 1, 0, d.We + 1, d.H1,
+                                           d.W1, 0, 0, n, cfg, nullptr, kms, Y0 / 2, sh.RY / 2,
+                                           0, d.W1);
     __syncthreads();
 
-    // the last stage and the squared error on the block's rows: a thread the
-    // outputs (2i + a, 2j + b), which read middle rows i - 1 .. i + 1 and
-    // columns j - 1 .. j + 1
-    const OBS* on = cells_at(obs, static_cast<size_t>(n) * sh.H * sh.W);
-    float part = 0.f;
-    grid_walk(sh.RY / 2, d.W1, [&](int li, int j) {
-        const int i = Y0 / 2 + li;
-        if (i >= d.H1) return;
-        float M[3][3];
-#pragma unroll
-        for (int r = 0; r < 3; ++r)
-#pragma unroll
-            for (int c = 0; c < 3; ++c) M[r][c] = ms[(i - 1 + r - M0) * XW + j + c];
-        unsigned keep4 = 0;
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b) {
-                const int y = 2 * i + a, x = 2 * j + b;
-                // parity: taps (1 - a, 1 - b) and + 2, at middle (i + a, j + b)
-                // and the row and column before
-                float r = dec2_preact(1 - a, 1 - b, M[1 + a][1 + b], M[1 + a][b], M[a][1 + b],
-                                      M[a][b]);
-                if (DROP) {
-                    const unsigned keep = drop_keep_group(cfg, STAGE_DEC2, n, 0, y, x) & 1u;
-                    keep4 |= keep << (2 * a + b);
-                    r = keep ? r * cfg.scale : 0.f;
-                }
-                const float yv = 1.f / (1.f + expf(-r));
-                const float dv = cell_value(on, static_cast<size_t>(y) * sh.W + x) - yv;
-                part += dv * dv;
-            }
-        if (SAVE && DROP)
-            sv.keepd[(static_cast<size_t>(n) * d.H1 + i) * d.W1 + j] =
-                static_cast<uint8_t>(keep4 | (static_cast<unsigned>(kms[li * d.W1 + j]) << 4));
-    });
+    // the last stage and the squared error on the block's rows
+    const float part = dec2_error<float, DROP, SAVE, false>(
+        msw, Y0 / 2, sh.RY / 2, 0, d.W1, 0, 0, sh.H, sh.W,
+        cells_at(obs, static_cast<size_t>(n) * sh.H * sh.W), nullptr, n, cfg,
+        SAVE && DROP ? sv.keepd + static_cast<size_t>(n) * d.H1 * d.W1 : nullptr, kms);
     block_sum_to(part, red, partials + static_cast<size_t>(n) * gridDim.x + blockIdx.x);
 }
 

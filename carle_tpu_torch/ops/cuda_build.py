@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
            "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "enc3_fwd", "enc3_bwd",
            "head_fwd", "head_bwd",
-           "tail", "decoder_loss_fwd", "decoder_loss_bwd", "halo_step")
+           "tail", "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd", "dec2_bwd", "halo_step")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -214,6 +214,10 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 9 + [I] * 8 + [LL, I, D, ULL, I, P]),
         CudaKernel("decoder_loss_bwd", "decoder_loss_bwd_launch",
                    [P] * 12 + [I] * 8 + [LL, I, D, ULL, I, P]),
+        CudaKernel("dec2_fwd", "dec2_fwd_launch",
+                   [P] * 10 + [I] * 5 + [LL, I, D, ULL, I, P]),
+        CudaKernel("dec2_bwd", "dec2_bwd_launch",
+                   [P] * 12 + [I] * 5 + [LL, I, D, I, P]),
         CudaKernel("spatial_ca_step", "halo_step_launch",
                    [I, P, P, P, P, I, I, P] + [I] * 8 + [P], source="halo_step"),
         CudaKernel("spatial_multi_step", "halo_step_launch",

@@ -462,14 +462,16 @@ def _covered(extent: int, block: int, scale: int, halo: int) -> int:
 
 
 def _pick_by_cost(smem_of, n: int, rows: int, cols: int, scale: int, halo: int, bands,
-                  unit: int, cells: Optional[int] = None) -> Tuple[int, int, int]:
+                  unit: int, cells: Optional[int] = None,
+                  blocks_sm: int = 2048 // BLOCK_THREADS) -> Tuple[int, int, int]:
     """(band, tile, shared memory) of a band kernel over n instances whose
     block owns ``band`` of ``rows`` output rows and ``tile`` of ``cols``
     output columns (a column ``unit`` cells of the universe), computing
     ``scale`` positions an output and ``halo`` to either side (:func:`_covered`),
     in ``smem_of(band, tile)`` bytes: the plan of least modelled time, each
     multiprocessor's blocks in turn times a block's positions and
-    BLOCK_COST, over the share of FULL_THREADS its resident blocks keep busy.
+    BLOCK_COST, over the share of FULL_THREADS its resident blocks keep busy
+    (at most ``blocks_sm`` a multiprocessor: the kernel's register cap).
     Tiles are the whole width or a power of two; ``cells`` forces tiles of
     that many cells."""
     if cells is None:
@@ -485,7 +487,7 @@ def _pick_by_cost(smem_of, n: int, rows: int, cols: int, scale: int, halo: int, 
                 continue
             blocks = n * -(-rows // band) * -(-cols // tile)
             per_sm = -(-blocks // SM_COUNT)
-            resident = min(per_sm, 2048 // BLOCK_THREADS, SMEM_SM // (smem + 1024))
+            resident = min(per_sm, blocks_sm, SMEM_SM // (smem + 1024))
             area = n * _covered(rows, band, scale, halo) * _covered(cols, tile, scale, halo)
             t = (per_sm * (area / blocks + BLOCK_COST)
                  / min(1.0, resident * BLOCK_THREADS / FULL_THREADS))

@@ -15,7 +15,12 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
   flows on into :func:`cuda_head.encoder`'s backward.  Optional per-instance
   error row weights ``em`` [N, H] make it ``make_fused_decoder_loss_banded``;
   its kernels cut a universe too wide for one band of the whole width into
-  column tiles (``cuda_head.TILE_CELLS`` forces them).
+  column tiles (``cuda_head.TILE_CELLS`` forces them).  At the package's one
+  decoder width (C2, CMID, COUT) = (2, 1, 1) it runs the kernels specialised
+  for it (``csrc/dec2_fwd.cu``, ``dec2_bwd.cu``; :func:`decoder_route`):
+  parity stencils, a training forward that saves its keep bits so the
+  backward draws none, a backward that forms gx in its own band, rows of
+  weight zero skipped; other widths take the generic kernels.
 
 Each is a ``torch.autograd.Function`` that saves its inputs and the seed and
 recomputes in the backward, launches its kernels (``csrc/head_fwd.cu``,
@@ -38,7 +43,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,17 +51,25 @@ from torch.autograd.function import once_differentiable
 
 from . import cuda_head
 from .cuda_build import KERNELS, stream_args
-from .cuda_head import (MAX_CHANNELS, RED16_FLOATS, RED_FLOATS, SMEM_TARGET_BWD,
+from .cuda_head import (MAX_CHANNELS, RED16_FLOATS, RED_FLOATS, SMEM_MAX, SMEM_TARGET_BWD,
                         STAGE_DEC1, STAGE_DEC2, STAGE_ENC1, _ae_band_floats,
                         _check_drop, _check_mask, _conv_wgrad, _deconv_wgrad, _dispatch,
-                        _dropout, _packed, _pick_band, _pick_tile, _pool_route, _ptr,
-                        _row_factor, _seed_word, _split, _wants_grad, _widest_window,
-                        cell_kind, cell_shape, cells, philox_keep_mask)
+                        _dropout, _packed, _pick_band, _pick_by_cost, _pick_tile, _pool_route,
+                        _ptr, _row_factor, _seed_word, _split, _unfold_bits, _wants_grad,
+                        _widest_window, cell_kind, cell_shape, cells, philox_keep_mask)
 
 HEAD_FWD, HEAD_BWD = KERNELS["head_fwd"], KERNELS["head_bwd"]
 TAIL_FWD, TAIL_BWD = KERNELS["tail_fwd"], KERNELS["tail_bwd"]
 LOSS_TAIL_FWD, LOSS_TAIL_BWD = KERNELS["loss_tail_fwd"], KERNELS["loss_tail_bwd"]
 DECODER_LOSS_FWD, DECODER_LOSS_BWD = KERNELS["decoder_loss_fwd"], KERNELS["decoder_loss_bwd"]
+DEC2_FWD, DEC2_BWD = KERNELS["dec2_fwd"], KERNELS["dec2_bwd"]
+# The decoder loss at this width (C2, CMID, COUT) runs the kernels specialised
+# for it (:func:`decoder_route`); False runs the generic kernels there too,
+# to hold one against the other.
+DEC2_WIDTHS = (2, 1, 1)
+DEC2_KERNELS = True
+DEC2_BLOCKS = (4, 3)   # csrc/dec2.cuh: resident blocks a multiprocessor, forward and backward
+DEC2_PARTS = 50        # a block's partial gradients: dWt1, dbt1, dWt2, dbt2
 ACTS = {"relu": 0, "sigmoid": 1}    # csrc/tail.cu
 HEAD_POOLS = (2, 4, 8)              # the head kernels' instantiations
 
@@ -65,7 +78,8 @@ __all__ = ["head", "tail", "loss_tail", "decoder_loss",
            "tail_fwd", "tail_fwd_plain", "tail_bwd", "tail_bwd_plain",
            "loss_tail_fwd", "loss_tail_fwd_plain", "loss_tail_bwd", "loss_tail_bwd_plain",
            "decoder_loss_fwd", "decoder_loss_fwd_plain", "decoder_loss_bwd",
-           "decoder_loss_bwd_plain"]
+           "decoder_loss_bwd_plain", "DEC2_FWD", "DEC2_BWD", "DEC2_WIDTHS", "DEC2_KERNELS",
+           "Dec2Saved", "decoder_route", "dec2_keep_masks"]
 
 
 def _check_pool(pool: int) -> None:
@@ -510,11 +524,21 @@ def decoder_loss_fwd(x, wt1, b1, wt2, b2, obs, drop_p: float = 0.0,
 
 
 def _decoder_loss_fwd_kernel(x, wt1, b1, wt2, b2, obs, drop_p, seed, em=None):
+    return _decoder_fwd_launch(x, (wt1, b1, wt2, b2), obs, drop_p, seed, em, False)[0]
+
+
+def _decoder_fwd_launch(x, params, obs, drop_p, seed, em, save):
+    """(err, Dec2Saved or None): the forward kernel of the widths' route;
+    ``save`` (the specialised route, with dropout) also keeps the keep bits
+    its backward reads."""
+    wt1, b1, wt2, b2 = params
     _check_drop(drop_p)
     n, h, w, c2, cmid, cout = _decoder_shape(x, wt1, b1, wt2, b2, obs)
     _check_tensors(x, [("x", x), ("wt1", wt1), ("b1", b1), ("wt2", wt2), ("b2", b2)],
                    [("obs", obs)])
     em = _check_mask(em, x, n, h)
+    if decoder_route(h, w, (c2, cmid, cout)):
+        return _dec2_fwd_kernel(x, params, obs, drop_p, seed, em, save)
     # tq: embedding columns a tile, 4 tq output columns
     ry, tq, smem = _decoder_bands(h, w, c2, cmid, cout, cuda_head.TILE_CELLS)[0]
     ts = [t.contiguous() for t in (x, obs, wt1, b1, wt2, b2)]
@@ -525,7 +549,7 @@ def _decoder_loss_fwd_kernel(x, wt1, b1, wt2, b2, obs, drop_p, seed, em=None):
                             err.data_ptr(), n, h, w, c2, cmid, cout, ry, 4 * tq, smem,
                             cell_kind(obs), float(drop_p), _seed_word(seed),
                             device, stream, packed=_packed(obs))
-    return err
+    return err, None
 
 
 def decoder_loss_bwd(x, wt1, b1, wt2, b2, obs, gbar, drop_p: float = 0.0, seed: int = 0,
@@ -545,6 +569,12 @@ def _decoder_loss_bwd_kernel(x, wt1, b1, wt2, b2, obs, gbar, drop_p, seed, em=No
     if tuple(gbar.shape) != (n,):
         raise ValueError(f"gbar shape {tuple(gbar.shape)} != {(n,)}")
     em = _check_mask(em, x, n, h)
+    if decoder_route(h, w, (c2, cmid, cout)):
+        # the gradients alone: with dropout the saving forward draws the bits
+        # the backward reads
+        params = (wt1, b1, wt2, b2)
+        saved = _dec2_fwd_kernel(x, params, obs, drop_p, seed, em, True)[1] if drop_p > 0 else None
+        return _dec2_bwd_kernel(x, params, obs, gbar, drop_p, em, saved)
     ry, tq, smem = _decoder_bands(h, w, c2, cmid, cout, cuda_head.TILE_CELLS)[1]
     shapes = ((c2, cmid, 4, 4), (cmid,), (cmid, cout, 4, 4), (cout,))
     k = sum(math.prod(s) for s in shapes)
@@ -559,6 +589,110 @@ def _decoder_loss_bwd_kernel(x, wt1, b1, wt2, b2, obs, gbar, drop_p, seed, em=No
                             float(drop_p), _seed_word(seed), device, stream,
                             packed=_packed(obs))
     return (*_split(grads, shapes), gx)
+
+
+# -- the decoder loss at the package's decoder width (csrc/dec2.cuh) ------------
+
+
+def _dec2_fwd_smem(w: int, ry: int, tx: int, save_keep: bool) -> int:
+    """csrc/dec2.cuh::dec2_fwd_smem."""
+    t = min(tx, w)
+    return (4 * (2 * (ry // 4 + 2) * (t // 4 + 2) + (ry // 2 + 2) * (t // 2 + 2))
+            + ((ry // 2) * (t // 2) if save_keep else 0))
+
+
+def _dec2_bwd_smem(w: int, ry: int, tx: int) -> int:
+    """csrc/dec2.cuh::dec2_bwd_smem."""
+    t = min(tx, w)
+    return 4 * (2 * (ry // 4 + 4) * (t // 4 + 4) + (ry // 2 + 6) * (t // 2 + 6)
+                + (ry + 6) * (t + 6) + (ry // 2 + 2) * (t // 2 + 2) + 32 * 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _dec2_plan(n, h, w, backward, cells=None):
+    """(RY output rows, TX output columns, shared memory) of the specialised
+    forward (the saving instantiation's shared memory, the most it takes) or
+    backward on n instances of output [h, w]: the forward computes a middle
+    row and column to either side of its outputs', the backward three output
+    rows and columns."""
+    def smem_of(ry, tx):
+        if tx % 4:
+            return SMEM_MAX + 1
+        return _dec2_bwd_smem(w, ry, tx) if backward else _dec2_fwd_smem(w, ry, tx, True)
+
+    return _pick_by_cost(smem_of, n, h, w, 1, 3 if backward else 1, (64, 32, 16, 8, 4), 1,
+                         cells, blocks_sm=DEC2_BLOCKS[int(backward)])
+
+
+def decoder_route(h: int, w: int, widths) -> bool:
+    """Whether the decoder loss with output [h, w] and ``widths`` (C2, CMID,
+    COUT) runs the kernels specialised for them (csrc/dec2_fwd.cu,
+    dec2_bwd.cu): the widths and plans that fit decide, on any device, so the
+    forward and the backward take one route."""
+    if not DEC2_KERNELS or tuple(widths) != DEC2_WIDTHS:
+        return False
+    try:
+        for backward in (False, True):
+            _dec2_plan(1, h, w, backward)
+    except ValueError:
+        return False
+    return True
+
+
+class Dec2Saved(NamedTuple):
+    """The keep bits a decoder-loss training forward on the specialised route
+    saves for its backward (csrc/dec2.cuh): keepd uint8 [N, H/2, W/2], bit
+    2a + b the output (2i + a, 2j + b), bit 4 the middle position (i, j).
+    Rows of weight zero, and the middle positions only they read, are not
+    drawn: their bits are zero."""
+    keepd: torch.Tensor
+
+
+def dec2_keep_masks(saved: Dec2Saved):
+    """The keep masks of the decoder's two dropout stages that a training
+    forward saved, in :func:`philox_keep_mask`'s layout: [N, 1, H/2, W/2]
+    (STAGE_DEC1), [N, 1, H, W] (STAGE_DEC2)."""
+    keepd = saved.keepd.to(torch.int32)
+    return [((keepd >> 4) & 1).bool()[:, None], _unfold_bits(keepd & 0xF, 4, 2, 1)]
+
+
+def _dec2_fwd_kernel(x, params, obs, drop_p, seed, em, save):
+    """(err [N], Dec2Saved or None): the specialised forward on checked
+    inputs; ``save`` with dropout also writes the keep bits."""
+    n, _, he, we = x.shape
+    h, w = 4 * he, 4 * we
+    ry, tx, _ = _dec2_plan(n, h, w, False, cuda_head.TILE_CELLS)
+    save_keep = save and drop_p > 0.0
+    keepd = (torch.empty((n, h // 2, w // 2), dtype=torch.uint8, device=x.device)
+             if save_keep else None)
+    ts = [t.contiguous() for t in (x, obs, *params)]
+    partials = torch.empty((n, -(-h // ry) * -(-w // min(tx, w))), dtype=torch.float64,
+                           device=x.device)
+    err = _empty(x, n)
+    device, stream = stream_args(x)
+    DEC2_FWD.launch(*(t.data_ptr() for t in ts), _ptr(em), partials.data_ptr(),
+                    err.data_ptr(), _ptr(keepd), n, h, w, ry, tx,
+                    _dec2_fwd_smem(w, ry, tx, save_keep), cell_kind(obs), float(drop_p),
+                    _seed_word(seed), device, stream, packed=_packed(obs))
+    return err, (Dec2Saved(keepd) if save_keep else None)
+
+
+def _dec2_bwd_kernel(x, params, obs, gbar, drop_p, em, saved: Optional[Dec2Saved]):
+    """(dWt1, dbt1, dWt2, dbt2, gx) from the specialised backward on checked
+    inputs and what the training forward with the same params saved (None
+    without dropout)."""
+    n, _, he, we = x.shape
+    h, w = 4 * he, 4 * we
+    ry, tx, smem = _dec2_plan(n, h, w, True, cuda_head.TILE_CELLS)
+    partials = _empty(x, n * -(-h // ry) * -(-w // min(tx, w)), DEC2_PARTS)
+    grads, gx = _empty(x, DEC2_PARTS), _empty(x, n, 2, he, we)
+    ts = [t.contiguous() for t in (x, obs, *params, gbar)]   # alive until the launch is enqueued
+    device, stream = stream_args(x)
+    DEC2_BWD.launch(*(t.data_ptr() for t in ts), _ptr(em),
+                    _ptr(saved.keepd if saved is not None else None), partials.data_ptr(),
+                    grads.data_ptr(), gx.data_ptr(), n, h, w, ry, tx, smem, cell_kind(obs),
+                    float(drop_p), device, stream, packed=_packed(obs))
+    return (*_split(grads, ((2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,))), gx)
 
 
 # ---------------------------------------------------------------------------
@@ -617,21 +751,34 @@ class LossTailFn(torch.autograd.Function):
 
 
 class DecoderLossFn(torch.autograd.Function):
-    """decoder_loss_fwd with decoder_loss_bwd as its backward; obs and the
-    row weights get no gradient."""
+    """decoder_loss_fwd with decoder_loss_bwd as its backward; saves the
+    inputs and, on the specialised route with dropout, the keep bits its
+    forward kernel drew, so the backward draws none.  obs and the row weights
+    get no gradient."""
 
     @staticmethod
     def forward(ctx, x, wt1, b1, wt2, b2, obs, drop_p, seed, em):
         ctx.save_for_backward(x, wt1, b1, wt2, b2, obs, em)
         ctx.settings = (float(drop_p), int(seed))
+        if x.device.type == "cuda":
+            err, ctx.dec2 = _decoder_fwd_launch(x, (wt1, b1, wt2, b2), obs, *ctx.settings, em,
+                                                True)
+            return err
+        ctx.dec2 = None
         return decoder_loss_fwd(x, wt1, b1, wt2, b2, obs, *ctx.settings, em)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gbar):
         *inputs, em = ctx.saved_tensors
-        dwt1, dbt1, dwt2, dbt2, gx = decoder_loss_bwd(
-            *inputs, gbar.contiguous(), *ctx.settings, em)
+        if ctx.dec2 is not None:
+            x, *params, obs = inputs
+            em = _check_mask(em, x, x.shape[0], 4 * x.shape[2])
+            dwt1, dbt1, dwt2, dbt2, gx = _dec2_bwd_kernel(
+                x, params, obs, gbar.contiguous(), ctx.settings[0], em, ctx.dec2)
+        else:
+            dwt1, dbt1, dwt2, dbt2, gx = decoder_loss_bwd(
+                *inputs, gbar.contiguous(), *ctx.settings, em)
         return (gx, dwt1, dbt1, dwt2, dbt2, None, None, None, None)
 
 

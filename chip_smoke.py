@@ -13,7 +13,14 @@ Phases, in order; any failure exits non-zero without the final line:
            every shape: the forward bit for bit, the gradients within 1e-5 of
            each leaf at 256² and 1e-4 on the 8192² shapes, the training
            forward's saved keep bits against the twin's Philox mask, both
-           timed in turns, their registers and blocks a multiprocessor), with
+           timed in turns, their registers and blocks a multiprocessor; the
+           decoder loss's kernels specialised at its width, dec2_*, likewise
+           against the generic ones at rows 5a-6b's shapes and at 8192²: the
+           error within 1e-6 relative, gx bit for bit, each leaf within 1e-5,
+           uint8 and packed obs bit for bit, the saved keep bits against the
+           Philox mask on the rows whose weight is not zero, timed in turns
+           with and without dropout and from the saved bits, their registers
+           and blocks a multiprocessor as "dec2 occupancy"), with
            their times (CUDA events, L2 flushed
            before every launch) and the least time the card could take; the
            net kernels also with dropout 0.1 (kernel and twin draw the same
@@ -120,9 +127,9 @@ Phases, in order; any failure exits non-zero without the final line:
            paths (battery, server, train, routes, wrappers, packed, bands,
            engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
-           bands path; a generic encoder kernel launched on any of them
-           fails the run), then the card's name and power limit, then the ok
-           line.
+           bands path; a generic encoder or decoder-loss kernel launched on
+           any of them fails the run), then the card's name and power limit,
+           then the ok line.
 
 Tolerances: float kernels vs plain twins rtol 1e-4 / atol 1e-4 (the twins
 run cuDNN in full float32, TF32 off; cuDNN's own algorithms sum in other
@@ -225,6 +232,8 @@ SOURCES = {
                          "carle_tpu/ops/pallas_head.py:1481"),
     "decoder_loss_bwd": ("carle_tpu_torch/csrc/decoder_loss_bwd.cu",
                          "carle_tpu/ops/pallas_head.py:1506"),
+    "dec2_fwd": ("carle_tpu_torch/csrc/dec2_fwd.cu", "carle_tpu/ops/pallas_head.py:1481"),
+    "dec2_bwd": ("carle_tpu_torch/csrc/dec2_bwd.cu", "carle_tpu/ops/pallas_head.py:1506"),
     "spatial_multi_step": ("carle_tpu_torch/csrc/halo_step.cu",
                            "carle_tpu/parallel/pallas_halo.py:222"),
     "spatial_ca_step": ("carle_tpu_torch/csrc/halo_step.cu",
@@ -235,10 +244,11 @@ SOURCES = {
 # Rows whose kernel is another row's with band tiling's feature added: the
 # launches they report are their kernel's on the bands path, where every
 # encoder launch carries the per-band row mask and every decoder-loss launch
-# the per-band row weights.  The encoder's rows come twice: the kernels
-# specialised at the package's widths (enc3_*), which every main path runs,
-# and the generic ones (encoder_*), timed at the same shapes with the
-# specialised route switched off (cuda_head.ENC3_KERNELS).
+# the per-band row weights.  The encoder's and the decoder loss's rows come
+# twice: the kernels specialised at the package's widths (enc3_*, dec2_*),
+# which every main path runs, and the generic ones (encoder_*,
+# decoder_loss_*), timed at the same shapes with the specialised route
+# switched off (cuda_head.ENC3_KERNELS, cuda_stages.DEC2_KERNELS).
 FEATURE_ROWS = {
     "enc3_fwd_mask": ("enc3_fwd", "carle_tpu_torch/csrc/enc3_fwd.cu",
                       "carle_tpu/ops/pallas_head.py:1375"),
@@ -252,6 +262,10 @@ FEATURE_ROWS = {
                             "carle_tpu/ops/pallas_head.py:1776"),
     "decoder_loss_bwd_em": ("decoder_loss_bwd", "carle_tpu_torch/csrc/decoder_loss_bwd.cu",
                             "carle_tpu/ops/pallas_head.py:1776"),
+    "dec2_fwd_em": ("dec2_fwd", "carle_tpu_torch/csrc/dec2_fwd.cu",
+                    "carle_tpu/ops/pallas_head.py:1776"),
+    "dec2_bwd_em": ("dec2_bwd", "carle_tpu_torch/csrc/dec2_bwd.cu",
+                    "carle_tpu/ops/pallas_head.py:1776"),
 }
 BAND_SIZE = 8192                     # pod_smoke.py's spatial8k universe, one of it
 RND_BANDS, PRED_BANDS = 512, 128     # BandTiling(size // 16), BandTiling(size // 64)
@@ -269,24 +283,24 @@ PATH_KERNELS = {
     "train": ("ca_step", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
     "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
                "head_bwd", "tail_fwd", "tail_bwd", "loss_tail_fwd", "loss_tail_bwd",
-               "decoder_loss_fwd", "decoder_loss_bwd"),
+               "dec2_fwd", "dec2_bwd"),
     "wrappers": ("ca_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
-                 "decoder_loss_fwd", "decoder_loss_bwd", "tail_fwd"),
+                 "dec2_fwd", "dec2_bwd", "tail_fwd"),
     "packed": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
-               "decoder_loss_fwd", "decoder_loss_bwd"),
-    "bands": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "decoder_loss_fwd",
-              "decoder_loss_bwd"),
+               "dec2_fwd", "dec2_bwd"),
+    "bands": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "dec2_fwd", "dec2_bwd"),
     "engines": ("bit_multi_step_static", "bit_multi_step_static_cm", "bit_multi_step_cm",
                 "ca_multi_step"),
     "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
                 "enc3_fwd", "enc3_bwd", "tail_fwd", "tail_bwd"),
 }
-# the generic encoder kernels, which no main path may launch: every encoder
-# of the package has one of the specialised kernels' widths
+# the generic encoder and decoder-loss kernels, which no main path may
+# launch: every encoder and decoder of the package has one of the
+# specialised kernels' widths
 GENERIC_ENCODER = ("encoder_fwd", "encoder_bwd")
+GENERIC_DECODER = ("decoder_loss_fwd", "decoder_loss_bwd")
 # the kernels the packed path must launch on packed words
-PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
-                        "decoder_loss_fwd", "decoder_loss_bwd")
+PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "dec2_fwd", "dec2_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
         "ParsimonyBonus", "SpeedDetector", "PufferDetector")
 DROP_P = 0.1
@@ -475,7 +489,7 @@ def phase_kernels(torch, timer, shipped, philox):
         shape="u8 src=obs [160,1,256,256], AE2D (C1=4, C2=2, 1, 1)")
     log(f"ae_loss_fwd ok: {results['ae_loss_fwd']}")
     results.update(phase_train_kernels(torch, timer, gen, philox))
-    results.update(phase_stage_kernels(torch, timer, gen))
+    results.update(phase_stage_kernels(torch, timer, gen, philox))
     results.update(phase_engine_kernels(torch, timer))
     phase_packed_input_kernels(torch, timer, gen, results)
     results.update(phase_band_kernels(torch, timer, gen, philox))
@@ -603,10 +617,9 @@ def phase_packed_input_kernels(torch, timer, gen, results):
         "enc3_bwd": lambda src, obs, p: ch.encoder_bwd(src, *enc, g_enc, (4, 2), p, seed),
         "ae_loss_fwd": lambda src, obs, p: ch.ae_loss_fwd(src, *ps, obs, (2, 2), p, seed),
         "ae_loss_bwd": lambda src, obs, p: ch.ae_loss_bwd(src, *ps, obs, gbar, (2, 2), p, seed),
-        "decoder_loss_fwd": lambda src, obs, p: cs.decoder_loss_fwd(emb[64], *ps[4:], obs, p,
-                                                                   seed),
-        "decoder_loss_bwd": lambda src, obs, p: cs.decoder_loss_bwd(emb[64], *ps[4:], obs, gbar,
-                                                                   p, seed),
+        "dec2_fwd": lambda src, obs, p: cs.decoder_loss_fwd(emb[64], *ps[4:], obs, p, seed),
+        "dec2_bwd": lambda src, obs, p: cs.decoder_loss_bwd(emb[64], *ps[4:], obs, gbar, p,
+                                                           seed),
         "head_fwd": lambda src, obs, p: cs.head_fwd(src, ps[0], ps[1], 2, p, seed),
         "head_bwd": lambda src, obs, p: cs.head_bwd(src, ps[0], ps[1], g_head, 2, p, seed),
         "loss_tail_fwd": lambda src, obs, p: cs.loss_tail_fwd(mid[64], ps[6], ps[7], obs,
@@ -634,9 +647,12 @@ def phase_packed_input_kernels(torch, timer, gen, results):
         "encoder_bwd": lambda: _generic_encoder(
             lambda: ch.encoder_bwd(x32[64], *enc, g_enc, (4, 2), DROP_P, seed)),
         "ae_loss_bwd": lambda: ch.ae_loss_bwd(x32[64], *ps, x32[64], gbar, (2, 2), DROP_P, seed),
-        "decoder_loss_fwd": lambda: cs.decoder_loss_fwd(emb[160], *ps[4:], o32[160]),
-        "decoder_loss_bwd": lambda: cs.decoder_loss_bwd(emb[64], *ps[4:], o32[64], gbar,
-                                                        DROP_P, seed),
+        "dec2_fwd": lambda: cs.decoder_loss_fwd(emb[160], *ps[4:], o32[160]),
+        "decoder_loss_fwd": lambda: _generic_decoder(
+            lambda: cs.decoder_loss_fwd(emb[160], *ps[4:], o32[160])),
+        "dec2_bwd": lambda: cs.decoder_loss_bwd(emb[64], *ps[4:], o32[64], gbar, DROP_P, seed),
+        "decoder_loss_bwd": lambda: _generic_decoder(
+            lambda: cs.decoder_loss_bwd(emb[64], *ps[4:], o32[64], gbar, DROP_P, seed)),
         "head_fwd": lambda: cs.head_fwd(x32[160], ps[0], ps[1], 2),
         "loss_tail_fwd": lambda: cs.loss_tail_fwd(mid[160], ps[6], ps[7], o32[160], "sigmoid"),
     }
@@ -863,14 +879,15 @@ def _bits_twice(fn, what):
     return first
 
 
-def phase_stage_kernels(torch, timer, gen):
+def phase_stage_kernels(torch, timer, gen, philox):
     """The single-stage kernels and the decoder loss vs their twins at the
     autoencoder's shapes (256 x 256 universes, channels 1 -> 4 -> 2 -> 1 -> 1):
     forwards on 160 universes, backwards on 64, without and with dropout 0.1;
-    the head also at RND's pool 4; ae_loss with a source that is not the
-    target."""
+    the head also at RND's pool 4; the decoder loss's kernels specialised at
+    its width (dec2_*) against the generic ones, both timed in turns; ae_loss
+    with a source that is not the target."""
     from carle_tpu_torch.mcl.ae import init_ae_params
-    from carle_tpu_torch.ops import cuda_head, cuda_stages
+    from carle_tpu_torch.ops import bitpack, cuda_head, cuda_stages
 
     dev = torch.device("cuda")
     nf, nb, h, w, seed = 160, 64, 256, 256, 20240301
@@ -1087,45 +1104,84 @@ def phase_stage_kernels(torch, timer, gen):
         shape="f32 x [64,1,128,128], u8 obs [64,1,256,256], gbar [64], sigmoid, drop 0.1")
     log(f"loss_tail_bwd ok: {results['loss_tail_bwd']}")
 
-    # -- decoder loss ------------------------------------------------------------
-    dl_args = (emb, wt1, bt1, wt2, bt2)
-    got = cuda_stages.decoder_loss_fwd(*dl_args, obs)
-    check(torch.equal(got, cuda_stages.decoder_loss_fwd(*dl_args, obs)),
-          "decoder_loss_fwd is not deterministic")
-    want = cuda_stages.decoder_loss_fwd_plain(*dl_args, obs)
-    close(got, want, "decoder_loss_fwd", atol=1e-3)
-    close(cuda_stages.decoder_loss_fwd(*dl_args, obs_f), want, "decoder_loss_fwd, f32 obs",
-          atol=1e-3)
+    # -- decoder loss: the kernels specialised at the decoder's width (dec2_*),
+    # held against the generic ones forced at the same shapes (decoder_loss_*)
+    dec = (wt1, bt1, wt2, bt2)
+    dl_args = (emb, *dec)
     eb = emb[:nb].contiguous()
-    db_args = (eb, wt1, bt1, wt2, bt2, ob)
-    close(cuda_stages.decoder_loss_fwd(*db_args, DROP_P, seed),
-          cuda_stages.decoder_loss_fwd_plain(*db_args, DROP_P, seed),
-          "decoder_loss_fwd, dropout", atol=1e-3)
-    d1, d2 = 4 * 2 * 1 * (hw // 4), 4 * 1 * 1 * hw   # multiply-adds a universe, each stage
-    bound, by = bound_ms(nf * (2 * hw // 16 * 4 + hw) + nf * 4,
-                         2 * nf * (d1 + d2) + 3 * nf * hw, FP32_FLOPS)
-    results["decoder_loss_fwd"] = dict(
-        max_abs_err=float((got - want).abs().max()),
-        max_rel_err=float(((got - want).abs() / want.abs()).max()),
-        ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd(*dl_args, obs), 20),
-        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd_plain(*dl_args, obs), 5),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape="f32 x [160,2,64,64], u8 obs [160,1,256,256], AE2D decoder (2, 1, 1)")
-    log(f"decoder_loss_fwd ok: {results['decoder_loss_fwd']}")
-    e_drop, e_plain, abs_err = backward_case(
-        "decoder_loss_bwd", lambda p: cuda_stages.decoder_loss_bwd(*db_args, gbar, p, seed),
-        lambda p: cuda_stages.decoder_loss_bwd_plain(*db_args, gbar, p, seed), "AE2D decoder")
-    bound, by = bound_ms(nb * (2 * hw // 16 * 4 * 2 + hw) + nb * 4 + 52 * 4,
-                         2 * nb * 3 * (d1 + d2) + 8 * nb * hw, FP32_FLOPS)
-    results["decoder_loss_bwd"] = dict(
-        max_abs_err=abs_err, max_leaf_rel_err=e_drop, max_leaf_rel_err_no_drop=e_plain,
-        ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd(*db_args, gbar, DROP_P, seed), 10),
-        ms_no_drop=timer.ms(lambda: cuda_stages.decoder_loss_bwd(*db_args, gbar), 10),
-        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd_plain(*db_args, gbar, DROP_P,
-                                                                      seed), 2),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape="f32 x [64,2,64,64], u8 obs [64,1,256,256], gbar [64], drop 0.1")
-    log(f"decoder_loss_bwd ok: {results['decoder_loss_bwd']}")
+    db_args = (eb, *dec, ob)
+    fwd_err, bwd_err = {}, {}
+    for route in ("dec2", "generic"):
+        on = (lambda fn: fn()) if route == "dec2" else _generic_decoder
+        got = on(lambda: cuda_stages.decoder_loss_fwd(*dl_args, obs))
+        check(torch.equal(got, on(lambda: cuda_stages.decoder_loss_fwd(*dl_args, obs))),
+              f"{route} decoder_loss_fwd is not deterministic")
+        want = cuda_stages.decoder_loss_fwd_plain(*dl_args, obs)
+        close(got, want, f"{route} decoder_loss_fwd", atol=1e-3)
+        close(on(lambda: cuda_stages.decoder_loss_fwd(*dl_args, obs_f)), want,
+              f"{route} decoder_loss_fwd, f32 obs", atol=1e-3)
+        close(on(lambda: cuda_stages.decoder_loss_fwd(*db_args, DROP_P, seed)),
+              cuda_stages.decoder_loss_fwd_plain(*db_args, DROP_P, seed),
+              f"{route} decoder_loss_fwd, dropout", atol=1e-3)
+        fwd_err[route] = (float((got - want).abs().max()),
+                          float(((got - want).abs() / want.abs()).max()))
+        bwd_err[route] = on(lambda: backward_case(
+            f"{route} decoder_loss_bwd",
+            lambda p: cuda_stages.decoder_loss_bwd(*db_args, gbar, p, seed),
+            lambda p: cuda_stages.decoder_loss_bwd_plain(*db_args, gbar, p, seed),
+            "AE2D decoder"))
+    held = {"fwd 160": _dec2_held(torch, emb, dec, obs, None, 0.0, seed,
+                                  words=bitpack.pack_grid(obs))}
+    for p in (0.0, DROP_P):
+        held[f"drop {p}"] = _dec2_held(torch, eb, dec, ob, gbar, p, seed,
+                                       words=bitpack.pack_grid(ob))
+    saved = cuda_stages._decoder_fwd_launch(eb, dec, ob, DROP_P, seed, None, True)[1]
+    calls = {   # on the route in force
+        "fwd": lambda: cuda_stages.decoder_loss_fwd(*dl_args, obs),
+        "fwd drop": lambda: cuda_stages.decoder_loss_fwd(*dl_args, obs, DROP_P, seed),
+        "bwd": lambda: cuda_stages.decoder_loss_bwd(*db_args, gbar, DROP_P, seed),
+        "bwd no drop": lambda: cuda_stages.decoder_loss_bwd(*db_args, gbar),
+    }
+    timed = {}
+    for route in ("dec2", "generic", "dec2", "generic"):
+        for name, fn in calls.items():
+            timed.setdefault(f"{route} {name}", []).append(timer.ms(
+                fn if route == "dec2" else lambda fn=fn: _generic_decoder(fn),
+                20 if name.startswith("fwd") else 10))
+    from_saved = timer.ms(lambda: cuda_stages._dec2_bwd_kernel(eb, dec, ob, gbar, DROP_P, None,
+                                                               saved), 10)
+    saving_fwd = timer.ms(lambda: cuda_stages._decoder_fwd_launch(eb, dec, ob, DROP_P, seed,
+                                                                  None, True), 10)
+    fwd_plain = timer.ms(lambda: cuda_stages.decoder_loss_fwd_plain(*dl_args, obs), 5)
+    bwd_plain = timer.ms(lambda: cuda_stages.decoder_loss_bwd_plain(*db_args, gbar, DROP_P,
+                                                                     seed), 2)
+    b, by, parts = _decoder_bound(nf, h, w, 1, False)
+    for row, route in (("dec2_fwd", "dec2"), ("decoder_loss_fwd", "generic")):
+        results[row] = dict(
+            max_abs_err=fwd_err[route][0], max_rel_err=fwd_err[route][1],
+            ms=timed[f"{route} fwd"][0], ms_drop=timed[f"{route} fwd drop"][0],
+            plain_ms=fwd_plain, bound_ms=b, bound_by=by, library_ms=None, bound_parts=parts,
+            ms_in_turns={k: v for k, v in timed.items() if k.startswith(f"{route} fwd")},
+            shape="f32 x [160,2,64,64], u8 obs [160,1,256,256], AE2D decoder (2, 1, 1)")
+        log(f"{row} ok: {results[row]}")
+    b, by, parts = _decoder_bound(nb, h, w, 1, True, philox["ops"])
+    b_saved, _, parts_saved = _decoder_bound(nb, h, w, 1, True, saved=True)
+    for row, route in (("dec2_bwd", "dec2"), ("decoder_loss_bwd", "generic")):
+        e_drop, e_plain, abs_err = bwd_err[route]
+        results[row] = dict(
+            max_abs_err=abs_err, max_leaf_rel_err=e_drop, max_leaf_rel_err_no_drop=e_plain,
+            ms=timed[f"{route} bwd"][0], ms_no_drop=timed[f"{route} bwd no drop"][0],
+            plain_ms=bwd_plain, bound_ms=b, bound_by=by, library_ms=None, bound_parts=parts,
+            ms_in_turns={k: v for k, v in timed.items() if k.startswith(f"{route} bwd")},
+            shape="f32 x [64,2,64,64], u8 obs [64,1,256,256], gbar [64], drop 0.1")
+    results["dec2_fwd"].update(err_rel_vs_generic=held["fwd 160"][0]["vs_generic"],
+                               plan=cuda_stages._dec2_plan(nf, h, w, False))
+    results["dec2_bwd"].update(
+        ms_from_saved=from_saved, ms_saving_fwd=saving_fwd, bound_ms_from_saved=b_saved,
+        bound_parts_from_saved=parts_saved, plan=cuda_stages._dec2_plan(nb, h, w, True),
+        vs_generic={k: {"err_rel": r, "max_leaf_rel_err": l} for k, (r, l) in held.items()})
+    for row in ("dec2_bwd", "decoder_loss_bwd"):
+        log(f"{row} ok: {results[row]}")
 
     # -- the whole-autoencoder kernels with a source that is not the target ------
     flat = (w1, b1, w2, b2, wt1, bt1, wt2, bt2)
@@ -1264,6 +1320,31 @@ def _enc3_occupancy(cuda_build):
                 out[f"enc3_bwd {name} drop {drop} {label}"] = dict(
                     _occupancy(cuda_build, "enc3_bwd", "enc3_bwd_occupancy", c1, c2, p1, drop,
                                Big(smem))[0], dynamic_smem=smem, rows=r2, tile=tw)
+    return out
+
+
+def _dec2_occupancy(cuda_build):
+    """Registers, shared memory and resident blocks a multiprocessor of the
+    specialised decoder-loss kernels (uint8 obs) on the plans of the main
+    shapes: the forward on 160 x 256², the backward on 64 x 256², and
+    Prediction's 128 bands of 80 x 8192."""
+    from carle_tpu_torch.ops import cuda_stages as cs
+
+    out = {}
+    shapes = {"160x256": (160, 256, 256), "64x256": (64, 256, 256),
+              "bands 128x80x8192": (128, 80, 8192)}
+    for label, (n, h, w) in shapes.items():
+        ry, tx, _ = cs._dec2_plan(n, h, w, False)
+        for mode in (0, 1, 2):   # no dropout, dropout, dropout saving the bits
+            smem = cs._dec2_fwd_smem(w, ry, tx, mode == 2)
+            out[f"dec2_fwd mode {mode} {label}"] = dict(
+                _occupancy(cuda_build, "dec2_fwd", "dec2_fwd_occupancy", mode, Big(smem))[0],
+                dynamic_smem=smem, rows=ry, tile=tx)
+        ry, tx, smem = cs._dec2_plan(n, h, w, True)
+        for drop in (0, 1):
+            out[f"dec2_bwd drop {drop} {label}"] = dict(
+                _occupancy(cuda_build, "dec2_bwd", "dec2_bwd_occupancy", drop, Big(smem))[0],
+                dynamic_smem=smem, rows=ry, tile=tx)
     return out
 
 
@@ -1579,22 +1660,35 @@ def _largest(parts):
             else (t_ops, "operations"))
 
 
-def _decoder_bound(n, h, w, obs_bytes, backward, draw_ops=0):
-    """The same for an AE2D decoder-loss launch ([n, 2, h/4, w/4] -> [n, 1,
-    h, w]) with row weights: (ms, kind, parts); with dropout (draw_ops a
-    draw) one draw a middle position and one an output cell, which the
-    forward and the backward each draw."""
-    hw = h * w
-    d1, d2 = 4 * 2 * 1 * (hw // 4), 4 * 1 * 1 * hw
-    emb = 2 * hw // 16 * 4
-    if backward:
-        nbytes = n * (2 * emb + hw * obs_bytes + h * 4) + n * 4 + 52 * 4
-        flops = 2 * n * 3 * (d1 + d2) + 8 * n * hw
+def _decoder_bound(n, h, w, obs_bytes, backward, draw_ops=0, em=None, saved=False):
+    """(ms, kind, parts) of an AE2D decoder-loss launch ([n, 2, h/4, w/4] ->
+    [n, 1, h, w]) over the work the function needs: the output rows whose
+    weight em [n, h] is not zero (None: all), the middle rows they read and
+    the embedding rows those read (gx is written whole).  With dropout
+    (draw_ops a draw) one draw a middle position and one an output cell,
+    which the forward and a backward from its inputs each draw; ``saved``: a
+    backward from the saved keep bits, which reads a byte a middle position
+    and draws nothing."""
+    if em is None:
+        out_rows, mid_rows, emb_rows = n * h, n * h // 2, n * h // 4
     else:
-        nbytes = n * (emb + hw * obs_bytes + h * 4) + n * 4
-        flops = 2 * n * (d1 + d2) + 3 * n * hw
+        rows = em != 0
+        mid = _mid_rows_read(rows)
+        out_rows, mid_rows = int(rows.sum()), int(mid.sum())
+        emb_rows = int(_mid_rows_read(mid).sum())
+    outputs, middles, embs = out_rows * w, mid_rows * (w // 2), emb_rows * (w // 4)
+    d1, d2 = 8 * middles, 4 * outputs   # multiply-adds of the two stages
+    rows_bytes = 0 if em is None else n * h * 4
+    if backward:
+        nbytes = (4 * 2 * embs + 4 * 2 * n * (h // 4) * (w // 4) + outputs * obs_bytes
+                  + rows_bytes + n * 4 + 50 * 4 + (middles if saved else 0))
+        flops = 2 * 3 * (d1 + d2) + 8 * outputs
+    else:
+        nbytes = 4 * 2 * embs + outputs * obs_bytes + rows_bytes + n * 4
+        flops = 2 * (d1 + d2) + 3 * outputs
+    draws = 0 if saved else middles + outputs
     parts = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "fp32_ms": flops / FP32_FLOPS * 1e3,
-             "philox_ms": n * hw * 1.25 * draw_ops / INT32_OPS * 1e3}
+             "philox_ms": draws * draw_ops / INT32_OPS * 1e3}
     return (*_largest(parts), parts)
 
 
@@ -1607,6 +1701,89 @@ def _generic_encoder(fn):
         return fn()
     finally:
         cuda_head.ENC3_KERNELS = True
+
+
+def _generic_decoder(fn):
+    """fn() on the generic decoder-loss kernels: the specialised route off."""
+    from carle_tpu_torch.ops import cuda_stages
+
+    cuda_stages.DEC2_KERNELS = False
+    try:
+        return fn()
+    finally:
+        cuda_stages.DEC2_KERNELS = True
+
+
+def _mid_rows_read(rows):
+    """[N, H/2] bool: the middle rows that the weighted output rows ([N, H]
+    bool) read (output y reads middle rows (y - 1) // 2 and the next)."""
+    even, odd = rows[:, 0::2], rows[:, 1::2]
+    mid = even | odd
+    mid[:, 1:] |= odd[:, :-1]
+    mid[:, :-1] |= even[:, 1:]
+    return mid
+
+
+def _dec2_held(torch, x, dec, obs, gbar, p, seed, em=None, words=None, long_sums=False):
+    """The specialised decoder-loss kernels (csrc/dec2_*.cu) against the
+    generic ones at one shape: the error within 1e-6 relative (the terms are
+    the generic kernel's bit for bit; only the sums' order differs) or, with
+    ``long_sums`` (an instance's error sums 524,288 or more squared errors,
+    where float32's order alone moves the generic kernel's sum past 1e-6),
+    within 1e-6 of a float64 twin of the same terms, the generic kernel's
+    distance from it reported beside; with dropout the saving forward's error and
+    keep bits (philox_keep_mask's on the rows whose weight is not zero and the
+    middle positions they read); ``words``, obs packed, bit for bit; and (gbar
+    given) gx bit for bit (every activation and cotangent is the generic
+    kernel's), each gradient leaf within 1e-5 of its largest entry and the
+    backward from the saved bits equal to the one that draws them.  Returns
+    ({the error's relative differences}, the largest leaf difference)."""
+    from carle_tpu_torch.ops import cuda_head as ch, cuda_stages as cs
+
+    n, _, he, we = x.shape
+    h, w = 4 * he, 4 * we
+    check(cs.decoder_route(h, w, (2, 1, 1)), "the decoder's width does not take dec2_*")
+    fwd = lambda o: cs.decoder_loss_fwd(x, *dec, o, p, seed, em)
+    err = fwd(obs)
+    err0 = _generic_decoder(lambda: fwd(obs))
+    rel_to = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    rel = {"vs_generic": rel_to(err, err0)}
+    if long_sums:
+        want = cs.decoder_loss_fwd_plain(x.double(), *(t.double() for t in dec), obs, p, seed, em)
+        rel.update(vs_float64=rel_to(err.double(), want),
+                   generic_vs_float64=rel_to(err0.double(), want))
+        check(rel["vs_float64"] < 1e-6, f"dec2_fwd (drop {p}) vs a float64 twin: {rel}")
+    else:
+        check(rel["vs_generic"] < 1e-6, f"dec2_fwd (drop {p}) vs the generic kernel: {rel}")
+    if words is not None:
+        check(torch.equal(fwd(words), err), "dec2_fwd on packed obs differs from uint8 cells")
+    saved = None
+    if p > 0:
+        err_s, saved = cs._decoder_fwd_launch(x, dec, obs, p, seed, em, True)
+        check(torch.equal(err_s, err), "dec2's saving forward differs from the forward")
+        rows = (torch.ones((n, h), dtype=torch.bool, device=x.device) if em is None
+                else em != 0)
+        keep1, keep2 = cs.dec2_keep_masks(saved)
+        want1 = ch.philox_keep_mask(seed, ch.STAGE_DEC1, tuple(keep1.shape), p, x.device)
+        want2 = ch.philox_keep_mask(seed, ch.STAGE_DEC2, tuple(keep2.shape), p, x.device)
+        mid = _mid_rows_read(rows)
+        check(torch.equal(keep1[:, 0][mid], want1[:, 0][mid]) and
+              torch.equal(keep2[:, 0][rows], want2[:, 0][rows]),
+              "dec2's saved keep bits are not the twin's")
+    if gbar is None:
+        return rel, 0.0
+    bwd = lambda o: cs.decoder_loss_bwd(x, *dec, o, gbar, p, seed, em)
+    grads = _bits_twice(lambda: bwd(obs), "dec2_bwd")
+    grads0 = _generic_decoder(lambda: bwd(obs))
+    check(torch.equal(grads[4], grads0[4]), f"dec2_bwd's gx (drop {p}) is not the generic one")
+    leaf = max(_leaf_errors(grads, grads0))
+    check(leaf < 1e-5, f"dec2_bwd (drop {p}) vs the generic kernel: {leaf}")
+    if saved is not None:
+        check(_same_bits(cs._dec2_bwd_kernel(x, dec, obs, gbar, p, em, saved), grads),
+              "dec2_bwd from the saved bits differs from the backward that draws them")
+    if words is not None:
+        check(_same_bits(bwd(words), grads), "dec2_bwd on packed obs differs from uint8 cells")
+    return rel, leaf
 
 
 def _old_plan(fn, h, w, c1, c2, p1, p2):
@@ -1896,7 +2073,8 @@ def phase_band_kernels(torch, timer, gen, philox):
         torch.cuda.empty_cache()
     del xb, xw, g
 
-    # -- row 6: the AE2D decoder loss on 128 bands (Prediction's geometry) ------
+    # -- row 6: the AE2D decoder loss on 128 bands (Prediction's geometry): the
+    # specialised kernels (dec2_*) and the generic ones forced --------------------
     emb = cuda_head.encoder_fwd(universe, *conv(ae), (2, 2))          # [1, 2, 2048, 2048]
     starts, win = bh.decoder_windows(size // 4, PRED_BANDS)
     eb = bh._rows(emb, starts, win)                                      # [128, 2, 20, 2048]
@@ -1905,52 +2083,86 @@ def phase_band_kernels(torch, timer, gen, philox):
     em = bh.decoder_row_weights(size // 4, PRED_BANDS, 1, dev)
     em_ones = torch.ones_like(em)
     gbar = torch.randn((PRED_BANDS,), generator=gen, device=dev) / (size * size)
-    fwd_err, leaf_err = 0.0, 0.0
-    for p in (0.0, DROP_P):
-        got = cuda_stages.decoder_loss_fwd(eb, *dec, ob8, p, seed, em)
-        want = cuda_stages.decoder_loss_fwd_plain(eb, *dec, ob8, p, seed, em)
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
-        fwd_err = max(fwd_err, float(((got - want).abs() / want.abs()).max()))
-        check(torch.equal(cuda_stages.decoder_loss_fwd(eb, *dec, ob32, p, seed, em), got),
-              "row-weighted decoder_loss_fwd on packed obs differs from uint8")
-        check(torch.equal(cuda_stages.decoder_loss_fwd(eb, *dec, ob8, p, seed, em_ones),
-                          cuda_stages.decoder_loss_fwd(eb, *dec, ob8, p, seed)),
-              "decoder_loss_fwd with em of ones is not the unweighted kernel")
-        grads = _bits_twice(
-            lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, p, seed, em),
-            "row-weighted decoder_loss_bwd")
-        errs = _leaf_errors(grads, cuda_stages.decoder_loss_bwd_plain(eb, *dec, ob8, gbar, p,
-                                                                      seed, em))
-        check(max(errs) < tol, f"row-weighted decoder_loss_bwd (drop {p}) leaves differ: {errs}")
-        leaf_err = max(leaf_err, max(errs))
-        check(same(cuda_stages.decoder_loss_bwd(eb, *dec, ob32, gbar, p, seed, em), grads),
-              "row-weighted decoder_loss_bwd on packed obs differs from uint8")
-        check(same(cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, p, seed, em_ones),
-                   cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, p, seed)),
-              "decoder_loss_bwd with em of ones is not the unweighted kernel")
+    fwd_err, leaf_err, held = {}, {}, {}
+    for route in ("dec2", "generic"):
+        on = (lambda fn: fn()) if route == "dec2" else _generic_decoder
+        fwd = lambda o, p, e: on(lambda: cuda_stages.decoder_loss_fwd(eb, *dec, o, p, seed, e))
+        bwd = lambda o, p, e: on(lambda: cuda_stages.decoder_loss_bwd(eb, *dec, o, gbar, p, seed,
+                                                                      e))
+        fwd_err[route], leaf_err[route] = 0.0, 0.0
+        for p in (0.0, DROP_P):
+            got = fwd(ob8, p, em)
+            want = cuda_stages.decoder_loss_fwd_plain(eb, *dec, ob8, p, seed, em)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+            fwd_err[route] = max(fwd_err[route], float(((got - want).abs() / want.abs()).max()))
+            check(torch.equal(fwd(ob32, p, em), got),
+                  f"{route} row-weighted decoder_loss_fwd on packed obs differs from uint8")
+            check(torch.equal(fwd(ob8, p, em_ones), fwd(ob8, p, None)),
+                  f"{route} decoder_loss_fwd with em of ones is not the unweighted kernel")
+            grads = _bits_twice(lambda: bwd(ob8, p, em), f"{route} row-weighted decoder_loss_bwd")
+            errs = _leaf_errors(grads, cuda_stages.decoder_loss_bwd_plain(eb, *dec, ob8, gbar, p,
+                                                                          seed, em))
+            check(max(errs) < tol,
+                  f"{route} row-weighted decoder_loss_bwd (drop {p}) leaves differ: {errs}")
+            leaf_err[route] = max(leaf_err[route], max(errs))
+            check(same(bwd(ob32, p, em), grads),
+                  f"{route} row-weighted decoder_loss_bwd on packed obs differs from uint8")
+            check(same(bwd(ob8, p, em_ones), bwd(ob8, p, None)),
+                  f"{route} decoder_loss_bwd with em of ones is not the unweighted kernel")
+            if route == "dec2":
+                held[f"drop {p}"] = _dec2_held(torch, eb, dec, ob8, gbar, p, seed, em, ob32,
+                                               long_sums=True)
+    saved = cuda_stages._decoder_fwd_launch(eb, dec, ob32, DROP_P, seed, em, True)[1]
+    calls = {   # on the route in force
+        "fwd": lambda: cuda_stages.decoder_loss_fwd(eb, *dec, ob32, DROP_P, seed, em),
+        "fwd no drop": lambda: cuda_stages.decoder_loss_fwd(eb, *dec, ob32, 0.0, seed, em),
+        "fwd u8": lambda: cuda_stages.decoder_loss_fwd(eb, *dec, ob8, DROP_P, seed, em),
+        "bwd": lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob32, gbar, DROP_P, seed, em),
+        "bwd no drop": lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob32, gbar, 0.0, seed, em),
+        "bwd u8": lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob8, gbar, DROP_P, seed, em),
+    }
+    timed = {}
+    for route in ("dec2", "generic", "dec2", "generic"):
+        for name, fn in calls.items():
+            timed.setdefault(f"{route} {name}", []).append(timer.ms(
+                fn if route == "dec2" else lambda fn=fn: _generic_decoder(fn),
+                10 if name.startswith("fwd") else 5))
+    from_saved = timer.ms(lambda: cuda_stages._dec2_bwd_kernel(eb, dec, ob32, gbar, DROP_P, em,
+                                                               saved), 5)
+    saving_fwd = timer.ms(lambda: cuda_stages._decoder_fwd_launch(eb, dec, ob32, DROP_P, seed,
+                                                                  em, True), 5)
+    fwd_plain = timer.ms(lambda: cuda_stages.decoder_loss_fwd_plain(eb, *dec, ob32, DROP_P,
+                                                                    seed, em), 2)
+    bwd_plain = timer.ms(lambda: cuda_stages.decoder_loss_bwd_plain(eb, *dec, ob32, gbar,
+                                                                    DROP_P, seed, em), 1)
     n, h, w = PRED_BANDS, 4 * win, size
-    b, by, parts = _decoder_bound(n, h, w, 1 / 8, False, philox["ops"])
-    results["decoder_loss_fwd_em"] = dict(
-        max_abs_err=fwd_err, max_rel_err=fwd_err,
-        ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd(eb, *dec, ob32, DROP_P, seed, em), 10),
-        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd_plain(eb, *dec, ob32, DROP_P,
-                                                                     seed, em), 2),
-        bound_ms=b, bound_by=by, library_ms=None, bound_parts=parts,
-        plan=cuda_stages._decoder_bands(h, w, 2, 1, 1)[0],
-        shape=f"f32 x [{n},2,{win},{size // 4}], u32 obs [{n},1,{4 * win},{size // 32}], "
-              f"em [{n},{4 * win}], drop 0.1")
-    log(f"decoder_loss_fwd_em ok: {results['decoder_loss_fwd_em']}")
-    b, by, parts = _decoder_bound(n, h, w, 1 / 8, True, philox["ops"])
-    results["decoder_loss_bwd_em"] = dict(
-        max_abs_err=leaf_err, max_leaf_rel_err=leaf_err,
-        ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd(eb, *dec, ob32, gbar, DROP_P, seed,
-                                                         em), 5),
-        plain_ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd_plain(eb, *dec, ob32, gbar,
-                                                                     DROP_P, seed, em), 1),
-        bound_ms=b, bound_by=by, library_ms=None, bound_parts=parts,
-        plan=cuda_stages._decoder_bands(h, w, 2, 1, 1)[1],
-        shape=f"f32 x [{n},2,{win},{size // 4}], u32 obs, gbar [{n}], em, drop 0.1")
-    log(f"decoder_loss_bwd_em ok: {results['decoder_loss_bwd_em']}")
+    shape = (f"f32 x [{n},2,{win},{size // 4}], u32 obs [{n},1,{4 * win},{size // 32}], "
+             f"em [{n},{4 * win}] (16 rows of weight 0 a band), drop 0.1")
+    for backward, (row_dec2, row_generic) in ((False, ("dec2_fwd_em", "decoder_loss_fwd_em")),
+                                              (True, ("dec2_bwd_em", "decoder_loss_bwd_em"))):
+        kind = "bwd" if backward else "fwd"
+        # the bound over the weighted rows (the work the function needs); every
+        # row's beside it
+        b, by, parts = _decoder_bound(n, h, w, 1 / 8, backward, philox["ops"], em)
+        b_all = _decoder_bound(n, h, w, 1 / 8, backward, philox["ops"])[0]
+        for row, route in ((row_dec2, "dec2"), (row_generic, "generic")):
+            err = leaf_err[route] if backward else fwd_err[route]
+            results[row] = dict(
+                max_abs_err=err, ms=timed[f"{route} {kind}"][0],
+                ms_no_drop=timed[f"{route} {kind} no drop"][0],
+                ms_u8=timed[f"{route} {kind} u8"][0],
+                plain_ms=bwd_plain if backward else fwd_plain, bound_ms=b, bound_by=by,
+                library_ms=None, bound_parts=parts, bound_ms_every_row=b_all,
+                ms_in_turns={k: v for k, v in timed.items() if k.startswith(f"{route} {kind}")},
+                shape=shape + (f", gbar [{n}]" if backward else ""))
+    results["dec2_fwd_em"].update(plan=cuda_stages._dec2_plan(n, h, w, False))
+    b_saved, _, parts_saved = _decoder_bound(n, h, w, 1 / 8, True, em=em, saved=True)
+    results["dec2_bwd_em"].update(
+        ms_from_saved=from_saved, ms_saving_fwd=saving_fwd, bound_ms_from_saved=b_saved,
+        bound_parts_from_saved=parts_saved, plan=cuda_stages._dec2_plan(n, h, w, True),
+        vs_generic={k: {"err_rel": r, "max_leaf_rel_err": l} for k, (r, l) in held.items()})
+    for row in ("dec2_fwd_em", "decoder_loss_fwd_em", "dec2_bwd_em", "decoder_loss_bwd_em"):
+        log(f"{row} ok: {results[row]}")
     del eb, ob8, ob32
 
     # -- the width repair: the global kernels on one universe of 8192² ---------
@@ -1983,7 +2195,10 @@ def phase_band_kernels(torch, timer, gen, philox):
                         cuda_stages.decoder_loss_bwd_plain(emb, *dec, universe, gb1, DROP_P,
                                                            seed))
     check(max(errs) < tol, f"decoder_loss_bwd at {size}² leaves differ: {errs}")
+    rel, leaf = _dec2_held(torch, emb, dec, universe, gb1, DROP_P, seed, words=words,
+                           long_sums=True)
     width["ae_decoder_loss"] = dict(
+        err_rel=rel, bwd_max_leaf_rel_err_vs_generic=leaf,
         fwd_ms=timer.ms(lambda: cuda_stages.decoder_loss_fwd(emb, *dec, words, DROP_P, seed),
                         10),
         bwd_ms=timer.ms(lambda: cuda_stages.decoder_loss_bwd(emb, *dec, words, gb1, DROP_P,
@@ -3192,6 +3407,8 @@ def main() -> int:
         results = timed("kernels", phase_kernels, torch, timer, shipped, philox)
         enc3_occupancy = _enc3_occupancy(cuda_build)
         log(f"enc3 occupancy: {json.dumps(enc3_occupancy)}")
+        dec2_occupancy = _dec2_occupancy(cuda_build)
+        log(f"dec2 occupancy: {json.dumps(dec2_occupancy)}")
         ae2d = timed("ae2d", phase_ae2d, torch, timer, cuda_build, philox)
         log(f"ae2d ok: {json.dumps(ae2d)}")
         results.update(timed("spatial_kernels", phase_spatial_kernels, torch, timer,
@@ -3231,10 +3448,11 @@ def main() -> int:
     if missing:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
-    generic = {f"{path}:{k}": c[k] for path, c in path_counts.items() for k in GENERIC_ENCODER
-               if c[k]}
+    generic = {f"{path}:{k}": c[k] for path, c in path_counts.items()
+               for k in GENERIC_ENCODER + GENERIC_DECODER if c[k]}
     if generic:
-        log(f"FAIL: generic encoder kernels launched on the main paths: {generic}")
+        log(f"FAIL: generic encoder or decoder-loss kernels launched on the main paths: "
+            f"{generic}")
         return 1
     ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
                    for path, c in path_counts.items()}
@@ -3266,6 +3484,7 @@ def main() -> int:
         "routes": routes, "wrappers": wrappers, "packed": packed, "engines": engines,
         "dropout": results["dropout"], "ae_loss_src_not_obs": results["ae_loss_src_not_obs"],
         "ae2d": ae2d, "ae_launches": ae_launches, "enc3_occupancy": enc3_occupancy,
+        "dec2_occupancy": dec2_occupancy,
         "profile": profile, "profile_train": profile_train, "profile_packed": profile_packed,
         "total_s": time.perf_counter() - t_start,
     }

@@ -5,12 +5,19 @@ each taken in a fresh process.
         sha256 digests of kernel outputs on seeded inputs: the whole
         autoencoder's error and eight gradients (uint8 and packed src,
         dropout 0 and 0.1) with the training forward's saved embedding and
-        keep bits, and the encoder's forward at the package's three widths
-        (dropout 0 and 0.1, 256² and RND's bands of 8192²).  Equal digests
-        from two checkouts mean bit-for-bit equal outputs.
+        keep bits, the encoder's forward at the package's three widths
+        (dropout 0 and 0.1, 256² and RND's bands of 8192²), and the decoder
+        loss's error and five gradients on the route the checkout takes and
+        on the generic kernels (uint8 and packed obs, dropout 0 and 0.1, row
+        weights none and with zero rows).  Equal digests from two checkouts
+        mean bit-for-bit equal outputs.
     python scripts/port_ab.py profile-packed --root DIR
         chip_smoke.py's packed training profile (64 universes, 64 steps on
         the packed carry, under torch.profiler) as one JSON line.
+    python scripts/port_ab.py profile-wrappers --root DIR
+        the same profile of the wrappers path's learning stack: PredictionBonus
+        over AE2D by two kernels (encoder, decoder loss) over RND2D on 64
+        universes of 256², dropout on, 64 steps.
     python scripts/port_ab.py encoder-times --root DIR [--generic]
         device ms (chip_smoke.py's Timer) of the encoder at rows 3a-3d's
         shapes: the forward on 160 x 256², the gradients alone and from the
@@ -18,6 +25,14 @@ each taken in a fresh process.
         and target's masked bands of 8192²; --generic adds the generic
         kernels beside each.  Run it in a copy whose sources were edited to
         time a variant against the tree.
+    python scripts/port_ab.py decoder-gx --root DIR
+        device ms of the decoder loss's backward from the saved bits on
+        Prediction's 128 bands of 80 x 8192 and on 64 x 256², dropout 0 and
+        0.1, as the tree's one band kernel (csrc/dec2_bwd.cu, which
+        recomputes the output cotangent on three rows to either side for gx)
+        and as two launches (scripts/dec2_gx_probe.cu: the middle cotangent
+        through device memory, then a launch for gx), in turns, and whether
+        the two give the same gx.
     python scripts/port_ab.py host-encoder --root DIR
         the host's µs to enqueue a training step's encoder work (the RND
         predictor forward with dropout through autograd, the target's
@@ -54,7 +69,7 @@ def digests(torch) -> dict:
     from carle_tpu_torch import EnvConfig
     from carle_tpu_torch.mcl.ae import init_ae_params
     from carle_tpu_torch.mcl.rnd import init_predictor_params, init_random_network_params
-    from carle_tpu_torch.ops import bitpack, cuda_head as ch
+    from carle_tpu_torch.ops import bitpack, cuda_head as ch, cuda_stages as cs
     from carle_tpu_torch.parallel import band_heads as bh
 
     dev = torch.device("cuda")
@@ -86,6 +101,27 @@ def digests(torch) -> dict:
             if pools == (4, 2):
                 out[f"encoder fwd {name} bands drop {p}"] = _digest(
                     [ch.encoder_fwd(bands, *w4, pools, p, 7, mask)])
+    # the decoder loss on the route the checkout takes at the decoder's width
+    # and on the generic kernels (a checkout without the DEC2_KERNELS switch
+    # ignores it): uint8 and packed obs, row weights none and with zero rows;
+    # a random embedding and a positive middle bias, so every stage is live
+    # (AE2D's initial weights zero the middle activations)
+    dgen = torch.Generator(device=dev).manual_seed(4321)
+    emb = torch.relu(torch.randn((64, 2, 64, 64), generator=dgen, device=dev))
+    dec = [0.3 * torch.randn(s, generator=dgen, device=dev)
+           for s in ((2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,))]
+    dec[1] = dec[1].abs()
+    em = torch.ones((64, 256), device=dev)
+    em[:, :16] = 0.0
+    for route in ("route", "generic"):
+        cs.DEC2_KERNELS = route == "route"
+        for kind, o in (("u8", obs), ("u32", bitpack.pack_grid(obs))):
+            for p in (0.0, 0.1):
+                for label, e in (("", None), (" em", em)):
+                    key = f"decoder loss {route} {kind} drop {p}{label}"
+                    out[f"{key} fwd"] = _digest([cs.decoder_loss_fwd(emb, *dec, o, p, 99, e)])
+                    out[f"{key} bwd"] = _digest(cs.decoder_loss_bwd(emb, *dec, o, gbar, p, 99, e))
+    cs.DEC2_KERNELS = True
     return out
 
 
@@ -144,6 +180,88 @@ def encoder_times(torch, generic: bool) -> dict:
         saved = ch._encoder_fwd_launch(xw, w4, pools, 0.1, 31, mask, True)[1]
         out[f"3d from saved {name}"] = times(
             lambda: ch._enc3_bwd_kernel(xw, w4, g, pools, 0.1, mask, saved), 5, False)
+    return out
+
+
+def profile_wrappers(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl import ae2d_def, prediction_def, rnd2d_def
+    from carle_tpu_torch.rollout import Rollout
+
+    cfg = EnvConfig(instances=64)
+    defs = [rnd2d_def(cfg, reward_scale=0.0), ae2d_def(cfg, reward_scale=0.0, whole_ae=False),
+            prediction_def(cfg)]
+    ro = Rollout(cfg, defs, make_random_agent(64, 64, 0.1), device="cuda")
+    return chip_smoke._profile_steps(torch, ro, ro.init(ro.generator(0), rules.LIFE), 64, 64)
+
+
+def decoder_gx(torch) -> dict:
+    import ctypes
+    import subprocess
+
+    import chip_smoke
+    from carle_tpu_torch.ops import bitpack, cuda_build, cuda_stages as cs
+    from carle_tpu_torch.parallel import band_heads as bh
+
+    probe = Path(__file__).resolve().with_name("dec2_gx_probe.cu")
+    lib_path = cuda_build.BUILD_DIR / "dec2_gx_probe.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC), "-o",
+                    str(lib_path), str(probe)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.opt2_launch.argtypes = [P] * 13 + [I] * 6 + [ctypes.c_double, P]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = chip_smoke.Timer(torch)
+    ps = [torch.randn(s, generator=gen, device=dev) * 0.3
+          for s in ((2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,))]
+    ps[1] = ps[1].abs()
+    x = torch.relu(torch.randn((128, 2, 20, 2048), generator=gen, device=dev))
+    cells = (torch.rand((128, 1, 80, 8192), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    x2 = torch.relu(torch.randn((64, 2, 64, 64), generator=gen, device=dev))
+    o2 = (torch.rand((64, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    cases = {"bands 128x80x8192": (x, bitpack.pack_grid(cells),
+                                   torch.randn((128,), generator=gen, device=dev),
+                                   bh.decoder_row_weights(2048, 128, 1, dev)),
+             "64x256": (x2, o2, torch.randn((64,), generator=gen, device=dev), None)}
+    out = {}
+    for name, (xx, obs, gbar, em) in cases.items():
+        n, _, he, we = xx.shape
+        h, w = 4 * he, 4 * we
+        ry, tx, _ = cs._dec2_plan(n, h, w, True)
+        blocks = -(-h // ry) * -(-w // min(tx, w))
+        for p in (0.0, 0.1):
+            saved = cs._decoder_fwd_launch(xx, ps, obs, p, 7, em, True)[1]
+            keepd = None if saved is None else saved.keepd
+            partials = torch.empty((n * blocks, 50), device=dev)
+            grads = torch.empty((50,), device=dev)
+            gx = torch.empty((n, 2, he, we), device=dev)
+            gmid = torch.empty((n, h // 2, w // 2), device=dev)
+            ts = [t.contiguous() for t in (xx, obs, *ps, gbar)]
+
+            def two_launches():
+                rc = lib.opt2_launch(*(t.data_ptr() for t in ts),
+                                     None if em is None else em.data_ptr(),
+                                     None if keepd is None else keepd.data_ptr(),
+                                     partials.data_ptr(), grads.data_ptr(), gx.data_ptr(),
+                                     gmid.data_ptr(), n, h, w, ry, tx, cs.cell_kind(obs), p,
+                                     torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"dec2_gx_probe: CUDA error {rc}")
+
+            one = lambda: cs._dec2_bwd_kernel(xx, ps, obs, gbar, p, em, saved)
+            want = one()
+            two_launches()
+            torch.cuda.synchronize()
+            r = {"plan": [ry, tx], "gx_equal": bool(torch.equal(gx, want[4])),
+                 "one band kernel": [], "two launches": []}
+            for _ in range(2):
+                r["one band kernel"].append(timer.ms(one, 10))
+                r["two launches"].append(timer.ms(two_launches, 10))
+            out[f"{name} drop {p}"] = r
     return out
 
 
@@ -206,8 +324,9 @@ def python_cost(torch) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("digest", "profile-packed", "encoder-times",
-                                         "host-encoder", "python-cost"))
+    parser.add_argument("what", choices=("digest", "profile-packed", "profile-wrappers",
+                                         "encoder-times", "decoder-gx", "host-encoder",
+                                         "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--generic", action="store_true",
                         help="encoder-times: also time the generic kernels")
@@ -227,6 +346,10 @@ def main() -> int:
         result = digests(torch)
     elif args.what == "encoder-times":
         result = encoder_times(torch, args.generic)
+    elif args.what == "decoder-gx":
+        result = decoder_gx(torch)
+    elif args.what == "profile-wrappers":
+        result = profile_wrappers(torch)
     elif args.what == "host-encoder":
         result = host_encoder(torch)
     else:

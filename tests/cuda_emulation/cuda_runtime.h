@@ -60,6 +60,7 @@ struct alignas(8) float2 {
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
 inline void __syncthreads() {}
 inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other lane
+inline double __shfl_down_sync(unsigned, double, int) { return 0.0; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
     return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);

@@ -25,6 +25,7 @@ from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd",
            "enc3_fwd", "enc3_bwd", "head_fwd", "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd",
+           "dec2_fwd", "dec2_bwd",
            "bit_multi_step", "ca_multi_step", "halo_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
 
@@ -227,8 +228,9 @@ def test_tail_kernels_emulated(emulated, geom, act, drop_p):
     (1, 24, 40, (2, 1, 1)),      # a ragged last band
     (1, 72, 16, (3, 2, 5)),      # several bands, two Philox channel groups
 ])
-def test_decoder_loss_kernels_emulated(emulated, geom, drop_p):
+def test_decoder_loss_kernels_emulated(emulated, monkeypatch, geom, drop_p):
     n, h, w, (c2, cm, co) = geom
+    monkeypatch.setattr(cuda_stages, "DEC2_KERNELS", False)   # the generic kernel at every width
     rng = np.random.RandomState(h + w)
     x = torch.from_numpy(np.maximum(rng.randn(n, c2, h // 4, w // 4), 0).astype(np.float32))
     ps = _params(rng, [(c2, cm, 4, 4), (cm,), (cm, co, 4, 4), (co,)])
@@ -429,7 +431,9 @@ def test_decoder_loss_column_tiles_and_row_weights_emulated(emulated, monkeypatc
                                                            drop_p):
     """The decoder loss's kernels with the width cut into tiles of 48 output
     columns against the one-tile launch and the twins, with and without error
-    row weights em; an em of ones is no em, bit for bit."""
+    row weights em; an em of ones is no em, bit for bit.  The generic kernels
+    (tests/test_torch_decoder2.py holds the specialised ones)."""
+    monkeypatch.setattr(cuda_stages, "DEC2_KERNELS", False)
     n, h, w, seed = 2, 32, 256, 6060
     rng = np.random.RandomState(17)
     x = torch.from_numpy(np.maximum(rng.randn(n, 2, h // 4, w // 4), 0).astype(np.float32))

@@ -244,6 +244,80 @@ def test_ae2d_training_step_draws_each_bit_once(cuda):
     assert all(torch.equal(a, b) for a, b in zip(auto, drawn))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("banded", [False, True], ids=["plain", "banded"])
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("kind", ["u8", "u32"])
+def test_dec2_kernels_match_plain_and_generic(cuda, monkeypatch, kind, drop_p, banded):
+    """The decoder-loss kernels at the decoder's width on 8 outputs of 256²
+    and on 16 of Prediction's bands (80 x 8192, row weights with zero
+    margins) against the twins (1e-4) and the generic kernels (the error
+    within 1e-6 relative, gx bit for bit, each leaf within 1e-5 of its largest
+    entry); the training forward's keep bits against philox_keep_mask on the
+    weighted rows."""
+    n, h, w, seed = (16, 80, 8192, 606) if banded else (8, 256, 256, 505)
+    rng = np.random.RandomState(n)
+    x = torch.from_numpy(np.maximum(rng.randn(n, 2, h // 4, w // 4), 0)
+                         .astype(np.float32)).to(cuda)
+    ps = [p.to(cuda) for p in _params(rng, [(2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)])]
+    obs = torch.from_numpy(_soup(n, (n, 1, h, w), 0.3)).to(cuda)
+    obs = bitpack.pack_grid(obs) if kind == "u32" else obs
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    em = None
+    if banded:
+        em = torch.ones((n, h), device=cuda)
+        em[:, :8], em[:, h - 8:] = 0.0, 0.0
+    fwd = lambda: cuda_stages.decoder_loss_fwd(x, *ps, obs, drop_p, seed, em)
+    bwd = lambda: cuda_stages.decoder_loss_bwd(x, *ps, obs, gbar, drop_p, seed, em)
+    before = cuda_stages.DEC2_FWD.launches, cuda_stages.DEC2_BWD.launches
+    err, grads = fwd(), _repeatable(bwd)
+    # the forward, with dropout each backward's saving forward, and the two backwards
+    assert (cuda_stages.DEC2_FWD.launches, cuda_stages.DEC2_BWD.launches) == (
+        before[0] + 1 + 2 * (drop_p > 0), before[1] + 2)
+    torch.testing.assert_close(
+        err, cuda_stages.decoder_loss_fwd_plain(x, *ps, obs, drop_p, seed, em), rtol=1e-4, atol=0)
+    _assert_leaves_close(grads, cuda_stages.decoder_loss_bwd_plain(x, *ps, obs, gbar, drop_p,
+                                                                    seed, em))
+    if drop_p > 0:
+        _, saved = cuda_stages._decoder_fwd_launch(x, ps, obs, drop_p, seed, em, True)
+        rows = torch.ones((n, h), dtype=torch.bool, device=cuda) if em is None else em != 0
+        keep1, keep2 = cuda_stages.dec2_keep_masks(saved)
+        want2 = cuda_head.philox_keep_mask(seed, cuda_head.STAGE_DEC2, tuple(keep2.shape),
+                                           drop_p, cuda)
+        assert torch.equal(keep2[:, 0][rows], want2[:, 0][rows])
+        mid = rows[:, 1::2] | rows[:, 0::2]   # the middle rows the weighted outputs read
+        mid[:, 1:] |= rows[:, 1:-1:2]
+        want1 = cuda_head.philox_keep_mask(seed, cuda_head.STAGE_DEC1, tuple(keep1.shape),
+                                           drop_p, cuda)
+        assert torch.equal(keep1[:, 0][mid], want1[:, 0][mid])
+    monkeypatch.setattr(cuda_stages, "DEC2_KERNELS", False)
+    err0, grads0 = fwd(), bwd()
+    assert float(((err - err0).abs() / err0.abs()).max()) < 1e-6
+    assert torch.equal(grads[4], grads0[4])
+    assert max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads, grads0)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_dec2_training_step_draws_each_bit_once(cuda):
+    """Through autograd (the training path) the decoder-loss forward saves the
+    keep bits and the backward reads them: one forward launch for the step,
+    and the gradients of the backward that draws them itself, bit for bit."""
+    n, h, w, seed, drop_p = 8, 256, 256, 4321, 0.1
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(np.maximum(rng.randn(n, 2, h // 4, w // 4), 0)
+                         .astype(np.float32)).to(cuda)
+    ps = [p.to(cuda) for p in _params(rng, [(2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)])]
+    obs = torch.from_numpy(_soup(7, (n, 1, h, w), 0.3)).to(cuda)
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, *ps)]
+    before = cuda_stages.DEC2_FWD.launches
+    err = cuda_stages.decoder_loss(*leaves, obs, drop_p, seed)
+    auto = torch.autograd.grad((err * gbar).sum(), leaves)
+    assert cuda_stages.DEC2_FWD.launches == before + 1
+    *drawn, gx = cuda_stages.decoder_loss_bwd(x, *ps, obs, gbar, drop_p, seed)
+    assert all(torch.equal(a, b) for a, b in zip(auto, (gx, *drawn)))
+
+
 def _repeatable(fn):
     """fn() twice: the same bits, returned once."""
     first, again = fn(), fn()
