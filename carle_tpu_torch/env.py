@@ -8,7 +8,8 @@ Behavioural contract, as the JAX package:
   whole batch equals 1.0 exactly: all-ones resets every universe, all-2.0
   only toggles;
 * the CA update is a Moore count + B/S rule lookup on a torus, through the
-  ``ca_step`` kernel on the card (ops/cuda_ca.py);
+  ``ca_step`` kernels on the card (ops/cuda_ca.py), which also apply the
+  master reset from its device flag;
 * the base env emits zero reward and never sets done.
 
 :class:`CARLE` is the stateful shell with the reference's class API over the
@@ -71,8 +72,11 @@ def env_step(state: EnvState, action: torch.Tensor,
     do_reset = action.to(torch.float32).mean() == 1.0
     any_action = toggles.any()
 
-    stepped = ca_step(state.grid, toggles.to(torch.uint8), state.rule_bits, config)
-    new_grid = torch.where(do_reset, torch.zeros_like(stepped), stepped)
+    # the kernel binarises the bytes itself and writes zeros under the reset
+    # flag, so no pass over the grid runs beside it
+    patch = action if action.dtype == torch.uint8 else toggles.view(torch.uint8)
+    new_grid = ca_step(state.grid, patch.contiguous(), state.rule_bits, config,
+                       reset=do_reset)
     zero = torch.zeros_like(state.step_num)
     new_step = torch.where(do_reset, zero, state.step_num + 1)
     new_ssa = torch.where(

@@ -63,8 +63,13 @@ def pad_action(action: torch.Tensor, config: EnvConfig) -> torch.Tensor:
 
 
 def ca_step_with_action(grid: torch.Tensor, action: torch.Tensor, rule_bits,
-                        config: EnvConfig) -> torch.Tensor:
+                        config: EnvConfig, reset=None) -> torch.Tensor:
     """Toggle the centred action window (any nonzero action value toggles)
-    and run one CA generation."""
+    and run one CA generation; zeros wherever the 0-d ``reset`` flag (env
+    step's master reset, a tensor the host never reads) is set."""
     toggles = (pad_action(action, config) != 0).to(torch.uint8)
-    return ca_step_grid(grid ^ toggles, rule_bits)
+    stepped = ca_step_grid(grid ^ toggles, rule_bits)
+    if reset is None:
+        return stepped
+    return torch.where(torch.as_tensor(reset, device=grid.device) != 0,
+                       torch.zeros_like(stepped), stepped)

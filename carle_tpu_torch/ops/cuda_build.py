@@ -171,7 +171,9 @@ class CudaKernel:
 KERNELS: Dict[str, CudaKernel] = {
     k.name: k for k in (
         CudaKernel("ca_step", "ca_step_launch",
-                   [P, P, P, I, P] + [I] * 9 + [P]),
+                   [P, P, P, I, P, P] + [I] * 9 + [P]),
+        CudaKernel("ca_step_words", "ca_step_words_launch",
+                   [P, P, P, I, P, P] + [I] * 11 + [P], source="ca_step"),
         CudaKernel("bit_multi_step", "bit_multi_step_launch",
                    [P, P, I, P, P, I, I, I, I, I, I, P]),
         CudaKernel("bit_multi_step_cm", "bit_multi_step_cm_launch",

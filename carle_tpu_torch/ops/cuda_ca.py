@@ -1,7 +1,10 @@
 """The uint8 CA kernels and their plain PyTorch twins (counterpart of
 carle_tpu/ops/pallas_ca.py): :func:`ca_step`, one generation with the action
-fused in (``csrc/ca_step.cu``), and :func:`ca_multi_step`, K action-free
-generations with each universe resident in shared memory
+and the master reset fused in (``csrc/ca_step.cu``: the word kernel
+``ca_step_words`` for widths that are a multiple of 16 cells, every width a
+main path runs, and the byte kernel ``ca_step`` for the rest;
+:func:`ca_step_route` decides by shape), and :func:`ca_multi_step`, K
+action-free generations with each universe resident in shared memory
 (``csrc/ca_multi_step.cu``; one launch a generation through device memory
 when two copies of a universe exceed 227 KB).
 
@@ -11,6 +14,9 @@ grid; anything else raises.
 
 from __future__ import annotations
 
+from functools import lru_cache
+from typing import Optional, Tuple
+
 import torch
 
 from ..config import EnvConfig
@@ -19,13 +25,21 @@ from .ca import ca_step_with_action as ca_step_plain
 from .cuda_build import KERNELS, stream_args
 
 KERNEL = KERNELS["ca_step"]
+KERNEL_WORDS = KERNELS["ca_step_words"]
 KERNEL_MULTI = KERNELS["ca_multi_step"]
-# rows a block stages: (BAND_ROWS + 2) x W bytes of shared memory
+# the byte kernel's rows a block stages: (BAND_ROWS + 2) x W bytes of shared memory
 BAND_ROWS = 32
 _SMEM_BYTES = 227 * 1024
+# False sends every width to the byte kernel (for comparisons on the card)
+CA_STEP_WORDS = True
+_BAR_BYTES = 16   # ca_step.cu's mbarrier slot ahead of the staged band
+# the word kernel's band: about this many 16-byte columns a thread, halo rows
+# included (the probes' best at 1, 64 and 160 universes of 256², PERF.md row 1)
+_COLUMNS_A_THREAD = 4
 
-__all__ = ["KERNEL", "KERNEL_MULTI", "ca_multi_step", "ca_multi_step_plain", "ca_step",
-           "ca_step_plain", "rule_tensor"]
+__all__ = ["CA_STEP_WORDS", "KERNEL", "KERNEL_MULTI", "KERNEL_WORDS", "ca_multi_step",
+           "ca_multi_step_plain", "ca_step", "ca_step_plain", "ca_step_route", "rule_tensor",
+           "words_plan"]
 
 
 def rule_tensor(rule_bits, grid: torch.Tensor) -> torch.Tensor:
@@ -39,14 +53,59 @@ def rule_tensor(rule_bits, grid: torch.Tensor) -> torch.Tensor:
     return rule.contiguous()
 
 
-def ca_step(grid: torch.Tensor, action: torch.Tensor, rule_bits,
-            config: EnvConfig) -> torch.Tensor:
+def ca_step_route(h: int, w: int) -> str:
+    """Which kernel takes a [*, h, w] grid on the card: ``"words"`` (16-byte
+    columns of 4-cell words: w % 16 == 0 and a band of one row with its two
+    halo rows fits shared memory) or ``"bytes"``; decided by the shape
+    alone, on any device."""
+    if CA_STEP_WORDS and w % 16 == 0 and _BAR_BYTES + 3 * w <= _SMEM_BYTES:
+        return "words"
+    return "bytes"
+
+
+def words_plan(n: int, h: int, w: int, sms: int) -> Tuple[int, int, int]:
+    """(rows a block, rows a thread's strip, threads a block) of the word
+    kernel on n universes of h x w on a card of ``sms`` multiprocessors: the
+    most threads a block (to 128) that still give every multiprocessor two
+    blocks, as many rows as give each thread about _COLUMNS_A_THREAD 16-byte
+    columns with the two halo rows, and strips that give each thread one
+    strip of a 16-byte column."""
+    columns = w // 16
+    threads = 128
+    band = lambda t: max(1, _COLUMNS_A_THREAD * t // columns - 2)
+    while threads > 32 and n * -(-h // band(threads)) < 2 * sms:
+        threads //= 2
+    rows = max(1, min(band(threads), h, (_SMEM_BYTES - _BAR_BYTES) // w - 2))
+    strip = -(-rows // max(1, threads // columns))
+    return rows, strip, threads
+
+
+@lru_cache(maxsize=None)
+def _multiprocessors(device: torch.device) -> int:
+    """The multiprocessors of the card a grid lies on (one for the emulated
+    build's CPU tensors)."""
+    if device.type != "cuda":
+        return 1
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ca_step(grid: torch.Tensor, action: torch.Tensor, rule_bits, config: EnvConfig,
+            reset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """XOR the [inst, AH, AW] action (nonzero toggles) into the centred
-    window of the uint8 [inst, H, W] grid and run one generation."""
+    window of the uint8 [inst, H, W] grid and run one generation; all zeros
+    where the 0-d bool or uint8 ``reset`` (a device flag the host never
+    reads) is set."""
     if grid.device.type == "cpu":
-        return ca_step_plain(grid, action, rule_bits, config)
+        return ca_step_plain(grid, action, rule_bits, config, reset)
     if grid.device.type != "cuda":
         raise ValueError(f"ca_step runs on cpu or cuda, not {grid.device}")
+    if ca_step_route(grid.shape[-2], grid.shape[-1]) == "words":
+        return _ca_step_words_kernel(grid, action, rule_bits, config, reset)
+    return _ca_step_bytes_kernel(grid, action, rule_bits, config, reset)
+
+
+def _checked(grid, action, config, reset):
+    """The launch's common checks; returns (n, h, w, ah, aw, reset pointer)."""
     n, h, w = grid.shape
     ah, aw = config.eff_action_height, config.eff_action_width
     if (h, w) != (config.height, config.width):
@@ -58,8 +117,42 @@ def ca_step(grid: torch.Tensor, action: torch.Tensor, rule_bits,
         if t.dtype != torch.uint8 or t.device != grid.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous uint8 tensor on "
                              f"{grid.device}")
+    if reset is None:
+        return n, h, w, ah, aw, None
+    if (reset.dtype not in (torch.bool, torch.uint8) or reset.numel() != 1
+            or reset.device != grid.device):
+        raise ValueError(f"reset must be a one-element bool or uint8 tensor on {grid.device}")
+    return n, h, w, ah, aw, reset.data_ptr()
+
+
+def _ca_step_words_kernel(grid, action, rule_bits, config, reset=None,
+                          plan: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """The word kernel (``plan`` overrides :func:`words_plan`, for the
+    tests)."""
+    n, h, w, ah, aw, reset_ptr = _checked(grid, action, config, reset)
+    if w % 16 or grid.data_ptr() % 16:
+        raise ValueError("the word kernel reads 16-byte columns: width % 16 == 0 "
+                         "and a 16-byte aligned grid")
+    band, strip, threads = plan or words_plan(n, h, w, _multiprocessors(grid.device))
+    if _BAR_BYTES + (band + 2) * w > _SMEM_BYTES:
+        raise ValueError(f"a band of {band} rows of width {w} exceeds shared memory")
+    if n * -(-h // band) >= 2 ** 31:
+        raise ValueError("the word kernel folds universes and bands into one grid "
+                         "dimension: fewer than 2**31 blocks")
+    rule = rule_tensor(rule_bits, grid)
+    out = torch.empty_like(grid)
+    device, stream = stream_args(grid)
+    KERNEL_WORDS.launch(grid.data_ptr(), action.data_ptr(), rule.data_ptr(),
+                        int(rule.ndim == 1), reset_ptr, out.data_ptr(), n, h, w, ah, aw,
+                        config.action_row_offset, config.action_col_offset, band, strip,
+                        threads, device, stream)
+    return out
+
+
+def _ca_step_bytes_kernel(grid, action, rule_bits, config, reset=None) -> torch.Tensor:
+    n, h, w, ah, aw, reset_ptr = _checked(grid, action, config, reset)
     if n > 65535:
-        raise ValueError("ca_step launches one block row per universe: at "
+        raise ValueError("the byte kernel launches one block row per universe: at "
                          "most 65535 universes")
     band = min(BAND_ROWS, h)
     if (band + 2) * w > _SMEM_BYTES:
@@ -71,7 +164,7 @@ def ca_step(grid: torch.Tensor, action: torch.Tensor, rule_bits,
     out = torch.empty_like(grid)
     device, stream = stream_args(grid)
     KERNEL.launch(grid.data_ptr(), action.data_ptr(), rule.data_ptr(),
-                  int(rule.ndim == 1), out.data_ptr(), n, h, w, ah, aw,
+                  int(rule.ndim == 1), reset_ptr, out.data_ptr(), n, h, w, ah, aw,
                   config.action_row_offset, config.action_col_offset, band,
                   device, stream)
     return out

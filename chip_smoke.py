@@ -8,7 +8,13 @@ Phases, in order; any failure exits non-zero without the final line:
            all at once) and print the card as nvidia-smi names it;
 2. kernels each kernel against its plain PyTorch twin on the card at the
            slices' shapes (integer kernels exact, float kernels within the
-           stated tolerance; the encoder's kernels specialised at the
+           stated tolerance; the per-step CA kernel on words of cells,
+           ca_step_words, every main path's, against its twin and the byte
+           kernel forced at [1], [64], [160] x 256² and ragged shapes, with
+           and without the master reset, bit for bit, both timed in turns
+           after an L2 flush and L2-warm and by CUPTI cold and warm, the word
+           kernel's registers and blocks a multiprocessor; row 2 at
+           the paths' shapes and the halo rows per launch; the encoder's kernels specialised at the
            package's three widths, enc3_*, also against the generic ones at
            every shape: the forward bit for bit, the gradients within 1e-5 of
            each leaf at 256² and 1e-4 on the 8192² shapes, the training
@@ -127,8 +133,9 @@ Phases, in order; any failure exits non-zero without the final line:
            paths (battery, server, train, routes, wrappers, packed, bands,
            engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
-           bands path; a generic encoder or decoder-loss kernel launched on
-           any of them fails the run), then the card's name and power limit,
+           bands path; a generic encoder or decoder-loss kernel, or the byte
+           ca_step kernel, launched on any of them fails the run), then the
+           card's name and power limit,
            then the ok line.
 
 Tolerances: float kernels vs plain twins rtol 1e-4 / atol 1e-4 (the twins
@@ -201,6 +208,7 @@ BATTERY_RULESETS = (([3], [2, 3]), ([3, 6, 8], [2, 4, 5]), ([3, 6, 7, 8], [3, 4,
                     ([3], [0, 2, 3]), ([1, 3, 5, 7], [1, 3, 5, 7]))
 
 SOURCES = {
+    "ca_step_words": ("carle_tpu_torch/csrc/ca_step.cu", "carle_tpu/ops/pallas_ca.py:100"),
     "ca_step": ("carle_tpu_torch/csrc/ca_step.cu", "carle_tpu/ops/pallas_ca.py:100"),
     "bit_multi_step": ("carle_tpu_torch/csrc/bit_multi_step.cu",
                        "carle_tpu/ops/pallas_bitpack.py:565"),
@@ -278,13 +286,13 @@ AE_INSTANTIATIONS = {"ae_loss_fwd": ("ae2d_fwd", "ae_loss_fwd"),
                      "ae_loss_bwd": ("ae2d_bwd", "ae_loss_bwd")}
 # the kernels each main path must launch
 PATH_KERNELS = {
-    "battery": ("ca_step", "enc3_fwd", "ae2d_fwd"),
-    "server": ("ca_step", "bit_multi_step", "enc3_fwd", "ae2d_fwd"),
-    "train": ("ca_step", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
+    "battery": ("ca_step_words", "enc3_fwd", "ae2d_fwd"),
+    "server": ("ca_step_words", "bit_multi_step", "enc3_fwd", "ae2d_fwd"),
+    "train": ("ca_step_words", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
     "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
                "head_bwd", "tail_fwd", "tail_bwd", "loss_tail_fwd", "loss_tail_bwd",
                "dec2_fwd", "dec2_bwd"),
-    "wrappers": ("ca_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
+    "wrappers": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                  "dec2_fwd", "dec2_bwd", "tail_fwd"),
     "packed": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                "dec2_fwd", "dec2_bwd"),
@@ -299,6 +307,9 @@ PATH_KERNELS = {
 # specialised kernels' widths
 GENERIC_ENCODER = ("encoder_fwd", "encoder_bwd")
 GENERIC_DECODER = ("decoder_loss_fwd", "decoder_loss_bwd")
+# the byte ca_step kernel, which no main path may launch: every universe of a
+# main path is 256 cells wide, a width the word kernel takes
+BYTE_CA_STEP = ("ca_step",)
 # the kernels the packed path must launch on packed words
 PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "dec2_fwd", "dec2_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
@@ -325,14 +336,16 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, reps: int, warmup: int = 1) -> float:
+    def ms(self, fn, reps: int, warmup: int = 1, flush: bool = True) -> float:
+        """``flush=False``: L2-warm, the inputs left in L2 by the warm-up."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(reps):
-            self.flush_buf.zero_()
+            if flush:
+                self.flush_buf.zero_()
             torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -378,36 +391,21 @@ def phase_kernels(torch, timer, shipped, philox):
     """Each kernel vs its plain twin at the slice's shapes (philox: a
     draw's operations, philox_draw_ops, for the dropout bounds)."""
     from carle_tpu_torch import EnvConfig, rules
-    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca, cuda_head
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_head
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    # ca_step: 160 universes of 256x256, valued actions, scalar and vector rules
+    # row 1 on 160 universes of 256² (phase_ca_step); drawn first from the
+    # phase's generator, so every later kernel's data is as before
     cfg = EnvConfig(instances=160)
     grid = (torch.rand(cfg.grid_shape, generator=gen, device=dev) < 0.35).to(torch.uint8)
     action = (torch.rand(cfg.action_shape, generator=gen, device=dev) * 8).to(torch.uint8)
     action[action > 3] = 0
     rule_vec = torch.randint(0, 1 << 18, (160,), generator=gen, device=dev,
                              dtype=torch.int32)
-    err = 0
-    for rule in (torch.tensor(rules.MORLEY, dtype=torch.int32, device=dev), rule_vec):
-        got = cuda_ca.ca_step(grid, action, rule, cfg)
-        want = cuda_ca.ca_step_plain(grid, action, rule, cfg)
-        err = max(err, int((got.int() - want.int()).abs().max()))
-    check(err == 0, f"ca_step differs from its plain twin: max {err}")
-    n, h, w = cfg.grid_shape
-    nbytes = 2 * n * h * w + n * cfg.eff_action_height * cfg.eff_action_width + 4 * n
-    ops = n * h * w * OPS_PER_WORD / 32  # the packed engine's count: least ops
-    b, by = bound_ms(nbytes, ops, INT32_OPS)
-    results["ca_step"] = dict(
-        max_abs_err=float(err),
-        ms=timer.ms(lambda: cuda_ca.ca_step(grid, action, rule_vec, cfg), 20),
-        plain_ms=timer.ms(lambda: cuda_ca.ca_step_plain(grid, action, rule_vec, cfg), 5),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape="u8 [160,256,256], action [160,64,64], rule [160]")
-    log(f"ca_step ok: {results['ca_step']}")
+    results.update(phase_ca_step(torch, timer, cfg, grid, action, rule_vec))
 
     # bit_multi_step: 4096 x 256x256 x 128 generations (scalar rule) and
     # 160 universes with a rule vector
@@ -433,6 +431,7 @@ def phase_kernels(torch, timer, shipped, philox):
         ms=timer.ms(lambda: cuda_bitpack.bit_multi_step(big, life, steps), 3),
         plain_ms=plain_big_ms, bound_ms=b, bound_by=by, library_ms=None,
         shape="u32 [4096,256,8] x 128 generations, scalar rule")
+    results["bit_multi_step"]["at_paths"] = _bit_multi_step_at_paths(torch, timer, big, rule_vec)
     log(f"bit_multi_step ok: {results['bit_multi_step']}")
 
     # the encoder's forward (row 3a) and ae_loss_fwd on the battery's
@@ -495,6 +494,155 @@ def phase_kernels(torch, timer, shipped, philox):
     results.update(phase_band_kernels(torch, timer, gen, philox))
     torch.cuda.empty_cache()
     return results
+
+
+def _bit_multi_step_at_paths(torch, timer, big, rule_vec):
+    """Row 2 at the shapes the main paths launch it: one generation a step
+    of the packed carry (train-64, the packed stack on 160 universes, the
+    bands' universe of 8192², one launch a generation there), and the
+    server's /rollout (one universe of 256², 256 generations, one launch).
+    Device ms after an L2 flush against the bound, per launch."""
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    band = bitpack.pack_grid((torch.rand((1, 8192, 8192), generator=gen, device="cuda")
+                              < 0.2).to(torch.uint8))
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device="cuda")
+    shapes = {"packed train [64,256,8] x 1": (big[:64].contiguous(), rule_vec[:64], 1),
+              "packed stack [160,256,8] x 1": (big[:160].contiguous(), rule_vec, 1),
+              "bands [1,8192,256] x 1": (band, life, 1),
+              "server /rollout [1,256,8] x 256": (big[:1].contiguous(), life, 256)}
+    out = {}
+    for label, (words, rule, steps) in shapes.items():
+        kernel = cuda_bitpack.KERNEL
+        before = kernel.launches
+        cuda_bitpack.bit_multi_step(words, rule, steps)
+        launches = kernel.launches - before
+        b, by = bound_ms(2 * 4 * words.numel() + 4 * rule.numel(),
+                         OPS_PER_WORD * words.numel() * steps, INT32_OPS)
+        ms = timer.ms(lambda: cuda_bitpack.bit_multi_step(words, rule, steps), 30)
+        out[label] = {"ms": ms, "launches_per_call": launches, "ms_per_launch": ms / launches,
+                      "bound_ms": b, "bound_by": by, "bound_ms_per_launch": b / launches}
+    return out
+
+
+def _ca_step_bound(n, h, w, ah, aw, reset=False):
+    """Row 1's least time: each cell read once and written once, the action
+    window and the rules read once (under the reset only the zeros written),
+    against the packed engine's operations a cell (the least any update
+    needs)."""
+    nbytes = n * h * w if reset else 2 * n * h * w + n * ah * aw + 4 * n
+    return bound_ms(nbytes, 0 if reset else n * h * w * OPS_PER_WORD / 32, INT32_OPS)
+
+
+def phase_ca_step(torch, timer, cfg160, grid160, action160, rule160):
+    """Row 1: the word kernel (ca_step_words, every main path's at 256²)
+    against its twin and the byte kernel forced (cuda_ca.CA_STEP_WORDS =
+    False), bit for bit, at [1], [64] and [160] x 256² and a ragged shape,
+    valued actions (0, 1, 2, 128, 255), scalar and per-universe rules, the
+    master reset unset and set; then both timed in turns after an L2 flush
+    and L2-warm, the reset set, each kernel's own device time by CUPTI after
+    an L2 flush and L2-warm, and the plans' registers and blocks a
+    multiprocessor."""
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.ops import cuda_build, cuda_ca
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    values = torch.tensor([0, 1, 2, 128, 255], dtype=torch.uint8, device=dev)
+
+    def case(cfg):
+        g = (torch.rand(cfg.grid_shape, generator=gen, device=dev) < 0.35).to(torch.uint8)
+        pick = torch.randint(0, 5, cfg.action_shape, generator=gen, device=dev)
+        a = torch.where(torch.rand(cfg.action_shape, generator=gen, device=dev) < 0.5,
+                        values[pick], values[0])
+        r = torch.randint(0, 1 << 18, (cfg.instances,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        return g, a.contiguous(), r
+
+    def forced_bytes(fn):
+        cuda_ca.CA_STEP_WORDS = False
+        try:
+            return fn()
+        finally:
+            cuda_ca.CA_STEP_WORDS = True
+
+    cases = {n: (EnvConfig(instances=n), *case(EnvConfig(instances=n))) for n in (1, 64)}
+    cases[160] = (cfg160, grid160, action160, rule160)
+    ragged = EnvConfig(height=250, width=208, action_height=62, action_width=62, instances=3)
+    cases["ragged"] = (ragged, *case(ragged))   # H not a multiple of a band, c0 = 73
+    odd = EnvConfig(height=23, width=37, action_height=8, action_width=9, instances=3)
+    flags = {"none": None, "unset": torch.tensor(False, device=dev),
+             "set": torch.tensor(True, device=dev)}
+    check(cuda_ca.ca_step_route(256, 256) == "words" and cuda_ca.ca_step_route(23, 37) == "bytes",
+          "ca_step routes")
+    for label, (cfg, g, a, r) in list(cases.items()) + [("odd", (odd, *case(odd)))]:
+        for rule in (torch.tensor(rules.MORLEY, dtype=torch.int32, device=dev), r):
+            for flag in flags.values():
+                want = cuda_ca.ca_step_plain(g, a, rule, cfg, flag)
+                got = cuda_ca.ca_step(g, a, rule, cfg, flag)
+                byte = forced_bytes(lambda: cuda_ca.ca_step(g, a, rule, cfg, flag))
+                check(torch.equal(got, want) and torch.equal(byte, want),
+                      f"ca_step {label}: kernel, byte kernel and twin differ")
+                check(bool(want.any()) == (flag is None or not bool(flag)),
+                      f"ca_step {label}: the reset")
+    log("ca_step: word kernel, byte kernel and twin agree bit for bit at [1], [64], "
+        "[160] x 256², [3, 250, 208] and [3, 23, 37] (the byte kernel's), reset none/unset/set")
+
+    sms = cuda_ca._multiprocessors(dev)
+    timed = {}
+    for label, (cfg, g, a, r) in cases.items():
+        n, h, w = cfg.grid_shape
+        ah, aw = cfg.eff_action_height, cfg.eff_action_width
+        unset, on = flags["unset"], flags["set"]
+        words = lambda: cuda_ca.ca_step(g, a, r, cfg, unset)
+        byte = lambda: forced_bytes(lambda: cuda_ca.ca_step(g, a, r, cfg, unset))
+        entry = {"shape": f"u8 [{n},{h},{w}], action [{n},{ah},{aw}], rule [{n}]",
+                 "plan": cuda_ca.words_plan(n, h, w, sms)}
+        for flush in (True, False):
+            tag = "flushed" if flush else "l2_warm"
+            reps = 50 if flush else 100
+            for route in ("words", "bytes", "words", "bytes"):   # in turns
+                entry.setdefault(f"{route}_{tag}_ms", []).append(
+                    timer.ms(words if route == "words" else byte, reps, flush=flush))
+        entry["words_reset_ms"] = timer.ms(lambda: cuda_ca.ca_step(g, a, r, cfg, on), 50)
+        entry["bytes_reset_ms"] = timer.ms(
+            lambda: forced_bytes(lambda: cuda_ca.ca_step(g, a, r, cfg, on)), 50)
+        entry["bound_ms"], entry["bound_by"] = _ca_step_bound(n, h, w, ah, aw)
+        entry["reset_bound_ms"] = _ca_step_bound(n, h, w, ah, aw, True)[0]
+        entry["plain_ms"] = timer.ms(lambda: cuda_ca.ca_step_plain(g, a, r, cfg, unset), 5)
+        # a copy of the grid moves the same bytes: the yardstick of this timer
+        copy = lambda: torch.empty_like(g).copy_(g)
+        entry["copy_flushed_ms"] = timer.ms(copy, 50)
+        entry["copy_l2_warm_ms"] = timer.ms(copy, 100, flush=False)
+        # each kernel's own device time by CUPTI, cold (the L2 flushed before
+        # each call, as the bound assumes) and L2-warm (the calls in a row)
+        for name, fn, kernels in (("words", words, ("ca_step_words_kernel",)),
+                                  ("bytes", byte, ("ca_step_kernel",)),
+                                  ("copy", copy, ("Memcpy", "copy_kernel"))):
+            for tag, call in (("cold", lambda: (timer.flush_buf.zero_(), fn())),
+                              ("l2_warm", fn)):
+                rows = _device_split(torch, call, 20)["by_kernel"]
+                us = sum(row["us"] for row in rows if any(k in row["name"] for k in kernels))
+                check(us > 0, f"ca_step [{label}]: no CUPTI time for {name} in {rows}")
+                entry[f"{name}_cupti_{tag}_us"] = us
+        timed[label] = entry
+        log(f"ca_step [{label}]: {json.dumps(entry)}")
+    occupancy = {}
+    for plan in sorted({cuda_ca.words_plan(*cases[n][0].grid_shape, sms) for n in (1, 64, 160)}):
+        band, _, threads = plan
+        smem = cuda_ca._BAR_BYTES + (band + 2) * 256
+        occupancy[str(plan)] = dict(_occupancy(
+            cuda_build, "ca_step", "ca_step_words_occupancy", threads, Big(smem))[0],
+            dynamic_smem=smem)
+    log(f"ca_step_words occupancy (W = 256): {json.dumps(occupancy)}")
+    main = timed[160]
+    common = dict(max_abs_err=0.0, plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                  bound_by=main["bound_by"], library_ms=None, shape=main["shape"])
+    return {"ca_step_words": dict(common, ms=main["words_flushed_ms"][0], by_shape=timed,
+                                  occupancy=occupancy),
+            "ca_step": dict(common, ms=main["bytes_flushed_ms"][0])}
 
 
 def _plain_ms(torch, fn):
@@ -2476,6 +2624,10 @@ def phase_spatial_kernels(torch, timer, gen):
         results[name] = dict(max_abs_err=0.0, ms=timer.ms(kernel, 5),
                              engine_ms=timer.ms(engine, 5), plain_ms=timer.ms(twin, 1),
                              bound_ms=b, bound_by=by, library_ms=None, shape=shape)
+        # a launch is a generation (the launcher's count): launches x (ms -
+        # bound ms) ranks in one unit only per launch
+        results[name].update(launches_per_call=steps, ms_per_launch=results[name]["ms"] / steps,
+                             bound_ms_per_launch=b / steps)
         log(f"{name} ok: {results[name]}")
     # the ragged case: 3 universes, a per-universe rule, rows 4 x 64 over 4 slots
     small = torch.from_numpy((np.random.RandomState(5).rand(3, 4 * 64, 128) < 0.35)
@@ -3449,10 +3601,10 @@ def main() -> int:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
     generic = {f"{path}:{k}": c[k] for path, c in path_counts.items()
-               for k in GENERIC_ENCODER + GENERIC_DECODER if c[k]}
+               for k in GENERIC_ENCODER + GENERIC_DECODER + BYTE_CA_STEP if c[k]}
     if generic:
-        log(f"FAIL: generic encoder or decoder-loss kernels launched on the main paths: "
-            f"{generic}")
+        log(f"FAIL: generic encoder or decoder-loss kernels, or the byte ca_step kernel, "
+            f"launched on the main paths: {generic}")
         return 1
     ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
                    for path, c in path_counts.items()}

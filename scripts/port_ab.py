@@ -9,8 +9,14 @@ each taken in a fresh process.
         (dropout 0 and 0.1, 256² and RND's bands of 8192²), and the decoder
         loss's error and five gradients on the route the checkout takes and
         on the generic kernels (uint8 and packed obs, dropout 0 and 0.1, row
-        weights none and with zero rows).  Equal digests from two checkouts
-        mean bit-for-bit equal outputs.
+        weights none and with zero rows), and env_step over a battery leg
+        (160 universes, 256 steps with resets, all-2.0 and empty actions:
+        every grid, step_num and steps_since_action).  Equal digests from
+        two checkouts mean bit-for-bit equal outputs.
+    python scripts/port_ab.py env-step --root DIR
+        one env_step on 160 universes of 256²: its device launches and
+        device µs by kernel (torch.profiler) and its device ms after an L2
+        flush and L2-warm (calls in a row).
     python scripts/port_ab.py profile-packed --root DIR
         chip_smoke.py's packed training profile (64 universes, 64 steps on
         the packed carry, under torch.profiler) as one JSON line.
@@ -122,7 +128,89 @@ def digests(torch) -> dict:
                     out[f"{key} fwd"] = _digest([cs.decoder_loss_fwd(emb, *dec, o, p, 99, e)])
                     out[f"{key} bwd"] = _digest(cs.decoder_loss_bwd(emb, *dec, o, gbar, p, 99, e))
     cs.DEC2_KERNELS = True
+    out["env_step battery leg"] = env_leg_digest(torch)
     return out
+
+
+def _battery_leg_actions(torch, steps, shape, dev):
+    """A battery leg's actions: toggles at p = 0.1 from a seed, all ones (the
+    master reset) a fifth of the way in and after three fifths, all 2.0
+    (toggles, no reset) at half way, nothing on every seventh step."""
+    gen = torch.Generator(device=dev).manual_seed(77)
+    for t in range(steps):
+        a = (torch.rand(shape, generator=gen, device=dev) < 0.1).to(torch.float32)
+        if t in (steps // 5, 3 * steps // 5):
+            a.fill_(1.0)
+        elif t == steps // 2:
+            a.fill_(2.0)
+        elif t % 7 == 6:
+            a.zero_()
+        yield a
+
+
+def env_leg_digest(torch) -> str:
+    """env_step over a battery leg (5 rulesets x 32 universes of 256², 256
+    steps, _battery_leg_actions): every step's grid, step_num and
+    steps_since_action in one digest."""
+    import chip_smoke
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.env import env_step, init_state
+
+    dev = torch.device("cuda")
+    cfg = EnvConfig(instances=160)
+    bits = [rules.pack_rule_bits(*chip_smoke.BATTERY_RULESETS[i % 5]) for i in range(160)]
+    state = init_state(cfg, torch.tensor(bits, dtype=torch.int32), dev)
+    gen = torch.Generator(device=dev).manual_seed(78)
+    state = state._replace(grid=(torch.rand(cfg.grid_shape, generator=gen, device=dev)
+                                 < 0.35).to(torch.uint8))
+    h = hashlib.sha256()
+    for a in _battery_leg_actions(torch, 256, cfg.action_shape, dev):
+        state, obs = env_step(state, a, cfg)
+        for t in (obs, state.step_num, state.steps_since_action):
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def env_step_cost(torch) -> dict:
+    """One env_step on 160 universes of 256² (a p = 0.1 float action, the
+    rules of the battery): its device launches and device µs (torch.profiler,
+    chip_smoke._device_split) and its device ms after an L2 flush
+    (chip_smoke.Timer) and L2-warm."""
+    import chip_smoke
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.env import env_step, init_state
+
+    dev = torch.device("cuda")
+    cfg = EnvConfig(instances=160)
+    bits = [rules.pack_rule_bits(*chip_smoke.BATTERY_RULESETS[i % 5]) for i in range(160)]
+    state = init_state(cfg, torch.tensor(bits, dtype=torch.int32), dev)
+    gen = torch.Generator(device=dev).manual_seed(79)
+    state = state._replace(grid=(torch.rand(cfg.grid_shape, generator=gen, device=dev)
+                                 < 0.35).to(torch.uint8))
+    action = (torch.rand(cfg.action_shape, generator=gen, device=dev) < 0.1).to(torch.float32)
+    step = lambda: env_step(state, action, cfg)
+    timer = chip_smoke.Timer(torch)
+    split = chip_smoke._device_split(torch, step, 20)
+    return {"launches_per_call": split["launches_per_call"],
+            "device_us_per_call": split["device_us_per_call"], "by_kernel": split["by_kernel"],
+            "flushed_ms": [timer.ms(step, 50) for _ in range(2)],
+            "l2_warm_ms": [_warm_ms(torch, step, 20) for _ in range(2)]}
+
+
+def _warm_ms(torch, fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls in a row, its inputs left
+    in L2 by a warm-up; the stream sleeps first so the host has queued the
+    calls before the start event fires."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)   # ~10 ms: longer than the host takes to queue them
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _encoder_nets(torch, gen, dev):
@@ -324,7 +412,8 @@ def python_cost(torch) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("digest", "profile-packed", "profile-wrappers",
+    parser.add_argument("what", choices=("digest", "env-step", "profile-packed",
+                                         "profile-wrappers",
                                          "encoder-times", "decoder-gx", "host-encoder",
                                          "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -344,6 +433,8 @@ def main() -> int:
         return 1
     if args.what == "digest":
         result = digests(torch)
+    elif args.what == "env-step":
+        result = env_step_cost(torch)
     elif args.what == "encoder-times":
         result = encoder_times(torch, args.generic)
     elif args.what == "decoder-gx":

@@ -2,6 +2,7 @@
 // every block with ONE thread (blockDim = 1), so __syncthreads() is a no-op
 // and the kernels' index arithmetic can be checked where there is no card.
 #pragma once
+#define CUDA_EMULATION 1
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -54,6 +55,12 @@ struct alignas(16) float4 {
     float x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return float4{x, y, z, w}; }
+struct alignas(16) uint4 {
+    unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+    return uint4{x, y, z, w};
+}
 struct alignas(8) float2 {
     float x, y;
 };
@@ -73,6 +80,14 @@ inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
     s &= 31;
     return s ? (lo >> s) | (hi << (32 - s)) : lo;
 }
+// The Tensor Memory Accelerator's 1-D bulk copy (csrc/ca_step.cu's helpers):
+// a copy that has landed by the time the one thread waits.
+inline void bulk_barrier_init(uint64_t*) {}
+inline void bulk_barrier_expect(uint64_t*, uint32_t) {}
+inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t*) {
+    std::memcpy(dst, src, bytes);
+}
+inline void bulk_barrier_wait(uint64_t*, uint32_t) {}
 using std::min;
 using std::max;
 

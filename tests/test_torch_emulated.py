@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from carle_tpu_torch import rules
+from carle_tpu_torch import EnvConfig, rules
 from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca, cuda_head, cuda_stages
 from carle_tpu_torch.parallel import cuda_halo
 from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
@@ -26,7 +26,7 @@ from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd",
            "enc3_fwd", "enc3_bwd", "head_fwd", "head_bwd", "tail", "decoder_loss_fwd", "decoder_loss_bwd",
            "dec2_fwd", "dec2_bwd",
-           "bit_multi_step", "ca_multi_step", "halo_step")
+           "bit_multi_step", "ca_multi_step", "halo_step", "ca_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
 
 
@@ -323,6 +323,57 @@ def test_engine_kernels_emulated(emulated, monkeypatch, shape, resident):
                                                                steps, True, ""), h).sum()),
             int(cuda_ca._ca_multi_step_kernel(grid, life, steps).sum())}
     assert len(sums) == 1
+
+
+ACTION_VALUES = np.array([0, 1, 2, 128, 255], dtype=np.uint8)
+
+
+@pytest.mark.parametrize("geom", [  # n, h, w, ah, aw, plan (rows, strip, threads) or None
+    (2, 40, 64, 20, 26, None),          # the window from column 19 (mid-word), AW % 4 = 2
+    (1, 42, 48, 13, 7, (16, 4, 64)),    # N = 1, H not a multiple of the band, c0 = 20
+    (3, 24, 32, 24, 32, (8, 3, 32)),    # the window the whole universe, ragged strips
+    (2, 9, 80, 5, 33, (4, 2, 64)),      # a last band of one row, rows 2-5, from column 23
+    (2, 20, 16, 6, 5, (6, 2, 32)),      # one 16-byte column: west and east wrap into it
+    (3, 30, 64, 12, 32, (30, 8, 128)),  # a window on 16-byte columns (c0 = 16, AW = 32)
+    (1, 6, 96, 1, 1, None),             # one band the whole universe, one cell at c0 = 47
+    (2, 33, 112, 33, 3, (11, 11, 32)),  # window rows 0-31: the wrapped halo row 0 toggles
+])
+def test_ca_step_kernels_emulated(emulated, geom):
+    """Row 1: the word kernel and the byte kernel against ca_step_plain, bit
+    for bit: action values 0, 1, 2, 128 and 255, the master reset set and
+    unset, scalar and per-universe rules."""
+    n, h, w, ah, aw, plan = geom
+    cfg = EnvConfig(width=w, height=h, action_width=aw, action_height=ah, instances=n)
+    rng = np.random.RandomState(h * w + n)
+    grid = torch.from_numpy((rng.rand(n, h, w) < 0.4).astype(np.uint8))
+    shape = cfg.action_shape   # an odd height shrinks the window a row
+    action = torch.from_numpy(np.where(rng.rand(*shape) < 0.5, 0,
+                                       rng.choice(ACTION_VALUES, shape)).astype(np.uint8))
+    vec = torch.tensor([_rule_mask(*RULESETS[i % 5]) for i in range(n)], dtype=torch.int32)
+    for rule in (torch.tensor(_rule_mask(*RULESETS[1]), dtype=torch.int32), vec):
+        for reset in (None, torch.tensor(False), torch.tensor(True)):
+            want = cuda_ca.ca_step_plain(grid, action, rule, cfg, reset)
+            got = cuda_ca._ca_step_words_kernel(grid, action, rule, cfg, reset, plan)
+            assert torch.equal(got, want)
+            assert torch.equal(cuda_ca._ca_step_bytes_kernel(grid, action, rule, cfg, reset),
+                               want)
+            if reset is not None and bool(reset):
+                assert not want.any()
+            else:
+                assert want.any()
+
+
+def test_ca_step_launch_counts_emulated(emulated):
+    """One launch a call, counted under the kernel that ran."""
+    cfg = EnvConfig(width=32, height=16, action_width=8, action_height=8, instances=2)
+    grid = torch.zeros(cfg.grid_shape, dtype=torch.uint8)
+    action = torch.ones(cfg.action_shape, dtype=torch.uint8)
+    words, words_n = cuda_ca.KERNEL_WORDS, cuda_ca.KERNEL_WORDS.launches
+    byte_n = cuda_ca.KERNEL.launches
+    cuda_ca._ca_step_words_kernel(grid, action, rules.LIFE, cfg)
+    assert (words.launches, cuda_ca.KERNEL.launches) == (words_n + 1, byte_n)
+    cuda_ca._ca_step_bytes_kernel(grid, action, rules.LIFE, cfg)
+    assert (words.launches, cuda_ca.KERNEL.launches) == (words_n + 1, byte_n + 1)
 
 
 def _same(a, b):

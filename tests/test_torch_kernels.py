@@ -53,10 +53,61 @@ def test_ca_step_kernel_matches_plain(cuda, geom):
     for rule in (torch.tensor(rules.LIFE, dtype=torch.int32),
                  torch.from_numpy(rng.randint(0, 1 << 18, size=n).astype(np.int32))):
         rule = rule.to(cuda)
-        before = cuda_ca.KERNEL.launches
+        kernel = (cuda_ca.KERNEL_WORDS if cuda_ca.ca_step_route(h, w) == "words"
+                  else cuda_ca.KERNEL)
+        before = kernel.launches
         got = cuda_ca.ca_step(grid, action, rule, cfg)
-        assert cuda_ca.KERNEL.launches == before + 1
+        assert kernel.launches == before + 1
         assert torch.equal(got, cuda_ca.ca_step_plain(grid, action, rule, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(256, 256, 64, 64, 160), (256, 256, 64, 64, 1),
+                                  (64, 80, 20, 26, 3), (42, 48, 13, 7, 2)])
+def test_ca_step_words_matches_bytes_and_plain(cuda, geom):
+    """The word kernel (its own plan and a forced one of 16-row bands)
+    against the byte kernel forced and the twin, bit for bit: action values
+    0, 1, 2, 128, 255 in a window that may start mid-word, the master reset
+    set and unset, scalar and per-universe rules."""
+    h, w, ah, aw, n = geom
+    cfg = EnvConfig(h, w, ah, aw, n)
+    rng = np.random.RandomState(h + n)
+    grid = torch.from_numpy(_soup(h + n, cfg.grid_shape)).to(cuda)
+    values = np.array([0, 1, 2, 128, 255], dtype=np.uint8)
+    action = torch.from_numpy(np.where(rng.rand(*cfg.action_shape) < 0.5, 0,
+                                       rng.choice(values, cfg.action_shape))
+                              .astype(np.uint8)).to(cuda)
+    vec = torch.from_numpy(rng.randint(0, 1 << 18, size=n).astype(np.int32)).to(cuda)
+    for rule in (torch.tensor(rules.MORLEY, dtype=torch.int32, device=cuda), vec):
+        for reset in (None, torch.tensor(False, device=cuda), torch.tensor(True, device=cuda)):
+            want = cuda_ca.ca_step_plain(grid, action, rule, cfg, reset)
+            for plan in (None, (16, 4, 64)):
+                got = cuda_ca._ca_step_words_kernel(grid, action, rule, cfg, reset, plan)
+                assert torch.equal(got, want)
+            assert torch.equal(cuda_ca._ca_step_bytes_kernel(grid, action, rule, cfg, reset),
+                               want)
+            assert bool(want.any()) == (reset is None or not bool(reset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom,route", [((256, 256), "words"), ((64, 64), "words"),
+                                        ((23, 37), "bytes"), ((24, 40), "bytes")])
+def test_ca_step_route_launches_once(cuda, monkeypatch, geom, route):
+    """A call launches its route's kernel once and the other kernel never;
+    CA_STEP_WORDS = False sends every width to the byte kernel."""
+    h, w = geom
+    cfg = EnvConfig(h, w, 8, 8, 2)
+    grid = torch.from_numpy(_soup(w, cfg.grid_shape)).to(cuda)
+    action = torch.ones(cfg.action_shape, dtype=torch.uint8, device=cuda)
+    assert cuda_ca.ca_step_route(h, w) == route
+    for forced in (False, True):
+        monkeypatch.setattr(cuda_ca, "CA_STEP_WORDS", not forced)
+        runs = cuda_ca.KERNEL_WORDS if route == "words" and not forced else cuda_ca.KERNEL
+        idle = cuda_ca.KERNEL if runs is cuda_ca.KERNEL_WORDS else cuda_ca.KERNEL_WORDS
+        before = (runs.launches, idle.launches)
+        got = cuda_ca.ca_step(grid, action, rules.LIFE, cfg)
+        assert (runs.launches, idle.launches) == (before[0] + 1, before[1])
+        assert torch.equal(got, cuda_ca.ca_step_plain(grid, action, rules.LIFE, cfg))
 
 
 @pytest.mark.cuda
