@@ -8,14 +8,11 @@
 //   mid = relu(drop(conv_transpose(emb, wt1, k4 s2 p1) + bt1))   [H/2, W/2]
 //   y   = sigmoid(drop(conv_transpose(mid, wt2, k4 s2 p1) + bt2)) [H, W]
 //
-// Transpose convolutions by output parity: output (y, x) uses taps ky in
-// {(y + 1) mod 2, (y + 1) mod 2 + 2} and kx likewise, so a thread computes a
-// 2 x 2 block of a stage's outputs from a 2 x 2 (or 3 x 3) window of its
-// input, the four parity classes as fixed stencils, each sum in the generic
-// kernels' order (net_stages.cuh::deconv_preact: bias, then channel, ky, kx
-// ascending).  So every middle activation and output pre-activation is the
-// generic kernel's bit for bit.  The weights sit in the block's shared memory
-// grouped by output parity as float4s: one broadcast load serves a stencil.
+// Transpose convolutions by output parity (parity.cuh's stencils): a thread
+// computes a 2 x 2 block of a stage's outputs from a 2 x 2 (or 3 x 3) window
+// of its input, the four parity classes as fixed stencils, each sum in the
+// generic kernels' order.  So every middle activation and output
+// pre-activation is the generic kernel's bit for bit.
 //
 // Every buffer is a window of its layer: `rows` rows from global row r0 and
 // `cols` columns from global column c0, zero outside the layer's extent (a
@@ -33,7 +30,7 @@
 // twins' 1e-4 agreement, so the kernels stay on float32 FMA.
 #pragma once
 
-#include "bit_table.cuh"
+#include "parity.cuh"
 
 // The decoder's weights in the block's shared memory: the taps by output
 // parity (u, v) in the order a sum takes them, {(u, v), (u, v + 2), (u + 2,
@@ -41,18 +38,6 @@
 // dec2_wt2p[u * 2 + v] of wt2; dec2_bias = (bt1, bt2).
 __shared__ float4 dec2_wt1p[8], dec2_wt2p[4];
 __shared__ float dec2_bias[2];
-
-__device__ __forceinline__ float4 parity_taps(const float* w, int u, int v) {
-    return make_float4(w[u * 4 + v], w[u * 4 + v + 2], w[(u + 2) * 4 + v], w[(u + 2) * 4 + v + 2]);
-}
-
-// Tap (ky, kx) of a transpose convolution's parity table (q: dec2_wt1p + 4 c
-// or dec2_wt2p): parity (ky & 1, kx & 1), place (ky >> 1) * 2 + (kx >> 1).
-__device__ __forceinline__ float parity_tap(const float4* q, int ky, int kx) {
-    const float4 t = q[(ky & 1) * 2 + (kx & 1)];
-    const int k = (ky >> 1) * 2 + (kx >> 1);
-    return k == 0 ? t.x : k == 1 ? t.y : k == 2 ? t.z : t.w;
-}
 
 // Fills the block's copy from wt1 [2, 1, 4, 4], bt1 [1], wt2 [1, 1, 4, 4],
 // bt2 [1] in device memory; every thread calls it, and a __syncthreads()
@@ -70,14 +55,6 @@ __device__ __forceinline__ void dec2_load_weights(const float* __restrict__ wt1,
             dec2_bias[i - 12] = i == 12 ? bt1[0] : bt2[0];
     }
 }
-
-// A window of a layer in a block's shared memory: `rows` x `cols` floats a
-// channel plane, local (0, 0) at global (r0, c0).
-struct Win {
-    float* p;
-    int r0, c0, rows, cols;
-    __device__ float* at(int r, int c) const { return p + (r - r0) * cols + (c - c0); }
-};
 
 // The embedding window es (2 channel planes) from instance n's embedding
 // emb_n [2, He, We] in device memory, zero outside it.
@@ -137,13 +114,9 @@ __device__ __forceinline__ void dec2_middle(const Win& es, const Win& ms, int a0
                 const int m = 2 * a - 1 + u, xm = 2 * b - 1 + v;
                 float acc = dec2_bias[0];
 #pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    const float4 w = dec2_wt1p[c * 4 + u * 2 + v];
-                    acc += w.x * E[c][1][1];
-                    acc += w.y * E[c][1][0];
-                    acc += w.z * E[c][0][1];
-                    acc += w.w * E[c][0][0];
-                }
+                for (int c = 0; c < 2; ++c)
+                    acc = parity_preact(dec2_wt1p[c * 4 + u * 2 + v], acc, E[c][1][1],
+                                        E[c][1][0], E[c][0][1], E[c][0][0]);
                 float val = 0.f;
                 if (m >= 0 && m < H1 && xm >= 0 && xm < W1) {
                     if (KEEP != KEEP_NONE) {
@@ -171,13 +144,7 @@ __device__ __forceinline__ void dec2_middle(const Win& es, const Win& ms, int a0
 // (iy0 - 1, ix0 - 1); deconv_preact's order.
 __device__ __forceinline__ float dec2_preact(int ky0, int kx0, float m11, float m10, float m01,
                                              float m00) {
-    const float4 w = dec2_wt2p[ky0 * 2 + kx0];
-    float acc = dec2_bias[1];
-    acc += w.x * m11;
-    acc += w.y * m10;
-    acc += w.z * m01;
-    acc += w.w * m00;
-    return acc;
+    return parity_preact(dec2_wt2p[ky0 * 2 + kx0], dec2_bias[1], m11, m10, m01, m00);
 }
 
 // The forward's last stage and its squared error: a thread the outputs
@@ -411,10 +378,7 @@ __device__ __forceinline__ void dec2_wt2_grad_quads(const Win& ms, const Win& gy
                 const int y = 2 * i - 1 + u, x = 2 * j - 1 + w;
                 if (y < oy0 || y >= oy1 || x < ox0 || x >= ox1) continue;
                 const float gc = g[u * gys.cols + w];
-                v[u * 4 + w] += gc * m11;
-                v[u * 4 + w + 2] += gc * m10;
-                v[(u + 2) * 4 + w] += gc * m01;
-                v[(u + 2) * 4 + w + 2] += gc * m00;
+                parity_wgrad(v, u, w, gc, m11, m10, m01, m00);
                 db[0] += gc;
             }
     });
@@ -457,12 +421,8 @@ __device__ __forceinline__ void dec2_wt1_grad_pairs(const Win& es, const Win& gm
                 if (m < my0 || m >= my1 || xm < mx0 || xm >= mx1) continue;
                 const float gm = g[u * gms.cols + w];
 #pragma unroll
-                for (int c = 0; c < 2; ++c) {
-                    v[c][u * 4 + w] += gm * E[c][1][1];
-                    v[c][u * 4 + w + 2] += gm * E[c][1][0];
-                    v[c][(u + 2) * 4 + w] += gm * E[c][0][1];
-                    v[c][(u + 2) * 4 + w + 2] += gm * E[c][0][0];
-                }
+                for (int c = 0; c < 2; ++c)
+                    parity_wgrad(v[c], u, w, gm, E[c][1][1], E[c][1][0], E[c][0][1], E[c][0][0]);
                 db[0] += gm;
             }
     });

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
            "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "enc3_fwd", "enc3_bwd",
            "head_fwd", "head_bwd",
-           "tail", "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd", "dec2_bwd", "halo_step")
+           "tail", "tail2_fwd", "tail2_bwd", "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd",
+           "dec2_bwd", "halo_step")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -208,6 +209,10 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 4 + [I] * 6 + [LL, I, I, D, ULL, I, P], source="tail"),
         CudaKernel("tail_bwd", "tail_bwd_launch",
                    [P] * 7 + [I] * 6 + [LL, I, I, D, ULL, I, P], source="tail"),
+        CudaKernel("tail2_fwd", "tail2_fwd_launch",
+                   [P] * 5 + [I] * 6 + [LL, I, I, D, ULL, I, P]),
+        CudaKernel("tail2_bwd", "tail2_bwd_launch",
+                   [P] * 8 + [I] * 6 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("loss_tail_fwd", "loss_tail_fwd_launch",
                    [P] * 6 + [I] * 6 + [LL, I, I, I, D, ULL, I, P], source="tail"),
         CudaKernel("loss_tail_bwd", "loss_tail_bwd_launch",

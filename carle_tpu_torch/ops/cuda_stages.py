@@ -8,7 +8,12 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
   universe too wide for one band of the whole width (8192 cells at 1 -> 4
   channels) runs in column tiles (``_head_bands``);
 * :func:`tail` — ``act(drop(conv_transpose2d(x)))`` (k4, s2, p1), act relu or
-  sigmoid; backward dW, db, gx;
+  sigmoid; backward dW, db, gx.  At the package's two stage widths (CIN,
+  COUT) = (2, 1) and (1, 1) it runs the kernels specialised for them
+  (``csrc/tail2_fwd.cu``, ``tail2_bwd.cu``; :func:`tail_route`): parity
+  stencils, 16-byte stores, a training forward that saves its keep bits so
+  the backward draws none, small blocks (:func:`_tail2_plan`); other widths
+  take the generic kernel;
 * :func:`loss_tail` — the tail fused with ``sum((obs - y)**2)`` per instance;
 * :func:`decoder_loss` — both decoder stages fused with that error; backward
   the four parameter gradients and ``gx``, the embedding's cotangent, which
@@ -24,7 +29,8 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
 
 Each is a ``torch.autograd.Function`` that saves its inputs and the seed and
 recomputes in the backward, launches its kernels (``csrc/head_fwd.cu``,
-``head_bwd.cu``, ``tail.cu``, ``decoder_loss_fwd.cu``, ``decoder_loss_bwd.cu``)
+``head_bwd.cu``, ``tail.cu``, ``tail2_fwd.cu``, ``tail2_bwd.cu``,
+``decoder_loss_fwd.cu``, ``decoder_loss_bwd.cu``)
 for CUDA tensors and takes its plain twin (``*_plain``) for CPU tensors.
 
 Dropout draws the Philox bit of the element at a dropout *stage*
@@ -51,7 +57,9 @@ from torch.autograd.function import once_differentiable
 
 from . import cuda_head
 from .cuda_build import KERNELS, stream_args
-from .cuda_head import (MAX_CHANNELS, RED16_FLOATS, RED_FLOATS, SMEM_MAX, SMEM_TARGET_BWD,
+from .cuda_ca import _multiprocessors
+from .cuda_head import (MAX_CHANNELS, RED16_FLOATS, RED_FLOATS, SM_COUNT, SMEM_MAX,
+                        SMEM_TARGET_BWD,
                         STAGE_DEC1, STAGE_DEC2, STAGE_ENC1, _ae_band_floats,
                         _check_drop, _check_mask, _conv_wgrad, _deconv_wgrad, _dispatch,
                         _dropout, _packed, _pick_band, _pick_by_cost, _pick_tile, _pool_route,
@@ -70,7 +78,17 @@ DEC2_WIDTHS = (2, 1, 1)
 DEC2_KERNELS = True
 DEC2_BLOCKS = (4, 3)   # csrc/dec2.cuh: resident blocks a multiprocessor, forward and backward
 DEC2_PARTS = 50        # a block's partial gradients: dWt1, dbt1, dWt2, dbt2
-ACTS = {"relu": 0, "sigmoid": 1}    # csrc/tail.cu
+TAIL2_FWD, TAIL2_BWD = KERNELS["tail2_fwd"], KERNELS["tail2_bwd"]
+# One decoder stage at these widths (CIN, COUT) runs the kernels specialised
+# for them (:func:`tail_route`); False runs the generic kernel there too, to
+# hold one against the other.
+TAIL2_WIDTHS = ((2, 1), (1, 1))
+TAIL2_KERNELS = True
+TAIL2_THREADS = 256                # csrc/tail2.cuh: threads a block
+TAIL2_TILES = (128, 64)            # input columns a block, forward and backward
+TAIL2_BANDS = ((16, 8, 4, 2, 1), (32, 16, 8, 4, 2, 1))   # input rows a block
+TAIL2_WAVES = (2, 1)               # blocks a multiprocessor the plans' grids reach
+ACTS = {"relu": 0, "sigmoid": 1}    # csrc/tail.cu, csrc/tail2.cuh
 HEAD_POOLS = (2, 4, 8)              # the head kernels' instantiations
 
 __all__ = ["head", "tail", "loss_tail", "decoder_loss",
@@ -79,7 +97,8 @@ __all__ = ["head", "tail", "loss_tail", "decoder_loss",
            "loss_tail_fwd", "loss_tail_fwd_plain", "loss_tail_bwd", "loss_tail_bwd_plain",
            "decoder_loss_fwd", "decoder_loss_fwd_plain", "decoder_loss_bwd",
            "decoder_loss_bwd_plain", "DEC2_FWD", "DEC2_BWD", "DEC2_WIDTHS", "DEC2_KERNELS",
-           "Dec2Saved", "decoder_route", "dec2_keep_masks"]
+           "Dec2Saved", "decoder_route", "dec2_keep_masks", "TAIL2_FWD", "TAIL2_BWD",
+           "TAIL2_WIDTHS", "TAIL2_KERNELS", "tail_route", "tail2_keep_mask"]
 
 
 def _check_pool(pool: int) -> None:
@@ -374,9 +393,18 @@ def tail_fwd(x, wt, b, act: str, drop_p: float = 0.0, seed: int = 0,
 
 
 def _tail_fwd_kernel(x, wt, b, act, drop_p, seed, stage):
+    return _tail_fwd_launch(x, wt, b, act, drop_p, seed, stage, False)[0]
+
+
+def _tail_fwd_launch(x, wt, b, act, drop_p, seed, stage, save):
+    """(y, keep bits or None): the forward kernel of the widths' route;
+    ``save`` (the specialised route, with dropout) also keeps the bits its
+    backward reads."""
     _check_drop(drop_p)
     n, cin, cout, h, w = _tail_shape(x, wt, b, act)
     _check_tensors(x, [("x", x), ("wt", wt), ("b", b)])
+    if tail_route(cin, cout, w):
+        return _tail2_fwd_kernel(x, wt, b, act, drop_p, seed, stage, save)
     ry, smem = _tail_bands(cin, cout, h, w)[0]
     x, wt, b = x.contiguous(), wt.contiguous(), b.contiguous()
     out = _empty(x, n, cout, 2 * h, 2 * w)
@@ -384,7 +412,7 @@ def _tail_fwd_kernel(x, wt, b, act, drop_p, seed, stage):
     TAIL_FWD.launch(x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(), n, cin, cout,
                     h, w, ry, smem, ACTS[act], int(stage), float(drop_p), _seed_word(seed),
                     device, stream)
-    return out
+    return out, None
 
 
 def tail_bwd(x, wt, b, g, act: str, drop_p: float = 0.0, seed: int = 0,
@@ -418,6 +446,8 @@ def _tail_bwd_kernel(x, wt, b, g, act, drop_p, seed, stage):
     _check_tensors(x, [("x", x), ("wt", wt), ("b", b), ("g", g)])
     if tuple(g.shape) != (n, cout, 2 * h, 2 * w):
         raise ValueError(f"g shape {tuple(g.shape)} is not the tail's output's")
+    if tail_route(cin, cout, w):
+        return _tail2_bwd_kernel(x, wt, b, g, act, drop_p, seed, stage)
     return _tail_bwd_launch(TAIL_BWD, x, wt, b, g, None, act, drop_p, seed, stage, ())
 
 
@@ -463,6 +493,94 @@ def _loss_tail_bwd_kernel(x, wt, b, obs, gbar, act, drop_p, seed, stage):
         raise ValueError(f"gbar shape {tuple(gbar.shape)} != {(n,)}")
     return _tail_bwd_launch(LOSS_TAIL_BWD, x, wt, b, obs, gbar, act, drop_p, seed, stage,
                             (cell_kind(obs),))
+
+
+# -- the tail at the package's two stage widths (csrc/tail2.cuh) ----------------
+
+
+def _tail2_fwd_smem(cin: int, w: int, ri: int, tj: int) -> int:
+    """csrc/tail2.cuh::tail2_fwd_smem."""
+    return 4 * cin * (ri + 2) * (min(tj, w) + 2)
+
+
+def _tail2_bwd_smem(cin: int, w: int, ri: int, tj: int) -> int:
+    """csrc/tail2.cuh::tail2_bwd_smem."""
+    t = min(tj, w)
+    return (4 * ((2 * ri + 4) * (2 * t + 8) + cin * (ri + 4) * (t + 6)
+                 + TAIL2_THREADS // 32 * (16 * cin + 1)) + (ri + 2) * (t + 4))
+
+
+@functools.lru_cache(maxsize=None)
+def _tail2_plan(n: int, cin: int, h: int, w: int, backward: bool, sms: int = SM_COUNT):
+    """(RI input rows, TJ input columns, shared memory) of a block of the
+    specialised forward or backward on n instances of input [h, w] on a card
+    of ``sms`` multiprocessors: tiles of TAIL2_TILES columns (the whole width
+    where narrower), then the most rows in TAIL2_BANDS whose grid still gives
+    every multiprocessor TAIL2_WAVES blocks (the fewest rows where none
+    does).  Larger blocks share their halo and their partial sums over more
+    outputs; the sizes were chosen by timing plans at the main paths' shapes
+    on an H100.  The windows stay small, so shared memory never keeps a
+    multiprocessor below the blocks its registers allow."""
+    tj = min(w, TAIL2_TILES[int(backward)])
+    tiles = -(-w // tj)
+    for ri in TAIL2_BANDS[int(backward)]:
+        if n * -(-h // ri) * tiles >= TAIL2_WAVES[int(backward)] * sms:
+            break
+    smem_of = _tail2_bwd_smem if backward else _tail2_fwd_smem
+    return ri, tj, smem_of(cin, w, ri, tj)
+
+
+def tail_route(cin: int, cout: int, w: int) -> bool:
+    """Whether the tail with ``cin`` -> ``cout`` channels and input width
+    ``w`` runs the kernels specialised for its widths (csrc/tail2_fwd.cu,
+    tail2_bwd.cu; their 16-byte stores take an even width): the widths and the
+    shape decide, on any device, so the forward and the backward take one
+    route."""
+    return TAIL2_KERNELS and (cin, cout) in TAIL2_WIDTHS and w % 2 == 0
+
+
+def tail2_keep_mask(keep: torch.Tensor) -> torch.Tensor:
+    """The keep mask a training forward on the specialised route saved (uint8
+    [N, h, w], bit 2a + b the output (2i + a, 2j + b)) in
+    :func:`philox_keep_mask`'s layout [N, 1, 2h, 2w]."""
+    return _unfold_bits(keep.to(torch.int32) & 0xF, 4, 2, 1)
+
+
+def _tail2_fwd_kernel(x, wt, b, act, drop_p, seed, stage, save=False, plan=None):
+    """(y [N, 1, 2h, 2w], keep bits or None): the specialised forward on
+    checked inputs; ``save`` with dropout also writes the keep bits (uint8
+    [N, h, w]); ``plan`` (RI, TJ) overrides :func:`_tail2_plan`."""
+    n, cin, h, w = x.shape
+    ri, tj = plan or _tail2_plan(n, cin, h, w, False, _multiprocessors(x.device))[:2]
+    keep = (torch.empty((n, h, w), dtype=torch.uint8, device=x.device)
+            if save and drop_p > 0.0 else None)
+    x, wt, b = x.contiguous(), wt.contiguous(), b.contiguous()
+    out = _empty(x, n, 1, 2 * h, 2 * w)
+    device, stream = stream_args(x)
+    TAIL2_FWD.launch(x.data_ptr(), wt.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(keep), n,
+                     cin, h, w, ri, tj, _tail2_fwd_smem(cin, w, ri, tj), ACTS[act], int(stage),
+                     float(drop_p), _seed_word(seed), device, stream)
+    return out, keep
+
+
+def _tail2_bwd_kernel(x, wt, b, g, act, drop_p, seed, stage, keep=None, plan=None):
+    """(dW, db, gx) from the specialised backward on checked inputs: from
+    the keep bits the training forward with the same inputs saved, or (None)
+    drawing them; ``plan`` (RI, TJ) overrides :func:`_tail2_plan`."""
+    n, cin, h, w = x.shape
+    ri, tj = plan or _tail2_plan(n, cin, h, w, True, _multiprocessors(x.device))[:2]
+    k = 16 * cin + 1
+    blocks = -(-h // ri) * -(-w // min(tj, w))
+    grads, partials, gx = _empty(x, k), _empty(x, n * blocks, k), _empty(x, n, cin, h, w)
+    x, wt, b, g = x.contiguous(), wt.contiguous(), b.contiguous(), g.contiguous()
+    if g.data_ptr() % 16:   # the kernel copies g's rows in 16-byte pieces
+        g = g.clone()
+    device, stream = stream_args(x)
+    TAIL2_BWD.launch(x.data_ptr(), wt.data_ptr(), b.data_ptr(), g.data_ptr(), _ptr(keep),
+                     partials.data_ptr(), grads.data_ptr(), gx.data_ptr(), n, cin, h, w, ri, tj,
+                     _tail2_bwd_smem(cin, w, ri, tj), ACTS[act], int(stage), float(drop_p),
+                     _seed_word(seed), device, stream)
+    return (*_split(grads, ((cin, 1, 4, 4), (1,))), gx)
 
 
 # -- decoder loss --------------------------------------------------------------
@@ -719,18 +837,28 @@ class HeadFn(torch.autograd.Function):
 
 
 class TailFn(torch.autograd.Function):
-    """tail_fwd with tail_bwd as its backward; saves only the inputs."""
+    """tail_fwd with tail_bwd as its backward; saves the inputs and, on the
+    specialised route with dropout, the keep bits its forward kernel drew, so
+    the backward draws none."""
 
     @staticmethod
     def forward(ctx, x, wt, b, act, drop_p, seed, stage):
         ctx.save_for_backward(x, wt, b)
         ctx.settings = (act, float(drop_p), int(seed), int(stage))
+        if x.device.type == "cuda":
+            y, ctx.keep = _tail_fwd_launch(x, wt, b, *ctx.settings, True)
+            return y
+        ctx.keep = None
         return tail_fwd(x, wt, b, *ctx.settings)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        dw, db, gx = tail_bwd(*ctx.saved_tensors, g.contiguous(), *ctx.settings)
+        if ctx.keep is not None:
+            dw, db, gx = _tail2_bwd_kernel(*ctx.saved_tensors, g.contiguous(), *ctx.settings,
+                                           keep=ctx.keep)
+        else:
+            dw, db, gx = tail_bwd(*ctx.saved_tensors, g.contiguous(), *ctx.settings)
         return (gx, dw, db, None, None, None, None)
 
 

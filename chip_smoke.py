@@ -26,7 +26,14 @@ Phases, in order; any failure exits non-zero without the final line:
            uint8 and packed obs bit for bit, the saved keep bits against the
            Philox mask on the rows whose weight is not zero, timed in turns
            with and without dropout and from the saved bits, their registers
-           and blocks a multiprocessor as "dec2 occupancy"), with
+           and blocks a multiprocessor as "dec2 occupancy"; the decoder
+           stage's kernels specialised at its two widths, tail2_*, likewise
+           against the generic one at rows 7a-7b's shapes and the spatial
+           tier's slot blocks: the forward bit for bit, gx bit for bit, dW
+           and db within 1e-5, the saved keep bits against the Philox mask,
+           the backward from them the same bits as drawing them, timed in
+           turns, plans, registers and blocks a multiprocessor as "tail2
+           occupancy", F.conv_transpose2d's time as a part), with
            their times (CUDA events, L2 flushed
            before every launch) and the least time the card could take; the
            net kernels also with dropout 0.1 (kernel and twin draw the same
@@ -133,8 +140,9 @@ Phases, in order; any failure exits non-zero without the final line:
            paths (battery, server, train, routes, wrappers, packed, bands,
            engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
-           bands path; a generic encoder or decoder-loss kernel, or the byte
-           ca_step kernel, launched on any of them fails the run), then the
+           bands path; a generic encoder, decoder-loss or tail kernel, or
+           the byte ca_step kernel, launched on any of them fails the run),
+           then the
            card's name and power limit,
            then the ok line.
 
@@ -234,6 +242,8 @@ SOURCES = {
     "head_bwd": ("carle_tpu_torch/csrc/head_bwd.cu", "carle_tpu/ops/pallas_head.py:297"),
     "tail_fwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:628"),
     "tail_bwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:645"),
+    "tail2_fwd": ("carle_tpu_torch/csrc/tail2_fwd.cu", "carle_tpu/ops/pallas_head.py:628"),
+    "tail2_bwd": ("carle_tpu_torch/csrc/tail2_bwd.cu", "carle_tpu/ops/pallas_head.py:645"),
     "loss_tail_fwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:794"),
     "loss_tail_bwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:822"),
     "decoder_loss_fwd": ("carle_tpu_torch/csrc/decoder_loss_fwd.cu",
@@ -290,23 +300,26 @@ PATH_KERNELS = {
     "server": ("ca_step_words", "bit_multi_step", "enc3_fwd", "ae2d_fwd"),
     "train": ("ca_step_words", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
     "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
-               "head_bwd", "tail_fwd", "tail_bwd", "loss_tail_fwd", "loss_tail_bwd",
+               "head_bwd", "tail2_fwd", "tail2_bwd", "loss_tail_fwd", "loss_tail_bwd",
                "dec2_fwd", "dec2_bwd"),
     "wrappers": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
-                 "dec2_fwd", "dec2_bwd", "tail_fwd"),
+                 "dec2_fwd", "dec2_bwd", "tail2_fwd"),
     "packed": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                "dec2_fwd", "dec2_bwd"),
     "bands": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "dec2_fwd", "dec2_bwd"),
     "engines": ("bit_multi_step_static", "bit_multi_step_static_cm", "bit_multi_step_cm",
                 "ca_multi_step"),
     "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
-                "enc3_fwd", "enc3_bwd", "tail_fwd", "tail_bwd"),
+                "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
 # launch: every encoder and decoder of the package has one of the
 # specialised kernels' widths
 GENERIC_ENCODER = ("encoder_fwd", "encoder_bwd")
 GENERIC_DECODER = ("decoder_loss_fwd", "decoder_loss_bwd")
+# the generic tail kernels, which no main path may launch: every decoder stage
+# of the package has one of the specialised kernels' widths (tail2_*)
+GENERIC_TAIL = ("tail_fwd", "tail_bwd")
 # the byte ca_step kernel, which no main path may launch: every universe of a
 # main path is 256 cells wide, a width the word kernel takes
 BYTE_CA_STEP = ("ca_step",)
@@ -1034,6 +1047,8 @@ def phase_stage_kernels(torch, timer, gen, philox):
     the head also at RND's pool 4; the decoder loss's kernels specialised at
     its width (dec2_*) against the generic ones, both timed in turns; ae_loss
     with a source that is not the target."""
+    import torch.nn.functional as F
+
     from carle_tpu_torch.mcl.ae import init_ae_params
     from carle_tpu_torch.ops import bitpack, cuda_head, cuda_stages
 
@@ -1163,49 +1178,93 @@ def phase_stage_kernels(torch, timer, gen, philox):
     results["head_tiles"] = tiles
     log(f"head width repair ok: {json.dumps(tiles)}")
 
-    # -- tail and loss tail ------------------------------------------------------
+    # -- tail: the kernels specialised at the stages' widths (tail2_*), held
+    # against the generic one forced at the same shapes (tail_*)
     tail_cases = {  # label: (x, wt, b, act, stage)
         "AE deconv2, f32 [160,1,128,128] -> [160,1,256,256], sigmoid": (mid, wt2, bt2, "sigmoid", 3),
         "AE deconv1, f32 [160,2,64,64] -> [160,1,128,128], relu": (emb, wt1, bt1, "relu", 2),
     }
-    fwd_detail, bwd_detail, err = {}, {}, 0.0
+    fwd_detail, bwd_detail = {}, {}
+    err = {"tail2": 0.0, "generic": 0.0}
     for label, (x, wt, b, act, stage) in tail_cases.items():
-        err = max(err, close(cuda_stages.tail_fwd(x, wt, b, act, 0.0, 0, stage),
-                             cuda_stages.tail_fwd_plain(x, wt, b, act, 0.0, 0, stage), label))
         xb = x[:nb].contiguous()
-        close(cuda_stages.tail_fwd(xb, wt, b, act, DROP_P, seed, stage),
-              cuda_stages.tail_fwd_plain(xb, wt, b, act, DROP_P, seed, stage), label + ", dropout")
-        fwd_detail[label] = {"ms": timer.ms(
-            lambda: cuda_stages.tail_fwd(x, wt, b, act, 0.0, 0, stage), 20)}
         g = rand(nb, wt.shape[1], 2 * x.shape[2], 2 * x.shape[3])
         args = (xb, wt, b, g, act)
-        e_drop, e_plain, abs_err = backward_case(
-            "tail_bwd", lambda p: cuda_stages.tail_bwd(*args, p, seed, stage),
-            lambda p: cuda_stages.tail_bwd_plain(*args, p, seed, stage), label)
-        bwd_detail[label] = {
-            "max_leaf_rel_err": e_drop, "max_leaf_rel_err_no_drop": e_plain,
-            "max_abs_err": abs_err,
-            "ms": timer.ms(lambda: cuda_stages.tail_bwd(*args, DROP_P, seed, stage), 10),
-            "ms_no_drop": timer.ms(lambda: cuda_stages.tail_bwd(*args, 0.0, 0, stage), 10)}
+        fd = _tail2_held(torch, x, wt, b, act, stage, seed, label)
+        for route in ("tail2", "generic"):
+            on = (lambda fn: fn()) if route == "tail2" else _generic_tail
+            err[route] = max(err[route], close(
+                on(lambda: cuda_stages.tail_fwd(x, wt, b, act, 0.0, 0, stage)),
+                cuda_stages.tail_fwd_plain(x, wt, b, act, 0.0, 0, stage), f"{route} {label}"))
+            close(on(lambda: cuda_stages.tail_fwd(xb, wt, b, act, DROP_P, seed, stage)),
+                  cuda_stages.tail_fwd_plain(xb, wt, b, act, DROP_P, seed, stage),
+                  f"{route} {label}, dropout")
+            e_drop, e_plain, abs_err = on(lambda: backward_case(
+                f"{route} tail_bwd", lambda p: cuda_stages.tail_bwd(*args, p, seed, stage),
+                lambda p: cuda_stages.tail_bwd_plain(*args, p, seed, stage), label))
+            bwd_detail.setdefault(label, {})[route] = {
+                "max_leaf_rel_err": e_drop, "max_leaf_rel_err_no_drop": e_plain,
+                "max_abs_err": abs_err}
+        bd = bwd_detail[label]
+        bd["vs_generic"] = _tail2_bwd_held(torch, xb, wt, b, g, act, stage, seed, label)
+        calls = {   # on the route in force
+            "fwd": lambda: cuda_stages.tail_fwd(x, wt, b, act, 0.0, 0, stage),
+            "fwd drop": lambda: cuda_stages.tail_fwd(x, wt, b, act, DROP_P, seed, stage),
+            "bwd": lambda: cuda_stages.tail_bwd(*args, DROP_P, seed, stage),
+            "bwd no drop": lambda: cuda_stages.tail_bwd(*args, 0.0, 0, stage),
+        }
+        timed = {}
+        for route in ("tail2", "generic", "tail2", "generic"):
+            for name, fn in calls.items():
+                timed.setdefault(f"{route} {name}", []).append(timer.ms(
+                    fn if route == "tail2" else lambda fn=fn: _generic_tail(fn),
+                    20 if name.startswith("fwd") else 10))
+        keep = cuda_stages._tail_fwd_launch(xb, wt, b, act, DROP_P, seed, stage, True)[1]
+        fd.update(ms_in_turns={k: v for k, v in timed.items() if " fwd" in k},
+                  ms_saving_fwd=timer.ms(lambda: cuda_stages._tail_fwd_launch(
+                      xb, wt, b, act, DROP_P, seed, stage, True), 10),
+                  plan=cuda_stages._tail2_plan(nf, x.shape[1], x.shape[2], x.shape[3], False,
+                                               cuda_stages._multiprocessors(dev)),
+                  generic_plan=cuda_stages._tail_bands(x.shape[1], 1, x.shape[2], x.shape[3])[0],
+                  conv_transpose2d_ms=timer.ms(lambda: F.conv_transpose2d(
+                      x, wt, b, stride=2, padding=1), 20))
+        fwd_detail[label] = fd
+        bd.update(ms_in_turns={k: v for k, v in timed.items() if " bwd" in k},
+                  ms_from_saved=timer.ms(lambda: cuda_stages._tail2_bwd_kernel(
+                      *args, DROP_P, seed, stage, keep=keep), 10),
+                  plan=cuda_stages._tail2_plan(nb, x.shape[1], x.shape[2], x.shape[3], True,
+                                               cuda_stages._multiprocessors(dev)),
+                  generic_plan=cuda_stages._tail_bands(x.shape[1], 1, x.shape[2], x.shape[3])[1])
         if act == "sigmoid":
             plain_fwd = timer.ms(lambda: cuda_stages.tail_fwd_plain(x, wt, b, act, 0.0, 0, stage), 5)
             plain_bwd = timer.ms(lambda: cuda_stages.tail_bwd_plain(*args, DROP_P, seed, stage), 2)
     label = next(iter(tail_cases))
     taps = 2 * 4 * 1 * 1   # flops an output position: 2 x 2 inputs a channel pair
     bound, by = bound_ms(nf * (hw // 4 + hw) * 4 + 17 * 4, taps * nf * hw, FP32_FLOPS)
-    results["tail_fwd"] = dict(max_abs_err=err, ms=fwd_detail[label]["ms"], plain_ms=plain_fwd,
-                               bound_ms=bound, bound_by=by, library_ms=None, shape=label,
-                               cases=fwd_detail)
-    log(f"tail_fwd ok: {results['tail_fwd']}")
-    first = bwd_detail[label]
+    for row, route in (("tail2_fwd", "tail2"), ("tail_fwd", "generic")):
+        turns = fwd_detail[label]["ms_in_turns"]
+        results[row] = dict(max_abs_err=err[route], ms=turns[f"{route} fwd"][0],
+                            ms_drop=turns[f"{route} fwd drop"][0], plain_ms=plain_fwd,
+                            bound_ms=bound, bound_by=by, library_ms=None, shape=label,
+                            cases=fwd_detail if route == "tail2" else None)
+        log(f"{row} ok: {results[row]}")
     bound, by = bound_ms(nb * (hw // 4 + hw + hw // 4) * 4 + 34 * 4, 3 * taps * nb * hw + 4 * nb * hw,
                          FP32_FLOPS)
-    results["tail_bwd"] = dict(
-        max_abs_err=first["max_abs_err"], max_leaf_rel_err=first["max_leaf_rel_err"],
-        ms=first["ms"], ms_no_drop=first["ms_no_drop"], plain_ms=plain_bwd, bound_ms=bound,
-        bound_by=by, library_ms=None,
-        shape="f32 x [64,1,128,128], g [64,1,256,256], sigmoid, drop 0.1", cases=bwd_detail)
-    log(f"tail_bwd ok: {results['tail_bwd']}")
+    b_saved, _ = bound_ms(nb * (hw // 4 + hw + hw // 4) * 4 + nb * hw // 4 + 34 * 4,
+                          3 * taps * nb * hw + 4 * nb * hw, FP32_FLOPS)
+    for row, route in (("tail2_bwd", "tail2"), ("tail_bwd", "generic")):
+        first = bwd_detail[label]
+        turns = first["ms_in_turns"]
+        results[row] = dict(
+            max_abs_err=first[route]["max_abs_err"],
+            max_leaf_rel_err=first[route]["max_leaf_rel_err"],
+            ms=turns[f"{route} bwd"][0], ms_no_drop=turns[f"{route} bwd no drop"][0],
+            plain_ms=plain_bwd, bound_ms=bound, bound_by=by, library_ms=None,
+            shape="f32 x [64,1,128,128], g [64,1,256,256], sigmoid, drop 0.1",
+            cases=bwd_detail if route == "tail2" else None)
+    results["tail2_bwd"].update(ms_from_saved=first["ms_from_saved"], bound_ms_from_saved=b_saved)
+    for row in ("tail2_bwd", "tail_bwd"):
+        log(f"{row} ok: {results[row]}")
 
     obs_f = obs.to(torch.float32)
     lt_args = (mid, wt2, bt2)
@@ -1366,12 +1425,16 @@ def _device_split(torch, fn, calls: int = 5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    events = []
+    for _ in range(3):   # a session that records no device event at all is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+        if events:
+            break
     rows = sorted(({"name": e.key[:90], "us": _device_us(e) / calls, "per_call": e.count / calls}
                    for e in events), key=lambda r: -r["us"])
     kernels = [r for r in rows if not r["name"].startswith("Memcpy")]
@@ -1860,6 +1923,97 @@ def _generic_decoder(fn):
         return fn()
     finally:
         cuda_stages.DEC2_KERNELS = True
+
+
+def _generic_tail(fn):
+    """fn() on the generic tail kernel: the specialised route off."""
+    from carle_tpu_torch.ops import cuda_stages
+
+    cuda_stages.TAIL2_KERNELS = False
+    try:
+        return fn()
+    finally:
+        cuda_stages.TAIL2_KERNELS = True
+
+
+def _tail2_held(torch, x, wt, b, act, stage, seed, what):
+    """The specialised tail forward against the generic one forced at the
+    same inputs, dropout off and on: bit for bit; the training forward's
+    saved keep bits against the twin's Philox mask."""
+    from carle_tpu_torch.ops import cuda_head, cuda_stages as cs
+
+    out = {}
+    for p in (0.0, DROP_P):
+        y = cs.tail_fwd(x, wt, b, act, p, seed, stage)
+        check(torch.equal(y, _generic_tail(lambda: cs.tail_fwd(x, wt, b, act, p, seed, stage))),
+              f"tail2_fwd ({what}, drop {p}) is not the generic kernel's bit for bit")
+        out[f"drop {p} bit_for_bit_vs_generic"] = True
+    y, keep = cs._tail_fwd_launch(x, wt, b, act, DROP_P, seed, stage, True)
+    check(torch.equal(y, cs.tail_fwd(x, wt, b, act, DROP_P, seed, stage)),
+          f"tail2_fwd ({what}): the saving forward differs")
+    want = cuda_head.philox_keep_mask(seed, stage, tuple(y.shape), DROP_P, y.device)
+    check(torch.equal(cs.tail2_keep_mask(keep), want),
+          f"tail2_fwd ({what}): saved keep bits differ from the Philox mask")
+    out["saved_keep_rate"] = float(want.float().mean())
+    return out
+
+
+def _tail2_bwd_held(torch, x, wt, b, g, act, stage, seed, what):
+    """The specialised tail backward against the generic one forced at the
+    same inputs, dropout off and on: gx bit for bit, dW and db within 1e-5
+    of each leaf; from the saved keep bits (as TailFn runs it) the same bits
+    as drawing them, twice."""
+    from carle_tpu_torch.ops import cuda_stages as cs
+
+    out = {}
+    for p in (0.0, DROP_P):
+        got = cs.tail_bwd(x, wt, b, g, act, p, seed, stage)
+        ref = _generic_tail(lambda: cs.tail_bwd(x, wt, b, g, act, p, seed, stage))
+        check(torch.equal(got[2], ref[2]), f"tail2_bwd ({what}, drop {p}): gx differs from "
+              "the generic kernel's")
+        leaf = max(_leaf_errors(got[:2], ref[:2]))
+        check(leaf < 1e-5, f"tail2_bwd ({what}, drop {p}) dW, db vs the generic kernel: {leaf}")
+        out[f"drop {p} max_leaf_rel_err"] = leaf
+        if p > 0:
+            keep = cs._tail_fwd_launch(x, wt, b, act, p, seed, stage, True)[1]
+            fed = _bits_twice(lambda: cs._tail2_bwd_kernel(x, wt, b, g, act, p, seed, stage,
+                                                           keep=keep), f"tail2_bwd ({what})")
+            check(all(torch.equal(a, t) for a, t in zip(fed, got)),
+                  f"tail2_bwd ({what}): from the saved bits differs from drawing them")
+    return out
+
+
+def _tail2_occupancy(cuda_build):
+    """Registers, shared memory and resident blocks a multiprocessor of the
+    specialised tail kernels on the plans of the main shapes: the stage
+    phase's forwards on 160 and backwards on 64 universes, and the spatial
+    tier's slot blocks of 8192² on 4 slots."""
+    import torch
+
+    from carle_tpu_torch.ops import cuda_stages as cs
+
+    sms = cs._multiprocessors(torch.device("cuda"))
+    out = {}
+    shapes = {"deconv1 [160,2,64,64]": (160, 2, 64, 64, 0),
+              "deconv2 [160,1,128,128]": (160, 1, 128, 128, 1),
+              "deconv1 [64,2,64,64]": (64, 2, 64, 64, 0),
+              "deconv2 [64,1,128,128]": (64, 1, 128, 128, 1),
+              "slot deconv1 [1,2,514,2048]": (1, 2, 514, 2048, 0),
+              "slot deconv2 [1,1,1026,4096]": (1, 1, 1026, 4096, 1)}
+    for label, (n, c, h, w, act) in shapes.items():
+        ri, tj, smem = cs._tail2_plan(n, c, h, w, False, sms)
+        for mode in (0, 1, 2):   # no dropout, dropout, dropout saving the bits
+            out[f"tail2_fwd mode {mode} {label}"] = dict(
+                _occupancy(cuda_build, "tail2_fwd", "tail2_fwd_occupancy", c, act, mode,
+                           Big(smem))[0], dynamic_smem=smem, rows=ri, tile=tj)
+        ri, tj, smem = cs._tail2_plan(n, c, h, w, True, sms)
+        for keep in (0, 1, 2):   # none, drawn, read from the saved bits
+            out[f"tail2_bwd keep {keep} {label}"] = dict(
+                _occupancy(cuda_build, "tail2_bwd", "tail2_bwd_occupancy", c, act, keep,
+                           Big(smem))[0], dynamic_smem=smem, rows=ri, tile=tj)
+    worst = min(r["blocks_per_sm"] for r in out.values())
+    check(worst >= 2, f"a tail2 plan keeps fewer than two blocks a multiprocessor: {out}")
+    return out
 
 
 def _mid_rows_read(rows):
@@ -2656,11 +2810,14 @@ def _slot_head_kernels(torch, timer, gen, g32):
     the first slot (its mask zeroes the rows above the universe) and the
     second; dropout off and on with the slot's seed.  Forwards within 1e-4,
     the tails' gradients within 1e-4 of each leaf, the encoder's within
-    TOL_TIES and 1e-4 outside the near-tied pool windows (_tie_analysis)."""
+    TOL_TIES and 1e-4 outside the near-tied pool windows (_tie_analysis).
+    The tails' kernels (tail2_*) also against the generic one forced
+    (_tail2_held, _tail2_bwd_held), both timed in turns, with the plans and
+    the registers and blocks a multiprocessor they give."""
     from carle_tpu_torch import EnvConfig, nets
     from carle_tpu_torch.mcl.ae import init_ae_params
     from carle_tpu_torch.mcl.rnd import init_predictor_params
-    from carle_tpu_torch.ops import cuda_head, cuda_stages
+    from carle_tpu_torch.ops import cuda_build, cuda_head, cuda_stages
     from carle_tpu_torch.parallel import spatial_heads as sh
 
     dev = torch.device("cuda")
@@ -2723,8 +2880,18 @@ def _slot_head_kernels(torch, timer, gen, g32):
             s_seed = sh._shard_seed(seed, s)
             n, c, h, w = xp.shape
             label = f"tail {act}, slot {s}: f32 {list(xp.shape)}"
-            r = {"plan": cuda_stages._tail_bands(c, wt.shape[1], h, w),
+            plans = [cuda_stages._tail2_plan(n, c, h, w, bwd, cuda_stages._multiprocessors(dev))
+                     for bwd in (False, True)]
+            act_code = cuda_stages.ACTS[act]
+            r = {"plan": plans[0], "plan_bwd": plans[1],
+                 "occupancy_fwd_drop": _occupancy(cuda_build, "tail2_fwd", "tail2_fwd_occupancy",
+                                                  c, act_code, 1, Big(plans[0][2]))[0],
+                 "occupancy_bwd_saved": _occupancy(cuda_build, "tail2_bwd",
+                                                   "tail2_bwd_occupancy", c, act_code, 2,
+                                                   Big(plans[1][2]))[0],
+                 "generic_plan": cuda_stages._tail_bands(c, wt.shape[1], h, w),
                  "fwd_max_abs_err": 0.0, "bwd_max_leaf_rel_err": 0.0}
+            r["fwd_vs_generic"] = _tail2_held(torch, xp, wt, b, act, stage, s_seed, label)
             for p in (0.0, DROP_P):
                 y = cuda_stages.tail_fwd(xp, wt, b, act, p, s_seed, stage)
                 r["fwd_max_abs_err"] = max(r["fwd_max_abs_err"], close(
@@ -2736,10 +2903,17 @@ def _slot_head_kernels(torch, timer, gen, g32):
                                                                       s_seed, stage))
                 check(max(errs) < tol, f"{label} (drop {p}) leaves differ: {errs}")
                 r["bwd_max_leaf_rel_err"] = max(r["bwd_max_leaf_rel_err"], max(errs))
-            r["fwd_ms"] = timer.ms(
-                lambda: cuda_stages.tail_fwd(xp, wt, b, act, DROP_P, s_seed, stage), 5)
-            r["bwd_ms"] = timer.ms(
-                lambda: cuda_stages.tail_bwd(xp, wt, b, g, act, DROP_P, s_seed, stage), 3)
+            r["bwd_vs_generic"] = _tail2_bwd_held(torch, xp, wt, b, g, act, stage, s_seed, label)
+            fwd = lambda: cuda_stages.tail_fwd(xp, wt, b, act, DROP_P, s_seed, stage)
+            bwd = lambda: cuda_stages.tail_bwd(xp, wt, b, g, act, DROP_P, s_seed, stage)
+            keep = cuda_stages._tail_fwd_launch(xp, wt, b, act, DROP_P, s_seed, stage, True)[1]
+            for turn in (1, 2):
+                r[f"fwd_ms_{turn}"], r[f"bwd_ms_{turn}"] = timer.ms(fwd, 5), timer.ms(bwd, 3)
+                r[f"generic_fwd_ms_{turn}"] = timer.ms(lambda: _generic_tail(fwd), 5)
+                r[f"generic_bwd_ms_{turn}"] = timer.ms(lambda: _generic_tail(bwd), 3)
+            r["fwd_ms"], r["bwd_ms"] = r["fwd_ms_1"], r["bwd_ms_1"]
+            r["bwd_from_saved_ms"] = timer.ms(lambda: cuda_stages._tail2_bwd_kernel(
+                xp, wt, b, g, act, DROP_P, s_seed, stage, keep=keep), 3)
             out[label] = r
             log(f"slot heads: {label} ok: {json.dumps(r)}")
     return out
@@ -3561,6 +3735,8 @@ def main() -> int:
         log(f"enc3 occupancy: {json.dumps(enc3_occupancy)}")
         dec2_occupancy = _dec2_occupancy(cuda_build)
         log(f"dec2 occupancy: {json.dumps(dec2_occupancy)}")
+        tail2_occupancy = _tail2_occupancy(cuda_build)
+        log(f"tail2 occupancy: {json.dumps(tail2_occupancy)}")
         ae2d = timed("ae2d", phase_ae2d, torch, timer, cuda_build, philox)
         log(f"ae2d ok: {json.dumps(ae2d)}")
         results.update(timed("spatial_kernels", phase_spatial_kernels, torch, timer,
@@ -3601,10 +3777,10 @@ def main() -> int:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
     generic = {f"{path}:{k}": c[k] for path, c in path_counts.items()
-               for k in GENERIC_ENCODER + GENERIC_DECODER + BYTE_CA_STEP if c[k]}
+               for k in GENERIC_ENCODER + GENERIC_DECODER + GENERIC_TAIL + BYTE_CA_STEP if c[k]}
     if generic:
-        log(f"FAIL: generic encoder or decoder-loss kernels, or the byte ca_step kernel, "
-            f"launched on the main paths: {generic}")
+        log(f"FAIL: generic encoder, decoder-loss or tail kernels, or the byte ca_step "
+            f"kernel, launched on the main paths: {generic}")
         return 1
     ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
                    for path, c in path_counts.items()}
@@ -3636,7 +3812,7 @@ def main() -> int:
         "routes": routes, "wrappers": wrappers, "packed": packed, "engines": engines,
         "dropout": results["dropout"], "ae_loss_src_not_obs": results["ae_loss_src_not_obs"],
         "ae2d": ae2d, "ae_launches": ae_launches, "enc3_occupancy": enc3_occupancy,
-        "dec2_occupancy": dec2_occupancy,
+        "dec2_occupancy": dec2_occupancy, "tail2_occupancy": tail2_occupancy,
         "profile": profile, "profile_train": profile_train, "profile_packed": profile_packed,
         "total_s": time.perf_counter() - t_start,
     }

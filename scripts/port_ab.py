@@ -9,7 +9,8 @@ each taken in a fresh process.
         (dropout 0 and 0.1, 256² and RND's bands of 8192²), and the decoder
         loss's error and five gradients on the route the checkout takes and
         on the generic kernels (uint8 and packed obs, dropout 0 and 0.1, row
-        weights none and with zero rows), and env_step over a battery leg
+        weights none and with zero rows), the tail's two stages (the output
+        and gx, dropout 0 and 0.1), and env_step over a battery leg
         (160 universes, 256 steps with resets, all-2.0 and empty actions:
         every grid, step_num and steps_since_action).  Equal digests from
         two checkouts mean bit-for-bit equal outputs.
@@ -24,6 +25,11 @@ each taken in a fresh process.
         the same profile of the wrappers path's learning stack: PredictionBonus
         over AE2D by two kernels (encoder, decoder loss) over RND2D on 64
         universes of 256², dropout on, 64 steps.
+    python scripts/port_ab.py profile-spatial --root DIR
+        the same profile of AE2D with SpaceSharding (the encoder, then the
+        decoder's two tails on each slot's rows, forward and backward, dropout
+        on, an update every 4 steps) on one universe of 8192² over 4 mesh
+        slots of the card, 16 steps.
     python scripts/port_ab.py encoder-times --root DIR [--generic]
         device ms (chip_smoke.py's Timer) of the encoder at rows 3a-3d's
         shapes: the forward on 160 x 256², the gradients alone and from the
@@ -128,6 +134,18 @@ def digests(torch) -> dict:
                     out[f"{key} fwd"] = _digest([cs.decoder_loss_fwd(emb, *dec, o, p, 99, e)])
                     out[f"{key} bwd"] = _digest(cs.decoder_loss_bwd(emb, *dec, o, gbar, p, 99, e))
     cs.DEC2_KERNELS = True
+    # the decoder's two stages alone (the tail) on the route the checkout
+    # takes: the output and gx, dropout 0 and 0.1 (dW and db are left out:
+    # the specialised kernels sum them in another order)
+    mid = torch.relu(torch.randn((64, 1, 128, 128), generator=dgen, device=dev))
+    stages = (("deconv1", emb, dec[0], dec[1], "relu", 2), ("deconv2", mid, dec[2], dec[3],
+                                                            "sigmoid", 3))
+    for name, xin, wt, b, act, stage in stages:
+        g = torch.randn((64, 1, 2 * xin.shape[2], 2 * xin.shape[3]), generator=dgen, device=dev)
+        for p in (0.0, 0.1):
+            out[f"tail {name} drop {p} fwd"] = _digest([cs.tail_fwd(xin, wt, b, act, p, 99, stage)])
+            out[f"tail {name} drop {p} gx"] = _digest(
+                [cs.tail_bwd(xin, wt, b, g, act, p, 99, stage)[2]])
     out["env_step battery leg"] = env_leg_digest(torch)
     return out
 
@@ -285,6 +303,23 @@ def profile_wrappers(torch) -> dict:
     return chip_smoke._profile_steps(torch, ro, ro.init(ro.generator(0), rules.LIFE), 64, 64)
 
 
+def profile_spatial(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch import EnvConfig, nets, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl import ae2d_def
+    from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
+    from carle_tpu_torch.rollout import Rollout
+
+    size = chip_smoke.SPATIAL_SIZE
+    cfg = EnvConfig(height=size, width=size, action_height=64, action_width=64, instances=1)
+    mesh = chip_smoke._spatial_mesh(torch)
+    defs = [ae2d_def(cfg, batch_size=4, fused_head=nets.SpaceSharding(mesh))]
+    ro = Rollout(cfg, defs, make_random_agent(64, 64, 0.2), device="cuda",
+                 stack=PackedSpatialStack(cfg, defs, mesh))
+    return chip_smoke._profile_steps(torch, ro, ro.init(ro.generator(0), rules.LIFE), 16, 1)
+
+
 def decoder_gx(torch) -> dict:
     import ctypes
     import subprocess
@@ -413,7 +448,7 @@ def python_cost(torch) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("digest", "env-step", "profile-packed",
-                                         "profile-wrappers",
+                                         "profile-wrappers", "profile-spatial",
                                          "encoder-times", "decoder-gx", "host-encoder",
                                          "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -441,6 +476,8 @@ def main() -> int:
         result = decoder_gx(torch)
     elif args.what == "profile-wrappers":
         result = profile_wrappers(torch)
+    elif args.what == "profile-spatial":
+        result = profile_spatial(torch)
     elif args.what == "host-encoder":
         result = host_encoder(torch)
     else:

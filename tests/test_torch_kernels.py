@@ -453,6 +453,47 @@ def test_tail_kernels_match_plain(cuda, geom, act, drop_p):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("geom", [  # n, cin, h, w, act, stage
+    (8, 2, 64, 64, "relu", 2),           # AE deconv1
+    (8, 1, 128, 128, "sigmoid", 3),      # AE deconv2
+    (2, 2, 37, 90, "sigmoid", 3),        # ragged bands and tiles
+])
+def test_tail2_kernels_match_generic(cuda, geom, drop_p):
+    """The decoder-stage kernels at the package's widths against the generic
+    kernel forced (TAIL2_KERNELS = False): the forward and gx bit for bit, dW
+    and db within 1e-5 of each leaf; the training forward's keep bits against
+    the twin's mask and the backward from them the same bits as drawing them."""
+    n, cin, h, w, act, stage = geom
+    rng = np.random.RandomState(11 * h + cin)
+    x = torch.from_numpy(np.maximum(rng.randn(n, cin, h, w), 0).astype(np.float32)).to(cuda)
+    wt, b = (p.to(cuda) for p in _params(rng, [(cin, 1, 4, 4), (1,)]))
+    g = torch.from_numpy(rng.randn(n, 1, 2 * h, 2 * w).astype(np.float32)).to(cuda)
+    args = (act, drop_p, 4321, stage)
+    assert cuda_stages.tail_route(cin, 1, w)
+    counts = cuda_stages.TAIL2_FWD.launches, cuda_stages.TAIL2_BWD.launches
+    y = cuda_stages.tail_fwd(x, wt, b, *args)
+    dw, db, gx = cuda_stages.tail_bwd(x, wt, b, g, *args)
+    assert (cuda_stages.TAIL2_FWD.launches, cuda_stages.TAIL2_BWD.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    try:
+        cuda_stages.TAIL2_KERNELS = False
+        y0 = cuda_stages.tail_fwd(x, wt, b, *args)
+        dw0, db0, gx0 = cuda_stages.tail_bwd(x, wt, b, g, *args)
+    finally:
+        cuda_stages.TAIL2_KERNELS = True
+    assert torch.equal(y, y0) and torch.equal(gx, gx0)
+    _assert_leaves_close((dw, db), (dw0, db0), tol=1e-5)
+    y_s, keep = cuda_stages._tail_fwd_launch(x, wt, b, *args, True)
+    assert torch.equal(y_s, y) and (keep is None) == (drop_p == 0)
+    if drop_p > 0:
+        want = cuda_head.philox_keep_mask(4321, stage, tuple(y.shape), drop_p, cuda)
+        assert torch.equal(cuda_stages.tail2_keep_mask(keep), want)
+        fed = cuda_stages._tail2_bwd_kernel(x, wt, b, g, *args, keep=keep)
+        assert all(torch.equal(a, t) for a, t in zip(fed, (dw, db, gx)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
 @pytest.mark.parametrize("shape,chans", [((8, 256, 256), (2, 1, 1)),
                                          ((3, 24, 40), (2, 1, 1)),
                                          ((1, 72, 16), (3, 2, 5))])
