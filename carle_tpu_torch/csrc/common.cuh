@@ -221,6 +221,24 @@ __device__ __forceinline__ void pair_planes(uint32_t west, uint32_t g,
     b = left & right;
 }
 
+// Next state of a word g from the pair planes of its row (a, b) and of the
+// rows above (a_t, b_t) and below (a_b, b_b), and the words above (m_t) and
+// below (m_b): the carry-save count (n0..n3 of the 8 neighbours) and the
+// rule's mux tree.
+__device__ __forceinline__ uint32_t step_planes(uint32_t a_t, uint32_t b_t, uint32_t m_t,
+                                                uint32_t a, uint32_t b, uint32_t g,
+                                                uint32_t a_b, uint32_t b_b, uint32_t m_b,
+                                                const Leaves& leaves) {
+    uint32_t s1, c1, s2, c2, s3, c3, s4, c4;
+    csa(a_t, a, a_b, s1, c1);   // weight-1 triples
+    csa(m_t, m_b, s1, s2, c2);  // + the two vertical cells
+    csa(b_t, b, b_b, s3, c3);   // weight-2 triples
+    csa(s3, c1, c2, s4, c4);
+    const uint32_t n0 = s2, n1 = s4, n2 = c3 ^ c4, n3 = c3 & c4;
+    return (fold(leaves.dead, n0, n1, n2, n3) & ~g) |
+           (fold(leaves.alive, n0, n1, n2, n3) & g);
+}
+
 // Next state of word k of the packed row `mid` ([NW] words) between the rows
 // `up` and `dn`.
 __device__ __forceinline__ uint32_t step_word_rows(const uint32_t* up, const uint32_t* mid,
@@ -233,14 +251,7 @@ __device__ __forceinline__ uint32_t step_word_rows(const uint32_t* up, const uin
     pair_planes(up[kw], m_t, up[ke], a_t, b_t);
     pair_planes(mid[kw], g, mid[ke], a, b);
     pair_planes(dn[kw], m_b, dn[ke], a_b, b_b);
-    uint32_t s1, c1, s2, c2, s3, c3, s4, c4;
-    csa(a_t, a, a_b, s1, c1);   // weight-1 triples
-    csa(m_t, m_b, s1, s2, c2);  // + the two vertical cells
-    csa(b_t, b, b_b, s3, c3);   // weight-2 triples
-    csa(s3, c1, c2, s4, c4);
-    const uint32_t n0 = s2, n1 = s4, n2 = c3 ^ c4, n3 = c3 & c4;
-    return (fold(leaves.dead, n0, n1, n2, n3) & ~g) |
-           (fold(leaves.alive, n0, n1, n2, n3) & g);
+    return step_planes(a_t, b_t, m_t, a, b, g, a_b, b_b, m_b, leaves);
 }
 
 // uint8 cells read as 32-bit words of 4 cells (a byte a cell, 0 or 1): the
@@ -275,4 +286,9 @@ __device__ __forceinline__ uint32_t step_cells4(uint32_t sw, uint32_t s, uint32_
 #ifndef KERNEL_LAUNCH
 #define KERNEL_LAUNCH(kernel, grid, block, smem, stream, ...) \
     kernel<<<(grid), (block), (smem), (stream)>>>(__VA_ARGS__)
+#endif
+// A launch whose threads exchange registers (barriers between generations,
+// lane shuffles): the host build runs each block's threads as threads.
+#ifndef KERNEL_LAUNCH_THREADED
+#define KERNEL_LAUNCH_THREADED KERNEL_LAUNCH
 #endif

@@ -20,23 +20,31 @@
 // mux tree), column_sums_rows + step_cells4 on uint8 cells read 4 to a word.
 // Columns stay inside a slot, so they wrap as in bit_multi_step.cu.
 //
-// Double buffers: generation t reads one buffer of every slot (its own rows
-// and one row of each neighbour) and writes the other, so no slot overwrites
-// a row a neighbour still reads.  The launch boundary on a device's stream is
-// the barrier between generations; between devices the caller records an
-// event on each device's stream and waits on its neighbours'
-// (parallel/cuda_halo.py).  One launch covers every slot on a device, with
-// the slots' own, north and south row pointers in a table passed by value:
-// one launch per device per generation, not per slot.
+// Double buffers: a launch (a generation, or the packed kernels' chunk of T
+// generations) reads one buffer of every slot (its own rows and the ghost
+// rows of each neighbour) and writes the other, so no slot overwrites a row a
+// neighbour still reads.  The launch boundary on a device's stream is the
+// barrier between launches; between devices the caller records an event on
+// each device's stream and waits on its neighbours' (parallel/cuda_halo.py).
+// One launch covers every slot on a device, with the slots' own and their
+// neighbours' pointers in a table passed by value: one launch per device per
+// generation (or chunk), not per slot.
 //
-// Bound on an H100: the packed update is ~45 integer operations a word a
-// generation (chip_smoke.py counts them) against 8 bytes moved a word: the
-// integer ALUs, ~5.6 us a generation at 8192^2.  The uint8 update moves 2
+// Bound on an H100: the packed update is ~37 integer operations a word a
+// generation (a row's pair planes built once; chip_smoke.py counts them)
+// against 8 bytes moved a word a launch: one generation a launch is bound by
+// the bytes (~5.0 us at 8192^2, the operations ~4.6), several by the integer
+// ALUs.  The uint8 update moves 2
 // bytes a cell (~19 operations a 4-cell word): bytes, ~40 us at 8192^2.
-// Design: one thread a word through device memory, its nine loads served by
-// L1 and L2; the launch count, not the arithmetic, sets the time of a short
-// burst.  Keeping slots resident across generations (cooperative grid sync)
-// is a later design.
+// The uint8 kernels: one thread a word through device memory, its nine loads
+// served by L1 and L2, one launch a generation.  The packed kernels
+// (bit_halo_words_launch, counted as bit_spatial_words; the present
+// bit_halo_kernel with cuda_halo.BIT_HALO_BLOCKS off): one generation by
+// bit_words.cuh's streaming kernel; K generations by temporal blocking, T
+// generations a launch on bands staged in shared memory with T ghost rows a
+// side, so a burst of K takes ceil(K / T) launches and the slots' rows pass
+// through device memory once a launch, not once a generation.
+#include "bit_words.cuh"
 #include "common.cuh"
 
 #ifdef STATIC_RULE
@@ -152,6 +160,168 @@ extern "C" int halo_step_launch(int kind, const void* const* in, void* const* sc
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     return static_cast<int>(cudaSuccess);
+}
+
+// -- The redesigned packed halo kernels (bit_halo_words_launch).
+//
+// K = 1: bit_words.cuh's streaming kernel over every slot of the device (grid
+// y), a strip's ghost row at a slot's first and last row read from the
+// neighbour's buffer.  K > 1: temporal blocking.  A block stages a band of R
+// rows of one universe of one slot, with `gens` ghost rows each side (from
+// the neighbours' buffers past the slot's edges), in shared memory, runs
+// `gens` generations on it, each on a region one row shorter each side than
+// the last (the trapezoid: the rows whose neighbourhoods are still exact),
+// and writes its R rows.  The launcher steps the K generations in chunks of
+// T: one launch a chunk, not a generation, and a slot's rows pass through
+// device memory once a chunk.  T <= HL: the ghost rows of a slot come from
+// its ring neighbours alone.
+template <int RULE, int V, int SLOTS>
+__global__ void __launch_bounds__(512)
+    bit_blocks_kernel(const __grid_constant__ SlotTable<SLOTS> t, const int32_t* __restrict__ rule,
+                      int rule_stride, int HL, int NW, int R, int bands, int gens, int S) {
+    extern __shared__ float smem[];  // two buffers of (R + 2 gens) rows of NW words
+    const SlotRows& sl = t.s[blockIdx.y];
+    const int n = blockIdx.x / bands, band = blockIdx.x - n * bands;
+    const int r0 = band * R, rows = min(R, HL - r0), E = rows + 2 * gens;
+    const size_t plane = static_cast<size_t>(HL) * NW;
+    uint32_t* cur = reinterpret_cast<uint32_t*>(smem);
+    uint32_t* nxt = cur + static_cast<size_t>(R + 2 * gens) * NW;
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int lanes = nt < 32 ? nt : 32, lane = tid % lanes, warp = tid / lanes,
+              warps = nt / lanes;
+    constexpr int C = V % 4 == 0 ? 4 : 1;  // words a staging access
+    // staged row i is row r0 - gens + i of the slot
+    for (int i = warp; i < E; i += warps) {
+        const uint32_t* row = slot_row(sl, plane, n, r0 - gens + i, HL, NW);
+        for (int c = lane * C; c < NW; c += lanes * C) {
+            uint32_t w[C];
+            load_words<C>(row + c, w);
+            store_words<C>(cur + static_cast<size_t>(i) * NW + c, w);
+        }
+    }
+    const Leaves leaves = make_leaves(rule_of<RULE>(rule, rule_stride, n));
+    const int G = NW / V;
+    __syncthreads();
+    for (int g = 1; g <= gens; ++g) {  // staged rows [g, E - g) this generation
+        const int strips = (E - 2 * g + S - 1) / S;
+        for (int i = tid; i < strips * G; i += nt) {
+            const int strip = i / G, k0 = (i - strip * G) * V;
+            const int s0 = g + strip * S, s1 = min(s0 + S, E - g);
+            RowPlanes<V> up, mid, dn;
+            load_row<V>(cur + static_cast<size_t>(s0 - 1) * NW, k0, NW, up);
+            load_row<V>(cur + static_cast<size_t>(s0) * NW, k0, NW, mid);
+            for (int r = s0; r < s1; ++r) {
+                load_row<V>(cur + static_cast<size_t>(r + 1) * NW, k0, NW, dn);
+                uint32_t w[V];
+                step_row<V>(up, mid, dn, leaves, w);
+                store_words<V>(nxt + static_cast<size_t>(r) * NW + k0, w);
+                up = mid;
+                mid = dn;
+            }
+        }
+        __syncthreads();
+        uint32_t* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+    }
+    uint32_t* dst = sl.dst + n * plane + static_cast<size_t>(r0) * NW;
+    for (int i = warp; i < rows; i += warps)
+        for (int c = lane * C; c < NW; c += lanes * C) {
+            uint32_t w[C];
+            load_words<C>(cur + static_cast<size_t>(gens + i) * NW + c, w);
+            store_words<C>(dst + static_cast<size_t>(i) * NW + c, w);
+        }
+}
+
+#ifdef STATIC_RULE
+constexpr int HALO_RULE = STATIC_RULE;
+#else
+constexpr int HALO_RULE = -1;
+#endif
+
+// Shared memory of a band of R rows with T ghost rows each side, two copies.
+static inline size_t blocks_smem(int R, int T, int NW) {
+    return 2 * static_cast<size_t>(R + 2 * T) * NW * sizeof(uint32_t);
+}
+
+// Chunks [c0, c1) of the ceil(steps / T) chunks of T generations (the last
+// may be shorter) of packed words [N, HL, NW] on the S slots `slots` (of the
+// n in the ring) that live on `device`; in, scratch and out hold every slot's
+// pointer (host arrays of n): chunk c reads `in` (c = 0) or the buffer chunk
+// c - 1 wrote, and writes scratch or out so that the last lands in out.  T =
+// 1: each chunk a generation by the streaming kernel (V words, strips of
+// `strip` rows, `threads` a block); T > 1: bit_blocks_kernel on bands of
+// `rows` rows, compute strips of `strip` rows, `threads` a block.  The rule
+// as halo_step_launch's; a library built with -DSTATIC_RULE fixes it.
+extern "C" int bit_halo_words_launch(const void* const* in, void* const* scratch,
+                                     void* const* out, const int* slots, int S, int n,
+                                     const void* rule, int rule_stride, int N, int HL, int NW,
+                                     int steps, int T, int c0, int c1, int V, int rows,
+                                     int strip, int threads, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int chunks = T >= 1 ? (steps + T - 1) / T : 0;
+    if (S < 1 || S > MAX_SLOTS || n < S || N < 1 || HL < 1 || NW < 1 || steps < 1 || T < 1 ||
+        T > HL || c0 < 0 || c1 > chunks || rows < 1 || strip < 1 || threads < 1 ||
+        (V != 1 && V != 4) || NW % V || (threads > 32 && threads % 32))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* rb = static_cast<const int32_t*>(rule);
+    auto buffer = [&](int c, int j) -> uint32_t* {  // what chunk c writes in slot j
+        return static_cast<uint32_t*>(((chunks - c) % 2) ? out[j] : scratch[j]);
+    };
+    auto source = [&](int c, int j) -> const uint32_t* {  // what it reads
+        return c == 0 ? static_cast<const uint32_t*>(in[j]) : buffer(c - 1, j);
+    };
+    const int bands = (HL + rows - 1) / rows;
+    const size_t smem = blocks_smem(rows, T, NW);
+    if (T > 1 && (threads > 512 || static_cast<long long>(N) * bands >= (1LL << 31)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel = V == 4 ? bit_blocks_kernel<HALO_RULE, 4, MAX_SLOTS>
+                               : bit_blocks_kernel<HALO_RULE, 1, MAX_SLOTS>;
+    if (T > 1) {
+        err = allow_smem(kernel, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    for (int c = c0; c < c1; ++c) {
+        SlotTable<MAX_SLOTS> table;
+        for (int i = 0; i < S; ++i) {
+            const int j = slots[i];
+            if (j < 0 || j >= n) return static_cast<int>(cudaErrorInvalidValue);
+            table.s[i] = SlotRows{source(c, j), buffer(c, j), source(c, (j + n - 1) % n),
+                                  source(c, (j + 1) % n)};
+        }
+        if (T == 1) {
+            const int rc = stream_launch<HALO_RULE, MAX_SLOTS>(table, S, rb, rule_stride, N, HL,
+                                                               NW, V, strip, threads, st);
+            if (rc != 0) return rc;
+            continue;
+        }
+        const int gens = T < steps - c * T ? T : steps - c * T;
+        const dim3 grid(static_cast<unsigned>(N) * bands, S);
+        KERNEL_LAUNCH(kernel, grid, threads, smem, st, table, rb, rule_stride, HL, NW, rows,
+                      bands, gens, strip);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaSuccess);
+}
+
+// Registers, static shared memory, spills and resident blocks a
+// multiprocessor of the temporal-blocking kernel (V words, bands of `rows`
+// rows, T generations, NW words a row) or, rows == 0, of the streaming one.
+extern "C" int bit_halo_words_occupancy(int V, int rows, int T, int NW, int threads, int device,
+                                        int* out) {
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (rows == 0) {
+        const auto kernel = V == 4 ? bit_stream_kernel<HALO_RULE, 4, MAX_SLOTS>
+                                   : bit_stream_kernel<HALO_RULE, 1, MAX_SLOTS>;
+        return kernel_occupancy(kernel, threads, 0, out);
+    }
+    const auto kernel = V == 4 ? bit_blocks_kernel<HALO_RULE, 4, MAX_SLOTS>
+                               : bit_blocks_kernel<HALO_RULE, 1, MAX_SLOTS>;
+    return kernel_occupancy(kernel, threads, blocks_smem(rows, T, NW), out);
 }
 
 // Let `device` read `peer`'s memory (a mesh whose slots span several cards).

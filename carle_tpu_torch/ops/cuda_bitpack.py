@@ -11,37 +11,89 @@ their plain PyTorch twins (counterpart of carle_tpu/ops/pallas_bitpack.py).
   fixed or as data (``bit_multi_step_pallas_static_cm``, ``_cm``).
 
 Each takes the plain path for a CPU tensor and launches
-``csrc/bit_multi_step.cu`` for a CUDA tensor.  The kernels keep each universe
-resident in one block's shared memory for all K generations when two copies
-of it fit (:func:`resident`: up to 227 KB, e.g. 512 x 512), and otherwise run
-one launch a generation through device memory.  The JAX functions' ``scheme``
-argument names TPU schedules; it is accepted and ignored.
+``csrc/bit_multi_step.cu`` for a CUDA tensor.
+
+:func:`bit_multi_step` runs the kernels redesigned for the H100
+(``bit_words_launch``, counted as ``bit_multi_step_words``) where
+:func:`words_plan` serves the shape, in one of three regimes:
+
+* K = 1, any size (the packed carry's step, the bands' universe): the
+  streaming kernel, a thread a strip of rows of 4 words (1 where rows are
+  not whole 16-byte words), no shared memory; one launch;
+* K > 1 on universes of 1, 2, 4 or 8 words a row that a block's registers
+  hold: each universe resident in registers for all K generations, a block
+  holding whole universes, or, with fewer universes than multiprocessors
+  (the server's ``/rollout``), a universe of 8 words a row split over a
+  thread-block cluster of 16 blocks that trade two ghost rows a side once
+  every two generations; one launch;
+* K > 1 on universes too large for shared memory: the streaming kernel once a
+  generation (K launches).
+
+Other shapes, and every shape with ``BIT_WORDS = False``, take the present
+kernels: each universe resident in one block's shared memory for all K
+generations when two copies of it fit (:func:`resident`: up to 227 KB, e.g.
+512 x 512; one launch), and otherwise one launch a generation through device
+memory.  The other three engines launch the present kernels.  The JAX
+functions' ``scheme`` argument names TPU schedules; it is accepted and
+ignored.
 """
 
 from __future__ import annotations
+
+import functools
+import re
 
 import torch
 
 from ..rules import pack_rule_bits
 from . import bitpack
 from .bitpack import bit_multi_step as bit_multi_step_plain
-from .cuda_build import KERNELS, stream_args
-from .cuda_ca import rule_tensor
+from .cuda_build import CSRC, KERNELS, stream_args
+from .cuda_ca import _multiprocessors, rule_tensor
 
 KERNEL = KERNELS["bit_multi_step"]
+KERNEL_WORDS = KERNELS["bit_multi_step_words"]
 KERNEL_CM = KERNELS["bit_multi_step_cm"]
 KERNEL_STATIC = KERNELS["bit_multi_step_static"]
 KERNEL_STATIC_CM = KERNELS["bit_multi_step_static_cm"]
 RESIDENT_MAX_BYTES = 227 * 1024
+# False: bit_multi_step launches the present kernels at every shape (the A/B)
+BIT_WORDS = True
+# The streaming kernel (K = 1): strips of up to STREAM_MAX_STRIP rows, as
+# long as the card keeps STREAM_THREADS_PER_SM threads a multiprocessor, in
+# blocks of STREAM_THREADS
+STREAM_MAX_STRIP = 8
+STREAM_THREADS_PER_SM = 512
+STREAM_THREADS = 64
+
+
+def _built_regs_plans():
+    """The register-resident instantiations (V, L, R, CL, G) that
+    csrc/bit_multi_step.cu builds, read from its BIT_REGS_PLANS list: V words
+    a thread, L lanes a row, R rows a thread, clusters of CL blocks, G
+    generations an exchange."""
+    text = (CSRC / "bit_multi_step.cu").read_text()
+    body = re.search(r"#define BIT_REGS_PLANS\(X\)(.*?)\n\n", text, re.S).group(1)
+    return tuple(tuple(int(v) for v in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", body))
+
+
+# Whole universes a block at 1, 2, 4 and 8 words a row, 4 rows a thread or
+# 1; the cluster split, and its size-1 instance (the host build's)
+REGS_PLANS = _built_regs_plans()
+REGS_MAX_THREADS = 256
+# a universe of 8 words a row split over a cluster of 16 blocks, two
+# generations an exchange
+CLUSTER_PLAN = (2, 4, 1, 16, 2)
 
 bit_multi_step_static_plain = bitpack.bit_multi_step_static
 bit_multi_step_static_cm_plain = bitpack.bit_multi_step_static_cm
 bit_multi_step_cm_plain = bitpack.bit_multi_step_cm
 
-__all__ = ["KERNEL", "KERNEL_CM", "KERNEL_STATIC", "KERNEL_STATIC_CM", "bit_multi_step",
-           "bit_multi_step_plain", "bit_multi_step_static", "bit_multi_step_static_plain",
-           "bit_multi_step_static_cm", "bit_multi_step_static_cm_plain",
-           "bit_multi_step_cm", "bit_multi_step_cm_plain", "resident"]
+__all__ = ["KERNEL", "KERNEL_CM", "KERNEL_STATIC", "KERNEL_STATIC_CM", "KERNEL_WORDS",
+           "bit_multi_step", "bit_multi_step_plain", "bit_multi_step_static",
+           "bit_multi_step_static_plain", "bit_multi_step_static_cm",
+           "bit_multi_step_static_cm_plain", "bit_multi_step_cm", "bit_multi_step_cm_plain",
+           "resident", "stream_plan", "words_plan"]
 
 
 def resident(height: int, words: int, pad: int = 0) -> bool:
@@ -49,6 +101,99 @@ def resident(height: int, words: int, pad: int = 0) -> bool:
     (two uint32 copies, ping-pong, rows padded by ``pad`` words), False for
     the per-generation fallback."""
     return 2 * height * (words + pad) * 4 <= RESIDENT_MAX_BYTES
+
+
+@functools.lru_cache(maxsize=256)
+def stream_plan(n: int, h: int, nw: int, sms: int, aligned: bool = True):
+    """("stream", V, S, threads): the streaming kernel's words a thread (a
+    16-byte word of 4, or 1 where rows are not whole 16-byte words or
+    ``aligned`` is False), rows a strip (doubled while the card keeps
+    STREAM_THREADS_PER_SM threads a multiprocessor) and STREAM_THREADS
+    threads a block (small blocks spread a small grid evenly over the
+    ``sms`` multiprocessors)."""
+    v = 4 if nw % 4 == 0 and aligned else 1
+    groups = nw // v
+    s = 1
+    while (s < STREAM_MAX_STRIP and s < h
+           and n * groups * -(-h // (2 * s)) >= sms * STREAM_THREADS_PER_SM):
+        s *= 2
+    return ("stream", v, s, STREAM_THREADS)
+
+
+def stream_launches(n: int, h: int, nw: int, v: int, s: int) -> int:
+    """Launches of one streamed generation: universes in chunks whose items
+    (strips x word groups) a 32-bit index covers (bit_words.cuh's
+    stream_chunk)."""
+    per = -(-h // s) * (nw // v)
+    return -(-n // max(1, 2 ** 31 // per))
+
+
+def _regs_plan(n: int, h: int, nw: int, sms: int, aligned: bool):
+    """("regs", V, L, R, CL, G, threads) for K > 1 held in registers, or
+    None: a cluster (CLUSTER_PLAN) a universe when there are fewer universes
+    than multiprocessors, else whole universes a block, 4 rows a thread
+    where the rows divide."""
+    if nw >= 4 and not aligned:
+        return None
+    v, l, r, cl, g = CLUSTER_PLAN
+    per = h // cl // r * l
+    if (nw == v * l and n < sms and h % (cl * r) == 0 and per % 32 == 0
+            and per <= REGS_MAX_THREADS and h // cl // r >= g):
+        return ("regs", v, l, r, cl, g, per)
+    r = 4 if h % 4 == 0 else 1
+    per = h // r
+    if per > REGS_MAX_THREADS or (nw, 1, r, 1, 1) not in REGS_PLANS:
+        return None
+    return ("regs", nw, 1, r, 1, 1, per * min(n, REGS_MAX_THREADS // per))
+
+
+@functools.lru_cache(maxsize=256)
+def words_plan(n: int, h: int, nw: int, steps: int, sms: int, aligned: bool = True):
+    """The redesigned kernels' plan for K = ``steps`` generations on [n, h,
+    nw] words (module note), decided by the shape, the card's ``sms``
+    multiprocessors and whether the words are 16-byte aligned; None where the
+    present kernel keeps the shape (K > 1 on a universe that two copies of
+    fit shared memory but the registers do not)."""
+    if steps <= 1:
+        return stream_plan(n, h, nw, sms, aligned)
+    plan = _regs_plan(n, h, nw, sms, aligned)
+    if plan is not None:
+        return plan
+    return None if resident(h, nw) else stream_plan(n, h, nw, sms, aligned)
+
+
+def _words_kernel(packed: torch.Tensor, rule_bits, num_steps: int, plan=None) -> torch.Tensor:
+    """bit_words_launch on ``packed`` by ``plan`` (default :func:`words_plan`,
+    or where that leaves the shape to the present kernel, the streaming kernel
+    a generation a launch).  K = 0 copies without a launch."""
+    steps = int(num_steps)
+    if steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {steps}")
+    if packed.dtype != torch.uint32 or packed.ndim != 3 or not packed.is_contiguous():
+        raise ValueError("bit_multi_step: packed must be a contiguous uint32 [inst, H, W/32] "
+                         "tensor")
+    n, h, nw = packed.shape
+    rule = rule_tensor(rule_bits, packed)
+    out = torch.empty_like(packed)
+    if steps == 0:
+        return out.copy_(packed)
+    if plan is None:
+        sms, aligned = _multiprocessors(packed.device), packed.data_ptr() % 16 == 0
+        plan = words_plan(n, h, nw, steps, sms, aligned) or stream_plan(n, h, nw, sms, aligned)
+    device, stream = stream_args(packed)
+    if plan[0] == "stream":
+        _, v, s, threads = plan
+        scratch = torch.empty_like(packed) if steps > 1 else out
+        KERNEL_WORDS.launch(packed.data_ptr(), rule.data_ptr(), int(rule.ndim == 1),
+                            out.data_ptr(), scratch.data_ptr(), n, h, nw, steps, 0, v, 1, 1, 1,
+                            1, s, threads, device, stream,
+                            count=steps * stream_launches(n, h, nw, v, s))
+    else:
+        _, v, l, r, cl, g, threads = plan
+        KERNEL_WORDS.launch(packed.data_ptr(), rule.data_ptr(), int(rule.ndim == 1),
+                            out.data_ptr(), out.data_ptr(), n, h, nw, steps, 1, v, l, r, cl, g,
+                            1, threads, device, stream)
+    return out
 
 
 def _checked(packed: torch.Tensor, num_steps: int, name: str, layout: str, cm: bool):
@@ -101,6 +246,12 @@ def bit_multi_step(packed: torch.Tensor, rule_bits,
     rule is a scalar or an [inst] vector."""
     if _device_of(packed, "bit_multi_step") == "cpu":
         return bit_multi_step_plain(packed, rule_bits, num_steps)
+    if BIT_WORDS and packed.ndim == 3:
+        n, h, nw = packed.shape
+        plan = words_plan(n, h, nw, int(num_steps), _multiprocessors(packed.device),
+                          packed.data_ptr() % 16 == 0)
+        if plan is not None:
+            return _words_kernel(packed, rule_bits, num_steps, plan)
     return _data_rule(KERNEL, packed, rule_bits, num_steps, False, "[inst, H, W/32]")
 
 

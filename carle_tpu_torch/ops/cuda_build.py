@@ -177,6 +177,8 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P, P, P, I, P, P] + [I] * 11 + [P], source="ca_step"),
         CudaKernel("bit_multi_step", "bit_multi_step_launch",
                    [P, P, I, P, P, I, I, I, I, I, I, P]),
+        CudaKernel("bit_multi_step_words", "bit_words_launch",
+                   [P, P, I, P, P] + [I] * 13 + [P], source="bit_multi_step"),
         CudaKernel("bit_multi_step_cm", "bit_multi_step_cm_launch",
                    [P, P, I, P, P, I, I, I, I, I, I, P], source="bit_multi_step"),
         CudaKernel("bit_multi_step_static", "bit_multi_step_static_launch",
@@ -231,6 +233,8 @@ KERNELS: Dict[str, CudaKernel] = {
                    [I, P, P, P, P, I, I, P] + [I] * 8 + [P], source="halo_step"),
         CudaKernel("bit_spatial_multi_step", "halo_step_launch",
                    [I, P, P, P, P, I, I, P] + [I] * 8 + [P], source="halo_step"),
+        CudaKernel("bit_spatial_words", "bit_halo_words_launch",
+                   [P, P, P, P, I, I, P] + [I] * 13 + [P], source="halo_step"),
     )
 }
 

@@ -12,15 +12,21 @@ carle_tpu/parallel/pallas_halo.py).
 
 Each takes :class:`~.mesh.RowShards` of [N, H/n, W] uint8 cells or
 [N, H/n, W/32] uint32 words and returns new shards.  All three launch
-``csrc/halo_step.cu`` for CUDA slots: once per device per generation, every
-slot on that device in one launch, each slot reading its ring neighbours'
-edge rows in place (the ring wraps: the torus).  Slots on several cards run
-each generation on every card's stream, each waiting on an event its
-neighbours' cards recorded after the previous generation; that path needs
-peer access and has not run on a machine of several cards.  For CPU slots
-each takes its twin (``*_plain``): ghost rows copied from the ring
-neighbours, the engines' update on the padded rows, columns rolled.  The
-step count is data (a host integer): no rebuild for another count.
+``csrc/halo_step.cu`` for CUDA slots, every slot on a device in one launch,
+each slot reading its ring neighbours' edge rows in place (the ring wraps:
+the torus).  The uint8 kernels launch once per device per generation.  The
+packed one (``bit_halo_words_launch``, counted as ``bit_spatial_words``)
+runs one generation by the streaming kernel, and K generations in chunks of
+T (:func:`halo_plan`: T <= the slot's rows): one launch per device per
+chunk, each a temporal-blocking kernel on bands staged with T ghost rows a
+side; with ``BIT_HALO_BLOCKS = False`` it takes the present kernel, once per
+device per generation.  Slots on several cards run each generation (packed:
+each chunk) on every card's stream, each waiting on an event its
+neighbours' cards recorded after the previous one; that path needs peer
+access and has not run on a machine of several cards.  For CPU slots each
+takes its twin (``*_plain``): ghost rows copied from the ring neighbours,
+the engines' update on the padded rows, columns rolled.  The step count is
+data (a host integer): no rebuild for another count.
 """
 
 from __future__ import annotations
@@ -32,17 +38,32 @@ import torch
 
 from ..ops import bitpack
 from ..ops.ca import apply_rule
+from ..ops.cuda_bitpack import stream_launches, stream_plan
 from ..ops.cuda_build import KERNELS, library, stream_args
+from ..ops.cuda_ca import _multiprocessors
 from ..rules import pack_rule_bits
 from .mesh import RowShards
 
 KERNEL_STEP = KERNELS["spatial_ca_step"]
 KERNEL_MULTI = KERNELS["spatial_multi_step"]
 KERNEL_BIT = KERNELS["bit_spatial_multi_step"]
+KERNEL_BIT_WORDS = KERNELS["bit_spatial_words"]
 KIND_U8, KIND_U32 = 1, 2     # csrc/common.cuh
 MAX_SLOTS = 64               # csrc/halo_step.cu: slots of one device a launch covers
+# False: bit_spatial_multi_step_cuda launches the present kernel, once a
+# generation (the A/B)
+BIT_HALO_BLOCKS = True
+# bit_halo_words_launch's temporal blocking: shared memory a block may take,
+# generations a launch, the most rows a band, threads a block, the most rows
+# a compute strip
+HALO_SMEM_BYTES = 227 * 1024
+HALO_T = 8
+HALO_ROWS = 64
+HALO_THREADS = 512
+HALO_MAX_STRIP = 32
 
-__all__ = ["KERNEL_BIT", "KERNEL_MULTI", "KERNEL_STEP", "bit_spatial_multi_step_cuda",
+__all__ = ["KERNEL_BIT", "KERNEL_BIT_WORDS", "KERNEL_MULTI", "KERNEL_STEP",
+           "bit_spatial_multi_step_cuda", "halo_plan",
            "bit_spatial_multi_step_plain", "spatial_ca_step_cuda", "spatial_ca_step_plain",
            "spatial_multi_step_cuda", "spatial_multi_step_plain"]
 
@@ -168,46 +189,27 @@ def _enable_peers(devices: Sequence[torch.device]) -> None:
                 _PEERS_ENABLED.add((a.index, b.index))
 
 
-def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
-            defines: Tuple[str, ...] = ()) -> RowShards:
-    parts, mesh = x.parts, x.mesh
-    steps = int(steps)
-    if steps < 0:
-        raise ValueError(f"num_steps must be >= 0, got {steps}")
-    if steps == 0:
-        return x.map(torch.clone)
-    n_inst, hl, w = parts[0].shape
-    if n_inst > 65535:
-        raise ValueError("a launch covers at most 65535 universes")
-    n = len(parts)
-    rules = _rules_by_device(rule_bits, x)
-    out = [torch.empty_like(p) for p in parts]
-    scratch = [torch.empty_like(p) for p in parts] if steps > 1 else out
-    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
-    arrays = [ptrs(parts), ptrs(scratch), ptrs(out)]
+def _slot_groups(x: RowShards) -> Dict[torch.device, List[int]]:
+    """The slots of each device, in ring order."""
     groups: Dict[torch.device, List[int]] = {}
-    for s, dev in enumerate(mesh.devices):
+    for s, dev in enumerate(x.mesh.devices):
         groups.setdefault(dev, []).append(s)
     for dev, slots in groups.items():
         if len(slots) > MAX_SLOTS:
             raise ValueError(f"at most {MAX_SLOTS} slots a device, {dev} has {len(slots)}")
-    slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
-    packed = kind == KIND_U32
+    return groups
 
-    def launch(dev, t0, t1):
-        rule = rules[dev]
-        kernel.launch(kind, *(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
-                      ctypes.cast(slot_arrays[dev], ctypes.c_void_p), len(groups[dev]), n,
-                      rule.data_ptr(), int(rule.ndim == 1), n_inst, hl, w, steps, t0, t1,
-                      *stream_args(parts[groups[dev][0]]), defines=defines, packed=packed,
-                      count=t1 - t0)   # the launcher launches once a generation
 
+def _chunks(x: RowShards, groups, chunks: int, launch) -> None:
+    """Run ``launch(dev, c0, c1)`` (chunks [c0, c1) on the slots of ``dev``)
+    over ``chunks`` chunks: in one call on one card; on several cards chunk
+    by chunk, chunk c on a card waiting for chunk c - 1 on the cards holding
+    its slots' ring neighbours (their rows are its ghost rows, and it
+    overwrites the buffer they read)."""
+    mesh, n = x.mesh, len(x.parts)
     if len(groups) == 1:
-        launch(mesh.home, 0, steps)
-        return RowShards(out, mesh, x.axis)
-    # several cards: generation t on a card waits for generation t - 1 on the
-    # cards holding its slots' ring neighbours (their rows are its ghost
-    # rows, and it overwrites the buffer they read)
+        launch(mesh.home, 0, chunks)
+        return
     devs = list(groups)
     _enable_peers(devs)
     neighbours = {d: {mesh.devices[(s + k) % n] for s in groups[d] for k in (-1, 1)} - {d}
@@ -221,16 +223,115 @@ def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
         return events
 
     events = record()   # the inputs' producers
-    for t in range(steps):
+    for c in range(chunks):
         for d in devs:
             for nb in neighbours[d]:
                 torch.cuda.current_stream(d).wait_event(events[nb])
-            launch(d, t, t + 1)
+            launch(d, c, c + 1)
         events = record()
     for d in devs:   # each card's outputs are read by its neighbours' next users
         for nb in neighbours[d]:
             torch.cuda.current_stream(d).wait_event(events[nb])
-    return RowShards(out, mesh, x.axis)
+
+
+def _buffers(x: RowShards, steps: int):
+    """(out, scratch, ctypes arrays of the in, scratch and out pointers)."""
+    parts, n = x.parts, len(x.parts)
+    out = [torch.empty_like(p) for p in parts]
+    scratch = [torch.empty_like(p) for p in parts] if steps > 1 else out
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+    return out, scratch, [ptrs(parts), ptrs(scratch), ptrs(out)]
+
+
+def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
+            defines: Tuple[str, ...] = ()) -> RowShards:
+    parts = x.parts
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {steps}")
+    if steps == 0:
+        return x.map(torch.clone)
+    n_inst, hl, w = parts[0].shape
+    if n_inst > 65535:
+        raise ValueError("a launch covers at most 65535 universes")
+    n = len(parts)
+    rules = _rules_by_device(rule_bits, x)
+    groups = _slot_groups(x)
+    out, scratch, arrays = _buffers(x, steps)
+    slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
+    packed = kind == KIND_U32
+
+    def launch(dev, t0, t1):
+        rule = rules[dev]
+        kernel.launch(kind, *(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
+                      ctypes.cast(slot_arrays[dev], ctypes.c_void_p), len(groups[dev]), n,
+                      rule.data_ptr(), int(rule.ndim == 1), n_inst, hl, w, steps, t0, t1,
+                      *stream_args(parts[groups[dev][0]]), defines=defines, packed=packed,
+                      count=t1 - t0)   # the launcher launches once a generation
+
+    _chunks(x, groups, steps, launch)
+    return RowShards(out, x.mesh, x.axis)
+
+
+def halo_plan(n_inst: int, hl: int, nw: int, steps: int, slots: int, sms: int,
+              aligned: bool = True):
+    """(T, V, rows, strip, threads) of bit_halo_words_launch for ``steps``
+    generations of [n_inst, hl, nw] words on each of ``slots`` slots of a
+    card with ``sms`` multiprocessors.  T = 1 (one generation, or one-row
+    slots): the streaming kernel, (V, strip, threads) as
+    ops.cuda_bitpack.stream_plan over the slots' universes, rows 0.  T > 1:
+    T = min(HALO_T, hl, steps) generations a launch on bands of the most
+    rows, up to HALO_ROWS, whose two copies with T ghost rows a side fit
+    shared memory (the best plan measured at 8192² over 4 slots: T = 8,
+    64 rows); compute strips of ``strip`` rows so that a generation's items
+    about fill the block."""
+    t = min(HALO_T, hl, steps)
+    rows = min(HALO_ROWS, hl)
+    while rows > 0 and 2 * (rows + 2 * t) * nw * 4 > HALO_SMEM_BYTES:
+        rows -= 8
+    if t <= 1 or rows <= 0:   # one generation a launch
+        _, v, s, threads = stream_plan(n_inst * slots, hl, nw, sms, aligned)
+        return (1, v, 0, s, threads)
+    v = 4 if nw % 4 == 0 and aligned else 1
+    strip = max(1, min(HALO_MAX_STRIP, (rows + 2 * t) * (nw // v) // HALO_THREADS))
+    return (t, v, rows, strip, HALO_THREADS)
+
+
+def _launch_words(x: RowShards, rule_bits, steps: int, defines: Tuple[str, ...] = (),
+                  plan=None) -> RowShards:
+    """bit_halo_words_launch: ``steps`` packed generations in chunks of the
+    plan's T (default :func:`halo_plan`), one launch a chunk a device."""
+    parts = x.parts
+    steps = int(steps)
+    if steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {steps}")
+    if steps == 0:
+        return x.map(torch.clone)
+    n_inst, hl, nw = parts[0].shape
+    n = len(parts)
+    rules = _rules_by_device(rule_bits, x)
+    groups = _slot_groups(x)
+    out, scratch, arrays = _buffers(x, steps)
+    if plan is None:
+        aligned = all(t.data_ptr() % 16 == 0 for ts in (parts, scratch, out) for t in ts)
+        plan = halo_plan(n_inst, hl, nw, steps, max(len(s) for s in groups.values()),
+                         _multiprocessors(x.mesh.home), aligned)
+    t, v, rows, strip, threads = plan
+    chunks = -(-steps // t)
+    slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
+
+    def launch(dev, c0, c1):
+        rule = rules[dev]
+        per_chunk = (stream_launches(n_inst, hl, nw, v, strip) if t == 1 else 1)
+        KERNEL_BIT_WORDS.launch(*(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
+                                ctypes.cast(slot_arrays[dev], ctypes.c_void_p),
+                                len(groups[dev]), n, rule.data_ptr(), int(rule.ndim == 1),
+                                n_inst, hl, nw, steps, t, c0, c1, v, max(rows, 1), strip,
+                                threads, *stream_args(parts[groups[dev][0]]), defines=defines,
+                                packed=True, count=(c1 - c0) * per_chunk)
+
+    _chunks(x, groups, chunks, launch)
+    return RowShards(out, x.mesh, x.axis)
 
 
 def spatial_ca_step_cuda(x: RowShards, rule_bits) -> RowShards:
@@ -255,8 +356,10 @@ def bit_spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int,
     rule argument is then not read)."""
     if _check(x, torch.uint32, "bit_spatial_multi_step", rule_bits) == "cpu":
         return bit_spatial_multi_step_plain(x, rule_bits, num_steps, static_rules)
-    if static_rules is None:
-        return _launch(KERNEL_BIT, x, rule_bits, num_steps, KIND_U32)
-    mask = pack_rule_bits(*static_rules)
-    return _launch(KERNEL_BIT, x, mask, num_steps, KIND_U32,
-                   defines=(f"STATIC_RULE={mask:#07x}",))
+    defines, rule = (), rule_bits
+    if static_rules is not None:
+        rule = pack_rule_bits(*static_rules)
+        defines = (f"STATIC_RULE={rule:#07x}",)
+    if BIT_HALO_BLOCKS:
+        return _launch_words(x, rule, num_steps, defines)
+    return _launch(KERNEL_BIT, x, rule, num_steps, KIND_U32, defines)

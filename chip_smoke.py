@@ -13,8 +13,14 @@ Phases, in order; any failure exits non-zero without the final line:
            kernel forced at [1], [64], [160] x 256² and ragged shapes, with
            and without the master reset, bit for bit, both timed in turns
            after an L2 flush and L2-warm and by CUPTI cold and warm, the word
-           kernel's registers and blocks a multiprocessor; row 2 at
-           the paths' shapes and the halo rows per launch; the encoder's kernels specialised at the
+           kernel's registers and blocks a multiprocessor; row 2's
+           redesigned kernels (bit_multi_step_words: streaming one
+           generation, universes held in registers, a universe split over a
+           thread-block cluster) against the present ones forced and the
+           twin at the paths' shapes (packed train, packed stack, bands,
+           /rollout, engines), bit for bit, both timed in turns after an L2
+           flush and by CUPTI cold, their plans, registers and blocks a
+           multiprocessor; the encoder's kernels specialised at the
            package's three widths, enc3_*, also against the generic ones at
            every shape: the forward bit for bit, the gradients within 1e-5 of
            each leaf at 256² and 1e-4 on the 8192² shapes, the training
@@ -80,7 +86,12 @@ Phases, in order; any failure exits non-zero without the final line:
            (uint8 1 and 8 generations, packed 64 with the rule as data and
            with Life fixed) against their twins and the single-device
            engines on the unsharded universe, bit for bit, with their times
-           beside the engines'; a small ragged case with a rule vector;
+           beside the engines'; the packed one's redesigned launcher
+           (bit_spatial_words: temporal blocking, one launch a chunk of
+           generations) against the present kernel forced, timed in turns,
+           and one generation a call (the streaming kernel) by CUPTI cold,
+           with the plans' registers and blocks a multiprocessor; a small
+           ragged case with a rule vector;
    engines each of the five packed and uint8 engines once at bench.py's
            geometry through its public function: all leave bench.py's
            checksum, the live-cell sum of the plain twin;
@@ -140,8 +151,10 @@ Phases, in order; any failure exits non-zero without the final line:
            paths (battery, server, train, routes, wrappers, packed, bands,
            engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
-           bands path; a generic encoder, decoder-loss or tail kernel, or
-           the byte ca_step kernel, launched on any of them fails the run),
+           bands path; a generic encoder, decoder-loss or tail kernel, the
+           byte ca_step kernel, or the present packed engine or halo kernel
+           (bit_multi_step, bit_spatial_multi_step), launched on any of them
+           fails the run),
            then the
            card's name and power limit,
            then the ok line.
@@ -195,21 +208,23 @@ FP32_FLOPS = 67e12
 INT32_OPS = 64 * 132 * 1.98e9
 # Integer operations a packed word needs a generation, counted as the card
 # executes them: LOP3 computes any 3-input boolean function and SHF a funnel
-# shift in one operation.  Horizontal pairs 3 x (2 SHF + 2 LOP3) = 12, the
-# carry-save tree 4 CSAs x 2 LOP3 + n2, n3 = 10, the two 9-leaf mux folds
-# 2 x 11 LOP3 + the alive/dead select = 23: 45.  (carle_tpu/ops/bitpack.py:11
-# counts ~110 two-input operations: the TPU has no 3-input logic op.)
-OPS_PER_WORD = 45
+# shift in one operation.  A row's horizontal pair planes (2 SHF + 2 LOP3 = 4)
+# are built once and serve the three output rows that read it, so a word
+# pays for one row's; the carry-save tree 4 CSAs x 2 LOP3 + n2, n3 = 10, the
+# two 9-leaf mux folds 2 x 11 LOP3 + the alive/dead select = 23: 37.
+# (carle_tpu/ops/bitpack.py:11 counts ~110 two-input operations: the TPU has
+# no 3-input logic op.)
+OPS_PER_WORD = 37
 # The same count for the other engines (a word of cells a generation):
-# the row-major engine with Life fixed at compile time: pairs 12, carry-save
-# tree 10, Life's decision n1 & ~n2 & ~n3 & (n0 | g) 2 LOP3 = 24; column-major
-# (each thread carries its neighbours' vertical triples): the east column's
-# triple 2 SHF + 2 LOP3, count9 from the triples 2 CSAs x 2 LOP3 + 4 = 12,
-# then Life's decision 2 LOP3 = 16 fixed, the two 10-leaf mux folds 2 x 11
-# LOP3 + the select = 23 as data: 35; the uint8 engine (4 cells a word):
-# column sums 3 IADD3, 2 SHF, count9 1 IADD3, index 1 LEA, a byte's lookup
-# BFE + SHF + BFI x 4 = 19.
-OPS_PER_WORD_STATIC, OPS_PER_WORD_STATIC_CM, OPS_PER_WORD_CM = 24, 16, 35
+# the row-major engine with Life fixed at compile time: pairs 4, carry-save
+# tree 10, Life's decision n1 & ~n2 & ~n3 & (n0 | g) 2 LOP3 = 16; column-major
+# (each thread carries its neighbours' vertical triples, each column's built
+# once): the east column's triple 2 SHF + 2 LOP3, count9 from the triples
+# 2 CSAs x 2 LOP3 + 4 = 12, then Life's decision 2 LOP3 = 16 fixed, the two
+# 10-leaf mux folds 2 x 11 LOP3 + the select = 23 as data: 35; the uint8
+# engine (4 cells a word): column sums 3 IADD3, 2 SHF, count9 1 IADD3, index
+# 1 LEA, a byte's lookup BFE + SHF + BFI x 4 = 19.
+OPS_PER_WORD_STATIC, OPS_PER_WORD_STATIC_CM, OPS_PER_WORD_CM = 16, 16, 35
 OPS_PER_U8_WORD = 19
 BENCH_UNIVERSES, BENCH_SIZE, BENCH_STEPS = 4096, 256, 128   # bench.py's geometry
 BATTERY_RULESETS = (([3], [2, 3]), ([3, 6, 8], [2, 4, 5]), ([3, 6, 7, 8], [3, 4, 6, 7, 8]),
@@ -220,6 +235,8 @@ SOURCES = {
     "ca_step": ("carle_tpu_torch/csrc/ca_step.cu", "carle_tpu/ops/pallas_ca.py:100"),
     "bit_multi_step": ("carle_tpu_torch/csrc/bit_multi_step.cu",
                        "carle_tpu/ops/pallas_bitpack.py:565"),
+    "bit_multi_step_words": ("carle_tpu_torch/csrc/bit_multi_step.cu",
+                             "carle_tpu/ops/pallas_bitpack.py:565"),
     "bit_multi_step_static": ("carle_tpu_torch/csrc/bit_multi_step.cu",
                               "carle_tpu/ops/pallas_bitpack.py:647"),
     "bit_multi_step_static_cm": ("carle_tpu_torch/csrc/bit_multi_step.cu",
@@ -258,6 +275,8 @@ SOURCES = {
                         "carle_tpu/parallel/pallas_halo.py:396"),
     "bit_spatial_multi_step": ("carle_tpu_torch/csrc/halo_step.cu",
                                "carle_tpu/parallel/pallas_halo.py:327"),
+    "bit_spatial_words": ("carle_tpu_torch/csrc/halo_step.cu",
+                          "carle_tpu/parallel/pallas_halo.py:327"),
 }
 # Rows whose kernel is another row's with band tiling's feature added: the
 # launches they report are their kernel's on the bands path, where every
@@ -288,7 +307,7 @@ FEATURE_ROWS = {
 BAND_SIZE = 8192                     # pod_smoke.py's spatial8k universe, one of it
 RND_BANDS, PRED_BANDS = 512, 128     # BandTiling(size // 16), BandTiling(size // 64)
 SPATIAL_ROWS = ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
-                "bit_spatial_multi_step_static")
+                "bit_spatial_multi_step_static", "bit_spatial_words", "bit_spatial_words_static")
 # The whole autoencoder's rows: at AE2D's widths, which every main path uses,
 # the kernels specialised for them (ae2d_*) run; the generic instantiation
 # (ae_loss_*) takes other widths.  A row's launches count both.
@@ -297,19 +316,19 @@ AE_INSTANTIATIONS = {"ae_loss_fwd": ("ae2d_fwd", "ae_loss_fwd"),
 # the kernels each main path must launch
 PATH_KERNELS = {
     "battery": ("ca_step_words", "enc3_fwd", "ae2d_fwd"),
-    "server": ("ca_step_words", "bit_multi_step", "enc3_fwd", "ae2d_fwd"),
+    "server": ("ca_step_words", "bit_multi_step_words", "enc3_fwd", "ae2d_fwd"),
     "train": ("ca_step_words", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
     "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
                "head_bwd", "tail2_fwd", "tail2_bwd", "loss_tail_fwd", "loss_tail_bwd",
                "dec2_fwd", "dec2_bwd"),
     "wrappers": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                  "dec2_fwd", "dec2_bwd", "tail2_fwd"),
-    "packed": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
+    "packed": ("bit_multi_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                "dec2_fwd", "dec2_bwd"),
-    "bands": ("bit_multi_step", "enc3_fwd", "enc3_bwd", "dec2_fwd", "dec2_bwd"),
-    "engines": ("bit_multi_step_static", "bit_multi_step_static_cm", "bit_multi_step_cm",
-                "ca_multi_step"),
-    "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
+    "bands": ("bit_multi_step_words", "enc3_fwd", "enc3_bwd", "dec2_fwd", "dec2_bwd"),
+    "engines": ("bit_multi_step_words", "bit_multi_step_static", "bit_multi_step_static_cm",
+                "bit_multi_step_cm", "ca_multi_step"),
+    "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_words",
                 "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
@@ -323,6 +342,10 @@ GENERIC_TAIL = ("tail_fwd", "tail_bwd")
 # the byte ca_step kernel, which no main path may launch: every universe of a
 # main path is 256 cells wide, a width the word kernel takes
 BYTE_CA_STEP = ("ca_step",)
+# the present packed engine (rule as data) and packed halo kernel, which no
+# main path may launch: every main path's shape takes the redesigned kernels
+# (bit_multi_step_words, bit_spatial_words)
+PRESENT_PACKED = ("bit_multi_step", "bit_spatial_multi_step")
 # the kernels the packed path must launch on packed words
 PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "dec2_fwd", "dec2_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
@@ -404,7 +427,7 @@ def phase_kernels(torch, timer, shipped, philox):
     """Each kernel vs its plain twin at the slice's shapes (philox: a
     draw's operations, philox_draw_ops, for the dropout bounds)."""
     from carle_tpu_torch import EnvConfig, rules
-    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_head
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca, cuda_head
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -421,7 +444,9 @@ def phase_kernels(torch, timer, shipped, philox):
     results.update(phase_ca_step(torch, timer, cfg, grid, action, rule_vec))
 
     # bit_multi_step: 4096 x 256x256 x 128 generations (scalar rule) and
-    # 160 universes with a rule vector
+    # 160 universes with a rule vector: the redesigned kernels (the route,
+    # bit_multi_step_words) and the present ones forced (BIT_WORDS = False),
+    # each bit for bit the plain twin, timed in turns
     steps = 128
     big = bitpack.pack_grid(
         (torch.rand((4096, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8))
@@ -430,22 +455,34 @@ def phase_kernels(torch, timer, shipped, philox):
     mism = 0
     for packed, rule in ((big, life), (small, rule_vec)):
         got = cuda_bitpack.bit_multi_step(packed, rule, steps).to(torch.int64)
+        old = _present_packed(lambda: cuda_bitpack.bit_multi_step(packed, rule, steps))
         t0 = time.perf_counter()
         want = cuda_bitpack.bit_multi_step_plain(packed, rule, steps).to(torch.int64)
         torch.cuda.synchronize()
         if packed is big:
             plain_big_ms = (time.perf_counter() - t0) * 1e3
-        mism = max(mism, int((got - want).abs().max()))
-    check(mism == 0, f"bit_multi_step differs from its plain twin: max {mism}")
+        mism = max(mism, int((got - want).abs().max()),
+                   int((old.to(torch.int64) - want).abs().max()))
+    check(mism == 0, f"bit_multi_step (new or present kernel) differs from its plain twin: "
+          f"max {mism}")
     words = big.numel()
     b, by = bound_ms(2 * 4 * words + 4, OPS_PER_WORD * words * steps, INT32_OPS)
-    results["bit_multi_step"] = dict(
-        max_abs_err=float(mism),
-        ms=timer.ms(lambda: cuda_bitpack.bit_multi_step(big, life, steps), 3),
-        plain_ms=plain_big_ms, bound_ms=b, bound_by=by, library_ms=None,
-        shape="u32 [4096,256,8] x 128 generations, scalar rule")
-    results["bit_multi_step"]["at_paths"] = _bit_multi_step_at_paths(torch, timer, big, rule_vec)
-    log(f"bit_multi_step ok: {results['bit_multi_step']}")
+    new_fn = lambda: cuda_bitpack.bit_multi_step(big, life, steps)
+    timed = {}
+    for route in ("words", "present", "words", "present"):
+        timed.setdefault(route, []).append(
+            timer.ms(new_fn if route == "words" else lambda: _present_packed(new_fn), 3))
+    shape = "u32 [4096,256,8] x 128 generations, scalar rule"
+    for row, route in (("bit_multi_step_words", "words"), ("bit_multi_step", "present")):
+        results[row] = dict(max_abs_err=float(mism), ms=timed[route][0],
+                            ms_in_turns=timed[route], plain_ms=plain_big_ms, bound_ms=b,
+                            bound_by=by, library_ms=None, shape=shape)
+    results["bit_multi_step_words"]["plan"] = cuda_bitpack.words_plan(
+        4096, 256, 8, steps, cuda_ca._multiprocessors(dev))
+    results["bit_multi_step_words"]["at_paths"] = _bit_multi_step_at_paths(
+        torch, timer, big, rule_vec)
+    log(f"bit_multi_step ok: {results['bit_multi_step_words']}")
+    log(f"bit_multi_step (present kernel forced) ok: {results['bit_multi_step']}")
 
     # the encoder's forward (row 3a) and ae_loss_fwd on the battery's
     # observations, shipped weights: the specialised kernels (enc3_fwd) at
@@ -509,34 +546,96 @@ def phase_kernels(torch, timer, shipped, philox):
     return results
 
 
+def _present_packed(fn):
+    """fn() with the present packed engine and halo kernel forced
+    (cuda_bitpack.BIT_WORDS, cuda_halo.BIT_HALO_BLOCKS off)."""
+    from carle_tpu_torch.ops import cuda_bitpack
+    from carle_tpu_torch.parallel import cuda_halo
+
+    cuda_bitpack.BIT_WORDS = cuda_halo.BIT_HALO_BLOCKS = False
+    try:
+        return fn()
+    finally:
+        cuda_bitpack.BIT_WORDS = cuda_halo.BIT_HALO_BLOCKS = True
+
+
+def _cupti_us(torch, timer, fn, names, what, cold=True):
+    """The device µs a call of ``fn`` spends in kernels whose names hold one
+    of ``names``, by CUPTI (torch.profiler), the L2 flushed before each call
+    (``cold``) or the calls in a row."""
+    call = (lambda: (timer.flush_buf.zero_(), fn())) if cold else fn
+    rows = _device_split(torch, call, 20)["by_kernel"]
+    us = sum(row["us"] for row in rows if any(k in row["name"] for k in names))
+    check(us > 0, f"{what}: no CUPTI time for {names} in {rows}")
+    return us
+
+
+NEW_PACKED_KERNELS = ("bit_stream_kernel", "bit_regs_kernel", "bit_blocks_kernel")
+PRESENT_PACKED_KERNELS = ("bit_multi_step_resident", "bit_step_global", "bit_halo_kernel")
+
+
 def _bit_multi_step_at_paths(torch, timer, big, rule_vec):
     """Row 2 at the shapes the main paths launch it: one generation a step
     of the packed carry (train-64, the packed stack on 160 universes, the
-    bands' universe of 8192², one launch a generation there), and the
-    server's /rollout (one universe of 256², 256 generations, one launch).
-    Device ms after an L2 flush against the bound, per launch."""
+    bands' universe of 8192²), the server's /rollout (one universe of 256²,
+    256 generations) and the engines (bench.py's 4096 x 256², 128
+    generations): the redesigned kernels (the route) and the present ones
+    forced, bit for bit the same (and the twin's below the engines), each
+    call's launches, device ms after an L2 flush in turns (new, present,
+    new, present) and each kernel's own CUPTI µs cold (L2 flushed), against
+    the bound; the plans and their registers and blocks a multiprocessor."""
     from carle_tpu_torch import rules
-    from carle_tpu_torch.ops import bitpack, cuda_bitpack
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     band = bitpack.pack_grid((torch.rand((1, 8192, 8192), generator=gen, device="cuda")
                               < 0.2).to(torch.uint8))
     life = torch.tensor(rules.LIFE, dtype=torch.int32, device="cuda")
+    sms = cuda_ca._multiprocessors(big.device)
     shapes = {"packed train [64,256,8] x 1": (big[:64].contiguous(), rule_vec[:64], 1),
               "packed stack [160,256,8] x 1": (big[:160].contiguous(), rule_vec, 1),
               "bands [1,8192,256] x 1": (band, life, 1),
-              "server /rollout [1,256,8] x 256": (big[:1].contiguous(), life, 256)}
+              "server /rollout [1,256,8] x 256": (big[:1].contiguous(), life, 256),
+              "engines [4096,256,8] x 128": (big, life, 128)}
     out = {}
     for label, (words, rule, steps) in shapes.items():
-        kernel = cuda_bitpack.KERNEL
-        before = kernel.launches
-        cuda_bitpack.bit_multi_step(words, rule, steps)
-        launches = kernel.launches - before
+        new = lambda: cuda_bitpack.bit_multi_step(words, rule, steps)
+        old = lambda: _present_packed(new)
+        entry = {}
+        for name, fn, kernel in (("new", new, cuda_bitpack.KERNEL_WORDS),
+                                 ("present", old, cuda_bitpack.KERNEL)):
+            before = kernel.launches
+            got = fn()
+            entry[f"{name}_launches_per_call"] = kernel.launches - before
+            check(entry[f"{name}_launches_per_call"] >= 1, f"row 2 {label}: {name} launched none")
+            if name == "new":
+                first = got
+            else:
+                check(torch.equal(first, got), f"row 2 {label}: new and present kernels differ")
+        if steps < 128:
+            check(torch.equal(first.to(torch.int64), cuda_bitpack.bit_multi_step_plain(
+                words, rule, steps).to(torch.int64)), f"row 2 {label}: differs from the twin")
         b, by = bound_ms(2 * 4 * words.numel() + 4 * rule.numel(),
                          OPS_PER_WORD * words.numel() * steps, INT32_OPS)
-        ms = timer.ms(lambda: cuda_bitpack.bit_multi_step(words, rule, steps), 30)
-        out[label] = {"ms": ms, "launches_per_call": launches, "ms_per_launch": ms / launches,
-                      "bound_ms": b, "bound_by": by, "bound_ms_per_launch": b / launches}
+        reps = 5 if steps == 128 else 30
+        for route in ("new", "present", "new", "present"):
+            entry.setdefault(f"{route}_ms", []).append(timer.ms(new if route == "new" else old,
+                                                                reps))
+        if steps < 128:
+            entry["new_cupti_cold_us"] = _cupti_us(torch, timer, new, NEW_PACKED_KERNELS, label)
+            entry["present_cupti_cold_us"] = _cupti_us(torch, timer, old,
+                                                       PRESENT_PACKED_KERNELS, label)
+        plan = cuda_bitpack.words_plan(*words.shape, steps, sms)
+        if plan[0] == "stream":
+            args = (0, plan[1], 1, 1, 1, 1, plan[3])
+        else:
+            args = (1, *plan[1:])
+        entry.update(plan=plan, occupancy=_occupancy(cuda_build, "bit_multi_step",
+                                                     "bit_words_occupancy", *args)[0],
+                     bound_ms=b, bound_by=by, bound_ms_per_launch=b / entry[
+                         "new_launches_per_call"])
+        out[label] = entry
+        log(f"row 2 at {label}: {json.dumps(entry)}")
     return out
 
 
@@ -2738,6 +2837,11 @@ def phase_spatial_kernels(torch, timer, gen):
     g8, g32 = shard_rows(grid, mesh), shard_rows(words, mesh)
     same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a.parts, b.parts))
     cells, word_count = size * size, size * size // 32
+    # the packed rows' rules on the card, as the spatial stack holds them: an
+    # int would be copied to the card in every timed call, and that copy
+    # waits for the timer's sleep, so the host's work would be timed too
+    life_t = torch.tensor(life, dtype=torch.int32, device=dev)
+    zero_t = torch.zeros((), dtype=torch.int32, device=dev)
     results = {}
     # bounds as the engines': the universe read once and written once (the
     # TPU kernel keeps its shard on chip across the generations), the
@@ -2755,34 +2859,65 @@ def phase_spatial_kernels(torch, timer, gen):
             lambda: cuda_ca.ca_multi_step(grid, life, 8), 8,
             bound_ms(2 * cells + 4, 8 * OPS_PER_U8_WORD * cells / 4, INT32_OPS),
             f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 8 generations"),
-        "bit_spatial_multi_step": (
-            lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, life, 64),
+        "bit_spatial_words": (
+            lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, life_t, 64),
             lambda: cuda_halo.bit_spatial_multi_step_plain(g32, life, 64),
-            lambda: cuda_bitpack.bit_multi_step(words, life, 64), 64,
+            lambda: cuda_bitpack.bit_multi_step(words, life_t, 64), 64,
             bound_ms(8 * word_count + 4, 64 * OPS_PER_WORD * word_count, INT32_OPS),
             f"u32 [1,{size},{size // 32}] over {SPATIAL_SLOTS} slots, 64 generations, "
             "Life as data"),
-        "bit_spatial_multi_step_static": (
-            lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, 0, 64, ([3], [2, 3])),
+        "bit_spatial_words_static": (
+            lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, zero_t, 64, ([3], [2, 3])),
             lambda: cuda_halo.bit_spatial_multi_step_plain(g32, 0, 64, ([3], [2, 3])),
             lambda: cuda_bitpack.bit_multi_step_static(words, [3], [2, 3], 64), 64,
             bound_ms(8 * word_count, 64 * OPS_PER_WORD_STATIC * word_count, INT32_OPS),
             f"u32 [1,{size},{size // 32}] over {SPATIAL_SLOTS} slots, 64 generations, "
             "Life fixed (-DSTATIC_RULE)"),
     }
+    # the packed rows twice: the redesigned launcher (the route,
+    # bit_spatial_words) and the present kernel forced (a generation a
+    # launch), timed in turns
+    present_rows = {"bit_spatial_words": "bit_spatial_multi_step",
+                    "bit_spatial_words_static": "bit_spatial_multi_step_static"}
     for name, (kernel, twin, engine, steps, (b, by), shape) in cases.items():
         got = kernel()
         check(same(got, twin()), f"{name} at {size}² differs from its twin")
         check(torch.equal(gather_rows(got), engine()),
               f"{name} at {size}² differs from the single-device engine")
-        results[name] = dict(max_abs_err=0.0, ms=timer.ms(kernel, 5),
-                             engine_ms=timer.ms(engine, 5), plain_ms=timer.ms(twin, 1),
-                             bound_ms=b, bound_by=by, library_ms=None, shape=shape)
-        # a launch is a generation (the launcher's count): launches x (ms -
-        # bound ms) ranks in one unit only per launch
-        results[name].update(launches_per_call=steps, ms_per_launch=results[name]["ms"] / steps,
-                             bound_ms_per_launch=b / steps)
+        common = dict(max_abs_err=0.0, engine_ms=timer.ms(engine, 5), plain_ms=timer.ms(twin, 1),
+                      bound_ms=b, bound_by=by, library_ms=None, shape=shape)
+        if name not in present_rows:
+            results[name] = dict(common, ms=timer.ms(kernel, 5))
+            # a launch is a generation (the launcher's count): launches x (ms -
+            # bound ms) ranks in one unit only per launch
+            results[name].update(launches_per_call=steps,
+                                 ms_per_launch=results[name]["ms"] / steps,
+                                 bound_ms_per_launch=b / steps)
+            log(f"{name} ok: {results[name]}")
+            continue
+        old = lambda: _present_packed(kernel)
+        check(same(got, old()), f"{name} at {size}²: new and present kernels differ")
+        launches = {}
+        for route, fn, k in (("new", kernel, cuda_halo.KERNEL_BIT_WORDS),
+                             ("present", old, cuda_halo.KERNEL_BIT)):
+            before = k.launches
+            fn()
+            launches[route] = k.launches - before
+        timed = {}
+        for route in ("new", "present", "new", "present"):
+            timed.setdefault(route, []).append(timer.ms(kernel if route == "new" else old, 5))
+        for row, route in ((name, "new"), (present_rows[name], "present")):
+            results[row] = dict(common, ms=timed[route][0], ms_in_turns=timed[route],
+                                launches_per_call=launches[route],
+                                ms_per_launch=timed[route][0] / launches[route],
+                                bound_ms_per_launch=b / launches[route])
+        results[name]["plan"] = cuda_halo.halo_plan(1, size // SPATIAL_SLOTS, size // 32, steps,
+                                                    SPATIAL_SLOTS,
+                                                    cuda_ca._multiprocessors(dev))
         log(f"{name} ok: {results[name]}")
+        log(f"{present_rows[name]} (present kernel forced) ok: {results[present_rows[name]]}")
+    results["bit_spatial_words"]["one_generation"] = _halo_one_generation(
+        torch, timer, g32, words, size)
     # the ragged case: 3 universes, a per-universe rule, rows 4 x 64 over 4 slots
     small = torch.from_numpy((np.random.RandomState(5).rand(3, 4 * 64, 128) < 0.35)
                              .astype(np.uint8)).to(dev)
@@ -2800,6 +2935,45 @@ def phase_spatial_kernels(torch, timer, gen):
     log("halo kernels, ragged case ([2, 256, 128] uint8, 3 universes packed, rule vector) ok")
     results["spatial_heads"] = _slot_head_kernels(torch, timer, gen, g32)
     return results
+
+
+def _halo_one_generation(torch, timer, g32, words, size):
+    """Row 15 one generation a call, as the spatial stack's step launches it
+    (parallel/packed_env.py): the redesigned launcher (the streaming kernel
+    over every slot) and the present kernel forced, bit for bit, device ms
+    after an L2 flush in turns and each kernel's CUPTI µs cold, the plan and
+    its registers and blocks a multiprocessor; and the plans' occupancy at
+    the 64-generation call."""
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import cuda_bitpack, cuda_build, cuda_ca
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows
+
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=words.device)
+    new = lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, life, 1)
+    old = lambda: _present_packed(new)
+    check(torch.equal(gather_rows(new()), gather_rows(old())) and torch.equal(
+        gather_rows(new()), cuda_bitpack.bit_multi_step(words, life, 1)),
+        "row 15, one generation: new kernel, present kernel and engine differ")
+    entry = {}
+    for route in ("new", "present", "new", "present"):
+        entry.setdefault(f"{route}_ms", []).append(timer.ms(new if route == "new" else old, 30))
+    entry["new_cupti_cold_us"] = _cupti_us(torch, timer, new, NEW_PACKED_KERNELS, "row 15")
+    entry["present_cupti_cold_us"] = _cupti_us(torch, timer, old, PRESENT_PACKED_KERNELS,
+                                               "row 15")
+    sms = cuda_ca._multiprocessors(words.device)
+    hl, nw = size // SPATIAL_SLOTS, size // 32
+    entry["bound_ms"] = bound_ms(8 * nw * size + 4, OPS_PER_WORD * nw * size, INT32_OPS)[0]
+    occupancy = {}
+    for steps in (1, 64):
+        t, v, rows, strip, threads = plan = cuda_halo.halo_plan(1, hl, nw, steps, SPATIAL_SLOTS,
+                                                                sms)
+        occupancy[str(plan)] = _occupancy(cuda_build, "halo_step", "bit_halo_words_occupancy",
+                                          v, rows if t > 1 else 0, t, nw, threads)[0]
+    entry["occupancy"] = occupancy
+    log(f"row 15 one generation ([1,{size},{nw}] over {SPATIAL_SLOTS} slots): "
+        f"{json.dumps(entry)}")
+    return entry
 
 
 def _slot_head_kernels(torch, timer, gen, g32):
@@ -3777,10 +3951,12 @@ def main() -> int:
         log(f"FAIL: kernels not launched on the main path: {missing}")
         return 1
     generic = {f"{path}:{k}": c[k] for path, c in path_counts.items()
-               for k in GENERIC_ENCODER + GENERIC_DECODER + GENERIC_TAIL + BYTE_CA_STEP if c[k]}
+               for k in GENERIC_ENCODER + GENERIC_DECODER + GENERIC_TAIL + BYTE_CA_STEP
+               + PRESENT_PACKED if c[k]}
     if generic:
-        log(f"FAIL: generic encoder, decoder-loss or tail kernels, or the byte ca_step "
-            f"kernel, launched on the main paths: {generic}")
+        log(f"FAIL: generic encoder, decoder-loss or tail kernels, the byte ca_step "
+            f"kernel or the present packed engine or halo kernel launched on the main "
+            f"paths: {generic}")
         return 1
     ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
                    for path, c in path_counts.items()}

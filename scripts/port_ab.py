@@ -12,8 +12,10 @@ each taken in a fresh process.
         weights none and with zero rows), the tail's two stages (the output
         and gx, dropout 0 and 0.1), and env_step over a battery leg
         (160 universes, 256 steps with resets, all-2.0 and empty actions:
-        every grid, step_num and steps_since_action).  Equal digests from
-        two checkouts mean bit-for-bit equal outputs.
+        every grid, step_num and steps_since_action), and the packed engine
+        with the rule as data at the main paths' shapes and the packed halo
+        kernel at 8192² over 4 slots (1 and 64 generations).  Equal digests
+        from two checkouts mean bit-for-bit equal outputs.
     python scripts/port_ab.py env-step --root DIR
         one env_step on 160 universes of 256²: its device launches and
         device µs by kernel (torch.profiler) and its device ms after an L2
@@ -45,6 +47,12 @@ each taken in a fresh process.
         and as two launches (scripts/dec2_gx_probe.cu: the middle cotangent
         through device memory, then a launch for gx), in turns, and whether
         the two give the same gx.
+    python scripts/port_ab.py packed-times --root DIR
+        device ms (chip_smoke.py's Timer) of the packed engine with the rule
+        as data (PERF.md row 2) at the server's /rollout shape (1 x 256²,
+        256 generations) and the engines' (4096 x 256², 128), and of the
+        packed halo kernel (row 15) at 8192² over 4 mesh slots, 64
+        generations, each call's rule on the card.
     python scripts/port_ab.py host-encoder --root DIR
         the host's µs to enqueue a training step's encoder work (the RND
         predictor forward with dropout through autograd, the target's
@@ -147,7 +155,67 @@ def digests(torch) -> dict:
             out[f"tail {name} drop {p} gx"] = _digest(
                 [cs.tail_bwd(xin, wt, b, g, act, p, 99, stage)[2]])
     out["env_step battery leg"] = env_leg_digest(torch)
+    out.update(packed_engine_digests(torch))
     return out
+
+
+def packed_engine_digests(torch) -> dict:
+    """Digests of the packed engine with the rule as data (PERF.md row 2) at
+    the main paths' shapes and of the packed halo kernel (row 15) at 8192²
+    over 4 mesh slots, on the route the checkout takes."""
+    import chip_smoke
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack
+    from carle_tpu_torch.parallel import spatial
+    from carle_tpu_torch.parallel.mesh import gather_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    soup = lambda n, h, w, p: bitpack.pack_grid(
+        (torch.rand((n, h, w), generator=gen, device=dev) < p).to(torch.uint8))
+    big = soup(4096, 256, 256, 0.5)
+    band = soup(1, 8192, 8192, 0.2)
+    vec = torch.randint(0, 1 << 18, (160,), generator=gen, device=dev, dtype=torch.int32)
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=dev)
+    out = {}
+    for label, (words, rule, steps) in {
+            "[64,256,8] x 1": (big[:64].contiguous(), vec[:64].contiguous(), 1),
+            "[160,256,8] x 1": (big[:160].contiguous(), vec, 1),
+            "[1,8192,256] x 1": (band, life, 1),
+            "[1,8192,256] x 3": (band, life, 3),
+            "[1,256,8] x 256": (big[:1].contiguous(), life, 256),
+            "[4096,256,8] x 128": (big, life, 128)}.items():
+        out[f"bit_multi_step {label}"] = _digest([cuda_bitpack.bit_multi_step(words, rule, steps)])
+    mesh = chip_smoke._spatial_mesh(torch)
+    for steps in (1, 64):
+        out[f"bit_spatial_multi_step 8192 x 4 slots x {steps}"] = _digest([gather_rows(
+            spatial.bit_spatial_multi_step(band, life, steps, mesh))])
+    return out
+
+
+def packed_times(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import shard_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    timer = chip_smoke.Timer(torch)
+    soup = lambda n, h, w, p: bitpack.pack_grid(
+        (torch.rand((n, h, w), generator=gen, device=dev) < p).to(torch.uint8))
+    big = soup(4096, 256, 256, 0.5)
+    band = soup(1, 8192, 8192, 0.2)
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=dev)
+    one = big[:1].contiguous()
+    slots = shard_rows(band, chip_smoke._spatial_mesh(torch))
+    return {"row 2 [1,256,8] x 256": timer.ms(
+                lambda: cuda_bitpack.bit_multi_step(one, life, 256), 30),
+            "row 2 [4096,256,8] x 128": timer.ms(
+                lambda: cuda_bitpack.bit_multi_step(big, life, 128), 5),
+            "row 15 8192 x 4 slots x 64": timer.ms(
+                lambda: cuda_halo.bit_spatial_multi_step_cuda(slots, life, 64), 5)}
 
 
 def _battery_leg_actions(torch, steps, shape, dev):
@@ -450,7 +518,7 @@ def main() -> int:
     parser.add_argument("what", choices=("digest", "env-step", "profile-packed",
                                          "profile-wrappers", "profile-spatial",
                                          "encoder-times", "decoder-gx", "host-encoder",
-                                         "python-cost"))
+                                         "packed-times", "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--generic", action="store_true",
                         help="encoder-times: also time the generic kernels")
@@ -480,6 +548,8 @@ def main() -> int:
         result = profile_spatial(torch)
     elif args.what == "host-encoder":
         result = host_encoder(torch)
+    elif args.what == "packed-times":
+        result = packed_times(torch)
     else:
         import chip_smoke
 

@@ -1,13 +1,21 @@
 // Stand-in for <cuda_runtime.h>: compiles the kernels as plain C++ and runs
 // every block with ONE thread (blockDim = 1), so __syncthreads() is a no-op
 // and the kernels' index arithmetic can be checked where there is no card.
+// A kernel whose threads exchange registers (a barrier between generations,
+// a lane shuffle) launches through KERNEL_LAUNCH_THREADED: there each block's
+// threads run as host threads of their own, __syncthreads() a barrier over
+// them and __shfl_sync an exchange through a slot a thread.
 #pragma once
 #define CUDA_EMULATION 1
 #include <algorithm>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
 #include <cstddef>
+#include <mutex>
+#include <thread>
+#include <vector>
 
 #define __global__
 #define __device__
@@ -15,12 +23,14 @@
 #define __forceinline__ inline
 #define __shared__
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 struct dim3 {
     unsigned x, y, z;
     dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-static dim3 blockIdx, threadIdx(0, 0, 0), blockDim(1, 1, 1), gridDim;
+static thread_local dim3 blockIdx, threadIdx(0, 0, 0);
+static dim3 blockDim(1, 1, 1), gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -65,7 +75,40 @@ struct alignas(8) float2 {
     float x, y;
 };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
-inline void __syncthreads() {}
+// The barrier of a threaded block (null: one thread a block, nothing to wait for).
+struct EmuBarrier {
+    explicit EmuBarrier(unsigned n) : count(n) {}
+    void wait() {
+        std::unique_lock<std::mutex> lock(m);
+        const unsigned gen = generation;
+        if (++waiting == count) {
+            waiting = 0;
+            ++generation;
+            cv.notify_all();
+        } else {
+            cv.wait(lock, [&] { return gen != generation; });
+        }
+    }
+    std::mutex m;
+    std::condition_variable cv;
+    unsigned count, waiting = 0, generation = 0;
+};
+static thread_local EmuBarrier* emu_barrier = nullptr;
+static thread_local uint32_t* emu_lanes = nullptr;  // a slot a thread of the block
+inline void __syncthreads() {
+    if (emu_barrier) emu_barrier->wait();
+}
+// Lane src (modulo width) of the caller's width-lane segment of its warp;
+// every thread of the block calls it together, as the kernels do.
+inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width = 32) {
+    if (!emu_lanes) return v;
+    const unsigned t = threadIdx.x, lane = t % 32;
+    emu_lanes[t] = v;
+    __syncthreads();
+    const uint32_t got = emu_lanes[t - lane % width + static_cast<unsigned>(src) % width];
+    __syncthreads();
+    return got;
+}
 inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other lane
 inline double __shfl_down_sync(unsigned, double, int) { return 0.0; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
@@ -105,4 +148,32 @@ alignas(16) float smem[64 * 1024];  // 256 KB of "shared memory"
                     std::memset(::smem, 0xff, smem_bytes); /* NaN poison */    \
                     kernel(__VA_ARGS__);                                     \
                 }                                                            \
+    } while (0)
+
+// Each block's threads as host threads (1-D blocks), one block after another.
+#define KERNEL_LAUNCH_THREADED(kernel, grid, block, smem_bytes, stream, ...) \
+    do {                                                                     \
+        const dim3 g_ = dim3(grid), b_ = dim3(block);                        \
+        if (static_cast<size_t>(smem_bytes) > sizeof(::smem) || b_.y != 1 || b_.z != 1) \
+            return 1;                                                        \
+        gridDim = g_;                                                        \
+        blockDim = b_;                                                       \
+        EmuBarrier bar_(b_.x);                                               \
+        std::vector<uint32_t> lanes_(b_.x);                                  \
+        for (unsigned bz = 0; bz < g_.z; ++bz)                               \
+            for (unsigned by = 0; by < g_.y; ++by)                           \
+                for (unsigned bx = 0; bx < g_.x; ++bx) {                     \
+                    std::memset(::smem, 0xff, smem_bytes); /* NaN poison */    \
+                    std::vector<std::thread> threads_;                       \
+                    for (unsigned t_ = 0; t_ < b_.x; ++t_)                   \
+                        threads_.emplace_back([&, t_] {                      \
+                            blockIdx = dim3(bx, by, bz);                     \
+                            threadIdx = dim3(t_, 0, 0);                      \
+                            emu_barrier = &bar_;                             \
+                            emu_lanes = lanes_.data();                       \
+                            kernel(__VA_ARGS__);                             \
+                        });                                                  \
+                    for (auto& th : threads_) th.join();                     \
+                }                                                            \
+        blockDim = dim3(1, 1, 1);                                            \
     } while (0)

@@ -128,6 +128,82 @@ def test_bit_multi_step_kernel_matches_plain(cuda, n, h, nw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,nw", [(8, 256, 8), (2, 512, 16), (1, 1024, 32),
+                                    (3, 16, 1)])
+def test_bit_words_kernels_match_present_and_plain(cuda, n, h, nw):
+    """Row 2's redesigned kernels (bit_multi_step_words) against the present
+    kernels forced (BIT_WORDS = False) and the twin, bit for bit, at
+    test_bit_multi_step_kernel_matches_plain's shapes and K in {0, 1, 5,
+    256}: by the route, and by each plan forced, the cluster split over 16
+    blocks (CL = 16) and its size-1 instance, one and two generations an
+    exchange among them."""
+    rng = np.random.RandomState(n + h + 1)
+    packed = bitpack.pack_grid(torch.from_numpy(_soup(n + h, (n, h, 32 * nw)))).to(cuda)
+    plans = [("stream", v, s, t) for v in (1, 4) if nw % v == 0
+             for s, t in ((1, 64), (4, 256))]
+    for v, l, r, cl, g in cuda_bitpack.REGS_PLANS:
+        per = h // cl // r * l
+        if (v * l == nw and h % (cl * r) == 0 and per <= 256 and (l == 1 or per % 32 == 0)
+                and h // cl // r >= g):
+            plans.append(("regs", v, l, r, cl, g,
+                          per if cl > 1 else per * min(n, 256 // per)))
+    for rule in (torch.tensor(rules.LIFE, dtype=torch.int32),
+                 torch.from_numpy(rng.randint(0, 1 << 18, size=n).astype(np.int32))):
+        rule = rule.to(cuda)
+        for steps in (0, 1, 5, 256):
+            want = cuda_bitpack.bit_multi_step_plain(packed, rule, steps).to(torch.int64)
+            cuda_bitpack.BIT_WORDS = False
+            try:
+                present = cuda_bitpack.bit_multi_step(packed, rule, steps)
+            finally:
+                cuda_bitpack.BIT_WORDS = True
+            assert torch.equal(present.to(torch.int64), want)
+            assert torch.equal(cuda_bitpack.bit_multi_step(packed, rule, steps).to(torch.int64),
+                               want)
+            for plan in plans:
+                if plan[0] == "regs" or steps <= 5:
+                    got = cuda_bitpack._words_kernel(packed, rule, steps, plan)
+                    assert torch.equal(got.to(torch.int64), want), (plan, steps)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_bit_halo_words_match_present_and_plain(cuda, slots):
+    """Row 15's redesigned launcher (bit_spatial_words) against the present
+    kernel forced (BIT_HALO_BLOCKS = False), the twin and the engine, bit for
+    bit, at test_halo_kernels_match_plain's shapes: K = 1 and 6, scalar and
+    per-universe rules, the default plan and chunks of T = 2, 3 and 4, and
+    the fixed-rule build."""
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
+
+    mesh = make_mesh([cuda] * slots, "space")
+    words = bitpack.pack_grid(torch.from_numpy(_soup(slots, (3, 4 * 64, 128))).to(cuda))
+    vec = torch.tensor([rules.LIFE, rules.MORLEY, rules.DAY_AND_NIGHT], dtype=torch.int32,
+                       device=cuda)
+    hl = 4 * 64 // slots
+    for rule in (rules.LIFE, vec):
+        for steps in (1, 6):
+            w = shard_rows(words, mesh)
+            want = cuda_bitpack.bit_multi_step(words, rule, steps)
+            twin = cuda_halo.bit_spatial_multi_step_plain(w, rule, steps)
+            cuda_halo.BIT_HALO_BLOCKS = False
+            try:
+                present = cuda_halo.bit_spatial_multi_step_cuda(w, rule, steps)
+            finally:
+                cuda_halo.BIT_HALO_BLOCKS = True
+            assert all(torch.equal(a, b) for a, b in zip(present.parts, twin.parts))
+            for plan in (None, (2, 4, 8, 2, 64), (3, 1, 5, 3, 256), (4, 4, hl, 4, 512)):
+                got = cuda_halo._launch_words(w, rule, steps, plan=plan)
+                assert all(torch.equal(a, b) for a, b in zip(got.parts, twin.parts)), plan
+                assert torch.equal(gather_rows(got), want)
+    got = cuda_halo.bit_spatial_multi_step_cuda(shard_rows(words, mesh), 0, 5, ([3], [2, 3]))
+    assert torch.equal(gather_rows(got), cuda_bitpack.bit_multi_step_static(words, [3], [2, 3], 5))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("pools,c1,c2,shape", [
     ((4, 2), 4, 1, (16, 256, 256)),   # RND predictor
     ((4, 2), 2, 1, (5, 256, 256)),    # RND target
