@@ -46,9 +46,11 @@
 // ALUs are the limit once a universe stays on chip (one generation a launch
 // is bound by the bytes).
 //
-// Row-major with the rule as data: bit_words_launch (counted as
-// bit_multi_step_words; ops/cuda_bitpack.py::words_plan picks the regime by
-// shape).  K = 1 at any size, and K > 1 on universes too large for shared
+// Row-major with the rule as data, bit_words_launch (counted as
+// bit_multi_step_words), or fixed, bit_static_words_launch (counted as
+// bit_multi_step_static_words; ops/cuda_bitpack.py::words_plan picks the
+// regime by shape, and 8 rows a thread for a fixed rule: its 16 operations a
+// word weigh the 4-row plan's ghost-row planes more).  K = 1 at any size, and K > 1 on universes too large for shared
 // memory (a launch a generation): bit_words.cuh's streaming kernel, a thread a
 // strip of rows of V words carrying the rows above and at the centre as
 // words and pair planes, so a row is read once a strip and its planes built
@@ -263,8 +265,9 @@ static int launch(const void* in, const void* rule, int rule_stride, void* out,
     return static_cast<int>(cudaSuccess);
 }
 
-#ifndef STATIC_RULE
-// -- The redesigned row-major engine with the rule as data (bit_words_launch).
+// -- The redesigned row-major engine: bit_words_launch with the rule as data,
+// bit_static_words_launch (-DSTATIC_RULE) with it fixed.  The same kernels,
+// the rule a template argument, so a fixed rule folds its mux tree.
 //
 // K > 1: each universe stays resident across generations, in REGISTERS.  A
 // thread owns R rows of V adjacent words; L = NW / V lanes (adjacent threads)
@@ -456,7 +459,8 @@ __global__ void __launch_bounds__(256, 2)
 // ops/cuda_bitpack.py reads this list (REGS_PLANS): keep it one macro.
 #define BIT_REGS_PLANS(X)                                                                  \
     X(8, 1, 4, 1, 1) X(8, 1, 1, 1, 1) X(4, 1, 4, 1, 1) X(4, 1, 1, 1, 1) X(2, 1, 4, 1, 1) \
-    X(2, 1, 1, 1, 1) X(1, 1, 4, 1, 1) X(1, 1, 1, 1, 1) X(2, 4, 1, 1, 2) X(2, 4, 1, 16, 2)
+    X(2, 1, 1, 1, 1) X(1, 1, 4, 1, 1) X(1, 1, 1, 1, 1) X(2, 4, 1, 1, 2) X(2, 4, 1, 16, 2) \
+    X(8, 1, 8, 1, 1)
 
 // Shared memory of a block of bit_regs_kernel: two sets of 2 G slots a thread.
 static inline size_t regs_smem(int threads, int V, int G) {
@@ -489,14 +493,14 @@ static cudaError_t cluster_launch(void (*kernel)(Params...), unsigned blocks, in
 }
 #endif
 
-template <int V, int L, int R, int CL, int G>
+template <int RULE, int V, int L, int R, int CL, int G>
 static int regs_launch(const uint32_t* in, const int32_t* rule, int rule_stride, uint32_t* out,
                        int N, int H, int steps, int threads, cudaStream_t s) {
     const int per = H / CL / R * L;
     if (H % (CL * R) || threads < per || threads > 256 || threads % per ||
         (L > 1 && threads % 32) || H / CL / R < G)
         return static_cast<int>(cudaErrorInvalidValue);
-    const auto kernel = bit_regs_kernel<-1, V, L, R, CL, G>;
+    const auto kernel = bit_regs_kernel<RULE, V, L, R, CL, G>;
     const size_t smem = regs_smem(threads, V, G);
     const unsigned blocks = CL > 1 ? static_cast<unsigned>(N) * CL
                                    : static_cast<unsigned>((N + threads / per - 1) / (threads / per));
@@ -517,16 +521,16 @@ static int regs_launch(const uint32_t* in, const int32_t* rule, int rule_stride,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Row-major [N, H, NW] with the rule as data, K = steps generations:
-// regime 0 streams one generation a launch through device memory
-// (bit_words.cuh's bit_stream_kernel: V words, strips of S rows, `threads`
-// a block), ping-pong through scratch so the last lands in out; regime 1
-// keeps each universe in registers for all K (bit_regs_kernel<V, L, R, CL,
-// G>, `threads` a block).  steps == 0 copies.
-extern "C" int bit_words_launch(const void* in, const void* rule, int rule_stride, void* out,
-                                void* scratch, int N, int H, int NW, int steps, int regime,
-                                int V, int L, int R, int CL, int G, int S, int threads,
-                                int device, void* stream) {
+// Row-major [N, H, NW], K = steps generations: regime 0 streams one
+// generation a launch through device memory (bit_words.cuh's
+// bit_stream_kernel: V words, strips of S rows, `threads` a block), ping-pong
+// through scratch so the last lands in out; regime 1 keeps each universe in
+// registers for all K (bit_regs_kernel<RULE, V, L, R, CL, G>, `threads` a
+// block).  steps == 0 copies.
+template <int RULE>
+static int words_launch(const void* in, const void* rule, int rule_stride, void* out,
+                        void* scratch, int N, int H, int NW, int steps, int regime, int V, int L,
+                        int R, int CL, int G, int S, int threads, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -539,10 +543,11 @@ extern "C" int bit_words_launch(const void* in, const void* rule, int rule_strid
             cudaMemcpyDeviceToDevice, st));
     if (regime == 1) {
         if (V * L != NW) return static_cast<int>(cudaErrorInvalidValue);
-#define BIT_REGS_CASE(v, l, r, cl, g)                                                    \
-    if (V == v && L == l && R == r && CL == cl && G == g)                                \
-        return regs_launch<v, l, r, cl, g>(src, rb, rule_stride, static_cast<uint32_t*>(out), \
-                                           N, H, steps, threads, st);
+#define BIT_REGS_CASE(v, l, r, cl, g)                                                         \
+    if (V == v && L == l && R == r && CL == cl && G == g)                                     \
+        return regs_launch<RULE, v, l, r, cl, g>(src, rb, rule_stride,                        \
+                                                 static_cast<uint32_t*>(out), N, H, steps,    \
+                                                 threads, st);
         BIT_REGS_PLANS(BIT_REGS_CASE)
 #undef BIT_REGS_CASE
         return static_cast<int>(cudaErrorInvalidValue);
@@ -552,7 +557,8 @@ extern "C" int bit_words_launch(const void* in, const void* rule, int rule_strid
     for (int t = 0; t < steps; ++t) {
         uint32_t* dst = bufs[(steps - t) % 2];
         const SlotTable<1> table{{{src, dst, src, src}}};  // a universe is its own ring
-        const int rc = stream_launch<-1, 1>(table, 1, rb, rule_stride, N, H, NW, V, S, threads, st);
+        const int rc = stream_launch<RULE, 1>(table, 1, rb, rule_stride, N, H, NW, V, S, threads,
+                                              st);
         if (rc != 0) return rc;
         src = dst;
     }
@@ -561,28 +567,43 @@ extern "C" int bit_words_launch(const void* in, const void* rule, int rule_strid
 
 // Registers, static shared memory, spills and resident blocks a
 // multiprocessor (common.cuh::kernel_occupancy) of the streaming kernel
-// (regime 0, V words) or of bit_regs_kernel<V, L, R, CL, G> (regime 1), for
-// `threads` a block.
-extern "C" int bit_words_occupancy(int regime, int V, int L, int R, int CL, int G, int threads,
-                                   int device, int* out) {
+// (regime 0, V words) or of bit_regs_kernel<RULE, V, L, R, CL, G> (regime 1),
+// for `threads` a block.
+template <int RULE>
+static int words_occupancy(int regime, int V, int L, int R, int CL, int G, int threads,
+                           int device, int* out) {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (regime == 0) {
-        if (V == 4) return kernel_occupancy(bit_stream_kernel<-1, 4, 1>, threads, 0, out);
-        if (V == 1) return kernel_occupancy(bit_stream_kernel<-1, 1, 1>, threads, 0, out);
+        if (V == 4) return kernel_occupancy(bit_stream_kernel<RULE, 4, 1>, threads, 0, out);
+        if (V == 1) return kernel_occupancy(bit_stream_kernel<RULE, 1, 1>, threads, 0, out);
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const size_t smem = regs_smem(threads, V, G);
 #define BIT_REGS_OCC(v, l, r, cl, g)                           \
     if (V == v && L == l && R == r && CL == cl && G == g)      \
-        return kernel_occupancy(bit_regs_kernel<-1, v, l, r, cl, g>, threads, smem, out);
+        return kernel_occupancy(bit_regs_kernel<RULE, v, l, r, cl, g>, threads, smem, out);
     BIT_REGS_PLANS(BIT_REGS_OCC)
 #undef BIT_REGS_OCC
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// -- The present kernels (bit_multi_step_resident, bit_step_global).
-// Rule as data: a scalar (rule_stride 0) or one int32 a universe (1).
+#ifndef STATIC_RULE
+// -- The rule as data: a scalar (rule_stride 0) or one int32 a universe (1).
+extern "C" int bit_words_launch(const void* in, const void* rule, int rule_stride, void* out,
+                                void* scratch, int N, int H, int NW, int steps, int regime,
+                                int V, int L, int R, int CL, int G, int S, int threads,
+                                int device, void* stream) {
+    return words_launch<-1>(in, rule, rule_stride, out, scratch, N, H, NW, steps, regime, V, L,
+                            R, CL, G, S, threads, device, stream);
+}
+
+extern "C" int bit_words_occupancy(int regime, int V, int L, int R, int CL, int G, int threads,
+                                   int device, int* out) {
+    return words_occupancy<-1>(regime, V, L, R, CL, G, threads, device, out);
+}
+
+// The present kernels (bit_multi_step_resident, bit_step_global).
 // Row-major [N, H, NW].
 extern "C" int bit_multi_step_launch(const void* in, const void* rule,
                                      int rule_stride, void* out, void* scratch,
@@ -605,10 +626,26 @@ extern "C" int bit_multi_step_cm_launch(const void* in, const void* rule,
                             static_cast<cudaStream_t>(stream));
 }
 #else
-// The rule fixed at compile time: -DSTATIC_RULE=<18-bit mask>.  cm selects
-// the column-major layout ([N, HW, W]) over the row-major one ([N, H, NW]).
+// The rule fixed at compile time: -DSTATIC_RULE=<18-bit mask>.
 static_assert(STATIC_RULE >= 0 && STATIC_RULE < (1 << 18), "an 18-bit rule mask");
 
+// The redesigned kernels, row-major [N, H, NW] (bit_words_launch's regimes
+// and plans, the rule folded).
+extern "C" int bit_static_words_launch(const void* in, void* out, void* scratch, int N, int H,
+                                       int NW, int steps, int regime, int V, int L, int R,
+                                       int CL, int G, int S, int threads, int device,
+                                       void* stream) {
+    return words_launch<STATIC_RULE>(in, nullptr, 0, out, scratch, N, H, NW, steps, regime, V, L,
+                                     R, CL, G, S, threads, device, stream);
+}
+
+extern "C" int bit_static_words_occupancy(int regime, int V, int L, int R, int CL, int G,
+                                          int threads, int device, int* out) {
+    return words_occupancy<STATIC_RULE>(regime, V, L, R, CL, G, threads, device, out);
+}
+
+// The present kernels; cm selects the column-major layout ([N, HW, W]) over
+// the row-major one ([N, H, NW]).
 extern "C" int bit_multi_step_static_launch(const void* in, void* out, void* scratch,
                                             int N, int A, int B, int steps, int resident,
                                             int cm, int device, void* stream) {

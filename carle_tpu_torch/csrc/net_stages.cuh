@@ -273,6 +273,61 @@ __device__ __forceinline__ void decoder_stage1_band(
     }
 }
 
+// -- asynchronous copies into shared memory: a thread issues them and goes on;
+// copies_wait() and a __syncthreads() make them visible.  A copy with inside
+// false reads nothing (src must still be a valid address) and writes zeros.
+// The emulated build (tests/cuda_emulation) copies at once.
+#ifndef CUDA_EMULATION
+__device__ __forceinline__ void copy_async4(float* dst, const float* src, bool inside) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
+                 "r"(inside ? 4 : 0) : "memory");
+}
+
+// 16 bytes, both addresses 16-byte aligned.
+__device__ __forceinline__ void copy_async16(float* dst, const float* src, bool inside) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
+                 "r"(inside ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+#else
+inline void copy_async4(float* dst, const float* src, bool inside) { *dst = inside ? *src : 0.f; }
+inline void copy_async16(float* dst, const float* src, bool inside) {
+    for (int k = 0; k < 4; ++k) dst[k] = inside ? src[k] : 0.f;
+}
+inline void copies_wait() {}
+#endif
+
+// The sums over a warp of each of its lanes' M values (M a power of two, 1 to
+// 32) by halving exchanges: at each step a lane keeps half of its m values
+// and adds the other half of lane l ^ o's, so the warp spends M - 1 shuffles
+// and then log2(32 / M) more.  Lane l returns value l / (32 / M)'s total.
+// The steps recurse at compile time, so every index is a constant and v
+// stays in registers.  (The emulated build runs one lane a block, which
+// writes its M values itself.)
+#ifndef CUDA_EMULATION
+template <int M, int m = M>
+__device__ __forceinline__ float warp_sums(float (&v)[M], int lane) {
+    if constexpr (m > 1) {
+        constexpr int o = 16 * m / M;
+        const bool upper = lane & o;
+#pragma unroll
+        for (int k = 0; k < m / 2; ++k) {
+            const float send = upper ? v[k] : v[k + m / 2];
+            const float keep = upper ? v[k + m / 2] : v[k];
+            v[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+        return warp_sums<M, m / 2>(v, lane);
+    } else {
+#pragma unroll
+        for (int o = 16 / M; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+        return v[0];
+    }
+}
+#endif
+
 // Sums of COUNT values a thread over the block, in a fixed order: warp trees,
 // then the warps in turn; out[j] receives value j's total.  red needs
 // 32 * COUNT floats.  Every thread of the block must call it.

@@ -43,33 +43,6 @@ constexpr int tail2_bwd_blocks(int CIN) { return CIN == 1 ? 3 : 2; }
 __shared__ float4 tail2_wp[8];
 __shared__ float tail2_bias;
 
-// -- asynchronous copies into shared memory: a thread issues them and goes on;
-// copies_wait() and a __syncthreads() make them visible.  A copy with inside
-// false reads nothing (src must still be a valid address) and writes zeros.
-// The emulated build (tests/cuda_emulation) copies at once.
-#ifndef CUDA_EMULATION
-__device__ __forceinline__ void copy_async4(float* dst, const float* src, bool inside) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                 "r"(inside ? 4 : 0) : "memory");
-}
-
-// 16 bytes, both addresses 16-byte aligned.
-__device__ __forceinline__ void copy_async16(float* dst, const float* src, bool inside) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                 ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
-                 "r"(inside ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
-#else
-inline void copy_async4(float* dst, const float* src, bool inside) { *dst = inside ? *src : 0.f; }
-inline void copy_async16(float* dst, const float* src, bool inside) {
-    for (int k = 0; k < 4; ++k) dst[k] = inside ? src[k] : 0.f;
-}
-inline void copies_wait() {}
-#endif
-
 // wt [CIN, 1, 4, 4], b [1], float32, contiguous.
 struct Tail2Weights {
     const float *wt, *b;

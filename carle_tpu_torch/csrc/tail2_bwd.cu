@@ -43,34 +43,6 @@
 // further launches.
 #include "tail2.cuh"
 
-// The sums over a warp of each of its lanes' M values (M a power of two, 2 to
-// 32) by halving exchanges: at each step a lane keeps half of its m values
-// and adds the other half of lane l ^ o's, so the warp spends M - 1 shuffles
-// and then log2(32 / M) more.  Lane l returns value l / (32 / M)'s total.
-// The steps recurse at compile time, so every index is a constant and v
-// stays in registers.  (The emulated build runs one lane a block, which
-// writes its M values itself.)
-#ifndef CUDA_EMULATION
-template <int M, int m = M>
-__device__ __forceinline__ float warp_sums(float (&v)[M], int lane) {
-    if constexpr (m > 1) {
-        constexpr int o = 16 * m / M;
-        const bool upper = lane & o;
-#pragma unroll
-        for (int k = 0; k < m / 2; ++k) {
-            const float send = upper ? v[k] : v[k + m / 2];
-            const float keep = upper ? v[k + m / 2] : v[k];
-            v[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-        }
-        return warp_sums<M, m / 2>(v, lane);
-    } else {
-#pragma unroll
-        for (int o = 16 / M; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
-        return v[0];
-    }
-}
-#endif
-
 template <int CIN, int ACT, int KEEP>
 __global__ void __launch_bounds__(TAIL2_THREADS, tail2_bwd_blocks(CIN))
 tail2_bwd_kernel(const float* __restrict__ x, Tail2Weights wp, const float* __restrict__ g,

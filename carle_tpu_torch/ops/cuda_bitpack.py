@@ -29,11 +29,15 @@ Each takes the plain path for a CPU tensor and launches
 * K > 1 on universes too large for shared memory: the streaming kernel once a
   generation (K launches).
 
+:func:`bit_multi_step_static` runs the same kernels with the rule folded at
+compile time (``bit_static_words_launch`` in the fixed-rule library, counted
+as ``bit_multi_step_static_words``), by the same planner.
+
 Other shapes, and every shape with ``BIT_WORDS = False``, take the present
 kernels: each universe resident in one block's shared memory for all K
 generations when two copies of it fit (:func:`resident`: up to 227 KB, e.g.
 512 x 512; one launch), and otherwise one launch a generation through device
-memory.  The other three engines launch the present kernels.  The JAX
+memory.  The two column-major engines launch the present kernels.  The JAX
 functions' ``scheme`` argument names TPU schedules; it is accepted and
 ignored.
 """
@@ -55,6 +59,7 @@ KERNEL = KERNELS["bit_multi_step"]
 KERNEL_WORDS = KERNELS["bit_multi_step_words"]
 KERNEL_CM = KERNELS["bit_multi_step_cm"]
 KERNEL_STATIC = KERNELS["bit_multi_step_static"]
+KERNEL_STATIC_WORDS = KERNELS["bit_multi_step_static_words"]
 KERNEL_STATIC_CM = KERNELS["bit_multi_step_static_cm"]
 RESIDENT_MAX_BYTES = 227 * 1024
 # False: bit_multi_step launches the present kernels at every shape (the A/B)
@@ -84,12 +89,20 @@ REGS_MAX_THREADS = 256
 # a universe of 8 words a row split over a cluster of 16 blocks, two
 # generations an exchange
 CLUSTER_PLAN = (2, 4, 1, 16, 2)
+# whole universes a block: the rows a thread in order of preference, with
+# the rule as data and with it fixed at compile time (the first that divides
+# the rows and whose instantiation REGS_PLANS has; one generation an
+# exchange).  With Life fixed at bench.py's 4096 x 256², 128 generations, on
+# an H100: 8 rows 1.447 ms, 4 rows 1.468, one row 2.179; two generations an
+# exchange at 4 and 8 rows 1.956 and 1.728 (scripts/port_ab.py static-plans).
+REGS_ROWS = {False: (4, 1), True: (8, 4, 1)}
 
 bit_multi_step_static_plain = bitpack.bit_multi_step_static
 bit_multi_step_static_cm_plain = bitpack.bit_multi_step_static_cm
 bit_multi_step_cm_plain = bitpack.bit_multi_step_cm
 
-__all__ = ["KERNEL", "KERNEL_CM", "KERNEL_STATIC", "KERNEL_STATIC_CM", "KERNEL_WORDS",
+__all__ = ["KERNEL", "KERNEL_CM", "KERNEL_STATIC", "KERNEL_STATIC_CM", "KERNEL_STATIC_WORDS",
+           "KERNEL_WORDS",
            "bit_multi_step", "bit_multi_step_plain", "bit_multi_step_static",
            "bit_multi_step_static_plain", "bit_multi_step_static_cm",
            "bit_multi_step_static_cm_plain", "bit_multi_step_cm", "bit_multi_step_cm_plain",
@@ -128,11 +141,11 @@ def stream_launches(n: int, h: int, nw: int, v: int, s: int) -> int:
     return -(-n // max(1, 2 ** 31 // per))
 
 
-def _regs_plan(n: int, h: int, nw: int, sms: int, aligned: bool):
+def _regs_plan(n: int, h: int, nw: int, sms: int, aligned: bool, fixed: bool = False):
     """("regs", V, L, R, CL, G, threads) for K > 1 held in registers, or
     None: a cluster (CLUSTER_PLAN) a universe when there are fewer universes
-    than multiprocessors, else whole universes a block, 4 rows a thread
-    where the rows divide."""
+    than multiprocessors, else whole universes a block, the first of
+    REGS_ROWS[fixed] rows a thread that divides the rows."""
     if nw >= 4 and not aligned:
         return None
     v, l, r, cl, g = CLUSTER_PLAN
@@ -140,7 +153,8 @@ def _regs_plan(n: int, h: int, nw: int, sms: int, aligned: bool):
     if (nw == v * l and n < sms and h % (cl * r) == 0 and per % 32 == 0
             and per <= REGS_MAX_THREADS and h // cl // r >= g):
         return ("regs", v, l, r, cl, g, per)
-    r = 4 if h % 4 == 0 else 1
+    r = next(r for r in REGS_ROWS[fixed] if h % r == 0 and (nw, 1, r, 1, 1) in REGS_PLANS
+             or r == 1)
     per = h // r
     if per > REGS_MAX_THREADS or (nw, 1, r, 1, 1) not in REGS_PLANS:
         return None
@@ -148,24 +162,34 @@ def _regs_plan(n: int, h: int, nw: int, sms: int, aligned: bool):
 
 
 @functools.lru_cache(maxsize=256)
-def words_plan(n: int, h: int, nw: int, steps: int, sms: int, aligned: bool = True):
+def words_plan(n: int, h: int, nw: int, steps: int, sms: int, aligned: bool = True,
+               fixed: bool = False):
     """The redesigned kernels' plan for K = ``steps`` generations on [n, h,
     nw] words (module note), decided by the shape, the card's ``sms``
-    multiprocessors and whether the words are 16-byte aligned; None where the
-    present kernel keeps the shape (K > 1 on a universe that two copies of
-    fit shared memory but the registers do not)."""
+    multiprocessors, whether the words are 16-byte aligned and whether the
+    rule is ``fixed`` at compile time; None where the present kernel keeps the
+    shape (K > 1 on a universe that two copies of fit shared memory but the
+    registers do not)."""
     if steps <= 1:
         return stream_plan(n, h, nw, sms, aligned)
-    plan = _regs_plan(n, h, nw, sms, aligned)
+    plan = _regs_plan(n, h, nw, sms, aligned, fixed)
     if plan is not None:
         return plan
     return None if resident(h, nw) else stream_plan(n, h, nw, sms, aligned)
 
 
-def _words_kernel(packed: torch.Tensor, rule_bits, num_steps: int, plan=None) -> torch.Tensor:
+def _static_define(birth, survive) -> tuple:
+    """The ``-D`` define of the fixed-rule library for a B/S rule."""
+    return (f"STATIC_RULE={pack_rule_bits(birth, survive):#07x}",)
+
+
+def _words_kernel(packed: torch.Tensor, rule_bits, num_steps: int, plan=None,
+                  fixed=None) -> torch.Tensor:
     """bit_words_launch on ``packed`` by ``plan`` (default :func:`words_plan`,
     or where that leaves the shape to the present kernel, the streaming kernel
-    a generation a launch).  K = 0 copies without a launch."""
+    a generation a launch); ``fixed`` (birth, survive) launches the fixed-rule
+    library's bit_static_words_launch instead (``rule_bits`` unused).  K = 0
+    copies without a launch."""
     steps = int(num_steps)
     if steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {steps}")
@@ -173,26 +197,30 @@ def _words_kernel(packed: torch.Tensor, rule_bits, num_steps: int, plan=None) ->
         raise ValueError("bit_multi_step: packed must be a contiguous uint32 [inst, H, W/32] "
                          "tensor")
     n, h, nw = packed.shape
-    rule = rule_tensor(rule_bits, packed)
+    if fixed is None:
+        rule = rule_tensor(rule_bits, packed)
+        kernel, head, defines = (KERNEL_WORDS,
+                                 (packed.data_ptr(), rule.data_ptr(), int(rule.ndim == 1)), ())
+    else:
+        kernel, head, defines = KERNEL_STATIC_WORDS, (packed.data_ptr(),), _static_define(*fixed)
     out = torch.empty_like(packed)
     if steps == 0:
         return out.copy_(packed)
     if plan is None:
         sms, aligned = _multiprocessors(packed.device), packed.data_ptr() % 16 == 0
-        plan = words_plan(n, h, nw, steps, sms, aligned) or stream_plan(n, h, nw, sms, aligned)
+        plan = (words_plan(n, h, nw, steps, sms, aligned, fixed is not None)
+                or stream_plan(n, h, nw, sms, aligned))
     device, stream = stream_args(packed)
     if plan[0] == "stream":
         _, v, s, threads = plan
         scratch = torch.empty_like(packed) if steps > 1 else out
-        KERNEL_WORDS.launch(packed.data_ptr(), rule.data_ptr(), int(rule.ndim == 1),
-                            out.data_ptr(), scratch.data_ptr(), n, h, nw, steps, 0, v, 1, 1, 1,
-                            1, s, threads, device, stream,
-                            count=steps * stream_launches(n, h, nw, v, s))
+        kernel.launch(*head, out.data_ptr(), scratch.data_ptr(), n, h, nw, steps, 0, v, 1, 1, 1,
+                      1, s, threads, device, stream,
+                      count=steps * stream_launches(n, h, nw, v, s), defines=defines)
     else:
         _, v, l, r, cl, g, threads = plan
-        KERNEL_WORDS.launch(packed.data_ptr(), rule.data_ptr(), int(rule.ndim == 1),
-                            out.data_ptr(), out.data_ptr(), n, h, nw, steps, 1, v, l, r, cl, g,
-                            1, threads, device, stream)
+        kernel.launch(*head, out.data_ptr(), out.data_ptr(), n, h, nw, steps, 1, v, l, r, cl, g,
+                      1, threads, device, stream, defines=defines)
     return out
 
 
@@ -236,7 +264,7 @@ def _static_rule(kernel, packed, birth, survive, num_steps, cm, layout):
     device, stream = stream_args(packed)
     kernel.launch(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, a, b, steps,
                   int(keep), int(cm), device, stream, count=1 if keep else steps,
-                  defines=(f"STATIC_RULE={pack_rule_bits(birth, survive):#07x}",))
+                  defines=_static_define(birth, survive))
     return out
 
 
@@ -262,6 +290,12 @@ def bit_multi_step_static(packed: torch.Tensor, birth, survive, num_steps: int,
     (module note)."""
     if _device_of(packed, "bit_multi_step_static") == "cpu":
         return bit_multi_step_static_plain(packed, birth, survive, num_steps)
+    if BIT_WORDS and packed.ndim == 3:
+        n, h, nw = packed.shape
+        plan = words_plan(n, h, nw, int(num_steps), _multiprocessors(packed.device),
+                          packed.data_ptr() % 16 == 0, True)
+        if plan is not None:
+            return _words_kernel(packed, None, num_steps, plan, (birth, survive))
     return _static_rule(KERNEL_STATIC, packed, birth, survive, num_steps, False,
                         "[inst, H, W/32]")
 

@@ -7,9 +7,10 @@ one source builds in seconds.  The libraries land in
 their sources and flags, so an edited source is rebuilt and a built one is
 reused.  :func:`build_all` starts one ``nvcc`` per missing library, all at
 once, and waits for them; the first launch of any kernel calls it.  A kernel
-whose rule is fixed at compile time (``bit_multi_step_static``) builds one
-more library per rule mask, on the first launch with that mask, with
-``-DSTATIC_RULE=<mask>``; its file name carries the mask.
+whose rule is fixed at compile time (``bit_multi_step_static`` and
+``bit_multi_step_static_words``) builds one more library per rule mask, on
+the first launch with that mask, with ``-DSTATIC_RULE=<mask>``; its file name
+carries the mask.
 
 Nothing here runs at import: the CPU tests import every module, and only a
 launch on a CUDA tensor needs ``nvcc`` and a card.
@@ -36,7 +37,7 @@ NVCC_FLAGS = (
 )
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
            "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "enc3_fwd", "enc3_bwd",
-           "head_fwd", "head_bwd",
+           "head_fwd", "head_bwd", "head2_bwd",
            "tail", "tail2_fwd", "tail2_bwd", "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd",
            "dec2_bwd", "halo_step")
 
@@ -183,6 +184,8 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P, P, I, P, P, I, I, I, I, I, I, P], source="bit_multi_step"),
         CudaKernel("bit_multi_step_static", "bit_multi_step_static_launch",
                    [P, P, P] + [I] * 7 + [P], source="bit_multi_step"),
+        CudaKernel("bit_multi_step_static_words", "bit_static_words_launch",
+                   [P, P, P] + [I] * 13 + [P], source="bit_multi_step"),
         CudaKernel("bit_multi_step_static_cm", "bit_multi_step_static_launch",
                    [P, P, P] + [I] * 7 + [P], source="bit_multi_step"),
         CudaKernel("ca_multi_step", "ca_multi_step_launch",
@@ -207,6 +210,8 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 4 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("head_bwd", "head_bwd_launch",
                    [P] * 8 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
+        CudaKernel("head2_bwd", "head2_bwd_launch",
+                   [P] * 8 + [I] * 9 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("tail_fwd", "tail_fwd_launch",
                    [P] * 4 + [I] * 6 + [LL, I, I, D, ULL, I, P], source="tail"),
         CudaKernel("tail_bwd", "tail_bwd_launch",

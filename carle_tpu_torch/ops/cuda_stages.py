@@ -6,7 +6,13 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
 * :func:`head` — ``pool(relu(drop(conv3x3(x))))``, pool a power of two; its
   backward gives dW, db and, with ``need_dx``, the input cotangent; a
   universe too wide for one band of the whole width (8192 cells at 1 -> 4
-  channels) runs in column tiles (``_head_bands``);
+  channels) runs in column tiles (``_head_bands``).  At the package's three
+  stage widths (C, O, pool) = (1, 4, 2), (1, 4, 4) and (4, 2, 2) the
+  backward runs the kernel specialised for them (``csrc/head2_bwd.cu``;
+  :func:`head_route`): one pass a pool window, stage 1 on cells by table,
+  gx in the same launch from a tile of gc with its halo recomputed, the
+  blocks' sums added in a fixed order by the last block; other widths take
+  the generic kernel;
 * :func:`tail` — ``act(drop(conv_transpose2d(x)))`` (k4, s2, p1), act relu or
   sigmoid; backward dW, db, gx.  At the package's two stage widths (CIN,
   COUT) = (2, 1) and (1, 1) it runs the kernels specialised for them
@@ -29,7 +35,7 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
 
 Each is a ``torch.autograd.Function`` that saves its inputs and the seed and
 recomputes in the backward, launches its kernels (``csrc/head_fwd.cu``,
-``head_bwd.cu``, ``tail.cu``, ``tail2_fwd.cu``, ``tail2_bwd.cu``,
+``head_bwd.cu``, ``head2_bwd.cu``, ``tail.cu``, ``tail2_fwd.cu``, ``tail2_bwd.cu``,
 ``decoder_loss_fwd.cu``, ``decoder_loss_bwd.cu``)
 for CUDA tensors and takes its plain twin (``*_plain``) for CPU tensors.
 
@@ -90,6 +96,16 @@ TAIL2_BANDS = ((16, 8, 4, 2, 1), (32, 16, 8, 4, 2, 1))   # input rows a block
 TAIL2_WAVES = (2, 1)               # blocks a multiprocessor the plans' grids reach
 ACTS = {"relu": 0, "sigmoid": 1}    # csrc/tail.cu, csrc/tail2.cuh
 HEAD_POOLS = (2, 4, 8)              # the head kernels' instantiations
+HEAD2_BWD = KERNELS["head2_bwd"]
+# The head's backward at these widths (C, O, pool) runs the kernel
+# specialised for them (:func:`head_route`); False runs the generic kernel
+# there too, to hold one against the other.
+HEAD2_WIDTHS = ((1, 4, 2), (1, 4, 4), (4, 2, 2))
+HEAD2_KERNELS = True
+HEAD2_THREADS = 256     # csrc/head2_bwd.cu: threads a block
+HEAD2_BLOCKS = {1: 2, 4: 1}   # csrc/head2_bwd.cu::head2_blocks: blocks a multiprocessor by C
+HEAD2_TILE = 128        # pooled columns a tile at most
+HEAD2_BANDS = (16, 8, 4, 2, 1)   # pooled rows a tile
 
 __all__ = ["head", "tail", "loss_tail", "decoder_loss",
            "head_fwd", "head_fwd_plain", "head_bwd", "head_bwd_plain",
@@ -98,7 +114,8 @@ __all__ = ["head", "tail", "loss_tail", "decoder_loss",
            "decoder_loss_fwd", "decoder_loss_fwd_plain", "decoder_loss_bwd",
            "decoder_loss_bwd_plain", "DEC2_FWD", "DEC2_BWD", "DEC2_WIDTHS", "DEC2_KERNELS",
            "Dec2Saved", "decoder_route", "dec2_keep_masks", "TAIL2_FWD", "TAIL2_BWD",
-           "TAIL2_WIDTHS", "TAIL2_KERNELS", "tail_route", "tail2_keep_mask"]
+           "TAIL2_WIDTHS", "TAIL2_KERNELS", "tail_route", "tail2_keep_mask", "HEAD2_BWD",
+           "HEAD2_WIDTHS", "HEAD2_KERNELS", "head_route"]
 
 
 def _check_pool(pool: int) -> None:
@@ -327,6 +344,8 @@ def _head_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx):
     _check_tensors(x, [("w", w), ("b", b), ("g", g)], [("x", x)])
     if tuple(g.shape) != (n, o, h // pool, wd // pool):
         raise ValueError(f"g shape {tuple(g.shape)} is not the head's output's")
+    if head_route(c, o, pool, wd, cell_kind(x), need_dx):
+        return _head2_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx)
     r, tc, smem = _head_bands(c, o, h, wd, pool, cuda_head.TILE_CELLS)[1]
     bands = -(-(h // pool) // r) * -(-(wd // pool) // tc)   # blocks a universe
     x, w, b, g = x.contiguous(), w.contiguous(), b.contiguous(), g.contiguous()
@@ -342,6 +361,79 @@ def _head_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx):
                     pool, r, tc, smem, cell_kind(x), int(stage), float(drop_p),
                     _seed_word(seed), device, stream, packed=_packed(x))
     return (*_split(grads, shapes), gx)
+
+
+# -- the head's backward at the package's three stage widths (csrc/head2_bwd.cu)
+
+
+def head_route(c: int, o: int, pool: int, w: int, kind: int, need_dx: bool) -> bool:
+    """Whether the head's backward with ``c`` -> ``o`` channels at ``pool``
+    on x of cell kind ``kind`` (:func:`cuda_head.cell_kind`) and width ``w``
+    runs the kernel specialised for its widths (csrc/head2_bwd.cu::
+    head2_takes): the first stage (1, 4) on cells (uint8 rows whole 4-byte
+    words) at pool 2 or 4 or on floats at pool 2, without an input
+    cotangent; the second (4, 2) at pool 2 on floats, with or without."""
+    if not HEAD2_KERNELS or (c, o, pool) not in HEAD2_WIDTHS:
+        return False
+    if c == 4:
+        return kind == 0
+    return not need_dx and (kind == 2 or (kind == 1 and w % 4 == 0) or (kind == 0 and pool == 2))
+
+
+def _head2_bwd_smem(c, o, pool, binary, need_dx, rb, tw) -> int:
+    """csrc/head2_bwd.cu::head2_bwd_smem."""
+    red = 4 * HEAD2_THREADS // 32 * (o * c * 9 + o)
+    if binary:
+        words = (pool * tw + 2 + 62) // 32 + 1
+        return 4 * 512 * o + 512 * (8 if pool == 4 else 4) + 4 * (pool * rb + 2) * words + red
+    h = int(need_dx)
+    xr, xw = 2 * (rb + 2 * h) + 2, 2 * (tw + 2 * h) + 2
+    return 4 * (c * xr * xw + (o * 2 * (rb + 2) * 2 * (tw + 2) if need_dx else 0)) + red
+
+
+@functools.lru_cache(maxsize=None)
+def _head2_plan(n: int, c: int, o: int, pool: int, h: int, w: int, binary: bool,
+                need_dx: bool, sms: int = SM_COUNT):
+    """(RB pooled rows, TW pooled columns, blocks) of a launch of the
+    specialised backward on n instances of [h, w], c -> o channels at ``pool``
+    (``binary``: cells, staged as bits): tiles of at most HEAD2_TILE pooled
+    columns, then the most rows in HEAD2_BANDS whose shared memory fits and
+    whose tiles still number at least the resident blocks (HEAD2_BLOCKS[c] a
+    multiprocessor; the fewest rows that fit where none do), and one block a
+    resident slot (a block a tile where the tiles are fewer).  Taller tiles
+    share their table and their ring of recomputed windows over more windows;
+    on an H100 the tallest such tiles timed best at the three widths' main
+    shapes (scripts/port_ab.py head-times)."""
+    ho, wo = h // pool, w // pool
+    tw = min(wo, HEAD2_TILE)
+    slots = HEAD2_BLOCKS[c] * sms
+    fits = [rb for rb in HEAD2_BANDS
+            if _head2_bwd_smem(c, o, pool, binary, need_dx, rb, tw) <= SMEM_MAX]
+    rb = next((rb for rb in fits if n * -(-ho // rb) * -(-wo // tw) >= slots), fits[-1])
+    return rb, tw, min(n * -(-ho // rb) * -(-wo // tw), slots)
+
+
+def _head2_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx, plan=None):
+    """(dW, db, gx) from the specialised backward on checked inputs at a width
+    :func:`head_route` takes; ``plan`` (RB, TW, blocks) overrides
+    :func:`_head2_plan`."""
+    (n, c, h, wd), o = cell_shape(x), w.shape[0]
+    kind = cell_kind(x)
+    rb, tw, grid = plan or _head2_plan(n, c, o, pool, h, wd, kind != 0, need_dx,
+                                       _multiprocessors(x.device))
+    k = o * c * 9 + o
+    x, w, b, g = x.contiguous(), w.contiguous(), b.contiguous(), g.contiguous()
+    grads, partials = _empty(x, k), _empty(x, grid, k)
+    counter = torch.empty((1,), dtype=torch.int32, device=x.device)
+    gx = _empty(x, n, c, h, wd) if need_dx else None
+    device, stream = stream_args(x)
+    HEAD2_BWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), _ptr(gx),
+                     partials.data_ptr(), counter.data_ptr(), grads.data_ptr(), n, c, o, h, wd,
+                     pool, rb, tw, grid,
+                     _head2_bwd_smem(c, o, pool, kind != 0, need_dx, rb, tw), kind,
+                     int(stage), float(drop_p), _seed_word(seed), device, stream,
+                     packed=_packed(x))
+    return (*_split(grads, ((o, c, 3, 3), (o,))), gx)
 
 
 # -- tail and loss tail --------------------------------------------------------

@@ -53,6 +53,23 @@ each taken in a fresh process.
         256 generations) and the engines' (4096 x 256², 128), and of the
         packed halo kernel (row 15) at 8192² over 4 mesh slots, 64
         generations, each call's rule on the card.
+    python scripts/port_ab.py static-plans --root DIR
+        the fixed-rule packed engine (PERF.md row 10) at the engines' shape
+        (4096 x 256², 128 generations, Life fixed): each register-resident
+        plan of csrc/bit_multi_step.cu's list for 8 words a row, held bit for
+        bit against the present kernel and timed in turns with it (device ms,
+        chip_smoke.py's Timer), with each plan's registers, spills and blocks
+        a multiprocessor.  Run it in a copy whose sources were edited (the
+        register cap) to time a variant against the tree.
+    python scripts/port_ab.py head-times --root DIR
+        the head's backward (PERF.md row 9b) at its three cases (AE conv1 on
+        64 x 256² uint8 cells, RND conv1 at pool 4, AE conv2 on float32 with
+        its input cotangent; dropout 0.1): the specialised kernel
+        (csrc/head2_bwd.cu) by the planner's plan and by each plan of a few
+        tile heights, and the generic kernel forced, held against each other
+        (1e-5 of each leaf's largest entry, gx bit for bit) and timed in turns
+        (device ms, chip_smoke.py's Timer), with the instantiations' registers,
+        spills and blocks a multiprocessor.
     python scripts/port_ab.py host-encoder --root DIR
         the host's µs to enqueue a training step's encoder work (the RND
         predictor forward with dropout through autograd, the target's
@@ -216,6 +233,114 @@ def packed_times(torch) -> dict:
                 lambda: cuda_bitpack.bit_multi_step(big, life, 128), 5),
             "row 15 8192 x 4 slots x 64": timer.ms(
                 lambda: cuda_halo.bit_spatial_multi_step_cuda(slots, life, 64), 5)}
+
+
+def static_plans(torch) -> dict:
+    import ctypes
+
+    import chip_smoke
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    big = bitpack.pack_grid((torch.rand((4096, 256, 256), generator=gen, device=dev)
+                             < 0.5).to(torch.uint8))
+    timer = chip_smoke.Timer(torch)
+    life = ([3], [2, 3])
+    defines = cuda_bitpack._static_define(*life)
+    present = lambda: cuda_bitpack._static_rule(cuda_bitpack.KERNEL_STATIC, big, *life, 128,
+                                                False, "")
+    want = present()
+    lib = cuda_build.library("bit_multi_step", defines)
+    occ = lib.bit_static_words_occupancy
+    occ.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    plans = {}
+    for v, l, r, cl, g in cuda_bitpack.REGS_PLANS:
+        if v != 8 or l != 1 or cl != 1:
+            continue
+        plan = ("regs", v, l, r, cl, g, 256)
+        fn = lambda plan=plan: cuda_bitpack._words_kernel(big, None, 128, plan, life)
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"plan {plan} differs from the present kernel")
+        out = (ctypes.c_int * 4)()
+        rc = occ(1, v, l, r, cl, g, 256, 0, ctypes.cast(out, ctypes.c_void_p))
+        plans[str(plan)] = {"fn": fn, "registers": out[0], "spilled_bytes": out[2],
+                            "blocks_per_sm": out[3], "rc": rc}
+    times = {name: [] for name in ["present", *plans]}
+    order = ["present", *plans]
+    for name in order + order[::-1]:
+        fn = present if name == "present" else plans[name]["fn"]
+        times[name].append(timer.ms(fn, 5))
+    return {name: {"ms": times[name],
+                   **{k: v for k, v in plans.get(name, {}).items() if k != "fn"}}
+            for name in order}
+
+
+def head_times(torch) -> dict:
+    import ctypes
+
+    import chip_smoke
+    from carle_tpu_torch.ops import cuda_build, cuda_head, cuda_stages
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    timer = chip_smoke.Timer(torch)
+    cells = (torch.rand((64, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    cells[:16, :, :128] = 0
+    x1 = torch.relu(torch.randn((64, 4, 128, 128), generator=gen, device=dev))
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    cases = {  # label: (x, w, b, g, pool, stage, need_dx)
+        "AE conv1 u8 [64,1,256,256] pool 2": (cells, rand(4, 1, 3, 3) * 0.3, rand(4).abs() * 0.3,
+                                              rand(64, 4, 128, 128), 2, 0, False),
+        "RND conv1 u8 [64,1,256,256] pool 4": (cells, rand(4, 1, 3, 3) * 0.3,
+                                               rand(4).abs() * 0.3, rand(64, 4, 64, 64), 4, 0,
+                                               False),
+        "AE conv2 f32 [64,4,128,128] pool 2, gx": (x1, rand(2, 4, 3, 3) * 0.3,
+                                                   rand(2).abs() * 0.3, rand(64, 2, 64, 64), 2,
+                                                   1, True),
+    }
+    lib = cuda_build.library("head2_bwd")
+    occ = lib.head2_bwd_occupancy
+    occ.argtypes = [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, (x, w, b, g, pool, stage, dx) in cases.items():
+        args = (x, w, b, g, pool, 0.1, 99, stage, dx)
+        n, c, h, wd = cuda_head.cell_shape(x)
+        route = lambda: cuda_stages.head_bwd(*args)
+        generic = lambda: chip_smoke._generic_head(route)
+        want, got = generic(), route()
+        entry = {"plan": cuda_stages._head2_plan(n, c, w.shape[0], pool, h, wd,
+                                                 cuda_head.cell_kind(x) != 0, dx, sms),
+                 "max_leaf_rel_err": max(chip_smoke._leaf_errors(
+                     [t for t in got if t is not None], [t for t in want if t is not None]))}
+        if dx:
+            entry["gx_equal"] = bool(torch.equal(got[2], want[2]))
+        fns = {"route": route, "generic": generic}
+        ho, wo = h // pool, wd // pool
+        for rb in (1, 2, 4, 8, 16):
+            for per_sm in (1, 2, 3):
+                tiles = n * -(-ho // rb)
+                plan = (rb, min(wo, 128), min(tiles, per_sm * sms))
+                fns[f"plan {plan}"] = lambda plan=plan: cuda_stages._head2_bwd_kernel(
+                    *args, plan=plan)
+        for name, fn in fns.items():
+            errs = chip_smoke._leaf_errors([t for t in fn() if t is not None],
+                                           [t for t in want if t is not None])
+            entry.setdefault("errors", {})[name] = max(errs)
+        order = list(fns)
+        for name in order + order[::-1]:
+            entry.setdefault("ms", {}).setdefault(name, []).append(timer.ms(fns[name], 10))
+        kind = cuda_head.cell_kind(x)
+        rb, tw, _ = entry["plan"]
+        res = (ctypes.c_int * 4)()
+        smem = cuda_stages._head2_bwd_smem(c, w.shape[0], pool, kind != 0, dx, rb, tw)
+        rc = occ(c, w.shape[0], pool, kind, 1, int(dx), smem, 0,
+                 ctypes.cast(res, ctypes.c_void_p))
+        entry["occupancy"] = {"rc": rc, "registers": res[0], "spilled_bytes": res[2],
+                              "blocks_per_sm": res[3], "smem": smem}
+        out[label] = entry
+    return out
 
 
 def _battery_leg_actions(torch, steps, shape, dev):
@@ -518,7 +643,8 @@ def main() -> int:
     parser.add_argument("what", choices=("digest", "env-step", "profile-packed",
                                          "profile-wrappers", "profile-spatial",
                                          "encoder-times", "decoder-gx", "host-encoder",
-                                         "packed-times", "python-cost"))
+                                         "packed-times", "static-plans", "head-times",
+                                         "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--generic", action="store_true",
                         help="encoder-times: also time the generic kernels")
@@ -550,6 +676,10 @@ def main() -> int:
         result = host_encoder(torch)
     elif args.what == "packed-times":
         result = packed_times(torch)
+    elif args.what == "static-plans":
+        result = static_plans(torch)
+    elif args.what == "head-times":
+        result = head_times(torch)
     else:
         import chip_smoke
 

@@ -112,6 +112,20 @@ inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width = 32) {
 inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other lane
 inline double __shfl_down_sync(unsigned, double, int) { return 0.0; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+// Blocks run one after another: an atomic is a plain update, a fence nothing.
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+    const unsigned old = *p;
+    *p = old + v;
+    return old;
+}
+inline void __threadfence() {}
+inline float __ldcg(const float* p) { return *p; }
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes, cudaStream_t) {
+    std::memset(p, value, bytes);
+    return cudaSuccess;
+}
 inline uint32_t __umulhi(uint32_t a, uint32_t b) {
     return static_cast<uint32_t>((static_cast<uint64_t>(a) * b) >> 32);
 }

@@ -24,7 +24,8 @@ from carle_tpu_torch.parallel import cuda_halo
 from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd",
-           "enc3_fwd", "enc3_bwd", "head_fwd", "head_bwd", "tail", "tail2_fwd", "tail2_bwd",
+           "enc3_fwd", "enc3_bwd", "head_fwd", "head_bwd", "head2_bwd", "tail", "tail2_fwd",
+           "tail2_bwd",
            "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd", "dec2_bwd",
            "bit_multi_step", "ca_multi_step", "halo_step", "ca_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"

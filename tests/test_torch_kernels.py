@@ -168,6 +168,96 @@ def test_bit_words_kernels_match_present_and_plain(cuda, n, h, nw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,nw", [(8, 256, 8), (2, 512, 16), (1, 1024, 32), (3, 16, 1),
+                                    (300, 256, 8)])
+def test_static_words_kernels_match_present_and_plain(cuda, n, h, nw):
+    """Row 10's redesigned kernels (bit_multi_step_static_words: row 2's
+    kernels with the rule folded) against the present fixed-rule kernel
+    forced (BIT_WORDS = False) and the twin, bit for bit, at K in {0, 1, 5,
+    64}: by the route (one launch held in registers, the cluster split for
+    fewer universes than multiprocessors) and by each register-resident plan
+    forced, one and two generations an exchange among them."""
+    packed = bitpack.pack_grid(torch.from_numpy(_soup(n + h + 2, (n, h, 32 * nw)))).to(cuda)
+    plans = [None]
+    for v, l, r, cl, g in cuda_bitpack.REGS_PLANS:
+        per = h // cl // r * l
+        if (v * l == nw and h % (cl * r) == 0 and per <= 256 and (l == 1 or per % 32 == 0)
+                and h // cl // r >= g):
+            plans.append(("regs", v, l, r, cl, g, per if cl > 1 else per * min(n, 256 // per)))
+    for birth, survive in (([3], [2, 3]), ([3, 6, 8], [2, 4, 5]), ([0, 3], [2, 3])):
+        for steps in (0, 1, 5, 64):
+            want = cuda_bitpack.bit_multi_step_static_plain(packed, birth, survive, steps)
+            cuda_bitpack.BIT_WORDS = False
+            try:
+                present = cuda_bitpack.bit_multi_step_static(packed, birth, survive, steps)
+            finally:
+                cuda_bitpack.BIT_WORDS = True
+            assert torch.equal(present.to(torch.int64), want.to(torch.int64))
+            before = cuda_bitpack.KERNEL_STATIC_WORDS.launches
+            got = cuda_bitpack.bit_multi_step_static(packed, birth, survive, steps)
+            assert torch.equal(got.to(torch.int64), want.to(torch.int64))
+            plan = cuda_bitpack.words_plan(n, h, nw, steps, cuda_ca._multiprocessors(cuda),
+                                           True, True)
+            if plan is not None and steps > 0 and (steps == 1 or plan[0] == "regs"):
+                assert cuda_bitpack.KERNEL_STATIC_WORDS.launches == before + 1
+            for plan in plans[1:] if steps > 1 else ():
+                got = cuda_bitpack._words_kernel(packed, None, steps, plan, (birth, survive))
+                assert torch.equal(got.to(torch.int64), want.to(torch.int64)), (plan, steps)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["AE conv1 u8", "AE conv1 u32", "AE conv1 f32", "RND conv1 u8",
+                                  "AE conv2 gx", "AE conv2"])
+def test_head2_bwd_matches_generic_and_plain(cuda, case, drop_p):
+    """Row 9b's specialised backward (head2_bwd, the route at the package's
+    three widths) against the generic kernel forced (HEAD2_KERNELS = False):
+    each leaf within 1e-5 of its largest entry (the weight-gradient sums run
+    in another order), gx bit for bit; against the twin within 1e-4; the same
+    bits twice; one launch a call; universes half blank, so whole pool
+    windows tie."""
+    n, seed = 8, 31337
+    rng = np.random.RandomState(len(case))
+    cells = torch.from_numpy(_soup(n, (n, 1, 256, 256))).to(cuda)
+    cells[: n // 2, :, :128] = 0
+    if case.startswith("AE conv2"):
+        x = torch.relu(torch.from_numpy(rng.randn(n, 4, 128, 128).astype(np.float32))).to(cuda)
+        x[: n // 2, :, :64] = 0
+        c, o, pool, stage = 4, 2, 2, 1
+    else:
+        x = {"u8": cells, "u32": bitpack.pack_grid(cells[:, 0])[:, None],
+             "f32": cells.float()}[case.split()[-1]]
+        c, o, pool, stage = 1, 4, (4 if case.startswith("RND") else 2), 0
+    need_dx = case.endswith("gx")
+    w, b = (t.to(cuda) for t in _params(rng, [(o, c, 3, 3), (o,)]))
+    b = b.abs()
+    hw = 256 if c == 1 else 128
+    g = torch.from_numpy(rng.randn(n, o, hw // pool, hw // pool).astype(np.float32)).to(cuda)
+    args = (x, w, b, g, pool, drop_p, seed, stage, need_dx)
+    before = cuda_stages.HEAD2_BWD.launches
+    got = cuda_stages.head_bwd(*args)
+    assert cuda_stages.HEAD2_BWD.launches == before + 1
+    assert all(torch.equal(a, t) for a, t in zip(got, cuda_stages.head_bwd(*args))
+               if a is not None)
+    cuda_stages.HEAD2_KERNELS = False
+    try:
+        generic = cuda_stages.head_bwd(*args)
+    finally:
+        cuda_stages.HEAD2_KERNELS = True
+    twin = cuda_stages.head_bwd_plain(*args)
+    for a, t, p in zip(got, generic, twin):
+        if a is None:
+            continue
+        scale = t.abs().max()
+        assert float((a - t).abs().max() / scale) < 1e-5
+        assert float((a - p).abs().max() / p.abs().max()) < 1e-4
+    if need_dx:
+        assert torch.equal(got[2], generic[2])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("slots", [1, 2, 4])
 def test_bit_halo_words_match_present_and_plain(cuda, slots):
     """Row 15's redesigned launcher (bit_spatial_words) against the present
