@@ -70,7 +70,7 @@
 // grid in VMEM, so device memory is read once and written once a launch.
 // Universes whose two copies do not fit a block's 227 KB take the fallback:
 // one launch per generation through device memory.
-#include "bit_words.cuh"
+#include "bit_regs.cuh"
 #include "common.cuh"
 
 // The same tree over ten leaves l0 .. l9 indexed by count9 (0-9).
@@ -94,17 +94,23 @@ __device__ __forceinline__ uint32_t step_word(const uint32_t* src, int H,
 }
 
 // Column-major: the vertical triple (the cell and its two vertical
-// neighbours) of word (k, c) of a [HW, W] universe with row stride S as
-// planes p0 (weight 1) and p1 (weight 2); g is the word itself.
+// neighbours) of a word g between the words above (up) and below (dn) it in
+// its column, as planes p0 (weight 1) and p1 (weight 2).
+__device__ __forceinline__ void triple_planes(uint32_t up, uint32_t g, uint32_t dn,
+                                              uint32_t& p0, uint32_t& p1) {
+    const uint32_t u = __funnelshift_l(up, g, 1);  // row r-1 at r
+    const uint32_t d = __funnelshift_r(g, dn, 1);  // row r+1 at r
+    csa(u, g, d, p0, p1);
+}
+
+// The same from the words above (up) and below (dn) word (k, c) in memory.
 __device__ __forceinline__ void vertical_triple(const uint32_t* src, int HW, int S, int k,
                                                 int c, uint32_t& g, uint32_t& p0,
                                                 uint32_t& p1) {
     const int ku = k == 0 ? HW - 1 : k - 1;
     const int kd = k == HW - 1 ? 0 : k + 1;
     g = src[k * S + c];
-    const uint32_t u = __funnelshift_l(src[ku * S + c], g, 1);  // row r-1 at r
-    const uint32_t d = __funnelshift_r(g, src[kd * S + c], 1);  // row r+1 at r
-    csa(u, g, d, p0, p1);
+    triple_planes(src[ku * S + c], g, src[kd * S + c], p0, p1);
 }
 
 // Column-major: next state of a word from the vertical triples of its own
@@ -269,202 +275,27 @@ static int launch(const void* in, const void* rule, int rule_stride, void* out,
 // bit_static_words_launch (-DSTATIC_RULE) with it fixed.  The same kernels,
 // the rule a template argument, so a fixed rule folds its mux tree.
 //
-// K > 1: each universe stays resident across generations, in REGISTERS.  A
-// thread owns R rows of V adjacent words; L = NW / V lanes (adjacent threads)
-// cover a row and pass their edge words by lane shuffles.  Once an exchange
-// each thread stores its top row into the slots of the threads above it and
-// its bottom row into the slots of those below (shared memory), builds its
-// own rows' pair planes, waits at one barrier and reads its ghost rows from
-// its own slots: one barrier an exchange (the slots alternate), every other
-// operand a register.  An exchange runs G generations: G = 1 trades one
-// ghost row a side; G = 2 (one row a thread) trades two, and the thread
-// computes the rows above and below its own once more itself (three rows,
-// then its own), so one barrier serves two generations.  CL = 1: a block
-// holds whole universes (threads / (H / R * L) of them).  CL > 1: a universe
-// is split over a thread-block cluster of CL blocks, a band of H / CL rows
-// each, so its generations run on CL multiprocessors (the server's /rollout:
-// one universe, many generations); the bands' edge rows are stored into the
-// neighbouring blocks' slots through distributed shared memory before a split
-// cluster barrier (arrive, own planes, wait).
-#ifndef CUDA_EMULATION
-#include <cooperative_groups.h>
-
-template <int CL>
-__device__ __forceinline__ void band_arrive() {
-    if constexpr (CL > 1) asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-template <int CL>
-__device__ __forceinline__ void band_wait() {
-    if constexpr (CL > 1)
-        asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-    else
-        __syncthreads();
-}
-
-template <int CL>
-__device__ __forceinline__ int band_rank() {
-    if constexpr (CL > 1)
-        return static_cast<int>(cooperative_groups::this_cluster().block_rank());
-    else
-        return 0;
-}
-
-// p (this block's shared memory) in the block of cluster rank `rank`.
-template <int CL>
-__device__ __forceinline__ uint32_t* band_ptr(uint32_t* p, int rank) {
-    if constexpr (CL > 1)
-        return cooperative_groups::this_cluster().map_shared_rank(p, rank);
-    else
-        return p;
-}
-#else
-// The host build runs clusters of one block: the block barrier at the wait,
-// its own shared memory; lane shuffles are the shim's.
-template <int CL>
-__device__ __forceinline__ void band_arrive() {}
-template <int CL>
-__device__ __forceinline__ void band_wait() { __syncthreads(); }
-template <int CL>
-__device__ __forceinline__ int band_rank() { return 0; }
-template <int CL>
-__device__ __forceinline__ uint32_t* band_ptr(uint32_t* p, int) { return p; }
-#endif
-
-// Lane (lane + delta) mod L of the caller's L adjacent lanes.
-template <int L>
-__device__ __forceinline__ uint32_t lane_word(uint32_t v, int delta) {
-    if constexpr (L > 1)
-        return __shfl_sync(0xffffffffu, v, (static_cast<int>(threadIdx.x) + delta) & (L - 1), L);
-    else
-        return v;
-}
-
-// A row's words with their pair planes, the row's west and east edge words
-// from the neighbouring lanes (wrapping: the torus over the width).
-template <int V, int L>
-__device__ __forceinline__ void lane_row(const uint32_t (&w)[V], RowPlanes<V>& p) {
-    const uint32_t west = lane_word<L>(w[V - 1], -1);
-    const uint32_t east = lane_word<L>(w[0], 1);
-    row_planes<V>(w, west, east, p);
-}
-
+// K > 1: each universe stays resident across generations, in REGISTERS
+// (bit_regs.cuh: a thread owns R rows of V adjacent words, one barrier an
+// exchange of ghost rows, or a thread-block cluster of CL blocks a universe).
 template <int RULE, int V, int L, int R, int CL, int G>
 __global__ void __launch_bounds__(256, 2)
     bit_regs_kernel(const uint32_t* __restrict__ in, const int32_t* __restrict__ rule,
                     int rule_stride, uint32_t* __restrict__ out, int N, int H, int steps) {
-    static_assert(G == 1 || (G == 2 && R == 1), "two generations an exchange: a row a thread");
-    constexpr int NW = V * L, SLOTS = 2 * G;  // slots: the G rows above, then the G below
-    extern __shared__ float smem[];           // [2][blockDim][SLOTS][V] words
-    uint32_t* ex = reinterpret_cast<uint32_t*>(smem);
-    const int tid = threadIdx.x, nt = blockDim.x;
-    const int groups = H / CL / R;  // row groups a band
-    const int per = groups * L;     // threads a band
-    const int u = tid / per, t = tid - u * per;
-    const int rg = t / L, lane = t - rg * L;
-    const int rank = band_rank<CL>();
-    const int n = CL > 1 ? static_cast<int>(blockIdx.x) / CL
-                         : static_cast<int>(blockIdx.x) * (nt / per) + u;
-    const bool live = n < N;  // the last block's spare bands compute a copy and store nothing
-    const int nn = live ? n : N - 1;
+    constexpr int NW = V * L;
+    extern __shared__ float smem[];  // [2][blockDim][2 G][V] words
+    const RegsPlace at = regs_place<L, R, CL>(threadIdx.x, blockDim.x, N, H);
     const size_t plane = static_cast<size_t>(H) * NW;
-    const size_t first = static_cast<size_t>(rank * (H / CL) + rg * R) * NW + lane * V;
+    const size_t first = static_cast<size_t>(at.rank * (H / CL) + at.rg * R) * NW + at.lane * V;
     uint32_t st[R][V];
 #pragma unroll
-    for (int i = 0; i < R; ++i) load_words<V>(in + nn * plane + first + i * NW, st[i]);
-    const Leaves leaves = make_leaves(rule_of<RULE>(rule, rule_stride, nn));
-    // The thread j row groups away (j < 0: above; across a band's edge, the
-    // neighbouring band's, in the same universe) and its cluster rank.
-    int away_t[SLOTS], away_rank[SLOTS];
+    for (int i = 0; i < R; ++i) load_words<V>(in + at.nn * plane + first + i * NW, st[i]);
+    const Leaves leaves = make_leaves(rule_of<RULE>(rule, rule_stride, at.nn));
+    regs_generations<V, L, R, CL, G>(st, leaves, at, reinterpret_cast<uint32_t*>(smem), steps);
+    if (at.live) {
 #pragma unroll
-    for (int k = 0; k < SLOTS; ++k) {
-        const int j = k < G ? k - G : k - G + 1;  // -G .. -1, 1 .. G
-        int g = rg + j, r = rank;
-        if (g < 0) {
-            g += groups;
-            r = (rank + CL - 1) % CL;
-        } else if (g >= groups) {
-            g -= groups;
-            r = (rank + 1) % CL;
-        }
-        away_t[k] = u * per + g * L + lane;
-        away_rank[k] = r;
+        for (int i = 0; i < R; ++i) store_words<V>(out + at.n * plane + first + i * NW, st[i]);
     }
-    if constexpr (CL > 1) {  // every block of the cluster has started before the first
-        band_arrive<CL>();   // store into its shared memory
-        band_wait<CL>();
-    }
-    for (int s = 0; s < steps; s += G) {
-        uint32_t* buf = ex + static_cast<size_t>((s / G) & 1) * nt * SLOTS * V;
-        // my top row is row j below for the thread j above (its slot G - 1 + j),
-        // my bottom row row j above for the thread j below (its slot G - j)
-#pragma unroll
-        for (int k = 0; k < SLOTS; ++k) {
-            const int j = k < G ? G - k : k - G + 1;
-            uint32_t* slot = buf + (away_t[k] * SLOTS + (k < G ? G - 1 + j : G - j)) * V;
-            store_words<V>(away_rank[k] == rank ? slot : band_ptr<CL>(slot, away_rank[k]),
-                           k < G ? st[0] : st[R - 1]);
-        }
-        band_arrive<CL>();
-        RowPlanes<V> up, mid, dn;
-        lane_row<V, L>(st[0], mid);
-        band_wait<CL>();
-        const uint32_t* mine = buf + tid * SLOTS * V;
-        uint32_t w[V];
-        if constexpr (G == 2) {
-            if (s + 1 < steps) {  // two generations: the rows above and below, then its own
-                RowPlanes<V> a2, b2;
-                load_words<V>(mine, w);
-                lane_row<V, L>(w, a2);
-                load_words<V>(mine + V, w);
-                lane_row<V, L>(w, up);
-                load_words<V>(mine + 2 * V, w);
-                lane_row<V, L>(w, dn);
-                load_words<V>(mine + 3 * V, w);
-                lane_row<V, L>(w, b2);
-                uint32_t na[V], nb[V];
-                step_row<V>(a2, up, mid, leaves, na);
-                step_row<V>(mid, dn, b2, leaves, nb);
-                step_row<V>(up, mid, dn, leaves, st[0]);
-                lane_row<V, L>(na, up);
-                lane_row<V, L>(st[0], mid);
-                lane_row<V, L>(nb, dn);
-                step_row<V>(up, mid, dn, leaves, st[0]);
-                continue;
-            }
-        }
-        load_words<V>(mine + (G - 1) * V, w);  // the row above
-        lane_row<V, L>(w, up);
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-            if (i + 1 < R) {
-                lane_row<V, L>(st[i + 1], dn);
-            } else {
-                load_words<V>(mine + G * V, w);  // the row below
-                lane_row<V, L>(w, dn);
-            }
-            step_row<V>(up, mid, dn, leaves, st[i]);
-            up = mid;
-            mid = dn;
-        }
-    }
-    // (a neighbour's last stores into this block landed before its last wait)
-    if (live) {
-#pragma unroll
-        for (int i = 0; i < R; ++i) store_words<V>(out + n * plane + first + i * NW, st[i]);
-    }
-}
-
-// The (V, L, R, CL, G) instantiations a plan may name: NW = V L words a row.
-// ops/cuda_bitpack.py reads this list (REGS_PLANS): keep it one macro.
-#define BIT_REGS_PLANS(X)                                                                  \
-    X(8, 1, 4, 1, 1) X(8, 1, 1, 1, 1) X(4, 1, 4, 1, 1) X(4, 1, 1, 1, 1) X(2, 1, 4, 1, 1) \
-    X(2, 1, 1, 1, 1) X(1, 1, 4, 1, 1) X(1, 1, 1, 1, 1) X(2, 4, 1, 1, 2) X(2, 4, 1, 16, 2) \
-    X(8, 1, 8, 1, 1)
-
-// Shared memory of a block of bit_regs_kernel: two sets of 2 G slots a thread.
-static inline size_t regs_smem(int threads, int V, int G) {
-    return 2 * static_cast<size_t>(threads) * 2 * G * V * sizeof(uint32_t);
 }
 
 #ifndef CUDA_EMULATION
@@ -588,6 +419,137 @@ static int words_occupancy(int regime, int V, int L, int R, int CL, int G, int t
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// -- The redesigned column-major engine with the rule fixed:
+// bit_static_cm_words_launch (-DSTATIC_RULE), counted as
+// bit_multi_step_static_cm_words (ops/cuda_bitpack.py::cm_plan picks the
+// plan by shape).  Each universe [HW, W] stays in REGISTERS for all K
+// generations: a thread holds CM_COLUMNS adjacent columns x all HW word rows,
+// and L = W / CM_COLUMNS adjacent lanes of one warp (a power of two, at most
+// 32) cover the width.  The torus over the height wraps inside the thread (a
+// column's words are all its own).  The thread walks its word rows, builds
+// each column's vertical triple planes once (the words above carried from the
+// row before), and takes the planes of the column west of its first and east
+// of its last from the neighbouring lanes by __shfl_sync, the universe's first
+// and last lanes closing the torus over the width: no shared memory and no
+// barrier.  At W = 256 a universe is exactly one warp (measured faster than 4
+// columns a thread over two warps, PERF.md row 11a).  Same update as step_cm:
+// bit for bit the present kernels.
+constexpr int CM_COLUMNS = 8;
+
+template <int RULE, int HW>
+__global__ void __launch_bounds__(256, 2)
+    bit_cm_regs_kernel(const uint32_t* __restrict__ in, const int32_t* __restrict__ rule,
+                       int rule_stride, uint32_t* __restrict__ out, int N, int W, int steps) {
+    constexpr int C = CM_COLUMNS;
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const int L = W / C;  // lanes a universe, a power of two up to a warp's
+    const int u = tid / L, lane = tid - u * L;
+    const int n = static_cast<int>(blockIdx.x) * (nt / L) + u;
+    const bool live = n < N;  // the last block's spare lanes compute a copy, store nothing
+    const int nn = live ? n : N - 1;
+    const size_t plane = static_cast<size_t>(HW) * W;
+    uint32_t st[C][HW];
+#pragma unroll
+    for (int k = 0; k < HW; ++k) {
+        uint32_t w[C];
+        load_words<C>(in + nn * plane + static_cast<size_t>(k) * W + lane * C, w);
+#pragma unroll
+        for (int c = 0; c < C; ++c) st[c][k] = w[c];
+    }
+    uint32_t dead10[10], alive10[10];
+    leaves10(make_leaves(rule_of<RULE>(rule, rule_stride, nn)), dead10, alive10);
+    const auto shfl = [L, tid](uint32_t v, int delta) {
+        return __shfl_sync(0xffffffffu, v, (tid + delta) & (L - 1), L);
+    };
+    for (int s = 0; s < steps; ++s) {
+        uint32_t first[C], prev[C];  // word rows 0 and k - 1 before this generation
+#pragma unroll
+        for (int k = 0; k < HW; ++k) {
+            uint32_t p0[C], p1[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const uint32_t up = k == 0 ? st[c][HW - 1] : prev[c];
+                const uint32_t dn = k + 1 < HW ? st[c][k + 1] : (k == 0 ? st[c][0] : first[c]);
+                triple_planes(up, st[c][k], dn, p0[c], p1[c]);
+            }
+            const uint32_t w0 = shfl(p0[C - 1], -1), w1 = shfl(p1[C - 1], -1);
+            const uint32_t e0 = shfl(p0[0], 1), e1 = shfl(p1[0], 1);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                const uint32_t g = st[c][k];
+                const uint32_t nv =
+                    step_cm(g, p0[c], p1[c], c == 0 ? w0 : p0[c - 1], c == 0 ? w1 : p1[c - 1],
+                            c + 1 < C ? p0[c + 1] : e0, c + 1 < C ? p1[c + 1] : e1, dead10,
+                            alive10);
+                if (k == 0) first[c] = g;
+                prev[c] = g;
+                st[c][k] = nv;
+            }
+        }
+    }
+    if (live) {
+#pragma unroll
+        for (int k = 0; k < HW; ++k) {
+            uint32_t w[C];
+#pragma unroll
+            for (int c = 0; c < C; ++c) w[c] = st[c][k];
+            store_words<C>(out + n * plane + static_cast<size_t>(k) * W + lane * C, w);
+        }
+    }
+}
+
+// The word rows HW an instantiation holds.  ops/cuda_bitpack.py reads this
+// list (CM_PLANS): keep it one macro.
+#define BIT_CM_PLANS(X) X(1) X(2) X(4) X(8)
+
+// Column-major [N, HW, W], K = steps generations by bit_cm_regs_kernel<RULE,
+// HW> in blocks of `threads` (a multiple of 32 and of L = W / CM_COLUMNS,
+// which is a power of two up to 32).  steps == 0 copies.
+template <int RULE>
+static int cm_words_launch(const void* in, const void* rule, int rule_stride, void* out, int N,
+                           int HW, int W, int steps, int threads, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (N < 1 || HW < 1 || W < CM_COLUMNS || W % CM_COLUMNS || steps < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int L = W / CM_COLUMNS;
+    if ((L & (L - 1)) || L > 32 || threads < 32 || threads > 256 || threads % 32 ||
+        reinterpret_cast<uintptr_t>(in) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (steps == 0)
+        return static_cast<int>(cudaMemcpyAsync(
+            out, in, static_cast<size_t>(N) * HW * W * sizeof(uint32_t),
+            cudaMemcpyDeviceToDevice, st));
+    const unsigned blocks = static_cast<unsigned>((N + threads / L - 1) / (threads / L));
+    const uint32_t* src = static_cast<const uint32_t*>(in);
+    const int32_t* rb = static_cast<const int32_t*>(rule);
+    uint32_t* dst = static_cast<uint32_t*>(out);
+#define BIT_CM_CASE(hw)                                                                       \
+    if (HW == hw) {                                                                           \
+        const auto kernel = bit_cm_regs_kernel<RULE, hw>;                                     \
+        KERNEL_LAUNCH_THREADED(kernel, blocks, threads, 0, st, src, rb, rule_stride, dst, N, \
+                               W, steps);                                                     \
+        return static_cast<int>(cudaGetLastError());                                          \
+    }
+    BIT_CM_PLANS(BIT_CM_CASE)
+#undef BIT_CM_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Registers, static shared memory, spills and resident blocks a
+// multiprocessor of bit_cm_regs_kernel<RULE, HW> for `threads` a block.
+template <int RULE>
+static int cm_words_occupancy(int HW, int threads, int device, int* out) {
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+#define BIT_CM_OCC(hw) \
+    if (HW == hw) return kernel_occupancy(bit_cm_regs_kernel<RULE, hw>, threads, 0, out);
+    BIT_CM_PLANS(BIT_CM_OCC)
+#undef BIT_CM_OCC
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
 #ifndef STATIC_RULE
 // -- The rule as data: a scalar (rule_stride 0) or one int32 a universe (1).
 extern "C" int bit_words_launch(const void* in, const void* rule, int rule_stride, void* out,
@@ -642,6 +604,17 @@ extern "C" int bit_static_words_launch(const void* in, void* out, void* scratch,
 extern "C" int bit_static_words_occupancy(int regime, int V, int L, int R, int CL, int G,
                                           int threads, int device, int* out) {
     return words_occupancy<STATIC_RULE>(regime, V, L, R, CL, G, threads, device, out);
+}
+
+// The redesigned column-major kernel, [N, HW, W] (cm_words_launch's plans).
+extern "C" int bit_static_cm_words_launch(const void* in, void* out, int N, int HW, int W,
+                                          int steps, int threads, int device, void* stream) {
+    return cm_words_launch<STATIC_RULE>(in, nullptr, 0, out, N, HW, W, steps, threads, device,
+                                        stream);
+}
+
+extern "C" int bit_static_cm_words_occupancy(int HW, int threads, int device, int* out) {
+    return cm_words_occupancy<STATIC_RULE>(HW, threads, device, out);
 }
 
 // The present kernels; cm selects the column-major layout ([N, HW, W]) over

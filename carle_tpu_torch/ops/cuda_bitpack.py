@@ -33,26 +33,33 @@ Each takes the plain path for a CPU tensor and launches
 compile time (``bit_static_words_launch`` in the fixed-rule library, counted
 as ``bit_multi_step_static_words``), by the same planner.
 
+The column-major engine with the rule fixed, :func:`bit_multi_step_static_cm`,
+runs its redesigned kernel (``bit_static_cm_words_launch`` in the fixed-rule
+library, counted as ``bit_multi_step_static_cm_words``) where :func:`cm_plan`
+serves the shape: K >= 1 generations with each universe held in registers, a
+thread 8 adjacent columns x all H/32 word rows, a universe at most a warp's
+lanes (widths of 8 to 256 columns), the columns' neighbours by lane
+shuffles; one launch.
+
 Other shapes, and every shape with ``BIT_WORDS = False``, take the present
 kernels: each universe resident in one block's shared memory for all K
 generations when two copies of it fit (:func:`resident`: up to 227 KB, e.g.
 512 x 512; one launch), and otherwise one launch a generation through device
-memory.  The two column-major engines launch the present kernels.  The JAX
-functions' ``scheme`` argument names TPU schedules; it is accepted and
-ignored.
+memory.  The column-major engine with the rule as data launches the present
+kernels.  The JAX functions' ``scheme`` argument names TPU schedules; it is
+accepted and ignored.
 """
 
 from __future__ import annotations
 
 import functools
-import re
 
 import torch
 
 from ..rules import pack_rule_bits
 from . import bitpack
 from .bitpack import bit_multi_step as bit_multi_step_plain
-from .cuda_build import CSRC, KERNELS, stream_args
+from .cuda_build import KERNELS, built_plans, stream_args
 from .cuda_ca import _multiprocessors, rule_tensor
 
 KERNEL = KERNELS["bit_multi_step"]
@@ -61,8 +68,10 @@ KERNEL_CM = KERNELS["bit_multi_step_cm"]
 KERNEL_STATIC = KERNELS["bit_multi_step_static"]
 KERNEL_STATIC_WORDS = KERNELS["bit_multi_step_static_words"]
 KERNEL_STATIC_CM = KERNELS["bit_multi_step_static_cm"]
+KERNEL_STATIC_CM_WORDS = KERNELS["bit_multi_step_static_cm_words"]
 RESIDENT_MAX_BYTES = 227 * 1024
-# False: bit_multi_step launches the present kernels at every shape (the A/B)
+# False: the row-major and the fixed-rule column-major engines launch the
+# present kernels at every shape (the A/B)
 BIT_WORDS = True
 # The streaming kernel (K = 1): strips of up to STREAM_MAX_STRIP rows, as
 # long as the card keeps STREAM_THREADS_PER_SM threads a multiprocessor, in
@@ -72,19 +81,17 @@ STREAM_THREADS_PER_SM = 512
 STREAM_THREADS = 64
 
 
-def _built_regs_plans():
-    """The register-resident instantiations (V, L, R, CL, G) that
-    csrc/bit_multi_step.cu builds, read from its BIT_REGS_PLANS list: V words
-    a thread, L lanes a row, R rows a thread, clusters of CL blocks, G
-    generations an exchange."""
-    text = (CSRC / "bit_multi_step.cu").read_text()
-    body = re.search(r"#define BIT_REGS_PLANS\(X\)(.*?)\n\n", text, re.S).group(1)
-    return tuple(tuple(int(v) for v in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", body))
-
-
-# Whole universes a block at 1, 2, 4 and 8 words a row, 4 rows a thread or
-# 1; the cluster split, and its size-1 instance (the host build's)
-REGS_PLANS = _built_regs_plans()
+# The register-resident instantiations (V, L, R, CL, G) of
+# csrc/bit_regs.cuh's BIT_REGS_PLANS: V words a thread, L lanes a row, R rows
+# a thread, clusters of CL blocks, G generations an exchange.  Whole
+# universes a block at 1, 2, 4 and 8 words a row, 4 rows a thread or 1; the
+# cluster split, and its size-1 instance (the host build's)
+REGS_PLANS = built_plans("bit_regs.cuh", "BIT_REGS_PLANS")
+# The column-major register-resident instantiations (HW,) of
+# csrc/bit_multi_step.cu's BIT_CM_PLANS: HW = H/32 word rows; a thread
+# CM_COLUMNS columns (the source's constant of that name)
+CM_PLANS = built_plans("bit_multi_step.cu", "BIT_CM_PLANS")
+CM_COLUMNS = 8
 REGS_MAX_THREADS = 256
 # a universe of 8 words a row split over a cluster of 16 blocks, two
 # generations an exchange
@@ -101,12 +108,12 @@ bit_multi_step_static_plain = bitpack.bit_multi_step_static
 bit_multi_step_static_cm_plain = bitpack.bit_multi_step_static_cm
 bit_multi_step_cm_plain = bitpack.bit_multi_step_cm
 
-__all__ = ["KERNEL", "KERNEL_CM", "KERNEL_STATIC", "KERNEL_STATIC_CM", "KERNEL_STATIC_WORDS",
-           "KERNEL_WORDS",
+__all__ = ["KERNEL", "KERNEL_CM", "KERNEL_STATIC", "KERNEL_STATIC_CM", "KERNEL_STATIC_CM_WORDS",
+           "KERNEL_STATIC_WORDS", "KERNEL_WORDS",
            "bit_multi_step", "bit_multi_step_plain", "bit_multi_step_static",
            "bit_multi_step_static_plain", "bit_multi_step_static_cm",
            "bit_multi_step_static_cm_plain", "bit_multi_step_cm", "bit_multi_step_cm_plain",
-           "resident", "stream_plan", "words_plan"]
+           "cm_plan", "resident", "stream_plan", "words_plan"]
 
 
 def resident(height: int, words: int, pad: int = 0) -> bool:
@@ -178,6 +185,22 @@ def words_plan(n: int, h: int, nw: int, steps: int, sms: int, aligned: bool = Tr
     return None if resident(h, nw) else stream_plan(n, h, nw, sms, aligned)
 
 
+@functools.lru_cache(maxsize=256)
+def cm_plan(n: int, hw: int, w: int, steps: int, aligned: bool = True):
+    """("cm", HW, threads): the redesigned column-major kernel's plan for K =
+    ``steps`` >= 1 generations on [n, hw, w] words that are 16-byte aligned:
+    CM_COLUMNS columns a thread, the width a power of two of lanes up to a
+    warp's, word rows that CM_PLANS has; whole universes a block, the threads
+    rounded up to whole warps.  None where the present kernel keeps the
+    shape."""
+    lanes = w // CM_COLUMNS
+    if (steps < 1 or not aligned or w % CM_COLUMNS or not 1 <= lanes <= 32
+            or lanes & (lanes - 1) or (hw,) not in CM_PLANS):
+        return None
+    threads = lanes * min(n, REGS_MAX_THREADS // lanes)
+    return ("cm", hw, -(-threads // 32) * 32)
+
+
 def _static_define(birth, survive) -> tuple:
     """The ``-D`` define of the fixed-rule library for a B/S rule."""
     return (f"STATIC_RULE={pack_rule_bits(birth, survive):#07x}",)
@@ -221,6 +244,34 @@ def _words_kernel(packed: torch.Tensor, rule_bits, num_steps: int, plan=None,
         _, v, l, r, cl, g, threads = plan
         kernel.launch(*head, out.data_ptr(), out.data_ptr(), n, h, nw, steps, 1, v, l, r, cl, g,
                       1, threads, device, stream, defines=defines)
+    return out
+
+
+def _cm_words_kernel(packed_cm: torch.Tensor, birth, survive, num_steps: int,
+                    plan=None) -> torch.Tensor:
+    """bit_static_cm_words_launch on the column-major words by ``plan``
+    (default :func:`cm_plan`; raises where it leaves the shape to the present
+    kernel).  K = 0 copies without a launch."""
+    steps = int(num_steps)
+    if steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {steps}")
+    if packed_cm.dtype != torch.uint32 or packed_cm.ndim != 3 or not packed_cm.is_contiguous():
+        raise ValueError("bit_multi_step_static_cm: packed must be a contiguous uint32 "
+                         "[inst, H/32, W] tensor")
+    n, hw, w = packed_cm.shape
+    out = torch.empty_like(packed_cm)
+    if steps == 0:
+        return out.copy_(packed_cm)
+    plan = plan or cm_plan(n, hw, w, steps, packed_cm.data_ptr() % 16 == 0)
+    if plan is None:
+        raise ValueError(f"no column-major register plan holds [{n}, {hw}, {w}] words")
+    _, plan_hw, threads = plan
+    if plan_hw != hw:
+        raise ValueError(f"plan {plan} is for {plan_hw} word rows, not {hw}")
+    device, stream = stream_args(packed_cm)
+    KERNEL_STATIC_CM_WORDS.launch(packed_cm.data_ptr(), out.data_ptr(), n, hw, w, steps,
+                                  threads, device, stream,
+                                  defines=_static_define(birth, survive))
     return out
 
 
@@ -306,6 +357,10 @@ def bit_multi_step_static_cm(packed_cm: torch.Tensor, birth, survive,
     grid with the B/S rule fixed at compile time."""
     if _device_of(packed_cm, "bit_multi_step_static_cm") == "cpu":
         return bit_multi_step_static_cm_plain(packed_cm, birth, survive, num_steps)
+    if BIT_WORDS and packed_cm.ndim == 3:
+        plan = cm_plan(*packed_cm.shape, int(num_steps), packed_cm.data_ptr() % 16 == 0)
+        if plan is not None:
+            return _cm_words_kernel(packed_cm, birth, survive, num_steps, plan)
     return _static_rule(KERNEL_STATIC_CM, packed_cm, birth, survive, num_steps, True,
                         "[inst, H/32, W]")
 

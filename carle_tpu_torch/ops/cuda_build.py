@@ -7,8 +7,9 @@ one source builds in seconds.  The libraries land in
 their sources and flags, so an edited source is rebuilt and a built one is
 reused.  :func:`build_all` starts one ``nvcc`` per missing library, all at
 once, and waits for them; the first launch of any kernel calls it.  A kernel
-whose rule is fixed at compile time (``bit_multi_step_static`` and
-``bit_multi_step_static_words``) builds one more library per rule mask, on
+whose rule is fixed at compile time (``bit_multi_step_static``,
+``bit_multi_step_static_words``, ``bit_multi_step_static_cm`` and
+``bit_multi_step_static_cm_words``) builds one more library per rule mask, on
 the first launch with that mask, with ``-DSTATIC_RULE=<mask>``; its file name
 carries the mask.
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,6 +45,15 @@ SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+
+def built_plans(source: str, macro: str) -> Tuple[Tuple[int, ...], ...]:
+    """The instantiations that csrc/``source`` builds, read from its
+    ``macro`` list (``#define <macro>(X) X(a, b) X(c, d) ...``), as tuples of
+    ints."""
+    text = (CSRC / source).read_text()
+    body = re.search(rf"#define {macro}\(X\)(.*?)\n\n", text, re.S).group(1)
+    return tuple(tuple(int(v) for v in m.split(",")) for m in re.findall(r"X\(([^)]*)\)", body))
 
 
 def _nvcc() -> str:
@@ -188,8 +199,12 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P, P, P] + [I] * 13 + [P], source="bit_multi_step"),
         CudaKernel("bit_multi_step_static_cm", "bit_multi_step_static_launch",
                    [P, P, P] + [I] * 7 + [P], source="bit_multi_step"),
+        CudaKernel("bit_multi_step_static_cm_words", "bit_static_cm_words_launch",
+                   [P, P] + [I] * 6 + [P], source="bit_multi_step"),
         CudaKernel("ca_multi_step", "ca_multi_step_launch",
                    [P, P, I, P, P, I, I, I, I, I, I, P]),
+        CudaKernel("ca_multi_step_bits", "ca_bits_launch",
+                   [P, P, I, P] + [I] * 8 + [P], source="ca_multi_step"),
         CudaKernel("encoder_fwd", "encoder_fwd_launch",
                    [P] * 7 + [I] * 9 + [LL, I, D, ULL, I, P]),
         CudaKernel("ae_loss_fwd", "ae_loss_fwd_launch",

@@ -4,9 +4,13 @@ and the master reset fused in (``csrc/ca_step.cu``: the word kernel
 ``ca_step_words`` for widths that are a multiple of 16 cells, every width a
 main path runs, and the byte kernel ``ca_step`` for the rest;
 :func:`ca_step_route` decides by shape), and :func:`ca_multi_step`, K
-action-free generations with each universe resident in shared memory
-(``csrc/ca_multi_step.cu``; one launch a generation through device memory
-when two copies of a universe exceed 227 KB).
+action-free generations (``csrc/ca_multi_step.cu``): on packed bits held in
+registers, the cells packed on the load and unpacked on the store, in one
+launch (``ca_multi_step_bits``) where :func:`bits_plan` serves the shape (K >
+1, widths of 32, 64, 128 or 256 cells, the rows a block's registers hold);
+else the present kernel ``ca_multi_step``, each universe resident in shared
+memory (one launch a generation through device memory when two copies of a
+universe exceed 227 KB), which ``CA_MULTI_BITS = False`` forces.
 
 Each takes the plain path for a CPU grid and launches its kernel for a CUDA
 grid; anything else raises.
@@ -14,6 +18,7 @@ grid; anything else raises.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import Optional, Tuple
 
@@ -22,24 +27,33 @@ import torch
 from ..config import EnvConfig
 from .ca import ca_multi_step as ca_multi_step_plain
 from .ca import ca_step_with_action as ca_step_plain
-from .cuda_build import KERNELS, stream_args
+from .cuda_build import KERNELS, built_plans, stream_args
 
 KERNEL = KERNELS["ca_step"]
 KERNEL_WORDS = KERNELS["ca_step_words"]
 KERNEL_MULTI = KERNELS["ca_multi_step"]
+KERNEL_BITS = KERNELS["ca_multi_step_bits"]
 # the byte kernel's rows a block stages: (BAND_ROWS + 2) x W bytes of shared memory
 BAND_ROWS = 32
 _SMEM_BYTES = 227 * 1024
 # False sends every width to the byte kernel (for comparisons on the card)
 CA_STEP_WORDS = True
+# False sends every ca_multi_step shape to the present kernel (the A/B)
+CA_MULTI_BITS = True
+# The redesigned kernel's instantiations (V, R) of csrc/ca_multi_step.cu's
+# CA_BITS_PLANS: W = 32 V cells a row, R rows a thread; the rows a thread in
+# order of preference (the first that divides the rows), as the packed
+# engine's with the rule as data
+BITS_PLANS = built_plans("ca_multi_step.cu", "CA_BITS_PLANS")
+BITS_ROWS = (4, 1)
 _BAR_BYTES = 16   # ca_step.cu's mbarrier slot ahead of the staged band
 # the word kernel's band: about this many 16-byte columns a thread, halo rows
 # included (the probes' best at 1, 64 and 160 universes of 256², PERF.md row 1)
 _COLUMNS_A_THREAD = 4
 
-__all__ = ["CA_STEP_WORDS", "KERNEL", "KERNEL_MULTI", "KERNEL_WORDS", "ca_multi_step",
-           "ca_multi_step_plain", "ca_step", "ca_step_plain", "ca_step_route", "rule_tensor",
-           "words_plan"]
+__all__ = ["BITS_PLANS", "CA_MULTI_BITS", "CA_STEP_WORDS", "KERNEL", "KERNEL_BITS", "KERNEL_MULTI",
+           "KERNEL_WORDS", "bits_plan", "bits_threads", "ca_multi_step", "ca_multi_step_plain", "ca_step",
+           "ca_step_plain", "ca_step_route", "rule_tensor", "words_plan"]
 
 
 def rule_tensor(rule_bits, grid: torch.Tensor) -> torch.Tensor:
@@ -170,14 +184,69 @@ def _ca_step_bytes_kernel(grid, action, rule_bits, config, reset=None) -> torch.
     return out
 
 
+def bits_threads(n: int, per: int) -> int:
+    """Threads a block of the redesigned kernel for n universes of ``per``
+    threads each: whole universes and whole warps (a warp packs and unpacks
+    32 cells a row together), at most 256, spare universes past n in the
+    last block; 0 where no block of whole warps holds a universe."""
+    step = per * 32 // math.gcd(per, 32)
+    most = 256 // step * step
+    return min(-(-per * n // step) * step, most)
+
+
+def bits_plan(n: int, h: int, w: int, steps: int):
+    """("regs", V, R, threads): the redesigned kernel's plan for K = ``steps``
+    generations on n universes of h x w cells (K > 1, w = 32 V, the first of
+    BITS_ROWS rows a thread that divides the rows, at most 256 threads a
+    universe; :func:`bits_threads` threads); None where the present kernel
+    keeps the shape.  Decided by the shape alone, on any device."""
+    if steps <= 1 or w % 32:
+        return None
+    v, r = w // 32, next(r for r in BITS_ROWS if h % r == 0)
+    threads = bits_threads(n, h // r) if (v, r) in BITS_PLANS and h // r <= 256 else 0
+    return ("regs", v, r, threads) if threads else None
+
+
 def ca_multi_step(grid: torch.Tensor, rule_bits, num_steps: int) -> torch.Tensor:
-    """``num_steps`` action-free generations of a uint8 [inst, H, W] grid
-    (W % 4 == 0 on the card); the rule is a scalar or an [inst] vector."""
+    """``num_steps`` action-free generations of a uint8 [inst, H, W] grid of
+    0/1 cells (W % 4 == 0 on the card); the rule is a scalar or an [inst]
+    vector."""
     if grid.device.type == "cpu":
         return ca_multi_step_plain(grid, rule_bits, num_steps)
     if grid.device.type != "cuda":
         raise ValueError(f"ca_multi_step runs on cpu or cuda, not {grid.device}")
+    if CA_MULTI_BITS and grid.ndim == 3:
+        plan = bits_plan(*grid.shape, int(num_steps))
+        if plan is not None:
+            return _ca_multi_bits_kernel(grid, rule_bits, num_steps, plan)
     return _ca_multi_step_kernel(grid, rule_bits, num_steps)
+
+
+def _ca_multi_bits_kernel(grid: torch.Tensor, rule_bits, num_steps: int,
+                          plan: Optional[Tuple[str, int, int, int]] = None) -> torch.Tensor:
+    """The redesigned kernel by ``plan`` (default :func:`bits_plan`; raises
+    where that leaves the shape to the present kernel).  K = 0 copies
+    without a launch."""
+    if grid.dtype != torch.uint8 or grid.ndim != 3 or not grid.is_contiguous():
+        raise ValueError("grid must be a contiguous uint8 [inst, H, W] tensor")
+    n, h, w = grid.shape
+    steps = int(num_steps)
+    if steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {steps}")
+    rule = rule_tensor(rule_bits, grid)
+    out = torch.empty_like(grid)
+    if steps == 0:
+        return out.copy_(grid)
+    plan = plan or bits_plan(n, h, w, steps)
+    if plan is None:
+        raise ValueError(f"no register plan holds {n} universes of {h} x {w} cells")
+    _, v, r, threads = plan
+    if w != 32 * v or h % r:
+        raise ValueError(f"plan {plan} does not cover {h} x {w} cells")
+    device, stream = stream_args(grid)
+    KERNEL_BITS.launch(grid.data_ptr(), rule.data_ptr(), int(rule.ndim == 1), out.data_ptr(),
+                       n, h, w, steps, v, r, threads, device, stream)
+    return out
 
 
 def _ca_multi_step_kernel(grid: torch.Tensor, rule_bits, num_steps: int) -> torch.Tensor:

@@ -20,10 +20,14 @@ Phases, in order; any failure exits non-zero without the final line:
            twin at the paths' shapes (packed train, packed stack, bands,
            /rollout, engines), bit for bit, both timed in turns after an L2
            flush and by CUPTI cold, their plans, registers and blocks a
-           multiprocessor; the fixed-rule engine (row 10) on the same
-           kernels, the rule folded (bit_multi_step_static_words), against
-           the present fixed-rule kernel forced and the twin at bench.py's
-           geometry, likewise; the head's backward specialised at the
+           multiprocessor; at bench.py's geometry (phase_engine_kernels)
+           the fixed-rule engine (row 10) on the same kernels, the rule
+           folded (bit_multi_step_static_words), the column-major fixed-rule
+           engine held in registers (row 11a, bit_multi_step_static_cm_words)
+           and the uint8 engine on packed bits in one launch (row 12,
+           ca_multi_step_bits, Life and the battery's rulesets as data), each
+           against its present kernel forced and the twin, likewise; the
+           head's backward specialised at the
            package's three stage widths (head2_bwd, row 9b) against the
            generic kernel forced and the twin at its three cases (each leaf
            within 1e-5 of the generic kernel's, gx bit for bit), timed in
@@ -160,8 +164,9 @@ Phases, in order; any failure exits non-zero without the final line:
            engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
-           byte ca_step kernel, the present packed engines or halo kernel
-           (bit_multi_step, bit_multi_step_static, bit_spatial_multi_step) or
+           byte ca_step kernel, the present packed or uint8 engines or halo
+           kernel (bit_multi_step, bit_multi_step_static,
+           bit_multi_step_static_cm, ca_multi_step, bit_spatial_multi_step) or
            the generic head backward (head_bwd), launched on any of them
            fails the run),
            then the
@@ -230,10 +235,19 @@ OPS_PER_WORD = 37
 # (each thread carries its neighbours' vertical triples, each column's built
 # once): the east column's triple 2 SHF + 2 LOP3, count9 from the triples
 # 2 CSAs x 2 LOP3 + 4 = 12, then Life's decision 2 LOP3 = 16 fixed, the two
-# 10-leaf mux folds 2 x 11 LOP3 + the select = 23 as data: 35; the uint8
-# engine (4 cells a word): column sums 3 IADD3, 2 SHF, count9 1 IADD3, index
-# 1 LEA, a byte's lookup BFE + SHF + BFI x 4 = 19.
+# 10-leaf mux folds 2 x 11 LOP3 + the select = 23 as data: 35.
 OPS_PER_WORD_STATIC, OPS_PER_WORD_STATIC_CM, OPS_PER_WORD_CM = 16, 16, 35
+# The present uint8 engine's own count (4 cells a byte-SWAR word): column
+# sums 3 IADD3, 2 SHF, count9 1 IADD3, index 1 LEA, a byte's lookup BFE + SHF
+# + BFI x 4 = 19, 4.75 a cell.  It is the cost of that kernel, not of the
+# work, and bounds no row: the generations of a uint8 universe can run on
+# packed bits (row 12's redesigned kernel runs them so), so the uint8 rows
+# 12-14 are bounded by the work's own least time (u8_bound): one read and one
+# write of each cell as a byte against OPS_PER_WORD = 37 operations a word
+# of 32 cells a generation, 1.156 a cell.  At 4096 x 256², 128 generations:
+# 537 MB over 3.35 TB/s = 0.160 ms against 37 x 2^23 words x 128 / 16.7 T/s
+# = 2.375 ms (9.757 at 19 a 4-cell word); at 8192², 8 generations: 134 MB =
+# 0.0401 ms against 37 x 2^21 x 8 / 16.7 T = 0.0371 (0.1525 at 19).
 OPS_PER_U8_WORD = 19
 BENCH_UNIVERSES, BENCH_SIZE, BENCH_STEPS = 4096, 256, 128   # bench.py's geometry
 BATTERY_RULESETS = (([3], [2, 3]), ([3, 6, 8], [2, 4, 5]), ([3, 6, 7, 8], [3, 4, 6, 7, 8]),
@@ -252,10 +266,14 @@ SOURCES = {
                                     "carle_tpu/ops/pallas_bitpack.py:647"),
     "bit_multi_step_static_cm": ("carle_tpu_torch/csrc/bit_multi_step.cu",
                                  "carle_tpu/ops/pallas_bitpack.py:736"),
+    "bit_multi_step_static_cm_words": ("carle_tpu_torch/csrc/bit_multi_step.cu",
+                                       "carle_tpu/ops/pallas_bitpack.py:736"),
     "bit_multi_step_cm": ("carle_tpu_torch/csrc/bit_multi_step.cu",
                           "carle_tpu/ops/pallas_bitpack.py:770"),
     "ca_multi_step": ("carle_tpu_torch/csrc/ca_multi_step.cu",
                       "carle_tpu/ops/pallas_ca.py:153"),
+    "ca_multi_step_bits": ("carle_tpu_torch/csrc/ca_multi_step.cu",
+                           "carle_tpu/ops/pallas_ca.py:153"),
     "encoder_fwd": ("carle_tpu_torch/csrc/encoder_fwd.cu",
                     "carle_tpu/ops/pallas_head.py:1081"),
     "ae_loss_fwd": ("carle_tpu_torch/csrc/ae2d_fwd.cu",
@@ -338,8 +356,8 @@ PATH_KERNELS = {
     "packed": ("bit_multi_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                "dec2_fwd", "dec2_bwd"),
     "bands": ("bit_multi_step_words", "enc3_fwd", "enc3_bwd", "dec2_fwd", "dec2_bwd"),
-    "engines": ("bit_multi_step_words", "bit_multi_step_static_words", "bit_multi_step_static_cm",
-                "bit_multi_step_cm", "ca_multi_step"),
+    "engines": ("bit_multi_step_words", "bit_multi_step_static_words",
+                "bit_multi_step_static_cm_words", "bit_multi_step_cm", "ca_multi_step_bits"),
     "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_words",
                 "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
 }
@@ -358,11 +376,12 @@ BYTE_CA_STEP = ("ca_step",)
 # main path may launch: every main path's shape takes the redesigned kernels
 # (bit_multi_step_words, bit_spatial_words)
 PRESENT_PACKED = ("bit_multi_step", "bit_spatial_multi_step")
-# the present fixed-rule packed engine and the generic head backward, which no
-# main path may launch: the engines' shape takes the redesigned fixed-rule
-# kernels (bit_multi_step_static_words), and every head of the package has
-# one of the specialised backward's widths (head2_bwd)
-PRESENT_STATIC = ("bit_multi_step_static",)
+# the present fixed-rule packed engines (row- and column-major), the present
+# uint8 engine and the generic head backward, which no main path may launch:
+# the engines' shapes take the redesigned kernels (bit_multi_step_static_words,
+# bit_multi_step_static_cm_words, ca_multi_step_bits), and every head of the
+# package has one of the specialised backward's widths (head2_bwd)
+PRESENT_STATIC = ("bit_multi_step_static", "bit_multi_step_static_cm", "ca_multi_step")
 GENERIC_HEAD_BWD = ("head_bwd",)
 # the kernels the packed path must launch on packed words
 PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "dec2_fwd", "dec2_bwd")
@@ -415,6 +434,13 @@ def bound_ms(nbytes: float, ops: float, rate: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def u8_bound(cells: int, steps: int, rule_bytes: int = 4):
+    """The uint8 engines' least time (rows 12-14): each cell read and written
+    once as a byte, and the rule read, against the packed update's
+    OPS_PER_WORD operations a word of 32 cells a generation."""
+    return bound_ms(2 * cells + rule_bytes, OPS_PER_WORD * cells / 32 * steps, INT32_OPS)
 
 
 def card_line() -> str:
@@ -795,10 +821,11 @@ def _bench_grid(torch):
 def phase_engine_kernels(torch, timer):
     """Rows 10, 11a, 11b and 12 against their twins at bench.py's geometry
     (4096 x 256 x 256, 128 generations, Life; rows 11b and 12 also with the
-    battery's 5 rulesets dealt over the universes), bit for bit; row 10 by
-    its redesigned kernels and the present one forced (_static_at_engines)."""
+    battery's 5 rulesets dealt over the universes), bit for bit; rows 10,
+    11a and 12 by their redesigned kernels and the present ones forced
+    (_ab_at_engines)."""
     from carle_tpu_torch import rules
-    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca
 
     grid = _bench_grid(torch)
     n, size, steps = BENCH_UNIVERSES, BENCH_SIZE, BENCH_STEPS
@@ -807,8 +834,61 @@ def phase_engine_kernels(torch, timer):
     vec = torch.tensor([rules.pack_rule_bits(*BATTERY_RULESETS[i % 5]) for i in range(n)],
                        dtype=torch.int32, device="cuda")
     words, cells = rm.numel(), grid.numel()
+    sms = cuda_ca._multiprocessors(grid.device)
+    fixed = ([3], [2, 3])
+    defines = cuda_bitpack._static_define(*fixed)
     results = {}
 
+    # row 10: the row-major fixed-rule engine (bit_multi_step_static_words)
+    new = lambda: cuda_bitpack.bit_multi_step_static(rm, *fixed, steps)
+    plan = cuda_bitpack.words_plan(*rm.shape, steps, sms, True, True)
+    rows = _ab_at_engines(
+        torch, timer, "row 10", new, lambda new=new: _present_packed(new),
+        (cuda_bitpack.KERNEL_STATIC_WORDS, cuda_bitpack.KERNEL_STATIC),
+        ("bit_regs_kernel", "bit_multi_step_resident"),
+        lambda: cuda_bitpack.bit_multi_step_static_plain(rm, *fixed, steps),
+        bound_ms(2 * 4 * words, OPS_PER_WORD_STATIC * words * steps, INT32_OPS),
+        "u32 [4096,256,8] x 128, Life fixed", plan,
+        _occupancy(cuda_build, "bit_multi_step", "bit_static_words_occupancy", 1, *plan[1:],
+                   defines=defines)[0])
+    results["bit_multi_step_static_words"], results["bit_multi_step_static"] = rows
+
+    # row 11a: the column-major fixed-rule engine (bit_multi_step_static_cm_words)
+    new = lambda: cuda_bitpack.bit_multi_step_static_cm(cm, *fixed, steps)
+    plan = cuda_bitpack.cm_plan(*cm.shape, steps)
+    rows = _ab_at_engines(
+        torch, timer, "row 11a", new, lambda new=new: _present_packed(new),
+        (cuda_bitpack.KERNEL_STATIC_CM_WORDS, cuda_bitpack.KERNEL_STATIC_CM),
+        ("bit_cm_regs_kernel", "bit_multi_step_resident"),
+        lambda: cuda_bitpack.bit_multi_step_static_cm_plain(cm, *fixed, steps),
+        bound_ms(2 * 4 * words, OPS_PER_WORD_STATIC_CM * words * steps, INT32_OPS),
+        "u32 column-major [4096,8,256] x 128, Life fixed", plan,
+        _occupancy(cuda_build, "bit_multi_step", "bit_static_cm_words_occupancy", *plan[1:],
+                   defines=defines)[0])
+    results["bit_multi_step_static_cm_words"], results["bit_multi_step_static_cm"] = rows
+
+    # row 12: the uint8 engine on packed bits (ca_multi_step_bits), Life and
+    # the battery's rulesets as data on the card
+    for label, rule in (("life", life), ("rule vector", vec)):
+        new = lambda rule=rule: cuda_ca.ca_multi_step(grid, rule, steps)
+        plan = cuda_ca.bits_plan(*grid.shape, steps)
+        rows = _ab_at_engines(
+            torch, timer, f"row 12 ({label})", new, lambda new=new: _present_u8(new),
+            (cuda_ca.KERNEL_BITS, cuda_ca.KERNEL_MULTI),
+            ("ca_bits_kernel", "ca_multi_step_resident"),
+            lambda rule=rule: cuda_ca.ca_multi_step_plain(grid, rule, steps),
+            u8_bound(cells, steps, 4 * rule.numel()), f"u8 [4096,256,256] x 128, {label}",
+            plan, _occupancy(cuda_build, "ca_multi_step", "ca_bits_occupancy", *plan[1:])[0])
+        if label == "life":
+            results["ca_multi_step_bits"], results["ca_multi_step"] = rows
+            results["ca_multi_step"]["present_ops_bound_ms"] = bound_ms(
+                2 * cells + 4, OPS_PER_U8_WORD * cells // 4 * steps, INT32_OPS)[0]
+        else:
+            for row, r in zip(("ca_multi_step_bits", "ca_multi_step"), rows):
+                results[row].update(ms_rule_vector=r["ms"], ms_runs_rule_vector=r["ms_runs"],
+                                    cupti_cold_us_rule_vector=r["cupti_cold_us"])
+
+    # row 11b: the column-major engine with the rule as data (the present kernel)
     def held(name, kernel_fn, plain_fn):
         got = kernel_fn()
         want, plain = _plain_ms(torch, plain_fn)
@@ -816,89 +896,78 @@ def phase_engine_kernels(torch, timer):
         check(err == 0, f"{name} differs from its plain twin: max {err}")
         return plain
 
-    results.update(_static_at_engines(torch, timer, rm, held))
-    specs = {
-        "bit_multi_step_static_cm": (
-            lambda: cuda_bitpack.bit_multi_step_static_cm(cm, [3], [2, 3], steps),
-            lambda: cuda_bitpack.bit_multi_step_static_cm_plain(cm, [3], [2, 3], steps),
-            None, OPS_PER_WORD_STATIC_CM, "u32 column-major [4096,8,256] x 128, Life fixed"),
-        "bit_multi_step_cm": (
-            lambda: cuda_bitpack.bit_multi_step_cm(cm, life, steps),
-            lambda: cuda_bitpack.bit_multi_step_cm_plain(cm, life, steps),
-            (lambda: cuda_bitpack.bit_multi_step_cm(cm, vec, steps),
-             lambda: cuda_bitpack.bit_multi_step_cm_plain(cm, vec, steps)),
-            OPS_PER_WORD_CM, "u32 column-major [4096,8,256] x 128, Life as data"),
-    }
-    for name, (kfn, pfn, vector, ops, shape) in specs.items():
-        plain = held(name, kfn, pfn)
-        if vector:
-            held(name + " (rule vector)", *vector)
-        b, by = bound_ms(2 * 4 * words + 4, ops * words * steps, INT32_OPS)
-        results[name] = dict(max_abs_err=0.0, ms=timer.ms(kfn, 3), plain_ms=plain,
-                             bound_ms=b, bound_by=by, library_ms=None, shape=shape)
-        if vector:
-            results[name]["ms_rule_vector"] = timer.ms(vector[0], 3)
-        log(f"{name} ok: {results[name]}")
-    plain = held("ca_multi_step", lambda: cuda_ca.ca_multi_step(grid, life, steps),
-                 lambda: cuda_ca.ca_multi_step_plain(grid, life, steps))
-    held("ca_multi_step (rule vector)", lambda: cuda_ca.ca_multi_step(grid, vec, steps),
-         lambda: cuda_ca.ca_multi_step_plain(grid, vec, steps))
-    b, by = bound_ms(2 * cells + 4, OPS_PER_U8_WORD * cells // 4 * steps, INT32_OPS)
-    results["ca_multi_step"] = dict(
-        max_abs_err=0.0, ms=timer.ms(lambda: cuda_ca.ca_multi_step(grid, life, steps), 2),
-        ms_rule_vector=timer.ms(lambda: cuda_ca.ca_multi_step(grid, vec, steps), 2),
-        plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-        shape="u8 [4096,256,256] x 128, Life")
-    log(f"ca_multi_step ok: {results['ca_multi_step']}")
+    kfn = lambda: cuda_bitpack.bit_multi_step_cm(cm, life, steps)
+    plain = held("bit_multi_step_cm", kfn,
+                 lambda: cuda_bitpack.bit_multi_step_cm_plain(cm, life, steps))
+    held("bit_multi_step_cm (rule vector)", lambda: cuda_bitpack.bit_multi_step_cm(cm, vec, steps),
+         lambda: cuda_bitpack.bit_multi_step_cm_plain(cm, vec, steps))
+    b, by = bound_ms(2 * 4 * words + 4, OPS_PER_WORD_CM * words * steps, INT32_OPS)
+    results["bit_multi_step_cm"] = dict(
+        max_abs_err=0.0, ms=timer.ms(kfn, 3), plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=None, shape="u32 column-major [4096,8,256] x 128, Life as data",
+        ms_rule_vector=timer.ms(lambda: cuda_bitpack.bit_multi_step_cm(cm, vec, steps), 3))
+    for row in ("bit_multi_step_static_words", "bit_multi_step_static",
+                "bit_multi_step_static_cm_words", "bit_multi_step_static_cm",
+                "ca_multi_step_bits", "ca_multi_step", "bit_multi_step_cm"):
+        log(f"{row} at engines: {json.dumps(results[row])}")
     return results
 
 
-def _static_at_engines(torch, timer, rm, held):
-    """Row 10 at bench.py's geometry (4096 x 256², 128 generations, Life
-    fixed): the redesigned kernels (the route, bit_multi_step_static_words)
-    and the present kernel forced (cuda_bitpack.BIT_WORDS off), one launch
-    each, bit for bit the same and the twin's, timed in turns (new, present,
-    new, present) after an L2 flush and by CUPTI cold, with the plan's
-    registers and blocks a multiprocessor."""
-    from carle_tpu_torch.ops import cuda_bitpack, cuda_build, cuda_ca
+def _present_u8(fn):
+    """fn() with the present uint8 engine forced (cuda_ca.CA_MULTI_BITS off)."""
+    from carle_tpu_torch.ops import cuda_ca
 
-    steps, life = BENCH_STEPS, ([3], [2, 3])
-    new = lambda: cuda_bitpack.bit_multi_step_static(rm, *life, steps)
-    old = lambda: _present_packed(new)
+    cuda_ca.CA_MULTI_BITS = False
+    try:
+        return fn()
+    finally:
+        cuda_ca.CA_MULTI_BITS = True
+
+
+def _in_turns(timer, fns: dict, rounds: int = 2, reps: int = 3) -> dict:
+    """{name: [ms of each round]}: each of ``fns`` timed (``reps`` calls after
+    an L2 flush, timer.ms) in turns, ``rounds`` times over (a, b, a, b)."""
+    ms = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            ms[name].append(timer.ms(fn, reps))
+    return ms
+
+
+def _ab_at_engines(torch, timer, what, new, old, kernels, cupti, plain, bound, shape, plan,
+                   occupancy):
+    """A row at bench.py's geometry (4096 x 256², 128 generations): its
+    redesigned kernel (``new``, the route) and the present kernel forced
+    (``old``), one launch a call each (``kernels``: their launch counts),
+    bit for bit the same and the twin's (``plain``), timed in turns (new,
+    present, new, present) after an L2 flush and each by CUPTI cold
+    (``cupti``: their kernels' names); (the new row's result, the present
+    row's), ms the mean of the two turns."""
     outs, launches = {}, {}
-    for name, fn, kernel in (("new", new, cuda_bitpack.KERNEL_STATIC_WORDS),
-                             ("present", old, cuda_bitpack.KERNEL_STATIC)):
+    for name, fn, kernel in (("new", new, kernels[0]), ("present", old, kernels[1])):
         before = kernel.launches
         outs[name] = fn()
         launches[name] = kernel.launches - before
-        check(launches[name] == 1, f"row 10 ({name}): {launches[name]} launches, not 1")
-    check(torch.equal(outs["new"], outs["present"]), "row 10: new and present kernels differ")
-    plain = held("bit_multi_step_static_words", new,
-                 lambda: cuda_bitpack.bit_multi_step_static_plain(rm, *life, steps))
-    b, by = bound_ms(2 * 4 * rm.numel(), OPS_PER_WORD_STATIC * rm.numel() * steps, INT32_OPS)
-    ms = {"new": [], "present": []}
-    for route in ("new", "present", "new", "present"):
-        ms[route].append(timer.ms(new if route == "new" else old, 3))
-    cupti = {"new": _cupti_us(torch, timer, new, ("bit_regs_kernel",), "row 10 new"),
-             "present": _cupti_us(torch, timer, old, ("bit_multi_step_resident",),
-                                  "row 10 present")}
-    plan = cuda_bitpack.words_plan(*rm.shape, steps, cuda_ca._multiprocessors(rm.device), True,
-                                   True)
-    occupancy = _occupancy(cuda_build, "bit_multi_step", "bit_static_words_occupancy", 1,
-                           *plan[1:], defines=cuda_bitpack._static_define(*life))[0]
-    shape = "u32 [4096,256,8] x 128, Life fixed"
-    out = {
-        "bit_multi_step_static_words": dict(
-            max_abs_err=0.0, ms=sum(ms["new"]) / 2, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, shape=shape, ms_runs=ms["new"], cupti_cold_us=cupti["new"],
-            plan=plan, occupancy=occupancy, launches_per_call=launches["new"]),
-        "bit_multi_step_static": dict(
-            max_abs_err=0.0, ms=sum(ms["present"]) / 2, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, shape=shape + " (the present kernel forced: BIT_WORDS off)",
-            ms_runs=ms["present"], cupti_cold_us=cupti["present"],
-            launches_per_call=launches["present"])}
-    log(f"row 10 at engines [4096,256,8] x 128: {json.dumps(out)}")
-    return out
+        check(launches[name] == 1, f"{what} ({name}): {launches[name]} launches, not 1")
+    check(torch.equal(outs["new"], outs["present"]), f"{what}: new and present kernels differ")
+    want, plain_ms = _plain_ms(torch, plain)
+    err = int((outs["new"].to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(err == 0, f"{what} differs from its plain twin: max {err}")
+    del outs, want
+    ms = _in_turns(timer, {"new": new, "present": old})
+    cold = {route: _cupti_us(torch, timer, fn, (name,), f"{what} {route}")
+            for route, fn, name in (("new", new, cupti[0]), ("present", old, cupti[1]))}
+    b, by = bound
+    common = dict(max_abs_err=0.0, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+    result = {route: dict(common, ms=sum(ms[route]) / 2, ms_runs=ms[route],
+                          cupti_cold_us=cold[route], launches_per_call=launches[route])
+              for route in ms}
+    result["new"].update(shape=shape, plan=plan, occupancy=occupancy)
+    result["present"].update(shape=shape + " (the present kernel forced)")
+    log(f"{what} at engines: new {ms['new']} ms, present {ms['present']} ms, CUPTI cold "
+        f"{cold['new']:.1f} / {cold['present']:.1f} µs, bound {b:.4f} ({by}), plan {plan}, "
+        f"{json.dumps(occupancy)}")
+    return result["new"], result["present"]
 
 
 def _same_bits(a, b) -> bool:
@@ -2970,27 +3039,26 @@ def phase_spatial_kernels(torch, timer, gen):
     g8, g32 = shard_rows(grid, mesh), shard_rows(words, mesh)
     same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a.parts, b.parts))
     cells, word_count = size * size, size * size // 32
-    # the packed rows' rules on the card, as the spatial stack holds them: an
-    # int would be copied to the card in every timed call, and that copy
-    # waits for the timer's sleep, so the host's work would be timed too
+    # every row's rule on the card, as the spatial stack holds it: an int
+    # would be copied to the card in every timed call, and that copy waits
+    # for the timer's sleep, so the host's work would be timed too
     life_t = torch.tensor(life, dtype=torch.int32, device=dev)
     zero_t = torch.zeros((), dtype=torch.int32, device=dev)
     results = {}
     # bounds as the engines': the universe read once and written once (the
     # TPU kernel keeps its shard on chip across the generations), the
-    # operations once a generation
+    # operations once a generation (the uint8 rows the packed update's:
+    # u8_bound)
     cases = {  # row: (kernel call, twin call, engine call, steps, bound, shape)
         "spatial_ca_step": (
-            lambda: cuda_halo.spatial_ca_step_cuda(g8, life),
+            lambda: cuda_halo.spatial_ca_step_cuda(g8, life_t),
             lambda: cuda_halo.spatial_ca_step_plain(g8, life),
-            lambda: cuda_ca.ca_multi_step(grid, life, 1), 1,
-            bound_ms(2 * cells + 4, OPS_PER_U8_WORD * cells / 4, INT32_OPS),
+            lambda: cuda_ca.ca_multi_step(grid, life_t, 1), 1, u8_bound(cells, 1),
             f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 1 generation, Life as data"),
         "spatial_multi_step": (
-            lambda: cuda_halo.spatial_multi_step_cuda(g8, life, 8),
+            lambda: cuda_halo.spatial_multi_step_cuda(g8, life_t, 8),
             lambda: cuda_halo.spatial_multi_step_plain(g8, life, 8),
-            lambda: cuda_ca.ca_multi_step(grid, life, 8), 8,
-            bound_ms(2 * cells + 4, 8 * OPS_PER_U8_WORD * cells / 4, INT32_OPS),
+            lambda: cuda_ca.ca_multi_step(grid, life_t, 8), 8, u8_bound(cells, 8),
             f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 8 generations"),
         "bit_spatial_words": (
             lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, life_t, 64),
@@ -4088,8 +4156,8 @@ def main() -> int:
                + PRESENT_PACKED + PRESENT_STATIC + GENERIC_HEAD_BWD if c[k]}
     if generic:
         log(f"FAIL: generic encoder, decoder-loss, tail or head-backward kernels, the "
-            f"byte ca_step kernel or the present packed engines or halo kernel launched on "
-            f"the main paths: {generic}")
+            f"byte ca_step kernel or the present packed or uint8 engines or halo kernel "
+            f"launched on the main paths: {generic}")
         return 1
     ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
                    for path, c in path_counts.items()}

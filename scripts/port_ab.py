@@ -61,6 +61,15 @@ each taken in a fresh process.
         chip_smoke.py's Timer), with each plan's registers, spills and blocks
         a multiprocessor.  Run it in a copy whose sources were edited (the
         register cap) to time a variant against the tree.
+    python scripts/port_ab.py engine-plans --root DIR
+        rows 12 and 11a at the engines' shape (4096 x 256², 128 generations,
+        Life: the uint8 engine with the rule as data on the card, the
+        column-major engine with it fixed): each plan of the redesigned
+        kernels (csrc/ca_multi_step.cu's ca_bits_kernel at 4 and 1 rows a
+        thread; csrc/bit_multi_step.cu's bit_cm_regs_kernel in blocks of one
+        warp and of 256 threads) held bit for bit against the present kernel
+        and timed in turns with it (device ms, chip_smoke.py's Timer), with
+        each plan's registers, spills and blocks a multiprocessor.
     python scripts/port_ab.py head-times --root DIR
         the head's backward (PERF.md row 9b) at its three cases (AE conv1 on
         64 x 256² uint8 cells, RND conv1 at pool 4, AE conv2 on float32 with
@@ -274,6 +283,47 @@ def static_plans(torch) -> dict:
     return {name: {"ms": times[name],
                    **{k: v for k, v in plans.get(name, {}).items() if k != "fn"}}
             for name in order}
+
+
+def engine_plans(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca
+
+    grid = chip_smoke._bench_grid(torch)
+    cm = bitpack.pack_grid_cm(grid)
+    n, steps = grid.shape[0], chip_smoke.BENCH_STEPS
+    timer = chip_smoke.Timer(torch)
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=grid.device)
+    fixed = ([3], [2, 3])
+    u8 = lambda: cuda_ca.ca_multi_step(grid, life, steps)
+    words = lambda: cuda_bitpack.bit_multi_step_static_cm(cm, *fixed, steps)
+    rows = {"row 12": {"present": {"fn": lambda: chip_smoke._present_u8(u8)}},
+            "row 11a": {"present": {"fn": lambda: chip_smoke._present_packed(words)}}}
+    for v, r in cuda_ca.BITS_PLANS:
+        if v == 8:
+            plan = ("regs", v, r, cuda_ca.bits_threads(n, 256 // r))
+            rows["row 12"][str(plan)] = {
+                "fn": lambda plan=plan: cuda_ca._ca_multi_bits_kernel(grid, life, steps, plan),
+                **chip_smoke._occupancy(cuda_build, "ca_multi_step", "ca_bits_occupancy",
+                                        *plan[1:])[0]}
+    for threads in (32, 256):
+        plan = ("cm", cm.shape[1], threads)
+        rows["row 11a"][str(plan)] = {
+            "fn": lambda plan=plan: cuda_bitpack._cm_words_kernel(cm, *fixed, steps, plan),
+            **chip_smoke._occupancy(cuda_build, "bit_multi_step",
+                                    "bit_static_cm_words_occupancy", *plan[1:],
+                                    defines=cuda_bitpack._static_define(*fixed))[0]}
+    out = {}
+    for row, plans in rows.items():
+        want = plans["present"]["fn"]()
+        for name, entry in plans.items():
+            if not torch.equal(entry["fn"](), want):
+                raise AssertionError(f"{row} plan {name} differs from the present kernel")
+        times = chip_smoke._in_turns(timer, {name: e["fn"] for name, e in plans.items()})
+        out[row] = {name: {"ms": times[name], **{k: v for k, v in e.items() if k != "fn"}}
+                    for name, e in plans.items()}
+    return out
 
 
 def head_times(torch) -> dict:
@@ -643,7 +693,8 @@ def main() -> int:
     parser.add_argument("what", choices=("digest", "env-step", "profile-packed",
                                          "profile-wrappers", "profile-spatial",
                                          "encoder-times", "decoder-gx", "host-encoder",
-                                         "packed-times", "static-plans", "head-times",
+                                         "packed-times", "static-plans", "engine-plans",
+                                         "head-times",
                                          "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--generic", action="store_true",
@@ -678,6 +729,8 @@ def main() -> int:
         result = packed_times(torch)
     elif args.what == "static-plans":
         result = static_plans(torch)
+    elif args.what == "engine-plans":
+        result = engine_plans(torch)
     elif args.what == "head-times":
         result = head_times(torch)
     else:

@@ -109,6 +109,18 @@ inline uint32_t __shfl_sync(unsigned, uint32_t v, int src, int width = 32) {
     __syncthreads();
     return got;
 }
+// The predicate of each lane of the caller's warp, lane j at bit j; every
+// thread of the block calls it together, as the kernels do.
+inline unsigned __ballot_sync(unsigned, int pred) {
+    if (!emu_lanes) return pred ? 1u : 0u;
+    const unsigned t = threadIdx.x, base = t - t % 32;
+    emu_lanes[t] = pred ? 1u : 0u;
+    __syncthreads();
+    unsigned v = 0;
+    for (unsigned j = 0; j < 32 && base + j < blockDim.x; ++j) v |= emu_lanes[base + j] << j;
+    __syncthreads();
+    return v;
+}
 inline float __shfl_down_sync(unsigned, float, int) { return 0.f; }  // no other lane
 inline double __shfl_down_sync(unsigned, double, int) { return 0.0; }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }

@@ -207,6 +207,81 @@ def test_static_words_kernels_match_present_and_plain(cuda, n, h, nw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(8, 256, 256), (3, 32, 64), (70, 16, 32), (300, 256, 256),
+                                   (2, 256, 128), (3, 64, 96)])
+def test_u8_bits_kernel_matches_present_and_plain(cuda, n, h, w):
+    """Row 12's redesigned kernel (ca_multi_step_bits: packed on the load,
+    the generations in registers, unpacked on the store) against the present
+    kernel forced (CA_MULTI_BITS = False) and the twin, bit for bit, at K in
+    {0, 1, 5, 64}, Life and a rule vector: by the route (one launch a call
+    where bits_plan holds the shape, the present kernel elsewhere) and by
+    each plan of whole universes a block forced."""
+    rng = np.random.RandomState(n + h + 3)
+    grid = torch.from_numpy(_soup(n + h + 3, (n, h, w), 0.4)).to(cuda)
+    plans = []
+    for v, r in cuda_ca.BITS_PLANS:
+        if 32 * v == w and h % r == 0:
+            threads = cuda_ca.bits_threads(n, h // r)
+            if threads:
+                plans.append(("regs", v, r, threads))
+    for rule in (torch.tensor(rules.LIFE, dtype=torch.int32),
+                 torch.from_numpy(rng.randint(0, 1 << 18, size=n).astype(np.int32))):
+        rule = rule.to(cuda)
+        for steps in (0, 1, 5, 64):
+            want = cuda_ca.ca_multi_step_plain(grid, rule, steps)
+            cuda_ca.CA_MULTI_BITS = False
+            try:
+                assert torch.equal(cuda_ca.ca_multi_step(grid, rule, steps), want)
+            finally:
+                cuda_ca.CA_MULTI_BITS = True
+            before = (cuda_ca.KERNEL_BITS.launches, cuda_ca.KERNEL_MULTI.launches)
+            assert torch.equal(cuda_ca.ca_multi_step(grid, rule, steps), want)
+            routed = cuda_ca.bits_plan(n, h, w, steps) is not None
+            assert cuda_ca.KERNEL_BITS.launches == before[0] + int(routed)
+            assert cuda_ca.KERNEL_MULTI.launches == before[1] + int(not routed)
+            for plan in plans:
+                got = cuda_ca._ca_multi_bits_kernel(grid, rule, steps, plan)
+                assert torch.equal(got, want), (plan, steps)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,hw,w", [(8, 8, 256), (3, 1, 32), (300, 8, 256), (5, 2, 512),
+                                    (2, 4, 128), (2, 16, 256)])
+def test_static_cm_words_kernel_matches_present_and_plain(cuda, n, hw, w):
+    """Row 11a's redesigned kernel (bit_multi_step_static_cm_words: the
+    column-major words held in registers, 8 columns a thread, lane shuffles
+    for the neighbour columns) against the present kernel forced (BIT_WORDS
+    = False) and the twin, bit for bit, at K in {0, 1, 5, 64}: by the route
+    (one launch a call where cm_plan holds the shape; universes wider than a
+    warp and word rows no instantiation has keep the present kernel) and by
+    blocks of one warp and of 256 threads forced."""
+    cells = torch.from_numpy(_soup(n + hw + 5, (n, 32 * hw, w), 0.4)).to(cuda)
+    packed = bitpack.pack_grid_cm(cells)
+    lanes = w // cuda_bitpack.CM_COLUMNS
+    fits = (hw,) in cuda_bitpack.CM_PLANS and lanes <= 32 and not lanes & (lanes - 1)
+    plans = [("cm", hw, 32), ("cm", hw, 256)] if fits else []
+    for birth, survive in (([3], [2, 3]), ([3, 6, 8], [2, 4, 5]), ([0, 3], [2, 3])):
+        for steps in (0, 1, 5, 64):
+            want = cuda_bitpack.bit_multi_step_static_cm_plain(packed, birth, survive, steps)
+            cuda_bitpack.BIT_WORDS = False
+            try:
+                present = cuda_bitpack.bit_multi_step_static_cm(packed, birth, survive, steps)
+            finally:
+                cuda_bitpack.BIT_WORDS = True
+            assert torch.equal(present.to(torch.int64), want.to(torch.int64))
+            before = cuda_bitpack.KERNEL_STATIC_CM_WORDS.launches
+            got = cuda_bitpack.bit_multi_step_static_cm(packed, birth, survive, steps)
+            assert torch.equal(got.to(torch.int64), want.to(torch.int64))
+            routed = cuda_bitpack.cm_plan(n, hw, w, steps) is not None
+            assert cuda_bitpack.KERNEL_STATIC_CM_WORDS.launches == before + int(routed)
+            for plan in plans if steps else ():
+                got = cuda_bitpack._cm_words_kernel(packed, birth, survive, steps, plan)
+                assert torch.equal(got.to(torch.int64), want.to(torch.int64)), (plan, steps)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
 @pytest.mark.parametrize("case", ["AE conv1 u8", "AE conv1 u32", "AE conv1 f32", "RND conv1 u8",
                                   "AE conv2 gx", "AE conv2"])
