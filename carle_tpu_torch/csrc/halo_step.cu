@@ -162,20 +162,131 @@ extern "C" int halo_step_launch(int kind, const void* const* in, void* const* sc
     return static_cast<int>(cudaSuccess);
 }
 
-// -- The redesigned packed halo kernels (bit_halo_words_launch).
+// -- The redesigned halo kernels (bit_halo_words_launch, u8_halo_bits_launch).
 //
-// K = 1: bit_words.cuh's streaming kernel over every slot of the device (grid
-// y), a strip's ghost row at a slot's first and last row read from the
-// neighbour's buffer.  K > 1: temporal blocking.  A block stages a band of R
-// rows of one universe of one slot, with `gens` ghost rows each side (from
-// the neighbours' buffers past the slot's edges), in shared memory, runs
-// `gens` generations on it, each on a region one row shorter each side than
-// the last (the trapezoid: the rows whose neighbourhoods are still exact),
-// and writes its R rows.  The launcher steps the K generations in chunks of
-// T: one launch a chunk, not a generation, and a slot's rows pass through
-// device memory once a chunk.  T <= HL: the ghost rows of a slot come from
-// its ring neighbours alone.
-template <int RULE, int V, int SLOTS>
+// K = 1 on packed words: bit_words.cuh's streaming kernel over every slot of
+// the device (grid y), a strip's ghost row at a slot's first and last row
+// read from the neighbour's buffer.  K > 1: temporal blocking.  A block
+// stages a band of R rows of one universe of one slot, with `gens` ghost rows
+// each side (from the neighbours' buffers past the slot's edges), in shared
+// memory as packed words, runs `gens` generations on it, each on a region one
+// row shorter each side than the last (the trapezoid: the rows whose
+// neighbourhoods are still exact), and writes its R rows.  The launcher steps
+// the K generations in chunks of T: one launch a chunk, not a generation, and
+// a slot's rows pass through device memory once a chunk.  T <= HL: the ghost
+// rows of a slot come from its ring neighbours alone.
+//
+// The staging policy says what the slots hold.  WordRows: packed words, copied
+// as they are.  ByteRows: uint8 cells, packed on the load and unpacked on the
+// store, so a uint8 burst runs its generations on bits (37 operations a
+// 32-cell word, not 19 a 4-cell byte word) and its cells cross device memory
+// once a chunk, not once a generation.  The generations loop is the same.
+
+// Packed words: a row is NW words in device memory.
+template <int V>
+struct WordRows {
+    static constexpr int UNITS = 1;  // 32-bit units of device memory a packed word
+
+    // Staged rows [0, E) are rows first .. first + E - 1 of universe n of the slot.
+    __device__ __forceinline__ static void stage(uint32_t* cur, const SlotRows& sl, size_t plane,
+                                                 int n, int first, int E, int HL, int NW) {
+        const int tid = threadIdx.x, nt = blockDim.x;
+        const int lanes = nt < 32 ? nt : 32, lane = tid % lanes, warp = tid / lanes,
+                  warps = nt / lanes;
+        constexpr int C = V % 4 == 0 ? 4 : 1;  // words a staging access
+        for (int i = warp; i < E; i += warps) {
+            const uint32_t* row = slot_row(sl, plane, n, first + i, HL, NW);
+            for (int c = lane * C; c < NW; c += lanes * C) {
+                uint32_t w[C];
+                load_words<C>(row + c, w);
+                store_words<C>(cur + static_cast<size_t>(i) * NW + c, w);
+            }
+        }
+    }
+
+    // The staged rows src [rows][NW] to dst, rows of NW words.
+    __device__ __forceinline__ static void store(uint32_t* dst, const uint32_t* src, int rows,
+                                                 int NW) {
+        const int tid = threadIdx.x, nt = blockDim.x;
+        const int lanes = nt < 32 ? nt : 32, lane = tid % lanes, warp = tid / lanes,
+                  warps = nt / lanes;
+        constexpr int C = V % 4 == 0 ? 4 : 1;
+        for (int i = warp; i < rows; i += warps)
+            for (int c = lane * C; c < NW; c += lanes * C) {
+                uint32_t w[C];
+                load_words<C>(src + static_cast<size_t>(i) * NW + c, w);
+                store_words<C>(dst + static_cast<size_t>(i) * NW + c, w);
+            }
+    }
+};
+
+// uint8 cells (0 or 1; packed as != 0, as ops/bitpack.py::pack_grid does): a
+// row is 32 NW bytes, 8 NW units.  A thread takes 16-byte pieces of the band:
+// piece p of a row is cells 16 p .. 16 p + 15, half of packed word p / 2
+// (a lane a byte and a warp ballot a word issue 16 times the loads and
+// measured 3.2x slower at 8192² over 4 slots on an H100).  The load gathers
+// a piece's 16 nonzero flags into 16 bits (each 4-byte quad's flags to the
+// top bit of its bytes, then one multiply carries them to 4 adjacent
+// bits), and lanes 2k and 2k + 1 join their halves into the
+// word by one shuffle (a block is whole warps, so a pair is two lanes of one
+// warp).  The store spreads half a word over 16 bytes (a multiply a 4-bit
+// nibble).  Every thread runs the same number of steps (the shuffle takes the
+// whole warp), U pieces a step, their loads all issued before the first is
+// used, so a step waits for memory once.
+struct ByteRows {
+    static constexpr int UNITS = 8;
+    static constexpr int U = 8;  // pieces a thread has in flight
+
+    // The 4 bits of a 4-byte quad q, bit j set where byte j is not zero.
+    __device__ __forceinline__ static uint32_t quad_bits(uint32_t q) {
+        const uint32_t top = (((q & 0x7f7f7f7fu) + 0x7f7f7f7fu) | q) & 0x80808080u;
+        return ((top >> 7) * 0x01020408u) >> 24;
+    }
+
+    // The 4 bytes (0 or 1) of the 4 bits of nibble b.
+    __device__ __forceinline__ static uint32_t nibble_bytes(uint32_t b) {
+        return (b * 0x00204081u) & 0x01010101u;
+    }
+
+    __device__ __forceinline__ static void stage(uint32_t* cur, const SlotRows& sl, size_t plane,
+                                                 int n, int first, int E, int HL, int NW) {
+        const int tid = threadIdx.x, nt = blockDim.x, Q = 2 * NW, total = E * Q;
+        const bool low = (tid & 1) == 0;  // the lane holding the word's cells 0-15
+        for (int base = 0; base < total; base += U * nt) {
+            uint4 v[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int idx = base + u * nt + tid, i = idx / Q, p = idx - i * Q;
+                v[u] = idx < total ? reinterpret_cast<const uint4*>(
+                                         slot_row(sl, plane, n, first + i, HL, 8 * NW))[p]
+                                   : make_uint4(0u, 0u, 0u, 0u);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int idx = base + u * nt + tid, i = idx / Q, p = idx - i * Q;
+                const uint32_t half = quad_bits(v[u].x) | quad_bits(v[u].y) << 4 |
+                                      quad_bits(v[u].z) << 8 | quad_bits(v[u].w) << 12;
+                const uint32_t other = __shfl_sync(0xffffffffu, half, (tid & 31) ^ 1);
+                if (idx < total && low)
+                    cur[static_cast<size_t>(i) * NW + (p >> 1)] = half | other << 16;
+            }
+        }
+    }
+
+    __device__ __forceinline__ static void store(uint32_t* dst, const uint32_t* src, int rows,
+                                                 int NW) {
+        const int tid = threadIdx.x, nt = blockDim.x, Q = 2 * NW;
+        for (int idx = tid; idx < rows * Q; idx += nt) {
+            const int i = idx / Q, p = idx - i * Q;
+            const uint32_t half = src[static_cast<size_t>(i) * NW + (p >> 1)] >> (16 * (p & 1));
+            reinterpret_cast<uint4*>(dst + static_cast<size_t>(i) * 8 * NW)[p] =
+                make_uint4(nibble_bytes(half & 15u), nibble_bytes((half >> 4) & 15u),
+                           nibble_bytes((half >> 8) & 15u), nibble_bytes((half >> 12) & 15u));
+        }
+    }
+};
+
+template <int RULE, int V, int SLOTS, typename Rows>
 __global__ void __launch_bounds__(512)
     bit_blocks_kernel(const __grid_constant__ SlotTable<SLOTS> t, const int32_t* __restrict__ rule,
                       int rule_stride, int HL, int NW, int R, int bands, int gens, int S) {
@@ -183,22 +294,13 @@ __global__ void __launch_bounds__(512)
     const SlotRows& sl = t.s[blockIdx.y];
     const int n = blockIdx.x / bands, band = blockIdx.x - n * bands;
     const int r0 = band * R, rows = min(R, HL - r0), E = rows + 2 * gens;
-    const size_t plane = static_cast<size_t>(HL) * NW;
+    const int RU = Rows::UNITS * NW;  // 32-bit units a row in device memory
+    const size_t plane = static_cast<size_t>(HL) * RU;
     uint32_t* cur = reinterpret_cast<uint32_t*>(smem);
     uint32_t* nxt = cur + static_cast<size_t>(R + 2 * gens) * NW;
     const int tid = threadIdx.x, nt = blockDim.x;
-    const int lanes = nt < 32 ? nt : 32, lane = tid % lanes, warp = tid / lanes,
-              warps = nt / lanes;
-    constexpr int C = V % 4 == 0 ? 4 : 1;  // words a staging access
     // staged row i is row r0 - gens + i of the slot
-    for (int i = warp; i < E; i += warps) {
-        const uint32_t* row = slot_row(sl, plane, n, r0 - gens + i, HL, NW);
-        for (int c = lane * C; c < NW; c += lanes * C) {
-            uint32_t w[C];
-            load_words<C>(row + c, w);
-            store_words<C>(cur + static_cast<size_t>(i) * NW + c, w);
-        }
-    }
+    Rows::stage(cur, sl, plane, n, r0 - gens, E, HL, NW);
     const Leaves leaves = make_leaves(rule_of<RULE>(rule, rule_stride, n));
     const int G = NW / V;
     __syncthreads();
@@ -224,13 +326,8 @@ __global__ void __launch_bounds__(512)
         cur = nxt;
         nxt = tmp;
     }
-    uint32_t* dst = sl.dst + n * plane + static_cast<size_t>(r0) * NW;
-    for (int i = warp; i < rows; i += warps)
-        for (int c = lane * C; c < NW; c += lanes * C) {
-            uint32_t w[C];
-            load_words<C>(cur + static_cast<size_t>(gens + i) * NW + c, w);
-            store_words<C>(dst + static_cast<size_t>(i) * NW + c, w);
-        }
+    Rows::store(sl.dst + n * plane + static_cast<size_t>(r0) * RU,
+                cur + static_cast<size_t>(gens) * NW, rows, NW);
 }
 
 #ifdef STATIC_RULE
@@ -245,44 +342,22 @@ static inline size_t blocks_smem(int R, int T, int NW) {
 }
 
 // Chunks [c0, c1) of the ceil(steps / T) chunks of T generations (the last
-// may be shorter) of packed words [N, HL, NW] on the S slots `slots` (of the
-// n in the ring) that live on `device`; in, scratch and out hold every slot's
-// pointer (host arrays of n): chunk c reads `in` (c = 0) or the buffer chunk
-// c - 1 wrote, and writes scratch or out so that the last lands in out.  T =
-// 1: each chunk a generation by the streaming kernel (V words, strips of
-// `strip` rows, `threads` a block); T > 1: bit_blocks_kernel on bands of
-// `rows` rows, compute strips of `strip` rows, `threads` a block.  The rule
-// as halo_step_launch's; a library built with -DSTATIC_RULE fixes it.
-extern "C" int bit_halo_words_launch(const void* const* in, void* const* scratch,
-                                     void* const* out, const int* slots, int S, int n,
-                                     const void* rule, int rule_stride, int N, int HL, int NW,
-                                     int steps, int T, int c0, int c1, int V, int rows,
-                                     int strip, int threads, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int chunks = T >= 1 ? (steps + T - 1) / T : 0;
-    if (S < 1 || S > MAX_SLOTS || n < S || N < 1 || HL < 1 || NW < 1 || steps < 1 || T < 1 ||
-        T > HL || c0 < 0 || c1 > chunks || rows < 1 || strip < 1 || threads < 1 ||
-        (V != 1 && V != 4) || NW % V || (threads > 32 && threads % 32))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int32_t* rb = static_cast<const int32_t*>(rule);
+// may be shorter) on the S slots `slots` (of the n in the ring) of a device:
+// in, scratch and out hold every slot's pointer (host arrays of n); chunk c
+// reads `in` (c = 0) or the buffer chunk c - 1 wrote, and writes scratch or
+// out so that the last lands in out.  launch(table, gens) launches one chunk
+// and returns an error code.
+template <typename Launch>
+static int run_chunks(const void* const* in, void* const* scratch, void* const* out,
+                      const int* slots, int S, int n, int steps, int T, int c0, int c1,
+                      Launch launch) {
+    const int chunks = (steps + T - 1) / T;
     auto buffer = [&](int c, int j) -> uint32_t* {  // what chunk c writes in slot j
         return static_cast<uint32_t*>(((chunks - c) % 2) ? out[j] : scratch[j]);
     };
     auto source = [&](int c, int j) -> const uint32_t* {  // what it reads
         return c == 0 ? static_cast<const uint32_t*>(in[j]) : buffer(c - 1, j);
     };
-    const int bands = (HL + rows - 1) / rows;
-    const size_t smem = blocks_smem(rows, T, NW);
-    if (T > 1 && (threads > 512 || static_cast<long long>(N) * bands >= (1LL << 31)))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const auto kernel = V == 4 ? bit_blocks_kernel<HALO_RULE, 4, MAX_SLOTS>
-                               : bit_blocks_kernel<HALO_RULE, 1, MAX_SLOTS>;
-    if (T > 1) {
-        err = allow_smem(kernel, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
     for (int c = c0; c < c1; ++c) {
         SlotTable<MAX_SLOTS> table;
         for (int i = 0; i < S; ++i) {
@@ -291,20 +366,96 @@ extern "C" int bit_halo_words_launch(const void* const* in, void* const* scratch
             table.s[i] = SlotRows{source(c, j), buffer(c, j), source(c, (j + n - 1) % n),
                                   source(c, (j + 1) % n)};
         }
-        if (T == 1) {
-            const int rc = stream_launch<HALO_RULE, MAX_SLOTS>(table, S, rb, rule_stride, N, HL,
-                                                               NW, V, strip, threads, st);
-            if (rc != 0) return rc;
-            continue;
-        }
-        const int gens = T < steps - c * T ? T : steps - c * T;
+        const int rc = launch(table, T < steps - c * T ? T : steps - c * T);
+        if (rc != 0) return rc;
+    }
+    return static_cast<int>(cudaSuccess);
+}
+
+// The arguments both launchers check: chunks [c0, c1) of T generations on
+// bands of `rows` rows, `threads` a block.
+static bool chunks_ok(int S, int n, int N, int HL, int NW, int steps, int T, int c0, int c1,
+                      int V, int rows, int strip, int threads) {
+    const int chunks = T >= 1 ? (steps + T - 1) / T : 0;
+    return S >= 1 && S <= MAX_SLOTS && n >= S && N >= 1 && HL >= 1 && NW >= 1 && steps >= 1 &&
+           T >= 1 && T <= HL && c0 >= 0 && c1 <= chunks && rows >= 1 && strip >= 1 &&
+           threads >= 1 && (V == 1 || V == 4) && NW % V == 0 &&
+           (threads <= 32 || threads % 32 == 0);
+}
+
+// Packed words [N, HL, NW] a slot, chunks [c0, c1) as run_chunks.  T = 1:
+// each chunk a generation by the streaming kernel (V words, strips of `strip`
+// rows, `threads` a block); T > 1: bit_blocks_kernel on bands of `rows` rows,
+// compute strips of `strip` rows, `threads` a block.  The rule as
+// halo_step_launch's; a library built with -DSTATIC_RULE fixes it.
+extern "C" int bit_halo_words_launch(const void* const* in, void* const* scratch,
+                                     void* const* out, const int* slots, int S, int n,
+                                     const void* rule, int rule_stride, int N, int HL, int NW,
+                                     int steps, int T, int c0, int c1, int V, int rows,
+                                     int strip, int threads, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!chunks_ok(S, n, N, HL, NW, steps, T, c0, c1, V, rows, strip, threads))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* rb = static_cast<const int32_t*>(rule);
+    const int bands = (HL + rows - 1) / rows;
+    const size_t smem = blocks_smem(rows, T, NW);
+    if (T > 1 && (threads > 512 || static_cast<long long>(N) * bands >= (1LL << 31)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel = V == 4 ? bit_blocks_kernel<HALO_RULE, 4, MAX_SLOTS, WordRows<4>>
+                               : bit_blocks_kernel<HALO_RULE, 1, MAX_SLOTS, WordRows<1>>;
+    if (T > 1) {
+        err = allow_smem(kernel, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return run_chunks(in, scratch, out, slots, S, n, steps, T, c0, c1,
+                      [&](const SlotTable<MAX_SLOTS>& table, int gens) -> int {
+        if (T == 1)
+            return stream_launch<HALO_RULE, MAX_SLOTS>(table, S, rb, rule_stride, N, HL, NW, V,
+                                                       strip, threads, st);
         const dim3 grid(static_cast<unsigned>(N) * bands, S);
         KERNEL_LAUNCH(kernel, grid, threads, smem, st, table, rb, rule_stride, HL, NW, rows,
                       bands, gens, strip);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    return static_cast<int>(cudaSuccess);
+        return static_cast<int>(cudaGetLastError());
+    });
+}
+
+// uint8 cells [N, HL, W] a slot (W % 32 == 0, every buffer 16-byte aligned),
+// chunks [c0, c1) as run_chunks, each a launch of bit_blocks_kernel on the
+// cells packed as they are staged (ByteRows): bands of `rows` rows with T >= 1
+// ghost rows a side, compute strips of `strip` rows, `threads` a block (whole
+// warps).  The rule as halo_step_launch's.
+extern "C" int u8_halo_bits_launch(const void* const* in, void* const* scratch, void* const* out,
+                                   const int* slots, int S, int n, const void* rule,
+                                   int rule_stride, int N, int HL, int W, int steps, int T,
+                                   int c0, int c1, int V, int rows, int strip, int threads,
+                                   int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int NW = W / 32;
+    const int bands = rows >= 1 ? (HL + rows - 1) / rows : 0;
+    if (W % 32 || !chunks_ok(S, n, N, HL, NW, steps, T, c0, c1, V, rows, strip, threads) ||
+        threads % 32 || threads > 512 || static_cast<long long>(N) * bands >= (1LL << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < n; ++i)
+        if ((reinterpret_cast<uintptr_t>(in[i]) | reinterpret_cast<uintptr_t>(scratch[i]) |
+             reinterpret_cast<uintptr_t>(out[i])) % 16)
+            return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* rb = static_cast<const int32_t*>(rule);
+    const size_t smem = blocks_smem(rows, T, NW);
+    const auto kernel = V == 4 ? bit_blocks_kernel<-1, 4, MAX_SLOTS, ByteRows>
+                               : bit_blocks_kernel<-1, 1, MAX_SLOTS, ByteRows>;
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return run_chunks(in, scratch, out, slots, S, n, steps, T, c0, c1,
+                      [&](const SlotTable<MAX_SLOTS>& table, int gens) -> int {
+        const dim3 grid(static_cast<unsigned>(N) * bands, S);
+        KERNEL_LAUNCH_THREADED(kernel, grid, threads, smem, st, table, rb, rule_stride, HL, NW,
+                               rows, bands, gens, strip);
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 // Registers, static shared memory, spills and resident blocks a
@@ -319,8 +470,18 @@ extern "C" int bit_halo_words_occupancy(int V, int rows, int T, int NW, int thre
                                    : bit_stream_kernel<HALO_RULE, 1, MAX_SLOTS>;
         return kernel_occupancy(kernel, threads, 0, out);
     }
-    const auto kernel = V == 4 ? bit_blocks_kernel<HALO_RULE, 4, MAX_SLOTS>
-                               : bit_blocks_kernel<HALO_RULE, 1, MAX_SLOTS>;
+    const auto kernel = V == 4 ? bit_blocks_kernel<HALO_RULE, 4, MAX_SLOTS, WordRows<4>>
+                               : bit_blocks_kernel<HALO_RULE, 1, MAX_SLOTS, WordRows<1>>;
+    return kernel_occupancy(kernel, threads, blocks_smem(rows, T, NW), out);
+}
+
+// The same of the uint8 kernel (u8_halo_bits_launch) at W = 32 NW cells a row.
+extern "C" int u8_halo_bits_occupancy(int V, int rows, int T, int NW, int threads, int device,
+                                      int* out) {
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const auto kernel = V == 4 ? bit_blocks_kernel<-1, 4, MAX_SLOTS, ByteRows>
+                               : bit_blocks_kernel<-1, 1, MAX_SLOTS, ByteRows>;
     return kernel_occupancy(kernel, threads, blocks_smem(rows, T, NW), out);
 }
 

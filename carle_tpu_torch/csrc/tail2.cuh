@@ -104,6 +104,58 @@ __device__ __forceinline__ float tail2_act(float r) {
     return ACT == TAIL2_RELU ? fmaxf(r, 0.f) : 1.f / (1.f + expf(-r));
 }
 
+// The 2 x 4 outputs of the input pair (i, j), (i, j + 1) of instance n from
+// the block's staged window xs: row(a, y) takes output row 2i + a's four
+// values y[q] = output (2i + a, 2j + q) as they are computed.  Returns their
+// keep bits with dropout (byte t: input (i, j + t), bit 2a + b), else 0.  A
+// thread loads the 3 x 4 input window the pair reads (two 8-byte loads a row
+// and a channel) into registers and computes the eight pre-activations by the
+// parity stencils with the weights broadcast from shared memory.
+template <int CIN, int ACT, bool DROP, typename Row>
+__device__ __forceinline__ unsigned tail2_pair(const Win& xs, int i, int j, int n, int stage,
+                                               const DropCfg& cfg, Row row) {
+    const int plane = xs.rows * xs.cols;
+    // X[c][r][q]: input (i - 1 + r, j - 1 + q)
+    float X[CIN][3][4];
+    const float* p = xs.at(i - 1, j - 1);
+#pragma unroll
+    for (int c = 0; c < CIN; ++c)
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+            const float2 lo = *reinterpret_cast<const float2*>(p + c * plane + r * xs.cols);
+            const float2 hi = *reinterpret_cast<const float2*>(p + c * plane + r * xs.cols + 2);
+            X[c][r][0] = lo.x;
+            X[c][r][1] = lo.y;
+            X[c][r][2] = hi.x;
+            X[c][r][3] = hi.y;
+        }
+    unsigned bits = 0;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+        float yv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            // output (2i + a, 2j + q) = (2i + a, 2 (j + t) + b): parity
+            // (1 - a, 1 - b), its window ending at input (i + a, j + t + b)
+            const int t = q >> 1, b = q & 1, e = t + b;
+            float r = tail2_bias;
+#pragma unroll
+            for (int c = 0; c < CIN; ++c)
+                r = parity_preact(tail2_wp[c * 4 + (1 - a) * 2 + (1 - b)], r,
+                                  X[c][a + 1][e + 1], X[c][a + 1][e], X[c][a][e + 1],
+                                  X[c][a][e]);
+            if (DROP) {
+                const unsigned k = drop_keep_group(cfg, stage, n, 0, 2 * i + a, 2 * j + q) & 1u;
+                bits |= k << (8 * t + 2 * a + b);
+                r = k ? r * cfg.scale : 0.f;
+            }
+            yv[q] = tail2_act<ACT>(r);
+        }
+        row(a, yv);
+    }
+    return bits;
+}
+
 // Shared memory of the forward: the input window, (RI + 2) x (TJ + 2) a
 // channel (T = min(TJ, w)).
 __host__ __device__ inline size_t tail2_fwd_smem(int CIN, int w, int RI, int TJ) {

@@ -21,10 +21,9 @@
 // MAXC register arrays, a shared load for every multiply-add's weight, an
 // integer division and one 4-byte store an output, and a band of whole rows
 // staged in shared memory.  Here a thread owns the 2 x 4 outputs of an input
-// pair (i, j), (i, j + 1): it loads the 3 x 4 input window they read from
-// the block's staged window into registers (two 8-byte loads a row and a
-// channel), computes the eight pre-activations by the parity stencils with
-// the weights broadcast from shared memory, and stores each output row as one
+// pair (i, j), (i, j + 1) (tail2.cuh::tail2_pair: the 3 x 4 input window
+// they read loaded from the block's staged window into registers, the eight
+// pre-activations by the parity stencils) and stores each output row as one
 // 16-byte store.  A block owns RI input rows and TJ input columns
 // (ops/cuda_stages.py::_tail2_plan sizes the grid from the card's
 // multiprocessor count).  Instances beyond the grid's 65,535 rows go in
@@ -45,49 +44,14 @@ tail2_fwd_kernel(const float* __restrict__ x, Tail2Weights wp, float* __restrict
     copies_wait();
     __syncthreads();
 
-    const int plane = xs.rows * xs.cols;
     float* out_n = out + static_cast<size_t>(n) * 4 * h * w;
     grid_walk(bk.ri, bk.tj / 2, [&](int lr, int lp) {
         const int i = bk.i0 + lr, j = bk.j0 + 2 * lp;
-        // X[c][r][q]: input (i - 1 + r, j - 1 + q)
-        float X[CIN][3][4];
-        const float* p = xs.at(i - 1, j - 1);
-#pragma unroll
-        for (int c = 0; c < CIN; ++c)
-#pragma unroll
-            for (int r = 0; r < 3; ++r) {
-                const float2 lo = *reinterpret_cast<const float2*>(p + c * plane + r * xs.cols);
-                const float2 hi = *reinterpret_cast<const float2*>(p + c * plane + r * xs.cols + 2);
-                X[c][r][0] = lo.x;
-                X[c][r][1] = lo.y;
-                X[c][r][2] = hi.x;
-                X[c][r][3] = hi.y;
-            }
-        unsigned bits = 0;   // byte t: input (i, j + t), bit 2a + b
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-            float yv[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                // output (2i + a, 2j + q) = (2i + a, 2 (j + t) + b): parity
-                // (1 - a, 1 - b), its window ending at input (i + a, j + t + b)
-                const int t = q >> 1, b = q & 1, e = t + b;
-                float r = tail2_bias;
-#pragma unroll
-                for (int c = 0; c < CIN; ++c)
-                    r = parity_preact(tail2_wp[c * 4 + (1 - a) * 2 + (1 - b)], r,
-                                      X[c][a + 1][e + 1], X[c][a + 1][e], X[c][a][e + 1],
-                                      X[c][a][e]);
-                if (DROP) {
-                    const unsigned k = drop_keep_group(cfg, stage, n, 0, 2 * i + a, 2 * j + q) & 1u;
-                    bits |= k << (8 * t + 2 * a + b);
-                    r = k ? r * cfg.scale : 0.f;
-                }
-                yv[q] = tail2_act<ACT>(r);
-            }
-            *reinterpret_cast<float4*>(out_n + static_cast<size_t>(2 * i + a) * W2 + 2 * j) =
-                make_float4(yv[0], yv[1], yv[2], yv[3]);
-        }
+        const unsigned bits = tail2_pair<CIN, ACT, DROP>(
+            xs, i, j, n, stage, cfg, [&](int a, const float (&yv)[4]) {
+                *reinterpret_cast<float4*>(out_n + static_cast<size_t>(2 * i + a) * W2 + 2 * j) =
+                    make_float4(yv[0], yv[1], yv[2], yv[3]);
+            });
         if (SAVE)
             *reinterpret_cast<uint16_t*>(keep + (static_cast<size_t>(n) * h + i) * w + j) =
                 static_cast<uint16_t>(bits);

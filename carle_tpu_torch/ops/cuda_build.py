@@ -39,9 +39,9 @@ NVCC_FLAGS = (
 )
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
            "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "enc3_fwd", "enc3_bwd",
-           "head_fwd", "head_bwd", "head2_bwd",
-           "tail", "tail2_fwd", "tail2_bwd", "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd",
-           "dec2_bwd", "halo_step")
+           "head_fwd", "head_bwd", "head2_bwd", "tail", "tail2_fwd", "tail2_bwd",
+           "loss_tail2_fwd", "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd", "dec2_bwd",
+           "halo_step")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -239,6 +239,8 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 6 + [I] * 6 + [LL, I, I, I, D, ULL, I, P], source="tail"),
         CudaKernel("loss_tail_bwd", "loss_tail_bwd_launch",
                    [P] * 8 + [I] * 6 + [LL, I, I, I, D, ULL, I, P], source="tail"),
+        CudaKernel("loss_tail2_fwd", "loss_tail2_fwd_launch",
+                   [P] * 6 + [I] * 6 + [LL, I, I, I, D, ULL, I, P]),
         CudaKernel("decoder_loss_fwd", "decoder_loss_fwd_launch",
                    [P] * 9 + [I] * 8 + [LL, I, D, ULL, I, P]),
         CudaKernel("decoder_loss_bwd", "decoder_loss_bwd_launch",
@@ -254,6 +256,8 @@ KERNELS: Dict[str, CudaKernel] = {
         CudaKernel("bit_spatial_multi_step", "halo_step_launch",
                    [I, P, P, P, P, I, I, P] + [I] * 8 + [P], source="halo_step"),
         CudaKernel("bit_spatial_words", "bit_halo_words_launch",
+                   [P, P, P, P, I, I, P] + [I] * 13 + [P], source="halo_step"),
+        CudaKernel("spatial_multi_step_bits", "u8_halo_bits_launch",
                    [P, P, P, P, I, I, P] + [I] * 13 + [P], source="halo_step"),
     )
 }

@@ -21,6 +21,11 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
   the backward draws none, small blocks (:func:`_tail2_plan`); other widths
   take the generic kernel;
 * :func:`loss_tail` — the tail fused with ``sum((obs - y)**2)`` per instance;
+  its forward at the tail's two stage widths runs the kernel specialised for
+  them (``csrc/loss_tail2_fwd.cu``; :func:`loss_tail_route`): the tail's
+  parity stencils, the obs staged beside the input window, the error summed
+  in registers and a fixed order; other widths, and its backward, take the
+  generic kernel;
 * :func:`decoder_loss` — both decoder stages fused with that error; backward
   the four parameter gradients and ``gx``, the embedding's cotangent, which
   flows on into :func:`cuda_head.encoder`'s backward.  Optional per-instance
@@ -36,7 +41,7 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
 Each is a ``torch.autograd.Function`` that saves its inputs and the seed and
 recomputes in the backward, launches its kernels (``csrc/head_fwd.cu``,
 ``head_bwd.cu``, ``head2_bwd.cu``, ``tail.cu``, ``tail2_fwd.cu``, ``tail2_bwd.cu``,
-``decoder_loss_fwd.cu``, ``decoder_loss_bwd.cu``)
+``loss_tail2_fwd.cu``, ``decoder_loss_fwd.cu``, ``decoder_loss_bwd.cu``)
 for CUDA tensors and takes its plain twin (``*_plain``) for CPU tensors.
 
 Dropout draws the Philox bit of the element at a dropout *stage*
@@ -94,6 +99,11 @@ TAIL2_THREADS = 256                # csrc/tail2.cuh: threads a block
 TAIL2_TILES = (128, 64)            # input columns a block, forward and backward
 TAIL2_BANDS = ((16, 8, 4, 2, 1), (32, 16, 8, 4, 2, 1))   # input rows a block
 TAIL2_WAVES = (2, 1)               # blocks a multiprocessor the plans' grids reach
+LOSS_TAIL2_FWD = KERNELS["loss_tail2_fwd"]
+# The loss tail's forward at TAIL2_WIDTHS runs the kernel specialised for them
+# (:func:`loss_tail_route`); False runs the generic kernel there too, to hold
+# one against the other.
+LOSS_TAIL2_KERNELS = True
 ACTS = {"relu": 0, "sigmoid": 1}    # csrc/tail.cu, csrc/tail2.cuh
 HEAD_POOLS = (2, 4, 8)              # the head kernels' instantiations
 HEAD2_BWD = KERNELS["head2_bwd"]
@@ -114,7 +124,8 @@ __all__ = ["head", "tail", "loss_tail", "decoder_loss",
            "decoder_loss_fwd", "decoder_loss_fwd_plain", "decoder_loss_bwd",
            "decoder_loss_bwd_plain", "DEC2_FWD", "DEC2_BWD", "DEC2_WIDTHS", "DEC2_KERNELS",
            "Dec2Saved", "decoder_route", "dec2_keep_masks", "TAIL2_FWD", "TAIL2_BWD",
-           "TAIL2_WIDTHS", "TAIL2_KERNELS", "tail_route", "tail2_keep_mask", "HEAD2_BWD",
+           "TAIL2_WIDTHS", "TAIL2_KERNELS", "tail_route", "tail2_keep_mask", "LOSS_TAIL2_FWD",
+           "LOSS_TAIL2_KERNELS", "loss_tail_route", "HEAD2_BWD",
            "HEAD2_WIDTHS", "HEAD2_KERNELS", "head_route"]
 
 
@@ -557,6 +568,8 @@ def _loss_tail_fwd_kernel(x, wt, b, obs, act, drop_p, seed, stage):
     n, cin, cout, h, w = _tail_shape(x, wt, b, act)
     _check_tensors(x, [("x", x), ("wt", wt), ("b", b)], [("obs", obs)])
     _check_obs(obs, (n, cout, 2 * h, 2 * w))
+    if loss_tail_route(cin, cout, w):
+        return _loss_tail2_fwd_kernel(x, wt, b, obs, act, drop_p, seed, stage)
     ry, smem = _tail_bands(cin, cout, h, w)[0]
     x, wt, b, obs = x.contiguous(), wt.contiguous(), b.contiguous(), obs.contiguous()
     partials, err = _empty(x, n, -(-2 * h // ry)), _empty(x, n)
@@ -631,6 +644,13 @@ def tail_route(cin: int, cout: int, w: int) -> bool:
     return TAIL2_KERNELS and (cin, cout) in TAIL2_WIDTHS and w % 2 == 0
 
 
+def loss_tail_route(cin: int, cout: int, w: int) -> bool:
+    """Whether the loss tail's forward with ``cin`` -> ``cout`` channels and
+    input width ``w`` runs the kernel specialised for its widths
+    (csrc/loss_tail2_fwd.cu): the tail's widths at an even width."""
+    return LOSS_TAIL2_KERNELS and (cin, cout) in TAIL2_WIDTHS and w % 2 == 0
+
+
 def tail2_keep_mask(keep: torch.Tensor) -> torch.Tensor:
     """The keep mask a training forward on the specialised route saved (uint8
     [N, h, w], bit 2a + b the output (2i + a, 2j + b)) in
@@ -653,6 +673,33 @@ def _tail2_fwd_kernel(x, wt, b, act, drop_p, seed, stage, save=False, plan=None)
                      cin, h, w, ri, tj, _tail2_fwd_smem(cin, w, ri, tj), ACTS[act], int(stage),
                      float(drop_p), _seed_word(seed), device, stream)
     return out, keep
+
+
+def _loss_tail2_smem(kind: int, cin: int, w: int, ri: int, tj: int) -> int:
+    """csrc/loss_tail2_fwd.cu::loss_tail2_smem: the input window, then the obs
+    tile (2 ri rows of 4-byte units) 16-byte aligned."""
+    t = min(tj, w)
+    units = {1: t // 2, 0: 2 * t, 2: 2 * t // 32 + 2}[kind]
+    return -(-_tail2_fwd_smem(cin, w, ri, tj) // 16) * 16 + 4 * units * 2 * ri
+
+
+def _loss_tail2_fwd_kernel(x, wt, b, obs, act, drop_p, seed, stage, plan=None):
+    """err [N] from the specialised loss-tail forward on checked inputs;
+    ``plan`` (RI, TJ) overrides :func:`_tail2_plan` (the forward's)."""
+    n, cin, h, w = x.shape
+    ri, tj = plan or _tail2_plan(n, cin, h, w, False, _multiprocessors(x.device))[:2]
+    blocks = -(-h // ri) * -(-w // min(tj, w))
+    x, wt, b, obs = x.contiguous(), wt.contiguous(), b.contiguous(), obs.contiguous()
+    if obs.data_ptr() % 16:   # the kernel reads a float32 obs row 16 bytes at a time
+        obs = obs.clone()
+    partials, err = _empty(x, n, blocks), _empty(x, n)
+    device, stream = stream_args(x)
+    kind = cell_kind(obs)
+    LOSS_TAIL2_FWD.launch(x.data_ptr(), wt.data_ptr(), b.data_ptr(), obs.data_ptr(),
+                          partials.data_ptr(), err.data_ptr(), n, cin, h, w, ri, tj,
+                          _loss_tail2_smem(kind, cin, w, ri, tj), ACTS[act], kind, int(stage),
+                          float(drop_p), _seed_word(seed), device, stream, packed=_packed(obs))
+    return err
 
 
 def _tail2_bwd_kernel(x, wt, b, g, act, drop_p, seed, stage, keep=None, plan=None):

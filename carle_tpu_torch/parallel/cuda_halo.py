@@ -14,13 +14,19 @@ Each takes :class:`~.mesh.RowShards` of [N, H/n, W] uint8 cells or
 [N, H/n, W/32] uint32 words and returns new shards.  All three launch
 ``csrc/halo_step.cu`` for CUDA slots, every slot on a device in one launch,
 each slot reading its ring neighbours' edge rows in place (the ring wraps:
-the torus).  The uint8 kernels launch once per device per generation.  The
-packed one (``bit_halo_words_launch``, counted as ``bit_spatial_words``)
-runs one generation by the streaming kernel, and K generations in chunks of
-T (:func:`halo_plan`: T <= the slot's rows): one launch per device per
-chunk, each a temporal-blocking kernel on bands staged with T ghost rows a
-side; with ``BIT_HALO_BLOCKS = False`` it takes the present kernel, once per
-device per generation.  Slots on several cards run each generation (packed:
+the torus).  The packed one (``bit_halo_words_launch``, counted as
+``bit_spatial_words``) runs one generation by the streaming kernel, and K
+generations in chunks of T (:func:`halo_plan`: T <= the slot's rows): one
+launch per device per chunk, each a temporal-blocking kernel on bands staged
+with T ghost rows a side; with ``BIT_HALO_BLOCKS = False`` it takes the
+present kernel, once per device per generation.  The uint8 burst
+(``u8_halo_bits_launch``, counted as ``spatial_multi_step_bits``) runs the
+same temporal-blocking kernel on the cells packed as they are staged and
+unpacked as they are stored, where :func:`u8_halo_plan` holds the shape
+(K > 1, W % 32 == 0, a band's packed copies fit shared memory); other
+shapes, one generation (:func:`spatial_ca_step_cuda`) and
+``HALO_U8_BITS = False`` take the present uint8 kernel, once per device per
+generation.  Slots on several cards run each generation (packed:
 each chunk) on every card's stream, each waiting on an event its
 neighbours' cards recorded after the previous one; that path needs peer
 access and has not run on a machine of several cards.  For CPU slots each
@@ -48,6 +54,7 @@ KERNEL_STEP = KERNELS["spatial_ca_step"]
 KERNEL_MULTI = KERNELS["spatial_multi_step"]
 KERNEL_BIT = KERNELS["bit_spatial_multi_step"]
 KERNEL_BIT_WORDS = KERNELS["bit_spatial_words"]
+KERNEL_U8_BITS = KERNELS["spatial_multi_step_bits"]
 KIND_U8, KIND_U32 = 1, 2     # csrc/common.cuh
 MAX_SLOTS = 64               # csrc/halo_step.cu: slots of one device a launch covers
 # False: bit_spatial_multi_step_cuda launches the present kernel, once a
@@ -61,9 +68,12 @@ HALO_T = 8
 HALO_ROWS = 64
 HALO_THREADS = 512
 HALO_MAX_STRIP = 32
+# False: spatial_multi_step_cuda launches the present uint8 kernel, once a
+# generation (the A/B)
+HALO_U8_BITS = True
 
-__all__ = ["KERNEL_BIT", "KERNEL_BIT_WORDS", "KERNEL_MULTI", "KERNEL_STEP",
-           "bit_spatial_multi_step_cuda", "halo_plan",
+__all__ = ["KERNEL_BIT", "KERNEL_BIT_WORDS", "KERNEL_MULTI", "KERNEL_STEP", "KERNEL_U8_BITS",
+           "bit_spatial_multi_step_cuda", "halo_plan", "u8_halo_plan",
            "bit_spatial_multi_step_plain", "spatial_ca_step_cuda", "spatial_ca_step_plain",
            "spatial_multi_step_cuda", "spatial_multi_step_plain"]
 
@@ -273,6 +283,22 @@ def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
     return RowShards(out, x.mesh, x.axis)
 
 
+def _band_rows(hl: int, nw: int, t: int) -> int:
+    """The most rows, up to HALO_ROWS, of a band whose two copies with ``t``
+    ghost rows a side fit shared memory as [rows + 2t, nw] words (<= 0:
+    none fit)."""
+    rows = min(HALO_ROWS, hl)
+    while rows > 0 and 2 * (rows + 2 * t) * nw * 4 > HALO_SMEM_BYTES:
+        rows -= 8
+    return rows
+
+
+def _strip(rows: int, t: int, groups: int) -> int:
+    """Rows a compute strip, so that a generation's items about fill a block
+    of HALO_THREADS."""
+    return max(1, min(HALO_MAX_STRIP, (rows + 2 * t) * groups // HALO_THREADS))
+
+
 def halo_plan(n_inst: int, hl: int, nw: int, steps: int, slots: int, sms: int,
               aligned: bool = True):
     """(T, V, rows, strip, threads) of bit_halo_words_launch for ``steps``
@@ -286,52 +312,105 @@ def halo_plan(n_inst: int, hl: int, nw: int, steps: int, slots: int, sms: int,
     64 rows); compute strips of ``strip`` rows so that a generation's items
     about fill the block."""
     t = min(HALO_T, hl, steps)
-    rows = min(HALO_ROWS, hl)
-    while rows > 0 and 2 * (rows + 2 * t) * nw * 4 > HALO_SMEM_BYTES:
-        rows -= 8
+    rows = _band_rows(hl, nw, t)
     if t <= 1 or rows <= 0:   # one generation a launch
         _, v, s, threads = stream_plan(n_inst * slots, hl, nw, sms, aligned)
         return (1, v, 0, s, threads)
     v = 4 if nw % 4 == 0 and aligned else 1
-    strip = max(1, min(HALO_MAX_STRIP, (rows + 2 * t) * (nw // v) // HALO_THREADS))
-    return (t, v, rows, strip, HALO_THREADS)
+    return (t, v, rows, _strip(rows, t, nw // v), HALO_THREADS)
+
+
+def u8_halo_plan(hl: int, w: int, steps: int, aligned: bool = True):
+    """(T, V, rows, strip, threads) of u8_halo_bits_launch for ``steps``
+    generations of uint8 slots of [hl, w] cells, or None where the route does
+    not hold: one generation, a width not a multiple of 32, a buffer not
+    16-byte aligned (a thread loads and stores 16 cells at once), or no band
+    whose packed copies fit shared memory.  halo_plan's bands at T =
+    min(HALO_T, hl, steps) >= 1 (8192² over 4 slots: T = 8, 64 rows, 512
+    threads, one block a multiprocessor), the threads cut to whole warps
+    that the first generation's items fill."""
+    if steps <= 1 or w % 32 or not aligned:
+        return None
+    nw = w // 32
+    t = min(HALO_T, hl, steps)
+    rows = _band_rows(hl, nw, t)
+    if rows <= 0:
+        return None
+    v = 4 if nw % 4 == 0 else 1
+    strip = _strip(rows, t, nw // v)
+    items = -(-(rows + 2 * t - 2) // strip) * (nw // v)
+    return (t, v, rows, strip, min(HALO_THREADS, 32 * -(-items // 32)))
+
+
+def _launch_chunks(kernel, x: RowShards, rule_bits, steps: int, plan, out, arrays, groups,
+                   defines: Tuple[str, ...] = (), per_chunk: int = 1,
+                   packed: bool = True) -> RowShards:
+    """``steps`` generations in chunks of the plan's T by one of the
+    chunked launchers (bit_halo_words_launch, u8_halo_bits_launch), one
+    launch a chunk a device (``per_chunk`` a chunk where T = 1 streams)."""
+    parts = x.parts
+    n_inst, hl, w = parts[0].shape
+    rules = _rules_by_device(rule_bits, x)
+    t, v, rows, strip, threads = plan
+    slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
+
+    def launch(dev, c0, c1):
+        rule = rules[dev]
+        kernel.launch(*(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
+                      ctypes.cast(slot_arrays[dev], ctypes.c_void_p), len(groups[dev]),
+                      len(parts), rule.data_ptr(), int(rule.ndim == 1), n_inst, hl, w, steps, t,
+                      c0, c1, v, max(rows, 1), strip, threads,
+                      *stream_args(parts[groups[dev][0]]), defines=defines, packed=packed,
+                      count=(c1 - c0) * per_chunk)
+
+    _chunks(x, groups, -(-steps // t), launch)
+    return RowShards(out, x.mesh, x.axis)
 
 
 def _launch_words(x: RowShards, rule_bits, steps: int, defines: Tuple[str, ...] = (),
                   plan=None) -> RowShards:
     """bit_halo_words_launch: ``steps`` packed generations in chunks of the
     plan's T (default :func:`halo_plan`), one launch a chunk a device."""
-    parts = x.parts
     steps = int(steps)
     if steps < 0:
         raise ValueError(f"num_steps must be >= 0, got {steps}")
     if steps == 0:
         return x.map(torch.clone)
-    n_inst, hl, nw = parts[0].shape
-    n = len(parts)
-    rules = _rules_by_device(rule_bits, x)
+    n_inst, hl, nw = x.parts[0].shape
     groups = _slot_groups(x)
     out, scratch, arrays = _buffers(x, steps)
     if plan is None:
-        aligned = all(t.data_ptr() % 16 == 0 for ts in (parts, scratch, out) for t in ts)
+        aligned = all(t.data_ptr() % 16 == 0 for ts in (x.parts, scratch, out) for t in ts)
         plan = halo_plan(n_inst, hl, nw, steps, max(len(s) for s in groups.values()),
                          _multiprocessors(x.mesh.home), aligned)
-    t, v, rows, strip, threads = plan
-    chunks = -(-steps // t)
-    slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
+    per_chunk = stream_launches(n_inst, hl, nw, plan[1], plan[3]) if plan[0] == 1 else 1
+    return _launch_chunks(KERNEL_BIT_WORDS, x, rule_bits, steps, plan, out, arrays, groups,
+                          defines, per_chunk)
 
-    def launch(dev, c0, c1):
-        rule = rules[dev]
-        per_chunk = (stream_launches(n_inst, hl, nw, v, strip) if t == 1 else 1)
-        KERNEL_BIT_WORDS.launch(*(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
-                                ctypes.cast(slot_arrays[dev], ctypes.c_void_p),
-                                len(groups[dev]), n, rule.data_ptr(), int(rule.ndim == 1),
-                                n_inst, hl, nw, steps, t, c0, c1, v, max(rows, 1), strip,
-                                threads, *stream_args(parts[groups[dev][0]]), defines=defines,
-                                packed=True, count=(c1 - c0) * per_chunk)
 
-    _chunks(x, groups, chunks, launch)
-    return RowShards(out, x.mesh, x.axis)
+def _launch_u8_bits(x: RowShards, rule_bits, steps: int, plan,
+                    defines: Tuple[str, ...] = ()) -> RowShards:
+    """u8_halo_bits_launch: ``steps`` >= 1 uint8 generations by ``plan``
+    (:func:`u8_halo_plan`), one launch a chunk a device."""
+    steps = int(steps)
+    if steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {steps}")
+    groups = _slot_groups(x)
+    out, _, arrays = _buffers(x, steps)
+    return _launch_chunks(KERNEL_U8_BITS, x, rule_bits, steps, plan, out, arrays, groups,
+                          defines, packed=False)
+
+
+def _u8_multi(x: RowShards, rule_bits, steps: int) -> RowShards:
+    """The uint8 burst on checked shards: the packed temporal-blocking kernel
+    where :func:`u8_halo_plan` holds the shape and HALO_U8_BITS is on, else
+    the present kernel."""
+    _, hl, w = x.parts[0].shape
+    plan = HALO_U8_BITS and u8_halo_plan(hl, w, int(steps),
+                                         all(p.data_ptr() % 16 == 0 for p in x.parts))
+    if plan:
+        return _launch_u8_bits(x, rule_bits, steps, plan)
+    return _launch(KERNEL_MULTI, x, rule_bits, steps, KIND_U8)
 
 
 def spatial_ca_step_cuda(x: RowShards, rule_bits) -> RowShards:
@@ -346,7 +425,7 @@ def spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int) -> RowShard
     """``num_steps`` uint8 generations of row-sharded universes."""
     if _check(x, torch.uint8, "spatial_multi_step", rule_bits) == "cpu":
         return spatial_multi_step_plain(x, rule_bits, num_steps)
-    return _launch(KERNEL_MULTI, x, rule_bits, num_steps, KIND_U8)
+    return _u8_multi(x, rule_bits, num_steps)
 
 
 def bit_spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int,

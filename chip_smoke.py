@@ -292,6 +292,8 @@ SOURCES = {
     "tail2_fwd": ("carle_tpu_torch/csrc/tail2_fwd.cu", "carle_tpu/ops/pallas_head.py:628"),
     "tail2_bwd": ("carle_tpu_torch/csrc/tail2_bwd.cu", "carle_tpu/ops/pallas_head.py:645"),
     "loss_tail_fwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:794"),
+    "loss_tail2_fwd": ("carle_tpu_torch/csrc/loss_tail2_fwd.cu",
+                       "carle_tpu/ops/pallas_head.py:794"),
     "loss_tail_bwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:822"),
     "decoder_loss_fwd": ("carle_tpu_torch/csrc/decoder_loss_fwd.cu",
                          "carle_tpu/ops/pallas_head.py:1481"),
@@ -301,6 +303,8 @@ SOURCES = {
     "dec2_bwd": ("carle_tpu_torch/csrc/dec2_bwd.cu", "carle_tpu/ops/pallas_head.py:1506"),
     "spatial_multi_step": ("carle_tpu_torch/csrc/halo_step.cu",
                            "carle_tpu/parallel/pallas_halo.py:222"),
+    "spatial_multi_step_bits": ("carle_tpu_torch/csrc/halo_step.cu",
+                                "carle_tpu/parallel/pallas_halo.py:222"),
     "spatial_ca_step": ("carle_tpu_torch/csrc/halo_step.cu",
                         "carle_tpu/parallel/pallas_halo.py:396"),
     "bit_spatial_multi_step": ("carle_tpu_torch/csrc/halo_step.cu",
@@ -336,7 +340,8 @@ FEATURE_ROWS = {
 }
 BAND_SIZE = 8192                     # pod_smoke.py's spatial8k universe, one of it
 RND_BANDS, PRED_BANDS = 512, 128     # BandTiling(size // 16), BandTiling(size // 64)
-SPATIAL_ROWS = ("spatial_ca_step", "spatial_multi_step", "bit_spatial_multi_step",
+SPATIAL_ROWS = ("spatial_ca_step", "spatial_multi_step", "spatial_multi_step_bits",
+                "bit_spatial_multi_step",
                 "bit_spatial_multi_step_static", "bit_spatial_words", "bit_spatial_words_static")
 # The whole autoencoder's rows: at AE2D's widths, which every main path uses,
 # the kernels specialised for them (ae2d_*) run; the generic instantiation
@@ -349,7 +354,7 @@ PATH_KERNELS = {
     "server": ("ca_step_words", "bit_multi_step_words", "enc3_fwd", "ae2d_fwd"),
     "train": ("ca_step_words", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
     "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
-               "head2_bwd", "tail2_fwd", "tail2_bwd", "loss_tail_fwd", "loss_tail_bwd",
+               "head2_bwd", "tail2_fwd", "tail2_bwd", "loss_tail2_fwd", "loss_tail_bwd",
                "dec2_fwd", "dec2_bwd"),
     "wrappers": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                  "dec2_fwd", "dec2_bwd", "tail2_fwd"),
@@ -358,7 +363,7 @@ PATH_KERNELS = {
     "bands": ("bit_multi_step_words", "enc3_fwd", "enc3_bwd", "dec2_fwd", "dec2_bwd"),
     "engines": ("bit_multi_step_words", "bit_multi_step_static_words",
                 "bit_multi_step_static_cm_words", "bit_multi_step_cm", "ca_multi_step_bits"),
-    "spatial": ("spatial_ca_step", "spatial_multi_step", "bit_spatial_words",
+    "spatial": ("spatial_ca_step", "spatial_multi_step_bits", "bit_spatial_words",
                 "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
@@ -383,6 +388,12 @@ PRESENT_PACKED = ("bit_multi_step", "bit_spatial_multi_step")
 # package has one of the specialised backward's widths (head2_bwd)
 PRESENT_STATIC = ("bit_multi_step_static", "bit_multi_step_static_cm", "ca_multi_step")
 GENERIC_HEAD_BWD = ("head_bwd",)
+# the present uint8 halo burst and the generic loss-tail forward, which no main
+# path may launch: the spatial path's 8-generation burst takes the packed
+# temporal-blocking kernel (spatial_multi_step_bits), and every loss tail of
+# the package has one of the specialised forward's widths (loss_tail2_fwd)
+PRESENT_U8_HALO = ("spatial_multi_step",)
+GENERIC_LOSS_TAIL_FWD = ("loss_tail_fwd",)
 # the kernels the packed path must launch on packed words
 PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "dec2_fwd", "dec2_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
@@ -603,6 +614,16 @@ def _present_packed(fn):
         cuda_bitpack.BIT_WORDS = cuda_halo.BIT_HALO_BLOCKS = True
 
 
+def _flag_off(module, flag: str, fn):
+    """fn() with ``module.flag`` off: the present or generic kernel forced
+    (cuda_halo.HALO_U8_BITS, cuda_stages.LOSS_TAIL2_KERNELS)."""
+    setattr(module, flag, False)
+    try:
+        return fn()
+    finally:
+        setattr(module, flag, True)
+
+
 def _cupti_us(torch, timer, fn, names, what, cold=True):
     """The device µs a call of ``fn`` spends in kernels whose names hold one
     of ``names``, by CUPTI (torch.profiler), the L2 flushed before each call
@@ -615,6 +636,7 @@ def _cupti_us(torch, timer, fn, names, what, cold=True):
 
 
 NEW_PACKED_KERNELS = ("bit_stream_kernel", "bit_regs_kernel", "bit_blocks_kernel")
+U8_HALO_KERNELS = ("bit_blocks_kernel", "halo_u8_kernel")
 PRESENT_PACKED_KERNELS = ("bit_multi_step_resident", "bit_step_global", "bit_halo_kernel")
 
 
@@ -1272,6 +1294,80 @@ def _bits_twice(fn, what):
     return first
 
 
+LOSS_TAIL_KERNELS = ("loss_tail2_fwd_kernel", "tail_fwd_kernel", "row_sums_kernel")
+
+
+def _loss_tail2_held(torch, timer, lt_args, lt_drop, obs, obs_w, obs_f, seed, nf, hw, close):
+    """Row 8a at the routes path's shape (x f32 [160,1,128,128] -> 256²,
+    sigmoid): the specialised forward (loss_tail2_fwd, the route) against
+    the generic kernel forced (cuda_stages.LOSS_TAIL2_KERNELS off) within
+    rtol 1e-5 over uint8, packed and float32 obs, without dropout and with it
+    (on 64 universes), each twice for the bits, and both against the twin
+    (1e-4); one launch a call; timed in turns after an L2 flush and each by
+    CUPTI cold; registers and blocks a multiprocessor.  Returns the rows
+    loss_tail2_fwd and loss_tail_fwd (the generic forced, the same runs)."""
+    from carle_tpu_torch.ops import cuda_build, cuda_stages as cs
+
+    generic = lambda fn: _flag_off(cs, "LOSS_TAIL2_KERNELS", fn)
+    err = {"new": 0.0, "generic": 0.0}
+    rel = 0.0
+    for args, p in ((lt_args, 0.0), (lt_drop, DROP_P)):
+        for o in (obs, obs_w, obs_f):
+            o = o[:args[0].shape[0]].contiguous()
+            call = lambda: cs.loss_tail_fwd(*args, o, "sigmoid", p, seed)
+            before = cs.LOSS_TAIL2_FWD.launches
+            got = call()
+            check(cs.LOSS_TAIL2_FWD.launches == before + 1, "loss_tail2_fwd: not one launch")
+            check(torch.equal(got, call()), f"loss_tail2_fwd ({o.dtype}, drop {p}) is not "
+                  "deterministic")
+            old = generic(call)
+            check(torch.equal(old, generic(call)), "loss_tail_fwd is not deterministic")
+            close(got, old, f"loss_tail2_fwd vs the generic ({o.dtype}, drop {p})", rtol=1e-5,
+                  atol=0)
+            rel = max(rel, float(((got - old).abs() / old.abs()).max()))
+            want = cs.loss_tail_fwd_plain(*args, o, "sigmoid", p, seed)
+            err["new"] = max(err["new"], close(got, want, f"loss_tail2_fwd ({o.dtype}, drop {p})",
+                                               atol=1e-3))
+            err["generic"] = max(err["generic"], close(old, want, f"loss_tail_fwd ({o.dtype})",
+                                                       atol=1e-3))
+    new = lambda: cs.loss_tail_fwd(*lt_args, obs, "sigmoid")
+    fns = {"new": new, "generic": lambda: generic(new),
+           "new u32": lambda: cs.loss_tail_fwd(*lt_args, obs_w, "sigmoid"),
+           "new f32": lambda: cs.loss_tail_fwd(*lt_args, obs_f, "sigmoid"),
+           "new drop": lambda: cs.loss_tail_fwd(*lt_drop, obs[:lt_drop[0].shape[0]], "sigmoid",
+                                                DROP_P, seed)}
+    fns["generic drop"] = lambda: generic(fns["new drop"])
+    turns = _in_turns(timer, fns, reps=10)
+    cold = {route: _cupti_us(torch, timer, fns[route], LOSS_TAIL_KERNELS, f"row 8a {route}")
+            for route in ("new", "generic")}
+    n, _, h, w = lt_args[0].shape
+    ri, tj, _ = cs._tail2_plan(n, 1, h, w, False, cs._multiprocessors(lt_args[0].device))
+    occupancy = {kind: dict(_occupancy(cuda_build, "loss_tail2_fwd", "loss_tail2_fwd_occupancy",
+                                       1, 1, drop, code,
+                                       Big(cs._loss_tail2_smem(code, 1, w, ri, tj)))[0])
+                 for kind, code, drop in (("u8", 1, 0), ("u32", 2, 0), ("f32", 0, 0),
+                                          ("u8 drop", 1, 1))}
+    check(min(o["blocks_per_sm"] for o in occupancy.values()) >= 2,
+          f"loss_tail2_fwd keeps fewer than two blocks a multiprocessor: {occupancy}")
+    taps = 2 * 4 * 1 * 1   # flops an output position: 2 x 2 inputs a channel pair
+    bound, by = bound_ms(nf * (hw // 4 * 4 + hw) + nf * 4, (taps + 3) * nf * hw, FP32_FLOPS)
+    shape = "f32 x [160,1,128,128], u8 obs [160,1,256,256], sigmoid"
+    plain_ms = timer.ms(lambda: cs.loss_tail_fwd_plain(*lt_args, obs), 5)
+    out = {}
+    for row, route in (("loss_tail2_fwd", "new"), ("loss_tail_fwd", "generic")):
+        out[row] = dict(max_abs_err=err[route], ms=turns[route][0], ms_in_turns=turns[route],
+                        ms_drop=turns[f"{route} drop"], cupti_cold_us=cold[route],
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                        launches_per_call=1, shape=shape if route == "new"
+                        else shape + " (the generic kernel forced)")
+    out["loss_tail2_fwd"].update(max_rel_err_vs_generic=rel, ms_u32_obs=turns["new u32"],
+                                 ms_f32_obs=turns["new f32"], plan=(ri, tj),
+                                 occupancy=occupancy)
+    for row in out:
+        log(f"{row} ok: {out[row]}")
+    return out
+
+
 def phase_stage_kernels(torch, timer, gen, philox):
     """The single-stage kernels and the decoder loss vs their twins at the
     autoencoder's shapes (256 x 256 universes, channels 1 -> 4 -> 2 -> 1 -> 1):
@@ -1553,28 +1649,11 @@ def phase_stage_kernels(torch, timer, gen, philox):
     for row in ("tail2_bwd", "tail_bwd"):
         log(f"{row} ok: {results[row]}")
 
-    obs_f = obs.to(torch.float32)
+    obs_f, obs_w = obs.to(torch.float32), bitpack.pack_grid(obs)
     lt_args = (mid, wt2, bt2)
-    got = cuda_stages.loss_tail_fwd(*lt_args, obs)
-    check(torch.equal(got, cuda_stages.loss_tail_fwd(*lt_args, obs)),
-          "loss_tail_fwd is not deterministic")
-    want = cuda_stages.loss_tail_fwd_plain(*lt_args, obs)
-    close(got, want, "loss_tail_fwd", atol=1e-3)
-    close(cuda_stages.loss_tail_fwd(*lt_args, obs_f), want, "loss_tail_fwd, f32 obs", atol=1e-3)
     mb, ob = mid[:nb].contiguous(), obs[:nb].contiguous()
-    close(cuda_stages.loss_tail_fwd(mb, wt2, bt2, ob, "sigmoid", DROP_P, seed),
-          cuda_stages.loss_tail_fwd_plain(mb, wt2, bt2, ob, "sigmoid", DROP_P, seed),
-          "loss_tail_fwd, dropout", atol=1e-3)
-    bound, by = bound_ms(nf * (hw // 4 * 4 + hw) + nf * 4, (taps + 3) * nf * hw, FP32_FLOPS)
-    results["loss_tail_fwd"] = dict(
-        max_abs_err=float((got - want).abs().max()),
-        max_rel_err=float(((got - want).abs() / want.abs()).max()),
-        ms=timer.ms(lambda: cuda_stages.loss_tail_fwd(*lt_args, obs), 20),
-        ms_f32_obs=timer.ms(lambda: cuda_stages.loss_tail_fwd(*lt_args, obs_f), 20),
-        plain_ms=timer.ms(lambda: cuda_stages.loss_tail_fwd_plain(*lt_args, obs), 5),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape="f32 x [160,1,128,128], u8 obs [160,1,256,256], sigmoid")
-    log(f"loss_tail_fwd ok: {results['loss_tail_fwd']}")
+    results.update(_loss_tail2_held(torch, timer, lt_args, (mb, wt2, bt2), obs, obs_w, obs_f,
+                                    seed, nf, hw, close))
     e_drop, e_plain, abs_err = backward_case(
         "loss_tail_bwd",
         lambda p: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob, gbar, "sigmoid", p, seed),
@@ -3023,11 +3102,15 @@ def phase_spatial_kernels(torch, timer, gen):
     bit for bit: uint8 one generation and 8, packed 64 with the rule as data
     and with Life fixed; a small ragged case ([2, 4 x 64, 128] uint8, 3
     universes packed, a per-universe rule).  Device ms after an L2 flush,
-    beside the engine's at the same total shape and the bound."""
+    beside the engine's at the same total shape and the bound.  Rows 13 and
+    15 also with the present kernel forced, bit for bit the route's, both
+    timed in turns with their launches a call (row 13: one launch for the 8
+    generations against 8; its CUPTI µs cold, plan, registers and blocks a
+    multiprocessor)."""
     import numpy as np
 
     from carle_tpu_torch import rules
-    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca
+    from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca
     from carle_tpu_torch.parallel import cuda_halo
     from carle_tpu_torch.parallel.mesh import gather_rows, shard_rows
 
@@ -3055,11 +3138,11 @@ def phase_spatial_kernels(torch, timer, gen):
             lambda: cuda_halo.spatial_ca_step_plain(g8, life),
             lambda: cuda_ca.ca_multi_step(grid, life_t, 1), 1, u8_bound(cells, 1),
             f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 1 generation, Life as data"),
-        "spatial_multi_step": (
+        "spatial_multi_step_bits": (
             lambda: cuda_halo.spatial_multi_step_cuda(g8, life_t, 8),
             lambda: cuda_halo.spatial_multi_step_plain(g8, life, 8),
             lambda: cuda_ca.ca_multi_step(grid, life_t, 8), 8, u8_bound(cells, 8),
-            f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 8 generations"),
+            f"u8 [1,{size},{size}] over {SPATIAL_SLOTS} slots, 8 generations, Life as data"),
         "bit_spatial_words": (
             lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, life_t, 64),
             lambda: cuda_halo.bit_spatial_multi_step_plain(g32, life, 64),
@@ -3075,11 +3158,17 @@ def phase_spatial_kernels(torch, timer, gen):
             f"u32 [1,{size},{size // 32}] over {SPATIAL_SLOTS} slots, 64 generations, "
             "Life fixed (-DSTATIC_RULE)"),
     }
-    # the packed rows twice: the redesigned launcher (the route,
-    # bit_spatial_words) and the present kernel forced (a generation a
-    # launch), timed in turns
-    present_rows = {"bit_spatial_words": "bit_spatial_multi_step",
-                    "bit_spatial_words_static": "bit_spatial_multi_step_static"}
+    # rows 13 and 15 twice: the redesigned launcher (the route:
+    # spatial_multi_step_bits, bit_spatial_words) and the present kernel
+    # forced (a generation a launch), timed in turns
+    present_u8 = lambda fn: _flag_off(cuda_halo, "HALO_U8_BITS", fn)
+    present_rows = {  # row: (present row, forcing, the new and present kernels)
+        "spatial_multi_step_bits": ("spatial_multi_step", present_u8, cuda_halo.KERNEL_U8_BITS,
+                                    cuda_halo.KERNEL_MULTI),
+        "bit_spatial_words": ("bit_spatial_multi_step", _present_packed,
+                              cuda_halo.KERNEL_BIT_WORDS, cuda_halo.KERNEL_BIT),
+        "bit_spatial_words_static": ("bit_spatial_multi_step_static", _present_packed,
+                                     cuda_halo.KERNEL_BIT_WORDS, cuda_halo.KERNEL_BIT)}
     for name, (kernel, twin, engine, steps, (b, by), shape) in cases.items():
         got = kernel()
         check(same(got, twin()), f"{name} at {size}² differs from its twin")
@@ -3096,27 +3185,38 @@ def phase_spatial_kernels(torch, timer, gen):
                                  bound_ms_per_launch=b / steps)
             log(f"{name} ok: {results[name]}")
             continue
-        old = lambda: _present_packed(kernel)
+        present_row, force, new_kernel, present_kernel = present_rows[name]
+        old = lambda: force(kernel)
         check(same(got, old()), f"{name} at {size}²: new and present kernels differ")
         launches = {}
-        for route, fn, k in (("new", kernel, cuda_halo.KERNEL_BIT_WORDS),
-                             ("present", old, cuda_halo.KERNEL_BIT)):
+        for route, fn, k in (("new", kernel, new_kernel), ("present", old, present_kernel)):
             before = k.launches
             fn()
             launches[route] = k.launches - before
         timed = {}
         for route in ("new", "present", "new", "present"):
             timed.setdefault(route, []).append(timer.ms(kernel if route == "new" else old, 5))
-        for row, route in ((name, "new"), (present_rows[name], "present")):
+        for row, route in ((name, "new"), (present_row, "present")):
             results[row] = dict(common, ms=timed[route][0], ms_in_turns=timed[route],
                                 launches_per_call=launches[route],
                                 ms_per_launch=timed[route][0] / launches[route],
                                 bound_ms_per_launch=b / launches[route])
-        results[name]["plan"] = cuda_halo.halo_plan(1, size // SPATIAL_SLOTS, size // 32, steps,
-                                                    SPATIAL_SLOTS,
-                                                    cuda_ca._multiprocessors(dev))
+        if name == "spatial_multi_step_bits":
+            check(launches == {"new": 1, "present": steps},
+                  f"{name}: {launches} launches a call, not 1 and {steps}")
+            t, v, rows, strip, threads = plan = cuda_halo.u8_halo_plan(size // SPATIAL_SLOTS,
+                                                                       size, steps)
+            results[name].update(plan=plan, occupancy=_occupancy(
+                cuda_build, "halo_step", "u8_halo_bits_occupancy", v, rows, t, size // 32,
+                threads)[0], cupti_cold_us={
+                    route: _cupti_us(torch, timer, fn, U8_HALO_KERNELS, f"row 13 {route}")
+                    for route, fn in (("new", kernel), ("present", old))})
+        else:
+            results[name]["plan"] = cuda_halo.halo_plan(1, size // SPATIAL_SLOTS, size // 32,
+                                                        steps, SPATIAL_SLOTS,
+                                                        cuda_ca._multiprocessors(dev))
         log(f"{name} ok: {results[name]}")
-        log(f"{present_rows[name]} (present kernel forced) ok: {results[present_rows[name]]}")
+        log(f"{present_row} (present kernel forced) ok: {results[present_row]}")
     results["bit_spatial_words"]["one_generation"] = _halo_one_generation(
         torch, timer, g32, words, size)
     # the ragged case: 3 universes, a per-universe rule, rows 4 x 64 over 4 slots
@@ -4153,11 +4253,12 @@ def main() -> int:
         return 1
     generic = {f"{path}:{k}": c[k] for path, c in path_counts.items()
                for k in GENERIC_ENCODER + GENERIC_DECODER + GENERIC_TAIL + BYTE_CA_STEP
-               + PRESENT_PACKED + PRESENT_STATIC + GENERIC_HEAD_BWD if c[k]}
+               + PRESENT_PACKED + PRESENT_STATIC + GENERIC_HEAD_BWD + PRESENT_U8_HALO
+               + GENERIC_LOSS_TAIL_FWD if c[k]}
     if generic:
-        log(f"FAIL: generic encoder, decoder-loss, tail or head-backward kernels, the "
-            f"byte ca_step kernel or the present packed or uint8 engines or halo kernel "
-            f"launched on the main paths: {generic}")
+        log(f"FAIL: generic encoder, decoder-loss, tail, loss-tail or head-backward "
+            f"kernels, the byte ca_step kernel or the present packed or uint8 engines or "
+            f"halo kernels launched on the main paths: {generic}")
         return 1
     ae_launches = {path: {k: c[k] for ks in AE_INSTANTIATIONS.values() for k in ks}
                    for path, c in path_counts.items()}

@@ -70,6 +70,27 @@ each taken in a fresh process.
         warp and of 256 threads) held bit for bit against the present kernel
         and timed in turns with it (device ms, chip_smoke.py's Timer), with
         each plan's registers, spills and blocks a multiprocessor.
+    python scripts/port_ab.py rows-13-8a --root DIR
+        the uint8 halo burst (PERF.md row 13: 8 generations of one universe
+        of 8192² over 4 mesh slots, Life on the card), the packed halo
+        kernel (row 15: the same universe packed, 64 generations) and the
+        loss tail's forward (row 8a: x [160,1,128,128] float32 after a relu,
+        obs [160,1,256,256] uint8 and packed, sigmoid) on the checkout's
+        routes, timed in turns (device ms, chip_smoke.py's Timer) with each
+        row's CUPTI µs cold, and digests of their outputs (equal digests from
+        two checkouts: the same bits).  Where the checkout has them, also
+        the present uint8 kernel and the generic loss tail forced, each held
+        against the route's output, and the new kernels' plans, registers and
+        blocks a multiprocessor.
+    python scripts/port_ab.py plans-13-8a
+        forced plans of rows 13 and 8a's redesigned kernels, each held
+        against the route's output and timed in turns (device ms, chip_smoke.py's
+        Timer) with its CUPTI µs cold: the uint8 halo burst (PERF.md row 13,
+        8 generations of 8192² over 4 slots; bands and threads a block, with
+        their registers and blocks a multiprocessor) and the loss tail's
+        forward (row 8a, x [160 or 64,1,128,128] float32 after a relu, obs
+        uint8, sigmoid; an item's rows), beside the plain tail's forward
+        (row 7a, tail2_fwd.cu) at the same shape.
     python scripts/port_ab.py head-times --root DIR
         the head's backward (PERF.md row 9b) at its three cases (AE conv1 on
         64 x 256² uint8 cells, RND conv1 at pool 4, AE conv2 on float32 with
@@ -323,6 +344,140 @@ def engine_plans(torch) -> dict:
         times = chip_smoke._in_turns(timer, {name: e["fn"] for name, e in plans.items()})
         out[row] = {name: {"ms": times[name], **{k: v for k, v in e.items() if k != "fn"}}
                     for name, e in plans.items()}
+    return out
+
+
+def _rows_13_8a_inputs(torch, gen, n: int = 160):
+    """Row 13's universe (u8 [1,8192,8192], ~30% alive) and row 8a's inputs
+    (x [n,1,128,128] float32 after a relu, wt, b, obs [n,1,256,256] uint8)
+    on the card, from ``gen``."""
+    dev = gen.device
+    grid = (torch.rand((1, 8192, 8192), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    x = torch.relu(torch.randn((n, 1, 128, 128), generator=gen, device=dev))
+    wt = torch.randn((1, 1, 4, 4), generator=gen, device=dev) * 0.3
+    b = torch.randn((1,), generator=gen, device=dev) * 0.3
+    obs = (torch.rand((n, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    return grid, (x, wt, b, obs)
+
+
+def rows_13_8a(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import bitpack, cuda_build, cuda_stages
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    timer = chip_smoke.Timer(torch)
+    size, slots = 8192, 4
+    grid, (x, wt, b, obs) = _rows_13_8a_inputs(torch, gen)
+    mesh = chip_smoke._spatial_mesh(torch)
+    g8, g32 = shard_rows(grid, mesh), shard_rows(bitpack.pack_grid(grid), mesh)
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=dev)
+    o32 = bitpack.pack_grid(obs)
+    rows = {"row 13": {"route": lambda: cuda_halo.spatial_multi_step_cuda(g8, life, 8)},
+            "row 15": {"route": lambda: cuda_halo.bit_spatial_multi_step_cuda(g32, life, 64)},
+            "row 8a": {"route": lambda: cuda_stages.loss_tail_fwd(x, wt, b, obs, "sigmoid"),
+                       "route u32 obs": lambda: cuda_stages.loss_tail_fwd(x, wt, b, o32,
+                                                                          "sigmoid")}}
+    cupti = {"row 13": ("halo_u8_kernel", "bit_blocks_kernel"),
+             "row 15": ("bit_blocks_kernel", "bit_stream_kernel", "bit_halo_kernel"),
+             "row 8a": ("tail_fwd_kernel", "tail2_fwd_kernel", "row_sums_kernel")}
+    out = {}
+    if hasattr(cuda_halo, "HALO_U8_BITS"):
+        hl = size // slots
+        plan = cuda_halo.u8_halo_plan(hl, size, 8)
+        rows["row 13"]["present"] = lambda: chip_smoke._flag_off(
+            cuda_halo, "HALO_U8_BITS", rows["row 13"]["route"])
+        out["row 13 plan"] = plan
+        out["row 13 occupancy"] = chip_smoke._occupancy(
+            cuda_build, "halo_step", "u8_halo_bits_occupancy", plan[1], plan[2], plan[0],
+            size // 32, plan[4])[0]
+    if hasattr(cuda_stages, "LOSS_TAIL2_KERNELS"):
+        rows["row 8a"]["generic"] = lambda: chip_smoke._flag_off(
+            cuda_stages, "LOSS_TAIL2_KERNELS", rows["row 8a"]["route"])
+        ri, tj, _ = cuda_stages._tail2_plan(160, 1, 128, 128, False,
+                                            cuda_stages._multiprocessors(dev))
+        out["row 8a plan"] = (ri, tj)
+        out["row 8a occupancy"] = {
+            kind: chip_smoke._occupancy(
+                cuda_build, "loss_tail2_fwd", "loss_tail2_fwd_occupancy", 1, 1, 0, code,
+                chip_smoke.Big(cuda_stages._loss_tail2_smem(code, 1, 128, ri, tj)))[0]
+            for kind, code in (("u8", 1), ("u32", 2), ("f32", 0))}
+    for row, fns in rows.items():
+        outs = {name: fn() for name, fn in fns.items()}
+        first = outs["route"]
+        if row == "row 8a":
+            for name, got in outs.items():
+                rel = float(((got - first).abs() / first.abs()).max())
+                if rel > 1e-5:
+                    raise AssertionError(f"{row} {name} differs from the route by {rel}")
+            out[f"{row} digest"] = _digest([first])
+        else:
+            for name, got in outs.items():
+                if not all(torch.equal(a, c) for a, c in zip(got.parts, first.parts)):
+                    raise AssertionError(f"{row} {name} differs from the route")
+            out[f"{row} digest"] = _digest([gather_rows(first)])
+        del outs, first
+        out[f"{row} ms"] = chip_smoke._in_turns(timer, fns, rounds=2, reps=5)
+        out[f"{row} cupti cold us"] = {
+            name: chip_smoke._cupti_us(torch, timer, fn, cupti[row], f"{row} {name}")
+            for name, fn in fns.items()}
+    return out
+
+
+def plans_13_8a(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import cuda_build, cuda_stages
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import shard_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    timer = chip_smoke.Timer(torch)
+    out = {}
+    size = 8192
+    grid, _ = _rows_13_8a_inputs(torch, gen)
+    g8 = shard_rows(grid, chip_smoke._spatial_mesh(torch))
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=dev)
+    route = cuda_halo.spatial_multi_step_cuda(g8, life, 8)
+    hl, nw = size // len(g8.parts), size // 32
+    fns, occupancy = {}, {}
+    for rows, threads in ((64, 512), (32, 256), (40, 256), (32, 512), (64, 256)):
+        plan = (8, 4, rows, cuda_halo._strip(rows, 8, nw // 4), threads)
+        fn = (lambda plan=plan: cuda_halo._launch_u8_bits(g8, life, 8, plan))
+        if not all(torch.equal(a, c) for a, c in zip(fn().parts, route.parts)):
+            raise AssertionError(f"row 13 at plan {plan} differs from the route")
+        fns[f"plan {plan}"] = fn
+        occupancy[f"plan {plan}"] = chip_smoke._occupancy(
+            cuda_build, "halo_step", "u8_halo_bits_occupancy", 4, rows, 8, nw, threads)[0]
+    out["row 13"] = {"route plan": cuda_halo.u8_halo_plan(hl, size, 8), "occupancy": occupancy,
+                     "ms": chip_smoke._in_turns(timer, fns, rounds=2, reps=5),
+                     "cupti cold us": {name: chip_smoke._cupti_us(
+                         torch, timer, fn, ("bit_blocks_kernel",), name)
+                         for name, fn in fns.items()}}
+    del grid, g8, route, fns
+    for n in (160, 64):
+        _, (x, wt, b, obs) = _rows_13_8a_inputs(torch, gen, n)
+        args = (x, wt, b, obs, "sigmoid", 0.0, 0, cuda_stages.STAGE_DEC2)
+        want = cuda_stages.loss_tail_fwd(*args[:5])
+        fns = {}
+        for plan in ((16, 128), (8, 128), (4, 128), (2, 128), (32, 128)):
+            fn = (lambda plan=plan: cuda_stages._loss_tail2_fwd_kernel(*args, plan=plan))
+            rel = float(((fn() - want).abs() / want.abs()).max())
+            if rel > 1e-5:
+                raise AssertionError(f"row 8a at plan {plan} differs from the route by {rel}")
+            fns[f"plan {plan}"] = fn
+        fns["tail2_fwd"] = lambda: cuda_stages.tail(x, wt, b, "sigmoid")
+        out[f"row 8a at {n}"] = {
+            "route plan": cuda_stages._tail2_plan(n, 1, 128, 128, False,
+                                                  cuda_stages._multiprocessors(dev))[:2],
+            "ms": chip_smoke._in_turns(timer, fns, rounds=2, reps=5),
+            "cupti cold us": {name: chip_smoke._cupti_us(
+                torch, timer, fn, ("loss_tail2_fwd_kernel", "row_sums_kernel",
+                                   "tail2_fwd_kernel"), name) for name, fn in fns.items()}}
     return out
 
 
@@ -694,7 +849,7 @@ def main() -> int:
                                          "profile-wrappers", "profile-spatial",
                                          "encoder-times", "decoder-gx", "host-encoder",
                                          "packed-times", "static-plans", "engine-plans",
-                                         "head-times",
+                                         "head-times", "rows-13-8a", "plans-13-8a",
                                          "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--generic", action="store_true",
@@ -733,6 +888,10 @@ def main() -> int:
         result = engine_plans(torch)
     elif args.what == "head-times":
         result = head_times(torch)
+    elif args.what == "rows-13-8a":
+        result = rows_13_8a(torch)
+    elif args.what == "plans-13-8a":
+        result = plans_13_8a(torch)
     else:
         import chip_smoke
 

@@ -1012,6 +1012,79 @@ def test_head_kernels_in_column_tiles(cuda, monkeypatch, drop_p):
         assert float((a - t).abs().max() / t.abs().max()) < 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_u8_halo_bits_match_present_and_plain(cuda, slots):
+    """Row 13's redesigned launcher (spatial_multi_step_bits) against the
+    present kernel forced (HALO_U8_BITS = False), the twin and the uint8
+    engine, bit for bit: K = 2, 6 and 9 (two chunks), scalar and
+    per-universe rules, u8_halo_plan's plan and forced ones (T = 2 on bands
+    of 5 rows, V = 1 on one warp), one launch a chunk a device."""
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
+
+    mesh = make_mesh([cuda] * slots, "space")
+    grid = torch.from_numpy(_soup(slots + 20, (3, 4 * 64, 128))).to(cuda)
+    vec = torch.tensor([rules.LIFE, rules.MORLEY, rules.DAY_AND_NIGHT], dtype=torch.int32,
+                       device=cuda)
+    for rule in (rules.LIFE, vec):
+        for steps in (2, 6, 9):
+            x = shard_rows(grid, mesh)
+            want = cuda_ca.ca_multi_step(grid, rule, steps)
+            twin = cuda_halo.spatial_multi_step_plain(x, rule, steps)
+            cuda_halo.HALO_U8_BITS = False
+            try:
+                present = cuda_halo.spatial_multi_step_cuda(x, rule, steps)
+            finally:
+                cuda_halo.HALO_U8_BITS = True
+            assert all(torch.equal(a, b) for a, b in zip(present.parts, twin.parts))
+            before = cuda_halo.KERNEL_U8_BITS.launches
+            got = cuda_halo.spatial_multi_step_cuda(x, rule, steps)
+            assert cuda_halo.KERNEL_U8_BITS.launches == before + -(-steps // 8)
+            assert torch.equal(gather_rows(got), want)
+            for plan in ((2, 4, 5, 2, 64), (8, 1, 64, 3, 32)):
+                got = cuda_halo._launch_u8_bits(x, rule, steps, plan)
+                assert all(torch.equal(a, b) for a, b in zip(got.parts, twin.parts)), plan
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("geom", [  # n, cin, h, w, act, stage
+    (8, 2, 64, 64, "relu", 2),           # AE deconv1
+    (8, 1, 128, 128, "sigmoid", 3),      # AE deconv2
+    (2, 2, 37, 90, "sigmoid", 3),        # ragged bands and tiles
+])
+def test_loss_tail2_matches_generic(cuda, geom, drop_p):
+    """The loss tail's forward at the package's widths against the generic
+    kernel forced (LOSS_TAIL2_KERNELS = False) within rtol 1e-5 (the same
+    terms, added in another order) and bit for bit from run to run, over
+    uint8, packed and float32 obs; one launch a call."""
+    n, cin, h, w, act, stage = geom
+    rng = np.random.RandomState(5 * h + cin)
+    x = torch.from_numpy(np.maximum(rng.randn(n, cin, h, w), 0).astype(np.float32)).to(cuda)
+    wt, b = (p.to(cuda) for p in _params(rng, [(cin, 1, 4, 4), (1,)]))
+    cells = torch.from_numpy(_soup(n + h, (n, 1, 2 * h, 2 * w), 0.3)).to(cuda)
+    obs_kinds = [cells, cells.float() * 0.75]
+    if (2 * w) % 32 == 0:
+        obs_kinds.append(bitpack.pack_grid(cells))
+    args = (act, drop_p, 4321, stage)
+    assert cuda_stages.loss_tail_route(cin, 1, w)
+    for obs in obs_kinds:
+        before = cuda_stages.LOSS_TAIL2_FWD.launches
+        err = cuda_stages.loss_tail_fwd(x, wt, b, obs, *args)
+        assert cuda_stages.LOSS_TAIL2_FWD.launches == before + 1
+        assert torch.equal(err, cuda_stages.loss_tail_fwd(x, wt, b, obs, *args))
+        try:
+            cuda_stages.LOSS_TAIL2_KERNELS = False
+            generic = cuda_stages.loss_tail_fwd(x, wt, b, obs, *args)
+        finally:
+            cuda_stages.LOSS_TAIL2_KERNELS = True
+        torch.testing.assert_close(err, generic, rtol=1e-5, atol=0)
+        torch.testing.assert_close(err, cuda_stages.loss_tail_fwd_plain(x, wt, b, obs, *args),
+                                   rtol=1e-4, atol=1e-4)
+
+
 def test_launch_table_covers_every_source():
     assert {k.source for k in cuda_build.KERNELS.values()} == set(cuda_build.SOURCES)
     for name in cuda_build.SOURCES:
