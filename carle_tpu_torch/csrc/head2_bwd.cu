@@ -50,30 +50,14 @@
 // Every pre-activation is summed in the generic kernel's order (bias, then
 // channel, dy, dx), so the activations and the pool ties are its own; only
 // the weight-gradient sums run in another order.
-#include "bit_table.cuh"
+#include "head2.cuh"
 
-constexpr int HEAD2_THREADS = 256;
 // Resident blocks a multiprocessor each instantiation is compiled for (its
 // register cap): two on cells (124 registers at pool 2 without a spill, 128
 // and 24 bytes spilled at pool 4, on an H100); one on floats, whose 74 sums
 // of dW and db and the window's 4 x 4 x 4 inputs spilled 544 bytes a thread
 // at two (225 registers at one).
 constexpr int head2_blocks(int C) { return C == 1 ? 2 : 1; }
-
-// The universe [H, W] of each instance and a tile: RB pooled rows, TW pooled
-// columns (TW >= W / P: the whole width).
-struct Head2Shape {
-    int N, H, W, RB, TW;
-};
-
-// w [O, C, 3, 3], b [O], float32, contiguous.
-struct Head2Weights {
-    const float *w, *b;
-};
-
-// Words a staged bit row needs for TW windows of P cells (bit_table.cuh's
-// window_indices reads one word past its last).
-__host__ __device__ inline int head2_words(int P, int TW) { return (P * TW + 2 + 62) / 32 + 1; }
 
 // Shared memory: on cells the table (512 entries of 4 channels), the spread
 // table, the bit rows (P RB + 2 of them) and the warps' partial sums; on
@@ -90,23 +74,6 @@ __host__ __device__ inline size_t head2_bwd_smem(int C, int O, int P, int binary
     return 4 * (static_cast<size_t>(C) * XR * XW +
                 (dx ? static_cast<size_t>(O) * 2 * (RB + 2) * 2 * (TW + 2) : 0)) + red;
 }
-
-// Tile t of the launch: instance n, pooled rows [o0, o0 + R), pooled columns
-// [oc0, oc0 + TC).
-struct Head2Tile {
-    int n, o0, R, oc0, TC;
-    __device__ Head2Tile(const Head2Shape& s, int P, int t) {
-        const int Ho = s.H / P, Wo = s.W / P;
-        const int tiles = (Wo + s.TW - 1) / s.TW, bands = (Ho + s.RB - 1) / s.RB;
-        n = t / (bands * tiles);
-        const int rest = t - n * bands * tiles;
-        const int band = rest / tiles, tile = rest - band * tiles;
-        o0 = band * s.RB;
-        R = min(s.RB, Ho - o0);
-        oc0 = tile * s.TW;
-        TC = min(s.TW, Wo - oc0);
-    }
-};
 
 // The block's K = O C 9 + O sums (dW, then db) into its partial row, and the
 // last block's fixed-order sum of all rows into grads.  red holds
@@ -192,7 +159,7 @@ head2_cells_kernel(const SRC* __restrict__ x, Head2Weights wp, const float* __re
     build_spread<P>(spread);
 
     const int Ho = sh.H / P, Wo = sh.W / P;
-    const int tiles = sh.N * ((Ho + sh.RB - 1) / sh.RB) * ((Wo + sh.TW - 1) / sh.TW);
+    const int tiles = head2_tiles(sh, P);
     float acc[K];   // dW [4][9], then db [4]
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.f;
@@ -269,7 +236,7 @@ head2_floats_kernel(const float* __restrict__ x, Head2Weights wp, const float* _
     copy_floats(bs, wp.b, O);
 
     const int Ho = sh.H / 2, Wo = sh.W / 2;
-    const int tiles = sh.N * ((Ho + sh.RB - 1) / sh.RB) * ((Wo + sh.TW - 1) / sh.TW);
+    const int tiles = head2_tiles(sh, 2);
     float acc[K];   // dW [O][C][9], then db [O]
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[k] = 0.f;
@@ -277,16 +244,8 @@ head2_floats_kernel(const float* __restrict__ x, Head2Weights wp, const float* _
         const Head2Tile tl(sh, 2, t);
         const int X0 = 2 * (tl.o0 - HALO) - 1, XC0 = 2 * (tl.oc0 - HALO) - 1;
         __syncthreads();   // the last tile's xs and gcs are read
-        const float* x_n = x + static_cast<size_t>(tl.n) * C * sh.H * sh.W;
-        grid_walk(XR, XW, [&](int lr, int lc) {
-            const int r = X0 + lr, col = XC0 + lc;
-            const bool inside = r >= 0 && r < sh.H && col >= 0 && col < sh.W;
-            const size_t at = inside ? static_cast<size_t>(r) * sh.W + col : 0;
-#pragma unroll
-            for (int c = 0; c < C; ++c)
-                copy_async4(xs + (c * XR + lr) * XW + lc,
-                            x_n + static_cast<size_t>(c) * sh.H * sh.W + at, inside);
-        });
+        head2_stage_floats<C>(xs, x + static_cast<size_t>(tl.n) * C * sh.H * sh.W, X0, XR, XC0,
+                              XW, sh.H, sh.W);
         copies_wait();
         __syncthreads();
         const float* gn = g + static_cast<size_t>(tl.n) * O * Ho * Wo;

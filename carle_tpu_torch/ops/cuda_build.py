@@ -39,9 +39,9 @@ NVCC_FLAGS = (
 )
 SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss_fwd",
            "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "enc3_fwd", "enc3_bwd",
-           "head_fwd", "head_bwd", "head2_bwd", "tail", "tail2_fwd", "tail2_bwd",
-           "loss_tail2_fwd", "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd", "dec2_bwd",
-           "halo_step")
+           "head_fwd", "head2_fwd", "head_bwd", "head2_bwd", "tail", "tail2_fwd", "tail2_bwd",
+           "loss_tail2_fwd", "loss_tail2_bwd", "decoder_loss_fwd", "decoder_loss_bwd",
+           "dec2_fwd", "dec2_bwd", "halo_step")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -223,6 +223,8 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 11 + [I] * 9 + [LL, I, D, I, P]),
         CudaKernel("head_fwd", "head_fwd_launch",
                    [P] * 4 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
+        CudaKernel("head2_fwd", "head2_fwd_launch",
+                   [P] * 4 + [I] * 9 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("head_bwd", "head_bwd_launch",
                    [P] * 8 + [I] * 8 + [LL, I, I, D, ULL, I, P]),
         CudaKernel("head2_bwd", "head2_bwd_launch",
@@ -241,6 +243,8 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P] * 8 + [I] * 6 + [LL, I, I, I, D, ULL, I, P], source="tail"),
         CudaKernel("loss_tail2_fwd", "loss_tail2_fwd_launch",
                    [P] * 6 + [I] * 6 + [LL, I, I, I, D, ULL, I, P]),
+        CudaKernel("loss_tail2_bwd", "loss_tail2_bwd_launch",
+                   [P] * 8 + [I] * 6 + [LL, I, I, I, D, ULL, I, P]),
         CudaKernel("decoder_loss_fwd", "decoder_loss_fwd_launch",
                    [P] * 9 + [I] * 8 + [LL, I, D, ULL, I, P]),
         CudaKernel("decoder_loss_bwd", "decoder_loss_bwd_launch",

@@ -7,12 +7,14 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
   backward gives dW, db and, with ``need_dx``, the input cotangent; a
   universe too wide for one band of the whole width (8192 cells at 1 -> 4
   channels) runs in column tiles (``_head_bands``).  At the package's three
-  stage widths (C, O, pool) = (1, 4, 2), (1, 4, 4) and (4, 2, 2) the
-  backward runs the kernel specialised for them (``csrc/head2_bwd.cu``;
-  :func:`head_route`): one pass a pool window, stage 1 on cells by table,
-  gx in the same launch from a tile of gc with its halo recomputed, the
-  blocks' sums added in a fixed order by the last block; other widths take
-  the generic kernel;
+  stage widths (C, O, pool) = (1, 4, 2), (1, 4, 4) and (4, 2, 2) it runs the
+  kernels specialised for them: the forward ``csrc/head2_fwd.cu``
+  (:func:`head_fwd_route`: cells by one lookup in copies of a table, four
+  pool windows a thread stored 16 bytes a channel), the backward
+  ``csrc/head2_bwd.cu`` (:func:`head_route`: one pass a pool window, stage 1
+  on cells by table, gx in the same launch from a tile of gc with its halo
+  recomputed, the blocks' sums added in a fixed order by the last block);
+  other widths take the generic kernels;
 * :func:`tail` — ``act(drop(conv_transpose2d(x)))`` (k4, s2, p1), act relu or
   sigmoid; backward dW, db, gx.  At the package's two stage widths (CIN,
   COUT) = (2, 1) and (1, 1) it runs the kernels specialised for them
@@ -21,11 +23,12 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
   the backward draws none, small blocks (:func:`_tail2_plan`); other widths
   take the generic kernel;
 * :func:`loss_tail` — the tail fused with ``sum((obs - y)**2)`` per instance;
-  its forward at the tail's two stage widths runs the kernel specialised for
-  them (``csrc/loss_tail2_fwd.cu``; :func:`loss_tail_route`): the tail's
-  parity stencils, the obs staged beside the input window, the error summed
-  in registers and a fixed order; other widths, and its backward, take the
-  generic kernel;
+  at the tail's two stage widths it runs the kernels specialised for them
+  (``csrc/loss_tail2_fwd.cu``, ``loss_tail2_bwd.cu``; :func:`loss_tail_route`):
+  the tail's parity stencils, the obs staged beside the input window, the
+  error summed in registers and a fixed order; the backward the tail's
+  (``tail2_bwd.cuh``) with obs staged where g was; other widths take the
+  generic kernels;
 * :func:`decoder_loss` — both decoder stages fused with that error; backward
   the four parameter gradients and ``gx``, the embedding's cotangent, which
   flows on into :func:`cuda_head.encoder`'s backward.  Optional per-instance
@@ -40,8 +43,9 @@ carle_tpu/ops/pallas_head.py's ``make_fused_head``, ``make_fused_tail``,
 
 Each is a ``torch.autograd.Function`` that saves its inputs and the seed and
 recomputes in the backward, launches its kernels (``csrc/head_fwd.cu``,
-``head_bwd.cu``, ``head2_bwd.cu``, ``tail.cu``, ``tail2_fwd.cu``, ``tail2_bwd.cu``,
-``loss_tail2_fwd.cu``, ``decoder_loss_fwd.cu``, ``decoder_loss_bwd.cu``)
+``head2_fwd.cu``, ``head_bwd.cu``, ``head2_bwd.cu``, ``tail.cu``, ``tail2_fwd.cu``,
+``tail2_bwd.cu``, ``loss_tail2_fwd.cu``, ``loss_tail2_bwd.cu``,
+``decoder_loss_fwd.cu``, ``decoder_loss_bwd.cu``)
 for CUDA tensors and takes its plain twin (``*_plain``) for CPU tensors.
 
 Dropout draws the Philox bit of the element at a dropout *stage*
@@ -99,21 +103,24 @@ TAIL2_THREADS = 256                # csrc/tail2.cuh: threads a block
 TAIL2_TILES = (128, 64)            # input columns a block, forward and backward
 TAIL2_BANDS = ((16, 8, 4, 2, 1), (32, 16, 8, 4, 2, 1))   # input rows a block
 TAIL2_WAVES = (2, 1)               # blocks a multiprocessor the plans' grids reach
-LOSS_TAIL2_FWD = KERNELS["loss_tail2_fwd"]
-# The loss tail's forward at TAIL2_WIDTHS runs the kernel specialised for them
-# (:func:`loss_tail_route`); False runs the generic kernel there too, to hold
+LOSS_TAIL2_FWD, LOSS_TAIL2_BWD = KERNELS["loss_tail2_fwd"], KERNELS["loss_tail2_bwd"]
+# The loss tail at TAIL2_WIDTHS runs the kernels specialised for them
+# (:func:`loss_tail_route`); False runs the generic kernels there too, to hold
 # one against the other.
 LOSS_TAIL2_KERNELS = True
 ACTS = {"relu": 0, "sigmoid": 1}    # csrc/tail.cu, csrc/tail2.cuh
 HEAD_POOLS = (2, 4, 8)              # the head kernels' instantiations
-HEAD2_BWD = KERNELS["head2_bwd"]
-# The head's backward at these widths (C, O, pool) runs the kernel
-# specialised for them (:func:`head_route`); False runs the generic kernel
-# there too, to hold one against the other.
+HEAD2_FWD, HEAD2_BWD = KERNELS["head2_fwd"], KERNELS["head2_bwd"]
+# The head at these widths (C, O, pool) runs the kernels specialised for them
+# (:func:`head_fwd_route`, :func:`head_route`); False runs the generic
+# kernels there too, to hold one against the other.
 HEAD2_WIDTHS = ((1, 4, 2), (1, 4, 4), (4, 2, 2))
 HEAD2_KERNELS = True
-HEAD2_THREADS = 256     # csrc/head2_bwd.cu: threads a block
+HEAD2_THREADS = 256     # csrc/head2.cuh: threads a block
 HEAD2_BLOCKS = {1: 2, 4: 1}   # csrc/head2_bwd.cu::head2_blocks: blocks a multiprocessor by C
+# csrc/head2_fwd.cu's HEAD2_FWD_CELL_BLOCKS, HEAD2_FWD_FLOAT_BLOCKS: blocks a
+# multiprocessor on cells (True) and on floats
+HEAD2_FWD_BLOCKS = {True: 3, False: 2}
 HEAD2_TILE = 128        # pooled columns a tile at most
 HEAD2_BANDS = (16, 8, 4, 2, 1)   # pooled rows a tile
 
@@ -125,8 +132,8 @@ __all__ = ["head", "tail", "loss_tail", "decoder_loss",
            "decoder_loss_bwd_plain", "DEC2_FWD", "DEC2_BWD", "DEC2_WIDTHS", "DEC2_KERNELS",
            "Dec2Saved", "decoder_route", "dec2_keep_masks", "TAIL2_FWD", "TAIL2_BWD",
            "TAIL2_WIDTHS", "TAIL2_KERNELS", "tail_route", "tail2_keep_mask", "LOSS_TAIL2_FWD",
-           "LOSS_TAIL2_KERNELS", "loss_tail_route", "HEAD2_BWD",
-           "HEAD2_WIDTHS", "HEAD2_KERNELS", "head_route"]
+           "LOSS_TAIL2_BWD", "LOSS_TAIL2_KERNELS", "loss_tail_route", "HEAD2_FWD", "HEAD2_BWD",
+           "HEAD2_WIDTHS", "HEAD2_KERNELS", "head_fwd_route", "head_route"]
 
 
 def _check_pool(pool: int) -> None:
@@ -331,6 +338,8 @@ def _head_fwd_kernel(x, w, b, pool, drop_p, seed, stage):
     _check_drop(drop_p)
     n, c, o, h, wd = _head_shape(x, w, b, pool)
     _check_tensors(x, [("w", w), ("b", b)], [("x", x)])
+    if head_fwd_route(c, o, pool, wd, cell_kind(x)):
+        return _head2_fwd_kernel(x, w, b, pool, drop_p, seed, stage)
     r, tc, smem = _head_bands(c, o, h, wd, pool, cuda_head.TILE_CELLS)[0]
     x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     out = _empty(x, n, o, h // pool, wd // pool)
@@ -374,7 +383,20 @@ def _head_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx):
     return (*_split(grads, shapes), gx)
 
 
-# -- the head's backward at the package's three stage widths (csrc/head2_bwd.cu)
+# -- the head at the package's three stage widths (csrc/head2_fwd.cu, head2_bwd.cu)
+
+
+def head_fwd_route(c: int, o: int, pool: int, w: int, kind: int) -> bool:
+    """Whether the head's forward with ``c`` -> ``o`` channels at ``pool`` on
+    x of cell kind ``kind`` and width ``w`` runs the kernel specialised for
+    its widths (csrc/head2_fwd.cu::head2_fwd_takes): the first stage (1, 4)
+    on cells (uint8 rows whole 4-byte words) at pool 2 or 4 or on floats at
+    pool 2; the second (4, 2) at pool 2 on floats."""
+    if not HEAD2_KERNELS or (c, o, pool) not in HEAD2_WIDTHS:
+        return False
+    if c == 4:
+        return kind == 0
+    return kind == 2 or (kind == 1 and w % 4 == 0) or (kind == 0 and pool == 2)
 
 
 def head_route(c: int, o: int, pool: int, w: int, kind: int, need_dx: bool) -> bool:
@@ -415,13 +437,53 @@ def _head2_plan(n: int, c: int, o: int, pool: int, h: int, w: int, binary: bool,
     share their table and their ring of recomputed windows over more windows;
     on an H100 the tallest such tiles timed best at the three widths' main
     shapes (scripts/port_ab.py head-times)."""
-    ho, wo = h // pool, w // pool
+    return _head2_tiles(n, h // pool, w // pool, HEAD2_BLOCKS[c] * sms,
+                        lambda rb, tw: _head2_bwd_smem(c, o, pool, binary, need_dx, rb, tw))
+
+
+def _head2_tiles(n, ho, wo, slots, smem_of):
+    """(RB, TW, blocks) of :func:`_head2_plan`'s rule for ``slots`` resident
+    blocks and a block's shared memory ``smem_of(rb, tw)``."""
     tw = min(wo, HEAD2_TILE)
-    slots = HEAD2_BLOCKS[c] * sms
-    fits = [rb for rb in HEAD2_BANDS
-            if _head2_bwd_smem(c, o, pool, binary, need_dx, rb, tw) <= SMEM_MAX]
+    fits = [rb for rb in HEAD2_BANDS if smem_of(rb, tw) <= SMEM_MAX]
     rb = next((rb for rb in fits if n * -(-ho // rb) * -(-wo // tw) >= slots), fits[-1])
     return rb, tw, min(n * -(-ho // rb) * -(-wo // tw), slots)
+
+
+def _head2_fwd_smem(c, o, pool, binary, rb, tw) -> int:
+    """csrc/head2_fwd.cu::head2_fwd_smem: on cells 9 tables (8 copies and the
+    one they are copied from)."""
+    if binary:
+        return 4 * 512 * o * 9 + 4 * (pool * rb + 2) * ((pool * tw + 2 + 62) // 32 + 1)
+    return 4 * c * (2 * rb + 2) * (2 * tw + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _head2_fwd_plan(n: int, c: int, o: int, pool: int, h: int, w: int, binary: bool,
+                    sms: int = SM_COUNT):
+    """(RB pooled rows, TW pooled columns, blocks) of a launch of the
+    specialised forward: :func:`_head2_plan`'s rule with the forward's shared
+    memory and HEAD2_FWD_BLOCKS[binary] resident blocks a multiprocessor."""
+    return _head2_tiles(n, h // pool, w // pool, HEAD2_FWD_BLOCKS[binary] * sms,
+                        lambda rb, tw: _head2_fwd_smem(c, o, pool, binary, rb, tw))
+
+
+def _head2_fwd_kernel(x, w, b, pool, drop_p, seed, stage, plan=None):
+    """The specialised forward on checked inputs at a width
+    :func:`head_fwd_route` takes; ``plan`` (RB, TW, blocks) overrides
+    :func:`_head2_fwd_plan`."""
+    (n, c, h, wd), o = cell_shape(x), w.shape[0]
+    kind = cell_kind(x)
+    rb, tw, grid = plan or _head2_fwd_plan(n, c, o, pool, h, wd, kind != 0,
+                                           _multiprocessors(x.device))
+    x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
+    out = _empty(x, n, o, h // pool, wd // pool)
+    device, stream = stream_args(x)
+    HEAD2_FWD.launch(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, c, o, h, wd,
+                     pool, rb, tw, grid, _head2_fwd_smem(c, o, pool, kind != 0, rb, tw), kind,
+                     int(stage), float(drop_p), _seed_word(seed), device, stream,
+                     packed=_packed(x))
+    return out
 
 
 def _head2_bwd_kernel(x, w, b, g, pool, drop_p, seed, stage, need_dx, plan=None):
@@ -596,6 +658,8 @@ def _loss_tail_bwd_kernel(x, wt, b, obs, gbar, act, drop_p, seed, stage):
     _check_obs(obs, (n, cout, 2 * h, 2 * w))
     if tuple(gbar.shape) != (n,):
         raise ValueError(f"gbar shape {tuple(gbar.shape)} != {(n,)}")
+    if loss_tail_route(cin, cout, w):
+        return _loss_tail2_bwd_kernel(x, wt, b, obs, gbar, act, drop_p, seed, stage)
     return _tail_bwd_launch(LOSS_TAIL_BWD, x, wt, b, obs, gbar, act, drop_p, seed, stage,
                             (cell_kind(obs),))
 
@@ -645,9 +709,10 @@ def tail_route(cin: int, cout: int, w: int) -> bool:
 
 
 def loss_tail_route(cin: int, cout: int, w: int) -> bool:
-    """Whether the loss tail's forward with ``cin`` -> ``cout`` channels and
-    input width ``w`` runs the kernel specialised for its widths
-    (csrc/loss_tail2_fwd.cu): the tail's widths at an even width."""
+    """Whether the loss tail with ``cin`` -> ``cout`` channels and input width
+    ``w`` runs the kernels specialised for its widths (csrc/loss_tail2_fwd.cu,
+    loss_tail2_bwd.cu): the tail's widths at an even width, in both
+    directions."""
     return LOSS_TAIL2_KERNELS and (cin, cout) in TAIL2_WIDTHS and w % 2 == 0
 
 
@@ -700,6 +765,39 @@ def _loss_tail2_fwd_kernel(x, wt, b, obs, act, drop_p, seed, stage, plan=None):
                           _loss_tail2_smem(kind, cin, w, ri, tj), ACTS[act], kind, int(stage),
                           float(drop_p), _seed_word(seed), device, stream, packed=_packed(obs))
     return err
+
+
+def _loss_tail2_bwd_smem(kind: int, cin: int, w: int, ri: int, tj: int) -> int:
+    """csrc/loss_tail2_bwd.cu::loss_tail2_bwd_smem: the backward's shared
+    memory, then the obs tile of uint8 cells (rows of 16-byte pieces) or
+    packed words, 16-byte aligned; float32 obs take g's place."""
+    t = min(tj, w)
+    tile = {0: 0, 1: (2 * ri + 4) * (-(-(2 * t + 20) // 16) * 16),
+            2: 4 * (2 * ri + 4) * ((2 * t + 8 + 31) // 32 + 1)}[kind]
+    return -(-_tail2_bwd_smem(cin, w, ri, tj) // 16) * 16 + tile
+
+
+def _loss_tail2_bwd_kernel(x, wt, b, obs, gbar, act, drop_p, seed, stage, plan=None):
+    """(dW, db, gx) from the specialised loss-tail backward on checked inputs,
+    its keep bits drawn in the kernel; ``plan`` (RI, TJ) overrides
+    :func:`_tail2_plan` (the backward's)."""
+    n, cin, h, w = x.shape
+    ri, tj = plan or _tail2_plan(n, cin, h, w, True, _multiprocessors(x.device))[:2]
+    k = 16 * cin + 1
+    blocks = -(-h // ri) * -(-w // min(tj, w))
+    grads, partials, gx = _empty(x, k), _empty(x, n * blocks, k), _empty(x, n, cin, h, w)
+    x, wt, b, obs = x.contiguous(), wt.contiguous(), b.contiguous(), obs.contiguous()
+    gbar = gbar.contiguous()
+    if obs.data_ptr() % 16:   # the kernel copies obs rows in 16-byte pieces
+        obs = obs.clone()
+    kind = cell_kind(obs)
+    device, stream = stream_args(x)
+    LOSS_TAIL2_BWD.launch(x.data_ptr(), wt.data_ptr(), b.data_ptr(), obs.data_ptr(),
+                          gbar.data_ptr(), partials.data_ptr(), grads.data_ptr(), gx.data_ptr(),
+                          n, cin, h, w, ri, tj, _loss_tail2_bwd_smem(kind, cin, w, ri, tj),
+                          ACTS[act], kind, int(stage), float(drop_p), _seed_word(seed), device,
+                          stream, packed=_packed(obs))
+    return (*_split(grads, ((cin, 1, 4, 4), (1,))), gx)
 
 
 def _tail2_bwd_kernel(x, wt, b, g, act, drop_p, seed, stage, keep=None, plan=None):

@@ -32,6 +32,15 @@ Phases, in order; any failure exits non-zero without the final line:
            generic kernel forced and the twin at its three cases (each leaf
            within 1e-5 of the generic kernel's, gx bit for bit), timed in
            turns and by CUPTI cold, its plans, registers and blocks a
+           multiprocessor; the head's forward at those widths (head2_fwd,
+           row 9a: u8 and packed [160] at pool 2, pool 4, AE conv2 on f32
+           [64], dropout at [64]) bit for bit against the generic kernel
+           forced and within 1e-5 of the twin, and the loss tail's backward
+           at the tail's widths (loss_tail2_bwd, row 8b: uint8, packed and
+           float32 obs, dropout 0.1 and none, (2, 1) relu) against the
+           generic kernel forced (gx bit for bit, each leaf within 1e-5)
+           and the twin, both timed in turns and by CUPTI cold with the
+           share of the bound, plans, registers and blocks a
            multiprocessor; the encoder's kernels specialised at the
            package's three widths, enc3_*, also against the generic ones at
            every shape: the forward bit for bit, the gradients within 1e-5 of
@@ -76,8 +85,9 @@ Phases, in order; any failure exits non-zero without the final line:
            (column tiles); conv_ae_loss on 4 x 2048² (past the whole-AE
            kernel) against encoder + decoder loss, bit for bit; tiles forced
            at 256² (48 cells, edges inside words) against one tile; 65,600
-           instances a launch; the pool ties of the 8192² encoder backwards
-           separated from error (float64 twin pre-activations mark the
+           instances a launch (the encoder's backward also on the instances
+           past 65,535 alone); the pool ties of the 8192² and 65,600-instance
+           encoder backwards separated from error (float64 twin pre-activations mark the
            windows whose top two values are equal or within 4, 16 or 64
            float32 ulps; the cotangent is zeroed where they reach; outside
            the near ties kernel against the float32 and float64 twins within
@@ -188,10 +198,10 @@ Training rewards through 4 Adam updates, card vs CPU: rtol 2e-3 (Adam divides
 by the gradient's own scale).  The autoencoder's three routes against each
 other: error rtol 1e-4, gradients as above (one mask, other summation
 orders); ae_forward's reconstruction error against ae_loss_fwd's: rtol 1e-4.
-The encoder's gradients at 8192² (band shapes and global): 2e-3 of each
-leaf's largest entry over all outputs (134 million stage-1 positions: the
-pool-tie shares that move between summation orders add up; see
-phase_band_kernels), and 1e-4 outside the pool windows whose top two values
+The encoder's gradients at 8192² (band shapes and global) and on 65,600
+instances of 16 x 32: 2e-3 of each leaf's largest entry over all outputs (134
+and 34 million stage-1 positions: the pool-tie shares that move between
+summation orders add up; see phase_band_kernels), and 1e-4 outside the pool windows whose top two values
 lie within 64 float32 ulps without being equal (_tie_analysis).  Column tiles
 against one tile: encoder outputs bit for bit, sums and gradients 1e-5 of each
 leaf's largest entry.  Banded stack against unbanded at 8192²: rtol 1e-4.
@@ -285,6 +295,7 @@ SOURCES = {
     "ae_loss_bwd": ("carle_tpu_torch/csrc/ae2d_bwd.cu",
                     "carle_tpu/ops/pallas_head.py:1875"),
     "head_fwd": ("carle_tpu_torch/csrc/head_fwd.cu", "carle_tpu/ops/pallas_head.py:281"),
+    "head2_fwd": ("carle_tpu_torch/csrc/head2_fwd.cu", "carle_tpu/ops/pallas_head.py:281"),
     "head_bwd": ("carle_tpu_torch/csrc/head_bwd.cu", "carle_tpu/ops/pallas_head.py:297"),
     "head2_bwd": ("carle_tpu_torch/csrc/head2_bwd.cu", "carle_tpu/ops/pallas_head.py:297"),
     "tail_fwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:628"),
@@ -295,6 +306,8 @@ SOURCES = {
     "loss_tail2_fwd": ("carle_tpu_torch/csrc/loss_tail2_fwd.cu",
                        "carle_tpu/ops/pallas_head.py:794"),
     "loss_tail_bwd": ("carle_tpu_torch/csrc/tail.cu", "carle_tpu/ops/pallas_head.py:822"),
+    "loss_tail2_bwd": ("carle_tpu_torch/csrc/loss_tail2_bwd.cu",
+                       "carle_tpu/ops/pallas_head.py:822"),
     "decoder_loss_fwd": ("carle_tpu_torch/csrc/decoder_loss_fwd.cu",
                          "carle_tpu/ops/pallas_head.py:1481"),
     "decoder_loss_bwd": ("carle_tpu_torch/csrc/decoder_loss_bwd.cu",
@@ -353,8 +366,8 @@ PATH_KERNELS = {
     "battery": ("ca_step_words", "enc3_fwd", "ae2d_fwd"),
     "server": ("ca_step_words", "bit_multi_step_words", "enc3_fwd", "ae2d_fwd"),
     "train": ("ca_step_words", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
-    "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head_fwd",
-               "head2_bwd", "tail2_fwd", "tail2_bwd", "loss_tail2_fwd", "loss_tail_bwd",
+    "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head2_fwd",
+               "head2_bwd", "tail2_fwd", "tail2_bwd", "loss_tail2_fwd", "loss_tail2_bwd",
                "dec2_fwd", "dec2_bwd"),
     "wrappers": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd",
                  "dec2_fwd", "dec2_bwd", "tail2_fwd"),
@@ -382,18 +395,18 @@ BYTE_CA_STEP = ("ca_step",)
 # (bit_multi_step_words, bit_spatial_words)
 PRESENT_PACKED = ("bit_multi_step", "bit_spatial_multi_step")
 # the present fixed-rule packed engines (row- and column-major), the present
-# uint8 engine and the generic head backward, which no main path may launch:
+# uint8 engine and the generic head kernels, which no main path may launch:
 # the engines' shapes take the redesigned kernels (bit_multi_step_static_words,
 # bit_multi_step_static_cm_words, ca_multi_step_bits), and every head of the
-# package has one of the specialised backward's widths (head2_bwd)
+# package has one of the specialised kernels' widths (head2_fwd, head2_bwd)
 PRESENT_STATIC = ("bit_multi_step_static", "bit_multi_step_static_cm", "ca_multi_step")
-GENERIC_HEAD_BWD = ("head_bwd",)
-# the present uint8 halo burst and the generic loss-tail forward, which no main
+GENERIC_HEAD = ("head_fwd", "head_bwd")
+# the present uint8 halo burst and the generic loss-tail kernels, which no main
 # path may launch: the spatial path's 8-generation burst takes the packed
 # temporal-blocking kernel (spatial_multi_step_bits), and every loss tail of
-# the package has one of the specialised forward's widths (loss_tail2_fwd)
+# the package has one of the specialised kernels' widths (loss_tail2_*)
 PRESENT_U8_HALO = ("spatial_multi_step",)
-GENERIC_LOSS_TAIL_FWD = ("loss_tail_fwd",)
+GENERIC_LOSS_TAIL = ("loss_tail_fwd", "loss_tail_bwd")
 # the kernels the packed path must launch on packed words
 PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "dec2_fwd", "dec2_bwd")
 NINE = ("RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus", "CornerBonus",
@@ -958,38 +971,28 @@ def _in_turns(timer, fns: dict, rounds: int = 2, reps: int = 3) -> dict:
 
 def _ab_at_engines(torch, timer, what, new, old, kernels, cupti, plain, bound, shape, plan,
                    occupancy):
-    """A row at bench.py's geometry (4096 x 256², 128 generations): its
-    redesigned kernel (``new``, the route) and the present kernel forced
-    (``old``), one launch a call each (``kernels``: their launch counts),
-    bit for bit the same and the twin's (``plain``), timed in turns (new,
-    present, new, present) after an L2 flush and each by CUPTI cold
-    (``cupti``: their kernels' names); (the new row's result, the present
-    row's), ms the mean of the two turns."""
-    outs, launches = {}, {}
-    for name, fn, kernel in (("new", new, kernels[0]), ("present", old, kernels[1])):
-        before = kernel.launches
-        outs[name] = fn()
-        launches[name] = kernel.launches - before
-        check(launches[name] == 1, f"{what} ({name}): {launches[name]} launches, not 1")
-    check(torch.equal(outs["new"], outs["present"]), f"{what}: new and present kernels differ")
-    want, plain_ms = _plain_ms(torch, plain)
-    err = int((outs["new"].to(torch.int64) - want.to(torch.int64)).abs().max())
-    check(err == 0, f"{what} differs from its plain twin: max {err}")
-    del outs, want
-    ms = _in_turns(timer, {"new": new, "present": old})
-    cold = {route: _cupti_us(torch, timer, fn, (name,), f"{what} {route}")
-            for route, fn, name in (("new", new, cupti[0]), ("present", old, cupti[1]))}
-    b, by = bound
-    common = dict(max_abs_err=0.0, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
-    result = {route: dict(common, ms=sum(ms[route]) / 2, ms_runs=ms[route],
-                          cupti_cold_us=cold[route], launches_per_call=launches[route])
-              for route in ms}
-    result["new"].update(shape=shape, plan=plan, occupancy=occupancy)
-    result["present"].update(shape=shape + " (the present kernel forced)")
-    log(f"{what} at engines: new {ms['new']} ms, present {ms['present']} ms, CUPTI cold "
-        f"{cold['new']:.1f} / {cold['present']:.1f} µs, bound {b:.4f} ({by}), plan {plan}, "
-        f"{json.dumps(occupancy)}")
-    return result["new"], result["present"]
+    """A row at bench.py's geometry (4096 x 256², 128 generations) through
+    _ab_cases: its redesigned kernel (``new``, the route) and the present
+    kernel forced (``old``), one launch a call each (``kernels``), bit for
+    bit the same and the twin's (``plain``), timed in turns and by CUPTI
+    cold (``cupti``: the two kernels' names); (the new row, the present
+    row), each with the plan and occupancy of the new kernel."""
+    plain_ms = []
+
+    def hold(label, got, present):
+        check(torch.equal(got, present), f"{what}: new and present kernels differ")
+        want, ms = _plain_ms(torch, plain)
+        plain_ms.append(ms)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"{what} differs from its plain twin: max {err}")
+        return {"new": {"max_abs_err": 0.0}, "generic": {"max_abs_err": 0.0}}
+
+    out = _ab_cases(torch, timer, what, {shape: (new, old)}, kernels,
+                    {"new": (cupti[0],), "generic": (cupti[1],)}, hold, lambda label: bound,
+                    lambda label: dict(plan=plan, **occupancy))
+    rows = _ab_rows(out, ("new", "present"), plain_ms[0], "the present kernel")
+    rows["new"].update(plan=plan, occupancy=occupancy)
+    return rows["new"], rows["present"]
 
 
 def _same_bits(a, b) -> bool:
@@ -1035,11 +1038,11 @@ def phase_packed_input_kernels(torch, timer, gen, results):
         "dec2_fwd": lambda src, obs, p: cs.decoder_loss_fwd(emb[64], *ps[4:], obs, p, seed),
         "dec2_bwd": lambda src, obs, p: cs.decoder_loss_bwd(emb[64], *ps[4:], obs, gbar, p,
                                                            seed),
-        "head_fwd": lambda src, obs, p: cs.head_fwd(src, ps[0], ps[1], 2, p, seed),
+        "head2_fwd": lambda src, obs, p: cs.head_fwd(src, ps[0], ps[1], 2, p, seed),
         "head_bwd": lambda src, obs, p: cs.head_bwd(src, ps[0], ps[1], g_head, 2, p, seed),
         "loss_tail_fwd": lambda src, obs, p: cs.loss_tail_fwd(mid[64], ps[6], ps[7], obs,
                                                              "sigmoid", p, seed),
-        "loss_tail_bwd": lambda src, obs, p: cs.loss_tail_bwd(mid[64], ps[6], ps[7], obs, gbar,
+        "loss_tail2_bwd": lambda src, obs, p: cs.loss_tail_bwd(mid[64], ps[6], ps[7], obs, gbar,
                                                              "sigmoid", p, seed),
     }
     checked = []
@@ -1068,7 +1071,8 @@ def phase_packed_input_kernels(torch, timer, gen, results):
         "dec2_bwd": lambda: cs.decoder_loss_bwd(emb[64], *ps[4:], o32[64], gbar, DROP_P, seed),
         "decoder_loss_bwd": lambda: _generic_decoder(
             lambda: cs.decoder_loss_bwd(emb[64], *ps[4:], o32[64], gbar, DROP_P, seed)),
-        "head_fwd": lambda: cs.head_fwd(x32[160], ps[0], ps[1], 2),
+        "head2_fwd": lambda: cs.head_fwd(x32[160], ps[0], ps[1], 2),
+        "head_fwd": lambda: _generic_head(lambda: cs.head_fwd(x32[160], ps[0], ps[1], 2)),
         "loss_tail_fwd": lambda: cs.loss_tail_fwd(mid[160], ps[6], ps[7], o32[160], "sigmoid"),
     }
     for name, fn in timed.items():
@@ -1294,78 +1298,233 @@ def _bits_twice(fn, what):
     return first
 
 
-LOSS_TAIL_KERNELS = ("loss_tail2_fwd_kernel", "tail_fwd_kernel", "row_sums_kernel")
+LOSS_TAIL_FWD_KERNELS = {"new": ("loss_tail2_fwd_kernel", "row_sums_kernel"),
+                         "generic": ("tail_fwd_kernel", "row_sums_kernel")}
+HEAD_FWD_KERNELS = {"new": ("head2_fwd_",), "generic": ("head_fwd_kernel",)}
+LOSS_TAIL_BWD_KERNELS = {"new": ("tail2_bwd_kernel", "column_sums_kernel"),
+                         "generic": ("tail_bwd_kernel", "column_sums_kernel")}
 
 
-def _loss_tail2_held(torch, timer, lt_args, lt_drop, obs, obs_w, obs_f, seed, nf, hw, close):
-    """Row 8a at the routes path's shape (x f32 [160,1,128,128] -> 256²,
-    sigmoid): the specialised forward (loss_tail2_fwd, the route) against
-    the generic kernel forced (cuda_stages.LOSS_TAIL2_KERNELS off) within
-    rtol 1e-5 over uint8, packed and float32 obs, without dropout and with it
-    (on 64 universes), each twice for the bits, and both against the twin
-    (1e-4); one launch a call; timed in turns after an L2 flush and each by
-    CUPTI cold; registers and blocks a multiprocessor.  Returns the rows
-    loss_tail2_fwd and loss_tail_fwd (the generic forced, the same runs)."""
+def _ab_cases(torch, timer, what, cases, kernels, cupti, hold, bound, occupancy):
+    """A redesigned row at each of its timed shapes (``cases``: label ->
+    (call on the route, call with the generic kernel forced)): one launch a
+    call of the new kernel on the route and of the generic one forced, none
+    of the other (``kernels``: their counts), each the same bits twice,
+    ``hold(label, new, generic)`` their checks against each other and the
+    twin ({route: entry}, each with its own max_abs_err against the twin),
+    then every call timed in turns after an L2 flush (new, generic, ...
+    twice over) and each by CUPTI cold (``cupti``: route -> kernel names),
+    beside ``bound(label)`` = (ms, by) and its share, and
+    ``occupancy(label)``.  Returns {label: {route: entry}}."""
+    out, fns = {}, {}
+    for label, (new, old) in cases.items():
+        got = {}
+        for route, fn, want in (("new", new, (1, 0)), ("generic", old, (0, 1))):
+            before = kernels[0].launches, kernels[1].launches
+            got[route] = fn()
+            made = kernels[0].launches - before[0], kernels[1].launches - before[1]
+            check(made == want, f"{what} ({label}, {route}): launches of {kernels[0].name}, "
+                  f"{kernels[1].name} {made}, not {want}")
+            check(_same_bits(got[route], fn()), f"{what} ({label}, {route}) is not the same "
+                  "bits twice")
+        out[label] = hold(label, got["new"], got["generic"])
+        out[label]["new"]["occupancy"] = occupancy(label)
+        fns[("new", label)], fns[("generic", label)] = new, old
+    turns = _in_turns(timer, fns, reps=10)
+    for (route, label), runs in turns.items():
+        b, by = bound(label)
+        us = _cupti_us(torch, timer, fns[(route, label)], cupti[route], f"{what} {route} {label}")
+        out[label][route].update(ms=sum(runs) / len(runs), ms_runs=runs, cupti_cold_us=us,
+                                 bound_ms=b, bound_by=by, cold_share_of_bound=b / (us / 1e3),
+                                 launches_per_call=1)
+    log(f"{what} at its shapes: {json.dumps(out)}")
+    return out
+
+
+def _ab_rows(out, names, plain_ms, forced="the generic kernel"):
+    """The kernel-table rows (new, ``forced``) of an _ab_cases result: times
+    at its first case, each route's own largest error against the twin over
+    every case."""
+    first = next(iter(out))
+    rows = {}
+    for name, route in zip(names, ("new", "generic")):
+        r = out[first][route]
+        rows[name] = dict(max_abs_err=max(c[route]["max_abs_err"] for c in out.values()),
+                          ms=r["ms"], ms_runs=r["ms_runs"], cupti_cold_us=r["cupti_cold_us"],
+                          plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                          library_ms=None, shape=first if route == "new" else
+                          f"{first} ({forced} forced)", cases={k: v[route] for k, v in out.items()})
+    return rows
+
+
+def _drop_bound(nbytes, draws, p, philox):
+    """(ms, by) of a kernel that moves ``nbytes`` and, with dropout (p > 0),
+    draws ``draws`` Philox values: the larger of the two times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_draws = draws * philox["ops"] / INT32_OPS * 1e3 if p > 0 else 0.0
+    return (t_bytes, "bytes") if t_bytes >= t_draws else (t_draws, "operations")
+
+
+def _loss_tail2_fwd_held(torch, timer, cases, seed, philox, close):
+    """Row 8a at its timed shapes (``cases``: label -> (x, wt, b, obs,
+    drop_p), sigmoid): the specialised forward (loss_tail2_fwd, the route)
+    against the generic kernel forced (cuda_stages.LOSS_TAIL2_KERNELS off)
+    within rtol 1e-5, each against the twin (1e-4, atol 1e-3); timed in
+    turns and by CUPTI cold (_ab_cases) against its bound: x, obs read once,
+    the error written once, against 11 float32 operations an output
+    position; at least two blocks a multiprocessor.  Returns the rows
+    loss_tail2_fwd and loss_tail_fwd (the generic forced)."""
     from carle_tpu_torch.ops import cuda_build, cuda_stages as cs
 
-    generic = lambda fn: _flag_off(cs, "LOSS_TAIL2_KERNELS", fn)
-    err = {"new": 0.0, "generic": 0.0}
-    rel = 0.0
-    for args, p in ((lt_args, 0.0), (lt_drop, DROP_P)):
-        for o in (obs, obs_w, obs_f):
-            o = o[:args[0].shape[0]].contiguous()
-            call = lambda: cs.loss_tail_fwd(*args, o, "sigmoid", p, seed)
-            before = cs.LOSS_TAIL2_FWD.launches
-            got = call()
-            check(cs.LOSS_TAIL2_FWD.launches == before + 1, "loss_tail2_fwd: not one launch")
-            check(torch.equal(got, call()), f"loss_tail2_fwd ({o.dtype}, drop {p}) is not "
-                  "deterministic")
-            old = generic(call)
-            check(torch.equal(old, generic(call)), "loss_tail_fwd is not deterministic")
-            close(got, old, f"loss_tail2_fwd vs the generic ({o.dtype}, drop {p})", rtol=1e-5,
-                  atol=0)
-            rel = max(rel, float(((got - old).abs() / old.abs()).max()))
-            want = cs.loss_tail_fwd_plain(*args, o, "sigmoid", p, seed)
-            err["new"] = max(err["new"], close(got, want, f"loss_tail2_fwd ({o.dtype}, drop {p})",
-                                               atol=1e-3))
-            err["generic"] = max(err["generic"], close(old, want, f"loss_tail_fwd ({o.dtype})",
-                                                       atol=1e-3))
-    new = lambda: cs.loss_tail_fwd(*lt_args, obs, "sigmoid")
-    fns = {"new": new, "generic": lambda: generic(new),
-           "new u32": lambda: cs.loss_tail_fwd(*lt_args, obs_w, "sigmoid"),
-           "new f32": lambda: cs.loss_tail_fwd(*lt_args, obs_f, "sigmoid"),
-           "new drop": lambda: cs.loss_tail_fwd(*lt_drop, obs[:lt_drop[0].shape[0]], "sigmoid",
-                                                DROP_P, seed)}
-    fns["generic drop"] = lambda: generic(fns["new drop"])
-    turns = _in_turns(timer, fns, reps=10)
-    cold = {route: _cupti_us(torch, timer, fns[route], LOSS_TAIL_KERNELS, f"row 8a {route}")
-            for route in ("new", "generic")}
-    n, _, h, w = lt_args[0].shape
-    ri, tj, _ = cs._tail2_plan(n, 1, h, w, False, cs._multiprocessors(lt_args[0].device))
-    occupancy = {kind: dict(_occupancy(cuda_build, "loss_tail2_fwd", "loss_tail2_fwd_occupancy",
-                                       1, 1, drop, code,
-                                       Big(cs._loss_tail2_smem(code, 1, w, ri, tj)))[0])
-                 for kind, code, drop in (("u8", 1, 0), ("u32", 2, 0), ("f32", 0, 0),
-                                          ("u8 drop", 1, 1))}
-    check(min(o["blocks_per_sm"] for o in occupancy.values()) >= 2,
-          f"loss_tail2_fwd keeps fewer than two blocks a multiprocessor: {occupancy}")
-    taps = 2 * 4 * 1 * 1   # flops an output position: 2 x 2 inputs a channel pair
-    bound, by = bound_ms(nf * (hw // 4 * 4 + hw) + nf * 4, (taps + 3) * nf * hw, FP32_FLOPS)
-    shape = "f32 x [160,1,128,128], u8 obs [160,1,256,256], sigmoid"
-    plain_ms = timer.ms(lambda: cs.loss_tail_fwd_plain(*lt_args, obs), 5)
-    out = {}
-    for row, route in (("loss_tail2_fwd", "new"), ("loss_tail_fwd", "generic")):
-        out[row] = dict(max_abs_err=err[route], ms=turns[route][0], ms_in_turns=turns[route],
-                        ms_drop=turns[f"{route} drop"], cupti_cold_us=cold[route],
-                        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-                        launches_per_call=1, shape=shape if route == "new"
-                        else shape + " (the generic kernel forced)")
-    out["loss_tail2_fwd"].update(max_rel_err_vs_generic=rel, ms_u32_obs=turns["new u32"],
-                                 ms_f32_obs=turns["new f32"], plan=(ri, tj),
-                                 occupancy=occupancy)
-    for row in out:
-        log(f"{row} ok: {out[row]}")
-    return out
+    sms = cs._multiprocessors(torch.device("cuda"))
+    call = lambda a: cs.loss_tail_fwd(*a[:4], "sigmoid", a[4], seed)
+    calls = {label: (lambda a=a: call(a),
+                     lambda a=a: _flag_off(cs, "LOSS_TAIL2_KERNELS", lambda: call(a)))
+             for label, a in cases.items()}
+
+    def hold(label, got, old):
+        x, wt, b, obs, p = cases[label]
+        close(got, old, f"loss_tail2_fwd vs the generic ({label})", rtol=1e-5, atol=0)
+        twin = cs.loss_tail_fwd_plain(x, wt, b, obs, "sigmoid", p, seed)
+        return {"new": {"max_abs_err": close(got, twin, f"loss_tail2_fwd ({label})", atol=1e-3),
+                        "max_rel_err_vs_generic": float(((got - old).abs() / old.abs()).max())},
+                "generic": {"max_abs_err": close(old, twin, f"loss_tail_fwd ({label})",
+                                                 atol=1e-3)}}
+
+    def bound(label):
+        x, wt, b, obs, p = cases[label]
+        taps = 2 * 4 * 1 * 1   # flops an output position: 2 x 2 inputs a channel pair
+        nbytes = (x.numel() * 4 + obs.numel() * obs.element_size() + x.shape[0] * 4
+                  + (wt.numel() + b.numel()) * 4)
+        by_ops = bound_ms(nbytes, (taps + 3) * obs.shape[0] * 4 * x.shape[2] * x.shape[3],
+                          FP32_FLOPS)
+        return max(by_ops, _drop_bound(0, 4 * x.numel(), p, philox))
+
+    def occupancy(label):
+        x, wt, b, obs, p = cases[label]
+        n, _, h, w = x.shape
+        ri, tj, _ = cs._tail2_plan(n, 1, h, w, False, sms)
+        kind = cs.cell_kind(obs)
+        smem = cs._loss_tail2_smem(kind, 1, w, ri, tj)
+        occ = _occupancy(cuda_build, "loss_tail2_fwd", "loss_tail2_fwd_occupancy", 1, 1,
+                         int(p > 0), kind, Big(smem))[0]
+        check(occ["blocks_per_sm"] >= 2, f"loss_tail2_fwd ({label}) keeps fewer than two "
+              f"blocks a multiprocessor: {occ}")
+        return dict(plan=(ri, tj), smem=smem, **occ)
+
+    out = _ab_cases(torch, timer, "loss_tail2_fwd", calls, (cs.LOSS_TAIL2_FWD, cs.LOSS_TAIL_FWD),
+                    LOSS_TAIL_FWD_KERNELS, hold, bound, occupancy)
+    x, wt, b, obs, p = next(iter(cases.values()))
+    plain_ms = timer.ms(lambda: cs.loss_tail_fwd_plain(x, wt, b, obs, "sigmoid", p, seed), 5)
+    return _ab_rows(out, ("loss_tail2_fwd", "loss_tail_fwd"), plain_ms)
+
+
+def _head2_fwd_held(torch, timer, cases, seed, philox):
+    """Row 9a at its timed shapes (``cases``: label -> (x, w, b, pool, stage,
+    drop_p)): the specialised forward (head2_fwd, the route) against the
+    generic kernel forced (cuda_stages.HEAD2_KERNELS off) bit for bit, and
+    within 1e-5 of the twin's largest entry; timed in turns and by CUPTI cold
+    (_ab_cases) against its bound: bytes (x read once, the output written
+    once), with dropout the larger of those and a Philox draw a pixel.
+    Returns the rows head2_fwd and head_fwd (the generic forced)."""
+    from carle_tpu_torch.ops import cuda_build, cuda_head, cuda_stages as cs
+
+    sms = cs._multiprocessors(torch.device("cuda"))
+    calls = {label: (lambda a=(x, w, b, pool, p, seed, stage): cs.head_fwd(*a),
+                     lambda a=(x, w, b, pool, p, seed, stage): _generic_head(
+                         lambda: cs.head_fwd(*a)))
+             for label, (x, w, b, pool, stage, p) in cases.items()}
+
+    def hold(label, got, old):
+        x, w, b, pool, stage, p = cases[label]
+        check(torch.equal(got, old), f"head2_fwd ({label}) differs from the generic kernel")
+        twin = cs.head_fwd_plain(x, w, b, pool, p, seed, stage)
+        rel = float((got - twin).abs().max() / twin.abs().max())
+        check(rel < 1e-5, f"head2_fwd ({label}) differs from its twin: {rel}")
+        return {"new": {"max_abs_err": float((got - twin).abs().max()),
+                        "max_rel_err_vs_plain": rel, "bit_equal_generic": True},
+                "generic": {"max_abs_err": float((old - twin).abs().max())}}
+
+    def bound(label):
+        x, w, b, pool, stage, p = cases[label]
+        n, c, h, wd = cuda_head.cell_shape(x)
+        nbytes = (x.numel() * x.element_size() + n * w.shape[0] * h * wd // pool ** 2 * 4
+                  + (w.numel() + b.numel()) * 4)
+        return _drop_bound(nbytes, n * h * wd, p, philox)
+
+    def occupancy(label):
+        x, w, b, pool, stage, p = cases[label]
+        n, c, h, wd = cuda_head.cell_shape(x)
+        kind = cuda_head.cell_kind(x)
+        rb, tw, grid = cs._head2_fwd_plan(n, c, w.shape[0], pool, h, wd, kind != 0, sms)
+        smem = cs._head2_fwd_smem(c, w.shape[0], pool, kind != 0, rb, tw)
+        return dict(plan=(rb, tw, grid), smem=smem, **_occupancy(
+            cuda_build, "head2_fwd", "head2_fwd_occupancy", c, w.shape[0], pool, kind,
+            int(p > 0), Big(smem))[0])
+
+    out = _ab_cases(torch, timer, "head2_fwd", calls, (cs.HEAD2_FWD, cs.HEAD_FWD),
+                    HEAD_FWD_KERNELS, hold, bound, occupancy)
+    x, w, b, pool, stage, p = next(iter(cases.values()))
+    plain_ms = timer.ms(lambda: cs.head_fwd_plain(x, w, b, pool, p, seed, stage), 5)
+    return _ab_rows(out, ("head2_fwd", "head_fwd"), plain_ms)
+
+
+def _loss_tail2_bwd_held(torch, timer, cases, seed, philox):
+    """Row 8b at its timed shapes (``cases``: label -> (x, wt, b, obs, gbar,
+    act, stage, drop_p)): the specialised backward (loss_tail2_bwd, the
+    route) against the generic kernel forced (cuda_stages.LOSS_TAIL2_KERNELS
+    off): gx bit for bit, dW and db within 1e-5 of each leaf's largest entry
+    of the generic kernel's and of the twin's; timed in turns and by CUPTI
+    cold (_ab_cases) against its bound: bytes (x, obs and gbar read once, gx
+    written once), with dropout the larger of those and a Philox draw an
+    output (dropout_bounds' row 8b at its shape).  Returns the rows
+    loss_tail2_bwd and loss_tail_bwd (the generic forced)."""
+    from carle_tpu_torch.ops import cuda_build, cuda_stages as cs
+
+    sms = cs._multiprocessors(torch.device("cuda"))
+    call = lambda a: cs.loss_tail_bwd(*a[:6], a[7], seed, a[6])
+    calls = {label: (lambda a=a: call(a),
+                     lambda a=a: _flag_off(cs, "LOSS_TAIL2_KERNELS", lambda: call(a)))
+             for label, a in cases.items()}
+
+    def hold(label, got, old):
+        x, wt, b, obs, gbar, act, stage, p = cases[label]
+        check(torch.equal(got[2], old[2]), f"loss_tail2_bwd ({label}): gx differs from the "
+              "generic kernel's")
+        twin = cs.loss_tail_bwd_plain(x, wt, b, obs, gbar, act, p, seed, stage)
+        worst = {"generic": max(_leaf_errors(list(got), list(old))),
+                 "plain": max(_leaf_errors(list(got), list(twin)))}
+        check(max(worst.values()) < 1e-5, f"loss_tail2_bwd ({label}) leaves differ: {worst}")
+        abs_err = lambda out: max(float((a - t).abs().max()) for a, t in zip(out, twin))
+        return {"new": {"max_abs_err": abs_err(got), "max_leaf_rel_err_vs_generic":
+                        worst["generic"], "max_leaf_rel_err_vs_plain": worst["plain"],
+                        "gx_bit_equal_generic": True},
+                "generic": {"max_abs_err": abs_err(old),
+                            "max_leaf_rel_err_vs_plain": max(_leaf_errors(list(old),
+                                                                          list(twin)))}}
+
+    def bound(label):
+        x, wt, b, obs, gbar, act, stage, p = cases[label]
+        nbytes = (2 * x.numel() * 4 + obs.numel() * obs.element_size() + gbar.numel() * 4
+                  + 2 * (wt.numel() + b.numel()) * 4)
+        return _drop_bound(nbytes, x.shape[0] * 4 * x.shape[2] * x.shape[3], p, philox)
+
+    def occupancy(label):
+        x, wt, b, obs, gbar, act, stage, p = cases[label]
+        n, cin, h, w = x.shape
+        ri, tj, _ = cs._tail2_plan(n, cin, h, w, True, sms)
+        kind = cs.cell_kind(obs)
+        smem = cs._loss_tail2_bwd_smem(kind, cin, w, ri, tj)
+        return dict(plan=(ri, tj), smem=smem, **_occupancy(
+            cuda_build, "loss_tail2_bwd", "loss_tail2_bwd_occupancy", cin, cs.ACTS[act],
+            int(p > 0), kind, Big(smem))[0])
+
+    out = _ab_cases(torch, timer, "loss_tail2_bwd", calls, (cs.LOSS_TAIL2_BWD, cs.LOSS_TAIL_BWD),
+                    LOSS_TAIL_BWD_KERNELS, hold, bound, occupancy)
+    x, wt, b, obs, gbar, act, stage, p = next(iter(cases.values()))
+    plain_ms = timer.ms(lambda: cs.loss_tail_bwd_plain(x, wt, b, obs, gbar, act, p, seed, stage),
+                        2)
+    return _ab_rows(out, ("loss_tail2_bwd", "loss_tail_bwd"), plain_ms)
 
 
 def phase_stage_kernels(torch, timer, gen, philox):
@@ -1413,30 +1572,25 @@ def phase_stage_kernels(torch, timer, gen, philox):
             abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         return worst[DROP_P], worst[0.0], abs_err
 
-    # -- head_fwd: AE conv1 on cells, AE conv2 on floats, RND's pool 4 ---------
-    head_cases = {  # label: (x, w, b, pool, stage)
+    # -- head_fwd: the kernel specialised at the three widths (head2_fwd, the
+    # route) at row 9a's shapes, against the generic one forced (head_fwd)
+    head_cases = {  # label: (x, w, b, pool, stage), the backward's cases
         "AE conv1, u8 [160,1,256,256] -> [160,4,128,128], pool 2": (cells, w1, b1, 2, 0),
         "AE conv2, f32 [160,4,128,128] -> [160,2,64,64], pool 2": (x1, w2, b2, 2, 1),
         "RND conv1, u8 [160,1,256,256] -> [160,4,64,64], pool 4": (cells, w1, b1, 4, 0),
     }
-    detail, err = {}, 0.0
-    for label, (x, wt, b, pool, stage) in head_cases.items():
-        err = max(err, close(cuda_stages.head_fwd(x, wt, b, pool, 0.0, 0, stage),
-                             cuda_stages.head_fwd_plain(x, wt, b, pool, 0.0, 0, stage), label))
-        xb = x[:nb].contiguous()
-        close(cuda_stages.head_fwd(xb, wt, b, pool, DROP_P, seed, stage),
-              cuda_stages.head_fwd_plain(xb, wt, b, pool, DROP_P, seed, stage),
-              label + ", dropout")
-        detail[label] = {"ms": timer.ms(
-            lambda: cuda_stages.head_fwd(x, wt, b, pool, 0.0, 0, stage), 20)}
-    label = next(iter(head_cases))
-    flops = 2 * 9 * 1 * 4 * nf * hw
-    bound, by = bound_ms(nf * hw + nf * 4 * hw // 4 * 4 + 40 * 4, flops, FP32_FLOPS)
-    results["head_fwd"] = dict(
-        max_abs_err=err, ms=detail[label]["ms"],
-        plain_ms=timer.ms(lambda: cuda_stages.head_fwd_plain(cells, w1, b1, 2), 5),
-        bound_ms=bound, bound_by=by, library_ms=None, shape=label, cases=detail)
-    log(f"head_fwd ok: {results['head_fwd']}")
+    words = bitpack.pack_grid(cells[:, 0])[:, None]
+    fwd_cases = {  # label: (x, w, b, pool, stage, drop_p)
+        "AE conv1, u8 [160,1,256,256] -> [160,4,128,128], pool 2": (cells, w1, b1, 2, 0, 0.0),
+        "AE conv1, u32 [160,1,256,256] words, pool 2": (words, w1, b1, 2, 0, 0.0),
+        "RND conv1, u8 [160,1,256,256] -> [160,4,64,64], pool 4": (cells, w1, b1, 4, 0, 0.0),
+        "AE conv2, f32 [64,4,128,128] -> [64,2,64,64], pool 2": (x1[:nb], w2, b2, 2, 1, 0.0),
+        "AE conv1, u8 [64,1,256,256], pool 2, drop 0.1": (cells[:nb], w1, b1, 2, 0, DROP_P),
+        "RND conv1, u8 [64,1,256,256], pool 4, drop 0.1": (cells[:nb], w1, b1, 4, 0, DROP_P),
+        "AE conv2, f32 [64,4,128,128], pool 2, drop 0.1": (x1[:nb], w2, b2, 2, 1, DROP_P),
+    }
+    results.update(_head2_fwd_held(torch, timer, fwd_cases, seed, philox))
+    log(f"head2_fwd ok: {json.dumps(results['head2_fwd'])}")
 
     # -- head_bwd: the same three, the second with its input cotangent; the
     # kernel specialised at these widths (head2_bwd, the route) and the
@@ -1530,8 +1684,10 @@ def phase_stage_kernels(torch, timer, gen, philox):
     gw = hrand(1, 4, 8, 4096)
     tiles = {"plans_8192": cuda_stages._head_bands(1, 4, 16, 8192, 2)}
     for p in (0.0, DROP_P):
-        close(cuda_stages.head_fwd(wide, w1, b1, 2, p, seed), cuda_stages.head_fwd_plain(
-            wide, w1, b1, 2, p, seed), f"head_fwd at width 8192, drop {p}")
+        for on in (lambda fn: fn(), _generic_head):   # head2_fwd's tiles, the generic's
+            close(on(lambda: cuda_stages.head_fwd(wide, w1, b1, 2, p, seed)),
+                  cuda_stages.head_fwd_plain(wide, w1, b1, 2, p, seed),
+                  f"head_fwd at width 8192, drop {p}")
         errs = _leaf_errors(cuda_stages.head_bwd(wide, w1, b1, gw, 2, p, seed, need_dx=True),
                             cuda_stages.head_bwd_plain(wide, w1, b1, gw, 2, p, seed,
                                                        need_dx=True))
@@ -1540,7 +1696,10 @@ def phase_stage_kernels(torch, timer, gen, philox):
     x8 = cells[:nb].contiguous()
     x8[: nb // 4, :, :, :100] = 0   # blank stretches across tile edges: pool windows tie
     g8 = hrand(nb, 4, 128, 128)
-    calls = {"head_fwd": lambda x: (cuda_stages.head_fwd(x, w1, b1, 2, DROP_P, seed),),
+    # the generic kernels' column tiles (the forward at these widths routes to
+    # head2_fwd, whose tiles ignore TILE_CELLS)
+    calls = {"head_fwd": lambda x: (_generic_head(
+                 lambda: cuda_stages.head_fwd(x, w1, b1, 2, DROP_P, seed)),),
              "head_bwd": lambda x: cuda_stages.head_bwd(x, w1, b1, g8, 2, DROP_P, seed,
                                                         need_dx=True)}
     exact = {"head_fwd": 0, "head_bwd": 2}   # the output, the input cotangent: bit for bit
@@ -1652,30 +1811,38 @@ def phase_stage_kernels(torch, timer, gen, philox):
     obs_f, obs_w = obs.to(torch.float32), bitpack.pack_grid(obs)
     lt_args = (mid, wt2, bt2)
     mb, ob = mid[:nb].contiguous(), obs[:nb].contiguous()
-    results.update(_loss_tail2_held(torch, timer, lt_args, (mb, wt2, bt2), obs, obs_w, obs_f,
-                                    seed, nf, hw, close))
-    e_drop, e_plain, abs_err = backward_case(
-        "loss_tail_bwd",
-        lambda p: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob, gbar, "sigmoid", p, seed),
-        lambda p: cuda_stages.loss_tail_bwd_plain(mb, wt2, bt2, ob, gbar, "sigmoid", p, seed),
-        "AE deconv2")
-    backward_case(
-        "loss_tail_bwd",
-        lambda p: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob.float(), gbar, "sigmoid", p, seed),
-        lambda p: cuda_stages.loss_tail_bwd_plain(mb, wt2, bt2, ob, gbar, "sigmoid", p, seed),
-        "AE deconv2, f32 obs")
-    bound, by = bound_ms(nb * (hw // 4 * 4 + hw + hw // 4 * 4) + nb * 4 + 34 * 4,
-                         3 * taps * nb * hw + 8 * nb * hw, FP32_FLOPS)
-    results["loss_tail_bwd"] = dict(
-        max_abs_err=abs_err, max_leaf_rel_err=e_drop, max_leaf_rel_err_no_drop=e_plain,
-        ms=timer.ms(lambda: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob, gbar, "sigmoid",
-                                                      DROP_P, seed), 10),
-        ms_no_drop=timer.ms(lambda: cuda_stages.loss_tail_bwd(mb, wt2, bt2, ob, gbar), 10),
-        plain_ms=timer.ms(lambda: cuda_stages.loss_tail_bwd_plain(
-            mb, wt2, bt2, ob, gbar, "sigmoid", DROP_P, seed), 2),
-        bound_ms=bound, bound_by=by, library_ms=None,
-        shape="f32 x [64,1,128,128], u8 obs [64,1,256,256], gbar [64], sigmoid, drop 0.1")
-    log(f"loss_tail_bwd ok: {results['loss_tail_bwd']}")
+    # -- loss_tail_fwd: the kernel specialised at the stages' widths
+    # (loss_tail2_fwd, the route) at row 8a's shapes, against the generic one
+    # forced (loss_tail_fwd)
+    lt_fwd = "AE deconv2, f32 x [160,1,128,128], {} obs [160,1,256,256], sigmoid"
+    lt_cases = {}   # label: (x, wt, b, obs, drop_p)
+    for kind, o in (("u8", obs), ("u32", obs_w), ("f32", obs_f)):
+        label = lt_fwd.format(kind)
+        lt_cases[label] = (*lt_args, o, 0.0)
+        lt_cases[label.replace("160", "64") + ", drop 0.1"] = (mb, wt2, bt2,
+                                                               o[:nb].contiguous(), DROP_P)
+    results.update(_loss_tail2_fwd_held(torch, timer, lt_cases, seed, philox, close))
+    # -- loss_tail_bwd: the kernel specialised at the stages' widths
+    # (loss_tail2_bwd, the route) at row 8b's shapes, against the generic one
+    # forced (loss_tail_bwd)
+    eb = emb[:nb].contiguous()
+    # a generator of its own: the phases after this one keep their draws
+    o128 = (torch.rand((nb, 1, 128, 128), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(128)) < 0.3
+            ).to(torch.uint8)
+    lt_bwd = "AE deconv2, f32 x [64,1,128,128], u8 obs [64,1,256,256], sigmoid"
+    bwd_cases = {  # label: (x, wt, b, obs, gbar, act, stage, drop_p)
+        lt_bwd + ", drop 0.1": (mb, wt2, bt2, ob, gbar, "sigmoid", 3, DROP_P),
+        lt_bwd.replace("u8 obs", "u32 obs") + ", drop 0.1": (mb, wt2, bt2, obs_w[:nb], gbar,
+                                                             "sigmoid", 3, DROP_P),
+        lt_bwd.replace("u8 obs", "f32 obs") + ", drop 0.1": (mb, wt2, bt2, obs_f[:nb], gbar,
+                                                             "sigmoid", 3, DROP_P),
+        lt_bwd: (mb, wt2, bt2, ob, gbar, "sigmoid", 3, 0.0),
+        "AE deconv1, f32 x [64,2,64,64], u8 obs [64,1,128,128], relu, drop 0.1": (
+            eb, wt1, bt1, o128, gbar, "relu", 2, DROP_P),
+    }
+    results.update(_loss_tail2_bwd_held(torch, timer, bwd_cases, seed, philox))
+    log(f"loss_tail2_bwd ok: {json.dumps(results['loss_tail2_bwd'])}")
 
     # -- decoder loss: the kernels specialised at the decoder's width (dec2_*),
     # held against the generic ones forced at the same shapes (decoder_loss_*)
@@ -2294,8 +2461,8 @@ def _generic_decoder(fn):
 
 
 def _generic_head(fn):
-    """fn() with the head's backward on its generic kernel
-    (cuda_stages.HEAD2_KERNELS off)."""
+    """fn() with the head on its generic kernels (cuda_stages.HEAD2_KERNELS
+    off)."""
     from carle_tpu_torch.ops import cuda_stages
 
     cuda_stages.HEAD2_KERNELS = False
@@ -2963,6 +3130,10 @@ def phase_band_kernels(torch, timer, gen, philox):
     log(f"column tiles forced at 256² (48 cells a tile) ok: {json.dumps(tiles)}")
 
     # -- more than 65,535 instances a launch -----------------------------------
+    # the encoder's gradients sum over 65,600 small universes: a near-tied
+    # pool window moves its share as at 8192² (TOL_TIES over every output);
+    # _tie_analysis holds the rest to 1e-4 over every instance and over the
+    # instances past 65,535 alone (the cotangent zero on the others)
     n = 65_600
     xs = (torch.rand((n, 1, 16, 32), generator=gen, device=dev) < 0.3).to(torch.uint8)
     ms = (torch.rand((n, 4), generator=gen, device=dev) < 0.8).to(torch.float32)
@@ -2972,7 +3143,13 @@ def phase_band_kernels(torch, timer, gen, philox):
                                rtol=1e-4, atol=1e-4)
     errs = _leaf_errors(cuda_head.encoder_bwd(xs, *w4, gs, (4, 2), DROP_P, seed, ms),
                         cuda_head.encoder_bwd_plain(xs, *w4, gs, (4, 2), DROP_P, seed, ms))
-    check(max(errs) < tol, f"encoder_bwd on {n} instances: {errs}")
+    check(max(errs) < TOL_TIES, f"encoder_bwd on {n} instances: {errs}")
+    past = (torch.arange(n, device=dev) >= 65_535).to(gs.dtype)[:, None, None, None]
+    report["instances_65600_encoder_bwd"] = {
+        "max_leaf_rel_err": errs,
+        "ties": _tie_analysis(torch, xs, w4, gs, (4, 2), DROP_P, seed, ms),
+        "ties_past_65535": _tie_analysis(torch, xs, w4, gs * past, (4, 2), DROP_P, seed, ms)}
+    log(f"encoder_bwd on {n} instances: {json.dumps(report['instances_65600_encoder_bwd'])}")
     es = torch.rand((n, 2, 4, 8), generator=gen, device=dev)
     os_ = xs.expand(n, 1, 16, 32).contiguous()
     ws = torch.rand((n, 16), generator=gen, device=dev)
@@ -2980,11 +3157,11 @@ def phase_band_kernels(torch, timer, gen, philox):
     torch.testing.assert_close(cuda_stages.decoder_loss_fwd(es, *dec, os_, DROP_P, seed, ws),
                                cuda_stages.decoder_loss_fwd_plain(es, *dec, os_, DROP_P, seed,
                                                                   ws), rtol=1e-4, atol=1e-4)
-    errs += _leaf_errors(cuda_stages.decoder_loss_bwd(es, *dec, os_, gbs, DROP_P, seed, ws),
-                         cuda_stages.decoder_loss_bwd_plain(es, *dec, os_, gbs, DROP_P, seed,
-                                                            ws))
-    check(max(errs) < tol, f"decoder_loss_bwd on {n} instances: {errs}")
-    report["instances_65600_max_leaf_rel_err"] = max(errs)
+    dec_errs = _leaf_errors(cuda_stages.decoder_loss_bwd(es, *dec, os_, gbs, DROP_P, seed, ws),
+                            cuda_stages.decoder_loss_bwd_plain(es, *dec, os_, gbs, DROP_P,
+                                                               seed, ws))
+    check(max(dec_errs) < tol, f"decoder_loss_bwd on {n} instances: {dec_errs}")
+    report["instances_65600_max_leaf_rel_err"] = max(errs + dec_errs)
     log(f"{n} instances a launch ok (encoder and decoder loss, forward and backward)")
     results["bands_kernels"] = report
     return results
@@ -4253,10 +4430,10 @@ def main() -> int:
         return 1
     generic = {f"{path}:{k}": c[k] for path, c in path_counts.items()
                for k in GENERIC_ENCODER + GENERIC_DECODER + GENERIC_TAIL + BYTE_CA_STEP
-               + PRESENT_PACKED + PRESENT_STATIC + GENERIC_HEAD_BWD + PRESENT_U8_HALO
-               + GENERIC_LOSS_TAIL_FWD if c[k]}
+               + PRESENT_PACKED + PRESENT_STATIC + GENERIC_HEAD + PRESENT_U8_HALO
+               + GENERIC_LOSS_TAIL if c[k]}
     if generic:
-        log(f"FAIL: generic encoder, decoder-loss, tail, loss-tail or head-backward "
+        log(f"FAIL: generic encoder, decoder-loss, tail, loss-tail or head "
             f"kernels, the byte ca_step kernel or the present packed or uint8 engines or "
             f"halo kernels launched on the main paths: {generic}")
         return 1

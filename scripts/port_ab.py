@@ -100,6 +100,34 @@ each taken in a fresh process.
         (1e-5 of each leaf's largest entry, gx bit for bit) and timed in turns
         (device ms, chip_smoke.py's Timer), with the instantiations' registers,
         spills and blocks a multiprocessor.
+    python scripts/port_ab.py rows-9a-8b --root DIR
+        the head's forward (PERF.md row 9a: u8 and packed [160,1,256,256]
+        at pool 2, RND's pool 4, AE conv2 on f32 [64,4,128,128], dropout
+        0.1 on u8 [64]), the loss tail's backward (row 8b: x [64,1,128,128]
+        float32 after a relu, obs [64,1,256,256] uint8 and packed, sigmoid,
+        dropout 0.1 and none) and the rows whose sources they share (9b,
+        the head's backward on u8 [64] at dropout 0.1; 7b, the tail's
+        backward on [64,1,128,128] at dropout 0.1) on the checkout's routes,
+        timed in turns (device ms, chip_smoke.py's Timer) with each call's
+        CUPTI µs cold, and digests of their outputs (equal digests from two
+        checkouts: the same bits).  Where the checkout has them, also the
+        generic kernels forced at rows 9a and 8b, held against the route.
+    python scripts/port_ab.py plans-9a
+        the head's forward (row 9a) at u8 [160,1,256,256], pools 2 and 4,
+        under forced plans (tile heights and blocks a multiprocessor),
+        copies of its table and register caps (copies of csrc/head2_fwd.cu
+        with HEAD2_FWD_COPIES and HEAD2_FWD_CELL_BLOCKS replaced, built
+        beside the package's kernels), each held bit for bit against the
+        route and timed in turns with its CUPTI µs cold, registers, spills
+        and blocks a multiprocessor.
+    python scripts/port_ab.py ties-65600
+        chip_smoke.py's kernels phase with one draw of an obs [64,1,128,128]
+        more from its generator before the band kernels (the draw a first
+        version of row 8b's check made, on which the encoder's backward on
+        65,600 instances failed 1e-4 over all outputs): every check that
+        fails, recorded rather than raised, and the 65,600-instance check's
+        errors and pool-tie analysis, over every instance and over those past
+        65,535 alone.
     python scripts/port_ab.py host-encoder --root DIR
         the host's µs to enqueue a training step's encoder work (the RND
         predictor forward with dropout through autograd, the target's
@@ -843,6 +871,195 @@ def python_cost(torch) -> dict:
     return out
 
 
+def _rows_9a_8b_inputs(torch, gen):
+    """The inputs of rows 9a, 8b, 9b and 7b on the card, from ``gen``."""
+    dev = gen.device
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    cells = (torch.rand((160, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    cells[:40, :, :128] = 0   # blank regions: whole pool windows tie
+    obs = (torch.rand((64, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    return dict(cells=cells, w1=rand(4, 1, 3, 3) * 0.3, b1=rand(4).abs() * 0.3,
+                w2=rand(2, 4, 3, 3) * 0.3, b2=rand(2).abs() * 0.3,
+                x1=torch.relu(rand(64, 4, 128, 128)), mid=torch.relu(rand(64, 1, 128, 128)),
+                wt=rand(1, 1, 4, 4) * 0.3, bt=rand(1) * 0.3, obs=obs,
+                gbar=rand(64) / (64 * 65536), g9=rand(64, 4, 128, 128),
+                g7=rand(64, 1, 256, 256))
+
+
+def rows_9a_8b(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch.ops import bitpack, cuda_stages as cs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    timer = chip_smoke.Timer(torch)
+    t = _rows_9a_8b_inputs(torch, gen)
+    cells, obs = t["cells"], t["obs"]
+    words, o32 = bitpack.pack_grid(cells[:, 0])[:, None], bitpack.pack_grid(obs)
+    lt = (t["mid"], t["wt"], t["bt"])
+    fns = {
+        "row 9a u8": lambda: cs.head_fwd(cells, t["w1"], t["b1"], 2),
+        "row 9a u32": lambda: cs.head_fwd(words, t["w1"], t["b1"], 2),
+        "row 9a pool 4": lambda: cs.head_fwd(cells, t["w1"], t["b1"], 4),
+        "row 9a conv2": lambda: cs.head_fwd(t["x1"], t["w2"], t["b2"], 2, stage=1),
+        "row 9a drop": lambda: cs.head_fwd(cells[:64], t["w1"], t["b1"], 2, 0.1, 5),
+        "row 8b": lambda: cs.loss_tail_bwd(*lt, obs, t["gbar"], "sigmoid", 0.1, 5),
+        "row 8b u32": lambda: cs.loss_tail_bwd(*lt, o32, t["gbar"], "sigmoid", 0.1, 5),
+        "row 8b no drop": lambda: cs.loss_tail_bwd(*lt, obs, t["gbar"], "sigmoid"),
+        "row 9b": lambda: cs.head_bwd(cells[:64], t["w1"], t["b1"], t["g9"], 2, 0.1, 5),
+        "row 7b": lambda: cs.tail_bwd(*lt, t["g7"], "sigmoid", 0.1, 5, 3),
+    }
+    cupti = {"row 9a": ("head_fwd_kernel", "head2_fwd_"),
+             "row 8b": ("tail_bwd_kernel", "tail2_bwd_kernel", "column_sums_kernel"),
+             "row 9b": ("head2_cells", "head2_floats"),
+             "row 7b": ("tail2_bwd_kernel", "column_sums_kernel")}
+    out = {}
+    if hasattr(cs, "HEAD2_FWD"):
+        fns["row 9a u8 generic"] = lambda: chip_smoke._generic_head(fns["row 9a u8"])
+        fns["row 8b generic"] = lambda: chip_smoke._flag_off(cs, "LOSS_TAIL2_KERNELS",
+                                                               fns["row 8b"])
+        if not torch.equal(fns["row 9a u8"](), fns["row 9a u8 generic"]()):
+            raise AssertionError("row 9a differs from the generic kernel")
+        if not torch.equal(fns["row 8b"]()[2], fns["row 8b generic"]()[2]):
+            raise AssertionError("row 8b's gx differs from the generic kernel's")
+    for name, fn in fns.items():
+        got = fn()
+        out[f"{name} digest"] = _digest(got if isinstance(got, tuple) else [got])
+    out["ms"] = chip_smoke._in_turns(timer, fns, rounds=2, reps=10)
+    out["cupti cold us"] = {name: chip_smoke._cupti_us(torch, timer, fn, cupti[name[:6]], name)
+                            for name, fn in fns.items()}
+    return out
+
+
+def _head2_fwd_variants(cuda_build, cs, variants):
+    """{(copies, blocks): (a CudaKernel launching it, its library)}: a copy
+    of csrc/head2_fwd.cu for each (copies of its table, register cap in
+    blocks a multiprocessor on cells), its two constants replaced, built
+    under the package's build directory with the package's nvcc flags, all
+    at once."""
+    import ctypes
+    import re
+    import subprocess
+
+    text = (cuda_build.CSRC / "head2_fwd.cu").read_text()
+    out = cuda_build.BUILD_DIR / "head2_fwd_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for copies, blocks in variants:
+        src = text
+        for name, value in (("HEAD2_FWD_COPIES", copies), ("HEAD2_FWD_CELL_BLOCKS", blocks)):
+            src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+                             src)
+            if n != 1:
+                raise RuntimeError(f"csrc/head2_fwd.cu holds no single {name} to replace")
+        cu = out / f"head2_fwd_copies{copies}_blocks{blocks}.cu"
+        cu.write_text(src)
+        so = cu.with_suffix(".so")
+        jobs[copies, blocks] = so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC), "-o",
+             str(so), str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for key, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"head2_fwd variant {key} failed to build:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        kernel = cuda_build.CudaKernel("head2_fwd", "head2_fwd_launch", cs.HEAD2_FWD.argtypes)
+        kernel._lib, kernel._fn = lib, getattr(lib, "head2_fwd_launch")
+        kernel._fn.argtypes, kernel._fn.restype = kernel.argtypes, ctypes.c_int
+        built[key] = kernel, lib
+    return built
+
+
+def plans_9a(torch) -> dict:
+    import ctypes
+
+    import chip_smoke
+    from carle_tpu_torch.ops import cuda_build, cuda_stages as cs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    timer = chip_smoke.Timer(torch)
+    t = _rows_9a_8b_inputs(torch, gen)
+    sms = cs._multiprocessors(dev)
+    variants = _head2_fwd_variants(cuda_build, cs,
+                                   ((1, 4), (2, 4), (4, 4), (8, 3), (8, 2), (4, 3)))
+    kernel, smem_of = cs.HEAD2_FWD, cs._head2_fwd_smem
+
+    def smem(k):   # _head2_fwd_smem with k copies (and the table they come from)
+        return lambda c, o, pool, binary, rb, tw: (
+            smem_of(c, o, pool, binary, rb, tw) - binary * 4 * 512 * o * (9 - k - (k > 1)))
+
+    def on(k, variant, fn):
+        cs.HEAD2_FWD, cs._head2_fwd_smem = variant, smem(k)
+        try:
+            return fn()
+        finally:
+            cs.HEAD2_FWD, cs._head2_fwd_smem = kernel, smem_of
+
+    out = {"route plan": cs._head2_fwd_plan(160, 1, 4, 2, 256, 256, True, sms)}
+    for pool in (2, 4):
+        args = (t["cells"], t["w1"], t["b1"], pool, 0.0, 0, 0)
+        want = cs.head_fwd(*args[:4])
+        fns, occupancy = {}, {}
+        for (k, cap), (variant, lib) in variants.items():
+            report = (ctypes.c_int * 4)()
+            fn = lib.head2_fwd_occupancy
+            fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+            if fn(1, 4, pool, 1, 0, smem(k)(1, 4, pool, True, 16, 256 // pool), 0,
+                  ctypes.cast(report, ctypes.c_void_p)):
+                raise RuntimeError(f"head2_fwd_occupancy failed (copies {k}, cap {cap})")
+            occupancy[f"copies {k} cap {cap}"] = dict(zip(
+                ("registers", "static_smem", "spilled_bytes", "blocks_per_sm"), report))
+            for rb, per_sm in ((16, cap), (16, 2 * cap), (8, cap), (8, 2 * cap)):
+                plan = (rb, 256 // pool, min(160 * (256 // pool) // rb, per_sm * sms))
+                fn = (lambda plan=plan, k=k, v=variant:
+                      on(k, v, lambda: cs._head2_fwd_kernel(*args, plan=plan)))
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"row 9a at {plan}, copies {k}, cap {cap} differs "
+                                         "from the route")
+                fns[f"copies {k} cap {cap} plan {plan}"] = fn
+        out[f"pool {pool}"] = {
+            "occupancy": occupancy, "ms": chip_smoke._in_turns(timer, fns, rounds=2, reps=5),
+            "cupti cold us": {name: chip_smoke._cupti_us(torch, timer, fn, ("head2_fwd_",), name)
+                              for name, fn in fns.items()}}
+    return out
+
+
+def ties_65600(torch) -> dict:
+    import chip_smoke
+    from carle_tpu_torch.ops import cuda_build
+
+    failed, band_kernels, check = [], chip_smoke.phase_band_kernels, chip_smoke.check
+
+    def shifted(torch, timer, gen, philox):
+        # the draw of an obs [64,1,128,128] more from the phase's generator:
+        # the generator's offset as where that draw comes before this phase
+        torch.rand((64, 1, 128, 128), generator=gen, device=gen.device)
+        out = band_kernels(torch, timer, gen, philox)
+        shifted.report = out["bands_kernels"]
+        return out
+
+    def record(cond, what):
+        if not cond:
+            failed.append(what)
+
+    torch.backends.cudnn.allow_tf32 = False       # as chip_smoke.py's main: the
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain twins in full float32
+    chip_smoke.phase_band_kernels, chip_smoke.check = shifted, record
+    try:
+        chip_smoke.phase_kernels(torch, chip_smoke.Timer(torch), chip_smoke.shipped_states(torch),
+                                 chip_smoke.philox_draw_ops(cuda_build))
+    finally:
+        chip_smoke.phase_band_kernels, chip_smoke.check = band_kernels, check
+    report = shifted.report
+    return {"checks failed": failed,
+            "encoder_bwd": report["instances_65600_encoder_bwd"],
+            "max_leaf_rel_err": report["instances_65600_max_leaf_rel_err"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("digest", "env-step", "profile-packed",
@@ -850,6 +1067,7 @@ def main() -> int:
                                          "encoder-times", "decoder-gx", "host-encoder",
                                          "packed-times", "static-plans", "engine-plans",
                                          "head-times", "rows-13-8a", "plans-13-8a",
+                                         "rows-9a-8b", "plans-9a", "ties-65600",
                                          "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     parser.add_argument("--generic", action="store_true",
@@ -892,6 +1110,12 @@ def main() -> int:
         result = rows_13_8a(torch)
     elif args.what == "plans-13-8a":
         result = plans_13_8a(torch)
+    elif args.what == "rows-9a-8b":
+        result = rows_9a_8b(torch)
+    elif args.what == "plans-9a":
+        result = plans_9a(torch)
+    elif args.what == "ties-65600":
+        result = ties_65600(torch)
     else:
         import chip_smoke
 

@@ -10,9 +10,15 @@ Needs ``g++``; skips without it.  Tolerance: 1e-4 of each output's largest
 entry (float32 sums in another order than the twins').
 """
 
+import concurrent.futures
 import ctypes
+import fcntl
+import hashlib
+import os
+import re
 import shutil
 import subprocess
+import threading
 
 import numpy as np
 import pytest
@@ -24,45 +30,75 @@ from carle_tpu_torch.parallel import cuda_halo
 from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd",
-           "enc3_fwd", "enc3_bwd", "head_fwd", "head_bwd", "head2_bwd", "tail", "tail2_fwd",
-           "tail2_bwd",
+           "enc3_fwd", "enc3_bwd", "head_fwd", "head2_fwd", "head_bwd", "head2_bwd", "tail",
+           "tail2_fwd", "tail2_bwd", "loss_tail2_fwd", "loss_tail2_bwd",
            "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd", "dec2_bwd",
            "bit_multi_step", "ca_multi_step", "halo_step", "ca_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
+_BUILDS = {}   # (source, defines) -> the Future of its library's path, for this process
+_POOL = concurrent.futures.ThreadPoolExecutor(max_workers=len(SOURCES))
+
+
+def _includes(path, seen):
+    """The csrc headers ``path`` includes, and theirs, into ``seen``."""
+    for name in re.findall(r'#include "([^"]+)"', path.read_text()):
+        header = cuda_build.CSRC / name
+        if header not in seen:
+            seen.add(header)
+            _includes(header, seen)
+    return seen
+
+
+def _build(out, gxx, name, defines):
+    """The host build of csrc/``name``.cu with ``defines``, under ``out``: one
+    library for a run's every process, named by a hash of the source, the
+    headers it includes, the shim and the command.  A file lock makes one
+    process build it while the others wait for it."""
+    source = cuda_build.CSRC / f"{name}.cu"
+    flags = ["-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++", *(f"-D{d}" for d in defines),
+             "-I", str(SHIM), "-I", str(cuda_build.CSRC)]
+    digest = hashlib.sha256(" ".join([gxx, *flags]).encode())
+    for part in (source, *sorted(_includes(source, set())), SHIM / "cuda_runtime.h"):
+        digest.update(part.read_bytes())
+    tag = "".join(f"-{d}" for d in defines).replace("=", "")
+    target = out / f"{name}{tag}-{digest.hexdigest()[:16]}.so"
+    with open(target.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not target.exists():
+            tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            run = subprocess.run([gxx, *flags, "-o", str(tmp), str(source)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            assert run.returncode == 0, f"{name} does not compile as C++:\n{run.stdout}"
+            os.replace(tmp, target)
+    return target
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The kernels built for the host, bound in place of the CUDA libraries
-    for this module's tests (a library with ``-D`` defines, such as a
-    fixed-rule engine, is built on its first use)."""
+    for this module's tests.  Each (source, defines) library is built once a
+    test run, in a directory the run's xdist workers share
+    (``_build``); every source's build starts with the first module that
+    asks, and a test waits only for the libraries it launches (a library
+    with ``-D`` defines, such as a fixed-rule engine, starts on its first
+    use)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
-    out = tmp_path_factory.mktemp("emulated_kernels")
+    out = tmp_path_factory.getbasetemp().parent / "emulated_kernels"
+    out.mkdir(exist_ok=True)
 
-    def compile_(name, defines=()):
-        tag = "".join(f"-{d}" for d in defines).replace("=", "")
-        target = out / f"{name}{tag}.so"
-        return target, subprocess.Popen(
-            [gxx, "-O1", "-std=c++17", "-shared", "-fPIC", "-x", "c++",
-             *(f"-D{d}" for d in defines), "-I", str(SHIM), "-I", str(cuda_build.CSRC),
-             "-o", str(target), str(cuda_build.CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    def built(name, defines=()):
+        key = (name, tuple(defines))
+        if key not in _BUILDS:
+            _BUILDS[key] = _POOL.submit(_build, out, gxx, name, key[1])
+        return _BUILDS[key]
 
-    def wait(name, job):
-        log, _ = job[1].communicate()
-        assert job[1].returncode == 0, f"{name} does not compile as C++:\n{log}"
-        return job[0]
-
-    jobs = {name: compile_(name) for name in SOURCES}
-    built = {(name, ()): wait(name, job) for name, job in jobs.items()}
+    for name in SOURCES:
+        built(name)
 
     def library(name, defines=()):
-        key = (name, tuple(defines))
-        if key not in built:
-            built[key] = wait(name, compile_(name, key[1]))
-        lib = ctypes.CDLL(str(built[key]))
+        lib = ctypes.CDLL(str(built(name, defines).result()))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
         return lib
@@ -178,9 +214,11 @@ def test_head_kernels_emulated(emulated, geom, drop_p):
     b = b.abs()
     g = torch.from_numpy(rng.randn(n, o, h // pool, w // pool).astype(np.float32))
     seed = 20240301 + h
-    launches = cuda_stages.HEAD_FWD.launches
+    kernel = (cuda_stages.HEAD2_FWD if cuda_stages.head_fwd_route(
+        c, o, pool, w, cuda_head.cell_kind(x)) else cuda_stages.HEAD_FWD)   # the widths' route
+    launches = kernel.launches
     got = cuda_stages._head_fwd_kernel(x, wt, b, pool, drop_p, seed, stage)
-    assert cuda_stages.HEAD_FWD.launches == launches + 1
+    assert kernel.launches == launches + 1
     want = cuda_stages.head_fwd_plain(x, wt, b, pool, drop_p, seed, stage)
     assert float(want.abs().max()) > 0 and _rel(got, want) < 1e-4
     for need_dx in (False, True):

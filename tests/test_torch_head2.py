@@ -1,25 +1,30 @@
-"""PERF.md row 9b redesigned for the H100: the head's backward at the
-package's three stage widths (C, O, pool) = (1, 4, 2), (1, 4, 4) and
-(4, 2, 2) (csrc/head2_bwd.cu, which ``cuda_stages.head_route`` sends there),
-its body built for the host (the ``emulated`` fixture of
-tests/test_torch_emulated.py: one thread a block, so every block walks its
-tiles alone and the last block adds the partial rows).
+"""PERF.md rows 9a and 9b redesigned for the H100: the head's forward and
+backward at the package's three stage widths (C, O, pool) = (1, 4, 2),
+(1, 4, 4) and (4, 2, 2) (csrc/head2_fwd.cu and head2_bwd.cu, which
+``cuda_stages.head_fwd_route`` and ``head_route`` send there), their bodies
+built for the host (the ``emulated`` fixture of tests/test_torch_emulated.py:
+one thread a block, so every block walks its tiles alone and the last block
+adds the partial rows).
 
 Held over uint8, packed and float32 cells, dropout 0 and 0.1, universes half
 blank (whole pool windows tie at the bias), the planner's plan and forced
 plans (blocks that walk several tiles, ragged bands and column tiles):
 
+- the forward bit for bit against the generic kernel's emulated build
+  (``cuda_stages.HEAD2_KERNELS`` off: every pre-activation and window
+  maximum in the generic order), also on rows that are not whole 16-byte
+  runs of pooled windows, and within 1e-5 of the plain twin;
 - dW, db and gx within 1e-5 of each leaf's largest entry against the
-  generic kernel's emulated build (``cuda_stages.HEAD2_KERNELS`` off) and
-  against the plain twin: every pre-activation is summed in the generic
-  order, but the weight-gradient sums run in another order, and the twin's
-  convolutions in yet another;
+  generic kernel's emulated build and against the plain twin: every
+  pre-activation is summed in the generic order, but the weight-gradient
+  sums run in another order, and the twin's convolutions in yet another;
 - gx bit for bit against the generic kernel (its sum's order);
-- without dropout, within 1e-4 against ``jax.vjp`` of
-  ``make_fused_head(pool, 0.0, False, interpret=True, need_dx=...)``;
+- without dropout, the forward within 1e-5 and the gradients within 1e-4
+  against ``make_fused_head(pool, 0.0, False, interpret=True, need_dx=...)``
+  (``jax.vjp``);
 - two calls bit for bit;
-- ``head_route`` picks the kernel at the three widths and the generic
-  kernel elsewhere, and the launch counts follow it.
+- ``head_fwd_route`` and ``head_route`` pick the kernels at the three widths
+  and the generic kernels elsewhere, and the launch counts follow them.
 """
 
 import jax
@@ -84,6 +89,68 @@ def _plans(n, pool, h, w):
     ho, wo = h // pool, w // pool
     tiles = n * -(-ho // 3) * -(-wo // 5)
     return [None, (1, wo, 1), (3, 5, 2), (3, 5, tiles), (ho, wo, n + 1)]
+
+
+FWD_CASES = sorted({(label, kind) for label, kind, _ in CASES})
+# (n, h, w): the main shape, rows of pooled windows that are not whole runs
+# of four with a ragged band, and universes wider than one tile of pooled
+# columns (HEAD2_TILE)
+FWD_GEOMETRIES = ((2, 32, 64), (2, 24, 36), (1, 12, 288))
+
+
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("label,kind", FWD_CASES)
+def test_head2_fwd_emulated(emulated, label, kind, drop_p):
+    c, o, pool, _, _, stage = WIDTHS[label]
+    for n, h, w in FWD_GEOMETRIES:
+        if pool == 4:
+            w = {36: 44, 288: 576}.get(w, w)
+        if kind == "u32" and w % 32:
+            continue
+        x, wt, b, _, _ = _inputs(label, kind, n=n, h=h, w=w, seed=w)
+        args = (x, wt, b, pool, drop_p, 20240301 + h, stage)
+        assert cuda_stages.head_fwd_route(c, o, pool, w, cuda_head.cell_kind(x))
+        before = cuda_stages.HEAD2_FWD.launches, cuda_stages.HEAD_FWD.launches
+        got = cuda_stages._head_fwd_kernel(*args)   # the route
+        assert (cuda_stages.HEAD2_FWD.launches, cuda_stages.HEAD_FWD.launches) == (before[0] + 1,
+                                                                                   before[1])
+        generic = _generic(lambda: cuda_stages._head_fwd_kernel(*args))
+        assert cuda_stages.HEAD_FWD.launches == before[1] + 1
+        assert float(got.abs().max()) > 0
+        assert torch.equal(got, generic), (n, h, w)
+        assert _worst([got], [cuda_stages.head_fwd_plain(*args)]) < 1e-5, (n, h, w)
+        assert torch.equal(got, cuda_stages._head_fwd_kernel(*args))
+        for plan in _plans(n, pool, h, w)[1:]:
+            rb, tw, blocks = plan
+            tw = tw if tw >= w // pool else -(-tw // 4) * 4   # tiles of whole runs
+            forced = cuda_stages._head2_fwd_kernel(*args, plan=(rb, tw, blocks))
+            assert torch.equal(forced, generic), (n, h, w, plan)
+
+
+@pytest.mark.parametrize("label,kind", FWD_CASES)
+def test_head2_fwd_matches_jax_interpret(emulated, label, kind):
+    """Without dropout, against make_fused_head in interpret mode (cells
+    cast to float32 outside, as the JAX callers do)."""
+    x, wt, b, _, pool = _inputs(label, kind, n=2, h=16, w=64, seed=5)
+    stage = WIDTHS[label][5]
+    head = make_fused_head(pool, 0.0, False, interpret=True)
+    want = np.array(head(jnp.asarray(cuda_head.cells(x).float().numpy()),
+                           jnp.asarray(wt.numpy()), jnp.asarray(b.numpy()), jnp.int32(0)))
+    got = cuda_stages._head_fwd_kernel(x, wt, b, pool, 0.0, 0, stage)
+    assert cuda_stages.head_fwd_route(*WIDTHS[label][:3], 64, cuda_head.cell_kind(x))
+    assert _worst([got], [torch.from_numpy(want)]) < 1e-5
+
+
+def test_head2_flag_forces_the_generic_kernels(emulated, monkeypatch):
+    """HEAD2_KERNELS = False sends both directions to the generic kernels."""
+    x, wt, b, g, pool = _inputs("AE conv1", "u8", n=1, h=16, w=32)
+    monkeypatch.setattr(cuda_stages, "HEAD2_KERNELS", False)
+    kernels = (cuda_stages.HEAD2_FWD, cuda_stages.HEAD2_BWD, cuda_stages.HEAD_FWD,
+               cuda_stages.HEAD_BWD)
+    before = [k.launches for k in kernels]
+    cuda_stages._head_fwd_kernel(x, wt, b, pool, 0.1, 3, 0)
+    cuda_stages._head_bwd_kernel(x, wt, b, g, pool, 0.1, 3, 0, False)
+    assert [k.launches - n for k, n in zip(kernels, before)] == [0, 0, 1, 1]
 
 
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
@@ -155,8 +222,14 @@ def test_head2_bwd_matches_jax_interpret(emulated, label, kind, need_dx):
 
 
 def test_head_route_picks_the_specialised_kernel_at_the_three_widths():
-    route = cuda_stages.head_route
+    route, fwd = cuda_stages.head_route, cuda_stages.head_fwd_route
     f32, u8, u32 = 0, 1, 2
+    for args in ((1, 4, 2, 256, u8), (1, 4, 2, 256, u32), (1, 4, 2, 256, f32),
+                 (1, 4, 4, 256, u8), (1, 4, 4, 256, u32), (4, 2, 2, 128, f32)):
+        assert fwd(*args), args
+    for args in ((1, 4, 8, 256, u8), (4, 1, 2, 64, f32), (4, 2, 2, 128, u8),
+                 (1, 4, 2, 30, u8), (1, 4, 4, 256, f32), (3, 5, 2, 16, f32)):
+        assert not fwd(*args), args
     for kind in (u8, u32, f32):
         assert route(1, 4, 2, 256, kind, False)
     assert route(1, 4, 4, 256, u8, False) and route(1, 4, 4, 256, u32, False)
@@ -171,7 +244,7 @@ def test_head_route_picks_the_specialised_kernel_at_the_three_widths():
         assert not route(*args), args
     cuda_stages.HEAD2_KERNELS = False
     try:
-        assert not route(1, 4, 2, 256, u8, False)
+        assert not route(1, 4, 2, 256, u8, False) and not fwd(1, 4, 2, 256, u8)
     finally:
         cuda_stages.HEAD2_KERNELS = True
 
@@ -196,3 +269,10 @@ def test_head2_plan_at_the_main_shapes():
         assert cuda_stages._head2_bwd_smem(c, o, pool, binary, dx, rb, tw) <= 227 * 1024
     assert plan(64, 4, 2, 2, 512, 512, False, True, 132)[0] < 16   # 16 rows would not fit
     assert plan(1, 1, 4, 2, 16, 16, True, False, 132) == (1, 8, 8)   # fewer tiles than slots
+    # the forward's: three blocks a multiprocessor on cells (its table's 8
+    # copies), two on floats
+    fwd = cuda_stages._head2_fwd_plan
+    assert fwd(160, 1, 4, 2, 256, 256, True, 132) == (16, 128, 396)
+    assert fwd(160, 1, 4, 4, 256, 256, True, 132) == (16, 64, 396)
+    assert fwd(64, 4, 2, 2, 128, 128, False, 132) == (8, 64, 264)
+    assert cuda_stages._head2_fwd_smem(1, 4, 2, True, 16, 128) * 3 <= 227 * 1024

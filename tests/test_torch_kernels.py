@@ -333,6 +333,49 @@ def test_head2_bwd_matches_generic_and_plain(cuda, case, drop_p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["AE conv1 u8", "AE conv1 u32", "AE conv1 f32", "RND conv1 u8",
+                                  "RND conv1 u32", "AE conv2", "AE conv1 u8 narrow"])
+def test_head2_fwd_matches_generic_and_plain(cuda, case, drop_p):
+    """Row 9a's specialised forward (head2_fwd, the route at the package's
+    three widths) against the generic kernel forced (HEAD2_KERNELS = False)
+    bit for bit and the twin within 1e-5, the same bits twice, one launch a
+    call; universes half blank (whole pool windows tie); a narrow case whose
+    rows are not whole runs of four pooled windows, with a ragged band."""
+    n, seed = 8, 4242
+    rng = np.random.RandomState(len(case))
+    h, hw = (36, 44) if case.endswith("narrow") else (256, 256)
+    cells = torch.from_numpy(_soup(n, (n, 1, h, hw))).to(cuda)
+    cells[: n // 2, :, : h // 2] = 0
+    if case == "AE conv2":
+        x = torch.relu(torch.from_numpy(rng.randn(n, 4, 128, 128).astype(np.float32))).to(cuda)
+        x[: n // 2, :, :64] = 0
+        c, o, pool, stage = 4, 2, 2, 1
+    else:
+        kind = case.split()[2]
+        x = (cells if kind == "u8" else cells.float() if kind == "f32"
+             else bitpack.pack_grid(cells[:, 0])[:, None])
+        c, o, pool, stage = 1, 4, (4 if case.startswith("RND") else 2), 0
+    w, b = (t.to(cuda) for t in _params(rng, [(o, c, 3, 3), (o,)]))
+    b = b.abs()
+    args = (x, w, b, pool, drop_p, seed, stage)
+    before = cuda_stages.HEAD2_FWD.launches, cuda_stages.HEAD_FWD.launches
+    got = cuda_stages.head_fwd(*args)
+    assert (cuda_stages.HEAD2_FWD.launches - before[0],
+            cuda_stages.HEAD_FWD.launches - before[1]) == (1, 0)
+    assert torch.equal(got, cuda_stages.head_fwd(*args))
+    cuda_stages.HEAD2_KERNELS = False
+    try:
+        generic = cuda_stages.head_fwd(*args)
+    finally:
+        cuda_stages.HEAD2_KERNELS = True
+    assert torch.equal(got, generic)
+    twin = cuda_stages.head_fwd_plain(*args)
+    assert float((got - twin).abs().max() / twin.abs().max()) < 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("slots", [1, 2, 4])
 def test_bit_halo_words_match_present_and_plain(cuda, slots):
     """Row 15's redesigned launcher (bit_spatial_words) against the present
@@ -639,9 +682,11 @@ def test_head_kernels_match_plain(cuda, geom, drop_p):
     b = b.abs()
     g = torch.from_numpy(rng.randn(n, o, h // pool, w // pool).astype(np.float32)).to(cuda)
     seed = 20240301 + h
-    before = cuda_stages.HEAD_FWD.launches
+    kernel = (cuda_stages.HEAD2_FWD if cuda_stages.head_fwd_route(
+        c, o, pool, w, cuda_head.cell_kind(x)) else cuda_stages.HEAD_FWD)   # the widths' route
+    before = kernel.launches
     got = cuda_stages.head_fwd(x, wt, b, pool, drop_p, seed, stage)
-    assert cuda_stages.HEAD_FWD.launches == before + 1
+    assert kernel.launches == before + 1
     torch.testing.assert_close(got, cuda_stages.head_fwd_plain(x, wt, b, pool, drop_p, seed, stage),
                                rtol=1e-4, atol=1e-4)
     for need_dx in (False, True):
@@ -1083,6 +1128,49 @@ def test_loss_tail2_matches_generic(cuda, geom, drop_p):
         torch.testing.assert_close(err, generic, rtol=1e-5, atol=0)
         torch.testing.assert_close(err, cuda_stages.loss_tail_fwd_plain(x, wt, b, obs, *args),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop_p", [0.0, 0.1])
+@pytest.mark.parametrize("geom", [  # n, cin, h, w, act, stage
+    (8, 2, 64, 64, "relu", 2),           # AE deconv1
+    (8, 1, 128, 128, "sigmoid", 3),      # AE deconv2
+    (2, 2, 37, 90, "sigmoid", 3),        # ragged bands and tiles, obs rows of 180 bytes
+])
+def test_loss_tail2_bwd_matches_generic(cuda, geom, drop_p):
+    """The loss tail's backward at the package's widths against the generic
+    kernel forced (LOSS_TAIL2_KERNELS = False): gx bit for bit, dW and db
+    within 1e-5 of each leaf's largest entry (their sums run in another
+    order), the twin within 1e-5, the same bits from run to run, over uint8,
+    packed and float32 obs; one launch a call."""
+    n, cin, h, w, act, stage = geom
+    rng = np.random.RandomState(7 * h + cin)
+    x = torch.from_numpy(np.maximum(rng.randn(n, cin, h, w), 0).astype(np.float32)).to(cuda)
+    wt, b = (p.to(cuda) for p in _params(rng, [(cin, 1, 4, 4), (1,)]))
+    gbar = torch.from_numpy(rng.randn(n).astype(np.float32)).to(cuda)
+    cells = torch.from_numpy(_soup(n + w, (n, 1, 2 * h, 2 * w), 0.3)).to(cuda)
+    obs_kinds = [cells, cells.float() * 0.75]
+    if (2 * w) % 32 == 0:
+        obs_kinds.append(bitpack.pack_grid(cells))
+    args = (gbar, act, drop_p, 1234, stage)
+    for obs in obs_kinds:
+        before = cuda_stages.LOSS_TAIL2_BWD.launches, cuda_stages.LOSS_TAIL_BWD.launches
+        got = cuda_stages.loss_tail_bwd(x, wt, b, obs, *args)
+        assert (cuda_stages.LOSS_TAIL2_BWD.launches - before[0],
+                cuda_stages.LOSS_TAIL_BWD.launches - before[1]) == (1, 0)
+        assert all(torch.equal(a, t) for a, t in
+                   zip(got, cuda_stages.loss_tail_bwd(x, wt, b, obs, *args)))
+        try:
+            cuda_stages.LOSS_TAIL2_KERNELS = False
+            generic = cuda_stages.loss_tail_bwd(x, wt, b, obs, *args)
+        finally:
+            cuda_stages.LOSS_TAIL2_KERNELS = True
+        twin = cuda_stages.loss_tail_bwd_plain(x, wt, b, obs, *args)
+        assert torch.equal(got[2], generic[2])
+        for a, t, p in zip(got, generic, twin):
+            assert float((a - t).abs().max() / t.abs().max()) < 1e-5
+            assert float((a - p).abs().max() / p.abs().max()) < 1e-5
+    torch.cuda.synchronize()
 
 
 def test_launch_table_covers_every_source():
