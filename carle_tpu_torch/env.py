@@ -67,16 +67,23 @@ def env_step(state: EnvState, action: torch.Tensor,
              config: EnvConfig) -> Tuple[EnvState, torch.Tensor]:
     """Toggle, (maybe) master-reset, CA update.  ``action`` is
     [instances, AH, AW] of any dtype; returns (new_state, uint8 obs
-    [instances, H, W]).  Nothing here waits for the device."""
+    [instances, H, W]).  A grid of row shards (parallel/mesh.py) steps on
+    its shards, one halo launch a device, and the obs is those shards.
+    Nothing here waits for the device."""
     toggles = action != 0
     do_reset = action.to(torch.float32).mean() == 1.0
     any_action = toggles.any()
 
     # the kernel binarises the bytes itself and writes zeros under the reset
     # flag, so no pass over the grid runs beside it
-    patch = action if action.dtype == torch.uint8 else toggles.view(torch.uint8)
-    new_grid = ca_step(state.grid, patch.contiguous(), state.rule_bits, config,
-                       reset=do_reset)
+    patch = (action if action.dtype == torch.uint8 else toggles.view(torch.uint8)).contiguous()
+    if isinstance(state.grid, torch.Tensor):
+        new_grid = ca_step(state.grid, patch, state.rule_bits, config, reset=do_reset)
+    else:   # row shards: the spatial env mode (parallel/spatial_env.py)
+        from .parallel.cuda_halo import spatial_env_step_cuda
+
+        new_grid = spatial_env_step_cuda(state.grid, patch, state.rule_bits, config,
+                                         reset=do_reset)
     zero = torch.zeros_like(state.step_num)
     new_step = torch.where(do_reset, zero, state.step_num + 1)
     new_ssa = torch.where(

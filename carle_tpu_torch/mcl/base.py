@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..config import EnvConfig
-from ..env import CARLE, EnvState, env_step, init_state, reset_state
+from ..env import CARLE, EnvState, env_step, init_state
 from ..ops.ca import pad_action
 
 
@@ -121,14 +121,24 @@ class WrapperStack:
                  wrappers: Sequence[WrapperDef] = ()) -> None:
         self.config = config
         self.wrappers = tuple(wrappers)
+        self.gathers = 0  # cell views gathered from row shards by steps
+
+    def _whole(self, grid) -> torch.Tensor:
+        """The universe as one tensor: row shards (the spatial env mode,
+        parallel/spatial_env.py) gathered onto the mesh's home device."""
+        if isinstance(grid, torch.Tensor):
+            return grid
+        from ..parallel.mesh import gather_rows
+
+        return gather_rows(grid)
 
     def universe(self, state: StackState) -> torch.Tensor:
         """uint8 [inst, H, W] universe of a stack state."""
-        return state.env.grid
+        return self._whole(state.env.grid)
 
     def observe(self, state: StackState) -> torch.Tensor:
         """float32 [inst, 1, H, W] observation (the agent's input)."""
-        return state.env.grid.to(torch.float32)[:, None]
+        return self._whole(state.env.grid).to(torch.float32)[:, None]
 
     def init(self, generator: torch.Generator, rule_bits,
              device: torch.device) -> StackState:
@@ -143,16 +153,24 @@ class WrapperStack:
         and ``generator`` feed the training wrappers' dropout.  Returns
         (state', the step context, reward [inst, 1]); the context's float
         observation, padded action and action sums are computed only if a
-        wrapper (or the caller) reads them."""
+        wrapper (or the caller) reads them.  A universe of row shards steps
+        on its shards (parallel/spatial_env.py)."""
         prev_grid = state.env.grid
         # the RAW action goes to env_step: it binarises for the toggle, but
         # the master reset reads the mean of the values
         env_state, grid = env_step(state.env, action, self.config)
         action_bits = (action != 0).to(torch.uint8)
+        if isinstance(grid, torch.Tensor):
+            prev, obs_cells = prev_grid, grid[:, None]
+            obs = Lazy(lambda: grid.to(torch.float32)[:, None])
+        else:   # row shards: the cell views gathered on their first read
+            from ..parallel.spatial_env import gathered_views
+
+            prev, obs_cells, obs = gathered_views(self, prev_grid, grid)
         ctx = StepCtx(
-            prev_grid=prev_grid,
-            obs=Lazy(lambda: grid.to(torch.float32)[:, None]),
-            obs_cells=grid[:, None],
+            prev_grid=prev,
+            obs=obs,
+            obs_cells=obs_cells,
             action=action_bits,
             action_full=Lazy(lambda: pad_action(action_bits, self.config)),
             action_sum=Lazy(lambda: action.to(torch.float32).sum(dim=(1, 2))[:, None]),
@@ -183,14 +201,21 @@ class WrapperStack:
     def reset(self, state: StackState, generator: Optional[torch.Generator] = None
               ) -> Tuple[StackState, torch.Tensor]:
         """Zero the universe and run the wrappers' reset hooks in order;
-        ``generator`` draws the hooks' noise."""
-        env_state = reset_state(state.env)
-        grid = env_state.grid
+        ``generator`` draws the hooks' noise.  Row shards are reset on the
+        mesh's home device (resets are rare) and resharded."""
+        env = state.env
+        grid = torch.zeros(tuple(env.grid.shape), dtype=torch.uint8, device=env.grid.device)
         new_wstates = []
         for w, ws in zip(self.wrappers, state.wrappers):
             ws, grid = w.on_reset(ws, grid, generator)
             new_wstates.append(ws)
-        env_state = env_state._replace(grid=grid)
+        kept = grid
+        if not isinstance(env.grid, torch.Tensor):
+            from ..parallel.mesh import shard_rows
+
+            kept = shard_rows(grid, env.grid.mesh, env.grid.axis)
+        env_state = EnvState(kept, env.rule_bits, torch.zeros_like(env.step_num),
+                             torch.zeros_like(env.steps_since_action))
         return (StackState(env=env_state, wrappers=tuple(new_wstates)),
                 grid.to(torch.float32)[:, None])
 

@@ -41,7 +41,7 @@ SOURCES = ("ca_step", "bit_multi_step", "ca_multi_step", "encoder_fwd", "ae_loss
            "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd", "enc3_fwd", "enc3_bwd",
            "head_fwd", "head2_fwd", "head_bwd", "head2_bwd", "tail", "tail2_fwd", "tail2_bwd",
            "loss_tail2_fwd", "loss_tail2_bwd", "decoder_loss_fwd", "decoder_loss_bwd",
-           "dec2_fwd", "dec2_bwd", "halo_step")
+           "dec2_fwd", "dec2_bwd", "halo_step", "halo_words")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
@@ -263,6 +263,9 @@ KERNELS: Dict[str, CudaKernel] = {
                    [P, P, P, P, I, I, P] + [I] * 13 + [P], source="halo_step"),
         CudaKernel("spatial_multi_step_bits", "u8_halo_bits_launch",
                    [P, P, P, P, I, I, P] + [I] * 13 + [P], source="halo_step"),
+        CudaKernel("spatial_ca_step_words", "halo_words_launch",
+                   [P, P, P, I, I, P, I, I, I, I, P, I, P] + [I] * 7 + [P],
+                   source="halo_words"),
     )
 }
 

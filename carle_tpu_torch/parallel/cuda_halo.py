@@ -4,6 +4,9 @@ carle_tpu/parallel/pallas_halo.py).
 
 * :func:`spatial_ca_step_cuda` — one uint8 generation
   (``spatial_ca_step_pallas``);
+* :func:`spatial_env_step_cuda` — one uint8 generation with the env step's
+  action window and master reset fused in: the step of the uint8 spatial env
+  mode (parallel/spatial_env.py);
 * :func:`spatial_multi_step_cuda` — K uint8 generations
   (``spatial_multi_step_pallas``);
 * :func:`bit_spatial_multi_step_cuda` — K packed generations
@@ -11,28 +14,35 @@ carle_tpu/parallel/pallas_halo.py).
   ``static_rules``, fixed at compile time (one library a rule mask).
 
 Each takes :class:`~.mesh.RowShards` of [N, H/n, W] uint8 cells or
-[N, H/n, W/32] uint32 words and returns new shards.  All three launch
-``csrc/halo_step.cu`` for CUDA slots, every slot on a device in one launch,
-each slot reading its ring neighbours' edge rows in place (the ring wraps:
-the torus).  The packed one (``bit_halo_words_launch``, counted as
-``bit_spatial_words``) runs one generation by the streaming kernel, and K
-generations in chunks of T (:func:`halo_plan`: T <= the slot's rows): one
-launch per device per chunk, each a temporal-blocking kernel on bands staged
-with T ghost rows a side; with ``BIT_HALO_BLOCKS = False`` it takes the
-present kernel, once per device per generation.  The uint8 burst
-(``u8_halo_bits_launch``, counted as ``spatial_multi_step_bits``) runs the
-same temporal-blocking kernel on the cells packed as they are staged and
-unpacked as they are stored, where :func:`u8_halo_plan` holds the shape
-(K > 1, W % 32 == 0, a band's packed copies fit shared memory); other
-shapes, one generation (:func:`spatial_ca_step_cuda`) and
-``HALO_U8_BITS = False`` take the present uint8 kernel, once per device per
-generation.  Slots on several cards run each generation (packed:
-each chunk) on every card's stream, each waiting on an event its
-neighbours' cards recorded after the previous one; that path needs peer
-access and has not run on a machine of several cards.  For CPU slots each
-takes its twin (``*_plain``): ghost rows copied from the ring neighbours,
-the engines' update on the padded rows, columns rolled.  The step count is
-data (a host integer): no rebuild for another count.
+[N, H/n, W/32] uint32 words and returns new shards, every slot on a device
+in one launch, each slot reading its ring neighbours' edge rows in place
+(the ring wraps: the torus).  One uint8 generation (the first two, and the
+third at K = 1) runs ``csrc/halo_words.cu`` (``halo_words_launch``, counted
+as ``spatial_ca_step_words``) where :func:`halo_words_route` holds the shape
+(W % 16 == 0): row 1's design on row shards, a band of rows with a ghost
+row a side staged by bulk copies, the action's toggles XOR-ed into the
+staged rows the window covers, a thread a strip of a 16-byte column
+(:func:`halo_words_plan`); the flag set, it writes zeros.  Other widths and
+``HALO_U8_WORDS = False`` take the present ``halo_u8_kernel``
+(``csrc/halo_step.cu``), the env step's window then XOR-ed into clones of
+the slots it covers and the flag applied after.  The packed one
+(``bit_halo_words_launch``, counted as ``bit_spatial_words``) runs one
+generation by the streaming kernel, and K generations in chunks of T
+(:func:`halo_plan`: T <= the slot's rows): one launch per device per chunk,
+each a temporal-blocking kernel on bands staged with T ghost rows a side;
+with ``BIT_HALO_BLOCKS = False`` it takes the present kernel, once per
+device per generation.  The uint8 burst (``u8_halo_bits_launch``, counted as
+``spatial_multi_step_bits``) runs the same temporal-blocking kernel on the
+cells packed as they are staged and unpacked as they are stored, where
+:func:`u8_halo_plan` holds the shape (K > 1, W % 32 == 0, a band's packed
+copies fit shared memory); other shapes and ``HALO_U8_BITS = False`` take
+the present uint8 kernel, once per device per generation.  Slots on several
+cards run each launch (packed: each chunk) on every card's stream, each
+waiting on an event its neighbours' cards recorded after the previous one;
+that path needs peer access and has not run on a machine of several cards.
+For CPU slots each takes its twin (``*_plain``): ghost rows copied from the
+ring neighbours, the engines' update on the padded rows, columns rolled.
+The step count is data (a host integer): no rebuild for another count.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..config import EnvConfig
 from ..ops import bitpack
 from ..ops.ca import apply_rule
 from ..ops.cuda_bitpack import stream_launches, stream_plan
@@ -55,6 +66,7 @@ KERNEL_MULTI = KERNELS["spatial_multi_step"]
 KERNEL_BIT = KERNELS["bit_spatial_multi_step"]
 KERNEL_BIT_WORDS = KERNELS["bit_spatial_words"]
 KERNEL_U8_BITS = KERNELS["spatial_multi_step_bits"]
+KERNEL_WORDS = KERNELS["spatial_ca_step_words"]
 KIND_U8, KIND_U32 = 1, 2     # csrc/common.cuh
 MAX_SLOTS = 64               # csrc/halo_step.cu: slots of one device a launch covers
 # False: bit_spatial_multi_step_cuda launches the present kernel, once a
@@ -71,11 +83,22 @@ HALO_MAX_STRIP = 32
 # False: spatial_multi_step_cuda launches the present uint8 kernel, once a
 # generation (the A/B)
 HALO_U8_BITS = True
+# False: one uint8 generation (spatial_ca_step_cuda, spatial_env_step_cuda,
+# spatial_multi_step_cuda at K = 1) launches the present uint8 kernel (the A/B)
+HALO_U8_WORDS = True
+# halo_words_launch's bands: blocks a multiprocessor whose staged bands fit
+# shared memory together, threads a block
+HALO_WORDS_BLOCKS = 3
+HALO_WORDS_THREADS = 256
+_BAR_BYTES = 16        # halo_words.cu's mbarrier slot ahead of the staged band
+_BLOCK_RESERVED = 1024  # shared memory the runtime keeps for each block
 
-__all__ = ["KERNEL_BIT", "KERNEL_BIT_WORDS", "KERNEL_MULTI", "KERNEL_STEP", "KERNEL_U8_BITS",
-           "bit_spatial_multi_step_cuda", "halo_plan", "u8_halo_plan",
+__all__ = ["HALO_U8_WORDS", "KERNEL_BIT", "KERNEL_BIT_WORDS", "KERNEL_MULTI", "KERNEL_STEP",
+           "KERNEL_U8_BITS", "KERNEL_WORDS", "bit_spatial_multi_step_cuda", "halo_plan",
+           "halo_words_plan", "halo_words_route", "u8_halo_plan",
            "bit_spatial_multi_step_plain", "spatial_ca_step_cuda", "spatial_ca_step_plain",
-           "spatial_multi_step_cuda", "spatial_multi_step_plain"]
+           "spatial_env_step_cuda", "spatial_env_step_plain", "spatial_multi_step_cuda",
+           "spatial_multi_step_plain"]
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +157,40 @@ def _multi_plain(x: RowShards, steps: int, step) -> RowShards:
 def spatial_ca_step_plain(x: RowShards, rule_bits) -> RowShards:
     """One uint8 generation of row-sharded universes, ghost rows by copy."""
     return _multi_plain(x, 1, lambda parts: _step_u8(parts, rule_bits))
+
+
+def _toggled(x: RowShards, action: torch.Tensor, config: EnvConfig) -> List[torch.Tensor]:
+    """The slots with the [N, AH, AW] action's toggles (nonzero bytes) XOR-ed
+    into the config's centred window: a clone of each slot whose rows the
+    window covers, the others as they are."""
+    r0, c0 = config.action_row_offset, config.action_col_offset
+    ah, aw = action.shape[-2:]
+    parts = []
+    for p, a in zip(x.parts, x.offsets()):
+        lo, hi = max(a, r0), min(a + x.rows, r0 + ah)
+        if lo < hi:
+            p = p.clone()
+            p[:, lo - a:hi - a, c0:c0 + aw] ^= (action[:, lo - r0:hi - r0] != 0).to(
+                device=p.device, dtype=torch.uint8)
+        parts.append(p)
+    return parts
+
+
+def _zeroed(x: RowShards, reset: Optional[torch.Tensor]) -> RowShards:
+    """Every slot all zeros where the 0-d ``reset`` flag is set."""
+    if reset is None:
+        return x
+    return x.map(lambda p: torch.where(reset.to(p.device) != 0, torch.zeros_like(p), p))
+
+
+def spatial_env_step_plain(x: RowShards, action: torch.Tensor, rule_bits, config: EnvConfig,
+                           reset: Optional[torch.Tensor] = None) -> RowShards:
+    """One env-mode generation of row-sharded uint8 universes: the action's
+    toggles XOR-ed into the centred window, one generation, zeros under the
+    reset flag."""
+    stepped = spatial_ca_step_plain(RowShards(_toggled(x, action, config), x.mesh, x.axis),
+                                    rule_bits)
+    return _zeroed(stepped, reset)
 
 
 def spatial_multi_step_plain(x: RowShards, rule_bits, num_steps: int) -> RowShards:
@@ -401,10 +458,108 @@ def _launch_u8_bits(x: RowShards, rule_bits, steps: int, plan,
                           defines, packed=False)
 
 
+def halo_words_route(hl: int, w: int) -> str:
+    """Which kernel takes one uint8 generation of slots of [hl, w] cells on
+    the card: ``"words"`` (halo_words.cu: w % 16 == 0 and a band of one row
+    with its two ghost rows fits shared memory) or ``"present"``
+    (``halo_u8_kernel``, and every shape while HALO_U8_WORDS is off);
+    decided by the shape alone, on any device."""
+    if HALO_U8_WORDS and w % 16 == 0 and _BAR_BYTES + 3 * w <= HALO_SMEM_BYTES:
+        return "words"
+    return "present"
+
+
+def halo_words_plan(n_inst: int, hl: int, w: int, slots: int, sms: int) -> Tuple[int, int, int]:
+    """(band rows, strip rows, threads) of halo_words_launch for one
+    generation of n_inst universes of [hl, w] cells on each of ``slots``
+    slots of a card with ``sms`` multiprocessors: bands of the most rows, to
+    a slot's, whose staged copy with its two ghost rows lets
+    HALO_WORDS_BLOCKS blocks share a multiprocessor (halved while that
+    leaves fewer than two blocks a multiprocessor: 8192² over 4 slots, 7
+    rows, 3 blocks of 72 KB); a thread a strip of a 16-byte column, strips
+    that give each of HALO_WORDS_THREADS threads at least one, the threads
+    cut to whole warps the items fill."""
+    budget = HALO_SMEM_BYTES // HALO_WORDS_BLOCKS - _BLOCK_RESERVED - _BAR_BYTES
+    rows = max(1, min(hl, budget // w - 2))
+    while rows > 1 and n_inst * slots * -(-hl // rows) < 2 * sms:
+        rows = -(-rows // 2)
+    columns = w // 16
+    strip = -(-rows // max(1, HALO_WORDS_THREADS // columns))
+    items = columns * -(-rows // strip)
+    return rows, strip, min(HALO_WORDS_THREADS, 32 * -(-items // 32))
+
+
+def _check_env(x: RowShards, action: torch.Tensor, config: EnvConfig, reset) -> None:
+    """The env step's checks: the shards the config's universe, the action
+    its [N, AH, AW] uint8 window on the home device, the flag one byte."""
+    n = x.parts[0].shape[0]
+    ah, aw = config.eff_action_height, config.eff_action_width
+    if tuple(x.shape) != (n, config.height, config.width):
+        raise ValueError(f"universe {tuple(x.shape)[1:]} does not match the config "
+                         f"{config.height}x{config.width}")
+    if (action.shape != (n, ah, aw) or action.dtype != torch.uint8
+            or action.device != x.mesh.home or not action.is_contiguous()):
+        raise ValueError(f"action must be a contiguous uint8 [{n}, {ah}, {aw}] tensor on "
+                         f"{x.mesh.home}")
+    if reset is not None and (reset.dtype not in (torch.bool, torch.uint8)
+                              or reset.numel() != 1 or reset.device != x.mesh.home):
+        raise ValueError(f"reset must be a one-element bool or uint8 tensor on {x.mesh.home}")
+
+
+def _launch_halo_words(x: RowShards, rule_bits, action: Optional[torch.Tensor] = None,
+                       config: Optional[EnvConfig] = None,
+                       reset: Optional[torch.Tensor] = None,
+                       plan: Optional[Tuple[int, int, int]] = None) -> RowShards:
+    """halo_words_launch: one generation of checked uint8 shards, the action
+    (with the config's window) and the reset flag fused in where given; one
+    launch a device (``plan`` overrides :func:`halo_words_plan`)."""
+    parts = x.parts
+    n_inst, hl, w = parts[0].shape
+    groups = _slot_groups(x)
+    out, _, (in_ptrs, _, out_ptrs) = _buffers(x, 1)
+    if w % 16 or any(t.data_ptr() % 16 for ts in (parts, out) for t in ts):
+        raise ValueError("halo_words reads 16-byte columns: width % 16 == 0 and "
+                         "16-byte aligned shards")
+    rows, strip, threads = plan or halo_words_plan(
+        n_inst, hl, w, max(len(s) for s in groups.values()), _multiprocessors(x.mesh.home))
+    if _BAR_BYTES + (rows + 2) * w > HALO_SMEM_BYTES:
+        raise ValueError(f"a band of {rows} rows of width {w} exceeds shared memory")
+    rules = _rules_by_device(rule_bits, x)
+    on = lambda t: {d: t.to(d).contiguous() for d in groups} if t is not None else {}
+    actions, resets = on(action), on(reset)
+    ah, aw, r0, c0 = ((action.shape[1], action.shape[2], config.action_row_offset,
+                       config.action_col_offset) if action is not None else (0, 0, 0, 0))
+    slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
+
+    def launch(dev, *_):   # one generation: _chunks' one chunk
+        rule = rules[dev]
+        KERNEL_WORDS.launch(*(ctypes.cast(a, ctypes.c_void_p) for a in (in_ptrs, out_ptrs)),
+                            ctypes.cast(slot_arrays[dev], ctypes.c_void_p), len(groups[dev]),
+                            len(parts), actions[dev].data_ptr() if actions else None, ah, aw,
+                            r0, c0,
+                            rule.data_ptr(), int(rule.ndim == 1),
+                            resets[dev].data_ptr() if resets else None, n_inst, hl, w, rows,
+                            strip, threads, *stream_args(parts[groups[dev][0]]))
+
+    _chunks(x, groups, 1, launch)
+    return RowShards(out, x.mesh, x.axis)
+
+
+def _u8_step(x: RowShards, rule_bits) -> RowShards:
+    """One uint8 generation of checked shards: halo_words where
+    :func:`halo_words_route` holds the shape, else the present kernel."""
+    _, hl, w = x.parts[0].shape
+    if halo_words_route(hl, w) == "words":
+        return _launch_halo_words(x, rule_bits)
+    return _launch(KERNEL_STEP, x, rule_bits, 1, KIND_U8)
+
+
 def _u8_multi(x: RowShards, rule_bits, steps: int) -> RowShards:
-    """The uint8 burst on checked shards: the packed temporal-blocking kernel
-    where :func:`u8_halo_plan` holds the shape and HALO_U8_BITS is on, else
-    the present kernel."""
+    """The uint8 burst on checked shards: one generation by :func:`_u8_step`;
+    more by the packed temporal-blocking kernel where :func:`u8_halo_plan`
+    holds the shape and HALO_U8_BITS is on, else the present kernel."""
+    if int(steps) == 1:
+        return _u8_step(x, rule_bits)
     _, hl, w = x.parts[0].shape
     plan = HALO_U8_BITS and u8_halo_plan(hl, w, int(steps),
                                          all(p.data_ptr() % 16 == 0 for p in x.parts))
@@ -418,7 +573,27 @@ def spatial_ca_step_cuda(x: RowShards, rule_bits) -> RowShards:
     scalar or an [N] vector."""
     if _check(x, torch.uint8, "spatial_ca_step", rule_bits) == "cpu":
         return spatial_ca_step_plain(x, rule_bits)
-    return _launch(KERNEL_STEP, x, rule_bits, 1, KIND_U8)
+    return _u8_step(x, rule_bits)
+
+
+def spatial_env_step_cuda(x: RowShards, action: torch.Tensor, rule_bits, config: EnvConfig,
+                          reset: Optional[torch.Tensor] = None) -> RowShards:
+    """One env-mode generation of row-sharded uint8 universes [N, H, W]: the
+    nonzero bytes of the uint8 [N, AH, AW] action toggle the config's centred
+    window, then one generation; all zeros where the 0-d bool or uint8
+    ``reset`` (a flag on the mesh's home device that the host never reads) is
+    set.  On the card one halo_words launch a device; where the route leaves
+    the shape, the window XOR-ed into clones of the slots it covers, the
+    present kernel, then the flag."""
+    where = _check(x, torch.uint8, "spatial_env_step", rule_bits)
+    _check_env(x, action, config, reset)
+    if where == "cpu":
+        return spatial_env_step_plain(x, action, rule_bits, config, reset)
+    _, hl, w = x.parts[0].shape
+    if halo_words_route(hl, w) == "words":
+        return _launch_halo_words(x, rule_bits, action, config, reset)
+    toggled = RowShards(_toggled(x, action, config), x.mesh, x.axis)
+    return _zeroed(_launch(KERNEL_STEP, toggled, rule_bits, 1, KIND_U8), reset)
 
 
 def spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int) -> RowShards:

@@ -86,7 +86,6 @@ class PackedSpatialStack(WrapperStack):
         self.axis_name = axis_name
         self.env_axis = env_axis
         self.unpacks = 0  # cell views unpacked by steps (module note)
-        self.gathers = 0  # cell views gathered from the shards by steps
 
     # --- state accessors ----------------------------------------------------
     def _shards(self, g) -> RowShards:

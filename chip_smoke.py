@@ -112,8 +112,10 @@ Phases, in order; any failure exits non-zero without the final line:
            (bit_spatial_words: temporal blocking, one launch a chunk of
            generations) against the present kernel forced, timed in turns,
            and one generation a call (the streaming kernel) by CUPTI cold,
-           with the plans' registers and blocks a multiprocessor; a small
-           ragged case with a rule vector;
+           with the plans' registers and blocks a multiprocessor; the uint8
+           one generation (halo_words) and the env mode's step with its
+           action and reset flag against the present kernel forced, likewise;
+           a small ragged case with a rule vector;
    engines each of the five packed and uint8 engines once at bench.py's
            geometry through its public function: all leave bench.py's
            checksum, the live-cell sum of the plain twin;
@@ -165,7 +167,9 @@ Phases, in order; any failure exits non-zero without the final line:
            RND2D with SpaceSharding over 128 steps (2 updates, dropout on),
            AE2D with SpaceSharding, free_steps(64); RND2D with dropout off
            against BandTiling(512) (rtol 1e-4 through 2 updates); RND2D's
-           step profiled;
+           step profiled; the uint8 spatial env mode (shard_carry_spatial,
+           Speed + Puffer, a master reset) against the mesh=None uint8 stack,
+           bit for bit, one halo_words launch and one gather a step;
 10. profile 64 steps of the batched battery and 64 training steps, uint8 and
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
@@ -175,8 +179,9 @@ Phases, in order; any failure exits non-zero without the final line:
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
            byte ca_step kernel, the present packed or uint8 engines or halo
-           kernel (bit_multi_step, bit_multi_step_static,
-           bit_multi_step_static_cm, ca_multi_step, bit_spatial_multi_step) or
+           kernels (bit_multi_step, bit_multi_step_static,
+           bit_multi_step_static_cm, ca_multi_step, bit_spatial_multi_step,
+           spatial_multi_step, spatial_ca_step) or
            the generic head backward (head_bwd), launched on any of them
            fails the run),
            then the
@@ -205,7 +210,8 @@ summation orders add up; see phase_band_kernels), and 1e-4 outside the pool wind
 lie within 64 float32 ulps without being equal (_tie_analysis).  Column tiles
 against one tile: encoder outputs bit for bit, sums and gradients 1e-5 of each
 leaf's largest entry.  Banded stack against unbanded at 8192²: rtol 1e-4.
-Halo kernels against twins and engines: bit for bit.  Sharded RND2D against
+Halo kernels against twins and engines: bit for bit; the uint8 env mode
+against the mesh=None uint8 stack likewise (universe and rewards).  Sharded RND2D against
 BandTiling(512): rtol 1e-4 (parameter-gradient sums in another order,
 through 2 Adam updates).  Phase and build times are printed as they end.
 """
@@ -320,6 +326,8 @@ SOURCES = {
                                 "carle_tpu/parallel/pallas_halo.py:222"),
     "spatial_ca_step": ("carle_tpu_torch/csrc/halo_step.cu",
                         "carle_tpu/parallel/pallas_halo.py:396"),
+    "spatial_ca_step_words": ("carle_tpu_torch/csrc/halo_words.cu",
+                              "carle_tpu/parallel/pallas_halo.py:396"),
     "bit_spatial_multi_step": ("carle_tpu_torch/csrc/halo_step.cu",
                                "carle_tpu/parallel/pallas_halo.py:327"),
     "bit_spatial_words": ("carle_tpu_torch/csrc/halo_step.cu",
@@ -353,7 +361,8 @@ FEATURE_ROWS = {
 }
 BAND_SIZE = 8192                     # pod_smoke.py's spatial8k universe, one of it
 RND_BANDS, PRED_BANDS = 512, 128     # BandTiling(size // 16), BandTiling(size // 64)
-SPATIAL_ROWS = ("spatial_ca_step", "spatial_multi_step", "spatial_multi_step_bits",
+SPATIAL_ROWS = ("spatial_ca_step", "spatial_ca_step_words", "spatial_multi_step",
+                "spatial_multi_step_bits",
                 "bit_spatial_multi_step",
                 "bit_spatial_multi_step_static", "bit_spatial_words", "bit_spatial_words_static")
 # The whole autoencoder's rows: at AE2D's widths, which every main path uses,
@@ -376,7 +385,7 @@ PATH_KERNELS = {
     "bands": ("bit_multi_step_words", "enc3_fwd", "enc3_bwd", "dec2_fwd", "dec2_bwd"),
     "engines": ("bit_multi_step_words", "bit_multi_step_static_words",
                 "bit_multi_step_static_cm_words", "bit_multi_step_cm", "ca_multi_step_bits"),
-    "spatial": ("spatial_ca_step", "spatial_multi_step_bits", "bit_spatial_words",
+    "spatial": ("spatial_ca_step_words", "spatial_multi_step_bits", "bit_spatial_words",
                 "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
@@ -401,11 +410,12 @@ PRESENT_PACKED = ("bit_multi_step", "bit_spatial_multi_step")
 # package has one of the specialised kernels' widths (head2_fwd, head2_bwd)
 PRESENT_STATIC = ("bit_multi_step_static", "bit_multi_step_static_cm", "ca_multi_step")
 GENERIC_HEAD = ("head_fwd", "head_bwd")
-# the present uint8 halo burst and the generic loss-tail kernels, which no main
-# path may launch: the spatial path's 8-generation burst takes the packed
-# temporal-blocking kernel (spatial_multi_step_bits), and every loss tail of
-# the package has one of the specialised kernels' widths (loss_tail2_*)
-PRESENT_U8_HALO = ("spatial_multi_step",)
+# the present uint8 halo kernels and the generic loss-tail kernels, which no
+# main path may launch: the spatial path's 8-generation burst takes the packed
+# temporal-blocking kernel (spatial_multi_step_bits), its one generation and
+# the env mode's step halo_words (spatial_ca_step_words), and every loss tail
+# of the package has one of the specialised kernels' widths (loss_tail2_*)
+PRESENT_U8_HALO = ("spatial_multi_step", "spatial_ca_step")
 GENERIC_LOSS_TAIL = ("loss_tail_fwd", "loss_tail_bwd")
 # the kernels the packed path must launch on packed words
 PACKED_INPUT_KERNELS = ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "dec2_fwd", "dec2_bwd")
@@ -3283,7 +3293,9 @@ def phase_spatial_kernels(torch, timer, gen):
     15 also with the present kernel forced, bit for bit the route's, both
     timed in turns with their launches a call (row 13: one launch for the 8
     generations against 8; its CUPTI µs cold, plan, registers and blocks a
-    multiprocessor)."""
+    multiprocessor).  Row 14 likewise: halo_words (one generation) against
+    the present kernel forced, one launch each, and the env mode's step with
+    its action and reset flag (_row14_extras)."""
     import numpy as np
 
     from carle_tpu_torch import rules
@@ -3310,7 +3322,7 @@ def phase_spatial_kernels(torch, timer, gen):
     # operations once a generation (the uint8 rows the packed update's:
     # u8_bound)
     cases = {  # row: (kernel call, twin call, engine call, steps, bound, shape)
-        "spatial_ca_step": (
+        "spatial_ca_step_words": (
             lambda: cuda_halo.spatial_ca_step_cuda(g8, life_t),
             lambda: cuda_halo.spatial_ca_step_plain(g8, life),
             lambda: cuda_ca.ca_multi_step(grid, life_t, 1), 1, u8_bound(cells, 1),
@@ -3335,11 +3347,13 @@ def phase_spatial_kernels(torch, timer, gen):
             f"u32 [1,{size},{size // 32}] over {SPATIAL_SLOTS} slots, 64 generations, "
             "Life fixed (-DSTATIC_RULE)"),
     }
-    # rows 13 and 15 twice: the redesigned launcher (the route:
-    # spatial_multi_step_bits, bit_spatial_words) and the present kernel
-    # forced (a generation a launch), timed in turns
+    # rows 13-15 twice: the redesigned launcher (the route:
+    # spatial_ca_step_words, spatial_multi_step_bits, bit_spatial_words) and
+    # the present kernel forced (a generation a launch), timed in turns
     present_u8 = lambda fn: _flag_off(cuda_halo, "HALO_U8_BITS", fn)
     present_rows = {  # row: (present row, forcing, the new and present kernels)
+        "spatial_ca_step_words": ("spatial_ca_step", _present_u8_step, cuda_halo.KERNEL_WORDS,
+                                  cuda_halo.KERNEL_STEP),
         "spatial_multi_step_bits": ("spatial_multi_step", present_u8, cuda_halo.KERNEL_U8_BITS,
                                     cuda_halo.KERNEL_MULTI),
         "bit_spatial_words": ("bit_spatial_multi_step", _present_packed,
@@ -3378,7 +3392,11 @@ def phase_spatial_kernels(torch, timer, gen):
                                 launches_per_call=launches[route],
                                 ms_per_launch=timed[route][0] / launches[route],
                                 bound_ms_per_launch=b / launches[route])
-        if name == "spatial_multi_step_bits":
+        if name == "spatial_ca_step_words":
+            check(launches == {"new": 1, "present": 1},
+                  f"{name}: {launches} launches a call, not 1 and 1")
+            results[name].update(_row14_extras(torch, timer, g8, life_t, kernel, old))
+        elif name == "spatial_multi_step_bits":
             check(launches == {"new": 1, "present": steps},
                   f"{name}: {launches} launches a call, not 1 and {steps}")
             t, v, rows, strip, threads = plan = cuda_halo.u8_halo_plan(size // SPATIAL_SLOTS,
@@ -3413,6 +3431,82 @@ def phase_spatial_kernels(torch, timer, gen):
     log("halo kernels, ragged case ([2, 256, 128] uint8, 3 universes packed, rule vector) ok")
     results["spatial_heads"] = _slot_head_kernels(torch, timer, gen, g32)
     return results
+
+
+def _present_u8_step(fn):
+    """fn() with the present one-generation uint8 halo kernel forced
+    (cuda_halo.HALO_U8_WORDS off)."""
+    from carle_tpu_torch.parallel import cuda_halo
+
+    return _flag_off(cuda_halo, "HALO_U8_WORDS", fn)
+
+
+ROW14_KERNELS = {"new": ("halo_words_kernel",), "present": ("halo_u8_kernel",)}
+
+
+def _row14_extras(torch, timer, g8, life_t, new, old):
+    """Row 14 at 8192² over 4 slots beyond the bare generation (``new`` and
+    ``old``: it on the route and with the present kernel forced): each one's
+    CUPTI µs cold; the env mode's step (64 x 64 actions at p = 0.2 in the
+    centred window, rows 4064-4127 across the slot 1 / 2 edge; the reset flag
+    unset and set) on the route, one launch, against the twin and the
+    present kernel forced (the window XOR-ed into clones of slots 1 and 2,
+    the present kernel, the flag applied after), bit for bit, timed in turns
+    with CUPTI µs cold and each case's bound; the plan, registers and blocks
+    a multiprocessor."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.ops import cuda_build, cuda_ca
+    from carle_tpu_torch.parallel import cuda_halo
+
+    dev = life_t.device
+    size, slots = SPATIAL_SIZE, SPATIAL_SLOTS
+    cells = size * size
+    cfg = EnvConfig(size, size, 64, 64, 1)
+    action = torch.from_numpy((np.random.RandomState(14).rand(*cfg.action_shape) < 0.2)
+                              .astype(np.uint8)).to(dev)
+    unset, set_ = (torch.tensor(v, device=dev) for v in (False, True))
+    env = {flag: (lambda r=r: cuda_halo.spatial_env_step_cuda(g8, action, life_t, cfg, r))
+           for flag, r in (("unset", unset), ("set", set_))}
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a.parts, b.parts))
+    out = {"cupti_cold_us": {route: _cupti_us(torch, timer, fn, ROW14_KERNELS[route],
+                                              f"row 14 {route}")
+                             for route, fn in (("new", new), ("present", old))}}
+    for flag, fn in env.items():
+        got = fn()
+        check(same(got, cuda_halo.spatial_env_step_plain(g8, action, life_t, cfg,
+                                                         set_ if flag == "set" else unset))
+              and same(got, _present_u8_step(fn)),
+              f"row 14 env step (reset {flag}): kernel, twin and present kernel differ")
+        check(bool(any(p.any() for p in got.parts)) == (flag == "unset"),
+              f"row 14 env step (reset {flag}): wrong zeros")
+        before = (cuda_halo.KERNEL_WORDS.launches, cuda_halo.KERNEL_STEP.launches)
+        fn()
+        check((cuda_halo.KERNEL_WORDS.launches - before[0],
+               cuda_halo.KERNEL_STEP.launches - before[1]) == (1, 0),
+              f"row 14 env step (reset {flag}): not one halo_words launch")
+        fns = {"new": fn, "present": lambda fn=fn: _present_u8_step(fn)}
+        timed = _in_turns(timer, fns, rounds=2, reps=5)
+        bound = (bound_ms(cells + 1, 0, INT32_OPS) if flag == "set"
+                 else u8_bound(cells, 1, 4 + 64 * 64 + 1))
+        split = {route: _device_split(torch, f, 10) for route, f in fns.items()}
+        out[f"env_step_reset_{flag}"] = {
+            "ms_in_turns": timed, "bound_ms": bound[0], "bound_by": bound[1],
+            "cupti_cold_us": {route: _cupti_us(torch, timer, f, ROW14_KERNELS[route],
+                                               f"row 14 env step {flag} {route}")
+                              for route, f in fns.items()},
+            # every kernel of a call, the present route's clones and flag pass included
+            "device_launches_per_call": {r: s["launches_per_call"] for r, s in split.items()},
+            "device_us_per_call_in_a_row": {r: s["device_us_per_call"]
+                                            for r, s in split.items()}}
+    hl = size // slots
+    rows, strip, threads = plan = cuda_halo.halo_words_plan(1, hl, size, slots,
+                                                            cuda_ca._multiprocessors(dev))
+    out.update(plan=plan, occupancy=_occupancy(cuda_build, "halo_words", "halo_words_occupancy",
+                                               rows, size, threads)[0])
+    log(f"row 14 extras: {json.dumps(out)}")
+    return out
 
 
 def _halo_one_generation(torch, timer, g32, words, size):
@@ -3571,6 +3665,70 @@ def _slot_head_kernels(torch, timer, gen, g32):
     return out
 
 
+def _env_mode_leg(torch, cfg, acts, mesh):
+    """The uint8 stack with Speed + Puffer through Rollout.run_actions over
+    ``acts`` (on the card; a master reset among them), the universe sharded
+    over ``mesh`` by shard_carry_spatial (None: one tensor, row 1's
+    ca_step_words): 4 steps warm, the middle timed (wall ms a step after a
+    synchronize, the port's kernel launches and the gathers a step; the
+    leg's peak memory above what was allocated before it), the last 8 under
+    torch.profiler (device ms and launches a step); then one env_step alone
+    (its device launches by kernel and the memory it allocates past its
+    inputs).  Returns (stats, rewards, universe)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.env import env_step
+    from carle_tpu_torch.mcl import puffer_def, speed_def
+    from carle_tpu_torch.ops import cuda_build
+    from carle_tpu_torch.parallel import shard_carry_spatial
+    from carle_tpu_torch.rollout import Rollout
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ro = Rollout(cfg, [speed_def(cfg, reward_scale=1e-2), puffer_def(cfg, reward_scale=1e-3)],
+                 device="cuda")
+    carry = ro.init(ro.generator(0), rules.LIFE)
+    if mesh is not None:
+        carry = shard_carry_spatial(carry, mesh, cfg)
+    carry, r_warm = ro.run_actions(carry, acts[:4])
+    torch.cuda.synchronize()
+    timed = acts[4:-8]
+    g0, c0 = ro.stack.gathers, cuda_build.launch_counts()
+    t0 = time.perf_counter()
+    carry, r_timed = ro.run_actions(carry, timed)
+    torch.cuda.synchronize()
+    steps = len(timed)
+    stats = {"steps": len(acts), "wall_ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+             "kernel_launches_per_step": {k: (v - c0[k]) / steps for k, v in
+                                          cuda_build.launch_counts().items() if v != c0[k]},
+             "gathers_per_step": (ro.stack.gathers - g0) / steps,
+             "peak_bytes_above_start": torch.cuda.max_memory_allocated() - base}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        carry, r_prof = ro.run_actions(carry, acts[-8:])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    stats["device_ms_per_step"] = sum(_device_us(e) for e in events) / 1e3 / 8
+    stats["device_launches_per_step"] = sum(e.count for e in events) / 8
+    stats["top_device_us_per_step"] = [
+        {"name": e.key[:60], "us": _device_us(e) / 8, "calls_per_step": e.count / 8}
+        for e in sorted(events, key=_device_us, reverse=True)[:8]]
+    state, action = carry.stack.env, acts[5]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    env_step(state, action, cfg)
+    torch.cuda.synchronize()
+    stats["env_step_bytes_allocated"] = torch.cuda.max_memory_allocated() - base
+    split = _device_split(torch, lambda: env_step(state, action, cfg), 5)
+    stats["env_step_device"] = {k: split[k] for k in ("launches_per_call", "device_us_per_call",
+                                                      "by_kernel")}
+    universe = ro.stack.universe(carry.stack)
+    return stats, torch.cat([r_warm, r_timed, r_prof]), universe
+
+
 def phase_spatial(torch, cuda_build):
     """The row-sharded spatial tier at full size, scripts/pod_smoke.py's
     job_rdma and job_spatial8k with a mesh ported: one universe of 8192² over
@@ -3584,6 +3742,10 @@ def phase_spatial(torch, cuda_build):
     and the CA), RND2D with dropout off against BandTiling(512) on the same
     draw (rtol 1e-4 through 2 updates), AE2D with dropout off against the
     mesh=None stack (rtol 1e-4 through 3 updates); the RND2D leg profiled.
+    The uint8 spatial env mode (shard_carry_spatial, the unchanged Rollout;
+    Speed + Puffer, a master reset at step 40) against the mesh=None uint8
+    stack, bit for bit: one halo_words launch and one gather a step, its
+    env_step allocating no more than the new universe (_env_mode_leg).
     The launches counted are the path's alone: the engines and the mesh=None
     legs it is held against run before the counts are zeroed, the
     comparisons with dropout off after they are read."""
@@ -3635,6 +3797,10 @@ def phase_spatial(torch, cuda_build):
     speed_defs = (("speed_dense", speed_def), ("speed_packed", speed_def_packed))
     one_device = {name: leg([make(cfg, reward_scale=1e-2)], 64, None)
                   for name, make in speed_defs}
+    # the uint8 spatial env mode's actions: a master reset at step 40
+    env_acts = acts[:64].clone().to(dev)
+    env_acts[40] = 1.0
+    env_one = _env_mode_leg(torch, cfg, env_acts, None)
     cuda_build.reset_launch_counts()
 
     # job_rdma: the halo kernels against the single-device engines
@@ -3656,6 +3822,26 @@ def phase_spatial(torch, cuda_build):
     check(out["speed_packed"]["gathers"] == 0 and out["speed_packed"]["unpacks"] == 0,
           "speed_def_packed on the sharded stack gathered or unpacked")
     check(out["speed_dense"]["gathers_per_step"] == 1, "Speed dense: not one gather a step")
+
+    # the uint8 spatial env mode (Speed + Puffer, a master reset at step 40)
+    # against the mesh=None uint8 stack: bit for bit, one halo_words launch
+    # and one gather a step, no clone
+    stats, r, universe = _env_mode_leg(torch, cfg, env_acts, mesh)
+    stats_one, r_one, universe_one = env_one
+    check(torch.equal(universe, universe_one) and torch.equal(r, r_one),
+          "uint8 env mode: sharded universe or rewards differ from mesh=None")
+    check(stats["kernel_launches_per_step"] == {"spatial_ca_step_words": 1.0},
+          f"uint8 env mode: launches a step {stats['kernel_launches_per_step']}, not one "
+          "spatial_ca_step_words")
+    check(stats_one["kernel_launches_per_step"] == {"ca_step_words": 1.0},
+          f"mesh=None uint8 stack: launches a step {stats_one['kernel_launches_per_step']}")
+    check(stats["gathers_per_step"] == 1, "uint8 env mode: not one gather a step")
+    check(stats["env_step_bytes_allocated"] < size * size + 2**20,
+          f"uint8 env mode: env_step allocated {stats['env_step_bytes_allocated']} bytes, more "
+          "than the new universe (a clone of a slot?)")
+    check(int(universe.sum()) > 0, "uint8 env mode: empty universe")
+    out["env_mode"] = {"sharded": stats, "mesh_none": stats_one}
+    del universe, universe_one, env_one
 
     # RND2D learning with SpaceSharding, dropout on: 2 updates in 128 steps
     tag = nets.SpaceSharding(mesh)
@@ -3685,6 +3871,12 @@ def phase_spatial(torch, cuda_build):
     del state, stack
     counts = cuda_build.launch_counts()
     out["packed_launches"] = cuda_build.packed_launch_counts()
+    # the env mode's times in turns (mesh=None, sharded, sharded, mesh=None)
+    for name, m in (("sharded", mesh), ("mesh_none", None)):
+        second = _env_mode_leg(torch, cfg, env_acts, m)[0]
+        for key in ("wall_ms_per_step", "device_ms_per_step", "peak_bytes_above_start"):
+            out["env_mode"][name][key] = [out["env_mode"][name][key], second[key]]
+    out["env_mode"]["turns"] = "mesh_none, sharded (the path's counts), sharded, mesh_none"
     log(f"spatial path ok: {json.dumps(out)}")
     log(f"spatial launches: {json.dumps(counts)}")
 

@@ -53,6 +53,19 @@ each taken in a fresh process.
         256 generations) and the engines' (4096 x 256², 128), and of the
         packed halo kernel (row 15) at 8192² over 4 mesh slots, 64
         generations, each call's rule on the card.
+    python scripts/port_ab.py row-14 --root DIR
+        PERF.md row 14 at 8192² over 4 mesh slots of the card, one uint8
+        generation: spatial_ca_step_cuda on the checkout's route and, where
+        the checkout has HALO_U8_WORDS, the present kernel forced and the
+        uint8 env mode's step (64 x 64 actions at p = 0.2, the reset flag
+        unset and set): a digest, device ms in turns (chip_smoke.py's Timer)
+        and CUPTI µs cold, the plan and its registers and blocks a
+        multiprocessor.
+    python scripts/port_ab.py plans-14 --root DIR
+        the same generation by halo_words under each plan (band rows, strip
+        rows, threads) of ROW_14_PLANS, bit for bit the route's, in turns,
+        with CUPTI µs cold and each plan's registers and blocks a
+        multiprocessor.
     python scripts/port_ab.py static-plans --root DIR
         the fixed-rule packed engine (PERF.md row 10) at the engines' shape
         (4096 x 256², 128 generations, Life fixed): each register-resident
@@ -452,6 +465,92 @@ def rows_13_8a(torch) -> dict:
         out[f"{row} cupti cold us"] = {
             name: chip_smoke._cupti_us(torch, timer, fn, cupti[row], f"{row} {name}")
             for name, fn in fns.items()}
+    return out
+
+
+def row_14(torch) -> dict:
+    import chip_smoke
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.ops import cuda_build
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    timer = chip_smoke.Timer(torch)
+    size, slots = 8192, 4
+    grid = (torch.rand((1, size, size), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    g8 = shard_rows(grid, chip_smoke._spatial_mesh(torch))
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=dev)
+    fns = {"route": lambda: cuda_halo.spatial_ca_step_cuda(g8, life)}
+    out = {}
+    if hasattr(cuda_halo, "HALO_U8_WORDS"):
+        fns["present"] = lambda: chip_smoke._flag_off(cuda_halo, "HALO_U8_WORDS", fns["route"])
+        hl = size // slots
+        rows, strip, threads = plan = cuda_halo.halo_words_plan(
+            1, hl, size, slots, torch.cuda.get_device_properties(dev).multi_processor_count)
+        out["plan"] = plan
+        out["occupancy"] = chip_smoke._occupancy(cuda_build, "halo_words",
+                                                 "halo_words_occupancy", rows, size,
+                                                 threads)[0]
+        cfg = EnvConfig(size, size, 64, 64, 1)
+        action = torch.from_numpy((np.random.RandomState(14).rand(*cfg.action_shape) < 0.2)
+                                  .astype(np.uint8)).to(dev)
+        for flag in (False, True):
+            reset = torch.tensor(flag, device=dev)
+            fns[f"env step, reset {flag}"] = (
+                lambda reset=reset: cuda_halo.spatial_env_step_cuda(g8, action, life, cfg, reset))
+    first = fns["route"]()
+    for name in ("route", "present"):
+        if name in fns and not all(torch.equal(a, b) for a, b in zip(fns[name]().parts,
+                                                                      first.parts)):
+            raise AssertionError(f"row 14 {name} differs from the route")
+    out["digest"] = _digest([gather_rows(first)])
+    del first
+    out["ms"] = chip_smoke._in_turns(timer, fns, rounds=2, reps=10)
+    out["cupti cold us"] = {
+        name: chip_smoke._cupti_us(torch, timer, fn, ("halo_u8_kernel", "halo_words_kernel"),
+                                   f"row 14 {name}")
+        for name, fn in fns.items()}
+    return out
+
+
+ROW_14_PLANS = ((7, 7, 256), (7, 7, 128), (6, 6, 256), (3, 3, 256), (11, 11, 256),
+                (25, 25, 256), (7, 2, 256), (1, 1, 256))
+
+
+def plans_14(torch) -> dict:
+    import chip_smoke
+
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import cuda_build
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import shard_rows
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    timer = chip_smoke.Timer(torch)
+    grid = (torch.rand((1, 8192, 8192), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    g8 = shard_rows(grid, chip_smoke._spatial_mesh(torch))
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=dev)
+    fns = {str(plan): (lambda plan=plan: cuda_halo._launch_halo_words(g8, life, plan=plan))
+           for plan in ROW_14_PLANS}
+    first = cuda_halo.spatial_ca_step_cuda(g8, life)
+    for name, fn in fns.items():
+        if not all(torch.equal(a, b) for a, b in zip(fn().parts, first.parts)):
+            raise AssertionError(f"row 14 plan {name} differs from the route")
+    out = {"route plan": cuda_halo.halo_words_plan(1, 2048, 8192, 4,
+                                                   torch.cuda.get_device_properties(dev)
+                                                   .multi_processor_count),
+           "ms": chip_smoke._in_turns(timer, fns, rounds=2, reps=10),
+           "cupti cold us": {name: chip_smoke._cupti_us(torch, timer, fn, ("halo_words_kernel",),
+                                                        f"row 14 plan {name}")
+                             for name, fn in fns.items()},
+           "occupancy": {str(p): chip_smoke._occupancy(cuda_build, "halo_words",
+                                                       "halo_words_occupancy", p[0], 8192,
+                                                       p[2])[0] for p in ROW_14_PLANS}}
     return out
 
 
@@ -1066,7 +1165,8 @@ def main() -> int:
                                          "profile-wrappers", "profile-spatial",
                                          "encoder-times", "decoder-gx", "host-encoder",
                                          "packed-times", "static-plans", "engine-plans",
-                                         "head-times", "rows-13-8a", "plans-13-8a",
+                                         "head-times", "rows-13-8a", "plans-13-8a", "row-14",
+                                         "plans-14",
                                          "rows-9a-8b", "plans-9a", "ties-65600",
                                          "python-cost"))
     parser.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -1110,6 +1210,10 @@ def main() -> int:
         result = rows_13_8a(torch)
     elif args.what == "plans-13-8a":
         result = plans_13_8a(torch)
+    elif args.what == "row-14":
+        result = row_14(torch)
+    elif args.what == "plans-14":
+        result = plans_14(torch)
     elif args.what == "rows-9a-8b":
         result = rows_9a_8b(torch)
     elif args.what == "plans-9a":

@@ -33,7 +33,7 @@ SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd
            "enc3_fwd", "enc3_bwd", "head_fwd", "head2_fwd", "head_bwd", "head2_bwd", "tail",
            "tail2_fwd", "tail2_bwd", "loss_tail2_fwd", "loss_tail2_bwd",
            "decoder_loss_fwd", "decoder_loss_bwd", "dec2_fwd", "dec2_bwd",
-           "bit_multi_step", "ca_multi_step", "halo_step", "ca_step")
+           "bit_multi_step", "ca_multi_step", "halo_step", "halo_words", "ca_step")
 SHIM = cuda_build.CSRC.parents[1] / "tests" / "cuda_emulation"
 _BUILDS = {}   # (source, defines) -> the Future of its library's path, for this process
 _POOL = concurrent.futures.ThreadPoolExecutor(max_workers=len(SOURCES))
@@ -584,6 +584,81 @@ def test_halo_kernels_emulated(emulated, slots, steps):
     got = cuda_halo._launch(cuda_halo.KERNEL_BIT, shard_rows(words, mesh), life, steps,
                             cuda_halo.KIND_U32, defines=(f"STATIC_RULE={life:#07x}",))
     assert torch.equal(gather_rows(got), bitpack.bit_multi_step_static(words, [3], [2, 3], steps))
+
+
+@pytest.mark.parametrize("geom", [  # n, slots, h, w, ah, aw, plan (rows, strip, threads) or None
+    (2, 1, 32, 48, 8, 8, None),         # one slot: its own rows are its ghost rows
+    (3, 3, 48, 32, 8, 8, (5, 2, 32)),   # the window inside slot 1, a ragged last band
+    (2, 2, 32, 48, 8, 12, (4, 4, 32)),  # rows 12-19 across the edge at 16: ghost rows toggle
+    (2, 8, 64, 32, 32, 16, (3, 1, 32)),  # rows 16-47: slots 2-5 whole, bands of 3 over 8 rows
+    (1, 8, 64, 16, 64, 5, (1, 1, 32)),  # the whole height, one 16-byte column, c0 = 5
+    (2, 3, 63, 32, 9, 9, None),         # an odd height: the window cut to 8 rows
+])
+def test_halo_words_emulated(emulated, geom):
+    """Row 14's kernel (halo_words.cu) on every slot of one device against
+    the env step's twin, the single-device twin on the gathered grid and the
+    present kernel, bit for bit: action values 0, 1, 2, 128 and 255, the
+    master reset none, unset and set, scalar and per-universe rules, the
+    bare generation without an action; one launch a call."""
+    from carle_tpu_torch.ops.ca import ca_step_with_action
+
+    n, slots, h, w, ah, aw, plan = geom
+    cfg = EnvConfig(width=w, height=h, action_width=aw, action_height=ah, instances=n)
+    rng = np.random.RandomState(h * w + slots)
+    grid = torch.from_numpy((rng.rand(n, h, w) < 0.4).astype(np.uint8))
+    shape = cfg.action_shape
+    action = torch.from_numpy(np.where(rng.rand(*shape) < 0.5, 0,
+                                       rng.choice(ACTION_VALUES, shape)).astype(np.uint8))
+    x = shard_rows(grid, make_mesh([torch.device("cpu")] * slots, "space"))
+    vec = torch.tensor([_rule_mask(*RULESETS[i % 5]) for i in range(n)], dtype=torch.int32)
+    kernel = cuda_halo.KERNEL_WORDS
+    for rule in (torch.tensor(_rule_mask(*RULESETS[1]), dtype=torch.int32), vec):
+        for reset in (None, torch.tensor(False), torch.tensor(True)):
+            launches = kernel.launches
+            got = cuda_halo._launch_halo_words(x, rule, action, cfg, reset, plan)
+            assert kernel.launches == launches + 1
+            twin = cuda_halo.spatial_env_step_plain(x, action, rule, cfg, reset)
+            assert all(torch.equal(a, b) for a, b in zip(got.parts, twin.parts))
+            assert torch.equal(gather_rows(got), ca_step_with_action(grid, action, rule, cfg,
+                                                                     reset))
+            assert bool(gather_rows(got).any()) == (reset is None or not bool(reset))
+        got = cuda_halo._launch_halo_words(x, rule, plan=plan)
+        assert torch.equal(gather_rows(got), cuda_ca.ca_multi_step_plain(grid, rule, 1))
+        present = cuda_halo._launch(cuda_halo.KERNEL_STEP, x, rule, 1, cuda_halo.KIND_U8)
+        assert all(torch.equal(a, b) for a, b in zip(got.parts, present.parts))
+
+
+def test_one_generation_routes_emulated(emulated, monkeypatch):
+    """One uint8 generation (spatial_ca_step_cuda, spatial_multi_step_cuda at
+    K = 1, the env step) takes halo_words where the route holds and the
+    present kernel where it does not or HALO_U8_WORDS is off; the env step
+    then XORs clones of the window's slots and applies the flag after."""
+    cfg = EnvConfig(width=32, height=32, action_width=8, action_height=8, instances=2)
+    rng = np.random.RandomState(9)
+    grid = torch.from_numpy((rng.rand(2, 32, 32) < 0.4).astype(np.uint8))
+    action = torch.from_numpy((rng.rand(2, 8, 8) < 0.5).astype(np.uint8))
+    x = shard_rows(grid, make_mesh([torch.device("cpu")] * 4, "space"))
+    # CPU slots standing in for a card's: the wrappers launch the emulated kernels
+    monkeypatch.setattr(cuda_halo, "_check", lambda *a: "cuda")
+    words, step = cuda_halo.KERNEL_WORDS, cuda_halo.KERNEL_STEP
+    reset = torch.tensor(True)
+    for on, counted in ((True, words), (False, step)):
+        monkeypatch.setattr(cuda_halo, "HALO_U8_WORDS", on)
+        assert cuda_halo.halo_words_route(8, 32) == ("words" if on else "present")
+        before = (words.launches, step.launches)
+        want = cuda_ca.ca_multi_step_plain(grid, rules.LIFE, 1)
+        assert torch.equal(gather_rows(cuda_halo.spatial_ca_step_cuda(x, rules.LIFE)), want)
+        assert torch.equal(gather_rows(cuda_halo.spatial_multi_step_cuda(x, rules.LIFE, 1)),
+                           want)
+        got = cuda_halo.spatial_env_step_cuda(x, action, rules.LIFE, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got.parts, cuda_halo.spatial_env_step_plain(x, action, rules.LIFE, cfg).parts))
+        assert not gather_rows(cuda_halo.spatial_env_step_cuda(x, action, rules.LIFE, cfg,
+                                                               reset)).any()
+        after = (words.launches, step.launches)
+        assert counted.launches - before[counted is step] == 4   # one launch a call
+        assert after[counted is words] == before[counted is words]
+    assert cuda_halo.halo_words_route(8, 40) == "present"   # 40 % 16 != 0
 
 
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])

@@ -1031,6 +1031,40 @@ def test_halo_kernels_match_plain(cuda, slots):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("geom", [  # n, slots, h, w, ah, aw, plan or None
+    (3, 4, 4 * 64, 128, 64, 64, None), (2, 8, 64, 32, 32, 16, (3, 1, 32)),
+    (1, 4, 1024, 8192, 64, 64, None), (2, 3, 63, 32, 9, 9, (7, 7, 64))])
+def test_halo_words_match_present_and_plain(cuda, geom):
+    """Row 14's kernel (halo_words.cu) against the env step's twin, the
+    single-device ca_step and the present kernel, bit for bit: action values
+    0, 1, 2 and 255, the reset none, unset and set, scalar and per-universe
+    rules, the bare generation."""
+    from carle_tpu_torch.parallel import cuda_halo
+    from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
+
+    n, slots, h, w, ah, aw, plan = geom
+    cfg = EnvConfig(h, w, ah, aw, n)
+    rng = np.random.RandomState(h + slots)
+    grid = torch.from_numpy(_soup(slots, (n, h, w))).to(cuda)
+    action = torch.from_numpy(np.where(rng.rand(*cfg.action_shape) < 0.5, 0, rng.choice(
+        np.array([1, 2, 255], dtype=np.uint8), cfg.action_shape)).astype(np.uint8)).to(cuda)
+    x = shard_rows(grid, make_mesh([cuda] * slots, "space"))
+    vec = torch.tensor([rules.LIFE, rules.MORLEY, rules.DAY_AND_NIGHT][:n], dtype=torch.int32,
+                       device=cuda)
+    for rule in (torch.tensor(rules.MORLEY, dtype=torch.int32, device=cuda), vec):
+        for reset in (None, torch.tensor(False, device=cuda), torch.tensor(True, device=cuda)):
+            got = cuda_halo._launch_halo_words(x, rule, action, cfg, reset, plan)
+            twin = cuda_halo.spatial_env_step_plain(x, action, rule, cfg, reset)
+            assert all(torch.equal(a, b) for a, b in zip(got.parts, twin.parts))
+            assert torch.equal(gather_rows(got), cuda_ca.ca_step(grid, action, rule, cfg, reset))
+        got = cuda_halo._launch_halo_words(x, rule, plan=plan)
+        present = cuda_halo._launch(cuda_halo.KERNEL_STEP, x, rule, 1, cuda_halo.KIND_U8)
+        assert all(torch.equal(a, b) for a, b in zip(got.parts, present.parts))
+        assert torch.equal(gather_rows(got), cuda_ca.ca_multi_step(grid, rule, 1))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
 def test_head_kernels_in_column_tiles(cuda, monkeypatch, drop_p):
     """The head at width 8192 (1 -> 4 channels, pool 2: past one band of the
