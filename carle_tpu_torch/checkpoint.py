@@ -6,7 +6,8 @@ A JAX checkpoint is a flat ``.npz`` keyed by tree path, e.g.
 nested dicts, tuples and NamedTuples with the same paths, so
 :func:`flatten` gives the same keys as ``jax.tree_util`` flattening,
 :func:`save_pytree` writes the file the JAX package writes (same keys, same
-metadata entry: either package reads the other's), and
+metadata entry: either package reads the other's; :func:`checkpoint_meta`
+reads that entry), and
 :func:`load_pytree` reads a file into the structure of a template state.
 :func:`learner_state_from_numpy` builds a :class:`LearnerState` straight
 from such a flat dict (a Prediction/Surprise state's frame ring included) and
@@ -74,6 +75,15 @@ def save_pytree(path: str, tree: Any, compress: bool = False) -> str:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     (np.savez_compressed if compress else np.savez)(path, **arrays)
     return path
+
+
+def checkpoint_meta(path: str) -> Dict[str, Any]:
+    """A checkpoint's metadata entry; files without one report
+    ``{"format_version": 0}``."""
+    with np.load(path) as data:
+        if _META_KEY not in data.files:
+            return {"format_version": 0}
+        return json.loads(bytes(data[_META_KEY]).decode())
 
 
 def read_npz(path: str) -> Dict[str, np.ndarray]:

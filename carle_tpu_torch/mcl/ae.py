@@ -28,7 +28,7 @@ from ..config import EnvConfig
 from ._online import (REFERENCE_EFFECTIVE_LR, LearnerState, init_learner,
                       learner_apply, net_input)
 from .base import WrapperDef, default_on_reset
-from .rnd import RND2D
+from .rnd import RND2D, _torch_getter
 
 POOLS = (2, 2)
 DROP_P = 0.1
@@ -98,9 +98,28 @@ def ae2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64,
         on_reset=default_on_reset)
 
 
+def ae_params_from_torch(state_dict: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The autoencoder's parameters from a reference state dict (indices 0,
+    4, 8, 11).  A reference AE2D checkpoint nests its inner RND2D under
+    ``env.*``: only the top-level ``predictor.*`` keys are read."""
+    g = _torch_getter(state_dict, device)
+    return {
+        "conv1": {"w": g("predictor.0.weight"), "b": g("predictor.0.bias")},
+        "conv2": {"w": g("predictor.4.weight"), "b": g("predictor.4.bias")},
+        "deconv1": {"w": g("predictor.8.weight"), "b": g("predictor.8.bias")},
+        "deconv2": {"w": g("predictor.11.weight"), "b": g("predictor.11.bias")},
+    }
+
+
 class AE2D(RND2D):
     my_name = "AE2D"
     learning_rate = REFERENCE_EFFECTIVE_LR
 
     def _def_factory(self):
         return ae2d_def
+
+    def load_torch_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        self._wstate = self._wstate._replace(
+            params=ae_params_from_torch(state_dict, self.inner_env.device))
+
+    load_state_dict = load_torch_state_dict

@@ -401,3 +401,11 @@ class Motivator:
 
     def set_no_grad(self) -> None:
         pass
+
+    def state_dict(self) -> Any:
+        """The reference's ``state_dict`` of this wrapper stack: CPU tensors,
+        the reference's key layout and nesting, loadable into the matching
+        reference class with ``strict=True`` (mcl/export.py)."""
+        from .export import to_state_dict
+
+        return to_state_dict(self)

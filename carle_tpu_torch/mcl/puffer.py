@@ -1,5 +1,5 @@
 """PufferDetector — detects unbounded growth absent actions (counterpart of
-carle_tpu/mcl/puffer.py:35-103).
+carle_tpu/mcl/puffer.py).
 
 A window of live-cell counts, appended on action-free steps and cleared by
 any toggle; once the window is full, slope = incoming - evicted and the
@@ -8,7 +8,8 @@ universe sum and the +1 goes to every instance (``per_instance=True``: one
 window per instance).  The window is a ring buffer in the state: ``buf``
 holds the last ``window`` counts, ``head`` the oldest slot, ``count`` the
 fill level.  The bonus is added without ``reward_scale``, as in the JAX
-package and the reference.
+package and the reference.  :class:`PufferDetector` is the class shell
+(batch-global window).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import EnvConfig
-from .base import StepCtx, WrapperDef, default_on_reset
+from .base import Motivator, StepCtx, WrapperDef, default_on_reset
 
 GROWTH_THRESHOLD = 512  # window length (reference mcl.py:823)
 
@@ -89,3 +90,15 @@ def puffer_def(config: EnvConfig, reward_scale: float = 1.0,
 
     return WrapperDef(name="PufferDetector", init=init, apply=apply,
                       on_reset=default_on_reset)
+
+
+class PufferDetector(Motivator):
+    my_name = "PufferDetector"
+
+    def __init__(self, env: Any, **kwargs: Any) -> None:
+        super().__init__(env, **kwargs)
+        self.growth_threshold = kwargs.get("growth_threshold", GROWTH_THRESHOLD)
+        self.growing_steps = 0  # attribute parity with the reference
+
+    def _make_def(self, **kwargs: Any) -> WrapperDef:
+        return puffer_def(self._config, **kwargs)

@@ -19,7 +19,8 @@ The frozen target never builds a graph.  ``fused_head=nets.BandTiling(n)``
 runs both encoders as n row bands of each universe (parallel/band_heads.py);
 ``fused_head=nets.SpaceSharding(mesh)`` runs them slot by slot on a
 row-sharded stack (parallel/spatial_heads.py) and gathers the embeddings for
-the dense layer.
+the dense layer.  ``RND2D.load_torch_state_dict`` adopts a reference torch
+checkpoint (``predictor_params_from_torch``, ``random_network_params_from_torch``).
 """
 
 from __future__ import annotations
@@ -116,6 +117,39 @@ def rnd2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64
         on_reset=default_on_reset)
 
 
+def _torch_getter(state_dict: Dict[str, Any], device=None):
+    """``get(name)``: a state dict's entry as a float32 tensor on ``device``."""
+
+    def get(name: str) -> torch.Tensor:
+        t = state_dict[name]
+        t = t.detach() if torch.is_tensor(t) else torch.as_tensor(t)
+        return t.to(device=device, dtype=torch.float32).clone()
+
+    return get
+
+
+def predictor_params_from_torch(state_dict: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The predictor's parameters from a reference state dict (the
+    Sequential's indices 0, 5, 11)."""
+    g = _torch_getter(state_dict, device)
+    return {
+        "conv1": {"w": g("predictor.0.weight"), "b": g("predictor.0.bias")},
+        "conv2": {"w": g("predictor.5.weight"), "b": g("predictor.5.bias")},
+        "dense": {"w": g("predictor.11.weight"), "b": g("predictor.11.bias")},
+    }
+
+
+def random_network_params_from_torch(state_dict: Dict[str, Any],
+                                     device=None) -> Dict[str, Any]:
+    """The frozen target's parameters (indices 0, 4, 8)."""
+    g = _torch_getter(state_dict, device)
+    return {
+        "conv1": {"w": g("random_network.0.weight"), "b": g("random_network.0.bias")},
+        "conv2": {"w": g("random_network.4.weight"), "b": g("random_network.4.bias")},
+        "dense": {"w": g("random_network.8.weight"), "b": g("random_network.8.bias")},
+    }
+
+
 class RND2D(Motivator):
     my_name = "RND2D"
     learning_rate = REFERENCE_EFFECTIVE_LR
@@ -138,3 +172,14 @@ class RND2D(Motivator):
     @property
     def updates(self) -> int:
         return int(self._wstate.updates)
+
+    def load_torch_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        """Adopt a reference RND2D checkpoint, on the shell's device; the
+        inner env's conv entries (``env.*``, ``inner_env.*``) are ignored: the
+        CA kernel is a constant here, not a parameter."""
+        device = self.inner_env.device
+        self._wstate = self._wstate._replace(
+            params=predictor_params_from_torch(state_dict, device),
+            target_params=random_network_params_from_torch(state_dict, device))
+
+    load_state_dict = load_torch_state_dict

@@ -1,5 +1,5 @@
 """SpeedDetector — rewards moving patterns via centre-of-mass velocity
-(counterpart of carle_tpu/mcl/speed.py:54-95).
+(counterpart of carle_tpu/mcl/speed.py).
 
 As the JAX package: row/column weights exclude the centred action window;
 the live-cell denominator is not masked; the first step only records the
@@ -7,6 +7,7 @@ centre of mass; afterwards ``speed = sqrt(sum(velocity**2))`` over the
 [2, instances] velocity, a batch-global scalar added to every instance
 (``per_instance=True``: one speed per instance).  The bonus is added
 without ``reward_scale``, as in the JAX package and the reference.
+:class:`SpeedDetector` is the class shell (batch-global speed).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from ..config import EnvConfig
-from .base import StepCtx, WrapperDef, default_on_reset
+from .base import Motivator, StepCtx, WrapperDef, default_on_reset
 
 
 class SpeedState(NamedTuple):
@@ -68,3 +69,14 @@ def speed_def(config: EnvConfig, reward_scale: float = 1.0,
 
     return WrapperDef(name="SpeedDetector", init=init, apply=apply,
                       on_reset=default_on_reset)
+
+
+class SpeedDetector(Motivator):
+    my_name = "SpeedDetector"
+
+    def __init__(self, env: Any, **kwargs: Any) -> None:
+        super().__init__(env, **kwargs)
+        self.speed_modulator = 32.0  # declared but unused in the reference
+
+    def _make_def(self, **kwargs: Any) -> WrapperDef:
+        return speed_def(self._config, **kwargs)

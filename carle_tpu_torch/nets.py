@@ -111,11 +111,13 @@ def _uniform(shape: Sequence[int], bound: float, generator: torch.Generator,
 
 
 def conv_init(out_ch: int, in_ch: int, k: int, generator: torch.Generator,
-              device=None) -> Params:
-    """Conv2d weight (OIHW) + bias."""
+              device=None, bias: bool = True) -> Params:
+    """Conv2d weight (OIHW) + bias (``bias=False``: the weight alone)."""
     bound = 1.0 / math.sqrt(in_ch * k * k)
-    return {"w": _uniform((out_ch, in_ch, k, k), bound, generator, device),
-            "b": _uniform((out_ch,), bound, generator, device)}
+    p = {"w": _uniform((out_ch, in_ch, k, k), bound, generator, device)}
+    if bias:
+        p["b"] = _uniform((out_ch,), bound, generator, device)
+    return p
 
 
 def conv_transpose_init(in_ch: int, out_ch: int, k: int,
@@ -128,11 +130,13 @@ def conv_transpose_init(in_ch: int, out_ch: int, k: int,
 
 
 def linear_init(out_features: int, in_features: int,
-                generator: torch.Generator, device=None) -> Params:
-    """Linear weight (out, in) + bias."""
+                generator: torch.Generator, device=None, bias: bool = True) -> Params:
+    """Linear weight (out, in) + bias (``bias=False``: the weight alone)."""
     bound = 1.0 / math.sqrt(in_features)
-    return {"w": _uniform((out_features, in_features), bound, generator, device),
-            "b": _uniform((out_features,), bound, generator, device)}
+    p = {"w": _uniform((out_features, in_features), bound, generator, device)}
+    if bias:
+        p["b"] = _uniform((out_features,), bound, generator, device)
+    return p
 
 
 # ---------------------------------------------------------------------------

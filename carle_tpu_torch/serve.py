@@ -7,9 +7,9 @@ time, in front of the scoring battery and the packed multi-step engine.
 Endpoints (JSON in/out):
 
   GET  /health     liveness + device + request counters
-  POST /score      {"agent": "random", "steps": int, "seed": int,
-                    "seeds": [int, ...], "batched": bool,
-                    "toggle_rate": float, "replicas": int,
+  POST /score      {"agent": "random"|"network", "params_path": str,
+                    "steps": int, "seed": int, "seeds": [int, ...],
+                    "batched": bool, "toggle_rate": float, "replicas": int,
                     "reference_compat": bool}
                    -> {"score", "per_ruleset", "per_seed" (multi-seed),
                        "latency_s"}
@@ -19,7 +19,9 @@ Endpoints (JSON in/out):
                        "latency_s"}; the generations run through the
                        ``bit_multi_step`` kernel on the card
 
-``/gif`` and ``/classify`` and the network/policy agents are not ported yet.
+``"network"`` scores the frozen random CNN (``RandomNetworkAgent``), its
+weights from ``params_path`` (``.pt`` or ``.npz``) when given.  ``/gif``,
+``/classify`` and the ``"policy"`` agent are not ported yet.
 
 Run:  python -m carle_tpu_torch.serve --port 8787 [--device cpu]
 """
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from . import rules as rules_mod
+from .agents import RandomNetworkAgent
 from .device import DeviceLike, resolve_device
 from .evaluation.eval import DEFAULT_RULES, evaluate_fused, evaluate_fused_batched
 from .ops.bitpack import pack_grid, unpack_grid
@@ -44,12 +47,17 @@ from .rle import encode_grid, parse_rle_text
 
 def _score(body: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     agent_kind = body.get("agent", "random")
-    if agent_kind != "random":
-        raise ValueError(f"unknown agent {agent_kind!r}; only 'random' is "
-                         "served by this port so far")
+    agents = {"random": None, "network": RandomNetworkAgent}
+    if agent_kind == "policy":
+        raise ValueError("the 'policy' agent (the shipped PPO policy) is not ported "
+                         "yet: ROADMAP.md Queue 1, item 4")
+    if agent_kind not in agents:
+        raise ValueError(f"unknown agent {agent_kind!r}; one of random/network")
     batched = bool(body.get("batched", True))
     seeds = body.get("seeds") or [int(body.get("seed", 0))]
     kwargs = dict(
+        Agent=agents[agent_kind],
+        params_path=body.get("params_path"),
         steps=int(body.get("steps", 1024)),
         toggle_rate=float(body.get("toggle_rate", 0.1)),
         reference_compat=bool(body.get("reference_compat", True)),

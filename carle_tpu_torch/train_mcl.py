@@ -15,8 +15,11 @@ states are checkpointed and the reward history is dumped.
   512 x 512 hold 2.1 GB packed against 17 GB as uint8, and the nets' kernels
   read the words themselves.  Rewards equal the uint8 carry's.
 
-Not ported yet: multi-card sharding (``mesh``) and class agents (``agent_fn``
-other than None).
+``agent_fn`` takes any agent the scoring battery's fused paths take
+(evaluation/eval.py ``_resolve_fused_agent``): a class agent, an instance, a
+functional agent or an ``(Agent, params)`` pair.
+
+Not ported yet: multi-card sharding (``mesh``).
 
 Run:  python -m carle_tpu_torch.train_mcl [--device cpu] [--packed-state]
 """
@@ -34,7 +37,8 @@ from . import rules as rules_mod
 from .agents import make_random_agent
 from .checkpoint import load_pytree, save_pytree
 from .config import EnvConfig
-from .device import DeviceLike
+from .device import DeviceLike, resolve_device
+from .evaluation.eval import _resolve_fused_agent
 from .mcl.ae import ae2d_def
 from .mcl.rnd import rnd2d_def
 from .parallel.packed_env import PackedSpatialStack
@@ -115,23 +119,31 @@ def train(
     ``packed_state=True`` carries the universes bit-packed (32 cells a word,
     the packed stack with no mesh); the reward history is the same.
 
+    ``agent_fn`` drives the universes: ``None`` is the Bernoulli(0.1) random
+    agent; an agent class is built with ``seed``, the four dims and the
+    device, and keeps its own parameters (a seeded RandomNetworkAgent's
+    identity is its frozen weights).
+
     Runs on the card unless ``device="cpu"``.  Returns the per-step summed
     reward history (skipped segments excluded), and writes
       {log_dir}/models/RND2D_{exp}.npz, AE2D_{exp}.npz  (full learner states)
       {log_dir}/metrics/mcl_rewards_{exp}.npy
     """
-    if agent_fn is not None:
-        raise NotImplementedError(
-            "only the random agent (agent_fn=None) trains the wrappers so far")
     rules = DEFAULT_RULES if rules is None else rules
     config = EnvConfig(height=height, width=width, action_height=64,
                        action_width=64, instances=instances).validate()
     wrapper_defs = [rnd2d_def(config, batch_size=batch_size),
                     ae2d_def(config, batch_size=batch_size)]
-    agent = make_random_agent(config.eff_action_width, config.eff_action_height)
+    device = resolve_device(device)
+    if agent_fn is None:
+        agent, agent_params = make_random_agent(config.eff_action_width,
+                                                config.eff_action_height), None
+    else:
+        agent, agent_params = _resolve_fused_agent(agent_fn, None, None, config, 0.1,
+                                                   seed, device)
     stack = PackedSpatialStack(config, wrapper_defs) if packed_state else None
     ro = Rollout(config, wrapper_defs, agent, device=device, stack=stack)
-    carry = ro.init(ro.generator(seed), rules_mod.LIFE)
+    carry = ro.init(ro.generator(seed), rules_mod.LIFE, agent_params=agent_params)
 
     if resume_from:
         wstates = tuple(load_pytree(_find_checkpoint(resume_from, name), ws)

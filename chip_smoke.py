@@ -124,8 +124,19 @@ Phases, in order; any failure exits non-zero without the final line:
            of 256 x 256, 1024 steps) and evaluate_fused (5 x 256 steps x 1
            universe); then one 64-step run_actions stream through the kernel
            path on the card and the plain path on the CPU;
+   submission  the Carle's Game submission harness: the per-step evaluate at
+           the full protocol (SubmissionAgent, the four wrappers' class shells
+           with the shipped .npz, 5 rulesets x 1024 steps of one 256²
+           universe, a host round trip a step): wall, steps/s, launches a
+           step, the host's share (64 steps profiled); the card against the
+           CPU on a replay stream (2 x 16 steps, a master reset); the network
+           agent with weights that toggle, evaluate_fused against evaluate
+           (2 x 256 steps of rules that give birth on zero neighbours), its
+           actions on 8 soups against the CPU's away from the threshold; a
+           .pt round trip of RND2D and AE2D on the card;
 4. server  the port's HTTP server on 127.0.0.1 in a thread: /health, /score
-           (64 steps) and /rollout (256 x 256, 256 generations);
+           (64 steps; the random and the network agent) and /rollout (256 x
+           256, 256 generations);
 5. train   train_mcl.train at full width: 64 universes of 256 x 256, the 4
            training rulesets x 128 steps with both nets learning inside the
            step (dropout on, 8 Adam updates a learner), the checkpoints read
@@ -174,7 +185,7 @@ Phases, in order; any failure exits non-zero without the final line:
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
 11. report a {"kernels": [...]} line with each kernel's launches on the main
-           paths (battery, server, train, routes, wrappers, packed, bands,
+           paths (battery, submission, server, train, routes, wrappers, packed, bands,
            engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
@@ -196,7 +207,9 @@ wrappers against their dense defs: rtol 1e-4 (Speed's float32 weighted sums
 in another order; Morpho's exact integer sums against a float32 conv, atol
 1e-4 of its largest reward).
 Battery rewards, kernel path on the card vs plain path on the CPU: rtol 1e-4,
-atol 1e-5.  Gradients, kernel vs twin: 1e-4 of each leaf's largest entry (sums
+atol 1e-5 (also the per-step evaluate's trace, and the network agent's fused
+trace against its per-step one).  The network agent's actions, card vs CPU:
+equal where the dense output lies more than 1e-4 from logit(0.1).  Gradients, kernel vs twin: 1e-4 of each leaf's largest entry (sums
 over 4 million positions in other orders; a pool window whose maxima tie in
 one and differ in the last bit in the other moves one window's share).
 Training rewards through 4 Adam updates, card vs CPU: rtol 2e-3 (Adam divides
@@ -373,6 +386,7 @@ AE_INSTANTIATIONS = {"ae_loss_fwd": ("ae2d_fwd", "ae_loss_fwd"),
 # the kernels each main path must launch
 PATH_KERNELS = {
     "battery": ("ca_step_words", "enc3_fwd", "ae2d_fwd"),
+    "submission": ("ca_step_words", "enc3_fwd", "ae2d_fwd"),
     "server": ("ca_step_words", "bit_multi_step_words", "enc3_fwd", "ae2d_fwd"),
     "train": ("ca_step_words", "enc3_fwd", "ae2d_fwd", "enc3_bwd", "ae2d_bwd"),
     "routes": ("enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd", "head2_fwd",
@@ -3919,8 +3933,8 @@ def shipped_states(torch):
     from carle_tpu_torch.checkpoint import learner_state_from_numpy, read_npz
     from carle_tpu_torch.evaluation.eval import DEFAULT_WRAPPERS
 
-    return {name: learner_state_from_numpy(read_npz(ckpt), "cuda")
-            for name, _, ckpt in DEFAULT_WRAPPERS if ckpt}
+    return {cls.my_name: learner_state_from_numpy(read_npz(ckpt), "cuda")
+            for cls, _, ckpt in DEFAULT_WRAPPERS if ckpt}
 
 
 def phase_battery(torch, cuda_build):
@@ -4004,6 +4018,193 @@ def phase_parity(torch):
     return diff
 
 
+SUBMISSION_STEPS = 1024   # the protocol's steps a ruleset
+LOGIT_TOGGLE = math.log(0.1 / 0.9)   # the network agent's threshold on its dense output
+# The network agent is bias-free: on an empty universe it outputs sigmoid(0)
+# and never toggles.  Rules that give birth on zero neighbours fill the
+# universe after the reset, so it acts.
+RULES_B0 = [[[0, 3], [2, 3]], [[0, 2, 3], [3]]]
+
+
+def _replay_agent(stream):
+    """An agent class that plays ``stream`` one action a call: the same
+    toggles reach the card and the CPU."""
+
+    class Replay:
+        def __init__(self, **kwargs):
+            self.i = 0
+
+        def __call__(self, obs):
+            self.i += 1
+            return stream[self.i - 1]
+
+    return Replay
+
+
+def _toggling_network_weights():
+    """Network-agent weights drawn from numpy at scales that make it toggle
+    about a third of the window (its own seeded draw rarely toggles)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(5)
+    w = {"conv1": rng.randn(4, 1, 3, 3) * 0.5, "conv2": rng.randn(1, 4, 3, 3) * 0.5,
+         "dense": rng.randn(4096, 4096) * 0.02}
+    return {k: {"w": torch.from_numpy(v.astype(np.float32))} for k, v in w.items()}
+
+
+def _network_actions_held(torch, agent):
+    """The tie-aware action check: the network agent on the card against its
+    weights on the CPU over 8 soups of 256², equal wherever the dense output
+    lies more than 1e-4 from logit(0.1).  Returns (outputs near the
+    threshold, outputs, share of the window toggled)."""
+    import numpy as np
+
+    from carle_tpu_torch import agents, nets
+
+    rng = np.random.RandomState(8)
+    obs = (rng.rand(8, 1, 256, 256) < rng.uniform(0.05, 0.6, size=(8, 1, 1, 1))
+           ).astype(np.float32)
+    cpu = agents.RandomNetworkAgent(device="cpu")
+    cpu.params = {k: {"w": v["w"].cpu()} for k, v in agent.params.items()}
+    got, want = agent(obs).cpu().numpy(), cpu(obs).numpy()
+    p, x = cpu.params, torch.from_numpy(obs)
+    x = nets.max_pool2(torch.relu(nets.conv2d(x, p["conv1"])))
+    x = nets.max_pool2(torch.relu(nets.conv2d(x, p["conv2"])))
+    z = nets.linear(nets.flatten(x), p["dense"]).reshape(got.shape).numpy()
+    clear = np.abs(z - LOGIT_TOGGLE) > 1e-4
+    check(bool((got[clear] == want[clear]).all()),
+          "the network agent's actions on the card differ from the CPU's away from "
+          "the threshold")
+    return int((~clear).sum()), int(z.size), float(got.mean())
+
+
+def phase_submission(torch, cuda_build):
+    """The Carle's Game submission harness through its public entry points:
+    the per-step ``evaluate`` at the full protocol (SubmissionAgent,
+    DEFAULT_WRAPPERS with the shipped .npz, 5 rulesets x 1024 steps of 256²,
+    a host round trip a step), beside the battery phase's evaluate_fused;
+    then the card against the CPU on a replay stream, the fused path against
+    the per-step one with the network agent (2 x 256 steps of RULES_B0), and
+    a .pt round trip of both learners on the card."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from carle_tpu_torch import CARLE, agents
+    from carle_tpu_torch.checkpoint import save_pytree
+    from carle_tpu_torch.evaluation import eval as ev
+    from carle_tpu_torch.evaluation.submission import SubmissionAgent
+    from carle_tpu_torch.mcl import AE2D, RND2D, save_torch_checkpoint
+
+    steps = SUBMISSION_STEPS
+    cuda_build.reset_launch_counts()
+    t0 = time.perf_counter()
+    score, trace = ev.evaluate(SubmissionAgent, ev.DEFAULT_RULES, ev.DEFAULT_WRAPPERS,
+                               steps=steps, seed=0, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_build.launch_counts()
+    total = len(ev.DEFAULT_RULES) * steps
+    check(len(trace) == total and all(math.isfinite(v) for v in trace)
+          and 0.0 <= score <= 10.0, f"per-step battery score {score}")
+
+    # device time a step: 64 steps of one ruleset under torch.profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev.evaluate(SubmissionAgent, ev.DEFAULT_RULES[:1], ev.DEFAULT_WRAPPERS, steps=64,
+                    seed=1, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    kernels = [e for e in events if not e.key.startswith("Memcpy")]
+    device_ms = sum(_device_us(e) for e in events) / 1e3 / 64
+    wall_ms = wall * 1e3 / total
+
+    # the kernel path on the card against the plain path on the CPU
+    rules2 = ev.DEFAULT_RULES[:2]
+    acts = (np.random.RandomState(3).rand(2 * 16, 1, 1, 64, 64) < 0.1).astype(np.float32)
+    acts[20] = 1.0   # the master reset
+    traces = {d: np.asarray(ev.evaluate(_replay_agent(acts), rules2, ev.DEFAULT_WRAPPERS,
+                                        steps=16, verbose=False, device=d)[1])
+              for d in ("cpu", "cuda")}
+    np.testing.assert_allclose(traces["cuda"], traces["cpu"], rtol=1e-4, atol=1e-5)
+    card_vs_cpu = float(np.abs(traces["cuda"] - traces["cpu"]).max())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the network agent, fused against per-step, 256 steps a ruleset
+        weights = save_pytree(os.path.join(tmp, "rna.npz"), _toggling_network_weights())
+        kw = dict(rules=RULES_B0, wrappers=ev.DEFAULT_WRAPPERS, steps=256, seed=7,
+                  params_path=weights, verbose=False, device="cuda")
+        toggles = []
+
+        class Counting(agents.RandomNetworkAgent):
+            def forward(self, obs):
+                action = super().forward(obs)
+                toggles.append(int(action.sum()))
+                return action
+
+        t1 = time.perf_counter()
+        score_ps, trace_ps = ev.evaluate(Counting, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        score_f, trace_f = ev.evaluate_fused(Agent=agents.RandomNetworkAgent, **kw)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        np.testing.assert_allclose(trace_f, np.asarray(trace_ps), rtol=1e-4, atol=1e-5)
+        check(sum(toggles) > 0, "the network agent never toggled")
+        agent = agents.RandomNetworkAgent(device="cuda")
+        agent.load_state_dict(weights)
+        near, outputs, toggled = _network_actions_held(torch, agent)
+
+        # a .pt round trip of both learners on the card
+        def stack():
+            inner = RND2D(CARLE(device="cuda"), seed=0)
+            outer = AE2D(inner, seed=1)
+            return inner, outer
+
+        inner, outer = stack()
+        ev._load_wrapper_checkpoint(inner, ev.DEFAULT_WRAPPERS[0][2])
+        ev._load_wrapper_checkpoint(outer, ev.DEFAULT_WRAPPERS[1][2])
+        paths = {"RND2D": os.path.join(tmp, "RND2D.pt"), "AE2D": os.path.join(tmp, "AE2D.pt")}
+        save_torch_checkpoint(paths["RND2D"], inner)
+        save_torch_checkpoint(paths["AE2D"], outer)
+        inner2, outer2 = stack()
+        ev._load_wrapper_checkpoint(inner2, paths["RND2D"])
+        ev._load_wrapper_checkpoint(outer2, paths["AE2D"])
+        want, got = outer.state_dict(), outer2.state_dict()
+        check(list(got) == list(want) and all(torch.equal(got[k], want[k]) for k in want),
+              "the .pt round trip of RND2D and AE2D does not give the same state dict")
+        check(outer2._wstate.params["conv1"]["w"].device.type == "cuda",
+              "a .pt loaded into a shell on the card left its weights off the card")
+        rewards = []
+        for env in (outer, outer2):
+            env.eval()
+            env.env.eval()
+            env.reset()
+            rewards.append(torch.cat([env.step(a)[1] for a in acts[:8]]).cpu())
+        check(torch.equal(rewards[0], rewards[1]), "the .pt stack's bonuses differ")
+    out = {
+        "rulesets": len(ev.DEFAULT_RULES), "steps_per_ruleset": steps,
+        "score": score, "wall_s": wall, "steps_per_s": total / wall,
+        "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+        "host_share": 1.0 - device_ms / wall_ms,
+        "kernel_launches_per_step": {k: v / total for k, v in counts.items() if v},
+        "device_launches_per_step": sum(e.count for e in kernels) / 64,
+        "copies_per_step": sum(e.count for e in events if e not in kernels) / 64,
+        "card_vs_cpu_replay_max_abs_diff": card_vs_cpu,
+        "network_rulesets": RULES_B0, "network_steps": len(toggles),
+        "network_toggles_per_step": sum(toggles) / len(toggles),
+        "network_per_step_s": t2 - t1, "network_fused_s": t3 - t2,
+        "network_score_per_step": score_ps, "network_score_fused": score_f,
+        "network_fused_vs_per_step_max_abs_diff":
+            float(np.abs(trace_f - np.asarray(trace_ps)).max()),
+        "network_outputs_near_threshold": near, "network_outputs": outputs,
+        "network_toggle_share": toggled,
+    }
+    log(f"submission ok: {json.dumps(out)}")
+    log(f"submission launches: {json.dumps(counts)}")
+    return counts, out
+
+
 def _request(conn, method, path, body=None):
     conn.request(method, path, None if body is None else json.dumps(body))
     resp = conn.getresponse()
@@ -4031,6 +4232,10 @@ def phase_server(torch, cuda_build):
         score = _request(conn, "POST", "/score", {"steps": 64})
         check(math.isfinite(score["score"]) and 0.0 <= score["score"] <= 10.0
               and len(score["per_ruleset"]) == 5, f"/score {score}")
+        network = _request(conn, "POST", "/score", {"agent": "network", "steps": 64})
+        check(math.isfinite(network["score"]) and 0.0 <= network["score"] <= 10.0
+              and network["agent"] == "network" and len(network["per_ruleset"]) == 5,
+              f"/score network {network}")
         body = {"rule": "B3/S23", "size": 256, "steps": 256, "seed": 1}
         roll = _request(conn, "POST", "/rollout", body)
     finally:
@@ -4048,9 +4253,11 @@ def phase_server(torch, cuda_build):
           and int(np.asarray(decoded).sum()) == want_pop,
           f"/rollout population {roll['population']} != plain {want_pop}")
     log(f"server ok: health, score {score['score']:.4f} in {score['latency_s']} s, "
+        f"network agent {network['score']:.4f} in {network['latency_s']} s, "
         f"rollout population {roll['population']} in {roll['latency_s']} s")
     log(f"server launches: {json.dumps(counts)}")
     return counts, {"score_latency_s": score["latency_s"],
+                    "network_score_latency_s": network["latency_s"],
                     "rollout_latency_s": roll["latency_s"]}
 
 
@@ -4242,7 +4449,7 @@ def phase_wrappers(torch, cuda_build, shipped):
     from carle_tpu_torch.ops import cuda_head
     from carle_tpu_torch.rollout import Rollout
 
-    ckpt = {name: path for name, _, path in ev.DEFAULT_WRAPPERS}
+    ckpt = {cls.my_name: path for cls, _, path in ev.DEFAULT_WRAPPERS}
     scales = {"MorphoBonus": 1e-2, "CornerBonus": 1e-3, "SpeedDetector": 1e-2,
               "PufferDetector": 1e-3}
     specs = [[name, scales.get(name, 1.0), ckpt.get(name)] for name in NINE]
@@ -4591,6 +4798,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         battery_counts, e2e = timed("battery", phase_battery, torch, cuda_build)
         parity_diff = timed("parity", phase_parity, torch)
+        submission_counts, submission = timed("submission", phase_submission, torch,
+                                              cuda_build)
         server_counts, server = timed("server", phase_server, torch, cuda_build)
         train_counts, train, train_hist = timed("train", phase_train, torch, cuda_build)
         train_parity_diff = timed("train_parity", phase_train_parity, torch)
@@ -4610,7 +4819,8 @@ def main() -> int:
         log("FAIL: see the traceback above")
         return 1
 
-    path_counts = {"battery": battery_counts, "server": server_counts,
+    path_counts = {"battery": battery_counts, "submission": submission_counts,
+                   "server": server_counts,
                    "train": train_counts, "routes": routes_counts,
                    "wrappers": wrappers_counts, "packed": packed_counts,
                    "bands": bands_counts, "engines": engines_counts,
@@ -4654,7 +4864,8 @@ def main() -> int:
         "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
         "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
-        "e2e": e2e, "server": server, "run_actions_max_abs_diff": parity_diff,
+        "e2e": e2e, "submission": submission, "server": server,
+        "run_actions_max_abs_diff": parity_diff,
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
         "routes": routes, "wrappers": wrappers, "packed": packed, "engines": engines,
         "dropout": results["dropout"], "ae_loss_src_not_obs": results["ae_loss_src_not_obs"],
@@ -4667,7 +4878,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
-    log(json.dumps({k: report[k] for k in ("launches", "e2e", "server", "train", "routes",
+    log(json.dumps({k: report[k] for k in ("launches", "e2e", "submission", "server",
+                                           "train", "routes",
                                            "wrappers", "packed", "engines", "total_s")}))
     log(json.dumps({"bands": {k: v for k, v in bands.items() if not k.startswith("profile")},
                     "bands_kernels": results["bands_kernels"]}))

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 import carle_tpu
+import carle_tpu.train_mcl as jtrain_mcl
 from carle_tpu import EnvConfig as JEnvConfig
 from carle_tpu.checkpoint import _path_str
 from carle_tpu.checkpoint import load_pytree as jload_pytree
@@ -148,8 +149,14 @@ def test_train_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         train_mcl.train(instances=1, steps=(1, 1), log_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CARLE()
-    with pytest.raises(NotImplementedError):
-        train_mcl.train(agent_fn=object, device="cpu", log_dir=str(tmp_path))
+    # agent_fn: a spec that is no agent fails as carle_tpu's trainer fails it
+    # (tests/test_torch_submission.py holds a training run with an agent_fn)
+    with pytest.raises(TypeError) as want:
+        jtrain_mcl.train(agent_fn=object, instances=1, log_dir=str(tmp_path / "jax"))
+    with pytest.raises(TypeError) as got:
+        train_mcl.train(agent_fn=object, instances=1, device="cpu",
+                        log_dir=str(tmp_path / "port"))
+    assert str(got.value) == str(want.value)
 
 
 def test_checkpoints_cross_both_ways(tmp_path):
