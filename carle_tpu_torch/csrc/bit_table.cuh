@@ -1,7 +1,7 @@
 // Stage 1 of an encoder as a table over bit-staged cells, shared by the
 // kernels specialised at the package's widths: the whole autoencoder's
 // (ae2d.cuh, C1 = 4 at pool 2) and the encoder's (enc3.cuh, C1 = 4 or 2 at
-// pool 4 or 2).
+// pool 4 or 2, C1 = 8 at pool 2).
 //
 // The input is cells, 0 or 1, so conv3x3(cells) + b1 takes one of 512 values
 // a channel, one a 9-bit neighbourhood.  A block builds the 512-entry table
@@ -106,8 +106,12 @@ __device__ __forceinline__ void window_indices(const uint32_t* bits, int NS, int
 
 // -- the table -------------------------------------------------------------------
 
-// C float32 channels in one shared load.
+// C float32 channels in one shared load (eight in two 16-byte loads).
+struct alignas(32) Float8 {
+    float4 lo, hi;
+};
 template <int C> struct ChanVec;
+template <> struct ChanVec<8> { using type = Float8; };
 template <> struct ChanVec<4> { using type = float4; };
 template <> struct ChanVec<2> { using type = float2; };
 
@@ -117,11 +121,25 @@ __device__ __forceinline__ void channels(const float4& t, float z[4]) {
 __device__ __forceinline__ void channels(const float2& t, float z[2]) {
     z[0] = t.x; z[1] = t.y;
 }
+__device__ __forceinline__ void channels(const Float8& t, float z[8]) {
+    channels(t.lo, z);
+    channels(t.hi, z + 4);
+}
 __device__ __forceinline__ void pack_channels(float4& t, const float z[4]) {
     t = make_float4(z[0], z[1], z[2], z[3]);
 }
 __device__ __forceinline__ void pack_channels(float2& t, const float z[2]) {
     t = make_float2(z[0], z[1]);
+}
+__device__ __forceinline__ void pack_channels(Float8& t, const float z[8]) {
+    pack_channels(t.lo, z);
+    pack_channels(t.hi, z + 4);
+}
+
+// Channels G0 .. G0 + 3 (G0 = 0 or 4) of an eight-channel entry, in one
+// 16-byte load.
+__device__ __forceinline__ void channel_quad(const Float8& t, int G0, float z[4]) {
+    channels(reinterpret_cast<const float4*>(&t)[G0 / 4], z);
 }
 
 // tab[i] = the C channels' conv3x3 + b1 of neighbourhood i (w1 [C, 1, 3, 3],

@@ -1,10 +1,11 @@
-// The wrapper nets' two-stage encoder specialised at compile time for the
-// package's three encoder widths (C1, C2, P1, P2):
+// The two-stage encoder specialised at compile time for the package's four
+// encoder widths (C1, C2, P1, P2):
 //
 //   (4, 1, 4, 2)  the RND predictor (carle_tpu_torch/mcl/rnd.py)
 //   (2, 1, 4, 2)  the frozen RND target
 //   (4, 2, 2, 2)  AE2D's encoder (mcl/ae.py; Prediction and Surprise), on the
 //                 routes that do not run the whole autoencoder as one kernel
+//   (8, 1, 2, 2)  the toggle policy's conv front-end (policy.py, fused_head)
 //
 // Shared by enc3_fwd.cu (the forward, optionally saving its dropout keep
 // bits) and enc3_bwd.cu (the gradients).  They replace the generic kernels
@@ -81,7 +82,7 @@ struct Enc3Saved {
 // Whether (C1, C2, p1, p2) is one of the widths above.
 __host__ __device__ inline bool enc3_widths(int C1, int C2, int p1, int p2) {
     return p2 == 2 && ((C1 == 4 && C2 == 1 && p1 == 4) || (C1 == 2 && C2 == 1 && p1 == 4) ||
-                       (C1 == 4 && C2 == 2 && p1 == 2));
+                       (C1 == 4 && C2 == 2 && p1 == 2) || (C1 == 8 && C2 == 1 && p1 == 2));
 }
 
 // An unsigned word of BITS bits (keep1's).
@@ -181,8 +182,8 @@ __device__ __forceinline__ void enc3_stage1(const typename ChanVec<C1>::type* ta
             if (KEEP != KEEP_NONE) {
                 unsigned keep;
                 if (KEEP == KEEP_DRAW) {
-                    keep = drop_keep_group(cfg, STAGE_ENC1, b.n, 0, P1 * r + p / P1,
-                                           P1 * c + p % P1) & ((1u << C1) - 1u);
+                    keep = drop_keep_bits(cfg, STAGE_ENC1, b.n, C1, P1 * r + p / P1,
+                                          P1 * c + p % P1) & ((1u << C1) - 1u);
                     keeps |= static_cast<Keep1>(static_cast<Keep1>(keep) << (C1 * p));
                 } else {
                     keep = static_cast<unsigned>(keeps >> (C1 * p));

@@ -1,5 +1,5 @@
-// enc3_bwd: the gradients of the wrapper-net encoder at the package's three
-// encoder widths, specialised at compile time (enc3.cuh has the widths and
+// enc3_bwd: the gradients of the encoder at the package's four encoder
+// widths, specialised at compile time (enc3.cuh has the widths and
 // the design).
 //
 // Replaces carle_tpu/ops/pallas_head.py::make_fused_encoder's backward kernel
@@ -35,13 +35,14 @@
 #include "enc3.cuh"
 
 // Registers capped for two blocks a multiprocessor at the RND predictor's
-// widths (128) and three at the others' (80).  On an H100 (probes): left to
-// the compiler with a bound of one block, it took 236 and 158 registers (one
-// block) and ran 1.3-1.4x slower; AE2D's widths at 80 registers (from 128) ran
-// 13% faster from the saved bits at 64 x 256²; the predictor's at 80 spilled
-// 112 bytes, faster on the 8192² bands and slower at 256².
+// and the policy's widths (128) and three at the others' (80).  On an H100
+// (probes): left to the compiler with a bound of one block, it took 236 and
+// 158 registers (one block) and ran 1.3-1.4x slower; AE2D's widths at 80
+// registers (from 128) ran 13% faster from the saved bits at 64 x 256²; the
+// predictor's at 80 spilled 112 bytes, faster on the 8192² bands and slower
+// at 256².
 template <int C1, int C2, int P1, bool DROP, typename SRC>
-__global__ void __launch_bounds__(ENC3_THREADS, C1 == 4 && C2 == 1 ? 2 : 3)
+__global__ void __launch_bounds__(ENC3_THREADS, (C1 == 4 && C2 == 1) || C1 == 8 ? 2 : 3)
 enc3_bwd_kernel(const SRC* __restrict__ x, Enc3Weights wp, const float* __restrict__ mask,
                 const float* __restrict__ g, Enc3Saved sv, float* __restrict__ partials,
                 Enc3Shape sh, int N0, DropCfg cfg) {
@@ -167,75 +168,159 @@ enc3_bwd_kernel(const SRC* __restrict__ x, Enc3Weights wp, const float* __restri
     }
 
     // the stage-1 cotangent of the own positions (transpose 3x3 with w2),
-    // routed through pool 1, relu and dropout: dW1 and db1
-    float accw[C1][9], accb[C1];
-#pragma unroll
-    for (int k = 0; k < C1; ++k) {
-        accb[k] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 9; ++j) accw[k][j] = 0.f;
-    }
-    grid_walk(OR, OW, [&](int ly, int lx) {
-        const int r = 2 * b.o0 + ly, c = 2 * b.oc0 + lx;
-        float gx[C1];
-#pragma unroll
-        for (int k = 0; k < C1; ++k) gx[k] = 0.f;
-#pragma unroll
-        for (int o = 0; o < C2; ++o) {
-            const float* p = g2s + (o * GR + ly + 2) * GW + lx + 2;   // (r, c)
-#pragma unroll
-            for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-                for (int dx = 0; dx < 3; ++dx) {
-                    const float gv = p[(1 - dy) * GW + (1 - dx)];
-#pragma unroll
-                    for (int k = 0; k < C1; ++k) gx[k] += gv * w2s[(o * C1 + k) * 9 + dy * 3 + dx];
-                }
-        }
-        if (maskn != nullptr) {   // no gradient through a zeroed row
-            const float valid = maskn[r];
-#pragma unroll
-            for (int k = 0; k < C1; ++k) gx[k] *= valid;
-        }
-        unsigned idx[P1 * P1];
-        window_indices<P1>(bits, NS, I0, K0, r, c, idx);
-        const Keep1 keeps = DROP ? keep1n[static_cast<size_t>(r) * b.W1 + c] : static_cast<Keep1>(0);
-        // the window's maximum, how many reach it, and the taps of those that
-        // do, added as counts (bit_table.cuh::build_spread)
-        float m[C1], cnt[C1];
-        SpreadT taps[C1];
-#pragma unroll
-        for (int k = 0; k < C1; ++k) { m[k] = -1.f; cnt[k] = 0.f; taps[k] = 0; }
-#pragma unroll
-        for (int p = 0; p < P1 * P1; ++p) {
-            float z[C1];
-            channels(tab[idx[p]], z);
-            const SpreadT sp = spread[idx[p]];
-            const unsigned keep = DROP ? static_cast<unsigned>(keeps >> (C1 * p)) : 0u;
-#pragma unroll
-            for (int k = 0; k < C1; ++k) {
-                if (DROP) z[k] = drop_apply(z[k], keep, k, cfg.scale);
-                const float a = fmaxf(z[k], 0.f);
-                if (a > m[k]) { m[k] = a; cnt[k] = 1.f; taps[k] = sp; }
-                else if (a == m[k]) { cnt[k] += 1.f; taps[k] += sp; }
-            }
-        }
+    // routed through pool 1, relu and dropout: dW1 and db1.  The policy's
+    // eight channels take two passes of four (its accumulators at once would
+    // spill); the other widths keep one pass of all their channels (written
+    // as the passes' loop, the predictor's backward with dropout spilled 8
+    // bytes on an H100).
+    if constexpr (C1 <= 4) {
+        float accw[C1][9], accb[C1];
 #pragma unroll
         for (int k = 0; k < C1; ++k) {
-            if (m[k] > 0.f) {   // relu gate: a zero maximum passes nothing
-                float coef = gx[k] / cnt[k];
-                if (DROP) coef *= cfg.scale;
-                accb[k] += coef * cnt[k];
+            accb[k] = 0.f;
 #pragma unroll
-                for (int j = 0; j < 9; ++j) accw[k][j] += coef * tap_count<P1>(taps[k], j);
+            for (int j = 0; j < 9; ++j) accw[k][j] = 0.f;
+        }
+        grid_walk(OR, OW, [&](int ly, int lx) {
+            const int r = 2 * b.o0 + ly, c = 2 * b.oc0 + lx;
+            float gx[C1];
+#pragma unroll
+            for (int k = 0; k < C1; ++k) gx[k] = 0.f;
+#pragma unroll
+            for (int o = 0; o < C2; ++o) {
+                const float* p = g2s + (o * GR + ly + 2) * GW + lx + 2;   // (r, c)
+#pragma unroll
+                for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+                    for (int dx = 0; dx < 3; ++dx) {
+                        const float gv = p[(1 - dy) * GW + (1 - dx)];
+#pragma unroll
+                        for (int k = 0; k < C1; ++k)
+                            gx[k] += gv * w2s[(o * C1 + k) * 9 + dy * 3 + dx];
+                    }
+            }
+            if (maskn != nullptr) {   // no gradient through a zeroed row
+                const float valid = maskn[r];
+#pragma unroll
+                for (int k = 0; k < C1; ++k) gx[k] *= valid;
+            }
+            unsigned idx[P1 * P1];
+            window_indices<P1>(bits, NS, I0, K0, r, c, idx);
+            const Keep1 keeps =
+                DROP ? keep1n[static_cast<size_t>(r) * b.W1 + c] : static_cast<Keep1>(0);
+            // the window's maximum, how many reach it, and the taps of those
+            // that do, added as counts (bit_table.cuh::build_spread)
+            float m[C1], cnt[C1];
+            SpreadT taps[C1];
+#pragma unroll
+            for (int k = 0; k < C1; ++k) { m[k] = -1.f; cnt[k] = 0.f; taps[k] = 0; }
+#pragma unroll
+            for (int p = 0; p < P1 * P1; ++p) {
+                float z[C1];
+                channels(tab[idx[p]], z);
+                const SpreadT sp = spread[idx[p]];
+                const unsigned keep = DROP ? static_cast<unsigned>(keeps >> (C1 * p)) : 0u;
+#pragma unroll
+                for (int k = 0; k < C1; ++k) {
+                    if (DROP) z[k] = drop_apply(z[k], keep, k, cfg.scale);
+                    const float a = fmaxf(z[k], 0.f);
+                    if (a > m[k]) { m[k] = a; cnt[k] = 1.f; taps[k] = sp; }
+                    else if (a == m[k]) { cnt[k] += 1.f; taps[k] += sp; }
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < C1; ++k) {
+                if (m[k] > 0.f) {   // relu gate: a zero maximum passes nothing
+                    float coef = gx[k] / cnt[k];
+                    if (DROP) coef *= cfg.scale;
+                    accb[k] += coef * cnt[k];
+#pragma unroll
+                    for (int j = 0; j < 9; ++j) accw[k][j] += coef * tap_count<P1>(taps[k], j);
+                }
+            }
+        });
+#pragma unroll
+        for (int k = 0; k < C1; ++k) {
+            block_sums<9>(accw[k], red, row + k * 9);
+            float bsum[1] = {accb[k]};
+            block_sums<1>(bsum, red, row + C1 * 9 + k);
+        }
+    } else {
+        constexpr int CG = 4;
+#pragma unroll 1
+        for (int G0 = 0; G0 < C1; G0 += CG) {
+            float accw[CG][9], accb[CG];
+#pragma unroll
+            for (int k = 0; k < CG; ++k) {
+                accb[k] = 0.f;
+#pragma unroll
+                for (int j = 0; j < 9; ++j) accw[k][j] = 0.f;
+            }
+            grid_walk(OR, OW, [&](int ly, int lx) {
+                const int r = 2 * b.o0 + ly, c = 2 * b.oc0 + lx;
+                float gx[CG];
+#pragma unroll
+                for (int k = 0; k < CG; ++k) gx[k] = 0.f;
+#pragma unroll
+                for (int o = 0; o < C2; ++o) {
+                    const float* p = g2s + (o * GR + ly + 2) * GW + lx + 2;   // (r, c)
+#pragma unroll
+                    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+                        for (int dx = 0; dx < 3; ++dx) {
+                            const float gv = p[(1 - dy) * GW + (1 - dx)];
+#pragma unroll
+                            for (int k = 0; k < CG; ++k)
+                                gx[k] += gv * w2s[(o * C1 + G0 + k) * 9 + dy * 3 + dx];
+                        }
+                }
+                if (maskn != nullptr) {   // no gradient through a zeroed row
+                    const float valid = maskn[r];
+#pragma unroll
+                    for (int k = 0; k < CG; ++k) gx[k] *= valid;
+                }
+                unsigned idx[P1 * P1];
+                window_indices<P1>(bits, NS, I0, K0, r, c, idx);
+                const Keep1 keeps =
+                    DROP ? keep1n[static_cast<size_t>(r) * b.W1 + c] : static_cast<Keep1>(0);
+                // the window's maximum, how many reach it, and the taps of those
+                // that do, added as counts (bit_table.cuh::build_spread)
+                float m[CG], cnt[CG];
+                SpreadT taps[CG];
+#pragma unroll
+                for (int k = 0; k < CG; ++k) { m[k] = -1.f; cnt[k] = 0.f; taps[k] = 0; }
+#pragma unroll
+                for (int p = 0; p < P1 * P1; ++p) {
+                    float z[CG];
+                    channel_quad(tab[idx[p]], G0, z);
+                    const SpreadT sp = spread[idx[p]];
+                    const unsigned keep = DROP ? static_cast<unsigned>(keeps >> (C1 * p + G0)) : 0u;
+#pragma unroll
+                    for (int k = 0; k < CG; ++k) {
+                        if (DROP) z[k] = drop_apply(z[k], keep, k, cfg.scale);
+                        const float a = fmaxf(z[k], 0.f);
+                        if (a > m[k]) { m[k] = a; cnt[k] = 1.f; taps[k] = sp; }
+                        else if (a == m[k]) { cnt[k] += 1.f; taps[k] += sp; }
+                    }
+                }
+#pragma unroll
+                for (int k = 0; k < CG; ++k) {
+                    if (m[k] > 0.f) {   // relu gate: a zero maximum passes nothing
+                        float coef = gx[k] / cnt[k];
+                        if (DROP) coef *= cfg.scale;
+                        accb[k] += coef * cnt[k];
+#pragma unroll
+                        for (int j = 0; j < 9; ++j) accw[k][j] += coef * tap_count<P1>(taps[k], j);
+                    }
+                }
+            });
+#pragma unroll
+            for (int k = 0; k < CG; ++k) {
+                block_sums<9>(accw[k], red, row + (G0 + k) * 9);
+                float bsum[1] = {accb[k]};
+                block_sums<1>(bsum, red, row + C1 * 9 + G0 + k);
             }
         }
-    });
-#pragma unroll
-    for (int k = 0; k < C1; ++k) {
-        block_sums<9>(accw[k], red, row + k * 9);
-        float bsum[1] = {accb[k]};
-        block_sums<1>(bsum, red, row + C1 * 9 + k);
     }
 }
 
@@ -307,6 +392,8 @@ extern "C" int enc3_bwd_launch(const void* x, const void* w1, const void* b1, co
         e = launch_kind<4, 1, 4>(x_kind, drop, x, wp, mask, g, sv, partials, grads, N, sh, bytes, cfg, s);
     else if (C1 == 2)
         e = launch_kind<2, 1, 4>(x_kind, drop, x, wp, mask, g, sv, partials, grads, N, sh, bytes, cfg, s);
+    else if (C1 == 8)
+        e = launch_kind<8, 1, 2>(x_kind, drop, x, wp, mask, g, sv, partials, grads, N, sh, bytes, cfg, s);
     else
         e = launch_kind<4, 2, 2>(x_kind, drop, x, wp, mask, g, sv, partials, grads, N, sh, bytes, cfg, s);
     return static_cast<int>(e);
@@ -326,6 +413,9 @@ extern "C" int enc3_bwd_occupancy(int C1, int C2, int p1, int drop, long long sm
     if (C1 == 2)
         return drop ? kernel_occupancy(enc3_bwd_kernel<2, 1, 4, true, uint8_t>, ENC3_THREADS, bytes, out)
                     : kernel_occupancy(enc3_bwd_kernel<2, 1, 4, false, uint8_t>, ENC3_THREADS, bytes, out);
+    if (C1 == 8)
+        return drop ? kernel_occupancy(enc3_bwd_kernel<8, 1, 2, true, uint8_t>, ENC3_THREADS, bytes, out)
+                    : kernel_occupancy(enc3_bwd_kernel<8, 1, 2, false, uint8_t>, ENC3_THREADS, bytes, out);
     return drop ? kernel_occupancy(enc3_bwd_kernel<4, 2, 2, true, uint8_t>, ENC3_THREADS, bytes, out)
                 : kernel_occupancy(enc3_bwd_kernel<4, 2, 2, false, uint8_t>, ENC3_THREADS, bytes, out);
 }

@@ -1,5 +1,5 @@
-// enc3_fwd: the wrapper-net encoder's forward at the package's three encoder
-// widths, specialised at compile time (enc3.cuh has the widths and the
+// enc3_fwd: the encoder's forward at the package's four encoder widths,
+// specialised at compile time (enc3.cuh has the widths and the
 // design).
 //
 // Replaces carle_tpu/ops/pallas_head.py::make_fused_encoder's forward kernel
@@ -161,6 +161,8 @@ extern "C" int enc3_fwd_launch(const void* x, const void* w1, const void* b1, co
         e = launch_kind<4, 1, 4>(x_kind, mode, x, wp, mask, out, sv, N, sh, bytes, cfg, s);
     else if (C1 == 2)
         e = launch_kind<2, 1, 4>(x_kind, mode, x, wp, mask, out, sv, N, sh, bytes, cfg, s);
+    else if (C1 == 8)
+        e = launch_kind<8, 1, 2>(x_kind, mode, x, wp, mask, out, sv, N, sh, bytes, cfg, s);
     else
         e = launch_kind<4, 2, 2>(x_kind, mode, x, wp, mask, out, sv, N, sh, bytes, cfg, s);
     return static_cast<int>(e);
@@ -189,5 +191,6 @@ extern "C" int enc3_fwd_occupancy(int C1, int C2, int p1, int mode, long long sm
     const size_t bytes = static_cast<size_t>(smem);
     if (C1 == 4 && p1 == 4) return occupancy_mode<4, 1, 4>(mode, bytes, out);
     if (C1 == 2) return occupancy_mode<2, 1, 4>(mode, bytes, out);
+    if (C1 == 8) return occupancy_mode<8, 1, 2>(mode, bytes, out);
     return occupancy_mode<4, 2, 2>(mode, bytes, out);
 }

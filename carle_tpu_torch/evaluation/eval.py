@@ -23,9 +23,11 @@ fused paths also take its name, and resolve a subclass to its base's def by
 the JAX package's ``.npz`` learner states (shipped in this package's own
 ``evaluation/`` folder) or reference torch ``.pt`` state dicts (converted by
 mcl/rnd.py's and mcl/ae.py's ``*_params_from_torch``).  The fused paths score
-any agent :func:`_resolve_fused_agent` takes.
+any agent :func:`_resolve_fused_agent` takes; :func:`load_shipped_policy` gives
+the shipped trained PPO policy (``policy_ppo.npz``) as such an agent.
 
-Run:  python -m carle_tpu_torch.evaluation.eval [--per-step | --batched] [--device cpu]
+Run:  python -m carle_tpu_torch.evaluation.eval [--per-step | --batched]
+          [--agent random|network|policy] [--agent-params PATH] [--device cpu]
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..rollout import Rollout
 from .submission import SubmissionAgent
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+SHIPPED_POLICY = _HERE + "/policy_ppo.npz"
 
 DEFAULT_WRAPPERS = [
     [RND2D, 1.0, _HERE + "/RND2D_mcl.npz"],
@@ -134,6 +137,26 @@ def inject_wrapper_checkpoints(wstates: Sequence[Any],
         else:
             raise ValueError(f"no torch converter for {_label(cls)}")
     return tuple(new)
+
+
+def load_shipped_policy(path: Optional[str] = None,
+                        device: DeviceLike = None) -> Tuple[FnAgent, Any]:
+    """(Agent, params) pair of the shipped trained PPO policy
+    (``policy_ppo.npz`` beside this module, float16 on disk, float32 on
+    ``device``, the card unless ``"cpu"``); ``path`` overrides with another native ``.npz`` params
+    file of the same architecture.  The agent samples its toggles and runs the
+    plain conv path, as the JAX package's does.  Pass the pair to
+    :func:`evaluate_fused` / :func:`evaluate_fused_batched`."""
+    from ..policy import _policy_agent, init_policy_params
+
+    path = path or SHIPPED_POLICY
+    if not path.endswith(".npz"):
+        raise ValueError("policy params must be a native .npz pytree (torch .pt state "
+                         "dicts apply to the class agents, not the shipped policy)")
+    cfg = EnvConfig()
+    template = init_policy_params(torch.Generator(device=resolve_device(device)).manual_seed(0),
+                                  cfg)
+    return _policy_agent(cfg), load_pytree(path, template)
 
 
 def _load_wrapper_checkpoint(wrapper: Any, path: str) -> None:
@@ -343,13 +366,14 @@ def evaluate_fused_batched(Agent: Any = None, rules=None, wrappers=None,
 def main(argv=None) -> None:
     import argparse
 
+    from ..agents import RandomNetworkAgent
+
     parser = argparse.ArgumentParser(
-        description="Challenge scoring battery (5 rulesets x N steps), "
-                    "random baseline agent")
+        description="Challenge scoring battery (5 rulesets x N steps)")
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--per-step", action="store_true",
                       help="the reference's per-step loop (evaluate) over the "
-                           "class shells, with SubmissionAgent")
+                           "class shells")
     mode.add_argument("--batched", action="store_true",
                       help="all rulesets as one batch of per-instance rules")
     parser.add_argument("--steps", type=int, default=1024)
@@ -358,15 +382,38 @@ def main(argv=None) -> None:
     parser.add_argument("--fix-survive-bug", action="store_true",
                         help="use the declared survive rules instead of the "
                              "reference's survive<-birth bug")
+    parser.add_argument("--agent", choices=("random", "network", "policy"),
+                        default="random",
+                        help="random = Bernoulli baseline (SubmissionAgent), "
+                             "network = frozen random-CNN RandomNetworkAgent, "
+                             "policy = the shipped trained PPO policy "
+                             "(policy_ppo.npz; override with --agent-params)")
+    parser.add_argument("--agent-params", default=None,
+                        help="agent checkpoint loaded via load_state_dict (.pt "
+                             "torch state dict or .npz params); for --agent "
+                             "policy a native .npz params file")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    if args.agent == "policy" and args.per_step:
+        parser.error("--agent policy is a functional policy with no per-step "
+                     "shell; drop --per-step")
+    if args.agent == "random" and args.agent_params:
+        # SubmissionAgent's load_state_dict is a no-op (the challenge
+        # template's contract): the params would load into nothing
+        parser.error("--agent random has no parameters to load; use --agent "
+                     "network or --agent policy with --agent-params")
     device = resolve_device(args.device)
     compat = not args.fix_survive_bug
     kwargs = dict(steps=args.steps, reference_compat=compat, seed=args.seed, device=device)
+    if args.agent == "policy":
+        kwargs["Agent"] = load_shipped_policy(args.agent_params, device)
+    elif args.agent == "network":
+        kwargs.update(Agent=RandomNetworkAgent, params_path=args.agent_params)
     if args.per_step:
-        score, _ = evaluate(SubmissionAgent, DEFAULT_RULES, DEFAULT_WRAPPERS, **kwargs)
+        agent = kwargs.pop("Agent", SubmissionAgent)
+        score, _ = evaluate(agent, DEFAULT_RULES, DEFAULT_WRAPPERS, **kwargs)
     elif args.batched:
         score, _ = evaluate_fused_batched(replicas=args.replicas, **kwargs)
     else:

@@ -29,9 +29,10 @@ recomputing the encoder and drawing again.  The generic kernels take any other
 widths; :data:`AE2D_KERNELS` set to False sends AE2D's widths to them too
 (tests and chip_smoke.py hold one instantiation against the other).
 
-At the package's three encoder widths (C1, C2, P1, P2) = (4, 1, 4, 2), (2, 1,
-4, 2) and (4, 2, 2, 2) (the RND predictor, the frozen RND target and AE2D's
-encoder) the encoder runs kernels specialised for them (``csrc/enc3_fwd.cu``,
+At the package's four encoder widths (C1, C2, P1, P2) = (4, 1, 4, 2), (2, 1,
+4, 2), (4, 2, 2, 2) and (8, 1, 2, 2) (the RND predictor, the frozen RND target,
+AE2D's encoder and the toggle policy's front-end) the encoder runs kernels
+specialised for them (``csrc/enc3_fwd.cu``,
 ``enc3_bwd.cu``; :func:`encoder_route`): stage 1 by table, and a training
 forward (:class:`EncoderFn`) that saves its dropout keep bits, so the backward
 draws none and is one band kernel.  The generic kernels take any other
@@ -100,7 +101,7 @@ AE2D_SMEM_BWD = 100 * 1024  # two
 # The encoder at these widths (C1, C2, P1, P2) runs the kernels specialised
 # for them (:func:`encoder_route`); False runs the generic kernels there too,
 # to hold one against the other.
-ENC3_WIDTHS = ((4, 1, 4, 2), (2, 1, 4, 2), (4, 2, 2, 2))
+ENC3_WIDTHS = ((4, 1, 4, 2), (2, 1, 4, 2), (4, 2, 2, 2), (8, 1, 2, 2))
 ENC3_KERNELS = True
 BLOCK_THREADS = 256         # the encoder kernels' threads a block
 # dropout stages: the counter's stage field (csrc/net_stages.cuh)

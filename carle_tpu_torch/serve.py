@@ -7,7 +7,7 @@ time, in front of the scoring battery and the packed multi-step engine.
 Endpoints (JSON in/out):
 
   GET  /health     liveness + device + request counters
-  POST /score      {"agent": "random"|"network", "params_path": str,
+  POST /score      {"agent": "random"|"network"|"policy", "params_path": str,
                     "steps": int, "seed": int, "seeds": [int, ...],
                     "batched": bool, "toggle_rate": float, "replicas": int,
                     "reference_compat": bool}
@@ -20,8 +20,10 @@ Endpoints (JSON in/out):
                        ``bit_multi_step`` kernel on the card
 
 ``"network"`` scores the frozen random CNN (``RandomNetworkAgent``), its
-weights from ``params_path`` (``.pt`` or ``.npz``) when given.  ``/gif``,
-``/classify`` and the ``"policy"`` agent are not ported yet.
+weights from ``params_path`` (``.pt`` or ``.npz``) when given; ``"policy"``
+the shipped trained PPO policy (``evaluation.eval.load_shipped_policy``), or
+the native ``.npz`` params at ``params_path``, loaded once a path and device.
+``/gif`` and ``/classify`` are not ported yet.
 
 Run:  python -m carle_tpu_torch.serve --port 8787 [--device cpu]
 """
@@ -31,7 +33,7 @@ from __future__ import annotations
 import json
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,25 +41,41 @@ import torch
 from . import rules as rules_mod
 from .agents import RandomNetworkAgent
 from .device import DeviceLike, resolve_device
-from .evaluation.eval import DEFAULT_RULES, evaluate_fused, evaluate_fused_batched
+from .evaluation.eval import (DEFAULT_RULES, evaluate_fused, evaluate_fused_batched,
+                              load_shipped_policy)
 from .ops.bitpack import pack_grid, unpack_grid
 from .ops.cuda_bitpack import bit_multi_step
 from .rle import encode_grid, parse_rle_text
 
 
+# The policy's (Agent, params) pair a params_path and device, so repeated
+# /score requests read its 4096 x 4096 dense layer once.
+_POLICY_CACHE: Dict[Tuple[Optional[str], torch.device], Tuple[Any, Any]] = {}
+
+
+def _shipped_policy(params_path: Optional[str], device: torch.device) -> Tuple[Any, Any]:
+    pair = _POLICY_CACHE.get((params_path, device))
+    if pair is None:
+        pair = _POLICY_CACHE[(params_path, device)] = load_shipped_policy(params_path, device)
+    return pair
+
+
 def _score(body: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     agent_kind = body.get("agent", "random")
-    agents = {"random": None, "network": RandomNetworkAgent}
-    if agent_kind == "policy":
-        raise ValueError("the 'policy' agent (the shipped PPO policy) is not ported "
-                         "yet: ROADMAP.md Queue 1, item 4")
-    if agent_kind not in agents:
-        raise ValueError(f"unknown agent {agent_kind!r}; one of random/network")
+    params_path = body.get("params_path")
+    if agent_kind == "random":
+        agent: Any = None
+    elif agent_kind == "network":
+        agent = RandomNetworkAgent
+    elif agent_kind == "policy":
+        agent, params_path = _shipped_policy(params_path, device), None
+    else:
+        raise ValueError(f"unknown agent {agent_kind!r}; one of random/network/policy")
     batched = bool(body.get("batched", True))
     seeds = body.get("seeds") or [int(body.get("seed", 0))]
     kwargs = dict(
-        Agent=agents[agent_kind],
-        params_path=body.get("params_path"),
+        Agent=agent,
+        params_path=params_path,
         steps=int(body.get("steps", 1024)),
         toggle_rate=float(body.get("toggle_rate", 0.1)),
         reference_compat=bool(body.get("reference_compat", True)),

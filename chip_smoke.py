@@ -42,7 +42,7 @@ Phases, in order; any failure exits non-zero without the final line:
            and the twin, both timed in turns and by CUPTI cold with the
            share of the bound, plans, registers and blocks a
            multiprocessor; the encoder's kernels specialised at the
-           package's three widths, enc3_*, also against the generic ones at
+           package's widths, enc3_*, also against the generic ones at
            every shape: the forward bit for bit, the gradients within 1e-5 of
            each leaf at 256² and 1e-4 on the 8192² shapes, the training
            forward's saved keep bits against the twin's Philox mask, both
@@ -135,8 +135,24 @@ Phases, in order; any failure exits non-zero without the final line:
            actions on 8 soups against the CPU's away from the threshold; a
            .pt round trip of RND2D and AE2D on the card;
 4. server  the port's HTTP server on 127.0.0.1 in a thread: /health, /score
-           (64 steps; the random and the network agent) and /rollout (256 x
-           256, 256 generations);
+           (64 steps; the random, the network and the policy agent) and
+           /rollout (256 x 256, 256 generations);
+   policy  the policies at the eval geometry (256² universes, 64² actions,
+           DEFAULT_WRAPPERS frozen with the shipped .npz): PPO on 16
+           universes with the fused encoder at the policy's widths (8, 1, 2,
+           2), horizon 128, 4 epochs of 4 minibatches, two iterations (ms a
+           collect step, ms an update phase); REINFORCE, 64 steps; the
+           shipped policy (policy_ppo.npz) through evaluate_fused (5 x 1024)
+           and evaluate_fused_batched; then a PPO iteration of 32 steps and 16
+           REINFORCE steps profiled (device busy share, launches a step, peak
+           memory); card against CPU: one PPO iteration at 4 universes x
+           horizon 8 and the shipped policy's deterministic agent (sigmoid >
+           0.5) over 2 x 64 steps, the uniforms and permutations replayed from
+           one numpy stream, the CPU playing the card's actions once they are
+           held equal away from the draw; before the battery, rows 3a and 3b
+           at the policy's widths against the generic kernels forced
+           (_enc3_policy_held: forward on 16 and 512 universes, backward on
+           512);
 5. train   train_mcl.train at full width: 64 universes of 256 x 256, the 4
            training rulesets x 128 steps with both nets learning inside the
            step (dropout on, 8 Adam updates a learner), the checkpoints read
@@ -185,8 +201,8 @@ Phases, in order; any failure exits non-zero without the final line:
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
 11. report a {"kernels": [...]} line with each kernel's launches on the main
-           paths (battery, submission, server, train, routes, wrappers, packed, bands,
-           engines and spatial, each counted from zero just before it; the rows of the
+           paths (battery, submission, server, policy, train, routes, wrappers, packed,
+           bands, engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
            byte ca_step kernel, the present packed or uint8 engines or halo
@@ -213,7 +229,13 @@ equal where the dense output lies more than 1e-4 from logit(0.1).  Gradients, ke
 over 4 million positions in other orders; a pool window whose maxima tie in
 one and differ in the last bit in the other moves one window's share).
 Training rewards through 4 Adam updates, card vs CPU: rtol 2e-3 (Adam divides
-by the gradient's own scale).  The autoencoder's three routes against each
+by the gradient's own scale).  The policies, card vs CPU: actions equal where
+the draw (the uniform, or the deterministic agent's rate) lies more than 1e-4
+from sigmoid(logit); rewards and the shipped policy's trace rtol 1e-4 / atol
+1e-5; PPO's parameters after 16 Adam updates within 2e-3 of each leaf's
+largest entry.  The encoder at the policy's widths against the generic
+kernels: the forward bit for bit, the gradients 1e-5 of each leaf's largest
+entry; against the twins 1e-4.  The autoencoder's three routes against each
 other: error rtol 1e-4, gradients as above (one mask, other summation
 orders); ae_forward's reconstruction error against ae_loss_fwd's: rtol 1e-4.
 The encoder's gradients at 8192² (band shapes and global) and on 65,600
@@ -401,6 +423,9 @@ PATH_KERNELS = {
                 "bit_multi_step_static_cm_words", "bit_multi_step_cm", "ca_multi_step_bits"),
     "spatial": ("spatial_ca_step_words", "spatial_multi_step_bits", "bit_spatial_words",
                 "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
+    # the policies: the env step, the frozen RND and AE2D bonuses, and the
+    # policy's fused encoder forward and backward at its widths (8, 1, 2, 2)
+    "policy": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
 # launch: every encoder and decoder of the package has one of the
@@ -2077,7 +2102,7 @@ def _enc3_occupancy(cuda_build):
     shapes = {"160x256": (160, 256, 256), "64x256": (64, 256, 256),
               "bands 512x32x8192": (512, 32, 8192)}
     for label, (n, h, w) in shapes.items():
-        for name, (c1, c2, p1, _) in zip(("rnd", "target", "ae"), ch.ENC3_WIDTHS):
+        for name, (c1, c2, p1, _) in zip(("rnd", "target", "ae", "policy"), ch.ENC3_WIDTHS):
             r2, tw, smem = ch._enc3_plan(n, h, w, c1, c2, p1, False)
             for mode in (0, 1, 2):   # no dropout, dropout, dropout saving the bits
                 out[f"enc3_fwd {name} mode {mode} {label}"] = dict(
@@ -4236,6 +4261,10 @@ def phase_server(torch, cuda_build):
         check(math.isfinite(network["score"]) and 0.0 <= network["score"] <= 10.0
               and network["agent"] == "network" and len(network["per_ruleset"]) == 5,
               f"/score network {network}")
+        policy = _request(conn, "POST", "/score", {"agent": "policy", "steps": 64})
+        check(math.isfinite(policy["score"]) and 0.0 <= policy["score"] <= 10.0
+              and policy["agent"] == "policy" and len(policy["per_ruleset"]) == 5,
+              f"/score policy {policy}")
         body = {"rule": "B3/S23", "size": 256, "steps": 256, "seed": 1}
         roll = _request(conn, "POST", "/rollout", body)
     finally:
@@ -4254,10 +4283,12 @@ def phase_server(torch, cuda_build):
           f"/rollout population {roll['population']} != plain {want_pop}")
     log(f"server ok: health, score {score['score']:.4f} in {score['latency_s']} s, "
         f"network agent {network['score']:.4f} in {network['latency_s']} s, "
+        f"policy {policy['score']:.4f} in {policy['latency_s']} s, "
         f"rollout population {roll['population']} in {roll['latency_s']} s")
     log(f"server launches: {json.dumps(counts)}")
     return counts, {"score_latency_s": score["latency_s"],
                     "network_score_latency_s": network["latency_s"],
+                    "policy_score_latency_s": policy["latency_s"],
                     "rollout_latency_s": roll["latency_s"]}
 
 
@@ -4741,6 +4772,391 @@ def phase_profile(torch, steps: int = 64):
     return _profile_steps(torch, ro, carry, steps, 160)
 
 
+ENC3_FWD_KERNELS = {"new": ("enc3_fwd_kernel",), "generic": ("encoder_fwd_kernel",)}
+ENC3_BWD_KERNELS = {"new": ("enc3_bwd_kernel", "column_sums_kernel"),
+                    "generic": ("encoder_bwd_stage", "column_sums_kernel")}
+POLICY_WIDTHS = (8, 1, 2, 2)   # the toggle policy's encoder (C1, C2, P1, P2)
+
+
+def _enc3_policy_held(torch, timer, cuda_build):
+    """Rows 3a and 3b at the policy's widths (8, 1, 2, 2), the shapes of its
+    main path (the eval geometry, 256²): the forward on 16 universes (a PPO or
+    REINFORCE sampling step) and on 512 (a PPO minibatch of 16 x 128 / 4),
+    the backward on 512.  The specialised kernels (the route) against the
+    generic ones forced (cuda_head.ENC3_KERNELS off): the forward bit for bit,
+    the gradients within 1e-5 of each leaf's largest entry, each within 1e-4
+    of the twin; timed in turns and by CUPTI cold (_ab_cases) against
+    encoder_bound_parts (no dropout: the policy draws none).  Returns
+    {"fwd": ..., "bwd": ..., "plain_ms": ...}."""
+    from carle_tpu_torch.ops import cuda_head as ch
+    from carle_tpu_torch.policy import init_policy_params
+    from carle_tpu_torch import EnvConfig
+
+    c1, c2, p1, p2 = POLICY_WIDTHS
+    pools, dev = (p1, p2), torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    params = init_policy_params(gen, EnvConfig())
+    w4 = (params["conv1"]["w"], params["conv1"]["b"], params["conv2"]["w"],
+          params["conv2"]["b"])
+    xs = {n: (torch.rand((n, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+          for n in (16, 512)}
+    xs[512][:128, :, :128] = 0   # blank regions: whole pool windows tie
+    g = torch.randn((512, c2, 64, 64), generator=gen, device=dev)
+    fwd_cases = {f"u8 [{n},1,256,256]": n for n in (16, 512)}
+    fwd_calls = {label: (lambda x=xs[n]: ch.encoder_fwd(x, *w4, pools),
+                         lambda x=xs[n]: _generic_encoder(lambda: ch.encoder_fwd(x, *w4, pools)))
+                 for label, n in fwd_cases.items()}
+
+    def hold_fwd(label, got, old):
+        check(torch.equal(got, old), f"enc3_fwd at the policy's widths ({label}) differs "
+              "from the generic kernel")
+        twin = ch.encoder_fwd_plain(xs[fwd_cases[label]], *w4, pools)
+        rel = float((got - twin).abs().max() / twin.abs().max())
+        check(rel < 1e-4, f"enc3_fwd at the policy's widths ({label}) vs its twin: {rel}")
+        return {"new": {"max_abs_err": float((got - twin).abs().max()),
+                        "max_rel_err_vs_plain": rel, "bit_equal_generic": True},
+                "generic": {"max_abs_err": float((old - twin).abs().max())}}
+
+    def plan_occupancy(n, backward):
+        r2, tw, smem = ch._enc3_plan(n, 256, 256, c1, c2, p1, backward)
+        occ = (_occupancy(cuda_build, "enc3_bwd", "enc3_bwd_occupancy", c1, c2, p1, 0, Big(smem))
+               if backward else
+               _occupancy(cuda_build, "enc3_fwd", "enc3_fwd_occupancy", c1, c2, p1, 0, Big(smem)))
+        return dict(plan=(r2, tw), smem=smem, **occ[0])
+
+    fwd = _ab_cases(
+        torch, timer, "enc3_fwd (policy widths)", fwd_calls, (ch.ENC3_FWD, ch.ENCODER),
+        ENC3_FWD_KERNELS, hold_fwd,
+        lambda label: _largest(encoder_bound_parts(fwd_cases[label], 256, 256, c1, c2, p1, 1, 0,
+                                                   False)),
+        lambda label: plan_occupancy(fwd_cases[label], False))
+    bwd_label = "u8 [512,1,256,256], g [512,1,64,64]"
+    bwd_call = lambda: ch.encoder_bwd(xs[512], *w4, g, pools)
+    twin_grads = ch.encoder_bwd_plain(xs[512], *w4, g, pools)
+
+    def hold_bwd(label, got, old):
+        vs_generic, vs_twin = max(_leaf_errors(got, old)), max(_leaf_errors(got, twin_grads))
+        check(vs_generic < 1e-5, f"enc3_bwd at the policy's widths vs the generic kernel: "
+              f"{vs_generic}")
+        check(vs_twin < 1e-4, f"enc3_bwd at the policy's widths vs its twin: {vs_twin}")
+        err = lambda gs: max(float((a - b).abs().max()) for a, b in zip(gs, twin_grads))
+        return {"new": {"max_abs_err": err(got), "max_leaf_rel_err_vs_plain": vs_twin,
+                        "max_leaf_rel_err_vs_generic": vs_generic},
+                "generic": {"max_abs_err": err(old),
+                            "max_leaf_rel_err_vs_plain": max(_leaf_errors(old, twin_grads))}}
+
+    bwd = _ab_cases(
+        torch, timer, "enc3_bwd (policy widths)",
+        {bwd_label: (bwd_call, lambda: _generic_encoder(bwd_call))}, (ch.ENC3_BWD, ch.ENCODER_BWD),
+        ENC3_BWD_KERNELS, hold_bwd,
+        lambda label: _largest(encoder_bound_parts(512, 256, 256, c1, c2, p1, 1, 0, True)),
+        lambda label: plan_occupancy(512, True))
+    plain_ms = {"fwd 16": timer.ms(lambda: ch.encoder_fwd_plain(xs[16], *w4, pools), 5),
+                "fwd 512": timer.ms(lambda: ch.encoder_fwd_plain(xs[512], *w4, pools), 3),
+                "bwd 512": timer.ms(lambda: ch.encoder_bwd_plain(xs[512], *w4, g, pools), 2)}
+    speedup = {f"{label} {shape}": r["generic"]["ms"] / r["new"]["ms"]
+               for label, cases in (("fwd", fwd), ("bwd", bwd)) for shape, r in cases.items()}
+    log(f"enc3 at the policy's widths {POLICY_WIDTHS}: generic ms / specialised ms "
+        f"{json.dumps(speedup)}, plain ms {json.dumps(plain_ms)}")
+    return {"fwd": fwd, "bwd": bwd, "plain_ms": plain_ms, "speedup": speedup}
+
+
+POLICY_STEPS = 64        # REINFORCE steps of the policy phase
+PPO_HORIZON, PPO_ITERS = 128, 2
+DET_RATE = 0.5           # the deterministic agent's threshold on sigmoid(logit)
+
+
+def _policy_stack(instances):
+    """(config, frozen DEFAULT_WRAPPERS defs) at the eval geometry."""
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.evaluation import eval as ev
+
+    cfg = EnvConfig(instances=instances)
+    return cfg, ev.wrapper_defs(cfg, ev.DEFAULT_WRAPPERS, False)
+
+
+def _policy_init(trainer, seed):
+    """A trainer's state with the shipped checkpoints in the frozen stack."""
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.evaluation import eval as ev
+
+    state = trainer.init(trainer.generator(seed), rules.LIFE)
+    return state._replace(stack=state.stack._replace(
+        wrappers=ev.inject_wrapper_checkpoints(state.stack.wrappers, ev.DEFAULT_WRAPPERS)))
+
+
+def _device_window(torch, fn):
+    """fn() once unprofiled (wall ms, peak device memory above the start) and
+    once under torch.profiler: device ms and launches (kernels only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+    device_ms = sum(_device_us(e) for e in events) / 1e3
+    kernels = [e for e in events if not e.key.startswith("Memcpy")]
+    top = sorted(events, key=_device_us, reverse=True)[:8]
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
+            "launches": sum(e.count for e in kernels), "peak_bytes": peak,
+            "peak_bytes_above_start": peak - base,
+            "top_device_us": [{"name": e.key[:60], "us": _device_us(e), "count": e.count}
+                              for e in top]}
+
+
+def phase_policy(torch, cuda_build):
+    """The policies at full width, the eval geometry (256² universes, 64²
+    actions, DEFAULT_WRAPPERS frozen with the shipped .npz), counted from zero
+    just before: PPO on 16 universes with the fused encoder (horizon 128, 4
+    epochs of 4 minibatches), two iterations; REINFORCE on 16 universes, 64
+    steps; the shipped policy through evaluate_fused (5 x 1024) and
+    evaluate_fused_batched (5 universes x 1024).  After the count: a PPO
+    iteration of 32 steps and a REINFORCE window profiled."""
+    from carle_tpu_torch.evaluation import eval as ev
+    from carle_tpu_torch.policy import PolicyTrainer, PPOTrainer
+
+    cfg, defs = _policy_stack(16)
+    ppo = PPOTrainer(cfg, defs, fused_head=True, device="cuda")
+    state = _policy_init(ppo, 0)
+    cfg_r, defs_r = _policy_stack(16)
+    rf = PolicyTrainer(cfg_r, defs_r, fused_head=True, device="cuda")
+    rstate = _policy_init(rf, 1)
+    torch.cuda.synchronize()
+    cuda_build.reset_launch_counts()
+    out, traces = {"ppo": []}, []
+    for _ in range(PPO_ITERS):
+        t0 = time.perf_counter()
+        state, batch = ppo.collect(state, PPO_HORIZON)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = ppo.update(state, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        traces.append(batch.rewards.mean(dim=1).cpu())
+        out["ppo"].append({"collect_ms_per_step": (t1 - t0) * 1e3 / PPO_HORIZON,
+                           "update_ms": (t2 - t1) * 1e3})
+    t0 = time.perf_counter()
+    rstate, rtrace = rf.run(rstate, POLICY_STEPS)
+    torch.cuda.synchronize()
+    out["reinforce_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / POLICY_STEPS
+    pair = ev.load_shipped_policy(device="cuda")
+    t0 = time.perf_counter()
+    score, trace = ev.evaluate_fused(Agent=pair, steps=1024, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    score_b, per_rule = ev.evaluate_fused_batched(Agent=pair, steps=1024, verbose=False,
+                                                  device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = cuda_build.launch_counts()
+    ppo_trace = torch.cat(traces)
+    check(ppo_trace.shape == (PPO_ITERS * PPO_HORIZON,) and bool(torch.isfinite(ppo_trace).all()),
+          "PPO trace")
+    check(bool(torch.isfinite(rtrace.cpu()).all()) and rtrace.shape == (POLICY_STEPS,),
+          "REINFORCE trace")
+    leaves = [t for k in ("conv1", "conv2", "dense") for t in state.params[k].values()]
+    check(all(bool(torch.isfinite(t).all()) for t in leaves), "PPO parameters")
+    check(int(state.opt_state["count"]) == PPO_ITERS * ppo.epochs * ppo.minibatches,
+          f"PPO updates {int(state.opt_state['count'])}")
+    check(int(rstate.opt_state["count"]) == POLICY_STEPS, "REINFORCE updates")
+    for name, v in (("sequential", score), ("batched", score_b)):
+        check(math.isfinite(v) and 0.0 <= v <= 10.0, f"shipped policy {name} score {v}")
+    check(trace.shape == (5 * 1024,) and per_rule.shape == (5,), "shipped policy shapes")
+    out.update(
+        ppo_mean_reward_first=float(traces[0].mean()), ppo_mean_reward_last=float(traces[-1].mean()),
+        reinforce_mean_reward=float(rtrace.mean()),
+        shipped_score=score, shipped_s=t1 - t0, shipped_steps_per_s=5 * 1024 / (t1 - t0),
+        shipped_batched_score=score_b, shipped_batched_per_ruleset=[float(v) for v in per_rule],
+        shipped_batched_s=t2 - t1)
+    # where the time goes (after the count): 32 collect steps, an update phase
+    # on the last iteration's batch (16 minibatches of 512) and 16 REINFORCE
+    # steps
+    out["profile_ppo_collect_32"] = _device_window(torch, lambda: ppo.collect(state, 32))
+    out["profile_ppo_update"] = _device_window(torch, lambda: ppo.update(state, batch))
+    out["profile_reinforce_16"] = _device_window(torch, lambda: rf.run(rstate, 16))
+    for key, steps in (("profile_ppo_collect_32", 32), ("profile_ppo_update", 16),
+                       ("profile_reinforce_16", 16)):
+        out[key]["launches_per_step"] = out[key]["launches"] / steps
+    log(f"policy: PPO ms a collect step {[r['collect_ms_per_step'] for r in out['ppo']]}, "
+        f"ms an update phase {[r['update_ms'] for r in out['ppo']]}; REINFORCE "
+        f"{out['reinforce_ms_per_step']:.3f} ms a step")
+    for key, unit in (("profile_ppo_collect_32", "a step"), ("profile_ppo_update", "a minibatch"),
+                      ("profile_reinforce_16", "a step")):
+        r = out[key]
+        log(f"policy {key}: wall {r['wall_ms']:.2f} ms, device {r['device_ms']:.2f} ms, busy "
+            f"share {r['busy_share']:.3f}, launches {r['launches']} ({r['launches_per_step']} "
+            f"{unit}), peak "
+            f"memory {r['peak_bytes'] / 2**30:.3f} GiB ({r['peak_bytes_above_start'] / 2**30:.3f} "
+            "above the start)")
+    log(f"policy: the shipped policy's battery score {score:.5f} in {t1 - t0:.2f} s "
+        f"(5 x 1024 steps), batched {score_b:.5f} in {t2 - t1:.2f} s")
+    log(f"policy launches: {json.dumps(counts)}")
+    return counts, out
+
+
+class _ActionLedger:
+    """Wraps a trainer's or agent's draw: ``record`` keeps each action the
+    card takes (with its probabilities); ``check`` (the CPU's run) computes its
+    own action, counts the cells where it differs from the card's recorded one
+    while the draw lies more than 1e-4 from the probability, and plays the
+    card's action, so both runs follow one trajectory."""
+
+    def __init__(self):
+        self.actions, self.cells, self.mismatched, self.near = [], 0, 0, 0
+
+    def record(self, action):
+        self.actions.append(action.cpu())
+        return action
+
+    def check(self, action, prob, threshold, at):
+        card = self.actions[at].to(action.device)
+        far = (threshold - prob).abs() > 1e-4
+        self.cells += action.numel()
+        self.near += int((~far).sum())
+        self.mismatched += int(((card != action) & far).sum())
+        return card
+
+
+def _ppo_card_vs_cpu(torch):
+    """One PPO iteration at 4 universes x horizon 8 (DEFAULT_WRAPPERS, the
+    fused encoder, 4 epochs of 4 minibatches), on the card and on the CPU
+    (the twins) from the same initial state, the uniforms and permutations
+    replayed from one numpy stream in both: the CPU's actions equal the
+    card's where the uniform lies more than 1e-4 from sigmoid(logit) (the CPU
+    then plays the card's), the rewards within rtol 1e-4, and after the 16
+    Adam updates: the conv leaves and the dense bias within 2e-3 of each
+    leaf's largest entry; the dense weight (16.8 M entries) within rtol 2e-3 /
+    atol 1e-6 but for at most 1e-5 of its entries, none of them more than
+    Adam's bound of 2 lr an update apart (a gradient entry that sums to
+    float32's rounding floor takes a full +-lr step whose sign the summation
+    order decides); the updated policies' logits on the collected grids
+    within rtol 2e-3 / atol 1e-4."""
+    import numpy as np
+
+    from carle_tpu_torch.policy import PPOTrainer, policy_logits
+
+    rng = np.random.RandomState(19)
+    uniforms = rng.rand(8, 4, 64 * 64).astype(np.float32)
+    perms = [rng.permutation(32) for _ in range(4)]
+    ledger = _ActionLedger()
+    got = {}
+    for device, card in (("cuda", True), ("cpu", False)):
+        cfg, defs = _policy_stack(4)
+        tr = PPOTrainer(cfg, defs, fused_head=True, device=device)
+        state = _policy_init(tr, 0)
+        if card:
+            got["init"] = _map_state(state.params, lambda t: t.clone())
+            got["wrappers"] = _map_state(state.stack.wrappers,
+                                         lambda t: t.clone() if torch.is_tensor(t) else t)
+        else:   # the card's initial state
+            to = lambda t: t.to(device) if torch.is_tensor(t) else t
+            state = state._replace(
+                params=_map_state(got["init"], to),
+                stack=state.stack._replace(wrappers=tuple(
+                    _map_state(ws, to) for ws in got["wrappers"])))
+        state = state._replace(opt_state=tr.opt.init(state.params))
+        step = iter(range(8))
+        perm_at = iter(perms)
+
+        def sample(logits, generator, device=device, card=card, step=step):
+            t = next(step)
+            u = torch.from_numpy(uniforms[t]).to(device)
+            prob = torch.sigmoid(logits)
+            action = (u < prob).to(torch.float32)
+            return ledger.record(action) if card else ledger.check(action, prob, u, t)
+
+        tr._sample = sample
+        tr._permutation = lambda generator, n, device=device, perm_at=perm_at: torch.from_numpy(
+            next(perm_at)).to(device)
+        state, batch = tr.collect(state, 8)
+        state = tr.update(state, batch)
+        with torch.no_grad():
+            logits = policy_logits(state.params, batch.grids.reshape(32, 1, 256, 256), True)
+        got["card" if card else "host"] = (batch.rewards.mean(dim=1).cpu(),
+                                           _map_state(state.params, lambda t: t.cpu()),
+                                           logits.cpu())
+    torch.testing.assert_close(got["card"][0], got["host"][0], rtol=1e-4, atol=1e-5)
+    leaves = lambda p: [p[k][t] for k in ("conv1", "conv2", "dense") for t in ("w", "b")]
+    errs = _leaf_errors(leaves(got["card"][1]), leaves(got["host"][1]))
+    moved = max(_leaf_errors(leaves(got["host"][1]),
+                             leaves(_map_state(got["init"], lambda t: t.cpu()))))
+    check(ledger.mismatched == 0, f"PPO card vs CPU: {ledger.mismatched} actions differ away "
+          "from the draw")
+    check(max(errs[:4] + errs[5:]) < 2e-3, f"PPO card vs CPU parameters after 16 updates "
+          f"(conv1 w, b, conv2 w, b, dense w, b): {errs}")
+    wc, wh = got["card"][1]["dense"]["w"], got["host"][1]["dense"]["w"]
+    diff = (wc - wh).abs()
+    beyond = int((diff > 1e-6 + 2e-3 * wh.abs()).sum())
+    lr, updates = 3e-4, 16
+    check(beyond <= 1e-5 * wh.numel() and float(diff.max()) <= 2 * lr * updates,
+          f"PPO card vs CPU dense weight: {beyond} entries beyond rtol 2e-3, largest "
+          f"difference {float(diff.max())}")
+    torch.testing.assert_close(got["card"][2], got["host"][2], rtol=2e-3, atol=1e-4)
+    check(moved > 0, "PPO parameters did not move")
+    out = {"reward_max_abs_diff": float((got["card"][0] - got["host"][0]).abs().max()),
+           "param_leaf_rel_diff": errs, "dense_w_beyond_rtol": beyond,
+           "dense_w_max_abs_diff": float(diff.max()),
+           "logits_max_abs_diff": float((got["card"][2] - got["host"][2]).abs().max()),
+           "param_moved": moved, "near_draw_cells": ledger.near, "cells": ledger.cells}
+    log(f"policy PPO card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def _shipped_card_vs_cpu(torch):
+    """The shipped policy's deterministic agent (toggle where sigmoid(logit) >
+    DET_RATE) through evaluate_fused over 2 rulesets x 64 steps on the card and
+    the CPU: actions equal where sigmoid(logit) lies more than 1e-4 from the
+    rate (the CPU then plays the card's), the trace within rtol 1e-4 / atol
+    1e-5."""
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.agents import Agent
+    from carle_tpu_torch.evaluation import eval as ev
+    from carle_tpu_torch.policy import _policy_agent, policy_logits
+
+    ledger = _ActionLedger()
+    base = _policy_agent(EnvConfig(), deterministic_rate=DET_RATE)
+    traces = {}
+    for device, card in (("cuda", True), ("cpu", False)):
+        _, params = ev.load_shipped_policy(device=device)
+        calls = iter(range(2 * 64))
+
+        def apply(p, generator, obs, card=card, calls=calls):
+            action = base.apply(p, generator, obs)
+            if card:
+                return ledger.record(action)
+            with torch.no_grad():
+                prob = torch.sigmoid(policy_logits(p, obs)).reshape(action.shape)
+            return ledger.check(action, prob, torch.full_like(prob, DET_RATE), next(calls))
+
+        _, traces["card" if card else "host"] = ev.evaluate_fused(
+            Agent=(Agent(init=base.init, apply=apply), params), rules=ev.DEFAULT_RULES[:2],
+            steps=64, verbose=False, device=device)
+    check(ledger.mismatched == 0, f"shipped policy card vs CPU: {ledger.mismatched} actions "
+          "differ away from the rate")
+    np_diff = abs(traces["card"] - traces["host"])
+    torch.testing.assert_close(torch.from_numpy(traces["card"]), torch.from_numpy(traces["host"]),
+                               rtol=1e-4, atol=1e-5)
+    toggles = sum(float(a.sum()) for a in ledger.actions) / len(ledger.actions)
+    out = {"trace_max_abs_diff": float(np_diff.max()), "near_rate_cells": ledger.near,
+           "cells": ledger.cells, "toggles_per_step": toggles}
+    check(toggles > 0, "the deterministic shipped policy never toggled")
+    log(f"policy shipped deterministic agent card vs CPU: {json.dumps(out)}")
+    return out
+
+
+def phase_policy_parity(torch):
+    return {"ppo": _ppo_card_vs_cpu(torch), "shipped": _shipped_card_vs_cpu(torch)}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", default=None,
@@ -4784,6 +5200,7 @@ def main() -> int:
         results = timed("kernels", phase_kernels, torch, timer, shipped, philox)
         enc3_occupancy = _enc3_occupancy(cuda_build)
         log(f"enc3 occupancy: {json.dumps(enc3_occupancy)}")
+        enc3_policy = timed("enc3_policy", _enc3_policy_held, torch, timer, cuda_build)
         dec2_occupancy = _dec2_occupancy(cuda_build)
         log(f"dec2 occupancy: {json.dumps(dec2_occupancy)}")
         tail2_occupancy = _tail2_occupancy(cuda_build)
@@ -4801,6 +5218,8 @@ def main() -> int:
         submission_counts, submission = timed("submission", phase_submission, torch,
                                               cuda_build)
         server_counts, server = timed("server", phase_server, torch, cuda_build)
+        policy_counts, policy = timed("policy", phase_policy, torch, cuda_build)
+        policy_parity = timed("policy_parity", phase_policy_parity, torch)
         train_counts, train, train_hist = timed("train", phase_train, torch, cuda_build)
         train_parity_diff = timed("train_parity", phase_train_parity, torch)
         packed_counts, packed = timed("packed", phase_packed, torch, cuda_build, train_hist)
@@ -4824,7 +5243,7 @@ def main() -> int:
                    "train": train_counts, "routes": routes_counts,
                    "wrappers": wrappers_counts, "packed": packed_counts,
                    "bands": bands_counts, "engines": engines_counts,
-                   "spatial": spatial_counts}
+                   "spatial": spatial_counts, "policy": policy_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -4864,7 +5283,8 @@ def main() -> int:
         "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
         "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
-        "e2e": e2e, "submission": submission, "server": server,
+        "e2e": e2e, "submission": submission, "server": server, "policy": policy,
+        "policy_parity": policy_parity, "enc3_policy": enc3_policy,
         "run_actions_max_abs_diff": parity_diff,
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
         "routes": routes, "wrappers": wrappers, "packed": packed, "engines": engines,
@@ -4879,7 +5299,7 @@ def main() -> int:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
     log(json.dumps({k: report[k] for k in ("launches", "e2e", "submission", "server",
-                                           "train", "routes",
+                                           "policy", "policy_parity", "train", "routes",
                                            "wrappers", "packed", "engines", "total_s")}))
     log(json.dumps({"bands": {k: v for k, v in bands.items() if not k.startswith("profile")},
                     "bands_kernels": results["bands_kernels"]}))

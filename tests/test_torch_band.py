@@ -44,6 +44,16 @@ from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
 from carle_tpu_torch.rollout import Rollout
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _draw(rng, shapes, scale=0.3):
     return [rng.randn(*s).astype(np.float32) * scale for s in shapes]
 

@@ -34,6 +34,17 @@ from carle_tpu_torch.parallel import cuda_halo
 from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 from test_torch_emulated import RULESETS, emulated  # noqa: F401  (the fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B0 = rules.pack_rule_bits([0, 3], [2, 3])   # births on an empty neighbourhood
 MASKS = [rules.pack_rule_bits(*r) for r in RULESETS] + [B0]
 H100_SMS = 132

@@ -22,6 +22,16 @@ from carle_tpu_torch.env import init_state, multi_step
 from carle_tpu_torch.ops import bitpack, cuda_bitpack
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _soup(seed, shape, density=0.35):
     return (np.random.RandomState(seed).rand(*shape) < density).astype(np.uint8)
 

@@ -21,6 +21,17 @@ from carle_tpu_torch import EnvConfig, rle, rules
 from carle_tpu_torch.env import env_step, init_state
 from carle_tpu_torch.ops import cuda_ca
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GEOMETRIES = [  # (H, W, AH, AW, instances)
     (64, 64, 16, 16, 2),
     (23, 37, 8, 9, 3),     # odd sizes: the window shrinks by one

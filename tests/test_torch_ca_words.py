@@ -24,6 +24,17 @@ from carle_tpu_torch import EnvConfig, env as env_mod
 from carle_tpu_torch.env import env_step, init_state
 from carle_tpu_torch.ops import cuda_ca
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GEOMETRIES = [  # (H, W, AH, AW, instances): widths the word kernel takes
     (32, 64, 16, 16, 3),
     (40, 48, 13, 26, 2),   # the window from column 11: it cuts words

@@ -33,6 +33,17 @@ from carle_tpu_torch.ops import bitpack, cuda_head as ch, cuda_stages as cs
 from carle_tpu_torch.parallel import band_heads as bh
 from test_torch_emulated import _params, _rel, emulated  # noqa: F401  (the fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = [(2, 1, 4, 4), (1,), (1, 1, 4, 4), (1,)]
 
 

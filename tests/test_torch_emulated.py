@@ -29,6 +29,17 @@ from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_build, cuda_ca, cuda
 from carle_tpu_torch.parallel import cuda_halo
 from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SOURCES = ("encoder_fwd", "ae_loss_fwd", "encoder_bwd", "ae_loss_bwd", "ae2d_fwd", "ae2d_bwd",
            "enc3_fwd", "enc3_bwd", "head_fwd", "head2_fwd", "head_bwd", "head2_bwd", "tail",
            "tail2_fwd", "tail2_bwd", "loss_tail2_fwd", "loss_tail2_bwd",

@@ -1,5 +1,5 @@
-"""The encoder's kernels specialised at the package's three encoder widths
-(C1, C2, P1, P2) = (4, 1, 4, 2), (2, 1, 4, 2) and (4, 2, 2, 2)
+"""The encoder's kernels specialised at the package's four encoder widths
+(C1, C2, P1, P2) = (4, 1, 4, 2), (2, 1, 4, 2), (4, 2, 2, 2) and (8, 1, 2, 2)
 (``csrc/enc3_fwd.cu``, ``enc3_bwd.cu``), run on the CPU: the sources compiled
 as plain C++ against the stand-in ``<cuda_runtime.h>`` (the ``emulated``
 fixture of tests/test_torch_emulated.py, one thread a block).
@@ -28,7 +28,19 @@ from carle_tpu.ops.pallas_head import make_fused_encoder
 from carle_tpu_torch.ops import bitpack, cuda_head as ch
 from test_torch_emulated import _params, _rel, emulated  # noqa: F401  (the fixture)
 
-WIDTHS = [(4, 1, 4, 2), (2, 1, 4, 2), (4, 2, 2, 2)]   # RND predictor, RND target, AE2D
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+WIDTHS = [(4, 1, 4, 2), (2, 1, 4, 2), (4, 2, 2, 2), (8, 1, 2, 2)]   # RND, target, AE2D, policy
+WIDTH_IDS = ["rnd", "target", "ae", "policy"]
 
 
 def _case(c1, c2, p1, p2, n, h, w, seed):
@@ -59,7 +71,7 @@ def _leaves_rel(got, want):
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
 @pytest.mark.parametrize("kind", ["u8", "u32"])
-@pytest.mark.parametrize("widths", WIDTHS, ids=["rnd", "target", "ae"])
+@pytest.mark.parametrize("widths", WIDTHS, ids=WIDTH_IDS)
 def test_enc3_kernels_emulated(emulated, monkeypatch, widths, kind, drop_p, masked, tiles):
     """Forward bit for bit against the generic kernel, gradients against the
     generic kernel (1e-5) and the twin (1e-4), the training forward's keep
@@ -101,7 +113,7 @@ def test_enc3_kernels_emulated(emulated, monkeypatch, widths, kind, drop_p, mask
 
 
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
-@pytest.mark.parametrize("widths", WIDTHS, ids=["rnd", "target", "ae"])
+@pytest.mark.parametrize("widths", WIDTHS, ids=WIDTH_IDS)
 def test_enc3_backward_from_saved_bits_emulated(emulated, widths, drop_p):
     """What the training step runs (EncoderFn on the card): the saving
     forward, then the backward from its keep bits, equals the backward that
@@ -121,7 +133,7 @@ def test_enc3_backward_from_saved_bits_emulated(emulated, widths, drop_p):
 
 
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
-@pytest.mark.parametrize("widths", WIDTHS, ids=["rnd", "target", "ae"])
+@pytest.mark.parametrize("widths", WIDTHS, ids=WIDTH_IDS)
 def test_enc3_whole_window_ties_emulated(emulated, monkeypatch, widths, drop_p):
     """Blank and full universes: every stage-1 pool window ties exactly (all
     P1 x P1 pixels equal: 16 at pool 4), and with equal biases stage 2's too.
@@ -148,7 +160,7 @@ def test_enc3_whole_window_ties_emulated(emulated, monkeypatch, widths, drop_p):
 
 
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
-@pytest.mark.parametrize("widths", WIDTHS, ids=["rnd", "target", "ae"])
+@pytest.mark.parametrize("widths", WIDTHS, ids=WIDTH_IDS)
 def test_enc3_matches_jax_kernel_emulated(emulated, widths, masked):
     """Without dropout, against carle_tpu's make_fused_encoder in interpret
     mode: the output and the four gradients (jax.grad through its custom
@@ -174,7 +186,7 @@ def test_enc3_matches_jax_kernel_emulated(emulated, widths, masked):
 
 
 def test_enc3_route_is_decided_by_widths_and_shape(emulated, monkeypatch):
-    """The three widths take the specialised kernels at any shape; other
+    """The four widths take the specialised kernels at any shape; other
     widths and pools, and ENC3_KERNELS = False, take the generic ones."""
     for c1, c2, p1, p2 in WIDTHS:
         for h, w in ((256, 256), (32, 8192), (2064, 8192), (8192, 8192), (16, 32)):
@@ -218,8 +230,7 @@ def test_encoder_plans_at_the_8192_shapes(shape):
     assert max(smem, smem2, smem1) <= 113 * 1024
 
 
-@pytest.mark.parametrize("widths", [(4, 1, 4, 2), (2, 1, 4, 2), (4, 2, 2, 2), (3, 2, 2, 2)],
-                         ids=["rnd", "target", "ae", "other"])
+@pytest.mark.parametrize("widths", WIDTHS + [(3, 2, 2, 2)], ids=WIDTH_IDS + ["other"])
 def test_encoder_outputs_equal_across_plans_emulated(emulated, monkeypatch, widths):
     """A block's rows and tile change what it recomputes, not what it
     computes: the generic and the specialised forwards give the same outputs

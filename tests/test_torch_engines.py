@@ -24,6 +24,17 @@ from carle_tpu.ops import pallas_ca as jpca
 from carle_tpu_torch import rules
 from carle_tpu_torch.ops import bitpack, cuda_bitpack, cuda_ca
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPE = (2, 64, 128)
 
 

@@ -28,6 +28,16 @@ from carle_tpu_torch import nets
 from carle_tpu_torch.ops import cuda_head
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params(rng, shapes):
     return [rng.randn(*s).astype(np.float32) * 0.3 for s in shapes]
 

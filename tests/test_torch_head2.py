@@ -38,6 +38,17 @@ from carle_tpu.ops.pallas_head import make_fused_head
 from carle_tpu_torch.ops import bitpack, cuda_head, cuda_stages
 from test_torch_emulated import emulated  # noqa: F401  (the fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 WIDTHS = {  # label: (c, o, pool, cell kinds, need_dx options, stage)
     "AE conv1": (1, 4, 2, ("u8", "u32", "f32"), (False,), 0),
     "RND conv1": (1, 4, 4, ("u8", "u32"), (False,), 0),

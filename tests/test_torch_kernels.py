@@ -23,6 +23,16 @@ from carle_tpu_torch.ops import (bitpack, cuda_bitpack, cuda_build, cuda_ca, cud
                                  cuda_stages)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -454,6 +464,7 @@ def _assert_leaves_close(got, want, tol=1e-4):
 @pytest.mark.parametrize("pools,c1,c2,shape", [
     ((4, 2), 4, 1, (8, 256, 256)),    # RND predictor
     ((2, 2), 4, 2, (8, 256, 256)),    # AE encoder
+    ((2, 2), 8, 1, (16, 256, 256)),   # the toggle policy (two Philox groups)
     ((2, 2), 5, 3, (3, 24, 40)),      # ragged bands, two Philox groups
     ((4, 4), 2, 2, (2, 80, 32)),
 ])

@@ -32,6 +32,17 @@ from carle_tpu.ops.pallas_head import make_fused_loss_tail
 from carle_tpu_torch.ops import bitpack, cuda_stages as cs
 from test_torch_emulated import _params, emulated  # noqa: F401  (the fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 STAGES = [(2, "relu", 2), (1, "sigmoid", 3), (2, "sigmoid", 3), (1, "relu", 2)]  # cin, act, stage
 PLAN = (4, 6)   # (RI, TJ): 3 bands of 4 input rows (the last 2), 3 tiles of 6 columns (the last 4)
 H100_SMS = 132

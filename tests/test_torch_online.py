@@ -21,6 +21,17 @@ from carle_tpu_torch.checkpoint import flatten
 from carle_tpu_torch.mcl import AE2D, RND2D, _online
 from carle_tpu_torch.mcl.ae import init_ae_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = {"conv1": {"w": (4, 1, 3, 3), "b": (4,)}, "dense": {"w": (16, 8), "b": (16,)}}
 
 

@@ -37,6 +37,17 @@ from carle_tpu_torch.parallel.mesh import make_mesh
 from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
 from carle_tpu_torch.rollout import Rollout
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CFG = EnvConfig(64, 64, 16, 16, 2)
 JCFG = JEnvConfig(height=64, width=64, action_height=16, action_width=16, instances=2)
 

@@ -28,6 +28,17 @@ from carle_tpu.ops.pallas_head import (make_fused_ae_loss, make_fused_decoder_lo
 from carle_tpu_torch import nets
 from carle_tpu_torch.ops import bitpack, cuda_head, cuda_stages
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, H, W = 3, 32, 64
 SEED0 = jnp.int32(0)
 

@@ -33,6 +33,17 @@ from carle_tpu_torch.checkpoint import learner_state_from_numpy, state_from_nump
 from carle_tpu_torch.parallel.packed_env import PackedSpatialStack
 from carle_tpu_torch.rollout import Rollout
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CFG = EnvConfig(64, 96, 16, 16, 3)
 JCFG = JEnvConfig(height=64, width=96, action_height=16, action_width=16, instances=3)
 KW = dict(train=True, dropout=False, batch_size=2)

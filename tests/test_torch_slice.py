@@ -36,6 +36,17 @@ from carle_tpu_torch.mcl import ae2d_def, puffer_def, rnd2d_def, speed_def
 from carle_tpu_torch.rollout import Rollout
 from carle_tpu_torch.serve import make_server
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "carle_tpu_torch", "evaluation")
 
@@ -196,8 +207,11 @@ def test_server_endpoints_on_cpu():
         want = jserve._rollout(dict(body))
         assert status == 200
         assert (roll["population"], roll["rle"]) == (want["population"], want["rle"])
-        status, bad = _post(conn, "/score", {"agent": "policy"})
-        assert status == 400 and "error" in bad
+        status, pol = _post(conn, "/score", {"agent": "policy", "steps": 2, "batched": False})
+        want, _ = teval.evaluate_fused(Agent=teval.load_shipped_policy(device="cpu"), steps=2,
+                                       verbose=False, device="cpu")
+        assert status == 200 and pol["agent"] == "policy"
+        assert pol["score"] == pytest.approx(want, rel=1e-12)
     finally:
         srv.shutdown()
         srv.server_close()

@@ -52,6 +52,17 @@ from carle_tpu_torch.parallel import (PackedSpatialStack, RowShards, gather_rows
 from carle_tpu_torch.parallel.mesh import Mesh
 from carle_tpu_torch.rollout import Rollout
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs the 8-device CPU mesh")
 
 OTHER = rules.pack_rule_bits([3, 6, 8], [2, 4, 5])

@@ -34,6 +34,17 @@ from carle_tpu_torch import nets
 from carle_tpu_torch.mcl.ae import ae_forward
 from carle_tpu_torch.ops import cuda_stages
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 N, H, W = 3, 32, 64
 SEED0 = jnp.int32(0)
 

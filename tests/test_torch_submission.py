@@ -506,8 +506,10 @@ def test_score_serves_the_network_agent_on_cpu(tmp_path):
         status, seq = _post(conn, "/score", body)
         want, _ = teval.evaluate_fused(Agent=donor, steps=2, verbose=False, device="cpu")
         assert status == 200 and seq["score"] == pytest.approx(want, rel=1e-12)
-        status, bad = _post(conn, "/score", {"agent": "policy"})
-        assert status == 400 and "item 4" in bad["error"]
+        status, pol = _post(conn, "/score", {"agent": "policy", "steps": 2, "batched": False})
+        want, _ = teval.evaluate_fused(Agent=teval.load_shipped_policy(device="cpu"), steps=2,
+                                       verbose=False, device="cpu")
+        assert status == 200 and pol["score"] == pytest.approx(want, rel=1e-12)
     finally:
         srv.shutdown()
         srv.server_close()

@@ -27,6 +27,17 @@ from carle_tpu.ops.pallas_head import make_fused_tail
 from carle_tpu_torch.ops import cuda_head as ch, cuda_stages as cs
 from test_torch_emulated import _params, _rel, emulated  # noqa: F401  (the fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 STAGES = [(2, "relu", 2), (1, "sigmoid", 3), (2, "sigmoid", 3), (1, "relu", 2)]  # cin, act, stage
 # (RI, TJ): several bands and tiles, the last ragged (w = 20 is no multiple of 6)
 PLAN = (3, 6)

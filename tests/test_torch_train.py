@@ -37,6 +37,16 @@ from carle_tpu_torch.mcl import AE2D, RND2D, ae2d_def, rnd2d_def
 from carle_tpu_torch.rollout import Rollout
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flat_numpy(tree):
     return {_path_str(p): np.array(v)
             for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}

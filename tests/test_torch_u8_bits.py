@@ -30,6 +30,17 @@ from carle_tpu_torch import rules
 from carle_tpu_torch.ops import cuda_ca
 from test_torch_emulated import RULESETS, emulated  # noqa: F401  (the fixture)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B0 = rules.pack_rule_bits([0, 3], [2, 3])   # births on an empty neighbourhood
 SHAPES = [(3, 32, 64), (2, 1, 32), (3, 2, 256), (5, 8, 256), (70, 16, 32)]
 

@@ -38,6 +38,17 @@ from carle_tpu_torch.mcl.base import WrapperDef, default_on_reset
 from carle_tpu_torch.mcl.prediction import FrameBuffer, _push
 from carle_tpu_torch.rollout import Rollout
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the tier-1 run's workers share the cores, and
+    torch's default of a thread a core in every worker oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NINE = ["RND2D", "AE2D", "PredictionBonus", "SurpriseBonus", "MorphoBonus",
         "CornerBonus", "ParsimonyBonus", "SpeedDetector", "PufferDetector"]
 
