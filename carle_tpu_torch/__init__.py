@@ -2,7 +2,8 @@
 
 A batched Life-like cellular-automaton environment with toggle actions,
 reward wrappers whose nets learn inside the step, agents, the rollout loop,
-the wrapper trainer and the Carle's Game scoring battery, written in PyTorch.  The hot loops are CUDA kernels written by hand
+the wrapper trainer, the Carle's Game scoring battery, and pattern I/O,
+episode artifacts and analysis, written in PyTorch.  The hot loops are CUDA kernels written by hand
 for Hopper (``csrc/``), each beside a plain PyTorch twin of the same
 function: a CUDA tensor goes to the kernel, a CPU tensor to the twin.  Entry
 points run on the card unless the caller passes ``device="cpu"``.

@@ -13,18 +13,21 @@ Behavioural contract, as the JAX package:
 * the base env emits zero reward and never sets done.
 
 :class:`CARLE` is the stateful shell with the reference's class API over the
-functional core; its file I/O (RLE, CSV log, PNG frames, ``render``) is not
-ported yet.
+functional core, with its pattern and episode I/O: RLE files, the CSV
+episode log (``logging=True``), PNG frames and the ASCII ``render``.  A
+universe on the card is read to the host with one copy a call.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import rle as rle_codec
 from . import rules as rules_mod
 from .config import EnvConfig
 from .device import DeviceLike, resolve_device
@@ -118,8 +121,10 @@ class CARLE:
     """Gym-like shell over the functional core (reference carle/env.py).
 
     Accepts the reference's keyword arguments (width, height, action_width,
-    action_height, instances; use_cuda, use_grad, alive_rate and logging are
+    action_height, instances, logging; use_cuda, use_grad and alive_rate are
     accepted and unused) plus ``device`` (the card unless ``"cpu"``).
+    With ``logging`` each step appends instance 0's action and universe (the
+    universe before the step) to ``log`` as RLE text; ``save_log`` writes it.
     ``birth`` / ``survive`` are properties that repack the rule mask in the
     state.  Actions are taken as the reference's scripts give them (numpy,
     torch, lists) and coerced on the host, so each ``step`` is a host round
@@ -149,6 +154,7 @@ class CARLE:
         self.instance_id = str(int(time.time()))
         self.step_number = 0
         self.steps_since_action = 0
+        self.log: List[List[str]] = []
         self.action: Optional[np.ndarray] = None
 
     # --- geometry passthroughs (reference attribute names) ----------------
@@ -233,6 +239,7 @@ class CARLE:
         self.instance_id = str(int(time.time()))
         self.step_number = 0
         self.steps_since_action = 0
+        self.log = []
 
     def reset(self) -> torch.Tensor:
         self.state = reset_state(self.state)
@@ -275,6 +282,9 @@ class CARLE:
         patch = self._coerce_action(raw)  # raw VALUES, centre-cropped
         self.action = (patch != 0).astype(np.uint8)
 
+        if self.logging:
+            self.log_universe()
+
         # The master reset fires iff the mean of the UNCROPPED action VALUES
         # is exactly 1.0: an all-ones window inside a full-frame action only
         # toggles, and 2.0-valued toggles never reset.  env_step sees the
@@ -312,6 +322,103 @@ class CARLE:
         self.steps_since_action += num_steps
         return self.universe
 
+    def render(self) -> None:
+        """ASCII render of instance 0 (reference env.py:244-258)."""
+        os.system("clear")
+        print("\n CA Universe")
+        for row in self.state.grid[0].cpu().numpy():
+            print("".join("o" if c else " " for c in row))
+        time.sleep(0.125)
+
+    # --- pattern / episode I/O (reference env.py:260-513) -------------------
+    def get_rle(self, universe: Any, action: bool = False) -> str:
+        """A universe or action patch ([H, W] or with leading unit axes;
+        numpy or a tensor on any device) as the reference's RLE text."""
+        grid = universe.cpu().numpy() if torch.is_tensor(universe) else np.asarray(universe)
+        grid = grid.reshape(grid.shape[-2], grid.shape[-1])
+        return rle_codec.encode_grid(grid, self._birth, self._survive,
+                                     exp_id=self.instance_id, step=self.step_number,
+                                     action=action, torus=(self.height, self.width))
+
+    def read_rle(self, filepath: str) -> str:
+        """Read an RLE file, adopt its ruleset, return the body text (the
+        reference's ``rle_to_grid(env.read_rle(path))`` chain); the decoded
+        pattern is kept on ``self._last_pattern``."""
+        pattern = rle_codec.read_rle(filepath)
+        self.birth = pattern.birth
+        self.survive = pattern.survive
+        self._last_pattern = pattern
+        return pattern.body
+
+    def rle_to_grid(self, rle_text: Any) -> np.ndarray:
+        """Decode an RLE body or file text (or an :class:`~carle_tpu_torch.rle.RLEPattern`)
+        to a uint8 grid (reference env.py:260-328; MorphoBonus reads patterns
+        through it)."""
+        if isinstance(rle_text, rle_codec.RLEPattern):
+            return rle_text.grid
+        return rle_codec.parse_rle_text(rle_text).grid
+
+    def action_padding(self, action: Any) -> np.ndarray:
+        """Zero-pad an action patch into the centred window of a full-size
+        grid (the reference's nn.ZeroPad2d attribute, env.py:130)."""
+        arr = action.cpu().numpy() if torch.is_tensor(action) else np.asarray(action)
+        lead = arr.shape[:-2]
+        arr2 = arr.reshape((-1,) + arr.shape[-2:])
+        padded = np.zeros((arr2.shape[0], self.height, self.width), dtype=arr.dtype)
+        r0, c0 = self.config.action_row_offset, self.config.action_col_offset
+        padded[:, r0:r0 + arr2.shape[1], c0:c0 + arr2.shape[2]] = arr2
+        return padded.reshape(lead + (self.height, self.width))
+
+    def read_csv(self, filepath: str) -> List[List[str]]:
+        """An episode log read back as (action_rle, universe_rle) pairs (the
+        reference's read_csv is a stub, env.py:384-388)."""
+        return [list(p) for p in rle_codec.read_log(filepath)]
+
+    def load_universe(self, filepath: str, universe_index: int = 0) -> None:
+        """Load an RLE file of the universe's size into one instance and adopt
+        its ruleset."""
+        self.read_rle(filepath)
+        g = self._last_pattern.grid
+        if g.shape != (self.height, self.width):
+            raise ValueError(f"tried to load the wrong size universe: {g.shape} vs "
+                             f"{(self.height, self.width)}")
+        grid = self.state.grid.clone()
+        grid[universe_index] = torch.from_numpy(g).to(grid.device)
+        self.state = self.state._replace(grid=grid)
+
+    def log_universe(self, universe_index: int = 0) -> None:
+        """Append (action, universe) of one instance to ``log`` as RLE text."""
+        rle_universe = self.get_rle(self.state.grid[universe_index])
+        act = self.action if self.action is not None else np.zeros(
+            (self.instances, self.action_height, self.action_width), dtype=np.uint8)
+        rle_action = self.get_rle(act[universe_index], action=True)
+        self.log.append([rle_action, rle_universe])
+
+    def save_log(self, directory: str = "./logs") -> str:
+        """Write ``log`` as the reference's CSV episode log; returns its path."""
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"carle_log{self.instance_id}.csv")
+        rle_codec.write_log(path, self.log)
+        return path
+
+    def save_rle(self, rle: str, directory: str = "./logs") -> str:
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory,
+                            f"universe{self.instance_id}_step{self.step_number}.rle")
+        with open(path, "w") as f:
+            f.write(rle)
+        return path
+
+    def save_frame(self, directory: str = "./frames") -> str:
+        """Instance 0 as a grayscale PNG; returns its path."""
+        from .utils.png import write_png
+
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory,
+                            f"frame{self.instance_id}_step{self.step_number}.png")
+        write_png(path, 255 * self.state.grid[0].cpu().numpy())
+        return path
+
     # --- torch-compat shims ---------------------------------------------------
     def eval(self) -> "CARLE":
         return self
@@ -321,3 +428,61 @@ class CARLE:
 
     def to(self, *a: Any, **k: Any) -> "CARLE":
         return self
+
+
+def _main(argv: Optional[List[str]] = None) -> None:
+    """Demo and throughput sweep (reference env.py:517-573): a glider,
+    the RLE, log and frame files and an RLE round trip, then
+    'CA updates per second with {N}x vectorization' for 1, 64 and 1024
+    instances (each step a host round trip, as the shell runs).
+
+        python -m carle_tpu_torch.env [--device cpu] [--logs DIR] [--frames DIR]
+    """
+    import argparse
+
+    parser = argparse.ArgumentParser(description=_main.__doc__.splitlines()[0])
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--logs", default="./logs")
+    parser.add_argument("--frames", default="./frames")
+    parser.add_argument("--instances", type=int, nargs="*", default=[1, 64, 1024])
+    args = parser.parse_args(argv)
+    env = CARLE(logging=True, device=args.device)
+    env.reset()
+    action = np.zeros((1, 1, 64, 64), dtype=np.float32)
+    action[0, 0, 14, 16] = 1.0
+    action[0, 0, 15, 16:18] = 1.0
+    action[0, 0, 16, 15:18:2] = 1.0
+    env.step(action)
+    for _ in range(2):
+        env.step(action * 0)
+
+    rle_path = env.save_rle(env.get_rle(env.state.grid[0]), args.logs)
+    env.save_frame(args.frames)
+    env.save_log(args.logs)
+
+    env2 = CARLE(device=args.device)
+    env2.reset()
+    env2.load_universe(rle_path)
+    if int(env2.state.grid.sum()) != 5:
+        raise AssertionError("the glider did not survive the RLE round trip")
+
+    for instances in args.instances:
+        env = CARLE(instances=instances, device=args.device)
+        env.reset()
+        zeros = np.zeros((instances, 1, 64, 64), dtype=np.float32)
+        env.step(zeros)  # warm-up: the kernel's first launch builds it
+        steps = 256
+        if env.device.type == "cuda":
+            torch.cuda.synchronize(env.device)
+        t0 = time.time()
+        for _ in range(steps):
+            env.step(zeros)
+        if env.device.type == "cuda":
+            torch.cuda.synchronize(env.device)
+        dt = time.time() - t0
+        print("{:.2f} CA updates per second with {}x vectorization".format(
+            steps / dt, instances))
+
+
+if __name__ == "__main__":
+    _main()

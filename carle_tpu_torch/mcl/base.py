@@ -132,9 +132,15 @@ class WrapperStack:
 
         return gather_rows(grid)
 
-    def universe(self, state: StackState) -> torch.Tensor:
-        """uint8 [inst, H, W] universe of a stack state."""
-        return self._whole(state.env.grid)
+    def universe(self, state: StackState, instance: Optional[int] = None) -> torch.Tensor:
+        """uint8 [inst, H, W] universe of a stack state (or one instance's
+        [H, W]; of row shards only that instance is gathered)."""
+        g = state.env.grid
+        if instance is None:
+            return self._whole(g)
+        if isinstance(g, torch.Tensor):
+            return g[instance]
+        return self._whole(g.map(lambda p: p[instance:instance + 1]))[0]
 
     def observe(self, state: StackState) -> torch.Tensor:
         """float32 [inst, 1, H, W] observation (the agent's input)."""

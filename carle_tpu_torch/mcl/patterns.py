@@ -18,7 +18,8 @@ PATTERN_DIR = os.path.join(os.path.dirname(__file__), "..", "patterns")
 
 
 def pattern_path(name: str) -> str:
-    """Absolute path of a shipped .rle asset (glider_1, glider_2, lwss)."""
+    """Absolute path of a shipped .rle asset (glider_1, glider_2, lwss,
+    gosper_gun, spaceship_duck, spaceship_step)."""
     return os.path.abspath(os.path.join(PATTERN_DIR, name + ".rle"))
 
 

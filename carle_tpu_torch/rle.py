@@ -1,13 +1,16 @@
 """Run-length-encoded (Golly-compatible) pattern codec — host side.
 
-Counterpart of carle_tpu/rle.py: the numpy codec only (the native C codec
-of carle_tpu/native is not carried over).  It replaces the reference's
-per-cell Python loops (env.py:260-464).  The wire format is byte-compatible with what the
-reference writes, with one deliberate fix: the reference drops up to 69
-trailing characters of the encoding because the final partial line is never
-flushed before the '!' terminator (env.py:455-462); we always flush, which is
-also what Golly expects.  Files written by the reference still decode
-correctly here because the decoder operates on a zero-initialized grid.
+Counterpart of carle_tpu/rle.py.  The bodies are encoded and decoded by the
+native C codec (native/rle_codec.cpp, built at first use) while
+``native.NATIVE`` is on, and by the numpy codec here (``_encode_body_py``,
+``_decode_body_py``, the twins that write the same bytes) when it is off.
+Both replace the reference's per-cell Python loops (env.py:260-464).  The
+wire format is byte-compatible with what the reference writes, with one
+deliberate fix: the reference drops up to 69 trailing characters of the
+encoding because the final partial line is never flushed before the '!'
+terminator (env.py:455-462); we always flush, which is also what Golly
+expects.  Files written by the reference still decode correctly here because
+the decoder operates on a zero-initialized grid.
 
 The decoder is also robust where the reference's header parser is not: the
 reference crashes on its own ':T{h}, {w}' torus tag because its colon check
@@ -22,6 +25,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import native
 from .rules import parse_digits
 
 
@@ -49,8 +53,16 @@ def decode_body(body: str, height: int, width: int) -> np.ndarray:
     Semantics match env.py:260-328: 'b' = run of dead cells, 'o' = run of live
     cells, '$' = advance N rows (intervening rows stay dead), '!' terminates,
     newlines are ignored, runs without an explicit count default to 1.
-    Content outside the grid bounds is clipped rather than raising.
+    Content outside the grid bounds is clipped rather than raising.  The
+    native codec while ``native.NATIVE`` is on, else :func:`_decode_body_py`.
     """
+    if native.NATIVE:
+        return native.decode_body(body, height, width)
+    return _decode_body_py(body, height, width)
+
+
+def _decode_body_py(body: str, height: int, width: int) -> np.ndarray:
+    """The numpy twin of the native decoder."""
     grid = np.zeros((height, width), dtype=np.uint8)
     row, col = 0, 0
     count_chars: List[str] = []
@@ -104,7 +116,14 @@ def encode_grid(
     header += "".join(str(b) for b in sorted(set(birth)))
     header += "/S" + "".join(str(s) for s in sorted(set(survive)))
     header += ":T{}, {}\n".format(torus[0], torus[1])
+    if native.NATIVE:
+        return header + native.encode_body(grid, wrap=wrap)
+    return header + _encode_body_py(grid, wrap)
 
+
+def _encode_body_py(grid: np.ndarray, wrap: int = 69) -> str:
+    """The numpy twin of the native encoder: a 2-D grid's RLE body."""
+    w = grid.shape[1]
     cells = grid.astype(np.uint8) != 0
     state_char = ("b", "o")
 
@@ -126,7 +145,7 @@ def encode_grid(
             pending = ""
     if pending:  # reference drops this tail (env.py:455-462); we flush it
         lines.append(pending)
-    return header + "\n".join(lines) + ("\n" if lines else "") + "!"
+    return "\n".join(lines) + ("\n" if lines else "") + "!"
 
 
 def parse_rle_text(text: str) -> RLEPattern:
@@ -254,6 +273,18 @@ def read_log(path: str) -> List[Tuple[str, str]]:
             if len(row) >= 2 and row[0]:
                 pairs.append((row[0], row[1]))
     return pairs
+
+
+def write_log(path: str, entries: List[List[str]]) -> None:
+    """Write (action_rle, universe_rle) entries as the reference's CSV
+    episode log: each RLE blob quoted, a trailing comma, a line an entry
+    (``CARLE.save_log``, ``Rollout.run_logged``)."""
+    with open(path, "w") as f:
+        f.write("action,universe,\n")
+        for entry in entries:
+            for item in entry:
+                f.write('"' + item + '"' + ",")
+            f.write("\n")
 
 
 def write_rle(path: str, rle_text: str) -> None:

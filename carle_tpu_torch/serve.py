@@ -1,11 +1,13 @@
 """Serving daemon: score agents and evolve patterns on demand (counterpart of
-carle_tpu/serve.py:74-219, 331-420).
+carle_tpu/serve.py).
 
 A dependency-free HTTP daemon (stdlib ``http.server``), one request at a
-time, in front of the scoring battery and the packed multi-step engine.
+time, in front of the scoring battery, the packed multi-step engine and the
+pattern analytics.
 
 Endpoints (JSON in/out):
 
+  GET  /           a browser demo page that drives /gif and /classify
   GET  /health     liveness + device + request counters
   POST /score      {"agent": "random"|"network"|"policy", "params_path": str,
                     "steps": int, "seed": int, "seeds": [int, ...],
@@ -18,18 +20,29 @@ Endpoints (JSON in/out):
                    -> {"rule", "generations", "population", "rle",
                        "latency_s"}; the generations run through the
                        ``bit_multi_step`` kernel on the card
+  POST /gif        the /rollout inputs plus "every" (frame stride, default
+                   4), "fps", "scale"
+                   -> {"rule", "generations", "frames", "population",
+                       "gif_base64" (GIF89a), "latency_s"}; a frame every
+                       ``every`` generations of the packed engine
+  POST /classify   the /rollout pattern inputs plus "max_period" (default 64)
+                   -> {"kind", "period", "displacement", "population",
+                       "speed", "latency_s"}; with "census": true
+                       {"objects", "counts", "latency_s"} instead
+                       (analysis.py: the ``ca_step`` kernel on the card)
 
 ``"network"`` scores the frozen random CNN (``RandomNetworkAgent``), its
 weights from ``params_path`` (``.pt`` or ``.npz``) when given; ``"policy"``
 the shipped trained PPO policy (``evaluation.eval.load_shipped_policy``), or
 the native ``.npz`` params at ``params_path``, loaded once a path and device.
-``/gif`` and ``/classify`` are not ported yet.
+A soup (no ``"rle"``) is drawn from a torch generator seeded by ``"seed"``.
 
 Run:  python -m carle_tpu_torch.serve --port 8787 [--device cpu]
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
@@ -40,12 +53,14 @@ import torch
 
 from . import rules as rules_mod
 from .agents import RandomNetworkAgent
+from .analysis import census, classify_pattern
 from .device import DeviceLike, resolve_device
 from .evaluation.eval import (DEFAULT_RULES, evaluate_fused, evaluate_fused_batched,
                               load_shipped_policy)
 from .ops.bitpack import pack_grid, unpack_grid
 from .ops.cuda_bitpack import bit_multi_step
 from .rle import encode_grid, parse_rle_text
+from .utils.gif import encode_gif
 
 
 # The policy's (Agent, params) pair a params_path and device, so repeated
@@ -149,6 +164,90 @@ def _rollout(body: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     }
 
 
+def _gif(body: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """The evolution of a soup or an RLE as an animated GIF: a frame every
+    ``every`` generations of the packed engine (the remainder run last, so
+    /gif ends where /rollout would), the frames collected on the device and
+    copied to the host once."""
+    steps = int(body.get("steps", 256))
+    every = max(1, int(body.get("every", 4)))
+    grid, bits, _, _ = _initial_grid(body, device)
+    t0 = time.perf_counter()
+    w = grid.shape[2]
+    packed = pack_grid(grid)
+    frames = [grid[0]]
+    for k in [every] * (steps // every) + ([steps % every] if steps % every else []):
+        packed = bit_multi_step(packed, bits, k)
+        frames.append(unpack_grid(packed, w)[0])
+    host = torch.stack(frames).cpu().numpy()
+    data = encode_gif(host, fps=float(body.get("fps", 20.0)),
+                      scale=int(body.get("scale", 1)))
+    return {
+        "rule": rules_mod.rulestring(*rules_mod.unpack_rule_bits(int(bits))),
+        "generations": steps,
+        "frames": len(frames),
+        "population": int(host[-1].sum()),
+        "gif_base64": base64.b64encode(data).decode("ascii"),
+        "latency_s": round(time.perf_counter() - t0, 4),
+    }
+
+
+def _classify(body: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """Exact (period, displacement) classification of a pattern (the
+    /rollout pattern inputs; ``max_period``, default 64), or with
+    ``census`` the per-object census."""
+    grid, bits, _, _ = _initial_grid(body, device)
+    max_period = int(body.get("max_period", 64))
+    t0 = time.perf_counter()
+    if body.get("census"):
+        rep = census(grid[0], bits, max_period=max_period, device=device)
+        rep["latency_s"] = round(time.perf_counter() - t0, 4)
+        return rep
+    c = classify_pattern(grid[0], bits, max_period=max_period, device=device)
+    return {
+        "kind": c.kind,
+        "period": c.period,
+        "displacement": list(c.displacement),
+        "population": c.population,
+        "speed": c.speed,
+        "latency_s": round(time.perf_counter() - t0, 4),
+    }
+
+
+# A browser demo served at GET /: drives the JSON endpoints from a form —
+# evolve a soup (or pasted RLE) to an animation, census the ash.
+_DEMO_PAGE = """<!doctype html><html><head><meta charset="utf-8">
+<title>carle_tpu_torch</title><style>
+body{font-family:monospace;background:#0a0a0e;color:#48dc82;margin:2em}
+input,textarea,button{background:#14141c;color:#48dc82;border:1px solid #2a4;
+padding:4px;font-family:monospace}img{image-rendering:pixelated;border:1px
+solid #2a4;margin-top:1em}pre{color:#9ad}</style></head><body>
+<h2>carle_tpu_torch</h2>
+<form onsubmit="go(event)">
+rule <input id=rule value="B3/S23" size=10>
+size <input id=size value=128 size=4>
+steps <input id=steps value=256 size=5>
+density <input id=density value=0.3 size=4>
+seed <input id=seed value=0 size=4>
+<button>evolve</button></form>
+<p>or paste RLE:</p><textarea id=rle rows=4 cols=60></textarea>
+<div id=out></div>
+<script>
+async function go(e){e.preventDefault();
+const body={rule:rule.value,size:+size.value,steps:+steps.value,
+density:+density.value,seed:+seed.value,every:4,scale:2};
+if(rle.value.trim())body.rle=rle.value;
+out.innerHTML="evolving...";
+const g=await(await fetch("/gif",{method:"POST",
+body:JSON.stringify(body)})).json();
+const c=await(await fetch("/classify",{method:"POST",
+body:JSON.stringify({...body,census:true})})).json();
+out.innerHTML='<img src="data:image/gif;base64,'+g.gif_base64+'">'+
+'<pre>population '+g.population+' after '+g.generations+
+' generations\\ncensus: '+JSON.stringify(c.counts)+'</pre>';}
+</script></body></html>"""
+
+
 class _Handler(BaseHTTPRequestHandler):
     server_version = "carle_tpu_torch_serve/1.0"
 
@@ -165,6 +264,14 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(data)
 
     def do_GET(self):
+        if self.path in ("/", "/index.html"):
+            data = _DEMO_PAGE.encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+            return
         if self.path != "/health":
             return self._reply(404, {"error": "unknown path"})
         srv = self.server
@@ -180,7 +287,8 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
     def do_POST(self):
-        routes = {"/score": _score, "/rollout": _rollout}
+        routes = {"/score": _score, "/rollout": _rollout, "/gif": _gif,
+                  "/classify": _classify}
         handler = routes.get(self.path)
         if handler is None:
             return self._reply(404, {"error": "unknown path"})

@@ -137,6 +137,27 @@ Phases, in order; any failure exits non-zero without the final line:
 4. server  the port's HTTP server on 127.0.0.1 in a thread: /health, /score
            (64 steps; the random, the network and the policy agent) and
            /rollout (256 x 256, 256 generations);
+   io      pattern I/O, episode artifacts and analysis: the native RLE codec
+           (160 universes of 256² ash, bodies and decode_body) and LZW (a
+           256-frame 256² episode) byte for byte against their numpy / Python
+           twins, each timed on the host; then, counted from zero, env._main
+           (the glider sequence and the sweep at 1 and 64 instances), a logged
+           256² CARLE shell (the glider sequence, 256 replayed steps with a
+           master reset; ms a logged step beside an unlogged one),
+           Rollout.run_logged on train-64's stack (64 universes, RND2D + AE2D
+           learning, dropout on, 1024 steps, a snapshot every 256) against
+           run from the same carry (rewards rtol 1e-5), run_gif (instance 0,
+           256 steps, every 2, actions marked), /gif (256², 256 generations,
+           every 4), /rollout's ash through /classify's census and GET / on
+           the server, population_curve (160 x 256² x 1024 generations, its
+           last counts = the packed engine's), classify_pattern (glider, LWSS,
+           Gosper gun), scripts/soup_search_torch.py at its defaults but
+           16 soups (256² x 1024 generations, --max-period 16; cut from 64
+           to keep the phase under 60 s) and
+           carle_tpu_torch.demos at its __main__ sizes; then, card against
+           CPU, the logged shell's CSV, RLE and PNG files byte for byte,
+           episode_report on its log, census on a 64² ash and the
+           classifications, equal;
    policy  the policies at the eval geometry (256² universes, 64² actions,
            DEFAULT_WRAPPERS frozen with the shipped .npz): PPO on 16
            universes with the fused encoder at the policy's widths (8, 1, 2,
@@ -201,7 +222,7 @@ Phases, in order; any failure exits non-zero without the final line:
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
 11. report a {"kernels": [...]} line with each kernel's launches on the main
-           paths (battery, submission, server, policy, train, routes, wrappers, packed,
+           paths (battery, submission, server, io, policy, train, routes, wrappers, packed,
            bands, engines and spatial, each counted from zero just before it; the rows of the
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
@@ -426,6 +447,10 @@ PATH_KERNELS = {
     # the policies: the env step, the frozen RND and AE2D bonuses, and the
     # policy's fused encoder forward and backward at its widths (8, 1, 2, 2)
     "policy": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd"),
+    # pattern I/O, episode artifacts and analysis: the shells' and rollouts'
+    # env steps and analysis' generations (ca_step_words), /gif's frames and
+    # the soup search's engine (bit_multi_step_words)
+    "io": ("ca_step_words", "bit_multi_step_words"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
 # launch: every encoder and decoder of the package has one of the
@@ -4292,6 +4317,374 @@ def phase_server(torch, cuda_build):
                     "rollout_latency_s": roll["latency_s"]}
 
 
+IO_UNIVERSES = 160      # the RLE comparison's and population_curve's universes of 256²
+IO_FRAMES = 256         # the LZW comparison's episode: frames of one 256² universe
+IO_SHELL_STEPS = 256    # logged shell steps after the glider sequence
+IO_RESET_AT = 100       # the master reset in the shell's replayed stream
+IO_LOGGED_STEPS = 1024  # run_logged on train-64's stack
+# scripts/soup_search_torch.py's default is 64 soups; cut to 16, the first
+# cut when the phase passed 60 s (67.7 s on a slow host, 12.5 s of it the
+# 64-soup search)
+IO_SOUPS = 16
+
+
+def _gif_frames(data: bytes) -> int:
+    """The image blocks of a GIF89a file, read by its block structure."""
+    check(data[:6] == b"GIF89a", "not a GIF89a file")
+    flags = data[10]
+    pos = 13 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+    frames = 0
+
+    def skip_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            pos = skip_blocks(pos + 2)
+        elif data[pos] == 0x2C:
+            frames += 1
+            pos = skip_blocks(pos + 11)
+        else:
+            raise AssertionError(f"unknown GIF block 0x{data[pos]:02x} at {pos}")
+    return frames
+
+
+def _same_files(paths_a, paths_b, what):
+    for a, b in zip(paths_a, paths_b):
+        check(os.path.basename(a) == os.path.basename(b), f"{what}: {a} vs {b}")
+        with open(a, "rb") as f, open(b, "rb") as g:
+            check(f.read() == g.read(), f"{what}: {os.path.basename(a)} differs")
+
+
+def _logged_shell(torch, device, directory, acts, logging=True):
+    """env._main's glider sequence, then the replayed stream ``acts``, on a
+    256² CARLE shell; returns (the RLE, PNG and CSV files, ms a stream step)."""
+    import numpy as np
+
+    from carle_tpu_torch import CARLE
+
+    env = CARLE(logging=logging, device=device)
+    env.reset()
+    glider = np.zeros((1, 1, 64, 64), dtype=np.float32)
+    glider[0, 0, 14, 16] = 1.0
+    glider[0, 0, 15, 16:18] = 1.0
+    glider[0, 0, 16, 15:18:2] = 1.0
+    env.step(glider)
+    for _ in range(2):
+        env.step(glider * 0)
+    first, then = os.path.join(directory, "glider"), os.path.join(directory, "stream")
+    paths = [env.save_rle(env.get_rle(env.state.grid[0]), first), env.save_frame(first),
+             env.save_log(first)]
+    sync = torch.cuda.synchronize if env.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for a in acts:
+        env.step(a)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3 / len(acts)
+    paths += [env.save_rle(env.get_rle(env.state.grid[0]), then), env.save_frame(then),
+              env.save_log(then)]
+    return paths, ms
+
+
+def _clone_carry(torch, carry):
+    """A copy of a rollout carry that shares no tensor and no generator state."""
+    gen = torch.Generator(device=carry.generator.device)
+    gen.set_state(carry.generator.get_state())
+    copy = lambda t: t.clone() if torch.is_tensor(t) else t
+    return carry._replace(stack=_map_state(carry.stack, copy),
+                          agent_params=_map_state(carry.agent_params, copy), generator=gen)
+
+
+def phase_io(torch, cuda_build):
+    """Pattern I/O, episode artifacts and analysis (ROADMAP Queue 1 item 5):
+    the native codecs against their numpy twins (host time), then the io
+    path through its entry points with the launch counts from zero: the
+    logged shell (env._main; card = CPU byte for byte), run_logged on
+    train-64's stack (rewards = run's), run_gif, /gif and /classify through
+    the server, population_curve, classify_pattern, the soup search and the
+    demos; then episode_report and census, card = CPU."""
+    import contextlib
+    import io as io_mod
+    import types
+
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, analysis, demos, native, rle, rules, serve
+    from carle_tpu_torch import env as env_mod
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+    from carle_tpu_torch.mcl.patterns import pattern_path
+    from carle_tpu_torch.ops import bitpack
+    from carle_tpu_torch.ops.cuda_bitpack import bit_multi_step
+    from carle_tpu_torch.rollout import Rollout
+    from carle_tpu_torch.utils import gif
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    try:
+        import soup_search_torch
+    finally:
+        sys.path.pop(0)
+
+    out, seconds = {}, {}
+    t_phase = time.perf_counter()
+    life = rules.LIFE
+
+    def soups(n, size, seed, density=0.3):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return (torch.rand((n, size, size), generator=gen, device="cuda")
+                < density).to(torch.uint8)
+
+    def timed_s(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        value = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return value
+
+    # -- the native codecs against their twins (host work) -----------------
+    t0 = time.perf_counter()
+    ash = bitpack.unpack_grid(bit_multi_step(bitpack.pack_grid(soups(IO_UNIVERSES, 256, 11)),
+                                             life, 256), 256).cpu().numpy()
+
+    def encode_all(on):
+        native.NATIVE = on
+        try:
+            t = time.perf_counter()
+            bodies = [rle.encode_grid(g, [3], [2, 3]) for g in ash]
+            return bodies, (time.perf_counter() - t) * 1e3 / len(ash)
+        finally:
+            native.NATIVE = True
+
+    def decode_all(on, bodies):
+        native.NATIVE = on
+        try:
+            t = time.perf_counter()
+            grids = [rle.decode_body(b.split("\n", 3)[3], 256, 256) for b in bodies]
+            return grids, (time.perf_counter() - t) * 1e3 / len(bodies)
+        finally:
+            native.NATIVE = True
+
+    bodies, enc_ms = encode_all(True)
+    twin_bodies, enc_twin_ms = encode_all(False)
+    check(bodies == twin_bodies, "native RLE bodies differ from the numpy twin's")
+    grids, dec_ms = decode_all(True, bodies)
+    twin_grids, dec_twin_ms = decode_all(False, bodies)
+    check(all(np.array_equal(a, g) and np.array_equal(b, g)
+              for a, b, g in zip(grids, twin_grids, ash)),
+          "decode_body does not give back the encoded universes")
+    packed = bitpack.pack_grid(soups(1, 256, 12))
+    episode = torch.empty((IO_FRAMES, 256, 256), dtype=torch.uint8, device="cuda")
+    for t in range(IO_FRAMES):
+        episode[t].copy_(bitpack.unpack_grid(packed, 256)[0])
+        packed = bit_multi_step(packed, life, 1)
+    episode = episode.cpu().numpy()
+    t1 = time.perf_counter()
+    gif_native = gif.encode_gif(episode)
+    lzw_ms = (time.perf_counter() - t1) * 1e3
+    native.NATIVE = False
+    try:
+        t1 = time.perf_counter()
+        gif_twin = gif.encode_gif(episode)
+        lzw_twin_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        native.NATIVE = True
+    check(gif_native == gif_twin, "the native LZW stream differs from _lzw_encode_py's")
+    check(_gif_frames(gif_native) == IO_FRAMES, "the episode GIF's frames")
+    out["codecs"] = {
+        "rle_universes": IO_UNIVERSES, "ash_density": float(ash.mean()),
+        "rle_body_bytes_mean": sum(len(b) for b in bodies) / len(bodies),
+        "rle_encode_ms_per_universe": enc_ms, "rle_encode_twin_ms_per_universe": enc_twin_ms,
+        "rle_decode_ms_per_universe": dec_ms, "rle_decode_twin_ms_per_universe": dec_twin_ms,
+        "lzw_frames": IO_FRAMES, "gif_bytes": len(gif_native),
+        "gif_encode_ms": lzw_ms, "gif_encode_twin_ms": lzw_twin_ms,
+    }
+    seconds["codecs"] = time.perf_counter() - t0
+
+    # -- the io path through its entry points -------------------------------
+    stream = (np.random.RandomState(20).rand(IO_SHELL_STEPS, 1, 1, 64, 64) < 0.02
+              ).astype(np.float32)
+    stream[IO_RESET_AT] = 1.0   # the master reset
+    cfg = EnvConfig(instances=64)
+    defs = [rnd2d_def(cfg), ae2d_def(cfg)]   # both learning, dropout on
+    ro = Rollout(cfg, defs, make_random_agent(64, 64, 0.1), device="cuda")
+    carry0, _ = ro.reset(ro.init(ro.generator(0), life))
+    carry_run = _clone_carry(torch, carry0)
+    torch.cuda.synchronize()
+    pinned = types.SimpleNamespace(time=lambda: 1_700_000_000.0, sleep=time.sleep)
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_build.reset_launch_counts()
+        t_path = time.perf_counter()
+        with contextlib.redirect_stdout(io_mod.StringIO()) as sweep:
+            timed_s("env_main", env_mod._main, ["--logs", os.path.join(tmp, "main"),
+                                                "--frames", os.path.join(tmp, "main"),
+                                                "--instances", "1", "64"])
+        out["env_main"] = sweep.getvalue().strip().splitlines()
+        check(len(out["env_main"]) == 2, f"env._main printed {out['env_main']}")
+        real_time = env_mod.time
+        env_mod.time = pinned   # both shells name their files alike
+        try:
+            card_files, logged_ms = timed_s("logged_shell", _logged_shell, torch, "cuda",
+                                            os.path.join(tmp, "cuda"), stream)
+            _, unlogged_ms = _logged_shell(torch, "cuda", os.path.join(tmp, "plain"), stream,
+                                           logging=False)
+        finally:
+            env_mod.time = real_time
+        out["shell"] = {"steps": IO_SHELL_STEPS, "logged_ms_per_step": logged_ms,
+                        "unlogged_ms_per_step": unlogged_ms}
+
+        # run_logged on train-64's stack against run from the same carry
+        # (after 16 steps of a copy, so neither pays the first steps' setup)
+        ro.run(_clone_carry(torch, carry0), 16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry_run, r_run = ro.run(carry_run, IO_LOGGED_STEPS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        carry, r_logged, log_path = ro.run_logged(carry0, IO_LOGGED_STEPS, snapshot_every=256,
+                                                  directory=os.path.join(tmp, "run_logged"))
+        torch.cuda.synchronize()
+        logged_s = time.perf_counter() - t0
+        seconds["run_logged"] = run_s + logged_s
+        torch.testing.assert_close(r_logged, r_run, rtol=1e-5, atol=0)
+        entries = rle.read_log(log_path)
+        check(len(entries) == -(-IO_LOGGED_STEPS // 256),
+              f"run_logged wrote {len(entries)} entries")
+        t0 = time.perf_counter()
+        carry, r_gif, gif_path = ro.run_gif(carry, 256, path=os.path.join(tmp, "episode.gif"),
+                                            every=2, instance=0)
+        torch.cuda.synchronize()
+        seconds["run_gif"] = time.perf_counter() - t0
+        with open(gif_path, "rb") as f:
+            gif_frames = _gif_frames(f.read())
+        check(gif_frames == 128 and bool(torch.isfinite(r_gif).all()), "run_gif's episode")
+        out["rollout"] = {
+            "universes": 64, "steps": IO_LOGGED_STEPS, "snapshot_every": 256,
+            "run_ms_per_step": run_s * 1e3 / IO_LOGGED_STEPS,
+            "run_logged_ms_per_step": logged_s * 1e3 / IO_LOGGED_STEPS,
+            "rewards_max_abs_diff": float((r_logged - r_run).abs().max()),
+            "run_gif_ms_per_step": seconds["run_gif"] * 1e3 / 256, "gif_frames": gif_frames,
+        }
+
+        # /gif and /classify through the running server
+        t0 = time.perf_counter()
+        srv = serve.make_server("127.0.0.1", 0, device="cuda")
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=600)
+            gif_body = {"size": 256, "steps": 256, "every": 4, "seed": 3}
+            gif_resp = _request(conn, "POST", "/gif", gif_body)
+            roll = _request(conn, "POST", "/rollout", {"size": 256, "steps": 1024, "seed": 4})
+            classify = _request(conn, "POST", "/classify",
+                                {"rle": roll["rle"], "size": 256, "census": True,
+                                 "max_period": 16})
+            conn.request("GET", "/")
+            page = conn.getresponse()
+            check(page.status == 200 and b"/classify" in page.read(), "GET / demo page")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
+        check(not thread.is_alive(), "server thread did not stop")
+        seconds["server"] = time.perf_counter() - t0
+        data = __import__("base64").b64decode(gif_resp["gif_base64"])
+        check(gif_resp["frames"] == 65 and _gif_frames(data) == 65, "/gif frames")
+        grid, _, _, _ = serve._initial_grid(gif_body, torch.device("cuda"))
+        want = bitpack.bit_multi_step(bitpack.pack_grid(grid.cpu()), life, 256)
+        check(gif_resp["population"] == int(bitpack.unpack_grid(want, 256).sum()),
+              "/gif's last frame differs from the plain engine's")
+        check(sum(classify["counts"].values()) == len(classify["objects"]) > 0,
+              f"/classify census {classify['counts']}")
+
+        # population_curve, classify_pattern
+        big = soups(IO_UNIVERSES, 256, 13)
+        curve = timed_s("population_curve", analysis.population_curve, big, life, 1024)
+        want = bitpack.bit_multi_step(bitpack.pack_grid(big), life, 1024)
+        check(curve.shape == (1024, IO_UNIVERSES) and np.array_equal(
+            curve[-1], bitpack.unpack_grid(want, 256).sum(dim=(1, 2)).cpu().numpy()),
+            "population_curve's last counts differ from the packed engine's")
+
+        def boxed(name):
+            g = rle.read_rle(pattern_path(name)).grid
+            box = np.zeros((analysis._canonical_box(g.shape[0] + 16),
+                            analysis._canonical_box(g.shape[1] + 16)), np.uint8)
+            box[8:8 + g.shape[0], 8:8 + g.shape[1]] = g
+            return box
+
+        patterns = {name: boxed(name) for name in ("glider_1", "lwss", "gosper_gun")}
+        t0 = time.perf_counter()
+        kinds = {name: analysis.classify_pattern(g, life, device="cuda")
+                 for name, g in patterns.items()}
+        seconds["classify_pattern"] = time.perf_counter() - t0
+        check(kinds["glider_1"][:2] == ("spaceship", 4) and kinds["glider_1"].speed == 0.25
+              and kinds["lwss"][:2] == ("spaceship", 4) and kinds["lwss"].speed == 0.5,
+              f"classify_pattern {kinds}")
+
+        # the soup search at its defaults but the soups, and the demos at
+        # their __main__ sizes
+        log(f"io: the soup search runs {IO_SOUPS} soups, cut from its default 64 to keep "
+            "the phase under 60 s")
+        with contextlib.redirect_stdout(io_mod.StringIO()) as soup_out:
+            t0 = time.perf_counter()
+            soup_search_torch.main(["--soups", str(IO_SOUPS)])
+            seconds["soup_search"] = time.perf_counter() - t0
+        lines = [json.loads(l) for l in soup_out.getvalue().splitlines() if l.startswith("{")]
+        agg = lines[-1]["soup_search"]
+        check(len(lines) == IO_SOUPS + 1 and agg["soups"] == IO_SOUPS
+              and sum(agg["object_counts"].values()) > 0, f"soup search {agg}")
+        demo_dir = os.path.join(tmp, "demos")
+        with contextlib.redirect_stdout(io_mod.StringIO()):
+            timed_s("demos", demos.main, [demo_dir])
+        made = sorted(os.listdir(demo_dir))
+        check(len([n for n in made if n.endswith(".npy")]) == 10
+              and "episode_random_life.gif" in made, f"demo files {made}")
+        path_s = time.perf_counter() - t_path
+        counts = cuda_build.launch_counts()
+
+        # card against CPU: the shell's files, episode_report, census
+        env_mod.time = pinned
+        try:
+            cpu_files, _ = _logged_shell(torch, "cpu", os.path.join(tmp, "cpu"), stream)
+        finally:
+            env_mod.time = real_time
+        _same_files(card_files, cpu_files, "logged shell, card vs CPU")
+        reports = {d: analysis.episode_report(card_files[-1], life, max_period=16, device=d)
+                   for d in ("cuda", "cpu")}
+        check(reports["cuda"] == reports["cpu"], f"episode_report card vs CPU {reports}")
+        small = bitpack.unpack_grid(bit_multi_step(bitpack.pack_grid(soups(1, 64, 14)), life,
+                                                   128), 64)[0].cpu().numpy()
+        censuses = {d: analysis.census(small, life, max_period=16, device=d)
+                    for d in ("cuda", "cpu")}
+        check(censuses["cuda"] == censuses["cpu"], "census card vs CPU")
+        kinds_cpu = {name: analysis.classify_pattern(g, life, device="cpu")
+                     for name, g in patterns.items()}
+        check(kinds == kinds_cpu, f"classify_pattern card vs CPU {kinds} {kinds_cpu}")
+
+    out.update({
+        "gif": {"frames": gif_resp["frames"], "bytes": len(data),
+                "latency_s": gif_resp["latency_s"]},
+        "classify": {"objects": len(classify["objects"]), "counts": classify["counts"],
+                     "latency_s": classify["latency_s"]},
+        "population_curve": {"universes": IO_UNIVERSES, "generations": 1024,
+                             "ms_per_generation": seconds["population_curve"] * 1e3 / 1024},
+        "classify_pattern": {k: [c.kind, c.period, list(c.displacement)]
+                             for k, c in kinds.items()},
+        "soup_search": {"soups": IO_SOUPS, "soups_cut_from": 64, "size": 256, "steps": 1024,
+                        "object_counts": agg["object_counts"],
+                        "notable_objects": agg["notable_objects"]},
+        "episode_report": reports["cuda"]["population"],
+        "census_64": censuses["cuda"]["counts"],
+        "path_s": path_s, "seconds": seconds, "phase_s": time.perf_counter() - t_phase,
+    })
+    log(f"io ok: {json.dumps(out)}")
+    log(f"io launches: {json.dumps(counts)}")
+    return counts, out
+
+
 def phase_train(torch, cuda_build):
     """train_mcl.train at full width through its public entry point."""
     import glob
@@ -5218,6 +5611,7 @@ def main() -> int:
         submission_counts, submission = timed("submission", phase_submission, torch,
                                               cuda_build)
         server_counts, server = timed("server", phase_server, torch, cuda_build)
+        io_counts, io = timed("io", phase_io, torch, cuda_build)
         policy_counts, policy = timed("policy", phase_policy, torch, cuda_build)
         policy_parity = timed("policy_parity", phase_policy_parity, torch)
         train_counts, train, train_hist = timed("train", phase_train, torch, cuda_build)
@@ -5239,7 +5633,7 @@ def main() -> int:
         return 1
 
     path_counts = {"battery": battery_counts, "submission": submission_counts,
-                   "server": server_counts,
+                   "server": server_counts, "io": io_counts,
                    "train": train_counts, "routes": routes_counts,
                    "wrappers": wrappers_counts, "packed": packed_counts,
                    "bands": bands_counts, "engines": engines_counts,
@@ -5283,7 +5677,7 @@ def main() -> int:
         "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
         "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
-        "e2e": e2e, "submission": submission, "server": server, "policy": policy,
+        "e2e": e2e, "submission": submission, "server": server, "io": io, "policy": policy,
         "policy_parity": policy_parity, "enc3_policy": enc3_policy,
         "run_actions_max_abs_diff": parity_diff,
         "train": train, "train_parity_max_rel_diff": train_parity_diff,
@@ -5299,7 +5693,7 @@ def main() -> int:
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
     log(json.dumps({k: report[k] for k in ("launches", "e2e", "submission", "server",
-                                           "policy", "policy_parity", "train", "routes",
+                                           "io", "policy", "policy_parity", "train", "routes",
                                            "wrappers", "packed", "engines", "total_s")}))
     log(json.dumps({"bands": {k: v for k, v in bands.items() if not k.startswith("profile")},
                     "bands_kernels": results["bands_kernels"]}))

@@ -64,7 +64,8 @@ setup(
     packages=find_packages(include=["carle_tpu", "carle_tpu.*", "evaluation",
                                     "carle_tpu_torch", "carle_tpu_torch.*"]),
     package_data={"carle_tpu": ["patterns/*.rle", "native/*.so"],
-                  "carle_tpu_torch": ["csrc/*", "evaluation/*.npz", "patterns/*.rle"]},
+                  "carle_tpu_torch": ["csrc/*", "evaluation/*.npz", "patterns/*.rle",
+                                      "native/*.cpp"]},
     ext_modules=_NATIVE,
     cmdclass={"build_ext": build_ctypes},
     install_requires=["jax", "numpy", "optax"],
