@@ -140,7 +140,7 @@ class WrapperStack:
             return self._whole(g)
         if isinstance(g, torch.Tensor):
             return g[instance]
-        return self._whole(g.map(lambda p: p[instance:instance + 1]))[0]
+        return self._whole(g.take(instance))[0]
 
     def observe(self, state: StackState) -> torch.Tensor:
         """float32 [inst, 1, H, W] observation (the agent's input)."""
@@ -219,7 +219,7 @@ class WrapperStack:
         if not isinstance(env.grid, torch.Tensor):
             from ..parallel.mesh import shard_rows
 
-            kept = shard_rows(grid, env.grid.mesh, env.grid.axis)
+            kept = shard_rows(grid, env.grid.mesh, env.grid.axis, env.grid.env_axis)
         env_state = EnvState(kept, env.rule_bits, torch.zeros_like(env.step_num),
                              torch.zeros_like(env.steps_since_action))
         return (StackState(env=env_state, wrappers=tuple(new_wstates)),

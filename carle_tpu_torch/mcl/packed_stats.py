@@ -26,10 +26,15 @@ stack's ``unpacks`` counter stays 0).
 
 On a row-sharded packed stack (a mesh) each statistic reduces every shard,
 the row-weighted sums from the shard's first global row, and adds the
-shards' exact integer sums, so the bonus does not depend on the sharding;
-Morpho's windows cross the shards' edges and it raises there (the dense def
-reads the gathered cells).  These defs need a packed stack: on the uint8
-path ``ctx.packed`` is None and they raise.
+shards' exact integer sums over a ring, so the bonus does not depend on the
+sharding; on a two-axis env x space mesh the env groups' sums are
+concatenated in instance order.  Morpho's windows cross the shards' edges:
+each slot pads its rows of ``prev ^ action`` with the first ``dim - 1``
+rows of the next slot of its ring, takes the per-instance integer extremes
+over its own VALID anchors, and the slots' extremes combine by max and min
+before the one float division, so the bonus equals the unsharded one bit
+for bit.  These defs need a packed stack: on the uint8 path ``ctx.packed``
+is None and they raise.
 """
 
 from __future__ import annotations
@@ -69,17 +74,22 @@ def _require_packed(ctx: StepCtx) -> Any:
 
 
 def _per_shard(g: Any, fn, *planes: torch.Tensor) -> torch.Tensor:
-    """``fn(words, *plane rows, first row)`` of the universe: of each shard of
-    row-sharded words with its rows of each [H, W/32] plane, added on the
-    mesh's home device, or of whole words.  fn returns exact integers, so
-    the sum does not depend on the sharding."""
+    """``fn(words, *plane rows, first row)`` of the universe ([..., inst]):
+    of each shard of row-sharded words with its rows of each [H, W/32]
+    plane, added over each ring's slots on the mesh's home device, the env
+    groups' sums concatenated over the instances in order; or of whole
+    words.  fn returns exact integers, so the sum does not depend on the
+    sharding."""
     if not isinstance(g, RowShards):
         return fn(g, *planes, 0)
-    total = None
-    for p, a in zip(g.parts, g.offsets()):
-        part = fn(p, *(m[a:a + g.rows].to(p.device) for m in planes), a).to(g.device)
-        total = part if total is None else total + part
-    return total
+    sums = []
+    for ring in g.rings():
+        total = None
+        for p, a in zip(ring.parts, ring.offsets()):
+            part = fn(p, *(m[a:a + ring.rows].to(p.device) for m in planes), a).to(g.device)
+            total = part if total is None else total + part
+        sums.append(total)
+    return sums[0] if len(sums) == 1 else torch.cat(sums, dim=-1)
 
 
 def _live_count_i(g: torch.Tensor, r0: int = 0) -> torch.Tensor:
@@ -206,7 +216,10 @@ def morpho_def_packed(config: EnvConfig, reward_scale: float = 1.0, rle_paths: A
     ``g = (15 + n) N_live - n N_all``, computed bit-sliced with an offset
     that keeps it non-negative, its per-instance max and min found MSB first,
     and divided by n once per kernel.  Exact where the dense def's float32
-    correlation rounds.  A reset seeds the dense def's nucleation noise."""
+    correlation rounds.  On a row-sharded stack each slot works on its own
+    rows with the next slot's first ``dim - 1`` below (the module note), so
+    a slot must hold at least ``dim - 1`` rows.  A reset seeds the dense
+    def's nucleation noise."""
     from .morpho import build_kernel_bank, morpho_def
     from .patterns import pattern_path
 
@@ -223,33 +236,82 @@ def morpho_def_packed(config: EnvConfig, reward_scale: float = 1.0, rle_paths: A
             reward_scale=torch.as_tensor(reward_scale, dtype=torch.float32, device=device),
             valid_words=_pack_mask(valid, device))
 
+    def extremes(x: torch.Tensor, valid_words: torch.Tensor, rows: int):
+        """Per kernel, the per-instance (max, min) integers over the VALID
+        anchors among x's first ``rows`` rows (x may hold ``dim - 1`` rows
+        more, which the anchors' windows read): of g, or of N_all for an
+        all-dead kernel."""
+        crop = lambda num: tuple(q[:, :rows] for q in num)
+        n_all = bs.window_sum(x, dim, dim)       # shared by every kernel
+        n_all_rows = crop(n_all)
+        out = []
+        for offsets in kernels:
+            n = len(offsets)
+            if n == 0:  # an all-dead kernel: the response is -N_all exactly
+                num = n_all_rows
+            else:
+                width = int((15 + n) * n + n * win).bit_length()
+                num = bs.sub_offset(bs.mul_const(crop(bs.tap_sum(x, offsets)), 15 + n, width),
+                                    bs.mul_const(n_all_rows, n, width), n * win, width)
+            out.append((bs.max_over_cells(num, valid_words),
+                        bs.min_over_cells(num, valid_words)))
+        return out
+
+    def sharded_extremes(prev: RowShards, action: RowShards, valid_words: torch.Tensor):
+        """:func:`extremes` of row-sharded ``prev ^ action``: each slot's rows
+        padded below with the next slot's first ``dim - 1`` rows of its ring
+        (below the universe's last row the ring's wrap, read by no VALID
+        anchor), a slot without a VALID anchor skipped; the padded slots of
+        a device (of every ring) stacked as one batch, so that a card runs
+        the bit-sliced operations once; the slots' extremes combined by max
+        and min over each ring and the env groups' concatenated in instance
+        order."""
+        if prev.rows < dim - 1:
+            raise ValueError(f"morpho_def_packed on shards of {prev.rows} rows a slot: a "
+                             f"window of {dim} rows needs at least dim - 1 = {dim - 1}")
+        home, rows, k = prev.device, prev.rows, prev.parts[0].shape[0]
+        batches = {}   # device -> [(ring, padded slot, its VALID anchors)]
+        for e, (ring, act) in enumerate(zip(prev.rings(), action.rings())):
+            xs = [bs.as_plane(p) ^ bs.as_plane(q) for p, q in zip(ring.parts, act.parts)]
+            for s, (x, a) in enumerate(zip(xs, ring.offsets())):
+                if valid[a:a + rows].any():
+                    below = xs[(s + 1) % len(xs)][:, :dim - 1].to(x.device)
+                    batches.setdefault(x.device, []).append(
+                        (e, torch.cat([x, below], dim=1),
+                         valid_words[a:a + rows].to(x.device).expand(k, -1, -1)))
+        acc = [None] * prev.groups   # per ring, per kernel (max, min) [k]
+        for items in batches.values():
+            ext = extremes(torch.cat([x for _, x, _ in items]),
+                           torch.cat([v for _, _, v in items]), rows)
+            for e in sorted({e for e, _, _ in items}):
+                idx = torch.tensor([j for j, it in enumerate(items) if it[0] == e])
+                got = [(hi.view(-1, k)[idx.to(hi.device)].amax(0).to(home),
+                        lo.view(-1, k)[idx.to(lo.device)].amin(0).to(home)) for hi, lo in ext]
+                acc[e] = got if acc[e] is None else [
+                    (torch.maximum(h0, h1), torch.minimum(l0, l1))
+                    for (h0, l0), (h1, l1) in zip(acc[e], got)]
+        return [tuple(torch.cat(v) for v in zip(*per_kernel)) for per_kernel in zip(*acc)]
+
     def apply(state: PackedMorphoState, ctx: StepCtx,
               reward: torch.Tensor) -> Tuple[PackedMorphoState, torch.Tensor]:
         if ctx.packed_prev is None or ctx.packed_action is None:
             raise ValueError("morpho_def_packed needs a packed stack filling "
                              "ctx.packed_prev and ctx.packed_action; use "
                              "mcl.morpho.morpho_def on the uint8 path")
-        if isinstance(ctx.packed_prev, RowShards):
-            raise NotImplementedError(
-                "morpho_def_packed on a row-sharded stack (its windows cross the "
-                "shards' edges) is not ported yet; use mcl.morpho.morpho_def, which "
-                "reads the gathered cells")
-        x = bs.as_plane(ctx.packed_prev) ^ bs.as_plane(ctx.packed_action)
         valid_words = bs.as_plane(state.valid_words)
-        n_all = bs.window_sum(x, dim, dim)       # shared by every kernel
+        if isinstance(ctx.packed_prev, RowShards):
+            ext = sharded_extremes(ctx.packed_prev, ctx.packed_action, valid_words)
+        else:
+            x = bs.as_plane(ctx.packed_prev) ^ bs.as_plane(ctx.packed_action)
+            ext = extremes(x, valid_words, x.shape[1])
         best_max = best_min = None
-        for offsets in kernels:
+        for offsets, (hi, lo) in zip(kernels, ext):
             n = len(offsets)
-            if n == 0:  # an all-dead kernel: the response is -N_all exactly
-                fmax = -bs.min_over_cells(n_all, valid_words).to(torch.float32)
-                fmin = -bs.max_over_cells(n_all, valid_words).to(torch.float32)
+            if n == 0:
+                fmax, fmin = -lo.to(torch.float32), -hi.to(torch.float32)
             else:
-                width = int((15 + n) * n + n * win).bit_length()
-                offset = n * win
-                g = bs.sub_offset(bs.mul_const(bs.tap_sum(x, offsets), 15 + n, width),
-                                  bs.mul_const(n_all, n, width), offset, width)
-                fmax = (bs.max_over_cells(g, valid_words) - offset).to(torch.float32) / n
-                fmin = (bs.min_over_cells(g, valid_words) - offset).to(torch.float32) / n
+                fmax = (hi - n * win).to(torch.float32) / n
+                fmin = (lo - n * win).to(torch.float32) / n
             best_max = fmax if best_max is None else torch.maximum(best_max, fmax)
             best_min = fmin if best_min is None else torch.minimum(best_min, fmin)
         bonus = (best_max + best_min)[:, None]

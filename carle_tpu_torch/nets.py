@@ -53,8 +53,9 @@ class SpaceSharding(NamedTuple):
     sharded over ``axis`` of ``mesh`` (a parallel.mesh.Mesh; the packed
     stack with a mesh), and the kernels run slot by slot with halo rows
     (parallel/spatial_heads.py).  Pass as the wrappers' ``fused_head`` or the
-    nets' ``mesh=``.  ``env_axis`` (a 2-D env x space mesh) is not ported
-    yet."""
+    nets' ``mesh=``.  ``env_axis`` names the instance axis of a two-axis env
+    x space mesh: the input's instances shard over it too, and each env
+    group's slots run as a ring of their own."""
 
     mesh: Any
     axis: str = "space"
@@ -63,16 +64,17 @@ class SpaceSharding(NamedTuple):
 
 def check_mesh(mesh: Any) -> Any:
     """The routing tag a net function runs with: None, a :class:`BandTiling`
-    or a :class:`SpaceSharding`; any other value raises ValueError (and a
-    SpaceSharding with an env axis NotImplementedError)."""
+    or a :class:`SpaceSharding` (whose axes must be the mesh's); any other
+    value raises ValueError."""
     if isinstance(mesh, SpaceSharding):
         from .parallel.mesh import Mesh
 
         if not isinstance(mesh.mesh, Mesh):
             raise ValueError(f"SpaceSharding needs a parallel.mesh.Mesh, got {mesh.mesh!r}")
-        if mesh.env_axis is not None:
-            raise NotImplementedError("SpaceSharding's env_axis (the 2-D env x space "
-                                      "mesh) is not ported yet")
+        for axis in (mesh.axis, mesh.env_axis):
+            if axis is not None and axis not in mesh.mesh.shape:
+                raise ValueError(f"SpaceSharding's axis {axis!r} is not an axis of "
+                                 f"{mesh.mesh}")
         return mesh
     if mesh is not None and not isinstance(mesh, BandTiling):
         raise ValueError(f"mesh must be None, BandTiling or SpaceSharding, got {mesh!r}")

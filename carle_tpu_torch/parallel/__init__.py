@@ -1,21 +1,23 @@
 """Multi-layout stacks and the spatial tier (counterpart of carle_tpu/parallel).
 
-* :mod:`.mesh`: a mesh of slots (``make_mesh``) and row shards
-  (``RowShards``, ``shard_rows``, ``gather_rows``): one controller holding a
-  tensor per slot, where the JAX package runs one program over a mesh;
+* :mod:`.mesh`: a mesh of slots over one axis (``make_mesh``) or two
+  (``Mesh([[...], ...], ("env", "space"))``) and row shards (``RowShards``,
+  ``shard_rows``, ``gather_rows``): one controller holding a tensor per
+  slot, where the JAX package runs one program over a mesh;
 * :mod:`.spatial` and :mod:`.cuda_halo`: Life-like generations of a
   row-sharded universe, the halo kernels on CUDA slots;
 * :mod:`.spatial_env`: the uint8 spatial env mode, the full env step on a
   row-sharded universe under the unchanged ``Rollout`` and ``WrapperStack``
-  (``shard_carry_spatial``), one halo launch a device a step;
-* :mod:`.packed_env`: the packed stack, on one device or row-sharded
-  (``shard_carry_packed``), and :mod:`.spatial_heads`, the nets on its shards
-  (``nets.SpaceSharding``);
+  (``shard_carry_spatial``), one halo launch a device a step; on the env x
+  space mesh (``shard_carry_2d``) the instances shard over ``env`` too, one
+  launch a ring a device;
+* :mod:`.packed_env`: the packed stack, on one device, row-sharded
+  (``shard_carry_packed``) or on the env x space mesh (``env_axis``), and
+  :mod:`.spatial_heads`, the nets on its shards (``nets.SpaceSharding``);
 * :mod:`.band_heads`: band tiling of one huge universe on one device.
 
 Env-batch data parallelism (``env_sharding``, ``shard_carry``,
-``replicate``) and the 2-D env x space mesh (``shard_carry_2d``,
-``env_axis``) are not ported yet.
+``replicate``) is not ported yet.
 """
 
 from ..nets import SpaceSharding
@@ -24,7 +26,7 @@ from .cuda_halo import (bit_spatial_multi_step_cuda, spatial_ca_step_cuda,
 from .mesh import Mesh, RowShards, gather_rows, make_mesh, shard_rows
 from .packed_env import PackedSpatialStack, packed_spatial_sharding, shard_carry_packed
 from .spatial import bit_spatial_multi_step, spatial_ca_step, spatial_multi_step
-from .spatial_env import shard_carry_spatial, spatial_sharding
+from .spatial_env import shard_carry_2d, shard_carry_spatial, spatial_sharding
 
 __all__ = [
     "Mesh",
@@ -36,6 +38,7 @@ __all__ = [
     "gather_rows",
     "make_mesh",
     "packed_spatial_sharding",
+    "shard_carry_2d",
     "shard_carry_packed",
     "shard_carry_spatial",
     "shard_rows",

@@ -16,9 +16,15 @@ carle_tpu/parallel/pallas_halo.py).
 Each takes :class:`~.mesh.RowShards` of [N, H/n, W] uint8 cells or
 [N, H/n, W/32] uint32 words and returns new shards, every slot on a device
 in one launch, each slot reading its ring neighbours' edge rows in place
-(the ring wraps: the torus).  One uint8 generation (the first two, and the
-third at K = 1) runs ``csrc/halo_words.cu`` (``halo_words_launch``, counted
-as ``spatial_ca_step_words``) where :func:`halo_words_route` holds the shape
+(the ring wraps: the torus).  On a two-axis env x space mesh each env
+group's slots are a ring of their own: every launcher is handed one ring
+at a time with its instances' rule entries and action (:func:`_by_ring`),
+so a step launches once a ring a device, and the master reset's flag,
+worked out once over the whole batch, goes to every ring.
+
+One uint8 generation (the first two, and the third at K = 1) runs
+``csrc/halo_words.cu`` (``halo_words_launch``, counted as
+``spatial_ca_step_words``) where :func:`halo_words_route` holds the shape
 (W % 16 == 0): row 1's design on row shards, a band of rows with a ghost
 row a side staged by bulk copies, the action's toggles XOR-ed into the
 staged rows the window covers, a thread a strip of a 16-byte column
@@ -59,7 +65,7 @@ from ..ops.cuda_bitpack import stream_launches, stream_plan
 from ..ops.cuda_build import KERNELS, library, stream_args
 from ..ops.cuda_ca import _multiprocessors
 from ..rules import pack_rule_bits
-from .mesh import RowShards
+from .mesh import RowShards, ringwise
 
 KERNEL_STEP = KERNELS["spatial_ca_step"]
 KERNEL_MULTI = KERNELS["spatial_multi_step"]
@@ -154,15 +160,30 @@ def _multi_plain(x: RowShards, steps: int, step) -> RowShards:
     return RowShards([p.clone() for p in parts] if steps == 0 else parts, x.mesh, x.axis)
 
 
+def _by_ring(x: RowShards, rule_bits, fn) -> RowShards:
+    """``fn(ring, its rule, its instances)`` of each env group's ring
+    (parallel.mesh.ringwise; one ring on a one-axis mesh): a rule vector [N]
+    gives each ring its instances' entries.  Ghost rows then come only from
+    the slot's own ring."""
+    if not isinstance(x, RowShards):
+        raise TypeError(f"the halo steps take RowShards (parallel.mesh.shard_rows), "
+                        f"got {type(x)}")
+    rule, slices = _rule(rule_bits, x), x.instances()
+    return ringwise(x, lambda ring, e: fn(ring, rule[slices[e]] if rule.ndim == 1 else rule,
+                                          slices[e]))
+
+
 def spatial_ca_step_plain(x: RowShards, rule_bits) -> RowShards:
     """One uint8 generation of row-sharded universes, ghost rows by copy."""
-    return _multi_plain(x, 1, lambda parts: _step_u8(parts, rule_bits))
+    return _by_ring(x, rule_bits, lambda r, rule, _: _multi_plain(
+        r, 1, lambda parts: _step_u8(parts, rule)))
 
 
 def _toggled(x: RowShards, action: torch.Tensor, config: EnvConfig) -> List[torch.Tensor]:
-    """The slots with the [N, AH, AW] action's toggles (nonzero bytes) XOR-ed
-    into the config's centred window: a clone of each slot whose rows the
-    window covers, the others as they are."""
+    """The slots of one ring with the [N, AH, AW] action's toggles (nonzero
+    bytes; N the ring's instances) XOR-ed into the config's centred window:
+    a clone of each slot whose rows the window covers, the others as they
+    are."""
     r0, c0 = config.action_row_offset, config.action_col_offset
     ah, aw = action.shape[-2:]
     parts = []
@@ -177,7 +198,8 @@ def _toggled(x: RowShards, action: torch.Tensor, config: EnvConfig) -> List[torc
 
 
 def _zeroed(x: RowShards, reset: Optional[torch.Tensor]) -> RowShards:
-    """Every slot all zeros where the 0-d ``reset`` flag is set."""
+    """Every slot all zeros where the 0-d ``reset`` flag is set (the flag of
+    the whole batch, on a two-axis mesh the same for every ring)."""
     if reset is None:
         return x
     return x.map(lambda p: torch.where(reset.to(p.device) != 0, torch.zeros_like(p), p))
@@ -188,20 +210,24 @@ def spatial_env_step_plain(x: RowShards, action: torch.Tensor, rule_bits, config
     """One env-mode generation of row-sharded uint8 universes: the action's
     toggles XOR-ed into the centred window, one generation, zeros under the
     reset flag."""
-    stepped = spatial_ca_step_plain(RowShards(_toggled(x, action, config), x.mesh, x.axis),
-                                    rule_bits)
-    return _zeroed(stepped, reset)
+    def ring(r, rule, sl):
+        toggled = RowShards(_toggled(r, action[sl], config), r.mesh, r.axis)
+        return _multi_plain(toggled, 1, lambda parts: _step_u8(parts, rule))
+
+    return _zeroed(_by_ring(x, rule_bits, ring), reset)
 
 
 def spatial_multi_step_plain(x: RowShards, rule_bits, num_steps: int) -> RowShards:
     """``num_steps`` uint8 generations (:func:`spatial_ca_step_plain` each)."""
-    return _multi_plain(x, num_steps, lambda parts: _step_u8(parts, rule_bits))
+    return _by_ring(x, rule_bits, lambda r, rule, _: _multi_plain(
+        r, num_steps, lambda parts: _step_u8(parts, rule)))
 
 
 def bit_spatial_multi_step_plain(x: RowShards, rule_bits, num_steps: int,
                                  static_rules: Optional[Tuple] = None) -> RowShards:
     """``num_steps`` packed generations of row-sharded words."""
-    return _multi_plain(x, num_steps, lambda parts: _step_u32(parts, rule_bits, static_rules))
+    return _by_ring(x, rule_bits, lambda r, rule, _: _multi_plain(
+        r, num_steps, lambda parts: _step_u32(parts, rule, static_rules)))
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +255,7 @@ def _check(x: RowShards, dtype: torch.dtype, name: str, rule_bits) -> str:
 
 def _rule(rule_bits, x: RowShards) -> torch.Tensor:
     rule = torch.as_tensor(rule_bits, dtype=torch.int32)
-    n = x.parts[0].shape[0]
+    n = x.shape[0]
     if rule.ndim > 1 or (rule.ndim == 1 and rule.shape[0] != n):
         raise ValueError(f"rule must be a scalar or a [{n}] vector, got shape "
                          f"{tuple(rule.shape)}")
@@ -492,7 +518,7 @@ def halo_words_plan(n_inst: int, hl: int, w: int, slots: int, sms: int) -> Tuple
 def _check_env(x: RowShards, action: torch.Tensor, config: EnvConfig, reset) -> None:
     """The env step's checks: the shards the config's universe, the action
     its [N, AH, AW] uint8 window on the home device, the flag one byte."""
-    n = x.parts[0].shape[0]
+    n = x.shape[0]
     ah, aw = config.eff_action_height, config.eff_action_width
     if tuple(x.shape) != (n, config.height, config.width):
         raise ValueError(f"universe {tuple(x.shape)[1:]} does not match the config "
@@ -571,9 +597,12 @@ def _u8_multi(x: RowShards, rule_bits, steps: int) -> RowShards:
 def spatial_ca_step_cuda(x: RowShards, rule_bits) -> RowShards:
     """One uint8 generation of row-sharded universes [N, H, W]; the rule a
     scalar or an [N] vector."""
-    if _check(x, torch.uint8, "spatial_ca_step", rule_bits) == "cpu":
-        return spatial_ca_step_plain(x, rule_bits)
-    return _u8_step(x, rule_bits)
+    def ring(r, rule, _):
+        if _check(r, torch.uint8, "spatial_ca_step", rule) == "cpu":
+            return spatial_ca_step_plain(r, rule)
+        return _u8_step(r, rule)
+
+    return _by_ring(x, rule_bits, ring)
 
 
 def spatial_env_step_cuda(x: RowShards, action: torch.Tensor, rule_bits, config: EnvConfig,
@@ -585,22 +614,31 @@ def spatial_env_step_cuda(x: RowShards, action: torch.Tensor, rule_bits, config:
     set.  On the card one halo_words launch a device; where the route leaves
     the shape, the window XOR-ed into clones of the slots it covers, the
     present kernel, then the flag."""
-    where = _check(x, torch.uint8, "spatial_env_step", rule_bits)
+    if not isinstance(x, RowShards):
+        raise TypeError(f"spatial_env_step takes RowShards, got {type(x)}")
     _check_env(x, action, config, reset)
-    if where == "cpu":
-        return spatial_env_step_plain(x, action, rule_bits, config, reset)
-    _, hl, w = x.parts[0].shape
-    if halo_words_route(hl, w) == "words":
-        return _launch_halo_words(x, rule_bits, action, config, reset)
-    toggled = RowShards(_toggled(x, action, config), x.mesh, x.axis)
-    return _zeroed(_launch(KERNEL_STEP, toggled, rule_bits, 1, KIND_U8), reset)
+
+    def ring(r, rule, sl):   # the flag is the whole batch's: every ring gets it
+        act = action[sl]
+        if _check(r, torch.uint8, "spatial_env_step", rule) == "cpu":
+            return spatial_env_step_plain(r, act, rule, config, reset)
+        _, hl, w = r.parts[0].shape
+        if halo_words_route(hl, w) == "words":
+            return _launch_halo_words(r, rule, act, config, reset)
+        toggled = RowShards(_toggled(r, act, config), r.mesh, r.axis)
+        return _zeroed(_launch(KERNEL_STEP, toggled, rule, 1, KIND_U8), reset)
+
+    return _by_ring(x, rule_bits, ring)
 
 
 def spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int) -> RowShards:
     """``num_steps`` uint8 generations of row-sharded universes."""
-    if _check(x, torch.uint8, "spatial_multi_step", rule_bits) == "cpu":
-        return spatial_multi_step_plain(x, rule_bits, num_steps)
-    return _u8_multi(x, rule_bits, num_steps)
+    def ring(r, rule, _):
+        if _check(r, torch.uint8, "spatial_multi_step", rule) == "cpu":
+            return spatial_multi_step_plain(r, rule, num_steps)
+        return _u8_multi(r, rule, num_steps)
+
+    return _by_ring(x, rule_bits, ring)
 
 
 def bit_spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int,
@@ -608,12 +646,15 @@ def bit_spatial_multi_step_cuda(x: RowShards, rule_bits, num_steps: int,
     """``num_steps`` packed generations of row-sharded words [N, H, W/32];
     ``static_rules=(birth, survive)`` fixes the rule at compile time (the
     rule argument is then not read)."""
-    if _check(x, torch.uint32, "bit_spatial_multi_step", rule_bits) == "cpu":
-        return bit_spatial_multi_step_plain(x, rule_bits, num_steps, static_rules)
-    defines, rule = (), rule_bits
-    if static_rules is not None:
-        rule = pack_rule_bits(*static_rules)
-        defines = (f"STATIC_RULE={rule:#07x}",)
-    if BIT_HALO_BLOCKS:
-        return _launch_words(x, rule, num_steps, defines)
-    return _launch(KERNEL_BIT, x, rule, num_steps, KIND_U32, defines)
+    def ring(r, rule, _):
+        if _check(r, torch.uint32, "bit_spatial_multi_step", rule) == "cpu":
+            return bit_spatial_multi_step_plain(r, rule, num_steps, static_rules)
+        defines = ()
+        if static_rules is not None:
+            rule = pack_rule_bits(*static_rules)
+            defines = (f"STATIC_RULE={rule:#07x}",)
+        if BIT_HALO_BLOCKS:
+            return _launch_words(r, rule, num_steps, defines)
+        return _launch(KERNEL_BIT, r, rule, num_steps, KIND_U32, defines)
+
+    return _by_ring(x, rule_bits, ring)

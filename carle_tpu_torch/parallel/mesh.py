@@ -5,15 +5,28 @@ The JAX package's spatial tier is one program over a mesh (``shard_map``):
 each device holds a block of rows and trades ghost rows with its ring
 neighbours.  Here one controller holds a list of per-slot shards:
 
-* :class:`Mesh` is a list of slots, each a ``torch.device``.  Slots may
-  repeat one device (several shards on one card, the single-card case) or
-  name several CUDA devices, which must reach each other's memory by peer
-  access (NVLink); a mesh whose cards cannot raises.  A CPU mesh exists only
-  when the caller lists ``cpu`` slots (the tests use 8, as the JAX tests use
-  8 CPU devices).
+* :class:`Mesh` is a list of slots, each a ``torch.device``, over one axis
+  or over two (``Mesh([[d00, d01, ...], [d10, ...]], ("env", "space"))``,
+  the counterpart of ``Mesh(devs.reshape(n_env, n_space), ("env",
+  "space"))``: slots in row-major order).  Slots may repeat one device
+  (several shards on one card, the single-card case) or name several CUDA
+  devices, which must reach each other's memory by peer access (NVLink); a
+  mesh whose cards cannot raises.  A CPU mesh exists only when the caller
+  lists ``cpu`` slots (the tests use 8, as the JAX tests use 8 CPU
+  devices).
 * :class:`RowShards` is a tensor whose rows (dimension -2) are split evenly
-  over the slots: one tensor per slot, each its own allocation on its slot's
-  device.  :func:`shard_rows` and :func:`gather_rows` move between the two.
+  over the slots of the row axis: one tensor per slot, each its own
+  allocation on its slot's device.  On a two-axis mesh the rows split over
+  the second axis (``space``) and, with ``env_axis``, the instances
+  (dimension 0) over the first: slot (e, s) holds instances
+  [e I/n_env, (e + 1) I/n_env) and rows [s H/n_space, (s + 1) H/n_space).
+  Each env group's slots form a ring of their own (:meth:`RowShards.rings`,
+  on :meth:`Mesh.ring`), and every halo kernel is handed one ring at a time
+  (:func:`ringwise`), so a slot never reads another group's rows.  Without
+  ``env_axis`` a two-axis mesh's shards hold every instance on the first
+  group's ring: where the JAX package replicates such a leaf over ``env``,
+  one controller keeps one copy.  :func:`shard_rows` and
+  :func:`gather_rows` move between the two (the gather in instance order).
   They stand in for GSPMD's placement: nothing reads a neighbour's rows by
   indexing one big tensor.
 
@@ -36,17 +49,29 @@ def _slot(device: Any) -> torch.device:
 
 
 class Mesh:
-    """A one-axis mesh of slots (counterpart of the ``jax.sharding.Mesh``
-    that ``make_mesh`` builds): ``devices`` in ring order, ``axis_names``
-    one name, ``shape[axis]`` the slot count.  The first slot is the home
-    device, where gathered views and replicated state live."""
+    """A mesh of slots (counterpart of the ``jax.sharding.Mesh`` that
+    ``make_mesh`` builds, or of a two-axis one): ``devices`` the slots in
+    row-major order, ``axis_names`` one or two names, ``shape`` each axis's
+    extent.  A two-axis mesh takes its slots as a sequence of equal rows,
+    one a group of the first axis.  The first slot is the home device,
+    where gathered views and replicated state live."""
 
     def __init__(self, devices: Sequence[Any], axis_names: Tuple[str, ...] = ("env",)) -> None:
+        axis_names = tuple(axis_names)
+        if len(axis_names) == 2:
+            groups = [list(g) for g in devices]
+            if not groups or any(len(g) != len(groups[0]) for g in groups):
+                raise ValueError("a two-axis mesh takes its slots as rows of equal length")
+            extents = (len(groups), len(groups[0]))
+            devices = [d for g in groups for d in g]
+        elif len(axis_names) == 1:
+            devices = list(devices)
+            extents = (len(devices),)
+        else:
+            raise ValueError(f"a mesh has one or two axes here, got {axis_names}")
         devices = tuple(_slot(d) for d in devices)
         if not devices:
             raise ValueError("a mesh needs at least one slot")
-        if len(axis_names) != 1:
-            raise ValueError(f"a mesh has one axis here, got {axis_names}")
         kinds = {d.type for d in devices}
         if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
             raise ValueError(f"mesh slots must be all cpu or all cuda, got {devices}")
@@ -57,11 +82,13 @@ class Mesh:
                     raise ValueError(f"mesh slots cuda:{a} and cuda:{b} cannot reach "
                                      "each other's memory (no peer access)")
         self.devices = devices
-        self.axis_names = tuple(axis_names)
+        self.axis_names = axis_names
+        self._extents = extents
+        self._rings: Dict[int, "Mesh"] = {}
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: len(self.devices)}
+        return dict(zip(self.axis_names, self._extents))
 
     @property
     def size(self) -> int:
@@ -71,14 +98,31 @@ class Mesh:
     def home(self) -> torch.device:
         return self.devices[0]
 
+    def ring(self, group: int = 0) -> "Mesh":
+        """The one-axis mesh of env group ``group``'s slots, over the second
+        axis (a one-axis mesh is its own only ring); the same object on
+        every call."""
+        if len(self.axis_names) == 1:
+            if group != 0:
+                raise ValueError(f"a one-axis mesh has one ring, not {group + 1}")
+            return self
+        if group not in self._rings:
+            n = self._extents[1]
+            self._rings[group] = Mesh(self.devices[group * n:(group + 1) * n],
+                                      self.axis_names[1:])
+        return self._rings[group]
+
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names})"
+        if len(self.axis_names) == 1:
+            return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names})"
+        return (f"Mesh({[str(d) for d in self.devices]}, {self.axis_names}, "
+                f"shape={self._extents})")
 
 
 def make_mesh(devices: Optional[Sequence[Any]] = None, axis_name: str = "env") -> Mesh:
-    """A mesh over ``devices`` (default: every visible CUDA device; without
-    one this raises: a CPU mesh is built only from ``cpu`` slots the caller
-    lists)."""
+    """A one-axis mesh over ``devices`` (default: every visible CUDA device;
+    without one this raises: a CPU mesh is built only from ``cpu`` slots the
+    caller lists)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh() takes every visible CUDA device and "
@@ -87,20 +131,54 @@ def make_mesh(devices: Optional[Sequence[Any]] = None, axis_name: str = "env") -
     return Mesh(devices, (axis_name,))
 
 
+def _layout(mesh: Mesh, axis: str, env_axis: Optional[str]) -> Tuple[int, int]:
+    """(env groups, slots a ring) of shards over ``axis`` (and ``env_axis``)
+    of ``mesh``, after checking the axes."""
+    if len(mesh.axis_names) == 1:
+        if env_axis is not None:
+            raise ValueError(f"env axis {env_axis!r} on the one-axis mesh {mesh.axis_names}")
+        return 1, mesh.size
+    env_name, space_name = mesh.axis_names
+    if axis != space_name:
+        raise ValueError(f"rows shard over a two-axis mesh's second axis {space_name!r}, "
+                         f"not {axis!r}")
+    if env_axis not in (None, env_name):
+        raise ValueError(f"instances shard over a two-axis mesh's first axis "
+                         f"{env_name!r}, not {env_axis!r}")
+    n_env, n_space = mesh.shape[env_name], mesh.shape[space_name]
+    return (n_env if env_axis else 1), n_space
+
+
 class RowShards:
-    """A tensor [..., H, W*] whose H rows are split evenly over a mesh's
-    slots: ``parts[s]`` holds rows [s H/n, (s + 1) H/n) on slot s's device.
-    ``axis`` names the mesh axis the rows shard over."""
+    """A tensor [N, ..., H, W*] whose H rows are split evenly over the slots
+    of a mesh's row axis ``axis``: ``parts[s]`` holds rows [s H/n, (s + 1)
+    H/n) on slot s's device.  On a two-axis mesh with ``env_axis`` the
+    instances split too: ``parts[e n_space + s]`` holds env group e's
+    instances (module note); without it the shards lie on the first group's
+    ring."""
 
-    __slots__ = ("parts", "mesh", "axis")
+    __slots__ = ("parts", "mesh", "axis", "env_axis")
 
-    def __init__(self, parts: Sequence[torch.Tensor], mesh: Mesh, axis: str = "space") -> None:
+    def __init__(self, parts: Sequence[torch.Tensor], mesh: Mesh, axis: str = "space",
+                 env_axis: Optional[str] = None) -> None:
         parts = list(parts)
-        if len(parts) != mesh.size:
-            raise ValueError(f"{len(parts)} shards for a mesh of {mesh.size} slots")
+        groups, n = _layout(mesh, axis, env_axis)
+        if len(parts) != groups * n:
+            raise ValueError(f"{len(parts)} shards for {groups} ring(s) of {n} slots")
         self.parts = parts
         self.mesh = mesh
         self.axis = axis
+        self.env_axis = env_axis
+
+    @property
+    def groups(self) -> int:
+        """Env groups (rings) the shards split the instances over."""
+        return self.mesh.shape[self.env_axis] if self.env_axis else 1
+
+    @property
+    def slots(self) -> int:
+        """Slots a ring."""
+        return len(self.parts) // self.groups
 
     @property
     def rows(self) -> int:
@@ -110,7 +188,8 @@ class RowShards:
     @property
     def shape(self) -> torch.Size:
         s = list(self.parts[0].shape)
-        s[-2] *= len(self.parts)
+        s[0] *= self.groups
+        s[-2] *= self.slots
         return torch.Size(s)
 
     @property
@@ -119,37 +198,76 @@ class RowShards:
 
     def offsets(self) -> List[int]:
         """The global row of each slot's first row."""
-        return [s * self.rows for s in range(len(self.parts))]
+        return [(i % self.slots) * self.rows for i in range(len(self.parts))]
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "RowShards":
         """``fn`` of every shard, in place of it (row counts kept equal)."""
-        return RowShards([fn(p) for p in self.parts], self.mesh, self.axis)
+        return RowShards([fn(p) for p in self.parts], self.mesh, self.axis, self.env_axis)
+
+    def instances(self) -> List[slice]:
+        """The slice of the batch each ring holds, in ring order."""
+        if self.groups == 1:
+            return [slice(None)]
+        k = self.parts[0].shape[0]
+        return [slice(e * k, (e + 1) * k) for e in range(self.groups)]
+
+    def rings(self) -> List["RowShards"]:
+        """Each env group's shards as one-axis shards on its ring
+        (:meth:`Mesh.ring`), in instance order."""
+        n = self.slots
+        return [RowShards(self.parts[e * n:(e + 1) * n], self.mesh.ring(e), self.axis)
+                for e in range(self.groups)]
+
+    def take(self, instance: int) -> "RowShards":
+        """One instance's shards ([1, ...]) on the ring that holds it."""
+        k = self.parts[0].shape[0]
+        ring = self.rings()[instance // k if self.groups > 1 else 0]
+        i = instance % k if self.groups > 1 else instance
+        return ring.map(lambda p: p[i:i + 1])
 
     def __repr__(self) -> str:
-        return f"RowShards({tuple(self.shape)}, {self.parts[0].dtype}, {self.mesh})"
+        env = f", env_axis={self.env_axis!r}" if self.env_axis else ""
+        return f"RowShards({tuple(self.shape)}, {self.parts[0].dtype}, {self.mesh}{env})"
 
 
-def shard_rows(x: torch.Tensor, mesh: Mesh, axis: str = "space") -> RowShards:
-    """Split ``x``'s rows (dimension -2) evenly over the mesh's slots, each
-    shard a new allocation on its slot's device."""
-    n = mesh.size
+def ringwise(x: RowShards, fn: Callable[[RowShards, int], RowShards]) -> RowShards:
+    """``fn(ring, e)`` of each env group e's ring (``x.instances()[e]`` the
+    slice of the batch it holds), the rings' results together again on x's
+    mesh: how a one-axis operation runs on a two-axis mesh, each ring
+    independent of the others."""
+    outs = [fn(r, e) for e, r in enumerate(x.rings())]
+    return RowShards([p for o in outs for p in o.parts], x.mesh, x.axis, x.env_axis)
+
+
+def shard_rows(x: torch.Tensor, mesh: Mesh, axis: str = "space",
+               env_axis: Optional[str] = None) -> RowShards:
+    """Split ``x``'s rows (dimension -2) evenly over the slots of the mesh's
+    row axis, and with ``env_axis`` its instances (dimension 0) over the env
+    groups; each shard a new allocation on its slot's device."""
+    groups, n = _layout(mesh, axis, env_axis)
     h = x.shape[-2]
     if h % n:
         raise ValueError(f"height {h} not divisible by the {axis} axis ({n})")
-    hl = h // n
+    if groups > 1 and x.shape[0] % groups:
+        raise ValueError(f"instances {x.shape[0]} not divisible by the {env_axis} axis "
+                         f"({groups})")
+    hl, k = h // n, x.shape[0] // groups
     parts = []
-    for s, dev in enumerate(mesh.devices):
-        part = torch.empty(x.shape[:-2] + (hl, x.shape[-1]), dtype=x.dtype, device=dev)
-        part.copy_(x[..., s * hl:(s + 1) * hl, :])
+    for i, dev in enumerate(mesh.devices[:groups * n]):
+        e, s = divmod(i, n)
+        block = (x if groups == 1 else x[e * k:(e + 1) * k])[..., s * hl:(s + 1) * hl, :]
+        part = torch.empty(block.shape, dtype=x.dtype, device=dev)
+        part.copy_(block)
         parts.append(part)
-    return RowShards(parts, mesh, axis)
+    return RowShards(parts, mesh, axis, env_axis)
 
 
 def gather_rows(x: RowShards, device: Any = None) -> torch.Tensor:
-    """The whole tensor on ``device`` (default: the mesh's home device);
-    differentiable."""
+    """The whole tensor on ``device`` (default: the mesh's home device), the
+    instances in order; differentiable."""
     dev = x.mesh.home if device is None else torch.device(device)
-    return torch.cat([p.to(dev) for p in x.parts], dim=-2)
+    rings = [torch.cat([p.to(dev) for p in r.parts], dim=-2) for r in x.rings()]
+    return rings[0] if len(rings) == 1 else torch.cat(rings, dim=0)
 
 
 def tree_map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -164,4 +282,5 @@ def tree_map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
-__all__ = ["Mesh", "RowShards", "gather_rows", "make_mesh", "shard_rows", "tree_map_leaves"]
+__all__ = ["Mesh", "RowShards", "gather_rows", "make_mesh", "ringwise", "shard_rows",
+           "tree_map_leaves"]

@@ -32,10 +32,20 @@ home device.  Trajectories equal the uint8 stack's bit for bit, toggles,
 resets and learning wrappers included (tests/test_torch_packed.py,
 tests/test_torch_spatial.py).
 
+With ``env_axis`` on a two-axis ``Mesh([[...], ...], ("env", "space"))``
+the universes' instances also shard over ``env`` (parallel/mesh.py): each
+env group's slots are a ring of their own, a step XORs each group's
+instances of the window into its ring and runs the halo kernel once a ring,
+the master reset (worked out once over every instance) clears every ring,
+and the gathered views, ``universe`` and ``observe`` come back in instance
+order (tests/test_torch_spatial_2d.py).  ``free_steps`` runs each ring where
+the JAX stack gathers over ``env`` for the burst; the bits are the same.
+
 Usage::
 
     stack = PackedSpatialStack(config, wrappers)                 # one device
     stack = PackedSpatialStack(config, wrappers, make_mesh(...))  # row shards
+    stack = PackedSpatialStack(config, wrappers, mesh2d, env_axis="env")  # env x space
     ro = Rollout(config, agent=agent, stack=stack, device="cuda")
     carry = ro.init(ro.generator(0), rule_bits)
     carry, rewards = ro.run(carry, num_steps)
@@ -54,8 +64,9 @@ from ..ops.ca import pad_action
 from ..ops.cuda_bitpack import bit_multi_step
 from ..packed import (PackedEnvState, init_packed_state, pack_action, pack_action_window,
                       packed_transition, xor_words)
-from .mesh import Mesh, RowShards, gather_rows, shard_rows, tree_map_leaves
+from .mesh import Mesh, RowShards, gather_rows, ringwise, shard_rows, tree_map_leaves
 from .spatial import bit_spatial_multi_step
+from .spatial_env import _placement, place_leaf
 
 
 class PackedSpatialStack(WrapperStack):
@@ -64,16 +75,16 @@ class PackedSpatialStack(WrapperStack):
     :class:`~carle_tpu_torch.mcl.base.WrapperStack` (``init``, ``step``,
     ``transition``, ``reset``, ``observe``), so :class:`Rollout` and the
     trainer compose with it unchanged.  Needs ``width % 32 == 0`` and, with a
-    mesh, ``height`` divisible by the slots.  ``env_axis`` (the JAX stack's
-    2-D env x space mesh) is not supported yet."""
+    mesh, ``height`` divisible by the slots of its ``axis_name``; with
+    ``env_axis`` (a two-axis mesh) ``instances`` divisible by its groups."""
 
     def __init__(self, config: EnvConfig, wrappers: Sequence[WrapperDef] = (),
                  mesh: Optional[Mesh] = None, axis_name: str = "space",
                  env_axis: Optional[str] = None) -> None:
         if config.width % WORD:
             raise ValueError(f"packed stack needs width % {WORD} == 0, got {config.width}")
-        if env_axis is not None:
-            raise NotImplementedError("the 2-D env x space mesh (env_axis) is not ported yet")
+        if env_axis is not None and mesh is None:
+            raise ValueError("env_axis needs a two-axis mesh")
         if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)}")
@@ -81,6 +92,12 @@ class PackedSpatialStack(WrapperStack):
             if config.height % n:
                 raise ValueError(f"height {config.height} not divisible by the space axis "
                                  f"({n})")
+            if env_axis is not None:
+                if env_axis not in mesh.shape:
+                    raise ValueError(f"env axis {env_axis!r} is not an axis of {mesh}")
+                if config.instances % mesh.shape[env_axis]:
+                    raise ValueError(f"instances {config.instances} not divisible by the "
+                                     f"env axis ({mesh.shape[env_axis]})")
         super().__init__(config, wrappers)
         self.mesh = mesh
         self.axis_name = axis_name
@@ -89,17 +106,24 @@ class PackedSpatialStack(WrapperStack):
 
     # --- state accessors ----------------------------------------------------
     def _shards(self, g) -> RowShards:
-        """The universe as shards on the mesh (a whole tensor is sharded, as
-        a shard_map reshards its input)."""
-        return g if isinstance(g, RowShards) else shard_rows(g, self.mesh, self.axis_name)
+        """The universe as shards on the mesh and axes of the stack (a whole
+        tensor, or shards laid out otherwise, are sharded anew, as a
+        shard_map reshards its input)."""
+        if isinstance(g, RowShards):
+            if g.mesh is self.mesh and g.env_axis == self.env_axis:
+                return g
+            g = gather_rows(g)
+        return self._shard(g)
+
+    def _shard(self, words: torch.Tensor) -> RowShards:
+        return shard_rows(words, self.mesh, self.axis_name, self.env_axis)
 
     def universe(self, state: StackState, instance: Optional[int] = None) -> torch.Tensor:
         """uint8 [inst, H, W] universe (or one instance's [H, W])."""
         g = state.env.grid
         if isinstance(g, RowShards):
             if instance is not None:
-                g = g.map(lambda p: p[instance:instance + 1])
-                return unpack_grid(gather_rows(g), self.config.width)[0]
+                return unpack_grid(gather_rows(g.take(instance)), self.config.width)[0]
             g = gather_rows(g)
         elif instance is not None:
             g = g[instance]  # decode ONE instance, not the whole batch
@@ -114,7 +138,7 @@ class PackedSpatialStack(WrapperStack):
         wstates = tuple(w.init(generator, device) for w in self.wrappers)
         env = init_packed_state(self.config, rule_bits, device)
         if self.mesh is not None:
-            env = env._replace(grid=shard_rows(env.grid, self.mesh, self.axis_name))
+            env = env._replace(grid=self._shard(env.grid))
         return StackState(env=env, wrappers=wstates)
 
     def _unpack(self, words) -> torch.Tensor:
@@ -134,22 +158,26 @@ class PackedSpatialStack(WrapperStack):
         if self.mesh is None:
             return packed_transition(env, action, cfg)
 
-        def halo_step(grid, action_bits):
-            prev = self._shards(grid)
-            window, r0, w0 = pack_action_window(action_bits, cfg)
+        def toggled(ring: RowShards, window: torch.Tensor, r0: int, w0: int) -> RowShards:
+            """The ring's slots with its instances' packed window XOR-ed in."""
             ah, nw = window.shape[1], window.shape[2]
             parts = []
-            for p, a in zip(prev.parts, prev.offsets()):
-                lo, hi = max(a, r0), min(a + prev.rows, r0 + ah)
+            for p, a in zip(ring.parts, ring.offsets()):
+                lo, hi = max(a, r0), min(a + ring.rows, r0 + ah)
                 if lo < hi:   # this slot's rows hold part of the window
                     p = p.clone()
                     p[:, lo - a:hi - a, w0:w0 + nw] = xor_words(
                         p[:, lo - a:hi - a, w0:w0 + nw], window[:, lo - r0:hi - r0].to(p.device))
                 parts.append(p)
-            stepped = bit_spatial_multi_step(RowShards(parts, prev.mesh, prev.axis),
-                                             env.rule_bits, 1)
-            return stepped, Lazy(lambda: shard_rows(pack_action(action_bits, cfg), self.mesh,
-                                                    self.axis_name))
+            return RowShards(parts, ring.mesh, ring.axis)
+
+        def halo_step(grid, action_bits):
+            window, r0, w0 = pack_action_window(action_bits, cfg)
+            prev = self._shards(grid)
+            slices = prev.instances()
+            prev = ringwise(prev, lambda ring, e: toggled(ring, window[slices[e]], r0, w0))
+            stepped = bit_spatial_multi_step(prev, env.rule_bits, 1)
+            return stepped, Lazy(lambda: self._shard(pack_action(action_bits, cfg)))
 
         return packed_transition(env, action, cfg, halo_step)
 
@@ -202,7 +230,7 @@ class PackedSpatialStack(WrapperStack):
             new_wstates.append(ws)
         words = pack_grid(grid.to(torch.uint8))
         if self.mesh is not None:
-            words = shard_rows(words, self.mesh, self.axis_name)
+            words = self._shard(words)
         env = PackedEnvState(grid=words, rule_bits=env.rule_bits,
                              step_num=torch.zeros_like(env.step_num),
                              steps_since_action=torch.zeros_like(env.steps_since_action))
@@ -226,34 +254,27 @@ class PackedSpatialStack(WrapperStack):
 
 
 def packed_spatial_sharding(mesh: Mesh, leaf: Any, config: EnvConfig,
-                            axis_name: str = "space") -> Optional[str]:
-    """Where one packed-stack state leaf goes: the axis name for the packed
-    universes [instances, H, W/32] (their rows shard over that axis), None
-    for a leaf that stays whole on the mesh's home device: parameters,
-    optimizer state, counters, rules, and the wrappers' own word planes (the
-    packed statistics' [H, W/32] masks, the Prediction ring) — the JAX
-    package shards those too, where GSPMD hides it from the wrappers."""
-    n = mesh.shape[axis_name]
-    if (isinstance(leaf, torch.Tensor) and leaf.dtype == torch.uint32
-            and tuple(leaf.shape) == (config.instances, config.height, config.width // WORD)
-            and config.height % n == 0):
-        return axis_name
-    return None
+                            axis_name: str = "space", env_axis: Optional[str] = None) -> Any:
+    """Where one packed-stack state leaf goes: for the packed universes
+    [instances, H, W/32] the axis name their rows shard over, or with
+    ``env_axis`` (a two-axis mesh) the spec ``(env_axis, axis_name, None)``
+    (``None`` first where the instances do not divide over it); None for a
+    leaf that stays whole on the mesh's home device: parameters, optimizer
+    state, counters, rules, and the wrappers' own word planes (the packed
+    statistics' [H, W/32] masks, the Prediction ring) — the JAX package
+    shards those too, where GSPMD hides it from the wrappers."""
+    universe = (config.instances, config.height, config.width // WORD)
+    return _placement(mesh, leaf, config, universe, torch.uint32, axis_name, env_axis)
 
 
 def shard_carry_packed(carry: Any, mesh: Mesh, config: EnvConfig,
-                       axis_name: str = "space") -> Any:
+                       axis_name: str = "space", env_axis: Optional[str] = None) -> Any:
     """A packed-stack carry (or state) with its packed universes sharded over
-    the mesh and every other tensor on the mesh's home device."""
-
-    def place(leaf):
-        if isinstance(leaf, RowShards) or not isinstance(leaf, torch.Tensor):
-            return leaf
-        if packed_spatial_sharding(mesh, leaf, config, axis_name) is not None:
-            return shard_rows(leaf, mesh, axis_name)
-        return leaf.to(mesh.home)
-
-    return tree_map_leaves(place, carry)
+    the mesh (with ``env_axis`` their instances too: pass the stack the same
+    axes) and every other tensor on the mesh's home device."""
+    return tree_map_leaves(lambda leaf: place_leaf(
+        leaf, packed_spatial_sharding(mesh, leaf, config, axis_name, env_axis), mesh,
+        axis_name), carry)
 
 
 __all__ = ["PackedSpatialStack", "packed_spatial_sharding", "shard_carry_packed"]

@@ -6,8 +6,10 @@ The ring wraps, so the torus is global; columns stay inside a slot, so they
 wrap as on one device.  Each function takes the universe as
 :class:`~.mesh.RowShards` (or as one tensor, which it first shards over
 ``mesh``) and returns :class:`~.mesh.RowShards` on the same mesh
-(:func:`~.mesh.gather_rows` gives the whole tensor).  CUDA slots run the
-halo kernels (parallel/cuda_halo.py), CPU slots their plain twins.  Rules
+(:func:`~.mesh.gather_rows` gives the whole tensor).  On a two-axis env x
+space mesh each env group's slots are a torus of their own over the group's
+instances.  CUDA slots run the halo kernels (parallel/cuda_halo.py), CPU
+slots their plain twins.  Rules
 ride as data, a scalar or one a universe; ``static_rules`` fixes the packed
 rule at compile time.
 """

@@ -30,8 +30,18 @@ home device.  Trajectories equal the ``mesh=None`` stack's bit for bit
 The JAX mode refuses a Pallas backend (``_check_xla_backend``) because a
 ``pallas_call`` is opaque to the GSPMD partitioner.  The port's config has
 no backend field and its sharded step is written for shards, so nothing is
-checked here.  The 2-D env x space mesh (``shard_carry_2d``, ``env_axis``) is
-not ported.
+checked here.
+
+On a two-axis ``Mesh([[...], ...], ("env", "space"))``,
+:func:`shard_carry_2d` shards the universes' instances over ``env`` and
+their rows over ``space`` at once (parallel/mesh.py): each env group's
+slots are a ring of their own, the step launches once a ring a device with
+the ring's instances of the action and the rule, and the master reset's
+flag is worked out once over every instance.  The gathered views come back
+in instance order.  Universes whose instances do not divide over ``env``
+shard their rows only (on the first group's ring).  The other
+instance-batched leaves (statistics, action streams), which the JAX package
+shards over ``env``, stay whole on the home device with everything else.
 
 Usage::
 
@@ -40,6 +50,9 @@ Usage::
     carry = ro.init(ro.generator(0), rule_bits)
     carry = shard_carry_spatial(carry, mesh, config)
     carry, rewards = ro.run(carry, num_steps)               # runs row-sharded
+
+    mesh = Mesh([[torch.device("cuda")] * 4] * 2, ("env", "space"))
+    carry = shard_carry_2d(ro.init(ro.generator(0), rule_bits), mesh, config)
 """
 
 from __future__ import annotations
@@ -53,37 +66,70 @@ from ..mcl.base import Lazy, WrapperStack
 from .mesh import Mesh, RowShards, gather_rows, shard_rows, tree_map_leaves
 
 
-def spatial_sharding(mesh: Mesh, leaf: Any, config: EnvConfig, axis_name: str = "space",
-                     env_axis: Optional[str] = None) -> Optional[str]:
-    """Where one state leaf goes in spatial mode: the axis name for the uint8
-    universes [instances, H, W] (their rows shard over that axis), None for a
-    leaf that stays whole on the mesh's home device (parameters, optimizer
-    state, counters, rules, wrapper states; the JAX package shards every
-    leaf of the universe's extent, where GSPMD hides it from the
-    wrappers)."""
-    if env_axis is not None:
-        raise NotImplementedError("the 2-D env x space mesh (env_axis) is not ported yet")
+def _placement(mesh: Mesh, leaf: Any, config: EnvConfig, universe: Tuple[int, ...],
+               dtype: torch.dtype, axis_name: str, env_axis: Optional[str]) -> Any:
+    """The placement of one leaf: None (whole on the home device) unless it
+    is a universe of ``dtype`` and shape ``universe`` whose rows divide over
+    ``axis_name``; then the axis name, or with ``env_axis`` the spec
+    (``env_axis`` or None, ``axis_name``, None) of JAX's PartitionSpec, the
+    instances over ``env_axis`` where it is an axis of the mesh that divides
+    them."""
     n = mesh.shape[axis_name]
-    if (isinstance(leaf, torch.Tensor) and leaf.dtype == torch.uint8
-            and tuple(leaf.shape) == config.grid_shape and config.height % n == 0):
+    if not (isinstance(leaf, torch.Tensor) and leaf.dtype == dtype
+            and tuple(leaf.shape) == universe and config.height % n == 0):
+        return None
+    if env_axis is None:
         return axis_name
-    return None
+    env = (env_axis if env_axis in mesh.shape
+           and config.instances % mesh.shape[env_axis] == 0 else None)
+    return (env, axis_name, None)
+
+
+def spatial_sharding(mesh: Mesh, leaf: Any, config: EnvConfig, axis_name: str = "space",
+                     env_axis: Optional[str] = None) -> Any:
+    """Where one state leaf goes in spatial mode: for the uint8 universes
+    [instances, H, W] the axis name their rows shard over, or with
+    ``env_axis`` (a two-axis mesh) the spec ``(env_axis, axis_name, None)``,
+    ``(None, axis_name, None)`` where the instances do not divide over the
+    env axis; None for a leaf that stays whole on the mesh's home device
+    (parameters, optimizer state, counters, rules, wrapper states; the JAX
+    package shards every leaf of the universe's extent, and instance-batched
+    leaves over ``env``, where GSPMD hides it from the wrappers)."""
+    return _placement(mesh, leaf, config, config.grid_shape, torch.uint8, axis_name,
+                      env_axis)
+
+
+def place_leaf(leaf: Any, where: Any, mesh: Mesh, axis_name: str) -> Any:
+    """A leaf where a placement (:func:`spatial_sharding`) puts it: row
+    shards (the instances over the spec's env axis, where it has one), or
+    whole on the home device; shards and non-tensors as they are."""
+    if isinstance(leaf, RowShards) or not isinstance(leaf, torch.Tensor):
+        return leaf
+    if where is None:
+        return leaf.to(mesh.home)
+    return shard_rows(leaf, mesh, axis_name, where[0] if isinstance(where, tuple) else None)
 
 
 def shard_carry_spatial(carry: Any, mesh: Mesh, config: EnvConfig,
                         axis_name: str = "space") -> Any:
     """A rollout carry (or any state tree) for spatial execution: the uint8
     universes row-sharded over the mesh, every other tensor on the mesh's
-    home device."""
+    home device.  For the env x space layout use :func:`shard_carry_2d`."""
+    return tree_map_leaves(lambda leaf: place_leaf(
+        leaf, spatial_sharding(mesh, leaf, config, axis_name), mesh, axis_name), carry)
 
-    def place(leaf):
-        if isinstance(leaf, RowShards) or not isinstance(leaf, torch.Tensor):
-            return leaf
-        if spatial_sharding(mesh, leaf, config, axis_name) is not None:
-            return shard_rows(leaf, mesh, axis_name)
-        return leaf.to(mesh.home)
 
-    return tree_map_leaves(place, carry)
+def shard_carry_2d(carry: Any, mesh: Mesh, config: EnvConfig, env_axis: str = "env",
+                   space_axis: str = "space") -> Any:
+    """A rollout carry on a two-axis env x space mesh: the uint8 universes'
+    instances sharded over ``env_axis`` and their rows over ``space_axis``
+    at once, every other tensor on the home device.  A universe whose
+    instances do not divide over the env axis shards its rows only, as the
+    JAX package's leaf that fails a divisibility check shards only on the
+    other axis (3 instances on 2 x 4: rows over ``space``)."""
+    return tree_map_leaves(lambda leaf: place_leaf(
+        leaf, spatial_sharding(mesh, leaf, config, space_axis, env_axis), mesh, space_axis),
+        carry)
 
 
 def gathered_views(stack: WrapperStack, prev: RowShards, grid: RowShards
@@ -107,4 +153,4 @@ def gathered_views(stack: WrapperStack, prev: RowShards, grid: RowShards
             Lazy(lambda: obs_cells().to(torch.float32)))
 
 
-__all__ = ["gathered_views", "shard_carry_spatial", "spatial_sharding"]
+__all__ = ["gathered_views", "shard_carry_2d", "shard_carry_spatial", "spatial_sharding"]

@@ -27,6 +27,12 @@ device, with halo rows sized to the kernel's receptive field:
   formula), and its Philox counter runs over its padded block's rows, so a
   row recomputed as a neighbour's halo draws another mask than in its own
   slot, as in the JAX package; forward and backward of a slot agree.
+* on a two-axis env x space mesh (``SpaceSharding(mesh, "space", "env")``)
+  each env group's slots run as a ring of their own over the group's
+  instances (parallel/mesh.py's ``ringwise``): halo rows never cross into
+  another group, the row mask is built for the group's instances, the seed
+  takes the env index as JAX's does, and the reconstruction error adds over
+  ``space`` within a group and concatenates the groups in instance order.
 
 Inputs and outputs are :class:`~.mesh.RowShards` on the stack's mesh.
 """
@@ -40,9 +46,10 @@ import torch
 from .. import nets
 from ..nets import SpaceSharding
 from ..ops import cuda_head, cuda_stages
-from .mesh import RowShards
+from .mesh import RowShards, ringwise
 
 SEED_STRIDE = 0x3779B1   # carle_tpu/parallel/spatial_heads.py::_shard_seed
+ENV_STRIDE = 1013904223  # the same, the space index's factor with an env axis
 
 
 def _words_as_int32(t: torch.Tensor) -> torch.Tensor:
@@ -52,7 +59,8 @@ def _words_as_int32(t: torch.Tensor) -> torch.Tensor:
 
 def _halo_rows(x: RowShards, halo: int) -> List[torch.Tensor]:
     """Each slot's [N, C, HL, W*] block padded with ``halo`` rows of each
-    neighbour over the OPEN ring: zero rows past the universe's edges."""
+    neighbour over the OPEN ring (one ring: a one-axis mesh's, or one env
+    group's): zero rows past the universe's edges."""
     parts, n = x.parts, len(x.parts)
     if halo > x.rows:
         raise ValueError(f"a halo of {halo} rows exceeds the {x.rows} rows a slot holds")
@@ -67,10 +75,18 @@ def _halo_rows(x: RowShards, halo: int) -> List[torch.Tensor]:
     return out
 
 
-def _shard_seed(seed: int, s: int) -> int:
-    """Slot s's dropout seed: carle_tpu/parallel/spatial_heads.py::_shard_seed
-    on the space axis (the env axis waits with the 2-D mesh)."""
-    return int(seed) + s * SEED_STRIDE
+def _int32(v: int) -> int:
+    """``v`` wrapped to a signed 32-bit integer (int32 arithmetic)."""
+    return (int(v) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _shard_seed(seed: int, s: int, e: Optional[int] = None) -> int:
+    """Slot s's dropout seed in env group e (None: a one-axis mesh), in
+    int32 arithmetic: carle_tpu/parallel/spatial_heads.py::_shard_seed, whose
+    offset is the space index, times ENV_STRIDE plus the env index on a
+    two-axis mesh."""
+    off = s if e is None else _int32(s * ENV_STRIDE + e)
+    return _int32(int(seed) + off * SEED_STRIDE)
 
 
 def _on(p: nets.Params, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,8 +97,15 @@ def _check(sharding: SpaceSharding, x: RowShards) -> None:
     if not isinstance(x, RowShards):
         raise TypeError("SpaceSharding takes row-sharded inputs (parallel.mesh.RowShards), "
                         f"got {type(x)}")
-    if x.mesh is not sharding.mesh or x.axis != sharding.axis:
-        raise ValueError("the input's shards are not on the SpaceSharding's mesh and axis")
+    if (x.mesh is not sharding.mesh or x.axis != sharding.axis
+            or x.env_axis != sharding.env_axis):
+        raise ValueError("the input's shards are not on the SpaceSharding's mesh and axes")
+
+
+def _by_ring(x: RowShards, sharding: SpaceSharding, fn) -> RowShards:
+    """``fn(ring, env index or None)`` of each env group's ring."""
+    env = sharding.env_axis is not None
+    return ringwise(x, lambda ring, e: fn(ring, e if env else None))
 
 
 def encoder_spatial(x: RowShards, p1: nets.Params, p2: nets.Params, *,
@@ -92,20 +115,24 @@ def encoder_spatial(x: RowShards, p1: nets.Params, p2: nets.Params, *,
     (uint8 cells or packed words): row-sharded [N, C2, H/(p1 p2), W/(p1 p2)]."""
     _check(sharding, x)
     prob, seed = nets._drop_args(drop_p, train, seed)
-    out = []
-    for s, (xp, mask) in enumerate(_encoder_blocks(x, pools)):
-        dev = xp.device
-        y = cuda_head.encoder(xp, *_on(p1, dev), *_on(p2, dev), pools, prob,
-                              _shard_seed(seed, s), mask=mask)
-        out.append(y[:, :, 1:-1])   # the halo's one output row a side
-    return RowShards(out, x.mesh, x.axis)
+
+    def ring(r, e):
+        out = []
+        for s, (xp, mask) in enumerate(_encoder_blocks(r, pools)):
+            dev = xp.device
+            y = cuda_head.encoder(xp, *_on(p1, dev), *_on(p2, dev), pools, prob,
+                                  _shard_seed(seed, s, e), mask=mask)
+            out.append(y[:, :, 1:-1])   # the halo's one output row a side
+        return RowShards(out, r.mesh, r.axis)
+
+    return _by_ring(x, sharding, ring)
 
 
 def _encoder_blocks(x: RowShards, pools: Tuple[int, int]
                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Each slot's encoder input: its block with ``p1 p2`` halo rows a side,
-    and the stage-1 row mask [N, rows / p1] that zeroes the pooled rows
-    outside the universe."""
+    """Each slot's encoder input (of one ring): its block with ``p1 p2`` halo
+    rows a side, and the stage-1 row mask [N, rows / p1] (N the ring's
+    instances) that zeroes the pooled rows outside the universe."""
     pool1, pool2 = pools
     halo = pool1 * pool2
     if x.rows % halo:
@@ -126,28 +153,37 @@ def tail_spatial(x: RowShards, p: nets.Params, *, act: str, drop_p: float, train
     row-sharded input: one input row of halo a side, two output rows cropped."""
     _check(sharding, x)
     prob, seed = nets._drop_args(drop_p, train, seed)
-    out = []
-    for s, xp in enumerate(_halo_rows(x, 1)):
-        y = cuda_stages.tail(xp, *_on(p, xp.device), act, prob, _shard_seed(seed, s), stage)
-        out.append(y[:, :, 2:-2])
-    return RowShards(out, x.mesh, x.axis)
+
+    def ring(r, e):
+        out = []
+        for s, xp in enumerate(_halo_rows(r, 1)):
+            y = cuda_stages.tail(xp, *_on(p, xp.device), act, prob, _shard_seed(seed, s, e),
+                                 stage)
+            out.append(y[:, :, 2:-2])
+        return RowShards(out, r.mesh, r.axis)
+
+    return _by_ring(x, sharding, ring)
 
 
 def loss_tail_spatial(x: RowShards, p: nets.Params, obs: RowShards, *, act: str,
                       drop_p: float, train: bool, seed: Optional[int], stage: int,
                       sharding: SpaceSharding) -> torch.Tensor:
     """The row-sharded reconstruction error: :func:`tail_spatial`, then each
-    slot's ``sum((obs - y)**2)`` over C, H, W, added on the mesh's home
-    device ([N] float32).  obs: row-sharded uint8 cells or packed words."""
+    slot's ``sum((obs - y)**2)`` over C, H, W, added over a ring's slots on
+    the mesh's home device, the env groups' sums concatenated in instance
+    order ([N] float32).  obs: row-sharded uint8 cells or packed words."""
     _check(sharding, obs)
     y = tail_spatial(x, p, act=act, drop_p=drop_p, train=train, seed=seed, stage=stage,
                      sharding=sharding)
-    total = None
-    for ys, os_ in zip(y.parts, obs.parts):
-        err = ((cuda_head.cells(os_).to(torch.float32) - ys) ** 2).sum(dim=(1, 2, 3))
-        err = err.to(x.mesh.home)
-        total = err if total is None else total + err
-    return total
+    sums = []
+    for yr, obr in zip(y.rings(), obs.rings()):
+        total = None
+        for ys, os_ in zip(yr.parts, obr.parts):
+            err = ((cuda_head.cells(os_).to(torch.float32) - ys) ** 2).sum(dim=(1, 2, 3))
+            err = err.to(x.mesh.home)
+            total = err if total is None else total + err
+        sums.append(total)
+    return sums[0] if len(sums) == 1 else torch.cat(sums)
 
 
 __all__ = ["encoder_spatial", "loss_tail_spatial", "tail_spatial"]

@@ -218,12 +218,29 @@ Phases, in order; any failure exits non-zero without the final line:
            step profiled; the uint8 spatial env mode (shard_carry_spatial,
            Speed + Puffer, a master reset) against the mesh=None uint8 stack,
            bit for bit, one halo_words launch and one gather a step;
+9b. spatial_2d the env x space mesh at full size: 2 universes of 8192² on a
+           2 x 4 mesh (one universe an env group, its rows over a ring of 4
+           slots; 8 slots of one card), each held against the 4-slot
+           one-axis mesh on the same 2 universes: the bare halo calls
+           (parallel.spatial, 8 generations; also against their twins on
+           the 2-D shards), bit for bit; the uint8 env mode (shard_carry_2d,
+           Speed + Puffer, a master reset at step 40) bit for bit, two
+           halo_words launches (one a ring) and one gather a step; the
+           packed stack (PackedSpatialStack(env_axis="env")) with packed
+           Morpho + Parsimony, bit for bit, timed against the mesh=None
+           packed stack; then RND2D + AE2D on SpaceSharding(mesh, "space",
+           "env") learning (dropout on, 3 updates) + Morpho + Parsimony, its
+           universe bit for bit, timed and profiled (device and wall ms a
+           step, launches and gathers a step, peak memory); RND2D + AE2D
+           with dropout off against the one-axis mesh (rtol 1e-4 through 3
+           updates);
 10. profile 64 steps of the batched battery and 64 training steps, uint8 and
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
 11. report a {"kernels": [...]} line with each kernel's launches on the main
            paths (battery, submission, server, io, policy, train, routes, wrappers, packed,
-           bands, engines and spatial, each counted from zero just before it; the rows of the
+           bands, engines, spatial and spatial_2d, each counted from zero just before it;
+           the rows of the
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
            byte ca_step kernel, the present packed or uint8 engines or halo
@@ -444,6 +461,9 @@ PATH_KERNELS = {
                 "bit_multi_step_static_cm_words", "bit_multi_step_cm", "ca_multi_step_bits"),
     "spatial": ("spatial_ca_step_words", "spatial_multi_step_bits", "bit_spatial_words",
                 "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
+    # the env x space mesh: the same kernels, a launch a ring
+    "spatial_2d": ("spatial_ca_step_words", "spatial_multi_step_bits", "bit_spatial_words",
+                   "enc3_fwd", "enc3_bwd", "tail2_fwd", "tail2_bwd"),
     # the policies: the env step, the frozen RND and AE2D bonuses, and the
     # policy's fused encoder forward and backward at its widths (8, 1, 2, 2)
     "policy": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd"),
@@ -3729,11 +3749,11 @@ def _slot_head_kernels(torch, timer, gen, g32):
     return out
 
 
-def _env_mode_leg(torch, cfg, acts, mesh):
+def _env_mode_leg(torch, cfg, acts, mesh, place=None):
     """The uint8 stack with Speed + Puffer through Rollout.run_actions over
     ``acts`` (on the card; a master reset among them), the universe sharded
-    over ``mesh`` by shard_carry_spatial (None: one tensor, row 1's
-    ca_step_words): 4 steps warm, the middle timed (wall ms a step after a
+    over ``mesh`` by shard_carry_spatial, or by ``place(carry)`` where given
+    (None and None: one tensor, row 1's ca_step_words): 4 steps warm, the middle timed (wall ms a step after a
     synchronize, the port's kernel launches and the gathers a step; the
     leg's peak memory above what was allocated before it), the last 8 under
     torch.profiler (device ms and launches a step); then one env_step alone
@@ -3754,7 +3774,9 @@ def _env_mode_leg(torch, cfg, acts, mesh):
     ro = Rollout(cfg, [speed_def(cfg, reward_scale=1e-2), puffer_def(cfg, reward_scale=1e-3)],
                  device="cuda")
     carry = ro.init(ro.generator(0), rules.LIFE)
-    if mesh is not None:
+    if place is not None:
+        carry = place(carry)
+    elif mesh is not None:
         carry = shard_carry_spatial(carry, mesh, cfg)
     carry, r_warm = ro.run_actions(carry, acts[:4])
     torch.cuda.synchronize()
@@ -3976,6 +3998,205 @@ def phase_spatial(torch, cuda_build):
     del ro
     log(f"spatial ok: {json.dumps({k: v for k, v in out.items() if not k.startswith('profile')})}")
     return counts, out
+
+
+SPATIAL_2D = (2, 4)   # the env x space mesh: env groups x slots a ring, all on one card
+
+
+def _mesh_2d(torch):
+    from carle_tpu_torch.parallel.mesh import Mesh
+
+    n_env, n_space = SPATIAL_2D
+    return Mesh([[torch.device("cuda")] * n_space] * n_env, ("env", "space"))
+
+
+def _packed_leg(torch, cfg, defs, acts, mesh, env_axis=None, warm=2, prof=0):
+    """The packed stack with ``defs`` through Rollout.run_actions over
+    ``acts`` (the universes sharded over ``mesh``, with ``env_axis`` their
+    instances too; None: one tensor): ``warm`` steps, the next steps timed
+    (wall ms a step after a synchronize, the port's kernel launches, the
+    gathers a step, the peak memory above the start), the last ``prof``
+    under torch.profiler (device ms and launches a step).  Returns (stats,
+    rewards, universe, carry)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.ops import cuda_build
+    from carle_tpu_torch.parallel import PackedSpatialStack, shard_carry_packed
+    from carle_tpu_torch.rollout import Rollout
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stack = PackedSpatialStack(cfg, defs, mesh, env_axis=env_axis)
+    ro = Rollout(cfg, device="cuda", stack=stack)
+    carry = ro.init(ro.generator(0), rules.LIFE)
+    if mesh is not None:
+        carry = shard_carry_packed(carry, mesh, cfg, env_axis=env_axis)
+    carry, r_warm = ro.run_actions(carry, acts[:warm])
+    torch.cuda.synchronize()
+    timed = acts[warm:len(acts) - prof]
+    g0, c0 = stack.gathers, cuda_build.launch_counts()
+    t0 = time.perf_counter()
+    carry, r_timed = ro.run_actions(carry, timed)
+    torch.cuda.synchronize()
+    n = len(timed)
+    stats = {"steps": len(acts), "wall_ms_per_step": (time.perf_counter() - t0) * 1e3 / n,
+             "kernel_launches_per_step": {k: (v - c0[k]) / n for k, v in
+                                          cuda_build.launch_counts().items() if v != c0[k]},
+             "gathers_per_step": (stack.gathers - g0) / n, "unpacks": stack.unpacks,
+             "peak_bytes_above_start": torch.cuda.max_memory_allocated() - base}
+    rewards = [r_warm, r_timed]
+    if prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            carry, r_prof = ro.run_actions(carry, acts[-prof:])
+            torch.cuda.synchronize()
+        rewards.append(r_prof)
+        events = [e for e in p.key_averages()
+                  if str(e.device_type).endswith("CUDA") and _device_us(e) > 0]
+        stats["device_ms_per_step"] = sum(_device_us(e) for e in events) / 1e3 / prof
+        stats["device_launches_per_step"] = sum(e.count for e in events) / prof
+        stats["top_device_us_per_step"] = [
+            {"name": e.key[:60], "us": _device_us(e) / prof, "calls_per_step": e.count / prof}
+            for e in sorted(events, key=_device_us, reverse=True)[:8]]
+    return stats, torch.cat(rewards), stack.universe(carry.stack), carry
+
+
+def phase_spatial_2d(torch, cuda_build):
+    """The env x space mesh at full size: 2 universes of 8192², one an env
+    group, on a 2 x 4 mesh of 8 slots of one card (parallel.mesh.Mesh(...,
+    ("env", "space"))), each leg held against the 4-slot one-axis mesh on the
+    same 2 universes (the bare halo calls timed against it in turns before
+    the counts are zeroed).  The path, counted from zero: the bare halo calls
+    (spatial_multi_step, bit_spatial_multi_step, 8 generations; against the
+    one-axis mesh and the twins on the 2-D shards, bit for bit); the uint8
+    env mode (shard_carry_2d, Speed + Puffer, a master reset at step 40;
+    bit for bit, a halo_words launch a ring a step and one gather a step);
+    the packed stack with env_axis="env" and packed Morpho + Parsimony (bit
+    for bit; its step time against the mesh=None packed stack's); RND2D +
+    AE2D with SpaceSharding(mesh, "space", "env") learning (dropout on,
+    batch 4: 3 updates in 12 steps) + Morpho + Parsimony (its universe bit
+    for bit; timed and profiled).  After the counts are read: RND2D + AE2D
+    with dropout off against the one-axis mesh, rtol 1e-4 through 3
+    updates."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, nets, rules
+    from carle_tpu_torch.mcl import (ae2d_def, morpho_def_packed, parsimony_def_packed,
+                                     rnd2d_def)
+    from carle_tpu_torch.ops import bitpack
+    from carle_tpu_torch.parallel import cuda_halo, shard_carry_2d, spatial
+    from carle_tpu_torch.parallel.mesh import gather_rows, shard_rows
+
+    dev = torch.device("cuda")
+    mesh1, mesh2 = _spatial_mesh(torch), _mesh_2d(torch)
+    size, n_env = SPATIAL_SIZE, SPATIAL_2D[0]
+    cfg = EnvConfig(height=size, width=size, action_height=64, action_width=64,
+                    instances=n_env)
+    acts = torch.from_numpy((np.random.RandomState(1).rand(12, *cfg.action_shape) < 0.2)
+                            .astype(np.float32)).to(dev)
+    env_acts = torch.from_numpy((np.random.RandomState(2).rand(64, *cfg.action_shape) < 0.2)
+                                .astype(np.float32)).to(dev)
+    env_acts[40] = 1.0
+    out = {"mesh": "2 x 4 (env x space) on one card", "universes": n_env,
+           "devices": [str(d) for d in mesh2.devices]}
+    morpho = lambda: [morpho_def_packed(cfg, reward_scale=1.0), parsimony_def_packed()]
+    learners = lambda tag, **kw: [rnd2d_def(cfg, batch_size=4, fused_head=tag, **kw),
+                                  ae2d_def(cfg, batch_size=4, fused_head=tag, **kw)]
+    tag1 = nets.SpaceSharding(mesh1)
+    tag2 = nets.SpaceSharding(mesh2, "space", "env")
+
+    # what the path is held against, before its launches are counted: the
+    # one-axis mesh on the same universes, the mesh=None packed stack
+    grid = torch.from_numpy((np.random.RandomState(0).rand(n_env, size, size) < 0.3)
+                            .astype(np.uint8)).to(dev)
+    words = bitpack.pack_grid(grid)
+    life = torch.tensor(rules.LIFE, dtype=torch.int32, device=dev)
+    one_axis = {"spatial_multi_step": gather_rows(spatial.spatial_multi_step(grid, life, 8,
+                                                                            mesh1)),
+                "bit_spatial_multi_step": gather_rows(spatial.bit_spatial_multi_step(
+                    words, life, 8, mesh1))}
+    x2, w2 = shard_rows(grid, mesh2, "space", "env"), shard_rows(words, mesh2, "space", "env")
+    twins = {"spatial_multi_step": gather_rows(cuda_halo.spatial_multi_step_plain(x2, life, 8)),
+             "bit_spatial_multi_step": gather_rows(cuda_halo.bit_spatial_multi_step_plain(
+                 w2, life, 8))}
+    # the bare calls' device ms, a launch a ring against one launch, in turns
+    x1, w1, timer = shard_rows(grid, mesh1), shard_rows(words, mesh1), Timer(torch)
+    out["halo_ms_in_turns"] = _in_turns(timer, {
+        "spatial_multi_step_one_axis": lambda: spatial.spatial_multi_step(x1, life, 8),
+        "spatial_multi_step_2d": lambda: spatial.spatial_multi_step(x2, life, 8),
+        "bit_spatial_multi_step_one_axis": lambda: spatial.bit_spatial_multi_step(w1, life, 8),
+        "bit_spatial_multi_step_2d": lambda: spatial.bit_spatial_multi_step(w2, life, 8)})
+    del x1, w1, timer
+    env_one = _env_mode_leg(torch, cfg, env_acts, mesh1)
+    morpho_one = _packed_leg(torch, cfg, morpho(), acts[:8], mesh1)
+    morpho_none = _packed_leg(torch, cfg, morpho(), acts[:8], None)
+    check(torch.equal(morpho_one[1], morpho_none[1]) and torch.equal(morpho_one[2],
+                                                                      morpho_none[2]),
+          "packed Morpho: the one-axis mesh differs from mesh=None")
+    cuda_build.reset_launch_counts()
+
+    # the bare halo calls on the 2-D shards
+    got = {"spatial_multi_step": gather_rows(spatial.spatial_multi_step(x2, life, 8)),
+           "bit_spatial_multi_step": gather_rows(spatial.bit_spatial_multi_step(w2, life, 8))}
+    for name, g in got.items():
+        check(torch.equal(g, one_axis[name]) and torch.equal(g, twins[name]),
+              f"{name} on 2-D shards differs from the one-axis mesh or the twin")
+    out["halo_launches"] = {k: v for k, v in cuda_build.launch_counts().items() if v}
+    del grid, words, x2, w2, got, one_axis, twins
+
+    # the uint8 env mode on the 2-D mesh: Speed + Puffer, a master reset
+    stats, r, universe = _env_mode_leg(torch, cfg, env_acts, mesh2,
+                                       place=lambda c: shard_carry_2d(c, mesh2, cfg))
+    stats_one, r_one, universe_one = env_one
+    check(torch.equal(universe, universe_one) and torch.equal(r, r_one),
+          "uint8 env mode on 2 x 4: universe or rewards differ from the one-axis mesh")
+    check(stats["kernel_launches_per_step"] == {"spatial_ca_step_words": float(n_env)},
+          f"uint8 env mode on 2 x 4: launches a step {stats['kernel_launches_per_step']}, "
+          f"not {n_env} spatial_ca_step_words (one a ring)")
+    check(stats["gathers_per_step"] == 1, "uint8 env mode on 2 x 4: not one gather a step")
+    check(int(universe.sum()) > 0, "uint8 env mode on 2 x 4: empty universe")
+    out["env_mode"] = {"2d": stats, "one_axis": stats_one}
+    del universe, universe_one, env_one
+
+    # packed Morpho + Parsimony on the 2-D mesh: bit for bit
+    stats, r, universe, _ = _packed_leg(torch, cfg, morpho(), acts[:8], mesh2, "env", prof=2)
+    check(torch.equal(r, morpho_one[1]) and torch.equal(universe, morpho_one[2]),
+          "packed Morpho on 2 x 4 differs from the one-axis mesh")
+    check(stats["gathers_per_step"] == 0 and stats["unpacks"] == 0,
+          "packed Morpho on 2 x 4 gathered or unpacked")
+    out["morpho"] = {"2d": stats, "one_axis": morpho_one[0], "mesh_none": morpho_none[0]}
+    log("packed Morpho + Parsimony at 8192² x 2, wall ms a step: 2 x 4 "
+        f"{stats['wall_ms_per_step']:.3f}, one-axis 4 slots "
+        f"{morpho_one[0]['wall_ms_per_step']:.3f}, mesh=None "
+        f"{morpho_none[0]['wall_ms_per_step']:.3f}")
+    del morpho_one, morpho_none
+
+    # the whole stack: RND2D + AE2D on the 2-D shards, learning, dropout on
+    stats, r, universe_full, carry = _packed_leg(torch, cfg, learners(tag2) + morpho(), acts,
+                                                 mesh2, "env", prof=4)
+    check(bool(torch.isfinite(r).all()), "the 2-D stack's rewards are not finite")
+    check(all(int(w.updates) == 3 for w in carry.stack.wrappers[:2]),
+          "the 2-D stack: RND2D and AE2D not 3 updates each")
+    out["stack"] = stats
+    del carry
+    counts = cuda_build.launch_counts()
+    log(f"spatial_2d launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+
+    # RND2D + AE2D with dropout off: the 2-D mesh against the one-axis mesh
+    _, r2, u2, c2 = _packed_leg(torch, cfg, learners(tag2, dropout=False), acts, mesh2, "env")
+    _, r1, u1, c1 = _packed_leg(torch, cfg, learners(tag1, dropout=False), acts, mesh1)
+    check(all(int(w.updates) == 3 for c in (c1, c2) for w in c.stack.wrappers),
+          "RND2D + AE2D, dropout off: not 3 updates each")
+    check(torch.equal(u2, u1) and torch.equal(universe_full, u1),
+          "the 2-D stack's universe differs from the one-axis mesh's")
+    torch.testing.assert_close(r2, r1, rtol=1e-4, atol=0)
+    out["learners_2d_vs_one_axis_max_rel_diff"] = float(((r2 - r1).abs() / r1.abs()).max())
+    del c1, c2
+    torch.cuda.empty_cache()
+    log(f"spatial_2d ok: {json.dumps(out)}")
+    return counts, out
+
 
 
 def shipped_states(torch):
@@ -5621,6 +5842,7 @@ def main() -> int:
                                           shipped)
         bands_counts, bands = timed("bands", phase_bands, torch, cuda_build)
         spatial_counts, spatial = timed("spatial", phase_spatial, torch, cuda_build)
+        spatial_2d_counts, spatial_2d = timed("spatial_2d", phase_spatial_2d, torch, cuda_build)
         profile = timed("profile", phase_profile, torch)
         log(f"profile: {json.dumps(profile)}")
         profile_train = timed("profile_train", phase_profile_train, torch)
@@ -5637,7 +5859,8 @@ def main() -> int:
                    "train": train_counts, "routes": routes_counts,
                    "wrappers": wrappers_counts, "packed": packed_counts,
                    "bands": bands_counts, "engines": engines_counts,
-                   "spatial": spatial_counts, "policy": policy_counts}
+                   "spatial": spatial_counts, "spatial_2d": spatial_2d_counts,
+                   "policy": policy_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -5675,6 +5898,7 @@ def main() -> int:
         "kernel_shapes": {k: results[k]["shape"] for k in rows},
         "kernel_details": {k: results[k] for k in rows},
         "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
+        "spatial_2d": spatial_2d,
         "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
         "e2e": e2e, "submission": submission, "server": server, "io": io, "policy": policy,
@@ -5697,6 +5921,7 @@ def main() -> int:
                                            "wrappers", "packed", "engines", "total_s")}))
     log(json.dumps({"bands": {k: v for k, v in bands.items() if not k.startswith("profile")},
                     "bands_kernels": results["bands_kernels"]}))
+    log(json.dumps({"spatial_2d": spatial_2d}))
     log(json.dumps({"spatial": {k: v for k, v in spatial.items() if not k.startswith("profile")},
                     "spatial_kernels": {k: results[k] for k in SPATIAL_ROWS},
                     "spatial_heads": {k: {m: v for m, v in r.items() if m != "ties_drop"}

@@ -394,7 +394,26 @@ def test_refusals():
             make_mesh()
     with pytest.raises(ValueError, match="parallel.mesh.Mesh"):
         tmcl.rnd2d_def(CFG, fused_head=nets.SpaceSharding(mesh=None))
-    with pytest.raises(NotImplementedError, match="env_axis"):
+    # env_axis names no axis of a one-axis mesh; on a two-axis mesh the tag
+    # routes, the instances must divide over it, and where they do the stack
+    # steps as the mesh=None stack, bit for bit (tests/test_torch_spatial_2d.py
+    # holds the rest against carle_tpu)
+    with pytest.raises(ValueError, match="not an axis"):
         nets.check_mesh(nets.SpaceSharding(mesh, env_axis="env"))
-    with pytest.raises(NotImplementedError, match="env_axis"):
+    with pytest.raises(ValueError, match="not an axis"):
         PackedSpatialStack(CFG, [], mesh, env_axis="env")
+    mesh2 = Mesh([[torch.device("cpu")] * 2] * 2, ("env", "space"))
+    tag = nets.SpaceSharding(mesh2, env_axis="env")
+    assert nets.check_mesh(tag) is tag
+    with pytest.raises(ValueError, match="instances 3 not divisible by the env axis"):
+        PackedSpatialStack(EnvConfig(64, 64, 16, 16, 3), [], mesh2, env_axis="env")
+    words = bitpack.pack_grid(torch.from_numpy(_grid(4, (2, 64, 64))))
+    act = torch.from_numpy((np.random.RandomState(4).rand(2, 16, 16) < 0.3).astype(np.uint8))
+    got = []
+    for m, env_axis in ((mesh2, "env"), (None, None)):
+        stack = PackedSpatialStack(CFG, [], m, env_axis=env_axis)
+        state = stack.init(torch.Generator().manual_seed(0), rules.LIFE, "cpu")
+        state = state._replace(env=state.env._replace(grid=words))
+        state, _ = stack.step(state, act)
+        got.append(stack.universe(stack.free_steps(state, 3)))
+    assert torch.equal(got[0], got[1])

@@ -42,6 +42,7 @@ from carle_tpu_torch.env import env_step, init_state
 from carle_tpu_torch.parallel import (RowShards, gather_rows, make_mesh, shard_carry_spatial,
                                       spatial_sharding)
 from carle_tpu_torch.parallel import cuda_halo
+from carle_tpu_torch.parallel.mesh import Mesh
 from carle_tpu_torch.rollout import Rollout
 
 
@@ -257,8 +258,14 @@ def test_stack_entry_points_on_shards():
     mesh = _mesh(4)
     assert spatial_sharding(mesh, carry.stack.env.grid, cfg) == "space"
     assert spatial_sharding(mesh, carry.stack.env.rule_bits, cfg) is None
-    with pytest.raises(NotImplementedError, match="env_axis"):
-        spatial_sharding(mesh, carry.stack.env.grid, cfg, env_axis="env")
+    # env_axis: no axis of this one-axis mesh, so the rows alone shard; on a
+    # two-axis mesh the instances too, as JAX's PartitionSpec
+    assert spatial_sharding(mesh, carry.stack.env.grid, cfg, env_axis="env") == (
+        None, "space", None)
+    mesh2 = Mesh([[torch.device("cpu")] * 2] * 2, ("env", "space"))
+    assert spatial_sharding(mesh2, carry.stack.env.grid, cfg, env_axis="env") == (
+        "env", "space", None)
+    assert spatial_sharding(mesh2, carry.stack.env.rule_bits, cfg, env_axis="env") is None
     carry = shard_carry_spatial(carry, mesh, cfg)
     assert isinstance(carry.stack.env.grid, RowShards)
     assert all(isinstance(t, torch.Tensor) for t in carry.stack.wrappers[0])
