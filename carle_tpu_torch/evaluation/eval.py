@@ -48,6 +48,7 @@ from ..mcl import (AE2D, RND2D, PufferDetector, SpeedDetector, ae2d_def, ae_para
                    corner_def, morpho_def, parsimony_def, predictor_params_from_torch,
                    prediction_def, puffer_def, random_network_params_from_torch,
                    rnd2d_def, speed_def, surprise_def)
+from ..parallel.mesh import Mesh, shard_carry
 from ..rollout import Rollout
 from .submission import SubmissionAgent
 
@@ -80,13 +81,16 @@ def _label(cls: Any) -> str:
     return cls if isinstance(cls, str) else getattr(cls, "__name__", repr(cls))
 
 
-def wrapper_defs(config: EnvConfig, wrappers, per_instance: bool):
-    """The frozen WrapperDef of each ``[cls or name, scale, ckpt]`` spec."""
+def wrapper_defs(config: EnvConfig, wrappers, per_instance: bool, fused_head: Any = False):
+    """The frozen WrapperDef of each ``[cls or name, scale, ckpt]`` spec; the
+    nets of the learned ones take ``fused_head`` (a mesh: a slot at a time
+    over the instances)."""
+    nets = dict(train=False, fused_head=fused_head)
     factory = {
-        "RND2D": lambda s: rnd2d_def(config, reward_scale=s, train=False),
-        "AE2D": lambda s: ae2d_def(config, reward_scale=s, train=False),
-        "PredictionBonus": lambda s: prediction_def(config, reward_scale=s, train=False),
-        "SurpriseBonus": lambda s: surprise_def(config, reward_scale=s, train=False),
+        "RND2D": lambda s: rnd2d_def(config, reward_scale=s, **nets),
+        "AE2D": lambda s: ae2d_def(config, reward_scale=s, **nets),
+        "PredictionBonus": lambda s: prediction_def(config, reward_scale=s, **nets),
+        "SurpriseBonus": lambda s: surprise_def(config, reward_scale=s, **nets),
         "MorphoBonus": lambda s: morpho_def(config, reward_scale=s),
         "CornerBonus": lambda s: corner_def(config, reward_scale=s),
         "ParsimonyBonus": lambda s: parsimony_def(reward_scale=s),
@@ -287,9 +291,10 @@ def _resolve_fused_agent(Agent: Any, params_path: Optional[str], agent_params: A
 
 
 def _frozen_rollout(config: EnvConfig, wrappers, per_instance: bool, agent: FnAgent,
-                    params: Any, seed: int, device: torch.device):
+                    params: Any, seed: int, device: torch.device, fused_head: Any = False):
     """(rollout, carry) of the frozen stack with the specs' checkpoints."""
-    ro = Rollout(config, wrapper_defs(config, wrappers, per_instance), agent, device=device)
+    ro = Rollout(config, wrapper_defs(config, wrappers, per_instance, fused_head), agent,
+                 device=device)
     carry = ro.init(ro.generator(seed), rules_mod.LIFE, agent_params=params)
     return ro, carry._replace(stack=carry.stack._replace(
         wrappers=inject_wrapper_checkpoints(carry.stack.wrappers, wrappers)))
@@ -333,24 +338,38 @@ def evaluate_fused_batched(Agent: Any = None, rules=None, wrappers=None,
                            steps: int = 1024, reference_compat: bool = True,
                            seed: int = 0, toggle_rate: float = 0.1,
                            verbose: bool = True, agent_params: Any = None,
-                           replicas: int = 1,
-                           device: DeviceLike = None) -> Tuple[float, np.ndarray]:
+                           replicas: int = 1, device: DeviceLike = None,
+                           mesh: Optional[Mesh] = None) -> Tuple[float, np.ndarray]:
     """The whole battery as one batch: each ruleset is an instance with its
     own rule mask (rules are data), ``replicas`` independent copies of the
     battery ride as further instances, and Speed/Puffer run per instance.
     Each ruleset starts from fresh statistics, where the published protocol
-    carries them across segments (see the JAX package's note).  Returns
-    (mean score, per-ruleset mean reward per step [len(rules)])."""
+    carries them across segments (see the JAX package's note).  ``mesh`` (a
+    ``parallel.mesh.Mesh``) splits the instances over its slots
+    (``shard_carry``; the frozen nets a slot at a time over them), the run on
+    its home device; rulesets x replicas must divide by the slots of its
+    first axis (ValueError otherwise).  Returns (mean score, per-ruleset mean
+    reward per step [len(rules)])."""
     rules = DEFAULT_RULES if rules is None else rules
     wrappers = DEFAULT_WRAPPERS if wrappers is None else wrappers
     replicas = max(1, int(replicas))
     config = EnvConfig(instances=len(rules) * replicas)
+    fused = False
+    if mesh is not None:
+        slots = mesh.shape[mesh.axis_names[0]]
+        if config.instances % slots:
+            raise ValueError(f"rulesets x replicas = {len(rules)} x {replicas} = "
+                             f"{config.instances} instances do not divide over the {slots} "
+                             f"slots of {mesh}")
+        device, fused = mesh.home, (mesh if mesh.size > 1 else False)
     device = resolve_device(device)
     agent, params = _resolve_fused_agent(Agent, params_path, agent_params, config,
                                          toggle_rate, seed, device)
-    ro, carry = _frozen_rollout(config, wrappers, True, agent, params, seed, device)
+    ro, carry = _frozen_rollout(config, wrappers, True, agent, params, seed, device, fused)
     bits = [battery_rule_bits(rs, reference_compat) for rs in rules] * replicas
     carry = ro.with_rules(carry, torch.tensor(bits, dtype=torch.int32))
+    if mesh is not None:
+        carry = shard_carry(carry, mesh, config, mesh.axis_names[0])
     carry, _ = ro.reset(carry)
     carry, rewards = ro.run(carry, steps)
 

@@ -155,17 +155,24 @@ def net_input(ctx: Any, fused_head: Any = None) -> Any:
     expand the words in shared memory, so no cell view is built), else the
     uint8 cells.  The float32 copy never reaches the kernels.  On a
     row-sharded stack the words stay sharded for a ``fused_head`` of
-    ``nets.SpaceSharding`` and are gathered for any other route."""
+    ``nets.SpaceSharding``, and instance shards (parallel/mesh.py's
+    ``shard_carry``) stay sharded for a ``parallel.mesh.Mesh``, words or
+    cells (``ctx.obs_shards``): the batch-axis route reads them slot by slot.
+    Any other route gets them gathered."""
     from ..nets import SpaceSharding
-    from ..parallel.mesh import RowShards, gather_rows
+    from ..parallel.mesh import Mesh, RowShards, gather_rows
 
+    batch_axis = isinstance(fused_head, Mesh)
     packed = getattr(ctx, "packed", None)
     if isinstance(packed, RowShards):
-        if isinstance(fused_head, SpaceSharding):
+        if isinstance(fused_head, SpaceSharding) or (batch_axis and packed.slots == 1):
             return packed.map(lambda p: p[:, None])
         return gather_rows(packed)[:, None]
     if packed is not None:
         return packed[:, None]
+    shards = getattr(ctx, "obs_shards", None)
+    if batch_axis and shards is not None and shards.slots == 1:
+        return shards
     return ctx.obs_cells
 
 
@@ -183,7 +190,10 @@ def learner_apply(
     With ``train`` the gradient of the mean loss is taken on detached leaf
     copies of the parameters (so the state's tensors stay plain and callers
     under ``no_grad`` still work), accumulated, and applied as
-    :func:`accumulate_and_maybe_update` says.  With ``train=False`` this is
+    :func:`accumulate_and_maybe_update` says.  On a mesh (a wrapper's
+    ``fused_head`` a ``parallel.mesh.Mesh``) the loss is the slots' errors
+    concatenated in instance order, so the mean is still over every
+    instance, and autograd adds the slots' parameter gradients.  With ``train=False`` this is
     the reference's ``get_bonus_only``: forward pass only, no graph, no
     gradient or optimizer work."""
 

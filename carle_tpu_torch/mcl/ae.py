@@ -14,7 +14,10 @@ mean over C, H, W.  :func:`ae_forward` gives the reconstruction itself
 (mcl/_online.py).  ``fused_head=nets.BandTiling(n)`` runs the loss as n row
 bands of each universe (encoder and decoder loss, parallel/band_heads.py);
 ``fused_head=nets.SpaceSharding(mesh)`` runs encoder and decoder loss slot by
-slot on a row-sharded stack (parallel/spatial_heads.py).
+slot on a row-sharded stack (parallel/spatial_heads.py); ``fused_head=mesh``
+(a ``parallel.mesh.Mesh``) runs the loss a slot at a time over the instances
+(parallel/batch_heads.py), the slots' errors concatenated in instance
+order.
 """
 
 from __future__ import annotations

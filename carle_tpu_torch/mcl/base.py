@@ -60,6 +60,10 @@ class StepCtx:
                    stacks only; None on the uint8 path)
     packed_prev:   uint32 [inst, H, W/32] universe BEFORE toggle + update
     packed_action: uint32 [inst, H, W/32] toggle patch padded to the universe
+    obs_shards:    uint8 [inst, 1, H, W] universe AFTER the update as the row
+                   or instance shards it steps on (a sharded uint8 stack:
+                   parallel/spatial_env.py; None elsewhere), which the nets'
+                   batch-axis route reads without a gather
     """
 
     __slots__ = ("_values",)
@@ -68,11 +72,11 @@ class StepCtx:
                  action: Any = None, action_full: Any = None, action_sum: Any = None,
                  seed: int = 0, generator: Optional[torch.Generator] = None,
                  packed: Any = None, packed_prev: Any = None,
-                 packed_action: Any = None) -> None:
+                 packed_action: Any = None, obs_shards: Any = None) -> None:
         values = dict(prev_grid=prev_grid, obs=obs, obs_cells=obs_cells, action=action,
                       action_full=action_full, action_sum=action_sum, seed=seed,
                       generator=generator, packed=packed, packed_prev=packed_prev,
-                      packed_action=packed_action)
+                      packed_action=packed_action, obs_shards=obs_shards)
         object.__setattr__(self, "_values", values)
 
     def __getattr__(self, name: str) -> Any:
@@ -166,6 +170,7 @@ class WrapperStack:
         # the master reset reads the mean of the values
         env_state, grid = env_step(state.env, action, self.config)
         action_bits = (action != 0).to(torch.uint8)
+        shards = None
         if isinstance(grid, torch.Tensor):
             prev, obs_cells = prev_grid, grid[:, None]
             obs = Lazy(lambda: grid.to(torch.float32)[:, None])
@@ -173,6 +178,7 @@ class WrapperStack:
             from ..parallel.spatial_env import gathered_views
 
             prev, obs_cells, obs = gathered_views(self, prev_grid, grid)
+            shards = Lazy(lambda: grid.map(lambda p: p[:, None]))
         ctx = StepCtx(
             prev_grid=prev,
             obs=obs,
@@ -182,6 +188,7 @@ class WrapperStack:
             action_sum=Lazy(lambda: action.to(torch.float32).sum(dim=(1, 2))[:, None]),
             seed=int(seed),
             generator=generator,
+            obs_shards=shards,
         )
         new_state, reward = self._apply_wrappers(state.wrappers, env_state, ctx, grid.device)
         return new_state, ctx, reward

@@ -25,7 +25,9 @@ package's, so ``FrameBuffer`` checkpoints cross both ways.
 The loss is the whole autoencoder as one kernel (``nets.conv_ae_loss``) with
 the ring frame as source and the current frame as target, and
 ``ae_loss_bwd`` for its gradients; ``fused_head=nets.BandTiling(n)`` runs it
-as n row bands of each universe.
+as n row bands of each universe, and a ``parallel.mesh.Mesh`` a slot at a time
+over the instances (the ring's frames split beside the current frame's
+shards).
 """
 
 from __future__ import annotations
@@ -121,7 +123,7 @@ def _make_def(config: EnvConfig, name: str, surprise: bool, reward_scale: float 
         return nets.whole(ctx.packed)
 
     def loss_fn(params, state: LearnerState, ctx):
-        target = net_input(ctx)
+        target = net_input(ctx, fused_head)
         src, new_buf = _push(state.extra, store_view(ctx), k)
         # the kernels read cells or words; a float32 ring holds the same 0/1 values
         src = src[:, None] if buffer_dtype == "packed" else src.to(torch.uint8)

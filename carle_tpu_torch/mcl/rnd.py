@@ -19,7 +19,10 @@ The frozen target never builds a graph.  ``fused_head=nets.BandTiling(n)``
 runs both encoders as n row bands of each universe (parallel/band_heads.py);
 ``fused_head=nets.SpaceSharding(mesh)`` runs them slot by slot on a
 row-sharded stack (parallel/spatial_heads.py) and gathers the embeddings for
-the dense layer.  ``RND2D.load_torch_state_dict`` adopts a reference torch
+the dense layer; ``fused_head=mesh`` (a ``parallel.mesh.Mesh``) runs them a
+slot at a time over the instances (parallel/batch_heads.py), on the stack's
+instance shards where ``shard_carry`` made them, and likewise gathers the
+embeddings.  ``RND2D.load_torch_state_dict`` adopts a reference torch
 checkpoint (``predictor_params_from_torch``, ``random_network_params_from_torch``).
 """
 

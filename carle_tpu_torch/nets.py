@@ -18,7 +18,11 @@ do.  :class:`SpaceSharding` runs :func:`conv_encoder`, :func:`conv_tail`,
 :func:`conv_loss_tail`, :func:`conv_decoder_loss` (as tail then loss tail)
 and :func:`conv_ae_loss` (as encoder then decoder loss) on row-sharded
 inputs and outputs (parallel/mesh.py's RowShards), slot by slot with halo
-rows (parallel/spatial_heads.py); :func:`whole` gathers such an output.
+rows (parallel/spatial_heads.py); :func:`whole` gathers such an output.  A
+``parallel.mesh.Mesh`` is the JAX package's batch-axis tag (its
+``_shard_fused*`` wrappers): all six split the instance batch over the slots
+of the mesh's first axis and launch their kernel once a slot, each slot's
+dropout seeded apart (parallel/batch_heads.py).
 """
 
 from __future__ import annotations
@@ -63,12 +67,13 @@ class SpaceSharding(NamedTuple):
 
 
 def check_mesh(mesh: Any) -> Any:
-    """The routing tag a net function runs with: None, a :class:`BandTiling`
-    or a :class:`SpaceSharding` (whose axes must be the mesh's); any other
-    value raises ValueError."""
-    if isinstance(mesh, SpaceSharding):
-        from .parallel.mesh import Mesh
+    """The routing tag a net function runs with: None, a :class:`BandTiling`,
+    a :class:`SpaceSharding` (whose axes must be the mesh's) or a
+    ``parallel.mesh.Mesh`` (the batch-axis tag: the instances over its first
+    axis); any other value raises ValueError."""
+    from .parallel.mesh import Mesh
 
+    if isinstance(mesh, SpaceSharding):
         if not isinstance(mesh.mesh, Mesh):
             raise ValueError(f"SpaceSharding needs a parallel.mesh.Mesh, got {mesh.mesh!r}")
         for axis in (mesh.axis, mesh.env_axis):
@@ -76,9 +81,26 @@ def check_mesh(mesh: Any) -> Any:
                 raise ValueError(f"SpaceSharding's axis {axis!r} is not an axis of "
                                  f"{mesh.mesh}")
         return mesh
-    if mesh is not None and not isinstance(mesh, BandTiling):
-        raise ValueError(f"mesh must be None, BandTiling or SpaceSharding, got {mesh!r}")
+    if mesh is not None and not isinstance(mesh, (BandTiling, Mesh)):
+        raise ValueError(f"mesh must be None, BandTiling, SpaceSharding or a "
+                         f"parallel.mesh.Mesh, got {mesh!r}")
     return mesh
+
+
+def _batch_axis(mesh: Any) -> bool:
+    """Whether a checked tag is the batch-axis tag (a parallel.mesh.Mesh)."""
+    from .parallel.mesh import Mesh
+
+    return isinstance(mesh, Mesh)
+
+
+def _per_slot(mesh: Any, inputs: Sequence[Any], params: Sequence[Params], drop_p: float,
+              train: bool, seed: Optional[int], call, loss: bool = False) -> Any:
+    """The batch-axis route: ``call(slot seed, *slot inputs, *slot params)``
+    a slot of the mesh's first axis (parallel/batch_heads.py)."""
+    from .parallel.batch_heads import per_slot
+
+    return per_slot(mesh, inputs, params, _drop_args(drop_p, train, seed)[1], call, loss)
 
 
 def fused_route(fused_head: Any) -> Any:
@@ -86,7 +108,8 @@ def fused_route(fused_head: Any) -> Any:
     package's name and spelling): True, False or None give None, the fused
     kernels on one device (the port has no unfused path to select); a
     :class:`BandTiling` its row bands; a :class:`SpaceSharding` the
-    row-sharded route; anything else raises as :func:`check_mesh`."""
+    row-sharded route; a ``parallel.mesh.Mesh`` the batch-axis route;
+    anything else raises as :func:`check_mesh`."""
     if fused_head is None or isinstance(fused_head, bool):
         return None
     return check_mesh(fused_head)
@@ -207,8 +230,13 @@ def conv_encoder(x: torch.Tensor, p1: Params, p2: Params, *,
     ``drop_p > 0``, from ``seed`` (a host integer: the same seed gives the
     same mask, forward and backward); otherwise no random number is drawn.
     ``mesh=BandTiling(n)`` runs it as n row bands; ``mesh=SpaceSharding``
-    takes and gives row shards."""
-    if isinstance(check_mesh(mesh), SpaceSharding):
+    takes and gives row shards; a ``Mesh`` runs it a slot at a time over the
+    instances."""
+    if _batch_axis(check_mesh(mesh)):
+        return _per_slot(mesh, (x,), (p1, p2), drop_p, train, seed, lambda sd, xs, q1, q2:
+                         conv_encoder(xs, q1, q2, pools=pools, drop_p=drop_p, train=train,
+                                      seed=sd))
+    if isinstance(mesh, SpaceSharding):
         from .parallel.spatial_heads import encoder_spatial
 
         return encoder_spatial(x, p1, p2, pools=pools, drop_p=drop_p, train=train, seed=seed,
@@ -245,8 +273,15 @@ def conv_ae_loss(src: torch.Tensor, p1: Params, p2: Params, pd1: Params,
     device memory), as carle_tpu/nets.py::conv_ae_loss past its kernel's
     VMEM limit: the same function and dropout mask.  ``mesh=BandTiling(n)``
     runs both as n row bands; ``mesh=SpaceSharding`` runs the encoder and the
-    decoder loss on row shards, as carle_tpu/nets.py::conv_ae_loss does."""
-    if isinstance(check_mesh(mesh), SpaceSharding):
+    decoder loss on row shards, as carle_tpu/nets.py::conv_ae_loss does; a
+    ``Mesh`` runs this function a slot at a time over the instances (src and
+    obs split alike)."""
+    if _batch_axis(check_mesh(mesh)):
+        return _per_slot(mesh, (src, obs), (p1, p2, pd1, pd2), drop_p, train, seed,
+                         lambda sd, ss, os, q1, q2, q3, q4: conv_ae_loss(
+                             ss, q1, q2, q3, q4, os, pools=pools, drop_p=drop_p, train=train,
+                             seed=sd), loss=True)
+    if isinstance(mesh, SpaceSharding):
         kw = dict(drop_p=drop_p, train=train, seed=seed, mesh=mesh)
         x = conv_encoder(src, p1, p2, pools=pools, **kw)
         return conv_decoder_loss(x, pd1, pd2, obs, **kw)
@@ -272,10 +307,15 @@ def conv_head(x: torch.Tensor, p: Params, *, pool: int, drop_p: float = 0.0,
     the parameter gradients and, with ``need_dx`` (deeper stages), the input
     cotangent; max-pool ties share the gradient equally.  ``stage`` is the
     dropout stage whose Philox bits the kernel draws (0 a net's first
-    convolution, 1 its second)."""
+    convolution, 1 its second).  A ``Mesh`` runs it a slot at a time over the
+    instances."""
     if pool < 2 or pool & (pool - 1):
         raise ValueError(f"pool must be a power of two >= 2, got {pool}")
-    if isinstance(check_mesh(mesh), SpaceSharding):
+    if _batch_axis(check_mesh(mesh)):
+        return _per_slot(mesh, (x,), (p,), drop_p, train, seed, lambda sd, xs, q: conv_head(
+            xs, q, pool=pool, drop_p=drop_p, train=train, need_dx=need_dx, seed=sd,
+            stage=stage))
+    if isinstance(mesh, SpaceSharding):
         raise ValueError("SpaceSharding routes the two-stage encoder (conv_encoder); "
                          "a single conv stage has no row-sharded route")
     if mesh is not None:
@@ -294,8 +334,12 @@ def conv_tail(x: torch.Tensor, p: Params, *, act: str, drop_p: float = 0.0,
     """The decoder stage ``act(drop(conv_transpose2d(x)))`` (stride 2, k 4,
     pad 1), act "relu" or "sigmoid", differentiable in x and its parameters.
     ``stage`` as :func:`conv_head` (2 the decoder's first stage, 3 its
-    second).  ``mesh=SpaceSharding`` takes and gives row shards."""
-    if isinstance(check_mesh(mesh), SpaceSharding):
+    second).  ``mesh=SpaceSharding`` takes and gives row shards; a ``Mesh``
+    runs it a slot at a time over the instances."""
+    if _batch_axis(check_mesh(mesh)):
+        return _per_slot(mesh, (x,), (p,), drop_p, train, seed, lambda sd, xs, q: conv_tail(
+            xs, q, act=act, drop_p=drop_p, train=train, seed=sd, stage=stage))
+    if isinstance(mesh, SpaceSharding):
         from .parallel.spatial_heads import tail_spatial
 
         return tail_spatial(x, p, act=act, drop_p=drop_p, train=train, seed=seed, stage=stage,
@@ -318,8 +362,14 @@ def conv_loss_tail(x: torch.Tensor, p: Params, obs: torch.Tensor, *, act: str,
     float32; the caller divides by C*H*W for the mean) without the
     full-resolution reconstruction in device memory.  obs is uint8 or float32
     and gets no gradient.  ``mesh=SpaceSharding`` takes row-sharded x and obs
-    and adds the slots' errors."""
-    if isinstance(check_mesh(mesh), SpaceSharding):
+    and adds the slots' errors; a ``Mesh`` runs it a slot at a time over the
+    instances (obs split with them)."""
+    if _batch_axis(check_mesh(mesh)):
+        return _per_slot(mesh, (x, obs), (p,), drop_p, train, seed,
+                         lambda sd, xs, os, q: conv_loss_tail(
+                             xs, q, os, act=act, drop_p=drop_p, train=train, seed=sd,
+                             stage=stage), loss=True)
+    if isinstance(mesh, SpaceSharding):
         from .parallel.spatial_heads import loss_tail_spatial
 
         return loss_tail_spatial(x, p, obs, act=act, drop_p=drop_p, train=train, seed=seed,
@@ -344,8 +394,12 @@ def conv_decoder_loss(x: torch.Tensor, p1: Params, p2: Params, obs: torch.Tensor
     whose row-weighted errors add up to this one; ``mesh=SpaceSharding`` runs
     the two stages as halo'd tails on row shards (the tail, then the loss
     tail's error summed plainly), as carle_tpu/nets.py::conv_decoder_loss
-    does."""
-    if isinstance(check_mesh(mesh), SpaceSharding):
+    does; a ``Mesh`` runs it a slot at a time over the instances."""
+    if _batch_axis(check_mesh(mesh)):
+        return _per_slot(mesh, (x, obs), (p1, p2), drop_p, train, seed,
+                         lambda sd, xs, os, q1, q2: conv_decoder_loss(
+                             xs, q1, q2, os, drop_p=drop_p, train=train, seed=sd), loss=True)
+    if isinstance(mesh, SpaceSharding):
         kw = dict(drop_p=drop_p, train=train, seed=seed, mesh=mesh)
         a = conv_tail(x, p1, act="relu", stage=STAGE_DEC1, **kw)
         return conv_loss_tail(a, p2, obs, act="sigmoid", stage=STAGE_DEC2, **kw)

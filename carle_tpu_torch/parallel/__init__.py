@@ -14,16 +14,21 @@
 * :mod:`.packed_env`: the packed stack, on one device, row-sharded
   (``shard_carry_packed``) or on the env x space mesh (``env_axis``), and
   :mod:`.spatial_heads`, the nets on its shards (``nets.SpaceSharding``);
-* :mod:`.band_heads`: band tiling of one huge universe on one device.
+* :mod:`.band_heads`: band tiling of one huge universe on one device;
+* env-batch data parallelism (:mod:`.mesh`'s ``env_sharding``,
+  ``shard_carry``, ``replicate``): the instance batch split over a mesh's
+  slots, each slot's instances whole (rings of one slot), everything else
+  on the home device, and :mod:`.batch_heads`, the nets a slot at a time
+  over the instances (a ``Mesh`` as ``fused_head``).
 
-Env-batch data parallelism (``env_sharding``, ``shard_carry``,
-``replicate``) is not ported yet.
+Several processes (``torch.distributed``) are not ported yet.
 """
 
 from ..nets import SpaceSharding
 from .cuda_halo import (bit_spatial_multi_step_cuda, spatial_ca_step_cuda,
                         spatial_env_step_cuda, spatial_multi_step_cuda)
-from .mesh import Mesh, RowShards, gather_rows, make_mesh, shard_rows
+from .mesh import (Mesh, RowShards, env_sharding, gather_rows, make_mesh, replicate,
+                   shard_carry, shard_rows)
 from .packed_env import PackedSpatialStack, packed_spatial_sharding, shard_carry_packed
 from .spatial import bit_spatial_multi_step, spatial_ca_step, spatial_multi_step
 from .spatial_env import shard_carry_2d, shard_carry_spatial, spatial_sharding
@@ -35,9 +40,12 @@ __all__ = [
     "SpaceSharding",
     "bit_spatial_multi_step",
     "bit_spatial_multi_step_cuda",
+    "env_sharding",
     "gather_rows",
     "make_mesh",
     "packed_spatial_sharding",
+    "replicate",
+    "shard_carry",
     "shard_carry_2d",
     "shard_carry_packed",
     "shard_carry_spatial",

@@ -30,8 +30,41 @@ neighbours.  Here one controller holds a list of per-slot shards:
   They stand in for GSPMD's placement: nothing reads a neighbour's rows by
   indexing one big tensor.
 
-Multi-process meshes (``torch.distributed``) and env-batch data parallelism
-(``env_sharding``, ``shard_carry``, ``replicate``) are not here yet.
+Env-batch data parallelism (counterpart of carle_tpu/parallel/mesh.py's
+``env_sharding``, ``shard_carry`` and ``replicate``) splits the instance
+batch over the slots of the mesh's first axis and keeps everything else
+whole:
+
+* :func:`env_sharding` is JAX's placement rule exactly: a leaf shards over
+  the env axis only where dimension 0 equals ``instances`` and ``instances``
+  divides by that axis's extent (not the slot count; they differ on a
+  two-axis mesh).  It returns the spec tuple (``("env", None, None)``), or
+  None where JAX's is ``P()``, as ``spatial_env.spatial_sharding`` returns a
+  placement: there is no ``NamedSharding`` to return.
+* :func:`shard_carry` lays the universes out on :func:`env_layout`, the
+  two-axis ``Mesh([[d] for d in env_slots(mesh)], ("env", "space"))`` with a
+  space extent of 1 (the env x space layout; cached on the mesh): a uint8
+  universe [inst, H, W], or packed words [inst, H, W/32], becomes
+  ``RowShards(env_axis="env")``, one slot's instances whole a shard and each
+  slot a ring of one, so the env step, the stacks, resets, ``universe`` and
+  the gathered views of the spatial env mode run on it unchanged (a halo
+  launch a ring: n launches a step where the unsharded step launches
+  once).  Every other leaf stays whole on the home device: parameters, Adam
+  moments, rule bits, counters, the agent's state, and the per-instance
+  statistics, frame rings and action streams that the JAX package shards
+  over ``env`` (GSPMD hides that from the wrappers; here the wrappers read
+  gathered views, and the nets the shards themselves: nets.py's batch-axis
+  routes).
+* :func:`replicate` puts a tree on the home device; each launch of a
+  batch-axis route copies the weights it needs onto its slot's device
+  (a no-op on one card), as ``parallel/spatial_heads.py`` does.
+
+On a two-axis mesh the instances shard over the first axis, on each env
+group's first slot (:func:`env_slots`): the JAX package replicates an
+instance shard over the second axis, one controller keeps one copy.
+
+Multi-process meshes (``torch.distributed``: NCCL across cards, gloo on the
+CPU; ROADMAP Queue 1 item 8b) are not here yet.
 """
 
 from __future__ import annotations
@@ -85,6 +118,7 @@ class Mesh:
         self.axis_names = axis_names
         self._extents = extents
         self._rings: Dict[int, "Mesh"] = {}
+        self._env_layout: Optional["Mesh"] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -282,5 +316,76 @@ def tree_map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
     return fn(tree)
 
 
-__all__ = ["Mesh", "RowShards", "gather_rows", "make_mesh", "ringwise", "shard_rows",
+def env_slots(mesh: Mesh) -> Tuple[torch.device, ...]:
+    """The slot of each index of the mesh's first axis, the instance axis:
+    a one-axis mesh's slots; a two-axis mesh's first slot of each env
+    group."""
+    if len(mesh.axis_names) == 1:
+        return mesh.devices
+    return mesh.devices[::mesh.shape[mesh.axis_names[1]]]
+
+
+def env_layout(mesh: Mesh, axis_name: str = "env") -> Mesh:
+    """The two-axis mesh the instance shards of ``mesh`` lie on (module
+    note): ``Mesh([[d] for d in env_slots(mesh)], (axis_name, "space"))``, the
+    same object on every call; a two-axis mesh whose second axis has one slot
+    is its own.  ``axis_name`` must be the mesh's first axis."""
+    if axis_name != mesh.axis_names[0]:
+        raise ValueError(f"instances shard over the mesh's first axis "
+                         f"{mesh.axis_names[0]!r}, not {axis_name!r}")
+    if len(mesh.axis_names) == 2 and mesh.shape[mesh.axis_names[1]] == 1:
+        return mesh
+    if mesh._env_layout is None:
+        rows = "space" if axis_name != "space" else "rows"
+        mesh._env_layout = Mesh([[d] for d in env_slots(mesh)], (axis_name, rows))
+    return mesh._env_layout
+
+
+def env_sharding(mesh: Mesh, leaf: Any, instances: int, axis_name: str = "env") -> Any:
+    """Where one state leaf goes (carle_tpu/parallel/mesh.py::env_sharding):
+    the spec ``(axis_name, None, ...)``, one entry a dimension, where
+    dimension 0 equals ``instances`` and ``instances`` divides by the extent
+    of ``axis_name``; else None (JAX's ``P()``: whole).  Only dimension 0 is
+    considered, so a leaf whose inner dimension equals ``instances`` stays
+    whole."""
+    shape = tuple(getattr(leaf, "shape", ()))
+    if shape and shape[0] == instances and instances % mesh.shape[axis_name] == 0:
+        return (axis_name,) + (None,) * (len(shape) - 1)
+    return None
+
+
+def shard_carry(carry: Any, mesh: Mesh, config: Any, axis_name: str = "env") -> Any:
+    """A rollout carry (or any state tree) with its universes (uint8 [inst,
+    H, W], packed words [inst, H, W/32]) sharded over the instance axis where
+    :func:`env_sharding` shards them, as instance shards on
+    :func:`env_layout`, and every other tensor on the home device (module
+    note); row shards and non-tensors as they are."""
+    layout = env_layout(mesh, axis_name)
+    n, h, w = config.instances, config.height, config.width
+    universes = {((n, h, w), torch.uint8), ((n, h, w // 32), torch.uint32)}
+
+    def place(leaf):
+        if isinstance(leaf, RowShards) or not isinstance(leaf, torch.Tensor):
+            return leaf
+        if ((tuple(leaf.shape), leaf.dtype) in universes
+                and env_sharding(mesh, leaf, n, axis_name) is not None):
+            return shard_rows(leaf, layout, layout.axis_names[1], axis_name)
+        return leaf.to(layout.home)
+
+    return tree_map_leaves(place, carry)
+
+
+def replicate(tree: Any, mesh: Mesh) -> Any:
+    """A tree whole on the mesh's home device (row shards gathered), where
+    the JAX package replicates it over every device."""
+    def place(leaf):
+        if isinstance(leaf, RowShards):
+            return gather_rows(leaf, mesh.home)
+        return leaf.to(mesh.home) if isinstance(leaf, torch.Tensor) else leaf
+
+    return tree_map_leaves(place, tree)
+
+
+__all__ = ["Mesh", "RowShards", "env_layout", "env_sharding", "env_slots", "gather_rows",
+           "make_mesh", "replicate", "ringwise", "shard_carry", "shard_rows",
            "tree_map_leaves"]

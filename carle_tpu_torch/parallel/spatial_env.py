@@ -43,6 +43,17 @@ shard their rows only (on the first group's ring).  The other
 instance-batched leaves (statistics, action streams), which the JAX package
 shards over ``env``, stay whole on the home device with everything else.
 
+The env-batch layout of ``mesh.shard_carry`` is this mode on a two-axis
+mesh whose rings have one slot each (``mesh.env_layout``): a slot holds its
+instances whole, the step launches once a slot, and a ring of one slot
+wraps each universe onto itself.  On it the learners with a
+``fused_head=Mesh`` read ``ctx.obs_shards``, the instance shards themselves
+(nets.py's batch-axis routes); the gathered views are read only by the
+wrappers that want the whole batch (Speed's velocity sum and Puffer's count
+read ``obs``, Corner and Morpho the cells, Prediction its frame) and, outside
+the step, by the agent's observation (``observe``), so a stack of RND2D and
+AE2D gathers nothing, and one with Speed and Puffer gathers once a step.
+
 Usage::
 
     mesh = make_mesh([torch.device("cuda")] * 4, "space")   # or several cards
@@ -137,7 +148,7 @@ def gathered_views(stack: WrapperStack, prev: RowShards, grid: RowShards
     """The step context's cell views of a sharded transition, (prev_grid,
     obs_cells, obs): each gathered onto the mesh's home device on its first
     read, obs from the gathered obs_cells; ``stack.gathers`` counts the
-    gathers."""
+    gathers (module note: which wrappers read them)."""
     cells = []   # obs_cells once gathered, shared by obs (no reference to ctx: no cycle)
 
     def gather(x):

@@ -64,16 +64,13 @@ def policy_logits(params: Dict[str, Any], obs: torch.Tensor,
                   fused_head: Any = False) -> torch.Tensor:
     """obs [inst, 1, H, W] (uint8 cells or 0/1 floats) -> toggle logits
     [inst, AH*AW].  ``fused_head`` runs the conv front-end as the fused
-    encoder on uint8 cells (a float observation is cast to them)."""
-    if fused_head is not None and not isinstance(fused_head, bool):
-        raise NotImplementedError(
-            "policy_logits takes fused_head True or False; a mesh (the JAX "
-            "package's nets._shard_fused over the instance batch) is not ported "
-            "yet: ROADMAP.md Queue 1, item 8")
+    encoder on uint8 cells (a float observation is cast to them); a
+    ``parallel.mesh.Mesh`` runs it a slot at a time over the instances
+    (nets.py's batch-axis route, the JAX package's ``nets._shard_fused``)."""
     if fused_head:
         cells = obs if obs.dtype in (torch.uint8, torch.uint32) else obs.to(torch.uint8)
         x = nets.conv_encoder(cells, params["conv1"], params["conv2"], pools=(2, 2),
-                              drop_p=0.0)
+                              drop_p=0.0, mesh=nets.fused_route(fused_head))
     else:
         x = nets.max_pool2(torch.relu(nets.conv2d(obs, params["conv1"], padding=1)))
         x = nets.max_pool2(torch.relu(nets.conv2d(x, params["conv2"], padding=1)))

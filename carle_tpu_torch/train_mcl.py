@@ -19,9 +19,13 @@ states are checkpointed and the reward history is dumped.
 (evaluation/eval.py ``_resolve_fused_agent``): a class agent, an instance, a
 functional agent or an ``(Agent, params)`` pair.
 
-Not ported yet: multi-card sharding (``mesh``).
+* ``mesh`` (``--mesh {auto,on,off}``) splits the instance batch over the
+  slots of a mesh, one controller (parallel/mesh.py ``shard_carry``, the nets
+  a slot at a time over the instances); several processes
+  (``torch.distributed``) are not ported yet.
 
 Run:  python -m carle_tpu_torch.train_mcl [--device cpu] [--packed-state]
+          [--mesh auto|on|off]
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from . import rules as rules_mod
 from .agents import make_random_agent
@@ -41,6 +46,7 @@ from .device import DeviceLike, resolve_device
 from .evaluation.eval import _resolve_fused_agent
 from .mcl.ae import ae2d_def
 from .mcl.rnd import rnd2d_def
+from .parallel.mesh import Mesh, env_layout, make_mesh, shard_carry
 from .parallel.packed_env import PackedSpatialStack
 from .rollout import Rollout
 
@@ -73,6 +79,24 @@ def _find_checkpoint(directory: str, name: str) -> str:
     return max(candidates, key=os.path.getmtime)
 
 
+def resolve_mesh(mesh: Any, instances: int, device: DeviceLike = None) -> Optional[Mesh]:
+    """The mesh ``train`` runs on (carle_tpu/train_mcl.py's resolution):
+    ``"auto"`` a mesh over every visible CUDA device where the run is on
+    the card, there is more than one and ``instances`` divides by their
+    number, else none (one card: today's single-device run); ``True``
+    ``make_mesh()``; ``False`` or ``None`` none; a ``Mesh`` as given."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    if mesh is True:
+        return make_mesh()
+    if mesh is None or mesh is False:
+        return None
+    if mesh != "auto":
+        raise ValueError(f"mesh must be 'auto', True, False, None or a Mesh, got {mesh!r}")
+    count = torch.cuda.device_count() if resolve_device(device).type == "cuda" else 0
+    return make_mesh() if count > 1 and instances % count == 0 else None
+
+
 def _write_progress(path: str, payload: Dict[str, Any]) -> None:
     """Atomic progress write (tmp + rename): a crash mid-write never leaves a
     torn JSON for a supervisor to trip over."""
@@ -99,6 +123,7 @@ def train(
     progress_file: Optional[str] = None,
     device: DeviceLike = None,
     packed_state: bool = False,
+    mesh: Any = "auto",
 ) -> np.ndarray:
     """Pre-train the RND2D + AE2D wrapper stack.  ``steps`` is (epochs,
     steps per ruleset segment).
@@ -117,7 +142,17 @@ def train(
     learned state (parameters, Adam moments, accumulation counters) is exact.
 
     ``packed_state=True`` carries the universes bit-packed (32 cells a word,
-    the packed stack with no mesh); the reward history is the same.
+    the packed stack); the reward history is the same.
+
+    ``mesh`` (:func:`resolve_mesh`: ``"auto"``, ``True``, ``False``/``None``
+    or a ``parallel.mesh.Mesh``) splits the instance batch over the mesh's
+    slots: the universes become instance shards after ``resume_from``
+    (``shard_carry``; packed, the packed stack on the instance layout), the
+    parameters, optimizer state and counters stay on the mesh's home device,
+    which is the run's device, and where the mesh has more than one slot
+    both nets take it as ``fused_head`` and launch their kernels a slot at a
+    time.  The reward history equals the single-device run's up to the
+    gradients' summation order.
 
     ``agent_fn`` drives the universes: ``None`` is the Bernoulli(0.1) random
     agent; an agent class is built with ``seed``, the four dims and the
@@ -132,16 +167,25 @@ def train(
     rules = DEFAULT_RULES if rules is None else rules
     config = EnvConfig(height=height, width=width, action_height=64,
                        action_width=64, instances=instances).validate()
-    wrapper_defs = [rnd2d_def(config, batch_size=batch_size),
-                    ae2d_def(config, batch_size=batch_size)]
-    device = resolve_device(device)
+    # resolved before the defs: on a mesh of several slots the nets take it
+    mesh_obj = resolve_mesh(mesh, instances, device)
+    fused = mesh_obj if mesh_obj is not None and mesh_obj.size > 1 else False
+    wrapper_defs = [rnd2d_def(config, batch_size=batch_size, fused_head=fused),
+                    ae2d_def(config, batch_size=batch_size, fused_head=fused)]
+    device = resolve_device(device) if mesh_obj is None else mesh_obj.home
     if agent_fn is None:
         agent, agent_params = make_random_agent(config.eff_action_width,
                                                 config.eff_action_height), None
     else:
         agent, agent_params = _resolve_fused_agent(agent_fn, None, None, config, 0.1,
                                                    seed, device)
-    stack = PackedSpatialStack(config, wrapper_defs) if packed_state else None
+    stack = None
+    if packed_state and mesh_obj is None:
+        stack = PackedSpatialStack(config, wrapper_defs)
+    elif packed_state:   # the packed universes as instance shards (shard_carry's layout)
+        layout = env_layout(mesh_obj, mesh_obj.axis_names[0])
+        env_axis, space_axis = layout.axis_names
+        stack = PackedSpatialStack(config, wrapper_defs, layout, space_axis, env_axis)
     ro = Rollout(config, wrapper_defs, agent, device=device, stack=stack)
     carry = ro.init(ro.generator(seed), rules_mod.LIFE, agent_params=agent_params)
 
@@ -149,6 +193,8 @@ def train(
         wstates = tuple(load_pytree(_find_checkpoint(resume_from, name), ws)
                         for name, ws in zip(WRAPPER_NAMES, carry.stack.wrappers))
         carry = carry._replace(stack=carry.stack._replace(wrappers=wstates))
+    if mesh_obj is not None:
+        carry = shard_carry(carry, mesh_obj, config, mesh_obj.axis_names[0])
 
     exp_id = "mcl" + str(int(time.time()))
     model_dir = os.path.join(log_dir, "models")
@@ -240,6 +286,10 @@ def main(argv=None) -> None:
                              "epoch) instead of cycling them")
     parser.add_argument("--packed-state", action="store_true",
                         help="carry the universes bit-packed (32 cells a word)")
+    parser.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
+                        help="split the instance batch over every visible CUDA device "
+                             "(auto: when there is more than one and the instances "
+                             "divide by their number)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
@@ -258,6 +308,7 @@ def main(argv=None) -> None:
         progress_file=args.progress_file,
         device=args.device,
         packed_state=args.packed_state,
+        mesh={"auto": "auto", "on": True, "off": False}[args.mesh],
     )
     print(json.dumps({"total_reward": float(history.sum()),
                       "segments": len(history) // args.steps_per_rule}))

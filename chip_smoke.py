@@ -234,12 +234,32 @@ Phases, in order; any failure exits non-zero without the final line:
            step, launches and gathers a step, peak memory); RND2D + AE2D
            with dropout off against the one-axis mesh (rtol 1e-4 through 3
            updates);
+9c. env_mesh env-batch data parallelism on one controller: a mesh of 4
+           slots of the card (shard_carry's instance shards, rings of one
+           slot; the nets a launch a slot, fused_head=mesh): (a) train-64
+           through train(mesh=) (64 universes of 256², 16 a slot, RND2D +
+           AE2D learning, dropout 0.1, 4 rulesets x 128 steps; checkpoints, 8
+           updates a learner, the bonus falls; packed_state=True's history
+           equal to the uint8 mesh run's, rtol 1e-6), one halo_words launch a
+           ring a step; (b) train-64's stack with dropout off, 128 steps, the
+           mesh against mesh=None: universe bit for bit, rewards rtol 1e-5, no
+           gather; (d) the batched battery (5 x 32 x 1024, 40 universes a
+           slot) through evaluate_fused_batched(mesh=), score rtol 1e-4 of
+           mesh=None's, and 5 x 1 on 4 slots refused; (e) policy_logits on 16
+           universes with the mesh against fused_head=True (1e-5, gradients
+           1e-4 of each leaf); then (a)'s and (d)'s stacks profiled on the
+           mesh and on one device (wall and device ms, launches and gathers a
+           step, peak memory), and (c) the six batch-axis routes at train-64's
+           shapes, dropout off and on, each slot against its twin seeded
+           _shard_seed (forwards 1e-4; gradients 1e-4, the pooled routes
+           TOL_TIES with the encoder's ties analysed);
 10. profile 64 steps of the batched battery and 64 training steps, uint8 and
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
 11. report a {"kernels": [...]} line with each kernel's launches on the main
            paths (battery, submission, server, io, policy, train, routes, wrappers, packed,
-           bands, engines, spatial and spatial_2d, each counted from zero just before it;
+           bands, engines, spatial, spatial_2d and env_mesh, each counted from zero just
+           before it;
            the rows of the
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
@@ -471,6 +491,10 @@ PATH_KERNELS = {
     # env steps and analysis' generations (ca_step_words), /gif's frames and
     # the soup search's engine (bit_multi_step_words)
     "io": ("ca_step_words", "bit_multi_step_words"),
+    # env-batch data parallelism: the env step on rings of one slot (uint8
+    # halo_words, packed bit_spatial_words), the nets a launch a slot
+    "env_mesh": ("spatial_ca_step_words", "bit_spatial_words", "enc3_fwd", "enc3_bwd",
+                 "ae2d_fwd", "ae2d_bwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
 # launch: every encoder and decoder of the package has one of the
@@ -4199,6 +4223,363 @@ def phase_spatial_2d(torch, cuda_build):
 
 
 
+ENV_MESH_SLOTS = 4          # the env mesh: slots of one card, a ring of one slot each
+ENV_MESH_UNIVERSES = 64     # train-64's batch, 16 universes a slot
+ENV_MESH_PROFILE_STEPS = 32
+
+
+def _env_mesh(torch):
+    from carle_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh([torch.device("cuda")] * ENV_MESH_SLOTS, "env")
+
+
+def _launches_per_step(cuda_build, before, steps):
+    return {k: (v - before[k]) / steps for k, v in cuda_build.launch_counts().items()
+            if v != before[k]}
+
+
+def _env_mesh_train(torch, train_mcl, mesh, tmp, name, **kw):
+    """train_mcl.train at train-64's geometry (4 rulesets x 128 steps, RND2D +
+    AE2D learning, dropout on) on ``mesh``: (history, segments, wall s), the
+    learner states read back from the checkpoints checked."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.checkpoint import load_pytree
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+
+    segments = []
+    t0 = time.perf_counter()
+    hist = train_mcl.train(instances=ENV_MESH_UNIVERSES, height=256, width=256,
+                           steps=(1, 128), batch_size=64, seed=0,
+                           log_dir=os.path.join(tmp, name), segment_callback=segments.append,
+                           device="cuda", mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(hist.shape == (512,) and np.isfinite(hist).all(), f"{name}: training rewards")
+    models = os.path.join(tmp, name, "models")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = EnvConfig(instances=ENV_MESH_UNIVERSES)
+    for wname, make in (("RND2D", rnd2d_def), ("AE2D", ae2d_def)):
+        like = make(cfg).init(gen, torch.device("cuda"))
+        state = load_pytree(train_mcl._find_checkpoint(models, wname), like)
+        check(int(state.updates) == 8, f"{name}: {wname} reports {int(state.updates)} "
+              "updates, not 8")
+    first, last = segments[0]["mean_reward"], segments[-1]["mean_reward"]
+    check(last < first, f"{name}: the bonus did not fall ({first:.4e} -> {last:.4e})")
+    return hist, segments, wall
+
+
+def _env_mesh_stack(torch, cuda_build, cfg, mesh, steps, dropout):
+    """RND2D + AE2D (batch 64) on train-64's stack, the random agent, ``steps``
+    steps through Rollout.run on ``mesh`` (instance shards) or one device:
+    (rewards, universe, carry, stats: wall ms, launches and gathers a step)."""
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+    from carle_tpu_torch.parallel import shard_carry
+    from carle_tpu_torch.rollout import Rollout
+
+    kw = dict(batch_size=64, dropout=dropout, fused_head=mesh or False)
+    ro = Rollout(cfg, [rnd2d_def(cfg, **kw), ae2d_def(cfg, **kw)], make_random_agent(64, 64, 0.1),
+                 device="cuda")
+    carry = ro.init(ro.generator(0), rules.LIFE)
+    if mesh is not None:
+        carry = shard_carry(carry, mesh, cfg)
+    torch.cuda.synchronize()
+    c0, g0, t0 = cuda_build.launch_counts(), ro.stack.gathers, time.perf_counter()
+    carry, rewards = ro.run(carry, steps)
+    torch.cuda.synchronize()
+    stats = {"wall_ms_per_step": (time.perf_counter() - t0) * 1e3 / steps,
+             "kernel_launches_per_step": _launches_per_step(cuda_build, c0, steps),
+             "gathers_per_step": (ro.stack.gathers - g0) / steps}
+    return rewards, ro.stack.universe(carry.stack), carry, stats
+
+
+def _env_mesh_profiles(torch, mesh):
+    """Wall and device ms a step, launches, peak memory: train-64's learning
+    stack (dropout on) and the batched battery's stack (160 universes, the
+    shipped wrappers frozen), each on ``mesh`` and on one device
+    (_profile_steps, ENV_MESH_PROFILE_STEPS steps)."""
+    from carle_tpu_torch import EnvConfig, rules
+    from carle_tpu_torch.agents import make_random_agent
+    from carle_tpu_torch.evaluation import eval as ev
+    from carle_tpu_torch.mcl import ae2d_def, rnd2d_def
+    from carle_tpu_torch.parallel import shard_carry
+    from carle_tpu_torch.rollout import Rollout
+
+    out = {}
+    train_cfg, battery_cfg = EnvConfig(instances=ENV_MESH_UNIVERSES), EnvConfig(instances=160)
+    bits = torch.tensor([ev.battery_rule_bits(rs, True) for rs in ev.DEFAULT_RULES] * 32,
+                        dtype=torch.int32)
+    for name, m in (("mesh", mesh), ("mesh_none", None)):
+        fused = m or False
+        ro = Rollout(train_cfg, [rnd2d_def(train_cfg, fused_head=fused),
+                                 ae2d_def(train_cfg, fused_head=fused)],
+                     make_random_agent(64, 64, 0.1), device="cuda")
+        carry = ro.init(ro.generator(0), rules.LIFE)
+        carry = shard_carry(carry, m, train_cfg) if m is not None else carry
+        out[f"train_{name}"] = _profile_steps(torch, ro, carry, ENV_MESH_PROFILE_STEPS,
+                                              ENV_MESH_UNIVERSES)
+        ro = Rollout(battery_cfg, ev.wrapper_defs(battery_cfg, ev.DEFAULT_WRAPPERS, True, fused),
+                     make_random_agent(64, 64, 0.1), device="cuda")
+        carry = ro.with_rules(ro.init(ro.generator(0), 0), bits)
+        carry = carry._replace(stack=carry.stack._replace(
+            wrappers=ev.inject_wrapper_checkpoints(carry.stack.wrappers, ev.DEFAULT_WRAPPERS)))
+        carry = shard_carry(carry, m, battery_cfg) if m is not None else carry
+        carry, _ = ro.reset(carry)
+        g0 = ro.stack.gathers
+        out[f"battery_{name}"] = _profile_steps(torch, ro, carry, ENV_MESH_PROFILE_STEPS, 160)
+        out[f"battery_{name}"]["gathers_per_step"] = (
+            (ro.stack.gathers - g0) / (16 + 2 * ENV_MESH_PROFILE_STEPS))
+        del ro, carry
+        torch.cuda.empty_cache()
+    return out
+
+
+def _batch_routes_held(torch, cuda_build, mesh, gen):
+    """(c) The six batch-axis routes on train-64's 64 universes of 256² over
+    the mesh's 4 slots (a slot's shapes: train-64's 16), dropout off and on:
+    each slot's kernel output against that slot's plain twin seeded
+    _shard_seed(seed, s), within 1e-4; the parameter gradients (and the
+    input's, for a float input), summed over the slots by autograd, against
+    the twins' summed over the slots: the pooled routes (head, encoder, AE)
+    within TOL_TIES of each leaf and the encoder's slot 0 by _tie_analysis
+    (1e-4 outside the near-tied pool windows), the unpooled ones within 1e-4;
+    each kernel launched once a slot."""
+    from carle_tpu_torch import EnvConfig, nets
+    from carle_tpu_torch.mcl.ae import init_ae_params
+    from carle_tpu_torch.mcl.rnd import init_predictor_params
+    from carle_tpu_torch.ops import cuda_head as ch
+    from carle_tpu_torch.ops import cuda_stages as cs
+    from carle_tpu_torch.parallel.spatial_heads import _shard_seed
+
+    torch.backends.cudnn.allow_tf32 = False       # the twins in full float32, as main()
+    torch.backends.cuda.matmul.allow_tf32 = False  # sets them (the phase may run alone)
+    dev, n, seed, slots = torch.device("cuda"), ENV_MESH_UNIVERSES, 31415, ENV_MESH_SLOTS
+    k = n // slots
+    rnd = init_predictor_params(EnvConfig(instances=n), gen, dev)
+    ae = init_ae_params(gen, dev)
+    obs = (torch.rand((n, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    with torch.no_grad():
+        emb = nets.conv_encoder(obs, ae["conv1"], ae["conv2"], pools=(2, 2))   # [n, 2, 64, 64]
+        mid = nets.conv_tail(emb, ae["deconv1"], act="relu")                   # [n, 1, 128, 128]
+    wb = lambda *ps: [t for p in ps for t in (p["w"], p["b"])]
+    pd = lambda q: [{"w": q[i], "b": q[i + 1]} for i in range(0, len(q), 2)]
+    e1, d1, d2 = nets.STAGE_ENC1, nets.STAGE_DEC1, nets.STAGE_DEC2
+    cases = {   # inputs, parameters, the route, the forward twin, the backward twin
+        "conv_head": (
+            [obs], wb(ae["conv1"]),
+            lambda x, q, kw: nets.conv_head(x[0], *pd(q), pool=2, stage=e1, **kw),
+            lambda x, q, p, sd: cs.head_fwd_plain(x[0], *q, 2, p, sd, e1),
+            lambda x, q, g, p, sd: cs.head_bwd_plain(x[0], *q, g, 2, p, sd, e1)[:2]),
+        "conv_encoder": (
+            [obs], wb(rnd["conv1"], rnd["conv2"]),
+            lambda x, q, kw: nets.conv_encoder(x[0], *pd(q), pools=(4, 2), **kw),
+            lambda x, q, p, sd: ch.encoder_fwd_plain(x[0], *q, (4, 2), p, sd),
+            lambda x, q, g, p, sd: ch.encoder_bwd_plain(x[0], *q, g, (4, 2), p, sd)),
+        "conv_tail": (
+            [emb], wb(ae["deconv1"]),
+            lambda x, q, kw: nets.conv_tail(x[0], *pd(q), act="relu", stage=d1, **kw),
+            lambda x, q, p, sd: cs.tail_fwd_plain(x[0], *q, "relu", p, sd, d1),
+            lambda x, q, g, p, sd: cs.tail_bwd_plain(x[0], *q, g, "relu", p, sd, d1)),
+        "conv_loss_tail": (
+            [mid, obs], wb(ae["deconv2"]),
+            lambda x, q, kw: nets.conv_loss_tail(x[0], *pd(q), x[1], act="sigmoid", stage=d2,
+                                                 **kw),
+            lambda x, q, p, sd: cs.loss_tail_fwd_plain(x[0], *q, x[1], "sigmoid", p, sd, d2),
+            lambda x, q, g, p, sd: cs.loss_tail_bwd_plain(x[0], *q, x[1], g, "sigmoid", p, sd,
+                                                          d2)),
+        "conv_decoder_loss": (
+            [emb, obs], wb(ae["deconv1"], ae["deconv2"]),
+            lambda x, q, kw: nets.conv_decoder_loss(x[0], *pd(q), x[1], **kw),
+            lambda x, q, p, sd: cs.decoder_loss_fwd_plain(x[0], *q, x[1], p, sd),
+            lambda x, q, g, p, sd: cs.decoder_loss_bwd_plain(x[0], *q, x[1], g, p, sd)),
+        "conv_ae_loss": (
+            [obs, obs], wb(ae["conv1"], ae["conv2"], ae["deconv1"], ae["deconv2"]),
+            lambda x, q, kw: nets.conv_ae_loss(x[0], *pd(q), x[1], pools=(2, 2), **kw),
+            lambda x, q, p, sd: ch.ae_loss_fwd_plain(x[0], *q, x[1], (2, 2), p, sd),
+            lambda x, q, g, p, sd: ch.ae_loss_bwd_plain(x[0], *q, x[1], g, (2, 2), p, sd)),
+    }
+    pooled = ("conv_head", "conv_encoder", "conv_ae_loss")
+    out = {}
+    for name, (inputs, flat, route, fwd, bwd) in cases.items():
+        r = {"fwd_max_abs_err": 0.0, "grad_max_leaf_rel_err": 0.0, "launches_per_call": {}}
+        for p in (0.0, DROP_P):
+            leaves = [t.detach().requires_grad_(True) for t in flat]
+            xs = [x.detach().requires_grad_(x.is_floating_point()) for x in inputs]
+            c0 = cuda_build.launch_counts()
+            got = nets.whole(route(xs, leaves, dict(drop_p=p, train=p > 0, seed=seed,
+                                                    mesh=mesh)))
+            g = torch.randn(got.shape, generator=gen, device=dev)
+            wrt = leaves + ([xs[0]] if xs[0].requires_grad else [])
+            grads = torch.autograd.grad(got, wrt, g)
+            got = got.detach()
+            launched = {k_: v - c0[k_] for k_, v in cuda_build.launch_counts().items()
+                        if v != c0[k_]}
+            check(launched and all(v % slots == 0 for v in launched.values()),
+                  f"{name} (drop {p}): launches {launched} are not one a slot")
+            r["launches_per_call"][f"drop_{p}"] = launched
+            want, twin_grads = [], None
+            for s in range(slots):
+                part = [x.detach()[s * k:(s + 1) * k] for x in inputs]
+                sd = _shard_seed(seed, s)
+                want.append(fwd(part, flat, p, sd))
+                gs = list(bwd(part, flat, g[s * k:(s + 1) * k], p, sd))
+                twin_grads = ([[t] for t in gs] if twin_grads is None
+                              else [acc + [t] for acc, t in zip(twin_grads, gs)])
+            summed = [torch.stack(ts).sum(0) for ts in twin_grads[:len(leaves)]]
+            summed += [torch.cat(ts) for ts in twin_grads[len(leaves):]]   # the input's
+            want = torch.cat(want)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"{name} (drop {p}): {m}")
+            errs = _leaf_errors(grads, summed)
+            check(max(errs) < (TOL_TIES if name in pooled else 1e-4),
+                  f"{name} (drop {p}): gradient leaves differ from the twins' {errs}")
+            r["fwd_max_abs_err"] = max(r["fwd_max_abs_err"], float((got - want).abs().max()))
+            r["grad_max_leaf_rel_err"] = max(r["grad_max_leaf_rel_err"], max(errs))
+        if name == "conv_encoder":   # slot 0 with dropout: the ties apart from error
+            r["ties_slot0_drop"] = _tie_analysis(torch, obs[:k], flat, g[:k], (4, 2), DROP_P,
+                                                 _shard_seed(seed, 0), None)
+        out[name] = r
+        shown = {k_: v for k_, v in r.items() if k_ != "ties_slot0_drop"}
+        log(f"env_mesh route {name}: {json.dumps(shown)}")
+    return out
+
+
+def phase_env_mesh(torch, cuda_build):
+    """Env-batch data parallelism on one controller: a mesh of 4 slots of
+    the card (make_mesh([cuda] * 4, "env"); shard_carry's instance shards,
+    rings of one slot; the nets a slot at a time over the instances).  What
+    the path is held against runs first: the stack of (b) and the battery of
+    (d) on one device, (e)'s fused_head=True.  Then, counted from zero:
+    (a) train-64 through train(mesh=): 64 universes of 256², 16 a slot,
+    RND2D + AE2D learning (batch 64, dropout 0.1), 4 rulesets x 128 steps:
+    checkpoints read back, 8 updates a learner, the bonus falls; the same with
+    packed_state=True, its history equal to the uint8 mesh run's (rtol 1e-6,
+    as the packed phase holds it); (b) train-64's stack with the learners'
+    dropout off, 128 steps (2 updates), on the mesh against mesh=None: grids
+    bit for bit, rewards rtol 1e-5; (d) the batched battery (5 rulesets x 32
+    replicas x 1024 steps, 40 universes a slot) through
+    evaluate_fused_batched(mesh=), its score rtol 1e-4 of mesh=None's; (e)
+    policy_logits on 16 universes with the mesh against fused_head=True:
+    values 1e-5, gradients 1e-4 of each leaf.  After the counts are read:
+    5 x 1 on 4 slots raises ValueError; wall and device ms a step, launches,
+    gathers and peak memory of (a)'s stack and (d)'s, mesh against mesh=None
+    (_env_mesh_profiles); (c) the six routes against their twins
+    (_batch_routes_held)."""
+    import numpy as np
+
+    from carle_tpu_torch import EnvConfig, train_mcl
+    from carle_tpu_torch.evaluation import eval as ev
+    from carle_tpu_torch.policy import init_policy_params, policy_logits
+
+    dev = torch.device("cuda")
+    mesh = _env_mesh(torch)
+    cfg = EnvConfig(instances=ENV_MESH_UNIVERSES)
+    out = {"mesh": f"{ENV_MESH_SLOTS} slots of one card, rings of one slot",
+           "devices": [str(d) for d in mesh.devices]}
+
+    # references, before the path's counts start
+    r_none, u_none, _, stack_none = _env_mesh_stack(torch, cuda_build, cfg, None, 128, False)
+    t0 = time.perf_counter()
+    score_none, per_rule_none = ev.evaluate_fused_batched(steps=1024, replicas=32, seed=0,
+                                                          verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    battery_none_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(22)
+    pparams = init_policy_params(gen, EnvConfig())
+    pobs = (torch.rand((16, 1, 256, 256), generator=gen, device=dev) < 0.3).to(torch.uint8)
+    pcot = torch.randn((16, 64 * 64), generator=gen, device=dev)
+
+    def policy_run(tag):
+        leaves = {k: {n: t.detach().requires_grad_(True) for n, t in v.items()}
+                  for k, v in pparams.items()}
+        lg = policy_logits(leaves, pobs, fused_head=tag)
+        flat = [t for v in leaves.values() for t in v.values()]
+        return lg.detach(), torch.autograd.grad((lg * pcot).sum(), flat)
+
+    policy_fused = policy_run(True)
+    cuda_build.reset_launch_counts()
+
+    # (a) train(mesh=), uint8 and packed
+    with tempfile.TemporaryDirectory() as tmp:
+        c0 = cuda_build.launch_counts()
+        hist, segments, wall = _env_mesh_train(torch, train_mcl, mesh, tmp, "uint8")
+        train_launches = _launches_per_step(cuda_build, c0, 512)
+        c0 = cuda_build.launch_counts()
+        hist_p, _, wall_p = _env_mesh_train(torch, train_mcl, mesh, tmp, "packed",
+                                            packed_state=True)
+        packed_launches = _launches_per_step(cuda_build, c0, 512)
+    check(train_launches.get("spatial_ca_step_words") == ENV_MESH_SLOTS,
+          f"(a): {train_launches.get('spatial_ca_step_words')} halo_words launches a step, "
+          f"not one a ring ({ENV_MESH_SLOTS})")
+    np.testing.assert_allclose(hist_p, hist, rtol=1e-6, atol=0)
+    out["train"] = {
+        "universes": ENV_MESH_UNIVERSES, "steps": 512, "wall_s": wall,
+        "wall_ms_per_step": wall * 1e3 / 512, "packed_wall_s": wall_p,
+        "segment_universe_steps_per_s": [s["steps_per_second"] for s in segments],
+        "segment_mean_reward": [s["mean_reward"] for s in segments],
+        "kernel_launches_per_step": train_launches,
+        "packed_kernel_launches_per_step": packed_launches,
+        "packed_history_equals_uint8_bit_for_bit": bool(np.array_equal(hist_p, hist))}
+    # (b) dropout off, mesh against mesh=None
+    r_mesh, u_mesh, carry, stack_mesh = _env_mesh_stack(torch, cuda_build, cfg, mesh, 128, False)
+    check(all(int(w.updates) == 2 for w in carry.stack.wrappers), "(b): not 2 updates each")
+    check(torch.equal(u_mesh, u_none), "(b): the mesh's universe differs from mesh=None's")
+    torch.testing.assert_close(r_mesh, r_none, rtol=1e-5, atol=0)
+    check(stack_mesh["gathers_per_step"] == 0, "(b): the learners' stack gathered")
+    out["stack_dropout_off"] = {
+        "mesh": stack_mesh, "mesh_none": stack_none, "universe_bit_for_bit": True,
+        "rewards_max_rel_diff": float(((r_mesh - r_none).abs() / r_none.abs()).max())}
+    del carry
+    # (d) the batched battery
+    c0, t0 = cuda_build.launch_counts(), time.perf_counter()
+    score, per_rule = ev.evaluate_fused_batched(steps=1024, replicas=32, seed=0, verbose=False,
+                                                device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    battery_s = time.perf_counter() - t0
+    battery_launches = _launches_per_step(cuda_build, c0, 1024)
+    np.testing.assert_allclose(per_rule, per_rule_none, rtol=1e-4)
+    np.testing.assert_allclose(score, score_none, rtol=1e-4)
+    out["battery"] = {"score": score, "score_mesh_none": score_none,
+                      "score_rel_diff": abs(score - score_none) / abs(score_none),
+                      "wall_s": battery_s, "wall_s_mesh_none": battery_none_s,
+                      "wall_ms_per_step": battery_s * 1e3 / 1024,
+                      "wall_ms_per_step_mesh_none": battery_none_s * 1e3 / 1024,
+                      "kernel_launches_per_step": battery_launches}
+    # (e) the policy's encoder with the mesh
+    lg, grads = policy_run(mesh)
+    torch.testing.assert_close(lg, policy_fused[0], rtol=1e-5, atol=1e-5)
+    errs = _leaf_errors(grads, policy_fused[1])
+    check(max(errs) < 1e-4, f"(e): policy gradients differ from fused_head=True: {errs}")
+    out["policy"] = {"logits_max_abs_diff": float((lg - policy_fused[0]).abs().max()),
+                     "grad_max_leaf_rel_err": max(errs)}
+    counts = cuda_build.launch_counts()
+    log(f"env_mesh launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+
+    try:
+        ev.evaluate_fused_batched(steps=1, replicas=1, verbose=False, device="cuda", mesh=mesh)
+        check(False, "5 rulesets x 1 replica on 4 slots did not raise")
+    except ValueError as exc:
+        out["battery_5x1_refused"] = str(exc)
+    torch.cuda.empty_cache()
+    out["profiles"] = _env_mesh_profiles(torch, mesh)
+    for leg in ("train", "battery"):
+        m, none = out["profiles"][f"{leg}_mesh"], out["profiles"][f"{leg}_mesh_none"]
+        log(f"env_mesh {leg}: wall ms a step {m['wall_ms_per_step']:.3f} on the mesh, "
+            f"{none['wall_ms_per_step']:.3f} mesh=None; device ms a step "
+            f"{m['device_ms_per_step']:.3f}, {none['device_ms_per_step']:.3f}; launches a step "
+            f"{m['device_launches_per_step']:.1f}, {none['device_launches_per_step']:.1f}; "
+            f"peak bytes {m['max_memory_allocated_bytes']}, "
+            f"{none['max_memory_allocated_bytes']}")
+    out["routes"] = _batch_routes_held(torch, cuda_build, mesh, gen)
+    torch.cuda.empty_cache()
+    log(f"env_mesh ok: {json.dumps({k: v for k, v in out.items() if k != 'routes'})}")
+    return counts, out
+
+
 def shipped_states(torch):
     """The shipped learner states on the card, keyed by wrapper name."""
     from carle_tpu_torch.checkpoint import learner_state_from_numpy, read_npz
@@ -5843,6 +6224,7 @@ def main() -> int:
         bands_counts, bands = timed("bands", phase_bands, torch, cuda_build)
         spatial_counts, spatial = timed("spatial", phase_spatial, torch, cuda_build)
         spatial_2d_counts, spatial_2d = timed("spatial_2d", phase_spatial_2d, torch, cuda_build)
+        env_mesh_counts, env_mesh = timed("env_mesh", phase_env_mesh, torch, cuda_build)
         profile = timed("profile", phase_profile, torch)
         log(f"profile: {json.dumps(profile)}")
         profile_train = timed("profile_train", phase_profile_train, torch)
@@ -5860,7 +6242,7 @@ def main() -> int:
                    "wrappers": wrappers_counts, "packed": packed_counts,
                    "bands": bands_counts, "engines": engines_counts,
                    "spatial": spatial_counts, "spatial_2d": spatial_2d_counts,
-                   "policy": policy_counts}
+                   "env_mesh": env_mesh_counts, "policy": policy_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -5898,7 +6280,7 @@ def main() -> int:
         "kernel_shapes": {k: results[k]["shape"] for k in rows},
         "kernel_details": {k: results[k] for k in rows},
         "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
-        "spatial_2d": spatial_2d,
+        "spatial_2d": spatial_2d, "env_mesh": env_mesh,
         "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
         "e2e": e2e, "submission": submission, "server": server, "io": io, "policy": policy,
@@ -5922,6 +6304,7 @@ def main() -> int:
     log(json.dumps({"bands": {k: v for k, v in bands.items() if not k.startswith("profile")},
                     "bands_kernels": results["bands_kernels"]}))
     log(json.dumps({"spatial_2d": spatial_2d}))
+    log(json.dumps({"env_mesh": {k: v for k, v in env_mesh.items() if k != "profiles"}}))
     log(json.dumps({"spatial": {k: v for k, v in spatial.items() if not k.startswith("profile")},
                     "spatial_kernels": {k: results[k] for k in SPATIAL_ROWS},
                     "spatial_heads": {k: {m: v for m, v in r.items() if m != "ties_drop"}

@@ -409,8 +409,9 @@ def test_single_stages_refuse_band_tiling_as_jax_does():
 
 def test_space_sharding_is_refused_naming_the_multi_device_tier():
     """Once refused, SpaceSharding now routes the nets over row shards
-    (tests/test_torch_spatial_heads.py holds the values); what is no tag
-    still raises ValueError, and True/False still mean one device."""
+    (tests/test_torch_spatial_heads.py holds the values) and a bare Mesh over
+    the instance batch (tests/test_torch_env_mesh.py); what is no tag still
+    raises ValueError, and True/False still mean one device."""
     from carle_tpu_torch.parallel.mesh import gather_rows, make_mesh, shard_rows
 
     mesh = make_mesh([torch.device("cpu")] * 2, "space")
@@ -422,9 +423,13 @@ def test_space_sharding_is_refused_naming_the_multi_device_tier():
     q = {"w": torch.zeros(1, 4, 3, 3), "b": torch.ones(1)}
     got = nets.conv_encoder(shard_rows(x, mesh), p, q, pools=(4, 2), mesh=tag)
     assert torch.equal(gather_rows(got), nets.conv_encoder(x, p, q, pools=(4, 2)))
-    for bad in (object(), mesh, "space"):
-        with pytest.raises(ValueError, match="mesh must be None, BandTiling or SpaceSharding"):
+    for bad in (object(), "space"):
+        with pytest.raises(ValueError, match="mesh must be None, BandTiling, SpaceSharding or "
+                                             "a parallel.mesh.Mesh"):
             nets.conv_encoder(x, p, q, pools=(4, 2), mesh=bad)
+    x2 = torch.zeros((2, 1, 16, 16), dtype=torch.uint8)   # the batch-axis tag: a slot each
+    assert torch.equal(nets.conv_encoder(x2, p, q, pools=(4, 2), mesh=mesh),
+                       nets.conv_encoder(x2, p, q, pools=(4, 2)))
     with pytest.raises(ValueError):
         tmcl.rnd2d_def(CFG, fused_head=object())
     assert nets.fused_route(True) is None and nets.fused_route(False) is None

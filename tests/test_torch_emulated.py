@@ -672,6 +672,31 @@ def test_one_generation_routes_emulated(emulated, monkeypatch):
     assert cuda_halo.halo_words_route(8, 40) == "present"   # 40 % 16 != 0
 
 
+def test_env_layout_step_emulated(emulated, monkeypatch):
+    """The env step on parallel.mesh.shard_carry's instance shards (4 rings
+    of one slot: each universe's rows wrap onto itself) by the emulated
+    halo_words kernel, one launch a ring, against the single-device twin on
+    the whole batch, bit for bit: a per-universe rule, the reset flag unset
+    and set (one flag for every ring)."""
+    from carle_tpu_torch.ops.ca import ca_step_with_action
+    from carle_tpu_torch.parallel.mesh import env_layout
+
+    cfg = EnvConfig(width=32, height=32, action_width=8, action_height=8, instances=4)
+    rng = np.random.RandomState(12)
+    grid = torch.from_numpy((rng.rand(4, 32, 32) < 0.4).astype(np.uint8))
+    action = torch.from_numpy(np.where(rng.rand(4, 8, 8) < 0.5, 0,
+                                       rng.choice(ACTION_VALUES, (4, 8, 8))).astype(np.uint8))
+    x = shard_rows(grid, env_layout(make_mesh([torch.device("cpu")] * 4, "env")), "space", "env")
+    vec = torch.tensor([_rule_mask(*RULESETS[i]) for i in range(4)], dtype=torch.int32)
+    monkeypatch.setattr(cuda_halo, "_check", lambda *a: "cuda")   # the emulated kernel
+    words = cuda_halo.KERNEL_WORDS
+    for reset in (torch.tensor(False), torch.tensor(True)):
+        before = words.launches
+        got = cuda_halo.spatial_env_step_cuda(x, action, vec, cfg, reset)
+        assert words.launches == before + 4   # a launch a ring
+        assert torch.equal(gather_rows(got), ca_step_with_action(grid, action, vec, cfg, reset))
+
+
 @pytest.mark.parametrize("drop_p", [0.0, 0.1])
 @pytest.mark.parametrize("kind", ["uint8", "packed", "float32"])
 @pytest.mark.parametrize("pool, c, o", [(2, 1, 4), (4, 4, 1)])

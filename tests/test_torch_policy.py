@@ -102,8 +102,45 @@ def test_policy_logits_match_jax(fused):
     if fused:
         again = policy.policy_logits(leaves, torch.from_numpy(obs), fused_head=True)
         assert torch.equal(again, got)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh must be"):
         policy.policy_logits(leaves, cells, fused_head=object())
+
+
+def test_policy_logits_mesh_matches_fused_and_jax():
+    """``fused_head=mesh`` (8 cpu slots: the encoder a slot at a time over the
+    instances) against ``fused_head=True`` (values 1e-5, gradients 1e-4) and
+    against carle_tpu's policy_logits with its 8-device mesh, the observation
+    sharded over it (its plain path, as carle_tpu runs off the TPU)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from carle_tpu.parallel import make_mesh as jmake_mesh
+    from carle_tpu_torch.parallel import make_mesh
+
+    cfg = JEnvConfig(instances=8, **WIDE)
+    params = jpolicy.init_policy_params(jax.random.PRNGKey(3), cfg)
+    obs = np.asarray(jax.random.bernoulli(jax.random.PRNGKey(4), 0.3, (8, 1, 32, 64)),
+                     np.float32)
+    co = np.random.RandomState(5).randn(8, 256).astype(np.float32)
+    jmesh = jmake_mesh(axis_name="env")
+    jobs = jax.device_put(jnp.asarray(obs), NamedSharding(jmesh, PartitionSpec("env")))
+
+    def jloss(p):
+        lg = jpolicy.policy_logits(p, jobs, fused_head=jmesh)
+        return jnp.sum(lg * co), lg
+
+    (_, want), jgrads = jax.value_and_grad(jloss, has_aux=True)(params)
+    cells = torch.from_numpy(obs.astype(np.uint8))
+    out = {}
+    for name, tag in (("mesh", make_mesh([torch.device("cpu")] * 8, "env")), ("fused", True)):
+        leaves = jax.tree.map(lambda t: t.requires_grad_(True), _torch_tree(params))
+        got = policy.policy_logits(leaves, cells, fused_head=tag)
+        (got * torch.from_numpy(co)).sum().backward()
+        out[name] = (got.detach(), jax.tree.map(lambda t: t.grad, leaves))
+    (got, grads), (fused, fused_grads) = out["mesh"], out["fused"]
+    np.testing.assert_allclose(got.numpy(), fused.numpy(), rtol=1e-5, atol=1e-6)
+    _assert_tree_close(grads, jax.tree.map(lambda t: t.numpy(), fused_grads), 1e-4, 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    _assert_tree_close(grads, jgrads, 1e-4, 1e-5)
 
 
 @pytest.mark.parametrize("scale", [0.3, 40.0], ids=["below", "above"])
