@@ -44,6 +44,8 @@ class EnvState(NamedTuple):
     step_num: torch.Tensor            # int32 scalar
     steps_since_action: torch.Tensor  # int32 scalar
 
+    per_instance_fields = ("grid", "rule_bits")   # parallel/mesh.py PER_INSTANCE
+
 
 def init_state(config: EnvConfig, rule_bits=rules_mod.LIFE,
                device: DeviceLike = None) -> EnvState:
@@ -66,16 +68,49 @@ def reset_state(state: EnvState) -> EnvState:
     )
 
 
+def reset_flags(action: torch.Tensor, grid: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(master reset, any toggle) of a step, 0-d bool tensors on the action's
+    device, over the whole batch.  On one process the reset is the float32
+    mean of the action values == 1.0.  On a mesh spanning processes (a
+    ``grid`` of row shards, parallel/distributed.py) each process adds its
+    instances' value sum and count in float64 (each instance counted by one
+    process, ``mesh.local_batch``), one ``all_reduce`` adds the processes',
+    and the flag is sum / count == 1.0: the exact mean of 0/1 (or any
+    integer-valued) actions either way; it can differ from the float32 mean
+    only where that rounds to 1.0 and the exact mean does not (values within
+    about 2**-24 of an all-ones batch), or where float32 accumulation over
+    more than 2**24 cells rounds.  The flag goes to every ring."""
+    from .parallel.mesh import local_batch
+
+    toggles = action != 0
+    batch = local_batch(grid)
+    if batch is None:
+        return action.to(torch.float32).mean() == 1.0, toggles.any()
+    from .parallel import distributed
+
+    owned = batch.owned.to(action.device)
+    inst = action.shape[0]
+    mine = lambda t: torch.where(owned, t, torch.zeros_like(t)).sum()  # noqa: E731
+    values = action.to(torch.float64).reshape(inst, -1)
+    sums = torch.stack([mine(values.sum(dim=1)),
+                        mine(torch.full((inst,), float(values.shape[1]), dtype=torch.float64,
+                                        device=action.device)),
+                        mine(toggles.reshape(inst, -1).sum(dim=1).to(torch.float64))])
+    total, count, toggled = distributed.all_reduce(sums)
+    return total / count == 1.0, toggled > 0
+
+
 def env_step(state: EnvState, action: torch.Tensor,
              config: EnvConfig) -> Tuple[EnvState, torch.Tensor]:
     """Toggle, (maybe) master-reset, CA update.  ``action`` is
     [instances, AH, AW] of any dtype; returns (new_state, uint8 obs
     [instances, H, W]).  A grid of row shards (parallel/mesh.py) steps on
-    its shards, one halo launch a device, and the obs is those shards.
-    Nothing here waits for the device."""
+    its shards, one halo launch a device, and the obs is those shards; on a
+    mesh spanning processes ``action`` is this process's instances and the
+    master reset is the whole batch's (:func:`reset_flags`).  Nothing here
+    waits for the device (but the reset's ``all_reduce`` across processes)."""
     toggles = action != 0
-    do_reset = action.to(torch.float32).mean() == 1.0
-    any_action = toggles.any()
+    do_reset, any_action = reset_flags(action, state.grid)
 
     # the kernel binarises the bytes itself and writes zeros under the reset
     # flag, so no pass over the grid runs beside it

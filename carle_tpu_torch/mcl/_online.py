@@ -193,16 +193,31 @@ def learner_apply(
     :func:`accumulate_and_maybe_update` says.  On a mesh (a wrapper's
     ``fused_head`` a ``parallel.mesh.Mesh``) the loss is the slots' errors
     concatenated in instance order, so the mean is still over every
-    instance, and autograd adds the slots' parameter gradients.  With ``train=False`` this is
+    instance, and autograd adds the slots' parameter gradients.  On a mesh
+    spanning processes (``ctx.batch``) each process's loss is its instances'
+    losses weighted by their share of the global mean (``batch.weights``:
+    1 / instances where it reports the instance, else 0), and one
+    ``all_reduce`` adds the processes' gradients: the batch-mean gradient,
+    summed in another order, equal bits on every process, so Adam keeps the
+    parameters equal everywhere.  With ``train=False`` this is
     the reference's ``get_bonus_only``: forward pass only, no graph, no
     gradient or optimizer work."""
 
     def apply(state: LearnerState, ctx: Any, reward: torch.Tensor):
         if train:
             leaves = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
+            batch = getattr(ctx, "batch", None)
             with torch.enable_grad():
                 per_inst, new_extra = loss_fn(leaves, state, ctx)
-                grads = torch.autograd.grad(per_inst.mean(), tree_leaves(leaves))
+                loss = (per_inst.mean() if batch is None
+                        else (per_inst * batch.weights.to(per_inst.device)).sum())
+                grads = torch.autograd.grad(loss, tree_leaves(leaves))
+            if batch is not None:   # the processes' gradient sums, added
+                from ..parallel import distributed
+
+                flat = distributed.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+                grads = [f.view(g.shape) for f, g in zip(flat.split([g.numel() for g in grads]),
+                                                         grads)]
             per_inst = per_inst.detach()
             with torch.no_grad():
                 state = accumulate_and_maybe_update(

@@ -64,6 +64,10 @@ class StepCtx:
                    or instance shards it steps on (a sharded uint8 stack:
                    parallel/spatial_env.py; None elsewhere), which the nets'
                    batch-axis route reads without a gather
+    batch:         on a mesh spanning processes, which instances of the
+                   batch this process holds (``distributed.LocalBatch``:
+                   every per-instance field above is over them; batch-global
+                   sums add the processes' owned instances); None elsewhere
     """
 
     __slots__ = ("_values",)
@@ -72,11 +76,11 @@ class StepCtx:
                  action: Any = None, action_full: Any = None, action_sum: Any = None,
                  seed: int = 0, generator: Optional[torch.Generator] = None,
                  packed: Any = None, packed_prev: Any = None,
-                 packed_action: Any = None, obs_shards: Any = None) -> None:
+                 packed_action: Any = None, obs_shards: Any = None, batch: Any = None) -> None:
         values = dict(prev_grid=prev_grid, obs=obs, obs_cells=obs_cells, action=action,
                       action_full=action_full, action_sum=action_sum, seed=seed,
                       generator=generator, packed=packed, packed_prev=packed_prev,
-                      packed_action=packed_action, obs_shards=obs_shards)
+                      packed_action=packed_action, obs_shards=obs_shards, batch=batch)
         object.__setattr__(self, "_values", values)
 
     def __getattr__(self, name: str) -> Any:
@@ -170,15 +174,17 @@ class WrapperStack:
         # the master reset reads the mean of the values
         env_state, grid = env_step(state.env, action, self.config)
         action_bits = (action != 0).to(torch.uint8)
-        shards = None
+        shards = batch = None
         if isinstance(grid, torch.Tensor):
             prev, obs_cells = prev_grid, grid[:, None]
             obs = Lazy(lambda: grid.to(torch.float32)[:, None])
         else:   # row shards: the cell views gathered on their first read
+            from ..parallel.mesh import local_batch
             from ..parallel.spatial_env import gathered_views
 
             prev, obs_cells, obs = gathered_views(self, prev_grid, grid)
             shards = Lazy(lambda: grid.map(lambda p: p[:, None]))
+            batch = local_batch(grid)
         ctx = StepCtx(
             prev_grid=prev,
             obs=obs,
@@ -189,14 +195,16 @@ class WrapperStack:
             seed=int(seed),
             generator=generator,
             obs_shards=shards,
+            batch=batch,
         )
         new_state, reward = self._apply_wrappers(state.wrappers, env_state, ctx, grid.device)
         return new_state, ctx, reward
 
     def _apply_wrappers(self, wstates: Tuple[Any, ...], env_state: Any, ctx: StepCtx,
                         device) -> Tuple[StackState, torch.Tensor]:
-        """Each wrapper's apply in order, the reward starting at zero."""
-        reward = torch.zeros((self.config.instances, 1), dtype=torch.float32, device=device)
+        """Each wrapper's apply in order, the reward starting at zero (over the
+        step's instances: this process's on a mesh spanning processes)."""
+        reward = torch.zeros((ctx.action.shape[0], 1), dtype=torch.float32, device=device)
         new_wstates = []
         for w, ws in zip(self.wrappers, wstates):
             ws, reward = w.apply(ws, ctx, reward)

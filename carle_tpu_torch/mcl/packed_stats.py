@@ -47,9 +47,10 @@ import torch
 from ..config import EnvConfig
 from ..ops import bitsliced as bs
 from ..ops.bitpack import WORD, pack_grid, popcount
-from ..parallel.mesh import RowShards
+from ..parallel.mesh import RowShards, combine_rings
 from .base import StepCtx, WrapperDef, default_on_reset
 from .corner import _build_masks
+from .speed import speed_bonus
 
 _BIT_MASKS = tuple(
     int(sum(1 << b for b in range(WORD) if (b >> k) & 1))
@@ -79,17 +80,18 @@ def _per_shard(g: Any, fn, *planes: torch.Tensor) -> torch.Tensor:
     plane, added over each ring's slots on the mesh's home device, the env
     groups' sums concatenated over the instances in order; or of whole
     words.  fn returns exact integers, so the sum does not depend on the
-    sharding."""
+    sharding.  On a mesh spanning processes: this process's instances, a
+    ring's sums added over the processes holding it (``combine_rings``)."""
     if not isinstance(g, RowShards):
         return fn(g, *planes, 0)
-    sums = []
-    for ring in g.rings():
-        total = None
-        for p, a in zip(ring.parts, ring.offsets()):
+    totals = {}
+    for e, ring in enumerate(g.rings()):
+        for i, (p, a) in enumerate(zip(ring.parts, ring.offsets())):
+            if not ring.is_local(i):
+                continue
             part = fn(p, *(m[a:a + ring.rows].to(p.device) for m in planes), a).to(g.device)
-            total = part if total is None else total + part
-        sums.append(total)
-    return sums[0] if len(sums) == 1 else torch.cat(sums, dim=-1)
+            totals[e] = part if e not in totals else totals[e] + part
+    return combine_rings(g, totals, dim=-1)
 
 
 def _live_count_i(g: torch.Tensor, r0: int = 0) -> torch.Tensor:
@@ -161,11 +163,7 @@ def speed_def_packed(config: EnvConfig, reward_scale: float = 1.0,
 
         live, rows, cols = _per_shard(g, sums, bs.as_plane(state.excl_words)).to(torch.float32)
         com = torch.stack([rows / (live + 1e-7), cols / (live + 1e-7)])
-        velocity = state.center_of_mass - com
-        if per_instance:
-            speed = torch.sqrt((velocity ** 2).sum(dim=0))[:, None]
-        else:
-            speed = torch.sqrt((velocity ** 2).sum())
+        speed, com = speed_bonus(state.center_of_mass, com, ctx, per_instance)
         new_reward = torch.where(state.has_com, reward + speed, reward)
         return state._replace(center_of_mass=com,
                               has_com=torch.ones_like(state.has_com)), new_reward
@@ -269,6 +267,9 @@ def morpho_def_packed(config: EnvConfig, reward_scale: float = 1.0, rle_paths: A
         if prev.rows < dim - 1:
             raise ValueError(f"morpho_def_packed on shards of {prev.rows} rows a slot: a "
                              f"window of {dim} rows needs at least dim - 1 = {dim - 1}")
+        if prev.mesh.multi:
+            raise NotImplementedError("morpho_def_packed on a mesh spanning processes is not "
+                                      "ported (its window rows and max/min across processes)")
         home, rows, k = prev.device, prev.rows, prev.parts[0].shape[0]
         batches = {}   # device -> [(ring, padded slot, its VALID anchors)]
         for e, (ring, act) in enumerate(zip(prev.rings(), action.rings())):

@@ -52,6 +52,8 @@ class FrameBuffer(NamedTuple):
                           # uint32 words ("packed"); slot 0 the oldest
     count: torch.Tensor   # int32 scalar: frames held
 
+    per_instance_fields = ("frames",)   # parallel/mesh.py PER_INSTANCE
+
 
 def _push(buf: FrameBuffer, obs: torch.Tensor, k: int) -> Tuple[torch.Tensor, FrameBuffer]:
     """The reference's list semantics: the prediction source is ``buffer[0]``

@@ -9,7 +9,9 @@ window per instance).  The window is a ring buffer in the state: ``buf``
 holds the last ``window`` counts, ``head`` the oldest slot, ``count`` the
 fill level.  The bonus is added without ``reward_scale``, as in the JAX
 package and the reference.  :class:`PufferDetector` is the class shell
-(batch-global window).
+(batch-global window).  On a mesh spanning processes (``ctx.batch``) the
+batch-global count and ``acted`` add the processes' instances by one
+``all_reduce`` each.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ class PufferState(NamedTuple):
     head: torch.Tensor          # int32 [lanes] oldest slot
     count: torch.Tensor         # int32 [lanes] fill level
     window: torch.Tensor        # int32 scalar: the window length
+
+    # lanes are the instances with per_instance (parallel/mesh.py PER_INSTANCE)
+    per_instance_fields = ("buf", "head", "count")
 
 
 def puffer_def(config: EnvConfig, reward_scale: float = 1.0,
@@ -62,6 +67,12 @@ def puffer_def(config: EnvConfig, reward_scale: float = 1.0,
         if per_instance:
             cells = cells_vec
             acted = ctx.action.sum(dim=(1, 2), dtype=torch.int32) != 0
+        elif getattr(ctx, "batch", None) is not None:   # the whole batch's, over processes
+            from ..parallel.distributed import batch_sum
+
+            cells = batch_sum(cells_vec, ctx.batch)[None]
+            acted = (batch_sum(ctx.action.sum(dim=(1, 2), dtype=torch.int32), ctx.batch)
+                     != 0)[None]
         else:
             cells = cells_vec.sum()[None]                             # [1]
             acted = (ctx.action.sum(dtype=torch.int32) != 0)[None]    # [1]

@@ -65,13 +65,14 @@ def init_random_network_params(config: EnvConfig, generator: torch.Generator,
 
 def predictor_forward(params: Dict[str, Any], obs: torch.Tensor, seed: int,
                       generator: Optional[torch.Generator],
-                      train: bool, fused_head: Any = False) -> torch.Tensor:
+                      train: bool, fused_head: Any = False, batch: Any = None) -> torch.Tensor:
     """The predictor: the fused encoder (both dropouts in the kernel, from
-    ``seed``), the third dropout (from ``generator``), dense + tanh."""
+    ``seed``), the third dropout (from ``generator``; ``batch`` as
+    :func:`nets.dropout`'s), dense + tanh."""
     x = nets.conv_encoder(obs, params["conv1"], params["conv2"], pools=POOLS,
                           drop_p=DROP_P, train=train, seed=seed,
                           mesh=nets.fused_route(fused_head))
-    x = nets.dropout(nets.whole(x), DROP_P, train, generator)
+    x = nets.dropout(nets.whole(x), DROP_P, train, generator, batch)
     return torch.tanh(nets.linear(nets.flatten(x), params["dense"]))
 
 
@@ -106,7 +107,7 @@ def rnd2d_def(config: EnvConfig, reward_scale: float = 1.0, batch_size: int = 64
         target = random_forward(state.target_params, obs, fused_head)
         # even seeds for this net's kernels, odd for AE2D's
         prediction = predictor_forward(params, obs, 2 * ctx.seed, ctx.generator,
-                                       use_dropout, fused_head)
+                                       use_dropout, fused_head, ctx.batch)
         # mean over the embedding dim; the target carries no gradient
         return ((target - prediction) ** 2).mean(dim=1), state.extra
 

@@ -7,7 +7,11 @@ centre of mass; afterwards ``speed = sqrt(sum(velocity**2))`` over the
 [2, instances] velocity, a batch-global scalar added to every instance
 (``per_instance=True``: one speed per instance).  The bonus is added
 without ``reward_scale``, as in the JAX package and the reference.
-:class:`SpeedDetector` is the class shell (batch-global speed).
+:class:`SpeedDetector` is the class shell (batch-global speed).  On a mesh
+spanning processes (``ctx.batch``) each process computes its instances'
+centres of mass and one ``all_reduce`` puts the whole batch's on every
+process (:func:`speed_bonus`), so the velocity sum runs over every
+instance before the square root and the state stays the same everywhere.
 """
 
 from __future__ import annotations
@@ -38,6 +42,27 @@ def _masked_weights(config: EnvConfig, device) -> Tuple[torch.Tensor, torch.Tens
     return weight_h * mask, weight_w * mask
 
 
+def speed_bonus(prev_com: torch.Tensor, com: torch.Tensor, ctx: StepCtx,
+                per_instance: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(speed, the centre of mass to carry) from the carried [2, instances]
+    centre of mass and this step's (over the step's instances): a scalar,
+    or [inst, 1] with ``per_instance``; across processes the whole batch's
+    centres of mass first (module note)."""
+    batch = getattr(ctx, "batch", None)
+    if batch is not None:
+        from ..parallel.distributed import batch_gather
+
+        com = batch_gather(com, batch, dim=1)
+    velocity = prev_com - com
+    if per_instance:
+        speed = torch.sqrt((velocity ** 2).sum(dim=0))[:, None]
+        if batch is not None:
+            speed = speed[batch.lo:batch.hi]
+    else:
+        speed = torch.sqrt((velocity ** 2).sum())
+    return speed, com
+
+
 def speed_def(config: EnvConfig, reward_scale: float = 1.0,
               per_instance: bool = False) -> WrapperDef:
     def init(generator: Any, device) -> SpeedState:
@@ -58,11 +83,7 @@ def speed_def(config: EnvConfig, reward_scale: float = 1.0,
         com_h = (ctx.obs * state.weight_h).sum(dim=(1, 2, 3)) / (live + 1e-7)
         com_w = (ctx.obs * state.weight_w).sum(dim=(1, 2, 3)) / (live + 1e-7)
         com = torch.stack([com_h, com_w])  # [2, instances]
-        velocity = state.center_of_mass - com
-        if per_instance:
-            speed = torch.sqrt((velocity ** 2).sum(dim=0))[:, None]
-        else:
-            speed = torch.sqrt((velocity ** 2).sum())
+        speed, com = speed_bonus(state.center_of_mass, com, ctx, per_instance)
         new_reward = torch.where(state.has_com, reward + speed, reward)
         return state._replace(center_of_mass=com,
                               has_com=torch.ones_like(state.has_com)), new_reward

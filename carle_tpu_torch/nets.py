@@ -191,13 +191,18 @@ def max_pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, batch: Any = None) -> torch.Tensor:
     """Inverted dropout matching ``nn.Dropout``: train scales kept units by
     1/(1-p); eval is the identity.  The mask comes from ``generator`` (on
-    x's device), so nothing waits for the device."""
+    x's device), so nothing waits for the device; with ``batch`` (a
+    ``distributed.LocalBatch``: x over this process's instances of a mesh
+    spanning processes) the whole batch's draw, this process's rows kept
+    (``distributed.batch_rand``)."""
     if not train or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    from .parallel.distributed import batch_rand
+
+    keep = batch_rand(x.shape, generator, x.device, batch) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

@@ -21,7 +21,7 @@ import torch
 
 from .config import EnvConfig
 from .device import DeviceLike, resolve_device
-from .env import EnvState
+from .env import EnvState, reset_flags
 from .ops.bitpack import WORD, pack_grid, unpack_grid
 from .ops.cuda_bitpack import bit_multi_step
 
@@ -33,6 +33,8 @@ class PackedEnvState(NamedTuple):
     rule_bits: torch.Tensor           # int32 scalar or [instances]
     step_num: torch.Tensor            # int32 scalar
     steps_since_action: torch.Tensor  # int32 scalar
+
+    per_instance_fields = ("grid", "rule_bits")   # parallel/mesh.py PER_INSTANCE
 
 
 def _check_width(config: EnvConfig) -> None:
@@ -125,8 +127,7 @@ def packed_transition(state: PackedEnvState, action: torch.Tensor, config: EnvCo
     them shard by shard).  The master reset and the counters are this
     function's either way."""
     action_bits = (action != 0).to(torch.uint8)
-    do_reset = action.to(torch.float32).mean() == 1.0
-    any_action = (action != 0).any()
+    do_reset, any_action = reset_flags(action, state.grid)
     if step_grid is None:
         action_packed = pack_action(action_bits, config)
         stepped = bit_multi_step(xor_words(state.grid, action_packed), state.rule_bits, 1)

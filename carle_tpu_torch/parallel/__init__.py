@@ -21,7 +21,12 @@
   on the home device, and :mod:`.batch_heads`, the nets a slot at a time
   over the instances (a ``Mesh`` as ``fused_head``).
 
-Several processes (``torch.distributed``) are not ported yet.
+* :mod:`.distributed`: several processes over one mesh (``initialize``,
+  ``process_count``, ``process_index``, ``shutdown``, the launcher
+  ``python -m carle_tpu_torch.parallel.distributed``): ``make_mesh()`` under
+  an initialised group spans every process's slots, each process holds its
+  own slots' shards, ghost rows cross processes point to point
+  (:mod:`.ghosts`) and the batch-global terms by ``all_reduce``.
 """
 
 from ..nets import SpaceSharding
@@ -33,6 +38,19 @@ from .packed_env import PackedSpatialStack, packed_spatial_sharding, shard_carry
 from .spatial import bit_spatial_multi_step, spatial_ca_step, spatial_multi_step
 from .spatial_env import shard_carry_2d, shard_carry_spatial, spatial_sharding
 
+# parallel/distributed.py's names, imported on first use, so that
+# `python -m carle_tpu_torch.parallel.distributed` runs the one copy of it
+_DISTRIBUTED = ("initialize", "process_count", "process_index", "shutdown")
+
+
+def __getattr__(name):
+    if name in _DISTRIBUTED:
+        from . import distributed
+
+        return getattr(distributed, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "Mesh",
     "PackedSpatialStack",
@@ -42,14 +60,18 @@ __all__ = [
     "bit_spatial_multi_step_cuda",
     "env_sharding",
     "gather_rows",
+    "initialize",
     "make_mesh",
     "packed_spatial_sharding",
+    "process_count",
+    "process_index",
     "replicate",
     "shard_carry",
     "shard_carry_2d",
     "shard_carry_packed",
     "shard_carry_spatial",
     "shard_rows",
+    "shutdown",
     "spatial_ca_step",
     "spatial_ca_step_cuda",
     "spatial_env_step_cuda",

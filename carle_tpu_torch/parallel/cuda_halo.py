@@ -49,6 +49,24 @@ that path needs peer access and has not run on a machine of several cards.
 For CPU slots each takes its twin (``*_plain``): ghost rows copied from the
 ring neighbours, the engines' update on the padded rows, columns rolled.
 The step count is data (a host integer): no rebuild for another count.
+
+**A ring that spans processes** (parallel/distributed.py): each process
+launches for its own slots only.  The kernels index a neighbour's rows
+through the slot pointer table, so a neighbour of another process gets a
+*phantom*: a buffer of the slot's shape on the reading slot's device, whose
+edge rows alone are filled, at the rows the kernel reads (the alternative,
+ghost pointers handed to the launchers, would change every launcher's
+signature and table for the same bytes; a phantom keeps the kernels and
+their tables as they are).  Before each chunk (:func:`_chunks`) the ring's
+processes trade the chunk's edge rows (parallel/ghosts.py, ``isend`` /
+``irecv``): T rows a side once a chunk of T generations on the
+temporal-blocking kernels, one row a side once a generation on the others,
+words as words.  A process sends its slots' rows of the buffer the chunk
+reads, after the kernel that wrote it (under gloo the copy to the host
+waits for it; under NCCL the send is queued on the stream) and copies the
+received rows into the phantoms on the reading slot's stream before the
+launch.  The kernels never write a phantom (they write only the slots
+they are given).  The twins trade one row a side a generation the same way.
 """
 
 from __future__ import annotations
@@ -65,7 +83,8 @@ from ..ops.cuda_bitpack import stream_launches, stream_plan
 from ..ops.cuda_build import KERNELS, library, stream_args
 from ..ops.cuda_ca import _multiprocessors
 from ..rules import pack_rule_bits
-from .mesh import RowShards, ringwise
+from .ghosts import edge_rows, plan
+from .mesh import RowShards, fill_meta, local_map, ringwise
 
 KERNEL_STEP = KERNELS["spatial_ca_step"]
 KERNEL_MULTI = KERNELS["spatial_multi_step"]
@@ -112,31 +131,36 @@ __all__ = ["HALO_U8_WORDS", "KERNEL_BIT", "KERNEL_BIT_WORDS", "KERNEL_MULTI", "K
 # ---------------------------------------------------------------------------
 
 
-def _padded(parts: Sequence[torch.Tensor], s: int) -> torch.Tensor:
-    """Slot s's rows with a ghost row copied from each ring neighbour: the
-    last row of slot s-1 above, the first of slot s+1 below (torus)."""
-    n, p = len(parts), parts[s]
-    north = parts[(s - 1) % n][:, -1:].to(p.device)
-    south = parts[(s + 1) % n][:, :1].to(p.device)
-    return torch.cat([north, p, south], dim=1)
+def _padded(x: RowShards, s: int, ghosts) -> torch.Tensor:
+    """Slot s's rows with a ghost row from each ring neighbour: the last row
+    of slot s-1 above, the first of slot s+1 below (torus); another
+    process's from ``ghosts`` (parallel/ghosts.py's ``edge_rows``)."""
+    parts, n = x.parts, len(x.parts)
+    p, north, south = parts[s], (s - 1) % n, (s + 1) % n
+    above = parts[north][:, -1:].to(p.device) if x.is_local(north) else ghosts[north, 1]
+    below = parts[south][:, :1].to(p.device) if x.is_local(south) else ghosts[south, 0]
+    return torch.cat([above, p, below], dim=1)
 
 
-def _step_u8(parts: List[torch.Tensor], rule_bits) -> List[torch.Tensor]:
-    out = []
-    for s, p in enumerate(parts):
-        g = _padded(parts, s).to(torch.int32)
+def _step_u8(x: RowShards, rule_bits) -> List[torch.Tensor]:
+    ghosts = edge_rows(x, 1)
+
+    def step(s, p):
+        g = _padded(x, s, ghosts).to(torch.int32)
         rows = g[:, :-2] + g[:, 1:-1] + g[:, 2:]
         counts = rows + torch.roll(rows, 1, dims=-1) + torch.roll(rows, -1, dims=-1) - g[:, 1:-1]
-        out.append(apply_rule(p, counts, torch.as_tensor(rule_bits).to(p.device)))
-    return out
+        return apply_rule(p, counts, torch.as_tensor(rule_bits).to(p.device))
+
+    return local_map(x, step)
 
 
-def _step_u32(parts: List[torch.Tensor], rule_bits, static_rules) -> List[torch.Tensor]:
+def _step_u32(x: RowShards, rule_bits, static_rules) -> List[torch.Tensor]:
     """One packed generation: bitpack's carry-save count with the vertical
     neighbours from the ghost rows, its rule mux (data or fixed)."""
-    out = []
-    for s, p in enumerate(parts):
-        g = _padded(parts, s).to(torch.int64)
+    ghosts = edge_rows(x, 1)
+
+    def step(s, p):
+        g = _padded(x, s, ghosts).to(torch.int64)
         a, b = bitpack._horizontal_planes(g)
         s1, c1 = bitpack._csa(a[:, :-2], a[:, 1:-1], a[:, 2:])
         s2, c2 = bitpack._csa(g[:, :-2], g[:, 2:], s1)
@@ -149,15 +173,18 @@ def _step_u32(parts: List[torch.Tensor], rule_bits, static_rules) -> List[torch.
                 torch.as_tensor(rule_bits).to(p.device), mid))
         else:
             new = bitpack._rule_mux_static(mid, counts, *static_rules)
-        out.append(new.to(torch.uint32))
-    return out
+        return new.to(torch.uint32)
+
+    return local_map(x, step)
 
 
 def _multi_plain(x: RowShards, steps: int, step) -> RowShards:
-    parts = list(x.parts)
+    """``steps`` generations of ``step(shards) -> parts``."""
+    if int(steps) == 0:
+        return x.map(torch.clone)
     for _ in range(int(steps)):
-        parts = step(parts)
-    return RowShards([p.clone() for p in parts] if steps == 0 else parts, x.mesh, x.axis)
+        x = RowShards(step(x), x.mesh, x.axis)
+    return x
 
 
 def _by_ring(x: RowShards, rule_bits, fn) -> RowShards:
@@ -168,15 +195,23 @@ def _by_ring(x: RowShards, rule_bits, fn) -> RowShards:
     if not isinstance(x, RowShards):
         raise TypeError(f"the halo steps take RowShards (parallel.mesh.shard_rows), "
                         f"got {type(x)}")
-    rule, slices = _rule(rule_bits, x), x.instances()
-    return ringwise(x, lambda ring, e: fn(ring, rule[slices[e]] if rule.ndim == 1 else rule,
-                                          slices[e]))
+    rule = _rule(rule_bits, x)
+    return ringwise(x, lambda ring, e: fn(ring, _by_instance(rule, x, e) if rule.ndim == 1
+                                          else rule, x.batch_rows(e)))
+
+
+def _by_instance(t: torch.Tensor, x: RowShards, e: int) -> torch.Tensor:
+    """Ring e's instances of a per-instance tensor: of the whole batch's
+    ([N, ...]) or of this process's (``x.local_instances()``)."""
+    if t.shape[0] == x.shape[0]:
+        return t[x.instances()[e]]
+    return t[x.batch_rows(e)]
 
 
 def spatial_ca_step_plain(x: RowShards, rule_bits) -> RowShards:
     """One uint8 generation of row-sharded universes, ghost rows by copy."""
     return _by_ring(x, rule_bits, lambda r, rule, _: _multi_plain(
-        r, 1, lambda parts: _step_u8(parts, rule)))
+        r, 1, lambda y: _step_u8(y, rule)))
 
 
 def _toggled(x: RowShards, action: torch.Tensor, config: EnvConfig) -> List[torch.Tensor]:
@@ -186,15 +221,18 @@ def _toggled(x: RowShards, action: torch.Tensor, config: EnvConfig) -> List[torc
     are."""
     r0, c0 = config.action_row_offset, config.action_col_offset
     ah, aw = action.shape[-2:]
-    parts = []
-    for p, a in zip(x.parts, x.offsets()):
+    offsets = x.offsets()
+
+    def toggle(i, p):
+        a = offsets[i]
         lo, hi = max(a, r0), min(a + x.rows, r0 + ah)
         if lo < hi:
             p = p.clone()
             p[:, lo - a:hi - a, c0:c0 + aw] ^= (action[:, lo - r0:hi - r0] != 0).to(
                 device=p.device, dtype=torch.uint8)
-        parts.append(p)
-    return parts
+        return p
+
+    return local_map(x, toggle)
 
 
 def _zeroed(x: RowShards, reset: Optional[torch.Tensor]) -> RowShards:
@@ -212,7 +250,7 @@ def spatial_env_step_plain(x: RowShards, action: torch.Tensor, rule_bits, config
     reset flag."""
     def ring(r, rule, sl):
         toggled = RowShards(_toggled(r, action[sl], config), r.mesh, r.axis)
-        return _multi_plain(toggled, 1, lambda parts: _step_u8(parts, rule))
+        return _multi_plain(toggled, 1, lambda y: _step_u8(y, rule))
 
     return _zeroed(_by_ring(x, rule_bits, ring), reset)
 
@@ -220,14 +258,14 @@ def spatial_env_step_plain(x: RowShards, action: torch.Tensor, rule_bits, config
 def spatial_multi_step_plain(x: RowShards, rule_bits, num_steps: int) -> RowShards:
     """``num_steps`` uint8 generations (:func:`spatial_ca_step_plain` each)."""
     return _by_ring(x, rule_bits, lambda r, rule, _: _multi_plain(
-        r, num_steps, lambda parts: _step_u8(parts, rule)))
+        r, num_steps, lambda y: _step_u8(y, rule)))
 
 
 def bit_spatial_multi_step_plain(x: RowShards, rule_bits, num_steps: int,
                                  static_rules: Optional[Tuple] = None) -> RowShards:
     """``num_steps`` packed generations of row-sharded words."""
     return _by_ring(x, rule_bits, lambda r, rule, _: _multi_plain(
-        r, num_steps, lambda parts: _step_u32(parts, rule, static_rules)))
+        r, num_steps, lambda y: _step_u32(y, rule, static_rules)))
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +278,8 @@ def _check(x: RowShards, dtype: torch.dtype, name: str, rule_bits) -> str:
     the rule."""
     if not isinstance(x, RowShards):
         raise TypeError(f"{name} takes RowShards (parallel.mesh.shard_rows), got {type(x)}")
-    for p, dev in zip(x.parts, x.mesh.devices):
+    for s in x.mesh.local_slots:
+        p, dev = x.parts[s], x.mesh.devices[s]
         if p.dtype != dtype or p.ndim != 3 or p.device != dev or not p.is_contiguous():
             raise ValueError(f"{name}: every shard must be a contiguous {dtype} [N, H/n, W] "
                              f"tensor on its slot's device")
@@ -254,9 +293,11 @@ def _check(x: RowShards, dtype: torch.dtype, name: str, rule_bits) -> str:
 
 
 def _rule(rule_bits, x: RowShards) -> torch.Tensor:
+    """The rule, a scalar or a vector over the whole batch or over this
+    process's instances (:func:`_by_instance`)."""
     rule = torch.as_tensor(rule_bits, dtype=torch.int32)
-    n = x.shape[0]
-    if rule.ndim > 1 or (rule.ndim == 1 and rule.shape[0] != n):
+    n, sl = x.shape[0], x.local_instances()
+    if rule.ndim > 1 or (rule.ndim == 1 and rule.shape[0] not in (n, sl.stop - sl.start)):
         raise ValueError(f"rule must be a scalar or a [{n}] vector, got shape "
                          f"{tuple(rule.shape)}")
     return rule
@@ -264,7 +305,8 @@ def _rule(rule_bits, x: RowShards) -> torch.Tensor:
 
 def _rules_by_device(rule_bits, x: RowShards) -> Dict[torch.device, torch.Tensor]:
     rule = _rule(rule_bits, x)
-    return {d: rule.to(d).contiguous() for d in set(x.mesh.devices)}
+    return {x.mesh.devices[s]: rule.to(x.mesh.devices[s]).contiguous()
+            for s in x.mesh.local_slots}
 
 
 _PEERS_ENABLED = set()
@@ -283,29 +325,36 @@ def _enable_peers(devices: Sequence[torch.device]) -> None:
 
 
 def _slot_groups(x: RowShards) -> Dict[torch.device, List[int]]:
-    """The slots of each device, in ring order."""
+    """This process's slots of each device, in ring order."""
     groups: Dict[torch.device, List[int]] = {}
-    for s, dev in enumerate(x.mesh.devices):
-        groups.setdefault(dev, []).append(s)
+    for s in x.mesh.local_slots:
+        groups.setdefault(x.mesh.devices[s], []).append(s)
     for dev, slots in groups.items():
         if len(slots) > MAX_SLOTS:
             raise ValueError(f"at most {MAX_SLOTS} slots a device, {dev} has {len(slots)}")
     return groups
 
 
-def _chunks(x: RowShards, groups, chunks: int, launch) -> None:
+def _chunks(x: RowShards, groups, chunks: int, launch, trade=None) -> None:
     """Run ``launch(dev, c0, c1)`` (chunks [c0, c1) on the slots of ``dev``)
-    over ``chunks`` chunks: in one call on one card; on several cards chunk
-    by chunk, chunk c on a card waiting for chunk c - 1 on the cards holding
-    its slots' ring neighbours (their rows are its ghost rows, and it
-    overwrites the buffer they read)."""
+    over ``chunks`` chunks: in one call on one card; on several cards, or
+    with ``trade(c)`` (the ghost rows of chunk c from other processes,
+    :class:`_Phantoms`), chunk by chunk, chunk c on a card waiting for chunk
+    c - 1 on the cards holding its slots' ring neighbours (their rows are
+    its ghost rows, and it overwrites the buffer they read)."""
     mesh, n = x.mesh, len(x.parts)
-    if len(groups) == 1:
+    if len(groups) == 1 and trade is None:
         launch(mesh.home, 0, chunks)
+        return
+    if len(groups) == 1:
+        for c in range(chunks):
+            trade(c)
+            launch(mesh.home, c, c + 1)
         return
     devs = list(groups)
     _enable_peers(devs)
-    neighbours = {d: {mesh.devices[(s + k) % n] for s in groups[d] for k in (-1, 1)} - {d}
+    neighbours = {d: {mesh.devices[(s + k) % n] for s in groups[d] for k in (-1, 1)
+                      if mesh.is_local((s + k) % n)} - {d}
                   for d in devs}
 
     def record():
@@ -317,6 +366,8 @@ def _chunks(x: RowShards, groups, chunks: int, launch) -> None:
 
     events = record()   # the inputs' producers
     for c in range(chunks):
+        if trade is not None:
+            trade(c)
         for d in devs:
             for nb in neighbours[d]:
                 torch.cuda.current_stream(d).wait_event(events[nb])
@@ -327,13 +378,77 @@ def _chunks(x: RowShards, groups, chunks: int, launch) -> None:
             torch.cuda.current_stream(d).wait_event(events[nb])
 
 
-def _buffers(x: RowShards, steps: int):
-    """(out, scratch, ctypes arrays of the in, scratch and out pointers)."""
+# phantom buffers by (slot, shape, dtype, device), kept from call to call:
+# each call fills the edge rows it reads on the reading slot's stream before
+# its launch, so a call reuses a buffer only after the last one's kernels
+_PHANTOM_CACHE: Dict[Tuple[int, Tuple[int, ...], torch.dtype, torch.device], torch.Tensor] = {}
+
+
+class _Phantoms:
+    """A ring's neighbours of other processes as buffers of the slot's shape
+    on the reading slot's device (allocated once a slot, shape and device:
+    :data:`_PHANTOM_CACHE`), their edge rows filled before each chunk by
+    ``trade(c)`` (module note); none where the ring is one process's."""
+
+    def __init__(self, x: RowShards, rows: int) -> None:
+        self.x, self.rows = x, rows
+        self.buffers: Dict[int, torch.Tensor] = {}
+        if x.mesh.multi:
+            for (j, _), _, reader in plan(x, True)[1]:
+                if j in self.buffers:
+                    continue
+                p, dev = x.parts[j], x.mesh.devices[reader]
+                key = (j, tuple(p.shape), p.dtype, dev)
+                if key not in _PHANTOM_CACHE:
+                    _PHANTOM_CACHE[key] = torch.empty(p.shape, dtype=p.dtype, device=dev)
+                self.buffers[j] = _PHANTOM_CACHE[key]
+
+    def ptr(self, s: int, t: torch.Tensor) -> int:
+        if self.x.is_local(s):
+            return t.data_ptr()
+        return self.buffers[s].data_ptr() if s in self.buffers else 0
+
+    def trader(self, source):
+        """``trade(c)``: chunk c's edge rows of ``source(c)`` (this process's
+        parts the chunk reads) into the phantoms; None where there are
+        none."""
+        if not self.buffers:
+            return None
+        k, x = self.rows, self.x
+
+        def trade(c):
+            for (j, edge), rows in edge_rows(x, k, True, source(c)).items():
+                buf = self.buffers[j]
+                buf.narrow(-2, 0 if edge == 0 else buf.shape[-2] - k, k).copy_(rows)
+
+        return trade
+
+    def shards(self, parts: List[torch.Tensor]) -> RowShards:
+        """Results of this process's slots as shards (the others ``meta``)."""
+        return RowShards(fill_meta([p if self.x.is_local(i) else None
+                                    for i, p in enumerate(parts)]), self.x.mesh, self.x.axis)
+
+
+def _buffers(x: RowShards, steps: int, phantoms: "_Phantoms"):
+    """(out, scratch, ctypes arrays of the in, scratch and out pointers); a
+    slot of another process reads as its phantom (or nothing)."""
     parts, n = x.parts, len(x.parts)
-    out = [torch.empty_like(p) for p in parts]
-    scratch = [torch.empty_like(p) for p in parts] if steps > 1 else out
-    ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+    alloc = lambda: [torch.empty_like(p) if x.is_local(i) else p  # noqa: E731
+                     for i, p in enumerate(parts)]
+    out = alloc()
+    scratch = alloc() if steps > 1 else out
+    ptrs = lambda ts: (ctypes.c_void_p * n)(*(phantoms.ptr(i, t) for i, t in enumerate(ts)))
     return out, scratch, [ptrs(parts), ptrs(scratch), ptrs(out)]
+
+
+def _source(x: RowShards, out, scratch, chunks: int):
+    """``source(c)``: the parts chunk c reads (halo_step.cu's run_chunks: the
+    input first, then what chunk c - 1 wrote)."""
+    return lambda c: x.parts if c == 0 else (out if (chunks - (c - 1)) % 2 else scratch)
+
+
+def _local(x: RowShards, ts) -> List[torch.Tensor]:
+    return [t for i, t in enumerate(ts) if x.is_local(i)]
 
 
 def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
@@ -350,7 +465,8 @@ def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
     n = len(parts)
     rules = _rules_by_device(rule_bits, x)
     groups = _slot_groups(x)
-    out, scratch, arrays = _buffers(x, steps)
+    phantoms = _Phantoms(x, 1)
+    out, scratch, arrays = _buffers(x, steps, phantoms)
     slot_arrays = {dev: (ctypes.c_int * len(s))(*s) for dev, s in groups.items()}
     packed = kind == KIND_U32
 
@@ -362,8 +478,8 @@ def _launch(kernel, x: RowShards, rule_bits, steps: int, kind: int,
                       *stream_args(parts[groups[dev][0]]), defines=defines, packed=packed,
                       count=t1 - t0)   # the launcher launches once a generation
 
-    _chunks(x, groups, steps, launch)
-    return RowShards(out, x.mesh, x.axis)
+    _chunks(x, groups, steps, launch, phantoms.trader(_source(x, out, scratch, steps)))
+    return phantoms.shards(out)
 
 
 def _band_rows(hl: int, nw: int, t: int) -> int:
@@ -425,12 +541,15 @@ def u8_halo_plan(hl: int, w: int, steps: int, aligned: bool = True):
     return (t, v, rows, strip, min(HALO_THREADS, 32 * -(-items // 32)))
 
 
-def _launch_chunks(kernel, x: RowShards, rule_bits, steps: int, plan, out, arrays, groups,
-                   defines: Tuple[str, ...] = (), per_chunk: int = 1,
+def _launch_chunks(kernel, x: RowShards, rule_bits, steps: int, plan, bufs, groups,
+                   phantoms: "_Phantoms", defines: Tuple[str, ...] = (), per_chunk: int = 1,
                    packed: bool = True) -> RowShards:
     """``steps`` generations in chunks of the plan's T by one of the
     chunked launchers (bit_halo_words_launch, u8_halo_bits_launch), one
-    launch a chunk a device (``per_chunk`` a chunk where T = 1 streams)."""
+    launch a chunk a device (``per_chunk`` a chunk where T = 1 streams);
+    ``bufs`` is :func:`_buffers`' (out, scratch, arrays), ``phantoms`` with
+    T rows a side."""
+    out, scratch, arrays = bufs
     parts = x.parts
     n_inst, hl, w = parts[0].shape
     rules = _rules_by_device(rule_bits, x)
@@ -446,8 +565,9 @@ def _launch_chunks(kernel, x: RowShards, rule_bits, steps: int, plan, out, array
                       *stream_args(parts[groups[dev][0]]), defines=defines, packed=packed,
                       count=(c1 - c0) * per_chunk)
 
-    _chunks(x, groups, -(-steps // t), launch)
-    return RowShards(out, x.mesh, x.axis)
+    chunks = -(-steps // t)
+    _chunks(x, groups, chunks, launch, phantoms.trader(_source(x, out, scratch, chunks)))
+    return phantoms.shards(out)
 
 
 def _launch_words(x: RowShards, rule_bits, steps: int, defines: Tuple[str, ...] = (),
@@ -461,13 +581,16 @@ def _launch_words(x: RowShards, rule_bits, steps: int, defines: Tuple[str, ...] 
         return x.map(torch.clone)
     n_inst, hl, nw = x.parts[0].shape
     groups = _slot_groups(x)
-    out, scratch, arrays = _buffers(x, steps)
+    phantoms = _Phantoms(x, 0)
+    bufs = _buffers(x, steps, phantoms)
     if plan is None:
-        aligned = all(t.data_ptr() % 16 == 0 for ts in (x.parts, scratch, out) for t in ts)
+        aligned = all(t.data_ptr() % 16 == 0 for ts in (x.parts, bufs[1], bufs[0])
+                      for t in _local(x, ts))
         plan = halo_plan(n_inst, hl, nw, steps, max(len(s) for s in groups.values()),
                          _multiprocessors(x.mesh.home), aligned)
+    phantoms.rows = plan[0]
     per_chunk = stream_launches(n_inst, hl, nw, plan[1], plan[3]) if plan[0] == 1 else 1
-    return _launch_chunks(KERNEL_BIT_WORDS, x, rule_bits, steps, plan, out, arrays, groups,
+    return _launch_chunks(KERNEL_BIT_WORDS, x, rule_bits, steps, plan, bufs, groups, phantoms,
                           defines, per_chunk)
 
 
@@ -479,9 +602,9 @@ def _launch_u8_bits(x: RowShards, rule_bits, steps: int, plan,
     if steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {steps}")
     groups = _slot_groups(x)
-    out, _, arrays = _buffers(x, steps)
-    return _launch_chunks(KERNEL_U8_BITS, x, rule_bits, steps, plan, out, arrays, groups,
-                          defines, packed=False)
+    phantoms = _Phantoms(x, plan[0])
+    return _launch_chunks(KERNEL_U8_BITS, x, rule_bits, steps, plan,
+                          _buffers(x, steps, phantoms), groups, phantoms, defines, packed=False)
 
 
 def halo_words_route(hl: int, w: int) -> str:
@@ -523,6 +646,8 @@ def _check_env(x: RowShards, action: torch.Tensor, config: EnvConfig, reset) -> 
     if tuple(x.shape) != (n, config.height, config.width):
         raise ValueError(f"universe {tuple(x.shape)[1:]} does not match the config "
                          f"{config.height}x{config.width}")
+    sl = x.local_instances()
+    n = sl.stop - sl.start   # this process's instances (all within one process)
     if (action.shape != (n, ah, aw) or action.dtype != torch.uint8
             or action.device != x.mesh.home or not action.is_contiguous()):
         raise ValueError(f"action must be a contiguous uint8 [{n}, {ah}, {aw}] tensor on "
@@ -542,8 +667,9 @@ def _launch_halo_words(x: RowShards, rule_bits, action: Optional[torch.Tensor] =
     parts = x.parts
     n_inst, hl, w = parts[0].shape
     groups = _slot_groups(x)
-    out, _, (in_ptrs, _, out_ptrs) = _buffers(x, 1)
-    if w % 16 or any(t.data_ptr() % 16 for ts in (parts, out) for t in ts):
+    phantoms = _Phantoms(x, 1)
+    out, _, (in_ptrs, _, out_ptrs) = _buffers(x, 1, phantoms)
+    if w % 16 or any(t.data_ptr() % 16 for ts in (parts, out) for t in _local(x, ts)):
         raise ValueError("halo_words reads 16-byte columns: width % 16 == 0 and "
                          "16-byte aligned shards")
     rows, strip, threads = plan or halo_words_plan(
@@ -567,8 +693,8 @@ def _launch_halo_words(x: RowShards, rule_bits, action: Optional[torch.Tensor] =
                             resets[dev].data_ptr() if resets else None, n_inst, hl, w, rows,
                             strip, threads, *stream_args(parts[groups[dev][0]]))
 
-    _chunks(x, groups, 1, launch)
-    return RowShards(out, x.mesh, x.axis)
+    _chunks(x, groups, 1, launch, phantoms.trader(lambda c: parts))
+    return phantoms.shards(out)
 
 
 def _u8_step(x: RowShards, rule_bits) -> RowShards:
@@ -588,7 +714,7 @@ def _u8_multi(x: RowShards, rule_bits, steps: int) -> RowShards:
         return _u8_step(x, rule_bits)
     _, hl, w = x.parts[0].shape
     plan = HALO_U8_BITS and u8_halo_plan(hl, w, int(steps),
-                                         all(p.data_ptr() % 16 == 0 for p in x.parts))
+                                         all(p.data_ptr() % 16 == 0 for p in _local(x, x.parts)))
     if plan:
         return _launch_u8_bits(x, rule_bits, steps, plan)
     return _launch(KERNEL_MULTI, x, rule_bits, steps, KIND_U8)
@@ -619,7 +745,7 @@ def spatial_env_step_cuda(x: RowShards, action: torch.Tensor, rule_bits, config:
     _check_env(x, action, config, reset)
 
     def ring(r, rule, sl):   # the flag is the whole batch's: every ring gets it
-        act = action[sl]
+        act = action[sl]   # action: this process's instances
         if _check(r, torch.uint8, "spatial_env_step", rule) == "cpu":
             return spatial_env_step_plain(r, act, rule, config, reset)
         _, hl, w = r.parts[0].shape

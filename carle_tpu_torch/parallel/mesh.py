@@ -63,8 +63,28 @@ On a two-axis mesh the instances shard over the first axis, on each env
 group's first slot (:func:`env_slots`): the JAX package replicates an
 instance shard over the second axis, one controller keeps one copy.
 
-Multi-process meshes (``torch.distributed``: NCCL across cards, gloo on the
-CPU; ROADMAP Queue 1 item 8b) are not here yet.
+**Several processes** (parallel/distributed.py): a mesh may span the slots
+of several processes.  Each slot has an owner (:attr:`Mesh.owners`, ranks);
+``make_mesh()`` under an initialised group lists every process's slots in
+process order (``distributed.global_slots``), as ``jax.devices()`` spans
+hosts, every process with as many slots.  A process holds only its own
+slots' parts: a :class:`RowShards`' part of another process's slot is a
+``meta`` tensor of the shard's shape and dtype (:meth:`RowShards.is_local`),
+so shapes are known everywhere and any use of the data fails loudly.  Every
+per-slot loop runs over the local slots; a ring whose slots all belong to
+other processes is skipped (:func:`ringwise`), and a ring that spans
+processes trades its ghost rows point to point (parallel/ghosts.py).  The
+home device is this process's first slot.  :func:`gather_rows` gives this
+process's instances, joining a ring that spans processes by a sum of its
+parts over the processes (every process joins, counted in
+``distributed.STATS``).  :func:`shard_carry` and its kin keep each
+process's parts of a tree that every process built the same from the same
+seed (what each JAX worker does with ``ro.init(PRNGKey(0))``), and on an
+instance split also this process's rows of the leaves a state declares
+per-instance (:data:`PER_INSTANCE`); what stays whole is a copy a process
+on its home device (:func:`replicate`).
+:func:`local_batch` says which instances a process holds.  A mesh within
+one process (no group, or slots listed by hand) is as before.
 """
 
 from __future__ import annotations
@@ -86,10 +106,12 @@ class Mesh:
     ``make_mesh`` builds, or of a two-axis one): ``devices`` the slots in
     row-major order, ``axis_names`` one or two names, ``shape`` each axis's
     extent.  A two-axis mesh takes its slots as a sequence of equal rows,
-    one a group of the first axis.  The first slot is the home device,
-    where gathered views and replicated state live."""
+    one a group of the first axis.  ``owners`` gives each slot's process
+    (default: all this process's).  This process's first slot is the home
+    device, where gathered views and replicated state live."""
 
-    def __init__(self, devices: Sequence[Any], axis_names: Tuple[str, ...] = ("env",)) -> None:
+    def __init__(self, devices: Sequence[Any], axis_names: Tuple[str, ...] = ("env",),
+                 owners: Optional[Sequence[int]] = None) -> None:
         axis_names = tuple(axis_names)
         if len(axis_names) == 2:
             groups = [list(g) for g in devices]
@@ -108,7 +130,16 @@ class Mesh:
         kinds = {d.type for d in devices}
         if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
             raise ValueError(f"mesh slots must be all cpu or all cuda, got {devices}")
-        cards = sorted({d.index for d in devices if d.type == "cuda"})
+        from . import distributed   # imported on use: `python -m ...distributed` runs it
+
+        rank = distributed.process_index()
+        owners = (rank,) * len(devices) if owners is None else tuple(int(o) for o in owners)
+        if len(owners) != len(devices):
+            raise ValueError(f"{len(owners)} owners for {len(devices)} slots")
+        self.owners = owners
+        self.rank = rank
+        # the peer check covers this process's cards only
+        cards = sorted({d.index for d, o in zip(devices, owners) if d.type == "cuda" and o == rank})
         for a in cards:
             for b in cards:
                 if a != b and not torch.cuda.can_device_access_peer(a, b):
@@ -130,7 +161,22 @@ class Mesh:
 
     @property
     def home(self) -> torch.device:
-        return self.devices[0]
+        """This process's first slot (a ring of other processes' slots, seen
+        from here: its first)."""
+        return self.devices[self.owners.index(self.rank) if self.rank in self.owners else 0]
+
+    def is_local(self, s: int) -> bool:
+        """Whether slot s belongs to this process."""
+        return self.owners[s] == self.rank
+
+    @property
+    def local_slots(self) -> List[int]:
+        return [s for s, o in enumerate(self.owners) if o == self.rank]
+
+    @property
+    def multi(self) -> bool:
+        """Whether the slots belong to more than one process."""
+        return len(set(self.owners)) > 1
 
     def ring(self, group: int = 0) -> "Mesh":
         """The one-axis mesh of env group ``group``'s slots, over the second
@@ -143,20 +189,31 @@ class Mesh:
         if group not in self._rings:
             n = self._extents[1]
             self._rings[group] = Mesh(self.devices[group * n:(group + 1) * n],
-                                      self.axis_names[1:])
+                                      self.axis_names[1:], self.owners[group * n:(group + 1) * n])
         return self._rings[group]
 
     def __repr__(self) -> str:
+        owners = f", owners={self.owners}" if self.multi else ""
         if len(self.axis_names) == 1:
-            return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names})"
+            return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names}{owners})"
         return (f"Mesh({[str(d) for d in self.devices]}, {self.axis_names}, "
-                f"shape={self._extents})")
+                f"shape={self._extents}{owners})")
 
 
 def make_mesh(devices: Optional[Sequence[Any]] = None, axis_name: str = "env") -> Mesh:
-    """A one-axis mesh over ``devices`` (default: every visible CUDA device;
-    without one this raises: a CPU mesh is built only from ``cpu`` slots the
-    caller lists)."""
+    """A one-axis mesh over ``devices`` (default: under an initialised
+    process group every process's slots, ``distributed.global_slots``, each
+    process with as many; else every visible CUDA device, and without one
+    this raises: a CPU mesh is built only from ``cpu`` slots the caller
+    lists)."""
+    from . import distributed
+
+    if devices is None and distributed.is_initialized():
+        slots = distributed.global_slots()
+        counts = {r: sum(1 for o, _ in slots if o == r) for r, _ in slots}
+        if len(set(counts.values())) != 1:
+            raise ValueError(f"every process must bring as many slots: {counts}")
+        return Mesh([d for _, d in slots], (axis_name,), [r for r, _ in slots])
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh() takes every visible CUDA device and "
@@ -234,9 +291,34 @@ class RowShards:
         """The global row of each slot's first row."""
         return [(i % self.slots) * self.rows for i in range(len(self.parts))]
 
+    def is_local(self, i: int) -> bool:
+        """Whether part i (on slot i: without ``env_axis`` the parts lie on the
+        first ring) is this process's (else a ``meta`` tensor)."""
+        return self.mesh.is_local(i)
+
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "RowShards":
-        """``fn`` of every shard, in place of it (row counts kept equal)."""
-        return RowShards([fn(p) for p in self.parts], self.mesh, self.axis, self.env_axis)
+        """``fn`` of every shard, in place of it (row counts kept equal);
+        another process's parts stay ``meta`` tensors of the result's shape."""
+        return RowShards(local_map(self, lambda i, p: fn(p)), self.mesh, self.axis,
+                         self.env_axis)
+
+    def local_instances(self) -> slice:
+        """The instances this process holds: those of the rings with a slot of
+        its own (all of them within one process)."""
+        if self.groups == 1:
+            return slice(0, self.shape[0])
+        k, n = self.parts[0].shape[0], self.slots
+        mine = [e for e in range(self.groups)
+                if any(self.mesh.is_local(e * n + s) for s in range(n))]
+        return slice(mine[0] * k, (mine[-1] + 1) * k)
+
+    def batch_rows(self, e: int) -> slice:
+        """Ring e's instances within this process's per-instance tensors
+        (:meth:`local_instances`)."""
+        sl, lo = self.instances()[e], self.local_instances().start
+        if sl.start is None:
+            return sl
+        return slice(sl.start - lo, sl.stop - lo)
 
     def instances(self) -> List[slice]:
         """The slice of the batch each ring holds, in ring order."""
@@ -253,7 +335,9 @@ class RowShards:
                 for e in range(self.groups)]
 
     def take(self, instance: int) -> "RowShards":
-        """One instance's shards ([1, ...]) on the ring that holds it."""
+        """One instance's shards ([1, ...]) on the ring that holds it (the
+        instance counted within this process's, :meth:`local_instances`)."""
+        instance += self.local_instances().start
         k = self.parts[0].shape[0]
         ring = self.rings()[instance // k if self.groups > 1 else 0]
         i = instance % k if self.groups > 1 else instance
@@ -264,13 +348,34 @@ class RowShards:
         return f"RowShards({tuple(self.shape)}, {self.parts[0].dtype}, {self.mesh}{env})"
 
 
+def fill_meta(outs: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+    """Per-slot results with None for another process's slot: each None a
+    ``meta`` tensor shaped as the first result (every slot's are alike)."""
+    like = next(o for o in outs if o is not None)
+    return [torch.empty(like.shape, dtype=like.dtype, device="meta") if o is None else o
+            for o in outs]
+
+
+def local_map(x: RowShards, fn: Callable[[int, torch.Tensor], torch.Tensor]
+              ) -> List[torch.Tensor]:
+    """``fn(i, part)`` of this process's parts; the others ``meta`` tensors
+    shaped as the results."""
+    return fill_meta([fn(i, p) if x.is_local(i) else None for i, p in enumerate(x.parts)])
+
+
 def ringwise(x: RowShards, fn: Callable[[RowShards, int], RowShards]) -> RowShards:
     """``fn(ring, e)`` of each env group e's ring (``x.instances()[e]`` the
-    slice of the batch it holds), the rings' results together again on x's
+    slice of the batch it holds, ``x.batch_rows(e)`` the same within this
+    process's per-instance tensors), the rings' results together again on x's
     mesh: how a one-axis operation runs on a two-axis mesh, each ring
-    independent of the others."""
-    outs = [fn(r, e) for e, r in enumerate(x.rings())]
-    return RowShards([p for o in outs for p in o.parts], x.mesh, x.axis, x.env_axis)
+    independent of the others.  A ring of other processes' slots only is
+    skipped: its parts stay ``meta``, shaped as a local ring's results."""
+    rings = x.rings()
+    outs = [fn(r, e) if any(r.is_local(i) for i in range(len(r.parts))) else None
+            for e, r in enumerate(rings)]
+    n = len(rings[0].parts)
+    parts = fill_meta([p for o in outs for p in (o.parts if o is not None else [None] * n)])
+    return RowShards(parts, x.mesh, x.axis, x.env_axis)
 
 
 def shard_rows(x: torch.Tensor, mesh: Mesh, axis: str = "space",
@@ -290,18 +395,67 @@ def shard_rows(x: torch.Tensor, mesh: Mesh, axis: str = "space",
     for i, dev in enumerate(mesh.devices[:groups * n]):
         e, s = divmod(i, n)
         block = (x if groups == 1 else x[e * k:(e + 1) * k])[..., s * hl:(s + 1) * hl, :]
-        part = torch.empty(block.shape, dtype=x.dtype, device=dev)
-        part.copy_(block)
+        part = torch.empty(block.shape, dtype=x.dtype,
+                           device=dev if mesh.is_local(i) else "meta")
+        if mesh.is_local(i):
+            part.copy_(block)
         parts.append(part)
     return RowShards(parts, mesh, axis, env_axis)
 
 
+def _spans(ring: RowShards) -> bool:
+    """Whether a ring's slots belong to more than one process."""
+    return len(set(ring.mesh.owners)) > 1
+
+
+def combine_rings(x: RowShards, totals: Dict[int, torch.Tensor], dim: int = 0
+                  ) -> torch.Tensor:
+    """Per-ring tensors over each ring's instances (``dim``), ``totals[e]``
+    this process's part of ring e (its own slots' sum), as one tensor over
+    this process's instances: a ring that spans processes summed over them
+    (every process joins, with zeros where it holds none of the ring's
+    slots; ``distributed.world_sum``, differentiable), the rings in instance
+    order.  Within one process: the rings' totals concatenated."""
+    from . import distributed
+
+    like = next(iter(totals.values()))
+    out = []
+    for e, ring in enumerate(x.rings()):
+        if _spans(ring) and x.mesh.multi:
+            t = distributed.world_sum(totals[e] if e in totals else torch.zeros_like(like))
+        else:
+            t = totals.get(e)
+        if any(ring.is_local(i) for i in range(len(ring.parts))):
+            out.append(t)
+    return out[0] if len(out) == 1 else torch.cat(out, dim=dim)
+
+
 def gather_rows(x: RowShards, device: Any = None) -> torch.Tensor:
     """The whole tensor on ``device`` (default: the mesh's home device), the
-    instances in order; differentiable."""
+    instances in order; differentiable.  On a mesh spanning processes: this
+    process's instances (:meth:`RowShards.local_instances`), a ring that
+    spans processes gathered by :func:`combine_rings` (each process's rows
+    placed in zeros and summed; every process joins)."""
     dev = x.mesh.home if device is None else torch.device(device)
-    rings = [torch.cat([p.to(dev) for p in r.parts], dim=-2) for r in x.rings()]
-    return rings[0] if len(rings) == 1 else torch.cat(rings, dim=0)
+    if not x.mesh.multi:
+        rings = [torch.cat([p.to(dev) for p in r.parts], dim=-2) for r in x.rings()]
+        return rings[0] if len(rings) == 1 else torch.cat(rings, dim=0)
+    totals = {}
+    for e, ring in enumerate(x.rings()):
+        if not any(ring.is_local(i) for i in range(len(ring.parts))):
+            continue
+        rows = [p.to(dev) if ring.is_local(i) else torch.zeros(p.shape, dtype=p.dtype,
+                                                                device=dev)
+                for i, p in enumerate(ring.parts)]
+        totals[e] = torch.cat(rows, dim=-2)
+    words = next(iter(totals.values())).dtype
+    wire = {torch.uint32: torch.int32, torch.bool: torch.uint8}.get(words)
+    if wire is not None:   # summed as their bits
+        totals = {e: t.view(wire) if words == torch.uint32 else t.to(wire)
+                  for e, t in totals.items()}
+    out = combine_rings(x, totals)
+    return out if wire is None else (out.view(words) if words == torch.uint32
+                                     else out.to(words))
 
 
 def tree_map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -337,7 +491,9 @@ def env_layout(mesh: Mesh, axis_name: str = "env") -> Mesh:
         return mesh
     if mesh._env_layout is None:
         rows = "space" if axis_name != "space" else "rows"
-        mesh._env_layout = Mesh([[d] for d in env_slots(mesh)], (axis_name, rows))
+        step = 1 if len(mesh.axis_names) == 1 else mesh.shape[mesh.axis_names[1]]
+        mesh._env_layout = Mesh([[d] for d in env_slots(mesh)], (axis_name, rows),
+                                mesh.owners[::step])
     return mesh._env_layout
 
 
@@ -359,25 +515,78 @@ def shard_carry(carry: Any, mesh: Mesh, config: Any, axis_name: str = "env") -> 
     H, W], packed words [inst, H, W/32]) sharded over the instance axis where
     :func:`env_sharding` shards them, as instance shards on
     :func:`env_layout`, and every other tensor on the home device (module
-    note); row shards and non-tensors as they are."""
+    note; across processes also this process's rows of the leaves a state
+    declares per-instance, :data:`PER_INSTANCE`, where :func:`env_sharding`
+    shards them); row shards and non-tensors as they are."""
     layout = env_layout(mesh, axis_name)
     n, h, w = config.instances, config.height, config.width
     universes = {((n, h, w), torch.uint8), ((n, h, w // 32), torch.uint32)}
 
-    def place(leaf):
+    def place(leaf, per_instance):
         if isinstance(leaf, RowShards) or not isinstance(leaf, torch.Tensor):
             return leaf
-        if ((tuple(leaf.shape), leaf.dtype) in universes
-                and env_sharding(mesh, leaf, n, axis_name) is not None):
+        split = env_sharding(mesh, leaf, n, axis_name) is not None
+        if (tuple(leaf.shape), leaf.dtype) in universes and split:
             return shard_rows(leaf, layout, layout.axis_names[1], axis_name)
+        if split and per_instance and layout.multi:   # this process's instances
+            leaf = _local_rows(mesh, leaf, n, axis_name)
         return leaf.to(layout.home)
 
-    return tree_map_leaves(place, carry)
+    def walk(node, per_instance=False):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            declared = getattr(type(node), PER_INSTANCE, ())
+            return type(node)(*(walk(v, f in declared) for f, v in zip(node._fields, node)))
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return place(node, per_instance)
+
+    return walk(carry)
+
+
+# the class attribute by which a state (a NamedTuple) names its fields whose
+# dimension 0 is the instance batch: shard_carry splits those, and only
+# those, over a mesh's processes (a dimension that equals the instances by
+# chance, a parameter's or Speed's [2, instances], stays whole)
+PER_INSTANCE = "per_instance_fields"
+
+
+def local_batch(x: Any) -> Optional[distributed.LocalBatch]:
+    """Which instances this process holds of a universe ``x`` laid out on a
+    mesh spanning processes (``distributed.LocalBatch``: its window, the
+    instances it reports in batch-global sums and their weights in a batch
+    mean); None for a tensor or a mesh within one process."""
+    from . import distributed
+
+    if not isinstance(x, RowShards) or not x.mesh.multi:
+        return None
+    sl, n = x.local_instances(), x.shape[0]
+    k, slots = (x.parts[0].shape[0], x.slots) if x.groups > 1 else (n, x.slots)
+    owned = []
+    for e in range(sl.start // k, sl.stop // k):
+        owners = x.mesh.owners[e * slots:(e + 1) * slots] if x.groups > 1 else \
+            x.mesh.owners[:slots]
+        owned += [min(owners) == x.mesh.rank] * k
+    owned_t = torch.tensor(owned, dtype=torch.bool, device=x.mesh.home)
+    return distributed.LocalBatch(sl.start, sl.stop, n, owned_t,
+                                  owned_t.to(torch.float32) / n)
+
+
+def _local_rows(mesh: Mesh, leaf: torch.Tensor, n: int, axis_name: str) -> torch.Tensor:
+    """This process's rows (its env slots' instances) of a per-instance leaf
+    on a mesh spanning processes."""
+    slots = env_slots(mesh)
+    k = n // len(slots)
+    first = env_layout(mesh, axis_name)
+    mine = [e for e in range(len(slots)) if first.is_local(e)]
+    return leaf[mine[0] * k:(mine[-1] + 1) * k]
 
 
 def replicate(tree: Any, mesh: Mesh) -> Any:
     """A tree whole on the mesh's home device (row shards gathered), where
-    the JAX package replicates it over every device."""
+    the JAX package replicates it over every device: on a mesh spanning
+    processes, each process's own copy on its home device."""
     def place(leaf):
         if isinstance(leaf, RowShards):
             return gather_rows(leaf, mesh.home)
@@ -386,6 +595,6 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
     return tree_map_leaves(place, tree)
 
 
-__all__ = ["Mesh", "RowShards", "env_layout", "env_sharding", "env_slots", "gather_rows",
-           "make_mesh", "replicate", "ringwise", "shard_carry", "shard_rows",
-           "tree_map_leaves"]
+__all__ = ["Mesh", "PER_INSTANCE", "RowShards", "combine_rings", "env_layout", "env_sharding",
+           "env_slots", "fill_meta", "gather_rows", "local_batch", "local_map", "make_mesh",
+           "replicate", "ringwise", "shard_carry", "shard_rows", "tree_map_leaves"]

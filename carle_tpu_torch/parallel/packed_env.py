@@ -27,6 +27,10 @@ wrappers reduce each shard and add; the nets take
 ``fused_head=nets.SpaceSharding(mesh)``), while the cell views gather the
 shards onto the mesh's home device, as GSPMD gathers a sharded array for an
 unsharded consumer: :attr:`gathers` counts them beside :attr:`unpacks`.
+On a mesh spanning processes (parallel/distributed.py) each process holds
+its slots' words, the action and the views are its instances', the ghost
+words cross processes point to point, and the master reset and the
+wrappers' batch sums are the whole batch's (``ctx.batch``).
 Everything but the universe (rules, counters, wrapper states) lives on the
 home device.  Trajectories equal the uint8 stack's bit for bit, toggles,
 resets and learning wrappers included (tests/test_torch_packed.py,
@@ -64,7 +68,8 @@ from ..ops.ca import pad_action
 from ..ops.cuda_bitpack import bit_multi_step
 from ..packed import (PackedEnvState, init_packed_state, pack_action, pack_action_window,
                       packed_transition, xor_words)
-from .mesh import Mesh, RowShards, gather_rows, ringwise, shard_rows, tree_map_leaves
+from .mesh import (Mesh, RowShards, gather_rows, local_batch, local_map, ringwise, shard_rows,
+                   tree_map_leaves)
 from .spatial import bit_spatial_multi_step
 from .spatial_env import _placement, place_leaf
 
@@ -118,6 +123,16 @@ class PackedSpatialStack(WrapperStack):
     def _shard(self, words: torch.Tensor) -> RowShards:
         return shard_rows(words, self.mesh, self.axis_name, self.env_axis)
 
+    def _shard_batch(self, words: torch.Tensor, like: RowShards) -> RowShards:
+        """Words over this process's instances (the step's) as shards laid
+        out as ``like`` (within one process: all the instances)."""
+        sl = like.local_instances()
+        if words.shape[0] != like.shape[0]:   # placed in the whole batch's rows
+            full = words.new_zeros((like.shape[0],) + tuple(words.shape[1:]))
+            full[sl] = words
+            words = full
+        return self._shard(words)
+
     def universe(self, state: StackState, instance: Optional[int] = None) -> torch.Tensor:
         """uint8 [inst, H, W] universe (or one instance's [H, W])."""
         g = state.env.grid
@@ -161,23 +176,27 @@ class PackedSpatialStack(WrapperStack):
         def toggled(ring: RowShards, window: torch.Tensor, r0: int, w0: int) -> RowShards:
             """The ring's slots with its instances' packed window XOR-ed in."""
             ah, nw = window.shape[1], window.shape[2]
-            parts = []
-            for p, a in zip(ring.parts, ring.offsets()):
+            offsets = ring.offsets()
+
+            def toggle(i, p):
+                a = offsets[i]
                 lo, hi = max(a, r0), min(a + ring.rows, r0 + ah)
                 if lo < hi:   # this slot's rows hold part of the window
                     p = p.clone()
                     p[:, lo - a:hi - a, w0:w0 + nw] = xor_words(
                         p[:, lo - a:hi - a, w0:w0 + nw], window[:, lo - r0:hi - r0].to(p.device))
-                parts.append(p)
-            return RowShards(parts, ring.mesh, ring.axis)
+                return p
+
+            return RowShards(local_map(ring, toggle), ring.mesh, ring.axis)
 
         def halo_step(grid, action_bits):
             window, r0, w0 = pack_action_window(action_bits, cfg)
             prev = self._shards(grid)
-            slices = prev.instances()
-            prev = ringwise(prev, lambda ring, e: toggled(ring, window[slices[e]], r0, w0))
+            prev = ringwise(prev, lambda ring, e: toggled(ring, window[prev.batch_rows(e)],
+                                                          r0, w0))
             stepped = bit_spatial_multi_step(prev, env.rule_bits, 1)
-            return stepped, Lazy(lambda: self._shard(pack_action(action_bits, cfg)))
+            return stepped, Lazy(lambda: self._shard_batch(pack_action(action_bits, cfg),
+                                                           prev))
 
         return packed_transition(env, action, cfg, halo_step)
 
@@ -210,6 +229,7 @@ class PackedSpatialStack(WrapperStack):
             packed=new_packed,
             packed_prev=prev_packed,
             packed_action=action_packed,
+            batch=local_batch(new_packed),
         )
         new_state, reward = self._apply_wrappers(state.wrappers, new_env, ctx,
                                                  new_packed.device)

@@ -10,6 +10,15 @@ advances every step: the net kernels' dropout seed (where the JAX carry
 splits a key a step).  ``run_logged`` and ``run_gif`` run the same steps in
 chunks and write episode artifacts; they keep what they log on the device
 and copy it to the host once a chunk.
+
+On a mesh spanning processes (parallel/distributed.py) each process runs
+the loop over its own instances: the agent's observation, the action and
+the rewards are this process's instances' (an agent that reads no
+observation acts on the whole batch and the process keeps its instances'
+actions, and the plain dropout draws the whole batch's numbers and keeps
+this process's rows, ``StepCtx.batch``: so the run equals one process's), and
+:meth:`Rollout.gather_rewards` gives the whole batch's rewards on every
+process.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from .agents import Agent
 from .config import EnvConfig
 from .device import DeviceLike, resolve_device
 from .mcl.base import StackState, WrapperDef, WrapperStack
+from .parallel import distributed
+from .parallel.mesh import local_batch
 from .utils.gif import write_gif
 from .utils.png import write_png
 
@@ -86,12 +97,19 @@ class Rollout:
             raise ValueError("rollout has no agent; use run_actions")
         cfg = self.config
         stack, rewards, seed = carry.stack, [], carry.drop_seed
+        batch = local_batch(stack.env.grid)
+        n = cfg.instances if batch is None else batch.hi - batch.lo   # this process's
+        # an agent that reads no observation acts on the whole batch; a
+        # process keeps its instances' actions, so it draws what one would
+        rows = slice(None) if batch is None else slice(batch.lo, batch.hi)
         blank = torch.empty((cfg.instances, 1, 0, 0), device=self.device)
         for t in range(int(num_steps)):
-            obs = self.stack.observe(stack) if self.agent.reads_obs else blank
-            action = self.agent.apply(carry.agent_params, carry.generator, obs)
-            patch = action.reshape(cfg.instances, cfg.eff_action_height,
-                                   cfg.eff_action_width)
+            if self.agent.reads_obs:
+                action = self.agent.apply(carry.agent_params, carry.generator,
+                                          self.stack.observe(stack))
+            else:
+                action = self.agent.apply(carry.agent_params, carry.generator, blank)[rows]
+            patch = action.reshape(n, cfg.eff_action_height, cfg.eff_action_width)
             seed += 1
             stack, _, reward = self.stack.transition(stack, patch, seed, carry.generator)
             rewards.append(reward)
@@ -199,14 +217,25 @@ class Rollout:
 
     def run_actions(self, carry: RolloutCarry,
                     actions) -> Tuple[RolloutCarry, torch.Tensor]:
-        """Drive a pre-built action stream [steps, inst, AH, AW]."""
+        """Drive a pre-built action stream [steps, inst, AH, AW] (on a mesh
+        spanning processes the whole batch's or this process's instances)."""
         actions = torch.as_tensor(actions, device=self.device)
         stack, rewards, seed = carry.stack, [], carry.drop_seed
+        batch = local_batch(stack.env.grid)
+        if batch is not None and actions.shape[1] == batch.n:
+            actions = actions[:, batch.lo:batch.hi]
         for action in actions:
             seed += 1
             stack, _, reward = self.stack.transition(stack, action, seed, carry.generator)
             rewards.append(reward)
         return carry._replace(stack=stack, drop_seed=seed), self._stack(rewards)
+
+    def gather_rewards(self, carry: RolloutCarry, rewards: torch.Tensor) -> torch.Tensor:
+        """Rewards [steps, inst, 1] of this process's instances as the whole
+        batch's, in instance order, on every process (the rewards as they are
+        within one process); every process of the mesh must call it."""
+        batch = local_batch(carry.stack.env.grid)
+        return rewards if batch is None else distributed.batch_gather(rewards, batch, dim=1)
 
     def _stack(self, rewards) -> torch.Tensor:
         if not rewards:

@@ -20,12 +20,18 @@ states are checkpointed and the reward history is dumped.
 functional agent or an ``(Agent, params)`` pair.
 
 * ``mesh`` (``--mesh {auto,on,off}``) splits the instance batch over the
-  slots of a mesh, one controller (parallel/mesh.py ``shard_carry``, the nets
-  a slot at a time over the instances); several processes
-  (``torch.distributed``) are not ported yet.
+  slots of a mesh (parallel/mesh.py ``shard_carry``, the nets a slot at a
+  time over the instances), one process's or, under an initialised process
+  group, every process's (parallel/distributed.py): each process steps its
+  own instances, the learners add the processes' gradients by
+  ``all_reduce``, every process reads ``resume_from``, and process 0 alone
+  writes checkpoints, metrics, progress and logs.
 
 Run:  python -m carle_tpu_torch.train_mcl [--device cpu] [--packed-state]
           [--mesh auto|on|off]
+      torchrun --nproc-per-node 2 -m carle_tpu_torch.train_mcl --mesh on ...
+      python -m carle_tpu_torch.parallel.distributed --nprocs 2 \
+          carle_tpu_torch.train_mcl:main --mesh on ...
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from .device import DeviceLike, resolve_device
 from .evaluation.eval import _resolve_fused_agent
 from .mcl.ae import ae2d_def
 from .mcl.rnd import rnd2d_def
+from .parallel import distributed
 from .parallel.mesh import Mesh, env_layout, make_mesh, shard_carry
 from .parallel.packed_env import PackedSpatialStack
 from .rollout import Rollout
@@ -81,10 +88,12 @@ def _find_checkpoint(directory: str, name: str) -> str:
 
 def resolve_mesh(mesh: Any, instances: int, device: DeviceLike = None) -> Optional[Mesh]:
     """The mesh ``train`` runs on (carle_tpu/train_mcl.py's resolution):
-    ``"auto"`` a mesh over every visible CUDA device where the run is on
-    the card, there is more than one and ``instances`` divides by their
-    number, else none (one card: today's single-device run); ``True``
-    ``make_mesh()``; ``False`` or ``None`` none; a ``Mesh`` as given."""
+    ``"auto"`` a mesh over every slot where there is more than one and
+    ``instances`` divides by their number, else none (one card: today's
+    single-device run): under an initialised process group every process's
+    slots, else every visible CUDA device where the run is on the card;
+    ``True`` ``make_mesh()``; ``False`` or ``None`` none; a ``Mesh`` as
+    given."""
     if isinstance(mesh, Mesh):
         return mesh
     if mesh is True:
@@ -93,7 +102,10 @@ def resolve_mesh(mesh: Any, instances: int, device: DeviceLike = None) -> Option
         return None
     if mesh != "auto":
         raise ValueError(f"mesh must be 'auto', True, False, None or a Mesh, got {mesh!r}")
-    count = torch.cuda.device_count() if resolve_device(device).type == "cuda" else 0
+    if distributed.is_initialized():
+        count = len(distributed.global_slots())
+    else:
+        count = torch.cuda.device_count() if resolve_device(device).type == "cuda" else 0
     return make_mesh() if count > 1 and instances % count == 0 else None
 
 
@@ -152,12 +164,19 @@ def train(
     which is the run's device, and where the mesh has more than one slot
     both nets take it as ``fused_head`` and launch their kernels a slot at a
     time.  The reward history equals the single-device run's up to the
-    gradients' summation order.
+    gradients' summation order.  Under a process group with a mesh over
+    every process's slots each process runs its instances, the history is
+    the whole batch's on every process, and process 0 alone writes files
+    and prints.
 
     ``agent_fn`` drives the universes: ``None`` is the Bernoulli(0.1) random
     agent; an agent class is built with ``seed``, the four dims and the
     device, and keeps its own parameters (a seeded RandomNetworkAgent's
     identity is its frozen weights).
+
+    ``segment_callback`` gets a dict a segment: ``epoch``, ``ruleset``,
+    ``steps_per_second``, ``mean_reward`` and ``carry`` (the rollout carry
+    after it; across processes, this process's parts).
 
     Runs on the card unless ``device="cpu"``.  Returns the per-step summed
     reward history (skipped segments excluded), and writes
@@ -196,11 +215,13 @@ def train(
     if mesh_obj is not None:
         carry = shard_carry(carry, mesh_obj, config, mesh_obj.axis_names[0])
 
+    writer = distributed.process_index() == 0   # the one process that writes files and logs
     exp_id = "mcl" + str(int(time.time()))
     model_dir = os.path.join(log_dir, "models")
     metric_dir = os.path.join(log_dir, "metrics")
-    os.makedirs(model_dir, exist_ok=True)
-    os.makedirs(metric_dir, exist_ok=True)
+    if writer:
+        os.makedirs(model_dir, exist_ok=True)
+        os.makedirs(metric_dir, exist_ok=True)
 
     epochs, steps_per_rule = int(steps[0]), int(steps[1])
     if mixed_rules:
@@ -225,31 +246,32 @@ def train(
 
             t1 = time.time()
             carry, seg_rewards = ro.run(carry, steps_per_rule)
+            seg_rewards = ro.gather_rewards(carry, seg_rewards)   # the whole batch's
             seg_sum = seg_rewards.sum(dim=(1, 2)).cpu().numpy()  # [steps]; waits
             t2 = time.time()
 
             rewards_hist.append(seg_sum)
             steps_per_second = steps_per_rule * instances / (t2 - t1)
             mean_reward = float(seg_sum.sum()) / (steps_per_rule * instances)
-            print(f"steps / second = {steps_per_second:.3f}")
-            print(f"round {epoch}, ruleset {ruleset}, "
-                  f"mean reward = {mean_reward:.3e}")
-
-            for name, ws in zip(WRAPPER_NAMES, carry.stack.wrappers):
-                save_pytree(os.path.join(model_dir, f"{name}_{exp_id}.npz"), ws)
-            if progress_file:
-                _write_progress(progress_file, {
-                    "completed_segments": seg_index,
-                    "total_segments": total_segments,
-                    "exp_id": exp_id,
-                    "model_dir": model_dir,
-                })
+            if writer:
+                print(f"steps / second = {steps_per_second:.3f}")
+                print(f"round {epoch}, ruleset {ruleset}, "
+                      f"mean reward = {mean_reward:.3e}")
+                for name, ws in zip(WRAPPER_NAMES, carry.stack.wrappers):
+                    save_pytree(os.path.join(model_dir, f"{name}_{exp_id}.npz"), ws)
+                if progress_file:
+                    _write_progress(progress_file, {
+                        "completed_segments": seg_index,
+                        "total_segments": total_segments,
+                        "exp_id": exp_id,
+                        "model_dir": model_dir,
+                    })
             if segment_callback:
                 segment_callback(dict(epoch=epoch, ruleset=ruleset,
                                       steps_per_second=steps_per_second,
-                                      mean_reward=mean_reward))
+                                      mean_reward=mean_reward, carry=carry))
 
-        if rewards_hist:
+        if rewards_hist and writer:
             np.save(os.path.join(metric_dir, f"mcl_rewards_{exp_id}.npy"),
                     np.concatenate(rewards_hist))
 
@@ -287,11 +309,16 @@ def main(argv=None) -> None:
     parser.add_argument("--packed-state", action="store_true",
                         help="carry the universes bit-packed (32 cells a word)")
     parser.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
-                        help="split the instance batch over every visible CUDA device "
+                        help="split the instance batch over every visible CUDA device, "
+                             "or every process's slots under torchrun or the launcher "
                              "(auto: when there is more than one and the instances "
                              "divide by their number)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    # under torchrun: join the group from its variables (the launcher has joined)
+    joined = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not distributed.is_initialized()
+    if joined:
+        distributed.initialize()
 
     history = train(
         instances=args.instances,
@@ -310,8 +337,11 @@ def main(argv=None) -> None:
         packed_state=args.packed_state,
         mesh={"auto": "auto", "on": True, "off": False}[args.mesh],
     )
-    print(json.dumps({"total_reward": float(history.sum()),
-                      "segments": len(history) // args.steps_per_rule}))
+    if distributed.process_index() == 0:
+        print(json.dumps({"total_reward": float(history.sum()),
+                          "segments": len(history) // args.steps_per_rule}))
+    if joined:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

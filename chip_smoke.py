@@ -253,13 +253,29 @@ Phases, in order; any failure exits non-zero without the final line:
            shapes, dropout off and on, each slot against its twin seeded
            _shard_seed (forwards 1e-4; gradients 1e-4, the pooled routes
            TOL_TIES with the encoder's ties analysed);
+9d. multiprocess several processes over one mesh (parallel/distributed.py):
+           2 processes x 2 slots of cuda:0 spawned by the launcher, gloo
+           (NCCL cannot put two ranks on one card: not run), every kernel
+           built before the spawn, each leg held against the one-controller
+           4-slot mesh run first: (a) train-64 (4 rulesets x 64 steps, cut
+           from 128) through train(mesh=) with dropout off, universe bit for
+           bit, history rtol 1e-5, parameters bit for bit equal across the
+           processes; with dropout on the bonus falls and process 0 alone
+           writes a checkpoint set; (b) 8 uint8 generations of one 8192²
+           universe, 2048 rows a slot (row 13 across processes), bit for bit;
+           (c) the packed stack with RND2D on the row shards of one 8192²
+           universe (rows 15, 3a, 3b across processes), universe bit for bit,
+           rewards rtol 1e-4; (d) the reset flag set on one process only does
+           not fire, on both fires; the wall ms a step of (a)-(c) against the
+           one controller, the ghost bytes and exchanges, the collectives and
+           the host-staging ms a step, each child's peak memory;
 10. profile 64 steps of the batched battery and 64 training steps, uint8 and
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
 11. report a {"kernels": [...]} line with each kernel's launches on the main
            paths (battery, submission, server, io, policy, train, routes, wrappers, packed,
-           bands, engines, spatial, spatial_2d and env_mesh, each counted from zero just
-           before it;
+           bands, engines, spatial, spatial_2d, env_mesh and multiprocess, each
+           counted from zero just before it (multiprocess: in each child, added up);
            the rows of the
            mask and the row weights count their kernel's launches on the
            bands path; a generic encoder, decoder-loss or tail kernel, the
@@ -495,6 +511,11 @@ PATH_KERNELS = {
     # halo_words, packed bit_spatial_words), the nets a launch a slot
     "env_mesh": ("spatial_ca_step_words", "bit_spatial_words", "enc3_fwd", "enc3_bwd",
                  "ae2d_fwd", "ae2d_bwd"),
+    # several processes over one mesh (the children's launches): (a) the env
+    # step on rings of one slot and the nets a slot at a time, (b) the uint8
+    # burst, (c) the packed halo step and the encoder on row shards
+    "multiprocess": ("spatial_ca_step_words", "spatial_multi_step_bits", "bit_spatial_words",
+                     "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
 # launch: every encoder and decoder of the package has one of the
@@ -4580,6 +4601,283 @@ def phase_env_mesh(torch, cuda_build):
     return counts, out
 
 
+# several processes over one mesh: processes x slots of cuda:0 each (gloo: NCCL
+# cannot put two ranks on one card), against the one-controller 4-slot meshes
+MP_PROCS, MP_SLOTS = 2, 2
+MP_TRAIN_STEPS = 64          # train-64's rulesets x 64 steps (train phase: 128)
+MP_SPATIAL_STEPS = 8
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _mp_stats(torch, cuda_build, distributed, run, steps):
+    """run() with the crossings, launches and time a step it took: (its
+    value, stats)."""
+    torch.cuda.synchronize()
+    distributed.reset_stats()
+    c0, t0 = cuda_build.launch_counts(), time.perf_counter()
+    value = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(distributed.STATS)
+    return value, {
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "ghost_bytes_per_step": st["bytes_sent"] / steps,
+        "ghost_exchanges_per_step": st["exchanges"] / steps,
+        "collectives_per_step": {"all_reduce": st["all_reduce"] / steps,
+                                 "isend": st["messages"] / steps},
+        "host_staging_ms_per_step": st["staging_s"] * 1e3 / steps,
+        "kernel_launches_per_step": _launches_per_step(cuda_build, c0, steps)}
+
+
+def _mp_train(torch, train_mcl, mesh, log_dir, dropout):
+    """train-64 (64 universes of 256², RND2D + AE2D, batch 64, 4 rulesets x
+    MP_TRAIN_STEPS steps) through train(mesh=): (history, the last carry, the
+    segments' mean rewards); with ``dropout`` False the learners' dropout
+    is off (the defs train builds, patched here)."""
+    import functools
+
+    segments = []
+    saved = train_mcl.rnd2d_def, train_mcl.ae2d_def
+    if not dropout:
+        train_mcl.rnd2d_def = functools.partial(saved[0], dropout=False)
+        train_mcl.ae2d_def = functools.partial(saved[1], dropout=False)
+    try:
+        hist = train_mcl.train(instances=ENV_MESH_UNIVERSES, height=256, width=256,
+                               steps=(1, MP_TRAIN_STEPS), batch_size=64, seed=0,
+                               log_dir=log_dir, segment_callback=segments.append,
+                               device="cuda", mesh=mesh)
+    finally:
+        train_mcl.rnd2d_def, train_mcl.ae2d_def = saved
+    return hist, segments[-1]["carry"], [s["mean_reward"] for s in segments]
+
+
+def _mp_burst(torch, cuda_build, distributed, mesh):
+    """(b): one universe of 8192², its rows over ``mesh``, MP_SPATIAL_STEPS
+    uint8 generations of spatial_multi_step (row 13): (the universe, the
+    burst's stats, the gather not timed)."""
+    from carle_tpu_torch import rules
+    from carle_tpu_torch.parallel import gather_rows, shard_rows, spatial_multi_step_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    grid = (torch.rand((1, SPATIAL_SIZE, SPATIAL_SIZE), generator=gen, device="cuda")
+            < 0.3).to(torch.uint8)
+    x = shard_rows(grid, mesh)
+    del grid
+    spatial_multi_step_cuda(x, rules.LIFE, MP_SPATIAL_STEPS)   # warm
+    out, stats = _mp_stats(torch, cuda_build, distributed,
+                           lambda: spatial_multi_step_cuda(x, rules.LIFE, MP_SPATIAL_STEPS),
+                           MP_SPATIAL_STEPS)
+    return gather_rows(out), stats
+
+
+def _mp_packed(torch, mesh):
+    """(c): the packed stack with RND2D (batch 4, dropout 0.1) on the row
+    shards (SpaceSharding) of one universe of 8192², 2 + MP_SPATIAL_STEPS
+    steps of one seeded action stream (_packed_leg): (stats, rewards,
+    universe)."""
+    from carle_tpu_torch import EnvConfig
+    from carle_tpu_torch.mcl import rnd2d_def
+    from carle_tpu_torch.nets import SpaceSharding
+
+    cfg = EnvConfig(height=SPATIAL_SIZE, width=SPATIAL_SIZE, instances=1)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    acts = (torch.rand((2 + MP_SPATIAL_STEPS, 1, 64, 64), generator=gen, device="cuda")
+            < 0.1).to(torch.uint8)
+    defs = [rnd2d_def(cfg, batch_size=4, fused_head=SpaceSharding(mesh))]
+    stats, rewards, universe, _ = _packed_leg(torch, cfg, defs, acts, mesh)
+    return stats, rewards, universe
+
+
+def mp_child(argv):
+    """One process of the multiprocess phase (run by the launcher of
+    carle_tpu_torch/parallel/distributed.py; argv: the output directory):
+    (a)-(d) on the mesh over both processes' slots, the launch counts from
+    zero over them, the results to rank<r>.json."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from carle_tpu_torch import EnvConfig, rules, train_mcl
+    from carle_tpu_torch.env import env_step, init_state, reset_flags
+    from carle_tpu_torch.ops import cuda_build
+    from carle_tpu_torch.parallel import distributed, gather_rows, make_mesh, shard_carry
+    from carle_tpu_torch.parallel.mesh import local_batch
+
+    out_dir = argv[0]
+    rank = distributed.process_index()
+    mesh, smesh = make_mesh(axis_name="env"), make_mesh(axis_name="space")
+    out = {"rank": rank, "backend": distributed.backend(), "mesh": repr(mesh)}
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launch_counts()
+    steps = 4 * MP_TRAIN_STEPS
+    # (a) train-64, dropout off, then on
+    (hist, carry, _), out["a_stats"] = _mp_stats(
+        torch, cuda_build, distributed,
+        lambda: _mp_train(torch, train_mcl, mesh, os.path.join(out_dir, f"off{rank}"), False),
+        steps)
+    grid = carry.stack.env.grid
+    out["a_universe"] = _digest(distributed.batch_gather(gather_rows(grid), local_batch(grid)))
+    out["a_history"] = hist.tolist()
+    sums = [None] * distributed.process_count()
+    params = b"".join(t.cpu().numpy().tobytes() for w in carry.stack.wrappers
+                      for v in w.params.values() for t in v.values())
+    dist.all_gather_object(sums, hashlib.sha256(params).hexdigest())
+    out["a_param_checksums"] = sums
+    out["a_updates"] = [int(w.updates) for w in carry.stack.wrappers]
+    del carry, grid
+    hist_on, _, means = _mp_train(torch, train_mcl, mesh, os.path.join(out_dir, f"on{rank}"),
+                                  True)
+    out["a_dropout_means"] = means
+    # (b) the uint8 burst, row 13 across the boundary
+    universe, out["b_stats"] = _mp_burst(torch, cuda_build, distributed, smesh)
+    out["b_universe"] = _digest(universe)
+    del universe
+    # (c) JAX's leg 3 at full width
+    distributed.reset_stats()
+    stats, rewards, universe = _mp_packed(torch, smesh)
+    st = dict(distributed.STATS)
+    n = 2 + MP_SPATIAL_STEPS
+    stats.update(ghost_bytes_per_step=st["bytes_sent"] / n,
+                 ghost_exchanges_per_step=st["exchanges"] / n,
+                 collectives_per_step={"all_reduce": st["all_reduce"] / n,
+                                       "isend": st["messages"] / n},
+                 host_staging_ms_per_step=st["staging_s"] * 1e3 / n)
+    out["c_stats"], out["c_rewards"] = stats, rewards.flatten().tolist()
+    out["c_universe"] = _digest(universe)
+    del universe
+    # (d) the reset flag: set on process 0 only, then on both
+    cfg = EnvConfig(instances=ENV_MESH_UNIVERSES)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    state = init_state(cfg, rules.LIFE, "cuda")._replace(
+        grid=(torch.rand(cfg.grid_shape, generator=g, device="cuda") < 0.3).to(torch.uint8))
+    state = shard_carry(state, mesh, cfg)
+    batch = local_batch(state.grid)
+    flags = []
+    for ones in (rank == 0, True):
+        action = torch.full((batch.hi - batch.lo, 64, 64), 1 if ones else 0,
+                            dtype=torch.uint8, device="cuda")
+        new, _ = env_step(state, action, cfg)
+        cleared = bool((distributed.batch_gather(gather_rows(new.grid), batch) == 0).all())
+        flags.append([bool(reset_flags(action, state.grid)[0]), cleared])
+    out["d_flags"] = flags
+    torch.cuda.synchronize()
+    out["launches"] = cuda_build.launch_counts()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    print(f"multiprocess child {rank}: done", flush=True)
+
+
+def phase_multiprocess(torch, cuda_build):
+    """Several processes over one mesh (parallel/distributed.py): MP_PROCS
+    processes of MP_SLOTS slots of cuda:0 each, spawned by the launcher
+    (gloo: NCCL cannot put two ranks on one card, so NCCL is not run), each
+    leg held against the one-controller 4-slot mesh run here first, alone
+    on the card: (a) train-64 (64 universes of 256², 16 a slot, RND2D +
+    AE2D batch 64, 4 rulesets x MP_TRAIN_STEPS steps: the train phase's 128
+    cut to 64) through train(mesh=) under the group with the learners'
+    dropout off: the universe bit for bit, the history rtol 1e-5, the
+    parameters bit for bit equal on both processes; with dropout on the
+    bonus falls and process 0 alone writes one checkpoint set; (b) one
+    universe of 8192², 2048 rows a slot, 8 generations of
+    spatial_multi_step: row 13's T = 8 ghost rows cross processes, bit for
+    bit; (c) the packed stack with RND2D on its row shards (SpaceSharding)
+    on one universe of 8192², 10 steps: row 15's ghost words and rows 3a/3b's
+    halo rows cross processes, the universe bit for bit, rewards rtol 1e-4;
+    (d) the master reset set on one process only does not fire, set on both
+    fires.  The kernels are built here before the spawn.  Returns the
+    children's launch counts added up, and the report."""
+    import numpy as np
+
+    from carle_tpu_torch import train_mcl
+    from carle_tpu_torch.parallel import distributed, gather_rows
+
+    t_phase = time.perf_counter()
+    out = {"processes": MP_PROCS, "slots_per_process": MP_SLOTS, "backend": "gloo",
+           "nccl": "not run: one card (NCCL cannot put two ranks on one card)"}
+    log(f"multiprocess: {MP_PROCS} processes x {MP_SLOTS} slots of cuda:0, gloo; NCCL not "
+        "run (one card)")
+    cuda_build.build_all()
+    env_mesh, smesh = _env_mesh(torch), _spatial_mesh(torch)
+    ref = {}
+    steps = 4 * MP_TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        (hist, carry, _), ref["a_stats"] = _mp_stats(
+            torch, cuda_build, distributed,
+            lambda: _mp_train(torch, train_mcl, env_mesh, os.path.join(tmp, "ref"), False),
+            steps)
+    ref["a_universe"] = _digest(gather_rows(carry.stack.env.grid))
+    del carry
+    universe, ref["b_stats"] = _mp_burst(torch, cuda_build, distributed, smesh)
+    ref["b_universe"] = _digest(universe)
+    del universe
+    ref["c_stats"], c_rewards, universe = _mp_packed(torch, smesh)
+    ref["c_universe"] = _digest(universe)
+    del universe
+    torch.cuda.empty_cache()
+    t_spawn = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outputs = distributed.launch(os.path.abspath(__file__) + ":mp_child", MP_PROCS, [tmp],
+                                     slots_per_process=MP_SLOTS, device="cuda", timeout=600,
+                                     backend="gloo")
+        kids = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(MP_PROCS)]
+        written = {r: sorted(os.listdir(os.path.join(tmp, f"on{r}", "models")))
+                   if os.path.isdir(os.path.join(tmp, f"on{r}")) else [] for r in range(MP_PROCS)}
+    spawn_s = time.perf_counter() - t_spawn
+    for r, kid in enumerate(kids):
+        check(kid["backend"] == "gloo", f"child {r}: backend {kid['backend']}")
+        check(kid["a_universe"] == ref["a_universe"], f"(a) child {r}: the universe differs "
+              "from the one-controller mesh's")
+        np.testing.assert_allclose(kid["a_history"], hist, rtol=1e-5, atol=0)
+        check(len(set(kid["a_param_checksums"])) == 1,
+              f"(a) child {r}: parameters differ across processes")
+        check(kid["a_updates"] == [4, 4], f"(a) child {r}: updates {kid['a_updates']}")
+        means = kid["a_dropout_means"]
+        check(means[-1] < means[0], f"(a) child {r}: the bonus did not fall ({means})")
+        check(kid["b_universe"] == ref["b_universe"], f"(b) child {r}: the burst differs")
+        check(kid["c_universe"] == ref["c_universe"], f"(c) child {r}: the universe differs")
+        np.testing.assert_allclose(kid["c_rewards"], c_rewards.flatten().cpu().numpy(),
+                                   rtol=1e-4, atol=0)
+        check(kid["d_flags"] == [[False, False], [True, True]],
+              f"(d) child {r}: reset flags {kid['d_flags']}")
+    check([len(written[r]) for r in range(MP_PROCS)] == [2] + [0] * (MP_PROCS - 1),
+          f"(a): checkpoints written {written}")
+    check(kids[0]["a_param_checksums"] == kids[1]["a_param_checksums"],
+          "(a): the processes report different parameter checksums")
+    counts = {k: sum(kid["launches"].get(k, 0) for kid in kids) for k in kids[0]["launches"]}
+    for leg in ("a", "b", "c"):
+        two, one = kids[0][f"{leg}_stats"], ref[f"{leg}_stats"]
+        log(f"multiprocess ({leg}): wall ms a step {two['wall_ms_per_step']:.3f} "
+            f"(2 processes) against {one['wall_ms_per_step']:.3f} (one controller); "
+            f"ghost bytes a step {two.get('ghost_bytes_per_step', 0):.1f} in "
+            f"{two.get('ghost_exchanges_per_step', 0):.2f} exchanges; collectives a step "
+            f"{json.dumps(two.get('collectives_per_step'))}; host staging ms a step "
+            f"{two.get('host_staging_ms_per_step', 0):.3f}")
+    out.update({
+        "one_controller": ref, "children": [{k: v for k, v in kid.items()
+                                              if k not in ("a_history", "c_rewards")}
+                                             for kid in kids],
+        "peak_bytes_per_child": [kid["peak_bytes"] for kid in kids],
+        "a_history_max_rel_diff": max(float(np.max(np.abs(np.asarray(k["a_history"]) - hist)
+                                                   / np.abs(hist))) for k in kids),
+        "c_rewards_max_rel_diff": max(float(np.max(np.abs(np.asarray(k["c_rewards"])
+                                                          - c_rewards.flatten().cpu().numpy())
+                                                   / np.abs(c_rewards.flatten().cpu().numpy())))
+                                      for k in kids),
+        "spawn_s": spawn_s, "phase_s": time.perf_counter() - t_phase,
+        "child_tail": [o.splitlines()[-1] if o else "" for o in outputs]})
+    log(f"multiprocess peak bytes a child: {out['peak_bytes_per_child']}; launches "
+        f"(children): {json.dumps({k: v for k, v in counts.items() if v})}")
+    log(f"multiprocess ok: {json.dumps({k: v for k, v in out.items() if k != 'children'})}")
+    return counts, out
+
+
 def shipped_states(torch):
     """The shipped learner states on the card, keyed by wrapper name."""
     from carle_tpu_torch.checkpoint import learner_state_from_numpy, read_npz
@@ -6225,6 +6523,7 @@ def main() -> int:
         spatial_counts, spatial = timed("spatial", phase_spatial, torch, cuda_build)
         spatial_2d_counts, spatial_2d = timed("spatial_2d", phase_spatial_2d, torch, cuda_build)
         env_mesh_counts, env_mesh = timed("env_mesh", phase_env_mesh, torch, cuda_build)
+        mp_counts, multiprocess = timed("multiprocess", phase_multiprocess, torch, cuda_build)
         profile = timed("profile", phase_profile, torch)
         log(f"profile: {json.dumps(profile)}")
         profile_train = timed("profile_train", phase_profile_train, torch)
@@ -6242,7 +6541,8 @@ def main() -> int:
                    "wrappers": wrappers_counts, "packed": packed_counts,
                    "bands": bands_counts, "engines": engines_counts,
                    "spatial": spatial_counts, "spatial_2d": spatial_2d_counts,
-                   "env_mesh": env_mesh_counts, "policy": policy_counts}
+                   "env_mesh": env_mesh_counts, "policy": policy_counts,
+                   "multiprocess": mp_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -6280,7 +6580,7 @@ def main() -> int:
         "kernel_shapes": {k: results[k]["shape"] for k in rows},
         "kernel_details": {k: results[k] for k in rows},
         "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
-        "spatial_2d": spatial_2d, "env_mesh": env_mesh,
+        "spatial_2d": spatial_2d, "env_mesh": env_mesh, "multiprocess": multiprocess,
         "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
         "e2e": e2e, "submission": submission, "server": server, "io": io, "policy": policy,
@@ -6305,6 +6605,8 @@ def main() -> int:
                     "bands_kernels": results["bands_kernels"]}))
     log(json.dumps({"spatial_2d": spatial_2d}))
     log(json.dumps({"env_mesh": {k: v for k, v in env_mesh.items() if k != "profiles"}}))
+    log(json.dumps({"multiprocess": {k: v for k, v in multiprocess.items()
+                                     if k not in ("children", "one_controller")}}))
     log(json.dumps({"spatial": {k: v for k, v in spatial.items() if not k.startswith("profile")},
                     "spatial_kernels": {k: results[k] for k in SPATIAL_ROWS},
                     "spatial_heads": {k: {m: v for m, v in r.items() if m != "ties_drop"}

@@ -354,3 +354,55 @@ def test_make_mesh_without_cuda_raises():
         pytest.skip("a CUDA device is visible: make_mesh() takes it")
     with pytest.raises(RuntimeError, match="found none"):
         make_mesh()
+
+
+# ---------------------------------------------------------------------------
+# the 64-bit batch-axis seeds
+# ---------------------------------------------------------------------------
+
+
+def _slot_outputs(seed):
+    """The encoder with dropout 0.1 on the batch-axis route of 8 cpu slots, an
+    instance a slot, at ``seed``: [8, ...], row s slot s's output."""
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy((rng.rand(8, 1, 16, 16) < 0.5).astype(np.uint8))
+    p1 = {"w": torch.from_numpy(rng.randn(4, 1, 3, 3).astype(np.float32)),
+          "b": torch.from_numpy(rng.rand(4).astype(np.float32))}
+    p2 = {"w": torch.from_numpy(rng.randn(1, 4, 3, 3).astype(np.float32)),
+          "b": torch.from_numpy(rng.rand(1).astype(np.float32))}
+    out = nets.conv_encoder(x, p1, p2, pools=(4, 2), drop_p=0.1, train=True, seed=seed,
+                            mesh=_mesh())
+    return x, p1, p2, out
+
+
+def test_prediction_slot_masks_differ_from_ae2d():
+    """Prediction's stream bit (1 << 58) survives a slot's seed: on every slot
+    its kernel seed (stream + 2 seed + 1) draws another mask than AE2D's
+    (2 seed + 1), as with mesh=None."""
+    from carle_tpu_torch.mcl.prediction import SEED_STREAM_SHIFT
+
+    step = (5 << 24) + 3   # a step's seed (rollout.py's drop_seed)
+    ae = _slot_outputs(2 * step + 1)[3]
+    pred = _slot_outputs((1 << SEED_STREAM_SHIFT) + 2 * step + 1)[3]
+    for s in range(8):
+        assert not torch.equal(pred[s], ae[s]), f"slot {s} draws AE2D's mask"
+
+
+def test_train_seeds_128_apart_draw_different_masks():
+    """Two runs whose seeds are 128 apart draw different masks on every slot
+    at RND2D's first step (kernel seed 2 (drop_seed + 1))."""
+    ro = Rollout(CFG, [], device="cpu")
+    seeds = [2 * (ro.init(ro.generator(g), rules.LIFE).drop_seed + 1) for g in (3, 3 + 128)]
+    a, b = (_slot_outputs(sd)[3] for sd in seeds)
+    for s in range(8):
+        assert not torch.equal(a[s], b[s]), f"slot {s} draws the same mask"
+
+
+def test_slot_zero_draws_what_mesh_none_draws():
+    """Slot 0 of the mesh draws the mask of mesh=None at the same seed (one
+    whose high word is set): bit for bit."""
+    seed = (1 << 58) + (77 << 25) + 11
+    x, p1, p2, out = _slot_outputs(seed)
+    alone = nets.conv_encoder(x[:1], p1, p2, pools=(4, 2), drop_p=0.1, train=True, seed=seed)
+    assert torch.equal(out[:1], alone)
+    assert [_shard_seed(seed, s) for s in (0, 1)] == [seed, seed + 0x3779B1]

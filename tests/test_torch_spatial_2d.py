@@ -259,10 +259,11 @@ def test_space_sharding_2d_gradients_equal_mesh_none(packed):
     torch.testing.assert_close(gather_rows(enc), nets.conv_encoder(src, tp[0], tp[1],
                                                                    pools=(2, 2)),
                                rtol=1e-5, atol=1e-5)
-    # JAX's _shard_seed: off = space * 1013904223 + env, seed + off * 0x3779B1, int32
+    # JAX's _shard_seed offset: off = space * 1013904223 + env in int32, on the
+    # 64-bit seed: seed + off * 0x3779B1 modulo 2**64 (the seed keeps its high word)
     for s, e in ((0, 0), (3, 1), (2, 1)):
-        want_seed = np.int64(7) + np.int64(np.int32(np.int64(s) * 1013904223 + e)) * 0x3779B1
-        assert sh._shard_seed(7, s, e) == int(np.int64(want_seed).astype(np.int32))
+        off = int(np.int32(np.int64(s) * 1013904223 + e))
+        assert sh._shard_seed(7, s, e) == (7 + off * 0x3779B1) % 2 ** 64
 
 
 # ---------------------------------------------------------------------------
