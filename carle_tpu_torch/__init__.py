@@ -12,10 +12,22 @@ The package imports neither JAX nor ``carle_tpu``; the JAX package is the
 reference it is tested against.
 """
 
-from . import rules
 from .config import EnvConfig
 from .device import resolve_device
 from .env import CARLE, EnvState, env_step, init_state, multi_step, reset_state
+from . import rules
+from . import rle
+from . import agents
+from . import checkpoint
+from . import mcl
+from . import packed
+from . import parallel
+from . import policy
+from .rollout import Rollout, RolloutCarry
 
-__all__ = ["CARLE", "EnvConfig", "EnvState", "env_step", "init_state",
-           "multi_step", "reset_state", "resolve_device", "rules"]
+__version__ = "0.1.0"
+
+# carle_tpu's names, and resolve_device
+__all__ = ["CARLE", "EnvConfig", "EnvState", "Rollout", "RolloutCarry", "agents",
+           "checkpoint", "env_step", "init_state", "mcl", "multi_step", "packed", "parallel",
+           "policy", "reset_state", "resolve_device", "rle", "rules"]

@@ -349,6 +349,10 @@ class CARLE:
         info: List[Dict[str, Any]] = [{} for _ in range(self.instances)]
         return self.universe, zeros, zeros.clone(), info
 
+    # the step on the shell's device, which wrappers call (a subclass may
+    # change what ``step`` returns: the compat facade's host tensors)
+    _step = step
+
     def multi_step(self, num_steps: int) -> torch.Tensor:
         """``num_steps`` action-free generations as one call (the packed
         kernel on the card for word-aligned widths); returns the observation."""

@@ -58,14 +58,16 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 def tree_unflatten(like: Any, leaves) -> Any:
     """The structure of ``like`` filled from ``leaves`` (an iterator or a
     list in :func:`tree_leaves` order)."""
-    it = iter(leaves)
+    return _fill(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        return next(it)
 
-    return build(like)
+def _fill(node: Any, it) -> Any:
+    # a module function, not a closure that calls itself: such a closure is
+    # a reference cycle, which would hold ``leaves`` (a step's gradients)
+    # until the garbage collector runs
+    if isinstance(node, dict):
+        return {k: _fill(v, it) for k, v in node.items()}
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:

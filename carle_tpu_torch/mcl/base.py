@@ -33,12 +33,16 @@ from ..ops.ca import pad_action
 class Lazy:
     """A step-context view computed on its first read, at most once a step:
     eager PyTorch cannot drop a view nobody reads, as the JAX package's
-    compiler does, so a stack passes the recipe instead of the tensor."""
+    compiler does, so a stack passes the recipe instead of the tensor.
+    ``needs`` names other fields of the context that ``fn`` takes, read
+    through the context (so a view built on another shares it, and the
+    recipe holds no reference to the context)."""
 
-    __slots__ = ("fn",)
+    __slots__ = ("fn", "needs")
 
-    def __init__(self, fn: Callable[[], Any]) -> None:
+    def __init__(self, fn: Callable[..., Any], *needs: str) -> None:
         self.fn = fn
+        self.needs = needs
 
 
 class StepCtx:
@@ -70,7 +74,7 @@ class StepCtx:
                    sums add the processes' owned instances); None elsewhere
     """
 
-    __slots__ = ("_values",)
+    __slots__ = ("_values", "_given")
 
     def __init__(self, prev_grid: Any = None, obs: Any = None, obs_cells: Any = None,
                  action: Any = None, action_full: Any = None, action_sum: Any = None,
@@ -82,6 +86,7 @@ class StepCtx:
                       generator=generator, packed=packed, packed_prev=packed_prev,
                       packed_action=packed_action, obs_shards=obs_shards, batch=batch)
         object.__setattr__(self, "_values", values)
+        object.__setattr__(self, "_given", dict(values))   # the fields as given
 
     def __getattr__(self, name: str) -> Any:
         values = object.__getattribute__(self, "_values")
@@ -89,7 +94,7 @@ class StepCtx:
             raise AttributeError(name)
         value = values[name]
         if isinstance(value, Lazy):
-            value = values[name] = value.fn()
+            value = values[name] = value.fn(*(getattr(self, n) for n in value.needs))
         return value
 
     def __setattr__(self, name: str, value: Any) -> None:
@@ -97,6 +102,11 @@ class StepCtx:
 
     def _replace(self, **changes: Any) -> "StepCtx":
         return StepCtx(**{**self._values, **changes})
+
+    def released(self) -> "StepCtx":
+        """The context as given, with every :class:`Lazy` view back to its
+        recipe: the views that reads computed are no longer held by it."""
+        return StepCtx(**self._given)
 
 
 class WrapperDef(NamedTuple):
@@ -125,10 +135,13 @@ class WrapperStack:
     """Composes ``env_step`` with an ordered wrapper list.  ``reward`` starts
     at zero and each wrapper transforms it in turn."""
 
-    def __init__(self, config: EnvConfig,
-                 wrappers: Sequence[WrapperDef] = ()) -> None:
+    def __init__(self, config: EnvConfig, wrappers: Sequence[WrapperDef] = (),
+                 serialize: bool = False) -> None:
         self.config = config
         self.wrappers = tuple(wrappers)
+        # serialize=True: no step-local tensor of a wrapper is still held by
+        # the stack when the next wrapper starts (_apply_wrappers)
+        self.serialize = serialize
         self.gathers = 0  # cell views gathered from row shards by steps
 
     def _whole(self, grid) -> torch.Tensor:
@@ -203,10 +216,21 @@ class WrapperStack:
     def _apply_wrappers(self, wstates: Tuple[Any, ...], env_state: Any, ctx: StepCtx,
                         device) -> Tuple[StackState, torch.Tensor]:
         """Each wrapper's apply in order, the reward starting at zero (over the
-        step's instances: this process's on a mesh spanning processes)."""
+        step's instances: this process's on a mesh spanning processes).
+
+        With ``serialize`` each wrapper after the first gets the context as
+        given (:meth:`StepCtx.released`), so the views that the previous
+        wrapper computed (the float observation, the unpacked or gathered
+        cells, the padded action) are no longer held by the stack while it
+        runs: it computes again what it reads.  The JAX package puts an
+        optimization barrier there for the same end; eager PyTorch runs the
+        wrappers in turn already, and a wrapper's own intermediates die when
+        its apply returns.  The results are the same bits."""
         reward = torch.zeros((ctx.action.shape[0], 1), dtype=torch.float32, device=device)
         new_wstates = []
-        for w, ws in zip(self.wrappers, wstates):
+        for i, (w, ws) in enumerate(zip(self.wrappers, wstates)):
+            if self.serialize and i:
+                ctx = ctx.released()
             ws, reward = w.apply(ws, ctx, reward)
             new_wstates.append(ws)
         return StackState(env=env_state, wrappers=tuple(new_wstates)), reward
@@ -383,8 +407,14 @@ class Motivator:
         return torch.from_numpy(sums.astype(np.float32)).to(self.inner_env.device)[:, None]
 
     def step(self, action: Any):
+        return self._step(action)
+
+    def _step(self, action: Any):
+        """The step on the shell's device, through the inner envs' own
+        ``_step`` (a subclass may change what ``step`` returns: the compat
+        facade's host tensors)."""
         prev_grid = self.inner_env.state.grid
-        obs, reward, done, info = self.env.step(action)
+        obs, reward, done, info = self.env._step(action)
         if self._wdef is not None:
             patch = self.inner_env._coerce_action(action)
             grid = self.inner_env.state.grid

@@ -4,8 +4,9 @@ LZW encoder (``gif_lzw.cpp``).
 
 The package keeps its own copies of both sources and builds each at its
 first use with ``g++ -O3 -fPIC -shared -std=c++17`` into
-``build/carle_tpu_torch_native/`` beside the package, named by a hash of the
-source and the flags, so an edited source is rebuilt and a built one is
+``carle_tpu_torch_native/`` under the build root (builddir.py: the
+checkout's ``build/``, ``$CARLE_TPU_TORCH_BUILD_DIR`` or the user's cache),
+named by a hash of the source and the flags, so an edited source is rebuilt and a built one is
 reused.  A failed build raises with the compiler's output: there is no quiet
 fallback.  ``NATIVE = False`` selects the numpy codec in ``rle.py`` and the
 Python LZW loop in ``utils/gif.py`` on purpose; both write the same bytes.
@@ -23,15 +24,18 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
+
+from ..builddir import build_dir as _build_dir
 
 # False routes rle.py and utils/gif.py to their numpy / Python twins
 NATIVE = True
 
 SRC = Path(__file__).resolve().parent
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "carle_tpu_torch_native"
+# None: builddir.build_dir("carle_tpu_torch_native"), resolved at each build
+BUILD_DIR: Optional[Path] = None
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _LOCK = threading.Lock()
@@ -51,11 +55,17 @@ _SIGNATURES = {
 }
 
 
+def build_dir() -> Path:
+    """The directory the libraries build into: ``BUILD_DIR`` where it is
+    set, else the build root's (builddir.py)."""
+    return BUILD_DIR if BUILD_DIR is not None else _build_dir("carle_tpu_torch_native")
+
+
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives, keyed by its source and the flags."""
     digest = hashlib.sha256((SRC / f"{name}.cpp").read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -69,7 +79,7 @@ def build(name: str) -> Path:
     if cxx is None:
         raise RuntimeError("g++ not found: the native codecs of carle_tpu_torch build "
                            "with a C++17 compiler (or set native.NATIVE = False)")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SRC / f"{name}.cpp")],
                           capture_output=True, text=True)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library of its own with a plain C interface: no PyTorch headers, so
 one source builds in seconds.  The libraries land in
-``build/carle_tpu_torch_kernels/`` beside the package, named by a hash of
-their sources and flags, so an edited source is rebuilt and a built one is
+``carle_tpu_torch_kernels/`` under the build root (builddir.py: the
+checkout's ``build/``, ``$CARLE_TPU_TORCH_BUILD_DIR`` or the user's cache),
+named by a hash of their sources and flags, so an edited source is rebuilt and a built one is
 reused.  :func:`build_all` starts one ``nvcc`` per missing library, all at
 once, and waits for them; the first launch of any kernel calls it.  A kernel
 whose rule is fixed at compile time (``bit_multi_step_static``,
@@ -31,8 +32,11 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
+from ..builddir import build_dir as _build_dir
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "carle_tpu_torch_kernels"
+# None: builddir.build_dir("carle_tpu_torch_kernels"), resolved at each build
+BUILD_DIR: Optional[Path] = None
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -69,6 +73,12 @@ def _nvcc() -> str:
     return path
 
 
+def build_dir() -> Path:
+    """The directory the libraries build into: ``BUILD_DIR`` where it is
+    set, else the build root's (builddir.py)."""
+    return BUILD_DIR if BUILD_DIR is not None else _build_dir("carle_tpu_torch_kernels")
+
+
 def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """Where ``name``'s library lives: keyed by its source, every shared
     header in ``csrc/``, the flags and the ``-D`` defines, so an edited
@@ -78,7 +88,7 @@ def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
         digest.update(part.read_bytes())
     digest.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     tag = "".join(f"-{d.lower().replace('=', '')}" for d in defines)
-    return BUILD_DIR / f"{name}{tag}-{digest.hexdigest()[:12]}.so"
+    return build_dir() / f"{name}{tag}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES,
@@ -88,7 +98,7 @@ def build_all(names: Iterable[str] = SOURCES,
     together.  Raises with the compiler's output when one fails; writes each
     build's ``-Xptxas -v`` report (registers, shared memory, spills) beside
     its library as ``.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name, defines) for name in names}
     jobs = {}
     for name, path in paths.items():

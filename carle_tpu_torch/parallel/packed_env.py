@@ -81,11 +81,12 @@ class PackedSpatialStack(WrapperStack):
     ``transition``, ``reset``, ``observe``), so :class:`Rollout` and the
     trainer compose with it unchanged.  Needs ``width % 32 == 0`` and, with a
     mesh, ``height`` divisible by the slots of its ``axis_name``; with
-    ``env_axis`` (a two-axis mesh) ``instances`` divisible by its groups."""
+    ``env_axis`` (a two-axis mesh) ``instances`` divisible by its groups.
+    ``serialize`` is the base stack's (the same bits)."""
 
     def __init__(self, config: EnvConfig, wrappers: Sequence[WrapperDef] = (),
                  mesh: Optional[Mesh] = None, axis_name: str = "space",
-                 env_axis: Optional[str] = None) -> None:
+                 env_axis: Optional[str] = None, serialize: bool = False) -> None:
         if config.width % WORD:
             raise ValueError(f"packed stack needs width % {WORD} == 0, got {config.width}")
         if env_axis is not None and mesh is None:
@@ -103,7 +104,7 @@ class PackedSpatialStack(WrapperStack):
                 if config.instances % mesh.shape[env_axis]:
                     raise ValueError(f"instances {config.instances} not divisible by the "
                                      f"env axis ({mesh.shape[env_axis]})")
-        super().__init__(config, wrappers)
+        super().__init__(config, wrappers, serialize)
         self.mesh = mesh
         self.axis_name = axis_name
         self.env_axis = env_axis
@@ -210,17 +211,10 @@ class PackedSpatialStack(WrapperStack):
             state = state._replace(env=state.env._replace(grid=prev_packed))
         new_env, action_bits, action_packed = self._ca(state.env, action)
         new_packed = new_env.grid
-        cells = []   # obs_cells once computed, shared by obs (no reference to ctx: no cycle)
-
-        def obs_cells():
-            if not cells:
-                cells.append(self._unpack(new_packed)[:, None])
-            return cells[0]
-
         ctx = StepCtx(
             prev_grid=Lazy(lambda: self._unpack(prev_packed)),
-            obs=Lazy(lambda: obs_cells().to(torch.float32)),
-            obs_cells=Lazy(obs_cells),
+            obs=Lazy(lambda cells: cells.to(torch.float32), "obs_cells"),
+            obs_cells=Lazy(lambda: self._unpack(new_packed)[:, None]),
             action=action_bits,
             action_full=Lazy(lambda: pad_action(action_bits, cfg)),
             action_sum=Lazy(lambda: action.to(torch.float32).sum(dim=(1, 2))[:, None]),

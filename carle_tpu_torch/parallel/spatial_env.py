@@ -149,19 +149,12 @@ def gathered_views(stack: WrapperStack, prev: RowShards, grid: RowShards
     obs_cells, obs): each gathered onto the mesh's home device on its first
     read, obs from the gathered obs_cells; ``stack.gathers`` counts the
     gathers (module note: which wrappers read them)."""
-    cells = []   # obs_cells once gathered, shared by obs (no reference to ctx: no cycle)
-
     def gather(x):
         stack.gathers += 1
         return gather_rows(x)
 
-    def obs_cells():
-        if not cells:
-            cells.append(gather(grid)[:, None])
-        return cells[0]
-
-    return (Lazy(lambda: gather(prev)), Lazy(obs_cells),
-            Lazy(lambda: obs_cells().to(torch.float32)))
+    return (Lazy(lambda: gather(prev)), Lazy(lambda: gather(grid)[:, None]),
+            Lazy(lambda cells: cells.to(torch.float32), "obs_cells"))
 
 
 __all__ = ["gathered_views", "shard_carry_2d", "shard_carry_spatial", "spatial_sharding"]

@@ -26,9 +26,15 @@ functional agent or an ``(Agent, params)`` pair.
   own instances, the learners add the processes' gradients by
   ``all_reduce``, every process reads ``resume_from``, and process 0 alone
   writes checkpoints, metrics, progress and logs.
+* before the first segment a device-memory preflight prices the run's
+  first steps (utils/preflight.py, ``hbm_budget_gib`` / ``--hbm-budget-gib``,
+  ``force_hbm`` / ``--force``); ``serialize`` (``--serialize``) runs the
+  wrappers holding nothing of one another's views.
+
+``train``'s arguments 1-20 are carle_tpu's, in its order.
 
 Run:  python -m carle_tpu_torch.train_mcl [--device cpu] [--packed-state]
-          [--mesh auto|on|off]
+          [--mesh auto|on|off] [--hbm-budget-gib G] [--force] [--serialize]
       torchrun --nproc-per-node 2 -m carle_tpu_torch.train_mcl --mesh on ...
       python -m carle_tpu_torch.parallel.distributed --nprocs 2 \
           carle_tpu_torch.train_mcl:main --mesh on ...
@@ -36,6 +42,7 @@ Run:  python -m carle_tpu_torch.train_mcl [--device cpu] [--packed-state]
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -51,11 +58,13 @@ from .config import EnvConfig
 from .device import DeviceLike, resolve_device
 from .evaluation.eval import _resolve_fused_agent
 from .mcl.ae import ae2d_def
+from .mcl.base import WrapperStack
 from .mcl.rnd import rnd2d_def
 from .parallel import distributed
-from .parallel.mesh import Mesh, env_layout, make_mesh, shard_carry
+from .parallel.mesh import PER_INSTANCE, Mesh, env_layout, make_mesh, shard_carry
 from .parallel.packed_env import PackedSpatialStack
-from .rollout import Rollout
+from .rollout import Rollout, RolloutCarry
+from .utils.preflight import check_hbm_budget
 
 # Life, Move/Morley, Day & Night, B3/S023 (the reference's training rules)
 DEFAULT_RULES: List[List[List[int]]] = [
@@ -65,6 +74,10 @@ DEFAULT_RULES: List[List[List[int]]] = [
     [[3], [0, 2, 3]],
 ]
 WRAPPER_NAMES = ("RND2D", "AE2D")
+# steps the preflight runs on each slice: a segment holds the carry it was
+# given beside the one it steps, and the allocator's blocks settle over its
+# first steps
+PREFLIGHT_STEPS = 8
 
 
 def _find_checkpoint(directory: str, name: str) -> str:
@@ -109,6 +122,26 @@ def resolve_mesh(mesh: Any, instances: int, device: DeviceLike = None) -> Option
     return make_mesh() if count > 1 and instances % count == 0 else None
 
 
+def cut_instances(tree: Any, instances: int, n: int) -> Any:
+    """``tree`` (states of a rollout carry) with the fields its states
+    declare per-instance (``parallel.mesh.PER_INSTANCE``) cut to their first
+    ``n`` of ``instances`` rows; the rest as it is (views, not copies)."""
+    def walk(node: Any, per_instance: bool = False) -> Any:
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            declared = getattr(type(node), PER_INSTANCE, ())
+            return type(node)(*(walk(v, f in declared) for f, v in zip(node._fields, node)))
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(v) for v in node)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if (per_instance and isinstance(node, torch.Tensor) and node.dim()
+                and node.shape[0] == instances):
+            return node[:n]
+        return node
+
+    return walk(tree)
+
+
 def _write_progress(path: str, payload: Dict[str, Any]) -> None:
     """Atomic progress write (tmp + rename): a crash mid-write never leaves a
     torn JSON for a supervisor to trip over."""
@@ -123,6 +156,7 @@ def train(
     instances: int = 16,
     steps: Sequence[int] = (64, 2048),
     rules: Optional[Sequence[Sequence[Sequence[int]]]] = None,
+    mcl: Optional[Sequence[Callable[..., Any]]] = None,
     height: int = 256,
     width: int = 256,
     batch_size: int = 64,
@@ -130,15 +164,28 @@ def train(
     log_dir: str = "./logs/mcl",
     resume_from: Optional[str] = None,
     segment_callback: Optional[Callable[[Dict[str, Any]], None]] = None,
+    mesh: Any = "auto",
     mixed_rules: bool = False,
     skip_segments: int = 0,
     progress_file: Optional[str] = None,
-    device: DeviceLike = None,
+    fused_head: bool = False,
     packed_state: bool = False,
-    mesh: Any = "auto",
+    hbm_budget_gib: Optional[float] = None,
+    force_hbm: bool = False,
+    *,
+    serialize: bool = False,
+    device: DeviceLike = None,
 ) -> np.ndarray:
     """Pre-train the RND2D + AE2D wrapper stack.  ``steps`` is (epochs,
-    steps per ruleset segment).
+    steps per ruleset segment).  Arguments 1-20 are carle_tpu's, in its
+    order (the reference's ``train(agent_fn, instances, steps, rules,
+    mcl)`` first); ``serialize`` and ``device`` are keywords only.
+
+    ``mcl`` is accepted and unused: the stack is RND2D + AE2D, as in the
+    reference and carle_tpu.  ``fused_head`` is accepted and selects
+    nothing: every learned layer of the port runs as its hand-written
+    kernel on the card already (with a mesh of several slots the nets take
+    the mesh, as below).
 
     ``mixed_rules=True`` trains on all rulesets at once instead of cycling
     them: the rulesets are dealt round-robin across the instance batch as a
@@ -169,28 +216,43 @@ def train(
     the whole batch's on every process, and process 0 alone writes files
     and prints.
 
+    Device-memory preflight (utils/preflight.py): before the first segment
+    the carry's bytes and the transient of ``PREFLIGHT_STEPS`` steps on
+    carries of two slices of the instances (the run's wrapper states on new
+    universes) are priced, and a run priced over the budget raises
+    :class:`~.utils.preflight.HBMBudgetError` before it writes anything.
+    ``hbm_budget_gib=None`` is the card's memory less a margin, checked only
+    on the card; an explicit budget checks on any device; ``force_hbm=True``
+    warns and goes on.  Pricing leaves the carry and its generator
+    untouched.  With a mesh the slices step off the mesh, on the home
+    device, and the whole batch is priced there: an upper bound where the
+    slots share one card.
+
+    ``serialize=True`` (the stacks' ``serialize``): no view a wrapper
+    computed of the step is still held when the next wrapper starts; the
+    history is the same bits.
+
     ``agent_fn`` drives the universes: ``None`` is the Bernoulli(0.1) random
     agent; an agent class is built with ``seed``, the four dims and the
     device, and keeps its own parameters (a seeded RandomNetworkAgent's
     identity is its frozen weights).
 
     ``segment_callback`` gets a dict a segment: ``epoch``, ``ruleset``,
-    ``steps_per_second``, ``mean_reward`` and ``carry`` (the rollout carry
-    after it; across processes, this process's parts).
+    ``steps_per_second``, ``mean_reward``, ``carry`` (the rollout carry
+    after it; across processes, this process's parts) and ``preflight``
+    (the price, or None where the preflight did not engage).
 
     Runs on the card unless ``device="cpu"``.  Returns the per-step summed
     reward history (skipped segments excluded), and writes
       {log_dir}/models/RND2D_{exp}.npz, AE2D_{exp}.npz  (full learner states)
       {log_dir}/metrics/mcl_rewards_{exp}.npy
     """
+    del mcl, fused_head   # accepted for carle_tpu's signature (docstring)
     rules = DEFAULT_RULES if rules is None else rules
     config = EnvConfig(height=height, width=width, action_height=64,
                        action_width=64, instances=instances).validate()
     # resolved before the defs: on a mesh of several slots the nets take it
     mesh_obj = resolve_mesh(mesh, instances, device)
-    fused = mesh_obj if mesh_obj is not None and mesh_obj.size > 1 else False
-    wrapper_defs = [rnd2d_def(config, batch_size=batch_size, fused_head=fused),
-                    ae2d_def(config, batch_size=batch_size, fused_head=fused)]
     device = resolve_device(device) if mesh_obj is None else mesh_obj.home
     if agent_fn is None:
         agent, agent_params = make_random_agent(config.eff_action_width,
@@ -198,20 +260,53 @@ def train(
     else:
         agent, agent_params = _resolve_fused_agent(agent_fn, None, None, config, 0.1,
                                                    seed, device)
-    stack = None
-    if packed_state and mesh_obj is None:
-        stack = PackedSpatialStack(config, wrapper_defs)
-    elif packed_state:   # the packed universes as instance shards (shard_carry's layout)
-        layout = env_layout(mesh_obj, mesh_obj.axis_names[0])
-        env_axis, space_axis = layout.axis_names
-        stack = PackedSpatialStack(config, wrapper_defs, layout, space_axis, env_axis)
-    ro = Rollout(config, wrapper_defs, agent, device=device, stack=stack)
+
+    def rollout(cfg: EnvConfig, on: Optional[Mesh]) -> Rollout:
+        """The run's rollout over ``cfg``'s instances, on mesh ``on``."""
+        fused = on if on is not None and on.size > 1 else False
+        defs = [rnd2d_def(cfg, batch_size=batch_size, fused_head=fused),
+                ae2d_def(cfg, batch_size=batch_size, fused_head=fused)]
+        if not packed_state:
+            stack = WrapperStack(cfg, defs, serialize)
+        elif on is None:
+            stack = PackedSpatialStack(cfg, defs, serialize=serialize)
+        else:   # the packed universes as instance shards (shard_carry's layout)
+            layout = env_layout(on, on.axis_names[0])
+            env_axis, space_axis = layout.axis_names
+            stack = PackedSpatialStack(cfg, defs, layout, space_axis, env_axis,
+                                       serialize=serialize)
+        return Rollout(cfg, defs, agent, device=device, stack=stack)
+
+    ro = rollout(config, mesh_obj)
     carry = ro.init(ro.generator(seed), rules_mod.LIFE, agent_params=agent_params)
 
     if resume_from:
         wstates = tuple(load_pytree(_find_checkpoint(resume_from, name), ws)
                         for name, ws in zip(WRAPPER_NAMES, carry.stack.wrappers))
         carry = carry._replace(stack=carry.stack._replace(wrappers=wstates))
+
+    def probe(cut_carry: RolloutCarry) -> Any:
+        """The run's first steps on a carry of fewer instances, off the mesh."""
+        n = int(cut_carry.stack.env.grid.shape[0])
+        return rollout(dataclasses.replace(config, instances=n), None).run(
+            cut_carry, PREFLIGHT_STEPS)
+
+    def cut(args: Any, n: int) -> Any:
+        """A carry of ``n`` instances off the mesh: the run's wrapper states
+        (their per-instance fields cut) on a new universe of its own."""
+        small = rollout(dataclasses.replace(config, instances=n), None)
+        fresh = small.init(small.generator(seed), rules_mod.LIFE,
+                           agent_params=args[0].agent_params)
+        wrappers = cut_instances(args[0].stack.wrappers, instances, n)
+        return (fresh._replace(stack=fresh.stack._replace(wrappers=wrappers)),)
+
+    mem = check_hbm_budget(probe, carry, budget_gib=hbm_budget_gib, force=force_hbm,
+                           label=f"train step (inst={instances}, {height}x{width})",
+                           cut=cut, instances=instances)
+    if mem is not None and distributed.process_index() == 0:
+        print(f"device-memory preflight: {mem['peak_estimate_gib']:.6g} GiB priced "
+              f"(transient {mem['temp_size_in_bytes'] / 2**30:.6g} GiB"
+              f"{'' if mem['temp_measured'] else ', not measured here'})", flush=True)
     if mesh_obj is not None:
         carry = shard_carry(carry, mesh_obj, config, mesh_obj.axis_names[0])
 
@@ -242,7 +337,7 @@ def train(
             if seg_index <= skip_segments:
                 continue
             carry = ro.with_rules(carry, bits)
-            carry, _ = ro.reset(carry)
+            carry = ro.reset(carry)[0]   # the float observation dropped: [inst, 1, H, W]
 
             t1 = time.time()
             carry, seg_rewards = ro.run(carry, steps_per_rule)
@@ -269,7 +364,7 @@ def train(
             if segment_callback:
                 segment_callback(dict(epoch=epoch, ruleset=ruleset,
                                       steps_per_second=steps_per_second,
-                                      mean_reward=mean_reward, carry=carry))
+                                      mean_reward=mean_reward, carry=carry, preflight=mem))
 
         if rewards_hist and writer:
             np.save(os.path.join(metric_dir, f"mcl_rewards_{exp_id}.npy"),
@@ -313,6 +408,19 @@ def main(argv=None) -> None:
                              "or every process's slots under torchrun or the launcher "
                              "(auto: when there is more than one and the instances "
                              "divide by their number)")
+    parser.add_argument("--fused-head", action="store_true",
+                        help="accepted for carle_tpu's command line: every learned layer "
+                             "runs as its hand-written kernel already")
+    parser.add_argument("--hbm-budget-gib", type=float, default=None,
+                        help="device-memory budget of the preflight (default: the card's "
+                             "memory less a margin, no check off the card); a run priced "
+                             "over it refuses to start")
+    parser.add_argument("--force", action="store_true",
+                        help="start even if the preflight prices the run over the budget "
+                             "(warns instead of raising)")
+    parser.add_argument("--serialize", action="store_true",
+                        help="hold no view of the step that one wrapper computed while "
+                             "the next runs (the same rewards)")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     # under torchrun: join the group from its variables (the launcher has joined)
@@ -330,12 +438,16 @@ def main(argv=None) -> None:
         seed=args.seed,
         log_dir=args.log_dir,
         resume_from=args.resume_from,
+        mesh={"auto": "auto", "on": True, "off": False}[args.mesh],
         mixed_rules=args.mixed_rules,
         skip_segments=args.skip_segments,
         progress_file=args.progress_file,
-        device=args.device,
+        fused_head=args.fused_head,
         packed_state=args.packed_state,
-        mesh={"auto": "auto", "on": True, "off": False}[args.mesh],
+        hbm_budget_gib=args.hbm_budget_gib,
+        force_hbm=args.force,
+        serialize=args.serialize,
+        device=args.device,
     )
     if distributed.process_index() == 0:
         print(json.dumps({"total_reward": float(history.sum()),

@@ -269,12 +269,27 @@ Phases, in order; any failure exits non-zero without the final line:
            not fire, on both fires; the wall ms a step of (a)-(c) against the
            one controller, the ghost bytes and exchanges, the collectives and
            the host-staging ms a step, each child's peak memory;
+9e. surfaces the outer surface (ROADMAP Queue 1 item 9): (a) the compat
+           facade installed for the card drives the reference's stack
+           PufferDetector(SpeedDetector(AE2D(RND2D(CARLE())))) (one 256²
+           universe, the 64 x 64 action: a glider, then random toggles;
+           dropout off, SURFACE_STEPS steps, 4 Adam updates a learner) held
+           against the facade on the CPU from the same weights: observations
+           bit for bit, rewards SURFACE_REWARD_RTOL; host tensors returned;
+           the facade uninstalled after; (b) the device-memory preflight's
+           price of train at 64 and 1024 universes of 256² against the peak
+           torch.cuda.max_memory_allocated after the first segment, a micro
+           budget refused before any segment, force_hbm completing; (c)
+           serialize: train-64's history with and without it bit for bit,
+           the peaks at 1024 both ways; (d) utils.profiling.trace over a few
+           training steps: the trace names ca_step_words and an encoder
+           kernel;
 10. profile 64 steps of the batched battery and 64 training steps, uint8 and
            packed carry, under torch.profiler: device time a step by kernel,
            the device's busy share and the peak device memory;
 11. report a {"kernels": [...]} line with each kernel's launches on the main
            paths (battery, submission, server, io, policy, train, routes, wrappers, packed,
-           bands, engines, spatial, spatial_2d, env_mesh and multiprocess, each
+           bands, engines, spatial, spatial_2d, env_mesh, multiprocess and surfaces, each
            counted from zero just before it (multiprocess: in each child, added up);
            the rows of the
            mask and the row weights count their kernel's launches on the
@@ -516,6 +531,9 @@ PATH_KERNELS = {
     # burst, (c) the packed halo step and the encoder on row shards
     "multiprocess": ("spatial_ca_step_words", "spatial_multi_step_bits", "bit_spatial_words",
                      "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd"),
+    # the compat facade's reference stack on one 256² universe: rows 1, 3a,
+    # 3b, 4a and 4b
+    "surfaces": ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd"),
 }
 # the generic encoder and decoder-loss kernels, which no main path may
 # launch: every encoder and decoder of the package has one of the
@@ -2288,7 +2306,7 @@ def philox_draw_ops(cuda_build):
     philox.cuh for sm_90a (PHILOX_PROBE): {"fma", "alu", "issue", "ops",
     "opcodes"}; "ops" is the largest of the FMA pipe's, the ALU pipe's and
     half the issued instructions, in INT32_OPS lanes."""
-    work = cuda_build.BUILD_DIR.parent / "philox_probe"
+    work = cuda_build.build_dir().parent / "philox_probe"
     work.mkdir(parents=True, exist_ok=True)
     (work / "philox_probe.cu").write_text(PHILOX_PROBE)
     nvcc = cuda_build._nvcc()
@@ -4878,6 +4896,178 @@ def phase_multiprocess(torch, cuda_build):
     return counts, out
 
 
+SURFACE_STEPS = 256          # the facade's steps, card and CPU: 4 Adam updates a learner
+SURFACE_REWARD_RTOL = 2e-3   # card against CPU through Adam updates (as train_parity)
+SURFACE_REWARD_ATOL = 1e-5
+SURFACE_SIZES = (64, 1024)   # the preflight's universes of 256²
+SURFACE_PRICE_ERROR = 0.1    # the price against the measured peak, either way
+SURFACE_TRAIN_STEPS = 64     # a segment: one Adam update a learner
+SURFACE_TRACE_STEPS = 4
+
+
+def _facade_run(torch, compat, device, weights=None):
+    """The reference's stack through the facade installed for ``device``
+    (None: the card): (observations, rewards, updates, ms a step, the shells'
+    states).  ``weights`` are the learners' states to start from."""
+    import numpy as np
+
+    from carle_tpu_torch.parallel.mesh import tree_map_leaves
+
+    compat.install(device=device)
+    from carle.env import CARLE
+    from carle.mcl import AE2D, RND2D, PufferDetector, SpeedDetector, get_glider
+
+    rnd = RND2D(CARLE(), dropout=False, seed=1)
+    ae = AE2D(rnd, dropout=False, seed=2)
+    env = PufferDetector(SpeedDetector(ae))
+    if weights is not None:
+        for shell, state in zip((rnd, ae), weights):
+            shell._wstate = tree_map_leaves(
+                lambda t: t.to(rnd.inner_env.device) if torch.is_tensor(t) else t, state)
+    states = [tree_map_leaves(lambda t: t.clone() if torch.is_tensor(t) else t, s._wstate)
+              for s in (rnd, ae)]
+    rng = np.random.RandomState(24)
+    acts = [get_glider().numpy()] + [(rng.rand(1, 1, 64, 64) < 0.02).astype(np.float32)
+                                     for _ in range(SURFACE_STEPS - 1)]
+    first = env.reset()
+    obs, rewards = [], []
+    t0 = time.perf_counter()
+    for a in acts:
+        o, r, d, _ = env.step(torch.from_numpy(a))
+        obs.append(o)
+        rewards.append(r)
+    ms = (time.perf_counter() - t0) * 1e3 / SURFACE_STEPS
+    check(all(t.device.type == "cpu" for t in (first, o, r, d)),
+          "the facade returned tensors off the host")
+    return (torch.stack(obs), torch.stack(rewards), [rnd.updates, ae.updates], ms, states,
+            rnd.inner_env.device.type)
+
+
+def _priced_train(torch, train_mcl, n, log_dir, **kw):
+    """train at ``n`` universes of 256², one segment: (history, the price,
+    the peak allocated above what was allocated before, after the segment)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    seen = []
+
+    def after_segment(info):
+        torch.cuda.synchronize()
+        seen.append((info["preflight"], torch.cuda.max_memory_allocated() - before))
+
+    hist = train_mcl.train(instances=n, steps=(1, SURFACE_TRAIN_STEPS), rules=[[[3], [2, 3]]],
+                           batch_size=64, seed=0, log_dir=log_dir, mesh=False,
+                           segment_callback=after_segment, device="cuda", **kw)
+    price, peak = seen[0]
+    return hist, price, peak
+
+
+def phase_surfaces(torch, cuda_build):
+    """ROADMAP Queue 1 item 9 on the card (docstring, 9e)."""
+    import numpy as np
+
+    import carle_tpu_torch.compat as compat
+    from carle_tpu_torch import train_mcl
+    from carle_tpu_torch.utils.preflight import GIB, HBMBudgetError
+    from carle_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    out = {}
+    # (a) the facade: the CPU first, whose initial weights the card's shells take
+    try:
+        cpu_obs, cpu_rew, cpu_updates, cpu_ms, weights, _ = _facade_run(torch, compat, "cpu")
+        cuda_build.reset_launch_counts()
+        obs, rew, updates, ms, _, where = _facade_run(torch, compat, None, weights)
+        counts = cuda_build.launch_counts()
+    finally:
+        compat.uninstall()
+    check("carle" not in sys.modules, "the facade is still installed")
+    check(where == "cuda", f"the facade installed with no device ran on {where}")
+    check(updates == cpu_updates == [SURFACE_STEPS // 64] * 2,
+          f"updates {updates} on the card, {cpu_updates} on the CPU")
+    check(torch.equal(obs, cpu_obs), "facade observations differ, card against CPU")
+    torch.testing.assert_close(rew, cpu_rew, rtol=SURFACE_REWARD_RTOL, atol=SURFACE_REWARD_ATOL)
+    rel = float(((rew - cpu_rew).abs() / cpu_rew.abs().clamp_min(1e-30)).max())
+    launched = {k: v for k, v in counts.items() if v}
+    out["facade"] = {"steps": SURFACE_STEPS, "ms_per_step": ms, "cpu_ms_per_step": cpu_ms,
+                     "reward_max_rel_diff": rel, "mean_reward": float(rew.mean()),
+                     "alive_cells_last": float(obs[-1].sum()), "updates": updates,
+                     "launches": launched}
+    log(f"surfaces (a) facade: {json.dumps(out['facade'])}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the preflight's price against the measured peak, and (c) serialize
+        priced = {}
+        for n in SURFACE_SIZES:
+            for serialize in (False, True):
+                hist, price, peak = _priced_train(torch, train_mcl, n,
+                                                  os.path.join(tmp, f"p{n}{serialize}"),
+                                                  serialize=serialize)
+                check(hist.shape == (SURFACE_TRAIN_STEPS,) and np.isfinite(hist).all(),
+                      f"train at {n} universes")
+                check(price is not None and price["temp_measured"], "the preflight on the card")
+                priced[n, serialize] = (hist, price, peak)
+        out["preflight"] = {
+            str(n): {"peak_estimate_gib": priced[n, False][1]["peak_estimate_gib"],
+                     "argument_gib": priced[n, False][1]["argument_size_in_bytes"] / GIB,
+                     "temp_gib": priced[n, False][1]["temp_size_in_bytes"] / GIB,
+                     "workspace_gib": priced[n, False][1]["workspace_size_in_bytes"] / GIB,
+                     "slices_gib": {str(k): v / GIB
+                                    for k, v in priced[n, False][1]["slices"].items()},
+                     "budget_gib": priced[n, False][1]["budget_gib"],
+                     "measured_peak_gib": priced[n, False][2] / GIB,
+                     "error": priced[n, False][1]["peak_estimate_gib"]
+                     / (priced[n, False][2] / GIB) - 1}
+            for n in SURFACE_SIZES}
+        log(f"surfaces (b) preflight: {json.dumps(out['preflight'])}")
+        for n in SURFACE_SIZES:
+            err = out["preflight"][str(n)]["error"]
+            check(abs(err) < SURFACE_PRICE_ERROR, f"the preflight's price at {n} universes "
+                  f"is off by {err:+.4f} of the measured peak")
+        small = SURFACE_SIZES[0]
+        refused = False
+        try:
+            train_mcl.train(instances=small, steps=(1, 8), rules=[[[3], [2, 3]]],
+                            log_dir=os.path.join(tmp, "micro"), mesh=False,
+                            hbm_budget_gib=1e-3, device="cuda")
+        except HBMBudgetError:
+            refused = True
+        check(refused and not os.path.exists(os.path.join(tmp, "micro", "models")),
+              "a micro budget was not refused before the first segment")
+        forced = train_mcl.train(instances=small, steps=(1, 8), rules=[[[3], [2, 3]]],
+                                 log_dir=os.path.join(tmp, "forced"), mesh=False,
+                                 hbm_budget_gib=1e-3, force_hbm=True, device="cuda")
+        check(forced.shape == (8,) and np.isfinite(forced).all(), "forced run")
+        out["preflight"]["micro_budget_refused"] = refused
+        log(f"surfaces (b) micro budget refused before any segment: {refused}; forced "
+            f"run completed")
+        check(np.array_equal(priced[small, True][0], priced[small, False][0]),
+              "train-64's history with serialize differs from without")
+        out["serialize"] = {
+            "bit_for_bit": {str(n): bool(np.array_equal(priced[n, True][0], priced[n, False][0]))
+                            for n in SURFACE_SIZES},
+            "peak_gib": {str(n): {"default": priced[n, False][2] / GIB,
+                                  "serialize": priced[n, True][2] / GIB}
+                         for n in SURFACE_SIZES}}
+        log(f"surfaces (c) serialize: {json.dumps(out['serialize'])}")
+
+        # (d) the trace of a few training steps
+        where = os.path.join(tmp, "trace")
+        with trace(where):
+            train_mcl.train(instances=small, steps=(1, SURFACE_TRACE_STEPS),
+                            rules=[[[3], [2, 3]]], log_dir=os.path.join(tmp, "traced"),
+                            mesh=False, device="cuda")
+        with open(os.path.join(where, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+        check(any("ca_step_words" in k for k in names), "no ca_step_words kernel in the trace")
+        check(any("enc3_" in k for k in names), "no encoder kernel in the trace")
+        out["trace"] = {"kernel_names": len(names), "events": len(events),
+                        "names": [k[:48] for k in names if "enc3_" in k or "ca_step" in k
+                                  or "ae2d" in k]}
+        log(f"surfaces (d) trace: {json.dumps(out['trace'])}")
+    return counts, out
+
+
 def shipped_states(torch):
     """The shipped learner states on the card, keyed by wrapper name."""
     from carle_tpu_torch.checkpoint import learner_state_from_numpy, read_npz
@@ -6524,6 +6714,7 @@ def main() -> int:
         spatial_2d_counts, spatial_2d = timed("spatial_2d", phase_spatial_2d, torch, cuda_build)
         env_mesh_counts, env_mesh = timed("env_mesh", phase_env_mesh, torch, cuda_build)
         mp_counts, multiprocess = timed("multiprocess", phase_multiprocess, torch, cuda_build)
+        surfaces_counts, surfaces = timed("surfaces", phase_surfaces, torch, cuda_build)
         profile = timed("profile", phase_profile, torch)
         log(f"profile: {json.dumps(profile)}")
         profile_train = timed("profile_train", phase_profile_train, torch)
@@ -6542,7 +6733,7 @@ def main() -> int:
                    "bands": bands_counts, "engines": engines_counts,
                    "spatial": spatial_counts, "spatial_2d": spatial_2d_counts,
                    "env_mesh": env_mesh_counts, "policy": policy_counts,
-                   "multiprocess": mp_counts}
+                   "multiprocess": mp_counts, "surfaces": surfaces_counts}
     missing = [f"{path}:{k}" for path, needed in PATH_KERNELS.items()
                for k in needed if path_counts[path][k] == 0]
     if missing:
@@ -6581,6 +6772,7 @@ def main() -> int:
         "kernel_details": {k: results[k] for k in rows},
         "bands_kernels": results["bands_kernels"], "bands": bands, "spatial": spatial,
         "spatial_2d": spatial_2d, "env_mesh": env_mesh, "multiprocess": multiprocess,
+        "surfaces": surfaces,
         "head_tiles": results["head_tiles"], "spatial_heads": results["spatial_heads"],
         "launches": path_counts,
         "e2e": e2e, "submission": submission, "server": server, "io": io, "policy": policy,
@@ -6607,6 +6799,7 @@ def main() -> int:
     log(json.dumps({"env_mesh": {k: v for k, v in env_mesh.items() if k != "profiles"}}))
     log(json.dumps({"multiprocess": {k: v for k, v in multiprocess.items()
                                      if k not in ("children", "one_controller")}}))
+    log(json.dumps({"surfaces": surfaces}))
     log(json.dumps({"spatial": {k: v for k, v in spatial.items() if not k.startswith("profile")},
                     "spatial_kernels": {k: results[k] for k in SPATIAL_ROWS},
                     "spatial_heads": {k: {m: v for m, v in r.items() if m != "ties_drop"}

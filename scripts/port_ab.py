@@ -854,8 +854,8 @@ def decoder_gx(torch) -> dict:
     from carle_tpu_torch.parallel import band_heads as bh
 
     probe = Path(__file__).resolve().with_name("dec2_gx_probe.cu")
-    lib_path = cuda_build.BUILD_DIR / "dec2_gx_probe.so"
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = cuda_build.build_dir() / "dec2_gx_probe.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC), "-o",
                     str(lib_path), str(probe)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
@@ -1041,7 +1041,7 @@ def _head2_fwd_variants(cuda_build, cs, variants):
     import subprocess
 
     text = (cuda_build.CSRC / "head2_fwd.cu").read_text()
-    out = cuda_build.BUILD_DIR / "head2_fwd_variants"
+    out = cuda_build.build_dir() / "head2_fwd_variants"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for copies, blocks in variants:

@@ -1218,6 +1218,78 @@ def test_loss_tail2_bwd_matches_generic(cuda, geom, drop_p):
     torch.cuda.synchronize()
 
 
+def _facade_stack(device, steps, weights=None):
+    """The reference's stack through the compat facade installed for
+    ``device`` (None: the card), dropout off, batch 16: (observations,
+    rewards, the learners' initial states)."""
+    import carle_tpu_torch.compat as compat
+    from carle_tpu_torch.parallel.mesh import tree_map_leaves
+
+    compat.install(device=device)
+    try:
+        from carle.env import CARLE
+        from carle.mcl import AE2D, RND2D, PufferDetector, SpeedDetector, get_glider
+
+        rnd = RND2D(CARLE(), dropout=False, batch_size=16, seed=1)
+        ae = AE2D(rnd, dropout=False, batch_size=16, seed=2)
+        env = PufferDetector(SpeedDetector(ae))
+        if weights is not None:
+            for shell, state in zip((rnd, ae), weights):
+                shell._wstate = tree_map_leaves(
+                    lambda t: t.to(rnd.inner_env.device) if torch.is_tensor(t) else t, state)
+        states = [s._wstate for s in (rnd, ae)]
+        rng = np.random.RandomState(3)
+        acts = [get_glider()] + [torch.from_numpy((rng.rand(1, 1, 64, 64) < 0.02)
+                                                  .astype(np.float32)) for _ in range(steps - 1)]
+        env.reset()
+        obs, rewards = zip(*[env.step(a)[:2] for a in acts])
+        assert rnd.updates == ae.updates == steps // 16
+        return torch.stack(obs), torch.stack(rewards), states
+    finally:
+        compat.uninstall()
+
+
+@pytest.mark.cuda
+def test_compat_facade_on_the_card_matches_the_cpu(cuda):
+    """The facade's reference stack on the card (rows 1, 3a, 3b, 4a, 4b)
+    against the facade on the CPU from the same weights, through 4 Adam
+    updates: observations bit for bit, rewards rtol 2e-3 (Adam divides by
+    the gradient's own scale)."""
+    cpu_obs, cpu_rew, weights = _facade_stack("cpu", 64)
+    cuda_build.reset_launch_counts()
+    obs, rew, _ = _facade_stack(None, 64, weights)
+    counts = cuda_build.launch_counts()
+    assert obs.device.type == rew.device.type == "cpu"
+    assert torch.equal(obs, cpu_obs)
+    torch.testing.assert_close(rew, cpu_rew, rtol=2e-3, atol=1e-5)
+    for name in ("ca_step_words", "enc3_fwd", "enc3_bwd", "ae2d_fwd", "ae2d_bwd"):
+        assert counts[name] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("instances", [64, 512])
+def test_preflight_price_within_a_factor_of_the_measured_peak(cuda, tmp_path, instances):
+    """train's price (arguments, the transient from two slices, the
+    workspace a first run leaves) lies within 10% of the peak allocated over
+    the first segment."""
+    from carle_tpu_torch import train_mcl
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    seen = []
+
+    def after(info):
+        torch.cuda.synchronize()
+        seen.append((info["preflight"], torch.cuda.max_memory_allocated() - before))
+
+    train_mcl.train(instances=instances, steps=(1, 64), rules=[[[3], [2, 3]]],
+                    log_dir=str(tmp_path), mesh=False, segment_callback=after, device="cuda")
+    price, peak = seen[0]
+    assert price["temp_measured"] and price["budget_gib"] > 1
+    assert abs(price["peak_estimate_gib"] * 2 ** 30 / peak - 1) < 0.1, (price, peak)
+
+
 def test_launch_table_covers_every_source():
     assert {k.source for k in cuda_build.KERNELS.values()} == set(cuda_build.SOURCES)
     for name in cuda_build.SOURCES:
